@@ -1,22 +1,17 @@
-"""Config system: python-file configs, ``_base_`` includes, dotted overrides.
+"""Config system: python-file configs with ``_base_`` includes.
 
-The port's own copy of ``attentionshift_tpu/config`` (the port imports
-nothing from the JAX package): it reads the same ``configs/*.py`` files.
-
-Mirrors the reference's config surface (SURVEY.md section 5): mmcv
-``Config.fromfile`` with ``_base_`` inheritance and ``--cfg-options``
-dotted-path CLI overrides (`tools/train.py:57-66,91-93`), minus the
-global registries — components are constructed explicitly from the
-resulting dict tree.
+The port's own copy of the loader of ``attentionshift_tpu/config`` (the
+port imports nothing from the JAX package): it reads the same
+``configs/*.py`` files. Mirrors mmcv ``Config.fromfile`` with ``_base_``
+inheritance, minus the global registries — components are constructed
+explicitly from the resulting dict tree.
 """
 
 from __future__ import annotations
 
-import ast
 import copy
 import os
 import runpy
-from typing import Any
 
 __all__ = ["Config"]
 
@@ -33,13 +28,6 @@ def _deep_merge(base: dict, override: dict) -> dict:
         else:
             out[k] = copy.deepcopy(v)
     return out
-
-
-def _parse_value(text: str) -> Any:
-    try:
-        return ast.literal_eval(text)
-    except (ValueError, SyntaxError):
-        return text
 
 
 class Config(dict):
@@ -68,27 +56,6 @@ class Config(dict):
             if not k.startswith("_") and not callable(v) and not isinstance(v, type(os))
         }
         return cls(_deep_merge(cfg, own))
-
-    def merge_from_options(self, options: dict[str, Any] | list[str]) -> "Config":
-        """Apply ``a.b.c=value`` overrides (mmcv --cfg-options)."""
-        if isinstance(options, list):
-            parsed = {}
-            for item in options:
-                k, _, v = item.partition("=")
-                parsed[k] = _parse_value(v)
-            options = parsed
-        out = Config(copy.deepcopy(dict(self)))
-        for dotted, value in options.items():
-            node = out
-            keys = dotted.split(".")
-            for k in keys[:-1]:
-                nxt = node.get(k)
-                if not isinstance(nxt, dict):
-                    nxt = {}
-                    node[k] = nxt
-                node = nxt
-            node[keys[-1]] = value
-        return out
 
     def to_dict(self) -> dict:
         def conv(v):

@@ -65,27 +65,34 @@ def _run_min(vals: torch.Tensor, blocked: torch.Tensor, dim: int) -> torch.Tenso
     return vals
 
 
-def connected_components(masks: torch.Tensor, max_iters: int = 256) -> torch.Tensor:
+def connected_components(masks: torch.Tensor, max_iters: int = 256,
+                         return_sweeps: bool = False):
     """Plain version: (M, H, W) bool -> (M, H, W) int32 labels.
 
     All planes sweep together; a converged plane is a fixpoint, so each
-    plane gets what it would get alone. One host check per sweep.
+    plane gets what it would get alone. One host check per sweep. With
+    ``return_sweeps`` also returns the (M,) sweeps each plane ran, the
+    one that found it unchanged included (the kernel's per-plane work).
     """
     m, h, w = masks.shape
     fg = masks.bool()
     blocked = ~fg
     idx = torch.arange(h * w, dtype=torch.int64, device=masks.device).reshape(1, h, w)
     labels = torch.where(fg, idx, _BIG)
+    active = torch.ones(m, dtype=torch.bool, device=masks.device)
+    sweeps = torch.zeros(m, dtype=torch.int32, device=masks.device)
     for _ in range(max_iters):
         new = torch.where(fg, torch.minimum(labels, _neighbor_min(labels)), _BIG)
         new = _run_min(new, blocked, 1)
         new = _run_min(new, blocked, 2)
         new = torch.where(fg, new, _BIG)
-        changed = bool((new != labels).any())
+        sweeps += active
+        active = (new != labels).flatten(1).any(1)
         labels = new
-        if not changed:
+        if not bool(active.any()):
             break
-    return torch.where(fg, labels + 1, 0).to(torch.int32)
+    out = torch.where(fg, labels + 1, 0).to(torch.int32)
+    return (out, sweeps) if return_sweeps else out
 
 
 def connected_components_batch(masks: torch.Tensor, max_iters: int = 256) -> torch.Tensor:

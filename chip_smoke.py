@@ -113,6 +113,15 @@ def expect(name: str, err: float, tol: float, why: str) -> None:
         raise AssertionError(f"{name}: max_abs_err {err} > {tol}")
 
 
+def bf16_ulps(ref, n: int) -> float:
+    """``n`` units in the last place of bf16 (8 significant bits) at the
+    largest |ref|."""
+    import math
+
+    top = max(float(ref.float().abs().max()), 1e-30)
+    return n * 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
 def blob_masks(m: int, h: int, w: int, gen, device):
     """(m, h, w) bool blob masks: blurred noise thresholded per plane; the
     last quarter of the planes empty, as padded instances are."""
@@ -160,8 +169,16 @@ def phase_kernels(results: dict, inp: dict):
     sync()
     e_out = max_err(out, ref_out)
     e_mean = max_err(mean, ref_mean)
-    expect("attention_capture.out", e_out, 2e-2,
-           "bf16 output and bf16 probabilities in the PV product, |out| < 2")
+    out_tol = bf16_ulps(ref_out, 4)
+    why_out = "4 bf16 ulps of the largest |out|: bf16 output and bf16 probabilities in PV"
+    expect("attention_capture.out", e_out, out_tol, why_out)
+    # control: the same check against a plain version that ignores the gap
+    # must fail, or it could not tell a kernel that drops the gap mask
+    e_nogap = max_err(out, attention.attention_reference(q, k, v, None)[0])
+    log(f"[check] attention.out control (plain version without the gap): max_abs_err "
+        f"{e_nogap:.3e} must exceed {out_tol:.1e}: {'ok' if e_nogap > out_tol else 'FAIL'}")
+    if not e_nogap > out_tol:
+        raise AssertionError(f"attention.out check cannot see the pad gap: {e_nogap} <= {out_tol}")
     expect("attention_capture.mean", e_mean, 2e-3 * float(ref_mean.float().abs().max()),
            "bf16 storage of the mean: 2^-9 relative, times the largest entry")
     gap = mean[:, :, PAD_GAP[0]:PAD_GAP[1]].float().abs().max().item()
@@ -171,7 +188,7 @@ def phase_kernels(results: dict, inp: dict):
     out2 = attention.attention_no_capture(q, k, v, PAD_GAP)
     sync()
     e2 = max_err(out2, ref_out)
-    expect("attention_plain.out", e2, 2e-2, "as attention_capture.out")
+    expect("attention_plain.out", e2, out_tol, why_out)
     results["attention_plain"] = dict(max_abs_err=e2)
 
     masks = inp["masks"]
@@ -184,12 +201,13 @@ def phase_kernels(results: dict, inp: dict):
 
     prot0, mask, f = inp["prot0"], inp["mask"], inp["f"]
     errs = []
+    refs = {}
     for mm, tol, why in (
         (None, 1e-4, "f32: summation order only"),
-        (torch.bfloat16, 1e-2, "bf16 dot operands: an f32 last-bit difference can move a bf16 "
-                               "rounding of a weight or prototype by 2^-8, compounding over 10 steps"),
+        (torch.bfloat16, 2e-3, "bf16 dot operands: an f32 last-bit difference can move a bf16 "
+                               "rounding of a weight or prototype by 2^-8"),
     ):
-        ref_p, ref_s = meanshift_kernel.cosine_shift_batch(
+        ref_p, ref_s = refs[mm] = meanshift_kernel.cosine_shift_batch(
             prot0, f[None] * mask[..., None], f, n_shift=10, matmul_dtype=mm)
         got_p, got_s = meanshift_kernel.cosine_shift_fixpoint(prot0, mask, f, n_shift=10,
                                                               matmul_dtype=mm)
@@ -201,6 +219,19 @@ def phase_kernels(results: dict, inp: dict):
                ep_abs / max(float(ref_p.abs().max()), 1e-6), tol, why)
         expect(f"meanshift_fixpoint.{tag}.sim", es, tol, why)
         errs.append(max(ep_abs, es))
+    # controls: the bf16 kernel against plain versions that differ from it
+    # (f32 operands; a softmax temperature 10 % off) must fail the bf16 check
+    refs["temp"] = meanshift_kernel.cosine_shift_batch(
+        prot0, f[None] * mask[..., None], f, temp=0.11, n_shift=10, matmul_dtype=torch.bfloat16)
+    for name, key in (("f32 operands", None), ("temp 0.11", "temp")):
+        ref_p, ref_s = refs[key]
+        ctl_p = max_err(got_p, ref_p) / max(float(ref_p.abs().max()), 1e-6)
+        ctl_s = max_err(got_s, ref_s)
+        fails = max(ctl_p, ctl_s) > tol
+        log(f"[check] meanshift bf16 control (plain version with {name}): prototypes(rel) "
+            f"{ctl_p:.3e}, sim {ctl_s:.3e}, one must exceed {tol:.1e}: {'ok' if fails else 'FAIL'}")
+        if not fails:
+            raise AssertionError(f"meanshift bf16 check cannot see {name}: {ctl_p}, {ctl_s}")
     # the main path's mode (bf16 dot operands)
     results["meanshift_fixpoint"] = dict(max_abs_err=errs[-1])
 
@@ -316,27 +347,6 @@ def phase_main_path(dev):
     return model, inp, gen, launches
 
 
-def ccl_sweeps(masks, max_iters: int = 64):
-    """Sweeps each plane runs to its fixpoint (the data-dependent CCL
-    work): the plain version's sweep, counted per plane."""
-    import torch
-
-    from attentionshift_torch.ops.ccl import _BIG, _neighbor_min, _run_min
-
-    m, h, w = masks.shape
-    fg = masks.bool()
-    idx = torch.arange(h * w, device=masks.device).reshape(1, h, w)
-    labels = torch.where(fg, idx, _BIG)
-    runs = torch.full((m,), max_iters, device=masks.device)
-    for it in range(1, max_iters + 1):
-        new = torch.where(fg, torch.minimum(labels, _neighbor_min(labels)), _BIG)
-        new = torch.where(fg, _run_min(_run_min(new, ~fg, 1), ~fg, 2), _BIG)
-        still = (new == labels).flatten(1).all(1) & (runs == max_iters)
-        runs = torch.where(still, it, runs)
-        labels = new
-    return runs.tolist()
-
-
 def phase_times(results: dict, inp: dict, model, slice_inp, gen):
     """CUDA-event times of every kernel, its plain version and the library
     call; bounds from the bytes and operations of these inputs."""
@@ -364,7 +374,8 @@ def phase_times(results: dict, inp: dict, model, slice_inp, gen):
             bytes=qkv_bytes + q.numel() * 2, ops=attn_flops, peak=PEAK_BF16),
     }
     masks = inp["masks"]
-    sweeps = ccl_sweeps(masks)
+    # the sweeps each plane runs to its fixpoint: the data-dependent work
+    sweeps = ccl.connected_components(masks, 64, return_sweeps=True)[1].tolist()
     cells = masks.shape[1] * masks.shape[2]
     # per sweep and cell: 9-cell minimum + 2 run scans x 2 directions (int32)
     times["ccl_batch"] = dict(

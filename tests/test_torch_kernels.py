@@ -91,6 +91,23 @@ def test_ccl_matches_pallas_kernel(max_iters):
             assert len(np.unique(got[i].numpy())) - 1 == n_ref
 
 
+def test_ccl_sweep_counts():
+    """``return_sweeps`` counts, per plane, the sweeps to its fixpoint plus
+    the one that finds it unchanged: one sweep fewer already gives the
+    plane's labels, two fewer do not; a plane cut at the cap counts it."""
+    masks = torch.from_numpy(ccl_planes(6, 50, 84))
+    labels, sweeps = ccl.connected_components(masks, 64, return_sweeps=True)
+    assert torch.equal(labels, ccl.connected_components(masks, 64))
+    assert sweeps[-1] == 1  # the empty plane
+    for i, s in enumerate(sweeps.tolist()):
+        plane = masks[i:i + 1]
+        assert torch.equal(ccl.connected_components(plane, s - 1), labels[i:i + 1])
+        if s >= 2:
+            assert not torch.equal(ccl.connected_components(plane, s - 2), labels[i:i + 1])
+    capped = ccl.connected_components(masks, 2, return_sweeps=True)[1]
+    assert capped.tolist() == [min(s, 2) for s in sweeps.tolist()]
+
+
 @pytest.mark.parametrize("matmul_dtype", [None, "bfloat16"])
 def test_meanshift_matches_pallas_kernel(matmul_dtype):
     """Port plain mean-shift vs ``_kernel`` (ops/meanshift_kernel.py:47),
