@@ -7,12 +7,16 @@ JAX package had Pallas kernels. The layout mirrors the JAX package:
 
 - ``config``   python-file configs with ``_base_`` inheritance
 - ``convert``  flax variables -> torch state dict
-- ``ops``      resize, masks, roi_align, and the kernel wrappers
-               (attention, connected components, mean-shift fixpoint)
-- ``core``     linear sum assignment and the Hungarian point assigner
+- ``ops``      resize, masks, roi_align, NMS, top-k, point sampling, and
+               the kernel wrappers (attention forward and backward,
+               connected components, mean-shift fixpoint)
+- ``core``     boxes, anchors, losses, assigners and samplers, linear
+               sum assignment
 - ``pseudo``   the pseudo-label engine (rollout -> CAM -> boxes ->
                refinement -> mean-shift semantic centers)
-- ``models``   ViT backbone, MIL head, and ``AttnShiftDetector``
+- ``models``   ViT backbone, FPN, RPN, the MIL, box and mask heads, and
+               ``AttnShiftDetector`` (pseudo labels and the train forward)
+- ``train``    layer-decay AdamW, the train state and the train step
 
 Importing the package imports nothing heavy and builds no kernel.
 """

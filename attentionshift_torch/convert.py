@@ -1,4 +1,4 @@
-"""Flax variables -> torch state dict for the pseudo-label path.
+"""Flax variables -> torch state dict for the train and pseudo-label paths.
 
 ``flax_to_torch`` maps the JAX package's ``AttnShiftDetector`` variables
 (``{"params": ..., "batch_stats": ...}``, leaves as numpy arrays of any
@@ -12,10 +12,14 @@ state dict. Layout facts:
   spatially FLIPPED (flax ConvTranspose semantics), so the flip is made
   here, into ``ConvTranspose2d``'s (Cin, Cout, 2, 2) layout;
 - ``fpn1_bn`` takes its running mean and var from ``batch_stats``;
-- LayerNorm/BatchNorm ``scale`` -> ``weight``.
+- LayerNorm/BatchNorm ``scale`` -> ``weight``;
+- 1x1 conv kernels (1, 1, Cin, Cout) -> ``Linear.weight`` (Cout, Cin);
+  3x3 conv kernels keep their (3, 3, Cin, Cout) layout for
+  ``Conv3x3Matmul``;
+- ``lateral_i`` / ``fpn_conv_i`` / ``decoder_blocks_i`` -> module lists.
 
-Subtrees of the train and test paths (``SKIPPED_SUBTREES``) are skipped
-by name; any other unmapped key raises. ``load_flax`` loads strictly, so
+Subtrees of variants that are not ported (``SKIPPED_SUBTREES``) are
+skipped by name; any other unmapped key raises. ``load_flax`` loads strictly, so
 a port parameter missing from the variables raises too.
 """
 
@@ -26,8 +30,9 @@ import torch
 
 __all__ = ["SKIPPED_SUBTREES", "flax_to_torch", "load_flax"]
 
-SKIPPED_SUBTREES = ("neck", "rpn_head", "bbox_head", "mask_head", "keypoint_align_head",
-                    "mae_head", "reppoints_head_")
+SKIPPED_SUBTREES = ("keypoint_align_head", "mae_head", "reppoints_head_")
+MAPPED_SUBTREES = ("backbone", "mil_head", "neck", "rpn_head", "bbox_head", "mask_head")
+_LISTS = ("blocks", "layers", "lateral", "fpn_conv", "decoder_blocks")
 
 
 def _flatten(tree, prefix=()):
@@ -46,7 +51,7 @@ def _leaf(path: tuple, value: np.ndarray):
     for m in mods:
         # blocks_3 -> blocks.3, layers_0 -> layers.0
         stem, _, idx = m.rpartition("_")
-        key.extend([stem, idx] if stem in ("blocks", "layers") and idx.isdigit() else [m])
+        key.extend([stem, idx] if stem in _LISTS and idx.isdigit() else [m])
     if name == "kernel":
         if x.ndim == 2:
             return ".".join(key + ["weight"]), x.T
@@ -54,10 +59,14 @@ def _leaf(path: tuple, value: np.ndarray):
             return ".".join(key + ["weight"]), x.reshape(-1, x.shape[-1]).T
         if x.shape[:2] == (2, 2):
             return ".".join(key + ["weight"]), x[::-1, ::-1].transpose(2, 3, 0, 1)
+        if x.shape[:2] == (1, 1):
+            return ".".join(key + ["weight"]), x[0, 0].T
+        if x.shape[:2] == (3, 3):
+            return ".".join(key + ["weight"]), x
         raise KeyError("/".join(path))
     if name == "scale":
         return ".".join(key + ["weight"]), x
-    if name in ("bias", "cls_token", "pos_embed", "point_token", "point_pos_embed"):
+    if name in ("bias", "cls_token", "pos_embed", "point_token", "point_pos_embed", "det_token"):
         return ".".join(key + [name]), x
     raise KeyError("/".join(path))
 
@@ -67,7 +76,7 @@ def flax_to_torch(variables: dict) -> dict:
     params = variables.get("params", variables)
     sd = {}
     for path, value in _flatten(params):
-        if path[0] in ("backbone", "mil_head"):
+        if path[0] in MAPPED_SUBTREES:
             try:
                 key, arr = _leaf(path, value)
             except KeyError as e:

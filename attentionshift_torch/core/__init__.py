@@ -1,4 +1,7 @@
-"""Assignment: linear sum assignment and the Hungarian point assigner."""
+"""Boxes, anchors, losses, assigners and samplers, linear sum assignment.
+
+Submodules are imported where they are used; the two names below are
+the pseudo-label path's."""
 
 from .assign import hungarian_point_assign
 from .lsa import linear_sum_assignment

@@ -1,4 +1,4 @@
-"""ViT backbone, MIL head and the pseudo-label detector."""
+"""ViT backbone, FPN, RPN, RoI heads and the detector."""
 
 from .detector import AttnShiftDetector
 from .heads import MILHead

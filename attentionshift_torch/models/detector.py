@@ -1,13 +1,21 @@
-"""AttnShift detector: the pseudo-label path.
+"""AttnShift detector: the train forward and the pseudo-label path.
 
-Port of ``AttnShiftDetector`` (``attentionshift_tpu/models/detector.py``)
-for ``_extract``, ``_seed``, ``seed_pseudo_gt`` and ``seed_debug``:
+Port of ``AttnShiftDetector`` (``attentionshift_tpu/models/detector.py``):
 
+pseudo labels (``seed_pseudo_gt``, ``seed_debug``):
   ViT backbone (point tokens, captured attention) -> Stage A (Hungarian
   token match, rollout CAMs, thresholded maps, batched connected
   components, mirrored candidate boxes, MIL best-layer choice) ->
   Stages B+C (refined fg/bg maps, pseudo masks, mask points, mean-shift
   semantic centers).
+
+train (``forward``, the JAX ``__call__``):
+  the same, with drop path and activation checkpointing in the backbone,
+  then the RPN trained on the pseudo boxes, the point-token losses, the
+  RCNN box head on sampled proposals and the mask head supervised at the
+  sampled points. Returns ``(losses, aux)`` with the JAX package's keys.
+  Stage A's selection and Stages B+C build no graph; the MIL bag loss
+  keeps its gradient into the backbone.
 
 Instances are padded to ``max_gt`` with validity masks, padded
 coordinates are -1 and ignored point labels 2, as in the JAX package.
@@ -22,27 +30,32 @@ import torch
 import torch.nn as nn
 
 from ..config import Config
+from ..core.anchors import grid_anchors, grid_anchors_per_level
+from ..core.assign import hungarian_point_assign, max_iou_assign, random_sample
+from ..core.losses import l1_loss, sigmoid_focal_loss
 from ..device import resolve_device
 from ..ops.image import resize
 from ..ops.roi_align import roi_align
+from ..ops.sampling import point_sample
+from ..ops.topk import top_k_stable
 from ..pseudo.engine import candidate_boxes, masks_and_centers
 from ..pseudo.rollout import attention_rollout_point_rows
-from ..core.assign import hungarian_point_assign
-from .heads import MILHead
+from .fpn import FPN
+from .heads import BoxHeadRec, MaskHeadPointSup, MILHead, mask_point_loss
+from .rpn import RPNHead, rpn_loss, rpn_proposals
 from .vit import VisionTransformerDet
 
 __all__ = ["AttnShiftDetector"]
 
-# config keys of the train and test paths, which later slices of the port
-# add; the pseudo-label path does not read them
+# config keys this port does not read: switches of the JAX package's own
+# kernels and meshes, and the test path, which a later slice adds
 _OTHER_PATHS = frozenset({
-    "drop_path_rate", "use_remat", "use_pallas_attention", "use_pallas_ccl",
-    "sequence_parallel", "rpn_channels", "num_proposals", "rpn_nms_pre", "rcnn_samples",
-    "rcnn_pos_fraction", "mask_sample_cap", "with_keypoint_align", "keypoint_feat_channels",
-    "with_reppoints_head", "num_reppoints_head", "with_deform_sup", "reppoints_num_points",
-    "reppoints_contour_points", "with_mae_head", "mae_mask_ratio", "test_score_thr",
-    "test_iou_thr", "test_max_per_img",
+    "use_pallas_attention", "use_pallas_ccl", "sequence_parallel", "keypoint_feat_channels",
+    "num_reppoints_head", "with_deform_sup", "reppoints_num_points", "reppoints_contour_points",
+    "mae_mask_ratio", "test_score_thr", "test_iou_thr", "test_max_per_img",
 })
+# variants of the train step that are not ported yet: asking for one raises
+_UNPORTED_VARIANTS = ("with_keypoint_align", "with_reppoints_head", "with_mae_head")
 
 
 class AttnShiftDetector(nn.Module):
@@ -54,8 +67,14 @@ class AttnShiftDetector(nn.Module):
                  pos_mask_thr: float = 0.35, neg_mask_thr: float = 0.8,
                  num_mask_point_gt: int = 10, corr_size: int = 21, obj_tau: float = 0.9,
                  refine_times: int = 2, mean_shift_times: int = 10, num_semantic_points: int = 5,
+                 drop_path_rate: float = 0.05, use_remat: bool = True, rpn_channels: int = 256,
+                 num_proposals: int = 1000, rpn_nms_pre: int = 2000, rcnn_samples: int = 512,
+                 rcnn_pos_fraction: float = 0.25, mask_sample_cap: int = 128,
                  dtype: torch.dtype = torch.float32, device=None, **other_paths):
         super().__init__()
+        for name in _UNPORTED_VARIANTS:
+            if other_paths.pop(name, False):
+                raise NotImplementedError(f"AttnShiftDetector: {name} is not ported yet")
         unknown = set(other_paths) - _OTHER_PATHS
         if unknown:
             raise TypeError(f"AttnShiftDetector: unknown arguments {sorted(unknown)}")
@@ -68,13 +87,21 @@ class AttnShiftDetector(nn.Module):
         self.num_mask_point_gt, self.corr_size, self.obj_tau = num_mask_point_gt, corr_size, obj_tau
         self.refine_times, self.mean_shift_times = refine_times, mean_shift_times
         self.num_semantic_points = num_semantic_points
+        self.num_proposals, self.rpn_nms_pre = num_proposals, rpn_nms_pre
+        self.rcnn_samples, self.rcnn_pos_fraction = rcnn_samples, rcnn_pos_fraction
+        self.mask_sample_cap = mask_sample_cap
         self.dtype = dtype
         self.backbone = VisionTransformerDet(
             img_size=img_size, embed_dim=embed_dim, depth=depth, num_heads=num_heads,
             out_indices=out_indices, point_tokens_num=point_tokens, num_classes=num_classes,
-            capture_layers=cam_layer, pad_tokens_to=pad_tokens_to, dtype=dtype,
+            capture_layers=cam_layer, pad_tokens_to=pad_tokens_to,
+            drop_path_rate=drop_path_rate, use_remat=use_remat, dtype=dtype,
         )
         self.mil_head = MILHead(num_classes=num_classes, in_channels=embed_dim)
+        self.neck = FPN(in_channels=embed_dim, out_channels=rpn_channels, num_outs=5)
+        self.rpn_head = RPNHead(feat_channels=rpn_channels)
+        self.bbox_head = BoxHeadRec(num_classes=num_classes, in_channels=embed_dim)
+        self.mask_head = MaskHeadPointSup(num_classes=num_classes, in_channels=embed_dim)
         self.to(dev)
         self.eval()
 
@@ -91,7 +118,8 @@ class AttnShiftDetector(nn.Module):
 
     def init_weights(self, seed: int = 0) -> "AttnShiftDetector":
         """Seeded random init: N(0, 0.02) matrices and tokens, zero biases,
-        unit norm scales and running variances."""
+        unit norm scales and running variances; the FPN convs Xavier-uniform
+        and the RPN convs N(0, 0.01), as mmdet initialises them."""
         gen = torch.Generator(device="cpu").manual_seed(seed)
         with torch.no_grad():
             for name, t in self.state_dict().items():
@@ -100,14 +128,21 @@ class AttnShiftDetector(nn.Module):
                     val = torch.zeros(t.shape)
                 elif leaf == "running_var" or (leaf == "weight" and t.dim() == 1):
                     val = torch.ones(t.shape)
+                elif name.startswith("rpn_head."):
+                    val = torch.randn(t.shape, generator=gen) * 0.01
+                elif name.startswith("neck."):
+                    taps = 9 if t.dim() == 4 else 1
+                    bound = (6.0 / (taps * (t.shape[-1] + t.shape[-2]))) ** 0.5
+                    val = (torch.rand(t.shape, generator=gen) * 2.0 - 1.0) * bound
                 else:
                     val = torch.randn(t.shape, generator=gen) * 0.02
                 t.copy_(val)
         return self
 
     # ------------------------------------------------------------- shared
-    def _extract(self, img):
-        out = self.backbone(img)
+    def _extract(self, img, deterministic: bool = True, generator=None, drop_masks=None):
+        out = self.backbone(img, deterministic=deterministic, generator=generator,
+                            drop_masks=drop_masks)
         b, h, w, _ = img.shape
         hp, wp = h // 16, w // 16
         # roi source: raw last-block patch tokens, BCHW for roi_align
@@ -124,24 +159,25 @@ class AttnShiftDetector(nn.Module):
         gt_valid = gt_valid.bool()
 
         # ---- Stage A: Hungarian token match, rollout CAMs, candidates
-        rollout = attention_rollout_point_rows(out["attns"], self.point_tokens,
-                                               assume_normalized=True).transpose(0, 1)
-        assigned = torch.stack([
-            hungarian_point_assign(out["outputs_class"][i], out["outputs_coord"][i],
-                                   gt_points[i], gt_labels[i], gt_valid[i], img_wh[i])
-            for i in range(b)
-        ])  # (B, P) in {0, gt + 1}
-        match = assigned[:, None, :] == (torch.arange(g, device=dev)[None, :, None] + 1)
-        token_of_gt = match.int().argmax(dim=-1).int()  # (B, G)
-        cand, cams = zip(*(
-            candidate_boxes(rollout[i], token_of_gt[i], gt_points[i], (hp, wp), (h, w),
-                            seed_thr=self.seed_thr, seed_multiple=self.seed_multiple,
-                            cam_stride=self.cam_stride, ccl_iters=self.ccl_iters,
-                            valid=gt_valid[i])
-            for i in range(b)
-        ))
-        cand = torch.stack(cand)  # (B, G, L, 4)
-        cams_patch = torch.stack(cams)  # (B, L, G, Hp, Wp)
+        with torch.no_grad():
+            rollout = attention_rollout_point_rows(out["attns"], self.point_tokens,
+                                                   assume_normalized=True).transpose(0, 1)
+            assigned = torch.stack([
+                hungarian_point_assign(out["outputs_class"][i], out["outputs_coord"][i],
+                                       gt_points[i], gt_labels[i], gt_valid[i], img_wh[i])
+                for i in range(b)
+            ])  # (B, P) in {0, gt + 1}
+            match = assigned[:, None, :] == (torch.arange(g, device=dev)[None, :, None] + 1)
+            token_of_gt = match.int().argmax(dim=-1).int()  # (B, G)
+            cand, cams = zip(*(
+                candidate_boxes(rollout[i], token_of_gt[i], gt_points[i], (hp, wp), (h, w),
+                                seed_thr=self.seed_thr, seed_multiple=self.seed_multiple,
+                                cam_stride=self.cam_stride, ccl_iters=self.ccl_iters,
+                                valid=gt_valid[i])
+                for i in range(b)
+            ))
+            cand = torch.stack(cand)  # (B, G, L, 4)
+            cams_patch = torch.stack(cams)  # (B, L, G, Hp, Wp)
 
         # ---- MIL best-layer selection
         rois = torch.cat([
@@ -153,8 +189,31 @@ class AttnShiftDetector(nn.Module):
         best_idx, mil_loss = self.mil_head(mil_feats, gt_labels.reshape(-1), gt_valid.reshape(-1))
         best_idx = best_idx.reshape(b, g)
         pseudo_boxes = torch.gather(cand, 2, best_idx.long()[..., None, None].expand(b, g, 1, 4))[:, :, 0]
+        # the candidates were made without a graph, so the pseudo boxes carry
+        # none; Stages B+C read the patch features detached
+        with torch.no_grad():
+            res, dbg = self._stages_bc(out, cams_patch, pseudo_boxes, best_idx, patch_hw, img_hw,
+                                       gt_points, gt_labels, gt_valid, generator, draws)
+        res.update(pseudo_gt_bboxes=pseudo_boxes, best_attn_idx=best_idx, loss_mil=mil_loss)
+        if debug:
+            res.update(
+                assigned=assigned,
+                outputs_coord=out["outputs_coord"],
+                outputs_class=out["outputs_class"],
+                rollout_rows=rollout,
+                candidate_boxes=cand,
+                cams=cams_patch,
+                token_of_gt=token_of_gt,
+                **dbg,
+            )
+        return res, assigned
 
-        # ---- Stages B+C on the patch features
+    def _stages_bc(self, out, cams_patch, pseudo_boxes, best_idx, patch_hw, img_hw, gt_points,
+                   gt_labels, gt_valid, generator, draws):
+        """Stages B+C on the detached patch features (no graph)."""
+        hp, wp = patch_hw
+        h, w = img_hw
+        b, g = gt_points.shape[:2]
         vit_feat = out["last_feat"][:, 1:].reshape(b, hp, wp, -1).permute(0, 3, 1, 2).float()
         best_cams_patch = torch.gather(
             cams_patch.transpose(1, 2), 2,
@@ -177,30 +236,14 @@ class AttnShiftDetector(nn.Module):
                 matmul_dtype=mm, generator=generator, points_override=override,
                 gumbel=dr.get("gumbel"),
             ))
-        res = dict(
-            pseudo_gt_bboxes=pseudo_boxes,
+        return dict(
             pseudo_gt_masks=torch.stack([p.pseudo_masks for p in pls]),
             mask_points_coords=torch.stack([p.point_coords for p in pls]),
             mask_points_labels=torch.stack([p.point_labels for p in pls]),
             map_cos_fg=torch.stack([p.map_fg for p in pls]),
             semantic_centers=torch.stack([p.centers.coords for p in pls]),
             semantic_centers_valid=torch.stack([p.centers.part_valid for p in pls]),
-            best_attn_idx=best_idx,
-            loss_mil=mil_loss,
-        )
-        if debug:
-            res.update(
-                assigned=assigned,
-                outputs_coord=out["outputs_coord"],
-                outputs_class=out["outputs_class"],
-                rollout_rows=rollout,
-                candidate_boxes=cand,
-                cams=cams_patch,
-                best_cams=best_cams_patch,
-                token_of_gt=token_of_gt,
-                vit_feat=vit_feat,
-            )
-        return res
+        ), dict(best_cams=best_cams_patch, vit_feat=vit_feat)
 
     @torch.no_grad()
     def seed_pseudo_gt(self, img, gt_points, gt_labels, gt_valid, img_wh, generator=None,
@@ -219,8 +262,8 @@ class AttnShiftDetector(nn.Module):
         """
         b, h, w, _ = img.shape
         out, roi_map, patch_hw = self._extract(img)
-        res = self._seed(out, roi_map, patch_hw, (h, w), gt_points, gt_labels, gt_valid, img_wh,
-                         generator, draws)
+        res, _ = self._seed(out, roi_map, patch_hw, (h, w), gt_points, gt_labels, gt_valid, img_wh,
+                            generator, draws)
         res["pseudo_gt_labels"] = gt_labels
         res["pseudo_gt_valid"] = gt_valid
         return res
@@ -233,4 +276,164 @@ class AttnShiftDetector(nn.Module):
         b, h, w, _ = img.shape
         out, roi_map, patch_hw = self._extract(img)
         return self._seed(out, roi_map, patch_hw, (h, w), gt_points, gt_labels, gt_valid, img_wh,
-                          generator, draws, debug=True)
+                          generator, draws, debug=True)[0]
+
+    # -------------------------------------------------------------- train
+    def forward(self, img, gt_points, gt_labels, gt_valid, img_wh, *, loss_enable=1.0,
+                teacher=None, generator=None, draws=None, drop_masks=None):
+        """Training forward: returns (losses dict, aux dict).
+
+        Args:
+            img: (B, H, W, 3) normalised, padded images; gt_points (B, G, 2)
+                annotated xy; gt_labels (B, G); gt_valid (B, G) bool; img_wh
+                (B, 2) true (w, h) before padding.
+            loss_enable: epoch-gated switch of the bbox and mask losses.
+            generator: ``torch.Generator`` on the model's device for every
+                random draw of the step.
+            draws: optional per-image list of dicts holding draws instead:
+                those of ``seed_pseudo_gt``, ``rpn_u_pos``/``rpn_u_neg``
+                (one uniform per anchor), ``rcnn_u_pos``/``rcnn_u_neg``
+                (one per gt + proposal; ``rcnn_u_pos`` also orders the
+                sampled rois, as the JAX package reuses that key) and
+                ``mask_u`` (one per sampled roi).
+            drop_masks: optional (depth, 2, B) drop-path keep masks.
+        """
+        if teacher is not None:
+            raise NotImplementedError("AttnShiftDetector.forward: teacher= is not ported yet")
+        b, h, w, _ = img.shape
+        gt_valid = gt_valid.bool()
+        out, roi_map, patch_hw = self._extract(img, deterministic=False, generator=generator,
+                                               drop_masks=drop_masks)
+        seed, assigned = self._seed(out, roi_map, patch_hw, (h, w), gt_points, gt_labels,
+                                    gt_valid, img_wh, generator, draws)
+        pseudo_boxes = seed["pseudo_gt_bboxes"]
+        losses = {"loss_mil": seed["loss_mil"]}
+
+        # ---- RPN on pseudo boxes
+        fpn_feats = self.neck(out["feature"])
+        cls_scores, bbox_preds = self.rpn_head(fpn_feats)
+        sizes = [tuple(f.shape[1:3]) for f in fpn_feats]
+        rpn_draws = None if draws is None else [
+            {k[4:]: v for k, v in d.items() if k.startswith("rpn_")} for d in draws]
+        losses.update(rpn_loss(cls_scores, bbox_preds, grid_anchors(sizes, device=img.device),
+                               pseudo_boxes, gt_valid, generator=generator, draws=rpn_draws))
+        props = rpn_proposals(cls_scores, bbox_preds,
+                              grid_anchors_per_level(sizes, device=img.device), (h, w),
+                              nms_pre=self.rpn_nms_pre, max_per_img=self.num_proposals)
+
+        losses.update(self._point_losses(out["outputs_class"].float(), out["outputs_coord"].float(),
+                                         assigned, gt_points, gt_labels, img_wh))
+        losses.update(self._rcnn_losses(roi_map, props, pseudo_boxes, gt_labels, gt_valid,
+                                        seed["mask_points_coords"], seed["mask_points_labels"],
+                                        loss_enable, generator, draws))
+        aux = dict(
+            pseudo_boxes=pseudo_boxes,
+            pseudo_valid=gt_valid,
+            pseudo_masks=seed["pseudo_gt_masks"],
+            best_idx=seed["best_attn_idx"],
+            semantic_centers=seed["semantic_centers"],
+            semantic_valid=seed["semantic_centers_valid"],
+            map_fg=seed["map_cos_fg"],
+        )
+        return losses, aux
+
+    def _roi_feats(self, roi_map, boxes, output_size):
+        """(B, N, 4) boxes -> (B*N, S, S, C) channel-last roi features."""
+        b, n, _ = boxes.shape
+        idx = torch.arange(b, device=boxes.device, dtype=boxes.dtype).repeat_interleave(n)
+        rois = torch.cat([idx[:, None], boxes.reshape(b * n, 4)], dim=1)
+        feats = roi_align(roi_map, rois, spatial_scale=1.0 / 16, output_size=output_size)
+        return feats.permute(0, 2, 3, 1)
+
+    def _point_losses(self, point_cls, point_reg, assigned, gt_points, gt_labels, img_wh):
+        b, p, c = point_cls.shape
+        g = gt_points.shape[1]
+        matched = assigned > 0  # (B, P)
+        gt_idx = (assigned - 1).clamp(0, g - 1).long()
+        labels = torch.where(matched, torch.gather(gt_labels.long(), 1, gt_idx), self.num_classes)
+        num_pos = matched.sum().float().clamp_min(1.0)
+        loss_cls = sigmoid_focal_loss(point_cls.reshape(-1, c), labels.reshape(-1),
+                                      avg_factor=num_pos)
+        tgt_xy = torch.gather(gt_points.float(), 1, gt_idx[..., None].expand(b, p, 2)) \
+            / img_wh.float()[:, None, :]
+        loss_pt = l1_loss(point_reg, tgt_xy, weight=matched.float()[..., None], avg_factor=num_pos)
+        hit = (point_cls.reshape(-1, c).argmax(-1) == labels.reshape(-1)) & matched.reshape(-1)
+        return {"loss_point_cls": loss_cls, "loss_point": 10.0 * loss_pt,
+                "pos_point_acc": hit.sum() / num_pos * 100.0}
+
+    def _sample_rois(self, boxes, valid, gts, glbl, gval, u_pos, u_neg, generator):
+        """One image's RCNN samples: gts are added to the proposals,
+        MaxIoU-assigned at 0.5, randomly sampled, and gathered to a fixed
+        size with the positives first. The selection builds no graph; the
+        gathered rois keep the proposals' (see ``rpn_proposals``)."""
+        g, s = gts.shape[0], self.rcnn_samples
+        all_boxes = torch.cat([gts, boxes], dim=0)
+        with torch.no_grad():
+            all_valid = torch.cat([gval, valid], dim=0)
+            assign = max_iou_assign(all_boxes, gts, glbl, gval, pos_iou_thr=0.5, neg_iou_thr=0.5,
+                                    min_pos_iou=0.5, match_low_quality=False)
+            assigned = torch.where(all_valid, assign.assigned_gt, -1)
+            if u_pos is None:
+                u_pos = torch.rand(assigned.shape[0], device=boxes.device, generator=generator)
+            samp = random_sample(assigned, s, self.rcnn_pos_fraction, u_pos=u_pos, u_neg=u_neg,
+                                 generator=generator)
+            # the ordering score takes the positives' uniforms again, as the
+            # JAX package's sampler derives both from one key
+            score = samp.pos_mask.float() * 2.0 + samp.neg_mask.float() \
+                + u_pos.to(boxes.device).float() * 0.5
+            idx = top_k_stable(score, s)[1]
+            r_pos, r_neg = samp.pos_mask[idx], samp.neg_mask[idx]
+            gt_slot = (assigned[idx] - 1).clamp(0, g - 1).long()
+            r_lbl = torch.where(r_pos, glbl.long()[gt_slot], self.num_classes)
+        return all_boxes[idx], r_lbl, gts[gt_slot], r_pos, r_neg, gt_slot
+
+    def _rcnn_losses(self, roi_map, props, pseudo_boxes, gt_labels, gt_valid, mask_pt_coords,
+                     mask_pt_labels, loss_enable, generator, draws):
+        b, g = pseudo_boxes.shape[:2]
+        s = self.rcnn_samples
+        dev = roi_map.device
+        dr = draws if draws is not None else [{}] * b
+        rois, labels, tgts, pos, neg, pgt = (torch.stack(t) for t in zip(*(
+            self._sample_rois(props.boxes[i], props.valid[i], pseudo_boxes[i].float(),
+                              gt_labels[i], gt_valid[i], dr[i].get("rcnn_u_pos"),
+                              dr[i].get("rcnn_u_neg"), generator)
+            for i in range(b))))
+
+        roi_feats = self._roi_feats(roi_map, rois, 7)  # (B*S, 7, 7, D)
+        cls_score, bbox_pred, _ = self.bbox_head(roi_feats)
+        lw = (pos | neg).reshape(-1).float()
+        bw = pos.reshape(-1).float()[:, None].expand(-1, 4)
+        losses = self.bbox_head.loss(cls_score, bbox_pred, rois.reshape(-1, 4), labels.reshape(-1),
+                                     lw, tgts.reshape(-1, 4), bw, loss_enable=loss_enable)
+
+        # ---- mask head on positive rois only (fixed cap)
+        m = min(self.mask_sample_cap, s)
+        with torch.no_grad():
+            pidx = []
+            for i in range(b):
+                u = dr[i].get("mask_u")
+                if u is None:
+                    u = torch.rand(s, device=dev, generator=generator)
+                pidx.append(top_k_stable(pos[i].float() + u.to(dev).float() * 0.5, m)[1])
+            pidx = torch.stack(pidx)  # (B, M)
+            pvalid = torch.gather(pos, 1, pidx)
+            mlabels = torch.gather(labels, 1, pidx)
+            mgt = torch.gather(pgt, 1, pidx)  # (B, M) matched gt slot
+            # per-roi supervision points from the matched gt
+            npnt = mask_pt_coords.shape[2]
+            pts = torch.gather(mask_pt_coords, 1, mgt[..., None, None].expand(b, m, npnt, 2))
+            plbl = torch.gather(mask_pt_labels, 1, mgt[..., None].expand(b, m, npnt))
+        mrois = torch.gather(rois, 1, pidx[..., None].expand(b, m, 4))
+        # box-normalised coords; outside [0, 1] -> ignore
+        wh_box = (mrois[..., 2:4] - mrois[..., 0:2]).clamp_min(1e-6)
+        rel = (pts - mrois[..., None, 0:2]) / wh_box[..., None, :]
+        outside = (rel[..., 0] < 0) | (rel[..., 0] > 1) | (rel[..., 1] < 0) | (rel[..., 1] > 1)
+        plbl = torch.where(outside, 2, plbl)
+
+        mask_logits = self.mask_head(self._roi_feats(roi_map, mrois, 14))  # (B*M, 28, 28, C)
+        preds = point_sample(mask_logits.permute(0, 3, 1, 2), rel.reshape(b * m, npnt, 2))
+        losses["loss_mask"] = mask_point_loss(
+            preds.transpose(1, 2), plbl.reshape(b * m, npnt),
+            mlabels.clamp(0, self.num_classes - 1).reshape(-1), pvalid.reshape(-1),
+            loss_enable=loss_enable)
+        return losses

@@ -3,15 +3,28 @@
 Port of ``attentionshift_tpu/models/layers.py`` (the slice's blocks):
 ``Mlp``, ``Attention`` (optionally returning the head-averaged attention
 matrix, with the pre-padded token gap masked), the pre-norm ``Block``,
-``PatchEmbed`` (space-to-depth + one matmul), ``Deconv2x2Matmul`` and
+``PatchEmbed`` (space-to-depth + one matmul), ``Conv3x3Matmul``,
+``Deconv2x2Matmul``, ``get_2d_sincos_pos_embed`` and
 ``interpolate_pos_embed``.
 
 Parameters are stored in f32 and cast to the activations' dtype at use,
 as flax's ``Dense(dtype=...)`` does, so a bf16 model keeps f32 master
-weights. Drop path is inert on this deterministic path.
+weights and receives f32 gradients.
+
+``Attention(use_kernel=True)`` (the ViT backbone) goes through the
+attention ops of ``ops/attention.py`` and so, on the card, through the
+hand-written kernels; ``use_kernel=False`` (the decoder heads: 256 wide,
+head dim 32, 50 and 196 tokens) takes plain PyTorch ops with autograd,
+as the JAX detector leaves those heads off its fused path.
+
+Drop path draws nothing itself: ``Block.forward`` is handed the
+per-sample keep masks, so a recompute of the block under activation
+checkpointing sees the same masks.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -21,8 +34,23 @@ import torch.nn.functional as F
 from ..ops.attention import attention_no_capture, attention_with_capture
 from ..ops.image import resize
 
-__all__ = ["Dense", "LayerNorm", "Mlp", "Attention", "Block", "PatchEmbed", "Deconv2x2Matmul",
-           "interpolate_pos_embed"]
+__all__ = ["Dense", "LayerNorm", "Mlp", "Attention", "Block", "PatchEmbed", "Conv3x3Matmul",
+           "Deconv2x2Matmul", "get_2d_sincos_pos_embed", "interpolate_pos_embed",
+           "recompute_without_capture"]
+
+_RECOMPUTE = [False]
+
+
+@contextlib.contextmanager
+def recompute_without_capture():
+    """Inside, a capture block runs the attention without the probability
+    output: the context of a checkpointed block's second forward, whose
+    captured matrix nobody reads."""
+    _RECOMPUTE[0] = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE[0] = False
 
 
 class Dense(nn.Linear):
@@ -58,9 +86,10 @@ class Attention(nn.Module):
     """Multi-head self-attention (fused qkv, scale head_dim**-0.5); with
     ``capture`` it also returns the head-averaged probabilities (B, T, T)."""
 
-    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True):
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True, use_kernel: bool = True):
         super().__init__()
         self.num_heads = num_heads
+        self.use_kernel = use_kernel
         self.qkv = Dense(dim, 3 * dim, bias=qkv_bias)
         self.proj = Dense(dim, dim)
 
@@ -68,28 +97,55 @@ class Attention(nn.Module):
         b, n, c = x.shape
         qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, c // self.num_heads)
         q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))  # (B, H, N, d)
-        if capture:
+        capture = capture and not _RECOMPUTE[0]
+        if not self.use_kernel:
+            out, attn = self._plain(q, k, v, capture, pad_interval)
+        elif capture:
             out, attn = attention_with_capture(q, k, v, pad_interval)
         else:
             out, attn = attention_no_capture(q, k, v, pad_interval), None
         out = out.transpose(1, 2).reshape(b, n, c).to(x.dtype)
         return self.proj(out), attn
 
+    @staticmethod
+    def _plain(q, k, v, capture, pad_interval):
+        """PyTorch ops with autograd: logits in the storage dtype (f32 for
+        an f32 model), softmax in f32, probabilities rounded to v's dtype."""
+        logits = torch.matmul(q * q.shape[-1] ** -0.5, k.transpose(-1, -2))
+        if pad_interval is not None:
+            lo, hi = pad_interval
+            col = torch.arange(q.shape[2], device=q.device)
+            logits = logits + torch.where((col >= lo) & (col < hi), -1e30, 0.0).to(logits.dtype)
+        probs = torch.softmax(logits.float(), dim=-1)
+        out = torch.matmul(probs.to(v.dtype), v)
+        return out, (probs.mean(dim=1).detach() if capture else None)
+
 
 class Block(nn.Module):
     """Pre-norm transformer block."""
 
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, qkv_bias: bool = True):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, qkv_bias: bool = True,
+                 drop_path: float = 0.0, use_kernel: bool = True):
         super().__init__()
+        self.drop_path = drop_path
         self.norm1 = LayerNorm(dim)
-        self.attn = Attention(dim, num_heads, qkv_bias)
+        self.attn = Attention(dim, num_heads, qkv_bias, use_kernel)
         self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
-    def forward(self, x, capture: bool = False, pad_interval=None):
+    def forward(self, x, capture: bool = False, pad_interval=None, drop_masks=None):
+        """``drop_masks``: None (deterministic), or the two per-sample keep
+        masks (B,) of the attention and the MLP branch."""
         y, attn = self.attn(self.norm1(x), capture, pad_interval)
-        x = x + y
-        return x + self.mlp(self.norm2(x)), attn
+        x = x + self._drop_path(y, None if drop_masks is None else drop_masks[0])
+        z = self.mlp(self.norm2(x))
+        return x + self._drop_path(z, None if drop_masks is None else drop_masks[1]), attn
+
+    def _drop_path(self, x, mask):
+        if mask is None or self.drop_path == 0.0:
+            return x
+        keep = 1.0 - self.drop_path
+        return x / keep * mask.reshape((-1,) + (1,) * (x.dim() - 1)).to(x.dtype)
 
 
 class PatchEmbed(nn.Module):
@@ -106,6 +162,27 @@ class PatchEmbed(nn.Module):
         p = self.patch_size
         x = x.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
         return self.proj(x.reshape(b, h // p, w // p, p * p * c))
+
+
+class Conv3x3Matmul(nn.Module):
+    """3x3 SAME conv as 9 shifted matmuls accumulated in f32, channel-last,
+    with the flax conv's (3, 3, Cin, Cout) kernel layout."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(3, 3, cin, cout))
+        self.bias = nn.Parameter(torch.zeros(cout))
+
+    def forward(self, x):
+        b, h, w, _ = x.shape
+        k = self.weight.to(x.dtype)
+        xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+        acc = None
+        for dy in range(3):
+            for dx in range(3):
+                t = torch.matmul(xp[:, dy:dy + h, dx:dx + w], k[dy, dx]).float()
+                acc = t if acc is None else acc + t
+        return (acc + self.bias.float()).to(x.dtype)
 
 
 class Deconv2x2Matmul(nn.Module):
@@ -138,6 +215,24 @@ class BatchNorm(nn.Module):
     def forward(self, x):
         mul = torch.rsqrt(self.running_var + self.eps) * self.weight
         return ((x.float() - self.running_mean) * mul + self.bias).to(x.dtype)
+
+
+def get_2d_sincos_pos_embed(embed_dim: int, grid_size: int, cls_token: bool = False) -> np.ndarray:
+    """Fixed 2-D sin-cos positional embedding (MAE convention)."""
+    grid_h = np.arange(grid_size, dtype=np.float32)
+    grid_w = np.arange(grid_size, dtype=np.float32)
+    grid = np.stack(np.meshgrid(grid_w, grid_h), axis=0).reshape(2, 1, grid_size, grid_size)
+
+    def emb_1d(dim, pos):
+        omega = 1.0 / 10000 ** (np.arange(dim // 2, dtype=np.float64) / (dim / 2.0))
+        out = np.einsum("m,d->md", pos.reshape(-1), omega)
+        return np.concatenate([np.sin(out), np.cos(out)], axis=1)
+
+    pos = np.concatenate([emb_1d(embed_dim // 2, grid[0]), emb_1d(embed_dim // 2, grid[1])],
+                         axis=1).astype(np.float32)
+    if cls_token:
+        pos = np.concatenate([np.zeros((1, embed_dim), np.float32), pos], axis=0)
+    return pos
 
 
 def interpolate_pos_embed(pos_embed: torch.Tensor, hp: int, wp: int, num_prefix: int = 1):

@@ -11,15 +11,28 @@ so the token axis is a multiple of it; the gap ``[1 + n_patch, 1 +
 n_patch + n_pad)`` is masked out of every softmax, so the point tokens
 stay the last P rows and every consumer is unchanged. Layout is
 channel-last, as in the JAX package.
+
+The training forward (``deterministic=False``) adds drop path at rates
+``linspace(0, drop_path_rate, depth)`` and, with ``use_remat``, runs each
+block under ``torch.utils.checkpoint``: the block's activations are
+recomputed in the backward pass. The recompute runs the attention
+without the probability output (the captured matrix was already taken
+in the first forward), and sees the same drop-path masks, which are
+drawn before the block runs.
 """
 
 from __future__ import annotations
 
+import contextlib
+
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from .layers import BatchNorm, Block, Deconv2x2Matmul, Dense, PatchEmbed, interpolate_pos_embed
+from .layers import (BatchNorm, Block, Deconv2x2Matmul, Dense, PatchEmbed, interpolate_pos_embed,
+                     recompute_without_capture)
 
 __all__ = ["MlpHead", "VisionTransformerDet"]
 
@@ -43,6 +56,7 @@ class VisionTransformerDet(nn.Module):
                  depth: int = 12, num_heads: int = 6, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, out_indices=(3, 5, 7, 11), point_tokens_num: int = 100,
                  num_classes: int = 20, capture_layers: int = 7, pad_tokens_to: int = 0,
+                 drop_path_rate: float = 0.0, use_remat: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         d = embed_dim
@@ -54,12 +68,16 @@ class VisionTransformerDet(nn.Module):
         self.capture_layers = capture_layers
         self.pad_tokens_to = pad_tokens_to
         self.dtype = dtype
+        self.use_remat = use_remat
+        self.drop_path_rate = drop_path_rate
+        dpr = np.linspace(0.0, drop_path_rate, depth).tolist()
         self.patch_embed = PatchEmbed(d, patch_size)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
         self.pos_embed = nn.Parameter(torch.zeros(1, grid * grid + 1, d))
         self.point_token = nn.Parameter(torch.zeros(1, point_tokens_num, d))
         self.point_pos_embed = nn.Parameter(torch.zeros(1, point_tokens_num, d))
-        self.blocks = nn.ModuleList(Block(d, num_heads, mlp_ratio, qkv_bias) for _ in range(depth))
+        self.blocks = nn.ModuleList(Block(d, num_heads, mlp_ratio, qkv_bias, dpr[i])
+                                    for i in range(depth))
         self.fpn1_deconv1 = Deconv2x2Matmul(d, d)
         self.fpn1_bn = BatchNorm(d)
         self.fpn1_deconv2 = Deconv2x2Matmul(d, d)
@@ -67,8 +85,22 @@ class VisionTransformerDet(nn.Module):
         self.class_embed = MlpHead(d, d, num_classes)
         self.bbox_embed = MlpHead(d, d, 2)
 
-    def forward(self, img: torch.Tensor, with_features: bool = False) -> dict:
+    def draw_drop_masks(self, batch: int, device, generator=None):
+        """(depth, 2, B) Bernoulli(1 - rate_i) keep masks of one training
+        forward, or None when the model has no drop path."""
+        if self.drop_path_rate == 0.0:
+            return None
+        keep = torch.tensor([1.0 - blk.drop_path for blk in self.blocks], device=device)
+        return torch.bernoulli(keep[:, None, None].expand(-1, 2, batch), generator=generator)
+
+    def forward(self, img: torch.Tensor, with_features: bool = False,
+                deterministic: bool = True, generator=None, drop_masks=None) -> dict:
         """img: (B, H, W, 3), H and W divisible by the patch size.
+
+        ``deterministic=False`` is the training forward: drop path from
+        ``drop_masks`` ((depth, 2, B) keep masks) or, without them, drawn
+        from ``generator``; activation checkpointing when ``use_remat``;
+        the feature pyramid always produced.
 
         Returns a dict, channel-last: point_tokens (B, P, D),
         outputs_class (B, P, C), outputs_coord (B, P, 2) in [0, 1], attns
@@ -95,9 +127,23 @@ class VisionTransformerDet(nn.Module):
         x = torch.cat([x, pts.expand(b, p, d)], dim=1)
 
         capture_from = len(self.blocks) - self.capture_layers
+        if deterministic:
+            drop_masks = None
+        else:
+            with_features = True
+            if drop_masks is None:
+                drop_masks = self.draw_drop_masks(b, x.device, generator)
+        remat = self.use_remat and not deterministic and torch.is_grad_enabled()
         attns, feats = [], []
         for i, blk in enumerate(self.blocks):
-            x, attn = blk(x, i >= capture_from, pad_interval)
+            masks = None if drop_masks is None else drop_masks[i]
+            if remat:
+                x, attn = checkpoint(
+                    blk, x, i >= capture_from, pad_interval, masks, use_reentrant=False,
+                    preserve_rng_state=False,
+                    context_fn=lambda: (contextlib.nullcontext(), recompute_without_capture()))
+            else:
+                x, attn = blk(x, i >= capture_from, pad_interval, masks)
             if attn is not None:
                 attns.append(attn)
             if with_features and i in self.out_indices:

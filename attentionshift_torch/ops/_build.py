@@ -49,6 +49,10 @@ KERNELS: dict[str, Kernel] = {
                "attentionshift_tpu/ops/attention.py:251"),
         Kernel("attention_plain", "attention",
                "attentionshift_tpu/ops/attention.py:315"),
+        Kernel("attention_bwd_dq", "attention_bwd",
+               "attentionshift_tpu/ops/attention.py:364"),
+        Kernel("attention_bwd_dkv", "attention_bwd",
+               "attentionshift_tpu/ops/attention.py:402"),
         Kernel("ccl_batch", "ccl", "attentionshift_tpu/ops/ccl.py:200"),
         Kernel("meanshift_fixpoint", "meanshift",
                "attentionshift_tpu/ops/meanshift_kernel.py:47"),

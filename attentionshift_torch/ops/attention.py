@@ -1,6 +1,6 @@
-"""Attention forward with and without the head-averaged probability capture.
+"""Attention with and without the head-averaged probability capture.
 
-Port of ``attentionshift_tpu/ops/attention.py`` (forward only):
+Port of ``attentionshift_tpu/ops/attention.py``, forward and backward:
 
     out        = softmax(q k^T / sqrt(d)) v        (per head)
     mean_probs = mean_h softmax(.)                 (capture blocks only)
@@ -8,10 +8,18 @@ Port of ``attentionshift_tpu/ops/attention.py`` (forward only):
 with an optional pre-padded token gap ``pad_interval = [lo, hi)`` masked
 out of every softmax (``models/vit.py`` ``pad_tokens_to``).
 
-Each public function is a wrapper: a CPU tensor takes the plain PyTorch
-version (``attention_reference``, which follows the JAX package's
-``_jnp_reference``), a CUDA tensor launches the hand-written kernel in
-``csrc/attention.cu`` or raises. There is no fallback between the two.
+Each public function is a wrapper around a ``torch.autograd.Function``:
+a CPU tensor takes the plain PyTorch versions (``attention_reference``,
+which follows the JAX package's ``_jnp_reference``, and
+``attention_backward_reference``, which follows its staged backward), a
+CUDA tensor launches the hand-written kernels in ``csrc/attention.cu``
+and ``csrc/attention_bwd.cu`` or raises. There is no fallback between
+the two. ``mean_probs`` carries no gradient.
+
+The backward on the card is two kernels: pass A gives dQ and the per-row
+D = rowsum(dO * out), pass B gives dK and dV. The row normaliser of the
+recomputed probabilities is the forward's log2-sum-exp, which the flash
+pass writes whenever a gradient may be asked for.
 """
 
 from __future__ import annotations
@@ -22,7 +30,9 @@ import torch
 
 from ._build import KERNELS, check, library
 
-__all__ = ["attention_reference", "attention_with_capture", "attention_no_capture"]
+__all__ = ["attention_reference", "attention_backward_reference", "attention_with_capture",
+           "attention_no_capture", "flash_forward", "attention_backward_dq",
+           "attention_backward_dkv"]
 
 _LOG2E = 1.4426950408889634
 
@@ -65,7 +75,9 @@ def _gap(t, pad_interval):
     return int(pad_interval[0]), int(pad_interval[1])
 
 
-def _flash(q, k, v, pad_interval, with_lse):
+def flash_forward(q, k, v, pad_interval, with_lse):
+    """The flash pass on the card: (out, row log2-sum-exp (B, H, T) f32 or
+    None). Counts no launch: the two attention ops do."""
     b, h, t, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, t), device=q.device, dtype=torch.float32) if with_lse else None
@@ -81,30 +93,115 @@ def _flash(q, k, v, pad_interval, with_lse):
     return out, lse
 
 
-def attention_no_capture(q, k, v, pad_interval=None):
-    """Attention without the probability output (the non-capture blocks)."""
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, pad_interval)[0]
-    _check_inputs(q, k, v)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out, _ = _flash(q, k, v, pad_interval, with_lse=False)
-    KERNELS["attention_plain"].launches += 1
-    return out
+def attention_backward_reference(q, k, v, g_out, pad_interval=None):
+    """Plain backward: (dq, dk, dv) of ``attention_reference``'s ``out``.
 
-
-def attention_with_capture(q, k, v, pad_interval=None):
-    """Attention + head-averaged probabilities (B, T, T) in q.dtype.
-
-    On the card: the flash pass writes ``out`` and each head's row
-    log2-sum-exp, then the mean pass recomputes the probabilities tile by
-    tile, sums the heads and writes the mean once.
+    The staged form of the JAX package: the recomputed probabilities and
+    p * (dP - D) are rounded to the storage dtype before the products that
+    consume them, every product accumulates in f32, D = sum_s p * dP. In
+    f32 this is the exact softmax-attention gradient. Columns in the gap
+    have p == 0, so their dk and dv are exactly zero.
     """
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, pad_interval)
+    mm = q.dtype
+    d = q.shape[-1]
+    g = g_out.to(mm).float()
+    logits = torch.matmul((q * d**-0.5).float(), k.float().transpose(-1, -2))
+    if pad_interval is not None:
+        lo, hi = pad_interval
+        col = torch.arange(q.shape[2], device=q.device)
+        logits = logits + torch.where((col >= lo) & (col < hi), -1e30, 0.0)
+    pm = torch.softmax(logits, dim=-1).to(mm).float()
+    gv = torch.matmul(pm.transpose(-1, -2), g)
+    gp = torch.matmul(g, v.float().transpose(-1, -2))
+    dd = (pm * gp).sum(dim=-1, keepdim=True)
+    glm = (pm * (gp - dd)).to(mm).float()
+    gq = torch.matmul(glm, k.float()) * d**-0.5
+    gk = torch.matmul(glm.transpose(-1, -2), q.float()) * d**-0.5
+    return gq.to(q.dtype), gk.to(k.dtype), gv.to(v.dtype)
+
+
+_BWD_TAIL = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+
+
+def attention_backward_dq(q, k, v, out, lse, g_out, pad_interval=None):
+    """Backward pass A on the card: (dq, D) with D = rowsum(g_out * out)
+    (B, H, T) f32, from ``flash_forward``'s ``out`` and row statistic."""
     _check_inputs(q, k, v)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     b, h, t, d = q.shape
-    out, lse = _flash(q, k, v, pad_interval, with_lse=True)
+    dq = torch.empty_like(q)
+    dd = torch.empty((b, h, t), device=q.device, dtype=torch.float32)
+    lo, hi = _gap(t, pad_interval)
+    fn = library("attention_bwd").attn_backward_dq
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + _BWD_TAIL
+    check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g_out.data_ptr(),
+             lse.data_ptr(), dq.data_ptr(), dd.data_ptr(), b, h, t, lo, hi, d**-0.5 * _LOG2E,
+             d**-0.5, torch.cuda.current_stream(q.device).cuda_stream), "attn_backward_dq")
+    KERNELS["attention_bwd_dq"].launches += 1
+    return dq, dd
+
+
+def attention_backward_dkv(q, k, v, lse, dd, g_out, pad_interval=None):
+    """Backward pass B on the card: (dk, dv), from the forward's row
+    statistic and pass A's D. Gap columns come out exactly zero."""
+    _check_inputs(q, k, v)
+    b, h, t, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lo, hi = _gap(t, pad_interval)
+    fn = library("attention_bwd").attn_backward_dkv
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + _BWD_TAIL
+    check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g_out.data_ptr(), lse.data_ptr(),
+             dd.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t, lo, hi, d**-0.5 * _LOG2E,
+             d**-0.5, torch.cuda.current_stream(q.device).cuda_stream), "attn_backward_dkv")
+    KERNELS["attention_bwd_dkv"].launches += 1
+    return dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    """Forward and backward of both attention ops; ``capture`` picks the
+    one that also returns the head-averaged probabilities."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pad_interval, capture):
+        ctx.pad_interval = pad_interval
+        mean = lse = None
+        if q.device.type == "cpu":
+            out, mean = attention_reference(q, k, v, pad_interval)
+        else:
+            _check_inputs(q, k, v)
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            out, lse = flash_forward(q, k, v, pad_interval,
+                              with_lse=capture or any(ctx.needs_input_grad[:3]))
+            if capture:
+                mean = _mean(q, k, lse, pad_interval)
+                KERNELS["attention_capture"].launches += 1
+            else:
+                KERNELS["attention_plain"].launches += 1
+        ctx.save_for_backward(q, k, v, out, lse)
+        if not capture:
+            return out
+        ctx.mark_non_differentiable(mean)
+        return out, mean
+
+    @staticmethod
+    def backward(ctx, g_out, *_):
+        q, k, v, out, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            grads = attention_backward_reference(q, k, v, g_out, ctx.pad_interval)
+        else:
+            if lse is None:
+                raise RuntimeError("attention backward: the forward saved no row statistic")
+            g_out = g_out.to(q.dtype).contiguous()
+            dq, dd = attention_backward_dq(q, k, v, out, lse, g_out, ctx.pad_interval)
+            grads = (dq, *attention_backward_dkv(q, k, v, lse, dd, g_out, ctx.pad_interval))
+        return (*grads, None, None)
+
+
+def _mean(q, k, lse, pad_interval):
+    """The mean pass: recompute the probabilities tile by tile from the
+    flash pass's row statistic, sum the heads, write the mean once."""
+    b, h, t, d = q.shape
     mean = torch.empty((b, t, t), device=q.device, dtype=q.dtype)
     lo, hi = _gap(t, pad_interval)
     fn = library("attention").attn_mean_forward
@@ -114,6 +211,20 @@ def attention_with_capture(q, k, v, pad_interval=None):
              mean.data_ptr(), b, h, t, lo, hi, d**-0.5 * _LOG2E,
              torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "attn_mean_forward")
-    KERNELS["attention_capture"].launches += 1
-    return out, mean
+    return mean
 
+
+def attention_no_capture(q, k, v, pad_interval=None):
+    """Attention without the probability output (the non-capture blocks)."""
+    return _Attention.apply(q, k, v, pad_interval, False)
+
+
+def attention_with_capture(q, k, v, pad_interval=None):
+    """Attention + head-averaged probabilities (B, T, T) in q.dtype, which
+    carry no gradient.
+
+    On the card: the flash pass writes ``out`` and each head's row
+    log2-sum-exp, then the mean pass recomputes the probabilities tile by
+    tile, sums the heads and writes the mean once.
+    """
+    return _Attention.apply(q, k, v, pad_interval, True)

@@ -9,13 +9,19 @@ Phases, each printing its own lines:
 2. build every kernel of ``attentionshift_torch/csrc`` with nvcc for
    sm_90a, one nvcc per source, all at once;
 3. each kernel at the bench shapes against its plain PyTorch version on
-   the card, with the tolerance stated beside each check;
+   the card, with the tolerance stated beside each check (the two
+   attention backward kernels included: gap columns of dK/dV exactly 0);
 4. ``AttnShiftDetector.seed_pseudo_gt`` at the full width of
    ``configs/attnshift_voc12aug.py`` (ViT-S) with seeded random weights,
    800x1344, bf16: output shapes, finite maps, and kernel launch counts
-   of the main path (exactly 7/5/1/1 per image);
-5. times with CUDA events: every kernel, its plain version, the library
-   call where one exists, and ms/img of the slice.
+   of that path (exactly 7/5/1/1 per image);
+5. the train path: three steps of ``make_train_step`` on the same model
+   and inputs (bf16, activation checkpointing on, layer-decay AdamW):
+   finite losses with the expected keys, a non-zero gradient in every
+   submodule, parameters changed, and the exact launch counts per step;
+6. times with CUDA events: every kernel, its plain version, the library
+   call where one exists, ms/img of the pseudo-label path and ms per
+   train step, each with one profiled call.
 
 A failing phase raises and the script exits non-zero. The line before
 the last is the kernel table as JSON; the last line is
@@ -154,7 +160,10 @@ def kernel_inputs(dev, gen):
            & (xs[None] >= lo[:, 1, None, None]) & (xs[None] < lo[:, 1, None, None] + 60))
     mask = box.reshape(g, n).float()
     mask[N_VALID:] = 0.0
-    return dict(qkv=qkv, masks=masks, prot0=prot0, mask=mask, f=f)
+    # the attention's upstream gradient: rows in the gap are zero in the model
+    g_out = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    g_out[:, :, PAD_GAP[0]:PAD_GAP[1]] = 0
+    return dict(qkv=qkv, g_out=g_out, masks=masks, prot0=prot0, mask=mask, f=f)
 
 
 def phase_kernels(results: dict, inp: dict):
@@ -190,6 +199,8 @@ def phase_kernels(results: dict, inp: dict):
     e2 = max_err(out2, ref_out)
     expect("attention_plain.out", e2, out_tol, why_out)
     results["attention_plain"] = dict(max_abs_err=e2)
+
+    phase_backward_kernels(results, inp)
 
     masks = inp["masks"]
     ref_lab = ccl.connected_components(masks, 64)
@@ -234,6 +245,45 @@ def phase_kernels(results: dict, inp: dict):
             raise AssertionError(f"meanshift bf16 check cannot see {name}: {ctl_p}, {ctl_s}")
     # the main path's mode (bf16 dot operands)
     results["meanshift_fixpoint"] = dict(max_abs_err=errs[-1])
+
+
+def phase_backward_kernels(results: dict, inp: dict):
+    """Both attention backward kernels, through the attention ops'
+    autograd, against the plain backward at the bench shape."""
+    import torch
+
+    from attentionshift_torch.ops import attention
+
+    q, k, v = inp["qkv"]
+    g = inp["g_out"]
+    want = attention.attention_backward_reference(q, k, v, g, PAD_GAP)
+    no_gap = attention.attention_backward_reference(q, k, v, g, None)
+    errs = {}
+    for op in (attention.attention_no_capture, attention.attention_with_capture):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = op(*leaves, PAD_GAP)
+        out = out[0] if isinstance(out, tuple) else out
+        got = torch.autograd.grad(out, leaves, g)
+        sync()
+        why = ("4 bf16 ulps of the largest gradient: bf16 gradients, and the kernels normalise "
+               "with the forward's row statistic and take D from the bf16 out")
+        for name, a, b, c in zip(("dq", "dk", "dv"), got, want, no_gap):
+            tol = bf16_ulps(b, 4)
+            e = max_err(a, b)
+            expect(f"attention_bwd.{op.__name__}.{name}", e, tol, why)
+            errs[name] = max(errs.get(name, 0.0), e)
+            # control: a plain backward that ignores the gap must fail the limit
+            ctl = max_err(a, c)
+            log(f"[check] attention_bwd.{name} control (plain backward without the gap): "
+                f"max_abs_err {ctl:.3e} must exceed {tol:.1e}: {'ok' if ctl > tol else 'FAIL'}")
+            if not ctl > tol:
+                raise AssertionError(f"attention_bwd.{name} check cannot see the pad gap")
+        for name, a in (("dk", got[1]), ("dv", got[2])):
+            gap = float(a[:, :, PAD_GAP[0]:PAD_GAP[1]].float().abs().max())
+            expect(f"attention_bwd.{op.__name__}.{name}.gap_columns", gap, 0.0,
+                   "pad-gap columns carry exactly 0")
+    results["attention_bwd_dq"] = dict(max_abs_err=errs["dq"])
+    results["attention_bwd_dkv"] = dict(max_abs_err=max(errs["dk"], errs["dv"]))
 
 
 def slice_inputs(h, w, g, n_valid, dev):
@@ -337,7 +387,7 @@ def phase_main_path(dev):
     launches = {name: k.launches for name, k in KERNELS.items()}
     log(f"[main] launches per image: {launches}")
     want = {"attention_capture": CAM_LAYERS, "attention_plain": 12 - CAM_LAYERS,
-            "ccl_batch": 1, "meanshift_fixpoint": 1}
+            "attention_bwd_dq": 0, "attention_bwd_dkv": 0, "ccl_batch": 1, "meanshift_fixpoint": 1}
     if launches != want:
         raise AssertionError(f"main path launches {launches} != {want}")
     check_outputs(out, H_IMG, W_IMG, MAX_GT, N_VALID)
@@ -345,6 +395,102 @@ def phase_main_path(dev):
     log(f"[main] outputs ok: boxes {out['pseudo_gt_bboxes'][0, :N_VALID].tolist()}, "
         f"valid semantic centers {nvalid_parts}, loss_mil {float(out['loss_mil']):.4f}")
     return model, inp, gen, launches
+
+
+LOSS_KEYS = {"loss_mil", "loss_rpn_cls", "loss_rpn_bbox", "loss_point_cls", "loss_point",
+             "pos_point_acc", "loss_cls", "loss_bbox", "acc", "loss_mask"}
+SUBMODULES = ("backbone", "neck", "rpn_head", "mil_head", "bbox_head", "mask_head")
+TRAIN_STEPS = 3
+# per train step: the forward's 7 capture + 5 plain blocks, the checkpoint
+# recompute of all 12 blocks through the plain kernel (the captured matrix
+# is not needed again), one backward pair per block, CCL and mean-shift
+TRAIN_LAUNCHES = {"attention_capture": CAM_LAYERS, "attention_plain": (12 - CAM_LAYERS) + 12,
+                  "attention_bwd_dq": 12, "attention_bwd_dkv": 12, "ccl_batch": 1,
+                  "meanshift_fixpoint": 1}
+
+
+def phase_train_path(dev, model, inp):
+    """Three full-width bf16 train steps; launch counts of that run."""
+    import torch
+
+    from attentionshift_torch.ops._build import KERNELS, reset_launches
+    from attentionshift_torch.train import TrainState, build_optimizer, make_train_step
+
+    if not (model.backbone.use_remat and model.backbone.drop_path_rate > 0):
+        raise AssertionError("the train path runs with checkpointing and drop path on")
+    opt = build_optimizer(model, base_lr=1e-4, steps_per_epoch=100, accumulate_steps=1, depth=12)
+    state = TrainState.create(model, opt)
+    step_fn = make_train_step(model)
+    batch = dict(zip(("img", "gt_points", "gt_labels", "gt_valid", "img_wh"), inp))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    grad_top = {m: 0.0 for m in SUBMODULES}
+    inner = opt.step
+
+    def spy(grads):
+        for name, g in zip(opt.names, grads):
+            if g is not None:
+                m = name.split(".", 1)[0]
+                grad_top[m] = max(grad_top[m], float(g.float().abs().max()))
+        return inner(grads)
+
+    opt.step = spy
+    reset_launches()
+    for i in range(TRAIN_STEPS):
+        state, metrics = step_fn(state, batch, generator=gen)
+        sync()
+        vals = {k: float(v) for k, v in metrics.items()}
+        log(f"[train] step {i + 1}: " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(vals.items())))
+        if set(vals) != LOSS_KEYS | {"loss_total"}:
+            raise AssertionError(f"train step loss keys {sorted(vals)}")
+        bad = [k for k, v in vals.items() if v != v or abs(v) == float("inf")]
+        if bad:
+            raise AssertionError(f"train step {i + 1}: non-finite {bad}")
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    opt.step = inner
+    log(f"[train] launches over {TRAIN_STEPS} steps: {launches}")
+    want = {k: TRAIN_STEPS * v for k, v in TRAIN_LAUNCHES.items()}
+    if launches != want:
+        raise AssertionError(f"train path launches {launches} != {want}")
+    log(f"[train] largest |gradient| per submodule: {grad_top}")
+    dead = [m for m, v in grad_top.items() if not v > 0]
+    if dead:
+        raise AssertionError(f"no gradient reached {dead}")
+    if state.step != TRAIN_STEPS or opt.count != TRAIN_STEPS or opt.total_notfinite:
+        raise AssertionError(f"step counters: {state.step}, {opt.count}, {opt.total_notfinite}")
+    moved = {m: 0 for m in SUBMODULES}
+    for n, p in model.named_parameters():
+        moved[n.split(".", 1)[0]] += int(not torch.equal(p.detach(), before[n]))
+        if not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"parameter {n} is not finite after the steps")
+    log(f"[train] parameter tensors changed per submodule: {moved}")
+    if not all(moved.values()):
+        raise AssertionError(f"parameters did not change: {moved}")
+    return state, step_fn, batch, gen, launches
+
+
+def phase_train_times(state, step_fn, batch, gen):
+    """ms per train step (host clock over steps ending in synchronize),
+    then one profiled step: device busy share and peak device memory."""
+    import torch
+
+    def run():
+        step_fn(state, batch, generator=gen)
+
+    reps = 3
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run()
+    sync()
+    ms_step = (time.perf_counter() - t0) / reps * 1e3
+    log(f"[time] train step at {H_IMG}x{W_IMG}, batch 1, bf16, ViT-S, checkpointing on: "
+        f"{ms_step:.2f} ms/step (host clock over {reps} steps ending in synchronize)")
+    torch.cuda.reset_peak_memory_stats()
+    profile_slice(run, ms_step, what="train step")
+    log(f"[time] train step peak device memory: "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB allocated")
+    return ms_step
 
 
 def phase_times(results: dict, inp: dict, model, slice_inp, gen):
@@ -373,6 +519,26 @@ def phase_times(results: dict, inp: dict, model, slice_inp, gen):
             library_ms=cuda_time(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias)),
             bytes=qkv_bytes + q.numel() * 2, ops=attn_flops, peak=PEAK_BF16),
     }
+    g = inp["g_out"]
+    out, lse = attention.flash_forward(q, k, v, PAD_GAP, with_lse=True)
+    _, dd = attention.attention_backward_dq(q, k, v, out, lse, g, PAD_GAP)
+    # one plain backward computes all three gradients: its time stands beside
+    # both kernels; so does the library's, the backward of SDPA with the mask
+    plain_bwd = cuda_time(lambda: attention.attention_backward_reference(q, k, v, g, PAD_GAP),
+                          reps=3)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=bias)
+    lib_bwd = cuda_time(lambda: torch.autograd.grad(sdpa_out, leaves, g, retain_graph=True))
+    del sdpa_out, leaves
+    stat_bytes = 2 * b * h * t * 4  # the row statistic and D, f32
+    times["attention_bwd_dq"] = dict(
+        ms=cuda_time(lambda: attention.attention_backward_dq(q, k, v, out, lse, g, PAD_GAP)),
+        plain_ms=plain_bwd, library_ms=lib_bwd,
+        bytes=6 * q.numel() * 2 + stat_bytes, ops=6.0 * b * h * t * t * d, peak=PEAK_BF16)
+    times["attention_bwd_dkv"] = dict(
+        ms=cuda_time(lambda: attention.attention_backward_dkv(q, k, v, lse, dd, g, PAD_GAP)),
+        plain_ms=plain_bwd, library_ms=lib_bwd,
+        bytes=6 * q.numel() * 2 + stat_bytes, ops=8.0 * b * h * t * t * d, peak=PEAK_BF16)
     masks = inp["masks"]
     # the sweeps each plane runs to its fixpoint: the data-dependent work
     sweeps = ccl.connected_components(masks, 64, return_sweeps=True)[1].tolist()
@@ -410,7 +576,7 @@ def phase_times(results: dict, inp: dict, model, slice_inp, gen):
 
     run()
     sync()
-    reps = 5
+    reps = 3
     t0 = time.perf_counter()
     for _ in range(reps):
         run()
@@ -422,7 +588,7 @@ def phase_times(results: dict, inp: dict, model, slice_inp, gen):
     return ms_img
 
 
-def profile_slice(run, ms_img: float, top: int = 12) -> None:
+def profile_slice(run, ms_img: float, top: int = 12, what: str = "call") -> None:
     """Where one call's time goes: device time by kernel (torch.profiler)
     and the device's busy share of the call's wall time."""
     import torch
@@ -438,7 +604,7 @@ def profile_slice(run, ms_img: float, top: int = 12) -> None:
     if dev_ms <= 0:
         log("[profile] device time: not measured (the profiler recorded no device events)")
         return
-    log(f"[profile] one call: wall {wall_ms:.2f} ms (unprofiled {ms_img:.2f}), device busy "
+    log(f"[profile] one {what}: wall {wall_ms:.2f} ms (unprofiled {ms_img:.2f}), device busy "
         f"{dev_ms:.2f} ms = {dev_ms / wall_ms:.1%} of wall, {len(events)} kernel names")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[profile]   device {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
@@ -464,13 +630,19 @@ def main() -> int:
     inp = kernel_inputs(dev, torch.Generator(device=dev).manual_seed(0))
     phase_kernels(results, inp)
     phase_small_reference(dev)
-    model, slice_inp, gen, launches = phase_main_path(dev)
+    model, slice_inp, gen, seed_launches = phase_main_path(dev)
+    state, step_fn, batch, train_gen, train_launches = phase_train_path(dev, model, slice_inp)
     phase_times(results, inp, model, slice_inp, gen)
+    phase_train_times(state, step_fn, batch, train_gen)
     table = []
     for name, kern in KERNELS.items():
         r = results[name]
+        # launches: the pseudo-label path's one call plus the train path's steps
         table.append(dict(name=name, route="cuda", source=f"attentionshift_torch/csrc/{kern.source}.cu",
-                          replaces=kern.replaces, launches=launches[name],
+                          replaces=kern.replaces,
+                          launches=seed_launches[name] + train_launches[name],
+                          launches_seed_pseudo_gt=seed_launches[name],
+                          launches_train_steps=train_launches[name],
                           max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                           bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                           library_ms=r["library_ms"]))

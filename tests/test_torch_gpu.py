@@ -84,3 +84,35 @@ def test_meanshift_kernel_on_card(cuda):
         got = meanshift_kernel.cosine_shift_fixpoint(prot0, mask, f, matmul_dtype=mm)
         for a, b in zip(got, want):
             torch.testing.assert_close(a, b, atol=tol * float(b.abs().max()), rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gap", [(250, 270), None])
+def test_attention_backward_kernels_on_card(cuda, gap):
+    """Both backward kernels (through the autograd Functions) vs the plain
+    backward at a ragged T (300 = 4 tiles of 64 + 44), with and without a
+    gap. bf16 gradients: 4 bf16 ulps of each gradient's largest entry (the
+    kernels normalise with the forward's row statistic and take D from the
+    bf16 ``out``; the plain version recomputes both in f32). Gap columns of
+    dk and dv are exactly zero, and a plain backward that ignores the gap
+    exceeds the limit."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v, g = (torch.randn((2, 3, 300, 64), generator=gen, device=cuda).bfloat16()
+                  for _ in range(4))
+    want = attention.attention_backward_reference(q, k, v, g, gap)
+    for op in (attention.attention_no_capture, attention.attention_with_capture):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = op(*leaves, gap)
+        out = out[0] if isinstance(out, tuple) else out
+        got = torch.autograd.grad(out, leaves, g)
+        for name, a, b in zip("qkv", got, want):
+            top = float(b.float().abs().max())
+            tol = 4 * 2.0 ** (np.floor(np.log2(top)) - 7)
+            torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=0, msg=f"d{name}")
+        if gap is not None:
+            assert float(got[1][:, :, gap[0]:gap[1]].float().abs().max()) == 0.0
+            assert float(got[2][:, :, gap[0]:gap[1]].float().abs().max()) == 0.0
+            no_gap = attention.attention_backward_reference(q, k, v, g, None)
+            top = float(want[2].float().abs().max())
+            assert float((got[2].float() - no_gap[2].float()).abs().max()) > \
+                4 * 2.0 ** (np.floor(np.log2(top)) - 7)

@@ -71,6 +71,55 @@ def test_attention_plain_matches_pallas_kernel(pad):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
+@pytest.mark.parametrize("pad", [None, (30, 37)])
+@pytest.mark.parametrize("op", ["no_capture", "with_capture"])
+def test_attention_backward_matches_pallas_kernels(op, pad):
+    """The port's autograd Functions (plain backward on the CPU) vs
+    ``jax.vjp`` through ``_bwd_kernel_dq`` / ``_bwd_kernel_dkv``
+    (ops/attention.py:364, :402) in interpret mode, f32, T=37 (ragged
+    against the kernels' 128-row tiles). Upstream gradient rows in the gap
+    are zero, as in the model. 3e-5 as the JAX package's own test: the
+    kernels' constant-shift exp2 softmax against the row-max softmax.
+    Gap columns of dk and dv are exactly zero on both sides; the captured
+    mean carries no gradient."""
+    from attentionshift_tpu.ops import attention as jatt
+
+    rs = np.random.RandomState(3)
+    q, k, v, g = (rs.randn(2, 3, 37, 8).astype(np.float32) for _ in range(4))
+    if pad is not None:
+        g[:, :, pad[0]:pad[1]] = 0.0
+    if op == "no_capture":
+        jfn = lambda q, k, v: jatt.attention_no_capture(q, k, v, True, True, pad)  # noqa: E731
+        tfn = attention.attention_no_capture
+    else:
+        jfn = lambda q, k, v: jatt.attention_with_capture(q, k, v, True, True, pad)[0]  # noqa: E731
+        tfn = lambda q, k, v, p: attention.attention_with_capture(q, k, v, p)[0]  # noqa: E731
+    want = jax.vjp(jfn, *map(jnp.asarray, (q, k, v)))[1](jnp.asarray(g))
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    got = torch.autograd.grad(tfn(*leaves, pad), leaves, torch.from_numpy(g))
+    for name, a, b in zip("qkv", got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=3e-5, err_msg=f"d{name}")
+    if pad is not None:
+        for a, b in zip(got[1:], want[1:]):
+            assert float(a[:, :, pad[0]:pad[1]].abs().max()) == 0.0
+            assert float(jnp.abs(b[:, :, pad[0]:pad[1]]).max()) == 0.0
+    if op == "with_capture":
+        _, mean = attention.attention_with_capture(*leaves, pad)
+        assert not mean.requires_grad
+
+
+def test_attention_backward_reference_is_the_softmax_gradient():
+    """The plain backward (what the Functions run on the CPU) against
+    PyTorch's autograd through the plain forward, f32, with a gap: 1e-6."""
+    rs = np.random.RandomState(4)
+    q, k, v, g = (torch.from_numpy(rs.randn(1, 2, 50, 64).astype(np.float32)) for _ in range(4))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(attention.attention_reference(*leaves, (20, 30))[0], leaves, g)
+    got = attention.attention_backward_reference(q, k, v, g, (20, 30))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6)
+
+
 @pytest.mark.parametrize("max_iters", [64, 2])
 def test_ccl_matches_pallas_kernel(max_iters):
     """Port plain CCL vs ``_ccl_batch_kernel`` (ops/ccl.py:200) on 50x84
@@ -142,5 +191,9 @@ def test_kernel_wrappers_count_only_their_launches():
     attention.attention_no_capture(q, k, v)
     ccl.connected_components_batch(torch.ones((1, 4, 4), dtype=torch.bool))
     assert all(kr.launches == 0 for kr in KERNELS.values())
+    q.requires_grad_(True)
+    attention.attention_no_capture(q, k, v).sum().backward()
+    assert all(kr.launches == 0 for kr in KERNELS.values())
     assert {kr.name for kr in KERNELS.values()} == {
-        "attention_capture", "attention_plain", "ccl_batch", "meanshift_fixpoint"}
+        "attention_capture", "attention_plain", "attention_bwd_dq", "attention_bwd_dkv",
+        "ccl_batch", "meanshift_fixpoint"}

@@ -80,27 +80,36 @@ def test_converter_random_tree_loads_and_maps_layouts():
     bad = {"params": {**variables["params"], "mystery": {"kernel": np.zeros((2, 2))}}}
     with pytest.raises(KeyError, match="mystery"):
         flax_to_torch(bad)
-    missing = {"params": {"backbone": p}, "batch_stats": variables["batch_stats"]}
+    np.testing.assert_array_equal(
+        sd["neck.lateral.2.weight"].numpy(),
+        np.asarray(variables["params"]["neck"]["lateral_2"]["kernel"])[0, 0].T)
+    np.testing.assert_array_equal(
+        sd["rpn_head.rpn_conv.weight"].numpy(),
+        np.asarray(variables["params"]["rpn_head"]["rpn_conv"]["kernel"]))
+    np.testing.assert_array_equal(
+        sd["bbox_head.det_token"].numpy(), np.asarray(variables["params"]["bbox_head"]["det_token"]))
+    missing = {"params": {k: v for k, v in variables["params"].items() if k != "mil_head"},
+               "batch_stats": variables["batch_stats"]}
     with pytest.raises(RuntimeError, match="mil_head"):
         model.load_state_dict(flax_to_torch(missing), strict=True)
 
 
 def test_converter_loads_ckpt3k_with_train_subtrees_skipped():
-    """The whole trained fixture (train-time neck/RPN/box/mask heads
-    included) converts; those subtrees are skipped by name."""
-    from attentionshift_torch.convert import SKIPPED_SUBTREES, load_flax
+    """The whole trained fixture converts completely: the train-time
+    neck/RPN/box/mask heads are mapped now, nothing is skipped (the name
+    dates from when they were) and the strict load finds every key."""
+    from attentionshift_torch.convert import MAPPED_SUBTREES, SKIPPED_SUBTREES, load_flax
     from attentionshift_torch.models import AttnShiftDetector
-    from attentionshift_tpu.train.checkpoint import restore_params
-    from test_torch_support import CKPT3K, VITS
+    from test_torch_support import VITS
 
-    tree = jax.tree.map(lambda x: np.asarray(x, np.float32), restore_params(CKPT3K))
-    assert {"neck", "rpn_head", "bbox_head", "mask_head"} <= set(tree["params"])
-    assert all(k.startswith(SKIPPED_SUBTREES) or k in ("backbone", "mil_head")
-               for k in tree["params"])
+    tree = ckpt3k_variables()
+    assert set(tree["params"]) == set(MAPPED_SUBTREES)
+    assert not any(k.startswith(SKIPPED_SUBTREES) for k in tree["params"])
     model = load_flax(AttnShiftDetector(device="cpu", **VITS), tree)
     w = tree["params"]["mil_head"]["fc1"]["kernel"]
     np.testing.assert_array_equal(model.mil_head.fc1.weight.detach().numpy(), w.T)
-    assert ckpt3k_variables()["params"].keys() == {"backbone", "mil_head"}
+    w = tree["params"]["mask_head"]["conv_logits"]["kernel"]
+    np.testing.assert_array_equal(model.mask_head.conv_logits.weight.detach().numpy(), w[0, 0].T)
 
 
 # -------------------------------------------------------------- image / ops

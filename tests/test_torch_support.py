@@ -70,15 +70,13 @@ def jax_model(**kw):
 
 
 def random_variables(model, args, seed: int = 0, scale: float = 0.05):
-    """Flax variables of ``model.seed_pseudo_gt`` filled from numpy:
-    N(0, scale) matrices/tokens/biases, 1 + N(0, 0.1) norm scales,
-    positive running variances."""
-    from attentionshift_tpu.models.detector import AttnShiftDetector
-
+    """Flax variables of the whole model (the train forward's parameter
+    tree) filled from numpy: N(0, scale) matrices/tokens/biases,
+    1 + N(0, 0.1) norm scales, positive running variances."""
     key = jax.random.PRNGKey(0)
     shapes = jax.eval_shape(
-        lambda: model.init({"params": key, "sampling": key}, *map(jnp.asarray, args),
-                           method=AttnShiftDetector.seed_pseudo_gt))
+        lambda: model.init({"params": key, "sampling": key, "dropout": key},
+                           *map(jnp.asarray, args)))
     rs = np.random.RandomState(seed)
 
     def fill(path, s):
@@ -93,14 +91,11 @@ def random_variables(model, args, seed: int = 0, scale: float = 0.05):
 
 
 def ckpt3k_variables():
-    """The committed ckpt3k fixture restored as in bench.py, f32, limited
-    to the pseudo-label path's subtrees (backbone + MIL head)."""
+    """The committed ckpt3k fixture restored as in bench.py, f32, every
+    subtree (backbone, MIL head, neck, RPN, box and mask heads)."""
     from attentionshift_tpu.train.checkpoint import restore_params
 
-    tree = restore_params(CKPT3K)
-    f32 = jax.tree.map(lambda x: np.asarray(x, np.float32), tree)
-    return {"params": {k: f32["params"][k] for k in ("backbone", "mil_head")},
-            "batch_stats": f32["batch_stats"]}
+    return jax.tree.map(lambda x: np.asarray(x, np.float32), restore_params(CKPT3K))
 
 
 def torch_model(variables, **kw):
@@ -208,3 +203,249 @@ def check_slice(weights: str, cam_stride: int, map_stride: int, seed: int = 0):
     pg = got["seed_pseudo_gt"]
     assert (pg["mask_points_labels"][0, 3] == 2).all()
     assert (pg["pseudo_gt_masks"][0, 3] == 0).all()
+
+
+# ------------------------------------------------------------- train step
+# small RPN/RCNN sizes for the whole-step tests (both packages take them)
+TRAIN_SIZES = dict(num_proposals=100, rpn_nms_pre=200, rcnn_samples=64, mask_sample_cap=16)
+# discrete outputs of the train forward, compared exactly
+AUX_EXACT = ("pseudo_boxes", "pseudo_valid", "pseudo_masks", "best_idx", "semantic_centers",
+             "semantic_valid")
+
+
+def engine_draws(rng, best_cams, gt_points, stride: int, img_hw):
+    """``replay_draws`` from the engine's own key (batch 1)."""
+    from attentionshift_tpu.ops.image import resize
+    from attentionshift_tpu.pseudo.cam import norm_attns
+    from attentionshift_tpu.pseudo.refine import sample_fgbg_points
+
+    k_refine, k_points = jax.random.split(jax.random.split(rng, 1)[0])
+    h, w = img_hw
+    cams = resize(jnp.asarray(best_cams[0]), (h // stride, w // stride))
+    pfg, pbg = sample_fgbg_points(k_refine, norm_attns(cams), jnp.asarray(gt_points[0]),
+                                  0.2, 0.1, 20, stride=stride)
+    g = gt_points.shape[1]
+    n = (h // stride) * (w // stride)
+    gumbel = np.stack([np.asarray(jax.random.gumbel(k, (n,)))
+                       for k in jax.random.split(k_points, g)])
+    return dict(points_fg=torch.from_numpy(np.array(pfg)), points_bg=torch.from_numpy(np.array(pbg)),
+                gumbel=torch.from_numpy(gumbel))
+
+
+def replay_train_draws(model, variables, key, best_cams, gt_points, stride, img_hw, n_anchors,
+                       n_rois, n_samples):
+    """Every random draw of one JAX train forward (batch 1), for the port:
+    ``make_rng("sampling")`` -> ``split(rng, 3)`` (detector.py:253) into the
+    RPN sampler (rpn.py:92, assign.py:116), the RCNN sampler
+    (detector.py:596, assign.py:144; its ordering score reuses the
+    positives' key, detector.py:609), the mask pick (detector.py:642,649)
+    and the engine."""
+    rng = model.apply(variables, method=lambda m: m.make_rng("sampling"), rngs={"sampling": key})
+    k_rpn, k_rcnn, k_engine = jax.random.split(rng, 3)
+    u = lambda k, n: torch.from_numpy(np.array(jax.random.uniform(k, (n,))))  # noqa: E731
+    rp, rn = jax.random.split(jax.random.split(k_rpn, 1)[0])
+    cp, cn = jax.random.split(jax.random.split(k_rcnn, 1)[0])
+    km = jax.random.split(jax.random.fold_in(k_rcnn, 1), 1)[0]
+    draws = engine_draws(k_engine, best_cams, gt_points, stride, img_hw)
+    draws.update(rpn_u_pos=u(rp, n_anchors), rpn_u_neg=u(rn, n_anchors),
+                 rcnn_u_pos=u(cp, n_rois), rcnn_u_neg=u(cn, n_rois), mask_u=u(km, n_samples))
+    return [draws]
+
+
+class TrainCase:
+    """Both packages' detectors on the same weights and inputs, with the
+    JAX train forward's value-and-grad jitted once."""
+
+    def __init__(self, weights: str, port_remat: bool):
+        from attentionshift_tpu.models.detector import AttnShiftDetector as JDet
+
+        if weights == "random":
+            kw, (h, w), make = dict(TINY), (64, 96), blob_inputs
+        else:
+            kw, (h, w), make = dict(VITS), (128, 192), blob_inputs
+        g = 4
+        kw.update(max_gt=g, pad_tokens_to=128, drop_path_rate=0.0, **TRAIN_SIZES)
+        self.args = make(h, w, g, 3, seed=0)
+        self.hw, self.g, self.kw = (h, w), g, kw
+        self.jmodel = jax_model(**kw)
+        variables = (random_variables(self.jmodel, self.args) if weights == "random"
+                     else ckpt3k_variables())
+        self.variables = jax.tree.map(jnp.asarray, variables)
+        jargs = tuple(map(jnp.asarray, self.args))
+        bs = self.variables["batch_stats"]
+
+        def loss_fn(params, key):
+            losses, aux = self.jmodel.apply({"params": params, "batch_stats": bs}, *jargs,
+                                            rngs={"sampling": key})
+            total = sum(v for k, v in losses.items() if k.startswith("loss"))
+            return total, (losses, aux)
+
+        self.jgrad = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+        self.jdebug = jax.jit(lambda v, k: self.jmodel.apply(
+            v, *jargs, method=JDet.seed_debug, rngs={"sampling": k}))
+        self.port = torch_model(variables, use_remat=port_remat, **kw)
+        self.targs = to_torch(*self.args)
+        sizes = [(h // s, w // s) for s in (4, 8, 16, 32)]
+        sizes.append((-(-sizes[-1][0] // 2), -(-sizes[-1][1] // 2)))
+        self.n_anchors = 3 * sum(a * b for a, b in sizes)
+
+    def set_params(self, params):
+        """Load a flax ``params`` tree into the port (batch stats kept)."""
+        from attentionshift_torch.convert import load_flax
+
+        load_flax(self.port, {"params": jax.tree.map(np.asarray, params),
+                              "batch_stats": jax.tree.map(np.asarray, self.variables["batch_stats"])})
+
+    def draws(self, params, key):
+        v = {"params": params, "batch_stats": self.variables["batch_stats"]}
+        dbg = self.jdebug(v, key)
+        return replay_train_draws(
+            self.jmodel, v, key, np.asarray(dbg["best_cams"]), self.args[1],
+            self.kw.get("seed_map_stride", 4), self.hw, self.n_anchors,
+            self.g + self.kw["num_proposals"], self.kw["rcnn_samples"])
+
+    def batch(self):
+        return dict(zip(("img", "gt_points", "gt_labels", "gt_valid", "img_wh"), self.targs))
+
+
+def torch_tree(params) -> dict:
+    """A flax ``params``-shaped tree (gradients, Adam moments) under the
+    port's parameter names and layouts."""
+    from attentionshift_torch.convert import flax_to_torch
+
+    return flax_to_torch({"params": jax.tree.map(np.asarray, params)})
+
+
+def check_losses_and_aux(losses, aux, jlosses, jaux, tol=2e-4):
+    """Discrete outputs exactly, then every loss: ``tol`` relative to the
+    larger of 1 and the value (f32 sums in another order through the
+    model; the MIL bag loss as ``ABS_TOL`` explains)."""
+    for name in AUX_EXACT:
+        np.testing.assert_array_equal(aux[name].numpy(), np.asarray(jaux[name]), err_msg=name)
+    close(aux["map_fg"], jaux["map_fg"], ABS_TOL["map_cos_fg"], what="map_fg")
+    assert set(losses) == set(jlosses)
+    for name, ref in jlosses.items():
+        ref = float(ref)
+        t = ABS_TOL["loss_mil"] if name == "loss_mil" else tol * max(1.0, abs(ref))
+        close(float(losses[name]), ref, t, what=name)
+
+
+def check_tree(got: dict, want: dict, rel: float, what: str, group: str | None = None):
+    """Per tensor: ``rel`` times the reference's largest magnitude, and
+    never below 1e-6 of the whole tree's largest (a tensor whose gradient
+    is zero analytically holds only rounding noise). Tensors whose name
+    starts with ``group`` share one scale, the group's largest."""
+    assert set(got) == set(want), what
+    floor = 1e-6 * max(float(v.abs().max()) for v in want.values())
+    shared = max([float(v.abs().max()) for n, v in want.items() if group and n.startswith(group)],
+                 default=0.0)
+    for name, ref in want.items():
+        ref = ref.numpy()
+        top = shared if group and name.startswith(group) else float(np.abs(ref).max())
+        close(got[name].numpy(), ref, rel * top + floor, what=f"{what}[{name}]")
+
+
+# no warmup and a large lr, so that an update is far above f32 rounding
+TRAIN_OPT = dict(base_lr=1e-3, steps_per_epoch=100, warmup_iters=0)
+
+
+def adam_state(opt_state):
+    import optax
+
+    found = [x for x in jax.tree_util.tree_leaves(
+        opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+        if isinstance(x, optax.ScaleByAdamState)]
+    assert len(found) == 1
+    return found[0]
+
+
+def run_both(case, opt_kw, accumulate_steps, n_steps):
+    """n_steps of both packages from the case's initial weights; yields
+    per step (port metrics, port grads, jax losses, jax grads, jax aux)."""
+    from attentionshift_torch.train import TrainState, build_optimizer, make_train_step
+    from attentionshift_tpu.train import TrainState as JState
+    from attentionshift_tpu.train import build_optimizer as jbuild
+
+    params = case.variables["params"]
+    case.set_params(params)
+    jstate = JState.create(params, jbuild(params, accumulate_steps=accumulate_steps, **opt_kw))
+    opt = build_optimizer(case.port, accumulate_steps=accumulate_steps, **opt_kw)
+    state = TrainState.create(case.port, opt)
+    step_fn = make_train_step(case.port)
+    # a second port optimizer over a copy of the parameters, fed the JAX
+    # gradients: the optimizer alone against optax, free of gradient noise
+    twin = build_optimizer([(n, p.detach().clone()) for n, p in case.port.named_parameters()],
+                           accumulate_steps=accumulate_steps, **opt_kw)
+    seen = []
+    grads_box = []
+    orig = opt.step
+    opt.step = lambda grads: (grads_box.append([g.clone() for g in grads]), orig(grads))[1]
+    for i in range(n_steps):
+        key = jax.random.PRNGKey(10 + i)
+        draws = case.draws(jstate.params, key)
+        (_, (jlosses, jaux)), jgrads = case.jgrad(jstate.params, key)
+        jstate = jstate.apply_gradients(jgrads)
+        same = torch_tree(jgrads)
+        twin.step([same[n] for n in twin.names])
+        check_optimizer(twin, jstate, opt_kw["base_lr"])
+        model_out = {}
+        fwd = case.port.forward
+
+        def spy(*a, **k):
+            model_out["losses"], model_out["aux"] = fwd(*a, **k)
+            return model_out["losses"], model_out["aux"]
+
+        case.port.forward = spy
+        count = opt.count
+        try:
+            state, metrics = step_fn(state, case.batch(), draws=draws)
+        finally:
+            del case.port.forward
+        grads = dict(zip(opt.names, grads_box[-1]))
+        if opt.count > count:
+            check_params(case, opt, jstate, opt_kw["base_lr"])
+        case.set_params(jstate.params)
+        seen.append((metrics, model_out["aux"], grads, jlosses, jgrads, jaux))
+    return state, opt, jstate, seen
+
+
+def check_params(case, opt, jstate, base_lr):
+    """The port's parameters after one update of its own step against the
+    JAX ones: within 2.2 lr everywhere. An Adam update is lr * m / sqrt(v):
+    where a gradient is rounding noise (far below its tensor's scale, or
+    zero analytically) its sign is noise and the update may differ by the
+    whole lr, so the tight comparison is ``check_optimizer``'s, on equal
+    gradients."""
+    want = torch_tree(jstate.params)
+    got = {n: p.detach() for n, p in case.port.named_parameters()}
+    assert set(got) == set(want)
+    for name, ref in want.items():
+        lr = base_lr * opt.scales[opt.names.index(name)]
+        assert float((got[name] - ref).abs().max()) <= 2.2 * lr, name
+
+
+def check_optimizer(opt, jstate, base_lr):
+    """A port optimizer that was fed the JAX gradients against optax:
+    parameters within 1e-3 of the step (lr), moments within 1e-5 of each
+    tensor's largest entry (f32 rounding only)."""
+    want = torch_tree(jstate.params)
+    for name, p in zip(opt.names, opt.params):
+        lr = base_lr * opt.scales[opt.names.index(name)]
+        assert float((p - want[name]).abs().max()) <= 1e-3 * lr + 1e-7, name
+    adam = adam_state(jstate.opt_state)
+    assert opt.count == int(adam.count)
+    check_tree(dict(zip(opt.names, opt.mu)), torch_tree(adam.mu), 1e-5, "mu (same grads)")
+    check_tree(dict(zip(opt.names, opt.nu)), torch_tree(adam.nu), 1e-5, "nu (same grads)")
+
+
+def check_step_outputs(seen, grad_rel=2e-3, group=None):
+    """Every compared step of ``run_both``: discrete outputs exactly, the
+    losses and their total, every parameter's gradient (``grad_rel`` of
+    each tensor's largest entry), none of them identically zero."""
+    for metrics, aux, grads, jlosses, jgrads, jaux in seen:
+        losses = {k: v for k, v in metrics.items() if k != "loss_total"}
+        check_losses_and_aux(losses, aux, jlosses, jaux)
+        total = sum(float(v) for k, v in jlosses.items() if k.startswith("loss"))
+        assert abs(float(metrics["loss_total"]) - total) <= 2e-4 * max(1.0, abs(total)) + 2e-3
+        check_tree(grads, torch_tree(jgrads), grad_rel, "grad", group)
+    assert all(float(g.abs().max()) > 0 for g in seen[0][2].values())
