@@ -1,9 +1,9 @@
 """ViT backbone, FPN, RPN, RoI heads and the detector."""
 
-from .detector import AttnShiftDetector
+from .detector import AttnShiftDetector, TestOutputs
 from .heads import MILHead
 from .layers import Attention, Block, Mlp, PatchEmbed
 from .vit import VisionTransformerDet
 
-__all__ = ["AttnShiftDetector", "MILHead", "Attention", "Block", "Mlp", "PatchEmbed",
+__all__ = ["AttnShiftDetector", "TestOutputs", "MILHead", "Attention", "Block", "Mlp", "PatchEmbed",
            "VisionTransformerDet"]

@@ -1,4 +1,4 @@
-"""AttnShift detector: the train forward and the pseudo-label path.
+"""AttnShift detector: the train forward, the pseudo-label path, inference.
 
 Port of ``AttnShiftDetector`` (``attentionshift_tpu/models/detector.py``):
 
@@ -17,6 +17,13 @@ train (``forward``, the JAX ``__call__``):
   Stage A's selection and Stages B+C build no graph; the MIL bag loss
   keeps its gradient into the backbone.
 
+inference (``simple_test``, ``test_from_feats``, and the stages
+``rpn_test``, ``roi_test``, ``mask_test`` that multi-scale testing calls):
+  backbone without the probability capture (nobody reads the attention
+  at test time) -> FPN + RPN proposals -> box head, per-class decoded
+  boxes clipped to the true image extent -> multiclass NMS -> mask head
+  on the kept boxes. Returns ``TestOutputs`` of fixed shape.
+
 Instances are padded to ``max_gt`` with validity masks, padded
 coordinates are -1 and ignored point labels 2, as in the JAX package.
 The model runs on the card unless built with ``device="cpu"``; random
@@ -26,13 +33,17 @@ draws come from a ``torch.Generator`` or are handed in per image
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn as nn
 
 from ..config import Config
 from ..core.anchors import grid_anchors, grid_anchors_per_level
 from ..core.assign import hungarian_point_assign, max_iou_assign, random_sample
+from ..core.boxes import delta2bbox
 from ..core.losses import l1_loss, sigmoid_focal_loss
+from ..core.postprocess import Detections, multiclass_nms
 from ..device import resolve_device
 from ..ops.image import resize
 from ..ops.roi_align import roi_align
@@ -45,14 +56,22 @@ from .heads import BoxHeadRec, MaskHeadPointSup, MILHead, mask_point_loss
 from .rpn import RPNHead, rpn_loss, rpn_proposals
 from .vit import VisionTransformerDet
 
-__all__ = ["AttnShiftDetector"]
+__all__ = ["AttnShiftDetector", "TestOutputs"]
+
+
+class TestOutputs(NamedTuple):
+    __test__ = False  # not a pytest class
+
+    dets: Detections  # batched: boxes (B, K, 4), scores/labels/valid (B, K)
+    mask_probs: torch.Tensor  # (B, K, 28, 28) sigmoid probs of the predicted class
+
 
 # config keys this port does not read: switches of the JAX package's own
-# kernels and meshes, and the test path, which a later slice adds
+# kernels and meshes, and of variants that are not ported
 _OTHER_PATHS = frozenset({
     "use_pallas_attention", "use_pallas_ccl", "sequence_parallel", "keypoint_feat_channels",
     "num_reppoints_head", "with_deform_sup", "reppoints_num_points", "reppoints_contour_points",
-    "mae_mask_ratio", "test_score_thr", "test_iou_thr", "test_max_per_img",
+    "mae_mask_ratio",
 })
 # variants of the train step that are not ported yet: asking for one raises
 _UNPORTED_VARIANTS = ("with_keypoint_align", "with_reppoints_head", "with_mae_head")
@@ -70,7 +89,9 @@ class AttnShiftDetector(nn.Module):
                  drop_path_rate: float = 0.05, use_remat: bool = True, rpn_channels: int = 256,
                  num_proposals: int = 1000, rpn_nms_pre: int = 2000, rcnn_samples: int = 512,
                  rcnn_pos_fraction: float = 0.25, mask_sample_cap: int = 128,
-                 dtype: torch.dtype = torch.float32, device=None, **other_paths):
+                 test_score_thr: float = 0.05, test_iou_thr: float = 0.5,
+                 test_max_per_img: int = 100, dtype: torch.dtype = torch.float32, device=None,
+                 **other_paths):
         super().__init__()
         for name in _UNPORTED_VARIANTS:
             if other_paths.pop(name, False):
@@ -90,6 +111,8 @@ class AttnShiftDetector(nn.Module):
         self.num_proposals, self.rpn_nms_pre = num_proposals, rpn_nms_pre
         self.rcnn_samples, self.rcnn_pos_fraction = rcnn_samples, rcnn_pos_fraction
         self.mask_sample_cap = mask_sample_cap
+        self.test_score_thr, self.test_iou_thr = test_score_thr, test_iou_thr
+        self.test_max_per_img = test_max_per_img
         self.dtype = dtype
         self.backbone = VisionTransformerDet(
             img_size=img_size, embed_dim=embed_dim, depth=depth, num_heads=num_heads,
@@ -140,9 +163,10 @@ class AttnShiftDetector(nn.Module):
         return self
 
     # ------------------------------------------------------------- shared
-    def _extract(self, img, deterministic: bool = True, generator=None, drop_masks=None):
-        out = self.backbone(img, deterministic=deterministic, generator=generator,
-                            drop_masks=drop_masks)
+    def _extract(self, img, deterministic: bool = True, generator=None, drop_masks=None,
+                 with_features: bool = False, capture: bool = True):
+        out = self.backbone(img, with_features=with_features, deterministic=deterministic,
+                            generator=generator, drop_masks=drop_masks, capture=capture)
         b, h, w, _ = img.shape
         hp, wp = h // 16, w // 16
         # roi source: raw last-block patch tokens, BCHW for roi_align
@@ -437,3 +461,98 @@ class AttnShiftDetector(nn.Module):
             mlabels.clamp(0, self.num_classes - 1).reshape(-1), pvalid.reshape(-1),
             loss_enable=loss_enable)
         return losses
+
+    # ---------------------------------------------------- aug-test stages
+    def _test_proposals(self, out, img_hw):
+        fpn_feats = self.neck(out["feature"])
+        cls_scores, bbox_preds = self.rpn_head(fpn_feats)
+        sizes = [tuple(f.shape[1:3]) for f in fpn_feats]
+        return rpn_proposals(cls_scores, bbox_preds,
+                             grid_anchors_per_level(sizes, device=fpn_feats[0].device), img_hw,
+                             nms_pre=1000, max_per_img=self.num_proposals)
+
+    @torch.no_grad()
+    def rpn_test(self, img):
+        """Backbone + RPN proposals in this augmentation's frame."""
+        b, h, w, _ = img.shape
+        out, _, _ = self._extract(img, with_features=True, capture=False)
+        return self._test_proposals(out, (h, w))
+
+    def _decode_rois(self, roi_map, rois, img_wh):
+        """Box head on (B, R, 4) rois: softmax scores (B, R, C + 1) and the
+        per-class decoded boxes (B, R, C, 4), clipped to the true extent."""
+        b, r = rois.shape[:2]
+        cls_score, bbox_pred, _ = self.bbox_head(self._roi_feats(roi_map, rois, 7))
+        scores = torch.softmax(cls_score.float(), dim=-1).reshape(b, r, -1)
+        deltas = bbox_pred.float().reshape(b, r, self.num_classes, 4)
+        decoded = delta2bbox(rois[:, :, None, :].float(), deltas, stds=(0.1, 0.1, 0.2, 0.2))
+        return scores, self._clip_to_wh(decoded, img_wh)
+
+    @torch.no_grad()
+    def roi_test(self, img, rois, img_wh):
+        """Box head on given rois: softmax scores + per-class decoded boxes.
+
+        ``rois``: (B, R, 4) in this augmentation's frame; ``img_wh``:
+        (B, 2) true (w, h) of that frame before padding. Decoded boxes
+        clip to the true extent, never the padded canvas: the same
+        semantics as ``simple_test``.
+        """
+        _, roi_map, _ = self._extract(img, capture=False)
+        return self._decode_rois(roi_map, rois, img_wh)
+
+    @staticmethod
+    def _clip_to_wh(boxes, img_wh):
+        """Clip (B, ..., 4) xyxy boxes to per-image true (w, h)."""
+        shape = (-1,) + (1,) * (boxes.dim() - 2)
+        zero = boxes.new_zeros(())
+        wmax = img_wh[:, 0].to(boxes.dtype).reshape(shape)
+        hmax = img_wh[:, 1].to(boxes.dtype).reshape(shape)
+        return torch.stack([boxes[..., 0].clamp(zero, wmax), boxes[..., 1].clamp(zero, hmax),
+                            boxes[..., 2].clamp(zero, wmax), boxes[..., 3].clamp(zero, hmax)],
+                           dim=-1)
+
+    def _mask_probs(self, roi_map, rois, labels):
+        """Mask head on (B, R, 4) rois -> (B, R, 28, 28) sigmoid
+        probabilities of each roi's class ``labels`` (B, R)."""
+        b, r = rois.shape[:2]
+        logits = self.mask_head(self._roi_feats(roi_map, rois, 14))  # (B*R, 28, 28, C)
+        probs = torch.sigmoid(logits.float()).reshape(b, r, *logits.shape[1:])
+        sel = labels.long()[..., None, None, None].expand(b, r, *logits.shape[1:3], 1)
+        return torch.gather(probs, -1, sel)[..., 0]
+
+    @torch.no_grad()
+    def mask_test(self, img, rois, labels):
+        """Mask head on given rois -> (B, R, 28, 28) probs of ``labels``."""
+        _, roi_map, _ = self._extract(img, capture=False)
+        return self._mask_probs(roi_map, rois, labels)
+
+    # --------------------------------------------------------------- test
+    @torch.no_grad()
+    def simple_test(self, img, img_wh) -> TestOutputs:
+        """Single-scale inference. ``img_wh``: (B, 2) true (w, h).
+
+        The backbone runs deterministically and without the probability
+        capture: 12 plain attention launches per image on the card.
+        """
+        b, h, w, _ = img.shape
+        out, roi_map, _ = self._extract(img, with_features=True, capture=False)
+        return self.test_from_feats(out, roi_map, img_wh, (h, w))
+
+    def test_from_feats(self, out, roi_map, img_wh, img_hw) -> TestOutputs:
+        """``simple_test`` from precomputed backbone outputs.
+
+        Split out so that CAM tools can differentiate the detection score
+        with respect to the backbone activations: it sets no ``no_grad``
+        itself, and with ``roi_map`` requiring grad the scores and mask
+        probabilities carry a graph back to it (the selections, top-k and
+        NMS, build none).
+        """
+        b = roi_map.shape[0]
+        n = self.num_proposals
+        props = self._test_proposals(out, img_hw)
+        scores, decoded = self._decode_rois(roi_map, props.boxes, img_wh)  # (B, N, C, 4)
+        dets = [multiclass_nms(decoded[i].reshape(n, -1), scores[i], self.test_score_thr,
+                               self.test_iou_thr, self.test_max_per_img,
+                               box_valid=props.valid[i]) for i in range(b)]
+        dets = Detections(*(torch.stack(t) for t in zip(*dets)))
+        return TestOutputs(dets=dets, mask_probs=self._mask_probs(roi_map, dets.boxes, dets.labels))

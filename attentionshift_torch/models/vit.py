@@ -94,8 +94,12 @@ class VisionTransformerDet(nn.Module):
         return torch.bernoulli(keep[:, None, None].expand(-1, 2, batch), generator=generator)
 
     def forward(self, img: torch.Tensor, with_features: bool = False,
-                deterministic: bool = True, generator=None, drop_masks=None) -> dict:
+                deterministic: bool = True, generator=None, drop_masks=None,
+                capture: bool = True) -> dict:
         """img: (B, H, W, 3), H and W divisible by the patch size.
+
+        ``capture=False`` runs every block without the probability output
+        (``attns`` is then None): the test path, which reads no attention.
 
         ``deterministic=False`` is the training forward: drop path from
         ``drop_masks`` ((depth, 2, B) keep masks) or, without them, drawn
@@ -126,7 +130,7 @@ class VisionTransformerDet(nn.Module):
                 x = torch.cat([x, x.new_zeros(b, n_pad, d)], dim=1)
         x = torch.cat([x, pts.expand(b, p, d)], dim=1)
 
-        capture_from = len(self.blocks) - self.capture_layers
+        capture_from = len(self.blocks) - (self.capture_layers if capture else 0)
         if deterministic:
             drop_masks = None
         else:

@@ -38,7 +38,7 @@ class Kernel:
 
     name: str
     source: str  # csrc file stem
-    replaces: str  # file:line of the Pallas kernel in attentionshift_tpu
+    replaces: str  # file:line of the Pallas kernel in the JAX package or its tools
     launches: int = 0
 
 
@@ -56,6 +56,17 @@ KERNELS: dict[str, Kernel] = {
         Kernel("ccl_batch", "ccl", "attentionshift_tpu/ops/ccl.py:200"),
         Kernel("meanshift_fixpoint", "meanshift",
                "attentionshift_tpu/ops/meanshift_kernel.py:47"),
+        # the attention microbenchmark's design variants of the capture kernel
+        Kernel("attention_v2_bf16e", "attention_variants",
+               "tools/analysis/microbench_attention.py:171"),
+        Kernel("attention_v3_nomin", "attention_variants",
+               "tools/analysis/microbench_attention.py:224"),
+        Kernel("attention_v4_mxsum", "attention_variants",
+               "tools/analysis/microbench_attention.py:282"),
+        Kernel("attention_v5_batched", "attention_variants",
+               "tools/analysis/microbench_attention.py:337"),
+        Kernel("attention_v6_fusedsum", "attention_variants",
+               "tools/analysis/microbench_attention.py:393"),
     )
 }
 

@@ -1,8 +1,9 @@
-"""The train step.
+"""The train and eval steps.
 
-Port of ``attentionshift_tpu/train/step.py::make_train_step``: one
-function computes the losses, the gradients of their sum, and applies
-the accumulating optimizer.
+Port of ``attentionshift_tpu/train/step.py``: ``make_train_step``, one
+function that computes the losses, the gradients of their sum, and
+applies the accumulating optimizer; ``make_eval_step``, single-scale
+inference.
 
 Batch contract (leading dim = batch): img (B, H, W, 3), gt_points
 (B, G, 2), gt_labels (B, G), gt_valid (B, G), img_wh (B, 2).
@@ -16,7 +17,7 @@ import torch
 
 from .state import TrainState
 
-__all__ = ["make_train_step"]
+__all__ = ["make_train_step", "make_eval_step"]
 
 
 def make_train_step(model) -> Callable:
@@ -44,3 +45,16 @@ def make_train_step(model) -> Callable:
         return state, metrics
 
     return train_step
+
+
+def make_eval_step(model) -> Callable:
+    """Single-scale inference step: (img, img_wh) -> ``TestOutputs``.
+
+    The port's model owns its parameters, so the step takes none (the
+    JAX step is ``(params, img, img_wh)``). It builds no graph.
+    """
+
+    def eval_step(img, img_wh):
+        return model.simple_test(img, img_wh)
+
+    return eval_step

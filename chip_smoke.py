@@ -10,18 +10,27 @@ Phases, each printing its own lines:
    sm_90a, one nvcc per source, all at once;
 3. each kernel at the bench shapes against its plain PyTorch version on
    the card, with the tolerance stated beside each check (the two
-   attention backward kernels included: gap columns of dK/dV exactly 0);
+   attention backward kernels included: gap columns of dK/dV exactly 0;
+   the five design variants of the attention microbenchmark included,
+   also on an input that tells the clamped variants from the unclamped);
 4. ``AttnShiftDetector.seed_pseudo_gt`` at the full width of
    ``configs/attnshift_voc12aug.py`` (ViT-S) with seeded random weights,
    800x1344, bf16: output shapes, finite maps, and kernel launch counts
    of that path (exactly 7/5/1/1 per image);
-5. the train path: three steps of ``make_train_step`` on the same model
+5. single-scale inference: ``simple_test`` through ``make_eval_step`` on
+   the same model (1000 proposals, 100 detections): shapes, finite values,
+   boxes inside the true extent, mask probabilities in [0, 1], launches
+   exactly 0 capture / 12 plain and no other kernel;
+6. the train path: three steps of ``make_train_step`` on the same model
    and inputs (bf16, activation checkpointing on, layer-decay AdamW):
    finite losses with the expected keys, a non-zero gradient in every
    submodule, parameters changed, and the exact launch counts per step;
-6. times with CUDA events: every kernel, its plain version, the library
-   call where one exists, ms/img of the pseudo-label path and ms per
-   train step, each with one profiled call.
+7. the attention microbenchmark
+   (``attentionshift_torch.tools.analysis.microbench_attention``) at its
+   defaults, every variant, its lines printed, its launches counted;
+8. times with CUDA events: every kernel, its plain version, the library
+   call where one exists, ms/img of the pseudo-label path and of
+   inference and ms per train step, each with one profiled call.
 
 A failing phase raises and the script exits non-zero. The line before
 the last is the kernel table as JSON; the last line is
@@ -201,6 +210,7 @@ def phase_kernels(results: dict, inp: dict):
     results["attention_plain"] = dict(max_abs_err=e2)
 
     phase_backward_kernels(results, inp)
+    phase_variant_kernels(results, inp)
 
     masks = inp["masks"]
     ref_lab = ccl.connected_components(masks, 64)
@@ -284,6 +294,45 @@ def phase_backward_kernels(results: dict, inp: dict):
                    "pad-gap columns carry exactly 0")
     results["attention_bwd_dq"] = dict(max_abs_err=errs["dq"])
     results["attention_bwd_dkv"] = dict(max_abs_err=max(errs["dk"], errs["dv"]))
+
+
+def phase_variant_kernels(results: dict, inp: dict):
+    """The five design variants of the attention microbenchmark against
+    their plain versions at (1, 6, 4352, 64) bf16, no gap: on the bench
+    inputs and on the clamp input (two shifted log2 logits of one row in
+    (100, 127)). Control: on the clamp input the plain version of the
+    other clamp behaviour must exceed both limits."""
+    from attentionshift_torch.ops import attention_variants as av
+
+    q, k, v = inp["qkv"]
+    cases = (("", (q, k, v)), (".clamp_input", av.clamp_case(q, k, v)))
+    for name, (kernel, _) in av.VARIANTS.items():
+        errs = []
+        for tag, case in cases:
+            want_out, want_mean = av.variant_reference(*case, name)
+            out, mean = av.attention_variant(*case, name)
+            sync()
+            out_tol = bf16_ulps(want_out, 4)
+            mean_tol = 2e-3 * float(want_mean.float().abs().max())
+            e_out, e_mean = max_err(out, want_out), max_err(mean, want_mean)
+            expect(f"{kernel}{tag}.out", e_out, out_tol,
+                   "4 bf16 ulps of the largest |out|: bf16 output, bf16 e in PV")
+            expect(f"{kernel}{tag}.mean", e_mean, mean_tol,
+                   "bf16 storage of the mean: 2^-9 relative, times the largest entry")
+            errs.append(max(e_out, e_mean))
+            del want_out, want_mean
+        # still the clamp input: v3's plain version for the clamped kernels, v2's for v3
+        other = "v2-bf16e" if name == "v3-nomin" else "v3-nomin"
+        ctl_out, ctl_mean = av.variant_reference(*cases[1][1], other)
+        c_out, c_mean = max_err(out, ctl_out), max_err(mean, ctl_mean)
+        ok = c_out > out_tol and c_mean > mean_tol
+        log(f"[check] {kernel} control (plain {other} on the clamp input): out {c_out:.3e} must "
+            f"exceed {out_tol:.1e}, mean {c_mean:.3e} must exceed {mean_tol:.1e}: "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{kernel}: the check cannot see the clamp: {c_out}, {c_mean}")
+        del ctl_out, ctl_mean, out, mean
+        results[kernel] = dict(max_abs_err=errs[0])
 
 
 def slice_inputs(h, w, g, n_valid, dev):
@@ -370,6 +419,32 @@ def phase_small_reference(dev):
     dmap = float((og["map_cos_fg"].cpu().float() - oc["map_cos_fg"]).abs().mean())
     log(f"[small] card bf16 vs CPU f32: best layer agreement {agree:.3f}, "
         f"mean |map_cos_fg| difference {dmap:.4f} (reported, not asserted)")
+    # inference on both: the box head's scores and decoded boxes on the same
+    # rois within bf16 tolerance, every output of simple_test well-formed
+    rois = torch.tensor([[[8.0, 8.0, 120.0, 100.0], [40.0, 20.0, 180.0, 90.0],
+                          [0.0, 0.0, 64.0, 64.0]]])
+    sg, bg = gpu.roi_test(inp_gpu[0], rois.to(dev), inp_gpu[4])
+    sc, bc = cpu.roi_test(inp_cpu[0], rois, inp_cpu[4])
+    expect("small.roi_test.scores", max_err(sg.cpu(), sc), 2e-2,
+           "softmax scores, bf16 card path vs f32 CPU path")
+    expect("small.roi_test.boxes", max_err(bg.cpu(), bc), 2e-2 * w,
+           "decoded boxes in pixels, relative to the image width")
+    for m in (gpu, cpu):
+        m.test_score_thr = INFER_SCORE_THR
+    tg = gpu.simple_test(inp_gpu[0], inp_gpu[4])
+    tc = cpu.simple_test(inp_cpu[0], inp_cpu[4])
+    sync()
+    ng = check_test_outputs(tg, gpu.test_max_per_img, (w, h))
+    nc = check_test_outputs(tc, cpu.test_max_per_img, (w, h))
+    log(f"[small] simple_test: {ng} valid detections on the card, {nc} on the CPU "
+        f"(reported, not asserted: bf16 moves near-tied scores across the NMS)")
+
+
+def expected_launches(**counts) -> dict:
+    """Every kernel's expected count of one path: 0 unless named."""
+    from attentionshift_torch.ops._build import KERNELS
+
+    return {name: counts.get(name, 0) for name in KERNELS}
 
 
 def phase_main_path(dev):
@@ -386,8 +461,8 @@ def phase_main_path(dev):
     sync()
     launches = {name: k.launches for name, k in KERNELS.items()}
     log(f"[main] launches per image: {launches}")
-    want = {"attention_capture": CAM_LAYERS, "attention_plain": 12 - CAM_LAYERS,
-            "attention_bwd_dq": 0, "attention_bwd_dkv": 0, "ccl_batch": 1, "meanshift_fixpoint": 1}
+    want = expected_launches(attention_capture=CAM_LAYERS, attention_plain=12 - CAM_LAYERS,
+                             ccl_batch=1, meanshift_fixpoint=1)
     if launches != want:
         raise AssertionError(f"main path launches {launches} != {want}")
     check_outputs(out, H_IMG, W_IMG, MAX_GT, N_VALID)
@@ -449,7 +524,7 @@ def phase_train_path(dev, model, inp):
     launches = {name: k.launches for name, k in KERNELS.items()}
     opt.step = inner
     log(f"[train] launches over {TRAIN_STEPS} steps: {launches}")
-    want = {k: TRAIN_STEPS * v for k, v in TRAIN_LAUNCHES.items()}
+    want = expected_launches(**{k: TRAIN_STEPS * v for k, v in TRAIN_LAUNCHES.items()})
     if launches != want:
         raise AssertionError(f"train path launches {launches} != {want}")
     log(f"[train] largest |gradient| per submodule: {grad_top}")
@@ -467,6 +542,113 @@ def phase_train_path(dev, model, inp):
     if not all(moved.values()):
         raise AssertionError(f"parameters did not change: {moved}")
     return state, step_fn, batch, gen, launches
+
+
+# true extent smaller than the 800x1344 canvas, so that the clip binds
+INFER_WH = (1300.0, 760.0)
+# seeded random heads score every class near 1/21 = 0.048, under the config's
+# floor of 0.05: a lower floor, so that the run holds detections to check
+INFER_SCORE_THR = 0.02
+TOOL_ITERS, TOOL_INNER = 12, 10
+
+
+def check_test_outputs(out, k: int, wh) -> int:
+    import torch
+
+    d = out.dets
+    shapes = dict(boxes=(1, k, 4), scores=(1, k), labels=(1, k), valid=(1, k))
+    for key, shape in shapes.items():
+        assert tuple(getattr(d, key).shape) == shape, (key, tuple(getattr(d, key).shape))
+    assert tuple(out.mask_probs.shape) == (1, k, 28, 28), tuple(out.mask_probs.shape)
+    assert d.labels.dtype == torch.int32 and d.valid.dtype == torch.bool
+    for key, t in (("boxes", d.boxes), ("scores", d.scores), ("mask_probs", out.mask_probs)):
+        assert bool(torch.isfinite(t.float()).all()), f"{key} not finite"
+    b = d.boxes[0].float()
+    assert bool(((b >= 0).all() and (b[:, 0::2] <= wh[0]).all() and (b[:, 1::2] <= wh[1]).all()))
+    assert bool((b[:, 2] >= b[:, 0]).all() and (b[:, 3] >= b[:, 1]).all())
+    assert bool(((out.mask_probs >= 0) & (out.mask_probs <= 1)).all())
+    assert bool(((d.labels >= 0) & (d.labels < 20)).all())
+    n = int(d.valid.sum())
+    assert bool((d.scores[0, :n] > 0).all()) and bool((d.scores[0, n:] == 0).all())
+    assert bool((d.scores[0, :max(n - 1, 0)] >= d.scores[0, 1:max(n, 1)]).all()), "score order"
+    return n
+
+
+def phase_infer_path(dev, model, slice_inp):
+    """``simple_test`` through ``make_eval_step`` at the bench geometry;
+    launch counts of that run."""
+    import torch
+
+    from attentionshift_torch.ops._build import KERNELS, reset_launches
+    from attentionshift_torch.train import make_eval_step
+
+    if (model.num_proposals, model.test_max_per_img) != (1000, 100):
+        raise AssertionError("inference runs at the config's 1000 proposals / 100 detections")
+    model.test_score_thr = INFER_SCORE_THR
+    img = slice_inp[0]
+    wh = torch.tensor([INFER_WH], device=dev)
+    eval_step = make_eval_step(model)
+    reset_launches()
+    out = eval_step(img, wh)
+    sync()
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    log(f"[infer] launches per image: {launches}")
+    if launches != expected_launches(attention_plain=12):
+        raise AssertionError(f"inference launches {launches}: expected 12 plain and nothing else")
+    n = check_test_outputs(out, model.test_max_per_img, INFER_WH)
+    if n == 0:
+        raise AssertionError("inference kept no detection: nothing to check")
+    log(f"[infer] outputs ok: {n} of {model.test_max_per_img} slots valid (score floor "
+        f"{INFER_SCORE_THR}), top score {float(out.dets.scores[0, 0]):.4f}, first box "
+        f"{[round(x, 1) for x in out.dets.boxes[0, 0].tolist()]}, true extent {INFER_WH}")
+    return eval_step, img, wh, launches
+
+
+def phase_infer_times(eval_step, img, wh):
+    """ms/img of inference (host clock over calls ending in synchronize),
+    then one profiled call."""
+
+    def run():
+        eval_step(img, wh)
+
+    run()
+    sync()
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run()
+    sync()
+    ms_img = (time.perf_counter() - t0) / reps * 1e3
+    log(f"[time] simple_test at {H_IMG}x{W_IMG}, batch 1, bf16, ViT-S, 1000 proposals, 100 "
+        f"detections: {ms_img:.2f} ms/img (host clock over {reps} calls ending in synchronize)")
+    profile_slice(run, ms_img, what="inference call")
+    return ms_img
+
+
+def phase_tool(dev):
+    """The attention microbenchmark at its defaults, every variant."""
+    from attentionshift_torch.ops._build import KERNELS, reset_launches
+    from attentionshift_torch.ops.attention_variants import VARIANTS
+    from attentionshift_torch.tools.analysis import microbench_attention as tool
+
+    reset_launches()
+    res = tool.run_variants(device=dev, inner=TOOL_INNER, iters=TOOL_ITERS,
+                            log=lambda line: log(f"[tool] {line}"))
+    sync()
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    log(f"[tool] {({k: round(v, 3) for k, v in sorted(res.items(), key=lambda x: x[1])})}")
+    log(f"[tool] launches: {launches}")
+    if list(res) != list(tool.VARIANT_NAMES):
+        raise AssertionError(f"the tool ran {list(res)}")
+    per_name = (TOOL_ITERS + 1) * TOOL_INNER  # one warm-up chain, then the timed ones
+    want = expected_launches(attention_capture=per_name, attention_plain=per_name,
+                             **{kernel: per_name for kernel, _ in VARIANTS.values()})
+    if launches != want:
+        raise AssertionError(f"tool launches {launches} != {want}")
+    bad = [n for n, ms in res.items() if not (ms == ms and 0 < ms < float("inf"))]
+    if bad:
+        raise AssertionError(f"the tool gave no finite time for {bad}")
+    return launches
 
 
 def phase_train_times(state, step_fn, batch, gen):
@@ -499,7 +681,7 @@ def phase_times(results: dict, inp: dict, model, slice_inp, gen):
     import torch
     import torch.nn.functional as F
 
-    from attentionshift_torch.ops import attention, ccl, meanshift_kernel
+    from attentionshift_torch.ops import attention, attention_variants, ccl, meanshift_kernel
 
     q, k, v = inp["qkv"]
     b, h, t, d = q.shape
@@ -539,6 +721,17 @@ def phase_times(results: dict, inp: dict, model, slice_inp, gen):
         ms=cuda_time(lambda: attention.attention_backward_dkv(q, k, v, lse, dd, g, PAD_GAP)),
         plain_ms=plain_bwd, library_ms=lib_bwd,
         bytes=6 * q.numel() * 2 + stat_bytes, ops=8.0 * b * h * t * t * d, peak=PEAK_BF16)
+    # the variants have no gap; the library call beside them computes `out`, not the mean
+    sdpa_no_gap = cuda_time(lambda: F.scaled_dot_product_attention(q, k, v))
+    for name, (kernel, _) in attention_variants.VARIANTS.items():
+        pv_cols = d + 8 if name == "v6-fusedsum" else d
+        times[kernel] = dict(
+            ms=cuda_time(lambda n=name: attention_variants.attention_variant(q, k, v, n)),
+            plain_ms=cuda_time(lambda n=name: attention_variants.variant_reference(q, k, v, n),
+                               reps=3),
+            library_ms=sdpa_no_gap,
+            bytes=qkv_bytes + q.numel() * 2 + b * t * t * 2,
+            ops=2.0 * b * h * t * t * (d + pv_cols), peak=PEAK_BF16)
     masks = inp["masks"]
     # the sweeps each plane runs to its fixpoint: the data-dependent work
     sweeps = ccl.connected_components(masks, 64, return_sweeps=True)[1].tolist()
@@ -631,18 +824,24 @@ def main() -> int:
     phase_kernels(results, inp)
     phase_small_reference(dev)
     model, slice_inp, gen, seed_launches = phase_main_path(dev)
+    eval_step, infer_img, infer_wh, infer_launches = phase_infer_path(dev, model, slice_inp)
     state, step_fn, batch, train_gen, train_launches = phase_train_path(dev, model, slice_inp)
+    tool_launches = phase_tool(dev)
     phase_times(results, inp, model, slice_inp, gen)
     phase_train_times(state, step_fn, batch, train_gen)
+    phase_infer_times(eval_step, infer_img, infer_wh)
     table = []
     for name, kern in KERNELS.items():
         r = results[name]
-        # launches: the pseudo-label path's one call plus the train path's steps
+        # launches: each path was driven with the counts at 0 and read right after
         table.append(dict(name=name, route="cuda", source=f"attentionshift_torch/csrc/{kern.source}.cu",
                           replaces=kern.replaces,
-                          launches=seed_launches[name] + train_launches[name],
+                          launches=(seed_launches[name] + infer_launches[name]
+                                    + train_launches[name] + tool_launches[name]),
                           launches_seed_pseudo_gt=seed_launches[name],
+                          launches_simple_test=infer_launches[name],
                           launches_train_steps=train_launches[name],
+                          launches_microbench_tool=tool_launches[name],
                           max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                           bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                           library_ms=r["library_ms"]))

@@ -14,7 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from attentionshift_torch.ops import attention, ccl, meanshift_kernel  # noqa: E402
+from attentionshift_torch.ops import attention, attention_variants, ccl, meanshift_kernel  # noqa: E402
 
 
 def ccl_planes(m, h, w, seed=0):
@@ -116,3 +116,106 @@ def test_attention_backward_kernels_on_card(cuda, gap):
             top = float(want[2].float().abs().max())
             assert float((got[2].float() - no_gap[2].float()).abs().max()) > \
                 4 * 2.0 ** (np.floor(np.log2(top)) - 7)
+
+
+def _ulps(ref, n):
+    top = float(ref.float().abs().max())
+    return n * 2.0 ** (np.floor(np.log2(top)) - 7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", list(attention_variants.VARIANTS))
+def test_attention_variant_kernels_on_card(cuda, variant):
+    """Each design variant's kernel vs its plain version at a ragged T
+    (300 = 4 key tiles of 64 + 44; 300 rows = 4 blocks of 64 + 44), on
+    random inputs and on the clamp input (two shifted logits of one row in
+    (100, 127)). bf16 outputs: ``out`` within 4 bf16 ulps of the largest
+    |out|, ``mean`` within 2^-9 of its largest entry (one rounding of the
+    stored bf16). Control: on the clamp input the plain version of the
+    other clamp behaviour (v3's for the clamped variants, v2's for v3)
+    exceeds both limits, so the check sees whether the kernel clamps."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn((2, 3, 300, 64), generator=gen, device=cuda).bfloat16()
+               for _ in range(3))
+    other = "v2-bf16e" if variant == "v3-nomin" else "v3-nomin"
+    for case in ((q, k, v), attention_variants.clamp_case(q, k, v)):
+        want_out, want_mean = attention_variants.variant_reference(*case, variant)
+        out, mean = attention_variants.attention_variant(*case, variant)
+        torch.cuda.synchronize()
+        out_tol = _ulps(want_out, 4)
+        mean_tol = 2e-3 * float(want_mean.float().abs().max())
+        torch.testing.assert_close(out.float(), want_out.float(), atol=out_tol, rtol=0)
+        torch.testing.assert_close(mean.float(), want_mean.float(), atol=mean_tol, rtol=0)
+    ctl_out, ctl_mean = attention_variants.variant_reference(*case, other)
+    assert float((out.float() - ctl_out.float()).abs().max()) > out_tol
+    assert float((mean.float() - ctl_mean.float()).abs().max()) > mean_tol
+
+
+@pytest.mark.gpu
+def test_attention_variant_kernels_refuse_what_they_do_not_take(cuda):
+    """A CUDA tensor launches the kernel or raises: f32 inputs, a head dim
+    other than 64 and more than 8 heads side by side are refused."""
+    q = torch.zeros((1, 2, 64, 64), device=cuda)
+    with pytest.raises(ValueError):
+        attention_variants.attention_variant(q, q, q, "v2-bf16e")
+    q = torch.zeros((1, 2, 64, 32), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        attention_variants.attention_variant(q, q, q, "v4-mxsum")
+    q = torch.zeros((1, 9, 64, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        attention_variants.attention_variant(q, q, q, "v5-batched")
+
+
+@pytest.mark.gpu
+def test_microbenchmark_tool_on_card(cuda):
+    """The tool at a small ragged shape on the card: a finite time for
+    every name, every line names the card, and each kernel-backed name
+    launched its kernel (2 chains of 2 calls + the warm-up chain)."""
+    from attentionshift_torch.ops._build import KERNELS, reset_launches
+    from attentionshift_torch.tools.analysis import microbench_attention as tool
+
+    lines = []
+    reset_launches()
+    res = tool.run_variants(t=301, heads=3, inner=2, iters=2, device=cuda, log=lines.append)
+    assert list(res) == list(tool.VARIANT_NAMES)
+    assert all(np.isfinite(ms) and ms > 0 for ms in res.values())
+    assert all(torch.cuda.get_device_name(cuda) in line for line in lines)
+    for kernel, _ in attention_variants.VARIANTS.values():
+        assert KERNELS[kernel].launches == 6
+    assert KERNELS["attention_capture"].launches == KERNELS["attention_plain"].launches == 6
+
+
+@pytest.mark.gpu
+def test_simple_test_on_card(cuda):
+    """Inference of a narrow bf16 model on the card: 0 capture launches and
+    one plain launch per block and image batch, well-formed outputs, boxes
+    inside the true extent; the box head's scores agree with the same
+    model on the CPU (f32, plain versions) within bf16 tolerance."""
+    from attentionshift_torch.models import AttnShiftDetector
+    from attentionshift_torch.ops._build import KERNELS, reset_launches
+    from attentionshift_torch.train import make_eval_step
+
+    kw = dict(num_classes=20, embed_dim=128, depth=4, num_heads=2, point_tokens=16, cam_layer=3,
+              out_indices=(0, 1, 2, 3), num_proposals=50, test_max_per_img=10,
+              test_score_thr=0.02, pad_tokens_to=128)
+    gpu = AttnShiftDetector(device=cuda, dtype=torch.bfloat16, **kw).init_weights(seed=0)
+    cpu = AttnShiftDetector(device="cpu", **kw).init_weights(seed=0)
+    rs = np.random.RandomState(0)
+    img = torch.from_numpy(rs.randn(2, 64, 96, 3).astype(np.float32))
+    wh = torch.tensor([[96.0, 64.0], [80.0, 50.0]])
+    reset_launches()
+    out = make_eval_step(gpu)(img.to(cuda), wh.to(cuda))
+    torch.cuda.synchronize()
+    assert KERNELS["attention_plain"].launches == 4
+    assert sum(k.launches for k in KERNELS.values()) == 4
+    assert out.dets.boxes.shape == (2, 10, 4) and out.mask_probs.shape == (2, 10, 28, 28)
+    assert bool(torch.isfinite(out.dets.boxes).all())
+    b = out.dets.boxes.cpu()
+    for i in range(2):
+        assert bool((b[i] >= 0).all())
+        assert bool((b[i][:, 0::2] <= wh[i, 0]).all() and (b[i][:, 1::2] <= wh[i, 1]).all())
+    assert bool(((out.mask_probs >= 0) & (out.mask_probs <= 1)).all())
+    rois = torch.tensor([[[4.0, 4.0, 60.0, 50.0], [30.0, 10.0, 90.0, 60.0]]]).repeat(2, 1, 1)
+    sg, _ = gpu.roi_test(img.to(cuda), rois.to(cuda), wh.to(cuda))
+    sc, _ = cpu.roi_test(img, rois, wh)
+    torch.testing.assert_close(sg.cpu(), sc, atol=2e-2, rtol=0)
