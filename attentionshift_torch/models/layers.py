@@ -24,8 +24,6 @@ checkpointing sees the same masks.
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 import torch.nn as nn
@@ -35,22 +33,7 @@ from ..ops.attention import attention_no_capture, attention_with_capture
 from ..ops.image import resize
 
 __all__ = ["Dense", "LayerNorm", "Mlp", "Attention", "Block", "PatchEmbed", "Conv3x3Matmul",
-           "Deconv2x2Matmul", "get_2d_sincos_pos_embed", "interpolate_pos_embed",
-           "recompute_without_capture"]
-
-_RECOMPUTE = [False]
-
-
-@contextlib.contextmanager
-def recompute_without_capture():
-    """Inside, a capture block runs the attention without the probability
-    output: the context of a checkpointed block's second forward, whose
-    captured matrix nobody reads."""
-    _RECOMPUTE[0] = True
-    try:
-        yield
-    finally:
-        _RECOMPUTE[0] = False
+           "Deconv2x2Matmul", "get_2d_sincos_pos_embed", "interpolate_pos_embed"]
 
 
 class Dense(nn.Linear):
@@ -97,7 +80,6 @@ class Attention(nn.Module):
         b, n, c = x.shape
         qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, c // self.num_heads)
         q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))  # (B, H, N, d)
-        capture = capture and not _RECOMPUTE[0]
         if not self.use_kernel:
             out, attn = self._plain(q, k, v, capture, pad_interval)
         elif capture:

@@ -23,16 +23,13 @@ drawn before the block runs.
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .layers import (BatchNorm, Block, Deconv2x2Matmul, Dense, PatchEmbed, interpolate_pos_embed,
-                     recompute_without_capture)
+from .layers import BatchNorm, Block, Deconv2x2Matmul, Dense, PatchEmbed, interpolate_pos_embed
 
 __all__ = ["MlpHead", "VisionTransformerDet"]
 
@@ -49,6 +46,19 @@ class MlpHead(nn.Module):
         for layer in self.layers[:-1]:
             x = F.relu(layer(x))
         return self.layers[-1](x)
+
+
+def _capture_once(blk, capture: bool, pad_interval, masks):
+    """``blk`` as a function of x for ``checkpoint``: its first call
+    captures (when asked); the recompute in the backward pass runs with
+    ``capture=False``, since the captured matrix was already taken."""
+    calls = [0]
+
+    def run(x):
+        calls[0] += 1
+        return blk(x, capture and calls[0] == 1, pad_interval, masks)
+
+    return run
 
 
 class VisionTransformerDet(nn.Module):
@@ -142,10 +152,8 @@ class VisionTransformerDet(nn.Module):
         for i, blk in enumerate(self.blocks):
             masks = None if drop_masks is None else drop_masks[i]
             if remat:
-                x, attn = checkpoint(
-                    blk, x, i >= capture_from, pad_interval, masks, use_reentrant=False,
-                    preserve_rng_state=False,
-                    context_fn=lambda: (contextlib.nullcontext(), recompute_without_capture()))
+                x, attn = checkpoint(_capture_once(blk, i >= capture_from, pad_interval, masks),
+                                     x, use_reentrant=False, preserve_rng_state=False)
             else:
                 x, attn = blk(x, i >= capture_from, pad_interval, masks)
             if attn is not None:

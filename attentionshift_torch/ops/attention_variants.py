@@ -134,16 +134,21 @@ def attention_variant(q, k, v, variant: str):
     return out, mean
 
 
-def clamp_case(q, k, v, row: int = 3, cols=(5, 9)):
-    """Copies of q, k, v in which query ``row`` of every head has two
-    shifted log2 logits inside (100, 127): about 110 at key ``cols[0]``
-    and about 104 at ``cols[1]``, every other logit of the row far below.
-    The clamped variants give both keys e = 2^100, so that row of ``out``
-    is the even mix of their values; v3 keeps 2^110 and 2^104, a 55:1 mix.
-    All values are exact in bf16."""
+# the clamp input: query row, the two key columns, and values exact in bf16
+# with q.k = 64 * (4 * bf16(scale)) * key value, bf16(0.125 * log2 e) = 185/1024
+_CLAMP_ROW, _CLAMP_COLS = 3, (5, 9)
+_CLAMP_Q = 4.0
+_CLAMP_K = (2.8125, 2.6875)  # 64 * 185/256 * . - 20 = 110.08 and 104.30
+
+
+def clamp_case(q, k, v):
+    """Copies of q, k, v (head dim 64) in which query row 3 of every head
+    has two shifted log2 logits inside (100, 127): about 110 at key 5 and
+    about 104 at key 9, every other logit of the row far below. The
+    clamped variants give both keys e = 2^100, so that row of ``out`` is
+    the even mix of their values; v3 keeps 2^110 and 2^104, a 55:1 mix."""
     q, k, v = q.clone(), k.clone(), v.clone()
-    # q.k = 64 * (4 * bf16(scale)) * key value, bf16(0.125 * log2 e) = 185/1024
-    q[:, :, row] = 4.0
-    k[:, :, cols[0]] = 2.8125  # 64 * 185/256 * 2.8125 - 20 = 110.08
-    k[:, :, cols[1]] = 2.6875  # 64 * 185/256 * 2.6875 - 20 = 104.30
+    q[:, :, _CLAMP_ROW] = _CLAMP_Q
+    for col, val in zip(_CLAMP_COLS, _CLAMP_K):
+        k[:, :, col] = val
     return q, k, v

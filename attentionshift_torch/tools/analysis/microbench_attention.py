@@ -45,7 +45,7 @@ import torch.nn.functional as F
 from ...device import resolve_device
 from ...ops import attention, attention_variants
 
-__all__ = ["VARIANT_NAMES", "run_variants", "main"]
+__all__ = ["VARIANT_NAMES", "make_inputs", "run_variants", "main"]
 
 VARIANT_NAMES = ("ours-nocapture", "ours-capture", "library", *attention_variants.VARIANTS,
                  "plain")
@@ -106,6 +106,13 @@ def device_name(dev: torch.device) -> str:
     return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu (plain versions)"
 
 
+def make_inputs(t: int = 4301, heads: int = 6, dim: int = 64, device="cpu"):
+    """The tool's q, k, v (1, heads, t, dim): ``RandomState(0).randn`` in bf16."""
+    rng = np.random.RandomState(0)
+    return tuple(torch.from_numpy(rng.randn(1, heads, t, dim).astype(np.float32))
+                 .to(torch.bfloat16).to(device) for _ in range(3))
+
+
 def run_variants(t: int = 4301, heads: int = 6, dim: int = 64, inner: int = 10, variants=None,
                  device=None, iters: int = 12, log=print) -> dict:
     """Time the chosen variants (default: all) and return name -> ms per
@@ -115,9 +122,7 @@ def run_variants(t: int = 4301, heads: int = 6, dim: int = 64, inner: int = 10, 
     unknown = [n for n in names if n not in VARIANT_NAMES]
     if unknown:
         raise ValueError(f"unknown variants {unknown}; known: {list(VARIANT_NAMES)}")
-    rng = np.random.RandomState(0)
-    q, k, v = (torch.from_numpy(rng.randn(1, heads, t, dim).astype(np.float32))
-               .to(torch.bfloat16).to(dev) for _ in range(3))
+    q, k, v = make_inputs(t, heads, dim, dev)
     singles = _singles()
     where = device_name(dev)
     results = {}

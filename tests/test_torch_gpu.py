@@ -59,6 +59,24 @@ def test_attention_kernels_on_card(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("t", [301, 64, 129])
+def test_attention_kernels_on_card_without_gap(cuda, t):
+    """Both attention kernels without a gap, as the microbenchmark calls
+    them, at an odd T (the mean's unpaired last column, a ragged last
+    tile), at one full tile and at one column past two tiles; limits as
+    above."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn((1, 3, t, 64), generator=gen, device=cuda).bfloat16() for _ in range(3))
+    ref_out, ref_mean = attention.attention_reference(q, k, v, None)
+    out, mean = attention.attention_with_capture(q, k, v)
+    out2 = attention.attention_no_capture(q, k, v)
+    tol = _ulps(ref_out, 4)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(out2.float(), ref_out.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(mean.float(), ref_mean.float(), atol=1e-4, rtol=1e-2)
+
+
+@pytest.mark.gpu
 def test_ccl_kernel_on_card(cuda):
     """CCL kernel vs the plain version, exact, in shared memory and (a
     plane too large for it) in device memory."""
@@ -124,18 +142,20 @@ def _ulps(ref, n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("t", [300, 301])
 @pytest.mark.parametrize("variant", list(attention_variants.VARIANTS))
-def test_attention_variant_kernels_on_card(cuda, variant):
+def test_attention_variant_kernels_on_card(cuda, variant, t):
     """Each design variant's kernel vs its plain version at a ragged T
-    (300 = 4 key tiles of 64 + 44; 300 rows = 4 blocks of 64 + 44), on
-    random inputs and on the clamp input (two shifted logits of one row in
+    (300 = 4 key tiles of 64 + 44; 300 rows = 4 blocks of 64 + 44) and at
+    an odd one (301: the mean's last column has no partner to be stored
+    with, as at the microbenchmark's default 4301), on random inputs and on the clamp input (two shifted logits of one row in
     (100, 127)). bf16 outputs: ``out`` within 4 bf16 ulps of the largest
     |out|, ``mean`` within 2^-9 of its largest entry (one rounding of the
     stored bf16). Control: on the clamp input the plain version of the
     other clamp behaviour (v3's for the clamped variants, v2's for v3)
     exceeds both limits, so the check sees whether the kernel clamps."""
     gen = torch.Generator(device=cuda).manual_seed(2)
-    q, k, v = (torch.randn((2, 3, 300, 64), generator=gen, device=cuda).bfloat16()
+    q, k, v = (torch.randn((2, 3, t, 64), generator=gen, device=cuda).bfloat16()
                for _ in range(3))
     other = "v2-bf16e" if variant == "v3-nomin" else "v3-nomin"
     for case in ((q, k, v), attention_variants.clamp_case(q, k, v)):
@@ -168,9 +188,11 @@ def test_attention_variant_kernels_refuse_what_they_do_not_take(cuda):
 
 @pytest.mark.gpu
 def test_microbenchmark_tool_on_card(cuda):
-    """The tool at a small ragged shape on the card: a finite time for
-    every name, every line names the card, and each kernel-backed name
-    launched its kernel (2 chains of 2 calls + the warm-up chain)."""
+    """The tool at a small odd shape on the card: a finite time for every
+    name, every line names the card, each kernel-backed name launched its
+    kernel (2 chains of 2 calls + the warm-up chain), and on the tool's own
+    inputs at that shape every variant's kernel agrees with its plain
+    version (limits as in the variants' test)."""
     from attentionshift_torch.ops._build import KERNELS, reset_launches
     from attentionshift_torch.tools.analysis import microbench_attention as tool
 
@@ -183,6 +205,13 @@ def test_microbenchmark_tool_on_card(cuda):
     for kernel, _ in attention_variants.VARIANTS.values():
         assert KERNELS[kernel].launches == 6
     assert KERNELS["attention_capture"].launches == KERNELS["attention_plain"].launches == 6
+    q, k, v = tool.make_inputs(t=301, heads=3, device=cuda)
+    for variant in attention_variants.VARIANTS:
+        want_out, want_mean = attention_variants.variant_reference(q, k, v, variant)
+        out, mean = attention_variants.attention_variant(q, k, v, variant)
+        torch.testing.assert_close(out.float(), want_out.float(), atol=_ulps(want_out, 4), rtol=0)
+        torch.testing.assert_close(mean.float(), want_mean.float(),
+                                   atol=2e-3 * float(want_mean.float().abs().max()), rtol=0)
 
 
 @pytest.mark.gpu
