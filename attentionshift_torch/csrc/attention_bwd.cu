@@ -11,59 +11,77 @@
 // Both run under the custom gradient of attention_with_capture and
 // attention_no_capture (the head-averaged probabilities carry no gradient).
 //
-// What bounds them on the H100. At the bench shape (B=1, H=6, T=4352, d=64)
-// pass A is three (T, T, d) products = 6*H*T^2*d = 43.6 GFLOP and pass B
-// four = 58.2 GFLOP, against ~20 MB of q/k/v/dO/out and gradients: far above
-// the ~295 FLOP/byte ridge, so the tensor cores bound both (44 us and 59 us
-// at 989 TFLOP/s). Nothing (T, T)-sized may reach device memory.
+// What bounds them on the H100: the tensor cores. At the bench shape (B=1,
+// H=6, T=4352, d=64) pass A is three (T, T, d) products = 6*H*T^2*d = 43.6
+// GFLOP and pass B four = 58.2 GFLOP (seven in all, against five for a fused
+// one-pass backward with f32 atomics on dQ, which would give up
+// determinism), against ~20 MB of q/k/v/dO/out and gradients: far above the
+// ~295 FLOP/byte ridge (44 us and 59 us at 989 TFLOP/s). Nothing
+// (T, T)-sized may reach device memory. The exp2 work (113 M per pass) is
+// ~30 us on the MUFU units, under the products.
 //
-// What the design does about it. The TPU kernels hold a (128, T) strip of
-// every head in VMEM; an SM has 227 KB, so both passes tile the other axis:
-//   bwd_dq   one block per (64 query rows, head, image), 4 warps x 16 rows.
-//            Q and dO fragments stay in registers; the loop walks 64-key
-//            tiles of K and V through shared memory. The row normaliser is
-//            the forward's log2-sum-exp (attn_flash_forward writes it), so p
-//            is one exp2 with no second sweep for the row sum; D is
-//            rowsum(dO * out), the same number as sum_s p*dP, known before
-//            the loop starts. D is written for pass B.
-//   bwd_dkv  one block per (64 keys, head, image), 4 warps x 16 keys. It
-//            works on the TRANSPOSED tiles (keys as rows): K and V fragments
-//            in registers, 64-query tiles of Q and dO in shared memory, once
-//            row-major (for S^T = K Q^T and dP^T = V dO^T) and once
-//            transposed (for dV += P^T dO and dK += dS^T Q).
-// Products are mma.sync m16n8k16 bf16 with f32 accumulation; p and
-// p*(dP-D) are rounded to bf16 before the second product, as on the TPU.
-// Key columns in the pad gap [pad_lo, pad_hi) and columns >= T get p = 0,
-// so their dK and dV rows are written as exact zeros (they feed the qkv
-// projection's gradient). No cp.async/TMA/wgmma yet: tiles are loaded
-// synchronously, which a later change can pipeline.
+// What the design does about it (helpers in hopper.cuh):
+//   * one block = one warpgroup = 64 rows of its own tile (query rows in
+//     pass A, keys in pass B), loaded once by TMA; the loop walks 64-row
+//     tiles of the other side through a two-slot ring in dynamic shared
+//     memory, each tile one TMA load under the 128-byte swizzle from a 3-D
+//     (B*H, T, 64) tensor map (rows >= T of a head arrive as zeros), with
+//     mbarrier completion; thread 0 refills a slot as soon as the
+//     warpgroup has finished with it (a third slot measured slower);
+//   * every product is wgmma m64n64k16 with f32 accumulators. The 128-byte
+//     rows of head dim 64 are one swizzle atom, so one tile serves both
+//     majors: K-major for S = Q K^T and dP = dO V^T (pass A), S^T = K Q^T
+//     and dP^T = V dO^T (pass B); MN-major (the descriptor's transpose bit)
+//     for dQ += dS K, dV += P^T dO and dK += dS^T Q. No transposed copy of
+//     any tile is stored;
+//   * the second product of each pair takes p or dS from the first
+//     product's accumulators as its register A operand, rounded to bf16;
+//   * three blocks per SM (<= 168 registers a thread, ~50 KB of shared
+//     memory each) overlap one block's exp work with another's products;
+//     the bench shape's 408 blocks fill 396 slots and 12 more;
+//   * the exp work is branch-free: a masked entry gets exp2(-inf) = 0 (a
+//     branch around each exp2 serialised their latencies and cost pass B
+//     2.6x). Pass B zeroes masked key rows at the store instead, since a
+//     key's p reaches only its own rows of dK and dV.
+// The row normaliser is the forward's log2-sum-exp (attn_flash_forward
+// writes it), so p = exp2(s * scale_log2 - lse2) is one exp2; D is
+// rowsum(dO * out) from the bf16 out, computed by pass A and read by pass
+// B. p and p*(dP-D) are rounded to bf16 before the products that consume
+// them, as on the TPU. Key columns in the pad gap [pad_lo, pad_hi) and
+// columns >= T get p = 0, so their dK and dV rows are written as exact
+// zeros (they feed the qkv projection's gradient). No atomics: every
+// output is written once, by one block, and is deterministic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int HD = 64;       // head dim
-constexpr int BR = 64;       // rows of the block's own tile: 4 warps x 16
-constexpr int BC = 64;       // rows of the tile walked by the loop
-constexpr int NTHREADS = 128;
-constexpr int LDS = HD + 8;  // smem row stride (bf16), keeps fragment reads conflict-free
+using namespace hopper;
+
+constexpr int HD = 64;        // head dim
+constexpr int TILE = TILE_ROWS;
+constexpr int NTHREADS = 128;  // one warpgroup
+constexpr int STAGES = 2;      // ring depth of the streamed tiles
+constexpr int BLOCKS_PER_SM = 3;  // resident blocks the register budget is set for
+
+// shared memory: two own tiles, STAGES slots of two tiles, (pass B) the
+// streamed tiles' row statistics, the barriers, 1024 bytes of alignment slack
+constexpr size_t RING_BYTES = (size_t)(2 + 2 * STAGES) * TILE_BYTES;
+constexpr size_t STAT_BYTES = (size_t)2 * STAGES * TILE * sizeof(float);
+constexpr size_t BAR_BYTES = (size_t)(1 + STAGES) * sizeof(uint64_t);
+constexpr size_t DQ_SMEM = RING_BYTES + BAR_BYTES + 1024;
+constexpr size_t DKV_SMEM = RING_BYTES + STAT_BYTES + BAR_BYTES + 1024;
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  uint32_t s = smem_addr(p);
+  return p + ((1024 - (s & 1023)) & 1023);
 }
 
 // round to bf16 and back: the value the second product will see
@@ -71,268 +89,330 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// two adjacent bf16 (row r, cols c, c+1) of a (T, 64) head matrix; 0 past T
-__device__ __forceinline__ uint32_t ld2(const bf16* m, int r, int c, int T) {
-  if (r >= T) return 0u;
-  return *reinterpret_cast<const uint32_t*>(m + (size_t)r * HD + c);
-}
-
-__device__ __forceinline__ float2 unpack2(uint32_t u) {
-  __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&u);
-  return __bfloat1622float2(v);
-}
-
 __device__ __forceinline__ bool masked_col(int col, int T, int pad_lo, int pad_hi) {
   return col >= T || (col >= pad_lo && col < pad_hi);
 }
 
-// A fragments of a warp's 16 rows (r_a = r, r_b = r + 8) over the head dim
-__device__ __forceinline__ void load_rows(uint32_t fa[4][4], const bf16* mh, int r_a, int r_b,
-                                          int tig, int T) {
+// sum over 16 columns (tig*16 ...) of row r of dO * out; 0 past T
+__device__ __forceinline__ float row_dot16(const bf16* out, const bf16* dout, int r, int tig,
+                                           int T) {
+  if (r >= T) return 0.f;
+  const uint4* o = reinterpret_cast<const uint4*>(out + (size_t)r * HD + tig * 16);
+  const uint4* g = reinterpret_cast<const uint4*>(dout + (size_t)r * HD + tig * 16);
+  float s = 0.f;
 #pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    int c = kc * 16 + tig * 2;
-    fa[kc][0] = ld2(mh, r_a, c, T);
-    fa[kc][1] = ld2(mh, r_b, c, T);
-    fa[kc][2] = ld2(mh, r_a, c + 8, T);
-    fa[kc][3] = ld2(mh, r_b, c + 8, T);
-  }
-}
-
-// Load a 64-row tile of a (T, 64) head matrix into shared memory, row-major
-// (rm[row][d]) and, when asked, transposed (tr[d][row]); rows past T are 0.
-__device__ __forceinline__ void load_tile(const bf16* mh, int row0, int T, bf16 (*rm)[LDS],
-                                          bf16 (*tr)[BC + 8]) {
-  for (int i = threadIdx.x; i < BC * (HD / 8); i += NTHREADS) {
-    int r = i >> 3, c8 = (i & 7) * 8;
-    uint4 x = make_uint4(0, 0, 0, 0);
-    if (row0 + r < T) x = *reinterpret_cast<const uint4*>(mh + (size_t)(row0 + r) * HD + c8);
-    if (rm != nullptr) *reinterpret_cast<uint4*>(&rm[r][c8]) = x;
-    if (tr != nullptr) {
-      const bf16* e = reinterpret_cast<const bf16*>(&x);
+  for (int c = 0; c < 2; ++c) {
+    uint4 x = o[c], y = g[c];
+    const __nv_bfloat162* xo = reinterpret_cast<const __nv_bfloat162*>(&x);
+    const __nv_bfloat162* yg = reinterpret_cast<const __nv_bfloat162*>(&y);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) tr[c8 + j][r] = e[j];
+    for (int j = 0; j < 4; ++j) {
+      float2 a = __bfloat1622float2(xo[j]), b = __bfloat1622float2(yg[j]);
+      s += a.x * b.x + a.y * b.y;
     }
   }
+  return s;
 }
 
-// acc (16 x 64) = A (16 x 64 over the head dim, register fragments) times
-// the transpose of a row-major shared tile (64 x 64)
-__device__ __forceinline__ void mma_rows(float acc[8][4], const uint32_t fa[4][4],
-                                         const bf16 (*rm)[LDS], int gid, int tig) {
+// write a warpgroup's (64 x 64) f32 accumulator, scaled, as bf16 rows r_a
+// (i < 2) and r_b (i >= 2) of a head matrix; a row whose scale is 0 is
+// written as exact zeros, whatever its accumulator holds
+__device__ __forceinline__ void store_rows(bf16* mh, const float (&acc)[32], float scale_a,
+                                           float scale_b, int r_a, int r_b, int tig, int T) {
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      uint32_t bb[2];
-      bb[0] = *reinterpret_cast<const uint32_t*>(&rm[nt * 8 + gid][kc * 16 + tig * 2]);
-      bb[1] = *reinterpret_cast<const uint32_t*>(&rm[nt * 8 + gid][kc * 16 + tig * 2 + 8]);
-      mma16816(acc[nt], fa[kc], bb);
-    }
-  }
-}
-
-// acc (16 x 64 over the head dim) += P (16 x 64, f32 accumulator layout,
-// rounded to bf16 here) times a shared tile given transposed (tr[d][row])
-__device__ __forceinline__ void mma_acc(float acc[8][4], const float p[8][4],
-                                        const bf16 (*tr)[BC + 8], int gid, int tig) {
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    // the accumulators of n-tiles (2c, 2c+1) are the A fragment of chunk c
-    uint32_t pa[4];
-    pa[0] = pack2(p[2 * kc][0], p[2 * kc][1]);
-    pa[1] = pack2(p[2 * kc][2], p[2 * kc][3]);
-    pa[2] = pack2(p[2 * kc + 1][0], p[2 * kc + 1][1]);
-    pa[3] = pack2(p[2 * kc + 1][2], p[2 * kc + 1][3]);
-#pragma unroll
-    for (int dt = 0; dt < 8; ++dt) {
-      uint32_t bb[2];
-      bb[0] = *reinterpret_cast<const uint32_t*>(&tr[dt * 8 + gid][kc * 16 + tig * 2]);
-      bb[1] = *reinterpret_cast<const uint32_t*>(&tr[dt * 8 + gid][kc * 16 + tig * 2 + 8]);
-      mma16816(acc[dt], pa, bb);
-    }
-  }
-}
-
-// write a warp's (16 x 64) f32 accumulator, scaled, as bf16 rows of a head matrix
-__device__ __forceinline__ void store_rows(bf16* mh, const float acc[8][4], float scale, int r_a,
-                                           int r_b, int tig, int T) {
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-    int c = dt * 8 + tig * 2;
+  for (int j = 0; j < 8; ++j) {
+    int c = j * 8 + tig * 2;
     if (r_a < T)
       *reinterpret_cast<uint32_t*>(mh + (size_t)r_a * HD + c) =
-          pack2(acc[dt][0] * scale, acc[dt][1] * scale);
+          scale_a == 0.f ? 0u : pack_bf16(acc[4 * j] * scale_a, acc[4 * j + 1] * scale_a);
     if (r_b < T)
       *reinterpret_cast<uint32_t*>(mh + (size_t)r_b * HD + c) =
-          pack2(acc[dt][2] * scale, acc[dt][3] * scale);
+          scale_b == 0.f ? 0u : pack_bf16(acc[4 * j + 2] * scale_b, acc[4 * j + 3] * scale_b);
   }
 }
 
+// p = exp2(x) rounded to bf16, the value the second product sees. A
+// masked entry gets x = -inf, so every element takes the same
+// instructions and no branch splits the exp2s.
+__device__ __forceinline__ float prob(float x) { return round_bf16(exp2f(x)); }
+
 // Pass A: dQ of one 64-row query tile, and D = rowsum(dO * out) per row.
-__global__ void __launch_bounds__(NTHREADS)
-bwd_dq(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+__global__ void __launch_bounds__(NTHREADS, BLOCKS_PER_SM)
+bwd_dq(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+       const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
        const bf16* __restrict__ out, const bf16* __restrict__ dout,
        const float* __restrict__ lse2, bf16* __restrict__ dq, float* __restrict__ dd, int H, int T,
        int pad_lo, int pad_hi, float scale_log2, float scale) {
-  __shared__ __align__(16) bf16 Ks[BC][LDS];
-  __shared__ __align__(16) bf16 Vs[BC][LDS];
-  __shared__ __align__(16) bf16 Kt[HD][BC + 8];
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* q_s = smem;
+  uint8_t* do_s = smem + TILE_BYTES;
+  uint8_t* ring = smem + 2 * TILE_BYTES;  // slot s: K at 2s, V at 2s + 1 tiles
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + RING_BYTES);  // [0] own, [1 + s] slot s
 
-  const int h = blockIdx.y, b = blockIdx.z;
-  const size_t head = ((size_t)b * H + h) * (size_t)T * HD;
-  const size_t rowbase = ((size_t)b * H + h) * (size_t)T;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int plane = blockIdx.z * H + blockIdx.y;
+  const int row0 = blockIdx.x * TILE;
+  const int ntiles = (T + TILE - 1) / TILE;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i <= STAGES; ++i) mbar_init(&bars[i], 1);
+    mbar_init_fence();
+    mbar_expect_tx(&bars[0], 2 * TILE_BYTES);
+    tma_load_tile(q_s, &map_q, &bars[0], row0, plane);
+    tma_load_tile(do_s, &map_do, &bars[0], row0, plane);
+    for (int s = 0; s < STAGES && s < ntiles; ++s) {
+      mbar_expect_tx(&bars[1 + s], 2 * TILE_BYTES);
+      tma_load_tile(ring + (2 * s) * TILE_BYTES, &map_k, &bars[1 + s], s * TILE, plane);
+      tma_load_tile(ring + (2 * s + 1) * TILE_BYTES, &map_v, &bars[1 + s], s * TILE, plane);
+    }
+  }
+  __syncthreads();
+
+  const size_t head = (size_t)plane * T * HD;
+  const size_t rowbase = (size_t)plane * T;
+  const int warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;
-  const int r_a = blockIdx.x * BR + warp * 16 + gid;
+  const int r_a = row0 + warp * 16 + gid;
   const int r_b = r_a + 8;
 
-  uint32_t qa[4][4], doa[4][4];
-  load_rows(qa, q + head, r_a, r_b, tig, T);
-  load_rows(doa, dout + head, r_a, r_b, tig, T);
-
-  // D = rowsum(dO * out): a thread holds 16 of a row's 64 columns, its quad all
-  float d_a = 0.f, d_b = 0.f;
-  {
-    uint32_t oa[4][4];
-    load_rows(oa, out + head, r_a, r_b, tig, T);
+  // D = rowsum(dO * out): a thread sums 16 of a row's 64 columns, its quad all
+  float d_a = row_dot16(out + head, dout + head, r_a, tig, T);
+  float d_b = row_dot16(out + head, dout + head, r_b, tig, T);
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float2 g = unpack2(doa[kc][i]), o = unpack2(oa[kc][i]);
-        float s = g.x * o.x + g.y * o.y;
-        if (i & 1) d_b += s; else d_a += s;
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      d_a += __shfl_xor_sync(0xffffffffu, d_a, off);
-      d_b += __shfl_xor_sync(0xffffffffu, d_b, off);
-    }
+  for (int off = 1; off < 4; off <<= 1) {
+    d_a += __shfl_xor_sync(0xffffffffu, d_a, off);
+    d_b += __shfl_xor_sync(0xffffffffu, d_b, off);
   }
   const float lse_a = r_a < T ? lse2[rowbase + r_a] : 0.f;
   const float lse_b = r_b < T ? lse2[rowbase + r_b] : 0.f;
 
-  float acc[8][4];
+  float acc[32], s[32], dp[32];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int i = 0; i < 32; ++i) acc[i] = s[i] = dp[i] = 0.f;
 
-  const int ntiles = (T + BC - 1) / BC;
+  mbar_wait(&bars[0], 0);
   for (int kt = 0; kt < ntiles; ++kt) {
-    const int key0 = kt * BC;
-    __syncthreads();  // previous tile fully consumed
-    load_tile(k + head, key0, T, Ks, Kt);
-    load_tile(v + head, key0, T, Vs, nullptr);
-    __syncthreads();
+    const int st = kt % STAGES;
+    const uint8_t* k_s = ring + (2 * st) * TILE_BYTES;
+    const uint8_t* v_s = k_s + TILE_BYTES;
+    mbar_wait(&bars[1 + st], (kt / STAGES) & 1);
 
-    float s[8][4], dp[8][4];
-    mma_rows(s, qa, Ks, gid, tig);    // S  = Q K^T
-    mma_rows(dp, doa, Vs, gid, tig);  // dP = dO V^T
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int kc = 0; kc < 4; ++kc)  // S = Q K^T
+      wgmma_ss<0>(s, desc_kmajor(q_s, kc), desc_kmajor(k_s, kc), kc);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        int col = key0 + nt * 8 + tig * 2 + (i & 1);
-        float l = i < 2 ? lse_a : lse_b, dsum = i < 2 ? d_a : d_b;
-        float p = masked_col(col, T, pad_lo, pad_hi)
-                      ? 0.f : round_bf16(exp2f(s[nt][i] * scale_log2 - l));
-        s[nt][i] = p * (dp[nt][i] - dsum);
+    for (int kc = 0; kc < 4; ++kc)  // dP = dO V^T
+      wgmma_ss<0>(dp, desc_kmajor(do_s, kc), desc_kmajor(v_s, kc), kc);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(s);
+    fence_regs(dp);
+
+    const int key0 = kt * TILE;
+    if (key0 + TILE > T || (key0 + TILE > pad_lo && key0 < pad_hi)) {
+      // a tile with masked key columns (the gap, or past T)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = key0 + (i >> 2) * 8 + tig * 2 + (i & 1);
+        const float x = s[i] * scale_log2 - ((i & 2) ? lse_b : lse_a);
+        const float p = prob(masked_col(col, T, pad_lo, pad_hi) ? -INFINITY : x);
+        s[i] = p * (dp[i] - ((i & 2) ? d_b : d_a));
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const float p = prob(s[i] * scale_log2 - ((i & 2) ? lse_b : lse_a));
+        s[i] = p * (dp[i] - ((i & 2) ? d_b : d_a));
       }
     }
-    mma_acc(acc, s, Kt, gid, tig);  // dQ += dS K
+    uint32_t ds[4][4];
+    acc_to_a(ds, s);
+
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)  // dQ += dS K
+      wgmma_rs<1>(acc, ds[kc], desc_mnmajor(k_s, kc), 1);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(acc);
+    fence_regs(ds);
+
+    __syncthreads();  // every warp is done with slot st
+    if (tid == 0 && kt + STAGES < ntiles) {
+      const int next = (kt + STAGES) * TILE;
+      mbar_expect_tx(&bars[1 + st], 2 * TILE_BYTES);
+      tma_load_tile(ring + (2 * st) * TILE_BYTES, &map_k, &bars[1 + st], next, plane);
+      tma_load_tile(ring + (2 * st + 1) * TILE_BYTES, &map_v, &bars[1 + st], next, plane);
+    }
   }
 
-  store_rows(dq + head, acc, scale, r_a, r_b, tig, T);
+  store_rows(dq + head, acc, scale, scale, r_a, r_b, tig, T);
   if (tig == 0) {
     if (r_a < T) dd[rowbase + r_a] = d_a;
     if (r_b < T) dd[rowbase + r_b] = d_b;
   }
 }
 
-// Pass B: dK and dV of one 64-row key tile, on the transposed tiles.
-__global__ void __launch_bounds__(NTHREADS)
-bwd_dkv(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-        const bf16* __restrict__ dout, const float* __restrict__ lse2,
-        const float* __restrict__ dd, bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int T,
-        int pad_lo, int pad_hi, float scale_log2, float scale) {
-  __shared__ __align__(16) bf16 Qs[BC][LDS];
-  __shared__ __align__(16) bf16 Gs[BC][LDS];  // dO
-  __shared__ __align__(16) bf16 Qt[HD][BC + 8];
-  __shared__ __align__(16) bf16 Gt[HD][BC + 8];
-  __shared__ float lse_s[BC];
-  __shared__ float dd_s[BC];
+// Pass B: dK and dV of one 64-row key tile, on the transposed products
+// (keys as rows, queries as columns).
+__global__ void __launch_bounds__(NTHREADS, BLOCKS_PER_SM)
+bwd_dkv(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+        const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+        const float* __restrict__ lse2, const float* __restrict__ dd, bf16* __restrict__ dk,
+        bf16* __restrict__ dv, int H, int T, int pad_lo, int pad_hi, float scale_log2,
+        float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* k_s = smem;
+  uint8_t* v_s = smem + TILE_BYTES;
+  uint8_t* ring = smem + 2 * TILE_BYTES;  // slot s: Q at 2s, dO at 2s + 1 tiles
+  float* lse_s = reinterpret_cast<float*>(smem + RING_BYTES);  // [STAGES][TILE]
+  float* dd_s = lse_s + STAGES * TILE;                          // [STAGES][TILE]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + RING_BYTES + STAT_BYTES);
 
-  const int h = blockIdx.y, b = blockIdx.z;
-  const size_t head = ((size_t)b * H + h) * (size_t)T * HD;
-  const size_t rowbase = ((size_t)b * H + h) * (size_t)T;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int plane = blockIdx.z * H + blockIdx.y;
+  const int key0 = blockIdx.x * TILE;
+  const int ntiles = (T + TILE - 1) / TILE;
+  const int tid = threadIdx.x;
+  const size_t rowbase = (size_t)plane * T;
+  if (tid == 0) {
+    for (int i = 0; i <= STAGES; ++i) mbar_init(&bars[i], 1);
+    mbar_init_fence();
+    mbar_expect_tx(&bars[0], 2 * TILE_BYTES);
+    tma_load_tile(k_s, &map_k, &bars[0], key0, plane);
+    tma_load_tile(v_s, &map_v, &bars[0], key0, plane);
+    for (int s = 0; s < STAGES && s < ntiles; ++s) {
+      mbar_expect_tx(&bars[1 + s], 2 * TILE_BYTES);
+      tma_load_tile(ring + (2 * s) * TILE_BYTES, &map_q, &bars[1 + s], s * TILE, plane);
+      tma_load_tile(ring + (2 * s + 1) * TILE_BYTES, &map_do, &bars[1 + s], s * TILE, plane);
+    }
+  }
+  // the row statistics of a query tile: threads 0-63 lse2, 64-127 D. A
+  // query row past T gets lse2 = +inf, hence p = exp2(-inf) = 0
+  const float* stat = tid < TILE ? lse2 : dd;
+  float* stat_s = tid < TILE ? lse_s : dd_s;
+  const int srow = tid & (TILE - 1);
+  const float past_end = tid < TILE ? INFINITY : 0.f;
+  for (int s = 0; s < STAGES && s < ntiles; ++s) {
+    const int q = s * TILE + srow;
+    stat_s[s * TILE + srow] = q < T ? stat[rowbase + q] : past_end;
+  }
+  __syncthreads();
+
+  const size_t head = (size_t)plane * T * HD;
+  const int warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;
-  const int key_a = blockIdx.x * BR + warp * 16 + gid;
+  const int key_a = key0 + warp * 16 + gid;
   const int key_b = key_a + 8;
   const bool off_a = masked_col(key_a, T, pad_lo, pad_hi);
   const bool off_b = masked_col(key_b, T, pad_lo, pad_hi);
 
-  uint32_t ka[4][4], va[4][4];
-  load_rows(ka, k + head, key_a, key_b, tig, T);
-  load_rows(va, v + head, key_a, key_b, tig, T);
-
-  float acc_k[8][4], acc_v[8][4];
+  float acc_k[32], acc_v[32], s[32], dp[32];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    acc_k[i][0] = acc_k[i][1] = acc_k[i][2] = acc_k[i][3] = 0.f;
-    acc_v[i][0] = acc_v[i][1] = acc_v[i][2] = acc_v[i][3] = 0.f;
-  }
+  for (int i = 0; i < 32; ++i) acc_k[i] = acc_v[i] = s[i] = dp[i] = 0.f;
 
-  const int ntiles = (T + BC - 1) / BC;
+  mbar_wait(&bars[0], 0);
   for (int qt = 0; qt < ntiles; ++qt) {
-    const int q0 = qt * BC;
-    __syncthreads();  // previous tile fully consumed
-    load_tile(q + head, q0, T, Qs, Qt);
-    load_tile(dout + head, q0, T, Gs, Gt);
-    if (threadIdx.x < BC) {
-      int r = q0 + threadIdx.x;
-      lse_s[threadIdx.x] = r < T ? lse2[rowbase + r] : 0.f;
-      dd_s[threadIdx.x] = r < T ? dd[rowbase + r] : 0.f;
-    }
-    __syncthreads();
+    const int st = qt % STAGES;
+    const uint8_t* q_s = ring + (2 * st) * TILE_BYTES;
+    const uint8_t* do_s = q_s + TILE_BYTES;
+    // this thread's statistic of the tile that refills slot st, read early
+    const int nq = (qt + STAGES) * TILE + srow;
+    const float pre = qt + STAGES < ntiles && nq < T ? stat[rowbase + nq] : past_end;
+    mbar_wait(&bars[1 + st], (qt / STAGES) & 1);
 
-    float s[8][4], dp[8][4];
-    mma_rows(s, ka, Qs, gid, tig);   // S^T  = K Q^T   (keys x queries)
-    mma_rows(dp, va, Gs, gid, tig);  // dP^T = V dO^T
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int kc = 0; kc < 4; ++kc)  // S^T = K Q^T
+      wgmma_ss<0>(s, desc_kmajor(k_s, kc), desc_kmajor(q_s, kc), kc);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        int qc = nt * 8 + tig * 2 + (i & 1);
-        bool off = (i < 2 ? off_a : off_b) || q0 + qc >= T;
-        float p = off ? 0.f : round_bf16(exp2f(s[nt][i] * scale_log2 - lse_s[qc]));
-        s[nt][i] = p;
-        dp[nt][i] = p * (dp[nt][i] - dd_s[qc]);
+    for (int kc = 0; kc < 4; ++kc)  // dP^T = V dO^T
+      wgmma_ss<0>(dp, desc_kmajor(v_s, kc), desc_kmajor(do_s, kc), kc);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // masked key rows are zeroed at the store: a row's p reaches only its
+    // own row of dK and dV
+    const float* ls = lse_s + st * TILE;
+    const float* dsum = dd_s + st * TILE;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int qc = (i >> 2) * 8 + tig * 2 + (i & 1);
+      const float p = prob(s[i] * scale_log2 - ls[qc]);
+      s[i] = p;
+      dp[i] = p * (dp[i] - dsum[qc]);
+    }
+    uint32_t pa[4][4], da[4][4];
+    acc_to_a(pa, s);
+    acc_to_a(da, dp);
+
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)  // dV += P^T dO
+      wgmma_rs<1>(acc_v, pa[kc], desc_mnmajor(do_s, kc), 1);
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)  // dK += dS^T Q
+      wgmma_rs<1>(acc_k, da[kc], desc_mnmajor(q_s, kc), 1);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(acc_v);
+    fence_regs(acc_k);
+    fence_regs(pa);
+    fence_regs(da);
+
+    __syncthreads();  // every warp is done with slot st and its statistics
+    if (qt + STAGES < ntiles) {
+      stat_s[st * TILE + srow] = pre;  // read after the barrier of the next iteration
+      if (tid == 0) {
+        const int next = (qt + STAGES) * TILE;
+        mbar_expect_tx(&bars[1 + st], 2 * TILE_BYTES);
+        tma_load_tile(ring + (2 * st) * TILE_BYTES, &map_q, &bars[1 + st], next, plane);
+        tma_load_tile(ring + (2 * st + 1) * TILE_BYTES, &map_do, &bars[1 + st], next, plane);
       }
     }
-    mma_acc(acc_v, s, Gt, gid, tig);   // dV += P^T dO
-    mma_acc(acc_k, dp, Qt, gid, tig);  // dK += dS^T Q
   }
 
-  store_rows(dk + head, acc_k, scale, key_a, key_b, tig, T);
-  store_rows(dv + head, acc_v, 1.f, key_a, key_b, tig, T);
+  store_rows(dk + head, acc_k, off_a ? 0.f : scale, off_b ? 0.f : scale, key_a, key_b, tig, T);
+  store_rows(dv + head, acc_v, off_a ? 0.f : 1.f, off_b ? 0.f : 1.f, key_a, key_b, tig, T);
+}
+
+// one tensor map per (B*H, T, 64) input (0, or make_tile_map's code), and
+// the other tensors' 16-byte alignment (TMA_MISALIGNED if not)
+int make_maps(CUtensorMap (&m)[4], const void* q, const void* k, const void* v, const void* dout,
+              int planes, int T, const void* x, const void* y) {
+  const void* base[4] = {q, k, v, dout};
+  for (int i = 0; i < 4; ++i)
+    if (int err = make_tile_map(&m[i], base[i], planes, T)) return err;
+  if (((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15) != 0)
+    return TMA_MISALIGNED;
+  return 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v, out, dout, dq: (B, H, T, 64) bf16 contiguous; lse2 (from
-// attn_flash_forward on the same q, k) and dd: (B, H, T) f32. dd is written.
+// q, k, v, out, dout, dq: (B, H, T, 64) bf16 contiguous, 16-byte aligned;
+// lse2 (from attn_flash_forward on the same q, k) and dd: (B, H, T) f32.
+// dd is written. Returns a cudaError_t, or a code of make_tile_map (>= 998)
+// when a tensor map cannot be made.
 int attn_backward_dq(const void* q, const void* k, const void* v, const void* out,
                      const void* dout, const void* lse2, void* dq, void* dd, int B, int H, int T,
                      int pad_lo, int pad_hi, float scale_log2, float scale, void* stream) {
-  dim3 grid((T + BR - 1) / BR, H, B);
-  bwd_dq<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)out, (const bf16*)dout,
-      (const float*)lse2, (bf16*)dq, (float*)dd, H, T, pad_lo, pad_hi, scale_log2, scale);
+  // a runtime call first: it makes the device's context current on this
+  // thread (the autograd engine's), which the tensor-map encoding needs
+  cudaError_t err =
+      cudaFuncSetAttribute(bwd_dq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DQ_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap m[4];
+  if (int bad = make_maps(m, q, k, v, dout, B * H, T, out, dq)) return bad;
+  dim3 grid((T + TILE - 1) / TILE, H, B);
+  bwd_dq<<<grid, NTHREADS, DQ_SMEM, (cudaStream_t)stream>>>(
+      m[0], m[1], m[2], m[3], (const bf16*)out, (const bf16*)dout, (const float*)lse2, (bf16*)dq,
+      (float*)dd, H, T, pad_lo, pad_hi, scale_log2, scale);
   return (int)cudaGetLastError();
 }
 
@@ -340,10 +420,17 @@ int attn_backward_dq(const void* q, const void* k, const void* v, const void* ou
 int attn_backward_dkv(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse2, const void* dd, void* dk, void* dv, int B, int H, int T,
                       int pad_lo, int pad_hi, float scale_log2, float scale, void* stream) {
-  dim3 grid((T + BR - 1) / BR, H, B);
-  bwd_dkv<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse2,
-      (const float*)dd, (bf16*)dk, (bf16*)dv, H, T, pad_lo, pad_hi, scale_log2, scale);
+  // a runtime call first: it makes the device's context current on this
+  // thread (the autograd engine's), which the tensor-map encoding needs
+  cudaError_t err =
+      cudaFuncSetAttribute(bwd_dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DKV_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap m[4];
+  if (int bad = make_maps(m, q, k, v, dout, B * H, T, dk, dv)) return bad;
+  dim3 grid((T + TILE - 1) / TILE, H, B);
+  bwd_dkv<<<grid, NTHREADS, DKV_SMEM, (cudaStream_t)stream>>>(
+      m[0], m[1], m[2], m[3], (const float*)lse2, (const float*)dd, (bf16*)dk, (bf16*)dv, H, T,
+      pad_lo, pad_hi, scale_log2, scale);
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,219 @@
+// Hopper (sm_90a) building blocks for the hand-written kernels: mbarriers,
+// TMA tile loads from a 3-D tensor map, wgmma matrix descriptors and the
+// m64n64k16 bf16 products with f32 accumulators.
+//
+// Tile convention: a (64 rows, 64) bf16 tile of a (planes, rows, 64) tensor
+// is 64 rows of 128 bytes, loaded by TMA under CU_TENSOR_MAP_SWIZZLE_128B
+// into a 1024-byte aligned slot. One such tile serves wgmma in both majors:
+//   K-major   (the 64 columns are the contraction): desc_kmajor + 32 B per k16 step;
+//   MN-major  (the 64 rows are the contraction):    desc_mnmajor + 2048 B per k16 step.
+// The tensor map is encoded on the host through the entry point that
+// cudaGetDriverEntryPoint returns, so no -lcuda is needed at link time.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+// ---------------------------------------------------------------- mbarrier
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// make the initialised barriers visible to the async proxy (TMA)
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// spin until the barrier's phase differs from `parity`
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "MBAR_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@done bra MBAR_DONE;\n"
+      "bra MBAR_WAIT;\n"
+      "MBAR_DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// ---------------------------------------------------------------- TMA
+
+// one (64, 64) bf16 tile at (row, plane) of a 3-D map; rows past the end
+// of the plane arrive as zeros; completes `bytes` on `bar`
+__device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                              int row, int plane) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(0), "r"(row), "r"(plane)
+      : "memory");
+}
+
+constexpr int TILE_ROWS = 64;
+constexpr int TILE_BYTES = TILE_ROWS * 128;
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// Map of a contiguous (planes, rows, 64) bf16 tensor with (64, 64, 1) boxes,
+// 128-byte swizzle, zeros outside the tensor. Returns 0, or a code that
+// says why not: TMA_NO_ENTRY_POINT, TMA_MISALIGNED, or TMA_REFUSED + the
+// CUresult of the encoding.
+constexpr int TMA_NO_ENTRY_POINT = 999;
+constexpr int TMA_MISALIGNED = 998;
+constexpr int TMA_REFUSED = 1000;
+
+inline int make_tile_map(CUtensorMap* map, const void* base, int planes, int rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return TMA_NO_ENTRY_POINT;
+  if ((reinterpret_cast<uintptr_t>(base) & 15) != 0) return TMA_MISALIGNED;
+  cuuint64_t dims[3] = {64, (cuuint64_t)rows, (cuuint64_t)planes};
+  cuuint64_t strides[2] = {128, (cuuint64_t)rows * 128};
+  cuuint32_t box[3] = {64, TILE_ROWS, 1};
+  cuuint32_t elem[3] = {1, 1, 1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : TMA_REFUSED + (int)r;
+}
+
+// ---------------------------------------------------------------- wgmma
+
+// matrix descriptor of a 128-byte-swizzled slot: start >> 4, leading and
+// stride byte offsets >> 4, layout type 1 (128B swizzle) in bits 62-63
+__device__ __forceinline__ uint64_t make_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+// K-major operand (rows = M or N, the 64 columns = the contraction), k16 step kc
+__device__ __forceinline__ uint64_t desc_kmajor(const void* tile, int kc) {
+  return make_desc(smem_addr(tile) + kc * 32, 16, 1024);
+}
+
+// MN-major operand (rows = the contraction, the 64 columns = N), k16 step kc
+__device__ __forceinline__ uint64_t desc_mnmajor(const void* tile, int kc) {
+  return make_desc(smem_addr(tile) + kc * 2048, TILE_BYTES, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until every committed group has completed
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from touching registers an in-flight wgmma owns
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+#define HOPPER_D32                                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define HOPPER_D32_OUT(d)                                                                      \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),          \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),  \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),            \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),            \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// D (64 x 64, f32) (+)= A (64 x 16, K-major slot) * B (16 x 64, slot of
+// either major: TRANS_B = 1 for MN-major); accumulate when `acc` != 0
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32
+      ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : HOPPER_D32_OUT(d)
+      : "l"(desc_a), "l"(desc_b), "r"(acc), "n"(TRANS_B));
+}
+
+// the same with A (64 x 16) in registers: warp w of the warpgroup holds rows
+// 16w..16w+15 in the m16n8k16 A-fragment layout
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : HOPPER_D32_OUT(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(acc), "n"(TRANS_B));
+}
+
+#undef HOPPER_D32
+#undef HOPPER_D32_OUT
+
+// Accumulator layout of m64n64 (f32, 32 per thread): d[4j + i] is row
+// 16*warp + lane/4 + 8*(i >> 1), column 8j + 2*(lane % 4) + (i & 1). The
+// A fragment of k16 step kc of a product that contracts over those 64
+// columns is d[8kc .. 8kc + 7], rounded to bf16 pairs:
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4][4], const float (&d)[32]) {
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    a[kc][0] = pack_bf16(d[8 * kc + 0], d[8 * kc + 1]);
+    a[kc][1] = pack_bf16(d[8 * kc + 2], d[8 * kc + 3]);
+    a[kc][2] = pack_bf16(d[8 * kc + 4], d[8 * kc + 5]);
+    a[kc][3] = pack_bf16(d[8 * kc + 6], d[8 * kc + 7]);
+  }
+}
+
+}  // namespace hopper

@@ -3,8 +3,11 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, at first use, into
 ``build/attentionshift_torch/`` at the repository root (listed in
-``.gitignore``). The library name carries a hash of the source, so an
-edited source is rebuilt and a stale library is never loaded.
+``.gitignore``). The library name carries a hash of the source and of
+every header it includes with quotes (``csrc/*.cuh``, transitively), so
+an edited source or header is rebuilt and a stale library is never
+loaded. TMA tensor maps are encoded through the entry point that
+``cudaGetDriverEntryPoint`` returns, so nothing links against ``libcuda``.
 ``build_all`` starts one ``nvcc`` per source, all at once.
 
 Every kernel has a ``Kernel`` record in ``KERNELS``: the wrapper adds
@@ -17,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from dataclasses import dataclass, field
@@ -98,11 +102,30 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def _digest(src: str) -> str:
+    """Hash of ``src``, of every header it includes with quotes (resolved
+    beside the including file, transitively) and of the nvcc flags."""
+    h = hashlib.sha1()
+    seen, todo = set(), [os.path.abspath(src)]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        with open(path, "rb") as fh:
+            text = fh.read()
+        h.update(text)
+        todo += [os.path.join(os.path.dirname(path), m.decode()) for m in _INCLUDE.findall(text)]
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:12]
+
+
 def _target(source: str) -> tuple[str, str]:
     src = os.path.join(_CSRC, source + ".cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha1(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return src, os.path.join(BUILD_DIR, f"{source}-{digest}.so")
+    return src, os.path.join(BUILD_DIR, f"{source}-{_digest(src)}.so")
 
 
 def _start(source: str):

@@ -11,7 +11,8 @@ Phases, each printing its own lines:
    sm_90a, one nvcc per source, all at once;
 3. each kernel at the bench shapes against its plain PyTorch version on
    the card, with the tolerance stated beside each check (the two
-   attention backward kernels included: gap columns of dK/dV exactly 0;
+   attention backward kernels included: gap columns of dK/dV exactly 0,
+   and once more at the microbenchmark's ragged T = 4301 without a gap;
    the five design variants of the attention microbenchmark included,
    also on an input that tells the clamped variants from the unclamped;
    every kernel the microbenchmark launches also on its own inputs,
@@ -35,8 +36,10 @@ Phases, each printing its own lines:
    (``attentionshift_torch.tools.analysis.microbench_attention``) at its
    defaults, every variant, its lines printed, its launches counted;
 8. times with CUDA events: every kernel, its plain version, the library
-   call where one exists, ms/img of the pseudo-label path and of
-   inference and ms per train step, each with one profiled call.
+   call where one exists (the backward pair's TFLOP/s and its ratio to
+   SDPA's backward with the same mask, same run), ms/img of the
+   pseudo-label path and of inference and ms per train step, each with
+   one profiled call.
 
 A failing phase raises and the script exits non-zero. The line before
 the last is the kernel table as JSON; the last line is
@@ -191,7 +194,10 @@ def kernel_inputs(dev, gen):
 
     tool_qkv = make_inputs(device=dev)
     assert tuple(tool_qkv[0].shape) == (1, HEADS, T_TOK, HEAD_DIM)
-    return dict(qkv=qkv, tool_qkv=tool_qkv, g_out=g_out, masks=masks, prot0=prot0, mask=mask, f=f)
+    # an upstream gradient at that shape: the backward pair at a ragged T
+    tool_g = torch.randn(tool_qkv[0].shape, generator=gen, device=dev).to(torch.bfloat16)
+    return dict(qkv=qkv, tool_qkv=tool_qkv, tool_g=tool_g, g_out=g_out, masks=masks,
+                prot0=prot0, mask=mask, f=f)
 
 
 def phase_kernels(results: dict, inp: dict):
@@ -293,7 +299,9 @@ def phase_kernels(results: dict, inp: dict):
 
 def phase_backward_kernels(results: dict, inp: dict):
     """Both attention backward kernels, through the attention ops'
-    autograd, against the plain backward at the bench shape."""
+    autograd, against the plain backward at the bench shape (with its
+    gap) and at the microbenchmark's ragged T = 4301 without a gap. The
+    errors kept for the kernel table are the bench shape's."""
     import torch
 
     from attentionshift_torch.ops import attention
@@ -328,6 +336,15 @@ def phase_backward_kernels(results: dict, inp: dict):
                    "pad-gap columns carry exactly 0")
     results["attention_bwd_dq"] = dict(max_abs_err=errs["dq"])
     results["attention_bwd_dkv"] = dict(max_abs_err=max(errs["dk"], errs["dv"]))
+    del want, no_gap
+    tq, tk, tv = inp["tool_qkv"]
+    want = attention.attention_backward_reference(tq, tk, tv, inp["tool_g"], None)
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    got = torch.autograd.grad(attention.attention_no_capture(*leaves), leaves, inp["tool_g"])
+    sync()
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        expect(f"attention_bwd.tool_input.{name}", max_err(a, b), bf16_ulps(b, 4),
+               "4 bf16 ulps of the largest gradient, T = 4301: a ragged last tile")
 
 
 def phase_variant_kernels(results: dict, inp: dict):
@@ -807,6 +824,13 @@ def phase_times(results: dict, inp: dict, model, slice_inp, gen):
         library_ms=None,
         bytes=4 * (prot0.numel() + mask.numel() + f.numel() + prot0.numel() + g * kk * n),
         ops=g * (11 * 2.0 * kk * n * dd + 10 * 2.0 * n * dd), peak=PEAK_BF16)
+    for name in ("attention_bwd_dq", "attention_bwd_dkv"):
+        tm = times[name]
+        log(f"[time] {name}: {tm['ops'] / (tm['ms'] * 1e-3) / 1e12:.1f} TFLOP/s achieved "
+            f"({tm['ops'] / 1e9:.1f} GFLOP of its products at the bench shape)")
+    pair = times["attention_bwd_dq"]["ms"] + times["attention_bwd_dkv"]["ms"]
+    log(f"[time] backward pair {pair:.4f} ms = {pair / lib_bwd:.2f}x SDPA's backward "
+        f"({lib_bwd:.4f} ms, same mask), same run")
     for name, tm in times.items():
         t_bytes = tm["bytes"] / PEAK_BYTES * 1e3
         t_ops = tm["ops"] / tm["peak"] * 1e3
@@ -835,8 +859,9 @@ def phase_times(results: dict, inp: dict, model, slice_inp, gen):
 
 
 def profile_slice(run, ms_img: float, top: int = 12, what: str = "call") -> None:
-    """Where one call's time goes: device time by kernel (torch.profiler)
-    and the device's busy share of the call's wall time."""
+    """Where one call's time goes: device time by kernel (torch.profiler;
+    the ``top`` kernels and every hand-written one) and the device's busy
+    share of the call's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -852,7 +877,11 @@ def profile_slice(run, ms_img: float, top: int = 12, what: str = "call") -> None
         return
     log(f"[profile] one {what}: wall {wall_ms:.2f} ms (unprofiled {ms_img:.2f}), device busy "
         f"{dev_ms:.2f} ms = {dev_ms / wall_ms:.1%} of wall, {len(events)} kernel names")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    # the top kernels, then every hand-written one (csrc/ kernels live in
+    # anonymous namespaces) that the top list left out
+    shown = ranked[:top] + [e for e in ranked[top:] if "(anonymous namespace)::" in e.key]
+    for e in shown:
         log(f"[profile]   device {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
     host = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU]
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:top]:

@@ -104,36 +104,64 @@ def test_meanshift_kernel_on_card(cuda):
             torch.testing.assert_close(a, b, atol=tol * float(b.abs().max()), rtol=0)
 
 
+# (B, H, T, gap): one tile; one row past two tiles; a ragged T with and
+# without a gap; a gap across the tile boundary at 128; the bench shape
+BACKWARD_CASES = [
+    (1, 3, 64, None),
+    (1, 3, 129, None),
+    (2, 3, 300, (250, 270)),
+    (2, 3, 300, None),
+    (2, 3, 300, (120, 140)),
+    (1, 6, 4352, (4201, 4252)),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("gap", [(250, 270), None])
-def test_attention_backward_kernels_on_card(cuda, gap):
+@pytest.mark.parametrize("b,h,t,gap", BACKWARD_CASES)
+def test_attention_backward_kernels_on_card(cuda, b, h, t, gap):
     """Both backward kernels (through the autograd Functions) vs the plain
-    backward at a ragged T (300 = 4 tiles of 64 + 44), with and without a
-    gap. bf16 gradients: 4 bf16 ulps of each gradient's largest entry (the
-    kernels normalise with the forward's row statistic and take D from the
-    bf16 ``out``; the plain version recomputes both in f32). Gap columns of
-    dk and dv are exactly zero, and a plain backward that ignores the gap
-    exceeds the limit."""
+    backward at shapes that reach the edges of the 64-row tiles and of the
+    two-slot ring (one tile, one row past two, 300 = 4 tiles of 64 + 44,
+    the bench shape's 68 tiles), with and without a gap, one gap across a
+    tile boundary. bf16 gradients: 4 bf16 ulps of each gradient's largest
+    entry (the kernels normalise with the forward's row statistic and take
+    D from the bf16 ``out``; the plain version recomputes both in f32). Gap
+    columns of dk and dv are exactly zero, and a plain backward that
+    ignores the gap exceeds the limit."""
     gen = torch.Generator(device=cuda).manual_seed(1)
-    q, k, v, g = (torch.randn((2, 3, 300, 64), generator=gen, device=cuda).bfloat16()
+    q, k, v, g = (torch.randn((b, h, t, 64), generator=gen, device=cuda).bfloat16()
                   for _ in range(4))
     want = attention.attention_backward_reference(q, k, v, g, gap)
     for op in (attention.attention_no_capture, attention.attention_with_capture):
-        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
         out = op(*leaves, gap)
         out = out[0] if isinstance(out, tuple) else out
         got = torch.autograd.grad(out, leaves, g)
-        for name, a, b in zip("qkv", got, want):
-            top = float(b.float().abs().max())
-            tol = 4 * 2.0 ** (np.floor(np.log2(top)) - 7)
-            torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=0, msg=f"d{name}")
+        for name, a, w in zip("qkv", got, want):
+            torch.testing.assert_close(a.float(), w.float(), atol=_ulps(w, 4), rtol=0,
+                                       msg=f"d{name}")
         if gap is not None:
             assert float(got[1][:, :, gap[0]:gap[1]].float().abs().max()) == 0.0
             assert float(got[2][:, :, gap[0]:gap[1]].float().abs().max()) == 0.0
             no_gap = attention.attention_backward_reference(q, k, v, g, None)
-            top = float(want[2].float().abs().max())
-            assert float((got[2].float() - no_gap[2].float()).abs().max()) > \
-                4 * 2.0 ** (np.floor(np.log2(top)) - 7)
+            assert float((got[2].float() - no_gap[2].float()).abs().max()) > _ulps(want[2], 4)
+
+
+@pytest.mark.gpu
+def test_attention_backward_kernels_are_deterministic(cuda):
+    """No atomics: two backward calls on the same inputs give bitwise equal
+    dq, D, dk and dv."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v, g = (torch.randn((2, 3, 300, 64), generator=gen, device=cuda).bfloat16()
+                  for _ in range(4))
+    out, lse = attention.flash_forward(q, k, v, (120, 140), with_lse=True)
+    runs = []
+    for _ in range(2):
+        dq, dd = attention.attention_backward_dq(q, k, v, out, lse, g, (120, 140))
+        runs.append((dq, dd, *attention.attention_backward_dkv(q, k, v, lse, dd, g, (120, 140))))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def _ulps(ref, n):

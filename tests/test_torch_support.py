@@ -1,4 +1,5 @@
-"""Shared helpers of the PyTorch-port parity tests (no tests here).
+"""Shared helpers of the PyTorch-port parity tests, and the test of the
+kernel build's cache key (the one test here).
 
 The parity tests feed the same numpy inputs, made from a seed, through a
 JAX function and its ``attentionshift_torch`` counterpart on the CPU.
@@ -449,3 +450,29 @@ def check_step_outputs(seen, grad_rel=2e-3, group=None):
         assert abs(float(metrics["loss_total"]) - total) <= 2e-4 * max(1.0, abs(total)) + 2e-3
         check_tree(grads, torch_tree(jgrads), grad_rel, "grad", group)
     assert all(float(g.abs().max()) > 0 for g in seen[0][2].values())
+
+
+def test_build_digest_covers_included_headers(tmp_path):
+    """The built library's name hashes a source and every header it
+    includes: editing ``csrc/hopper.cuh`` renames the backward pair's
+    library (and no stale one is loaded), editing another source does not."""
+    import shutil
+
+    from attentionshift_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build._CSRC, csrc)
+    src = str(csrc / "attention_bwd.cu")
+    assert '#include "hopper.cuh"' in open(src).read()
+    before = _build._digest(src)
+    assert before == _build._digest(os.path.join(_build._CSRC, "attention_bwd.cu"))
+    with open(csrc / "ccl.cu", "a") as fh:
+        fh.write("// unrelated edit\n")
+    assert _build._digest(src) == before
+    with open(csrc / "hopper.cuh", "a") as fh:
+        fh.write("// header edit\n")
+    after = _build._digest(src)
+    assert after != before
+    with open(src, "a") as fh:
+        fh.write("// source edit\n")
+    assert _build._digest(src) not in (before, after)
