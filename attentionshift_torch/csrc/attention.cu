@@ -9,196 +9,263 @@
 // What bounds it on the H100. At the bench shape (B=1, H=6, T=4352, d=64)
 // one plain call is 4*H*T^2*d = 29 GFLOP against 13 MB of q/k/v/out: far
 // above the ~295 FLOP/byte ridge, so the tensor cores bound it (29 us at
-// 989 TFLOP/s). The capture call adds the (T, T) bf16 mean matrix, 38 MB
-// written once (11 us at 3.35 TB/s), and the recompute of q.k^T for it.
+// 989 TFLOP/s). Each of the two kernels also takes one exp2 per (head,
+// row, key), 114 M at that shape: ~29 us at 16 per clock per SM, as long
+// as the products at head dim 64, so the exp work has to run beside them.
+// The capture call adds the (T, T) bf16 mean matrix, 38 MB written once
+// (11 us at 3.35 TB/s), and the recompute of q.k^T for it.
 //
-// What the design does about it. The TPU kernel kept all six heads' K/V
-// and a (128, T) f32 row tile in 100 MB of VMEM; an SM has 227 KB, so
-// the key axis is tiled here:
-//   flash_fwd   one block per (64 query rows, head, image): online softmax
-//               over 64-key tiles with the row max subtracted, mma.sync
-//               m16n8k16 bf16 products with f32 accumulation, the P tile
-//               kept in registers between the two products. It writes
-//               `out` and, for the capture call, each row's log2-sum-exp
-//               per head (the row normaliser, known before heads are
-//               summed).
-//   attn_mean   one block per (64 query rows, 64 keys, image): recomputes
-//               q.k^T for every head, p = exp2(s - lse_h), sums over heads,
-//               and writes the mean tile once in bf16. Nothing (T, T)-sized
-//               but the output itself touches device memory.
-// Columns in the pad gap [pad_lo, pad_hi) and columns >= T get p = 0; the
-// row sum is floored at 1e-30 as on the TPU. The TPU's constant shift of
-// 20 in exp2 (a VPU choice) is replaced by the row max, which makes its
-// exponent clamp at 100 unnecessary. No cp.async/TMA/wgmma yet: tiles are
-// loaded synchronously, which a later change can pipeline.
+// What the design does about it (helpers in hopper.cuh). The TPU kernel
+// kept all six heads' K/V and a (128, T) f32 row tile in 100 MB of VMEM;
+// an SM has 227 KB, so the key axis is tiled. Tiles are 64 rows, loaded by
+// TMA from 3-D (B*H, T, 64) tensor maps under the 128-byte swizzle (rows
+// >= T of a head arrive as zeros) with mbarrier completion; each warpgroup
+// owns a 64-row tile of queries; every product is a wgmma m64n64k16 with
+// f32 accumulators, and ptxas keeps them asynchronous (no C751x warning)
+// because every step issues one batch and waits for all of it.
+//   flash_fwd   one block = two warpgroups = 128 query rows of one head,
+//               two blocks per SM. Both warpgroups read each K and V tile
+//               of a four-slot ring, refilled by thread 0 once both are
+//               done with a slot, so each tile crosses L2 once per 128
+//               rows. Per key tile: the online softmax on the S
+//               accumulators, p rounded to bf16 into register A operands,
+//               then one batch of O += P V (V read MN-major through the
+//               descriptor's transpose bit, so no transposed copy of V
+//               exists) and the next tile's S = Q K^T (both tiles
+//               K-major). The two warpgroups and the other block on the SM
+//               overlap one warpgroup's exp work with another's products.
+//               It writes `out` and, for the capture call or a gradient,
+//               each row's log2-sum-exp per head (the row normaliser,
+//               known before heads are summed). The bench shape's 204
+//               blocks fill 264 slots unevenly: 72 SMs hold two blocks and
+//               60 one, so the busiest hold 4 of the 3.09 query tiles an
+//               even share would give.
+//   attn_mean   one block = one warpgroup per (64 query rows, chunk of key
+//               tiles, image), three blocks per SM: the query tiles of all
+//               heads loaded once and kept (H x 8 KB); the K tile of every
+//               (key tile, head) streams through a two-slot ring, so K is
+//               read once per (row tile, head); S_h = Q_h K_h^T by wgmma
+//               (the next head's product issued before this head's exp
+//               work, two S accumulators), p = exp2(s - lse_h) summed over
+//               heads in f32 registers, the mean tile written once in
+//               bf16. The host picks the chunk length for the fewest,
+//               shortest waves (4 key tiles at the bench shape, 1156
+//               blocks). Nothing (T, T)-sized but the output itself touches
+//               device memory.
+// Columns in the pad gap [pad_lo, pad_hi) and columns >= T get p = 0, and
+// only tiles that reach the gap or T test columns at all. The masking and
+// the exp work are branch-free: a masked entry takes exp2(-inf) = 0 (a
+// branch around each exp2 serialises their latencies). The row sum is
+// floored at 1e-30 as on the TPU. The TPU's constant shift of 20 in exp2
+// (a VPU choice) is replaced by the row max, which makes its exponent
+// clamp at 100 unnecessary. No atomics: every output element is written
+// once, by one block, in a fixed order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int HD = 64;       // head dim
-constexpr int BQ = 64;       // query rows per block: 4 warps x 16
-constexpr int BK = 64;       // keys per tile
-constexpr int NTHREADS = 128;
-constexpr int LDS = HD + 8;  // smem row stride (bf16), keeps fragment reads conflict-free
+using namespace hopper;
+
+constexpr int HD = 64;         // head dim
+constexpr int TILE = TILE_ROWS;
+constexpr int WG_THREADS = 128;  // one warpgroup
+constexpr int FWD_WARPGROUPS = 2;  // 64-row query tiles per flash_fwd block
+constexpr int FWD_STAGES = 4;      // K/V ring slots of flash_fwd
+constexpr int FWD_BLOCKS_PER_SM = 2;
+constexpr int FWD_ROWS = FWD_WARPGROUPS * TILE_ROWS;
+constexpr int FWD_THREADS = FWD_WARPGROUPS * WG_THREADS;
+constexpr int MEAN_STAGES = 2;  // K ring slots of attn_mean
+constexpr int MEAN_BLOCKS_PER_SM = 3;
+constexpr int MEAN_MAX_HEADS = 16;  // attn_mean keeps every head's query tile
+constexpr int MEAN_MAX_CHUNK = 16;  // key tiles per attn_mean block, at most
+
+// flash_fwd: the query tiles, FWD_STAGES slots of (K, V), the barriers
+constexpr size_t FWD_SMEM = (size_t)(FWD_WARPGROUPS + 2 * FWD_STAGES) * TILE_BYTES +
+                            (1 + FWD_STAGES) * sizeof(uint64_t) + 1024;
+
+// attn_mean: H query tiles, MEAN_STAGES K slots, H x 64 row statistics, the barriers
+size_t mean_smem(int H) {
+  return (size_t)(H + MEAN_STAGES) * TILE_BYTES + (size_t)H * TILE * sizeof(float) +
+         (1 + MEAN_STAGES) * sizeof(uint64_t) + 1024;
+}
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// two adjacent bf16 (row r, cols c, c+1) of a (T, 64) head matrix; 0 past T
-__device__ __forceinline__ uint32_t ld2(const bf16* m, int r, int c, int T) {
-  if (r >= T) return 0u;
-  return *reinterpret_cast<const uint32_t*>(m + (size_t)r * HD + c);
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ bool masked_col(int col, int T, int pad_lo, int pad_hi) {
   return col >= T || (col >= pad_lo && col < pad_hi);
 }
 
-// A fragments of a warp's 16 query rows over the whole head dim
-__device__ __forceinline__ void load_q(uint32_t qa[4][4], const bf16* qh, int r_a, int r_b,
-                                       int tig, int T) {
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    int c = kc * 16 + tig * 2;
-    qa[kc][0] = ld2(qh, r_a, c, T);
-    qa[kc][1] = ld2(qh, r_b, c, T);
-    qa[kc][2] = ld2(qh, r_a, c + 8, T);
-    qa[kc][3] = ld2(qh, r_b, c + 8, T);
-  }
+// a 64-key tile from key0 on holds a column >= T or in the gap
+__device__ __forceinline__ bool tile_masked(int key0, int T, int pad_lo, int pad_hi) {
+  return key0 + TILE > T || (key0 + TILE > pad_lo && key0 < pad_hi);
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-          bf16* __restrict__ out, float* __restrict__ lse2, int H, int T, int pad_lo,
-          int pad_hi, float scale_log2) {
-  __shared__ __align__(16) bf16 Ks[BK][LDS];
-  __shared__ __align__(16) bf16 Vt[HD][BK + 8];
+// column of accumulator element i of a thread (d[4j + i'] layout, hopper.cuh)
+__device__ __forceinline__ int acc_col(int i, int tig) { return (i >> 2) * 8 + tig * 2 + (i & 1); }
 
-  const int h = blockIdx.y, b = blockIdx.z;
-  const size_t head = ((size_t)b * H + h) * (size_t)T * HD;
-  const bf16* qh = q + head;
-  const bf16* kh = k + head;
-  const bf16* vh = v + head;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int r_a = blockIdx.x * BQ + warp * 16 + gid;
-  const int r_b = r_a + 8;
-
-  uint32_t qa[4][4];
-  load_q(qa, qh, r_a, r_b, tig, T);
-
-  float o[8][4];
+// max and sum of a thread's 16 accumulator entries of one row (`half` 0:
+// the entries i with i & 2 == 0, row r_a; 2: row r_b), as a tree, so that
+// the softmax's critical path is 4 deep instead of 16
+__device__ __forceinline__ float row_max(const float (&d)[32], int half) {
+  float m[8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  for (int j = 0; j < 8; ++j) m[j] = fmaxf(d[4 * j + half], d[4 * j + half + 1]);
+#pragma unroll
+  for (int w = 4; w > 0; w >>= 1)
+#pragma unroll
+    for (int j = 0; j < w; ++j) m[j] = fmaxf(m[j], m[j + w]);
+  return m[0];
+}
+
+__device__ __forceinline__ float row_sum(const float (&d)[32], int half) {
+  float m[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) m[j] = d[4 * j + half] + d[4 * j + half + 1];
+#pragma unroll
+  for (int w = 4; w > 0; w >>= 1)
+#pragma unroll
+    for (int j = 0; j < w; ++j) m[j] += m[j + w];
+  return m[0];
+}
+
+// ------------------------------------------------------------- flash_fwd
+
+struct FwdArgs {
+  const uint8_t* q_s;
+  uint8_t* ring;  // slot s: K at tile 2s, V at tile 2s + 1
+  uint64_t* bars;  // [0] query tiles, [1 + s] slot s
+  const CUtensorMap* map_k;
+  const CUtensorMap* map_v;
+  int plane, n, T, pad_lo, pad_hi, tig, tid;
+  float scale_log2;
+};
+
+__device__ __forceinline__ void fwd_load(const FwdArgs& a, int tile) {
+  const int st = tile % FWD_STAGES;
+  mbar_expect_tx(&a.bars[1 + st], 2 * TILE_BYTES);
+  tma_load_tile(a.ring + (2 * st) * TILE_BYTES, a.map_k, &a.bars[1 + st], tile * TILE, a.plane);
+  tma_load_tile(a.ring + (2 * st + 1) * TILE_BYTES, a.map_v, &a.bars[1 + st], tile * TILE,
+                a.plane);
+}
+
+// Key tile j: `s` holds its finished S and no product is in flight. Takes
+// the softmax of `s` and rescales `o`; then one batch of products, O +=
+// P V of tile j and S of tile j + 1 into `s`, after which tile j's slot is
+// refilled. Every step issues the same products and waits for all of them
+// (wait_group 0), so that ptxas sees which accumulators are in flight and
+// keeps the products asynchronous: the last tile recomputes its own S,
+// which nobody reads.
+__device__ __forceinline__ void fwd_step(const FwdArgs& a, float (&s)[32], float (&o)[32],
+                                         uint32_t (&pa)[4][4], float& m_a, float& m_b,
+                                         float& l_a, float& l_b, int j) {
+  const int key0 = j * TILE;
+  if (tile_masked(key0, a.T, a.pad_lo, a.pad_hi)) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      s[i] = masked_col(key0 + acc_col(i, a.tig), a.T, a.pad_lo, a.pad_hi) ? -INFINITY : s[i];
+  }
+  float mx_a = row_max(s, 0), mx_b = row_max(s, 2);
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+  }
+  // the running max in the scale_log2 domain; a row with every column
+  // masked so far keeps a zero shift (no inf - inf)
+  const float mn_a = fmaxf(m_a, mx_a * a.scale_log2), mn_b = fmaxf(m_b, mx_b * a.scale_log2);
+  const float sh_a = mn_a == -INFINITY ? 0.f : mn_a;
+  const float sh_b = mn_b == -INFINITY ? 0.f : mn_b;
+  const float al_a = ex2(m_a - sh_a), al_b = ex2(m_b - sh_b);
+  m_a = mn_a;
+  m_b = mn_b;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = ex2(fmaf(s[i], a.scale_log2, (i & 2) ? -sh_b : -sh_a));
+  l_a = l_a * al_a + row_sum(s, 0);
+  l_b = l_b * al_b + row_sum(s, 2);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] *= (i & 2) ? al_b : al_a;
+  acc_to_a(pa, s);
+
+  const bool more = j + 1 < a.n;
+  if (more) mbar_wait(&a.bars[1 + (j + 1) % FWD_STAGES], ((j + 1) / FWD_STAGES) & 1);
+  const uint8_t* k_s = a.ring + (2 * ((more ? j + 1 : j) % FWD_STAGES)) * TILE_BYTES;
+  const uint8_t* v_s = a.ring + (2 * (j % FWD_STAGES) + 1) * TILE_BYTES;
+  fence_regs(s);
+  fence_regs(o);
+  fence_regs(pa);
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) wgmma_rs<1>(o, pa[kc], desc_mnmajor(v_s, kc), 1);
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) wgmma_ss<0>(s, desc_kmajor(a.q_s, kc), desc_kmajor(k_s, kc), kc);
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs(s);
+  fence_regs(o);
+  fence_regs(pa);
+  __syncthreads();  // both warpgroups are done with tile j's slot
+  if (a.tid == 0 && j + FWD_STAGES < a.n) fwd_load(a, j + FWD_STAGES);
+}
+
+__global__ void __launch_bounds__(FWD_THREADS, FWD_BLOCKS_PER_SM)
+flash_fwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+          const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ out,
+          float* __restrict__ lse2, int H, int T, int pad_lo, int pad_hi, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const int wg = threadIdx.x >> 7;  // this warpgroup's query tile
+  FwdArgs a;
+  a.q_s = smem + wg * TILE_BYTES;
+  a.ring = smem + FWD_WARPGROUPS * TILE_BYTES;
+  a.bars = reinterpret_cast<uint64_t*>(a.ring + 2 * FWD_STAGES * TILE_BYTES);
+  a.map_k = &map_k;
+  a.map_v = &map_v;
+  a.plane = blockIdx.z * H + blockIdx.y;
+  a.n = (T + TILE - 1) / TILE;
+  a.T = T;
+  a.pad_lo = pad_lo;
+  a.pad_hi = pad_hi;
+  a.tid = threadIdx.x;
+  a.tig = threadIdx.x & 3;
+  a.scale_log2 = scale_log2;
+  const int row0 = blockIdx.x * FWD_ROWS;
+  if (a.tid == 0) {
+    for (int i = 0; i <= FWD_STAGES; ++i) mbar_init(&a.bars[i], 1);
+    mbar_init_fence();
+    mbar_expect_tx(&a.bars[0], FWD_WARPGROUPS * TILE_BYTES);
+    for (int w = 0; w < FWD_WARPGROUPS; ++w)
+      tma_load_tile(smem + w * TILE_BYTES, &map_q, &a.bars[0], row0 + w * TILE, a.plane);
+    for (int t = 0; t < FWD_STAGES && t < a.n; ++t) fwd_load(a, t);
+  }
+  __syncthreads();
+
+  float sc[32], o[32];
+  uint32_t pa[4][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = o[i] = 0.f;
   float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
 
-  const int ntiles = (T + BK - 1) / BK;
-  for (int kt = 0; kt < ntiles; ++kt) {
-    const int key0 = kt * BK;
-    __syncthreads();  // previous tile fully consumed
-    // 64 rows x 8 chunks of 8 bf16 per operand: 4 chunks per thread
-    for (int i = threadIdx.x; i < BK * (HD / 8); i += NTHREADS) {
-      int r = i >> 3, c8 = (i & 7) * 8;
-      int key = key0 + r;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (key < T) {
-        kv = *reinterpret_cast<const uint4*>(kh + (size_t)key * HD + c8);
-        vv = *reinterpret_cast<const uint4*>(vh + (size_t)key * HD + c8);
-      }
-      *reinterpret_cast<uint4*>(&Ks[r][c8]) = kv;
-      const bf16* ve = reinterpret_cast<const bf16*>(&vv);
+  mbar_wait(&a.bars[0], 0);
+  mbar_wait(&a.bars[1], 0);
+  wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < 8; ++j) Vt[c8 + j][r] = ve[j];
-    }
-    __syncthreads();
-
-    // S = Q K^T for 16 rows x 64 keys (8 n-tiles of 8)
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < 4; ++kc) {
-        uint32_t bb[2];
-        bb[0] = *reinterpret_cast<const uint32_t*>(&Ks[nt * 8 + gid][kc * 16 + tig * 2]);
-        bb[1] = *reinterpret_cast<const uint32_t*>(&Ks[nt * 8 + gid][kc * 16 + tig * 2 + 8]);
-        mma16816(s[nt], qa[kc], bb);
-      }
-    }
-    // scale into the log2 domain, mask, and take the tile row max
-    float tm_a = -INFINITY, tm_b = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        int col = key0 + nt * 8 + tig * 2 + (i & 1);
-        float x = masked_col(col, T, pad_lo, pad_hi) ? -INFINITY : s[nt][i] * scale_log2;
-        s[nt][i] = x;
-        if (i < 2) tm_a = fmaxf(tm_a, x); else tm_b = fmaxf(tm_b, x);
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      tm_a = fmaxf(tm_a, __shfl_xor_sync(0xffffffffu, tm_a, off));
-      tm_b = fmaxf(tm_b, __shfl_xor_sync(0xffffffffu, tm_b, off));
-    }
-    const float mn_a = fmaxf(m_a, tm_a), mn_b = fmaxf(m_b, tm_b);
-    // a row with every column masked so far keeps a zero shift (no inf-inf)
-    const float sh_a = mn_a == -INFINITY ? 0.f : mn_a;
-    const float sh_b = mn_b == -INFINITY ? 0.f : mn_b;
-    const float al_a = exp2f(m_a - sh_a), al_b = exp2f(m_b - sh_b);
-    m_a = mn_a;
-    m_b = mn_b;
-    l_a *= al_a;
-    l_b *= al_b;
-#pragma unroll
-    for (int dt = 0; dt < 8; ++dt) {
-      o[dt][0] *= al_a; o[dt][1] *= al_a;
-      o[dt][2] *= al_b; o[dt][3] *= al_b;
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = exp2f(s[nt][0] - sh_a);
-      s[nt][1] = exp2f(s[nt][1] - sh_a);
-      s[nt][2] = exp2f(s[nt][2] - sh_b);
-      s[nt][3] = exp2f(s[nt][3] - sh_b);
-      l_a += s[nt][0] + s[nt][1];
-      l_b += s[nt][2] + s[nt][3];
-    }
-    // O += P V: the S accumulators of n-tiles (2c, 2c+1) are the A fragment
-    // of key chunk c
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      uint32_t pa[4];
-      pa[0] = pack2(s[2 * kc][0], s[2 * kc][1]);
-      pa[1] = pack2(s[2 * kc][2], s[2 * kc][3]);
-      pa[2] = pack2(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      pa[3] = pack2(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-#pragma unroll
-      for (int dt = 0; dt < 8; ++dt) {
-        uint32_t bb[2];
-        bb[0] = *reinterpret_cast<const uint32_t*>(&Vt[dt * 8 + gid][kc * 16 + tig * 2]);
-        bb[1] = *reinterpret_cast<const uint32_t*>(&Vt[dt * 8 + gid][kc * 16 + tig * 2 + 8]);
-        mma16816(o[dt], pa, bb);
-      }
-    }
-  }
+  for (int kc = 0; kc < 4; ++kc) wgmma_ss<0>(sc, desc_kmajor(a.q_s, kc), desc_kmajor(a.ring, kc), kc);
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs(sc);
+  for (int j = 0; j < a.n; ++j) fwd_step(a, sc, o, pa, m_a, m_b, l_a, l_b, j);
 
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
@@ -208,109 +275,250 @@ flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
   l_a = fmaxf(l_a, 1e-30f);
   l_b = fmaxf(l_b, 1e-30f);
   const float inv_a = 1.f / l_a, inv_b = 1.f / l_b;
-  bf16* oh = out + head;
+  const int r_a = row0 + wg * TILE + ((a.tid >> 5) & 3) * 16 + ((a.tid & 31) >> 2);
+  const int r_b = r_a + 8;
+  bf16* oh = out + (size_t)a.plane * T * HD;
 #pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-    int c = dt * 8 + tig * 2;
+  for (int j = 0; j < 8; ++j) {
+    const int c = j * 8 + a.tig * 2;
     if (r_a < T)
-      *reinterpret_cast<uint32_t*>(oh + (size_t)r_a * HD + c) = pack2(o[dt][0] * inv_a, o[dt][1] * inv_a);
+      *reinterpret_cast<uint32_t*>(oh + (size_t)r_a * HD + c) =
+          pack_bf16(o[4 * j] * inv_a, o[4 * j + 1] * inv_a);
     if (r_b < T)
-      *reinterpret_cast<uint32_t*>(oh + (size_t)r_b * HD + c) = pack2(o[dt][2] * inv_b, o[dt][3] * inv_b);
+      *reinterpret_cast<uint32_t*>(oh + (size_t)r_b * HD + c) =
+          pack_bf16(o[4 * j + 2] * inv_b, o[4 * j + 3] * inv_b);
   }
-  if (lse2 != nullptr && tig == 0) {
-    float* lh = lse2 + ((size_t)b * H + h) * T;
+  if (lse2 != nullptr && a.tig == 0) {
+    float* lh = lse2 + (size_t)a.plane * T;
     if (r_a < T) lh[r_a] = (m_a == -INFINITY ? 0.f : m_a) + log2f(l_a);
     if (r_b < T) lh[r_b] = (m_b == -INFINITY ? 0.f : m_b) + log2f(l_b);
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-attn_mean(const bf16* __restrict__ q, const bf16* __restrict__ k, const float* __restrict__ lse2,
-          bf16* __restrict__ mean, int H, int T, int pad_lo, int pad_hi, float scale_log2) {
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int r_a = blockIdx.y * BQ + warp * 16 + gid;
-  const int r_b = r_a + 8;
-  const int key0 = blockIdx.x * BK;
+// ------------------------------------------------------------- attn_mean
 
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+struct MeanArgs {
+  const uint8_t* q_s;  // H query tiles
+  uint8_t* ring;       // MEAN_STAGES K slots
+  const float* lse_s;  // [H][TILE] row statistics of the block's rows
+  uint64_t* bars;      // [0] query tiles, [1 + s] slot s
+  const CUtensorMap* map_k;
+  bf16* mean;  // this image's (T, T)
+  int b, H, kt0, n, row_a, T, pad_lo, pad_hi, tig, tid;
+  float scale_log2, inv_h;
+};
 
-  for (int h = 0; h < H; ++h) {
-    const size_t head = ((size_t)b * H + h) * (size_t)T * HD;
-    const bf16* qh = q + head;
-    const bf16* kh = k + head;
-    uint32_t qa[4][4];
-    load_q(qa, qh, r_a, r_b, tig, T);
-    const float* lh = lse2 + ((size_t)b * H + h) * T;
-    const float lse_a = r_a < T ? lh[r_a] : 0.f;
-    const float lse_b = r_b < T ? lh[r_b] : 0.f;
+// unit u: key tile kt0 + u / H of head u % H
+__device__ __forceinline__ void mean_load(const MeanArgs& a, int u) {
+  const int st = u % MEAN_STAGES;
+  mbar_expect_tx(&a.bars[1 + st], TILE_BYTES);
+  tma_load_tile(a.ring + st * TILE_BYTES, a.map_k, &a.bars[1 + st], (a.kt0 + u / a.H) * TILE,
+                a.b * a.H + u % a.H);
+}
+
+// S = Q_h K_h^T of unit u, whose slot has arrived, into s (one commit group)
+__device__ __forceinline__ void mean_issue_s(const MeanArgs& a, float (&s)[32], int u) {
+  const uint8_t* q_s = a.q_s + (u % a.H) * TILE_BYTES;
+  const uint8_t* k_s = a.ring + (u % MEAN_STAGES) * TILE_BYTES;
+  fence_regs(s);
+  wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      float s[4] = {0.f, 0.f, 0.f, 0.f};
-      const int key = key0 + nt * 8 + gid;
+  for (int kc = 0; kc < 4; ++kc) wgmma_ss<0>(s, desc_kmajor(q_s, kc), desc_kmajor(k_s, kc), kc);
+  wgmma_commit();
+}
+
+// Unit u: `cur` holds its finished S. Issues the next unit's S into `nxt`,
+// adds this unit's probabilities to `acc`, writes the tile after its last
+// head, and returns with `nxt` finished. As in fwd_step every step issues
+// and waits alike: the last unit recomputes its own S, which nobody reads.
+__device__ __forceinline__ void mean_step(const MeanArgs& a, float (&cur)[32], float (&nxt)[32],
+                                          float (&acc)[32], int u) {
+  const bool more = u + 1 < a.n;
+  if (more) mbar_wait(&a.bars[1 + (u + 1) % MEAN_STAGES], ((u + 1) / MEAN_STAGES) & 1);
+  mean_issue_s(a, nxt, more ? u + 1 : u);
+  __syncthreads();  // every warp is done with unit u's slot
+  if (a.tid == 0 && u + MEAN_STAGES < a.n) mean_load(a, u + MEAN_STAGES);
+
+  const int h = u % a.H;
+  const int key0 = (a.kt0 + u / a.H) * TILE;
+  const float nl_a = -a.lse_s[h * TILE + a.row_a];
+  const float nl_b = -a.lse_s[h * TILE + a.row_a + 8];
+  if (tile_masked(key0, a.T, a.pad_lo, a.pad_hi)) {
 #pragma unroll
-      for (int kc = 0; kc < 4; ++kc) {
-        uint32_t bb[2];
-        bb[0] = ld2(kh, key, kc * 16 + tig * 2, T);
-        bb[1] = ld2(kh, key, kc * 16 + tig * 2 + 8, T);
-        mma16816(s, qa[kc], bb);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        int col = key0 + nt * 8 + tig * 2 + (i & 1);
-        float l = i < 2 ? lse_a : lse_b;
-        acc[nt][i] += masked_col(col, T, pad_lo, pad_hi) ? 0.f : exp2f(s[i] * scale_log2 - l);
-      }
+    for (int i = 0; i < 32; ++i) {
+      const float x = fmaf(cur[i], a.scale_log2, (i & 2) ? nl_b : nl_a);
+      acc[i] += ex2(masked_col(key0 + acc_col(i, a.tig), a.T, a.pad_lo, a.pad_hi) ? -INFINITY : x);
     }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] += ex2(fmaf(cur[i], a.scale_log2, (i & 2) ? nl_b : nl_a));
   }
 
-  const float inv_h = 1.f / (float)H;
-  bf16* mb = mean + (size_t)b * T * T;
-  const bool even = (T & 1) == 0;
+  if (h == a.H - 1) {  // every head summed: write the tile, start the next
+    const int r_a = (int)blockIdx.y * TILE + a.row_a;
+    const bool even = (a.T & 1) == 0;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const int col = key0 + nt * 8 + tig * 2;
+    for (int j = 0; j < 8; ++j) {
+      const int col = key0 + j * 8 + a.tig * 2;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = half ? r_b : r_a;
-      if (r >= T) continue;
-      float x0 = acc[nt][2 * half] * inv_h, x1 = acc[nt][2 * half + 1] * inv_h;
-      bf16* dst = mb + (size_t)r * T + col;
-      if (even && col + 1 < T) {
-        *reinterpret_cast<uint32_t*>(dst) = pack2(x0, x1);
-      } else {
-        if (col < T) dst[0] = __float2bfloat16(x0);
-        if (col + 1 < T) dst[1] = __float2bfloat16(x1);
+      for (int half = 0; half < 2; ++half) {
+        const int r = r_a + 8 * half;
+        const float x0 = acc[4 * j + 2 * half] * a.inv_h, x1 = acc[4 * j + 2 * half + 1] * a.inv_h;
+        bf16* dst = a.mean + (size_t)r * a.T + col;
+        if (r < a.T) {
+          if (even && col < a.T) {
+            *reinterpret_cast<uint32_t*>(dst) = pack_bf16(x0, x1);
+          } else {  // odd T: a row starts at an odd element, store singly
+            if (col < a.T) dst[0] = __float2bfloat16(x0);
+            if (col + 1 < a.T) dst[1] = __float2bfloat16(x1);
+          }
+        }
       }
     }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  }
+
+  wgmma_wait();
+  fence_regs(nxt);
+}
+
+__global__ void __launch_bounds__(WG_THREADS, MEAN_BLOCKS_PER_SM)
+attn_mean(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+          const float* __restrict__ lse2, bf16* __restrict__ mean, int H, int T, int pad_lo,
+          int pad_hi, float scale_log2, int chunk) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  float* lse_s = reinterpret_cast<float*>(smem + (H + MEAN_STAGES) * TILE_BYTES);
+  MeanArgs a;
+  a.q_s = smem;
+  a.ring = smem + H * TILE_BYTES;
+  a.lse_s = lse_s;
+  a.bars = reinterpret_cast<uint64_t*>(lse_s + H * TILE);
+  a.map_k = &map_k;
+  a.b = blockIdx.z;
+  a.H = H;
+  a.mean = mean + (size_t)a.b * T * T;
+  a.kt0 = blockIdx.x * chunk;
+  const int ntiles = (T + TILE - 1) / TILE;
+  a.n = min(chunk, ntiles - a.kt0) * H;
+  a.T = T;
+  a.pad_lo = pad_lo;
+  a.pad_hi = pad_hi;
+  a.tid = threadIdx.x;
+  a.tig = threadIdx.x & 3;
+  a.row_a = (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2);
+  a.scale_log2 = scale_log2;
+  a.inv_h = 1.f / (float)H;
+  const int row0 = blockIdx.y * TILE;
+  if (a.tid == 0) {
+    for (int i = 0; i <= MEAN_STAGES; ++i) mbar_init(&a.bars[i], 1);
+    mbar_init_fence();
+    mbar_expect_tx(&a.bars[0], H * TILE_BYTES);
+    for (int h = 0; h < H; ++h)
+      tma_load_tile(smem + h * TILE_BYTES, &map_q, &a.bars[0], row0, a.b * H + h);
+    for (int u = 0; u < MEAN_STAGES && u < a.n; ++u) mean_load(a, u);
+  }
+  // the rows' log2-sum-exp per head; a row past T gets 0 (never stored)
+  for (int i = a.tid; i < H * TILE; i += WG_THREADS) {
+    const int r = row0 + (i & (TILE - 1));
+    lse_s[i] = r < T ? lse2[((size_t)a.b * H + i / TILE) * T + r] : 0.f;
+  }
+  __syncthreads();
+
+  float sa[32], sb[32], acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sa[i] = sb[i] = acc[i] = 0.f;
+  mbar_wait(&a.bars[0], 0);
+  mbar_wait(&a.bars[1], 0);
+  mean_issue_s(a, sa, 0);
+  wgmma_wait();
+  fence_regs(sa);
+  for (int u = 0; u < a.n; u += 2) {
+    mean_step(a, sa, sb, acc, u);
+    if (u + 1 < a.n) mean_step(a, sb, sa, acc, u + 1);
   }
 }
+
+// Key tiles per attn_mean block: the grid runs in waves of `slots`
+// resident blocks, and a block costs its chunk plus about half a tile's
+// worth for loading the H query tiles. Short chunks keep the last wave
+// short; ties go to the shorter chunk.
+int mean_chunk(int ntiles, int row_blocks, int slots) {
+  int best = 1;
+  long best_cost = -1;
+  for (int c = 1; c <= ntiles && c <= MEAN_MAX_CHUNK; ++c) {
+    const long blocks = (long)row_blocks * ((ntiles + c - 1) / c);
+    const long cost = (blocks + slots - 1) / slots * (2 * c + 1);
+    if (best_cost < 0 || cost < best_cost) {
+      best = c;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+int aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v, out: (B, H, T, 64) bf16 contiguous. lse2: (B, H, T) f32 or null.
+// q, k, v, out: (B, H, T, 64) bf16 contiguous, 16-byte aligned. lse2:
+// (B, H, T) f32 or null. Returns a cudaError_t, or a code of make_tile_map
+// (>= 998) when a tensor map cannot be made.
 int attn_flash_forward(const void* q, const void* k, const void* v, void* out, void* lse2,
                        int B, int H, int T, int pad_lo, int pad_hi, float scale_log2,
                        void* stream) {
-  dim3 grid((T + BQ - 1) / BQ, H, B);
-  flash_fwd<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, (float*)lse2, H, T, pad_lo,
-      pad_hi, scale_log2);
+  // a runtime call first: it makes the device's context current on this
+  // thread (the autograd engine's, under checkpointing), which the
+  // tensor-map encoding needs
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FWD_SMEM);
+  if (err == cudaSuccess)  // all of the SM's 228 KB as shared memory: three blocks fit
+    err = cudaFuncSetAttribute(flash_fwd, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap mq, mk, mv;
+  if (int bad = make_tile_map(&mq, q, B * H, T)) return bad;
+  if (int bad = make_tile_map(&mk, k, B * H, T)) return bad;
+  if (int bad = make_tile_map(&mv, v, B * H, T)) return bad;
+  if (!aligned16(out)) return TMA_MISALIGNED;
+  dim3 grid((T + FWD_ROWS - 1) / FWD_ROWS, H, B);
+  flash_fwd<<<grid, FWD_THREADS, FWD_SMEM, (cudaStream_t)stream>>>(
+      mq, mk, mv, (bf16*)out, (float*)lse2, H, T, pad_lo, pad_hi, scale_log2);
   return (int)cudaGetLastError();
 }
 
-// mean: (B, T, T) bf16; lse2 from attn_flash_forward on the same q, k.
+// mean: (B, T, T) bf16, 16-byte aligned; lse2 from attn_flash_forward on
+// the same q, k; at most MEAN_MAX_HEADS heads (cudaErrorInvalidValue
+// otherwise). Returns as attn_flash_forward.
 int attn_mean_forward(const void* q, const void* k, const void* lse2, void* mean, int B, int H,
                       int T, int pad_lo, int pad_hi, float scale_log2, void* stream) {
-  dim3 grid((T + BK - 1) / BK, (T + BQ - 1) / BQ, B);
-  attn_mean<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const float*)lse2, (bf16*)mean, H, T, pad_lo, pad_hi,
-      scale_log2);
+  if (H < 1 || H > MEAN_MAX_HEADS) return (int)cudaErrorInvalidValue;
+  const int smem = (int)mean_smem(H);
+  cudaError_t err =
+      cudaFuncSetAttribute(attn_mean, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attn_mean, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap mq, mk;
+  if (int bad = make_tile_map(&mq, q, B * H, T)) return bad;
+  if (int bad = make_tile_map(&mk, k, B * H, T)) return bad;
+  if (!aligned16(mean)) return TMA_MISALIGNED;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, attn_mean, WG_THREADS, smem)) !=
+      cudaSuccess)
+    return (int)err;
+  const int ntiles = (T + TILE - 1) / TILE;
+  const int chunk = mean_chunk(ntiles, B * ntiles, sms * (per_sm > 0 ? per_sm : 1));
+  dim3 grid((ntiles + chunk - 1) / chunk, ntiles, B);
+  attn_mean<<<grid, WG_THREADS, smem, (cudaStream_t)stream>>>(
+      mq, mk, (const float*)lse2, (bf16*)mean, H, T, pad_lo, pad_hi, scale_log2, chunk);
   return (int)cudaGetLastError();
 }
 

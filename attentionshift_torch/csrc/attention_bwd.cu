@@ -79,11 +79,6 @@ constexpr size_t DKV_SMEM = RING_BYTES + STAT_BYTES + BAR_BYTES + 1024;
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  uint32_t s = smem_addr(p);
-  return p + ((1024 - (s & 1023)) & 1023);
-}
-
 // round to bf16 and back: the value the second product will see
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));

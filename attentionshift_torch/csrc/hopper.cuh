@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: mbarriers,
 // TMA tile loads from a 3-D tensor map, wgmma matrix descriptors and the
-// m64n64k16 bf16 products with f32 accumulators.
+// m64n64k16 bf16 products with f32 accumulators, and a 1024-byte aligner
+// for the dynamic shared memory that holds the swizzled slots.
 //
 // Tile convention: a (64 rows, 64) bf16 tile of a (planes, rows, 64) tensor
 // is 64 rows of 128 bytes, loaded by TMA under CU_TENSOR_MAP_SWIZZLE_128B
@@ -22,6 +23,13 @@ namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the first 1024-byte aligned address at or after p (the 128-byte swizzle
+// repeats every 1024 bytes); dynamic shared memory reserves 1024 bytes for it
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  uint32_t s = smem_addr(p);
+  return p + ((1024 - (s & 1023)) & 1023);
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {

@@ -170,7 +170,16 @@ def library(source: str) -> ctypes.CDLL:
     return lib
 
 
+# codes >= 998 of csrc/hopper.cuh's make_tile_map: no TMA tensor map
+_TMA_CODES = {999: "the driver has no entry point cuTensorMapEncodeTiled",
+              998: "a tensor is not 16-byte aligned"}
+
+
 def check(err: int, what: str) -> None:
-    """Raise on a non-zero ``cudaError_t`` returned by a launch."""
+    """Raise on a non-zero return of a launch: a ``cudaError_t``, or a code
+    >= 998 that says why a TMA tensor map could not be made."""
+    if err >= 998:
+        why = _TMA_CODES.get(err, f"the driver refused it with CUresult {err - 1000}")
+        raise RuntimeError(f"{what}: no TMA tensor map could be made ({why}; code {err})")
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")

@@ -35,6 +35,7 @@ __all__ = ["attention_reference", "attention_backward_reference", "attention_wit
            "attention_backward_dkv"]
 
 _LOG2E = 1.4426950408889634
+_MEAN_MAX_HEADS = 16  # csrc/attention.cu MEAN_MAX_HEADS
 
 
 def attention_reference(q, k, v, pad_interval=None):
@@ -202,6 +203,9 @@ def _mean(q, k, lse, pad_interval):
     """The mean pass: recompute the probabilities tile by tile from the
     flash pass's row statistic, sum the heads, write the mean once."""
     b, h, t, d = q.shape
+    if h > _MEAN_MAX_HEADS:
+        raise ValueError(f"the mean pass keeps every head's query tile in shared memory: at most "
+                         f"{_MEAN_MAX_HEADS} heads, got {h}")
     mean = torch.empty((b, t, t), device=q.device, dtype=q.dtype)
     lo, hi = _gap(t, pad_interval)
     fn = library("attention").attn_mean_forward

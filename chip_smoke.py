@@ -10,7 +10,8 @@ Phases, each printing its own lines:
 2. build every kernel of ``attentionshift_torch/csrc`` with nvcc for
    sm_90a, one nvcc per source, all at once;
 3. each kernel at the bench shapes against its plain PyTorch version on
-   the card, with the tolerance stated beside each check (the two
+   the card, with the tolerance stated beside each check (the flash
+   pass's row log2-sum-exp against the plain version's f32 logits; the two
    attention backward kernels included: gap columns of dK/dV exactly 0,
    and once more at the microbenchmark's ragged T = 4301 without a gap;
    the five design variants of the attention microbenchmark included,
@@ -36,10 +37,15 @@ Phases, each printing its own lines:
    (``attentionshift_torch.tools.analysis.microbench_attention``) at its
    defaults, every variant, its lines printed, its launches counted;
 8. times with CUDA events: every kernel, its plain version, the library
-   call where one exists (the backward pair's TFLOP/s and its ratio to
-   SDPA's backward with the same mask, same run), ms/img of the
-   pseudo-label path and of inference and ms per train step, each with
-   one profiled call.
+   call where one exists, ms/img of the pseudo-label path and of
+   inference and ms per train step, each with one profiled call. The
+   attention kernels and their SDPA yardsticks (the forward with the same
+   mask; the backward of it beside the backward pair) are read in turns,
+   kernel, library, library, kernel, ..., and each reports the median of
+   its readings; the flash pass's and the backward pair's TFLOP/s and
+   ratio to SDPA, the mean pass's own time, and an exp floor (B*H*T^2
+   exp2 per pass at 16 per clock per SM, at the SM clock nvidia-smi reads
+   while the flash pass runs) beside the forward bounds.
 
 A failing phase raises and the script exits non-zero. The line before
 the last is the kernel table as JSON; the last line is
@@ -69,6 +75,8 @@ CAM_LAYERS = 7
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
+EXP2_PER_CLOCK_PER_SM = 16  # MUFU results per clock per SM
+LOG2E = 1.4426950408889634
 
 
 def log(msg: str) -> None:
@@ -125,6 +133,44 @@ def cuda_time(fn, reps: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def median_time(fn, n: int = 5, reps: int = 10) -> float:
+    """Median ms of ``n`` readings of ``cuda_time(fn, reps)``."""
+    import statistics
+
+    return statistics.median(cuda_time(fn, reps=reps, warmup=1) for _ in range(n))
+
+
+def in_turns(fn_a, fn_b, rounds: int = 6, reps: int = 10):
+    """Readings of two functions taken in turns (a, b, b, a, a, b, ...):
+    the median ms of each and the readings themselves."""
+    import statistics
+
+    got = {0: [], 1: []}
+    for r in range(rounds):
+        for i in ((0, 1) if r % 2 == 0 else (1, 0)):
+            got[i].append(cuda_time((fn_a, fn_b)[i], reps=reps, warmup=1))
+    return statistics.median(got[0]), statistics.median(got[1]), got[0], got[1]
+
+
+def sm_clock_under_load(fn, seconds: float = 0.6) -> tuple[float, float]:
+    """The SM clock (MHz) that nvidia-smi reads while ``fn`` runs back to
+    back on the card, and the card's maximum SM clock."""
+    import torch
+
+    probe = subprocess.Popen(
+        ["bash", "-c", "sleep 0.25; nvidia-smi --query-gpu=clocks.sm,clocks.max.sm "
+                       "--format=csv,noheader,nounits"],
+        stdout=subprocess.PIPE, text=True)
+    t0 = time.perf_counter()
+    while probe.poll() is None and time.perf_counter() - t0 < seconds:
+        for _ in range(50):
+            fn()
+    out, _ = probe.communicate(timeout=60)
+    torch.cuda.synchronize()
+    cur, top = (float(x) for x in out.strip().splitlines()[0].split(","))
+    return cur, top
 
 
 def sync() -> None:
@@ -227,6 +273,14 @@ def phase_kernels(results: dict, inp: dict):
     gap = mean[:, :, PAD_GAP[0]:PAD_GAP[1]].float().abs().max().item()
     expect("attention_capture.gap_columns", gap, 0.0, "pad-gap columns carry exactly 0")
     results["attention_capture"] = dict(max_abs_err=max(e_out, e_mean))
+    # the row log2-sum-exp the mean pass and the backward normalise with
+    _, lse = attention.flash_forward(q, k, v, PAD_GAP, with_lse=True)
+    logits = torch.matmul((q * HEAD_DIM**-0.5).float(), k.float().transpose(-1, -2))
+    logits[..., PAD_GAP[0]:PAD_GAP[1]] = float("-inf")
+    want_lse = torch.logsumexp(logits, dim=-1) * LOG2E
+    expect("attention.lse2", max_err(lse, want_lse), 1e-4,
+           "logsumexp of the plain version's f32 logits x log2(e): f32 summation order only")
+    del logits, want_lse, lse
 
     out2 = attention.attention_no_capture(q, k, v, PAD_GAP)
     sync()
@@ -755,36 +809,68 @@ def phase_times(results: dict, inp: dict, model, slice_inp, gen):
     attn_flops = 4.0 * b * h * t * t * d
     bias = torch.zeros((1, 1, 1, t), device=q.device, dtype=q.dtype)
     bias[..., PAD_GAP[0]:PAD_GAP[1]] = float("-inf")
+    # the attention kernels and their SDPA yardsticks are read in turns
+    # (kernel, library, library, kernel, ...): medians of 6 readings each
+    plain_ms, sdpa_fwd, plain_reads, sdpa_reads = in_turns(
+        lambda: attention.attention_no_capture(q, k, v, PAD_GAP),
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
+    out, lse = attention.flash_forward(q, k, v, PAD_GAP, with_lse=True)
+    mean_ms = median_time(lambda: attention._mean(q, k, lse, PAD_GAP))
     times = {
         "attention_capture": dict(
-            ms=cuda_time(lambda: attention.attention_with_capture(q, k, v, PAD_GAP)),
+            ms=median_time(lambda: attention.attention_with_capture(q, k, v, PAD_GAP)),
             plain_ms=cuda_time(lambda: attention.attention_reference(q, k, v, PAD_GAP), reps=3),
             library_ms=None,
-            bytes=qkv_bytes + q.numel() * 2 + b * t * t * 2, ops=attn_flops, peak=PEAK_BF16),
+            bytes=qkv_bytes + q.numel() * 2 + b * t * t * 2, ops=attn_flops, peak=PEAK_BF16,
+            exps=2.0 * b * h * t * t),
         "attention_plain": dict(
-            ms=cuda_time(lambda: attention.attention_no_capture(q, k, v, PAD_GAP)),
+            ms=plain_ms,
             plain_ms=cuda_time(lambda: attention.attention_reference(q, k, v, PAD_GAP)[0], reps=3),
-            library_ms=cuda_time(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias)),
-            bytes=qkv_bytes + q.numel() * 2, ops=attn_flops, peak=PEAK_BF16),
+            library_ms=sdpa_fwd, bytes=qkv_bytes + q.numel() * 2, ops=attn_flops, peak=PEAK_BF16,
+            exps=1.0 * b * h * t * t),
     }
+    # the exp floor: one exp2 per (head, row, key) per pass at the SM clock
+    # nvidia-smi reads while the flash pass runs
+    clk, clk_max = sm_clock_under_load(lambda: attention.flash_forward(q, k, v, PAD_GAP, False))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    exp_rate = EXP2_PER_CLOCK_PER_SM * sms * clk * 1e6  # exp2 per second
+    for name in ("attention_plain", "attention_capture"):
+        times[name]["exp_floor_ms"] = times[name]["exps"] / exp_rate * 1e3
+    log(f"[time] SM clock under the flash pass {clk:.0f} MHz (max {clk_max:.0f}), {sms} SMs: "
+        f"exp floor = B*H*T^2 exp2 at {EXP2_PER_CLOCK_PER_SM} per clock per SM")
+    log(f"[time] flash_fwd (attention_plain): {plain_ms:.4f} ms = "
+        f"{attn_flops / (plain_ms * 1e-3) / 1e12:.1f} TFLOP/s = {plain_ms / sdpa_fwd:.2f}x SDPA's "
+        f"forward with the same mask ({sdpa_fwd:.4f} ms); readings in turns: kernel "
+        f"{[round(x, 4) for x in plain_reads]}, SDPA {[round(x, 4) for x in sdpa_reads]}")
+    results["attention_capture"]["mean_pass_ms"] = mean_ms
+    mean_floor = b * h * t * t / exp_rate * 1e3
+    mean_bound = max(b * t * t * 2 / PEAK_BYTES, 2.0 * b * h * t * t * d / PEAK_BF16) * 1e3
+    log(f"[time] mean pass (attn_mean alone): {mean_ms:.4f} ms (median of 5), bound "
+        f"{mean_bound:.4f} ms, exp floor {mean_floor:.4f} ms; capture = flash + mean pass")
     g = inp["g_out"]
-    out, lse = attention.flash_forward(q, k, v, PAD_GAP, with_lse=True)
     _, dd = attention.attention_backward_dq(q, k, v, out, lse, g, PAD_GAP)
     # one plain backward computes all three gradients: its time stands beside
-    # both kernels; so does the library's, the backward of SDPA with the mask
+    # both kernels; so does the library's, the backward of SDPA with the mask,
+    # read in turns with the pair
     plain_bwd = cuda_time(lambda: attention.attention_backward_reference(q, k, v, g, PAD_GAP),
                           reps=3)
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=bias)
-    lib_bwd = cuda_time(lambda: torch.autograd.grad(sdpa_out, leaves, g, retain_graph=True))
+
+    def pair():
+        attention.attention_backward_dq(q, k, v, out, lse, g, PAD_GAP)
+        attention.attention_backward_dkv(q, k, v, lse, dd, g, PAD_GAP)
+
+    pair_ms, lib_bwd, pair_reads, lib_reads = in_turns(
+        pair, lambda: torch.autograd.grad(sdpa_out, leaves, g, retain_graph=True))
     del sdpa_out, leaves
     stat_bytes = 2 * b * h * t * 4  # the row statistic and D, f32
     times["attention_bwd_dq"] = dict(
-        ms=cuda_time(lambda: attention.attention_backward_dq(q, k, v, out, lse, g, PAD_GAP)),
+        ms=median_time(lambda: attention.attention_backward_dq(q, k, v, out, lse, g, PAD_GAP)),
         plain_ms=plain_bwd, library_ms=lib_bwd,
         bytes=6 * q.numel() * 2 + stat_bytes, ops=6.0 * b * h * t * t * d, peak=PEAK_BF16)
     times["attention_bwd_dkv"] = dict(
-        ms=cuda_time(lambda: attention.attention_backward_dkv(q, k, v, lse, dd, g, PAD_GAP)),
+        ms=median_time(lambda: attention.attention_backward_dkv(q, k, v, lse, dd, g, PAD_GAP)),
         plain_ms=plain_bwd, library_ms=lib_bwd,
         bytes=6 * q.numel() * 2 + stat_bytes, ops=8.0 * b * h * t * t * d, peak=PEAK_BF16)
     # the variants at the microbenchmark's own shape (T = 4301, no gap); the
@@ -828,18 +914,22 @@ def phase_times(results: dict, inp: dict, model, slice_inp, gen):
         tm = times[name]
         log(f"[time] {name}: {tm['ops'] / (tm['ms'] * 1e-3) / 1e12:.1f} TFLOP/s achieved "
             f"({tm['ops'] / 1e9:.1f} GFLOP of its products at the bench shape)")
-    pair = times["attention_bwd_dq"]["ms"] + times["attention_bwd_dkv"]["ms"]
-    log(f"[time] backward pair {pair:.4f} ms = {pair / lib_bwd:.2f}x SDPA's backward "
-        f"({lib_bwd:.4f} ms, same mask), same run")
+    log(f"[time] backward pair {pair_ms:.4f} ms = {pair_ms / lib_bwd:.2f}x SDPA's backward "
+        f"({lib_bwd:.4f} ms, same mask); readings in turns: pair "
+        f"{[round(x, 4) for x in pair_reads]}, SDPA {[round(x, 4) for x in lib_reads]}")
     for name, tm in times.items():
         t_bytes = tm["bytes"] / PEAK_BYTES * 1e3
         t_ops = tm["ops"] / tm["peak"] * 1e3
         results[name].update(
             ms=tm["ms"], plain_ms=tm["plain_ms"], library_ms=tm["library_ms"],
             bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+        floor = ""
+        if "exp_floor_ms" in tm:
+            results[name]["exp_floor_ms"] = tm["exp_floor_ms"]
+            floor = f", exp floor {tm['exp_floor_ms']:.4f} ms"
         log(f"[time] {name}: kernel {tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, library "
             f"{tm['library_ms'] if tm['library_ms'] is None else round(tm['library_ms'], 4)} ms, "
-            f"bound {results[name]['bound_ms']:.4f} ms ({results[name]['bound_by']})")
+            f"bound {results[name]['bound_ms']:.4f} ms ({results[name]['bound_by']}){floor}")
 
     def run():
         model.seed_pseudo_gt(*slice_inp, generator=gen)
@@ -926,7 +1016,8 @@ def main() -> int:
                           launches_microbench_tool=tool_launches[name],
                           max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                           bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                          library_ms=r["library_ms"]))
+                          library_ms=r["library_ms"],
+                          **{key: r[key] for key in ("exp_floor_ms", "mean_pass_ms") if key in r}))
     log(smi)
     log(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

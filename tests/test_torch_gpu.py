@@ -3,7 +3,7 @@
 These tests need a CUDA device (the kernels have no CPU mode) and skip
 without one; they import no JAX, so they run on a GPU machine with
 
-    python -m pytest -m gpu tests/test_torch_gpu.py
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
 from __future__ import annotations
@@ -106,7 +106,7 @@ def test_meanshift_kernel_on_card(cuda):
 
 # (B, H, T, gap): one tile; one row past two tiles; a ragged T with and
 # without a gap; a gap across the tile boundary at 128; the bench shape
-BACKWARD_CASES = [
+ATTENTION_CASES = [
     (1, 3, 64, None),
     (1, 3, 129, None),
     (2, 3, 300, (250, 270)),
@@ -116,8 +116,72 @@ BACKWARD_CASES = [
 ]
 
 
+def _lse2_reference(q, k, gap):
+    """Each row's log2-sum-exp of the masked logits, from the plain
+    version's f32 logits."""
+    logits = torch.matmul((q * q.shape[-1] ** -0.5).float(), k.float().transpose(-1, -2))
+    if gap is not None:
+        logits[..., gap[0]:gap[1]] = float("-inf")
+    return torch.logsumexp(logits, dim=-1) * 1.4426950408889634
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,h,t,gap", BACKWARD_CASES)
+@pytest.mark.parametrize("b,h,t,gap", ATTENTION_CASES)
+def test_attention_forward_kernels_on_card(cuda, b, h, t, gap):
+    """Both forward kernels (flash pass and mean pass) vs the plain version
+    at the backward's shapes: the edges of the 64-row tiles, of the ring
+    and of the mean pass's key chunks, with and without a gap. ``out``
+    within 4 bf16 ulps of the largest |out| (bf16 output, bf16
+    probabilities in PV), ``mean`` within 1e-4 + 1e-2 relative (one bf16
+    rounding of the stored mean), the row log2-sum-exp within 1e-4 of
+    ``logsumexp`` of the plain version's f32 logits times log2(e) (f32
+    summation order only), and gap columns of ``mean`` exactly zero."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn((b, h, t, 64), generator=gen, device=cuda).bfloat16()
+               for _ in range(3))
+    ref_out, ref_mean = attention.attention_reference(q, k, v, gap)
+    out, mean = attention.attention_with_capture(q, k, v, gap)
+    out2 = attention.attention_no_capture(q, k, v, gap)
+    out3, lse = attention.flash_forward(q, k, v, gap, with_lse=True)
+    torch.cuda.synchronize()
+    tol = _ulps(ref_out, 4)
+    for got in (out, out2, out3):
+        torch.testing.assert_close(got.float(), ref_out.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(mean.float(), ref_mean.float(), atol=1e-4, rtol=1e-2)
+    torch.testing.assert_close(lse, _lse2_reference(q, k, gap), atol=1e-4, rtol=0)
+    if gap is not None:
+        assert float(mean[:, :, gap[0]:gap[1]].float().abs().max()) == 0.0
+        no_gap = attention.attention_reference(q, k, v, None)[0]
+        assert float((out.float() - no_gap.float()).abs().max()) > tol
+
+
+@pytest.mark.gpu
+def test_attention_forward_kernels_are_deterministic(cuda):
+    """No atomics: two forward calls on the same inputs give bitwise equal
+    ``out``, row log2-sum-exp and ``mean``."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (torch.randn((2, 3, 300, 64), generator=gen, device=cuda).bfloat16()
+               for _ in range(3))
+    runs = []
+    for _ in range(2):
+        out, lse = attention.flash_forward(q, k, v, (120, 140), with_lse=True)
+        runs.append((out, lse, attention.attention_with_capture(q, k, v, (120, 140))[1]))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_attention_mean_refuses_more_heads_than_it_holds(cuda):
+    """A CUDA tensor launches the kernel or raises: the mean pass keeps
+    every head's query tile in shared memory, at most 16 heads."""
+    q = torch.zeros((1, 17, 64, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        attention.attention_with_capture(q, q, q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,t,gap", ATTENTION_CASES)
 def test_attention_backward_kernels_on_card(cuda, b, h, t, gap):
     """Both backward kernels (through the autograd Functions) vs the plain
     backward at shapes that reach the edges of the 64-row tiles and of the

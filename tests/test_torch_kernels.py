@@ -198,3 +198,20 @@ def test_kernel_wrappers_count_only_their_launches():
         "attention_capture", "attention_plain", "attention_bwd_dq", "attention_bwd_dkv",
         "ccl_batch", "meanshift_fixpoint", "attention_v2_bf16e", "attention_v3_nomin",
         "attention_v4_mxsum", "attention_v5_batched", "attention_v6_fusedsum"}
+
+
+@pytest.mark.parametrize("err,words", [
+    (999, "no TMA tensor map could be made (the driver has no entry point"),
+    (998, "no TMA tensor map could be made (a tensor is not 16-byte aligned"),
+    (1001, "no TMA tensor map could be made (the driver refused it with CUresult 1"),
+    (700, "CUDA launch failed with cudaError_t 700"),
+])
+def test_launch_check_names_what_failed(err, words):
+    """The wrappers' check names a tensor map that could not be made (the
+    codes >= 998 of ``make_tile_map``) apart from a CUDA error."""
+    from attentionshift_torch.ops._build import check
+
+    check(0, "attn_flash_forward")
+    with pytest.raises(RuntimeError) as info:
+        check(err, "attn_flash_forward")
+    assert str(info.value).startswith(f"attn_flash_forward: {words}")
