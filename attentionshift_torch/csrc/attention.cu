@@ -66,24 +66,41 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #include "hopper.cuh"
 
 namespace {
 
 using namespace hopper;
 
+// Design constants. Each may be overridden with -D at build time, which
+// is how `chip_smoke.py --ablate` builds the variants it times.
+#ifndef FWD_WARPGROUPS
+#define FWD_WARPGROUPS 2  // 64-row query tiles per flash_fwd block
+#endif
+#ifndef FWD_STAGES
+#define FWD_STAGES 4  // K/V ring slots of flash_fwd
+#endif
+#ifndef FWD_BLOCKS_PER_SM
+#define FWD_BLOCKS_PER_SM 2
+#endif
+#ifndef MEAN_STAGES
+#define MEAN_STAGES 2  // K ring slots of attn_mean
+#endif
+#ifndef MEAN_BLOCKS_PER_SM
+#define MEAN_BLOCKS_PER_SM 3
+#endif
+#ifndef MEAN_MAX_CHUNK
+#define MEAN_MAX_CHUNK 16  // key tiles per attn_mean block, at most
+#endif
+
 constexpr int HD = 64;         // head dim
 constexpr int TILE = TILE_ROWS;
 constexpr int WG_THREADS = 128;  // one warpgroup
-constexpr int FWD_WARPGROUPS = 2;  // 64-row query tiles per flash_fwd block
-constexpr int FWD_STAGES = 4;      // K/V ring slots of flash_fwd
-constexpr int FWD_BLOCKS_PER_SM = 2;
 constexpr int FWD_ROWS = FWD_WARPGROUPS * TILE_ROWS;
 constexpr int FWD_THREADS = FWD_WARPGROUPS * WG_THREADS;
-constexpr int MEAN_STAGES = 2;  // K ring slots of attn_mean
-constexpr int MEAN_BLOCKS_PER_SM = 3;
 constexpr int MEAN_MAX_HEADS = 16;  // attn_mean keeps every head's query tile
-constexpr int MEAN_MAX_CHUNK = 16;  // key tiles per attn_mean block, at most
 
 // flash_fwd: the query tiles, FWD_STAGES slots of (K, V), the barriers
 constexpr size_t FWD_SMEM = (size_t)(FWD_WARPGROUPS + 2 * FWD_STAGES) * TILE_BYTES +
@@ -458,6 +475,27 @@ int mean_chunk(int ntiles, int row_blocks, int slots) {
   return best;
 }
 
+// Resident attn_mean blocks on the current device for `smem` bytes of
+// shared memory per block (H heads): SMs x blocks per SM. Constant per
+// (device, H), so the device is asked once.
+cudaError_t mean_slots(int H, int smem, int* slots) {
+  constexpr int MAX_DEVICES = 64;
+  static std::atomic<int> known[MAX_DEVICES][MEAN_MAX_HEADS + 1];
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < MAX_DEVICES && (*slots = known[dev][H].load(std::memory_order_relaxed)) > 0)
+    return cudaSuccess;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, attn_mean, WG_THREADS, smem)) !=
+      cudaSuccess)
+    return err;
+  *slots = sms * (per_sm > 0 ? per_sm : 1);
+  if (dev < MAX_DEVICES) known[dev][H].store(*slots, std::memory_order_relaxed);
+  return cudaSuccess;
+}
+
 int aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
@@ -475,7 +513,7 @@ int attn_flash_forward(const void* q, const void* k, const void* v, void* out, v
   // tensor-map encoding needs
   cudaError_t err =
       cudaFuncSetAttribute(flash_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FWD_SMEM);
-  if (err == cudaSuccess)  // all of the SM's 228 KB as shared memory: three blocks fit
+  if (err == cudaSuccess)  // the SM's 228 KB as shared memory: two blocks of 81 KB fit
     err = cudaFuncSetAttribute(flash_fwd, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
@@ -490,8 +528,11 @@ int attn_flash_forward(const void* q, const void* k, const void* v, void* out, v
   return (int)cudaGetLastError();
 }
 
+// The most heads attn_mean_forward takes: it keeps every head's query tile.
+int attn_mean_max_heads() { return MEAN_MAX_HEADS; }
+
 // mean: (B, T, T) bf16, 16-byte aligned; lse2 from attn_flash_forward on
-// the same q, k; at most MEAN_MAX_HEADS heads (cudaErrorInvalidValue
+// the same q, k; at most attn_mean_max_heads() heads (cudaErrorInvalidValue
 // otherwise). Returns as attn_flash_forward.
 int attn_mean_forward(const void* q, const void* k, const void* lse2, void* mean, int B, int H,
                       int T, int pad_lo, int pad_hi, float scale_log2, void* stream) {
@@ -507,15 +548,10 @@ int attn_mean_forward(const void* q, const void* k, const void* lse2, void* mean
   if (int bad = make_tile_map(&mq, q, B * H, T)) return bad;
   if (int bad = make_tile_map(&mk, k, B * H, T)) return bad;
   if (!aligned16(mean)) return TMA_MISALIGNED;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, attn_mean, WG_THREADS, smem)) !=
-      cudaSuccess)
-    return (int)err;
+  int slots = 0;
+  if ((err = mean_slots(H, smem, &slots)) != cudaSuccess) return (int)err;
   const int ntiles = (T + TILE - 1) / TILE;
-  const int chunk = mean_chunk(ntiles, B * ntiles, sms * (per_sm > 0 ? per_sm : 1));
+  const int chunk = mean_chunk(ntiles, B * ntiles, slots);
   dim3 grid((ntiles + chunk - 1) / chunk, ntiles, B);
   attn_mean<<<grid, WG_THREADS, smem, (cudaStream_t)stream>>>(
       mq, mk, (const float*)lse2, (bf16*)mean, H, T, pad_lo, pad_hi, scale_log2, chunk);

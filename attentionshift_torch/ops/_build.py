@@ -8,7 +8,10 @@ every header it includes with quotes (``csrc/*.cuh``, transitively), so
 an edited source or header is rebuilt and a stale library is never
 loaded. TMA tensor maps are encoded through the entry point that
 ``cudaGetDriverEntryPoint`` returns, so nothing links against ``libcuda``.
-``build_all`` starts one ``nvcc`` per source, all at once.
+``build_all`` starts one ``nvcc`` per source, all at once. A source may
+also be built with ``-D`` overrides of the design constants it guards
+with ``#ifndef`` (``library(source, defines)``): a library of its own,
+whose name hashes the overrides too.
 
 Every kernel has a ``Kernel`` record in ``KERNELS``: the wrapper adds
 one to ``launches`` where it launches the kernel and nowhere else, so a
@@ -105,9 +108,10 @@ def _nvcc() -> str:
 _INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 
 
-def _digest(src: str) -> str:
+def _digest(src: str, defines: tuple = ()) -> str:
     """Hash of ``src``, of every header it includes with quotes (resolved
-    beside the including file, transitively) and of the nvcc flags."""
+    beside the including file, transitively), of the nvcc flags and of the
+    ``-D`` overrides."""
     h = hashlib.sha1()
     seen, todo = set(), [os.path.abspath(src)]
     while todo:
@@ -119,54 +123,58 @@ def _digest(src: str) -> str:
             text = fh.read()
         h.update(text)
         todo += [os.path.join(os.path.dirname(path), m.decode()) for m in _INCLUDE.findall(text)]
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + [f"-D{d}" for d in defines]).encode())
     return h.hexdigest()[:12]
 
 
-def _target(source: str) -> tuple[str, str]:
+def _target(source: str, defines: tuple = ()) -> tuple[str, str]:
     src = os.path.join(_CSRC, source + ".cu")
-    return src, os.path.join(BUILD_DIR, f"{source}-{_digest(src)}.so")
+    return src, os.path.join(BUILD_DIR, f"{source}-{_digest(src, defines)}.so")
 
 
-def _start(source: str):
+def _start(source: str, defines: tuple = ()):
     """Popen of the nvcc build of one source, or None when already built."""
-    src, so = _target(source)
+    src, so = _target(source, defines)
     if os.path.exists(so):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+    cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", tmp, src]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, so
 
 
-def _finish(source: str, started) -> None:
+def _finish(target: tuple, started) -> None:
     if started is None:
         return
     proc, tmp, so = started
     out, _ = proc.communicate()
-    _LIBS.logs[source] = out
+    _LIBS.logs[target] = out
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{source}.cu:\n{out}")
+        raise RuntimeError(f"nvcc failed for csrc/{target[0]}.cu {' '.join(target[1])}:\n{out}")
     os.replace(tmp, so)
 
 
-def build_all() -> dict[str, str]:
-    """Build every csrc/*.cu in parallel; returns nvcc's output per source."""
-    sources = sorted({k.source for k in KERNELS.values()})
-    started = {s: _start(s) for s in sources}
-    for s in sources:
-        _finish(s, started[s])
-    return {s: _LIBS.logs.get(s, "") for s in sources}
+def build_all(targets=None) -> dict:
+    """Build every csrc/*.cu, or each (source, defines) of ``targets``, in
+    parallel; returns nvcc's output per (source, defines)."""
+    if targets is None:
+        targets = [(s, ()) for s in sorted({k.source for k in KERNELS.values()})]
+    started = {t: _start(*t) for t in targets}
+    for t in targets:
+        _finish(t, started[t])
+    return {t: _LIBS.logs.get(t, "") for t in targets}
 
 
-def library(source: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<source>.cu``, built on first use."""
-    lib = _LIBS.loaded.get(source)
+def library(source: str, defines: tuple = ()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<source>.cu`` (with the ``-D``
+    overrides ``defines``, e.g. ``("FWD_STAGES=3",)``), built on first use."""
+    key = (source, tuple(defines))
+    lib = _LIBS.loaded.get(key)
     if lib is None:
-        _finish(source, _start(source))
-        lib = ctypes.CDLL(_target(source)[1])
-        _LIBS.loaded[source] = lib
+        _finish(key, _start(*key))
+        lib = ctypes.CDLL(_target(*key)[1])
+        _LIBS.loaded[key] = lib
     return lib
 
 

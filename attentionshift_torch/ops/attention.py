@@ -31,11 +31,10 @@ import torch
 from ._build import KERNELS, check, library
 
 __all__ = ["attention_reference", "attention_backward_reference", "attention_with_capture",
-           "attention_no_capture", "flash_forward", "attention_backward_dq",
+           "attention_no_capture", "flash_forward", "forward_library", "attention_backward_dq",
            "attention_backward_dkv"]
 
 _LOG2E = 1.4426950408889634
-_MEAN_MAX_HEADS = 16  # csrc/attention.cu MEAN_MAX_HEADS
 
 
 def attention_reference(q, k, v, pad_interval=None):
@@ -76,20 +75,32 @@ def _gap(t, pad_interval):
     return int(pad_interval[0]), int(pad_interval[1])
 
 
-def flash_forward(q, k, v, pad_interval, with_lse):
+def forward_library(defines=()):
+    """``csrc/attention.cu``'s library (built with the ``-D`` overrides
+    ``defines``), its entry points' signatures set."""
+    lib = library("attention", defines)
+    if lib.attn_mean_forward.argtypes is None:  # first use of this library
+        tail = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        lib.attn_flash_forward.argtypes = [ctypes.c_void_p] * 5 + tail
+        lib.attn_mean_forward.argtypes = [ctypes.c_void_p] * 4 + tail
+        lib.attn_mean_max_heads.argtypes = []
+        for fn in (lib.attn_flash_forward, lib.attn_mean_forward, lib.attn_mean_max_heads):
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def flash_forward(q, k, v, pad_interval, with_lse, lib=None):
     """The flash pass on the card: (out, row log2-sum-exp (B, H, T) f32 or
-    None). Counts no launch: the two attention ops do."""
+    None), through ``lib`` (default: ``forward_library()``). Counts no
+    launch: the two attention ops do."""
     b, h, t, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, t), device=q.device, dtype=torch.float32) if with_lse else None
     lo, hi = _gap(t, pad_interval)
-    lib = library("attention")
-    fn = lib.attn_flash_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lse.data_ptr() if with_lse else None, b, h, t, lo, hi,
-             d**-0.5 * _LOG2E, torch.cuda.current_stream(q.device).cuda_stream)
+    lib = forward_library() if lib is None else lib
+    err = lib.attn_flash_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                 lse.data_ptr() if with_lse else None, b, h, t, lo, hi,
+                                 d**-0.5 * _LOG2E, torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "attn_flash_forward")
     return out, lse
 
@@ -199,21 +210,19 @@ class _Attention(torch.autograd.Function):
         return (*grads, None, None)
 
 
-def _mean(q, k, lse, pad_interval):
+def _mean(q, k, lse, pad_interval, lib=None):
     """The mean pass: recompute the probabilities tile by tile from the
     flash pass's row statistic, sum the heads, write the mean once."""
     b, h, t, d = q.shape
-    if h > _MEAN_MAX_HEADS:
+    lib = forward_library() if lib is None else lib
+    if h > lib.attn_mean_max_heads():
         raise ValueError(f"the mean pass keeps every head's query tile in shared memory: at most "
-                         f"{_MEAN_MAX_HEADS} heads, got {h}")
+                         f"{lib.attn_mean_max_heads()} heads, got {h}")
     mean = torch.empty((b, t, t), device=q.device, dtype=q.dtype)
     lo, hi = _gap(t, pad_interval)
-    fn = library("attention").attn_mean_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-    err = fn(q.data_ptr(), k.data_ptr(), lse.data_ptr(),
-             mean.data_ptr(), b, h, t, lo, hi, d**-0.5 * _LOG2E,
-             torch.cuda.current_stream(q.device).cuda_stream)
+    err = lib.attn_mean_forward(q.data_ptr(), k.data_ptr(), lse.data_ptr(), mean.data_ptr(), b, h,
+                                t, lo, hi, d**-0.5 * _LOG2E,
+                                torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "attn_mean_forward")
     return mean
 

@@ -51,10 +51,20 @@ A failing phase raises and the script exits non-zero. The line before
 the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 rest of the repository beside it, the script fails and prints no result.
+
+    python3 chip_smoke.py --ablate [VARIANT ...]
+
+runs, after phase 1, only the ablation of the forward pair's design
+constants instead: ``csrc/attention.cu`` built once per variant of
+``ABLATIONS`` (``-D`` overrides of the constants it guards with
+``#ifndef``), every variant checked as in phase 3 at the bench shape,
+then every variant's flash pass with SDPA's forward, and every variant's
+mean pass, read in turns (median of 6 readings of 20 launches each).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -77,6 +87,16 @@ PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 EXP2_PER_CLOCK_PER_SM = 16  # MUFU results per clock per SM
 LOG2E = 1.4426950408889634
+
+# design constants of csrc/attention.cu, built as variants by --ablate
+ABLATIONS = {
+    "as built": (),
+    "flash: 1 warpgroup and 3 blocks per SM": ("FWD_WARPGROUPS=1", "FWD_BLOCKS_PER_SM=3"),
+    "flash: 3 ring slots": ("FWD_STAGES=3",),
+    "flash: 5 ring slots": ("FWD_STAGES=5",),
+    "mean: 3 ring slots": ("MEAN_STAGES=3",),
+    "mean: chunks of at most 2 key tiles": ("MEAN_MAX_CHUNK=2",),
+}
 
 
 def log(msg: str) -> None:
@@ -106,16 +126,18 @@ def phase_card():
     return smi
 
 
-def phase_build():
+def phase_build(targets=None):
+    """Build every kernel source (or each (source, defines) of ``targets``),
+    printing ptxas's registers and spills."""
     from attentionshift_torch.ops import _build
 
     t0 = time.perf_counter()
-    logs = _build.build_all()
+    logs = _build.build_all(targets)
     dt = time.perf_counter() - t0
-    for src, out in logs.items():
+    for (src, defines), out in logs.items():
         for line in out.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
-                log(f"[build] {src}: {line.strip()}")
+                log(f"[build] {' '.join((src, *defines))}: {line.strip()}")
     log(f"[build] {len(logs)} sources built in {dt:.1f} s into {_build.BUILD_DIR}")
 
 
@@ -142,16 +164,17 @@ def median_time(fn, n: int = 5, reps: int = 10) -> float:
     return statistics.median(cuda_time(fn, reps=reps, warmup=1) for _ in range(n))
 
 
-def in_turns(fn_a, fn_b, rounds: int = 6, reps: int = 10):
-    """Readings of two functions taken in turns (a, b, b, a, a, b, ...):
-    the median ms of each and the readings themselves."""
+def in_turns(*fns, rounds: int = 6, reps: int = 10):
+    """Readings of the functions taken in turns, every other round
+    backwards (a, b, b, a, a, b, ...): the median ms of each, and the
+    readings of each."""
     import statistics
 
-    got = {0: [], 1: []}
+    got = [[] for _ in fns]
     for r in range(rounds):
-        for i in ((0, 1) if r % 2 == 0 else (1, 0)):
-            got[i].append(cuda_time((fn_a, fn_b)[i], reps=reps, warmup=1))
-    return statistics.median(got[0]), statistics.median(got[1]), got[0], got[1]
+        for i in (range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))):
+            got[i].append(cuda_time(fns[i], reps=reps, warmup=1))
+    return [statistics.median(g) for g in got], got
 
 
 def sm_clock_under_load(fn, seconds: float = 0.6) -> tuple[float, float]:
@@ -215,12 +238,20 @@ def blob_masks(m: int, h: int, w: int, gen, device):
     return masks
 
 
+def bench_qkv(dev, gen):
+    """q, k, v (1, 6, 4352, 64) bf16 (seeded)."""
+    import torch
+
+    shape = (1, HEADS, T_PAD, HEAD_DIM)
+    return tuple(torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
+
+
 def kernel_inputs(dev, gen):
     """Each kernel's inputs at the bench shapes (seeded)."""
     import torch
 
-    shape = (1, HEADS, T_PAD, HEAD_DIM)
-    qkv = tuple(torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
+    qkv = bench_qkv(dev, gen)
+    shape = qkv[0].shape
     masks = blob_masks(CAM_LAYERS * MAX_GT, H_IMG // 16, W_IMG // 16, gen, dev)
     g, n, d = MAX_GT, (H_IMG // 16) * (W_IMG // 16), EMBED
     f = torch.randn((n, d), generator=gen, device=dev)
@@ -811,7 +842,7 @@ def phase_times(results: dict, inp: dict, model, slice_inp, gen):
     bias[..., PAD_GAP[0]:PAD_GAP[1]] = float("-inf")
     # the attention kernels and their SDPA yardsticks are read in turns
     # (kernel, library, library, kernel, ...): medians of 6 readings each
-    plain_ms, sdpa_fwd, plain_reads, sdpa_reads = in_turns(
+    (plain_ms, sdpa_fwd), (plain_reads, sdpa_reads) = in_turns(
         lambda: attention.attention_no_capture(q, k, v, PAD_GAP),
         lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
     out, lse = attention.flash_forward(q, k, v, PAD_GAP, with_lse=True)
@@ -861,7 +892,7 @@ def phase_times(results: dict, inp: dict, model, slice_inp, gen):
         attention.attention_backward_dq(q, k, v, out, lse, g, PAD_GAP)
         attention.attention_backward_dkv(q, k, v, lse, dd, g, PAD_GAP)
 
-    pair_ms, lib_bwd, pair_reads, lib_reads = in_turns(
+    (pair_ms, lib_bwd), (pair_reads, lib_reads) = in_turns(
         pair, lambda: torch.autograd.grad(sdpa_out, leaves, g, retain_graph=True))
     del sdpa_out, leaves
     stat_bytes = 2 * b * h * t * 4  # the row statistic and D, f32
@@ -923,10 +954,7 @@ def phase_times(results: dict, inp: dict, model, slice_inp, gen):
         results[name].update(
             ms=tm["ms"], plain_ms=tm["plain_ms"], library_ms=tm["library_ms"],
             bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
-        floor = ""
-        if "exp_floor_ms" in tm:
-            results[name]["exp_floor_ms"] = tm["exp_floor_ms"]
-            floor = f", exp floor {tm['exp_floor_ms']:.4f} ms"
+        floor = f", exp floor {tm['exp_floor_ms']:.4f} ms" if "exp_floor_ms" in tm else ""
         log(f"[time] {name}: kernel {tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, library "
             f"{tm['library_ms'] if tm['library_ms'] is None else round(tm['library_ms'], 4)} ms, "
             f"bound {results[name]['bound_ms']:.4f} ms ({results[name]['bound_by']}){floor}")
@@ -978,7 +1006,56 @@ def profile_slice(run, ms_img: float, top: int = 12, what: str = "call") -> None
         log(f"[profile]   host   {e.self_cpu_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
-def main() -> int:
+def phase_ablation(names) -> None:
+    """The forward pair's design constants: ``csrc/attention.cu`` built once
+    per variant of ``ABLATIONS``, each checked against the plain version at
+    the bench shape with its gap (limits of phase 3), then every variant's
+    flash pass beside SDPA's forward with the same mask, and every
+    variant's mean pass, read in turns."""
+    import torch
+    import torch.nn.functional as F
+
+    from attentionshift_torch.ops import attention
+
+    unknown = [n for n in names if n not in ABLATIONS]
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown variants {unknown}; known: {list(ABLATIONS)}")
+    phase_build([("attention", ABLATIONS[n]) for n in names])
+    libs = {n: attention.forward_library(ABLATIONS[n]) for n in names}
+    dev = torch.device("cuda")
+    q, k, v = bench_qkv(dev, torch.Generator(device=dev).manual_seed(0))
+    ref_out, ref_mean = attention.attention_reference(q, k, v, PAD_GAP)
+    for n, lib in libs.items():
+        out, lse = attention.flash_forward(q, k, v, PAD_GAP, True, lib=lib)
+        mean = attention._mean(q, k, lse, PAD_GAP, lib=lib)
+        sync()
+        expect(f"{n}: out", max_err(out, ref_out), bf16_ulps(ref_out, 4),
+               "4 bf16 ulps of the largest |out|")
+        expect(f"{n}: mean", max_err(mean, ref_mean), 2e-3 * float(ref_mean.float().abs().max()),
+               "bf16 storage of the mean: 2^-9 relative, times the largest entry")
+    del ref_out, ref_mean, out, mean
+    _, lse = attention.flash_forward(q, k, v, PAD_GAP, True)
+    bias = torch.zeros((1, 1, 1, q.shape[2]), device=dev, dtype=q.dtype)
+    bias[..., PAD_GAP[0]:PAD_GAP[1]] = float("-inf")
+    fns = {f"flash, {n}": (lambda lib=lib: attention.flash_forward(q, k, v, PAD_GAP, False, lib=lib))
+           for n, lib in libs.items()}
+    fns["flash, SDPA forward"] = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+    fns.update({f"mean pass, {n}": (lambda lib=lib: attention._mean(q, k, lse, PAD_GAP, lib=lib))
+                for n, lib in libs.items()})
+    meds, reads = in_turns(*fns.values(), reps=20)
+    flops = 4.0 * q.numel() * q.shape[2]
+    for name, med, got in zip(fns, meds, reads):
+        rate = f" = {flops / (med * 1e-3) / 1e12:.1f} TFLOP/s" if name.startswith("flash") else ""
+        log(f"[ablate] {name}: {med:.4f} ms{rate} (median of {len(got)} readings in turns: "
+            f"{[round(x, 4) for x in got]})")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ablate", nargs="*", metavar="VARIANT",
+                    help="only the ablation of the forward pair's design constants (default: "
+                         "every variant of ABLATIONS)")
+    args = ap.parse_args(argv)
     sys.path.insert(0, HERE)
     if not os.path.isdir(os.path.join(HERE, "attentionshift_torch")):
         raise SystemExit("chip_smoke: run from a checkout of the repository")
@@ -987,6 +1064,10 @@ def main() -> int:
     from attentionshift_torch.ops._build import KERNELS
 
     smi = phase_card()
+    if args.ablate is not None:
+        phase_ablation(args.ablate or list(ABLATIONS))
+        log(smi)
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -1017,7 +1098,7 @@ def main() -> int:
                           max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                           bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                           library_ms=r["library_ms"],
-                          **{key: r[key] for key in ("exp_floor_ms", "mean_pass_ms") if key in r}))
+                          **{key: r[key] for key in ("mean_pass_ms",) if key in r}))
     log(smi)
     log(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

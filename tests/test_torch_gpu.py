@@ -39,44 +39,6 @@ def cuda():
 
 
 @pytest.mark.gpu
-def test_attention_kernels_on_card(cuda):
-    """Both attention kernels vs the plain version at a small shape with a
-    gap and a ragged T; bf16 outputs: 4 bf16 ulps of the largest |out|,
-    a limit the plain version without the gap exceeds."""
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    q, k, v = (torch.randn((2, 3, 300, 64), generator=gen, device=cuda).bfloat16()
-               for _ in range(3))
-    ref_out, ref_mean = attention.attention_reference(q, k, v, (250, 270))
-    out, mean = attention.attention_with_capture(q, k, v, (250, 270))
-    out2 = attention.attention_no_capture(q, k, v, (250, 270))
-    top = float(ref_out.float().abs().max())
-    tol = 4 * 2.0 ** (np.floor(np.log2(top)) - 7)
-    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol, rtol=0)
-    torch.testing.assert_close(out2.float(), ref_out.float(), atol=tol, rtol=0)
-    torch.testing.assert_close(mean.float(), ref_mean.float(), atol=1e-4, rtol=1e-2)
-    no_gap = attention.attention_reference(q, k, v, None)[0]
-    assert float((out.float() - no_gap.float()).abs().max()) > tol
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("t", [301, 64, 129])
-def test_attention_kernels_on_card_without_gap(cuda, t):
-    """Both attention kernels without a gap, as the microbenchmark calls
-    them, at an odd T (the mean's unpaired last column, a ragged last
-    tile), at one full tile and at one column past two tiles; limits as
-    above."""
-    gen = torch.Generator(device=cuda).manual_seed(3)
-    q, k, v = (torch.randn((1, 3, t, 64), generator=gen, device=cuda).bfloat16() for _ in range(3))
-    ref_out, ref_mean = attention.attention_reference(q, k, v, None)
-    out, mean = attention.attention_with_capture(q, k, v)
-    out2 = attention.attention_no_capture(q, k, v)
-    tol = _ulps(ref_out, 4)
-    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol, rtol=0)
-    torch.testing.assert_close(out2.float(), ref_out.float(), atol=tol, rtol=0)
-    torch.testing.assert_close(mean.float(), ref_mean.float(), atol=1e-4, rtol=1e-2)
-
-
-@pytest.mark.gpu
 def test_ccl_kernel_on_card(cuda):
     """CCL kernel vs the plain version, exact, in shared memory and (a
     plane too large for it) in device memory."""
@@ -105,13 +67,16 @@ def test_meanshift_kernel_on_card(cuda):
 
 
 # (B, H, T, gap): one tile; one row past two tiles; a ragged T with and
-# without a gap; a gap across the tile boundary at 128; the bench shape
+# without a gap; a gap across the tile boundary at 128; an odd T (the
+# mean's unpaired last column, as at the microbenchmark's 4301); the bench
+# shape
 ATTENTION_CASES = [
     (1, 3, 64, None),
     (1, 3, 129, None),
     (2, 3, 300, (250, 270)),
     (2, 3, 300, None),
     (2, 3, 300, (120, 140)),
+    (1, 3, 301, None),
     (1, 6, 4352, (4201, 4252)),
 ]
 
@@ -186,8 +151,8 @@ def test_attention_backward_kernels_on_card(cuda, b, h, t, gap):
     """Both backward kernels (through the autograd Functions) vs the plain
     backward at shapes that reach the edges of the 64-row tiles and of the
     two-slot ring (one tile, one row past two, 300 = 4 tiles of 64 + 44,
-    the bench shape's 68 tiles), with and without a gap, one gap across a
-    tile boundary. bf16 gradients: 4 bf16 ulps of each gradient's largest
+    an odd 301, the bench shape's 68 tiles), with and without a gap, one
+    gap across a tile boundary. bf16 gradients: 4 bf16 ulps of each gradient's largest
     entry (the kernels normalise with the forward's row statistic and take
     D from the bf16 ``out``; the plain version recomputes both in f32). Gap
     columns of dk and dv are exactly zero, and a plain backward that

@@ -476,3 +476,17 @@ def test_build_digest_covers_included_headers(tmp_path):
     with open(src, "a") as fh:
         fh.write("// source edit\n")
     assert _build._digest(src) not in (before, after)
+
+
+def test_build_digest_covers_define_overrides():
+    """A source built with ``-D`` overrides of its design constants gets a
+    library of its own: each set of overrides names a different file, and
+    the same set names the same file again."""
+    from attentionshift_torch.ops import _build
+
+    plain = _build._target("attention")[1]
+    three = _build._target("attention", ("FWD_STAGES=3",))[1]
+    assert plain == _build._target("attention", ())[1]
+    assert three == _build._target("attention", ("FWD_STAGES=3",))[1]
+    assert len({plain, three, _build._target("attention", ("FWD_STAGES=5",))[1]}) == 3
+    assert all(os.path.dirname(p) == _build.BUILD_DIR for p in (plain, three))
