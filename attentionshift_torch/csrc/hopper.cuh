@@ -76,6 +76,17 @@ __device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// one (64 rows, 64 columns) bf16 box at (col, row) of a 2-D map; rows and
+// columns past the tensor arrive as zeros; completes `bytes` on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(col), "r"(row)
+      : "memory");
+}
+
 constexpr int TILE_ROWS = 64;
 constexpr int TILE_BYTES = TILE_ROWS * 128;
 
@@ -121,6 +132,37 @@ inline int make_tile_map(CUtensorMap* map, const void* base, int planes, int row
                       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : TMA_REFUSED + (int)r;
+}
+
+// Map of a contiguous (rows, cols) bf16 matrix (cols a multiple of 8) with
+// (64, 64) boxes, 128-byte swizzle, zeros outside the matrix; returns as
+// make_tile_map does.
+inline int make_map_2d(CUtensorMap* map, const void* base, int rows, int cols) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return TMA_NO_ENTRY_POINT;
+  if ((reinterpret_cast<uintptr_t>(base) & 15) != 0 || cols % 8 != 0) return TMA_MISALIGNED;
+  cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  cuuint32_t box[2] = {64, TILE_ROWS};
+  cuuint32_t elem[2] = {1, 1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+                      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : TMA_REFUSED + (int)r;
+}
+
+// byte offset of element (row, col) of a 128-byte-swizzled slot of bf16
+// rows of 64 (what TMA writes under CU_TENSOR_MAP_SWIZZLE_128B): the 16-byte
+// chunk c of row r sits at chunk c ^ (r % 8)
+__device__ __forceinline__ uint32_t swz128(int row, int col) {
+  return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + ((col & 7) << 1);
+}
+
+// make generic-proxy writes to shared memory visible to the async proxy
+// (wgmma operands, TMA)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------- wgmma

@@ -1,4 +1,4 @@
-// Cosine mean-shift fixpoint (Stage C), one cluster of 8 blocks per instance.
+// Cosine mean-shift fixpoint (Stage C), one thread block cluster per instance.
 //
 // Replaces the Pallas TPU kernel _kernel of
 // attentionshift_tpu/ops/meanshift_kernel.py:47 (via cosine_shift_fixpoint).
@@ -15,42 +15,75 @@
 // and accumulate in f32; everything else is f32, as on the TPU.
 //
 // What bounds it on the H100. At the bench shape (G=20, K=20, N=4200,
-// D=384) the inputs are 13 MB and the output 6.7 MB (6 us at 3.35 TB/s),
-// while the dot products are 11 passes x 2*K*N*D = 0.7 GFLOP per instance:
-// the operations bound it, on the tensor cores in bf16 (15 us for all 20
-// instances at 989 TFLOP/s). A first version with one block per instance
-// took 5.4 ms whatever the instance count: one SM's serial chain of
-// phases, each streaming all N features, bounded it.
+// D=384) the inputs are 13 MB and the output 6.7 MB (6 us at 3.35 TB/s);
+// the dot products are 11 passes x 2*K*N*D = 0.7 GFLOP per instance, 15 us
+// for all 20 at 989 TFLOP/s. Neither bound is near: the first design
+// (clusters of 8 blocks, one block per SM) took 1.8 ms because only 15
+// clusters fit the card, so the time was two waves of a block's lifetime,
+// and in a lifetime the scalar phases (log-sum-exp, assignment, the sum of
+// 8 partials through distributed shared memory) weighed as much as either
+// product. In this design the time is set per block: each warpgroup
+// streams its boxes one after another (about 1-2 k cycles per box whether
+// its ring holds one slot or two), and every iteration is a chain of
+// dependent steps with cluster-wide reductions between them.
 //
-// What the design does about it. Each instance runs on a cluster of 8
-// blocks (thread block clusters); block r owns features [r*S, (r+1)*S).
-// Its similarities (K x S) stay in its shared memory; per-prototype
-// reductions over N (log-sum-exp, density) and the prototype sums are
-// combined through distributed shared memory, in rank order, so every
-// block holds bit-identical prototypes and bandwidths. The sim of the new
-// prototypes is also the next iteration's sim, so one similarity pass per
-// iteration. With bf16 dot operands both dense passes run on the tensor
-// cores (mma.sync m16n8k16, f32 accumulation): the similarity as
-// f(S x D) . P^T, the update as W(K x S) . f with W built in registers
-// from each feature's (prototype, weight) pair; the features come
-// pre-rounded to bf16 in both layouts, zero-padded to NP = a multiple of
-// 128 rows. The f32 path keeps scalar FMAs (a K x 2 accumulator block per
-// thread).
+// What the design does about it. Each instance runs on a cluster of C
+// blocks of 512 threads; the host picks C (and the ring depth) from
+// cudaOccupancyMaxActiveClusters so that all instances run in one wave
+// where that is possible. Block r owns features [r*S, (r+1)*S), S a
+// multiple of 64, and keeps their similarities (K x S, f32), mask values
+// and norms in shared memory. With bf16 operands both products are wgmma
+// from one kind of tile: each of the four warpgroups streams (64 features,
+// 64 dims) bf16 boxes of the block's features through its own TMA ring
+// (128-byte swizzle, rows and columns past the matrix zero-filled). The
+// similarity is S = F P^T (M = 64 features, N = KP prototypes, the box read
+// K-major, P^T from a swizzled bf16 copy of the prototypes; warpgroups take
+// tiles in turn); the update is P^T = F^T W^T (M = 64 dims, N = KP,
+// contracting the box's 64 features: the same box read MN-major through the
+// descriptor's transpose bit; two warpgroups per group of dims, on the even
+// and the odd tiles), W^T a one-hot weighted (KP, 64) bf16 tile per feature
+// tile built from each feature's (prototype, weight). No transposed feature
+// copy. All 16 warps run the reductions over features, each prototype's row
+// split over P warps and combined in the block before the cluster step.
+// Per iteration four cluster barriers: the log-sum-exp, the prototype sum,
+// the new prototypes, the bandwidths. The prototype sum is a reduce-scatter
+// through distributed shared memory: rank r adds every rank's partial of
+// its own columns in rank order and writes the result (the dot-operand
+// copy, its part of the squared norms, and on the last iteration the
+// output) into every rank, so each block holds bit-identical prototypes
+// and bandwidths. The f32 path keeps scalar FMAs (one feature and KP
+// accumulators per thread) on the same cluster structure.
 
-#include <cuda_bf16.h>
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace cg = cooperative_groups;
+using namespace hopper;
 
 namespace {
 
-constexpr int NTHREADS = 512;
-constexpr int CLUSTER = 8;  // blocks per instance
-constexpr int NCOL = 2;  // feature columns per thread in an f32 dot pass
+// design constants (-D overrides build variants, see ops/_build.py)
+#ifndef MS_ROUND_BOXES
+#define MS_ROUND_BOXES 3  // 64-dim boxes of the update each warpgroup accumulates at once
+#endif
+
+#ifndef MS_ROW_PARTS
+#define MS_ROW_PARTS 4  // warps that share one prototype's row in a reduction over features
+#endif
+
+constexpr int NWG = 4;  // warpgroups; each streams features through its own ring
+constexpr int NTHREADS = 128 * NWG;
 constexpr int NWARPS = NTHREADS / 32;
+constexpr int MAX_STAGES = 2;  // ring slots per warpgroup (the host may take fewer)
+constexpr int MAX_CLUSTER = 16;  // above 8: a non-portable cluster size
+constexpr int BOX_BYTES = 64 * 128;
+constexpr int R = MS_ROUND_BOXES;
+constexpr int P = MS_ROW_PARTS;
 
 typedef __nv_bfloat16 bf16;
 
@@ -72,414 +105,663 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// the 128 threads of warpgroup `wg` only
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
 }
 
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld2(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// na[k] = max(|P_k|, 1e-8) over the unrounded f32 prototypes
-__device__ void proto_norms(const float* prot, float* na, int K, int D) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int k = warp; k < K; k += NWARPS) {
-    float s = 0.f;
-    for (int d = lane; d < D; d += 32) s += prot[k * D + d] * prot[k * D + d];
-    s = warp_sum(s);
-    if (lane == 0) na[k] = fmaxf(sqrtf(s), 1e-8f);
-  }
-}
-
-// the dot-operand copy of the prototypes: f32 transposed (D x KP) for the
-// scalar path, bf16 row-major (KP x D+8) for the tensor cores; rows k >= K zero
-template <int KP, bool BF16>
-__device__ void stage_operand(const float* prot, float* op, int K, int D) {
-  if (BF16) {
-    bf16* pb = reinterpret_cast<bf16*>(op);
-    for (int i = threadIdx.x; i < KP * D; i += NTHREADS) {
-      const int k = i / D, d = i - k * D;
-      pb[k * (D + 8) + d] = __float2bfloat16(k < K ? prot[i] : 0.f);
-    }
+// D (64 x N, f32: N/2 per thread) += A (64 x 16) * B (16 x N), both from
+// shared memory; TA / TB: the operand is MN-major (transpose bit)
+#define MS_WGMMA_HEAD(NN, LIST, P) \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n" #NN "k16.f32.bf16.bf16 " LIST
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da, uint64_t db) {
+  const int one = 1;
+  if constexpr (N == 8) {
+    asm volatile(MS_WGMMA_HEAD(8, "{%0, %1, %2, %3}", 6) ", %4, %5, p, 1, 1, %7, %8;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+                 : "l"(da), "l"(db), "r"(one), "n"(TA), "n"(TB));
+  } else if constexpr (N == 16) {
+    asm volatile(MS_WGMMA_HEAD(16, "{%0, %1, %2, %3, %4, %5, %6, %7}", 10)
+                 ", %8, %9, p, 1, 1, %11, %12;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+                   "+f"(d[6]), "+f"(d[7])
+                 : "l"(da), "l"(db), "r"(one), "n"(TA), "n"(TB));
+  } else if constexpr (N == 24) {
+    asm volatile(MS_WGMMA_HEAD(24, "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}", 14)
+                 ", %12, %13, p, 1, 1, %15, %16;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+                   "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+                 : "l"(da), "l"(db), "r"(one), "n"(TA), "n"(TB));
   } else {
-    for (int i = threadIdx.x; i < KP * D; i += NTHREADS) {
-      const int d = i / KP, k = i - d * KP;
-      op[i] = k < K ? prot[k * D + d] : 0.f;
+    static_assert(N == 32, "KP is 8, 16, 24 or 32");
+    asm volatile(MS_WGMMA_HEAD(32,
+                               "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+                               "%14, %15}",
+                               18) ", %16, %17, p, 1, 1, %19, %20;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+                   "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+                   "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+                 : "l"(da), "l"(db), "r"(one), "n"(TA), "n"(TB));
+  }
+}
+#undef MS_WGMMA_HEAD
+
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// ------------------------------------------------------------ the layout
+
+__host__ __device__ inline size_t up(size_t x, size_t a) { return (x + a - 1) / a * a; }
+
+struct Layout {
+  size_t ring, op, x, part, w, mv, nbv, idx, small, bars, total;
+};
+
+// Shared memory of one block: the TMA rings (bf16 only), the dot-operand
+// copy of the prototypes (bf16: one swizzled (KP, 64) slot per 64 dims;
+// f32: (D, KP)), region X (the block's similarities; in the update the W^T
+// tiles and, after them, this block's partial prototype sums), each
+// feature's weight, mask, norm and prototype, small per-prototype arrays,
+// barriers.
+__host__ __device__ inline Layout layout(int KP, bool bf16, int D, int tb, int stages) {
+  const size_t S = (size_t)tb * 64;
+  Layout L;
+  L.ring = 0;
+  const size_t ring = bf16 ? (size_t)NWG * stages * BOX_BYTES : 0;
+  L.op = ring;
+  const size_t op = bf16 ? (size_t)((D + 63) / 64) * KP * 128 : (size_t)D * KP * 4;
+  L.x = up(L.op + op, 1024);
+  const size_t wt = bf16 ? (size_t)tb * KP * 128 : 0;
+  // one round of the update covers every dim: the partial sums overwrite
+  // the W^T tiles once the products are done; else they follow them
+  const bool one_round = (D + 63) / 64 <= 2 * R;
+  L.part = one_round ? L.x : L.x + wt;
+  const size_t part = (size_t)KP * (D + 4) * 4;
+  const size_t upd = one_round ? (wt > part ? wt : part) : wt + part;
+  const size_t sim = (size_t)KP * (S + 4) * 4;
+  const size_t x = sim > upd ? sim : upd;
+  L.w = up(L.x + x, 16);
+  L.mv = L.w + S * 4;
+  L.nbv = L.mv + S * 4;
+  L.idx = L.nbv + S * 4;
+  L.small = up(L.idx + S, 16);
+  L.bars = L.small + (size_t)(8 + 4 * P + MAX_CLUSTER) * KP * 4;
+  L.total = L.bars + NWG * MAX_STAGES * 8 + 1024;  // + the alignment of the base
+  return L;
+}
+
+struct Params {
+  const float *prot0, *mask, *f, *ft, *nbase;
+  float *out_prot, *out_sim;
+  int K, N, D, n_shift, tb, stages;
+  float tau0, temp;
+};
+
+// sim[k, n] from the accumulated dot, feature n's mask value and norm:
+// masked, or unmasked (the final similarity)
+__device__ __forceinline__ float cosine(float dot, bool masked, float mv, float nb, float na_k) {
+  if (masked) return dot * mv / (na_k * fmaxf(nb * mv, 1e-8f));
+  return dot / (na_k * fmaxf(nb, 1e-8f));
+}
+
+// One warpgroup's stream of (64 features, 64 dims) boxes through its ring.
+// Every thread of the warpgroup keeps the same count of boxes `seq`; box i
+// of a pass sits in slot (seq + i) % stages.
+struct Ring {
+  uint8_t* slots;
+  uint64_t* full;
+  const CUtensorMap* map;
+  int stages, seq;
+
+  __device__ uint8_t* slot(int i) const { return slots + ((seq + i) % stages) * BOX_BYTES; }
+  __device__ void load(int i, int col, int row) const {
+    const int s = (seq + i) % stages;
+    mbar_expect_tx(&full[s], BOX_BYTES);
+    tma_load_2d(slots + s * BOX_BYTES, map, &full[s], col, row);
+  }
+  __device__ void wait(int i) const {
+    mbar_wait(&full[(seq + i) % stages], ((seq + i) / stages) & 1);
+  }
+};
+
+// Similarity pass of warpgroup wg on the tensor cores: its feature tiles
+// j = wg, wg + NWG, ... of the block's `ntile`; box (j, db) of every 64 dims.
+// mv, nbv: the block's features' mask values (null: unmasked) and norms.
+template <int KP>
+__device__ void sim_pass_wgmma(Ring& ring, const uint8_t* op, const float* na, const float* mv,
+                               const float* nbv, float* dst, int ld, int col0, int K, int n_lo,
+                               int cnt, int ntile, int D, int wg) {
+  const int DT = (D + 63) / 64;
+  const int tid = threadIdx.x & 127, wl = tid >> 5, lane = tid & 31;
+  const int mine = ntile > wg ? (ntile - wg + NWG - 1) / NWG : 0;
+  const int total = mine * DT;
+  auto load = [&](int i) {
+    ring.load(i, (i % DT) * 64, n_lo + (wg + NWG * (i / DT)) * 64);
+  };
+  if (tid == 0)
+    for (int i = 0; i < min(ring.stages, total); ++i) load(i);
+  float acc[KP / 2];
+  for (int i = 0; i < total; ++i) {
+    const int db = i % DT;
+    if (db == 0) {
+#pragma unroll
+      for (int e = 0; e < KP / 2; ++e) acc[e] = 0.f;
+    }
+    ring.wait(i);
+    const uint8_t* box = ring.slot(i);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)
+      wgmma<KP, 0, 0>(acc, desc_kmajor(box, kc), desc_kmajor(op + db * KP * 128, kc));
+    wgmma_commit();
+    wgmma_wait();
+    fence_acc(acc);
+    wg_sync(wg);  // every warp is done with the slot
+    if (tid == 0 && i + ring.stages < total) load(i + ring.stages);
+    if (db != DT - 1) continue;
+    const int t0 = (wg + NWG * (i / DT)) * 64 + 16 * wl + (lane >> 2);
+#pragma unroll
+    for (int e = 0; e < KP / 2; ++e) {
+      const int t = t0 + ((e & 2) ? 8 : 0);
+      const int k = (e >> 2) * 8 + 2 * (lane & 3) + (e & 1);
+      if (t < cnt && k < K)
+        dst[(size_t)k * ld + n_lo + t - col0] =
+            cosine(acc[e], mv != nullptr, mv != nullptr ? mv[t] : 1.f, nbv[t], na[k]);
     }
   }
+  ring.seq += total;
 }
 
-// sim[k, n] from the accumulated dot: masked (m given) or unmasked (m null)
-__device__ __forceinline__ float cosine(float dot, const float* m, const float* nbase,
-                                        float na_k, int n) {
-  if (m != nullptr) {
-    const float mv = m[n];
-    return dot * mv / (na_k * fmaxf(nbase[n] * mv, 1e-8f));
-  }
-  return dot / (na_k * fmaxf(nbase[n], 1e-8f));
-}
-
-// Similarity passes over features [n_lo, n_hi): sim[k, n] goes to
-// dst[k * ld + n - col0] (the block's shared slice, or the output).
-
-// f32 similarity pass: K x NCOL accumulators per thread, scalar FMAs
+// Update on the tensor cores: the partial P^T = F^T W^T over the block's
+// tiles, into part (KP x D + 4, f32), in rounds of 2R boxes of 64 dims.
+// Warpgroups wg and wg + 2 take the same R boxes (wg % 2 picks which), on
+// the even and the odd feature tiles: every warpgroup streams as many
+// boxes. The odd tiles' partials are added after the even ones are stored.
 template <int KP>
-__device__ void sim_pass_f32(const float* protT, const float* na, const float* __restrict__ ft,
-                             const float* __restrict__ nbase, const float* m, float* dst, int ld,
-                             int col0, int K, int N, int n_lo, int n_hi, int D) {
-  for (int base = n_lo; base < n_hi; base += NTHREADS * NCOL) {
-    int col[NCOL];
+__device__ void update_wgmma(Ring& ring, const uint8_t* wt, float* part, int n_lo, int ntile,
+                             int D, int wg) {
+  const int DT = (D + 63) / 64;
+  const int tid = threadIdx.x & 127, wl = tid >> 5, lane = tid & 31;
+  const int half = wg >> 1;
+  const int mine = ntile > half ? (ntile - half + 1) / 2 : 0;  // tiles half, half + 2, ...
+  for (int base = 0; base < DT; base += 2 * R) {
+    const int b0 = base + (wg & 1) * R;
+    int nd = 0;
 #pragma unroll
-    for (int j = 0; j < NCOL; ++j) col[j] = base + j * NTHREADS + threadIdx.x;
-    float acc[KP][NCOL];
+    for (int r = 0; r < R; ++r) nd += b0 + r < DT;
+    const int total = mine * nd;
+    auto load = [&](int i) {
+      ring.load(i, (b0 + i % max(nd, 1)) * 64, n_lo + (half + 2 * (i / max(nd, 1))) * 64);
+    };
+    if (tid == 0)
+      for (int i = 0; i < min(ring.stages, total); ++i) load(i);
+    float acc[R][KP / 2];
 #pragma unroll
-    for (int k = 0; k < KP; ++k)
+    for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int j = 0; j < NCOL; ++j) acc[k][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float fv[NCOL];
+      for (int e = 0; e < KP / 2; ++e) acc[r][e] = 0.f;
+    int i = 0;
+    for (int jj = 0; jj < mine; ++jj) {
+      const uint8_t* wj = wt + (half + 2 * jj) * KP * 128;
 #pragma unroll
-      for (int j = 0; j < NCOL; ++j) fv[j] = col[j] < n_hi ? ft[(size_t)d * N + col[j]] : 0.f;
-      const float4* pr = reinterpret_cast<const float4*>(protT + d * KP);
+      for (int r = 0; r < R; ++r) {
+        if (r >= nd) continue;
+        ring.wait(i);
+        const uint8_t* box = ring.slot(i);
+        wgmma_fence();
 #pragma unroll
-      for (int k4 = 0; k4 < KP / 4; ++k4) {
-        const float4 p = pr[k4];
+        for (int kc = 0; kc < 4; ++kc)
+          wgmma<KP, 1, 0>(acc[r], desc_mnmajor(box, kc), desc_kmajor(wj, kc));
+        wgmma_commit();
+        wgmma_wait();
+        fence_acc(acc[r]);
+        wg_sync(wg);  // every warp is done with the slot
+        if (tid == 0 && i + ring.stages < total) load(i + ring.stages);
+        ++i;
+      }
+    }
+    ring.seq += total;
+    // rows of the accumulator are dims, columns prototypes: the even tiles'
+    // partials are stored once every warpgroup is done with the W^T tiles,
+    // then the odd tiles' are added
+    for (int h = 0; h < 2; ++h) {
+      __syncthreads();
+      if (half != h) continue;
 #pragma unroll
-        for (int j = 0; j < NCOL; ++j) {
-          acc[4 * k4 + 0][j] = fmaf(p.x, fv[j], acc[4 * k4 + 0][j]);
-          acc[4 * k4 + 1][j] = fmaf(p.y, fv[j], acc[4 * k4 + 1][j]);
-          acc[4 * k4 + 2][j] = fmaf(p.z, fv[j], acc[4 * k4 + 2][j]);
-          acc[4 * k4 + 3][j] = fmaf(p.w, fv[j], acc[4 * k4 + 3][j]);
+      for (int r = 0; r < R; ++r) {
+        if (r >= nd) continue;
+        const int d0 = (b0 + r) * 64 + 16 * wl + (lane >> 2);
+#pragma unroll
+        for (int e = 0; e < KP / 2; ++e) {
+          const int d = d0 + ((e & 2) ? 8 : 0);
+          const int k = (e >> 2) * 8 + 2 * (lane & 3) + (e & 1);
+          float* pp = part + k * (D + 4) + d;
+          if (d < D) *pp = h == 0 ? acc[r][e] : *pp + acc[r][e];
         }
       }
     }
-#pragma unroll
-    for (int j = 0; j < NCOL; ++j) {
-      if (col[j] >= n_hi) continue;
-#pragma unroll
-      for (int k = 0; k < KP; ++k)
-        if (k < K) dst[(size_t)k * ld + col[j] - col0] = cosine(acc[k][j], m, nbase, na[k], col[j]);
-    }
   }
 }
 
-// bf16 similarity pass on the tensor cores: per warp, 16 features (rows of
-// fb, A) against all KP prototypes (B from shared memory)
+// f32 similarity pass: one feature and KP accumulators per thread, scalar
+// FMAs, the operand (D, KP) f32
 template <int KP>
-__device__ void sim_pass_mma(const bf16* pb, const float* na, const bf16* __restrict__ fb,
-                             const float* __restrict__ nbase, const float* m, float* dst, int ld,
-                             int col0, int K, int n_lo, int n_hi, int D) {
-  constexpr int NT = KP / 8;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int ldp = D + 8;
-  for (int n0 = n_lo + warp * 16; n0 < n_hi; n0 += NWARPS * 16) {
-    float acc[NT][4];
+__device__ void sim_pass_f32(const float* protT, const float* na, const float* __restrict__ ft,
+                             const float* m, const float* __restrict__ nbase, float* dst, int ld,
+                             int col0, int K, int N, int n_lo, int n_hi, int D) {
+  for (int base = n_lo; base < n_hi; base += NTHREADS) {
+    const int n = base + (int)threadIdx.x;
+    float acc[KP];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-    const bf16* ra = fb + (size_t)(n0 + gid) * D;  // fb has a multiple of 16 rows
-    const bf16* rb = ra + 8 * (size_t)D;
-    // unrolled so several chunks' loads are in flight: with 16 warps an SM
-    // would otherwise wait out the L2 latency on every chunk
-#pragma unroll 4
-    for (int c = tig * 2; c < D; c += 16) {
-      const uint32_t a[4] = {ld2(ra + c), ld2(rb + c), ld2(ra + c + 8), ld2(rb + c + 8)};
+    for (int k = 0; k < KP; ++k) acc[k] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float fv = n < n_hi ? ft[(size_t)d * N + n] : 0.f;
+      const float4* pr = reinterpret_cast<const float4*>(protT + d * KP);
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const bf16* pr = pb + (nt * 8 + gid) * ldp + c;
-        const uint32_t bb[2] = {ld2(pr), ld2(pr + 8)};
-        mma16816(acc[nt], a, bb);
+      for (int k4 = 0; k4 < KP / 4; ++k4) {
+        const float4 q = pr[k4];
+        acc[4 * k4 + 0] = fmaf(q.x, fv, acc[4 * k4 + 0]);
+        acc[4 * k4 + 1] = fmaf(q.y, fv, acc[4 * k4 + 1]);
+        acc[4 * k4 + 2] = fmaf(q.z, fv, acc[4 * k4 + 2]);
+        acc[4 * k4 + 3] = fmaf(q.w, fv, acc[4 * k4 + 3]);
       }
     }
+    if (n >= n_hi) continue;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int n = n0 + gid + (i >= 2 ? 8 : 0);
-        const int k = nt * 8 + tig * 2 + (i & 1);
-        if (n < n_hi && k < K) dst[(size_t)k * ld + n - col0] = cosine(acc[nt][i], m, nbase, na[k], n);
-      }
-    }
+    for (int k = 0; k < KP; ++k)
+      if (k < K)
+        dst[(size_t)k * ld + n - col0] =
+            cosine(acc[k], m != nullptr, m != nullptr ? m[n] : 1.f, nbase[n], na[k]);
   }
 }
 
-// Update passes: part[k] = sum over the block's features assigned to k of
-// w * f, for the S features from n_lo (local index s, w/idx in shared).
-
-// f32 update: thread d owns column d (part zeroed by the caller)
-__device__ void update_f32(float* part, const float* w, const int* idx,
-                           const float* __restrict__ f, int n_lo, int S, int N, int D) {
-  for (int d = threadIdx.x; d < D; d += NTHREADS) {
-    for (int s = 0; s < S && n_lo + s < N; ++s) {
-      const float ws = w[s];
-      if (ws == 0.f) continue;
-      part[idx[s] * D + d] = fmaf(ws, f[(size_t)(n_lo + s) * D + d], part[idx[s] * D + d]);
-    }
-  }
+// (max, sum of exp - max) pairs m[2i], m[2i + 1], i < P, combined in order
+__device__ __forceinline__ void combine_lse(const float* m, float* out) {
+  float mx = -INFINITY, sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < P; ++i) mx = fmaxf(mx, m[2 * i]);
+#pragma unroll
+  for (int i = 0; i < P; ++i)
+    if (m[2 * i] > -INFINITY) sum += m[2 * i + 1] * expf(m[2 * i] - mx);
+  out[0] = mx;
+  out[1] = sum;
 }
 
-// bf16 update on the tensor cores: P = W . f with W (KP x NP) one-hot rows
-// built in registers from (idx, w); per warp, 8 feature dims (B from ftb)
-template <int KP>
-__device__ void update_mma(float* part, const float* w, const int* idx,
-                           const bf16* __restrict__ ftb, int NP, int n_lo, int S, int D) {
-  constexpr int MT = (KP + 15) / 16;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  for (int d0 = warp * 8; d0 < D; d0 += NWARPS * 8) {
-    float acc[MT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0.f;
-    const bf16* col = ftb + (size_t)(d0 + gid) * NP + n_lo;
-#pragma unroll 8
-    for (int c = tig * 2; c < S; c += 16) {
-      const uint32_t bb[2] = {ld2(col + c), ld2(col + c + 8)};
-      const int i0 = idx[c], i1 = idx[c + 1], i2 = idx[c + 8], i3 = idx[c + 9];
-      const float w0 = w[c], w1 = w[c + 1], w2 = w[c + 8], w3 = w[c + 9];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int ka = mt * 16 + gid, kb = ka + 8;
-        const uint32_t a[4] = {
-            pack2(i0 == ka ? w0 : 0.f, i1 == ka ? w1 : 0.f),
-            pack2(i0 == kb ? w0 : 0.f, i1 == kb ? w1 : 0.f),
-            pack2(i2 == ka ? w2 : 0.f, i3 == ka ? w3 : 0.f),
-            pack2(i2 == kb ? w2 : 0.f, i3 == kb ? w3 : 0.f)};
-        mma16816(acc[mt], a, bb);
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int k = mt * 16 + gid + (i >= 2 ? 8 : 0);
-        const int d = d0 + tig * 2 + (i & 1);
-        if (k < KP) part[k * D + d] = acc[mt][i];
-      }
-    }
+// one prototype value into a block's dot-operand copy
+template <int KP, bool BF16>
+__device__ __forceinline__ void put_pair(uint8_t* op, int k, int d, float v0, float v1, int D) {
+  if (BF16) {
+    __nv_bfloat162 p = __floats2bfloat162_rn(v0, v1);
+    *reinterpret_cast<__nv_bfloat162*>(op + (d >> 6) * KP * 128 + swz128(k, d & 63)) = p;
+  } else {
+    float* o = reinterpret_cast<float*>(op);
+    o[d * KP + k] = v0;
+    if (d + 1 < D) o[(d + 1) * KP + k] = v1;
   }
 }
 
 template <int KP, bool BF16>
 __global__ void __launch_bounds__(NTHREADS, 1)
-meanshift_kernel(const float* __restrict__ prot0, const float* __restrict__ mask,
-                 const float* __restrict__ f, const float* __restrict__ ft,
-                 const bf16* __restrict__ fb, const bf16* __restrict__ ftb,
-                 const float* __restrict__ nbase, float* __restrict__ out_prot,
-                 float* __restrict__ out_sim, int K, int N, int NP, int D, int n_shift,
-                 float tau0, float temp) {
+meanshift_kernel(const __grid_constant__ CUtensorMap fmap, const Params p) {
   cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  const int g = blockIdx.x / CLUSTER;
-  const int S = NP / CLUSTER;  // features per block, a multiple of 16
+  const int g = blockIdx.x / C;
+  const int K = p.K, N = p.N, D = p.D;
+  const int S = p.tb * 64, LDS = S + 4, PD = D + 4;
   const int n_lo = rank * S;
-  const int n_hi = min(n_lo + S, N);
-  extern __shared__ float smem[];
-  float* prot = smem;               // KP * D, f32 prototypes (the same in every block)
-  float* op = prot + KP * D;        // KP * D: the dot-operand copy, or this block's partial sums
-  float* sim = op + KP * D;         // KP * S: this block's similarities
-  float* w = sim + KP * S;          // S: weight of each feature for its prototype
-  int* idx = reinterpret_cast<int*>(w + S);  // S: assigned prototype (-1 past N)
-  float* tau = reinterpret_cast<float*>(idx + S);  // KP
-  float* na = tau + KP;             // KP
-  float* lse = na + KP;             // KP
-  float* red = lse + KP;            // 2 * KP: this block's partial reductions
+  const int cnt = max(0, min(S, N - n_lo));  // features this block owns
+  const int ntile = (cnt + 63) / 64;
+  const int DT = (D + 63) / 64;
+  const Layout L = layout(KP, BF16, D, p.tb, p.stages);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* op = smem + L.op;
+  float* sim = reinterpret_cast<float*>(smem + L.x);
+  uint8_t* wt = smem + L.x;
+  float* part = reinterpret_cast<float*>(smem + L.part);
+  float* w = reinterpret_cast<float*>(smem + L.w);
+  float* mv = reinterpret_cast<float*>(smem + L.mv);
+  float* nbv = reinterpret_cast<float*>(smem + L.nbv);
+  int8_t* idx = reinterpret_cast<int8_t*>(smem + L.idx);
+  float* tau = reinterpret_cast<float*>(smem + L.small);
+  float* na = tau + KP;
+  float* lse = na + KP;
+  float* inv = lse + KP;                   // 1 / (temp * tau_k)
+  float* red_lse = inv + KP;               // (KP, P, 2): each part's (max, sum of exp)
+  float* red_dens = red_lse + 2 * P * KP;  // (KP, P, 2): each part's (sum, count)
+  float* blk_lse = red_dens + 2 * P * KP;  // (KP, 2): the block's (max, sum of exp)
+  float* blk_dens = blk_lse + 2 * KP;      // (KP, 2): the block's (sum, count)
+  float* normbuf = blk_dens + 2 * KP;      // (MAX_CLUSTER, KP): each rank's squared norms
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);
 
-  const float* m = mask + (size_t)g * N;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wg = tid >> 7;
+  const float* m = p.mask + (size_t)g * N;
+  Ring ring{smem + L.ring + wg * p.stages * BOX_BYTES, bars + wg * MAX_STAGES, &fmap, p.stages, 0};
+  // a reduction over the block's features takes them in P parts
+  const int part_len = (cnt + P - 1) / P;
 
-  auto sim_pass = [&](const float* mm, float* dst, int ld, int col0) {
-    if (BF16)
-      sim_pass_mma<KP>(reinterpret_cast<const bf16*>(op), na, fb, nbase, mm, dst, ld, col0, K,
-                       n_lo, n_hi, D);
-    else
-      sim_pass_f32<KP>(op, na, ft, nbase, mm, dst, ld, col0, K, N, n_lo, n_hi, D);
-  };
-  for (int i = threadIdx.x; i < KP * D; i += NTHREADS)
-    prot[i] = i < K * D ? prot0[(size_t)g * K * D + i] : 0.f;
-  for (int k = threadIdx.x; k < KP; k += NTHREADS) tau[k] = tau0;
-  for (int t = threadIdx.x; t < S; t += NTHREADS) {
+  if (BF16 && (tid & 127) == 0) {
+    for (int s = 0; s < p.stages; ++s) mbar_init(&ring.full[s], 1);
+    mbar_init_fence();
+  }
+  // the initial prototypes, the same in every block: norms and operand
+  const float* p0 = p.prot0 + (size_t)g * K * D;
+  for (int k = warp; k < KP; k += NWARPS) {
+    float s = 0.f;
+    for (int d = 2 * lane; d < DT * 64; d += 64) {
+      const float v0 = k < K && d < D ? p0[k * D + d] : 0.f;
+      const float v1 = k < K && d + 1 < D ? p0[k * D + d + 1] : 0.f;
+      s += v0 * v0 + v1 * v1;
+      if (BF16 || d < D) put_pair<KP, BF16>(op, k, d, v0, v1, D);
+    }
+    s = warp_sum(s);
+    if (lane == 0) na[k] = fmaxf(sqrtf(s), 1e-8f);
+  }
+  for (int k = tid; k < KP; k += NTHREADS) tau[k] = p.tau0;
+  for (int t = tid; t < S; t += NTHREADS) {
     w[t] = 0.f;
     idx[t] = -1;
+    mv[t] = t < cnt ? m[n_lo + t] : 0.f;
+    nbv[t] = t < cnt ? p.nbase[n_lo + t] : 0.f;
   }
-  __syncthreads();
-  proto_norms(prot, na, K, D);
-  stage_operand<KP, BF16>(prot, op, K, D);
-  __syncthreads();
-  if (n_shift > 0) sim_pass(m, sim, S, n_lo);
+  fence_async_smem();
   __syncthreads();
 
-  for (int it = 0; it < n_shift; ++it) {
-    // log-sum-exp over N of sim / (temp * tau_k): each block's (max, sum
-    // of exp - max) over its features, one warp per prototype ...
-    for (int k = warp; k < K; k += NWARPS) {
-      const float div = temp * tau[k];
-      const float* row = sim + (size_t)k * S;
+  auto sim_pass = [&](const float* mm, float* dst, int ld, int col0) {
+    if (BF16) {
+      sim_pass_wgmma<KP>(ring, op, na, mm != nullptr ? mv : nullptr, nbv, dst, ld, col0, K, n_lo,
+                         cnt, ntile, D, wg);
+    } else {
+      sim_pass_f32<KP>(reinterpret_cast<const float*>(op), na, p.ft, mm, p.nbase, dst, ld, col0, K,
+                       N, n_lo, n_lo + cnt, D);
+    }
+  };
+  if (p.n_shift > 0) sim_pass(m, sim, LDS, n_lo);
+  __syncthreads();
+
+  // the columns whose cluster-wide sum this rank computes
+  const int dc = ((D + C - 1) / C + 1) & ~1;
+  const int c0 = min(D, rank * dc), c1 = min(D, c0 + dc);
+
+  for (int it = 0; it < p.n_shift; ++it) {
+    // log-sum-exp over N of sim / (temp * tau_k): the (max, sum of exp -
+    // max) of each part of the block's features, one warp per (prototype,
+    // part) ...
+    for (int task = warp; task < K * P; task += NWARPS) {
+      const int k = task / P, pl = (task % P) * part_len, ph = min(cnt, pl + part_len);
+      const float rk = 1.f / (p.temp * tau[k]);
+      const float* row = sim + (size_t)k * LDS;
       float mx = -INFINITY;
-      for (int t = lane; t < n_hi - n_lo; t += 32) mx = fmaxf(mx, row[t] / div);
-      mx = warp_max(mx);
+      for (int t = pl + lane; t < ph; t += 32) mx = fmaxf(mx, row[t]);
+      mx = __fmul_rn(warp_max(mx), rk);  // x -> x * rk is monotone: the max of the scaled row
+      // __fmul_rn: the scaled value rounded before the subtraction, never
+      // contracted into an FMA (with tau at its 1e-10 floor the scale is
+      // 1e11, and an unrounded product minus its own rounding is +-4096)
       float sum = 0.f;
-      for (int t = lane; t < n_hi - n_lo; t += 32) sum += expf(row[t] / div - mx);
+      for (int t = pl + lane; t < ph; t += 32) sum += expf(__fmul_rn(row[t], rk) - mx);
       sum = warp_sum(sum);
       if (lane == 0) {
-        red[2 * k] = mx;
-        red[2 * k + 1] = sum;
+        red_lse[2 * task] = mx;
+        red_lse[2 * task + 1] = sum;
       }
     }
+    __syncthreads();
+    // ... combined over the parts, then over the cluster's ranks, in order
+    for (int k = tid; k < K; k += NTHREADS) combine_lse(red_lse + 2 * P * k, blk_lse + 2 * k);
     cluster.sync();
-    // ... combined over the cluster in rank order
-    for (int k = threadIdx.x; k < K; k += NTHREADS) {
+    for (int k = tid; k < K; k += NTHREADS) {
       float mx = -INFINITY, sum = 0.f;
-      for (int r = 0; r < CLUSTER; ++r) mx = fmaxf(mx, cluster.map_shared_rank(red, r)[2 * k]);
-      for (int r = 0; r < CLUSTER; ++r) {
-        const float* rr = cluster.map_shared_rank(red, r);
-        if (rr[2 * k] > -INFINITY) sum += rr[2 * k + 1] * expf(rr[2 * k] - mx);
+      for (int r = 0; r < C; ++r) mx = fmaxf(mx, cluster.map_shared_rank(blk_lse, r)[2 * k]);
+      for (int r = 0; r < C; ++r) {
+        const float* rr = cluster.map_shared_rank(blk_lse, r) + 2 * k;
+        if (rr[0] > -INFINITY) sum += rr[1] * expf(rr[0] - mx);
       }
       lse[k] = logf(sum) + mx;
+      inv[k] = 1.f / (p.temp * tau[k]);
     }
     __syncthreads();
     // hard assignment per feature (first maximum wins) and its weight
-    for (int t = threadIdx.x; t < n_hi - n_lo; t += NTHREADS) {
+    for (int t = tid; t < cnt; t += NTHREADS) {
       float best = -INFINITY;
       int bi = 0;
       for (int k = 0; k < K; ++k) {
-        const float lw = sim[(size_t)k * S + t] / (temp * tau[k]) - lse[k];
+        const float lw = __fmul_rn(sim[(size_t)k * LDS + t], inv[k]) - lse[k];
         if (lw > best) {
           best = lw;
           bi = k;
         }
       }
-      idx[t] = bi;
-      w[t] = rnd<BF16>(expf(best) * m[n_lo + t]);
+      idx[t] = (int8_t)bi;
+      w[t] = rnd<BF16>(expf(best) * mv[t]);
     }
     __syncthreads();
-    // this block's partial prototypes into op ...
+    // this block's partial prototypes ...
     if (BF16) {
-      update_mma<KP>(op, w, idx, ftb, NP, n_lo, S, D);
-    } else {
-      for (int i = threadIdx.x; i < KP * D; i += NTHREADS) op[i] = 0.f;
+      // W^T tiles (KP, 64 features) in region X, then the products
+      for (int i = tid; i < ntile * 32; i += NTHREADS) {
+        const int j = i >> 5, c = 2 * (i & 31), t = j * 64 + c;
+        const int i0 = idx[t], i1 = idx[t + 1];
+        const float w0 = w[t], w1 = w[t + 1];
+        uint8_t* tile = wt + j * KP * 128;
+#pragma unroll
+        for (int k = 0; k < KP; ++k)
+          *reinterpret_cast<__nv_bfloat162*>(tile + swz128(k, c)) =
+              __floats2bfloat162_rn(i0 == k ? w0 : 0.f, i1 == k ? w1 : 0.f);
+      }
+      fence_async_smem();
       __syncthreads();
-      update_f32(op, w, idx, f, n_lo, S, N, D);
+      update_wgmma<KP>(ring, wt, part, n_lo, ntile, D, wg);
+    } else {
+      for (int i = tid; i < KP * PD; i += NTHREADS) part[i] = 0.f;
+      __syncthreads();
+      for (int d = tid; d < D; d += NTHREADS)
+        for (int t = 0; t < cnt; ++t) {
+          const float wv = w[t];
+          if (wv == 0.f) continue;
+          part[idx[t] * PD + d] = fmaf(wv, p.f[(size_t)(n_lo + t) * D + d], part[idx[t] * PD + d]);
+        }
     }
-    cluster.sync();
-    // ... summed over the cluster in rank order
-    for (int i = threadIdx.x; i < KP * D; i += NTHREADS) {
-      float acc = 0.f;
-      for (int r = 0; r < CLUSTER; ++r) acc += cluster.map_shared_rank(op, r)[i];
-      prot[i] = acc;
-    }
-    cluster.sync();  // every block has read every partial before op is restaged
-    proto_norms(prot, na, K, D);
-    stage_operand<KP, BF16>(prot, op, K, D);
     __syncthreads();
-    if (it + 1 == n_shift) break;  // the last tau update is never read
-    sim_pass(m, sim, S, n_lo);
+    cluster.sync();
+    // ... summed over the cluster in rank order, this rank's columns, and
+    // written into every rank
+    const bool last = it + 1 == p.n_shift;
+    for (int k = warp; k < KP; k += NWARPS) {
+      float ss = 0.f;
+      for (int d = c0 + 2 * lane; d < c1; d += 64) {
+        float v0 = 0.f, v1 = 0.f;
+        for (int r = 0; r < C; ++r) {
+          const float* pr = cluster.map_shared_rank(part, r) + k * PD;
+          v0 += pr[d];
+          if (d + 1 < c1) v1 += pr[d + 1];
+        }
+        ss += v0 * v0 + v1 * v1;
+        for (int r = 0; r < C; ++r) put_pair<KP, BF16>(cluster.map_shared_rank(op, r), k, d, v0, v1, D);
+        if (last && k < K) {
+          float* o = p.out_prot + ((size_t)g * K + k) * D;
+          o[d] = v0;
+          if (d + 1 < c1) o[d + 1] = v1;
+        }
+      }
+      ss = warp_sum(ss);
+      if (lane == 0)
+        for (int r = 0; r < C; ++r) cluster.map_shared_rank(normbuf, r)[rank * KP + k] = ss;
+    }
+    fence_async_smem();
+    cluster.sync();
+    fence_async_smem();
+    for (int k = tid; k < KP; k += NTHREADS) {
+      float s = 0.f;
+      for (int r = 0; r < C; ++r) s += normbuf[r * KP + k];
+      na[k] = fmaxf(sqrtf(s), 1e-8f);
+    }
+    __syncthreads();
+    if (last) break;  // the last tau update is never read
+    sim_pass(m, sim, LDS, n_lo);
     __syncthreads();
     // density bandwidth: tau_k = max(1 - mean assigned sim, 1e-10)
-    for (int k = warp; k < K; k += NWARPS) {
-      const float* row = sim + (size_t)k * S;
-      float sum = 0.f, cnt = 0.f;
-      for (int t = lane; t < n_hi - n_lo; t += 32) {
+    for (int task = warp; task < K * P; task += NWARPS) {
+      const int k = task / P, pl = (task % P) * part_len, ph = min(cnt, pl + part_len);
+      const float* row = sim + (size_t)k * LDS;
+      float sum = 0.f, n = 0.f;
+      for (int t = pl + lane; t < ph; t += 32) {
         if (idx[t] == k) {
           sum += row[t];
-          cnt += 1.f;
+          n += 1.f;
         }
       }
       sum = warp_sum(sum);
-      cnt = warp_sum(cnt);
+      n = warp_sum(n);
       if (lane == 0) {
-        red[2 * k] = sum;
-        red[2 * k + 1] = cnt;
+        red_dens[2 * task] = sum;
+        red_dens[2 * task + 1] = n;
       }
+    }
+    __syncthreads();
+    for (int k = tid; k < K; k += NTHREADS) {
+      float sum = 0.f, n = 0.f;
+      for (int q = 0; q < P; ++q) {
+        sum += red_dens[2 * (P * k + q)];
+        n += red_dens[2 * (P * k + q) + 1];
+      }
+      blk_dens[2 * k] = sum;
+      blk_dens[2 * k + 1] = n;
     }
     cluster.sync();
-    for (int k = threadIdx.x; k < K; k += NTHREADS) {
-      float sum = 0.f, cnt = 0.f;
-      for (int r = 0; r < CLUSTER; ++r) {
-        const float* rr = cluster.map_shared_rank(red, r);
-        sum += rr[2 * k];
-        cnt += rr[2 * k + 1];
+    for (int k = tid; k < K; k += NTHREADS) {
+      float sum = 0.f, n = 0.f;
+      for (int r = 0; r < C; ++r) {
+        const float* rr = cluster.map_shared_rank(blk_dens, r) + 2 * k;
+        sum += rr[0];
+        n += rr[1];
       }
-      const float dens = 1.f - (cnt >= 1.f ? sum / fmaxf(cnt, 1.f) : 0.f);
+      const float dens = 1.f - (n >= 1.f ? sum / fmaxf(n, 1.f) : 0.f);
       tau[k] = fmaxf(dens, 1e-10f);
     }
-    cluster.sync();  // every block has read red before it is rewritten
+    __syncthreads();
   }
 
-  sim_pass(nullptr, out_sim + (size_t)g * K * N, N, 0);
-  if (rank == 0)
-    for (int i = threadIdx.x; i < K * D; i += NTHREADS) out_prot[(size_t)g * K * D + i] = prot[i];
+  sim_pass(nullptr, p.out_sim + (size_t)g * K * N, N, 0);
+  if (p.n_shift == 0 && rank == 0)
+    for (int i = tid; i < K * D; i += NTHREADS) p.out_prot[(size_t)g * K * D + i] = p0[i];
   cluster.sync();  // no block leaves while another may read its shared memory
 }
 
-struct Args {
-  const float *prot0, *mask, *f, *ft;
-  const bf16 *fb, *ftb;
-  const float* nbase;
-  float *out_prot, *out_sim;
-  int G, K, N, NP, D, n_shift;
-  float tau0, temp;
-};
+template <int KP, bool BF16>
+cudaError_t prepare(size_t smem) {
+  cudaError_t e = cudaFuncSetAttribute(meanshift_kernel<KP, BF16>,
+                                       cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(meanshift_kernel<KP, BF16>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
 
 template <int KP, bool BF16>
-int launch(const Args& a, cudaStream_t stream) {
-  const size_t S = a.NP / CLUSTER;
-  const size_t smem = sizeof(float) * (2 * (size_t)KP * a.D + KP * S + 2 * S + 5 * KP);
-  auto kern = meanshift_kernel<KP, BF16>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+int launch(const CUtensorMap& map, const Params& a, int G, int C, cudaStream_t stream) {
+  const size_t smem = layout(KP, BF16, a.D, a.tb, a.stages).total;
+  cudaError_t e = prepare<KP, BF16>(smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.G * CLUSTER);
+  cfg.gridDim = dim3(G * C);
   cfg.blockDim = dim3(NTHREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CLUSTER;
+  attr[0].val.clusterDim.x = C;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kern, a.prot0, a.mask, a.f, a.ft, a.fb, a.ftb, a.nbase, a.out_prot,
-                         a.out_sim, a.K, a.N, a.NP, a.D, a.n_shift, a.tau0, a.temp);
+  e = cudaLaunchKernelEx(&cfg, meanshift_kernel<KP, BF16>, map, a);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 template <bool BF16>
-int dispatch(const Args& a, cudaStream_t stream) {
-  if (a.K <= 8) return launch<8, BF16>(a, stream);
-  if (a.K <= 16) return launch<16, BF16>(a, stream);
-  if (a.K <= 24) return launch<24, BF16>(a, stream);
-  return launch<32, BF16>(a, stream);
+int dispatch(const CUtensorMap& map, const Params& a, int G, int C, cudaStream_t s) {
+  if (a.K <= 8) return launch<8, BF16>(map, a, G, C, s);
+  if (a.K <= 16) return launch<16, BF16>(map, a, G, C, s);
+  if (a.K <= 24) return launch<24, BF16>(map, a, G, C, s);
+  return launch<32, BF16>(map, a, G, C, s);
+}
+
+template <int KP, bool BF16>
+int max_clusters(int C, size_t smem) {
+  cudaError_t e = prepare<KP, BF16>(smem);
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C * 64);
+  cfg.blockDim = dim3(NTHREADS);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, meanshift_kernel<KP, BF16>, &cfg);
+  return e == cudaSuccess ? n : -(int)e;
 }
 
 }  // namespace
 
 extern "C" {
 
-// prot0 (G, K, D), mask (G, N), nbase (N,): f32 contiguous; K <= 32;
-// NP >= N a multiple of 128 (8 blocks x 16 features).
-// f32 dots: f (N, D) and ft (D, N) f32, fb/ftb null.
-// bf16 dots: fb (NP, D) and ftb (D, NP) bf16, the features rounded and
-// zero-padded to NP rows; f/ft null; D a multiple of 16.
+// Shared memory of one block for KP prototypes (8, 16, 24 or 32), D dims,
+// tb tiles of 64 features and `stages` ring slots per warpgroup (1 to 4).
+size_t meanshift_smem_bytes(int KP, int bf16, int D, int tb, int stages) {
+  return layout(KP, bf16 != 0, D, tb, stages).total;
+}
+
+// How many clusters of C blocks with `smem` bytes each can be resident at
+// once (cudaOccupancyMaxActiveClusters), or minus the cudaError_t.
+int meanshift_max_clusters(int KP, int bf16, int C, size_t smem) {
+  if (bf16) {
+    if (KP == 8) return max_clusters<8, true>(C, smem);
+    if (KP == 16) return max_clusters<16, true>(C, smem);
+    if (KP == 24) return max_clusters<24, true>(C, smem);
+    return max_clusters<32, true>(C, smem);
+  }
+  if (KP == 8) return max_clusters<8, false>(C, smem);
+  if (KP == 16) return max_clusters<16, false>(C, smem);
+  if (KP == 24) return max_clusters<24, false>(C, smem);
+  return max_clusters<32, false>(C, smem);
+}
+
+// prot0 (G, K, D), mask (G, N), nbase (N,): f32 contiguous; K <= 32.
+// f32 dots: f (N, D) and ft (D, N) f32, fb null.
+// bf16 dots: fb (N, D) bf16 (the features rounded once), f/ft null;
+// D a multiple of 16.
+// cluster: blocks per instance (<= 8); tb: 64-feature tiles per block
+// (cluster * tb * 64 >= N); stages: ring slots per warpgroup (1 to 4).
 // out_prot (G, K, D), out_sim (G, K, N): f32.
 int meanshift_forward(const void* prot0, const void* mask, const void* f, const void* ft,
-                      const void* fb, const void* ftb, const void* nbase, void* out_prot,
-                      void* out_sim, int G, int K, int N, int NP, int D, int n_shift, float tau0,
-                      float temp, int mm_bf16, void* stream) {
-  const Args a{(const float*)prot0, (const float*)mask, (const float*)f, (const float*)ft,
-               (const bf16*)fb, (const bf16*)ftb, (const float*)nbase, (float*)out_prot,
-               (float*)out_sim, G, K, N, NP, D, n_shift, tau0, temp};
-  return mm_bf16 ? dispatch<true>(a, (cudaStream_t)stream) : dispatch<false>(a, (cudaStream_t)stream);
+                      const void* fb, const void* nbase, void* out_prot, void* out_sim, int G,
+                      int K, int N, int D, int n_shift, int cluster, int tb, int stages,
+                      float tau0, float temp, int mm_bf16, void* stream) {
+  if (cluster < 1 || cluster > MAX_CLUSTER || stages < 1 || stages > MAX_STAGES ||
+      (long)cluster * tb * 64 < N)
+    return (int)cudaErrorInvalidValue;
+  const Params a{(const float*)prot0, (const float*)mask, (const float*)f, (const float*)ft,
+                 (const float*)nbase, (float*)out_prot, (float*)out_sim, K, N, D, n_shift, tb,
+                 stages, tau0, temp};
+  CUtensorMap map = {};
+  if (mm_bf16) {
+    // a runtime call first: the driver entry point needs the context current
+    cudaFree(nullptr);
+    if (int bad = make_map_2d(&map, fb, N, D)) return bad;
+    return dispatch<true>(map, a, G, cluster, (cudaStream_t)stream);
+  }
+  return dispatch<false>(map, a, G, cluster, (cudaStream_t)stream);
 }
 
 }  // extern "C"

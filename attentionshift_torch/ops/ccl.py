@@ -10,7 +10,8 @@ index + 1 (the cc_torch numbering).
 ``connected_components_batch`` is the wrapper: a CPU tensor takes the
 plain version ``connected_components`` (which follows the JAX
 ``connected_components``), a CUDA tensor launches ``csrc/ccl.cu`` or
-raises.
+raises. The kernel keeps a plane in shared memory when its buffer
+(``_plane_bytes``) fits, else in a scratch buffer in device memory.
 """
 
 from __future__ import annotations
@@ -95,8 +96,18 @@ def connected_components(masks: torch.Tensor, max_iters: int = 256,
     return (out, sweeps) if return_sweeps else out
 
 
-def connected_components_batch(masks: torch.Tensor, max_iters: int = 256) -> torch.Tensor:
-    """Label many (M, H, W) masks at once (8-connectivity)."""
+def _plane_bytes(h: int, w: int) -> int:
+    """Bytes of one plane's working buffer in ``csrc/ccl.cu``: both label
+    buffers (int32) and the mask (one byte) on (h + 2) rows of an odd
+    stride >= w + 2 (a one-cell border), rounded up to 16 bytes."""
+    cells = (h + 2) * ((w + 2) | 1)
+    return -(-cells * 9 // 16) * 16
+
+
+def connected_components_batch(masks: torch.Tensor, max_iters: int = 256,
+                               lib=None) -> torch.Tensor:
+    """Label many (M, H, W) masks at once (8-connectivity). ``lib``: a build
+    of ``csrc/ccl.cu`` with ``-D`` overrides (``_build.library``)."""
     if masks.device.type == "cpu":
         return connected_components(masks, max_iters)
     if not masks.is_cuda or masks.dim() != 3:
@@ -104,13 +115,13 @@ def connected_components_batch(masks: torch.Tensor, max_iters: int = 256) -> tor
     m, h, w = masks.shape
     fg = masks.to(torch.bool).contiguous()
     out = torch.empty((m, h, w), dtype=torch.int32, device=masks.device)
-    smem = 2 * h * w * 4
+    smem = _plane_bytes(h, w)
     if smem <= _SMEM_LIMIT:
-        scratch = out  # unused: both label buffers live in shared memory
+        scratch = out  # unused: the plane's buffers live in shared memory
     else:
+        scratch = torch.empty((m * smem,), dtype=torch.uint8, device=masks.device)
         smem = 0
-        scratch = torch.empty_like(out)
-    fn = library("ccl").ccl_batch_forward
+    fn = (lib or library("ccl")).ccl_batch_forward
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     err = fn(fg.data_ptr(), out.data_ptr(), scratch.data_ptr(), m, h, w, int(max_iters), smem,

@@ -4,7 +4,9 @@ Port of ``attentionshift_tpu/ops/meanshift_kernel.py`` and of the plain
 ``cosine_shift_batch`` it replaces (``pseudo/meanshift.py:49-123``).
 ``cosine_shift_fixpoint`` is the wrapper: a CPU tensor takes the plain
 version ``cosine_shift_batch``, a CUDA tensor launches
-``csrc/meanshift.cu`` or raises.
+``csrc/meanshift.cu`` or raises. The host picks the kernel's cluster
+size, tiles per block and ring slots (``_plan``) from the shape and from
+how many clusters the card holds at once.
 
 Numerics (both versions): cosine denominators ``max(|a|, 1e-8) *
 max(|b|, 1e-8)``; log-softmax over N of ``sim / (temp * tau)``; the hard
@@ -25,7 +27,14 @@ from ._build import KERNELS, check, library
 __all__ = ["cosine_shift_batch", "cosine_shift_fixpoint"]
 
 _SMEM_LIMIT = 227 * 1024
-_CLUSTER = 8  # blocks per instance, as in csrc/meanshift.cu
+# as in csrc/meanshift.cu: cluster sizes the host may take, ring slots per
+# warpgroup, parts of a row in a reduction over features
+_CLUSTERS = (2, 3, 4, 5, 6, 7, 8)
+_MAX_CLUSTER = 16  # non-portable: taken only when no portable size fits
+_WARPGROUPS = 4
+_MAX_STAGES = 2
+_ROUND_BOXES = 3
+_ROW_PARTS = 4
 
 
 def _mm(x: torch.Tensor, dtype) -> torch.Tensor:
@@ -68,8 +77,96 @@ def cosine_shift_batch(prototypes, feats, feats_org, tau=0.1, temp=0.1, n_shift=
     return prot, num / (na[..., None] * nbo)
 
 
+def _smem_bytes(kp: int, bf16: bool, d: int, tb: int, stages: int) -> int:
+    """Shared memory of one block of ``csrc/meanshift.cu`` (its ``layout``):
+    the TMA rings (bf16), the prototypes' operand copy, the similarities
+    (in the update: the W^T tiles, then the partial sums), each feature's
+    weight, mask value, norm and prototype, per-prototype arrays,
+    barriers, alignment."""
+    s = tb * 64
+    ring = _WARPGROUPS * stages * 8192 if bf16 else 0
+    op = -(-d // 64) * kp * 128 if bf16 else d * kp * 4
+    wt = tb * kp * 128 if bf16 else 0
+    part = kp * (d + 4) * 4
+    one_round = -(-d // 64) <= 2 * _ROUND_BOXES
+    x = max(kp * (s + 4) * 4, max(wt, part) if one_round else wt + part)
+    small = _up(_up(_up(ring + op, 1024) + x, 16) + 13 * s, 16)
+    return (small + (8 + 4 * _ROW_PARTS + _MAX_CLUSTER) * kp * 4
+            + _WARPGROUPS * _MAX_STAGES * 8 + 1024)
+
+
+def _up(x: int, a: int) -> int:
+    return -(-x // a) * a
+
+
+def _plan(g: int, k: int, n: int, d: int, bf16: bool, active,
+          smem_bytes=_smem_bytes) -> tuple[int, int, int, int]:
+    """(cluster, tiles per block, ring slots, shared memory bytes) of a
+    launch: the cluster size whose instances finish in the fewest block
+    lifetimes, counted as waves (``active(cluster, smem)`` clusters are
+    resident at once) times the 64-feature tiles each block streams; then
+    the most ring slots that fit; then the smaller cluster. Clusters of
+    16 only where no portable size (at most 8) fits in shared memory."""
+    kp = -(-k // 8) * 8
+    tiles = -(-n // 64)
+    best = None
+    for c in _CLUSTERS + (_MAX_CLUSTER,):
+        if c == _MAX_CLUSTER and best is not None:
+            break
+        tb = -(-tiles // c)
+        for stages in range(_MAX_STAGES, 0, -1) if bf16 else (1,):
+            smem = smem_bytes(kp, bf16, d, tb, stages)
+            if smem > _SMEM_LIMIT:
+                continue
+            fit = active(c, smem)
+            if fit > 0:
+                key = (-(-g // fit) * tb, -stages, c)
+                if best is None or key < best[0]:
+                    best = (key, (c, tb, stages, smem))
+            break
+    if best is None:
+        raise ValueError(f"meanshift kernel: N={n}, D={d}, K={k} exceed shared memory")
+    return best[1]
+
+
+_ACTIVE: dict = {}
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the signatures of a build of ``csrc/meanshift.cu`` once."""
+    if not getattr(lib, "_meanshift_bound", False):
+        lib.meanshift_max_clusters.restype = ctypes.c_int
+        lib.meanshift_max_clusters.argtypes = [ctypes.c_int] * 3 + [ctypes.c_size_t]
+        lib.meanshift_smem_bytes.restype = ctypes.c_size_t
+        lib.meanshift_smem_bytes.argtypes = [ctypes.c_int] * 5
+        lib.meanshift_forward.restype = ctypes.c_int
+        lib.meanshift_forward.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                                          + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                                             ctypes.c_void_p])
+        lib._meanshift_bound = True
+    return lib
+
+
+def launch_plan(g: int, k: int, n: int, d: int, bf16: bool, device, lib=None):
+    """The kernel's launch plan on ``device`` (``_plan``, with the shared
+    memory the build reports), and ``active(cluster, smem)``: the resident
+    cluster counts (``cudaOccupancyMaxActiveClusters``) it was chosen
+    from, asked once per (build, device, KP, operands, cluster, smem)."""
+    lib = _bind(lib or library("meanshift"))
+    kp = -(-k // 8) * 8
+
+    def active(c: int, smem: int) -> int:
+        key = (lib._name, device, kp, bf16, c, smem)
+        if key not in _ACTIVE:
+            with torch.cuda.device(device):
+                _ACTIVE[key] = lib.meanshift_max_clusters(kp, int(bf16), c, smem)
+        return _ACTIVE[key]
+
+    return _plan(g, k, n, d, bf16, active, lib.meanshift_smem_bytes), active
+
+
 def cosine_shift_fixpoint(prototypes, box_mask, f, tau=0.1, temp=0.1, n_shift=10,
-                          matmul_dtype=None):
+                          matmul_dtype=None, lib=None):
     """Mean-shift fixpoint for every instance.
 
     Args:
@@ -77,6 +174,8 @@ def cosine_shift_fixpoint(prototypes, box_mask, f, tau=0.1, temp=0.1, n_shift=10
         box_mask: (G, N) {0, 1} per-instance feature eligibility.
         f: (N, D) unmasked features.
         matmul_dtype: dot operand dtype (None = f32, or torch.bfloat16).
+        lib: a build of ``csrc/meanshift.cu`` with ``-D`` overrides
+            (``_build.library``); the default build when None.
 
     Returns:
         prototypes (G, K, D) f32, sim (G, K, N) f32.
@@ -97,33 +196,24 @@ def cosine_shift_fixpoint(prototypes, box_mask, f, tau=0.1, temp=0.1, n_shift=10
     bf16 = matmul_dtype == torch.bfloat16
     if bf16 and d % 16:
         raise ValueError(f"meanshift kernel: bf16 dots need D % 16 == 0, got D={d}")
-    kp = -(-k // 8) * 8
-    np_ = -(-n // (16 * _CLUSTER)) * 16 * _CLUSTER  # 8 blocks x a multiple of 16 features
-    s = np_ // _CLUSTER
-    if 4 * (2 * kp * d + kp * s + 2 * s + 5 * kp) > _SMEM_LIMIT:
-        raise ValueError(f"meanshift kernel: N={n}, D={d}, K={k} exceed shared memory")
+    lib = _bind(lib or library("meanshift"))
+    (cluster, tb, stages, _), _ = launch_plan(g, k, n, d, bf16, f.device, lib)
     prot0 = prototypes.float().contiguous()
     mask = box_mask.float().contiguous()
     f32 = f.float().contiguous()
     nbase = f32.norm(dim=-1).contiguous()
+    # the dot operands: bf16 rounded once (read by TMA), or f32 in both layouts
     if bf16:
-        # the dot operands rounded once, in both layouts, zero rows to NP
-        fb = torch.zeros((np_, d), device=f.device, dtype=torch.bfloat16)
-        fb[:n] = f32
-        feats = (None, None, fb, fb.T.contiguous())
+        feats = (None, None, f.to(torch.bfloat16).contiguous())
     else:
-        feats = (f32, f32.T.contiguous(), None, None)
+        feats = (f32, f32.T.contiguous(), None)
     out_prot = torch.empty((g, k, d), device=f.device, dtype=torch.float32)
     out_sim = torch.empty((g, k, n), device=f.device, dtype=torch.float32)
-    fn = library("meanshift").meanshift_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    err = fn(prot0.data_ptr(), mask.data_ptr(),
-             *(None if t is None else t.data_ptr() for t in feats),
-             nbase.data_ptr(), out_prot.data_ptr(), out_sim.data_ptr(), g, k, n, np_, d,
-             int(n_shift), float(tau), float(temp), int(bf16),
-             torch.cuda.current_stream(f.device).cuda_stream)
+    err = lib.meanshift_forward(
+        prot0.data_ptr(), mask.data_ptr(), *(None if t is None else t.data_ptr() for t in feats),
+        nbase.data_ptr(), out_prot.data_ptr(), out_sim.data_ptr(), g, k, n, d, int(n_shift),
+        cluster, tb, stages, float(tau), float(temp), int(bf16),
+        torch.cuda.current_stream(f.device).cuda_stream)
     check(err, "meanshift_forward")
     KERNELS["meanshift_fixpoint"].launches += 1
     return out_prot, out_sim

@@ -52,19 +52,22 @@ the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 rest of the repository beside it, the script fails and prints no result.
 
-    python3 chip_smoke.py --ablate [VARIANT ...]
+    python3 chip_smoke.py --ablate [SOURCE ...]
 
-runs, after phase 1, only the ablation of the forward pair's design
-constants instead: ``csrc/attention.cu`` built once per variant of
-``ABLATIONS`` (``-D`` overrides of the constants it guards with
+runs, after phase 1, only the ablation of design constants instead: each
+source of ``ABLATIONS`` (default: attention, meanshift, ccl) built once
+per variant (``-D`` overrides of the constants it guards with
 ``#ifndef``), every variant checked as in phase 3 at the bench shape,
-then every variant's flash pass with SDPA's forward, and every variant's
-mean pass, read in turns (median of 6 readings of 20 launches each).
+then the variants read in turns (median of 6 readings of 20 launches
+each): the attention forward pair's flash pass with SDPA's forward and
+its mean pass; the mean-shift fixpoint (bf16) and CCL on phase 3's
+inputs.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import subprocess
@@ -88,14 +91,28 @@ PEAK_F32 = 67e12
 EXP2_PER_CLOCK_PER_SM = 16  # MUFU results per clock per SM
 LOG2E = 1.4426950408889634
 
-# design constants of csrc/attention.cu, built as variants by --ablate
+# design constants each source guards with #ifndef, built as variants by
+# --ablate: source -> variant -> -D overrides
 ABLATIONS = {
-    "as built": (),
-    "flash: 1 warpgroup and 3 blocks per SM": ("FWD_WARPGROUPS=1", "FWD_BLOCKS_PER_SM=3"),
-    "flash: 3 ring slots": ("FWD_STAGES=3",),
-    "flash: 5 ring slots": ("FWD_STAGES=5",),
-    "mean: 3 ring slots": ("MEAN_STAGES=3",),
-    "mean: chunks of at most 2 key tiles": ("MEAN_MAX_CHUNK=2",),
+    "attention": {
+        "as built": (),
+        "flash: 1 warpgroup and 3 blocks per SM": ("FWD_WARPGROUPS=1", "FWD_BLOCKS_PER_SM=3"),
+        "flash: 3 ring slots": ("FWD_STAGES=3",),
+        "flash: 5 ring slots": ("FWD_STAGES=5",),
+        "mean: 3 ring slots": ("MEAN_STAGES=3",),
+        "mean: chunks of at most 2 key tiles": ("MEAN_MAX_CHUNK=2",),
+    },
+    "meanshift": {
+        "as built": (),
+        "update: 2 boxes per warpgroup at once": ("MS_ROUND_BOXES=2",),
+        "reductions: rows in 2 parts": ("MS_ROW_PARTS=2",),
+        "reductions: rows in 8 parts": ("MS_ROW_PARTS=8",),
+    },
+    "ccl": {
+        "as built": (),
+        "512 threads": ("CCL_THREADS=512",),
+        "256 threads": ("CCL_THREADS=256",),
+    },
 }
 
 
@@ -587,18 +604,39 @@ def expected_launches(**counts) -> dict:
     return {name: counts.get(name, 0) for name in KERNELS}
 
 
+def recording(module, name: str, store: dict):
+    """Patch ``module.name`` with a pass-through that keeps a copy of the
+    arguments of its last call in ``store[name]``."""
+    from unittest import mock
+
+    import torch
+
+    fn = getattr(module, name)
+
+    def record(*args, **kwargs):
+        store[name] = ([a.clone() if torch.is_tensor(a) else a for a in args], dict(kwargs))
+        return fn(*args, **kwargs)
+
+    return mock.patch.object(module, name, record)
+
+
 def phase_main_path(dev):
-    """seed_pseudo_gt at the bench geometry; launch counts of that run."""
+    """seed_pseudo_gt at the bench geometry; launch counts of that run, and
+    the inputs it handed the CCL and mean-shift kernels."""
     import torch
 
     from attentionshift_torch.ops._build import KERNELS, reset_launches
+    from attentionshift_torch.pseudo import engine, meanshift
 
     model = build_model(dev, torch.bfloat16)
     inp = slice_inputs(H_IMG, W_IMG, MAX_GT, N_VALID, dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    reset_launches()
-    out = model.seed_pseudo_gt(*inp, generator=gen)
-    sync()
+    handed: dict = {}
+    with recording(engine, "connected_components_batch", handed), \
+            recording(meanshift, "cosine_shift_fixpoint", handed):
+        reset_launches()
+        out = model.seed_pseudo_gt(*inp, generator=gen)
+        sync()
     launches = {name: k.launches for name, k in KERNELS.items()}
     log(f"[main] launches per image: {launches}")
     want = expected_launches(attention_capture=CAM_LAYERS, attention_plain=12 - CAM_LAYERS,
@@ -609,7 +647,7 @@ def phase_main_path(dev):
     nvalid_parts = int(out["semantic_centers_valid"].sum())
     log(f"[main] outputs ok: boxes {out['pseudo_gt_bboxes'][0, :N_VALID].tolist()}, "
         f"valid semantic centers {nvalid_parts}, loss_mil {float(out['loss_mil']):.4f}")
-    return model, inp, gen, launches
+    return model, inp, gen, launches, handed
 
 
 LOSS_KEYS = {"loss_mil", "loss_rpn_cls", "loss_rpn_bbox", "loss_point_cls", "loss_point",
@@ -924,6 +962,7 @@ def phase_times(results: dict, inp: dict, model, slice_inp, gen):
     sweeps = ccl.connected_components(masks, 64, return_sweeps=True)[1].tolist()
     cells = masks.shape[1] * masks.shape[2]
     # per sweep and cell: 9-cell minimum + 2 run scans x 2 directions (int32)
+    results["ccl_batch"]["inputs"] = (masks, 64)
     times["ccl_batch"] = dict(
         ms=cuda_time(lambda: ccl.connected_components_batch(masks, 64)),
         plain_ms=cuda_time(lambda: ccl.connected_components(masks, 64), reps=2, warmup=1),
@@ -933,6 +972,7 @@ def phase_times(results: dict, inp: dict, model, slice_inp, gen):
     prot0, mask, f = inp["prot0"], inp["mask"], inp["f"]
     g, kk, dd = prot0.shape
     n = f.shape[0]
+    results["meanshift_fixpoint"]["inputs"] = (prot0, mask, f, 0.1, 0.1, 10, torch.bfloat16)
     times["meanshift_fixpoint"] = dict(
         ms=cuda_time(lambda: meanshift_kernel.cosine_shift_fixpoint(
             prot0, mask, f, n_shift=10, matmul_dtype=torch.bfloat16), reps=5),
@@ -976,6 +1016,57 @@ def phase_times(results: dict, inp: dict, model, slice_inp, gen):
     return ms_img
 
 
+def phase_main_path_inputs(results: dict, handed: dict) -> None:
+    """CCL and mean-shift on the inputs ``seed_pseudo_gt`` handed them
+    (phase 4), timed in turns with the same kernels on phase 3's synthetic
+    inputs; the per-plane sweeps and the mask fill of those inputs, the
+    mean-shift launch plan and how many clusters the card holds at once."""
+    import torch
+
+    from attentionshift_torch.ops import ccl, meanshift_kernel
+
+    (masks, *rest), kw = handed["connected_components_batch"]
+    iters = kw.get("max_iters", rest[0] if rest else 256)
+    sweeps = ccl.connected_components(masks, iters, return_sweeps=True)[1].tolist()
+    log(f"[main-input] ccl: planes {tuple(masks.shape)}, max_iters {iters}, foreground "
+        f"{float(masks.float().mean()):.3f}, sweeps per plane: max {max(sweeps)}, total "
+        f"{sum(sweeps)} over {len(sweeps)} planes, histogram "
+        f"{sorted(collections.Counter(sweeps).items())}")
+    margs, mkw = handed["cosine_shift_fixpoint"]
+    prot0, box_mask, f = margs[:3]
+    g, k, d = prot0.shape
+    n = f.shape[0]
+    bf16 = mkw.get("matmul_dtype") == torch.bfloat16
+    (c, tb, stages, smem), active = meanshift_kernel.launch_plan(g, k, n, d, bf16, f.device)
+    kp, tiles = -(-k // 8) * 8, -(-n // 64)
+    fits = {}
+    for cc in meanshift_kernel._CLUSTERS:  # at the most ring slots that fit
+        for st in range(meanshift_kernel._MAX_STAGES, 0, -1):
+            cc_smem = meanshift_kernel._smem_bytes(kp, bf16, d, -(-tiles // cc), st)
+            if cc_smem <= meanshift_kernel._SMEM_LIMIT:
+                fits[cc] = active(cc, cc_smem)
+                break
+    log(f"[main-input] meanshift: G {g}, K {k}, N {n}, D {d}, bf16 {bf16}, n_shift "
+        f"{mkw.get('n_shift')}, box-mask cells per instance {box_mask.sum(1).int().tolist()}; "
+        f"plan: clusters of {c} blocks, {tb} tiles of 64 features per block, {stages} ring "
+        f"slots, {smem} B of shared memory; cudaOccupancyMaxActiveClusters per cluster size "
+        f"{fits}: {g} instances in {-(-g // active(c, smem))} wave(s)")
+    syn = results["meanshift_fixpoint"], results["ccl_batch"]
+    (ms_main, ms_syn, ccl_main, ccl_syn), _ = in_turns(
+        lambda: meanshift_kernel.cosine_shift_fixpoint(*margs, **mkw),
+        lambda: meanshift_kernel.cosine_shift_fixpoint(*syn[0]["inputs"]),
+        lambda: ccl.connected_components_batch(masks, iters),
+        lambda: ccl.connected_components_batch(*syn[1]["inputs"]))
+    cells = masks.shape[1] * masks.shape[2]
+    ccl_bound = max(masks.numel() * 5 / PEAK_BYTES, sum(sweeps) * cells * 13 / PEAK_F32) * 1e3
+    results["meanshift_fixpoint"]["ms_main_path_input"] = ms_main
+    results["ccl_batch"]["ms_main_path_input"] = ccl_main
+    log(f"[main-input] meanshift_fixpoint: {ms_main:.4f} ms on the main path's input, "
+        f"{ms_syn:.4f} ms on phase 3's (medians of 6 in turns)")
+    log(f"[main-input] ccl_batch: {ccl_main:.4f} ms on the main path's input (bound "
+        f"{ccl_bound:.4f} ms), {ccl_syn:.4f} ms on phase 3's (medians of 6 in turns)")
+
+
 def profile_slice(run, ms_img: float, top: int = 12, what: str = "call") -> None:
     """Where one call's time goes: device time by kernel (torch.profiler;
     the ``top`` kernels and every hand-written one) and the device's busy
@@ -1006,55 +1097,87 @@ def profile_slice(run, ms_img: float, top: int = 12, what: str = "call") -> None
         log(f"[profile]   host   {e.self_cpu_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
-def phase_ablation(names) -> None:
-    """The forward pair's design constants: ``csrc/attention.cu`` built once
-    per variant of ``ABLATIONS``, each checked against the plain version at
-    the bench shape with its gap (limits of phase 3), then every variant's
-    flash pass beside SDPA's forward with the same mask, and every
-    variant's mean pass, read in turns."""
+def phase_ablation(sources) -> None:
+    """Design constants: each source of ``ABLATIONS`` built once per
+    variant (all builds started together), each variant checked against
+    the plain version at the bench shape (limits of phase 3), then read in
+    turns: the forward pair's flash pass beside SDPA's forward with the
+    same mask and its mean pass; the mean-shift fixpoint (bf16) and CCL on
+    phase 3's inputs."""
     import torch
     import torch.nn.functional as F
 
-    from attentionshift_torch.ops import attention
+    from attentionshift_torch.ops import _build, attention, ccl, meanshift_kernel
 
-    unknown = [n for n in names if n not in ABLATIONS]
+    unknown = [s for s in sources if s not in ABLATIONS]
     if unknown:
-        raise SystemExit(f"chip_smoke: unknown variants {unknown}; known: {list(ABLATIONS)}")
-    phase_build([("attention", ABLATIONS[n]) for n in names])
-    libs = {n: attention.forward_library(ABLATIONS[n]) for n in names}
+        raise SystemExit(f"chip_smoke: unknown sources {unknown}; known: {list(ABLATIONS)}")
+    phase_build([(src, d) for src in sources for d in ABLATIONS[src].values()])
     dev = torch.device("cuda")
-    q, k, v = bench_qkv(dev, torch.Generator(device=dev).manual_seed(0))
-    ref_out, ref_mean = attention.attention_reference(q, k, v, PAD_GAP)
-    for n, lib in libs.items():
-        out, lse = attention.flash_forward(q, k, v, PAD_GAP, True, lib=lib)
-        mean = attention._mean(q, k, lse, PAD_GAP, lib=lib)
-        sync()
-        expect(f"{n}: out", max_err(out, ref_out), bf16_ulps(ref_out, 4),
-               "4 bf16 ulps of the largest |out|")
-        expect(f"{n}: mean", max_err(mean, ref_mean), 2e-3 * float(ref_mean.float().abs().max()),
-               "bf16 storage of the mean: 2^-9 relative, times the largest entry")
-    del ref_out, ref_mean, out, mean
-    _, lse = attention.flash_forward(q, k, v, PAD_GAP, True)
-    bias = torch.zeros((1, 1, 1, q.shape[2]), device=dev, dtype=q.dtype)
-    bias[..., PAD_GAP[0]:PAD_GAP[1]] = float("-inf")
-    fns = {f"flash, {n}": (lambda lib=lib: attention.flash_forward(q, k, v, PAD_GAP, False, lib=lib))
-           for n, lib in libs.items()}
-    fns["flash, SDPA forward"] = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
-    fns.update({f"mean pass, {n}": (lambda lib=lib: attention._mean(q, k, lse, PAD_GAP, lib=lib))
-                for n, lib in libs.items()})
+    fns = {}
+    if "attention" in sources:
+        libs = {n: attention.forward_library(d) for n, d in ABLATIONS["attention"].items()}
+        q, k, v = bench_qkv(dev, torch.Generator(device=dev).manual_seed(0))
+        ref_out, ref_mean = attention.attention_reference(q, k, v, PAD_GAP)
+        for n, lib in libs.items():
+            out, lse = attention.flash_forward(q, k, v, PAD_GAP, True, lib=lib)
+            mean = attention._mean(q, k, lse, PAD_GAP, lib=lib)
+            sync()
+            expect(f"attention, {n}: out", max_err(out, ref_out), bf16_ulps(ref_out, 4),
+                   "4 bf16 ulps of the largest |out|")
+            expect(f"attention, {n}: mean", max_err(mean, ref_mean),
+                   2e-3 * float(ref_mean.float().abs().max()),
+                   "bf16 storage of the mean: 2^-9 relative, times the largest entry")
+        del ref_out, ref_mean, out, mean
+        _, lse = attention.flash_forward(q, k, v, PAD_GAP, True)
+        bias = torch.zeros((1, 1, 1, q.shape[2]), device=dev, dtype=q.dtype)
+        bias[..., PAD_GAP[0]:PAD_GAP[1]] = float("-inf")
+        fns.update({f"flash, {n}": (lambda lib=lib: attention.flash_forward(q, k, v, PAD_GAP, False,
+                                                                             lib=lib))
+                    for n, lib in libs.items()})
+        fns["flash, SDPA forward"] = lambda: F.scaled_dot_product_attention(q, k, v,
+                                                                          attn_mask=bias)
+        fns.update({f"mean pass, {n}": (lambda lib=lib: attention._mean(q, k, lse, PAD_GAP,
+                                                                        lib=lib))
+                    for n, lib in libs.items()})
+    if "meanshift" in sources or "ccl" in sources:
+        inp = kernel_inputs(dev, torch.Generator(device=dev).manual_seed(0))
+    if "meanshift" in sources:
+        prot0, mask, f = inp["prot0"], inp["mask"], inp["f"]
+        ref_p, ref_s = meanshift_kernel.cosine_shift_batch(
+            prot0, f[None] * mask[..., None], f, n_shift=10, matmul_dtype=torch.bfloat16)
+        for n, d in ABLATIONS["meanshift"].items():
+            lib = _build.library("meanshift", d)
+            got_p, got_s = meanshift_kernel.cosine_shift_fixpoint(
+                prot0, mask, f, n_shift=10, matmul_dtype=torch.bfloat16, lib=lib)
+            sync()
+            expect(f"meanshift, {n}: prototypes(rel)",
+                   max_err(got_p, ref_p) / float(ref_p.abs().max()), 2e-3, "bf16 dot operands")
+            expect(f"meanshift, {n}: sim", max_err(got_s, ref_s), 2e-3, "bf16 dot operands")
+            fns[f"meanshift, {n}"] = lambda lib=lib: meanshift_kernel.cosine_shift_fixpoint(
+                prot0, mask, f, n_shift=10, matmul_dtype=torch.bfloat16, lib=lib)
+    if "ccl" in sources:
+        masks = inp["masks"]
+        ref_lab = ccl.connected_components(masks, 64)
+        for n, d in ABLATIONS["ccl"].items():
+            lib = _build.library("ccl", d)
+            expect(f"ccl, {n}", max_err(ccl.connected_components_batch(masks, 64, lib=lib),
+                                        ref_lab), 0.0, "integer labels: exact")
+            fns[f"ccl, {n}"] = lambda lib=lib: ccl.connected_components_batch(masks, 64, lib=lib)
     meds, reads = in_turns(*fns.values(), reps=20)
-    flops = 4.0 * q.numel() * q.shape[2]
     for name, med, got in zip(fns, meds, reads):
-        rate = f" = {flops / (med * 1e-3) / 1e12:.1f} TFLOP/s" if name.startswith("flash") else ""
+        rate = ""
+        if name.startswith("flash"):
+            rate = f" = {4.0 * q.numel() * q.shape[2] / (med * 1e-3) / 1e12:.1f} TFLOP/s"
         log(f"[ablate] {name}: {med:.4f} ms{rate} (median of {len(got)} readings in turns: "
             f"{[round(x, 4) for x in got]})")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--ablate", nargs="*", metavar="VARIANT",
-                    help="only the ablation of the forward pair's design constants (default: "
-                         "every variant of ABLATIONS)")
+    ap.add_argument("--ablate", nargs="*", metavar="SOURCE",
+                    help="only the ablation of design constants, every variant of each source "
+                         "of ABLATIONS (default: all sources)")
     args = ap.parse_args(argv)
     sys.path.insert(0, HERE)
     if not os.path.isdir(os.path.join(HERE, "attentionshift_torch")):
@@ -1076,11 +1199,12 @@ def main(argv=None) -> int:
     inp = kernel_inputs(dev, torch.Generator(device=dev).manual_seed(0))
     phase_kernels(results, inp)
     phase_small_reference(dev)
-    model, slice_inp, gen, seed_launches = phase_main_path(dev)
+    model, slice_inp, gen, seed_launches, handed = phase_main_path(dev)
     eval_step, infer_img, infer_wh, infer_launches = phase_infer_path(dev, model, slice_inp)
     state, step_fn, batch, train_gen, train_launches = phase_train_path(dev, model, slice_inp)
     tool_launches = phase_tool(dev)
     phase_times(results, inp, model, slice_inp, gen)
+    phase_main_path_inputs(results, handed)
     phase_train_times(state, step_fn, batch, train_gen)
     phase_infer_times(model, eval_step, infer_img, infer_wh)
     table = []
@@ -1098,7 +1222,8 @@ def main(argv=None) -> int:
                           max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                           bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                           library_ms=r["library_ms"],
-                          **{key: r[key] for key in ("mean_pass_ms",) if key in r}))
+                          **{key: r[key] for key in ("mean_pass_ms", "ms_main_path_input")
+                             if key in r}))
     log(smi)
     log(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -38,38 +38,121 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.gpu
-def test_ccl_kernel_on_card(cuda):
-    """CCL kernel vs the plain version, exact, in shared memory and (a
-    plane too large for it) in device memory."""
-    for (h, w) in ((50, 84), (200, 300)):
-        masks = torch.from_numpy(ccl_planes(5, h, w)).to(cuda)
-        for it in (64, 2):
-            assert torch.equal(ccl.connected_components_batch(masks, it),
-                               ccl.connected_components(masks, it))
+# (H, W): the bench plane; a single row; a single column; ragged rows
+# against a warp's 32 lanes; the plane the JAX kernel runs transposed; one
+# too large for shared memory (device-memory path)
+CCL_SHAPES = [(50, 84), (1, 84), (50, 1), (33, 300), (100, 168), (200, 300)]
 
 
 @pytest.mark.gpu
-def test_meanshift_kernel_on_card(cuda):
+@pytest.mark.parametrize("max_iters", [1, 2, 64])
+@pytest.mark.parametrize("h,w", CCL_SHAPES)
+def test_ccl_kernel_on_card(cuda, h, w, max_iters):
+    """CCL kernel vs the plain version, exact at every sweep cap (cut
+    fixpoints included): blob planes, a serpentine, an empty and a full
+    plane."""
+    planes = ccl_planes(5, h, w)
+    masks = torch.from_numpy(np.concatenate([planes, np.ones((1, h, w), bool)])).to(cuda)
+    got = ccl.connected_components_batch(masks, max_iters)
+    assert torch.equal(got, ccl.connected_components(masks, max_iters))
+
+
+@pytest.mark.gpu
+def test_ccl_plane_bytes_agree(cuda):
+    """The wrapper's plane buffer size (its shared-memory or device-memory
+    choice, and the scratch it allocates) is the kernel's own."""
+    import ctypes
+
+    from attentionshift_torch.ops._build import library
+
+    fn = library("ccl").ccl_plane_bytes
+    fn.restype = ctypes.c_size_t
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    for h, w in CCL_SHAPES + [(7, 9), (800, 1344)]:
+        assert fn(h, w) == ccl._plane_bytes(h, w)
+
+
+def _meanshift_inputs(g, k, n, d, seed, cuda):
+    """Seeded inputs; instance 1's mask is all zero, instance 2's one cell."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    f = torch.randn((n, d), generator=gen, device=cuda)
+    prot0 = torch.randn((g, k, d), generator=gen, device=cuda)
+    mask = (torch.rand((g, n), generator=gen, device=cuda) > 0.4).float()
+    mask[1] = 0.0
+    mask[2] = 0.0
+    mask[2, n // 2] = 1.0
+    return prot0, mask, f
+
+
+# (K, N, D, n_shift): every KP template (8, 16, 24, 32); N ragged against
+# the 64-feature tiles and the cluster split (300, 301, 4200); D of ViT-S,
+# ViT-B and a narrow one; no, one and ten iterations; a plane that only
+# clusters of 16 blocks hold (bf16; f32 takes 8)
+MEANSHIFT_CASES = [
+    (8, 300, 64, 10),
+    (16, 301, 384, 1),
+    (20, 4200, 384, 10),
+    (20, 4200, 384, 0),
+    (24, 300, 768, 10),
+    (32, 4200, 768, 10),
+    (20, 4200, 768, 1),
+    (8, 46000, 64, 2),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("matmul_dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("k,n,d,n_shift", MEANSHIFT_CASES)
+def test_meanshift_kernel_on_card(cuda, k, n, d, n_shift, matmul_dtype):
     """Mean-shift kernel vs the plain version: f32 1e-4 (summation order);
     bf16 operands 2e-3 (an f32 last-bit difference can move a bf16
-    rounding of a weight or prototype by 2^-8)."""
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    f = torch.randn((300, 64), generator=gen, device=cuda)
-    prot0 = torch.randn((5, 20, 64), generator=gen, device=cuda)
-    mask = (torch.rand((5, 300), generator=gen, device=cuda) > 0.4).float()
-    for mm, tol in ((None, 1e-4), (torch.bfloat16, 2e-3)):
-        want = meanshift_kernel.cosine_shift_batch(prot0, f[None] * mask[..., None], f,
-                                                   matmul_dtype=mm)
-        got = meanshift_kernel.cosine_shift_fixpoint(prot0, mask, f, matmul_dtype=mm)
-        for a, b in zip(got, want):
-            torch.testing.assert_close(a, b, atol=tol * float(b.abs().max()), rtol=0)
+    rounding of a weight or prototype by 2^-8); both relative to the
+    largest entry. An all-zero and a single-cell mask among the instances."""
+    prot0, mask, f = _meanshift_inputs(5, k, n, d, k + n + d, cuda)
+    tol = 1e-4 if matmul_dtype is None else 2e-3
+    want = meanshift_kernel.cosine_shift_batch(prot0, f[None] * mask[..., None], f,
+                                               n_shift=n_shift, matmul_dtype=matmul_dtype)
+    got = meanshift_kernel.cosine_shift_fixpoint(prot0, mask, f, n_shift=n_shift,
+                                                 matmul_dtype=matmul_dtype)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=tol * float(b.abs().max()), rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("matmul_dtype", [None, torch.bfloat16])
+def test_meanshift_kernel_is_deterministic(cuda, matmul_dtype):
+    """No atomics: two calls on the same inputs give bitwise equal outputs."""
+    prot0, mask, f = _meanshift_inputs(5, 20, 4200, 384, 3, cuda)
+    runs = [meanshift_kernel.cosine_shift_fixpoint(prot0, mask, f, matmul_dtype=matmul_dtype)
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_meanshift_plan_on_card(cuda):
+    """The wrapper's shared-memory count is the kernel's own, and the bench
+    shape (G = 20, K = 20, N = 4200, D = 384, bf16) runs in one wave."""
+    import ctypes
+
+    from attentionshift_torch.ops._build import library
+
+    fn = library("meanshift").meanshift_smem_bytes
+    fn.restype = ctypes.c_size_t
+    fn.argtypes = [ctypes.c_int] * 5
+    for kp in (8, 16, 24, 32):
+        for bf16 in (0, 1):
+            for d, tb, stages in ((64, 1, 1), (384, 11, 2), (768, 17, 2), (1024, 3, 1)):
+                assert fn(kp, bf16, d, tb, stages) == meanshift_kernel._smem_bytes(
+                    kp, bool(bf16), d, tb, stages)
+    (c, tb, stages, smem), active = meanshift_kernel.launch_plan(20, 20, 4200, 384, True, cuda)
+    assert active(c, smem) >= 20
 
 
 # (B, H, T, gap): one tile; one row past two tiles; a ragged T with and
 # without a gap; a gap across the tile boundary at 128; an odd T (the
 # mean's unpaired last column, as at the microbenchmark's 4301); the bench
-# shape
+# shape; ViT-B's 12 heads with the bench gap; the mean pass's 16-head limit
 ATTENTION_CASES = [
     (1, 3, 64, None),
     (1, 3, 129, None),
@@ -78,6 +161,8 @@ ATTENTION_CASES = [
     (2, 3, 300, (120, 140)),
     (1, 3, 301, None),
     (1, 6, 4352, (4201, 4252)),
+    (1, 12, 4352, (4201, 4252)),
+    (1, 16, 301, None),
 ]
 
 

@@ -120,24 +120,56 @@ def test_attention_backward_reference_is_the_softmax_gradient():
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6)
 
 
+def _jax_transposes(h: int, w: int) -> bool:
+    """Whether the JAX wrapper runs the Pallas kernel on transposed planes
+    (ops/ccl.py:262-265: the orientation that pads to fewer (8, 128) tiles)."""
+    def padded(a, b):
+        return ((a + 7) // 8 * 8) * ((b + 127) // 128 * 128)
+
+    return padded(w, h) < padded(h, w)
+
+
 @pytest.mark.parametrize("max_iters", [64, 2])
-def test_ccl_matches_pallas_kernel(max_iters):
-    """Port plain CCL vs ``_ccl_batch_kernel`` (ops/ccl.py:200) on 50x84
-    planes (the bench plane) — exact, also when the sweep cap cuts the
-    serpentine plane before convergence."""
+@pytest.mark.parametrize("h,w", [(50, 84), (1, 84), (50, 1), (33, 300), (100, 168)])
+def test_ccl_matches_pallas_kernel(h, w, max_iters):
+    """Port plain CCL vs ``_ccl_batch_kernel`` (ops/ccl.py:200): the bench
+    plane (50x84), a single row and column, ragged rows against 32 lanes,
+    and 100x168, which the JAX wrapper runs transposed (so does 50x1) —
+    exact, also when the sweep cap cuts the serpentine plane before
+    convergence. A transposed plane scans its rows first, so a cut fixpoint
+    differs from the port's column-first sweep (ROADMAP, "CCL
+    orientation"): there the cut labels are held against the JAX plain
+    ``connected_components`` (the port's sweep) and the kernel's at
+    convergence."""
     from attentionshift_tpu.ops import ccl as jccl
 
-    masks = ccl_planes(6, 50, 84)
-    with _interpret_pallas():
-        want = jccl.connected_components_batch(jnp.asarray(masks), 8, max_iters, use_pallas=True)
+    masks = ccl_planes(6, h, w)
     got = ccl.connected_components_batch(torch.from_numpy(masks), max_iters)
+    if _jax_transposes(h, w) and max_iters < 64:
+        want = jax.vmap(lambda m: jccl.connected_components(m, 8, max_iters))(jnp.asarray(masks))
+    else:
+        with _interpret_pallas():
+            want = jccl.connected_components_batch(jnp.asarray(masks), 8, max_iters,
+                                                   use_pallas=True)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     if max_iters == 64:
         from scipy import ndimage
 
         for i in range(len(masks)):
             n_ref = ndimage.label(masks[i], np.ones((3, 3)))[1]
-            assert len(np.unique(got[i].numpy())) - 1 == n_ref
+            assert len(np.setdiff1d(np.unique(got[i].numpy()), [0])) == n_ref
+
+
+def test_ccl_plane_buffer_choice():
+    """The CCL wrapper keeps a plane in shared memory when its padded buffer
+    (two int32 label planes and the mask on an odd row stride with a
+    one-cell border) fits 227 KB: the bench plane and ViT-B's do, a plane
+    at cam stride 4 (200x336) does not."""
+    assert ccl._plane_bytes(50, 84) == 52 * 87 * 9 // 16 * 16 + 16
+    assert ccl._plane_bytes(50, 84) % 16 == 0 and ccl._plane_bytes(7, 9) % 16 == 0
+    assert ccl._plane_bytes(50, 84) <= ccl._SMEM_LIMIT
+    assert ccl._plane_bytes(150, 150) <= ccl._SMEM_LIMIT
+    assert ccl._plane_bytes(200, 336) > ccl._SMEM_LIMIT
 
 
 def test_ccl_sweep_counts():
@@ -158,14 +190,17 @@ def test_ccl_sweep_counts():
 
 
 @pytest.mark.parametrize("matmul_dtype", [None, "bfloat16"])
-def test_meanshift_matches_pallas_kernel(matmul_dtype):
+@pytest.mark.parametrize("k,n", [(6, 40), (8, 40), (20, 37), (32, 131)])
+def test_meanshift_matches_pallas_kernel(k, n, matmul_dtype):
     """Port plain mean-shift vs ``_kernel`` (ops/meanshift_kernel.py:47),
-    with a fully masked (padded) instance. f32: 1e-5 (summation order);
-    bf16 dot operands: the same rounding on both sides, 1e-4."""
+    with a fully masked (padded) instance, at prototype counts that fill
+    each of the CUDA kernel's KP templates and N ragged against its
+    64-feature tiles. f32: 1e-5 (summation order); bf16 dot operands: the
+    same rounding on both sides, 1e-4."""
     from attentionshift_tpu.ops.meanshift_kernel import cosine_shift_fixpoint
 
-    rs = np.random.RandomState(0)
-    g, k, n, d = 4, 6, 40, 16
+    rs = np.random.RandomState(k + n)
+    g, d = 4, 16
     f = rs.randn(n, d).astype(np.float32)
     mask = (rs.rand(g, n) > 0.4).astype(np.float32)
     mask[2] = 0.0
@@ -179,6 +214,57 @@ def test_meanshift_matches_pallas_kernel(matmul_dtype):
     tol = 1e-5 if matmul_dtype is None else 1e-4
     np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), rtol=tol, atol=tol)
     np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), rtol=tol, atol=tol)
+
+
+# clusters resident at once per cluster size (one block per SM), as
+# cudaOccupancyMaxActiveClusters reported them on an H100 80GB HBM3 at the
+# bench shape's shared memory (2: one block per SM of 132, not fitting
+# there; 16: the non-portable size)
+_ACTIVE = {2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15, 16: 7}
+
+
+def test_meanshift_plan_fits_the_bench_shape_in_one_wave():
+    """The host's launch plan: at the bench shape (G = 20, K = 20, N = 4200,
+    D = 384, bf16) the cluster that finishes in the fewest block lifetimes
+    (waves times tiles per block), here 5 blocks of 14 tiles in one wave
+    (22 clusters fit), with both ring slots; if only 19 clusters of 5 fit,
+    clusters of 4 (17 tiles, one wave) beat two waves of 5; clusters that
+    fit nowhere are never taken."""
+    plan = meanshift_kernel._plan(20, 20, 4200, 384, True, _ACTIVE.get)
+    assert plan[:3] == (5, 14, 2)
+    assert plan[3] == meanshift_kernel._smem_bytes(24, True, 384, 14, 2) <= 227 * 1024
+    fewer = {**_ACTIVE, 5: 19}
+    assert meanshift_kernel._plan(20, 20, 4200, 384, True, fewer.get)[:2] == (4, 17)
+    only8 = {c: (16 if c == 8 else 0) for c in _ACTIVE}
+    assert meanshift_kernel._plan(20, 20, 4200, 384, True, only8.get)[0] == 8
+    assert meanshift_kernel._plan(20, 20, 4200, 384, False, _ACTIVE.get)[2] == 1
+
+
+def test_meanshift_plan_takes_every_shape_the_first_kernel_took():
+    """Every (K, N, D) whose shared memory the first kernel's wrapper
+    accepted (clusters of 8 blocks, N rounded to 128) has a plan, ViT-B's
+    D = 768 at the bench N included; beyond shared memory it raises."""
+    def first_took(k, n, d):
+        kp, s = -(-k // 8) * 8, -(-n // 128) * 16
+        return 4 * (2 * kp * d + kp * s + 2 * s + 5 * kp) <= 227 * 1024
+
+    always = lambda c, smem: 10**6  # noqa: E731
+    for bf16 in (True, False):
+        for k in (1, 8, 20, 24, 32):
+            for d in (16, 64, 384, 768):
+                top = 1
+                while first_took(k, 2 * top, d):
+                    top *= 2
+                lo, hi = top, 2 * top  # the largest N it took, by bisection
+                while hi - lo > 1:
+                    mid = (lo + hi) // 2
+                    lo, hi = (mid, hi) if first_took(k, mid, d) else (lo, mid)
+                for n in (1, 37, 300, 4200, lo - 64, lo):
+                    if n >= 1 and first_took(k, n, d):
+                        c, tb, stages, smem = meanshift_kernel._plan(20, k, n, d, bf16, always)
+                        assert c * tb * 64 >= n and smem <= 227 * 1024
+    with pytest.raises(ValueError):
+        meanshift_kernel._plan(20, 32, 10**6, 768, True, always)
 
 
 def test_kernel_wrappers_count_only_their_launches():
