@@ -1,12 +1,16 @@
-"""Host-side evaluation: mask finalisation and VOC-style mAP (numpy).
+"""Evaluation: mask finalisation, VOC-style and COCO-style mask AP,
+multi-scale + flip testing and the dataset runner.
 
-The port's own copies of the JAX package's numpy-only modules
-``eval/masks.py`` and ``eval/mean_ap_segm.py``; multi-scale testing, the
-dataset runner and the COCO evaluator are not ported yet.
+The numpy modules (``masks.py``, ``mean_ap_segm.py``, ``coco_eval.py``)
+are the port's own copies of the JAX package's; ``aug_test.py`` and
+``runner.py`` drive the port's detector on its device.
 """
 
+from .aug_test import AugTester
+from .coco_eval import coco_segm_eval
 from .masks import finalize_detections, paste_masks_np
 from .mean_ap_segm import eval_map, eval_map_segm, mask_iou, voc_ap
+from .runner import collect_results_fs, evaluate
 
-__all__ = ["finalize_detections", "paste_masks_np", "eval_map", "eval_map_segm", "mask_iou",
-           "voc_ap"]
+__all__ = ["finalize_detections", "paste_masks_np", "eval_map_segm", "mask_iou", "voc_ap",
+           "AugTester", "coco_segm_eval", "eval_map", "evaluate", "collect_results_fs"]

@@ -74,7 +74,7 @@ def rpn_loss(cls_scores, bbox_preds, anchors, gt_boxes, gt_valid, num_samples: i
                                 match_low_quality=True)
         dr = draws[i] if draws is not None else {}
         s = random_sample_idx(assign.assigned_gt, num_samples, pos_fraction,
-                              u_pos=dr.get("u_pos"), u_neg=dr.get("u_neg"))
+                              u_pos=dr.get("u_pos"), u_neg=dr.get("u_neg"), generator=generator)
         idx = torch.cat([s.pos_idx, s.neg_idx]).long()
         vmask = torch.cat([s.pos_valid, s.neg_valid]).float()
         targets_cls = torch.cat([torch.ones_like(s.pos_valid), torch.zeros_like(s.neg_valid)]).float()

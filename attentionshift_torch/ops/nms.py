@@ -55,7 +55,10 @@ def nms(boxes, scores, iou_threshold: float, max_out: int, valid=None, block: in
         for lo, hi, sup in blocks:
             suppressed |= (sup & kept[lo:hi, None]).any(dim=0)
         new = alive_s & ~suppressed
-        if bool((new == kept).all()):
+        # the fixpoint's one host read per iteration, named for the profiler
+        with torch.profiler.record_function("nms.fixpoint_read"):
+            done = bool((new == kept).all())
+        if done:
             break
         kept = new
     k = min(max_out, n)

@@ -102,6 +102,35 @@ class Optimizer:
         self.last_finite = True
         self.total_notfinite = 0
 
+    _COUNTERS = ("count", "mini_step", "notfinite_count", "last_finite", "total_notfinite")
+
+    def state_dict(self) -> dict:
+        """Moments, accumulator and counters, tensors keyed by parameter
+        name (copies on the CPU): what a checkpoint must carry to resume."""
+        def named(ts):
+            return {n: t.detach().cpu().clone() for n, t in zip(self.names, ts)}
+
+        return dict(mu=named(self.mu), nu=named(self.nu),
+                    acc=None if self.acc is None else named(self.acc),
+                    **{k: getattr(self, k) for k in self._COUNTERS})
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Restore ``state_dict()``'s output into this optimizer's tensors
+        (same parameter names and accumulation setting, else raises)."""
+        if (state["acc"] is None) != (self.acc is None):
+            raise ValueError("Optimizer.load_state_dict: the checkpoint's gradient accumulation "
+                             "does not match this optimizer's")
+        for key in ("mu", "nu", "acc"):
+            if state[key] is None:
+                continue
+            if list(state[key]) != self.names:
+                raise ValueError(f"Optimizer.load_state_dict: {key} holds other parameters")
+            for t, saved in zip(getattr(self, key), state[key].values()):
+                t.copy_(saved)
+        for k in self._COUNTERS:
+            setattr(self, k, state[k])
+
     @torch.no_grad()
     def step(self, grads) -> bool:
         """Apply one call's gradients (in ``named_params`` order; None

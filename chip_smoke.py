@@ -36,7 +36,19 @@ Phases, each printing its own lines:
 7. the attention microbenchmark
    (``attentionshift_torch.tools.analysis.microbench_attention``) at its
    defaults, every variant, its lines printed, its launches counted;
-8. times with CUDA events: every kernel, its plain version, the library
+8. the evaluation entry point: the twin of ``tools/test.py``
+   (``attentionshift_torch.tools.test.main``) in this process, on a
+   synthetic VOC2012 tree of two VOC-size images (500x375 and 375x500, 2-3
+   blob instances each) in a temporary directory, from a ``save_params``
+   export of the seeded ViT-S model of ``configs/attnshift_voc12aug.py``:
+   single-scale and aug-test (6 scales x flip), each as configured and
+   once more with a lowered score floor. The metric keys mAP@{0.25, 0.5,
+   0.75}, finite; the port's maskapi library built (``native_available()``);
+   exactly 12 / 432 ``flash_fwd`` launches per image and no other kernel;
+   detections on every image at the lowered floor and masks pasted at the
+   images' sizes (their pixels over 0.5 reported); the token counts T the
+   backbone met;
+9. times with CUDA events: every kernel, its plain version, the library
    call where one exists, ms/img of the pseudo-label path and of
    inference and ms per train step, each with one profiled call. The
    attention kernels and their SDPA yardsticks (the forward with the same
@@ -45,7 +57,14 @@ Phases, each printing its own lines:
    its readings; the flash pass's and the backward pair's TFLOP/s and
    ratio to SDPA, the mean pass's own time, and an exp floor (B*H*T^2
    exp2 per pass at 16 per clock per SM, at the SM clock nvidia-smi reads
-   while the flash pass runs) beside the forward bounds.
+   while the flash pass runs) beside the forward bounds. For the eval
+   path: ``flash_fwd`` against its plain version at every T it met,
+   (1, 6, T, 64) bf16 without a gap (4 bf16 ulps, with a control that
+   drops the last 64 keys), timed in turns with SDPA's forward at each T
+   beside its bound; ms/img of single-scale and aug-test evaluation (host
+   clock over the images), and one profiled image of each: device busy
+   share, ``cudaStreamSynchronize`` calls and the NMS fixpoint's host reads
+   (``nms.fixpoint_read`` ranges).
 
 A failing phase raises and the script exits non-zero. The line before
 the last is the kernel table as JSON; the last line is
@@ -814,6 +833,271 @@ def phase_infer_times(model, eval_step, img, wh):
     return ms_img
 
 
+# the eval path: VOC-size synthetic images (h, w), one landscape, one portrait
+EVAL_SIZES = ((375, 500), (500, 375))
+AUG_FLASH_PER_IMAGE = 6 * 2 * 3 * 12  # 6 scales x flip x 3 stages x 12 blocks
+
+
+def voc_eval_tree(root: str) -> None:
+    """A VOC2012-layout tree: ``EVAL_SIZES`` JPEG images with 2-3 blob
+    instances each, ``SegmentationObject`` and ``SegmentationClass``
+    palette PNGs (instance boundaries 255), ``ImageSets/Segmentation/val.txt``."""
+    import numpy as np
+    from PIL import Image
+
+    rs = np.random.RandomState(0)
+    for sub in ("JPEGImages", "SegmentationObject", "SegmentationClass", "ImageSets/Segmentation"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    palette = [v for i in range(256) for v in (i, (i * 37) % 256, (i * 91) % 256)]
+    ids = []
+    for i, (h, w) in enumerate(EVAL_SIZES):
+        yy, xx = np.mgrid[:h, :w]
+        img = rs.rand(h, w, 3) * 60 + 40
+        obj = np.zeros((h, w), np.uint8)
+        cls = np.zeros((h, w), np.uint8)
+        n = 2 + i % 2
+        for j in range(n):
+            d = (((xx - w * (j + 0.5) / n) / (w / (2.5 * n))) ** 2
+                 + ((yy - h * rs.uniform(0.35, 0.65)) / (h * rs.uniform(0.15, 0.3))) ** 2)
+            m = d < 1.0
+            img[m] += 120.0 * np.eye(3)[j % 3]
+            obj[m], cls[m] = j + 1, 1 + (3 * i + 7 * j) % 20
+            ring = (d >= 1.0) & (d < 1.1)
+            obj[ring & (obj == 0)], cls[ring & (cls == 0)] = 255, 255
+        name = f"2012_{i:06d}"
+        Image.fromarray(img.clip(0, 255).astype(np.uint8)).save(
+            os.path.join(root, "JPEGImages", name + ".jpg"))
+        for sub, a in (("SegmentationObject", obj), ("SegmentationClass", cls)):
+            png = Image.fromarray(a, mode="P")
+            png.putpalette(palette)
+            png.save(os.path.join(root, sub, name + ".png"))
+        ids.append(name)
+    with open(os.path.join(root, "ImageSets", "Segmentation", "val.txt"), "w") as f:
+        f.write("\n".join(ids) + "\n")
+
+
+def run_cli(argv, seen_t: set):
+    """``attentionshift_torch.tools.test.main(argv)`` in this process with
+    the launch counts set to 0 just before: (metric dict, launches, its
+    stdout lines). Every token count the backbone's attention met goes
+    into ``seen_t``."""
+    import contextlib
+    import io
+    from unittest import mock
+
+    from attentionshift_torch.models import layers
+    from attentionshift_torch.ops._build import KERNELS, reset_launches
+    from attentionshift_torch.tools import test as cli
+
+    real = layers.attention_no_capture
+
+    def spy(q, k, v, pad_interval=None):
+        seen_t.add((int(q.shape[2]), pad_interval))
+        return real(q, k, v, pad_interval)
+
+    buf = io.StringIO()
+    with mock.patch.object(layers, "attention_no_capture", spy), contextlib.redirect_stdout(buf):
+        reset_launches()
+        res = cli.main(argv)
+        sync()
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    lines = buf.getvalue().strip().splitlines()
+    if json.loads(lines[-1]) != res:
+        raise AssertionError(f"the CLI's last stdout line {lines[-1]!r} is not its result {res}")
+    return res, launches, lines
+
+
+def phase_eval_path():
+    """The evaluation entry point (``tools.test``'s twin) at the full ViT-S
+    width of ``configs/attnshift_voc12aug.py`` on a synthetic VOC tree of
+    two VOC-size images, from a ``save_params`` export of the seeded model:
+    single-scale and aug-test (6 scales x flip), as configured and once more
+    each with a lowered score floor. Metric keys, finite values, launches
+    (12 / 432 ``flash_fwd`` per image, nothing else), detections at the
+    lowered floor; returns what the timing phase needs."""
+    import atexit
+    import math
+    import pickle
+    import shutil
+    import tempfile
+
+    from attentionshift_torch import native
+    from attentionshift_torch.models import AttnShiftDetector
+    from attentionshift_torch.train import save_params
+
+    if not native.native_available():
+        raise AssertionError("the port's maskapi library did not build or load on this machine")
+    log("[eval] native maskapi: built and loaded (native_available() is True)")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    atexit.register(shutil.rmtree, tmp, True)
+    root = os.path.join(tmp, "VOC2012")
+    voc_eval_tree(root)
+    cfg = os.path.join(HERE, "configs", "attnshift_voc12aug.py")
+    ckpt = save_params(os.path.join(tmp, "epoch_0"),
+                       AttnShiftDetector.from_config(cfg, device="cpu").init_weights(seed=0)
+                       .state_dict())
+    base = [cfg, ckpt, "--cfg-options", f"data.val.split_file={root}/ImageSets/Segmentation/val.txt",
+            f"data.val.voc_root={root}"]
+    n = len(EVAL_SIZES)
+    keys = ["mAP@0.25", "mAP@0.5", "mAP@0.75"]
+    seen_t: set = set()
+    launches = {}
+    for mode, extra, per_image in (("single", [], 12), ("aug", ["--aug-test"], AUG_FLASH_PER_IMAGE)):
+        for thr in (None, INFER_SCORE_THR):
+            dump = os.path.join(tmp, f"{mode}-{thr}.pkl")
+            opts = [] if thr is None else [f"model.test_score_thr={thr}"]
+            res, got, lines = run_cli(base + opts + extra + ["--dump-preds", dump], seen_t)
+            floor = "the config's 0.05" if thr is None else thr
+            log(f"[eval] {mode}, score floor {floor}: {res}; CLI lines {lines[:1] + lines[-1:]}")
+            if sorted(res) != keys or not all(math.isfinite(v) for v in res.values()):
+                raise AssertionError(f"eval metrics {res}")
+            want = expected_launches(attention_plain=per_image * n)
+            if got != want:
+                raise AssertionError(f"eval {mode} launches {got} != {want}")
+            with open(dump, "rb") as f:
+                preds = pickle.load(f)["preds"]
+            dets = [len(x) for x in preds["labels"]]
+            pixels = [int(m.sum()) for m in preds["masks"]]
+            # mask pixels are reported, not asserted: the seeded random mask head's
+            # probabilities sit around 0.4-0.6, and the mean over 12 augmentations
+            # may stay under the 0.5 threshold everywhere
+            log(f"[eval] {mode}, floor {floor}: detections per image {dets}, pasted mask "
+                f"pixels over 0.5 {pixels} (reported, not asserted)")
+            if [tuple(m.shape[1:]) for m in preds["masks"]] != list(EVAL_SIZES):
+                raise AssertionError(f"eval {mode}: masks not pasted at the original sizes")
+            if thr is not None and min(dets) == 0:
+                raise AssertionError(f"eval {mode} at floor {thr}: an image kept no detection")
+            if thr is None:
+                launches[mode] = got
+    log(f"[eval] launches per image: single {launches['single']['attention_plain'] // n} "
+        f"flash_fwd, aug-test {launches['aug']['attention_plain'] // n} flash_fwd, 0 attn_mean, "
+        f"no other kernel")
+    ts = sorted(t for t, gap in seen_t)
+    if any(gap is not None for _, gap in seen_t):
+        raise AssertionError(f"the eval path met a pad gap: {sorted(seen_t)}")
+    log(f"[eval] token counts T the backbone met (no gap): {ts}")
+    return dict(base=base, ts=ts, launches=launches)
+
+
+def phase_eval_kernel(results: dict, ts) -> None:
+    """``flash_fwd`` against its plain version at each T the eval path met,
+    (1, 6, T, 64) bf16 without a gap, with a control; then timed in turns
+    with SDPA's forward at each T (medians of 6) beside its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from attentionshift_torch.ops import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for t in ts:
+        q, k, v = (torch.randn((1, HEADS, t, HEAD_DIM), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        ref = attention.attention_reference(q, k, v, None)[0]
+        out = attention.attention_no_capture(q, k, v)
+        sync()
+        tol = bf16_ulps(ref, 4)
+        expect(f"attention_plain.eval_T{t}.out", max_err(out, ref), tol,
+               "4 bf16 ulps of the largest |out|, no gap, ragged last tile")
+        # control: a plain version that drops the last 64 keys must fail the limit
+        ctl = max_err(out, attention.attention_reference(q, k, v, (t - 64, t))[0])
+        log(f"[check] attention_plain.eval_T{t} control (plain version without the last 64 keys): "
+            f"max_abs_err {ctl:.3e} must exceed {tol:.1e}: {'ok' if ctl > tol else 'FAIL'}")
+        if not ctl > tol:
+            raise AssertionError(f"flash_fwd check at T = {t} cannot see a lost ragged tile")
+        (ms, sdpa), (reads, sdpa_reads) = in_turns(
+            lambda: attention.attention_no_capture(q, k, v),
+            lambda: F.scaled_dot_product_attention(q, k, v))
+        flops = 4.0 * t * t * HEAD_DIM * HEADS
+        bound = max(4 * q.numel() * 2 / PEAK_BYTES, flops / PEAK_BF16) * 1e3
+        rows.append(dict(t=t, ms=ms, sdpa_ms=sdpa, bound_ms=bound))
+        log(f"[time] flash_fwd at T = {t} (eval path, no gap): {ms:.4f} ms = "
+            f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s = {ms / sdpa:.2f}x SDPA's forward "
+            f"({sdpa:.4f} ms), bound {bound:.4f} ms (operations); readings in turns: kernel "
+            f"{[round(x, 4) for x in reads]}, SDPA {[round(x, 4) for x in sdpa_reads]}")
+        del q, k, v, ref, out
+    results["attention_plain"]["eval_path_T"] = rows
+
+
+def phase_eval_times(ev: dict) -> None:
+    """ms/img of single-scale and aug-test evaluation as configured (host
+    clock over the images, the CLI's own model, dataset and tester), then
+    one profiled image each: device busy share, blocking host reads
+    (``cudaStreamSynchronize``) and the NMS fixpoint's host reads."""
+    import torch
+
+    from attentionshift_torch.eval.runner import evaluate
+    from attentionshift_torch.tools import test as cli
+
+    n = len(EVAL_SIZES)
+    for mode, extra in (("single", []), ("aug", ["--aug-test"])):
+        cfg, model, dataset, aug = cli.build(cli.parse_args(ev["base"] + extra))
+
+        def run(limit=None, model=model, dataset=dataset, aug=aug, cfg=cfg):
+            evaluate(model, dataset, test_scale=tuple(cfg.data.test_scale), limit=limit,
+                     aug_tester=aug, num_classes=int(cfg.model.num_classes), verbose=False)
+
+        run(1)
+        sync()
+        t0 = time.perf_counter()
+        run()
+        sync()
+        ms_img = (time.perf_counter() - t0) / n * 1e3
+        what = "aug-test (6 scales x flip)" if aug else "single-scale (600, 1000)"
+        log(f"[time] evaluate, {what}, 2 VOC-size images (500x375, 375x500), bf16, ViT-S, score "
+            f"floor {model.test_score_thr} (the config's): {ms_img:.2f} ms/img (host clock over "
+            f"the images, dataset reads, pasting and the metric included)")
+        avgs, busy = profile_slice(lambda: run(1), ms_img, what=f"{mode} eval image")
+        host = torch.autograd.DeviceType.CPU
+        count = lambda key: sum(e.count for e in avgs if e.key == key and e.device_type == host)  # noqa: E731
+        log(f"[eval] one profiled {mode} image: {count('cudaStreamSynchronize')} "
+            f"cudaStreamSynchronize, {count('nms.fixpoint_read')} NMS fixpoint host reads, "
+            f"{count('cudaLaunchKernel') + count('cuLaunchKernelEx')} kernel launches, busy "
+            f"{'not measured' if busy is None else f'{busy:.1%}'}")
+        eval_breakdown(model, dataset, aug, cfg)
+
+
+def eval_breakdown(model, dataset, aug, cfg) -> None:
+    """Host-clock parts of one image's evaluation: reading the image,
+    inference (single-scale: the test pipeline and ``make_eval_step``;
+    aug-test: the whole ``AugTester`` call), pasting the masks into the
+    original frame (``finalize_detections``) and the image's ground truth."""
+    import numpy as np
+    import torch
+
+    from attentionshift_torch.data.pipeline import TestPipeline
+    from attentionshift_torch.eval import finalize_detections
+    from attentionshift_torch.train import make_eval_step
+
+    parts = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        parts[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    raw = timed("read", lambda: dataset[0])
+    if aug is None:
+        sample = TestPipeline(scale=tuple(cfg.data.test_scale))(raw)
+        dev = model.device
+        out = timed("inference", lambda: make_eval_step(model)(
+            torch.from_numpy(sample["img"])[None].to(dev),
+            torch.from_numpy(sample["img_wh"])[None].to(dev)))
+        args = [t[0].cpu().numpy() for t in out.dets] + [out.mask_probs[0].cpu().numpy(),
+                                                          sample["scale_wh"], sample["orig_wh"]]
+    else:
+        a = timed("inference", lambda: aug(raw["img"]))
+        args = [a[k] for k in ("boxes", "scores", "labels", "valid", "mask_probs")] + [
+            np.asarray([1.0, 1.0]), np.asarray([raw["img"].shape[1], raw["img"].shape[0]])]
+    res = timed("paste", lambda: finalize_detections(*args))
+    timed("ground truth", lambda: dataset.gt_instances(0))
+    log(f"[time] one {'aug-test' if aug else 'single-scale'} image's parts (host clock, ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
+        + f" ({len(res['labels'])} detections pasted at {raw['img'].shape[1]}x{raw['img'].shape[0]})")
+
+
 def phase_tool(dev):
     """The attention microbenchmark at its defaults, every variant."""
     from attentionshift_torch.ops._build import KERNELS, reset_launches
@@ -1067,10 +1351,15 @@ def phase_main_path_inputs(results: dict, handed: dict) -> None:
         f"{ccl_bound:.4f} ms), {ccl_syn:.4f} ms on phase 3's (medians of 6 in turns)")
 
 
-def profile_slice(run, ms_img: float, top: int = 12, what: str = "call") -> None:
+# torch.profiler ranges the port opens (record_function): host reads of the NMS fixpoint
+PROFILER_RANGES = ("nms.fixpoint_read",)
+
+
+def profile_slice(run, ms_img: float, top: int = 12, what: str = "call"):
     """Where one call's time goes: device time by kernel (torch.profiler;
     the ``top`` kernels and every hand-written one) and the device's busy
-    share of the call's wall time."""
+    share of the call's wall time. Returns the profile's ``key_averages()``
+    and the busy share (None when the profiler saw no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1079,11 +1368,14 @@ def profile_slice(run, ms_img: float, top: int = 12, what: str = "call") -> None
         run()
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # device events, without the device-side copies of the program's own
+    # profiler ranges (their time is their kernels')
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in PROFILER_RANGES]
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
     if dev_ms <= 0:
         log("[profile] device time: not measured (the profiler recorded no device events)")
-        return
+        return prof.key_averages(), None
     log(f"[profile] one {what}: wall {wall_ms:.2f} ms (unprofiled {ms_img:.2f}), device busy "
         f"{dev_ms:.2f} ms = {dev_ms / wall_ms:.1%} of wall, {len(events)} kernel names")
     ranked = sorted(events, key=lambda e: -e.self_device_time_total)
@@ -1095,6 +1387,7 @@ def profile_slice(run, ms_img: float, top: int = 12, what: str = "call") -> None
     host = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU]
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:top]:
         log(f"[profile]   host   {e.self_cpu_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    return prof.key_averages(), dev_ms / wall_ms
 
 
 def phase_ablation(sources) -> None:
@@ -1203,10 +1496,14 @@ def main(argv=None) -> int:
     eval_step, infer_img, infer_wh, infer_launches = phase_infer_path(dev, model, slice_inp)
     state, step_fn, batch, train_gen, train_launches = phase_train_path(dev, model, slice_inp)
     tool_launches = phase_tool(dev)
+    ev = phase_eval_path()
     phase_times(results, inp, model, slice_inp, gen)
     phase_main_path_inputs(results, handed)
     phase_train_times(state, step_fn, batch, train_gen)
     phase_infer_times(model, eval_step, infer_img, infer_wh)
+    phase_eval_kernel(results, ev["ts"])
+    phase_eval_times(ev)
+    eval_single, eval_aug = ev["launches"]["single"], ev["launches"]["aug"]
     table = []
     for name, kern in KERNELS.items():
         r = results[name]
@@ -1214,16 +1511,19 @@ def main(argv=None) -> int:
         table.append(dict(name=name, route="cuda", source=f"attentionshift_torch/csrc/{kern.source}.cu",
                           replaces=kern.replaces,
                           launches=(seed_launches[name] + infer_launches[name]
-                                    + train_launches[name] + tool_launches[name]),
+                                    + train_launches[name] + tool_launches[name]
+                                    + eval_single[name] + eval_aug[name]),
                           launches_seed_pseudo_gt=seed_launches[name],
                           launches_simple_test=infer_launches[name],
                           launches_train_steps=train_launches[name],
                           launches_microbench_tool=tool_launches[name],
+                          launches_eval_single=eval_single[name],
+                          launches_eval_aug_test=eval_aug[name],
                           max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                           bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                           library_ms=r["library_ms"],
-                          **{key: r[key] for key in ("mean_pass_ms", "ms_main_path_input")
-                             if key in r}))
+                          **{key: r[key] for key in ("mean_pass_ms", "ms_main_path_input",
+                                                     "eval_path_T") if key in r}))
     log(smi)
     log(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

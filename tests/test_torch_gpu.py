@@ -152,7 +152,9 @@ def test_meanshift_plan_on_card(cuda):
 # (B, H, T, gap): one tile; one row past two tiles; a ragged T with and
 # without a gap; a gap across the tile boundary at 128; an odd T (the
 # mean's unpaired last column, as at the microbenchmark's 4301); the bench
-# shape; ViT-B's 12 heads with the bench gap; the mean pass's 16-head limit
+# shape; ViT-B's 12 heads with the bench gap; the mean pass's 16-head limit;
+# the evaluation path's token counts without a gap (VOC config, no padding):
+# the aug-test scales of a 500x375 image and the single-scale test bucket
 ATTENTION_CASES = [
     (1, 3, 64, None),
     (1, 3, 129, None),
@@ -163,6 +165,11 @@ ATTENTION_CASES = [
     (1, 6, 4352, (4201, 4252)),
     (1, 12, 4352, (4201, 4252)),
     (1, 16, 301, None),
+    (1, 6, 985, None),
+    (1, 6, 2001, None),
+    (1, 6, 2533, None),
+    (1, 6, 3173, None),
+    (1, 6, 3501, None),
 ]
 
 
@@ -390,3 +397,65 @@ def test_simple_test_on_card(cuda):
     sg, _ = gpu.roi_test(img.to(cuda), rois.to(cuda), wh.to(cuda))
     sc, _ = cpu.roi_test(img, rois, wh)
     torch.testing.assert_close(sg.cpu(), sc, atol=2e-2, rtol=0)
+
+
+@pytest.mark.gpu
+def test_aug_tester_on_card(cuda):
+    """Multi-scale + flip testing on the card. (1) The tester's own device
+    work (the merge of every augmentation's proposals, the flips, scale
+    arithmetic, averages, both NMS) against the CPU path, on the same
+    per-stage outputs (the CPU f32 model's, handed to the card): the
+    tolerances of the CPU parity test (``tests/test_torch_eval.py``),
+    validity and labels exactly, boxes 1e-3 px + 1e-5 of the coordinate,
+    scores and mask probabilities 1e-4. (2) A narrow bf16 model on the
+    card: one ``flash_fwd`` launch per block, stage and augmentation and no
+    other kernel, well-formed detections inside the original frame."""
+    from types import SimpleNamespace
+
+    from attentionshift_torch.eval import AugTester
+    from attentionshift_torch.models import AttnShiftDetector
+    from attentionshift_torch.ops._build import KERNELS, reset_launches
+
+    kw = dict(num_classes=20, embed_dim=128, depth=4, num_heads=2, point_tokens=16, cam_layer=3,
+              out_indices=(0, 1, 2, 3), num_proposals=48, test_score_thr=0.02)
+    scales = [(96, 160), (64, 128)]
+    cpu = AttnShiftDetector(device="cpu", **kw).init_weights(seed=0)
+    rs = np.random.RandomState(0)
+    img = (rs.rand(120, 160, 3) * 80 + 60).astype(np.uint8)
+    img[30:60, 32:80] = (220, 40, 40)
+
+    def on(dev, fn):
+        """Run a CPU stage on inputs from the card and hand its outputs back."""
+        def run(*args):
+            out = fn(*(a.cpu() for a in args))
+            if not isinstance(out, tuple):
+                return out.to(dev)
+            moved = [t.to(dev) for t in out]
+            return type(out)(*moved) if hasattr(out, "_fields") else tuple(moved)
+        return run
+
+    proxy = SimpleNamespace(device=cuda, num_proposals=cpu.num_proposals,
+                            test_score_thr=cpu.test_score_thr, test_iou_thr=cpu.test_iou_thr,
+                            rpn_test=on(cuda, cpu.rpn_test), roi_test=on(cuda, cpu.roi_test),
+                            mask_test=on(cuda, cpu.mask_test))
+    want = AugTester(cpu, scales)(img, max_dets=8)
+    got = AugTester(proxy, scales)(img, max_dets=8)
+    np.testing.assert_array_equal(got["valid"], want["valid"])
+    np.testing.assert_array_equal(got["labels"], want["labels"])
+    assert want["valid"].sum() >= 3
+    np.testing.assert_allclose(got["boxes"], want["boxes"], atol=1e-3, rtol=1e-5)
+    np.testing.assert_allclose(got["scores"], want["scores"], atol=1e-4, rtol=0)
+    v = want["valid"]
+    np.testing.assert_allclose(got["mask_probs"][v], want["mask_probs"][v], atol=1e-4, rtol=0)
+
+    gpu = AttnShiftDetector(device=cuda, dtype=torch.bfloat16, **kw).init_weights(seed=0)
+    reset_launches()
+    out = AugTester(gpu, scales)(img, max_dets=8)
+    torch.cuda.synchronize()
+    assert KERNELS["attention_plain"].launches == len(scales) * 2 * 3 * kw["depth"]
+    assert sum(k.launches for k in KERNELS.values()) == KERNELS["attention_plain"].launches
+    assert out["boxes"].shape == (8, 4) and out["mask_probs"].shape == (8, 28, 28)
+    b = out["boxes"][out["valid"]]
+    assert np.isfinite(out["boxes"]).all() and (b >= 0).all()
+    assert (b[:, 0::2] <= 160).all() and (b[:, 1::2] <= 120).all()
+    assert ((out["mask_probs"] >= 0) & (out["mask_probs"] <= 1)).all()

@@ -490,3 +490,178 @@ def test_build_digest_covers_define_overrides():
     assert three == _build._target("attention", ("FWD_STAGES=3",))[1]
     assert len({plain, three, _build._target("attention", ("FWD_STAGES=5",))[1]}) == 3
     assert all(os.path.dirname(p) == _build.BUILD_DIR for p in (plain, three))
+
+
+# ------------------------------------------------------------- evaluation
+
+# TINY with test-time sizes; the lowered score floor puts detections past the
+# seeded random heads
+EVAL_KW = dict(TINY, max_gt=4, num_proposals=48, rpn_nms_pre=200, rcnn_samples=32,
+               mask_sample_cap=16, test_max_per_img=20, test_score_thr=0.02)
+AUG_SCALES = [(96, 160), (64, 128)]  # two scales (x flip) of the 6 x 2 protocol, cut for the CPU
+# boxes: 1e-3 px plus 1e-5 of the coordinate, as for simple_test
+# (test_torch_infer.py: f32 backbone noise times anchor size)
+BOX_TOL = dict(atol=1e-3, rtol=1e-5)
+# scores and mask probabilities: 1e-4, as for simple_test's; each is a mean
+# of the per-augmentation values that simple_test's tests hold to 1e-4
+PROB_TOL = 1e-4
+
+
+def eval_models():
+    """Both packages' detectors on the same TINY weights (scale 0.05) and
+    a JAX ``AugTester`` of ``AUG_SCALES`` with flip, for a module-scoped
+    fixture, so that each input shape compiles once."""
+    from attentionshift_tpu.eval.aug_test import AugTester as JAugTester
+
+    jmodel = jax_model(**EVAL_KW)
+    variables = random_variables(jmodel, inputs(64, 96, 4, 3))
+    port = torch_model(variables, **EVAL_KW)
+    return dict(jmodel=jmodel, variables=variables, port=port,
+                jaug=JAugTester(jmodel, variables, scales=AUG_SCALES, flip=True))
+
+
+# ------------------------------------------------------- synthetic datasets
+
+# image sizes (h, w) of the synthetic trees: one landscape, one portrait
+TREE_SIZES = ((120, 160), (160, 120))
+
+
+def _palette():
+    pal = []
+    for i in range(256):
+        pal += [i, (i * 37) % 256, (i * 91) % 256]
+    return pal
+
+
+def _blobs(rs, h: int, w: int, n: int):
+    """``n`` disjoint elliptic instance masks (n, h, w) bool with a
+    one-pixel ring around each (VOC draws instance boundaries as 255)."""
+    yy, xx = np.mgrid[:h, :w]
+    masks, rings = [], []
+    for j in range(n):
+        cx = w * (j + 0.5) / n + rs.uniform(-3, 3)
+        cy = h * rs.uniform(0.35, 0.65)
+        ax, ay = w / (2.5 * n), h * rs.uniform(0.15, 0.3)
+        d = ((xx - cx) / ax) ** 2 + ((yy - cy) / ay) ** 2
+        masks.append(d < 1.0)
+        rings.append((d >= 1.0) & (d < 1.25))
+    return np.stack(masks), np.stack(rings)
+
+
+def voc_tree(root, sizes=TREE_SIZES, seed: int = 0) -> dict:
+    """A VOC2012-layout tree under ``root`` (a ``pathlib.Path``): JPEG
+    images with 2-3 blob instances each, ``SegmentationObject`` and
+    ``SegmentationClass`` palette PNGs (instance boundaries 255),
+    ``ImageSets/Segmentation/val.txt`` and a point-annotation json for
+    ``VOCPointDataset``. Returns the paths the datasets take."""
+    import json
+
+    from PIL import Image
+
+    rs = np.random.RandomState(seed)
+    for sub in ("JPEGImages", "SegmentationObject", "SegmentationClass", "ImageSets/Segmentation",
+                "Annotations_coco"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    images, annotations, ids = [], [], []
+    for i, (h, w) in enumerate(sizes):
+        name = f"2012_{i:06d}"
+        masks, rings = _blobs(rs, h, w, 2 + i % 2)
+        img = (rs.rand(h, w, 3) * 60 + 40).astype(np.float32)
+        obj = np.zeros((h, w), np.uint8)
+        cls = np.zeros((h, w), np.uint8)
+        for j, (m, ring) in enumerate(zip(masks, rings)):
+            c = 1 + (3 * i + 7 * j) % 20
+            img[m] += 120.0 * np.eye(3)[j % 3]
+            obj[m], cls[m] = j + 1, c
+            obj[ring & (obj == 0)], cls[ring & (cls == 0)] = 255, 255
+            ys, xs = np.nonzero(m)
+            annotations.append(dict(id=len(annotations), image_id=i, category_id=c,
+                                    point=[float(xs.mean()), float(ys.mean())]))
+        Image.fromarray(img.clip(0, 255).astype(np.uint8)).save(root / "JPEGImages" / f"{name}.jpg")
+        for sub, a in (("SegmentationObject", obj), ("SegmentationClass", cls)):
+            png = Image.fromarray(a, mode="P")
+            png.putpalette(_palette())
+            png.save(root / sub / f"{name}.png")
+        images.append(dict(id=i, file_name=f"{name}.jpg", width=w, height=h))
+        ids.append(name)
+    from attentionshift_tpu.data.voc import VOC_CLASSES
+
+    cats = [dict(id=k + 1, name=n) for k, n in enumerate(VOC_CLASSES)]
+    ann_file = root / "Annotations_coco" / "train.json"
+    ann_file.write_text(json.dumps(dict(images=images, annotations=annotations, categories=cats)))
+    split = root / "ImageSets" / "Segmentation" / "val.txt"
+    split.write_text("\n".join(ids) + "\n")
+    return dict(ann_file=str(ann_file), img_prefix=str(root / "JPEGImages"),
+                split_file=str(split), voc_root=str(root))
+
+
+def coco_tree(root, sizes=TREE_SIZES, seed: int = 1) -> dict:
+    """A COCO-layout tree under ``root``: images, and one json whose
+    instances carry a point and a segmentation in each of COCO's three
+    forms (polygon list, RLE string, uncompressed RLE counts), one of them
+    a crowd region, over non-contiguous category ids."""
+    import json
+
+    from PIL import Image
+
+    from attentionshift_tpu import native as jnative
+
+    rs = np.random.RandomState(seed)
+    (root / "images").mkdir(parents=True, exist_ok=True)
+    cat_ids = [3, 8, 11, 17, 40]
+    images, annotations = [], []
+    for i, (h, w) in enumerate(sizes):
+        masks, _ = _blobs(rs, h, w, 3)
+        img = (rs.rand(h, w, 3) * 60 + 40).astype(np.float32)
+        for j, m in enumerate(masks):
+            img[m] += 120.0 * np.eye(3)[j % 3]
+            ys, xs = np.nonzero(m)
+            ann = dict(id=len(annotations), image_id=10 + i, category_id=cat_ids[(i + 2 * j) % 5],
+                       point=[float(xs.mean()), float(ys.mean())], iscrowd=int(j == 2 and i == 1))
+            if j == 0:  # polygon: the mask's bounding octagon
+                x0, y0, x1, y1 = xs.min(), ys.min(), xs.max(), ys.max()
+                dx, dy = (x1 - x0) / 4, (y1 - y0) / 4
+                ann["segmentation"] = [[float(v) for v in (
+                    x0 + dx, y0, x1 - dx, y0, x1, y0 + dy, x1, y1 - dy, x1 - dx, y1, x0 + dx, y1,
+                    x0, y1 - dy, x0, y0 + dy)]]
+            elif j == 1:  # compressed RLE string
+                rle = jnative.rle_encode(m)
+                ann["segmentation"] = dict(size=[h, w],
+                                           counts=jnative.rle_to_string(rle).decode())
+            else:  # uncompressed RLE counts
+                rle = jnative.rle_encode(m)
+                ann["segmentation"] = dict(size=[h, w], counts=[int(c) for c in rle["counts"]])
+            annotations.append(ann)
+        name = f"{i:012d}.jpg"
+        Image.fromarray(img.clip(0, 255).astype(np.uint8)).save(root / "images" / name)
+        images.append(dict(id=10 + i, file_name=name, width=w, height=h))
+    cats = [dict(id=c, name=f"cat{c}") for c in cat_ids]
+    ann_file = root / "instances.json"
+    ann_file.write_text(json.dumps(dict(images=images, annotations=annotations, categories=cats)))
+    return dict(ann_file=str(ann_file), img_prefix=str(root / "images"))
+
+
+def sbd_tree(root, seed: int = 2) -> dict:
+    """An SBD-layout tree under ``root``: ``img/``, ``cls/`` and ``inst/``
+    .mat files of two images and a split file."""
+    import scipy.io
+    from PIL import Image
+
+    rs = np.random.RandomState(seed)
+    for sub in ("img", "cls", "inst"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    names = []
+    for i, (h, w) in enumerate(TREE_SIZES):
+        masks, _ = _blobs(rs, h, w, 2 + i)
+        cls_img = np.zeros((h, w), np.uint8)
+        inst_img = np.zeros((h, w), np.uint8)
+        for j, m in enumerate(masks):
+            cls_img[m], inst_img[m] = 1 + (5 * i + 3 * j) % 20, j + 1
+        name = f"sbd_{i}"
+        scipy.io.savemat(root / "cls" / f"{name}.mat", {"GTcls": {"Segmentation": cls_img}})
+        scipy.io.savemat(root / "inst" / f"{name}.mat", {"GTinst": {"Segmentation": inst_img}})
+        Image.fromarray((rs.rand(h, w, 3) * 255).astype(np.uint8)).save(root / "img" / f"{name}.jpg")
+        names.append(name)
+    split = root / "train.txt"
+    split.write_text("\n".join(names) + "\n")
+    return dict(split_file=str(split), sbd_root=str(root))
