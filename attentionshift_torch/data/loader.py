@@ -4,9 +4,9 @@ Replaces mmdet's ``build_dataloader`` (worker processes + GroupSampler,
 SURVEY.md L2): a deterministic per-epoch shuffle, aspect-ratio bucket
 grouping (so every batch has ONE static padded shape -> one jit
 executable per bucket), worker threads decoding/augmenting ahead of the
-accelerator, and per-host sharding for multi-host data parallelism
-(``jax.process_index``-strided, the TPU replacement for
-DistributedGroupSampler).
+accelerator, and per-rank sharding for data parallelism (strided by
+``process_index`` of ``process_count``, the DistributedGroupSampler's
+job). A consumer that leaves an epoch early stops its worker threads.
 """
 
 from __future__ import annotations
@@ -83,10 +83,12 @@ class TrainLoader:
         for _ in range(self.num_threads):
             work.put(None)
 
+        stop = threading.Event()
+
         def worker(tid: int):
             while True:
                 i = work.get()
-                if i is None:
+                if i is None or stop.is_set():
                     done.put(None)
                     return
                 rng = np.random.RandomState((self.seed, epoch, i))
@@ -94,6 +96,7 @@ class TrainLoader:
                     out = self.pipeline(self.dataset[i], rng)
                 except Exception as e:  # surface loader errors, don't hang
                     done.put(("error", e))
+                    done.put(None)
                     return
                 done.put((i, out))
 
@@ -108,19 +111,28 @@ class TrainLoader:
         finished = 0
         received = 0
         total = len(indices)
-        while received < total and finished < self.num_threads:
-            item = done.get()
-            if item is None:
-                finished += 1
-                continue
-            if item[0] == "error":
-                raise item[1]
-            _, sample = item
-            received += 1
-            b = sample["bucket"]
-            buckets.setdefault(b, []).append(sample)
-            if len(buckets[b]) == self.batch_size:
-                yield _stack(buckets.pop(b))
+        try:
+            while received < total and finished < self.num_threads:
+                item = done.get()
+                if item is None:
+                    finished += 1
+                    continue
+                if item[0] == "error":
+                    raise item[1]
+                _, sample = item
+                received += 1
+                b = sample["bucket"]
+                buckets.setdefault(b, []).append(sample)
+                if len(buckets[b]) == self.batch_size:
+                    yield _stack(buckets.pop(b))
+        finally:
+            # a consumer that leaves the epoch early (a step limit) stops the
+            # workers: they take no new index, and the queue is drained until
+            # each has put its last item
+            stop.set()
+            while finished < self.num_threads:
+                if done.get() is None:
+                    finished += 1
         if not self.drop_last:
             for group in buckets.values():
                 if group:

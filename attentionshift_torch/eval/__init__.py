@@ -3,7 +3,9 @@ multi-scale + flip testing and the dataset runner.
 
 The numpy modules (``masks.py``, ``mean_ap_segm.py``, ``coco_eval.py``)
 are the port's own copies of the JAX package's; ``aug_test.py`` and
-``runner.py`` drive the port's detector on its device.
+``runner.py`` drive the port's detector on its device, ``runner.py``
+over the ranks of a process group too (each evaluates its stride of the
+dataset; rank 0 merges through a shared directory).
 """
 
 from .aug_test import AugTester

@@ -39,9 +39,9 @@ def collect_results_fs(
 
     The reference's ``collect_results_cpu`` (`mmdet/apis/test.py:117-158`):
     every rank pickles its shard to a shared tmpdir, rank 0 polls for all
-    parts and merges. Same protocol here over the shared FS every TPU
-    pod host mounts. Returns the merged part list on process 0, None on
-    other processes.
+    parts and merges. Same protocol here, over a directory every rank
+    can write. Returns the merged part list on process 0, None on other
+    processes.
 
     Staleness guard (the reference gets this from a fresh per-run
     tempdir, which needs a broadcast we deliberately avoid): rank 0 only
@@ -102,7 +102,7 @@ def evaluate(
 ) -> dict | None:
     """Single-scale (or aug-test) inference + dataset-appropriate metric.
 
-    With ``process_count > 1`` (multi-host pods) each process runs the
+    With ``process_count > 1`` (the ranks of a process group) each runs the
     ``process_index``-strided shard of the dataset (the
     ``multi_gpu_test`` sharding, `mmdet/apis/test.py:69-116`) and
     predictions are merged through ``gather_dir``; only process 0

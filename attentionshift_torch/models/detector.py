@@ -49,6 +49,7 @@ from ..ops.image import resize
 from ..ops.roi_align import roi_align
 from ..ops.sampling import point_sample
 from ..ops.topk import top_k_stable
+from ..parallel.mesh import global_count
 from ..pseudo.engine import candidate_boxes, masks_and_centers
 from ..pseudo.rollout import attention_rollout_point_rows
 from .fpn import FPN
@@ -375,7 +376,7 @@ class AttnShiftDetector(nn.Module):
         matched = assigned > 0  # (B, P)
         gt_idx = (assigned - 1).clamp(0, g - 1).long()
         labels = torch.where(matched, torch.gather(gt_labels.long(), 1, gt_idx), self.num_classes)
-        num_pos = matched.sum().float().clamp_min(1.0)
+        num_pos = global_count(matched.sum().float())
         loss_cls = sigmoid_focal_loss(point_cls.reshape(-1, c), labels.reshape(-1),
                                       avg_factor=num_pos)
         tgt_xy = torch.gather(gt_points.float(), 1, gt_idx[..., None].expand(b, p, 2)) \

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from ..core.boxes import delta2bbox
 from ..core.losses import giou_loss, softmax_cross_entropy
 from ..ops.image import resize
+from ..parallel.mesh import global_count
 from .layers import Block, Dense, LayerNorm, get_2d_sincos_pos_embed
 
 __all__ = ["MILHead", "BoxHeadRec", "MaskHeadPointSup", "mask_point_loss"]
@@ -112,7 +113,7 @@ class MILHead(nn.Module):
         onehot = F.one_hot(gt_labels.long(), c).float()
         loss = -(onehot * torch.log(bag_sum) + (1.0 - onehot) * torch.log(1.0 - bag_sum))
         loss = torch.where(valid.bool()[:, None], loss, 0.0)
-        denom = (valid.float().sum() * c).clamp_min(1.0)
+        denom = global_count(valid.float().sum() * c)
         return best, self.loss_mil_factor * loss.sum() / denom
 
 
@@ -143,7 +144,7 @@ class BoxHeadRec(_RoIDecoder):
         ``label_weights == 0``."""
         cls_score, bbox_pred = cls_score.float(), bbox_pred.float()
         labels = labels.long()
-        avg = (label_weights > 0).sum().float().clamp_min(1.0)
+        avg = global_count((label_weights > 0).sum().float())
         losses = {"loss_cls": softmax_cross_entropy(cls_score, labels, weight=label_weights,
                                                     avg_factor=avg) * loss_enable}
         correct = (cls_score.argmax(dim=-1) == labels) & (label_weights > 0)
@@ -152,6 +153,8 @@ class BoxHeadRec(_RoIDecoder):
         sel = labels.clamp(0, self.num_classes - 1)[:, None, None].expand(-1, 1, 4)
         sel_pred = torch.gather(bbox_pred.reshape(bbox_pred.shape[0], -1, 4), 1, sel)[:, 0]
         decoded = delta2bbox(rois, sel_pred, stds=target_stds)
+        # the row count is the same on every rank, so it needs no reduction:
+        # B*S here is the global count's share per rank
         lb = giou_loss(decoded, bbox_targets, weight=pos.float(), avg_factor=float(labels.shape[0]))
         losses["loss_bbox"] = bbox_loss_weight * lb * loss_enable
         return losses
@@ -188,5 +191,5 @@ def mask_point_loss(point_preds, point_targets, labels, pos_valid, loss_enable=1
     tgt = torch.where(ignore, 0.0, point_targets.float())
     bce = logits.clamp_min(0) - logits * tgt + torch.log1p(torch.exp(-logits.abs()))
     bce = torch.where(~ignore & pos_valid.bool()[:, None], bce, 0.0)
-    denom = (pos_valid.sum() * point_targets.shape[1]).float().clamp_min(1.0)
+    denom = global_count((pos_valid.sum() * point_targets.shape[1]).float())
     return (bce.sum() / denom) * loss_enable

@@ -86,6 +86,8 @@ def rpn_loss(cls_scores, bbox_preds, anchors, gt_boxes, gt_valid, num_samples: i
         tgt_deltas = bbox2delta(anchors[pos], gts[gt_idx])
         lrs.append(l1_loss(reg_flat[i][pos].float(), tgt_deltas,
                            weight=s.pos_valid.float()[:, None], avg_factor=avg))
+    # normalised per image, then the mean over the images: under data
+    # parallelism the mean over the ranks is the global batch's mean as it is
     return {"loss_rpn_cls": torch.stack(lcs).mean(), "loss_rpn_bbox": torch.stack(lrs).mean()}
 
 

@@ -48,7 +48,26 @@ Phases, each printing its own lines:
    detections on every image at the lowered floor and masks pasted at the
    images' sizes (their pixels over 0.5 reported); the token counts T the
    backbone met;
-9. times with CUDA events: every kernel, its plain version, the library
+9. the training entry point: the twin of ``tools/train.py``
+   (``attentionshift_torch.tools.train.main``) in this process on the
+   config as it is (batch 2, accumulate_steps 2, 11 train scales) over a
+   synthetic VOC point tree of 8 landscape VOC-size images, with a
+   synthetic MAE ViT-S checkpoint: the graft checked tensor by tensor
+   before the first step; invocation 1 runs 4 micro-steps, saves
+   ``epoch_1`` and evaluates 2 val images; invocation 2, under a
+   world-size-1 NCCL process group, auto-resumes from ``epoch_1``, runs 4
+   micro-steps, saves ``epoch_2`` and evaluates. Exactly 7/17/12/12/2/2
+   launches per micro-step and 24 ``flash_fwd`` per evaluation; finite
+   losses with the expected keys and ``train_log.jsonl``; a gradient in
+   every submodule and every submodule moved; ``opt.count`` 2 after 4
+   micro-steps; the group's all-reduces counted; invocation 2's first step
+   run again without a group gives the same losses (bf16 tolerance);
+10. the pseudo-label dump: the twin of ``tools/gen_pseudo_labels.py`` on
+   ``epoch_2`` over the 8 train images at (800, 1333): exactly 7/5/1/1
+   launches per image and no backward kernel, every RLE decoded at its
+   image's size with its area, boxes inside their images, category ids in
+   1..20;
+11. times with CUDA events: every kernel, its plain version, the library
    call where one exists, ms/img of the pseudo-label path and of
    inference and ms per train step, each with one profiled call. The
    attention kernels and their SDPA yardsticks (the forward with the same
@@ -64,7 +83,12 @@ Phases, each printing its own lines:
    beside its bound; ms/img of single-scale and aug-test evaluation (host
    clock over the images), and one profiled image of each: device busy
    share, ``cudaStreamSynchronize`` calls and the NMS fixpoint's host reads
-   (``nms.fixpoint_read`` ranges).
+   (``nms.fixpoint_read`` ranges). For the two CLIs of phases 9-10: ms per
+   micro-step (host clock, median after the first) beside the train-path
+   phase's batch-1 step, ms waiting on the loader, one profiled micro-step
+   (busy share, syncs, host reads of a scalar, launches), peak memory at
+   batch 2, checkpoint save and restore seconds, eval seconds per val
+   image; the dump's ms/img and one profiled image.
 
 A failing phase raises and the script exits non-zero. The line before
 the last is the kernel table as JSON; the last line is
@@ -836,6 +860,7 @@ def phase_infer_times(model, eval_step, img, wh):
 # the eval path: VOC-size synthetic images (h, w), one landscape, one portrait
 EVAL_SIZES = ((375, 500), (500, 375))
 AUG_FLASH_PER_IMAGE = 6 * 2 * 3 * 12  # 6 scales x flip x 3 stages x 12 blocks
+SINGLE_FLASH_PER_IMAGE = 12  # one backbone pass without the capture
 
 
 def voc_eval_tree(root: str) -> None:
@@ -1096,6 +1121,403 @@ def eval_breakdown(model, dataset, aug, cfg) -> None:
     log(f"[time] one {'aug-test' if aug else 'single-scale'} image's parts (host clock, ms): "
         + ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
         + f" ({len(res['labels'])} detections pasted at {raw['img'].shape[1]}x{raw['img'].shape[0]})")
+
+
+# the train CLI's synthetic point tree: landscape VOC-size JPEGs, so that every
+# batch lands in the 800x1344 bucket of the config's 11 train scales
+TRAIN_CLI_IMAGES, TRAIN_CLI_SIZE = 8, (375, 500)
+TRAIN_CLI_STEPS = 4  # micro-steps per invocation: batch 2, accumulate_steps 2
+TRAIN_CLI_VAL = 2  # val images per evaluation
+PSEUDO_SCALE = (800, 1333)  # the dump's --scale, its default
+# per micro-step at the config's batch of 2: the attention kernels carry the
+# batch in one launch; CCL and mean-shift run once per image
+TRAIN_CLI_LAUNCHES = dict(TRAIN_LAUNCHES, ccl_batch=2, meanshift_fixpoint=2)
+SEED_LAUNCHES = {"attention_capture": CAM_LAYERS, "attention_plain": 12 - CAM_LAYERS,
+                 "ccl_batch": 1, "meanshift_fixpoint": 1}
+
+
+def voc_point_tree(root: str) -> dict:
+    """``TRAIN_CLI_IMAGES`` landscape JPEGs with 2-3 blob instances each and a
+    ``center_points``-style COCO json (one point per instance) under
+    ``root``; returns the train node's paths."""
+    import numpy as np
+    from PIL import Image
+
+    from attentionshift_torch.data.voc import VOC_CLASSES
+
+    rs = np.random.RandomState(1)
+    h, w = TRAIN_CLI_SIZE
+    yy, xx = np.mgrid[:h, :w]
+    images, annotations = [], []
+    for i in range(TRAIN_CLI_IMAGES):
+        img = rs.rand(h, w, 3) * 60 + 40
+        n = 2 + i % 2
+        for j in range(n):
+            cx, cy = w * (j + 0.5) / n, h * rs.uniform(0.35, 0.65)
+            m = ((xx - cx) / (w / (2.5 * n))) ** 2 + ((yy - cy) / (h * 0.2)) ** 2 < 1.0
+            img[m] += 120.0 * np.eye(3)[j % 3]
+            annotations.append(dict(id=len(annotations), image_id=i,
+                                    category_id=1 + (3 * i + 7 * j) % 20,
+                                    point=[float(xx[m].mean()), float(yy[m].mean())]))
+        name = f"2012_train_{i:06d}.jpg"
+        Image.fromarray(img.clip(0, 255).astype(np.uint8)).save(
+            os.path.join(root, "JPEGImages", name))
+        images.append(dict(id=i, file_name=name, width=w, height=h))
+    ann = os.path.join(root, "Annotations_coco", "center_points", "gt_center_train2012.json")
+    os.makedirs(os.path.dirname(ann), exist_ok=True)
+    with open(ann, "w") as f:
+        json.dump(dict(images=images, annotations=annotations,
+                       categories=[dict(id=k + 1, name=c) for k, c in enumerate(VOC_CLASSES)]), f)
+    return dict(ann_file=ann, img_prefix=os.path.join(root, "JPEGImages"))
+
+
+def mae_state_dict(depth: int = 12, d: int = EMBED, patch: int = 16) -> dict:
+    """A seeded random MAE ViT-S encoder ``state_dict`` under MAE's key
+    names, with its final norm (which the graft leaves out)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(5)
+    r = lambda *shape: torch.randn(shape, generator=gen) * 0.02  # noqa: E731
+    sd = {"patch_embed.proj.weight": r(d, 3, patch, patch), "patch_embed.proj.bias": r(d),
+          "cls_token": r(1, 1, d), "pos_embed": r(1, 1 + (224 // patch) ** 2, d),
+          "norm.weight": 1.0 + r(d), "norm.bias": r(d)}
+    for i in range(depth):
+        for norm in ("norm1", "norm2"):
+            sd[f"blocks.{i}.{norm}.weight"], sd[f"blocks.{i}.{norm}.bias"] = 1.0 + r(d), r(d)
+        for name, (o, n) in (("attn.qkv", (3 * d, d)), ("attn.proj", (d, d)),
+                             ("mlp.fc1", (4 * d, d)), ("mlp.fc2", (d, 4 * d))):
+            sd[f"blocks.{i}.{name}.weight"], sd[f"blocks.{i}.{name}.bias"] = r(o, n), r(o)
+    return sd
+
+
+def check_graft(model, sd: dict) -> int:
+    """Every MAE tensor the graft maps against the backbone's, exactly: the
+    patch projection through the port's (p, p, C) input order, the others
+    as they are. Returns how many were compared."""
+    import torch
+
+    params = model.backbone.state_dict()
+    n = 0
+    for key, t in sd.items():
+        if key.startswith("norm."):
+            continue
+        want = t.permute(0, 2, 3, 1).reshape(t.shape[0], -1) if key == "patch_embed.proj.weight" else t
+        if not torch.equal(params[key].cpu(), want):
+            raise AssertionError(f"MAE graft: backbone.{key} differs from the checkpoint's")
+        n += 1
+    return n
+
+
+def launch_counts() -> dict:
+    from attentionshift_torch.ops._build import KERNELS
+
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def counting(module, name: str, calls: list):
+    """Patch ``module.name`` with a pass-through that appends, per call, its
+    launch counts (after minus before, read after a synchronize), its
+    host-clock ms and its arguments and result to ``calls``."""
+    from unittest import mock
+
+    fn = getattr(module, name)
+
+    def run(*args, **kwargs):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = launch_counts()
+        calls.append(dict(launches={k: after[k] - before[k] for k in after}, ms=ms, args=args,
+                          out=out))
+        return out
+
+    return mock.patch.object(module, name, run)
+
+
+def gradient_tops(store: dict):
+    """Patch ``Optimizer.step`` to keep the largest |gradient| per submodule."""
+    from unittest import mock
+
+    from attentionshift_torch.train.optim import Optimizer
+
+    inner = Optimizer.step
+
+    def step(self, grads):
+        for name, g in zip(self.names, grads):
+            if g is not None:
+                m = name.split(".", 1)[0]
+                store[m] = max(store.get(m, 0.0), float(g.float().abs().max()))
+        return inner(self, grads)
+
+    return mock.patch.object(Optimizer, "step", step)
+
+
+def phase_train_cli():
+    """The training entry point (``tools.train``'s twin) in this process at
+    the full ViT-S width of ``configs/attnshift_voc12aug.py`` as it is
+    (batch 2, accumulate_steps 2, 11 train scales, remat and drop path on),
+    on a synthetic point tree with a synthetic MAE checkpoint. Invocation 1
+    runs 4 micro-steps of epoch 0, saves ``epoch_1`` and evaluates 2 val
+    images; invocation 2, under a world-size-1 NCCL process group,
+    auto-resumes, runs 4 micro-steps of epoch 1, saves ``epoch_2`` and
+    evaluates. Checks the graft, the launch counts per micro-step and per
+    invocation, the losses, gradients, updates, counters and the group's
+    branch; returns what the later phases need."""
+    import atexit
+    import math
+    import shutil
+    import socket
+    import tempfile
+    from unittest import mock
+
+    import torch
+
+    from attentionshift_torch.ops._build import reset_launches
+    from attentionshift_torch.parallel import mesh
+    from attentionshift_torch.tools import train as cli
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    atexit.register(shutil.rmtree, tmp, True)
+    root = os.path.join(tmp, "VOC2012")
+    voc_eval_tree(root)
+    node = voc_point_tree(root)
+    sd = mae_state_dict()
+    mae = os.path.join(tmp, "mae_pretrain_vit_small.pth")
+    torch.save({"model": sd}, mae)
+    work = os.path.join(tmp, "work")
+    cfg = os.path.join(HERE, "configs", "attnshift_voc12aug.py")
+    opts = ["--cfg-options", f"data.train.ann_file={node['ann_file']}",
+            f"data.train.img_prefix={node['img_prefix']}",
+            f"data.val.split_file={root}/ImageSets/Segmentation/val.txt",
+            f"data.val.voc_root={root}", f"pretrained={mae}", "schedule.total_epochs=2",
+            "runtime.log_interval=1", "schedule.warmup_iters=2"]
+    argv = [cfg, "--work-dir", work, "--max-steps", str(TRAIN_CLI_STEPS),
+            "--validate-limit", str(TRAIN_CLI_VAL)] + opts
+
+    run = cli.build(cli.parse_args(argv))
+    c, bb = run.cfg, run.model.backbone
+    if not (int(c.data.batch_size) == 2 and int(c.optimizer.accumulate_steps) == 2
+            and len(c.data.train_scales) == 11 and bb.use_remat and bb.drop_path_rate > 0
+            and run.model.embed_dim == EMBED and len(bb.blocks) == 12):
+        raise AssertionError("the train CLI phase runs the config as it is")
+    log(f"[train-cli] MAE graft before the first step: {check_graft(run.model, sd)} tensors equal "
+        f"to the checkpoint's through the port's layout")
+    init = {k: v.detach().cpu().clone() for k, v in run.model.state_dict().items()}
+    del run
+    per_step = {k: 0 for k in launch_counts()}
+    per_step.update(TRAIN_CLI_LAUNCHES)
+    out = {}
+    for inv in (1, 2):
+        env = {}
+        if inv == 2:
+            with socket.socket() as s:
+                s.bind(("localhost", 0))
+                env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                           MASTER_PORT=str(s.getsockname()[1]))
+        calls, grads = [], {}
+        mesh.COUNTS.clear()
+        torch.cuda.reset_peak_memory_stats()
+        with mock.patch.dict(os.environ, env), counting(cli, "train_step", calls), \
+                gradient_tops(grads):
+            reset_launches()
+            stats = cli.main(argv)
+            sync()
+        total = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        steps = [cl["launches"] for cl in calls]
+        if len(steps) != TRAIN_CLI_STEPS or any(d != per_step for d in steps):
+            raise AssertionError(f"train CLI {inv}: launches per micro-step {steps} != {per_step}")
+        want = {k: TRAIN_CLI_STEPS * v for k, v in per_step.items()}
+        want["attention_plain"] += SINGLE_FLASH_PER_IMAGE * TRAIN_CLI_VAL
+        if total != want:
+            raise AssertionError(f"train CLI {inv}: launches {total} != {want}")
+        log(f"[train-cli] {inv}: launches per micro-step {nonzero(steps[0])} (all "
+            f"{TRAIN_CLI_STEPS} equal); the invocation's {nonzero(total)} "
+            f"({SINGLE_FLASH_PER_IMAGE * TRAIN_CLI_VAL} flash_fwd of them in the evaluation)")
+        vals = stats["metrics"]
+        if set(vals) != LOSS_KEYS | {"loss_total"} or not all(map(math.isfinite, vals.values())):
+            raise AssertionError(f"train CLI {inv}: metrics {vals}")
+        with open(os.path.join(work, "train_log.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        if len(records) != inv * TRAIN_CLI_STEPS or set(records[-1]) < set(vals):
+            raise AssertionError(f"train_log.jsonl: {len(records)} records")
+        val = stats["val"]
+        if len(val) != 1 or sorted(val[0]) != ["mAP@0.25", "mAP@0.5", "mAP@0.75"] or not all(
+                map(math.isfinite, val[0].values())):
+            raise AssertionError(f"train CLI {inv}: val metrics {val}")
+        dead = [m for m in SUBMODULES if not grads.get(m, 0.0) > 0]
+        if dead:
+            raise AssertionError(f"train CLI {inv}: no gradient reached {dead}")
+        ckpt = torch.load(os.path.join(work, f"epoch_{inv}"), map_location="cpu", weights_only=True)
+        if (ckpt["epoch"], ckpt["step"], ckpt["opt_state"]["count"]) != (
+                inv, inv * TRAIN_CLI_STEPS, inv * TRAIN_CLI_STEPS // 2):
+            raise AssertionError(f"epoch_{inv}: epoch {ckpt['epoch']}, step {ckpt['step']}, "
+                                 f"opt.count {ckpt['opt_state']['count']}")
+        moved = {m: 0 for m in SUBMODULES}
+        for k, v in ckpt["params"].items():
+            if not bool(torch.isfinite(v.float()).all()):
+                raise AssertionError(f"epoch_{inv}: {k} is not finite")
+            moved[k.split(".", 1)[0]] += int(not torch.equal(v, init[k]))
+        if not all(moved.values()):
+            raise AssertionError(f"epoch_{inv}: parameters unchanged since the init in {moved}")
+        out[inv] = dict(stats=stats, calls=calls, total=total, peak=peak, counts=dict(mesh.COUNTS))
+        log(f"[train-cli] {inv}: last metrics {({k: round(v, 4) for k, v in sorted(vals.items())})}"
+            f"; val {val[0]}; tensors changed since the init per submodule {moved}; opt.count "
+            f"{ckpt['opt_state']['count']} after {inv * TRAIN_CLI_STEPS} micro-steps; all-reduces "
+            f"{dict(mesh.COUNTS)}")
+    s2 = out[2]["stats"]
+    if s2["resumed"] != os.path.join(work, "epoch_1") or s2["start_epoch"] != 1:
+        raise AssertionError(f"invocation 2 did not resume from epoch_1: {s2['resumed']}")
+    log(f"[train-cli] 2: resumed from epoch_1 at epoch {s2['start_epoch']}")
+    if out[1]["counts"]:
+        raise AssertionError(f"invocation 1 ran collectives: {out[1]['counts']}")
+    c2 = out[2]["counts"]
+    if c2.get("gradients") != TRAIN_CLI_STEPS or not c2.get("normalisers"):
+        raise AssertionError(f"invocation 2 did not take the process-group branch: {c2}")
+    return dict(argv=argv, opts=opts, cfg=cfg, work=work, tmp=tmp, out=out)
+
+
+def phase_train_cli_same_step(tc: dict):
+    """Invocation 2's first step (world-size-1 NCCL group) once more without
+    a group, from ``epoch_1`` on the batch it was given: the same losses at
+    bf16 tolerance. Returns the run (resumed from ``epoch_1``, one step on)
+    and that batch, for the timing phase."""
+    from attentionshift_torch.tools import train as cli
+
+    first = tc["out"][2]["calls"][0]
+    _, batch, epoch = first["args"]
+    grouped = {k: float(v) for k, v in first["out"].items()}
+    for inv in (1, 2):  # let the invocations' runs go
+        for cl in tc["out"][inv]["calls"]:
+            cl.pop("args"), cl.pop("out")
+    argv = tc["argv"] + ["--resume-from", os.path.join(tc["work"], "epoch_1"), "--no-auto-resume"]
+    run = cli.build(cli.parse_args(argv))
+    if run.group is not None:
+        raise AssertionError("the comparison run has a process group")
+    again = {k: float(v) for k, v in cli.train_step(run, batch, epoch).items()}
+    worst = max(abs(v - again[k]) / max(1.0, abs(v)) for k, v in grouped.items())
+    log(f"[train-cli] invocation 2's first step (group of 1) against the same step without a "
+        f"group: every loss within {worst:.2e} of max(1, |loss|) (limit 2e-2: bf16 compute)")
+    if not worst <= 2e-2:
+        raise AssertionError(f"group {grouped} != no group {again}")
+    return run, batch, epoch
+
+
+def phase_pseudo_cli(tc: dict) -> dict:
+    """The pseudo-label dump (``tools.gen_pseudo_labels``'s twin) on
+    ``epoch_2`` over the 8 train images at scale (800, 1333): launches per
+    image (#1-#4 only), every RLE decoded to its image's size with its
+    area, every box inside its image, category ids in 1..20."""
+    from attentionshift_torch import native
+    from attentionshift_torch.ops._build import reset_launches
+    from attentionshift_torch.tools import gen_pseudo_labels as gpl
+
+    path = os.path.join(tc["tmp"], "pseudo_train.json")
+    argv = [tc["cfg"], os.path.join(tc["work"], "epoch_2"), "--out", path, "--scale",
+            *map(str, PSEUDO_SCALE)] + tc["opts"]
+    calls = []
+    with counting(gpl, "pseudo_label_image", calls):
+        reset_launches()
+        coco = gpl.main(argv)
+        sync()
+    total = launch_counts()
+    want = {k: SEED_LAUNCHES.get(k, 0) for k in total}
+    per_image = [cl["launches"] for cl in calls]
+    for cl in calls:  # let the dump's model go
+        cl.pop("args"), cl.pop("out")
+    if len(per_image) != TRAIN_CLI_IMAGES or any(d != want for d in per_image):
+        raise AssertionError(f"pseudo dump: launches per image {per_image} != {want}")
+    if total != {k: TRAIN_CLI_IMAGES * v for k, v in want.items()}:
+        raise AssertionError(f"pseudo dump: launches {total}")
+    with open(path) as f:
+        if json.load(f) != coco:
+            raise AssertionError("the json written is not the dump's result")
+    sizes = {im["id"]: (im["height"], im["width"]) for im in coco["images"]}
+    if len(sizes) != TRAIN_CLI_IMAGES or not coco["annotations"]:
+        raise AssertionError(f"pseudo dump: {len(sizes)} images, {len(coco['annotations'])} anns")
+    for k, ann in enumerate(coco["annotations"], 1):
+        h, w = sizes[ann["image_id"]]
+        seg = ann["segmentation"]
+        m = native.rle_decode(native.rle_from_string(seg["counts"], seg["size"]))
+        x, y, bw, bh = ann["bbox"]
+        if not (ann["id"] == k and m.shape == (h, w) and float(m.sum()) == ann["area"]
+                and 0 <= x and 0 <= y and bw > 0 and bh > 0 and x + bw <= w and y + bh <= h
+                and 1 <= ann["category_id"] <= 20):
+            raise AssertionError(f"pseudo dump: annotation {ann['id']} malformed: {ann['bbox']}, "
+                                 f"mask {m.shape} vs {(h, w)}, area {ann['area']}")
+    per = [sum(a["image_id"] == i for a in coco["annotations"]) for i in sorted(sizes)]
+    log(f"[pseudo-cli] {len(coco['annotations'])} annotations over {len(sizes)} images "
+        f"{per}, every RLE decoded at its image's size with its area, boxes inside, "
+        f"category ids in 1..20; launches per image {nonzero(per_image[0])} (all "
+        f"{TRAIN_CLI_IMAGES} equal)")
+    return dict(calls=calls, total=total, argv=argv)
+
+
+def phase_cli_times(tc: dict, same: tuple, pc: dict, ms_step_b1: float) -> None:
+    """Times of the two entry points (host clock unless said): ms per
+    micro-step through the train CLI (median of the steps after the first)
+    beside the train-path phase's ms/step at batch 1, ms waiting on the
+    loader, one profiled CLI step (busy share, host reads, syncs), peak
+    memory at batch 2, checkpoint save and restore seconds, eval seconds
+    per val image; the dump's ms/img and one profiled image."""
+    import statistics
+
+    import torch
+
+    from attentionshift_torch.tools import gen_pseudo_labels as gpl
+    from attentionshift_torch.tools import train as cli
+    from attentionshift_torch.train import restore_checkpoint, save_checkpoint
+
+    host = torch.autograd.DeviceType.CPU
+
+    def counts(avgs, *keys):
+        return sum(e.count for e in avgs if e.key in keys and e.device_type == host)
+
+    for inv in (1, 2):
+        o = tc["out"][inv]
+        st = o["stats"]
+        ms = statistics.median(st["step_ms"][1:])
+        log(f"[time] train CLI {inv}{' (NCCL group of 1)' if inv == 2 else ''}: "
+            f"{ms:.2f} ms per micro-step at batch 2 (median of steps 2-{len(st['step_ms'])}, host "
+            f"clock, losses read back each step; first {st['step_ms'][0]:.2f}), the train-path "
+            f"phase's batch-1 step {ms_step_b1:.2f} ms; waiting on the loader "
+            f"{[round(x, 2) for x in st['wait_ms']]} ms; peak {o['peak']:.0f} MiB allocated; "
+            f"checkpoint save {st['save_s'][0]:.3f} s; eval {st['eval_s'][0] / TRAIN_CLI_VAL:.3f} "
+            f"s per val image")
+    run, batch, epoch = same
+    avgs, busy = profile_slice(lambda: cli.train_step(run, batch, epoch),
+                               statistics.median(tc["out"][1]["stats"]["step_ms"][1:]),
+                               what="train CLI micro-step (batch 2)")
+    log(f"[train-cli] one profiled micro-step: {counts(avgs, 'cudaStreamSynchronize')} "
+        f"cudaStreamSynchronize, {counts(avgs, 'aten::_local_scalar_dense')} host reads of a "
+        f"scalar, {counts(avgs, 'cudaLaunchKernel', 'cuLaunchKernelEx')} kernel launches, busy "
+        f"{'not measured' if busy is None else f'{busy:.1%}'}")
+    t0 = time.perf_counter()
+    path = save_checkpoint(os.path.join(tc["tmp"], "timing"), run.state)
+    t1 = time.perf_counter()
+    restore_checkpoint(path, run.state)
+    sync()
+    t2 = time.perf_counter()
+    log(f"[time] checkpoint of the full train state ({os.path.getsize(path) / 2**20:.0f} MiB): "
+        f"save {t1 - t0:.3f} s, restore {t2 - t1:.3f} s")
+    del run
+    ms = [cl["ms"] for cl in pc["calls"]]
+    log(f"[time] gen_pseudo_labels at scale {PSEUDO_SCALE}: {statistics.median(ms[1:]):.2f} ms/img "
+        f"(median of images 2-{len(ms)}, host clock; first {ms[0]:.2f})")
+    cfg, model, dataset = gpl.build(gpl.parse_args(pc["argv"]))
+    sample = dataset[0]
+    gpl.pseudo_label_image(model, sample, 0, PSEUDO_SCALE, int(cfg.data.max_gt))
+    avgs, busy = profile_slice(
+        lambda: gpl.pseudo_label_image(model, sample, 0, PSEUDO_SCALE, int(cfg.data.max_gt)),
+        statistics.median(ms[1:]), what="pseudo-label dump image")
+    log(f"[pseudo-cli] one profiled image: {counts(avgs, 'cudaStreamSynchronize')} "
+        f"cudaStreamSynchronize, busy {'not measured' if busy is None else f'{busy:.1%}'}")
 
 
 def phase_tool(dev):
@@ -1497,13 +1919,20 @@ def main(argv=None) -> int:
     state, step_fn, batch, train_gen, train_launches = phase_train_path(dev, model, slice_inp)
     tool_launches = phase_tool(dev)
     ev = phase_eval_path()
+    tc = phase_train_cli()
+    same = phase_train_cli_same_step(tc)
+    pc = phase_pseudo_cli(tc)
     phase_times(results, inp, model, slice_inp, gen)
     phase_main_path_inputs(results, handed)
-    phase_train_times(state, step_fn, batch, train_gen)
+    ms_step = phase_train_times(state, step_fn, batch, train_gen)
+    phase_cli_times(tc, same, pc, ms_step)
+    del same
     phase_infer_times(model, eval_step, infer_img, infer_wh)
     phase_eval_kernel(results, ev["ts"])
     phase_eval_times(ev)
     eval_single, eval_aug = ev["launches"]["single"], ev["launches"]["aug"]
+    train_cli = {k: tc["out"][1]["total"][k] + tc["out"][2]["total"][k] for k in KERNELS}
+    pseudo_cli = pc["total"]
     table = []
     for name, kern in KERNELS.items():
         r = results[name]
@@ -1512,13 +1941,16 @@ def main(argv=None) -> int:
                           replaces=kern.replaces,
                           launches=(seed_launches[name] + infer_launches[name]
                                     + train_launches[name] + tool_launches[name]
-                                    + eval_single[name] + eval_aug[name]),
+                                    + eval_single[name] + eval_aug[name] + train_cli[name]
+                                    + pseudo_cli[name]),
                           launches_seed_pseudo_gt=seed_launches[name],
                           launches_simple_test=infer_launches[name],
                           launches_train_steps=train_launches[name],
                           launches_microbench_tool=tool_launches[name],
                           launches_eval_single=eval_single[name],
                           launches_eval_aug_test=eval_aug[name],
+                          launches_train_cli=train_cli[name],
+                          launches_gen_pseudo_labels=pseudo_cli[name],
                           max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                           bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                           library_ms=r["library_ms"],

@@ -459,3 +459,65 @@ def test_aug_tester_on_card(cuda):
     assert np.isfinite(out["boxes"]).all() and (b >= 0).all()
     assert (b[:, 0::2] <= 160).all() and (b[:, 1::2] <= 120).all()
     assert ((out["mask_probs"] >= 0) & (out["mask_probs"] <= 1)).all()
+
+
+@pytest.mark.gpu
+def test_train_step_under_a_world_size_one_group_on_card(cuda, monkeypatch):
+    """The train step of a narrow bf16 model at batch 2 under a world-size-1
+    NCCL group (``parallel.mesh.init_distributed`` from torchrun's variables)
+    against the same step without a group, from the same init and generator
+    seed: every loss within 2e-2 of max(1, |loss|) (bf16 compute), the
+    group's all-reduces counted (4 normalisers, the gradients, the
+    metrics), and the kernels launched as at batch 2 without a group:
+    attention once per block and batch, CCL and mean-shift once per image."""
+    import socket
+
+    import torch.distributed as dist
+
+    from attentionshift_torch.models import AttnShiftDetector
+    from attentionshift_torch.ops._build import KERNELS, reset_launches
+    from attentionshift_torch.parallel import mesh
+    from attentionshift_torch.train import TrainState, build_optimizer, make_train_step
+
+    kw = dict(num_classes=20, embed_dim=128, depth=4, num_heads=2, point_tokens=16, cam_layer=3,
+              out_indices=(0, 1, 2, 3), max_gt=4, pad_tokens_to=128, num_proposals=100,
+              rpn_nms_pre=200, rcnn_samples=64, mask_sample_cap=16)
+    rs = np.random.RandomState(0)
+    batch = dict(img=torch.from_numpy(rs.randn(2, 64, 96, 3).astype(np.float32)),
+                 gt_points=torch.tensor([[[20.0, 20.0], [60.0, 40.0], [80.0, 30.0], [0, 0]]] * 2),
+                 gt_labels=torch.tensor([[1, 3, 5, 0], [2, 4, 6, 0]], dtype=torch.int32),
+                 gt_valid=torch.tensor([[True, True, True, False], [True, True, False, False]]),
+                 img_wh=torch.tensor([[96.0, 64.0], [96.0, 64.0]]))
+    batch = {k: v.to(cuda) for k, v in batch.items()}
+
+    def run(group):
+        model = AttnShiftDetector(device=cuda, dtype=torch.bfloat16, **kw).init_weights(seed=0)
+        state = TrainState.create(model, build_optimizer(model, accumulate_steps=1, depth=4))
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        reset_launches()
+        _, metrics = make_train_step(model, group)(state, batch, generator=gen)
+        torch.cuda.synchronize()
+        return ({k: float(v) for k, v in metrics.items()},
+                {n: k.launches for n, k in KERNELS.items() if k.launches})
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                     MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    rank, world, dev = mesh.init_distributed(cuda)
+    try:
+        assert (rank, world, dev.type) == (0, 1, "cuda") and dist.get_backend() == "nccl"
+        mesh.COUNTS.clear()
+        grouped, launches = run(dist.group.WORLD)
+        assert mesh.COUNTS == {"normalisers": 4, "gradients": 1, "metrics": 1}
+    finally:
+        dist.destroy_process_group()
+    alone, alone_launches = run(None)
+    assert launches == alone_launches == {"attention_capture": 3, "attention_plain": 5,
+                                          "attention_bwd_dq": 4, "attention_bwd_dkv": 4,
+                                          "ccl_batch": 2, "meanshift_fixpoint": 2}
+    assert set(grouped) == set(alone)
+    for k, v in alone.items():
+        assert abs(grouped[k] - v) <= 2e-2 * max(1.0, abs(v)), (k, grouped[k], v)

@@ -214,16 +214,18 @@ AUX_EXACT = ("pseudo_boxes", "pseudo_valid", "pseudo_masks", "best_idx", "semant
              "semantic_valid")
 
 
-def engine_draws(rng, best_cams, gt_points, stride: int, img_hw):
-    """``replay_draws`` from the engine's own key (batch 1)."""
+def engine_draws(rng, best_cams, gt_points, stride: int, img_hw, i: int = 0):
+    """``replay_draws`` from the engine's own key, for image ``i`` of the
+    batch (the engine splits its key over the batch)."""
     from attentionshift_tpu.ops.image import resize
     from attentionshift_tpu.pseudo.cam import norm_attns
     from attentionshift_tpu.pseudo.refine import sample_fgbg_points
 
-    k_refine, k_points = jax.random.split(jax.random.split(rng, 1)[0])
+    b = gt_points.shape[0]
+    k_refine, k_points = jax.random.split(jax.random.split(rng, b)[i])
     h, w = img_hw
-    cams = resize(jnp.asarray(best_cams[0]), (h // stride, w // stride))
-    pfg, pbg = sample_fgbg_points(k_refine, norm_attns(cams), jnp.asarray(gt_points[0]),
+    cams = resize(jnp.asarray(best_cams[i]), (h // stride, w // stride))
+    pfg, pbg = sample_fgbg_points(k_refine, norm_attns(cams), jnp.asarray(gt_points[i]),
                                   0.2, 0.1, 20, stride=stride)
     g = gt_points.shape[1]
     n = (h // stride) * (w // stride)
@@ -235,22 +237,26 @@ def engine_draws(rng, best_cams, gt_points, stride: int, img_hw):
 
 def replay_train_draws(model, variables, key, best_cams, gt_points, stride, img_hw, n_anchors,
                        n_rois, n_samples):
-    """Every random draw of one JAX train forward (batch 1), for the port:
-    ``make_rng("sampling")`` -> ``split(rng, 3)`` (detector.py:253) into the
-    RPN sampler (rpn.py:92, assign.py:116), the RCNN sampler
-    (detector.py:596, assign.py:144; its ordering score reuses the
-    positives' key, detector.py:609), the mask pick (detector.py:642,649)
-    and the engine."""
+    """Every random draw of one JAX train forward, per image of the batch,
+    for the port: ``make_rng("sampling")`` -> ``split(rng, 3)``
+    (detector.py:253) into the RPN sampler (rpn.py:92, assign.py:116), the
+    RCNN sampler (detector.py:596, assign.py:144; its ordering score reuses
+    the positives' key, detector.py:609), the mask pick (detector.py:642,649)
+    and the engine; each of them splits its key over the batch."""
     rng = model.apply(variables, method=lambda m: m.make_rng("sampling"), rngs={"sampling": key})
     k_rpn, k_rcnn, k_engine = jax.random.split(rng, 3)
     u = lambda k, n: torch.from_numpy(np.array(jax.random.uniform(k, (n,))))  # noqa: E731
-    rp, rn = jax.random.split(jax.random.split(k_rpn, 1)[0])
-    cp, cn = jax.random.split(jax.random.split(k_rcnn, 1)[0])
-    km = jax.random.split(jax.random.fold_in(k_rcnn, 1), 1)[0]
-    draws = engine_draws(k_engine, best_cams, gt_points, stride, img_hw)
-    draws.update(rpn_u_pos=u(rp, n_anchors), rpn_u_neg=u(rn, n_anchors),
-                 rcnn_u_pos=u(cp, n_rois), rcnn_u_neg=u(cn, n_rois), mask_u=u(km, n_samples))
-    return [draws]
+    b = gt_points.shape[0]
+    out = []
+    for i in range(b):
+        rp, rn = jax.random.split(jax.random.split(k_rpn, b)[i])
+        cp, cn = jax.random.split(jax.random.split(k_rcnn, b)[i])
+        km = jax.random.split(jax.random.fold_in(k_rcnn, 1), b)[i]
+        draws = engine_draws(k_engine, best_cams, gt_points, stride, img_hw, i)
+        draws.update(rpn_u_pos=u(rp, n_anchors), rpn_u_neg=u(rn, n_anchors),
+                     rcnn_u_pos=u(cp, n_rois), rcnn_u_neg=u(cn, n_rois), mask_u=u(km, n_samples))
+        out.append(draws)
+    return out
 
 
 class TrainCase:
@@ -307,6 +313,39 @@ class TrainCase:
 
     def batch(self):
         return dict(zip(("img", "gt_points", "gt_labels", "gt_valid", "img_wh"), self.targs))
+
+
+def n_anchors(h: int, w: int) -> int:
+    """RPN anchors of an (h, w) canvas: 3 per cell of the five FPN levels."""
+    sizes = [(h // s, w // s) for s in (4, 8, 16, 32)]
+    sizes.append((-(-sizes[-1][0] // 2), -(-sizes[-1][1] // 2)))
+    return 3 * sum(a * b for a, b in sizes)
+
+
+def jax_train_reference(jmodel, variables, batch: dict, key, kw: dict):
+    """The JAX train forward's losses and the gradient of their sum on a
+    numpy ``batch`` (any batch size) with the sampling ``key``, and its
+    draws replayed per image for the port: (losses, grads, draws)."""
+    from attentionshift_tpu.models.detector import AttnShiftDetector as JDet
+
+    names = ("img", "gt_points", "gt_labels", "gt_valid", "img_wh")
+    jargs = tuple(jnp.asarray(batch[n]) for n in names)
+    bs = variables["batch_stats"]
+
+    def loss_fn(params):
+        losses, _ = jmodel.apply({"params": params, "batch_stats": bs}, *jargs,
+                                 rngs={"sampling": key})
+        return sum(v for k, v in losses.items() if k.startswith("loss")), losses
+
+    (_, losses), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(variables["params"])
+    dbg = jax.jit(lambda v: jmodel.apply(v, *jargs, method=JDet.seed_debug,
+                                         rngs={"sampling": key}))(variables)
+    h, w = batch["img"].shape[1:3]
+    draws = replay_train_draws(jmodel, variables, key, np.asarray(dbg["best_cams"]),
+                               batch["gt_points"], kw.get("seed_map_stride", 4), (h, w),
+                               n_anchors(h, w), batch["gt_points"].shape[1] + kw["num_proposals"],
+                               kw["rcnn_samples"])
+    return {k: float(v) for k, v in losses.items()}, grads, draws
 
 
 def torch_tree(params) -> dict:
@@ -593,6 +632,38 @@ def voc_tree(root, sizes=TREE_SIZES, seed: int = 0) -> dict:
     split.write_text("\n".join(ids) + "\n")
     return dict(ann_file=str(ann_file), img_prefix=str(root / "JPEGImages"),
                 split_file=str(split), voc_root=str(root))
+
+
+def disc_tree(root, sizes=TREE_SIZES, n_discs: int = 3, seed: int = 0) -> dict:
+    """A point-annotation tree under ``root``: PNG images of ``blob_inputs``'
+    scenes (bright discs on a quiet background, taken back to pixels with
+    the ImageNet statistics), one point per disc at its center, and a
+    ``VOCPointDataset`` json. Random TINY weights give these scenes a
+    well-conditioned Stage B, where ``voc_tree``'s noisy JPEGs often meet
+    its near-ties (ROADMAP section C)."""
+    import json
+
+    from PIL import Image
+
+    from attentionshift_tpu.data.pipeline import IMAGENET_MEAN, IMAGENET_STD
+    from attentionshift_tpu.data.voc import VOC_CLASSES
+
+    (root / "JPEGImages").mkdir(parents=True, exist_ok=True)
+    images, annotations = [], []
+    for i, (h, w) in enumerate(sizes):
+        img, pts, _, _, _ = blob_inputs(h, w, n_discs, n_discs, seed=seed + i)
+        pixels = (img[0] * IMAGENET_STD + IMAGENET_MEAN).clip(0, 255).astype(np.uint8)
+        name = f"disc_{i:06d}.png"
+        Image.fromarray(pixels).save(root / "JPEGImages" / name)
+        images.append(dict(id=i, file_name=name, width=w, height=h))
+        for j in range(n_discs):
+            annotations.append(dict(id=len(annotations), image_id=i,
+                                    category_id=1 + (3 * i + 7 * j) % 20,
+                                    point=[float(v) for v in pts[0, j]]))
+    cats = [dict(id=k + 1, name=n) for k, n in enumerate(VOC_CLASSES)]
+    ann_file = root / "train.json"
+    ann_file.write_text(json.dumps(dict(images=images, annotations=annotations, categories=cats)))
+    return dict(ann_file=str(ann_file), img_prefix=str(root / "JPEGImages"))
 
 
 def coco_tree(root, sizes=TREE_SIZES, seed: int = 1) -> dict:
