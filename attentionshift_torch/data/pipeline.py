@@ -81,6 +81,12 @@ class TrainPipeline:
         h, w = img.shape[:2]
         return "landscape" if w >= h else "portrait"
 
+    def bucket_of_size(self, w: int, h: int) -> str | None:
+        """The bucket of a (w, h) source image before it is loaded: flips
+        and the keep-ratio resize keep its orientation. None under a crop,
+        whose orientation shows only after it is drawn."""
+        return None if self.crop_size is not None else ("landscape" if w >= h else "portrait")
+
     def bucket_shape(self, bucket: str) -> tuple[int, int]:
         bh, bw = self.bucket_hw
         return (bh, bw) if bucket == "landscape" else (bw, bh)

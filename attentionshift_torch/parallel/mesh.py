@@ -36,7 +36,11 @@ __all__ = ["COUNTS", "init_distributed", "mesh_from_config", "place_state", "sha
 # (one per loss normaliser), "gradients" and "metrics" (one each per step)
 COUNTS: collections.Counter = collections.Counter()
 
-_GROUP = None  # the process group of the train step running now (``data_parallel``)
+# the process group of the train step running now (``data_parallel``). It
+# is process-global and not re-entrant across models: any forward that
+# runs inside the block, of any model, reduces its loss normalisers over
+# the group
+_GROUP = None
 
 
 def init_distributed(device: torch.device) -> tuple[int, int, torch.device]:
@@ -108,19 +112,19 @@ def data_parallel(group):
         _GROUP = prev
 
 
-def global_count(n: torch.Tensor, floor: float = 1.0) -> torch.Tensor:
-    """A loss normaliser: ``max(n, floor)`` for a count ``n`` over the
-    rank's batch, outside a data-parallel step.
+def global_count(n: torch.Tensor) -> torch.Tensor:
+    """A loss normaliser: ``max(n, 1)`` for a count ``n`` over the rank's
+    batch, outside a data-parallel step.
 
-    Inside one (``data_parallel``), the rank's share ``max(N, floor) / W``
-    of the count N summed over the W ranks: each rank's loss is then W
+    Inside one (``data_parallel``), the rank's share ``max(N, 1) / W`` of
+    the count N summed over the W ranks: each rank's loss is then W
     times its part of the loss over the global batch, so that the mean
     over the ranks of the losses, and of their gradients, is the global
     loss and its gradient, as the JAX package computes them.
     """
     if _GROUP is None:
-        return n.clamp_min(floor)
+        return n.clamp_min(1.0)
     total = n.detach().float().clone()
     dist.all_reduce(total, group=_GROUP)
     COUNTS["normalisers"] += 1
-    return total.clamp_min(floor) / dist.get_world_size(_GROUP)
+    return total.clamp_min(1.0) / dist.get_world_size(_GROUP)

@@ -84,7 +84,7 @@ def build(args) -> SimpleNamespace:
     cfg = Config.fromfile(args.config).merge_from_options(args.cfg_options)
     _check_ported(cfg)
     rank, world, dev = init_distributed(resolve_device(args.device))
-    mesh_from_config(cfg.get("parallel", {}), world)
+    dp = mesh_from_config(cfg.get("parallel", {}), world)
     group = dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
     os.makedirs(args.work_dir, exist_ok=True)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
@@ -103,7 +103,9 @@ def build(args) -> SimpleNamespace:
         brightness_delta=float(cfg.data.get("brightness_delta", 0.0)))
     loader = TrainLoader(dataset, pipeline, batch_size=int(cfg.data.batch_size), seed=seed,
                          num_threads=int(cfg.data.num_threads), process_index=rank,
-                         process_count=world)
+                         process_count=dp)
+    # every rank runs this many steps per epoch (each is a collective);
+    # the schedule counts epochs in them
     steps_per_epoch = loader.steps_per_epoch()
     print(f"dataset: {len(dataset)} samples, {steps_per_epoch} steps/epoch per rank", flush=True)
     # NumClassCheckHook analog: dataset labels must fit the head

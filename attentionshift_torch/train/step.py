@@ -75,9 +75,8 @@ def make_train_step(model, group=None) -> Callable:
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss_total"] = total.detach()
         if group is not None:
-            with torch.profiler.record_function("dp.all_reduce_gradients"):
-                grads = _mean_over_ranks([torch.zeros_like(p) if g is None else g
-                                          for g, p in zip(grads, params)], group)
+            grads = _mean_over_ranks([torch.zeros_like(p) if g is None else g
+                                      for g, p in zip(grads, params)], group)
             COUNTS["gradients"] += 1
             names = sorted(metrics)
             metrics = dict(zip(names, _mean_over_ranks([metrics[k] for k in names], group)))

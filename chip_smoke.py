@@ -1258,6 +1258,39 @@ def gradient_tops(store: dict):
     return mock.patch.object(Optimizer, "step", step)
 
 
+def first_gradients(store: dict):
+    """Patch ``Optimizer.step`` and the train step's ``_mean_over_ranks`` to
+    keep copies of the first gradients the optimizer receives (``"opt"``)
+    and of the first all-reduce's inputs and outputs (``"mean"``)."""
+    import contextlib
+    import importlib
+    from unittest import mock
+
+    import torch
+
+    from attentionshift_torch.train.optim import Optimizer
+
+    step_mod = importlib.import_module("attentionshift_torch.train.step")
+    inner, mean = Optimizer.step, step_mod._mean_over_ranks
+
+    def step(self, grads):
+        store.setdefault("opt", [  # an unused parameter's None counts as 0, as in the step
+            torch.zeros_like(p) if g is None else g.detach().clone()
+            for g, p in zip(grads, self.params)])
+        return inner(self, grads)
+
+    def mean_over_ranks(tensors, group):
+        out = mean(tensors, group)
+        store.setdefault("mean", ([t.detach().clone() for t in tensors],
+                                  [o.detach().clone() for o in out]))
+        return out
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(Optimizer, "step", step))
+    stack.enter_context(mock.patch.object(step_mod, "_mean_over_ranks", mean_over_ranks))
+    return stack
+
+
 def phase_train_cli():
     """The training entry point (``tools.train``'s twin) in this process at
     the full ViT-S width of ``configs/attnshift_voc12aug.py`` as it is
@@ -1320,11 +1353,11 @@ def phase_train_cli():
                 s.bind(("localhost", 0))
                 env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
                            MASTER_PORT=str(s.getsockname()[1]))
-        calls, grads = [], {}
+        calls, grads, first = [], {}, {}
         mesh.COUNTS.clear()
         torch.cuda.reset_peak_memory_stats()
         with mock.patch.dict(os.environ, env), counting(cli, "train_step", calls), \
-                gradient_tops(grads):
+                gradient_tops(grads), first_gradients(first):
             reset_launches()
             stats = cli.main(argv)
             sync()
@@ -1366,7 +1399,8 @@ def phase_train_cli():
             moved[k.split(".", 1)[0]] += int(not torch.equal(v, init[k]))
         if not all(moved.values()):
             raise AssertionError(f"epoch_{inv}: parameters unchanged since the init in {moved}")
-        out[inv] = dict(stats=stats, calls=calls, total=total, peak=peak, counts=dict(mesh.COUNTS))
+        out[inv] = dict(stats=stats, calls=calls, total=total, peak=peak, counts=dict(mesh.COUNTS),
+                        first=first)
         log(f"[train-cli] {inv}: last metrics {({k: round(v, 4) for k, v in sorted(vals.items())})}"
             f"; val {val[0]}; tensors changed since the init per submodule {moved}; opt.count "
             f"{ckpt['opt_state']['count']} after {inv * TRAIN_CLI_STEPS} micro-steps; all-reduces "
@@ -1385,27 +1419,48 @@ def phase_train_cli():
 
 def phase_train_cli_same_step(tc: dict):
     """Invocation 2's first step (world-size-1 NCCL group) once more without
-    a group, from ``epoch_1`` on the batch it was given: the same losses at
-    bf16 tolerance. Returns the run (resumed from ``epoch_1``, one step on)
-    and that batch, for the timing phase."""
+    a group, from ``epoch_1`` on the batch it was given. A mean over one
+    rank is the identity, so the two steps are equal bitwise: every loss,
+    and every gradient the optimizer receives; and the group's gradient
+    all-reduce (one flat f32 buffer, split back into each gradient's shape)
+    returns its inputs bitwise. Returns the run (resumed from ``epoch_1``,
+    one step on) and that batch, for the timing phase."""
+    import torch
+
     from attentionshift_torch.tools import train as cli
 
     first = tc["out"][2]["calls"][0]
     _, batch, epoch = first["args"]
-    grouped = {k: float(v) for k, v in first["out"].items()}
+    grouped = {k: v.clone() for k, v in first["out"].items()}
+    g_first = tc["out"][2]["first"]
     for inv in (1, 2):  # let the invocations' runs go
+        tc["out"][inv].pop("first")
         for cl in tc["out"][inv]["calls"]:
             cl.pop("args"), cl.pop("out")
     argv = tc["argv"] + ["--resume-from", os.path.join(tc["work"], "epoch_1"), "--no-auto-resume"]
     run = cli.build(cli.parse_args(argv))
     if run.group is not None:
         raise AssertionError("the comparison run has a process group")
-    again = {k: float(v) for k, v in cli.train_step(run, batch, epoch).items()}
-    worst = max(abs(v - again[k]) / max(1.0, abs(v)) for k, v in grouped.items())
-    log(f"[train-cli] invocation 2's first step (group of 1) against the same step without a "
-        f"group: every loss within {worst:.2e} of max(1, |loss|) (limit 2e-2: bf16 compute)")
-    if not worst <= 2e-2:
+    alone = {}
+    with first_gradients(alone):
+        again = cli.train_step(run, batch, epoch)
+    if "mean" in alone or "mean" not in g_first:
+        raise AssertionError("the gradient all-reduce ran in the wrong run")
+    ins, outs = g_first["mean"]
+    if len(ins) != len(outs) or not all(
+            o.shape == i.shape and o.dtype == torch.float32 and torch.equal(o, i.float())
+            for i, o in zip(ins, outs)):
+        raise AssertionError("the world-size-1 gradient all-reduce changed a gradient")
+    if set(grouped) != set(again) or not all(
+            torch.equal(v.float(), again[k].float()) for k, v in grouped.items()):
         raise AssertionError(f"group {grouped} != no group {again}")
+    g, a = g_first["opt"], alone["opt"]
+    if len(g) != len(a) or not all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(g, a)):
+        worst = max(float((x.float() - y.float()).abs().max()) for x, y in zip(g, a))
+        raise AssertionError(f"the gradients the optimizer received differ: max |diff| {worst:.3e}")
+    log(f"[train-cli] invocation 2's first step (group of 1) against the same step without a "
+        f"group: all {len(grouped)} losses and all {len(g)} gradients the optimizer received equal "
+        f"bitwise; the group's gradient all-reduce returned its {len(ins)} inputs bitwise")
     return run, batch, epoch
 
 

@@ -14,6 +14,10 @@ train step on the whole batch of two, on the same TINY weights and draws:
   process_count)``'s batches;
 - ``tools.test --gather-dir`` over both ranks prints the single-process
   metric dict on rank 0 and nothing on rank 1.
+- ``tools.train.main`` over both ranks for two epochs of a tree that
+  mixes landscape and portrait images, whose shards fill different
+  numbers of batches: both ranks run the same steps and end with the same
+  parameters.
 
 The images carry 3 and 2 annotated points, so that every per-rank count
 differs from the global one.
@@ -74,7 +78,7 @@ def worker(rank: int, world: int, out: str) -> None:
         users = (detector, heads)  # the modules whose losses take the normalisers
         if not reduce_normalisers:  # the control: each rank's own counts
             for mod in users:
-                mod.global_count = lambda n, floor=1.0: n.clamp_min(floor)
+                mod.global_count = lambda n: n.clamp_min(1.0)
         try:
             _, metrics = fn(TrainState.create(model, opt), batch, draws=[inp["draws"][rank]])
         finally:
@@ -101,6 +105,28 @@ def worker(rank: int, world: int, out: str) -> None:
     # the evaluation CLI's gather over both ranks
     res["eval"] = test_cli.main([inp["cfg"], inp["ckpt"], "--gather-dir",
                                  os.path.join(out, "gather"), "--limit", "2", "--device", "cpu"])
+
+    # the train CLI over both ranks on the mixed-orientation tree
+    runs, fit, step, per_epoch = [], train_cli.fit, train_cli.train_step, [0, 0]
+    train_cli.fit = lambda run: (runs.append((run, {n: p.detach().clone() for n, p in
+                                                    run.model.named_parameters()})), fit(run))[1]
+
+    def counted_step(run, batch, epoch, draws=None):
+        per_epoch[epoch] += 1
+        return step(run, batch, epoch, draws)
+
+    train_cli.train_step = counted_step
+    try:
+        stats = train_cli.main([inp["mixed_cfg"], "--work-dir", os.path.join(out, "work_mixed"),
+                                "--no-validate", "--device", "cpu"])
+    finally:
+        train_cli.fit, train_cli.train_step = fit, step
+    run, init = runs[0]
+    res["mixed"] = dict(steps=len(stats["step_ms"]), state_step=run.state.step, per_epoch=per_epoch,
+                        steps_per_epoch=[run.loader.steps_per_epoch(e) for e in range(2)],
+                        params={n: p.detach().clone() for n, p in run.model.named_parameters()},
+                        moved=sum(not torch.equal(p, init[n])
+                                  for n, p in run.model.named_parameters()))
     torch.save(res, os.path.join(out, f"rank{rank}.pt"))
     dist.destroy_process_group()
     print(f"WORKER {rank} OK", flush=True)
@@ -139,6 +165,8 @@ def ranks(tmp_path_factory):
     want_params = torch_tree(jstate.apply_gradients(jgrads).params)
     want_grads = torch_tree(jgrads)
 
+    from attentionshift_tpu import data as jdata
+
     state = flax_to_torch(jax.tree.map(np.asarray, variables))
     ckpt = save_params(str(tmp_path / "epoch_1"), state)
     val = voc_tree(tmp_path / "VOC2012")
@@ -155,9 +183,23 @@ schedule = dict(total_epochs=1, decay_epochs=[8, 11], warmup_iters=2, warmup_rat
 runtime = dict(log_interval=1, checkpoint_interval=1, eval_interval=1, seed=0,
                loss_weight_start_epoch=-1)
 """)
+    # 3 landscape and 5 portrait images at batch 2: whichever way a shard of
+    # 4 splits them, the two shards fill 1 and 2 batches
+    mixed = disc_tree(tmp_path / "mixed", sizes=((H, W),) * 3 + ((W, H),) * 5)
+    mixed_cfg = tmp_path / "mixed.py"
+    mixed_cfg.write_text(cfg.read_text().replace(repr(train["ann_file"]), repr(mixed["ann_file"]))
+                         .replace(repr(train["img_prefix"]), repr(mixed["img_prefix"]))
+                         .replace("batch_size=1", "batch_size=2")
+                         .replace("accumulate_steps=2", "accumulate_steps=1")
+                         .replace("total_epochs=1", "total_epochs=2"))
+    jds = jdata.VOCPointDataset(mixed["ann_file"], mixed["img_prefix"])
+    jpipe = jdata.TrainPipeline(scales=((H, W),), max_gt=4)
+    jax_counts = [[len(list(jdata.TrainLoader(jds, jpipe, 2, seed=0, num_threads=1,
+                                              process_index=r, process_count=2).epoch(e)))
+                   for r in range(2)] for e in range(2)]
     torch.save(dict(state=state, batch={k: torch.from_numpy(v) for k, v in batch.items()},
                     draws=draws, kw=dict(kw, use_remat=False), opt=TRAIN_OPT, cfg=str(cfg),
-                    ckpt=ckpt),
+                    ckpt=ckpt, mixed_cfg=str(mixed_cfg)),
                tmp_path / "inputs.pt")
 
     port = str(_free_port())
@@ -178,7 +220,7 @@ runtime = dict(log_interval=1, checkpoint_interval=1, eval_interval=1, seed=0,
         assert p.returncode == 0 and f"WORKER {rank} OK" in log, log[-4000:]
     return dict(jlosses=jlosses, want_grads=want_grads, want_params=want_params,
                 ranks=[torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2)],
-                cfg=str(cfg), ckpt=ckpt)
+                cfg=str(cfg), ckpt=ckpt, jax_counts=jax_counts)
 
 
 def _within(jlosses: dict, metrics: dict) -> dict:
@@ -243,6 +285,25 @@ def test_eval_gather_prints_single_process_metrics(ranks):
 
     single = test_cli.main([ranks["cfg"], ranks["ckpt"], "--limit", "2", "--device", "cpu"])
     assert ranks["ranks"][0]["eval"] == single and ranks["ranks"][1]["eval"] is None
+
+
+
+def test_cli_ranks_run_equal_steps_on_mixed_orientations(ranks):
+    """``tools.train.main`` on both ranks for two epochs of 3 landscape and
+    5 portrait images at batch 2: in each epoch the JAX loader's two shards
+    fill different numbers of batches, yet both ranks run the same steps in
+    each epoch, the fewer of the two, as ``steps_per_epoch`` says, and end
+    with the same parameters, moved from the seeded init."""
+    jax_counts = ranks["jax_counts"]
+    assert all(a != b for a, b in jax_counts), jax_counts
+    m0, m1 = (r["mixed"] for r in ranks["ranks"])
+    assert m0["per_epoch"] == m1["per_epoch"] == m0["steps_per_epoch"] == m1["steps_per_epoch"] \
+        == [min(c) for c in jax_counts]
+    assert m0["steps"] == m1["steps"] == m0["state_step"] == m1["state_step"] == sum(
+        m0["per_epoch"]) > 0
+    for name, p in m0["params"].items():
+        assert torch.equal(p, m1["params"][name]), name
+    assert m0["moved"] == m1["moved"] > 0
 
 
 if __name__ == "__main__":

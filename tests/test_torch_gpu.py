@@ -466,10 +466,12 @@ def test_train_step_under_a_world_size_one_group_on_card(cuda, monkeypatch):
     """The train step of a narrow bf16 model at batch 2 under a world-size-1
     NCCL group (``parallel.mesh.init_distributed`` from torchrun's variables)
     against the same step without a group, from the same init and generator
-    seed: every loss within 2e-2 of max(1, |loss|) (bf16 compute), the
-    group's all-reduces counted (4 normalisers, the gradients, the
-    metrics), and the kernels launched as at batch 2 without a group:
-    attention once per block and batch, CCL and mean-shift once per image."""
+    seed. A mean over one rank is the identity, so the two are equal
+    bitwise: every loss, every gradient the optimizer receives and every
+    parameter after the update. The group's all-reduces are counted (4
+    normalisers, the gradients, the metrics), and the kernels launch as at
+    batch 2 without a group: attention once per block and batch, CCL and
+    mean-shift once per image."""
     import socket
 
     import torch.distributed as dist
@@ -492,12 +494,18 @@ def test_train_step_under_a_world_size_one_group_on_card(cuda, monkeypatch):
 
     def run(group):
         model = AttnShiftDetector(device=cuda, dtype=torch.bfloat16, **kw).init_weights(seed=0)
-        state = TrainState.create(model, build_optimizer(model, accumulate_steps=1, depth=4))
+        opt = build_optimizer(model, accumulate_steps=1, depth=4)
+        seen, inner = [], opt.step
+        opt.step = lambda grads: (seen.append([  # an unused parameter's None counts as 0
+            torch.zeros_like(p) if g is None else g.clone() for g, p in zip(grads, opt.params)]),
+            inner(grads))[1]
         gen = torch.Generator(device=cuda).manual_seed(3)
         reset_launches()
-        _, metrics = make_train_step(model, group)(state, batch, generator=gen)
+        _, metrics = make_train_step(model, group)(TrainState.create(model, opt), batch,
+                                                   generator=gen)
         torch.cuda.synchronize()
-        return ({k: float(v) for k, v in metrics.items()},
+        return (dict(metrics={k: v.float() for k, v in metrics.items()}, grads=seen[0],
+                     params=[p.detach().clone() for p in model.parameters()]),
                 {n: k.launches for n, k in KERNELS.items() if k.launches})
 
     with socket.socket() as s:
@@ -518,6 +526,10 @@ def test_train_step_under_a_world_size_one_group_on_card(cuda, monkeypatch):
     assert launches == alone_launches == {"attention_capture": 3, "attention_plain": 5,
                                           "attention_bwd_dq": 4, "attention_bwd_dkv": 4,
                                           "ccl_batch": 2, "meanshift_fixpoint": 2}
-    assert set(grouped) == set(alone)
-    for k, v in alone.items():
-        assert abs(grouped[k] - v) <= 2e-2 * max(1.0, abs(v)), (k, grouped[k], v)
+    assert set(grouped["metrics"]) == set(alone["metrics"])
+    for k, v in alone["metrics"].items():
+        assert torch.equal(grouped["metrics"][k], v), (k, grouped["metrics"][k], v)
+    for what in ("grads", "params"):
+        assert len(grouped[what]) == len(alone[what]) > 0
+        for a, b in zip(grouped[what], alone[what]):
+            assert a.dtype == b.dtype and torch.equal(a, b), what
