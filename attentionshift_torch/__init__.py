@@ -15,8 +15,10 @@ JAX package had Pallas kernels. The layout mirrors the JAX package:
 - ``pseudo``   the pseudo-label engine (rollout -> CAM -> boxes ->
                refinement -> mean-shift semantic centers)
 - ``models``   ViT backbone, FPN, RPN, the MIL, box and mask heads, and
-               ``AttnShiftDetector`` (pseudo labels and the train forward)
-- ``train``    layer-decay AdamW, the train state and the train step
+               ``AttnShiftDetector`` (pseudo labels and the train forward);
+               the refinement stage's ResNet and ``MaskRCNN``
+- ``train``    layer-decay AdamW and the refinement stage's SGD, the
+               train state and the train steps
 
 Importing the package imports nothing heavy and builds no kernel.
 """

@@ -21,6 +21,17 @@ state dict. Layout facts:
 Subtrees of variants that are not ported (``SKIPPED_SUBTREES``) are
 skipped by name; any other unmapped key raises. ``load_flax`` loads strictly, so
 a port parameter missing from the variables raises too.
+
+``model_type="mask_rcnn"`` maps the JAX ``MaskRCNN``'s variables onto
+``attentionshift_torch.models.mask_rcnn.MaskRCNN``: the ResNet backbone by
+its own rules (every conv kernel (kh, kw, Cin, Cout) -> ``Conv2d``'s
+(Cout, Cin, kh, kw), the 7x7 stem and the 1x1 stride-2 ``downsample_conv``
+included; ``layer{s}_{b}`` -> ``layer{s}.{b}``; ``downsample_conv`` /
+``downsample_bn`` -> ``downsample.0`` / ``.1``; the ``FrozenBN`` vectors
+``scale``, ``bias``, ``mean``, ``var``, which flax keeps under ``params``,
+-> the buffers ``weight``, ``bias``, ``running_mean``, ``running_var``),
+the neck, RPN, box and mask heads by the rules above (the mask head's
+``ConvTranspose`` kernel flipped).
 """
 
 from __future__ import annotations
@@ -71,8 +82,38 @@ def _leaf(path: tuple, value: np.ndarray):
     raise KeyError("/".join(path))
 
 
-def flax_to_torch(variables: dict) -> dict:
-    """Flax ``{"params", "batch_stats"}`` (numpy leaves) -> torch state dict."""
+_FROZEN_BN = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+
+
+def _resnet_leaf(path: tuple, value: np.ndarray):
+    """(torch key, tensor) for one flax ``ResNet`` param path (below
+    ``backbone``)."""
+    x = np.asarray(value, dtype=np.float32)
+    *mods, name = path
+    key = []
+    for m in mods:
+        stem, _, idx = m.rpartition("_")
+        if stem.startswith("layer") and idx.isdigit():
+            key.extend([stem, idx])
+        elif m in ("downsample_conv", "downsample_bn"):
+            key.extend(["downsample", "0" if m == "downsample_conv" else "1"])
+        else:
+            key.append(m)
+    if name == "kernel" and x.ndim == 4:
+        return ".".join(key + ["weight"]), x.transpose(3, 2, 0, 1)
+    if name in _FROZEN_BN:
+        return ".".join(key + [_FROZEN_BN[name]]), x
+    raise KeyError("/".join(path))
+
+
+def flax_to_torch(variables: dict, model_type: str = "attnshift") -> dict:
+    """Flax ``{"params", "batch_stats"}`` (numpy leaves) -> torch state dict
+    of the port's ``AttnShiftDetector`` or, with ``model_type="mask_rcnn"``,
+    of its ``MaskRCNN``."""
+    if model_type == "mask_rcnn":
+        return _mask_rcnn_to_torch(variables.get("params", variables))
+    if model_type != "attnshift":
+        raise ValueError(f"flax_to_torch: unknown model_type {model_type!r}")
     params = variables.get("params", variables)
     sd = {}
     for path, value in _flatten(params):
@@ -94,7 +135,25 @@ def flax_to_torch(variables: dict) -> dict:
     return sd
 
 
-def load_flax(model: torch.nn.Module, variables: dict) -> torch.nn.Module:
+def _mask_rcnn_to_torch(params: dict) -> dict:
+    sd = {}
+    for path, value in _flatten(params):
+        try:
+            if path[0] == "backbone":
+                key, arr = _resnet_leaf(path[1:], value)
+                key = "backbone." + key
+            elif path[0] in ("neck", "rpn_head", "bbox_head", "mask_head"):
+                key, arr = _leaf(path, value)
+            else:
+                raise KeyError("/".join(path))
+        except KeyError as e:
+            raise KeyError(f"flax_to_torch: unmapped parameter {e.args[0]}") from None
+        sd[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    return sd
+
+
+def load_flax(model: torch.nn.Module, variables: dict,
+              model_type: str = "attnshift") -> torch.nn.Module:
     """Strictly load converted flax variables into ``model``."""
-    model.load_state_dict(flax_to_torch(variables), strict=True)
+    model.load_state_dict(flax_to_torch(variables, model_type), strict=True)
     return model

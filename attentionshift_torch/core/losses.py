@@ -1,7 +1,8 @@
 """Loss functions with mmdet-compatible semantics.
 
 Port of ``attentionshift_tpu/core/losses.py`` (the train step's losses):
-sigmoid focal loss, softmax and sigmoid cross-entropy, L1 and GIoU. All
+sigmoid focal loss, softmax and sigmoid cross-entropy, L1, smooth L1 (the
+Mask R-CNN box head's) and GIoU. All
 take explicit weights and an ``avg_factor`` like mmdet, on fixed-shape
 padded tensors.
 """
@@ -14,7 +15,7 @@ import torch.nn.functional as F
 from .boxes import bbox_overlaps
 
 __all__ = ["sigmoid_focal_loss", "softmax_cross_entropy", "binary_cross_entropy", "l1_loss",
-           "giou_loss"]
+           "smooth_l1_loss", "giou_loss"]
 
 
 def _reduce(loss, weight, avg_factor):
@@ -60,6 +61,16 @@ def binary_cross_entropy(logits, targets, weight=None, avg_factor=None):
 
 def l1_loss(pred, target, weight=None, avg_factor=None):
     return _reduce((pred - target).abs(), weight, avg_factor)
+
+
+def smooth_l1_loss(pred, target, beta: float = 1.0, weight=None, avg_factor=None):
+    """mmdet SmoothL1Loss: 0.5 x^2 / beta below beta, |x| - beta / 2 above;
+    elementwise when neither ``weight`` nor ``avg_factor`` is given."""
+    diff = (pred - target).abs()
+    loss = torch.where(diff < beta, 0.5 * diff * diff / beta, diff - 0.5 * beta)
+    if weight is None and avg_factor is None:
+        return loss
+    return _reduce(loss, weight, avg_factor)
 
 
 def giou_loss(pred, target, weight=None, avg_factor=None, eps: float = 1e-7):

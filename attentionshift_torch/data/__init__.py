@@ -1,7 +1,7 @@
 """Datasets, the train and test pipelines and the train loader (numpy, PIL).
 
-The port's own copies of ``attentionshift_tpu/data`` (``refine.py``, the
-refinement stage's dataset, is not ported yet).
+The port's own copies of ``attentionshift_tpu/data``, ``refine.py`` (the
+refinement stage's dataset and pipeline) included.
 """
 
 from .loader import TrainLoader
@@ -30,3 +30,7 @@ __all__ += ["build_eval_dataset", "build_train_dataset"]
 from .sbd import SBDInstanceDataset, image_wise_to_instance_wise
 
 __all__ += ["SBDInstanceDataset", "image_wise_to_instance_wise"]
+
+from .refine import InstanceCocoDataset, RefineTrainPipeline
+
+__all__ += ["InstanceCocoDataset", "RefineTrainPipeline"]

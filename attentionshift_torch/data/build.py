@@ -26,8 +26,11 @@ def build_train_dataset(node: dict):
             node["ann_file"], node["img_prefix"], repeat=int(node.get("repeat", 1))
         )
     if kind == "InstanceCocoDataset":
-        raise NotImplementedError("build_train_dataset: InstanceCocoDataset (the refinement "
-                                  "stage's dataset) is not ported yet")
+        from .refine import InstanceCocoDataset
+
+        return InstanceCocoDataset(
+            node["ann_file"], node["img_prefix"], repeat=int(node.get("repeat", 1))
+        )
     raise ValueError(f"unknown train dataset type: {kind}")
 
 

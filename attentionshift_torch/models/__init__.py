@@ -1,4 +1,5 @@
-"""ViT backbone, FPN, RPN, RoI heads and the detector."""
+"""ViT backbone, FPN, RPN, RoI heads and the detector; the refinement
+stage's ResNet (``models.resnet``) and Mask R-CNN (``models.mask_rcnn``)."""
 
 from .detector import AttnShiftDetector, TestOutputs
 from .heads import MILHead

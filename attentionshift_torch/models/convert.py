@@ -1,6 +1,6 @@
-"""Torch MAE checkpoint -> the port's ViT backbone.
+"""Torch MAE / torchvision checkpoints -> the port's backbones.
 
-Port of ``attentionshift_tpu/models/convert.py`` (the MAE pretrain init
+Port of ``attentionshift_tpu/models/convert.py`` (the pretrain inits
 of ``tools/train.py``), replacing the reference's
 ``load_checkpoint(strict=False)`` (`mmcv_custom/checkpoint.py:286-358`):
 an MAE encoder ``state_dict`` is grafted onto
@@ -16,8 +16,13 @@ package's ``mae_to_vit_params`` -> the port's names and layouts through
 the port's ``PatchEmbed`` is a space-to-depth and one matmul whose input
 axis is ordered (p, p, C)).
 
-Not ported yet: ``mae_to_decoder_params`` (waits for the MAE head) and
-``torchvision_resnet_params`` (waits for the refinement stage).
+``torchvision_resnet_params`` grafts a torchvision ResNet ``state_dict``
+onto the refinement stage's ``models.resnet.ResNet``, whose names and
+layouts are torchvision's: the BatchNorm running statistics land in the
+``FrozenBN`` buffers, ``fc.*`` and ``num_batches_tracked`` are dropped,
+and keys the checkpoint lacks keep their init (strict=False).
+
+Not ported yet: ``mae_to_decoder_params`` (waits for the MAE head).
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ import torch
 from ..convert import _leaf
 from .layers import interpolate_pos_embed
 
-__all__ = ["load_torch_state_dict", "resolve_checkpoint_path", "mae_to_vit_params"]
+__all__ = ["load_torch_state_dict", "resolve_checkpoint_path", "mae_to_vit_params",
+           "torchvision_resnet_params"]
 
 
 def resolve_checkpoint_path(path: str, cache_dir: str | None = None,
@@ -173,3 +179,33 @@ def _resize_pos_embed(pe: np.ndarray, tgt_shape) -> np.ndarray:
     side = int(round(float(np.sqrt(tgt_shape[1] - 1))))
     res = interpolate_pos_embed(torch.from_numpy(pe), side, side, num_prefix=1)
     return res.numpy().astype(np.float32)
+
+
+_RESNET_LEAVES = ("weight", "bias", "running_mean", "running_var")
+
+
+def torchvision_resnet_params(state: Mapping[str, np.ndarray],
+                              params: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Graft a torchvision ResNet ``state_dict`` onto a ``ResNet`` state dict.
+
+    Args:
+        state: torch state_dict arrays (``conv1``, ``bn1``,
+            ``layer{s}.{b}.{conv,bn}{1,2,3}``, ``layer{s}.0.downsample.{0,1}``,
+            ``fc``).
+        params: the backbone's ``state_dict()`` (not modified).
+
+    Returns:
+        a new state dict with the same keys: every conv weight and BN
+        vector the checkpoint holds replaced (in each target's dtype and
+        device), every other one a copy.
+    """
+    out = {k: v.detach().clone() for k, v in params.items()}
+    for key, tgt in out.items():
+        if key.rsplit(".", 1)[-1] not in _RESNET_LEAVES or key not in state:
+            continue
+        arr = np.asarray(state[key], np.float32)
+        if tuple(arr.shape) != tuple(tgt.shape):
+            raise ValueError(f"torchvision_resnet_params: {key} is {tuple(tgt.shape)}, the "
+                             f"checkpoint gives {tuple(arr.shape)}")
+        out[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(tgt)
+    return out

@@ -3,11 +3,18 @@
 Port of ``attentionshift_tpu/models/fpn.py``: 1x1 lateral convs (a
 ``Dense`` over the channel-last axis),
 nearest-neighbour top-down addition, 3x3 output convs (as shifted
-matmuls), and extra stride-2 subsampled levels up to ``num_outs``. It
-feeds only the RPN. Convs are Xavier-uniform initialised, as mmdet's.
+matmuls), and extra stride-2 subsampled levels up to ``num_outs``. In the
+AttnShift detector it feeds only the RPN; in the Mask R-CNN every head.
+Convs are Xavier-uniform initialised, as mmdet's.
+
+``in_channels`` is one width for every level (the ViT's taps) or one per
+level, fine to coarse ((256, 512, 1024, 2048) for ResNet-50); the flax
+module infers it from its inputs.
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 import torch.nn as nn
@@ -23,11 +30,14 @@ def _upsample_nearest2x(x):
 
 
 class FPN(nn.Module):
-    def __init__(self, in_channels: int = 384, out_channels: int = 256, num_ins: int = 4,
-                 num_outs: int = 5):
+    def __init__(self, in_channels: int | Sequence[int] = 384, out_channels: int = 256,
+                 num_ins: int = 4, num_outs: int = 5):
         super().__init__()
         self.num_outs = num_outs
-        self.lateral = nn.ModuleList(Dense(in_channels, out_channels) for _ in range(num_ins))
+        widths = [in_channels] * num_ins if isinstance(in_channels, int) else list(in_channels)
+        if len(widths) != num_ins:
+            raise ValueError(f"FPN: {len(widths)} input widths for {num_ins} levels")
+        self.lateral = nn.ModuleList(Dense(cin, out_channels) for cin in widths)
         self.fpn_conv = nn.ModuleList(Conv3x3Matmul(out_channels, out_channels)
                                       for _ in range(num_ins))
         self.reset_parameters()

@@ -51,12 +51,22 @@ def roi_align(feats: torch.Tensor, rois: torch.Tensor, spatial_scale: float,
     wy = _interp_matrix(ys, h)  # (N, S, H)
     wx = _interp_matrix(xs, w)  # (N, S, W)
     if b == 1:
-        # (N, S, H) x (C, H, W) x (N, T, W) -> (N, C, S, T), f32 accumulation
-        tmp = torch.einsum("nsh,chw->ncsw", wy, feats[0].float())
-        crops = torch.einsum("ncsw,ntw->ncst", tmp, wx)
+        crops = _crop(feats[0], wy, wx)
     else:
-        per_roi = feats[r[:, 0].long()].float()
-        tmp = torch.einsum("nsh,nchw->ncsw", wy, per_roi)
-        crops = torch.einsum("ncsw,ntw->ncst", tmp, wx)
+        # one image at a time: the intermediate is O(N_i C S W) per image,
+        # never a copy of the whole map per RoI
+        img = r[:, 0].long()
+        crops = wy.new_zeros(n, c, out * sr, out * sr)
+        for i in range(b):
+            sel = (img == i).nonzero()[:, 0]
+            if sel.numel():
+                crops = crops.index_put((sel,), _crop(feats[i], wy[sel], wx[sel]))
     crops = crops.reshape(n, c, out, sr, out, sr).mean(dim=(3, 5))
     return crops.to(feats.dtype)
+
+
+def _crop(feat, wy, wx):
+    """(C, H, W) map, (N, S, H) and (N, T, W) weights -> (N, C, S, T),
+    f32 accumulation."""
+    tmp = torch.einsum("nsh,chw->ncsw", wy, feat.float())
+    return torch.einsum("ncsw,ntw->ncst", tmp, wx)

@@ -112,19 +112,19 @@ def data_parallel(group):
         _GROUP = prev
 
 
-def global_count(n: torch.Tensor) -> torch.Tensor:
-    """A loss normaliser: ``max(n, 1)`` for a count ``n`` over the rank's
-    batch, outside a data-parallel step.
+def global_count(n: torch.Tensor, floor: float = 1.0) -> torch.Tensor:
+    """A loss normaliser: ``max(n, floor)`` for a count ``n`` over the
+    rank's batch, outside a data-parallel step.
 
-    Inside one (``data_parallel``), the rank's share ``max(N, 1) / W`` of
-    the count N summed over the W ranks: each rank's loss is then W
+    Inside one (``data_parallel``), the rank's share ``max(N, floor) / W``
+    of the count N summed over the W ranks: each rank's loss is then W
     times its part of the loss over the global batch, so that the mean
     over the ranks of the losses, and of their gradients, is the global
     loss and its gradient, as the JAX package computes them.
     """
     if _GROUP is None:
-        return n.clamp_min(1.0)
+        return n.clamp_min(floor)
     total = n.detach().float().clone()
     dist.all_reduce(total, group=_GROUP)
     COUNTS["normalisers"] += 1
-    return total.clamp_min(1.0) / dist.get_world_size(_GROUP)
+    return total.clamp_min(floor) / dist.get_world_size(_GROUP)

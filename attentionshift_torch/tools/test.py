@@ -12,8 +12,13 @@ into the original frames and prints the metric dict as JSON on the last
 line: VOC07 mask AP at IoU {0.25, 0.5, 0.75} (``mAP@...``) for VOC,
 AP/AP50/AP75 for COCO.
 
-The model runs on the card (bf16, the storage type of the attention
-kernels) unless ``--device cpu`` asks for the plain PyTorch path (f32).
+``model_type = "mask_rcnn"`` (``configs/mrcnn_refine_voc.py``) builds the
+refinement stage's ResNet-FPN ``MaskRCNN``, which both protocols drive
+through the same stage contract.
+
+The model runs on the card (the AttnShift detector in bf16, the storage
+type of the attention kernels; the Mask R-CNN in f32, as the JAX package
+runs it) unless ``--device cpu`` asks for the plain PyTorch path (f32).
 Under ``torchrun`` (a process group of N ranks) each rank evaluates its
 stride of the dataset and rank 0 merges the predictions through
 ``--gather-dir``, a directory every rank can write, then computes and
@@ -58,16 +63,17 @@ def build(args):
     from ..device import resolve_device
     from ..eval.aug_test import AugTester
     from ..models import AttnShiftDetector
+    from ..models.mask_rcnn import MaskRCNN
     from ..parallel.mesh import init_distributed
     from ..train.checkpoint import restore_params
 
     cfg = Config.fromfile(args.config).merge_from_options(args.cfg_options)
-    if cfg.get("model_type", "attnshift") == "mask_rcnn":
-        raise NotImplementedError("tools.test: model_type='mask_rcnn' (the refinement stage) is "
-                                  "not ported yet")
     _, _, dev = init_distributed(resolve_device(args.device))
-    dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
-    model = AttnShiftDetector(device=dev, dtype=dtype, **cfg.model.to_dict())
+    if cfg.get("model_type", "attnshift") == "mask_rcnn":
+        model = MaskRCNN(device=dev, **cfg.model.to_dict())
+    else:
+        dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+        model = AttnShiftDetector(device=dev, dtype=dtype, **cfg.model.to_dict())
     if args.checkpoint:
         # params-only restore: independent of the training optimizer layout
         model.load_state_dict(restore_params(args.checkpoint), strict=True)

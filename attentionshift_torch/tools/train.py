@@ -9,20 +9,27 @@ Builds the VOC (or COCO) point dataset, its ``TrainPipeline`` and the
 ``TrainLoader`` over this rank's stride of it, the ``AttnShiftDetector``
 of ``CFG``'s ``model`` block (seeded init, then the MAE graft when
 ``pretrained`` names a checkpoint), the layer-decay AdamW over the port's
-parameter names (running statistics are buffers no optimizer touches),
-then runs the epoch loop: epoch-gated loss weights, a log line and a
+parameter names (running statistics are buffers no optimizer touches).
+With ``model_type = "mask_rcnn"`` (the refinement stage,
+``configs/mrcnn_refine_voc.py``) it builds instead the
+``InstanceCocoDataset`` of the pseudo-label json that
+``tools.gen_pseudo_labels`` writes, its ``RefineTrainPipeline``, the
+ResNet-FPN ``MaskRCNN`` (seeded init, then the torchvision ResNet graft
+when ``pretrained`` names a checkpoint), the SGD recipe over its
+trainable parameters and ``make_refine_train_step``. Then it
+runs the epoch loop: epoch-gated loss weights, a log line and a
 ``train_log.jsonl`` record every ``log_interval`` steps after the
 non-finite check, an epoch checkpoint ``W/epoch_N`` every
 ``checkpoint_interval`` epochs, auto-resume from the latest one, and the
 val metric every ``eval_interval`` epochs.
 
-The model runs on the card (bf16 compute, f32 parameters) unless
-``--device cpu`` asks for the plain PyTorch path (f32). Under ``torchrun``
-each rank is one process on one card: ``data.batch_size`` is per rank,
-the train step computes the losses and gradients of the global batch,
-and rank 0 alone logs, saves and evaluates. Tensor, sequence and pipeline
-parallelism, the teacher and ``model_type='mask_rcnn'`` raise
-``NotImplementedError``.
+The model runs on the card unless ``--device cpu`` asks for the plain
+PyTorch path (f32): the AttnShift detector in bf16 compute with f32
+parameters, the Mask R-CNN in f32, as the JAX package runs it. Under
+``torchrun`` each rank is one process on one card: ``data.batch_size`` is
+per rank, the train step computes the losses and gradients of the global
+batch, and rank 0 alone logs, saves and evaluates. Tensor, sequence and
+pipeline parallelism and the teacher raise ``NotImplementedError``.
 
 A step's draws come from a generator seeded from (seed + 1, step, rank)
 (``train.step_generator``), so a run resumed from a checkpoint draws what
@@ -59,27 +66,22 @@ def parse_args(argv=None):
 
 
 def _check_ported(cfg) -> None:
-    if cfg.get("model_type", "attnshift") == "mask_rcnn":
-        raise NotImplementedError("tools.train: model_type='mask_rcnn' (the refinement stage) is "
-                                  "not ported yet")
     if cfg.get("teacher", {}).get("enabled", False):
         raise NotImplementedError("tools.train: teacher.enabled (the EMA teacher) is not ported yet")
 
 
 def build(args) -> SimpleNamespace:
     """Everything the epoch loop needs, from parsed ``args``: the config,
-    this rank's place in the process group, dataset, loader, model (MAE
-    grafted), train state (resumed) and step function."""
+    this rank's place in the process group, dataset, loader, model (MAE or
+    ResNet grafted), train state (resumed) and step function."""
     from ..config import Config
     from ..data.build import build_train_dataset
     from ..data.loader import TrainLoader
     from ..data.pipeline import TrainPipeline
+    from ..data.refine import RefineTrainPipeline
     from ..device import resolve_device
-    from ..models import AttnShiftDetector
-    from ..models.convert import load_torch_state_dict, mae_to_vit_params
     from ..parallel.mesh import init_distributed, mesh_from_config, place_state
-    from ..train import (TrainState, build_optimizer, latest_checkpoint, make_train_step,
-                         restore_checkpoint)
+    from ..train import TrainState, latest_checkpoint, restore_checkpoint
 
     cfg = Config.fromfile(args.config).merge_from_options(args.cfg_options)
     _check_ported(cfg)
@@ -95,12 +97,19 @@ def build(args) -> SimpleNamespace:
             json.dump(cfg.to_dict(), f, indent=2, default=str)
 
     seed = int(cfg.runtime.seed)
+    refine = cfg.get("model_type", "attnshift") == "mask_rcnn"
     dataset = build_train_dataset(cfg.data.train.to_dict())
-    crop = cfg.data.get("crop_size", None)
-    pipeline = TrainPipeline(
-        scales=[tuple(s) for s in cfg.data.train_scales], max_gt=int(cfg.data.max_gt),
-        flip_ratio=float(cfg.data.flip_ratio), crop_size=tuple(crop) if crop else None,
-        brightness_delta=float(cfg.data.get("brightness_delta", 0.0)))
+    scales = [tuple(s) for s in cfg.data.train_scales]
+    if refine:
+        pipeline = RefineTrainPipeline(
+            scales=scales, max_gt=int(cfg.data.max_gt), flip_ratio=float(cfg.data.flip_ratio),
+            mask_stride=int(cfg.model.get("mask_stride", 4)))
+    else:
+        crop = cfg.data.get("crop_size", None)
+        pipeline = TrainPipeline(
+            scales=scales, max_gt=int(cfg.data.max_gt), flip_ratio=float(cfg.data.flip_ratio),
+            crop_size=tuple(crop) if crop else None,
+            brightness_delta=float(cfg.data.get("brightness_delta", 0.0)))
     loader = TrainLoader(dataset, pipeline, batch_size=int(cfg.data.batch_size), seed=seed,
                          num_threads=int(cfg.data.num_threads), process_index=rank,
                          process_count=dp)
@@ -114,26 +123,8 @@ def build(args) -> SimpleNamespace:
         raise ValueError(f"dataset contains label {max_label} but model.num_classes="
                          f"{cfg.model.num_classes} (NumClassCheckHook)")
 
-    dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
-    model = AttnShiftDetector(device=dev, dtype=dtype, **cfg.model.to_dict()).init_weights(seed)
-    if cfg.get("pretrained"):
-        sd = load_torch_state_dict(cfg.pretrained)
-        model.backbone.load_state_dict(
-            mae_to_vit_params(sd, model.backbone.state_dict(), depth=int(cfg.model.depth)))
-        print(f"loaded MAE pretrain: {cfg.pretrained}", flush=True)
-    # layer decay over the port's parameter names; the JAX CLI hands its
-    # optimizer the whole variables dict, which makes every scale 1.0
-    # (ROADMAP section C)
-    opt = build_optimizer(
-        model, base_lr=float(cfg.optimizer.base_lr),
-        weight_decay=float(cfg.optimizer.weight_decay),
-        layer_decay=float(cfg.optimizer.layer_decay), depth=int(cfg.model.depth),
-        steps_per_epoch=steps_per_epoch, decay_epochs=tuple(cfg.schedule.decay_epochs),
-        warmup_iters=int(cfg.schedule.warmup_iters),
-        warmup_ratio=float(cfg.schedule.warmup_ratio),
-        accumulate_steps=int(cfg.optimizer.accumulate_steps),
-        grad_clip=cfg.optimizer.get("grad_clip"),
-        skip_nonfinite=cfg.optimizer.get("skip_nonfinite", 100))
+    model, opt, step_fn = (_build_refine if refine else _build_attnshift)(
+        cfg, dev, seed, steps_per_epoch, group)
     state = TrainState.create(model, opt)
     resume = args.resume_from
     if resume is None and not args.no_auto_resume:
@@ -145,7 +136,58 @@ def build(args) -> SimpleNamespace:
     return SimpleNamespace(cfg=cfg, args=args, rank=rank, world=world, device=dev, group=group,
                            seed=seed, dataset=dataset, loader=loader,
                            steps_per_epoch=steps_per_epoch, model=model, state=state,
-                           step_fn=make_train_step(model, group), resumed=resume)
+                           step_fn=step_fn, resumed=resume)
+
+
+def _schedule_kw(cfg, steps_per_epoch: int) -> dict:
+    """The optimizer arguments both recipes take from the config."""
+    return dict(base_lr=float(cfg.optimizer.base_lr),
+                weight_decay=float(cfg.optimizer.weight_decay),
+                steps_per_epoch=steps_per_epoch, decay_epochs=tuple(cfg.schedule.decay_epochs),
+                warmup_iters=int(cfg.schedule.warmup_iters),
+                warmup_ratio=float(cfg.schedule.warmup_ratio),
+                accumulate_steps=int(cfg.optimizer.accumulate_steps),
+                grad_clip=cfg.optimizer.get("grad_clip"),
+                skip_nonfinite=cfg.optimizer.get("skip_nonfinite", 100))
+
+
+def _build_attnshift(cfg, dev, seed: int, steps_per_epoch: int, group):
+    """(model, optimizer, step function) of the AttnShift detector."""
+    from ..models import AttnShiftDetector
+    from ..models.convert import load_torch_state_dict, mae_to_vit_params
+    from ..train import build_optimizer, make_train_step
+
+    dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    model = AttnShiftDetector(device=dev, dtype=dtype, **cfg.model.to_dict()).init_weights(seed)
+    if cfg.get("pretrained"):
+        sd = load_torch_state_dict(cfg.pretrained)
+        model.backbone.load_state_dict(
+            mae_to_vit_params(sd, model.backbone.state_dict(), depth=int(cfg.model.depth)))
+        print(f"loaded MAE pretrain: {cfg.pretrained}", flush=True)
+    # layer decay over the port's parameter names; the JAX CLI hands its
+    # optimizer the whole variables dict, which makes every scale 1.0
+    # (ROADMAP section C)
+    opt = build_optimizer(model, layer_decay=float(cfg.optimizer.layer_decay),
+                          depth=int(cfg.model.depth), **_schedule_kw(cfg, steps_per_epoch))
+    return model, opt, make_train_step(model, group)
+
+
+def _build_refine(cfg, dev, seed: int, steps_per_epoch: int, group):
+    """(model, optimizer, step function) of the refinement stage's Mask
+    R-CNN (f32, as the JAX package runs it)."""
+    from ..models.convert import load_torch_state_dict, torchvision_resnet_params
+    from ..models.mask_rcnn import MaskRCNN
+    from ..train import build_sgd_optimizer, make_refine_train_step
+
+    model = MaskRCNN(device=dev, **cfg.model.to_dict()).init_weights(seed)
+    if cfg.get("pretrained"):
+        sd = load_torch_state_dict(cfg.pretrained)
+        model.backbone.load_state_dict(torchvision_resnet_params(sd, model.backbone.state_dict()))
+        print(f"loaded ResNet pretrain: {cfg.pretrained}", flush=True)
+    opt = build_sgd_optimizer(model, momentum=float(cfg.optimizer.get("momentum", 0.9)),
+                              frozen_stages=int(cfg.model.get("frozen_stages", 1)),
+                              **_schedule_kw(cfg, steps_per_epoch))
+    return model, opt, make_refine_train_step(model, group)
 
 
 def train_step(run: SimpleNamespace, batch: dict, epoch: int, draws=None) -> dict:

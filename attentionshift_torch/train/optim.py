@@ -19,6 +19,14 @@ parameters:
   in a row, and is counted (``notfinite_count``, ``last_finite``,
   ``total_notfinite``).
 
+``build_sgd_optimizer`` is the refinement stage's rule
+(``build_sgd_optimizer`` of the JAX package, mmdet's ``SGD momentum=0.9
+wd=1e-4``): coupled weight decay added to the gradient, then the
+momentum trace ``m = g + momentum * m`` and the step ``-lr * m``
+(``add_decayed_weights`` -> ``trace`` -> ``scale_by_learning_rate``), on
+the same schedule, clip, accumulation and non-finite guard, inside the
+same ``Optimizer``.
+
 Parameters and moments are f32 whatever the model's compute dtype.
 """
 
@@ -30,7 +38,7 @@ from typing import Sequence
 import torch
 
 __all__ = ["vit_layer_id", "lr_scales", "weight_decay_mask", "step_lr_schedule", "Optimizer",
-           "build_optimizer"]
+           "build_optimizer", "build_sgd_optimizer"]
 
 
 def vit_layer_id(name: str, num_layers: int) -> int:
@@ -52,13 +60,33 @@ def lr_scales(names: Sequence[str], layer_decay: float, depth: int) -> dict[str,
     return {n: layer_decay ** (num_layers - vit_layer_id(n, num_layers) - 1) for n in names}
 
 
-def weight_decay_mask(named_params) -> dict[str, bool]:
-    """True where weight decay applies (mmcv no-decay rules)."""
+def _frozen(name: str, frozen_stages: int) -> bool:
+    """Whether ``name`` lies in the ResNet stem or a stage up to
+    ``frozen_stages`` (``backbone.conv1``, ``backbone.layer1.0...``)."""
+    path = name.split(".")
+    if frozen_stages < 0 or "backbone" not in path:
+        return False
+    rest = path[path.index("backbone") + 1:]
+    if not rest:
+        return False
+    if rest[0] in ("conv1", "bn1"):
+        return True
+    if rest[0].startswith("layer") and rest[0][5:].isdigit():
+        return int(rest[0][5:]) <= frozen_stages
+    return False
+
+
+def weight_decay_mask(named_params, frozen_stages: int = -1) -> dict[str, bool]:
+    """True where weight decay applies (mmcv no-decay rules).
+
+    ``frozen_stages``: also exclude the ResNet stem and the stages up to
+    it, which ``models.resnet.ResNet`` freezes (a frozen parameter gets
+    neither gradient nor decay, as torch's ``requires_grad=False``)."""
     mask = {}
     for name, p in named_params:
         leaf = name.rsplit(".", 1)[-1]
         mask[name] = not (p.dim() <= 1 or leaf == "bias" or name.endswith("_token")
-                          or "pos_embed" in name)
+                          or "pos_embed" in name or _frozen(name, frozen_stages))
     return mask
 
 
@@ -79,11 +107,16 @@ _B1, _B2, _EPS = 0.9, 0.999, 1e-8  # Adam's moments and epsilon
 
 
 class Optimizer:
-    """The train recipe's optimizer over ``named_params`` (name, tensor)."""
+    """The train recipe's optimizer over ``named_params`` (name, tensor):
+    ``rule="adamw"`` (the AttnShift recipe) or ``"sgd"`` (the refinement
+    stage's, with ``momentum``)."""
 
     def __init__(self, named_params, sched, weight_decay: float, scales: dict, wd_mask: dict,
                  accumulate_steps: int = 1, grad_clip: float | None = None,
-                 skip_nonfinite: int | None = 100):
+                 skip_nonfinite: int | None = 100, rule: str = "adamw", momentum: float = 0.9):
+        if rule not in ("adamw", "sgd"):
+            raise ValueError(f"Optimizer: unknown rule {rule!r}")
+        self.rule, self.momentum = rule, momentum
         named = list(named_params)
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
@@ -92,8 +125,10 @@ class Optimizer:
         self.decay = [weight_decay if wd_mask[n] else 0.0 for n in self.names]
         self.accumulate_steps, self.grad_clip = accumulate_steps, grad_clip
         self.skip_nonfinite = skip_nonfinite
+        # Adam's first moment, or SGD's momentum trace
         self.mu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
-        self.nu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+        self.nu = ([torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+                   if rule == "adamw" else None)
         self.acc = ([torch.zeros_like(p, dtype=torch.float32) for p in self.params]
                     if accumulate_steps > 1 else None)
         self.count = 0  # optimizer updates made (Adam's and the schedule's count)
@@ -110,7 +145,8 @@ class Optimizer:
         def named(ts):
             return {n: t.detach().cpu().clone() for n, t in zip(self.names, ts)}
 
-        return dict(mu=named(self.mu), nu=named(self.nu),
+        return dict(rule=self.rule, mu=named(self.mu),
+                    nu=None if self.nu is None else named(self.nu),
                     acc=None if self.acc is None else named(self.acc),
                     **{k: getattr(self, k) for k in self._COUNTERS})
 
@@ -118,6 +154,9 @@ class Optimizer:
     def load_state_dict(self, state: dict) -> None:
         """Restore ``state_dict()``'s output into this optimizer's tensors
         (same parameter names and accumulation setting, else raises)."""
+        if state.get("rule", "adamw") != self.rule:
+            raise ValueError(f"Optimizer.load_state_dict: the checkpoint's rule "
+                             f"{state.get('rule', 'adamw')!r} is not this optimizer's {self.rule!r}")
         if (state["acc"] is None) != (self.acc is None):
             raise ValueError("Optimizer.load_state_dict: the checkpoint's gradient accumulation "
                              "does not match this optimizer's")
@@ -165,8 +204,21 @@ class Optimizer:
             scale = torch.where(norm < self.grad_clip, torch.ones_like(norm),
                                 self.grad_clip / norm)
             grads = torch._foreach_mul(grads, scale)
-        self._adamw(grads)
+        if self.rule == "adamw":
+            self._adamw(grads)
+        else:
+            self._sgd(grads)
         return True
+
+    def _sgd(self, grads) -> None:
+        # coupled decay, then the momentum trace, then -lr (optax's
+        # add_decayed_weights -> trace -> scale_by_learning_rate)
+        upd = torch._foreach_add(grads, torch._foreach_mul(self.params, self.decay))
+        torch._foreach_mul_(self.mu, self.momentum)
+        torch._foreach_add_(self.mu, upd)
+        lr = self.sched(self.count)
+        self.count += 1
+        torch._foreach_add_(self.params, torch._foreach_mul(self.mu, [-lr * s for s in self.scales]))
 
     def _adamw(self, grads) -> None:
         b1, b2 = _B1, _B2
@@ -204,3 +256,25 @@ def build_optimizer(model_or_named_params, base_lr: float = 1e-4, weight_decay: 
     return Optimizer(named, sched, weight_decay, lr_scales(names, layer_decay, depth),
                      weight_decay_mask(named), accumulate_steps=accumulate_steps,
                      grad_clip=grad_clip, skip_nonfinite=skip_nonfinite)
+
+
+def build_sgd_optimizer(model_or_named_params, base_lr: float = 0.02, momentum: float = 0.9,
+                        weight_decay: float = 1e-4, steps_per_epoch: int = 1000,
+                        decay_epochs: Sequence[int] = (8, 11), warmup_iters: int = 500,
+                        warmup_ratio: float = 1e-3, accumulate_steps: int = 1,
+                        grad_clip: float | None = None, frozen_stages: int = 1,
+                        skip_nonfinite: int | None = 100) -> Optimizer:
+    """The stock detection recipe (SGD with momentum, ``schedule_1x``) for
+    the Mask R-CNN refinement stage, over a model's trainable parameters
+    (or the given named parameters). ``frozen_stages`` must match the
+    backbone's, so that frozen parameters get no decay."""
+    named = model_or_named_params
+    if isinstance(named, torch.nn.Module):
+        named = [(n, p) for n, p in named.named_parameters() if p.requires_grad]
+    named = list(named)
+    sched = step_lr_schedule(base_lr, steps_per_epoch, decay_epochs, warmup_iters=warmup_iters,
+                             warmup_ratio=warmup_ratio)
+    return Optimizer(named, sched, weight_decay, {n: 1.0 for n, _ in named},
+                     weight_decay_mask(named, frozen_stages), accumulate_steps=accumulate_steps,
+                     grad_clip=grad_clip, skip_nonfinite=skip_nonfinite, rule="sgd",
+                     momentum=momentum)

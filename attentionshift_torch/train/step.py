@@ -2,8 +2,10 @@
 
 Port of ``attentionshift_tpu/train/step.py``: ``make_train_step``, one
 function that computes the losses, the gradients of their sum, and
-applies the accumulating optimizer; ``make_eval_step``, single-scale
-inference; ``step_generator``, the per-step source of random draws.
+applies the accumulating optimizer; ``make_refine_train_step``, the same
+for the Mask R-CNN refinement stage (boxes, labels and masks instead of
+points); ``make_eval_step``, single-scale inference; ``step_generator``,
+the per-step source of random draws.
 
 Under a process group the train step computes what the JAX step computes
 over a data-sharded mesh: every loss over the global batch (its
@@ -13,7 +15,9 @@ all-reduce per call, so that each micro-step of an accumulation window is
 global too) and the global loss values as metrics.
 
 Batch contract (leading dim = the rank's batch): img (B, H, W, 3),
-gt_points (B, G, 2), gt_labels (B, G), gt_valid (B, G), img_wh (B, 2).
+gt_points (B, G, 2), gt_labels (B, G), gt_valid (B, G), img_wh (B, 2);
+for the refinement step gt_boxes (B, G, 4) and gt_masks (B, G, H/s, W/s)
+uint8 at the model's ``mask_stride`` s instead of gt_points.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch.distributed as dist
 from ..parallel.mesh import COUNTS, data_parallel
 from .state import TrainState
 
-__all__ = ["make_train_step", "make_eval_step", "step_generator"]
+__all__ = ["make_train_step", "make_refine_train_step", "make_eval_step", "step_generator"]
 
 
 def step_generator(seed: int, step: int, device, rank: int = 0) -> torch.Generator:
@@ -62,14 +66,37 @@ def make_train_step(model, group=None) -> Callable:
     batch; losses, gradients and metrics are then those of the global
     batch. Without one the step runs no collective.
     """
-    params = [p for _, p in model.named_parameters()]
+    def forward(batch, generator, loss_enable, draws, drop_masks=None):
+        return model(batch["img"], batch["gt_points"], batch["gt_labels"], batch["gt_valid"],
+                     batch["img_wh"], loss_enable=loss_enable, generator=generator, draws=draws,
+                     drop_masks=drop_masks)
 
-    def train_step(state: TrainState, batch: dict, generator=None, loss_enable=1.0,
-                   draws=None, drop_masks=None):
+    return _make_step(model, group, forward)
+
+
+def make_refine_train_step(model, group=None) -> Callable:
+    """Build the train step for a ``MaskRCNN`` (the refinement stage):
+    (state, batch, generator=None, loss_enable=1.0, draws=None) ->
+    (state, metrics), with ``make_train_step``'s metrics, process-group
+    semantics (the RCNN sample count and the mask normaliser summed over
+    the ranks) and gradients of the trainable parameters only (the frozen
+    ResNet stages have none)."""
+
+    def forward(batch, generator, loss_enable, draws):
+        return model(batch["img"], batch["gt_boxes"], batch["gt_labels"], batch["gt_masks"],
+                     batch["gt_valid"], batch["img_wh"], loss_enable=loss_enable,
+                     generator=generator, draws=draws)
+
+    return _make_step(model, group, forward)
+
+
+def _make_step(model, group, forward) -> Callable:
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def train_step(state: TrainState, batch: dict, generator=None, loss_enable=1.0, draws=None,
+                   **kw):
         with data_parallel(group):
-            losses, _ = model(batch["img"], batch["gt_points"], batch["gt_labels"],
-                              batch["gt_valid"], batch["img_wh"], loss_enable=loss_enable,
-                              generator=generator, draws=draws, drop_masks=drop_masks)
+            losses, _ = forward(batch, generator, loss_enable, draws, **kw)
         total = sum(v for k, v in losses.items() if k.startswith("loss"))
         grads = torch.autograd.grad(total, params, allow_unused=True)
         metrics = {k: v.detach() for k, v in losses.items()}

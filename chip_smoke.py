@@ -67,7 +67,26 @@ Phases, each printing its own lines:
    launches per image and no backward kernel, every RLE decoded at its
    image's size with its area, boxes inside their images, category ids in
    1..20;
-11. times with CUDA events: every kernel, its plain version, the library
+11. the refinement stage (AttnShift-dagger): first the TINY Mask R-CNN
+   train step (f32, ResNet depths (1, 1, 1, 1), batch 2 at 128x128) on the
+   card against the same step on the CPU from the same init and draws
+   (losses 2e-4, gradients 2e-3 of each tensor's largest entry); then the
+   twin of ``tools/train.py`` on ``configs/mrcnn_refine_voc.py`` as it is
+   (ResNet-50-FPN, f32, batch 2 at (800, 1333), 1000 proposals, 512 RCNN
+   samples, 128 mask RoIs, SGD 0.0025) over the json that phase 10 wrote,
+   with a synthetic torchvision ResNet-50 checkpoint as ``pretrained``:
+   the graft checked tensor by tensor, invocation 1 runs 4 micro-steps and
+   saves ``epoch_1``, invocation 2 auto-resumes for 4 more; finite losses,
+   a gradient for and a move of every trainable tensor, the frozen stem,
+   ``layer1`` and every FrozenBN buffer bitwise unchanged, ``opt.count``;
+   the twin of ``tools/test.py`` on ``epoch_2``, single-scale and
+   ``--aug-test``, over the 2 val images: the metric keys, finite. No
+   hand-written kernel launches anywhere on this path (asserted; the kernel
+   table's ``launches_refine_train`` / ``launches_refine_eval``). Its times
+   beside the card's name and power limit: ms per micro-step (host clock,
+   median of steps 2-4), peak memory, one profiled micro-step (device busy
+   time and its top ops), single-scale and aug-test ms/img;
+12. times with CUDA events: every kernel, its plain version, the library
    call where one exists, ms/img of the pseudo-label path and of
    inference and ms per train step, each with one profiled call. The
    attention kernels and their SDPA yardsticks (the forward with the same
@@ -1240,8 +1259,9 @@ def counting(module, name: str, calls: list):
     return mock.patch.object(module, name, run)
 
 
-def gradient_tops(store: dict):
-    """Patch ``Optimizer.step`` to keep the largest |gradient| per submodule."""
+def gradient_tops(store: dict, key=lambda name: name.split(".", 1)[0]):
+    """Patch ``Optimizer.step`` to keep the largest |gradient| per ``key``
+    of a parameter name (its submodule by default; 0 for a None gradient)."""
     from unittest import mock
 
     from attentionshift_torch.train.optim import Optimizer
@@ -1250,9 +1270,8 @@ def gradient_tops(store: dict):
 
     def step(self, grads):
         for name, g in zip(self.names, grads):
-            if g is not None:
-                m = name.split(".", 1)[0]
-                store[m] = max(store.get(m, 0.0), float(g.float().abs().max()))
+            top = 0.0 if g is None else float(g.float().abs().max())
+            store[key(name)] = max(store.get(key(name), 0.0), top)
         return inner(self, grads)
 
     return mock.patch.object(Optimizer, "step", step)
@@ -1414,7 +1433,7 @@ def phase_train_cli():
     c2 = out[2]["counts"]
     if c2.get("gradients") != TRAIN_CLI_STEPS or not c2.get("normalisers"):
         raise AssertionError(f"invocation 2 did not take the process-group branch: {c2}")
-    return dict(argv=argv, opts=opts, cfg=cfg, work=work, tmp=tmp, out=out)
+    return dict(argv=argv, opts=opts, cfg=cfg, work=work, tmp=tmp, out=out, root=root, node=node)
 
 
 def phase_train_cli_same_step(tc: dict):
@@ -1573,6 +1592,315 @@ def phase_cli_times(tc: dict, same: tuple, pc: dict, ms_step_b1: float) -> None:
         statistics.median(ms[1:]), what="pseudo-label dump image")
     log(f"[pseudo-cli] one profiled image: {counts(avgs, 'cudaStreamSynchronize')} "
         f"cudaStreamSynchronize, busy {'not measured' if busy is None else f'{busy:.1%}'}")
+
+
+REFINE_STEPS = 4  # micro-steps per invocation: batch 2, accumulate_steps 1
+REFINE_LOSS_KEYS = {"loss_rpn_cls", "loss_rpn_bbox", "loss_cls", "rcnn_acc", "loss_bbox",
+                    "loss_mask"}
+# configs/mrcnn_refine_voc.py as it is: the phase checks the CLI built this
+REFINE_AS_CONFIGURED = dict(depths=(3, 4, 6, 3), batch_size=2, train_scales=[(800, 1333)],
+                            num_proposals=1000, rcnn_samples=512, mask_sample_cap=128,
+                            base_lr=0.0025)
+
+
+def torchvision_resnet50_state(seed: int = 7) -> dict:
+    """A seeded random torchvision ResNet-50 ``state_dict`` under
+    torchvision's key names: He-normal conv weights, BN affines near the
+    identity with positive running variances (``calibrate_frozen_bn`` sets
+    them from the data), and the classifier and ``num_batches_tracked``
+    entries that the graft drops."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def conv(name, cout, cin, k):
+        sd[f"{name}.weight"] = torch.randn(cout, cin, k, k, generator=gen) * (2.0 / (cin * k * k)) ** 0.5
+
+    def bn(name, c):
+        sd[f"{name}.weight"] = 1.0 + 0.05 * torch.randn(c, generator=gen)
+        sd[f"{name}.bias"] = 0.05 * torch.randn(c, generator=gen)
+        sd[f"{name}.running_mean"] = 0.05 * torch.randn(c, generator=gen)
+        sd[f"{name}.running_var"] = 0.75 + 0.5 * torch.rand(c, generator=gen)
+        sd[f"{name}.num_batches_tracked"] = torch.tensor(1000)
+
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    cin = 64
+    for stage, blocks in enumerate((3, 4, 6, 3)):
+        f = 64 * 2**stage
+        for b in range(blocks):
+            p = f"layer{stage + 1}.{b}"
+            conv(f"{p}.conv1", f, cin if b == 0 else 4 * f, 1)
+            conv(f"{p}.conv2", f, f, 3)
+            conv(f"{p}.conv3", 4 * f, f, 1)
+            for c, width in ((1, f), (2, f), (3, 4 * f)):
+                bn(f"{p}.bn{c}", width)
+            if b == 0:
+                conv(f"{p}.downsample.0", 4 * f, cin, 1)
+                bn(f"{p}.downsample.1", 4 * f)
+        cin = 4 * f
+    sd["fc.weight"] = 0.01 * torch.randn(1000, cin, generator=gen)
+    sd["fc.bias"] = torch.zeros(1000)
+    return sd
+
+
+def calibrate_frozen_bn(sd: dict, dev) -> dict:
+    """``sd`` with every BN's running mean and variance set to the batch
+    statistics of its input in one forward of the port's ResNet-50 on
+    noise images, each BN calibrated before the next sees its output: a
+    random backbone normalised as a trained one is, so that the features,
+    the RPN's deltas and the proposals' sizes (hence their FPN levels)
+    stay in a trained detector's range."""
+    import torch
+
+    from attentionshift_torch.models.resnet import FrozenBN, ResNet
+
+    net = ResNet(depths=(3, 4, 6, 3)).to(dev)
+    net.load_state_dict({k: v for k, v in sd.items() if k in net.state_dict()}, strict=True)
+
+    def stats(module, inputs):
+        x = inputs[0]
+        module.running_mean.copy_(x.mean(dim=(0, 2, 3)))
+        module.running_var.copy_(x.var(dim=(0, 2, 3)))
+
+    hooks = [m.register_forward_pre_hook(stats) for m in net.modules() if isinstance(m, FrozenBN)]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    with torch.no_grad():
+        net(torch.randn(2, 512, 512, 3, device=dev, generator=gen))
+    for h in hooks:
+        h.remove()
+    return dict(sd, **{k: v.cpu() for k, v in net.state_dict().items()
+                       if k.endswith(("running_mean", "running_var"))})
+
+
+def phase_refine_reference(dev):
+    """The refinement stage's TINY Mask R-CNN train step (f32, ResNet depths
+    (1, 1, 1, 1), batch 2 at 128 x 128) on the card against the same step
+    on the CPU (the plain path that the CPU tests hold against the JAX
+    package), from the same seeded init, batch and draws: losses within
+    2e-4 of max(1, |loss|), sampled positives equal, every gradient within
+    2e-3 of its tensor's largest entry; no hand-written kernel launched."""
+    import numpy as np
+    import torch
+
+    from attentionshift_torch.models.mask_rcnn import MaskRCNN
+    from attentionshift_torch.ops._build import reset_launches
+    from attentionshift_torch.train import TrainState, build_sgd_optimizer, make_refine_train_step
+
+    kw = dict(num_classes=5, num_proposals=50, rpn_nms_pre=100, rcnn_samples=32,
+              mask_sample_cap=8, depths=(1, 1, 1, 1), test_max_per_img=10)
+    rs = np.random.RandomState(1)
+    boxes = np.asarray([[[8, 8, 60, 70], [50, 40, 120, 100], [10, 60, 50, 126], [0, 0, 0, 0]],
+                        [[20, 4, 90, 50], [64, 64, 127, 127], [4, 30, 40, 90], [0, 0, 0, 0]]],
+                       np.float32)
+    masks = np.zeros((2, 4, 32, 32), np.uint8)
+    for i in range(2):
+        for j, (x1, y1, x2, y2) in enumerate(boxes[i, :3].astype(int) // 4):
+            masks[i, j, y1:y2, x1:x2] = 1
+    batch = dict(img=torch.from_numpy(rs.randn(2, 128, 128, 3).astype(np.float32)),
+                 gt_boxes=torch.from_numpy(boxes), gt_masks=torch.from_numpy(masks),
+                 gt_labels=torch.tensor([[1, 2, 3, 0], [4, 0, 2, 0]], dtype=torch.int32),
+                 gt_valid=torch.tensor([[True, True, True, False]] * 2),
+                 img_wh=torch.tensor([[128.0, 128.0]] * 2))
+    gen = torch.Generator().manual_seed(5)
+    n_anchors = 3 * sum(s * s for s in (32, 16, 8, 4, 2))
+    draws = [dict(rpn_u_pos=torch.rand(n_anchors, generator=gen),
+                  rpn_u_neg=torch.rand(n_anchors, generator=gen),
+                  rcnn_u_pos=torch.rand(54, generator=gen), rcnn_u_neg=torch.rand(54, generator=gen),
+                  mask_u=torch.rand(32, generator=gen)) for _ in range(2)]
+
+    def run(device):
+        model = MaskRCNN(device=device, **kw).init_weights(seed=0)
+        opt = build_sgd_optimizer(model, steps_per_epoch=10)
+        seen, inner, pos, fwd = {}, opt.step, [], model.forward
+        opt.step = lambda grads: (seen.update({n: g.detach().cpu() for n, g in
+                                               zip(opt.names, grads)}), inner(grads))[1]
+        model.forward = lambda *a, **k: (lambda out: (pos.append(out[1]["pos"].cpu()), out)[1])(
+            fwd(*a, **k))
+        reset_launches()
+        _, metrics = make_refine_train_step(model)(
+            TrainState.create(model, opt), {k: v.to(device) for k, v in batch.items()},
+            draws=draws)
+        sync()
+        return {k: float(v) for k, v in metrics.items()}, seen, pos[0], launch_counts()
+
+    card, card_grads, card_pos, launched = run(dev)
+    host, host_grads, host_pos, _ = run(torch.device("cpu"))
+    if any(launched.values()):
+        raise AssertionError(f"the TINY refine step launched a hand-written kernel: {launched}")
+    if set(card) != set(host) or not torch.equal(card_pos, host_pos) or not card_pos.any():
+        raise AssertionError(f"refine step card vs CPU: keys {sorted(card)} vs {sorted(host)}, "
+                             f"positives equal {torch.equal(card_pos, host_pos)}")
+    worst = max(abs(card[k] - v) / max(1.0, abs(v)) for k, v in host.items())
+    expect("small.refine.losses", worst, 2e-4,
+           "f32 card vs f32 CPU, relative to max(1, |loss|), the train step's tolerance")
+    worst = max(max_err(card_grads[n], g) / max(float(g.abs().max()), 1e-30)
+                for n, g in host_grads.items())
+    expect("small.refine.grads", worst, 2e-3,
+           "every trainable gradient, relative to its tensor's largest entry")
+    log(f"[small] refine step card vs CPU: {len(host)} metrics, {len(host_grads)} gradients, "
+        f"{int(card_pos.sum())} sampled positives equal; no hand-written kernel launched")
+
+
+def phase_refine_cli(tc: dict, smi: str) -> dict:
+    """The refinement stage (AttnShift-dagger) through the port's entry
+    points at the full width of ``configs/mrcnn_refine_voc.py`` as it is
+    (ResNet-50-FPN Mask R-CNN, f32, batch 2 at (800, 1333), 1000 proposals,
+    512 RCNN samples, 128 mask RoIs, SGD 0.0025), chained on the pseudo-label
+    json that the dump phase wrote, with a synthetic torchvision ResNet-50
+    checkpoint (BN statistics calibrated) as ``pretrained``. ``tools.train`` invocation 1 runs 4
+    micro-steps and saves ``epoch_1``; invocation 2 auto-resumes for 4 more
+    and saves ``epoch_2``; ``tools.test`` evaluates ``epoch_2`` single-scale
+    and with ``--aug-test`` over the 2 val images. Checks the graft tensor by
+    tensor, finite losses, a gradient for and a move of every trainable
+    parameter, the frozen stem, ``layer1`` and every FrozenBN buffer bitwise
+    unchanged, the optimizer's count, the metric dicts, and that no
+    hand-written kernel launches anywhere on the path; then the times."""
+    import math
+    import statistics
+
+    import torch
+
+    from attentionshift_torch.eval.aug_test import AugTester
+    from attentionshift_torch.eval.runner import evaluate
+    from attentionshift_torch.models.mask_rcnn import MaskRCNN
+    from attentionshift_torch.ops._build import reset_launches
+    from attentionshift_torch.tools import test as test_cli
+    from attentionshift_torch.tools import train as cli
+
+    t_phase = time.perf_counter()
+    tmp, root = tc["tmp"], tc["root"]
+    sd = calibrate_frozen_bn(torchvision_resnet50_state(), torch.device(
+        "cuda" if torch.cuda.is_available() else "cpu"))
+    pretrained = os.path.join(tmp, "resnet50_torchvision.pth")
+    torch.save(sd, pretrained)
+    cfg = os.path.join(HERE, "configs", "mrcnn_refine_voc.py")
+    work = os.path.join(tmp, "refine_work")
+    val = [f"data.val.split_file={root}/ImageSets/Segmentation/val.txt", f"data.val.voc_root={root}"]
+    opts = ["--cfg-options", f"data.train.ann_file={os.path.join(tmp, 'pseudo_train.json')}",
+            f"data.train.img_prefix={tc['node']['img_prefix']}", *val, f"pretrained={pretrained}",
+            "schedule.total_epochs=2", "runtime.log_interval=1"]
+    argv = [cfg, "--work-dir", work, "--max-steps", str(REFINE_STEPS), "--no-validate"] + opts
+
+    run = cli.build(cli.parse_args(argv))
+    c, m = run.cfg, run.model
+    built = dict(depths=m.backbone.depths, batch_size=int(c.data.batch_size),
+                 train_scales=[tuple(x) for x in c.data.train_scales],
+                 num_proposals=m.num_proposals, rcnn_samples=m.rcnn_samples,
+                 mask_sample_cap=m.mask_sample_cap, base_lr=float(c.optimizer.base_lr))
+    if not (isinstance(m, MaskRCNN) and built == REFINE_AS_CONFIGURED
+            and run.state.optimizer.rule == "sgd"
+            and all(p.dtype == torch.float32 for p in m.parameters())):
+        raise AssertionError(f"the refine phase runs configs/mrcnn_refine_voc.py as it is: {built}")
+    bb = m.backbone.state_dict()
+    for key, t in bb.items():
+        if not torch.equal(t.cpu(), sd[key]):
+            raise AssertionError(f"ResNet graft: backbone.{key} differs from the checkpoint's")
+    log(f"[refine-cli] torchvision ResNet-50 graft before the first step: all {len(bb)} backbone "
+        f"tensors equal to the checkpoint's (fc and num_batches_tracked dropped)")
+    init = {k: v.detach().cpu().clone() for k, v in m.state_dict().items()}
+    trainable = {n for n, p in m.named_parameters() if p.requires_grad}
+    del run, m, bb
+    out = {}
+    for inv in (1, 2):
+        calls, grads = [], {}
+        torch.cuda.reset_peak_memory_stats()
+        with counting(cli, "train_step", calls), gradient_tops(grads, key=lambda name: name):
+            reset_launches()
+            stats = cli.main(argv)
+            sync()
+        total = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        if len(calls) != REFINE_STEPS or any(nonzero(cl["launches"]) for cl in calls) or any(
+                total.values()):
+            raise AssertionError(f"refine CLI {inv}: {len(calls)} micro-steps, launches {total}")
+        vals = stats["metrics"]
+        if set(vals) != REFINE_LOSS_KEYS | {"loss_total"} or not all(map(math.isfinite,
+                                                                         vals.values())):
+            raise AssertionError(f"refine CLI {inv}: metrics {vals}")
+        with open(os.path.join(work, "train_log.jsonl")) as f:
+            if len(f.readlines()) != inv * REFINE_STEPS:
+                raise AssertionError("refine train_log.jsonl: wrong record count")
+        ckpt = torch.load(os.path.join(work, f"epoch_{inv}"), map_location="cpu", weights_only=True)
+        o = ckpt["opt_state"]
+        if (ckpt["epoch"], ckpt["step"], o["rule"], o["count"], o["nu"]) != (
+                inv, inv * REFINE_STEPS, "sgd", inv * REFINE_STEPS, None):
+            raise AssertionError(f"refine epoch_{inv}: epoch {ckpt['epoch']}, step {ckpt['step']}, "
+                                 f"rule {o['rule']}, count {o['count']}")
+        if set(grads) != trainable or not all(v > 0 for v in grads.values()):
+            raise AssertionError(f"refine CLI {inv}: no gradient for "
+                                 f"{sorted(n for n in trainable if not grads.get(n, 0) > 0)[:5]}")
+        frozen_moved = [k for k, v in ckpt["params"].items()
+                        if k not in trainable and not torch.equal(v, init[k])]
+        still = [k for k in trainable if torch.equal(ckpt["params"][k], init[k])]
+        bad = [k for k, v in ckpt["params"].items() if not bool(torch.isfinite(v).all())]
+        if frozen_moved or still or bad:
+            raise AssertionError(f"refine epoch_{inv}: frozen moved {frozen_moved[:5]}, trainable "
+                                 f"unmoved {still[:5]}, not finite {bad[:5]}")
+        _, batch, epoch = calls[0]["args"]
+        for cl in calls:  # let the invocation's run go
+            cl.pop("args"), cl.pop("out")
+        out[inv] = dict(stats=stats, peak=peak, total=total, batch=batch, epoch=epoch)
+        log(f"[refine-cli] {inv}: {REFINE_STEPS} micro-steps, last metrics "
+            f"{({k: round(v, 4) for k, v in sorted(vals.items())})}; every one of the "
+            f"{len(trainable)} trainable tensors got a gradient and moved; the "
+            f"{len(init) - len(trainable)} frozen tensors (stem, layer1, every FrozenBN buffer) "
+            f"bitwise unchanged; opt.count {o['count']}; launches {nonzero(total) or 'none'}")
+    s2 = out[2]["stats"]
+    if s2["resumed"] != os.path.join(work, "epoch_1") or s2["start_epoch"] != 1:
+        raise AssertionError(f"refine invocation 2 did not resume from epoch_1: {s2['resumed']}")
+    log("[refine-cli] 2: resumed from epoch_1 at epoch 1")
+
+    ckpt = os.path.join(work, "epoch_2")
+    evals = {}
+    for mode, extra in (("single", []), ("aug", ["--aug-test"])):
+        res, got, lines = run_cli([cfg, ckpt, "--cfg-options", *val] + extra, set())
+        if sorted(res) != ["mAP@0.25", "mAP@0.5", "mAP@0.75"] or not all(
+                map(math.isfinite, res.values())):
+            raise AssertionError(f"refine eval {mode}: {res}")
+        if any(got.values()):
+            raise AssertionError(f"refine eval {mode} launched a hand-written kernel: {got}")
+        evals[mode] = got
+        log(f"[refine-eval] {mode}: {res}; no hand-written kernel launched")
+
+    # times (host clock unless said), each beside the card
+    for inv in (1, 2):
+        st = out[inv]["stats"]
+        log(f"[time] refine train CLI {inv} ({smi}): "
+            f"{statistics.median(st['step_ms'][1:]):.2f} ms per micro-step at batch 2 (median of "
+            f"steps 2-{len(st['step_ms'])}, host clock; first {st['step_ms'][0]:.2f}); waiting on "
+            f"the loader {[round(x, 2) for x in st['wait_ms']]} ms; peak "
+            f"{out[inv]['peak']:.0f} MiB allocated; checkpoint save {st['save_s'][0]:.3f} s")
+    run = cli.build(cli.parse_args(argv + ["--resume-from", ckpt, "--no-auto-resume"]))
+    batch, epoch = out[2]["batch"], out[2]["epoch"]
+    cli.train_step(run, batch, epoch)
+    sync()
+    _, busy = profile_slice(lambda: cli.train_step(run, batch, epoch),
+                            statistics.median(out[2]["stats"]["step_ms"][1:]),
+                            what=f"refine micro-step (batch 2; {smi})")
+    log(f"[refine-cli] one profiled micro-step: busy "
+        f"{'not measured' if busy is None else f'{busy:.1%}'} ({smi})")
+    del run
+    args = test_cli.parse_args([cfg, ckpt, "--cfg-options", *val])
+    tcfg, model, dataset, _ = test_cli.build(args)
+    for mode in ("single", "aug"):
+        aug = AugTester(model, scales=test_cli.AUG_SCALES, flip=True) if mode == "aug" else None
+        evaluate(model, dataset, test_scale=tuple(tcfg.data.test_scale), limit=1, aug_tester=aug,
+                 num_classes=20, verbose=False)  # warm
+        sync()
+        t0 = time.perf_counter()
+        evaluate(model, dataset, test_scale=tuple(tcfg.data.test_scale), aug_tester=aug,
+                 num_classes=20, verbose=False)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3 / len(dataset)
+        log(f"[time] refine eval {mode}{' (6 scales x flip)' if aug else ''} ({smi}): {ms:.2f} "
+            f"ms/img over the {len(dataset)} val images (host clock, mask pasting and scoring "
+            f"included)")
+    log(f"[time] refine phase ({smi}): {time.perf_counter() - t_phase:.1f} s wall (host clock: "
+        f"the graft check, 2 x {REFINE_STEPS} micro-steps, the CLI evaluations, the timings)")
+    return dict(train={k: out[1]["total"][k] + out[2]["total"][k] for k in out[1]["total"]},
+                eval={k: evals["single"][k] + evals["aug"][k] for k in evals["single"]})
 
 
 def phase_tool(dev):
@@ -1977,6 +2305,8 @@ def main(argv=None) -> int:
     tc = phase_train_cli()
     same = phase_train_cli_same_step(tc)
     pc = phase_pseudo_cli(tc)
+    phase_refine_reference(dev)
+    rc = phase_refine_cli(tc, smi)
     phase_times(results, inp, model, slice_inp, gen)
     phase_main_path_inputs(results, handed)
     ms_step = phase_train_times(state, step_fn, batch, train_gen)
@@ -1997,7 +2327,7 @@ def main(argv=None) -> int:
                           launches=(seed_launches[name] + infer_launches[name]
                                     + train_launches[name] + tool_launches[name]
                                     + eval_single[name] + eval_aug[name] + train_cli[name]
-                                    + pseudo_cli[name]),
+                                    + pseudo_cli[name] + rc["train"][name] + rc["eval"][name]),
                           launches_seed_pseudo_gt=seed_launches[name],
                           launches_simple_test=infer_launches[name],
                           launches_train_steps=train_launches[name],
@@ -2006,6 +2336,8 @@ def main(argv=None) -> int:
                           launches_eval_aug_test=eval_aug[name],
                           launches_train_cli=train_cli[name],
                           launches_gen_pseudo_labels=pseudo_cli[name],
+                          launches_refine_train=rc["train"][name],
+                          launches_refine_eval=rc["eval"][name],
                           max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                           bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                           library_ms=r["library_ms"],

@@ -158,8 +158,10 @@ def test_cli_aug_test_prints_evaluate_metrics(cli_setup, evaluated, capsys, monk
 def test_cli_single_scale_and_its_contract(cli_setup, evaluated, capsys):
     """Single-scale through the CLI equals ``evaluate``; without a
     checkpoint every parameter and buffer is zero (the JAX CLI's
-    template); the refinement stage's model type is not ported and says
-    so; ``--limit 1`` scores one image."""
+    template); ``--limit 1`` scores one image; a ``model_type =
+    "mask_rcnn"`` config builds the refinement stage's Mask R-CNN in f32
+    (zero without a checkpoint) and scores an image with a checkpoint of
+    its own."""
     from attentionshift_torch.tools import test as cli
 
     cfg, ckpt, opts, _ = cli_setup
@@ -171,8 +173,28 @@ def test_cli_single_scale_and_its_contract(cli_setup, evaluated, capsys):
     assert all(float(t.abs().max()) == 0.0 for t in model.state_dict().values())
     one = cli.main([cfg, ckpt, "--device", "cpu", "--limit", "1", *opts])
     assert sorted(one) == ["mAP@0.25", "mAP@0.5", "mAP@0.75"]
-    with pytest.raises(NotImplementedError, match="mask_rcnn"):
-        cli.main([cfg, ckpt, "--device", "cpu", *opts, "model_type=mask_rcnn"])
+    from attentionshift_torch.models.mask_rcnn import MaskRCNN
+    from attentionshift_torch.train import save_params
+
+    d = cli_setup[3]
+    refine_kw = dict(num_classes=20, rpn_channels=32, num_proposals=16, rpn_nms_pre=32,
+                     rcnn_samples=8, mask_sample_cap=4, depths=(1, 1, 1, 1), test_max_per_img=10,
+                     test_score_thr=0.02)
+    rcfg = d / "tiny_refine.py"
+    rcfg.write_text(f"model_type = 'mask_rcnn'\nmodel = dict(**{refine_kw!r})\n"
+                    + cfg_text_data(cfg))
+    _, rmodel, _, _ = cli.build(cli.parse_args([str(rcfg), "--device", "cpu", *opts]))
+    assert isinstance(rmodel, MaskRCNN) and rmodel.dtype == torch.float32
+    assert all(float(t.abs().max()) == 0.0 for t in rmodel.state_dict().values())
+    rckpt = save_params(str(d / "refine_epoch_1"),
+                        MaskRCNN(device="cpu", **refine_kw).init_weights(0).state_dict())
+    one = cli.main([str(rcfg), rckpt, "--device", "cpu", "--limit", "1", *opts])
+    assert sorted(one) == ["mAP@0.25", "mAP@0.5", "mAP@0.75"]
+
+
+def cfg_text_data(cfg: str) -> str:
+    """The ``data`` line of a config file."""
+    return "".join(line for line in open(cfg).read().splitlines(True) if line.startswith("data"))
 
 
 def test_cli_scales_and_device_default(cli_setup):

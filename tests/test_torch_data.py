@@ -9,6 +9,8 @@ output exactly equal.
 
 from __future__ import annotations
 
+import json
+
 import numpy as np
 import pytest
 
@@ -212,27 +214,33 @@ def test_sbd_dataset_matches_jax_package(trees):
     _same(image_wise_to_instance_wise(cls, inst), jsbd.image_wise_to_instance_wise(cls, inst))
 
 
-def test_build_matches_jax_package(trees):
+def test_build_matches_jax_package(trees, tmp_path):
     """``build_train_dataset`` / ``build_eval_dataset`` dispatch to the same
-    datasets; the refinement stage's dataset is not ported and says so."""
+    datasets, the refinement stage's ``InstanceCocoDataset`` (over the COCO
+    tree's polygon and RLE segmentations, with boxes) included."""
     from attentionshift_torch.data import build_eval_dataset, build_train_dataset
     from attentionshift_tpu.data import build_eval_dataset as jeval
     from attentionshift_tpu.data import build_train_dataset as jtrain
 
     v, c = trees["voc"], trees["coco"]
+    coco = json.loads(open(c["ann_file"]).read())
+    for i, ann in enumerate(coco["annotations"]):
+        ann["bbox"] = [2.0 + i, 3.0, 20.0 + i, 15.0]
+    instances = tmp_path / "instances_boxes.json"
+    instances.write_text(json.dumps(coco))
     nodes = [
         (build_train_dataset, jtrain, dict(ann_file=v["ann_file"], img_prefix=v["img_prefix"],
                                            repeat=3)),
         (build_train_dataset, jtrain, dict(type="COCOPointDataset", **c)),
         (build_eval_dataset, jeval, dict(split_file=v["split_file"], voc_root=v["voc_root"])),
         (build_eval_dataset, jeval, dict(type="COCOEvalDataset", **c)),
+        (build_train_dataset, jtrain, dict(type="InstanceCocoDataset", ann_file=str(instances),
+                                           img_prefix=c["img_prefix"], repeat=2)),
     ]
     for mine, ref, node in nodes:
         a, b = mine(node), ref(node)
         assert type(a).__name__ == type(b).__name__ and len(a) == len(b)
         _same(a[len(a) - 1], b[len(b) - 1])
-    with pytest.raises(NotImplementedError, match="InstanceCocoDataset"):
-        build_train_dataset(dict(type="InstanceCocoDataset", **c))
     for fn in (build_train_dataset, build_eval_dataset):
         with pytest.raises(ValueError, match="unknown"):
             fn(dict(type="Nope"))

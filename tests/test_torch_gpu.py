@@ -533,3 +533,70 @@ def test_train_step_under_a_world_size_one_group_on_card(cuda, monkeypatch):
         assert len(grouped[what]) == len(alone[what]) > 0
         for a, b in zip(grouped[what], alone[what]):
             assert a.dtype == b.dtype and torch.equal(a, b), what
+
+
+@pytest.mark.gpu
+def test_refine_train_step_on_card_matches_cpu(cuda, monkeypatch):
+    """The refinement stage's TINY Mask R-CNN step (f32, ResNet depths
+    (1, 1, 1, 1), batch 2 at 128 x 128, 50 proposals, 32 RCNN samples, 8
+    mask RoIs) on the card against the same step on the CPU, from the same
+    seeded init, batch and draws (made on the CPU): every loss within 2e-4
+    of max(1, |loss|), the sampled positives exactly, every trainable
+    parameter's gradient within 2e-3 of that tensor's largest entry (the
+    train step's tolerances), and no hand-written kernel launched. cuDNN's
+    TF32 (which PyTorch's default allows for convolutions) is turned off
+    for the comparison, so that both sides compute in f32."""
+    from attentionshift_torch.models.mask_rcnn import MaskRCNN
+    from attentionshift_torch.ops._build import KERNELS, reset_launches
+    from attentionshift_torch.train import TrainState, build_sgd_optimizer, make_refine_train_step
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    kw = dict(num_classes=5, num_proposals=50, rpn_nms_pre=100, rcnn_samples=32,
+              mask_sample_cap=8, depths=(1, 1, 1, 1), test_max_per_img=10)
+    rs = np.random.RandomState(1)
+    boxes = np.asarray([[[8, 8, 60, 70], [50, 40, 120, 100], [10, 60, 50, 126], [0, 0, 0, 0]],
+                        [[20, 4, 90, 50], [64, 64, 127, 127], [4, 30, 40, 90], [0, 0, 0, 0]]],
+                       np.float32)
+    masks = np.zeros((2, 4, 32, 32), np.uint8)
+    for i in range(2):
+        for j, (x1, y1, x2, y2) in enumerate(boxes[i, :3].astype(int) // 4):
+            masks[i, j, y1:y2, x1:x2] = 1
+    batch = dict(img=torch.from_numpy(rs.randn(2, 128, 128, 3).astype(np.float32)),
+                 gt_boxes=torch.from_numpy(boxes), gt_masks=torch.from_numpy(masks),
+                 gt_labels=torch.tensor([[1, 2, 3, 0], [4, 0, 2, 0]], dtype=torch.int32),
+                 gt_valid=torch.tensor([[True, True, True, False]] * 2),
+                 img_wh=torch.tensor([[128.0, 128.0]] * 2))
+    gen = torch.Generator().manual_seed(5)
+    n_anchors = 3 * sum(s * s for s in (32, 16, 8, 4, 2))
+    draws = [dict(rpn_u_pos=torch.rand(n_anchors, generator=gen),
+                  rpn_u_neg=torch.rand(n_anchors, generator=gen),
+                  rcnn_u_pos=torch.rand(54, generator=gen), rcnn_u_neg=torch.rand(54, generator=gen),
+                  mask_u=torch.rand(32, generator=gen)) for _ in range(2)]
+
+    def run(dev):
+        model = MaskRCNN(device=dev, **kw).init_weights(seed=0)
+        opt = build_sgd_optimizer(model, steps_per_epoch=10)
+        seen, inner = [], opt.step
+        opt.step = lambda grads: (seen.append({n: g.detach().cpu() for n, g in
+                                               zip(opt.names, grads)}), inner(grads))[1]
+        pos = []
+        fwd = model.forward
+        model.forward = lambda *a, **k: (lambda out: (pos.append(out[1]["pos"].cpu()), out)[1])(
+            fwd(*a, **k))
+        reset_launches()
+        _, metrics = make_refine_train_step(model)(
+            TrainState.create(model, opt), {k: v.to(dev) for k, v in batch.items()}, draws=draws)
+        return {k: float(v) for k, v in metrics.items()}, seen[0], pos[0]
+
+    card, card_grads, card_pos = run(cuda)
+    torch.cuda.synchronize()
+    assert not any(k.launches for k in KERNELS.values())
+    host, host_grads, host_pos = run(torch.device("cpu"))
+    assert set(card) == set(host) and "loss_mask" in card
+    for name, ref in host.items():
+        assert abs(card[name] - ref) <= 2e-4 * max(1.0, abs(ref)), (name, card[name], ref)
+    assert torch.equal(card_pos, host_pos) and card_pos.sum() > 0
+    assert set(card_grads) == set(host_grads)
+    for name, ref in host_grads.items():
+        tol = 2e-3 * float(ref.abs().max()) + 1e-12
+        assert float((card_grads[name] - ref).abs().max()) <= tol, name

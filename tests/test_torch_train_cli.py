@@ -296,7 +296,7 @@ def test_loader_left_early_stops_its_workers():
 
 @pytest.mark.parametrize("opts, error", [
     (["model.num_classes=3"], ValueError),
-    (["model_type=mask_rcnn"], NotImplementedError),
+    (["model_type=mask_rcnn"], TypeError),
     (["teacher.enabled=True"], NotImplementedError),
     (["parallel.model=2"], NotImplementedError),
     (["parallel.sequence_parallel=True"], NotImplementedError),
@@ -306,8 +306,11 @@ def test_loader_left_early_stops_its_workers():
         "data-degree", "cuda-default"])
 def test_cli_raises(tree, tmp_path, opts, error):
     """The NumClassCheckHook analog, the paths that are not ported, a data
-    degree other than the ranks', and the card asked for by default on a
-    machine without one: each raises before any step."""
+    degree other than the ranks', the refinement stage's Mask R-CNN handed
+    the AttnShift detector's model block (its ViT keys are not a Mask
+    R-CNN's: ``tests/test_torch_refine_cli.py`` runs that path on its own
+    config), and the card asked for by default on a machine without one:
+    each raises before any step."""
     from attentionshift_torch.tools import train as cli
 
     cfg = write_config(tmp_path / "tiny.py", tree)
