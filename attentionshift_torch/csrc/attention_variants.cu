@@ -20,49 +20,142 @@
 // the TPU kernels' constant-shift softmax: no row maximum, logits in the
 // log2 domain shifted by -20.
 //
-// What bounds them on the H100. At the tool's shape (B=1, H=6, T=4352) one
-// call is 4*H*T^2*d = 29 GFLOP (33 with v6's 72 columns) against 13 MB of
-// q/k/v/out and the 38 MB mean: the tensor cores bound it (29 us at 989
-// TFLOP/s; the mean's write is 11 us at 3.35 TB/s).
+// What bounds them on the H100. At the tool's shape (B=1, H=6, T=4301) one
+// call is 4*H*T^2*d = 28.4 GFLOP (32 with v6's 72 columns) against 13 MB of
+// q/k/v/out and the 37 MB mean: the tensor cores bound it (29 us at 989
+// TFLOP/s; the mean's write is 11 us at 3.35 TB/s). Each e is an exp2, H*T^2
+// = 111 M per pass: 27 us per pass at 16 per clock per SM (1980 MHz, 132
+// SMs), so two passes over e cost 53 us of MUFU work that has to run beside
+// the products.
 //
-// What the design does about it. The TPU kernels hold a whole (128, T)
-// strip of e in VMEM; 64 x 4352 bf16 is 557 KB against an SM's 227 KB, so
-// each block owns a tile of query rows and sweeps the keys twice in 64-key
-// tiles: sweep 1 takes the row sums and PV (mma.sync m16n8k16 bf16, f32
-// accumulation, e kept in registers between the two products) and writes
-// out; sweep 2 recomputes e with the same operations in the same order
-// (so bit for bit the same e) and writes each mean tile once. Nothing
-// (T, T)-sized but the mean itself touches device memory. What differs
-// between the entry points is what their row of the list above says:
-//   v2, v3  the row sum is added up in registers and reduced over the four
-//           threads of a row with shuffles;
-//   v4      the row sum is a tensor-core product of the e fragments with an
-//           all-ones B operand; no shuffle;
-//   v5      one group of two warps per head, all heads of the same 32 query
-//           rows side by side in one block, each with its own K/V tiles in
-//           shared memory; the mean is reduced across the groups through
-//           shared memory;
-//   v6      the PV product runs over 72 columns (a ninth n=8 tile) and the
-//           denominator is read from column 64.
-// The serial head loop of v2/v3/v4/v6 leaves a block of 4 warps per 64
-// query rows: 68 blocks at T=4352, half of the card's 132 SMs. Tiles are
-// loaded synchronously (no cp.async/TMA/wgmma); a later change can
-// pipeline them. Key columns >= T get e = 0; rows >= T are not written.
+// v2 and v4: the Hopper design (helpers in hopper.cuh), two kernels per
+// call as the shipped capture pair of attention.cu. Tiles are 64 rows,
+// loaded by TMA from 3-D (B*H, T, 64) tensor maps under the 128-byte
+// swizzle with mbarrier completion; every product is a wgmma with f32
+// accumulators.
+//   out pass    (attn_v2_bf16e, attn_v4_mxsum) one block = two warpgroups
+//               = 128 query rows of one (image, head), VAR_BLOCKS_PER_SM
+//               blocks per SM (204 blocks at the tool's shape: one wave).
+//               Both warpgroups read each K and V tile of a VAR_STAGES-slot
+//               ring, refilled by thread 0 once both are done with a slot.
+//               Per key tile: S = Q K^T (wgmma m64n64k16 from shared
+//               memory), e rounded to bf16 into register A fragments, then
+//               one batch of O += e V (wgmma from registers, V read MN-major
+//               through the descriptor's transpose bit, so no transposed
+//               copy of V exists) and the next tile's S. The constant shift
+//               needs no running maximum, so O only adds: no rescale.
+//                 v2 adds the bf16 e into two f32 row sums per thread and
+//                 reduces them over the four threads of a row once, at the
+//                 end;
+//                 v4 issues one more wgmma per k16 step, m64n8k16 with the e
+//                 fragments as A and a 1 KB slot of bf16 1.0 as B (ones read
+//                 as ones under any swizzle): every column of that
+//                 accumulator is the row sum, on the tensor cores.
+//               It writes out and recip (B, H, T) f32 into a workspace the
+//               caller allocates.
+//   mean pass   (attn_var_mean, both variants) one block = one warpgroup per
+//               (64 query rows, chunk of key tiles, image), as attn_mean:
+//               the query tiles of every head loaded once and kept (at most
+//               VMEAN_RESIDENT_HEADS; above that each (key tile, head) unit
+//               brings its own query tile beside its K tile through the
+//               ring, so no head count is refused), K streamed per (key
+//               tile, head) through a VMEAN_STAGES-slot ring, S of the next
+//               unit issued before this unit's exp work; e recomputed with
+//               the same instructions in the same k16 order as in the out
+//               pass, so it has the same bits; e_h * recip_h / H added over
+//               the heads in f32 registers and each mean tile written once,
+//               in bf16. No atomics: every output element is written once,
+//               in a fixed order. The host picks the chunk length for the
+//               fewest, shortest waves.
+// Where trouble lies, and what the design does about it:
+//   - key columns >= T: TMA fills rows past T with zeros, which give s = 0
+//     and e = 2^-20, not 0. Only the last key tile can hold them (4301 =
+//     67*64 + 13: a ragged last tile at the tool's T); there each logit past
+//     T is set to -inf before the exp2 (a select, no branch around the
+//     exp2), so e = 0, in both passes alike;
+//   - the mean's rows are not 16-byte aligned at odd T (a row of 4301 is
+//     8602 bytes), so the mean cannot be stored by TMA: store_mean2 stores
+//     pairs where a row starts at an even element, single entries otherwise;
+//   - scaling q: one bf16 multiply per element rounded once, as q * scale in
+//     the storage dtype (the product of two bf16 is exact in f32, so __hmul2
+//     matches), done in shared memory after the tile arrives and made
+//     visible to wgmma with fence.proxy.async, in both passes alike;
+//   - exp2 accuracy: ex2.approx.ftz flushes denormal results and may differ
+//     from torch.exp2 by an f32 ulp before the bf16 rounding (the card
+//     checks allow 4 bf16 ulps of |out| and 2^-9 of the mean); integer
+//     inputs come out exact, so the clamp still gives 2^100 at both keys;
+//   - head count: the out pass has one block per (row block, head) and
+//     takes any H; the mean pass keeps every head's query tile only up to
+//     VMEAN_RESIDENT_HEADS and streams them above it (heads one at a time,
+//     added in f32 all the same);
+//   - wgmma asynchrony: every step issues one batch of products and waits
+//     for all of it, accumulators and A registers fenced on both sides, so
+//     ptxas keeps the products asynchronous (no C751x warning).
+//
+// v3, v5, v6: still the first design: tiles of 64 keys loaded
+// synchronously and mma.sync m16n8k16 bf16 products, each block owning 64
+// (v5: 32) query rows of one image and sweeping the keys twice, a serial
+// head loop (v5: one group of two warps per head), V transposed into
+// shared memory. Sweep 1 takes the row sums and PV and writes out; sweep 2
+// recomputes e with the same operations (so bit for bit the same e) and
+// writes each mean tile once.
+//   v3  the row sum is added up in registers and reduced over the four
+//       threads of a row with shuffles;
+//   v5  all heads of the same 32 query rows side by side in one block, each
+//       with its own K/V tiles in shared memory; the mean is reduced across
+//       the groups through shared memory;
+//   v6  the PV product runs over 72 columns (a ninth n=8 tile) and the
+//       denominator is read from column 64.
+// Key columns >= T get e = 0; rows >= T are not written.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
+
+// Design constants of the v2/v4 kernels. Each may be overridden with -D at
+// build time, which is how `chip_smoke.py --ablate attention_variants`
+// builds the variants it times.
+#ifndef VAR_STAGES
+#define VAR_STAGES 4  // K/V ring slots of the out pass
+#endif
+#ifndef VAR_BLOCKS_PER_SM
+#define VAR_BLOCKS_PER_SM 2  // out-pass blocks per SM (launch bounds)
+#endif
+#ifndef VMEAN_STAGES
+#define VMEAN_STAGES 2  // ring slots of the mean pass
+#endif
+#ifndef VMEAN_BLOCKS_PER_SM
+#define VMEAN_BLOCKS_PER_SM 3  // mean-pass blocks per SM (launch bounds)
+#endif
+#ifndef VMEAN_MAX_CHUNK
+#define VMEAN_MAX_CHUNK 16  // key tiles per mean-pass block, at most
+#endif
+#ifndef VMEAN_RESIDENT_HEADS
+#define VMEAN_RESIDENT_HEADS 12  // most heads whose query tiles the mean pass keeps
+#endif
+
+static_assert(VMEAN_STAGES >= 2, "a mean-pass slot is refilled while the next one is read");
 
 constexpr int HD = 64;         // head dim
 constexpr int BK = 64;         // keys per tile
 constexpr int LDS = BK + 8;    // smem row stride (bf16), keeps fragment reads conflict-free
 constexpr float SHIFT = 20.f;  // the constant softmax shift, log2 domain
+constexpr float CLAMP = 100.f;  // the exponent clamp of the clamped variants
 
 enum RowSum { SUM_SHUFFLE = 0, SUM_MMA_ONES = 1, SUM_IN_PV = 2 };
 
 typedef __nv_bfloat16 bf16;
+
+// ------------------------------------------------- first design (v3, v5, v6)
 
 __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
   asm volatile(
@@ -130,15 +223,15 @@ __device__ __forceinline__ void load_v_tile(bf16* Vt, const bf16* vh, int key0, 
   }
 }
 
-template <bool CLAMP>
+template <bool CLAMPED>
 __device__ __forceinline__ float exponent(float logit) {
-  return exp2f(CLAMP ? fminf(logit, 100.f) : logit);
+  return exp2f(CLAMPED ? fminf(logit, CLAMP) : logit);
 }
 
 // e = bf16(exp2(q.k - 20)) of a warp's 16 rows x 64 keys, packed in pairs:
 // pe[n][0] holds row a, pe[n][1] row b, keys key0 + n*8 + tig*2 (+1).
 // Both sweeps call this, so both see the same bits.
-template <bool CLAMP>
+template <bool CLAMPED>
 __device__ __forceinline__ void e_tile(uint32_t pe[8][2], const uint32_t qa[4][4], const bf16* Ks,
                                        int key0, int T, int gid, int tig) {
 #pragma unroll
@@ -154,14 +247,15 @@ __device__ __forceinline__ void e_tile(uint32_t pe[8][2], const uint32_t qa[4][4
     }
     const int col = key0 + nt * 8 + tig * 2;
     const bool in0 = col < T, in1 = col + 1 < T;
-    pe[nt][0] = pack2(in0 ? exponent<CLAMP>(s[0] - SHIFT) : 0.f,
-                      in1 ? exponent<CLAMP>(s[1] - SHIFT) : 0.f);
-    pe[nt][1] = pack2(in0 ? exponent<CLAMP>(s[2] - SHIFT) : 0.f,
-                      in1 ? exponent<CLAMP>(s[3] - SHIFT) : 0.f);
+    pe[nt][0] = pack2(in0 ? exponent<CLAMPED>(s[0] - SHIFT) : 0.f,
+                      in1 ? exponent<CLAMPED>(s[1] - SHIFT) : 0.f);
+    pe[nt][1] = pack2(in0 ? exponent<CLAMPED>(s[2] - SHIFT) : 0.f,
+                      in1 ? exponent<CLAMPED>(s[3] - SHIFT) : 0.f);
   }
 }
 
-// two adjacent mean entries (row r, columns col, col + 1) as bf16
+// two adjacent mean entries (row r, columns col, col + 1) as bf16: a pair
+// where a row starts at an even element (even T), single entries otherwise
 __device__ __forceinline__ void store_mean2(bf16* mb, int r, int col, int T, float x0, float x1) {
   if (r >= T) return;
   bf16* dst = mb + (size_t)r * T + col;
@@ -177,7 +271,7 @@ __device__ __forceinline__ void store_mean2(bf16* mb, int r, int col, int T, flo
 // side (one group of 2 warps per head), else one group of 4 warps that
 // loops over the heads. Dynamic shared memory, per group: Ks[64][LDS],
 // Vt[VD][LDS] (bf16); then recip[H][BQ] (f32).
-template <bool CLAMP, int SUM, bool PAR>
+template <bool CLAMPED, int SUM, bool PAR>
 __device__ __forceinline__ void variant_body(const bf16* __restrict__ q,
                                              const bf16* __restrict__ k,
                                              const bf16* __restrict__ v, bf16* __restrict__ out,
@@ -222,7 +316,6 @@ __device__ __forceinline__ void variant_body(const bf16* __restrict__ q,
 #pragma unroll
     for (int i = 0; i < ND; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
     float sum_a = 0.f, sum_b = 0.f;
-    float ones_acc[4] = {0.f, 0.f, 0.f, 0.f};
 
     for (int kt = 0; kt < ntiles; ++kt) {
       const int key0 = kt * BK;
@@ -232,7 +325,7 @@ __device__ __forceinline__ void variant_body(const bf16* __restrict__ q,
       __syncthreads();
 
       uint32_t pe[8][2];
-      e_tile<CLAMP>(pe, qa, Ks, key0, T, gid, tig);
+      e_tile<CLAMPED>(pe, qa, Ks, key0, T, gid, tig);
       if (SUM == SUM_SHUFFLE) {
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt) {
@@ -246,10 +339,6 @@ __device__ __forceinline__ void variant_body(const bf16* __restrict__ q,
       for (int kc = 0; kc < 4; ++kc) {
         const uint32_t pa[4] = {pe[2 * kc][0], pe[2 * kc][1], pe[2 * kc + 1][0],
                                 pe[2 * kc + 1][1]};
-        if (SUM == SUM_MMA_ONES) {
-          const uint32_t ones[2] = {0x3F803F80u, 0x3F803F80u};  // bf16 1.0 pairs
-          mma16816(ones_acc, pa, ones);
-        }
 #pragma unroll
         for (int dt = 0; dt < ND; ++dt) {
           uint32_t bb[2];
@@ -267,10 +356,6 @@ __device__ __forceinline__ void variant_body(const bf16* __restrict__ q,
         sum_a += __shfl_xor_sync(0xffffffffu, sum_a, off);
         sum_b += __shfl_xor_sync(0xffffffffu, sum_b, off);
       }
-    } else if (SUM == SUM_MMA_ONES) {
-      // every column of e @ ones is the row sum
-      sum_a = ones_acc[0];
-      sum_b = ones_acc[2];
     } else {
       // columns 64..71 of V are ones: the ninth n-tile is the row sum
       sum_a = o[ND - 1][0];
@@ -310,7 +395,7 @@ __device__ __forceinline__ void variant_body(const bf16* __restrict__ q,
       uint32_t qa[4][4];
       load_q(qa, q + head * HD, r_a, r_b, tig, T, scale2);
       uint32_t pe[8][2];
-      e_tile<CLAMP>(pe, qa, Ks, key0, T, gid, tig);
+      e_tile<CLAMPED>(pe, qa, Ks, key0, T, gid, tig);
       // serial heads: sum_h e_h * (recip_h / H); side by side: the mean over
       // the head axis of e_h * recip_h, divided after the sum
       const float c_a = PAR ? recip_s[h * BQ + lr_a] : recip_s[h * BQ + lr_a] * inv_h;
@@ -360,16 +445,8 @@ __device__ __forceinline__ void variant_body(const bf16* __restrict__ q,
   const bf16 *__restrict__ q, const bf16 *__restrict__ k, const bf16 *__restrict__ v,    \
       bf16 *__restrict__ out, bf16 *__restrict__ mean, int H, int T, float qscale
 
-__global__ void __launch_bounds__(128) attn_v2_bf16e(VARIANT_ARGS) {
-  variant_body<true, SUM_SHUFFLE, false>(q, k, v, out, mean, H, T, qscale);
-}
-
 __global__ void __launch_bounds__(128) attn_v3_nomin(VARIANT_ARGS) {
   variant_body<false, SUM_SHUFFLE, false>(q, k, v, out, mean, H, T, qscale);
-}
-
-__global__ void __launch_bounds__(128) attn_v4_mxsum(VARIANT_ARGS) {
-  variant_body<true, SUM_MMA_ONES, false>(q, k, v, out, mean, H, T, qscale);
 }
 
 // up to 8 heads side by side: 8 groups of 64 threads
@@ -383,22 +460,524 @@ __global__ void __launch_bounds__(128) attn_v6_fusedsum(VARIANT_ARGS) {
 
 typedef void (*VariantKernel)(const bf16*, const bf16*, const bf16*, bf16*, bf16*, int, int, float);
 
+// ---------------------------------------------------- Hopper design (v2, v4)
+
+constexpr int TILE = TILE_ROWS;
+constexpr int WG_THREADS = 128;  // one warpgroup
+constexpr int OUT_WARPGROUPS = 2;
+constexpr int OUT_ROWS = OUT_WARPGROUPS * TILE;
+constexpr int OUT_THREADS = OUT_WARPGROUPS * WG_THREADS;
+constexpr int ONES_BYTES = 1024;  // v4's B operand: 8 rows of 64 bf16 ones
+constexpr uint32_t BF16_ONES = 0x3F803F80u;
+
+// out pass: the query tiles, VAR_STAGES slots of (K, V), the ones, the barriers
+constexpr size_t OUT_SMEM = (size_t)(OUT_WARPGROUPS + 2 * VAR_STAGES) * TILE_BYTES + ONES_BYTES +
+                            (1 + VAR_STAGES) * sizeof(uint64_t) + 1024;
+
+// mean pass: the resident query tiles, VMEAN_STAGES slots of K (and of the
+// unit's query tile when they are not resident), the barriers
+size_t mean_smem(int H, bool resident) {
+  return (size_t)(resident ? H : 0) * TILE_BYTES +
+         (size_t)VMEAN_STAGES * (resident ? 1 : 2) * TILE_BYTES +
+         (1 + VMEAN_STAGES) * sizeof(uint64_t) + 1024;
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// column of accumulator element i of a thread (d[4j + i'] layout, hopper.cuh)
+__device__ __forceinline__ int acc_col(int i, int tig) { return (i >> 2) * 8 + tig * 2 + (i & 1); }
+
+// the bf16 halves of a packed pair, as f32
+__device__ __forceinline__ float bf_lo(uint32_t p) { return __uint_as_float(p << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t p) { return __uint_as_float(p & 0xFFFF0000u); }
+
+// e of a thread's 32 logits of a 64 x 64 tile whose keys start at key0,
+// rounded to bf16 A fragments (pe[kc][i] holds entries 8kc + 2i, 8kc + 2i +
+// 1: row a for even i, row b for odd i). Both passes call this on the same
+// S, so both get the same bits. Keys >= T (zeros from TMA) get -inf: e = 0.
+__device__ __forceinline__ void e_frags(uint32_t (&pe)[4][4], float (&s)[32], int key0, int T,
+                                        int tig) {
+  if (key0 + TILE > T) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = key0 + acc_col(i, tig) < T ? s[i] : -INFINITY;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = ex2(fminf(s[i] - SHIFT, CLAMP));
+  acc_to_a(pe, s);
+}
+
+// `bytes` of bf16 query tile in shared memory times the scale, each product
+// rounded once to bf16 (q * scale in the storage dtype), by `nthreads`
+// threads; then ordered before later wgmma reads (the caller syncs)
+__device__ __forceinline__ void scale_tiles(uint8_t* p, int bytes, __nv_bfloat162 s2, int tid,
+                                            int nthreads) {
+  for (int i = tid * 16; i < bytes; i += nthreads * 16) {
+    uint4 x = *reinterpret_cast<uint4*>(p + i);
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) h[j] = __hmul2(h[j], s2);
+    *reinterpret_cast<uint4*>(p + i) = x;
+  }
+  fence_async_smem();
+}
+
+__device__ __forceinline__ void fence_regs4(float (&d)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x 8, f32: d[0..1] row 16*warp + lane/4, d[2..3] eight rows on) (+)=
+// A (64 x 16 bf16 in registers, the m16n8k16 A layout) * B (16 x 8, K-major
+// slot). hopper.cuh has the n64 products only.
+__device__ __forceinline__ void wgmma_rs_n8(float (&d)[4], const uint32_t (&a)[4], uint64_t desc_b,
+                                            int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(acc));
+}
+
+// --------------------------------------------------------------- out pass
+
+struct OutArgs {
+  const uint8_t* q_s;  // this warpgroup's query tile (scaled)
+  uint8_t* ring;       // slot s: K at tile 2s, V at tile 2s + 1
+  const uint8_t* ones;
+  uint64_t* bars;  // [0] query tiles, [1 + s] slot s
+  const CUtensorMap* map_k;
+  const CUtensorMap* map_v;
+  int plane, n, T, tig, tid;
+};
+
+__device__ __forceinline__ void out_load(const OutArgs& a, int tile) {
+  const int st = tile % VAR_STAGES;
+  mbar_expect_tx(&a.bars[1 + st], 2 * TILE_BYTES);
+  tma_load_tile(a.ring + (2 * st) * TILE_BYTES, a.map_k, &a.bars[1 + st], tile * TILE, a.plane);
+  tma_load_tile(a.ring + (2 * st + 1) * TILE_BYTES, a.map_v, &a.bars[1 + st], tile * TILE,
+                a.plane);
+}
+
+// Key tile j: `s` holds its finished S and no product is in flight. Takes
+// e of `s` (and, for v2, adds it to the row sums); then one batch of
+// products, O += e V of tile j (v4: and the row sums e @ ones) and S of
+// tile j + 1 into `s`, after which tile j's slot is refilled. Every step
+// issues the same products and waits for all of them, so that ptxas keeps
+// them asynchronous: the last tile recomputes its own S, which nobody reads.
+template <int SUM>
+__device__ __forceinline__ void out_step(const OutArgs& a, float (&s)[32], float (&o)[32],
+                                         float (&rs)[4], uint32_t (&pa)[4][4], float& sum_a,
+                                         float& sum_b, int j) {
+  e_frags(pa, s, j * TILE, a.T, a.tig);
+  if (SUM == SUM_SHUFFLE) {
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      sum_a += (bf_lo(pa[kc][0]) + bf_hi(pa[kc][0])) + (bf_lo(pa[kc][2]) + bf_hi(pa[kc][2]));
+      sum_b += (bf_lo(pa[kc][1]) + bf_hi(pa[kc][1])) + (bf_lo(pa[kc][3]) + bf_hi(pa[kc][3]));
+    }
+  }
+
+  const bool more = j + 1 < a.n;
+  if (more) mbar_wait(&a.bars[1 + (j + 1) % VAR_STAGES], ((j + 1) / VAR_STAGES) & 1);
+  const uint8_t* k_s = a.ring + (2 * ((more ? j + 1 : j) % VAR_STAGES)) * TILE_BYTES;
+  const uint8_t* v_s = a.ring + (2 * (j % VAR_STAGES) + 1) * TILE_BYTES;
+  fence_regs(s);
+  fence_regs(o);
+  fence_regs(pa);
+  if (SUM == SUM_MMA_ONES) fence_regs4(rs);
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) wgmma_rs<1>(o, pa[kc], desc_mnmajor(v_s, kc), 1);
+  if (SUM == SUM_MMA_ONES) {
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) wgmma_rs_n8(rs, pa[kc], desc_kmajor(a.ones, 0), 1);
+  }
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) wgmma_ss<0>(s, desc_kmajor(a.q_s, kc), desc_kmajor(k_s, kc), kc);
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs(s);
+  fence_regs(o);
+  fence_regs(pa);
+  if (SUM == SUM_MMA_ONES) fence_regs4(rs);
+  __syncthreads();  // both warpgroups are done with tile j's slot
+  if (a.tid == 0 && j + VAR_STAGES < a.n) out_load(a, j + VAR_STAGES);
+}
+
+template <int SUM>
+__device__ __forceinline__ void out_pass(const CUtensorMap& map_q, const CUtensorMap& map_k,
+                                         const CUtensorMap& map_v, bf16* __restrict__ out,
+                                         float* __restrict__ recip, int H, int T, float qscale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const int wg = threadIdx.x >> 7;  // this warpgroup's query tile
+  OutArgs a;
+  a.q_s = smem + wg * TILE_BYTES;
+  a.ring = smem + OUT_WARPGROUPS * TILE_BYTES;
+  uint8_t* ones = a.ring + 2 * VAR_STAGES * TILE_BYTES;
+  a.ones = ones;
+  a.bars = reinterpret_cast<uint64_t*>(ones + ONES_BYTES);
+  a.map_k = &map_k;
+  a.map_v = &map_v;
+  a.plane = blockIdx.z * H + blockIdx.y;
+  a.n = (T + TILE - 1) / TILE;
+  a.T = T;
+  a.tid = threadIdx.x;
+  a.tig = threadIdx.x & 3;
+  const int row0 = blockIdx.x * OUT_ROWS;
+  if (a.tid == 0) {
+    for (int i = 0; i <= VAR_STAGES; ++i) mbar_init(&a.bars[i], 1);
+    mbar_init_fence();
+    mbar_expect_tx(&a.bars[0], OUT_WARPGROUPS * TILE_BYTES);
+    for (int w = 0; w < OUT_WARPGROUPS; ++w)
+      tma_load_tile(smem + w * TILE_BYTES, &map_q, &a.bars[0], row0 + w * TILE, a.plane);
+    for (int t = 0; t < VAR_STAGES && t < a.n; ++t) out_load(a, t);
+  }
+  if (SUM == SUM_MMA_ONES) {
+    for (int i = a.tid; i < ONES_BYTES / 4; i += OUT_THREADS)
+      reinterpret_cast<uint32_t*>(ones)[i] = BF16_ONES;
+  }
+  __syncthreads();  // the barriers are initialised
+  mbar_wait(&a.bars[0], 0);
+  scale_tiles(smem, OUT_WARPGROUPS * TILE_BYTES, __float2bfloat162_rn(qscale), a.tid,
+              OUT_THREADS);  // its fence also covers the ones
+  __syncthreads();
+
+  float s[32], o[32], rs[4] = {0.f, 0.f, 0.f, 0.f};
+  uint32_t pa[4][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = o[i] = 0.f;
+  float sum_a = 0.f, sum_b = 0.f;
+
+  mbar_wait(&a.bars[1], 0);
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) wgmma_ss<0>(s, desc_kmajor(a.q_s, kc), desc_kmajor(a.ring, kc), kc);
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs(s);
+  for (int j = 0; j < a.n; ++j) out_step<SUM>(a, s, o, rs, pa, sum_a, sum_b, j);
+
+  if (SUM == SUM_SHUFFLE) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      sum_a += __shfl_xor_sync(0xffffffffu, sum_a, off);
+      sum_b += __shfl_xor_sync(0xffffffffu, sum_b, off);
+    }
+  } else {  // every column of e @ ones is the row sum
+    sum_a = rs[0];
+    sum_b = rs[2];
+  }
+  const float inv_a = 1.f / fmaxf(sum_a, 1e-30f), inv_b = 1.f / fmaxf(sum_b, 1e-30f);
+  const int r_a = row0 + wg * TILE + ((a.tid >> 5) & 3) * 16 + ((a.tid & 31) >> 2);
+  const int r_b = r_a + 8;
+  bf16* oh = out + (size_t)a.plane * T * HD;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = j * 8 + a.tig * 2;
+    if (r_a < T)
+      *reinterpret_cast<uint32_t*>(oh + (size_t)r_a * HD + c) =
+          pack_bf16(o[4 * j] * inv_a, o[4 * j + 1] * inv_a);
+    if (r_b < T)
+      *reinterpret_cast<uint32_t*>(oh + (size_t)r_b * HD + c) =
+          pack_bf16(o[4 * j + 2] * inv_b, o[4 * j + 3] * inv_b);
+  }
+  if (a.tig == 0) {
+    float* rh = recip + (size_t)a.plane * T;
+    if (r_a < T) rh[r_a] = inv_a;
+    if (r_b < T) rh[r_b] = inv_b;
+  }
+}
+
+#define OUT_ARGS                                                                           \
+  const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,    \
+      const __grid_constant__ CUtensorMap map_v, bf16 *__restrict__ out,                   \
+      float *__restrict__ recip, int H, int T, float qscale
+
+__global__ void __launch_bounds__(OUT_THREADS, VAR_BLOCKS_PER_SM) attn_v2_bf16e(OUT_ARGS) {
+  out_pass<SUM_SHUFFLE>(map_q, map_k, map_v, out, recip, H, T, qscale);
+}
+
+__global__ void __launch_bounds__(OUT_THREADS, VAR_BLOCKS_PER_SM) attn_v4_mxsum(OUT_ARGS) {
+  out_pass<SUM_MMA_ONES>(map_q, map_k, map_v, out, recip, H, T, qscale);
+}
+
+// -------------------------------------------------------------- mean pass
+
+struct MeanArgs {
+  uint8_t* q_res;  // the H resident query tiles (scaled), or null: streamed
+  uint8_t* ring;   // VMEAN_STAGES slots: K, then the unit's query tile if streamed
+  uint64_t* bars;  // [0] resident query tiles, [1 + s] slot s
+  const CUtensorMap* map_q;
+  const CUtensorMap* map_k;
+  const float* recip;  // this image's (H, T)
+  bf16* mean;          // this image's (T, T)
+  int b, H, kt0, n, row0, row_a, slot_bytes, T, tig, tid;
+  __nv_bfloat162 s2;
+  float inv_h;
+};
+
+// unit u: key tile kt0 + u / H of head u % H
+__device__ __forceinline__ uint8_t* mean_slot(const MeanArgs& a, int u) {
+  return a.ring + (u % VMEAN_STAGES) * a.slot_bytes;
+}
+
+__device__ __forceinline__ const uint8_t* mean_q(const MeanArgs& a, int u) {
+  return a.q_res != nullptr ? a.q_res + (u % a.H) * TILE_BYTES : mean_slot(a, u) + TILE_BYTES;
+}
+
+__device__ __forceinline__ void mean_load(const MeanArgs& a, int u) {
+  const int st = u % VMEAN_STAGES;
+  uint8_t* slot = mean_slot(a, u);
+  const int plane = a.b * a.H + u % a.H;
+  mbar_expect_tx(&a.bars[1 + st], a.slot_bytes);
+  tma_load_tile(slot, a.map_k, &a.bars[1 + st], (a.kt0 + u / a.H) * TILE, plane);
+  if (a.q_res == nullptr) tma_load_tile(slot + TILE_BYTES, a.map_q, &a.bars[1 + st], a.row0, plane);
+}
+
+// wait for unit u's slot; a streamed query tile is scaled where it arrived
+__device__ __forceinline__ void mean_arrive(const MeanArgs& a, int u) {
+  mbar_wait(&a.bars[1 + u % VMEAN_STAGES], (u / VMEAN_STAGES) & 1);
+  if (a.q_res == nullptr) {
+    scale_tiles(mean_slot(a, u) + TILE_BYTES, TILE_BYTES, a.s2, a.tid, WG_THREADS);
+    __syncthreads();
+  }
+}
+
+// S of unit u, whose slot has arrived, into s (one commit group); the
+// products of the out pass's S in the same order
+__device__ __forceinline__ void mean_issue_s(const MeanArgs& a, float (&s)[32], int u) {
+  const uint8_t* q_s = mean_q(a, u);
+  const uint8_t* k_s = mean_slot(a, u);
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) wgmma_ss<0>(s, desc_kmajor(q_s, kc), desc_kmajor(k_s, kc), kc);
+  wgmma_commit();
+}
+
+// Unit u: `cur` holds its finished S. Issues the next unit's S into `nxt`,
+// adds this unit's e * recip / H to `acc`, writes the tile after its last
+// head, and returns with `nxt` finished. As in out_step every step issues
+// and waits alike: the last unit recomputes its own S, which nobody reads.
+__device__ __forceinline__ void mean_step(const MeanArgs& a, float (&cur)[32], float (&nxt)[32],
+                                          float (&acc)[32], int u) {
+  const bool more = u + 1 < a.n;
+  if (more) mean_arrive(a, u + 1);
+  mean_issue_s(a, nxt, more ? u + 1 : u);
+  __syncthreads();  // every warp is done with unit u's slot
+  if (a.tid == 0 && u + VMEAN_STAGES < a.n) mean_load(a, u + VMEAN_STAGES);
+
+  const int h = u % a.H;
+  const int key0 = (a.kt0 + u / a.H) * TILE;
+  const int r_a = a.row0 + a.row_a, r_b = r_a + 8;
+  const float* rh = a.recip + (size_t)h * a.T;
+  const float c_a = r_a < a.T ? rh[r_a] * a.inv_h : 0.f;
+  const float c_b = r_b < a.T ? rh[r_b] * a.inv_h : 0.f;
+  uint32_t pe[4][4];
+  e_frags(pe, cur, key0, a.T, a.tig);
+  // the plain version's roundings: the product, then the sum (no FMA)
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float c = (i & 1) ? c_b : c_a;
+      acc[8 * kc + 2 * i] = __fadd_rn(acc[8 * kc + 2 * i], __fmul_rn(bf_lo(pe[kc][i]), c));
+      acc[8 * kc + 2 * i + 1] =
+          __fadd_rn(acc[8 * kc + 2 * i + 1], __fmul_rn(bf_hi(pe[kc][i]), c));
+    }
+  }
+
+  if (h == a.H - 1) {  // every head summed: write the tile, start the next
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = key0 + j * 8 + a.tig * 2;
+      store_mean2(a.mean, r_a, col, a.T, acc[4 * j], acc[4 * j + 1]);
+      store_mean2(a.mean, r_b, col, a.T, acc[4 * j + 2], acc[4 * j + 3]);
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  }
+
+  wgmma_wait();
+  fence_regs(nxt);
+}
+
+__global__ void __launch_bounds__(WG_THREADS, VMEAN_BLOCKS_PER_SM)
+attn_var_mean(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+              const float* __restrict__ recip, bf16* __restrict__ mean, int H, int T,
+              float qscale, int chunk, int resident) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  MeanArgs a;
+  a.q_res = resident ? smem : nullptr;
+  a.slot_bytes = (resident ? 1 : 2) * TILE_BYTES;
+  a.ring = smem + (resident ? H : 0) * TILE_BYTES;
+  a.bars = reinterpret_cast<uint64_t*>(a.ring + VMEAN_STAGES * a.slot_bytes);
+  a.map_q = &map_q;
+  a.map_k = &map_k;
+  a.b = blockIdx.z;
+  a.H = H;
+  a.recip = recip + (size_t)a.b * H * T;
+  a.mean = mean + (size_t)a.b * T * T;
+  a.kt0 = blockIdx.x * chunk;
+  const int ntiles = (T + TILE - 1) / TILE;
+  a.n = min(chunk, ntiles - a.kt0) * H;
+  a.row0 = blockIdx.y * TILE;
+  a.row_a = (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2);
+  a.T = T;
+  a.tid = threadIdx.x;
+  a.tig = threadIdx.x & 3;
+  a.s2 = __float2bfloat162_rn(qscale);
+  a.inv_h = 1.f / (float)H;
+  if (a.tid == 0) {
+    for (int i = 0; i <= VMEAN_STAGES; ++i) mbar_init(&a.bars[i], 1);
+    mbar_init_fence();
+    if (resident) {
+      mbar_expect_tx(&a.bars[0], H * TILE_BYTES);
+      for (int h = 0; h < H; ++h)
+        tma_load_tile(smem + h * TILE_BYTES, &map_q, &a.bars[0], a.row0, a.b * H + h);
+    }
+    for (int u = 0; u < VMEAN_STAGES && u < a.n; ++u) mean_load(a, u);
+  }
+  __syncthreads();  // the barriers are initialised
+  if (resident) {
+    mbar_wait(&a.bars[0], 0);
+    scale_tiles(smem, H * TILE_BYTES, a.s2, a.tid, WG_THREADS);
+    __syncthreads();
+  }
+
+  float sa[32], sb[32], acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sa[i] = sb[i] = acc[i] = 0.f;
+  mean_arrive(a, 0);
+  mean_issue_s(a, sa, 0);
+  wgmma_wait();
+  fence_regs(sa);
+  for (int u = 0; u < a.n; u += 2) {
+    mean_step(a, sa, sb, acc, u);
+    if (u + 1 < a.n) mean_step(a, sb, sa, acc, u + 1);
+  }
+}
+
+// Key tiles per mean-pass block: the grid runs in waves of `slots`
+// resident blocks, and a block costs its chunk plus about half a tile's
+// worth for loading its query tiles. Short chunks keep the last wave
+// short; ties go to the shorter chunk.
+int mean_chunk(int ntiles, int row_blocks, int slots) {
+  int best = 1;
+  long best_cost = -1;
+  for (int c = 1; c <= ntiles && c <= VMEAN_MAX_CHUNK; ++c) {
+    const long blocks = (long)row_blocks * ((ntiles + c - 1) / c);
+    const long cost = (blocks + slots - 1) / slots * (2 * c + 1);
+    if (best_cost < 0 || cost < best_cost) {
+      best = c;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+// Resident mean-pass blocks on the current device for `smem` bytes of
+// shared memory per block: SMs x blocks per SM. The device is asked once
+// per (device, smem): the last answer is kept as smem << 20 | slots.
+cudaError_t mean_slots(int smem, int* slots) {
+  constexpr int MAX_DEVICES = 64;
+  static std::atomic<long long> known[MAX_DEVICES];
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < MAX_DEVICES) {
+    const long long k = known[dev].load(std::memory_order_relaxed);
+    if (k > 0 && (k >> 20) == smem) {
+      *slots = (int)(k & ((1 << 20) - 1));
+      return cudaSuccess;
+    }
+  }
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, attn_var_mean, WG_THREADS,
+                                                           smem)) != cudaSuccess)
+    return err;
+  *slots = sms * (per_sm > 0 ? per_sm : 1);
+  if (dev < MAX_DEVICES) known[dev].store(((long long)smem << 20) | *slots, std::memory_order_relaxed);
+  return cudaSuccess;
+}
+
+int aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+cudaError_t max_shared(const void* kern, int bytes) {
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return err;
+}
+
+// v2 or v4: the out pass, then the mean pass, on one stream
+int hopper_variant(int variant, const void* q, const void* k, const void* v, void* out,
+                   void* mean, void* recip, int B, int H, int T, float qscale,
+                   cudaStream_t stream) {
+  if (recip == nullptr || H < 1 || T < 1) return (int)cudaErrorInvalidValue;
+  const bool v4 = variant == 4;
+  const bool resident = H <= VMEAN_RESIDENT_HEADS;
+  const int msmem = (int)mean_smem(H, resident);
+  // runtime calls first: they make the device's context current on this
+  // thread, which the tensor-map encoding needs
+  cudaError_t err =
+      max_shared(v4 ? (const void*)attn_v4_mxsum : (const void*)attn_v2_bf16e, (int)OUT_SMEM);
+  if (err == cudaSuccess) err = max_shared((const void*)attn_var_mean, msmem);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap mq, mk, mv;
+  if (int bad = make_tile_map(&mq, q, B * H, T)) return bad;
+  if (int bad = make_tile_map(&mk, k, B * H, T)) return bad;
+  if (int bad = make_tile_map(&mv, v, B * H, T)) return bad;
+  if (!aligned16(out) || !aligned16(mean) || !aligned16(recip)) return TMA_MISALIGNED;
+  dim3 grid((T + OUT_ROWS - 1) / OUT_ROWS, H, B);
+  if (v4)
+    attn_v4_mxsum<<<grid, OUT_THREADS, OUT_SMEM, stream>>>(mq, mk, mv, (bf16*)out, (float*)recip,
+                                                          H, T, qscale);
+  else
+    attn_v2_bf16e<<<grid, OUT_THREADS, OUT_SMEM, stream>>>(mq, mk, mv, (bf16*)out, (float*)recip,
+                                                          H, T, qscale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  int slots = 0;
+  if ((err = mean_slots(msmem, &slots)) != cudaSuccess) return (int)err;
+  const int ntiles = (T + TILE - 1) / TILE;
+  const int chunk = mean_chunk(ntiles, B * ntiles, slots);
+  dim3 mgrid((ntiles + chunk - 1) / chunk, ntiles, B);
+  attn_var_mean<<<mgrid, WG_THREADS, msmem, stream>>>(mq, mk, (const float*)recip, (bf16*)mean,
+                                                      H, T, qscale, chunk, resident ? 1 : 0);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // variant 2..6 as in the list at the top. q, k, out: (B, H, T, 64) bf16
-// contiguous; v: (B, H, T, 64), for variant 6 (B, H, T, 72) with ones in the
-// last 8 columns; mean: (B, T, T) bf16. qscale: d^-0.5 * log2(e) already
-// rounded to bf16. Variant 5 takes H <= 8.
+// contiguous, 16-byte aligned; v: (B, H, T, 64), for variant 6 (B, H, T, 72)
+// with ones in the last 8 columns; mean: (B, T, T) bf16; work: for variants
+// 2 and 4 a (B, H, T) f32 workspace (each row's recip, written by the out
+// pass and read by the mean pass), ignored by the others. qscale: d^-0.5 *
+// log2(e) already rounded to bf16. Variant 5 takes H <= 8. Returns a
+// cudaError_t, or a code of make_tile_map (>= 998) when a tensor map
+// cannot be made.
 int attn_variant_forward(int variant, const void* q, const void* k, const void* v, void* out,
-                         void* mean, int B, int H, int T, float qscale, void* stream) {
+                         void* mean, void* work, int B, int H, int T, float qscale,
+                         void* stream) {
+  if (variant == 2 || variant == 4)
+    return hopper_variant(variant, q, k, v, out, mean, work, B, H, T, qscale,
+                          (cudaStream_t)stream);
   VariantKernel kern;
   int rows = 64, threads = 128, groups = 1, vd = HD;
   switch (variant) {
-    case 2: kern = attn_v2_bf16e; break;
     case 3: kern = attn_v3_nomin; break;
-    case 4: kern = attn_v4_mxsum; break;
     case 5:
       if (H > 8) return (int)cudaErrorInvalidValue;
       kern = attn_v5_batched;

@@ -27,6 +27,10 @@ PyTorch version ``variant_reference``, which repeats the variant's
 arithmetic step by step; a CUDA tensor launches the hand-written kernel
 in ``csrc/attention_variants.cu`` or raises. There is no fallback
 between the two, and no gradient: the variants are forward experiments.
+v2 and v4 run two kernels per call (an out pass that also writes each
+row's reciprocal row sum into a (B, H, T) f32 workspace, then a mean
+pass that reads it), counted as one launch, as the capture pair of
+``ops/attention.py`` is.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ import torch
 
 from ._build import KERNELS, check, library
 
-__all__ = ["VARIANTS", "variant_reference", "attention_variant", "clamp_case"]
+__all__ = ["VARIANTS", "variant_reference", "attention_variant", "variant_library", "clamp_case"]
 
 _LOG2E = 1.4426950408889634
 _SOFTMAX_SHIFT = 20.0
@@ -96,8 +100,6 @@ def variant_reference(q, k, v, variant: str):
 
 
 def _check_inputs(q, k, v, variant):
-    if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError("attention variant kernel: q, k, v must all be CUDA tensors")
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"attention variant kernel takes bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
@@ -107,31 +109,56 @@ def _check_inputs(q, k, v, variant):
     if variant == "v5-batched" and q.shape[1] > 8:
         raise ValueError(f"attention variant kernel v5-batched runs at most 8 heads side by "
                          f"side, got {q.shape[1]}")
+    if not (q.is_cuda and k.is_cuda and v.is_cuda):
+        raise ValueError("attention variant kernel: q, k, v must all be CUDA tensors")
 
 
-def attention_variant(q, k, v, variant: str):
-    """One variant's (out, mean): the kernel on the card, the plain
-    version on the CPU."""
+def variant_library(defines=()):
+    """``csrc/attention_variants.cu``'s library (built with the ``-D``
+    overrides ``defines``), its entry point's signature set."""
+    lib = library("attention_variants", defines)
+    fn = lib.attn_variant_forward
+    if fn.argtypes is None:  # first use of this library
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+                       + [ctypes.c_float, ctypes.c_void_p])
+    return lib
+
+
+def _workspace(q, number):
+    """v2's and v4's (B, H, T) f32 workspace (each row's reciprocal row
+    sum, from the out pass to the mean pass); None for the others."""
+    b, h, t, _ = q.shape
+    return torch.empty((b, h, t), device=q.device, dtype=torch.float32) if number in (2, 4) else None
+
+
+def _launch(fn, variant, q, k, v, stream):
+    """One call of ``attn_variant_forward`` (``fn``) on contiguous inputs
+    on ``stream``: (out, mean), one launch counted."""
+    name, number = VARIANTS[variant]
+    b, h, t, d = q.shape
+    v = _with_ones(v) if variant == "v6-fusedsum" else v
+    out = torch.empty_like(q)
+    mean = torch.empty((b, t, t), device=q.device, dtype=q.dtype)
+    work = _workspace(q, number)
+    check(fn(number, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), mean.data_ptr(),
+             None if work is None else work.data_ptr(), b, h, t, float(_q_scale(q)), stream),
+          f"attn_variant_forward({variant})")
+    KERNELS[name].launches += 1
+    return out, mean
+
+
+def attention_variant(q, k, v, variant: str, lib=None):
+    """One variant's (out, mean): the kernel on the card (through ``lib``,
+    default ``variant_library()``), the plain version on the CPU."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown attention variant {variant!r}; known: {sorted(VARIANTS)}")
     if q.device.type == "cpu":
         return variant_reference(q, k, v, variant)
     _check_inputs(q, k, v, variant)
-    name, number = VARIANTS[variant]
-    b, h, t, d = q.shape
-    q, k = q.contiguous(), k.contiguous()
-    v = _with_ones(v) if variant == "v6-fusedsum" else v.contiguous()
-    out = torch.empty_like(q)
-    mean = torch.empty((b, t, t), device=q.device, dtype=q.dtype)
-    fn = library("attention_variants").attn_variant_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                   + [ctypes.c_float, ctypes.c_void_p])
-    check(fn(number, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), mean.data_ptr(),
-             b, h, t, float(_q_scale(q)), torch.cuda.current_stream(q.device).cuda_stream),
-          f"attn_variant_forward({variant})")
-    KERNELS[name].launches += 1
-    return out, mean
+    lib = variant_library() if lib is None else lib
+    return _launch(lib.attn_variant_forward, variant, q.contiguous(), k.contiguous(),
+                   v.contiguous(), torch.cuda.current_stream(q.device).cuda_stream)
 
 
 # the clamp input: query row, the two key columns, and values exact in bf16

@@ -17,7 +17,8 @@ Phases, each printing its own lines:
    the five design variants of the attention microbenchmark included,
    also on an input that tells the clamped variants from the unclamped;
    every kernel the microbenchmark launches also on its own inputs,
-   (1, 6, 4301, 64): an odd T with a ragged last tile);
+   (1, 6, 4301, 64): an odd T with a ragged last tile; v2 and v4, the
+   variants on the TMA + wgmma design, also bitwise equal in two calls);
 4. ``AttnShiftDetector.seed_pseudo_gt`` at the full width of
    ``configs/attnshift_voc12aug.py`` (ViT-S) with seeded random weights,
    800x1344, bf16: output shapes, finite maps, and kernel launch counts
@@ -95,7 +96,11 @@ Phases, each printing its own lines:
    its readings; the flash pass's and the backward pair's TFLOP/s and
    ratio to SDPA, the mean pass's own time, and an exp floor (B*H*T^2
    exp2 per pass at 16 per clock per SM, at the SM clock nvidia-smi reads
-   while the flash pass runs) beside the forward bounds. For the eval
+   while the flash pass runs) beside the forward bounds. At the
+   microbenchmark's shape (1, 6, 4301, 64) v2, v4, the shipped capture
+   pair and SDPA's forward are read in turns, each with its ratio to the
+   bound and to the two-pass exp floor and its kernels' registers (ptxas,
+   as the build reported them). For the eval
    path: ``flash_fwd`` against its plain version at every T it met,
    (1, 6, T, 64) bf16 without a gap (4 bf16 ulps, with a control that
    drops the last 64 keys), timed in turns with SDPA's forward at each T
@@ -117,13 +122,14 @@ rest of the repository beside it, the script fails and prints no result.
     python3 chip_smoke.py --ablate [SOURCE ...]
 
 runs, after phase 1, only the ablation of design constants instead: each
-source of ``ABLATIONS`` (default: attention, meanshift, ccl) built once
-per variant (``-D`` overrides of the constants it guards with
-``#ifndef``), every variant checked as in phase 3 at the bench shape,
-then the variants read in turns (median of 6 readings of 20 launches
-each): the attention forward pair's flash pass with SDPA's forward and
-its mean pass; the mean-shift fixpoint (bf16) and CCL on phase 3's
-inputs.
+source of ``ABLATIONS`` (default: attention, attention_variants,
+meanshift, ccl) built once per variant (``-D`` overrides of the constants
+it guards with ``#ifndef``), every variant checked as in phase 3 (v2 and
+v4 of the microbenchmark on its inputs), then the variants read in turns
+(median of 6 readings of 20 launches each): the attention forward pair's
+flash pass with SDPA's forward and its mean pass; v2 and v4 with the
+shipped capture pair and SDPA's forward at the microbenchmark's shape;
+the mean-shift fixpoint (bf16) and CCL on phase 3's inputs.
 """
 
 from __future__ import annotations
@@ -163,6 +169,14 @@ ABLATIONS = {
         "flash: 5 ring slots": ("FWD_STAGES=5",),
         "mean: 3 ring slots": ("MEAN_STAGES=3",),
         "mean: chunks of at most 2 key tiles": ("MEAN_MAX_CHUNK=2",),
+    },
+    "attention_variants": {
+        "as built": (),
+        "out pass: 3 ring slots": ("VAR_STAGES=3",),
+        "out pass: 5 ring slots": ("VAR_STAGES=5",),
+        "mean pass: 3 ring slots": ("VMEAN_STAGES=3",),
+        "mean pass: chunks of at most 4 key tiles": ("VMEAN_MAX_CHUNK=4",),
+        "mean pass: query tiles streamed, none resident": ("VMEAN_RESIDENT_HEADS=0",),
     },
     "meanshift": {
         "as built": (),
@@ -205,18 +219,54 @@ def phase_card():
     return smi
 
 
+# ptxas's registers and spills per kernel of the libraries this run built:
+# (source, defines) -> mangled kernel name -> {"registers", "spill_stores", "spill_loads"}
+PTXAS: dict = {}
+
+
+def ptxas_usage(out: str) -> dict:
+    """Registers and spill bytes per kernel from ``-Xptxas -v`` output."""
+    import re
+
+    usage, name = {}, None
+    for line in out.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            name = m.group(1)
+            usage[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            usage[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            usage[name]["registers"] = int(m.group(1))
+    return usage
+
+
+def registers(source: str, kernel: str) -> str:
+    """``kernel``'s registers and spills as this run's build of ``source``
+    reported them (its name in the anonymous namespace of the source)."""
+    for mangled, use in PTXAS.get((source, ()), {}).items():
+        if f"{len(kernel)}{kernel}E" in mangled:
+            return (f"{kernel} {use.get('registers', '?')} registers, spills "
+                    f"{use.get('spill_stores', '?')}/{use.get('spill_loads', '?')} B")
+    return f"{kernel} registers not read (library built before this run)"
+
+
 def phase_build(targets=None):
     """Build every kernel source (or each (source, defines) of ``targets``),
-    printing ptxas's registers and spills."""
+    printing ptxas's registers and spills per kernel and its warnings (a
+    C7510-C7519 warning: wgmma serialised)."""
     from attentionshift_torch.ops import _build
 
     t0 = time.perf_counter()
     logs = _build.build_all(targets)
     dt = time.perf_counter() - t0
     for (src, defines), out in logs.items():
+        tag = " ".join((src, *defines))
+        PTXAS[(src, tuple(defines))] = ptxas_usage(out)
+        for name, use in PTXAS[(src, tuple(defines))].items():
+            log(f"[build] {tag}: {name}: {use}")
         for line in out.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                log(f"[build] {' '.join((src, *defines))}: {line.strip()}")
+            if "warning" in line.lower() or "error" in line.lower():
+                log(f"[build] {tag}: {line.strip()}")
     log(f"[build] {len(logs)} sources built in {dt:.1f} s into {_build.BUILD_DIR}")
 
 
@@ -519,7 +569,10 @@ def phase_variant_kernels(results: dict, inp: dict):
     on the clamp input (two shifted log2 logits of one row in (100, 127)).
     Control: on the clamp input the plain version of the other clamp
     behaviour must exceed both limits. The error kept for the kernel table
-    is the one on the microbenchmark's inputs."""
+    is the one on the microbenchmark's inputs. v2 and v4 (no atomics) also
+    give bitwise equal outputs in two calls on the tool's inputs."""
+    import torch
+
     from attentionshift_torch.ops import attention_variants as av
 
     q, k, v = inp["qkv"]
@@ -551,6 +604,15 @@ def phase_variant_kernels(results: dict, inp: dict):
         if not ok:
             raise AssertionError(f"{kernel}: the check cannot see the clamp: {c_out}, {c_mean}")
         del ctl_out, ctl_mean, out, mean
+        if name in ("v2-bf16e", "v4-mxsum"):  # no atomics: two calls are bitwise equal
+            first = av.attention_variant(*inp["tool_qkv"], name)
+            second = av.attention_variant(*inp["tool_qkv"], name)
+            sync()
+            same = torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+            log(f"[check] {kernel}.tool_input: two calls bitwise equal: {'ok' if same else 'FAIL'}")
+            if not same:
+                raise AssertionError(f"{kernel}: two calls on the same inputs differ")
+            del first, second
         results[kernel] = dict(max_abs_err=errs[0])
 
 
@@ -2035,12 +2097,14 @@ def phase_times(results: dict, inp: dict, model, slice_inp, gen):
     # library call beside them computes `out`, not the mean
     tq, tk, tv = inp["tool_qkv"]
     tt = tq.shape[2]
-    sdpa_no_gap = cuda_time(lambda: F.scaled_dot_product_attention(tq, tk, tv))
+    turn_ms = phase_tool_shape_turns(inp["tool_qkv"], exp_rate)
+    sdpa_no_gap = turn_ms["SDPA forward"]
     for name, (kernel, _) in attention_variants.VARIANTS.items():
         # v6's product has 72 columns: its bound counts its own 8 columns of ones
         pv_cols = d + 8 if name == "v6-fusedsum" else d
         times[kernel] = dict(
-            ms=cuda_time(lambda n=name: attention_variants.attention_variant(tq, tk, tv, n)),
+            ms=turn_ms[name] if name in turn_ms else cuda_time(
+                lambda n=name: attention_variants.attention_variant(tq, tk, tv, n)),
             plain_ms=cuda_time(lambda n=name: attention_variants.variant_reference(tq, tk, tv, n),
                                reps=3),
             library_ms=sdpa_no_gap,
@@ -2103,6 +2167,71 @@ def phase_times(results: dict, inp: dict, model, slice_inp, gen):
         f"(host clock over {reps} calls ending in synchronize)")
     profile_slice(run, ms_img)
     return ms_img
+
+
+def phase_tool_shape_turns(tool_qkv, exp_rate: float) -> dict:
+    """v2 and v4 (the TMA + wgmma design), the shipped capture pair and
+    SDPA's forward at the microbenchmark's shape (1, 6, 4301, 64), read in
+    turns (medians of 6): each one's ms, its ratio to the bound of the
+    capture function (products and bytes of out + mean) and to the
+    two-pass exp floor (2 * B*H*T^2 exp2 at ``exp_rate``), its kernels'
+    registers. Returns name -> median ms."""
+    import torch.nn.functional as F
+
+    from attentionshift_torch.ops import attention, attention_variants
+
+    tq, tk, tv = tool_qkv
+    b, h, t, d = tq.shape
+    turns = {
+        "v2-bf16e": lambda: attention_variants.attention_variant(tq, tk, tv, "v2-bf16e"),
+        "v4-mxsum": lambda: attention_variants.attention_variant(tq, tk, tv, "v4-mxsum"),
+        "ours-capture": lambda: attention.attention_with_capture(tq, tk, tv),
+        "SDPA forward": lambda: F.scaled_dot_product_attention(tq, tk, tv),
+    }
+    kernels = {"v2-bf16e": ("attention_variants", ("attn_v2_bf16e", "attn_var_mean")),
+               "v4-mxsum": ("attention_variants", ("attn_v4_mxsum", "attn_var_mean")),
+               "ours-capture": ("attention", ("flash_fwd", "attn_mean"))}
+    meds, reads = in_turns(*turns.values())
+    bound = max((4 * tq.numel() * 2 + b * t * t * 2) / PEAK_BYTES,
+                4.0 * b * h * t * t * d / PEAK_BF16) * 1e3
+    floor = 2.0 * b * h * t * t / exp_rate * 1e3
+    for (name, med), got in zip(zip(turns, meds), reads):
+        src, names = kernels.get(name, (None, ()))
+        regs = "; ".join(registers(src, k) for k in names) or "a library kernel (out only)"
+        split = kernel_split(turns[name], names)
+        parts = " + ".join(f"{k} {split[k]:.4f} ms" if k in split else f"{k} not measured"
+                           for k in names)
+        log(f"[time] tool shape {tuple(tq.shape)}, {name}: {med:.4f} ms = {med / bound:.2f}x the "
+            f"bound ({bound:.4f} ms, ops) = {med / floor:.2f}x the two-pass exp floor "
+            f"({floor:.4f} ms){'; device ms per launch, profiled: ' + parts if parts else ''}; "
+            f"{regs}; readings in turns {[round(x, 4) for x in got]}")
+    return dict(zip(turns, meds))
+
+
+def kernel_split(fn, names, calls: int = 3) -> dict:
+    """Device ms per launch of each of the kernels ``names`` (functions of
+    a csrc/ source's anonymous namespace) over ``calls`` profiled calls of
+    ``fn`` (the profiler can miss the first launch of its window, so the
+    time is divided by the launches it saw); a name it did not see is left
+    out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not names:
+        return {}
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        sync()
+    split = {}
+    for n in names:
+        seen = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and f"::{n}(" in e.key]
+        if seen:
+            split[n] = sum(e.self_device_time_total for e in seen) / sum(e.count for e in seen) / 1e3
+    return split
 
 
 def phase_main_path_inputs(results: dict, handed: dict) -> None:
@@ -2200,8 +2329,9 @@ def phase_ablation(sources) -> None:
     variant (all builds started together), each variant checked against
     the plain version at the bench shape (limits of phase 3), then read in
     turns: the forward pair's flash pass beside SDPA's forward with the
-    same mask and its mean pass; the mean-shift fixpoint (bf16) and CCL on
-    phase 3's inputs."""
+    same mask and its mean pass; v2 and v4 of the microbenchmark on its
+    inputs beside the shipped capture pair and SDPA's forward there; the
+    mean-shift fixpoint (bf16) and CCL on phase 3's inputs."""
     import torch
     import torch.nn.functional as F
 
@@ -2238,6 +2368,28 @@ def phase_ablation(sources) -> None:
         fns.update({f"mean pass, {n}": (lambda lib=lib: attention._mean(q, k, lse, PAD_GAP,
                                                                         lib=lib))
                     for n, lib in libs.items()})
+    if "attention_variants" in sources:
+        from attentionshift_torch.ops import attention_variants as av
+        from attentionshift_torch.tools.analysis.microbench_attention import make_inputs
+
+        vlibs = {n: av.variant_library(d) for n, d in ABLATIONS["attention_variants"].items()}
+        tq, tk, tv = make_inputs(device=dev)
+        for variant in ("v2-bf16e", "v4-mxsum"):
+            want_out, want_mean = av.variant_reference(tq, tk, tv, variant)
+            for n, lib in vlibs.items():
+                out, mean = av.attention_variant(tq, tk, tv, variant, lib=lib)
+                sync()
+                expect(f"{variant}, {n}: out", max_err(out, want_out), bf16_ulps(want_out, 4),
+                       "4 bf16 ulps of the largest |out|")
+                expect(f"{variant}, {n}: mean", max_err(mean, want_mean),
+                       2e-3 * float(want_mean.float().abs().max()),
+                       "bf16 storage of the mean: 2^-9 relative, times the largest entry")
+                fns[f"{variant}, {n}"] = (lambda lib=lib, variant=variant:
+                                          av.attention_variant(tq, tk, tv, variant, lib=lib))
+            del want_out, want_mean, out, mean
+        fns["tool shape, ours-capture"] = lambda: attention.attention_with_capture(tq, tk, tv)
+        fns["tool shape, SDPA forward (out only)"] = lambda: F.scaled_dot_product_attention(
+            tq, tk, tv)
     if "meanshift" in sources or "ccl" in sources:
         inp = kernel_inputs(dev, torch.Generator(device=dev).manual_seed(0))
     if "meanshift" in sources:

@@ -13,10 +13,13 @@ held against those plain versions on the card (``test_torch_gpu``).
 
 from __future__ import annotations
 
+import ctypes
 import importlib.util
 import math
 import os
+import re
 import sys
+import types
 from unittest import mock
 
 import numpy as np
@@ -228,6 +231,114 @@ def test_variant_wrapper_counts_and_refuses():
         # the cited line is the def of the function that reaches pallas_call
         assert src[line - 1].strip().startswith("def v"), src[line - 1]
     assert len(KERNELS) == 11
+
+
+def _c_signature(name):
+    """ctypes types of the parameters of the C function ``name`` of
+    ``csrc/attention_variants.cu``: a pointer is ``c_void_p``."""
+    path = os.path.join(REPO, "attentionshift_torch", "csrc", "attention_variants.cu")
+    found = re.search(rf"\bint {name}\(([^)]*)\)", open(path).read())
+    scalars = {"int": ctypes.c_int, "float": ctypes.c_float}
+    return [ctypes.c_void_p if "*" in p else scalars[p.split()[-2]]
+            for p in found.group(1).split(",")]
+
+
+def test_variant_library_sets_the_c_signature():
+    """``variant_library`` (library mocked: no nvcc here) gives the entry
+    point the argtypes of the C source's ``attn_variant_forward``: the
+    variant, five tensors, the workspace, B, H, T, the scale, the stream;
+    the ``-D`` overrides reach the build."""
+    built = []
+    fake = types.SimpleNamespace(attn_variant_forward=types.SimpleNamespace(argtypes=None,
+                                                                            restype=None))
+
+    def library(source, defines=()):
+        built.append((source, defines))
+        return fake
+
+    with mock.patch.object(attention_variants, "library", library):
+        lib = attention_variants.variant_library(("VAR_STAGES=3",))
+    assert lib is fake and built == [("attention_variants", ("VAR_STAGES=3",))]
+    want = _c_signature("attn_variant_forward")
+    assert want == ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+                    + [ctypes.c_float, ctypes.c_void_p])
+    assert fake.attn_variant_forward.argtypes == want
+    assert fake.attn_variant_forward.restype is ctypes.c_int
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_variant_launch_hands_workspace_and_counts(name):
+    """The launch path with the library's function mocked (CPU tensors,
+    (2, 3, 40, 64)): one call per variant call with as many arguments as
+    the C signature has; v2 and v4 get a (B, H, T) f32 workspace distinct
+    from every tensor, the others none; the scale is bf16(d^-0.5 log2 e);
+    one launch is counted per call, none when the call fails."""
+    from attentionshift_torch.ops._build import KERNELS, reset_launches
+
+    q, k, v = (torch.from_numpy(x).bfloat16() for x in _bf16_inputs(2, 3, 40, 64))
+    kernel, number = attention_variants.VARIANTS[name]
+    calls, made = [], []
+    workspace = attention_variants._workspace
+
+    def fn(*args):
+        calls.append(args)
+        return 0
+
+    def recorded(q, number):
+        made.append(workspace(q, number))
+        return made[-1]
+
+    reset_launches()
+    with mock.patch.object(attention_variants, "_workspace", recorded):
+        for i in (1, 2):
+            out, mean = attention_variants._launch(fn, name, q, k, v, 7)
+            assert KERNELS[kernel].launches == i
+            assert sum(kr.launches for kr in KERNELS.values()) == i
+        with pytest.raises(RuntimeError, match="cudaError_t 700"):
+            attention_variants._launch(lambda *a: 700, name, q, k, v, 7)
+    assert KERNELS[kernel].launches == 2
+    args = calls[-1]
+    assert len(args) == len(_c_signature("attn_variant_forward"))
+    got_number, pq, pk, pv, pout, pmean, pwork, b, h, t, scale, stream = args
+    assert (got_number, b, h, t, stream) == (number, 2, 3, 40, 7)
+    assert scale == float(torch.tensor(64**-0.5 * 1.4426950408889634).bfloat16())
+    assert (pq, pk, pout, pmean) == (q.data_ptr(), k.data_ptr(), out.data_ptr(), mean.data_ptr())
+    assert out.shape == (2, 3, 40, 64) and mean.shape == (2, 40, 40)
+    work = made[1]
+    if number in (2, 4):
+        assert work.shape == (2, 3, 40) and work.dtype == torch.float32
+        assert pwork == work.data_ptr()
+        assert pwork not in (pq, pk, pv, pout, pmean)
+    else:
+        assert work is None and pwork is None
+    if name == "v6-fusedsum":
+        assert pv != v.data_ptr()  # V with its 8 columns of ones
+    else:
+        assert pv == v.data_ptr()
+
+
+def test_variant_kernel_refuses_what_it_refused_before():
+    """The kernel path's input checks (reached here directly: a CPU
+    tensor takes the plain version): f32 inputs, a head dim other than 64,
+    unequal shapes and v5 above 8 heads are refused for what they are;
+    v2 and v4 take any head count (24: only the device is wrong here)."""
+    check = attention_variants._check_inputs
+
+    def bf(*shape):
+        return torch.zeros(shape, dtype=torch.bfloat16)
+
+    with pytest.raises(ValueError, match="bfloat16"):
+        check(*(torch.zeros((1, 2, 64, 64)),) * 3, "v2-bf16e")
+    with pytest.raises(ValueError, match="head dim 64"):
+        check(*(bf(1, 2, 64, 32),) * 3, "v4-mxsum")
+    with pytest.raises(ValueError, match="shapes differ"):
+        check(bf(1, 2, 64, 64), bf(1, 2, 65, 64), bf(1, 2, 64, 64), "v2-bf16e")
+    with pytest.raises(ValueError, match="at most 8 heads"):
+        check(*(bf(1, 9, 64, 64),) * 3, "v5-batched")
+    for name in ("v2-bf16e", "v4-mxsum"):
+        for h in (1, 9, 24):
+            with pytest.raises(ValueError, match="CUDA tensors"):
+                check(*(bf(2, h, 40, 64),) * 3, name)
 
 
 def test_tool_runs_every_variant_on_the_cpu():
