@@ -21,52 +21,69 @@
 // log2 domain shifted by -20.
 //
 // What bounds them on the H100. At the tool's shape (B=1, H=6, T=4301) one
-// call is 4*H*T^2*d = 28.4 GFLOP (32 with v6's 72 columns) against 13 MB of
+// call is 4*H*T^2*d = 28.4 GFLOP (30.2 with v6's 72 columns) against 13 MB of
 // q/k/v/out and the 37 MB mean: the tensor cores bound it (29 us at 989
 // TFLOP/s; the mean's write is 11 us at 3.35 TB/s). Each e is an exp2, H*T^2
 // = 111 M per pass: 27 us per pass at 16 per clock per SM (1980 MHz, 132
 // SMs), so two passes over e cost 53 us of MUFU work that has to run beside
 // the products.
 //
-// v2 and v4: the Hopper design (helpers in hopper.cuh), two kernels per
-// call as the shipped capture pair of attention.cu. Tiles are 64 rows,
+// v2, v3, v4, v6: the Hopper design (helpers in hopper.cuh), two kernels
+// per call as the shipped capture pair of attention.cu. Tiles are 64 rows,
 // loaded by TMA from 3-D (B*H, T, 64) tensor maps under the 128-byte
 // swizzle with mbarrier completion; every product is a wgmma with f32
 // accumulators.
-//   out pass    (attn_v2_bf16e, attn_v4_mxsum) one block = two warpgroups
-//               = 128 query rows of one (image, head), VAR_BLOCKS_PER_SM
-//               blocks per SM (204 blocks at the tool's shape: one wave).
-//               Both warpgroups read each K and V tile of a VAR_STAGES-slot
-//               ring, refilled by thread 0 once both are done with a slot.
-//               Per key tile: S = Q K^T (wgmma m64n64k16 from shared
-//               memory), e rounded to bf16 into register A fragments, then
-//               one batch of O += e V (wgmma from registers, V read MN-major
-//               through the descriptor's transpose bit, so no transposed
-//               copy of V exists) and the next tile's S. The constant shift
-//               needs no running maximum, so O only adds: no rescale.
+//   out pass    (attn_v2_bf16e, attn_v3_nomin, attn_v4_mxsum,
+//               attn_v6_fusedsum) one block = two warpgroups = 128 query
+//               rows of one (image, head), VAR_BLOCKS_PER_SM blocks per SM
+//               (204 blocks at the tool's shape: one wave). Both
+//               warpgroups read each K and V tile of a VAR_STAGES-slot ring,
+//               refilled by thread 0 once both are done with a slot. Per key
+//               tile: S = Q K^T (wgmma m64n64k16 from shared memory), e
+//               rounded to bf16 into register A fragments, then one batch of
+//               O += e V (wgmma from registers, V read MN-major through the
+//               descriptor's transpose bit, so no transposed copy of V
+//               exists) and the next tile's S. The constant shift needs no
+//               running maximum, so O only adds: no rescale.
 //                 v2 adds the bf16 e into two f32 row sums per thread and
 //                 reduces them over the four threads of a row once, at the
-//                 end;
+//                 end; v3 is v2 with e = exp2(s - 20), no min(., 100) (the
+//                 CLAMPED template flag of both passes);
 //                 v4 issues one more wgmma per k16 step, m64n8k16 with the e
 //                 fragments as A and a 1 KB slot of bf16 1.0 as B (ones read
 //                 as ones under any swizzle): every column of that
-//                 accumulator is the row sum, on the tensor cores.
+//                 accumulator is the row sum, on the tensor cores;
+//                 v6 takes V as (B, H, T, 72), its columns 64-71 ones, and
+//                 reads the denominator from column 64 of e @ V as the JAX
+//                 kernel does. Columns 0-63 arrive as the usual swizzled V
+//                 tile (a 64-column box of a map over the 144-byte rows);
+//                 columns 64-71 of the same 64 keys as a 1 KB slot per ring
+//                 stage (an 8-column box without swizzle, on the stage's
+//                 mbarrier), read by one m64n8k16 per k16 step: 64 key rows
+//                 of 16 bytes with N contiguous, so B is MN-major (the
+//                 transpose bit) in 8 x 16-byte core matrices, 128 bytes
+//                 apart in K. Column 64 of that accumulator sits in the first
+//                 thread of each quad; the others take it by shuffle. Built
+//                 with -D VAR_V6_N72=1 PV is one m64n72k16 instead: a second
+//                 128-byte-swizzled box at column 64 (zeros past column 72
+//                 from TMA's out-of-bounds fill) right after the V tile, the
+//                 descriptor's leading byte offset stepping to it.
 //               It writes out and recip (B, H, T) f32 into a workspace the
 //               caller allocates.
-//   mean pass   (attn_var_mean, both variants) one block = one warpgroup per
-//               (64 query rows, chunk of key tiles, image), as attn_mean:
-//               the query tiles of every head loaded once and kept (at most
-//               VMEAN_RESIDENT_HEADS; above that each (key tile, head) unit
-//               brings its own query tile beside its K tile through the
-//               ring, so no head count is refused), K streamed per (key
-//               tile, head) through a VMEAN_STAGES-slot ring, S of the next
-//               unit issued before this unit's exp work; e recomputed with
-//               the same instructions in the same k16 order as in the out
-//               pass, so it has the same bits; e_h * recip_h / H added over
-//               the heads in f32 registers and each mean tile written once,
-//               in bf16. No atomics: every output element is written once,
-//               in a fixed order. The host picks the chunk length for the
-//               fewest, shortest waves.
+//   mean pass   (attn_var_mean: v2, v4, v6; attn_var_mean_nomin: v3) one
+//               block = one warpgroup per (64 query rows, chunk of key
+//               tiles, image), as attn_mean: the query tiles of every head
+//               loaded once and kept (at most VMEAN_RESIDENT_HEADS; above
+//               that each (key tile, head) unit brings its own query tile
+//               beside its K tile through the ring, so no head count is
+//               refused), K streamed per (key tile, head) through a
+//               VMEAN_STAGES-slot ring, S of the next unit issued before this
+//               unit's exp work; e recomputed with the same instructions in
+//               the same k16 order as in the out pass, so it has the same
+//               bits; e_h * recip_h / H added over the heads in f32 registers
+//               and each mean tile written once, in bf16. No atomics: every
+//               output element is written once, in a fixed order. The host
+//               picks the chunk length for the fewest, shortest waves.
 // Where trouble lies, and what the design does about it:
 //   - key columns >= T: TMA fills rows past T with zeros, which give s = 0
 //     and e = 2^-20, not 0. Only the last key tile can hold them (4301 =
@@ -80,10 +97,16 @@
 //     the storage dtype (the product of two bf16 is exact in f32, so __hmul2
 //     matches), done in shared memory after the tile arrives and made
 //     visible to wgmma with fence.proxy.async, in both passes alike;
-//   - exp2 accuracy: ex2.approx.ftz flushes denormal results and may differ
-//     from torch.exp2 by an f32 ulp before the bf16 rounding (the card
-//     checks allow 4 bf16 ulps of |out| and 2^-9 of the mean); integer
-//     inputs come out exact, so the clamp still gives 2^100 at both keys;
+//   - exp2 accuracy: ex2.approx.ftz flushes subnormal results to 0 and may
+//     differ from torch.exp2 by an f32 ulp before the bf16 rounding (the
+//     card checks allow 4 bf16 ulps of |out| and, per mean entry, the limit
+//     of ops/attention_variants.py::mean_limit); integer inputs come out
+//     exact, so the clamp still gives 2^100 at both keys. v3's logits of 128
+//     and above give inf, then a NaN row, as in the plain version and the
+//     JAX kernel: nothing guards them;
+//   - v6's column slot: its 8 columns are N, contiguous per key, the
+//     opposite of v4's K-major ones slot. Ones read as ones under any
+//     descriptor, so the card tests also feed columns that are not ones;
 //   - head count: the out pass has one block per (row block, head) and
 //     takes any H; the mean pass keeps every head's query tile only up to
 //     VMEAN_RESIDENT_HEADS and streams them above it (heads one at a time,
@@ -92,21 +115,16 @@
 //     for all of it, accumulators and A registers fenced on both sides, so
 //     ptxas keeps the products asynchronous (no C751x warning).
 //
-// v3, v5, v6: still the first design: tiles of 64 keys loaded
-// synchronously and mma.sync m16n8k16 bf16 products, each block owning 64
-// (v5: 32) query rows of one image and sweeping the keys twice, a serial
-// head loop (v5: one group of two warps per head), V transposed into
-// shared memory. Sweep 1 takes the row sums and PV and writes out; sweep 2
-// recomputes e with the same operations (so bit for bit the same e) and
-// writes each mean tile once.
-//   v3  the row sum is added up in registers and reduced over the four
-//       threads of a row with shuffles;
-//   v5  all heads of the same 32 query rows side by side in one block, each
-//       with its own K/V tiles in shared memory; the mean is reduced across
-//       the groups through shared memory;
-//   v6  the PV product runs over 72 columns (a ninth n=8 tile) and the
-//       denominator is read from column 64.
-// Key columns >= T get e = 0; rows >= T are not written.
+// v5: still the first design: tiles of 64 keys loaded synchronously and
+// mma.sync m16n8k16 bf16 products, each block owning 32 query rows of one
+// image and sweeping the keys twice, all heads side by side (one group of
+// two warps per head, each with its own K/V tiles in shared memory), V
+// transposed into shared memory. Sweep 1 takes the row sums (added up in
+// registers, reduced over the four threads of a row with shuffles) and PV
+// and writes out; sweep 2 recomputes e with the same operations (so bit
+// for bit the same e) and reduces the mean across the groups through
+// shared memory, writing each mean tile once. Key columns >= T get e = 0;
+// rows >= T are not written.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -121,7 +139,7 @@ namespace {
 
 using namespace hopper;
 
-// Design constants of the v2/v4 kernels. Each may be overridden with -D at
+// Design constants of the Hopper design. Each may be overridden with -D at
 // build time, which is how `chip_smoke.py --ablate attention_variants`
 // builds the variants it times.
 #ifndef VAR_STAGES
@@ -129,6 +147,9 @@ using namespace hopper;
 #endif
 #ifndef VAR_BLOCKS_PER_SM
 #define VAR_BLOCKS_PER_SM 2  // out-pass blocks per SM (launch bounds)
+#endif
+#ifndef VAR_V6_N72
+#define VAR_V6_N72 0  // v6: PV as one m64n72k16 per k16 step instead of n64 + n8
 #endif
 #ifndef VMEAN_STAGES
 #define VMEAN_STAGES 2  // ring slots of the mean pass
@@ -151,11 +172,9 @@ constexpr int LDS = BK + 8;    // smem row stride (bf16), keeps fragment reads c
 constexpr float SHIFT = 20.f;  // the constant softmax shift, log2 domain
 constexpr float CLAMP = 100.f;  // the exponent clamp of the clamped variants
 
-enum RowSum { SUM_SHUFFLE = 0, SUM_MMA_ONES = 1, SUM_IN_PV = 2 };
-
 typedef __nv_bfloat16 bf16;
 
-// ------------------------------------------------- first design (v3, v5, v6)
+// ------------------------------------------------------ first design (v5)
 
 __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
   asm volatile(
@@ -209,29 +228,22 @@ __device__ __forceinline__ void load_k_tile(bf16* Ks, const bf16* kh, int key0, 
   }
 }
 
-// 64 keys x VD dims of V, transposed into Vt[dim][key]
-template <int VD>
+// 64 keys x 64 dims of V, transposed into Vt[dim][key]
 __device__ __forceinline__ void load_v_tile(bf16* Vt, const bf16* vh, int key0, int T, int t,
                                             int nt) {
-  for (int i = t; i < BK * (VD / 8); i += nt) {
-    int r = i / (VD / 8), c8 = (i % (VD / 8)) * 8;
+  for (int i = t; i < BK * (HD / 8); i += nt) {
+    int r = i >> 3, c8 = (i & 7) * 8;
     uint4 vv = make_uint4(0, 0, 0, 0);
-    if (key0 + r < T) vv = *reinterpret_cast<const uint4*>(vh + (size_t)(key0 + r) * VD + c8);
+    if (key0 + r < T) vv = *reinterpret_cast<const uint4*>(vh + (size_t)(key0 + r) * HD + c8);
     const bf16* ve = reinterpret_cast<const bf16*>(&vv);
 #pragma unroll
     for (int j = 0; j < 8; ++j) Vt[(c8 + j) * LDS + r] = ve[j];
   }
 }
 
-template <bool CLAMPED>
-__device__ __forceinline__ float exponent(float logit) {
-  return exp2f(CLAMPED ? fminf(logit, CLAMP) : logit);
-}
-
-// e = bf16(exp2(q.k - 20)) of a warp's 16 rows x 64 keys, packed in pairs:
-// pe[n][0] holds row a, pe[n][1] row b, keys key0 + n*8 + tig*2 (+1).
-// Both sweeps call this, so both see the same bits.
-template <bool CLAMPED>
+// e = bf16(exp2(min(q.k - 20, 100))) of a warp's 16 rows x 64 keys, packed
+// in pairs: pe[n][0] holds row a, pe[n][1] row b, keys key0 + n*8 + tig*2
+// (+1). Both sweeps call this, so both see the same bits.
 __device__ __forceinline__ void e_tile(uint32_t pe[8][2], const uint32_t qa[4][4], const bf16* Ks,
                                        int key0, int T, int gid, int tig) {
 #pragma unroll
@@ -247,10 +259,10 @@ __device__ __forceinline__ void e_tile(uint32_t pe[8][2], const uint32_t qa[4][4
     }
     const int col = key0 + nt * 8 + tig * 2;
     const bool in0 = col < T, in1 = col + 1 < T;
-    pe[nt][0] = pack2(in0 ? exponent<CLAMPED>(s[0] - SHIFT) : 0.f,
-                      in1 ? exponent<CLAMPED>(s[1] - SHIFT) : 0.f);
-    pe[nt][1] = pack2(in0 ? exponent<CLAMPED>(s[2] - SHIFT) : 0.f,
-                      in1 ? exponent<CLAMPED>(s[3] - SHIFT) : 0.f);
+    pe[nt][0] = pack2(in0 ? exp2f(fminf(s[0] - SHIFT, CLAMP)) : 0.f,
+                      in1 ? exp2f(fminf(s[1] - SHIFT, CLAMP)) : 0.f);
+    pe[nt][1] = pack2(in0 ? exp2f(fminf(s[2] - SHIFT, CLAMP)) : 0.f,
+                      in1 ? exp2f(fminf(s[3] - SHIFT, CLAMP)) : 0.f);
   }
 }
 
@@ -267,31 +279,27 @@ __device__ __forceinline__ void store_mean2(bf16* mb, int r, int col, int T, flo
   }
 }
 
-// One block: BQ query rows of one image, every head. PAR = heads side by
-// side (one group of 2 warps per head), else one group of 4 warps that
-// loops over the heads. Dynamic shared memory, per group: Ks[64][LDS],
-// Vt[VD][LDS] (bf16); then recip[H][BQ] (f32).
-template <bool CLAMPED, int SUM, bool PAR>
-__device__ __forceinline__ void variant_body(const bf16* __restrict__ q,
-                                             const bf16* __restrict__ k,
-                                             const bf16* __restrict__ v, bf16* __restrict__ out,
-                                             bf16* __restrict__ mean, int H, int T,
-                                             float qscale) {
-  constexpr int NW = PAR ? 2 : 4;  // warps per group
-  constexpr int BQ = NW * 16;
-  constexpr int GT = NW * 32;  // threads per group
-  constexpr int VD = SUM == SUM_IN_PV ? HD + 8 : HD;
-  constexpr int ND = VD / 8;  // n-tiles of the PV product
-  constexpr int GROUP_ELEMS = (BK + VD) * LDS;
+// v5: one block = 32 query rows of one image, every head side by side (one
+// group of 2 warps, 64 threads, per head). Dynamic shared memory, per
+// group: Ks[64][LDS], Vt[64][LDS] (bf16); then recip[H][32] (f32).
+constexpr int V5_ROWS = 32;
+constexpr int V5_GROUP_THREADS = 64;
+constexpr int V5_GROUP_ELEMS = (BK + HD) * LDS;
+
+// up to 8 heads side by side: 8 groups of 64 threads
+__global__ void __launch_bounds__(512)
+attn_v5_batched(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                bf16* __restrict__ out, bf16* __restrict__ mean, int H, int T, float qscale) {
+  constexpr int BQ = V5_ROWS;
+  constexpr int GT = V5_GROUP_THREADS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
 
-  const int group = PAR ? threadIdx.x / GT : 0;
-  const int ngroups = PAR ? H : 1;
-  const int gt = PAR ? threadIdx.x % GT : threadIdx.x;
-  bf16* Ks = smem + group * GROUP_ELEMS;
+  const int h = threadIdx.x / GT;  // this group's head
+  const int gt = threadIdx.x % GT;
+  bf16* Ks = smem + h * V5_GROUP_ELEMS;
   bf16* Vt = Ks + BK * LDS;
-  float* recip_s = reinterpret_cast<float*>(smem + ngroups * GROUP_ELEMS);
+  float* recip_s = reinterpret_cast<float*>(smem + H * V5_GROUP_ELEMS);
 
   const int b = blockIdx.y;
   const int warp = gt >> 5, lane = gt & 31;
@@ -299,168 +307,105 @@ __device__ __forceinline__ void variant_body(const bf16* __restrict__ q,
   const int row0 = blockIdx.x * BQ;
   const int lr_a = warp * 16 + gid, lr_b = lr_a + 8;  // rows within the block
   const int r_a = row0 + lr_a, r_b = row0 + lr_b;
-  const int h_lo = PAR ? group : 0, h_hi = PAR ? group + 1 : H;
   const int ntiles = (T + BK - 1) / BK;
   const __nv_bfloat162 scale2 = __float2bfloat162_rn(qscale);
+  const size_t head = ((size_t)b * H + h) * (size_t)T;
 
-  // ---- sweep 1: row sums and PV, per head
-  for (int h = h_lo; h < h_hi; ++h) {
-    const size_t head = ((size_t)b * H + h) * (size_t)T;
-    const bf16* qh = q + head * HD;
-    const bf16* kh = k + head * HD;
-    const bf16* vh = v + head * VD;
-    uint32_t qa[4][4];
-    load_q(qa, qh, r_a, r_b, tig, T, scale2);
+  // ---- sweep 1: row sums and PV of this group's head
+  uint32_t qa[4][4];
+  load_q(qa, q + head * HD, r_a, r_b, tig, T, scale2);
+  float o[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float sum_a = 0.f, sum_b = 0.f;
+  for (int kt = 0; kt < ntiles; ++kt) {
+    const int key0 = kt * BK;
+    __syncthreads();  // previous tile fully consumed
+    load_k_tile(Ks, k + head * HD, key0, T, gt, GT);
+    load_v_tile(Vt, v + head * HD, key0, T, gt, GT);
+    __syncthreads();
 
-    float o[ND][4];
+    uint32_t pe[8][2];
+    e_tile(pe, qa, Ks, key0, T, gid, tig);
 #pragma unroll
-    for (int i = 0; i < ND; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-    float sum_a = 0.f, sum_b = 0.f;
-
-    for (int kt = 0; kt < ntiles; ++kt) {
-      const int key0 = kt * BK;
-      __syncthreads();  // previous tile fully consumed
-      load_k_tile(Ks, kh, key0, T, gt, GT);
-      load_v_tile<VD>(Vt, vh, key0, T, gt, GT);
-      __syncthreads();
-
-      uint32_t pe[8][2];
-      e_tile<CLAMPED>(pe, qa, Ks, key0, T, gid, tig);
-      if (SUM == SUM_SHUFFLE) {
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          float2 ea = unpack2(pe[nt][0]), eb = unpack2(pe[nt][1]);
-          sum_a += ea.x + ea.y;
-          sum_b += eb.x + eb.y;
-        }
-      }
-      // the e of n-tiles (2c, 2c+1) is the A fragment of key chunk c
-#pragma unroll
-      for (int kc = 0; kc < 4; ++kc) {
-        const uint32_t pa[4] = {pe[2 * kc][0], pe[2 * kc][1], pe[2 * kc + 1][0],
-                                pe[2 * kc + 1][1]};
-#pragma unroll
-        for (int dt = 0; dt < ND; ++dt) {
-          uint32_t bb[2];
-          const bf16* row = Vt + (dt * 8 + gid) * LDS + kc * 16 + tig * 2;
-          bb[0] = *reinterpret_cast<const uint32_t*>(row);
-          bb[1] = *reinterpret_cast<const uint32_t*>(row + 8);
-          mma16816(o[dt], pa, bb);
-        }
-      }
+    for (int nt = 0; nt < 8; ++nt) {
+      float2 ea = unpack2(pe[nt][0]), eb = unpack2(pe[nt][1]);
+      sum_a += ea.x + ea.y;
+      sum_b += eb.x + eb.y;
     }
-
-    if (SUM == SUM_SHUFFLE) {
+    // the e of n-tiles (2c, 2c+1) is the A fragment of key chunk c
 #pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        sum_a += __shfl_xor_sync(0xffffffffu, sum_a, off);
-        sum_b += __shfl_xor_sync(0xffffffffu, sum_b, off);
+    for (int kc = 0; kc < 4; ++kc) {
+      const uint32_t pa[4] = {pe[2 * kc][0], pe[2 * kc][1], pe[2 * kc + 1][0],
+                              pe[2 * kc + 1][1]};
+#pragma unroll
+      for (int dt = 0; dt < 8; ++dt) {
+        uint32_t bb[2];
+        const bf16* row = Vt + (dt * 8 + gid) * LDS + kc * 16 + tig * 2;
+        bb[0] = *reinterpret_cast<const uint32_t*>(row);
+        bb[1] = *reinterpret_cast<const uint32_t*>(row + 8);
+        mma16816(o[dt], pa, bb);
       }
-    } else {
-      // columns 64..71 of V are ones: the ninth n-tile is the row sum
-      sum_a = o[ND - 1][0];
-      sum_b = o[ND - 1][2];
-    }
-    const float inv_a = 1.f / fmaxf(sum_a, 1e-30f), inv_b = 1.f / fmaxf(sum_b, 1e-30f);
-    bf16* oh = out + head * HD;
-#pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) {
-      int c = dt * 8 + tig * 2;
-      if (r_a < T)
-        *reinterpret_cast<uint32_t*>(oh + (size_t)r_a * HD + c) =
-            pack2(o[dt][0] * inv_a, o[dt][1] * inv_a);
-      if (r_b < T)
-        *reinterpret_cast<uint32_t*>(oh + (size_t)r_b * HD + c) =
-            pack2(o[dt][2] * inv_b, o[dt][3] * inv_b);
-    }
-    if (tig == 0) {
-      recip_s[h * BQ + lr_a] = inv_a;
-      recip_s[h * BQ + lr_b] = inv_b;
     }
   }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    sum_a += __shfl_xor_sync(0xffffffffu, sum_a, off);
+    sum_b += __shfl_xor_sync(0xffffffffu, sum_b, off);
+  }
+  const float inv_a = 1.f / fmaxf(sum_a, 1e-30f), inv_b = 1.f / fmaxf(sum_b, 1e-30f);
+  bf16* oh = out + head * HD;
+#pragma unroll
+  for (int dt = 0; dt < 8; ++dt) {
+    int c = dt * 8 + tig * 2;
+    if (r_a < T)
+      *reinterpret_cast<uint32_t*>(oh + (size_t)r_a * HD + c) =
+          pack2(o[dt][0] * inv_a, o[dt][1] * inv_a);
+    if (r_b < T)
+      *reinterpret_cast<uint32_t*>(oh + (size_t)r_b * HD + c) =
+          pack2(o[dt][2] * inv_b, o[dt][3] * inv_b);
+  }
+  if (tig == 0) {
+    recip_s[h * BQ + lr_a] = inv_a;
+    recip_s[h * BQ + lr_b] = inv_b;
+  }
 
-  // ---- sweep 2: the mean, one 64-key tile at a time
-  const float inv_h = 1.f / (float)H;
+  // ---- sweep 2: the mean, one 64-key tile at a time: each group's
+  // e_h * recip_h into its V region, then the whole block sums the heads
+  // and writes the tile (the mean over the head axis, divided after the sum)
   bf16* mb = mean + (size_t)b * T * T;
   for (int kt = 0; kt < ntiles; ++kt) {
     const int key0 = kt * BK;
-    float acc[8][4];
+    __syncthreads();  // previous K tile consumed, recip_s and the slabs settled
+    load_k_tile(Ks, k + head * HD, key0, T, gt, GT);
+    __syncthreads();
+    load_q(qa, q + head * HD, r_a, r_b, tig, T, scale2);
+    uint32_t pe[8][2];
+    e_tile(pe, qa, Ks, key0, T, gid, tig);
+    const float c_a = recip_s[h * BQ + lr_a], c_b = recip_s[h * BQ + lr_b];
+    float* slab = reinterpret_cast<float*>(Vt);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-    for (int h = h_lo; h < h_hi; ++h) {
-      const size_t head = ((size_t)b * H + h) * (size_t)T;
-      __syncthreads();  // previous K tile consumed, recip_s and the slabs settled
-      load_k_tile(Ks, k + head * HD, key0, T, gt, GT);
-      __syncthreads();
-      uint32_t qa[4][4];
-      load_q(qa, q + head * HD, r_a, r_b, tig, T, scale2);
-      uint32_t pe[8][2];
-      e_tile<CLAMPED>(pe, qa, Ks, key0, T, gid, tig);
-      // serial heads: sum_h e_h * (recip_h / H); side by side: the mean over
-      // the head axis of e_h * recip_h, divided after the sum
-      const float c_a = PAR ? recip_s[h * BQ + lr_a] : recip_s[h * BQ + lr_a] * inv_h;
-      const float c_b = PAR ? recip_s[h * BQ + lr_b] : recip_s[h * BQ + lr_b] * inv_h;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        float2 ea = unpack2(pe[nt][0]), eb = unpack2(pe[nt][1]);
-        acc[nt][0] += ea.x * c_a;
-        acc[nt][1] += ea.y * c_a;
-        acc[nt][2] += eb.x * c_b;
-        acc[nt][3] += eb.y * c_b;
-      }
+    for (int nt = 0; nt < 8; ++nt) {
+      float2 ea = unpack2(pe[nt][0]), eb = unpack2(pe[nt][1]);
+      int c = nt * 8 + tig * 2;
+      *reinterpret_cast<float2*>(slab + lr_a * BK + c) = make_float2(ea.x * c_a, ea.y * c_a);
+      *reinterpret_cast<float2*>(slab + lr_b * BK + c) = make_float2(eb.x * c_b, eb.y * c_b);
     }
-    if (PAR) {
-      // each head's (BQ, 64) f32 contribution into its group's V region,
-      // then the whole block sums the heads and writes the tile
-      float* slab = reinterpret_cast<float*>(Vt);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        int c = nt * 8 + tig * 2;
-        *reinterpret_cast<float2*>(slab + lr_a * BK + c) = make_float2(acc[nt][0], acc[nt][1]);
-        *reinterpret_cast<float2*>(slab + lr_b * BK + c) = make_float2(acc[nt][2], acc[nt][3]);
+    __syncthreads();
+    for (int i = threadIdx.x; i < BQ * BK / 2; i += blockDim.x) {
+      int r = i / (BK / 2), c = (i % (BK / 2)) * 2;
+      float x0 = 0.f, x1 = 0.f;
+      for (int g = 0; g < H; ++g) {
+        const float* sl = reinterpret_cast<const float*>(smem + g * V5_GROUP_ELEMS + BK * LDS);
+        x0 += sl[r * BK + c];
+        x1 += sl[r * BK + c + 1];
       }
-      __syncthreads();
-      for (int i = threadIdx.x; i < BQ * BK / 2; i += blockDim.x) {
-        int r = i / (BK / 2), c = (i % (BK / 2)) * 2;
-        float x0 = 0.f, x1 = 0.f;
-        for (int g = 0; g < H; ++g) {
-          const float* sl = reinterpret_cast<const float*>(smem + g * GROUP_ELEMS + BK * LDS);
-          x0 += sl[r * BK + c];
-          x1 += sl[r * BK + c + 1];
-        }
-        store_mean2(mb, row0 + r, key0 + c, T, x0 / (float)H, x1 / (float)H);
-      }
-    } else {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        int col = key0 + nt * 8 + tig * 2;
-        store_mean2(mb, r_a, col, T, acc[nt][0], acc[nt][1]);
-        store_mean2(mb, r_b, col, T, acc[nt][2], acc[nt][3]);
-      }
+      store_mean2(mb, row0 + r, key0 + c, T, x0 / (float)H, x1 / (float)H);
     }
   }
 }
 
-#define VARIANT_ARGS                                                                     \
-  const bf16 *__restrict__ q, const bf16 *__restrict__ k, const bf16 *__restrict__ v,    \
-      bf16 *__restrict__ out, bf16 *__restrict__ mean, int H, int T, float qscale
-
-__global__ void __launch_bounds__(128) attn_v3_nomin(VARIANT_ARGS) {
-  variant_body<false, SUM_SHUFFLE, false>(q, k, v, out, mean, H, T, qscale);
-}
-
-// up to 8 heads side by side: 8 groups of 64 threads
-__global__ void __launch_bounds__(512) attn_v5_batched(VARIANT_ARGS) {
-  variant_body<true, SUM_SHUFFLE, true>(q, k, v, out, mean, H, T, qscale);
-}
-
-__global__ void __launch_bounds__(128) attn_v6_fusedsum(VARIANT_ARGS) {
-  variant_body<true, SUM_IN_PV, false>(q, k, v, out, mean, H, T, qscale);
-}
-
-typedef void (*VariantKernel)(const bf16*, const bf16*, const bf16*, bf16*, bf16*, int, int, float);
-
-// ---------------------------------------------------- Hopper design (v2, v4)
+// ------------------------------------------ Hopper design (v2, v3, v4, v6)
 
 constexpr int TILE = TILE_ROWS;
 constexpr int WG_THREADS = 128;  // one warpgroup
@@ -468,11 +413,35 @@ constexpr int OUT_WARPGROUPS = 2;
 constexpr int OUT_ROWS = OUT_WARPGROUPS * TILE;
 constexpr int OUT_THREADS = OUT_WARPGROUPS * WG_THREADS;
 constexpr int ONES_BYTES = 1024;  // v4's B operand: 8 rows of 64 bf16 ones
+constexpr int COLS_BYTES = TILE * 16;  // v6's B operand: V's columns 64-71 of 64 keys
 constexpr uint32_t BF16_ONES = 0x3F803F80u;
 
-// out pass: the query tiles, VAR_STAGES slots of (K, V), the ones, the barriers
-constexpr size_t OUT_SMEM = (size_t)(OUT_WARPGROUPS + 2 * VAR_STAGES) * TILE_BYTES + ONES_BYTES +
-                            (1 + VAR_STAGES) * sizeof(uint64_t) + 1024;
+// How the out pass takes each row's sum of e.
+enum RowSum {
+  SUM_SHUFFLE = 0,   // v2, v3: f32 adds on the vector units
+  SUM_MMA_ONES = 1,  // v4: e @ ones, a slot of ones made in shared memory
+  SUM_V_COLS = 2,    // v6: column 64 of e @ V[:, 64:72], V's columns from memory
+};
+
+// v6 built with one m64n72k16 per k16 step: a third tile per ring slot
+__host__ __device__ constexpr bool n72(int sum) { return sum == SUM_V_COLS && VAR_V6_N72; }
+__host__ __device__ constexpr int ring_tiles(int sum) { return n72(sum) ? 3 : 2; }
+// v4's ones, or v6's column slot of each ring stage
+__host__ __device__ constexpr int side_bytes(int sum) {
+  return sum == SUM_MMA_ONES ? ONES_BYTES : sum == SUM_V_COLS && !n72(sum) ? VAR_STAGES * COLS_BYTES : 0;
+}
+// bytes one ring stage receives
+__host__ __device__ constexpr int stage_bytes(int sum) {
+  return ring_tiles(sum) * TILE_BYTES + (sum == SUM_V_COLS && !n72(sum) ? COLS_BYTES : 0);
+}
+
+// out pass: the query tiles, VAR_STAGES ring slots of (K, V[, V's columns
+// 64-127]), the ones or column slots, the barriers. v6 adds 1 KB per ring
+// slot (8 KB under VAR_V6_N72)
+constexpr size_t out_smem(int sum) {
+  return (size_t)(OUT_WARPGROUPS + ring_tiles(sum) * VAR_STAGES) * TILE_BYTES + side_bytes(sum) +
+         (1 + VAR_STAGES) * sizeof(uint64_t) + 1024;
+}
 
 // mean pass: the resident query tiles, VMEAN_STAGES slots of K (and of the
 // unit's query tile when they are not resident), the barriers
@@ -497,8 +466,10 @@ __device__ __forceinline__ float bf_hi(uint32_t p) { return __uint_as_float(p & 
 
 // e of a thread's 32 logits of a 64 x 64 tile whose keys start at key0,
 // rounded to bf16 A fragments (pe[kc][i] holds entries 8kc + 2i, 8kc + 2i +
-// 1: row a for even i, row b for odd i). Both passes call this on the same
-// S, so both get the same bits. Keys >= T (zeros from TMA) get -inf: e = 0.
+// 1: row a for even i, row b for odd i): exp2(min(s - 20, 100)), or
+// exp2(s - 20) unclamped. Both passes call this on the same S, so both get
+// the same bits. Keys >= T (zeros from TMA) get -inf: e = 0.
+template <bool CLAMPED>
 __device__ __forceinline__ void e_frags(uint32_t (&pe)[4][4], float (&s)[32], int key0, int T,
                                         int tig) {
   if (key0 + TILE > T) {
@@ -506,7 +477,7 @@ __device__ __forceinline__ void e_frags(uint32_t (&pe)[4][4], float (&s)[32], in
     for (int i = 0; i < 32; ++i) s[i] = key0 + acc_col(i, tig) < T ? s[i] : -INFINITY;
   }
 #pragma unroll
-  for (int i = 0; i < 32; ++i) s[i] = ex2(fminf(s[i] - SHIFT, CLAMP));
+  for (int i = 0; i < 32; ++i) s[i] = ex2(CLAMPED ? fminf(s[i] - SHIFT, CLAMP) : s[i] - SHIFT);
   acc_to_a(pe, s);
 }
 
@@ -530,16 +501,46 @@ __device__ __forceinline__ void fence_regs4(float (&d)[4]) {
   for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D (64 x 8, f32: d[0..1] row 16*warp + lane/4, d[2..3] eight rows on) (+)=
-// A (64 x 16 bf16 in registers, the m16n8k16 A layout) * B (16 x 8, K-major
-// slot). hopper.cuh has the n64 products only.
+// v6's column slot, k16 step kc: 64 key rows of 16 bytes (8 columns, N
+// contiguous), no swizzle. MN-major core matrices are 8 keys x 16 bytes;
+// the next 8 keys follow 128 bytes on (the K-direction offset); N has one
+// core matrix, so the other offset is never stepped (set alike).
+__device__ __forceinline__ uint64_t desc_cols(const void* slot, int kc) {
+  return make_desc(smem_addr(slot) + kc * 256, 128, 128, 0);
+}
+
+// D (64 x 8, f32: d[0..1] row 16*warp + lane/4, columns 2*(lane%4) + 0..1;
+// d[2..3] eight rows on) (+)= A (64 x 16 bf16 in registers, the m16n8k16 A
+// layout) * B (16 x 8 slot: K-major for TRANS_B = 0, MN-major for 1).
+// hopper.cuh has the n64 products only.
+template <int TRANS_B>
 __device__ __forceinline__ void wgmma_rs_n8(float (&d)[4], const uint32_t (&a)[4], uint64_t desc_b,
                                             int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(acc), "n"(TRANS_B));
+}
+
+// D (64 x 72, f32) (+)= A (registers) * B (16 x 72, MN-major, two
+// 128-byte-swizzled atoms TILE_BYTES apart): columns 0-63 into d, 64-71 into
+// x (the m64n72 layout: d[4j + i] for j < 8, x[i] for j = 8)
+__device__ __forceinline__ void wgmma_rs_n72(float (&d)[32], float (&x)[4], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35}, "
+      "{%36, %37, %38, %39}, %40, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(x[0]), "+f"(x[1]), "+f"(x[2]), "+f"(x[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(acc));
 }
 
@@ -547,33 +548,41 @@ __device__ __forceinline__ void wgmma_rs_n8(float (&d)[4], const uint32_t (&a)[4
 
 struct OutArgs {
   const uint8_t* q_s;  // this warpgroup's query tile (scaled)
-  uint8_t* ring;       // slot s: K at tile 2s, V at tile 2s + 1
-  const uint8_t* ones;
-  uint64_t* bars;  // [0] query tiles, [1 + s] slot s
+  uint8_t* ring;       // slot s: K at tile r*s, V at tile r*s + 1 (r = ring_tiles)
+  uint8_t* side;       // v4's ones; v6's column slot of stage s at s * COLS_BYTES
+  uint64_t* bars;      // [0] query tiles, [1 + s] slot s
   const CUtensorMap* map_k;
   const CUtensorMap* map_v;
+  const CUtensorMap* map_c;  // v6: V's columns 64-71
   int plane, n, T, tig, tid;
 };
 
+template <int SUM>
 __device__ __forceinline__ void out_load(const OutArgs& a, int tile) {
   const int st = tile % VAR_STAGES;
-  mbar_expect_tx(&a.bars[1 + st], 2 * TILE_BYTES);
-  tma_load_tile(a.ring + (2 * st) * TILE_BYTES, a.map_k, &a.bars[1 + st], tile * TILE, a.plane);
-  tma_load_tile(a.ring + (2 * st + 1) * TILE_BYTES, a.map_v, &a.bars[1 + st], tile * TILE,
-                a.plane);
+  uint8_t* slot = a.ring + ring_tiles(SUM) * st * TILE_BYTES;
+  uint64_t* bar = &a.bars[1 + st];
+  mbar_expect_tx(bar, stage_bytes(SUM));
+  tma_load_tile(slot, a.map_k, bar, tile * TILE, a.plane);
+  tma_load_tile(slot + TILE_BYTES, a.map_v, bar, tile * TILE, a.plane);
+  if (n72(SUM))  // columns 64-127 of V: 64-71, then zeros
+    tma_load_box(slot + 2 * TILE_BYTES, a.map_v, bar, HD, tile * TILE, a.plane);
+  else if (SUM == SUM_V_COLS)
+    tma_load_box(a.side + st * COLS_BYTES, a.map_c, bar, HD, tile * TILE, a.plane);
 }
 
 // Key tile j: `s` holds its finished S and no product is in flight. Takes
-// e of `s` (and, for v2, adds it to the row sums); then one batch of
-// products, O += e V of tile j (v4: and the row sums e @ ones) and S of
-// tile j + 1 into `s`, after which tile j's slot is refilled. Every step
-// issues the same products and waits for all of them, so that ptxas keeps
-// them asynchronous: the last tile recomputes its own S, which nobody reads.
-template <int SUM>
+// e of `s` (and, for v2 and v3, adds it to the row sums); then one batch of
+// products, O += e V of tile j (v4: and the row sums e @ ones; v6: and e @
+// V[:, 64:72]) and S of tile j + 1 into `s`, after which tile j's slot is
+// refilled. Every step issues the same products and waits for all of them,
+// so that ptxas keeps them asynchronous: the last tile recomputes its own
+// S, which nobody reads.
+template <int SUM, bool CLAMPED>
 __device__ __forceinline__ void out_step(const OutArgs& a, float (&s)[32], float (&o)[32],
                                          float (&rs)[4], uint32_t (&pa)[4][4], float& sum_a,
                                          float& sum_b, int j) {
-  e_frags(pa, s, j * TILE, a.T, a.tig);
+  e_frags<CLAMPED>(pa, s, j * TILE, a.T, a.tig);
   if (SUM == SUM_SHUFFLE) {
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) {
@@ -584,18 +593,27 @@ __device__ __forceinline__ void out_step(const OutArgs& a, float (&s)[32], float
 
   const bool more = j + 1 < a.n;
   if (more) mbar_wait(&a.bars[1 + (j + 1) % VAR_STAGES], ((j + 1) / VAR_STAGES) & 1);
-  const uint8_t* k_s = a.ring + (2 * ((more ? j + 1 : j) % VAR_STAGES)) * TILE_BYTES;
-  const uint8_t* v_s = a.ring + (2 * (j % VAR_STAGES) + 1) * TILE_BYTES;
+  const uint8_t* k_s = a.ring + ring_tiles(SUM) * ((more ? j + 1 : j) % VAR_STAGES) * TILE_BYTES;
+  const uint8_t* v_s = a.ring + (ring_tiles(SUM) * (j % VAR_STAGES) + 1) * TILE_BYTES;
   fence_regs(s);
   fence_regs(o);
   fence_regs(pa);
-  if (SUM == SUM_MMA_ONES) fence_regs4(rs);
+  if (SUM != SUM_SHUFFLE) fence_regs4(rs);
   wgmma_fence();
+  if (n72(SUM)) {
 #pragma unroll
-  for (int kc = 0; kc < 4; ++kc) wgmma_rs<1>(o, pa[kc], desc_mnmajor(v_s, kc), 1);
+    for (int kc = 0; kc < 4; ++kc) wgmma_rs_n72(o, rs, pa[kc], desc_mnmajor(v_s, kc), 1);
+  } else {
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) wgmma_rs<1>(o, pa[kc], desc_mnmajor(v_s, kc), 1);
+  }
   if (SUM == SUM_MMA_ONES) {
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) wgmma_rs_n8(rs, pa[kc], desc_kmajor(a.ones, 0), 1);
+    for (int kc = 0; kc < 4; ++kc) wgmma_rs_n8<0>(rs, pa[kc], desc_kmajor(a.side, 0), 1);
+  } else if (SUM == SUM_V_COLS && !n72(SUM)) {
+    const uint8_t* c_s = a.side + (j % VAR_STAGES) * COLS_BYTES;
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) wgmma_rs_n8<1>(rs, pa[kc], desc_cols(c_s, kc), 1);
   }
 #pragma unroll
   for (int kc = 0; kc < 4; ++kc) wgmma_ss<0>(s, desc_kmajor(a.q_s, kc), desc_kmajor(k_s, kc), kc);
@@ -604,26 +622,27 @@ __device__ __forceinline__ void out_step(const OutArgs& a, float (&s)[32], float
   fence_regs(s);
   fence_regs(o);
   fence_regs(pa);
-  if (SUM == SUM_MMA_ONES) fence_regs4(rs);
+  if (SUM != SUM_SHUFFLE) fence_regs4(rs);
   __syncthreads();  // both warpgroups are done with tile j's slot
-  if (a.tid == 0 && j + VAR_STAGES < a.n) out_load(a, j + VAR_STAGES);
+  if (a.tid == 0 && j + VAR_STAGES < a.n) out_load<SUM>(a, j + VAR_STAGES);
 }
 
-template <int SUM>
+template <int SUM, bool CLAMPED>
 __device__ __forceinline__ void out_pass(const CUtensorMap& map_q, const CUtensorMap& map_k,
-                                         const CUtensorMap& map_v, bf16* __restrict__ out,
-                                         float* __restrict__ recip, int H, int T, float qscale) {
+                                         const CUtensorMap& map_v, const CUtensorMap& map_c,
+                                         bf16* __restrict__ out, float* __restrict__ recip, int H,
+                                         int T, float qscale) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   const int wg = threadIdx.x >> 7;  // this warpgroup's query tile
   OutArgs a;
   a.q_s = smem + wg * TILE_BYTES;
   a.ring = smem + OUT_WARPGROUPS * TILE_BYTES;
-  uint8_t* ones = a.ring + 2 * VAR_STAGES * TILE_BYTES;
-  a.ones = ones;
-  a.bars = reinterpret_cast<uint64_t*>(ones + ONES_BYTES);
+  a.side = a.ring + ring_tiles(SUM) * VAR_STAGES * TILE_BYTES;
+  a.bars = reinterpret_cast<uint64_t*>(a.side + side_bytes(SUM));
   a.map_k = &map_k;
   a.map_v = &map_v;
+  a.map_c = &map_c;
   a.plane = blockIdx.z * H + blockIdx.y;
   a.n = (T + TILE - 1) / TILE;
   a.T = T;
@@ -636,11 +655,11 @@ __device__ __forceinline__ void out_pass(const CUtensorMap& map_q, const CUtenso
     mbar_expect_tx(&a.bars[0], OUT_WARPGROUPS * TILE_BYTES);
     for (int w = 0; w < OUT_WARPGROUPS; ++w)
       tma_load_tile(smem + w * TILE_BYTES, &map_q, &a.bars[0], row0 + w * TILE, a.plane);
-    for (int t = 0; t < VAR_STAGES && t < a.n; ++t) out_load(a, t);
+    for (int t = 0; t < VAR_STAGES && t < a.n; ++t) out_load<SUM>(a, t);
   }
   if (SUM == SUM_MMA_ONES) {
     for (int i = a.tid; i < ONES_BYTES / 4; i += OUT_THREADS)
-      reinterpret_cast<uint32_t*>(ones)[i] = BF16_ONES;
+      reinterpret_cast<uint32_t*>(a.side)[i] = BF16_ONES;
   }
   __syncthreads();  // the barriers are initialised
   mbar_wait(&a.bars[0], 0);
@@ -661,7 +680,7 @@ __device__ __forceinline__ void out_pass(const CUtensorMap& map_q, const CUtenso
   wgmma_commit();
   wgmma_wait();
   fence_regs(s);
-  for (int j = 0; j < a.n; ++j) out_step<SUM>(a, s, o, rs, pa, sum_a, sum_b, j);
+  for (int j = 0; j < a.n; ++j) out_step<SUM, CLAMPED>(a, s, o, rs, pa, sum_a, sum_b, j);
 
   if (SUM == SUM_SHUFFLE) {
 #pragma unroll
@@ -669,6 +688,10 @@ __device__ __forceinline__ void out_pass(const CUtensorMap& map_q, const CUtenso
       sum_a += __shfl_xor_sync(0xffffffffu, sum_a, off);
       sum_b += __shfl_xor_sync(0xffffffffu, sum_b, off);
     }
+  } else if (SUM == SUM_V_COLS) {  // column 64 of e @ V[:, 64:72]: the quad's first thread holds it
+    const int lead = threadIdx.x & 28;
+    sum_a = __shfl_sync(0xffffffffu, rs[0], lead);
+    sum_b = __shfl_sync(0xffffffffu, rs[2], lead);
   } else {  // every column of e @ ones is the row sum
     sum_a = rs[0];
     sum_b = rs[2];
@@ -694,17 +717,28 @@ __device__ __forceinline__ void out_pass(const CUtensorMap& map_q, const CUtenso
   }
 }
 
-#define OUT_ARGS                                                                           \
-  const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,    \
-      const __grid_constant__ CUtensorMap map_v, bf16 *__restrict__ out,                   \
-      float *__restrict__ recip, int H, int T, float qscale
+// map_c: v6's map of V's columns 64-71 (the others ignore it)
+#define OUT_ARGS                                                                             \
+  const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,      \
+      const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_c,  \
+      bf16 *__restrict__ out, float *__restrict__ recip, int H, int T, float qscale
+#define OUT_PASS(SUM, CLAMPED) \
+  out_pass<SUM, CLAMPED>(map_q, map_k, map_v, map_c, out, recip, H, T, qscale)
 
 __global__ void __launch_bounds__(OUT_THREADS, VAR_BLOCKS_PER_SM) attn_v2_bf16e(OUT_ARGS) {
-  out_pass<SUM_SHUFFLE>(map_q, map_k, map_v, out, recip, H, T, qscale);
+  OUT_PASS(SUM_SHUFFLE, true);
+}
+
+__global__ void __launch_bounds__(OUT_THREADS, VAR_BLOCKS_PER_SM) attn_v3_nomin(OUT_ARGS) {
+  OUT_PASS(SUM_SHUFFLE, false);
 }
 
 __global__ void __launch_bounds__(OUT_THREADS, VAR_BLOCKS_PER_SM) attn_v4_mxsum(OUT_ARGS) {
-  out_pass<SUM_MMA_ONES>(map_q, map_k, map_v, out, recip, H, T, qscale);
+  OUT_PASS(SUM_MMA_ONES, true);
+}
+
+__global__ void __launch_bounds__(OUT_THREADS, VAR_BLOCKS_PER_SM) attn_v6_fusedsum(OUT_ARGS) {
+  OUT_PASS(SUM_V_COLS, true);
 }
 
 // -------------------------------------------------------------- mean pass
@@ -765,6 +799,7 @@ __device__ __forceinline__ void mean_issue_s(const MeanArgs& a, float (&s)[32], 
 // adds this unit's e * recip / H to `acc`, writes the tile after its last
 // head, and returns with `nxt` finished. As in out_step every step issues
 // and waits alike: the last unit recomputes its own S, which nobody reads.
+template <bool CLAMPED>
 __device__ __forceinline__ void mean_step(const MeanArgs& a, float (&cur)[32], float (&nxt)[32],
                                           float (&acc)[32], int u) {
   const bool more = u + 1 < a.n;
@@ -780,7 +815,7 @@ __device__ __forceinline__ void mean_step(const MeanArgs& a, float (&cur)[32], f
   const float c_a = r_a < a.T ? rh[r_a] * a.inv_h : 0.f;
   const float c_b = r_b < a.T ? rh[r_b] * a.inv_h : 0.f;
   uint32_t pe[4][4];
-  e_frags(pe, cur, key0, a.T, a.tig);
+  e_frags<CLAMPED>(pe, cur, key0, a.T, a.tig);
   // the plain version's roundings: the product, then the sum (no FMA)
 #pragma unroll
   for (int kc = 0; kc < 4; ++kc) {
@@ -808,10 +843,10 @@ __device__ __forceinline__ void mean_step(const MeanArgs& a, float (&cur)[32], f
   fence_regs(nxt);
 }
 
-__global__ void __launch_bounds__(WG_THREADS, VMEAN_BLOCKS_PER_SM)
-attn_var_mean(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
-              const float* __restrict__ recip, bf16* __restrict__ mean, int H, int T,
-              float qscale, int chunk, int resident) {
+template <bool CLAMPED>
+__device__ __forceinline__ void mean_pass(const CUtensorMap& map_q, const CUtensorMap& map_k,
+                                          const float* __restrict__ recip, bf16* __restrict__ mean,
+                                          int H, int T, float qscale, int chunk, int resident) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   MeanArgs a;
@@ -860,9 +895,25 @@ attn_var_mean(const __grid_constant__ CUtensorMap map_q, const __grid_constant__
   wgmma_wait();
   fence_regs(sa);
   for (int u = 0; u < a.n; u += 2) {
-    mean_step(a, sa, sb, acc, u);
-    if (u + 1 < a.n) mean_step(a, sb, sa, acc, u + 1);
+    mean_step<CLAMPED>(a, sa, sb, acc, u);
+    if (u + 1 < a.n) mean_step<CLAMPED>(a, sb, sa, acc, u + 1);
   }
+}
+
+#define MEAN_ARGS                                                                          \
+  const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,    \
+      const float *__restrict__ recip, bf16 *__restrict__ mean, int H, int T, float qscale, \
+      int chunk, int resident
+
+// v2, v4, v6: e clamped at 2^100
+__global__ void __launch_bounds__(WG_THREADS, VMEAN_BLOCKS_PER_SM) attn_var_mean(MEAN_ARGS) {
+  mean_pass<true>(map_q, map_k, recip, mean, H, T, qscale, chunk, resident);
+}
+
+// v3: no clamp (a kernel of its own name, so that profiles and ptxas tell
+// the two apart)
+__global__ void __launch_bounds__(WG_THREADS, VMEAN_BLOCKS_PER_SM) attn_var_mean_nomin(MEAN_ARGS) {
+  mean_pass<false>(map_q, map_k, recip, mean, H, T, qscale, chunk, resident);
 }
 
 // Key tiles per mean-pass block: the grid runs in waves of `slots`
@@ -883,9 +934,12 @@ int mean_chunk(int ntiles, int row_blocks, int slots) {
   return best;
 }
 
-// Resident mean-pass blocks on the current device for `smem` bytes of
-// shared memory per block: SMs x blocks per SM. The device is asked once
-// per (device, smem): the last answer is kept as smem << 20 | slots.
+// Resident blocks of the mean-pass kernel (clamped or not) on the current
+// device for `smem` bytes of shared memory per block: SMs x blocks per SM.
+// The two kernels may differ in registers, so each template instance keeps
+// its own answers, asked once per (device, smem) and kept as smem << 20 |
+// slots.
+template <bool CLAMPED>
 cudaError_t mean_slots(int smem, int* slots) {
   constexpr int MAX_DEVICES = 64;
   static std::atomic<long long> known[MAX_DEVICES];
@@ -901,9 +955,9 @@ cudaError_t mean_slots(int smem, int* slots) {
   }
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, attn_var_mean, WG_THREADS,
-                                                           smem)) != cudaSuccess)
-    return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, CLAMPED ? attn_var_mean : attn_var_mean_nomin, WG_THREADS, smem);
+  if (err != cudaSuccess) return err;
   *slots = sms * (per_sm > 0 ? per_sm : 1);
   if (dev < MAX_DEVICES) known[dev].store(((long long)smem << 20) | *slots, std::memory_order_relaxed);
   return cudaSuccess;
@@ -919,40 +973,73 @@ cudaError_t max_shared(const void* kern, int bytes) {
   return err;
 }
 
-// v2 or v4: the out pass, then the mean pass, on one stream
+// v2, v3, v4 or v6: the out pass, then the mean pass, on one stream. v6's
+// V is (B, H, T, 72).
 int hopper_variant(int variant, const void* q, const void* k, const void* v, void* out,
                    void* mean, void* recip, int B, int H, int T, float qscale,
                    cudaStream_t stream) {
   if (recip == nullptr || H < 1 || T < 1) return (int)cudaErrorInvalidValue;
-  const bool v4 = variant == 4;
+  const void* out_kern;
+  size_t osmem;
+  switch (variant) {
+    case 2: out_kern = (const void*)attn_v2_bf16e, osmem = out_smem(SUM_SHUFFLE); break;
+    case 3: out_kern = (const void*)attn_v3_nomin, osmem = out_smem(SUM_SHUFFLE); break;
+    case 4: out_kern = (const void*)attn_v4_mxsum, osmem = out_smem(SUM_MMA_ONES); break;
+    case 6: out_kern = (const void*)attn_v6_fusedsum, osmem = out_smem(SUM_V_COLS); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  const bool clamped = variant != 3;
   const bool resident = H <= VMEAN_RESIDENT_HEADS;
   const int msmem = (int)mean_smem(H, resident);
   // runtime calls first: they make the device's context current on this
   // thread, which the tensor-map encoding needs
-  cudaError_t err =
-      max_shared(v4 ? (const void*)attn_v4_mxsum : (const void*)attn_v2_bf16e, (int)OUT_SMEM);
-  if (err == cudaSuccess) err = max_shared((const void*)attn_var_mean, msmem);
+  cudaError_t err = max_shared(out_kern, (int)osmem);
+  if (err == cudaSuccess)
+    err = max_shared(clamped ? (const void*)attn_var_mean : (const void*)attn_var_mean_nomin, msmem);
   if (err != cudaSuccess) return (int)err;
-  CUtensorMap mq, mk, mv;
+  CUtensorMap mq, mk, mv, mc;
   if (int bad = make_tile_map(&mq, q, B * H, T)) return bad;
   if (int bad = make_tile_map(&mk, k, B * H, T)) return bad;
-  if (int bad = make_tile_map(&mv, v, B * H, T)) return bad;
+  if (variant == 6) {  // 72 columns: 64-column swizzled boxes, and the 8 columns from 64
+    if (int bad = make_plane_map(&mv, v, B * H, T, HD + 8, HD, true)) return bad;
+    if (int bad = make_plane_map(&mc, v, B * H, T, HD + 8, 8, false)) return bad;
+  } else {
+    if (int bad = make_tile_map(&mv, v, B * H, T)) return bad;
+    mc = mv;
+  }
   if (!aligned16(out) || !aligned16(mean) || !aligned16(recip)) return TMA_MISALIGNED;
   dim3 grid((T + OUT_ROWS - 1) / OUT_ROWS, H, B);
-  if (v4)
-    attn_v4_mxsum<<<grid, OUT_THREADS, OUT_SMEM, stream>>>(mq, mk, mv, (bf16*)out, (float*)recip,
-                                                          H, T, qscale);
-  else
-    attn_v2_bf16e<<<grid, OUT_THREADS, OUT_SMEM, stream>>>(mq, mk, mv, (bf16*)out, (float*)recip,
-                                                          H, T, qscale);
+  switch (variant) {
+    case 2:
+      attn_v2_bf16e<<<grid, OUT_THREADS, osmem, stream>>>(mq, mk, mv, mc, (bf16*)out,
+                                                          (float*)recip, H, T, qscale);
+      break;
+    case 3:
+      attn_v3_nomin<<<grid, OUT_THREADS, osmem, stream>>>(mq, mk, mv, mc, (bf16*)out,
+                                                          (float*)recip, H, T, qscale);
+      break;
+    case 4:
+      attn_v4_mxsum<<<grid, OUT_THREADS, osmem, stream>>>(mq, mk, mv, mc, (bf16*)out,
+                                                          (float*)recip, H, T, qscale);
+      break;
+    default:
+      attn_v6_fusedsum<<<grid, OUT_THREADS, osmem, stream>>>(mq, mk, mv, mc, (bf16*)out,
+                                                             (float*)recip, H, T, qscale);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   int slots = 0;
-  if ((err = mean_slots(msmem, &slots)) != cudaSuccess) return (int)err;
+  if ((err = clamped ? mean_slots<true>(msmem, &slots) : mean_slots<false>(msmem, &slots)) !=
+      cudaSuccess)
+    return (int)err;
   const int ntiles = (T + TILE - 1) / TILE;
   const int chunk = mean_chunk(ntiles, B * ntiles, slots);
   dim3 mgrid((ntiles + chunk - 1) / chunk, ntiles, B);
-  attn_var_mean<<<mgrid, WG_THREADS, msmem, stream>>>(mq, mk, (const float*)recip, (bf16*)mean,
-                                                      H, T, qscale, chunk, resident ? 1 : 0);
+  if (clamped)
+    attn_var_mean<<<mgrid, WG_THREADS, msmem, stream>>>(mq, mk, (const float*)recip, (bf16*)mean,
+                                                        H, T, qscale, chunk, resident ? 1 : 0);
+  else
+    attn_var_mean_nomin<<<mgrid, WG_THREADS, msmem, stream>>>(
+        mq, mk, (const float*)recip, (bf16*)mean, H, T, qscale, chunk, resident ? 1 : 0);
   return (int)cudaGetLastError();
 }
 
@@ -962,36 +1049,26 @@ extern "C" {
 
 // variant 2..6 as in the list at the top. q, k, out: (B, H, T, 64) bf16
 // contiguous, 16-byte aligned; v: (B, H, T, 64), for variant 6 (B, H, T, 72)
-// with ones in the last 8 columns; mean: (B, T, T) bf16; work: for variants
-// 2 and 4 a (B, H, T) f32 workspace (each row's recip, written by the out
-// pass and read by the mean pass), ignored by the others. qscale: d^-0.5 *
+// with ones in the last 8 columns (the kernel reads them: the denominator
+// is column 64 of e @ v); mean: (B, T, T) bf16; work: for variants 2, 3, 4
+// and 6 a (B, H, T) f32 workspace (each row's recip, written by the out
+// pass and read by the mean pass), ignored by variant 5. qscale: d^-0.5 *
 // log2(e) already rounded to bf16. Variant 5 takes H <= 8. Returns a
-// cudaError_t, or a code of make_tile_map (>= 998) when a tensor map
+// cudaError_t, or a code of make_plane_map (>= 998) when a tensor map
 // cannot be made.
 int attn_variant_forward(int variant, const void* q, const void* k, const void* v, void* out,
                          void* mean, void* work, int B, int H, int T, float qscale,
                          void* stream) {
-  if (variant == 2 || variant == 4)
+  if (variant != 5)
     return hopper_variant(variant, q, k, v, out, mean, work, B, H, T, qscale,
                           (cudaStream_t)stream);
-  VariantKernel kern;
-  int rows = 64, threads = 128, groups = 1, vd = HD;
-  switch (variant) {
-    case 3: kern = attn_v3_nomin; break;
-    case 5:
-      if (H > 8) return (int)cudaErrorInvalidValue;
-      kern = attn_v5_batched;
-      rows = 32, threads = 64 * H, groups = H;
-      break;
-    case 6: kern = attn_v6_fusedsum; vd = HD + 8; break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  const size_t smem = (size_t)groups * (BK + vd) * LDS * sizeof(bf16) + (size_t)H * rows * 4;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (H > 8) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)H * V5_GROUP_ELEMS * sizeof(bf16) + (size_t)H * V5_ROWS * 4;
+  cudaError_t err = cudaFuncSetAttribute(attn_v5_batched,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + rows - 1) / rows, B);
-  kern<<<grid, threads, smem, (cudaStream_t)stream>>>(
+  dim3 grid((T + V5_ROWS - 1) / V5_ROWS, B);
+  attn_v5_batched<<<grid, V5_GROUP_THREADS * H, smem, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, (bf16*)mean, H, T, qscale);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: mbarriers,
-// TMA tile loads from a 3-D tensor map, wgmma matrix descriptors and the
+// TMA tile and box loads from a 3-D tensor map, wgmma matrix descriptors and the
 // m64n64k16 bf16 products with f32 accumulators, and a 1024-byte aligner
 // for the dynamic shared memory that holds the swizzled slots.
 //
@@ -65,15 +65,21 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // ---------------------------------------------------------------- TMA
 
-// one (64, 64) bf16 tile at (row, plane) of a 3-D map; rows past the end
-// of the plane arrive as zeros; completes `bytes` on `bar`
-__device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                              int row, int plane) {
+// one box of a 3-D map at (col, row, plane); rows and columns past the
+// tensor arrive as zeros; completes the box's bytes on `bar`
+__device__ __forceinline__ void tma_load_box(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                             int col, int row, int plane) {
   asm volatile(
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(0), "r"(row), "r"(plane)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(col), "r"(row), "r"(plane)
       : "memory");
+}
+
+// one (64, 64) bf16 tile at (row, plane) of a 3-D map: the box at column 0
+__device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                              int row, int plane) {
+  tma_load_box(dst, map, bar, 0, row, plane);
 }
 
 // one (64 rows, 64 columns) bf16 box at (col, row) of a 2-D map; rows and
@@ -111,27 +117,37 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// Map of a contiguous (planes, rows, 64) bf16 tensor with (64, 64, 1) boxes,
-// 128-byte swizzle, zeros outside the tensor. Returns 0, or a code that
-// says why not: TMA_NO_ENTRY_POINT, TMA_MISALIGNED, or TMA_REFUSED + the
-// CUresult of the encoding.
+// Map of a contiguous (planes, rows, cols) bf16 tensor (cols a multiple of
+// 8: rows 16-byte aligned) with (box_cols, 64, 1) boxes, zeros outside the
+// tensor: box_cols = 64 under the 128-byte swizzle (a 1024-byte aligned
+// slot of 64 rows of 128 bytes), or without swizzle (64 rows of box_cols *
+// 2 bytes, packed; at least 16 bytes). Returns 0, or a code that says why
+// not: TMA_NO_ENTRY_POINT, TMA_MISALIGNED, or TMA_REFUSED + the CUresult of
+// the encoding.
 constexpr int TMA_NO_ENTRY_POINT = 999;
 constexpr int TMA_MISALIGNED = 998;
 constexpr int TMA_REFUSED = 1000;
 
-inline int make_tile_map(CUtensorMap* map, const void* base, int planes, int rows) {
+inline int make_plane_map(CUtensorMap* map, const void* base, int planes, int rows, int cols,
+                          int box_cols, bool swizzle128) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return TMA_NO_ENTRY_POINT;
-  if ((reinterpret_cast<uintptr_t>(base) & 15) != 0) return TMA_MISALIGNED;
-  cuuint64_t dims[3] = {64, (cuuint64_t)rows, (cuuint64_t)planes};
-  cuuint64_t strides[2] = {128, (cuuint64_t)rows * 128};
-  cuuint32_t box[3] = {64, TILE_ROWS, 1};
+  if ((reinterpret_cast<uintptr_t>(base) & 15) != 0 || cols % 8 != 0) return TMA_MISALIGNED;
+  cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)planes};
+  cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)rows * cols * 2};
+  cuuint32_t box[3] = {(cuuint32_t)box_cols, TILE_ROWS, 1};
   cuuint32_t elem[3] = {1, 1, 1};
   CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
                       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                      swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : TMA_REFUSED + (int)r;
+}
+
+// Map of a contiguous (planes, rows, 64) bf16 tensor with (64, 64, 1) boxes
+// under the 128-byte swizzle: the tile convention above
+inline int make_tile_map(CUtensorMap* map, const void* base, int planes, int rows) {
+  return make_plane_map(map, base, planes, rows, 64, 64, true);
 }
 
 // Map of a contiguous (rows, cols) bf16 matrix (cols a multiple of 8) with
@@ -167,11 +183,13 @@ __device__ __forceinline__ void fence_async_smem() {
 
 // ---------------------------------------------------------------- wgmma
 
-// matrix descriptor of a 128-byte-swizzled slot: start >> 4, leading and
-// stride byte offsets >> 4, layout type 1 (128B swizzle) in bits 62-63
-__device__ __forceinline__ uint64_t make_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+// matrix descriptor of a slot in shared memory: start >> 4, leading and
+// stride byte offsets >> 4, the layout type in bits 62-63 (1: 128-byte
+// swizzle, the tile convention; 0: no swizzle, 8 x 16-byte core matrices)
+__device__ __forceinline__ uint64_t make_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout = 1) {
   return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (layout << 62);
 }
 
 // K-major operand (rows = M or N, the 64 columns = the contraction), k16 step kc

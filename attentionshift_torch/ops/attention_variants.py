@@ -27,10 +27,11 @@ PyTorch version ``variant_reference``, which repeats the variant's
 arithmetic step by step; a CUDA tensor launches the hand-written kernel
 in ``csrc/attention_variants.cu`` or raises. There is no fallback
 between the two, and no gradient: the variants are forward experiments.
-v2 and v4 run two kernels per call (an out pass that also writes each
-row's reciprocal row sum into a (B, H, T) f32 workspace, then a mean
+v2, v3, v4 and v6 run two kernels per call (an out pass that also writes
+each row's reciprocal row sum into a (B, H, T) f32 workspace, then a mean
 pass that reads it), counted as one launch, as the capture pair of
-``ops/attention.py`` is.
+``ops/attention.py`` is. ``mean_limit`` is the per-entry limit the card
+checks hold a kernel's mean to.
 """
 
 from __future__ import annotations
@@ -41,7 +42,8 @@ import torch
 
 from ._build import KERNELS, check, library
 
-__all__ = ["VARIANTS", "variant_reference", "attention_variant", "variant_library", "clamp_case"]
+__all__ = ["VARIANTS", "variant_reference", "attention_variant", "variant_library", "clamp_case",
+           "mean_limit"]
 
 _LOG2E = 1.4426950408889634
 _SOFTMAX_SHIFT = 20.0
@@ -67,14 +69,20 @@ def _with_ones(v):
     return torch.cat([v, v.new_ones((*v.shape[:-1], 8))], dim=-1)
 
 
+def _logits(q, k):
+    """The shifted log2 logits (B, H, T, T) f32: q times the scale rounded
+    to the storage dtype, times k^T in f32, minus 20."""
+    qs = q * _q_scale(q)
+    return torch.matmul(qs.float(), k.float().transpose(-1, -2)) - _SOFTMAX_SHIFT
+
+
 def variant_reference(q, k, v, variant: str):
     """Plain version of one variant: (out (B,H,T,d), mean (B,T,T)) in
     q.dtype."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown attention variant {variant!r}; known: {sorted(VARIANTS)}")
     b, h, t, d = q.shape
-    qs = q * _q_scale(q)  # rounded to the storage dtype
-    logits = torch.matmul(qs.float(), k.float().transpose(-1, -2)) - _SOFTMAX_SHIFT
+    logits = _logits(q, k)
     if variant != "v3-nomin":
         logits = logits.clamp(max=100.0)
     e = torch.exp2(logits).to(torch.bfloat16).float()
@@ -126,10 +134,10 @@ def variant_library(defines=()):
 
 
 def _workspace(q, number):
-    """v2's and v4's (B, H, T) f32 workspace (each row's reciprocal row
-    sum, from the out pass to the mean pass); None for the others."""
+    """The (B, H, T) f32 workspace of the two-pass variants (each row's
+    reciprocal row sum, from the out pass to the mean pass); None for v5."""
     b, h, t, _ = q.shape
-    return torch.empty((b, h, t), device=q.device, dtype=torch.float32) if number in (2, 4) else None
+    return torch.empty((b, h, t), device=q.device, dtype=torch.float32) if number != 5 else None
 
 
 def _launch(fn, variant, q, k, v, stream):
@@ -179,3 +187,65 @@ def clamp_case(q, k, v):
     for col, val in zip(_CLAMP_COLS, _CLAMP_K):
         k[:, :, col] = val
     return q, k, v
+
+
+_F32_MIN_NORMAL = 2.0 ** -126
+MEAN_LIMIT_STEPS = 5.5
+
+
+def bf16_steps(x):
+    """The spacing of bf16 numbers at each |x| (f32): 2^(k - 7) for |x| in
+    [2^k, 2^(k+1)), and 2^-133, the subnormal spacing, below 2^-126."""
+    _, exp = torch.frexp(x.float().abs().clamp_min(_F32_MIN_NORMAL))
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), exp - 8)
+
+
+def mean_limit(q, k, variant: str, want_mean):
+    """Per-entry limit (B, T, T) f32 of a kernel's mean against the plain
+    version's ``want_mean`` on the same q, k: 5.5 bf16 steps of each entry
+    (``bf16_steps``), plus a floor on the rows where the kernel's exp2 can
+    flush an e that the plain version keeps.
+
+    Derivation. An entry is x = sum_h e_h * r_h / H, every term positive
+    (r_h: 1 / head h's row sum), added in the same order in f32 on both
+    sides; the two differ only in e and in the row sums.
+
+    1. The kernel's logits (tensor-core sums) differ from the plain f32
+       matmul's in the last bits, and ex2.approx from torch.exp2 by an f32
+       ulp or two: e before its bf16 rounding moves by about 2^-17 of
+       itself, so the rounded e moves by at most one bf16 step, which is
+       2^-8 to 2^-7 of e (by where e lies in its binade): at most 2^-7.
+    2. A row sum adds such e, all positive, so it moves by at most 2^-7 of
+       itself, plus its summation order (at most T * 2^-24 of itself,
+       2^-12 at T = 4352).
+    3. So each head's term e_h * r_h moves by less than (1 + 2^-7) /
+       (1 - 2^-7 - 2^-12) - 1 < 2^-6 + 2^-10 of itself (the f32 roundings
+       of the products and sums add about (H + 2) * 2^-24, inside that),
+       and the entry, a sum of positive terms, by less than that of itself.
+    4. Let u be the bf16 step at x (x in [2^k, 2^(k+1)): u = 2^(k-7), x <
+       2^8 u). The f32 entries differ by less than (2^-6 + 2^-10) * 2^8 u
+       = 4.25 u. The stores round each to bf16: half a step at x, and at
+       most a step at the kernel's entry (it may lie in the next binade).
+       So the stored entries differ by less than 5.75 u; both lie above
+       2^(k-1), where bf16 numbers are u / 2 apart, so by at most 5.5 u,
+       and u is at most the step at the stored plain entry. Below 2^-126
+       the step is 2^-133 and the same count holds.
+    5. ex2.approx.ftz returns 0 where exp2 is subnormal (a shifted log2
+       logit below -126, after the clamp); the plain version keeps that e
+       (< 2^-126). On a row where that happens an entry can lose up to
+       sum_h 2^-126 * r_h / H: that floor is added to the row's limit, and
+       only there.
+
+    v5 divides the same positive sum by H once; the limit holds for every
+    variant."""
+    b, h, t, _ = q.shape
+    limit = MEAN_LIMIT_STEPS * bf16_steps(want_mean)
+    s = _logits(q, k)
+    if variant != "v3-nomin":
+        s = s.clamp(max=100.0)
+    flushed = (s < -126.0).any(dim=-1)  # (B, H, T)
+    if bool(flushed.any()):
+        recip = 1.0 / torch.exp2(s).to(torch.bfloat16).float().sum(dim=-1).clamp_min(1e-30)
+        floor = (_F32_MIN_NORMAL * recip * flushed).sum(dim=1) / h  # (B, T)
+        limit = limit + floor[..., None]
+    return limit

@@ -270,9 +270,10 @@ def test_variant_library_sets_the_c_signature():
 def test_variant_launch_hands_workspace_and_counts(name):
     """The launch path with the library's function mocked (CPU tensors,
     (2, 3, 40, 64)): one call per variant call with as many arguments as
-    the C signature has; v2 and v4 get a (B, H, T) f32 workspace distinct
-    from every tensor, the others none; the scale is bf16(d^-0.5 log2 e);
-    one launch is counted per call, none when the call fails."""
+    the C signature has; the two-pass variants (v2, v3, v4, v6) get a (B,
+    H, T) f32 workspace distinct from every tensor, v5 none; the scale is
+    bf16(d^-0.5 log2 e); one launch is counted per call, none when the
+    call fails."""
     from attentionshift_torch.ops._build import KERNELS, reset_launches
 
     q, k, v = (torch.from_numpy(x).bfloat16() for x in _bf16_inputs(2, 3, 40, 64))
@@ -305,7 +306,7 @@ def test_variant_launch_hands_workspace_and_counts(name):
     assert (pq, pk, pout, pmean) == (q.data_ptr(), k.data_ptr(), out.data_ptr(), mean.data_ptr())
     assert out.shape == (2, 3, 40, 64) and mean.shape == (2, 40, 40)
     work = made[1]
-    if number in (2, 4):
+    if number != 5:
         assert work.shape == (2, 3, 40) and work.dtype == torch.float32
         assert pwork == work.data_ptr()
         assert pwork not in (pq, pk, pv, pout, pmean)
@@ -317,11 +318,72 @@ def test_variant_launch_hands_workspace_and_counts(name):
         assert pv == v.data_ptr()
 
 
+def _logits_f64(q, k):
+    """The plain version's shifted logits with the products summed in f64
+    and rounded to f32: the same values in another summation order."""
+    qs = q * attention_variants._q_scale(q)
+    return torch.matmul(qs.double(), k.double().transpose(-1, -2)).float() - 20.0
+
+
+@pytest.mark.parametrize("name", ["v2-bf16e", "v3-nomin", "v4-mxsum", "v6-fusedsum"])
+def test_mean_limit_passes_rounding_and_sees_the_clamp(name):
+    """``mean_limit``, the per-entry limit of the card checks, at the card
+    case (1, 24, 190) for seeds 0-15: the plain version with its logits
+    summed in another order (f64 products rounded to f32) moves single
+    bf16 e and mean entries, and stays within the limit (measured: 6
+    entries moved over the 16 seeds, each by one step, 0.18 of the
+    limit); on the clamp input the plain version of the other clamp
+    behaviour exceeds it on some entry (measured: by 45x or more), so the
+    limit still sees the clamp. No floor is added: no shifted logit of
+    these inputs is below -126."""
+    other = "v2-bf16e" if name == "v3-nomin" else "v3-nomin"
+    moved = 0
+    for seed in range(16):
+        q, k, v = (torch.from_numpy(x).bfloat16() for x in _bf16_inputs(1, 24, 190, 64, seed=seed))
+        want = attention_variants.variant_reference(q, k, v, name)[1]
+        limit = attention_variants.mean_limit(q, k, name, want)
+        assert torch.equal(limit, attention_variants.MEAN_LIMIT_STEPS
+                           * attention_variants.bf16_steps(want))
+        with mock.patch.object(attention_variants, "_logits", _logits_f64):
+            got = attention_variants.variant_reference(q, k, v, name)[1]
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= limit).all()), f"seed {seed}: {float((err / limit).max())}x the limit"
+        moved += int((got != want).sum())
+        case = attention_variants.clamp_case(q, k, v)
+        clamp_mean = attention_variants.variant_reference(*case, name)[1]
+        ctl = attention_variants.variant_reference(*case, other)[1]
+        ctl_limit = attention_variants.mean_limit(case[0], case[1], other, ctl)
+        assert bool(((clamp_mean.float() - ctl.float()).abs() > ctl_limit).any()), seed
+    assert moved > 0  # the other order does move entries: the check above is not empty
+
+
+def test_mean_limit_steps_and_flush_floor():
+    """``bf16_steps`` is the bf16 spacing at each entry (2^-133 below
+    2^-126 and at 0); ``mean_limit`` adds its ftz floor only on the rows
+    where a shifted log2 logit falls below -126: 2^-126 times the row's
+    reciprocal row sums (1 / max(sum, 1e-30), as the plain version takes
+    them), averaged over the heads. A zero mean isolates the floor: its
+    steps are 2^-133."""
+    x = torch.tensor([1.0, 1.5, 2.0, 0.75, 2.0**-126, 2.0**-130, 0.0, 1e-3]).bfloat16()
+    want = [2.0**-7, 2.0**-7, 2.0**-6, 2.0**-8, 2.0**-133, 2.0**-133, 2.0**-133, 2.0**-17]
+    assert attention_variants.bf16_steps(x).tolist() == want
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _bf16_inputs(1, 2, 16, 64, seed=4))
+    q[0, 1, 5] = -8.0  # head 1, row 5: logits of about -8 * 64 * 0.18 * k, far below -126
+    k[0, 1] = k[0, 1].abs() + 0.5
+    extra = attention_variants.mean_limit(q, k, "v2-bf16e", torch.zeros((1, 16, 16))) - 5.5 * 2.0**-133
+    rows = (extra > 0).any(dim=-1)[0]
+    assert rows.tolist() == [r == 5 for r in range(16)]
+    s = attention_variants._logits(q, k).clamp(max=100.0)
+    recip = 1.0 / torch.exp2(s).bfloat16().float().sum(-1).clamp_min(1e-30)
+    np.testing.assert_allclose(extra[0, 5].numpy(), 2.0**-126 * float(recip[0, 1, 5]) / 2, rtol=1e-6)
+
+
 def test_variant_kernel_refuses_what_it_refused_before():
     """The kernel path's input checks (reached here directly: a CPU
     tensor takes the plain version): f32 inputs, a head dim other than 64,
     unequal shapes and v5 above 8 heads are refused for what they are;
-    v2 and v4 take any head count (24: only the device is wrong here)."""
+    v2, v3, v4 and v6 take any head count (24: only the device is wrong
+    here)."""
     check = attention_variants._check_inputs
 
     def bf(*shape):
@@ -335,7 +397,7 @@ def test_variant_kernel_refuses_what_it_refused_before():
         check(bf(1, 2, 64, 64), bf(1, 2, 65, 64), bf(1, 2, 64, 64), "v2-bf16e")
     with pytest.raises(ValueError, match="at most 8 heads"):
         check(*(bf(1, 9, 64, 64),) * 3, "v5-batched")
-    for name in ("v2-bf16e", "v4-mxsum"):
+    for name in ("v2-bf16e", "v3-nomin", "v4-mxsum", "v6-fusedsum"):
         for h in (1, 9, 24):
             with pytest.raises(ValueError, match="CUDA tensors"):
                 check(*(bf(2, h, 40, 64),) * 3, name)
