@@ -11,7 +11,8 @@
 //   kern4 (:255, via v4 :282)  v4-mxsum     v2 with the row sum as a matrix
 //                                           product e @ ones(T, 8);
 //   kern5 (:317, via v5 :337)  v5-batched   v2 with all heads at once instead
-//                                           of a head loop;
+//                                           of a head loop, the mean divided by
+//                                           H once after the sum over heads;
 //   kern6 (:371, via v6 :393)  v6-fusedsum  v2 with the row sum folded into PV:
 //                                           V carries 8 all-ones columns and
 //                                           the denominator is column 64.
@@ -110,22 +111,60 @@
 //   - head count: the out pass has one block per (row block, head) and
 //     takes any H; the mean pass keeps every head's query tile only up to
 //     VMEAN_RESIDENT_HEADS and streams them above it (heads one at a time,
-//     added in f32 all the same);
+//     added in f32 all the same); v5 likewise (V5_RESIDENT_HEADS), and its
+//     recips move to the workspace above V5_SMEM_RECIP_HEADS;
 //   - wgmma asynchrony: every step issues one batch of products and waits
 //     for all of it, accumulators and A registers fenced on both sides, so
 //     ptxas keeps the products asynchronous (no C751x warning).
 //
-// v5: still the first design: tiles of 64 keys loaded synchronously and
-// mma.sync m16n8k16 bf16 products, each block owning 32 query rows of one
-// image and sweeping the keys twice, all heads side by side (one group of
-// two warps per head, each with its own K/V tiles in shared memory), V
-// transposed into shared memory. Sweep 1 takes the row sums (added up in
-// registers, reduced over the four threads of a row with shuffles) and PV
-// and writes out; sweep 2 recomputes e with the same operations (so bit
-// for bit the same e) and reduces the mean across the groups through
-// shared memory, writing each mean tile once. Key columns >= T get e = 0;
-// rows >= T are not written.
+// v5 (attn_v5_batched): the JAX kernel's defining choice, every head of a
+// query tile in one grid step with out and mean in one launch, as ONE
+// kernel on a thread block cluster. One block = two warpgroups = 128 query
+// rows of one image; a cluster = the C blocks (ranks) of those rows, so the
+// grid is (C, ceil(T / 128), B) and fills the card where one block per
+// query tile (34 at the tool's T) would leave most SMs idle. The host picks
+// C (at most 8, portable) for the fewest, fullest waves from
+// cudaOccupancyMaxActiveClusters at the kernel's shared memory.
+//   sweep 1   out, whole heads per rank: rank r takes heads r, r + C, ...
+//             (ceil((H - r) / C) of them, none where r >= H) over every key
+//             tile, as the out pass does. TMA brings the head's two query
+//             tiles and a V5_STAGES-slot K/V ring (prefetched across
+//             heads); per key tile the out pass's step: S by wgmma, e into
+//             A fragments (e_frags), the row sums, O += e V (V MN-major);
+//             out and recip straight from the registers. The warpgroups
+//             share each slot but do not wait for each other: each counts
+//             itself out of a slot (a shared-memory count) and the second
+//             one out refills it, so they drift by up to the ring's depth.
+//             After sweep 1 one cluster barrier, then every rank copies the
+//             other ranks' recips (distributed shared memory).
+//   sweep 2   the mean of the rank's key chunk (rank r: key tiles r nk / C
+//             .. (r + 1) nk / C), one 64-row half of the block at a time
+//             (both warpgroups read its query tiles: kept for up to
+//             V5_RESIDENT_HEADS heads, else streamed with K), warpgroup w
+//             taking the chunk's key tiles 2p + w through a ring of its
+//             own, on its own. Per (tile, head) unit: S (the products of
+//             sweep 1 in the same k16 order: the same bits), e with
+//             e_frags's arithmetic, acc += e * recip_h (__fmul_rn,
+//             __fadd_rn) in head order, after the last head acc / H
+//             (kern5's one division, __fdiv_rn) stored once, staged in
+//             shared memory and written a row at a time (at the tool's odd
+//             T store_mean2's pairs are single entries, 8 rows a warp
+//             store: eight sectors touched for 64 bytes).
+//             One S buffer: a second (as mean_pass has) spilled at the
+//             128 registers that two blocks per SM leave.
+// No atomics: every out and mean element is written once, so two calls
+// are bitwise equal. The recips of every head stay in shared memory up to
+// V5_SMEM_RECIP_HEADS heads (512 bytes a head); above that the (B, H, T)
+// workspace holds them (each rank stores its own heads' rows, read after
+// sweep 1's barrier), so no head count is refused. Shared memory at 6
+// heads: about 105 KB, two blocks per SM. A rank without heads or without
+// a key chunk (more ranks than heads or key tiles) joins every barrier.
+// What bounds v5 on the card: the grid. Its blocks run at about the two
+// passes' rates, but 34 query tiles x C ranks cannot fill 132 SMs x 2
+// evenly (C = 6 at the tool's shape: 204 blocks, 60 SMs holding one); see
+// PERF.md.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -137,6 +176,7 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
 using namespace hopper;
 
 // Design constants of the Hopper design. Each may be overridden with -D at
@@ -164,248 +204,26 @@ using namespace hopper;
 #define VMEAN_RESIDENT_HEADS 12  // most heads whose query tiles the mean pass keeps
 #endif
 
+#ifndef V5_CLUSTER
+#define V5_CLUSTER 0  // v5: blocks per cluster; 0: the host picks (v5_cluster)
+#endif
+#ifndef V5_STAGES
+#define V5_STAGES 3  // v5: K/V ring slots of sweep 1
+#endif
+#ifndef V5_RESIDENT_HEADS
+#define V5_RESIDENT_HEADS 7  // v5: most heads whose query tiles sweep 2 keeps (2 blocks/SM)
+#endif
+
 static_assert(VMEAN_STAGES >= 2, "a mean-pass slot is refilled while the next one is read");
+static_assert(V5_CLUSTER >= 0 && V5_CLUSTER <= 8, "v5 clusters are portable: at most 8 blocks");
 
 constexpr int HD = 64;         // head dim
-constexpr int BK = 64;         // keys per tile
-constexpr int LDS = BK + 8;    // smem row stride (bf16), keeps fragment reads conflict-free
 constexpr float SHIFT = 20.f;  // the constant softmax shift, log2 domain
 constexpr float CLAMP = 100.f;  // the exponent clamp of the clamped variants
 
 typedef __nv_bfloat16 bf16;
 
-// ------------------------------------------------------ first design (v5)
-
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// two floats rounded to bf16 (nearest even), packed
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float2 unpack2(uint32_t u) {
-  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
-}
-
-// two adjacent bf16 of a (T, 64) head matrix times the softmax scale, the
-// product rounded to bf16 as the TPU kernels' storage-dtype multiply; 0 past T
-__device__ __forceinline__ uint32_t ld2_scaled(const bf16* m, int r, int c, int T,
-                                               __nv_bfloat162 scale) {
-  if (r >= T) return 0u;
-  __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(m + (size_t)r * HD + c);
-  x = __hmul2(x, scale);
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// A fragments of a warp's 16 pre-scaled query rows over the whole head dim
-__device__ __forceinline__ void load_q(uint32_t qa[4][4], const bf16* qh, int r_a, int r_b,
-                                       int tig, int T, __nv_bfloat162 scale) {
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    int c = kc * 16 + tig * 2;
-    qa[kc][0] = ld2_scaled(qh, r_a, c, T, scale);
-    qa[kc][1] = ld2_scaled(qh, r_b, c, T, scale);
-    qa[kc][2] = ld2_scaled(qh, r_a, c + 8, T, scale);
-    qa[kc][3] = ld2_scaled(qh, r_b, c + 8, T, scale);
-  }
-}
-
-// 64 keys x 64 dims of K into Ks[key][dim], by the `nt` threads of a group
-__device__ __forceinline__ void load_k_tile(bf16* Ks, const bf16* kh, int key0, int T, int t,
-                                            int nt) {
-  for (int i = t; i < BK * (HD / 8); i += nt) {
-    int r = i >> 3, c8 = (i & 7) * 8;
-    uint4 kv = make_uint4(0, 0, 0, 0);
-    if (key0 + r < T) kv = *reinterpret_cast<const uint4*>(kh + (size_t)(key0 + r) * HD + c8);
-    *reinterpret_cast<uint4*>(Ks + r * LDS + c8) = kv;
-  }
-}
-
-// 64 keys x 64 dims of V, transposed into Vt[dim][key]
-__device__ __forceinline__ void load_v_tile(bf16* Vt, const bf16* vh, int key0, int T, int t,
-                                            int nt) {
-  for (int i = t; i < BK * (HD / 8); i += nt) {
-    int r = i >> 3, c8 = (i & 7) * 8;
-    uint4 vv = make_uint4(0, 0, 0, 0);
-    if (key0 + r < T) vv = *reinterpret_cast<const uint4*>(vh + (size_t)(key0 + r) * HD + c8);
-    const bf16* ve = reinterpret_cast<const bf16*>(&vv);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) Vt[(c8 + j) * LDS + r] = ve[j];
-  }
-}
-
-// e = bf16(exp2(min(q.k - 20, 100))) of a warp's 16 rows x 64 keys, packed
-// in pairs: pe[n][0] holds row a, pe[n][1] row b, keys key0 + n*8 + tig*2
-// (+1). Both sweeps call this, so both see the same bits.
-__device__ __forceinline__ void e_tile(uint32_t pe[8][2], const uint32_t qa[4][4], const bf16* Ks,
-                                       int key0, int T, int gid, int tig) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    float s[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      uint32_t bb[2];
-      const bf16* row = Ks + (nt * 8 + gid) * LDS + kc * 16 + tig * 2;
-      bb[0] = *reinterpret_cast<const uint32_t*>(row);
-      bb[1] = *reinterpret_cast<const uint32_t*>(row + 8);
-      mma16816(s, qa[kc], bb);
-    }
-    const int col = key0 + nt * 8 + tig * 2;
-    const bool in0 = col < T, in1 = col + 1 < T;
-    pe[nt][0] = pack2(in0 ? exp2f(fminf(s[0] - SHIFT, CLAMP)) : 0.f,
-                      in1 ? exp2f(fminf(s[1] - SHIFT, CLAMP)) : 0.f);
-    pe[nt][1] = pack2(in0 ? exp2f(fminf(s[2] - SHIFT, CLAMP)) : 0.f,
-                      in1 ? exp2f(fminf(s[3] - SHIFT, CLAMP)) : 0.f);
-  }
-}
-
-// two adjacent mean entries (row r, columns col, col + 1) as bf16: a pair
-// where a row starts at an even element (even T), single entries otherwise
-__device__ __forceinline__ void store_mean2(bf16* mb, int r, int col, int T, float x0, float x1) {
-  if (r >= T) return;
-  bf16* dst = mb + (size_t)r * T + col;
-  if ((T & 1) == 0 && col + 1 < T) {
-    *reinterpret_cast<uint32_t*>(dst) = pack2(x0, x1);
-  } else {
-    if (col < T) dst[0] = __float2bfloat16(x0);
-    if (col + 1 < T) dst[1] = __float2bfloat16(x1);
-  }
-}
-
-// v5: one block = 32 query rows of one image, every head side by side (one
-// group of 2 warps, 64 threads, per head). Dynamic shared memory, per
-// group: Ks[64][LDS], Vt[64][LDS] (bf16); then recip[H][32] (f32).
-constexpr int V5_ROWS = 32;
-constexpr int V5_GROUP_THREADS = 64;
-constexpr int V5_GROUP_ELEMS = (BK + HD) * LDS;
-
-// up to 8 heads side by side: 8 groups of 64 threads
-__global__ void __launch_bounds__(512)
-attn_v5_batched(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                bf16* __restrict__ out, bf16* __restrict__ mean, int H, int T, float qscale) {
-  constexpr int BQ = V5_ROWS;
-  constexpr int GT = V5_GROUP_THREADS;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-
-  const int h = threadIdx.x / GT;  // this group's head
-  const int gt = threadIdx.x % GT;
-  bf16* Ks = smem + h * V5_GROUP_ELEMS;
-  bf16* Vt = Ks + BK * LDS;
-  float* recip_s = reinterpret_cast<float*>(smem + H * V5_GROUP_ELEMS);
-
-  const int b = blockIdx.y;
-  const int warp = gt >> 5, lane = gt & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int row0 = blockIdx.x * BQ;
-  const int lr_a = warp * 16 + gid, lr_b = lr_a + 8;  // rows within the block
-  const int r_a = row0 + lr_a, r_b = row0 + lr_b;
-  const int ntiles = (T + BK - 1) / BK;
-  const __nv_bfloat162 scale2 = __float2bfloat162_rn(qscale);
-  const size_t head = ((size_t)b * H + h) * (size_t)T;
-
-  // ---- sweep 1: row sums and PV of this group's head
-  uint32_t qa[4][4];
-  load_q(qa, q + head * HD, r_a, r_b, tig, T, scale2);
-  float o[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float sum_a = 0.f, sum_b = 0.f;
-  for (int kt = 0; kt < ntiles; ++kt) {
-    const int key0 = kt * BK;
-    __syncthreads();  // previous tile fully consumed
-    load_k_tile(Ks, k + head * HD, key0, T, gt, GT);
-    load_v_tile(Vt, v + head * HD, key0, T, gt, GT);
-    __syncthreads();
-
-    uint32_t pe[8][2];
-    e_tile(pe, qa, Ks, key0, T, gid, tig);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      float2 ea = unpack2(pe[nt][0]), eb = unpack2(pe[nt][1]);
-      sum_a += ea.x + ea.y;
-      sum_b += eb.x + eb.y;
-    }
-    // the e of n-tiles (2c, 2c+1) is the A fragment of key chunk c
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      const uint32_t pa[4] = {pe[2 * kc][0], pe[2 * kc][1], pe[2 * kc + 1][0],
-                              pe[2 * kc + 1][1]};
-#pragma unroll
-      for (int dt = 0; dt < 8; ++dt) {
-        uint32_t bb[2];
-        const bf16* row = Vt + (dt * 8 + gid) * LDS + kc * 16 + tig * 2;
-        bb[0] = *reinterpret_cast<const uint32_t*>(row);
-        bb[1] = *reinterpret_cast<const uint32_t*>(row + 8);
-        mma16816(o[dt], pa, bb);
-      }
-    }
-  }
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    sum_a += __shfl_xor_sync(0xffffffffu, sum_a, off);
-    sum_b += __shfl_xor_sync(0xffffffffu, sum_b, off);
-  }
-  const float inv_a = 1.f / fmaxf(sum_a, 1e-30f), inv_b = 1.f / fmaxf(sum_b, 1e-30f);
-  bf16* oh = out + head * HD;
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-    int c = dt * 8 + tig * 2;
-    if (r_a < T)
-      *reinterpret_cast<uint32_t*>(oh + (size_t)r_a * HD + c) =
-          pack2(o[dt][0] * inv_a, o[dt][1] * inv_a);
-    if (r_b < T)
-      *reinterpret_cast<uint32_t*>(oh + (size_t)r_b * HD + c) =
-          pack2(o[dt][2] * inv_b, o[dt][3] * inv_b);
-  }
-  if (tig == 0) {
-    recip_s[h * BQ + lr_a] = inv_a;
-    recip_s[h * BQ + lr_b] = inv_b;
-  }
-
-  // ---- sweep 2: the mean, one 64-key tile at a time: each group's
-  // e_h * recip_h into its V region, then the whole block sums the heads
-  // and writes the tile (the mean over the head axis, divided after the sum)
-  bf16* mb = mean + (size_t)b * T * T;
-  for (int kt = 0; kt < ntiles; ++kt) {
-    const int key0 = kt * BK;
-    __syncthreads();  // previous K tile consumed, recip_s and the slabs settled
-    load_k_tile(Ks, k + head * HD, key0, T, gt, GT);
-    __syncthreads();
-    load_q(qa, q + head * HD, r_a, r_b, tig, T, scale2);
-    uint32_t pe[8][2];
-    e_tile(pe, qa, Ks, key0, T, gid, tig);
-    const float c_a = recip_s[h * BQ + lr_a], c_b = recip_s[h * BQ + lr_b];
-    float* slab = reinterpret_cast<float*>(Vt);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      float2 ea = unpack2(pe[nt][0]), eb = unpack2(pe[nt][1]);
-      int c = nt * 8 + tig * 2;
-      *reinterpret_cast<float2*>(slab + lr_a * BK + c) = make_float2(ea.x * c_a, ea.y * c_a);
-      *reinterpret_cast<float2*>(slab + lr_b * BK + c) = make_float2(eb.x * c_b, eb.y * c_b);
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < BQ * BK / 2; i += blockDim.x) {
-      int r = i / (BK / 2), c = (i % (BK / 2)) * 2;
-      float x0 = 0.f, x1 = 0.f;
-      for (int g = 0; g < H; ++g) {
-        const float* sl = reinterpret_cast<const float*>(smem + g * V5_GROUP_ELEMS + BK * LDS);
-        x0 += sl[r * BK + c];
-        x1 += sl[r * BK + c + 1];
-      }
-      store_mean2(mb, row0 + r, key0 + c, T, x0 / (float)H, x1 / (float)H);
-    }
-  }
-}
-
-// ------------------------------------------ Hopper design (v2, v3, v4, v6)
+// ------------------------------------------------------------ Hopper design
 
 constexpr int TILE = TILE_ROWS;
 constexpr int WG_THREADS = 128;  // one warpgroup
@@ -463,6 +281,19 @@ __device__ __forceinline__ int acc_col(int i, int tig) { return (i >> 2) * 8 + t
 // the bf16 halves of a packed pair, as f32
 __device__ __forceinline__ float bf_lo(uint32_t p) { return __uint_as_float(p << 16); }
 __device__ __forceinline__ float bf_hi(uint32_t p) { return __uint_as_float(p & 0xFFFF0000u); }
+
+// two adjacent mean entries (row r, columns col, col + 1) as bf16: a pair
+// where a row starts at an even element (even T), single entries otherwise
+__device__ __forceinline__ void store_mean2(bf16* mb, int r, int col, int T, float x0, float x1) {
+  if (r >= T) return;
+  bf16* dst = mb + (size_t)r * T + col;
+  if ((T & 1) == 0 && col + 1 < T) {
+    *reinterpret_cast<uint32_t*>(dst) = pack_bf16(x0, x1);
+  } else {
+    if (col < T) dst[0] = __float2bfloat16(x0);
+    if (col + 1 < T) dst[1] = __float2bfloat16(x1);
+  }
+}
 
 // e of a thread's 32 logits of a 64 x 64 tile whose keys start at key0,
 // rounded to bf16 A fragments (pe[kc][i] holds entries 8kc + 2i, 8kc + 2i +
@@ -916,6 +747,398 @@ __global__ void __launch_bounds__(WG_THREADS, VMEAN_BLOCKS_PER_SM) attn_var_mean
   mean_pass<false>(map_q, map_k, recip, mean, H, T, qscale, chunk, resident);
 }
 
+// ------------------------------------------------ v5: one fused launch
+
+constexpr int V5_THREADS = 256;  // two warpgroups
+constexpr int V5_BLOCKS_PER_SM = 2;  // launch bounds: 128 registers a thread
+// sweep 2's ring slots per warpgroup: a third costs the second block per SM
+constexpr int V5_STAGES2 = 2;
+// most heads whose recips stay in shared memory (512 bytes a head); more
+// would cost the second block per SM
+constexpr int V5_SMEM_RECIP_HEADS = 24;
+constexpr int V5_ROWS = 2 * TILE;  // query rows per block
+constexpr int V5_MAX_CLUSTER = 8;  // portable cluster sizes
+constexpr int V5_STAGE_LD = HD + 8;  // row stride (bf16) of a mean tile staged for its store
+// barriers: sweep 1's query tiles, ring 1, ring 2 of each warpgroup, sweep 2's query tiles
+constexpr int V5_NBARS = 2 + V5_STAGES + 2 * V5_STAGES2;
+
+// Shared memory, from the 1024-byte aligned base: a region that the two
+// sweeps use in turn, then the barriers, ring 1's release counts, then
+// recip (H, 128) f32 (above V5_SMEM_RECIP_HEADS heads only the current
+// head's; the table then lives in the caller's (B, H, T) workspace).
+//   sweep 1: the head's two query tiles | V5_STAGES slots of (K, V)
+//   sweep 2: resident: the 64-row query tile of every head | V5_STAGES2
+//            slots of a K tile per warpgroup; streamed: V5_STAGES2 slots
+//            of (K tile, query tile) per warpgroup; then a 64 x 64 bf16
+//            mean tile per warpgroup, staged for its store
+__host__ __device__ constexpr int v5_slot2_bytes(bool resident) {
+  return (resident ? 1 : 2) * TILE_BYTES;
+}
+__host__ __device__ constexpr int v5_sweep1_bytes() {
+  return (2 + 2 * V5_STAGES) * TILE_BYTES;
+}
+__host__ __device__ constexpr int v5_sweep2_bytes(int H, bool resident) {
+  return (resident ? H : 0) * TILE_BYTES + 2 * V5_STAGES2 * v5_slot2_bytes(resident) +
+         2 * TILE * V5_STAGE_LD * 2;
+}
+__host__ __device__ constexpr int v5_region_bytes(int H, bool resident) {
+  return v5_sweep1_bytes() > v5_sweep2_bytes(H, resident) ? v5_sweep1_bytes()
+                                                           : v5_sweep2_bytes(H, resident);
+}
+__host__ __device__ constexpr int v5_recip_heads(int H) { return H <= V5_SMEM_RECIP_HEADS ? H : 1; }
+size_t v5_smem(int H, bool resident) {
+  return (size_t)v5_region_bytes(H, resident) + V5_NBARS * sizeof(uint64_t) +
+         V5_STAGES * sizeof(uint32_t) + (size_t)v5_recip_heads(H) * V5_ROWS * sizeof(float) + 1024;
+}
+
+struct V5Args {
+  uint8_t* region;
+  uint64_t* bars;  // [0] q1, [1 + s] ring 1, [1 + V5_STAGES + w * V5_STAGES2 + s] ring 2, last: q2
+  uint32_t* released;  // ring 1: warpgroups done with each slot, counted up
+  float* recip;    // (H, 128): 1 / max(row sum, 1e-30) of every head; (1, 128) above V5_SMEM_RECIP_HEADS
+  float* work;     // the (B, H, T) table above V5_SMEM_RECIP_HEADS heads, else null
+  const CUtensorMap* map_q;
+  const CUtensorMap* map_k;
+  const CUtensorMap* map_v;
+  int plane0, row0, kt0, n, H, T, tid, tig, wg, resident;
+  // sweep 1: heads h0, h0 + hstep, ... (nh of them) over all n1 key tiles
+  int h0, hstep, nh, n1;
+  __nv_bfloat162 s2;
+};
+
+// the 128 threads of warpgroup `wg` only
+__device__ __forceinline__ void v5_wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// local row (0..127) of accumulator rows "a" of thread t (row b is 8 on)
+__device__ __forceinline__ int v5_row_a(int t) {
+  return (t >> 7) * TILE + ((t >> 5) & 3) * 16 + ((t & 31) >> 2);
+}
+
+// sweep 1, unit u = i * n1 + j: key tile j of head h0 + i hstep
+__device__ __forceinline__ uint8_t* v5_slot1(const V5Args& a, int u) {
+  return a.region + (2 + 2 * (u % V5_STAGES)) * TILE_BYTES;
+}
+
+__device__ __forceinline__ void v5_load1(const V5Args& a, int u) {
+  uint64_t* bar = &a.bars[1 + u % V5_STAGES];
+  uint8_t* slot = v5_slot1(a, u);
+  const int row = u % a.n1 * TILE, plane = a.plane0 + a.h0 + u / a.n1 * a.hstep;
+  mbar_expect_tx(bar, 2 * TILE_BYTES);
+  tma_load_tile(slot, a.map_k, bar, row, plane);
+  tma_load_tile(slot + TILE_BYTES, a.map_v, bar, row, plane);
+}
+
+// head h's two query tiles into the start of the region
+__device__ __forceinline__ void v5_load_q1(const V5Args& a, int h) {
+  mbar_expect_tx(&a.bars[0], 2 * TILE_BYTES);
+  for (int w = 0; w < 2; ++w)
+    tma_load_tile(a.region + w * TILE_BYTES, a.map_q, &a.bars[0], a.row0 + w * TILE, a.plane0 + h);
+}
+
+// Sweep 1, unit u (key tile j of its head), one warpgroup: out_step of
+// v2. `s` holds the tile's finished S; e of it into
+// the row sums and the A fragments, then O += e V of this tile and S of
+// the next (the last tile recomputes its own S, which nobody reads). The
+// warpgroups run on their own: each counts itself out of the slot, and the
+// second one out refills it with the unit V5_STAGES on, across heads.
+__device__ __forceinline__ void v5_step1(const V5Args& a, float (&s)[32], float (&o)[32],
+                                         uint32_t (&pa)[4][4], float& sum_a, float& sum_b, int u,
+                                         int j) {
+  e_frags<true>(pa, s, j * TILE, a.T, a.tig);
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    sum_a += (bf_lo(pa[kc][0]) + bf_hi(pa[kc][0])) + (bf_lo(pa[kc][2]) + bf_hi(pa[kc][2]));
+    sum_b += (bf_lo(pa[kc][1]) + bf_hi(pa[kc][1])) + (bf_lo(pa[kc][3]) + bf_hi(pa[kc][3]));
+  }
+  const bool more = j + 1 < a.n1;
+  if (more) mbar_wait(&a.bars[1 + (u + 1) % V5_STAGES], ((u + 1) / V5_STAGES) & 1);
+  const uint8_t* q_s = a.region + a.wg * TILE_BYTES;
+  const uint8_t* k_s = v5_slot1(a, more ? u + 1 : u);
+  const uint8_t* v_s = v5_slot1(a, u) + TILE_BYTES;
+  fence_regs(s);
+  fence_regs(o);
+  fence_regs(pa);
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) wgmma_rs<1>(o, pa[kc], desc_mnmajor(v_s, kc), 1);
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) wgmma_ss<0>(s, desc_kmajor(q_s, kc), desc_kmajor(k_s, kc), kc);
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs(s);
+  fence_regs(o);
+  fence_regs(pa);
+  v5_wg_sync(a.wg);  // this warpgroup is done with unit u's slot
+  if ((a.tid & 127) == 0) {
+    __threadfence_block();
+    const uint32_t before = atomicAdd(&a.released[u % V5_STAGES], 1u);
+    __threadfence_block();
+    if ((before & 1) && u + V5_STAGES < a.nh * a.n1) v5_load1(a, u + V5_STAGES);
+  }
+}
+
+// End of head h: v2's out pass epilogue, the rows' sums over the quad and
+// out straight from the registers; recip into this rank's table (or the
+// workspace). No cluster barrier; the next head's query tiles come once
+// both warpgroups are past this head's.
+__device__ __forceinline__ void v5_head_own(const V5Args& a, const float (&o)[32], float sum_a,
+                                            float sum_b, int h, bf16* __restrict__ out) {
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    sum_a += __shfl_xor_sync(0xffffffffu, sum_a, off);
+    sum_b += __shfl_xor_sync(0xffffffffu, sum_b, off);
+  }
+  const float inv_a = 1.f / fmaxf(sum_a, 1e-30f), inv_b = 1.f / fmaxf(sum_b, 1e-30f);
+  const int la = v5_row_a(a.tid), r_a = a.row0 + la, r_b = r_a + 8;
+  bf16* oh = out + (size_t)(a.plane0 + h) * a.T * HD;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = j * 8 + a.tig * 2;
+    if (r_a < a.T)
+      *reinterpret_cast<uint32_t*>(oh + (size_t)r_a * HD + c) =
+          pack_bf16(o[4 * j] * inv_a, o[4 * j + 1] * inv_a);
+    if (r_b < a.T)
+      *reinterpret_cast<uint32_t*>(oh + (size_t)r_b * HD + c) =
+          pack_bf16(o[4 * j + 2] * inv_b, o[4 * j + 3] * inv_b);
+  }
+  if (a.tig == 0) {
+    if (a.work == nullptr) {
+      a.recip[h * V5_ROWS + la] = inv_a;
+      a.recip[h * V5_ROWS + la + 8] = inv_b;
+    } else {
+      float* wh = a.work + (size_t)(a.plane0 + h) * a.T;
+      if (r_a < a.T) wh[r_a] = inv_a;
+      if (r_b < a.T) wh[r_b] = inv_b;
+    }
+  }
+  __syncthreads();
+  if (a.tid == 0 && h + a.hstep < a.H) v5_load_q1(a, h + a.hstep);
+}
+
+// recip of head h, local row i (0..127) of the block, for sweep 2: row i
+// of the shared table, or of the workspace (0 past T, never read there)
+__device__ __forceinline__ float v5_recip(const V5Args& a, int h, int i) {
+  if (a.work == nullptr) return a.recip[h * V5_ROWS + i];
+  return a.row0 + i < a.T ? __ldcg(a.work + (size_t)(a.plane0 + h) * a.T + a.row0 + i) : 0.f;
+}
+
+// Sweep 2 runs over one 64-row half of the block at a time (both
+// warpgroups read its query tiles). Warpgroup w takes the chunk's key
+// tiles kt0 + 2p + w with a ring of its own and runs on its own: unit v =
+// p * H + head. Its ring units are counted over both halves (g0).
+struct V5Half {
+  int g0, n2, row;  // this warpgroup's first ring unit and units; the first query row
+};
+
+__device__ __forceinline__ uint8_t* v5_slot2(const V5Args& a, int g) {
+  return a.region + (a.resident ? a.H * TILE_BYTES : 0) +
+         (a.wg * V5_STAGES2 + g % V5_STAGES2) * v5_slot2_bytes(a.resident);
+}
+
+__device__ __forceinline__ uint64_t* v5_bar2(const V5Args& a, int g) {
+  return &a.bars[1 + V5_STAGES + a.wg * V5_STAGES2 + g % V5_STAGES2];
+}
+
+__device__ __forceinline__ void v5_load2(const V5Args& a, const V5Half& f, int v) {
+  const int g = f.g0 + v;
+  uint64_t* bar = v5_bar2(a, g);
+  uint8_t* slot = v5_slot2(a, g);
+  const int plane = a.plane0 + v % a.H, row = (a.kt0 + 2 * (v / a.H) + a.wg) * TILE;
+  mbar_expect_tx(bar, v5_slot2_bytes(a.resident));
+  tma_load_tile(slot, a.map_k, bar, row, plane);
+  if (!a.resident) tma_load_tile(slot + TILE_BYTES, a.map_q, bar, f.row, plane);
+}
+
+// A warpgroup's staged 64 x 64 mean tile (rows row.., columns col0..) into
+// the (T, T) mean, whole rows at a time: 4-byte pairs at even T, single
+// entries at odd T (a row then starts at an odd element every other row),
+// consecutive lanes on consecutive entries either way. The next write of
+// the stage comes after the warpgroup's next barrier.
+__device__ __forceinline__ void v5_store_tile(const V5Args& a, const bf16* st, int row, int col0,
+                                              bf16* __restrict__ mean) {
+  const int warp = (a.tid >> 5) & 3, lane = a.tid & 31;
+  for (int r = warp * 16; r < warp * 16 + 16 && row + r < a.T; ++r) {
+    bf16* dst = mean + (size_t)(row + r) * a.T + col0;
+    const bf16* src = st + r * V5_STAGE_LD;
+    if ((a.T & 1) == 0) {
+      if (col0 + 2 * lane < a.T)
+        *reinterpret_cast<uint32_t*>(dst + 2 * lane) =
+            *reinterpret_cast<const uint32_t*>(src + 2 * lane);
+    } else {
+      if (col0 + lane < a.T) dst[lane] = src[lane];
+      if (col0 + lane + 32 < a.T) dst[lane + 32] = src[lane + 32];
+    }
+  }
+}
+
+// Unit v of this warpgroup: S of its tile (the products of sweep 1, so the
+// same bits), the slot handed back for the unit V5_STAGES2 on, then e_h *
+// recip_h added to `acc` (the product, then the sum, in head order; the
+// plain version's roundings: no FMA), and after the last head acc / H
+// (one division) stored.
+__device__ __forceinline__ void v5_step2(const V5Args& a, const V5Half& f, float (&s)[32],
+                                         float (&acc)[32], int v, bf16* __restrict__ mean) {
+  const int g = f.g0 + v;
+  uint8_t* slot = v5_slot2(a, g);
+  mbar_wait(v5_bar2(a, g), (g / V5_STAGES2) & 1);
+  const uint8_t* q_s = a.resident ? a.region + (v % a.H) * TILE_BYTES : slot + TILE_BYTES;
+  if (!a.resident) {  // this warpgroup's copy of the query tile, scaled where it arrived
+    scale_tiles(slot + TILE_BYTES, TILE_BYTES, a.s2, a.tid & 127, WG_THREADS);
+    v5_wg_sync(a.wg);
+  }
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) wgmma_ss<0>(s, desc_kmajor(q_s, kc), desc_kmajor(slot, kc), kc);
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs(s);
+  v5_wg_sync(a.wg);  // this warpgroup is done with the slot
+  if ((a.tid & 127) == 0 && v + V5_STAGES2 < f.n2) v5_load2(a, f, v + V5_STAGES2);
+
+  const int h = v % a.H;
+  const int tile = a.kt0 + 2 * (v / a.H) + a.wg;
+  const int la = f.row - a.row0 + v5_row_a(a.tid & 127);
+  const float c_a = v5_recip(a, h, la), c_b = v5_recip(a, h, la + 8);
+  // e_frags's arithmetic one element at a time (no A fragments to hold):
+  // the same bits; element i is in row b where i & 2
+  const bool ragged = (tile + 1) * TILE > a.T;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const float x = !ragged || tile * TILE + acc_col(i, a.tig) < a.T ? s[i] : -INFINITY;
+    const float e = __bfloat162float(__float2bfloat16_rn(ex2(fminf(x - SHIFT, CLAMP))));
+    acc[i] = __fadd_rn(acc[i], __fmul_rn(e, (i & 2) ? c_b : c_a));
+  }
+  if (h == a.H - 1) {  // every head summed: store this tile, start the next
+    bf16* st = reinterpret_cast<bf16*>(a.region + v5_sweep2_bytes(a.H, a.resident)) -
+               (2 - a.wg) * TILE * V5_STAGE_LD;
+    const int lr = v5_row_a(a.tid & 127);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = j * 8 + a.tig * 2;
+      *reinterpret_cast<uint32_t*>(st + lr * V5_STAGE_LD + c) =
+          pack_bf16(__fdiv_rn(acc[4 * j], (float)a.H), __fdiv_rn(acc[4 * j + 1], (float)a.H));
+      *reinterpret_cast<uint32_t*>(st + (lr + 8) * V5_STAGE_LD + c) =
+          pack_bf16(__fdiv_rn(acc[4 * j + 2], (float)a.H), __fdiv_rn(acc[4 * j + 3], (float)a.H));
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    v5_wg_sync(a.wg);
+    v5_store_tile(a, st, f.row, tile * TILE, mean);
+  }
+}
+
+// One block = 128 query rows of one image (two warpgroups, 64 rows each);
+// one cluster = the C ranks of those rows. Sweep 1: out of rank r's heads
+// r, r + C, ...; sweep 2: the mean of rank r's chunk of the key tiles,
+// from every head's recips.
+__global__ void __launch_bounds__(V5_THREADS, V5_BLOCKS_PER_SM)
+attn_v5_batched(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ out,
+                bf16* __restrict__ mean, float* __restrict__ work, int H, int T, float qscale,
+                int resident) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  const int nk = (T + TILE - 1) / TILE;
+  V5Args a;
+  a.region = smem;
+  a.bars = reinterpret_cast<uint64_t*>(smem + v5_region_bytes(H, resident != 0));
+  a.released = reinterpret_cast<uint32_t*>(a.bars + V5_NBARS);
+  a.recip = reinterpret_cast<float*>(a.released + V5_STAGES);
+  a.work = H <= V5_SMEM_RECIP_HEADS ? nullptr : work;
+  a.map_q = &map_q;
+  a.map_k = &map_k;
+  a.map_v = &map_v;
+  a.plane0 = blockIdx.z * H;
+  a.row0 = blockIdx.y * V5_ROWS;
+  a.kt0 = rank * nk / C;  // sweep 2, an even split: chunks differ by a tile at most
+  a.n = (rank + 1) * nk / C - a.kt0;
+  a.h0 = rank;  // sweep 1, heads round-robin
+  a.hstep = C;
+  a.nh = rank < H ? (H - 1 - rank) / C + 1 : 0;
+  a.n1 = nk;
+  a.H = H;
+  a.T = T;
+  a.tid = threadIdx.x;
+  a.tig = threadIdx.x & 3;
+  a.wg = threadIdx.x >> 7;
+  a.resident = resident;
+  a.s2 = __float2bfloat162_rn(qscale);
+  if (a.tid == 0) {
+    for (int i = 0; i < V5_NBARS; ++i) mbar_init(&a.bars[i], 1);
+    for (int i = 0; i < V5_STAGES; ++i) a.released[i] = 0u;
+    mbar_init_fence();
+    if (a.nh > 0) v5_load_q1(a, a.h0);
+    for (int u = 0; u < V5_STAGES && u < a.nh * a.n1; ++u) v5_load1(a, u);
+  }
+  __syncthreads();  // the barriers are initialised
+
+  {  // ---- sweep 1: out, heads in turn
+    float s[32], o[32];
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    for (int k = 0; k < a.nh; ++k) {  // this rank's k-th head
+      const int h = a.h0 + k * a.hstep;
+      mbar_wait(&a.bars[0], k & 1);
+      scale_tiles(a.region, 2 * TILE_BYTES, a.s2, a.tid, V5_THREADS);
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[i] = 0.f;
+      float sum_a = 0.f, sum_b = 0.f;
+      const int u0 = k * a.n1;
+      mbar_wait(&a.bars[1 + u0 % V5_STAGES], (u0 / V5_STAGES) & 1);
+      const uint8_t* q_s = a.region + a.wg * TILE_BYTES;
+      const uint8_t* k_s = v5_slot1(a, u0);
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) wgmma_ss<0>(s, desc_kmajor(q_s, kc), desc_kmajor(k_s, kc), kc);
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(s);
+      for (int j = 0; j < a.n1; ++j) v5_step1(a, s, o, pa, sum_a, sum_b, u0 + j, j);
+      v5_head_own(a, o, sum_a, sum_b, h, out);
+    }
+    // every rank takes the other ranks' recips (head h is rank h % C's)
+    cl.sync();
+    if (a.work == nullptr)
+      for (int i = a.tid; i < H * V5_ROWS; i += V5_THREADS)
+        if ((i / V5_ROWS) % C != rank) a.recip[i] = cl.map_shared_rank(a.recip, (i / V5_ROWS) % C)[i];
+    cl.sync();  // no rank reads another's table any more
+  }
+
+  // ---- sweep 2: the mean of this rank's columns, one half of the rows at a time
+  bf16* mb = mean + (size_t)blockIdx.z * T * T;
+  float s[32], acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = acc[i] = 0.f;
+  uint64_t* bar_q2 = &a.bars[V5_NBARS - 1];
+  const int n2 = (a.n + 1 - a.wg) / 2 * H;  // this warpgroup's tiles kt0 + 2p + wg, every head
+  for (int half = 0; half < 2; ++half) {
+    const V5Half f{half * n2, n2, a.row0 + half * TILE};
+    if (f.row >= T || a.n == 0) break;
+    if (a.tid == 0 && resident) {
+      mbar_expect_tx(bar_q2, H * TILE_BYTES);
+      for (int h = 0; h < H; ++h)
+        tma_load_tile(a.region + h * TILE_BYTES, &map_q, bar_q2, f.row, a.plane0 + h);
+    }
+    if ((a.tid & 127) == 0)
+      for (int v = 0; v < V5_STAGES2 && v < f.n2; ++v) v5_load2(a, f, v);
+    if (resident) {
+      mbar_wait(bar_q2, half & 1);
+      scale_tiles(a.region, H * TILE_BYTES, a.s2, a.tid, V5_THREADS);
+      __syncthreads();
+    }
+    for (int v = 0; v < f.n2; ++v) v5_step2(a, f, s, acc, v, mb);
+    __syncthreads();  // both warpgroups are done with this half's slots and query tiles
+  }
+}
+
 // Key tiles per mean-pass block: the grid runs in waves of `slots`
 // resident blocks, and a block costs its chunk plus about half a tile's
 // worth for loading its query tiles. Short chunks keep the last wave
@@ -1043,6 +1266,106 @@ int hopper_variant(int variant, const void* q, const void* k, const void* v, voi
   return (int)cudaGetLastError();
 }
 
+// Clusters of C v5 blocks with `smem` bytes each that the current device
+// holds at once (cudaOccupancyMaxActiveClusters: every block of a cluster
+// on one GPC), asked once per (device, C, smem) and kept as smem << 20 | n.
+cudaError_t v5_active(int C, int smem, int* n) {
+  constexpr int MAX_DEVICES = 64;
+  static std::atomic<long long> known[MAX_DEVICES][V5_MAX_CLUSTER + 1];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < MAX_DEVICES) {
+    const long long k = known[dev][C].load(std::memory_order_relaxed);
+    if (k > 0 && (k >> 20) == smem) {
+      *n = (int)(k & ((1 << 20) - 1));
+      return cudaSuccess;
+    }
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, 64, 1);
+  cfg.blockDim = dim3(V5_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if ((err = cudaOccupancyMaxActiveClusters(n, attn_v5_batched, &cfg)) != cudaSuccess) return err;
+  if (dev < MAX_DEVICES) known[dev][C].store(((long long)smem << 20) | *n, std::memory_order_relaxed);
+  return cudaSuccess;
+}
+
+// v5's shared memory at H heads, set as the kernel's limit (a runtime call
+// first: the tensor-map encoding needs the device's context current)
+cudaError_t v5_prepare(int H, bool resident, int* smem) {
+  *smem = (int)v5_smem(H, resident);
+  return max_shared((const void*)attn_v5_batched, *smem);
+}
+
+// Blocks per cluster: V5_CLUSTER if set, else the C (at most 8, at most the
+// key tiles) whose clusters finish in the fewest block lifetimes, counted
+// as waves (v5_active clusters at once) times the tile steps a block runs:
+// sweep 1, ceil(H / C) nk (whole heads); sweep 2, H ceil(nk / C); ties go
+// to the smaller C.
+cudaError_t v5_cluster(int B, int H, int T, int smem, int* cluster) {
+  if (V5_CLUSTER > 0) {
+    *cluster = V5_CLUSTER;
+    return cudaSuccess;
+  }
+  const int nk = (T + TILE - 1) / TILE;
+  const long tiles = (long)B * ((T + V5_ROWS - 1) / V5_ROWS);
+  long best = -1;
+  for (int c = 1; c <= V5_MAX_CLUSTER && c <= nk; ++c) {
+    int active = 0;
+    cudaError_t err = v5_active(c, smem, &active);
+    if (err != cudaSuccess) return err;
+    if (active < 1) continue;
+    const long chunk = (nk + c - 1) / c;
+    const long cost = (tiles + active - 1) / active * ((H + c - 1) / c * nk + H * chunk);
+    if (best < 0 || cost < best) {
+      best = cost;
+      *cluster = c;
+    }
+  }
+  return best < 0 ? cudaErrorInvalidConfiguration : cudaSuccess;
+}
+
+// v5: one launch on a grid of (C, ceil(T / 128), B) blocks in clusters of
+// C; `work` (B, H, T) f32 holds the recips above V5_SMEM_RECIP_HEADS heads
+int v5_forward(const void* q, const void* k, const void* v, void* out, void* mean, void* work,
+               int B, int H, int T, float qscale, cudaStream_t stream) {
+  if (H < 1 || T < 1 || work == nullptr) return (int)cudaErrorInvalidValue;
+  const bool resident = H <= V5_RESIDENT_HEADS;
+  int smem = 0, C = 0;
+  cudaError_t err = v5_prepare(H, resident, &smem);
+  if (err == cudaSuccess) err = v5_cluster(B, H, T, smem, &C);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap mq, mk, mv;
+  if (int bad = make_tile_map(&mq, q, B * H, T)) return bad;
+  if (int bad = make_tile_map(&mk, k, B * H, T)) return bad;
+  if (int bad = make_tile_map(&mv, v, B * H, T)) return bad;
+  if (!aligned16(out) || !aligned16(mean) || !aligned16(work)) return TMA_MISALIGNED;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, (T + V5_ROWS - 1) / V5_ROWS, B);
+  cfg.blockDim = dim3(V5_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, attn_v5_batched, mq, mk, mv, (bf16*)out, (bf16*)mean,
+                           (float*)work, H, T, qscale, resident ? 1 : 0);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1050,27 +1373,28 @@ extern "C" {
 // variant 2..6 as in the list at the top. q, k, out: (B, H, T, 64) bf16
 // contiguous, 16-byte aligned; v: (B, H, T, 64), for variant 6 (B, H, T, 72)
 // with ones in the last 8 columns (the kernel reads them: the denominator
-// is column 64 of e @ v); mean: (B, T, T) bf16; work: for variants 2, 3, 4
-// and 6 a (B, H, T) f32 workspace (each row's recip, written by the out
-// pass and read by the mean pass), ignored by variant 5. qscale: d^-0.5 *
-// log2(e) already rounded to bf16. Variant 5 takes H <= 8. Returns a
+// is column 64 of e @ v); mean: (B, T, T) bf16; work: a (B, H, T) f32
+// workspace (each row's recip: written by the out pass and read by the
+// mean pass; variant 5 uses it only above V5_SMEM_RECIP_HEADS heads).
+// qscale: d^-0.5 * log2(e) already rounded to bf16. Any H >= 1. Returns a
 // cudaError_t, or a code of make_plane_map (>= 998) when a tensor map
 // cannot be made.
 int attn_variant_forward(int variant, const void* q, const void* k, const void* v, void* out,
                          void* mean, void* work, int B, int H, int T, float qscale,
                          void* stream) {
-  if (variant != 5)
-    return hopper_variant(variant, q, k, v, out, mean, work, B, H, T, qscale,
-                          (cudaStream_t)stream);
-  if (H > 8) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)H * V5_GROUP_ELEMS * sizeof(bf16) + (size_t)H * V5_ROWS * 4;
-  cudaError_t err = cudaFuncSetAttribute(attn_v5_batched,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + V5_ROWS - 1) / V5_ROWS, B);
-  attn_v5_batched<<<grid, V5_GROUP_THREADS * H, smem, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, (bf16*)mean, H, T, qscale);
-  return (int)cudaGetLastError();
+  if (variant == 5)
+    return v5_forward(q, k, v, out, mean, work, B, H, T, qscale, (cudaStream_t)stream);
+  return hopper_variant(variant, q, k, v, out, mean, work, B, H, T, qscale, (cudaStream_t)stream);
+}
+
+// The cluster size attn_variant_forward(5, ...) launches at (B, H, T) on
+// the current device, or minus the cudaError_t that stops it.
+int attn_v5_cluster(int B, int H, int T) {
+  if (B < 1 || H < 1 || T < 1) return -(int)cudaErrorInvalidValue;
+  int smem = 0, C = 0;
+  cudaError_t err = v5_prepare(H, H <= V5_RESIDENT_HEADS, &smem);
+  if (err == cudaSuccess) err = v5_cluster(B, H, T, smem, &C);
+  return err == cudaSuccess ? C : -(int)err;
 }
 
 }  // extern "C"

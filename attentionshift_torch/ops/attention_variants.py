@@ -19,6 +19,7 @@ row and column of any T is computed. The variants differ in one choice:
     v3-nomin     v2 without the clamp
     v4-mxsum     v2 with the row sum as a matrix product ``e @ ones(T, 8)``
     v5-batched   v2 with all heads at once; mean = mean over the head axis
+                 (the sum over heads, then one division by H)
     v6-fusedsum  v2 with the row sum folded into PV: V gets 8 all-ones
                  columns and the denominator is column 64 of the product
 
@@ -30,8 +31,12 @@ between the two, and no gradient: the variants are forward experiments.
 v2, v3, v4 and v6 run two kernels per call (an out pass that also writes
 each row's reciprocal row sum into a (B, H, T) f32 workspace, then a mean
 pass that reads it), counted as one launch, as the capture pair of
-``ops/attention.py`` is. ``mean_limit`` is the per-entry limit the card
-checks hold a kernel's mean to.
+``ops/attention.py`` is. v5 is one kernel on a thread block cluster
+(``attn_v5_cluster`` says how many blocks): each block writes ``out`` of
+whole heads, then the mean of its share of the key range; it keeps the
+recips in shared memory and needs the workspace only above 24 heads.
+``mean_limit`` is the per-entry limit the card checks hold a kernel's
+mean to.
 """
 
 from __future__ import annotations
@@ -114,9 +119,6 @@ def _check_inputs(q, k, v, variant):
         raise ValueError(f"attention variant kernel: q/k/v shapes differ or are not 4-D: {tuple(q.shape)}")
     if q.shape[-1] != 64:
         raise ValueError(f"attention variant kernel takes head dim 64, got {q.shape[-1]}")
-    if variant == "v5-batched" and q.shape[1] > 8:
-        raise ValueError(f"attention variant kernel v5-batched runs at most 8 heads side by "
-                         f"side, got {q.shape[1]}")
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("attention variant kernel: q, k, v must all be CUDA tensors")
 
@@ -130,14 +132,17 @@ def variant_library(defines=()):
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
                        + [ctypes.c_float, ctypes.c_void_p])
+        lib.attn_v5_cluster.restype = ctypes.c_int
+        lib.attn_v5_cluster.argtypes = [ctypes.c_int] * 3
     return lib
 
 
-def _workspace(q, number):
-    """The (B, H, T) f32 workspace of the two-pass variants (each row's
-    reciprocal row sum, from the out pass to the mean pass); None for v5."""
+def _workspace(q):
+    """The (B, H, T) f32 workspace of each row's reciprocal row sum: from
+    the out pass to the mean pass (v2, v3, v4, v6); v5 writes it only above
+    24 heads, where its recips leave shared memory."""
     b, h, t, _ = q.shape
-    return torch.empty((b, h, t), device=q.device, dtype=torch.float32) if number != 5 else None
+    return torch.empty((b, h, t), device=q.device, dtype=torch.float32)
 
 
 def _launch(fn, variant, q, k, v, stream):
@@ -148,9 +153,9 @@ def _launch(fn, variant, q, k, v, stream):
     v = _with_ones(v) if variant == "v6-fusedsum" else v
     out = torch.empty_like(q)
     mean = torch.empty((b, t, t), device=q.device, dtype=q.dtype)
-    work = _workspace(q, number)
+    work = _workspace(q)
     check(fn(number, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), mean.data_ptr(),
-             None if work is None else work.data_ptr(), b, h, t, float(_q_scale(q)), stream),
+             work.data_ptr(), b, h, t, float(_q_scale(q)), stream),
           f"attn_variant_forward({variant})")
     KERNELS[name].launches += 1
     return out, mean

@@ -18,8 +18,8 @@ Phases, each printing its own lines:
    also on an input that tells the clamped variants from the unclamped;
    every kernel the microbenchmark launches also on its own inputs,
    (1, 6, 4301, 64): an odd T with a ragged last tile; each mean entry
-   within ``attention_variants.mean_limit``; v2, v3, v4 and v6, the
-   variants on the TMA + wgmma design, also bitwise equal in two calls);
+   within ``attention_variants.mean_limit``; every variant also bitwise
+   equal in two calls; v5's cluster size printed);
 4. ``AttnShiftDetector.seed_pseudo_gt`` at the full width of
    ``configs/attnshift_voc12aug.py`` (ViT-S) with seeded random weights,
    800x1344, bf16: output shapes, finite maps, and kernel launch counts
@@ -98,7 +98,7 @@ Phases, each printing its own lines:
    ratio to SDPA, the mean pass's own time, and an exp floor (B*H*T^2
    exp2 per pass at 16 per clock per SM, at the SM clock nvidia-smi reads
    while the flash pass runs) beside the forward bounds. At the
-   microbenchmark's shape (1, 6, 4301, 64) v2, v3, v4, v6, the shipped
+   microbenchmark's shape (1, 6, 4301, 64) v2, v3, v4, v5, v6, the shipped
    capture pair and SDPA's forward are read in turns, each with its ratio to the
    bound and to the two-pass exp floor and its kernels' registers (ptxas,
    as the build reported them). For the eval
@@ -125,12 +125,14 @@ rest of the repository beside it, the script fails and prints no result.
 runs, after phase 1, only the ablation of design constants instead: each
 source of ``ABLATIONS`` (default: attention, attention_variants,
 meanshift, ccl) built once per variant (``-D`` overrides of the constants
-it guards with ``#ifndef``), every variant checked as in phase 3 (v2, v3,
-v4 and v6 of the microbenchmark on its inputs), then the variants read in
-turns (median of 6 readings of 20 launches each): the attention forward
-pair's flash pass with SDPA's forward and its mean pass; v2, v3, v4 and v6
-with the shipped capture pair and SDPA's forward at the microbenchmark's
-shape; the mean-shift fixpoint (bf16) and CCL on phase 3's inputs.
+it guards with ``#ifndef``), every variant checked as in phase 3 (the
+microbenchmark's variants on its inputs: an entry named "vN: ..." builds
+for variant vN only, v5's constants touch v5 only), then the variants
+read in turns (median of 6 readings of 20 launches each): the attention
+forward pair's flash pass with SDPA's forward and its mean pass; the tool's
+variants with the shipped capture pair and SDPA's forward at the
+microbenchmark's shape; the mean-shift fixpoint (bf16) and CCL on phase
+3's inputs.
 """
 
 from __future__ import annotations
@@ -183,6 +185,18 @@ ABLATIONS = {
         # 233,472 B), 3 slots two
         "v6: one n72 product, 4 ring slots": ("VAR_V6_N72=1",),
         "v6: one n72 product, 3 ring slots": ("VAR_V6_N72=1", "VAR_STAGES=3"),
+        # v5's cluster size forced: 1 is the no-split design (34 blocks at the
+        # tool's T: below one wave), 4 and 8 beside the host's pick
+        "v5: cluster 1": ("V5_CLUSTER=1",),
+        "v5: cluster 4": ("V5_CLUSTER=4",),
+        "v5: cluster 5": ("V5_CLUSTER=5",),
+        "v5: cluster 6": ("V5_CLUSTER=6",),
+        "v5: cluster 7": ("V5_CLUSTER=7",),
+        "v5: cluster 8": ("V5_CLUSTER=8",),
+        "v5: query tiles streamed, none resident": ("V5_RESIDENT_HEADS=0",),
+        "v5: sweep 1 with 2 ring slots": ("V5_STAGES=2",),
+        # 4 ring slots: still two blocks per SM at 6 heads (sweep 2 sets the size)
+        "v5: sweep 1 with 4 ring slots": ("V5_STAGES=4",),
     },
     "meanshift": {
         "as built": (),
@@ -593,9 +607,9 @@ def phase_variant_kernels(results: dict, inp: dict):
     ``mean_limit`` (derived in its docstring). Control: on the clamp input
     the plain version of the other clamp behaviour must exceed both
     limits. The error kept for the kernel table is the one on the
-    microbenchmark's inputs. The TMA + wgmma variants (v2, v3, v4, v6: no
-    atomics) also give bitwise equal outputs in two calls on the tool's
-    inputs."""
+    microbenchmark's inputs. Every variant (no atomics) also gives bitwise
+    equal outputs in two calls on the tool's inputs; v5's cluster size at
+    that shape is printed."""
     import torch
 
     from attentionshift_torch.ops import attention_variants as av
@@ -629,16 +643,19 @@ def phase_variant_kernels(results: dict, inp: dict):
         if not ok:
             raise AssertionError(f"{kernel}: the check cannot see the clamp: {c_out}, {c_mean}")
         del ctl_out, ctl_mean, out, mean
-        if number != 5:  # no atomics: two calls are bitwise equal
-            first = av.attention_variant(*inp["tool_qkv"], name)
-            second = av.attention_variant(*inp["tool_qkv"], name)
-            sync()
-            same = torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
-            log(f"[check] {kernel}.tool_input: two calls bitwise equal: {'ok' if same else 'FAIL'}")
-            if not same:
-                raise AssertionError(f"{kernel}: two calls on the same inputs differ")
-            del first, second
+        first = av.attention_variant(*inp["tool_qkv"], name)
+        second = av.attention_variant(*inp["tool_qkv"], name)
+        sync()
+        same = torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+        log(f"[check] {kernel}.tool_input: two calls bitwise equal: {'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError(f"{kernel}: two calls on the same inputs differ")
+        del first, second
         results[kernel] = dict(max_abs_err=errs[0])
+    b, h, t, _ = inp["tool_qkv"][0].shape
+    if q.is_cuda:
+        log(f"[check] attn_v5_batched at {(b, h, t)}: clusters of "
+            f"{av.variant_library().attn_v5_cluster(b, h, t)} blocks (attn_v5_cluster)")
 
 
 def slice_inputs(h, w, g, n_valid, dev):
@@ -2195,7 +2212,7 @@ def phase_times(results: dict, inp: dict, model, slice_inp, gen):
 
 
 def phase_tool_shape_turns(tool_qkv, exp_rate: float) -> dict:
-    """The TMA + wgmma variants (v2, v3, v4, v6), the shipped capture pair
+    """The tool's variants (v2, v3, v4, v5, v6), the shipped capture pair
     and SDPA's forward at the microbenchmark's shape (1, 6, 4301, 64), read
     in turns (medians of 6): each one's ms, its ratio to the bound of the
     capture function (products and bytes of out + mean) and to the
@@ -2211,6 +2228,7 @@ def phase_tool_shape_turns(tool_qkv, exp_rate: float) -> dict:
     variants = {"v2-bf16e": ("attn_v2_bf16e", "attn_var_mean"),
                 "v3-nomin": ("attn_v3_nomin", "attn_var_mean_nomin"),
                 "v4-mxsum": ("attn_v4_mxsum", "attn_var_mean"),
+                "v5-batched": ("attn_v5_batched",),
                 "v6-fusedsum": ("attn_v6_fusedsum", "attn_var_mean")}
     turns = {n: (lambda n=n: attention_variants.attention_variant(tq, tk, tv, n)) for n in variants}
     turns["ours-capture"] = lambda: attention.attention_with_capture(tq, tk, tv)
@@ -2350,14 +2368,28 @@ def profile_slice(run, ms_img: float, top: int = 12, what: str = "call"):
     return prof.key_averages(), dev_ms / wall_ms
 
 
+def ablated(entry: str, variant: str) -> bool:
+    """Whether the tool's ``variant`` is built and timed with the
+    ``ABLATIONS["attention_variants"]`` entry: "as built" always, an entry
+    named "vN: ..." for variant vN only, the others (constants of the
+    two-pass design) for every variant but v5."""
+    if entry == "as built":
+        return True
+    head = entry.split(":")[0]
+    if head in ("v2", "v3", "v4", "v5", "v6"):
+        return variant.startswith(head + "-")
+    return variant != "v5-batched"
+
+
 def phase_ablation(sources) -> None:
     """Design constants: each source of ``ABLATIONS`` built once per
     variant (all builds started together), each variant checked against
     the plain version at the bench shape (limits of phase 3), then read in
     turns: the forward pair's flash pass beside SDPA's forward with the
-    same mask and its mean pass; v2, v3, v4 and v6 of the microbenchmark
-    on its inputs beside the shipped capture pair and SDPA's forward there; the
-    mean-shift fixpoint (bf16) and CCL on phase 3's inputs."""
+    same mask and its mean pass; the microbenchmark's variants on its
+    inputs (``ablated``: which entries each takes) beside the shipped
+    capture pair and SDPA's forward there; the mean-shift fixpoint (bf16)
+    and CCL on phase 3's inputs."""
     import torch
     import torch.nn.functional as F
 
@@ -2400,18 +2432,25 @@ def phase_ablation(sources) -> None:
 
         vlibs = {n: av.variant_library(d) for n, d in ABLATIONS["attention_variants"].items()}
         tq, tk, tv = make_inputs(device=dev)
-        for variant in ("v2-bf16e", "v3-nomin", "v4-mxsum", "v6-fusedsum"):
+        b, h, t, _ = tq.shape
+        for n, lib in vlibs.items():
+            if ablated(n, "v5-batched"):
+                log(f"[ablate] v5-batched, {n}: clusters of {lib.attn_v5_cluster(b, h, t)} blocks")
+        for variant in av.VARIANTS:
             want_out, want_mean = av.variant_reference(tq, tk, tv, variant)
             limit = av.mean_limit(tq, tk, variant, want_mean)
             for n, lib in vlibs.items():
+                if not ablated(n, variant):
+                    continue
+                fns[f"{variant}, {n}"] = (lambda lib=lib, variant=variant:
+                                          av.attention_variant(tq, tk, tv, variant, lib=lib))
                 out, mean = av.attention_variant(tq, tk, tv, variant, lib=lib)
                 sync()
                 expect(f"{variant}, {n}: out", max_err(out, want_out), bf16_ulps(want_out, 4),
                        "4 bf16 ulps of the largest |out|")
                 expect_mean(f"{variant}, {n}: mean", mean, want_mean, limit)
-                fns[f"{variant}, {n}"] = (lambda lib=lib, variant=variant:
-                                          av.attention_variant(tq, tk, tv, variant, lib=lib))
-            del want_out, want_mean, limit, out, mean
+                del out, mean
+            del want_out, want_mean, limit
         fns["tool shape, ours-capture"] = lambda: attention.attention_with_capture(tq, tk, tv)
         fns["tool shape, SDPA forward (out only)"] = lambda: F.scaled_dot_product_attention(
             tq, tk, tv)

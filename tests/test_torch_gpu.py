@@ -290,16 +290,16 @@ def _ulps(ref, n):
     return n * 2.0 ** (np.floor(np.log2(top)) - 7)
 
 
-# the variants on the TMA + wgmma design (out pass + mean pass)
-HOPPER_VARIANTS = ("v2-bf16e", "v3-nomin", "v4-mxsum", "v6-fusedsum")
+# the variants on the TMA + wgmma design: every one of the tool's five
+HOPPER_VARIANTS = ("v2-bf16e", "v3-nomin", "v4-mxsum", "v5-batched", "v6-fusedsum")
 
 # (B, H, T) of the variant kernels' card cases: every variant at a ragged
 # T (300 = 4 key tiles of 64 + 44) and at an odd one (301: the mean's last
 # column has no partner to be stored with, as at the tool's default 4301);
-# the TMA + wgmma variants also at that design's edges: a whole number of
-# key tiles, less than one tile, two images (plane b*H + h), one head, and
-# more heads than the mean pass keeps resident (24: query tiles streamed;
-# two key tiles, the second ragged).
+# also at the design's edges: a whole number of key tiles, less than one
+# tile, two images (plane b*H + h), one head, and more heads than the mean
+# pass keeps resident (24: query tiles streamed; two key tiles, the second
+# ragged; for v5 also beyond its 8-head first design).
 VARIANT_CASES = ([pytest.param(2, 3, t, name, id=f"2x3x{t}-{name}")
                   for t in (300, 301) for name in attention_variants.VARIANTS]
                  + [pytest.param(b, h, t, name, id=f"{b}x{h}x{t}-{name}")
@@ -433,17 +433,47 @@ def test_attention_variant_kernels_repeat_bitwise(cuda, variant, h):
 
 @pytest.mark.gpu
 def test_attention_variant_kernels_refuse_what_they_do_not_take(cuda):
-    """A CUDA tensor launches the kernel or raises: f32 inputs, a head dim
-    other than 64 and more than 8 heads side by side are refused."""
+    """A CUDA tensor launches the kernel or raises: f32 inputs and a head
+    dim other than 64 are refused; v5 runs 9 and 24 heads (above its first
+    design's 8) within the limits of the variants' test, and 40 (recips in
+    the workspace, above 24)."""
     q = torch.zeros((1, 2, 64, 64), device=cuda)
     with pytest.raises(ValueError):
         attention_variants.attention_variant(q, q, q, "v2-bf16e")
     q = torch.zeros((1, 2, 64, 32), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         attention_variants.attention_variant(q, q, q, "v4-mxsum")
-    q = torch.zeros((1, 9, 64, 64), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):
-        attention_variants.attention_variant(q, q, q, "v5-batched")
+    for h in (9, 24, 40):
+        gen = torch.Generator(device=cuda).manual_seed(h)
+        q, k, v = (torch.randn((1, h, 130, 64), generator=gen, device=cuda).bfloat16()
+                   for _ in range(3))
+        out, mean = attention_variants.attention_variant(q, k, v, "v5-batched")
+        torch.cuda.synchronize()
+        _check_variant(q, k, v, "v5-batched", out, mean)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", [4, 8])
+@pytest.mark.parametrize("b,h,t", [(1, 3, 40), (2, 2, 130), (1, 30, 190), (1, 8, 40),
+                                   (1, 32, 190)])
+def test_v5_kernel_with_more_ranks_than_key_tiles(cuda, b, h, t, cluster):
+    """v5 built with its cluster size forced (``V5_CLUSTER``) above the key
+    tiles a query tile has (T = 40: one tile; 130: three; 190 with 30 or
+    32 heads: three, the recips in the workspace): the ranks without a
+    sweep-2 chunk, and in sweep 1 the ranks without a head (2 and 3 heads
+    in clusters of 4 and 8), still join every barrier; 30 heads in
+    clusters of 4 and 8 give the ranks unequal head counts.
+    ``attn_v5_cluster`` reports the forced size; out and mean within the
+    variants' limits, on random inputs and on the clamp input."""
+    lib = attention_variants.variant_library((f"V5_CLUSTER={cluster}",))
+    assert lib.attn_v5_cluster(b, h, t) == cluster
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = (torch.randn((b, h, t, 64), generator=gen, device=cuda).bfloat16()
+               for _ in range(3))
+    for case in ((q, k, v), attention_variants.clamp_case(q, k, v)):
+        out, mean = attention_variants.attention_variant(*case, "v5-batched", lib=lib)
+        torch.cuda.synchronize()
+        _check_variant(*case, "v5-batched", out, mean)
 
 
 @pytest.mark.gpu
@@ -467,11 +497,9 @@ def test_microbenchmark_tool_on_card(cuda):
     assert KERNELS["attention_capture"].launches == KERNELS["attention_plain"].launches == 6
     q, k, v = tool.make_inputs(t=301, heads=3, device=cuda)
     for variant in attention_variants.VARIANTS:
-        want_out, want_mean = attention_variants.variant_reference(q, k, v, variant)
         out, mean = attention_variants.attention_variant(q, k, v, variant)
-        torch.testing.assert_close(out.float(), want_out.float(), atol=_ulps(want_out, 4), rtol=0)
-        torch.testing.assert_close(mean.float(), want_mean.float(),
-                                   atol=2e-3 * float(want_mean.float().abs().max()), rtol=0)
+        torch.cuda.synchronize()
+        _check_variant(q, k, v, variant, out, mean)
 
 
 @pytest.mark.gpu

@@ -151,6 +151,37 @@ def test_variant_matches_tpu_kernel(name):
     np.testing.assert_allclose(mean.sum(-1), 1.0, atol=5e-3)
 
 
+def test_v5_matches_tpu_kernel_above_its_old_head_limit():
+    """v5's plain version vs the JAX tool's ``kern5`` in interpret mode at
+    (1, 12, 128, 64) bf16: 12 heads, above the 8 the port's first v5 kernel
+    took (the JAX kernel takes any head count, ``nh=hh``); one query tile
+    of 128 rows, so every head of it is in the one grid step. Tolerances of
+    ``_close`` (the last f32 bit of exp2 can move single bf16 e and
+    outputs by one step); rows of the mean sum to 1."""
+    q, k, v = _bf16_inputs(1, 12, 128, 64, seed=5)
+    want_out, want_mean = run_jax_variant("v5-batched", q, k, v)
+    out, mean = _port("v5-batched", q, k, v)
+    assert out.shape == want_out.shape == (1, 12, 128, 64)
+    assert mean.shape == want_mean.shape == (1, 128, 128)
+    _close(out, mean, want_out, want_mean)
+    np.testing.assert_allclose(mean.sum(-1), 1.0, atol=5e-3)
+
+
+def test_v5_matches_tpu_kernel_over_query_tiles_with_three_heads():
+    """v5's plain version vs the JAX tool's ``kern5`` in interpret mode at
+    (1, 3, 384, 64) bf16: three grid steps of 128 query rows, and three
+    heads, so the mean's one division by H is not exact in binary (the
+    card kernel divides with ``__fdiv_rn``, the plain version's
+    ``.mean``). Tolerances of ``_close``; rows of the mean sum to 1."""
+    q, k, v = _bf16_inputs(1, 3, 384, 64, seed=6)
+    want_out, want_mean = run_jax_variant("v5-batched", q, k, v)
+    out, mean = _port("v5-batched", q, k, v)
+    assert out.shape == want_out.shape == (1, 3, 384, 64)
+    assert mean.shape == want_mean.shape == (1, 384, 384)
+    _close(out, mean, want_out, want_mean)
+    np.testing.assert_allclose(mean.sum(-1), 1.0, atol=5e-3)
+
+
 def test_clamp_separates_v3_from_v2_in_both_packages():
     """On an input with two shifted log2 logits of one row in (100, 127)
     (110.08 and 104.30, ``clamp_case``) v2 saturates both at 2^100 and v3
@@ -247,10 +278,12 @@ def test_variant_library_sets_the_c_signature():
     """``variant_library`` (library mocked: no nvcc here) gives the entry
     point the argtypes of the C source's ``attn_variant_forward``: the
     variant, five tensors, the workspace, B, H, T, the scale, the stream;
-    the ``-D`` overrides reach the build."""
+    and ``attn_v5_cluster`` its (B, H, T); the ``-D`` overrides reach the
+    build."""
     built = []
-    fake = types.SimpleNamespace(attn_variant_forward=types.SimpleNamespace(argtypes=None,
-                                                                            restype=None))
+    fake = types.SimpleNamespace(
+        attn_variant_forward=types.SimpleNamespace(argtypes=None, restype=None),
+        attn_v5_cluster=types.SimpleNamespace(argtypes=None, restype=None))
 
     def library(source, defines=()):
         built.append((source, defines))
@@ -264,16 +297,18 @@ def test_variant_library_sets_the_c_signature():
                     + [ctypes.c_float, ctypes.c_void_p])
     assert fake.attn_variant_forward.argtypes == want
     assert fake.attn_variant_forward.restype is ctypes.c_int
+    assert fake.attn_v5_cluster.argtypes == _c_signature("attn_v5_cluster") == [ctypes.c_int] * 3
+    assert fake.attn_v5_cluster.restype is ctypes.c_int
 
 
 @pytest.mark.parametrize("name", NAMES)
 def test_variant_launch_hands_workspace_and_counts(name):
     """The launch path with the library's function mocked (CPU tensors,
     (2, 3, 40, 64)): one call per variant call with as many arguments as
-    the C signature has; the two-pass variants (v2, v3, v4, v6) get a (B,
-    H, T) f32 workspace distinct from every tensor, v5 none; the scale is
-    bf16(d^-0.5 log2 e); one launch is counted per call, none when the
-    call fails."""
+    the C signature has; every variant gets a (B, H, T) f32 workspace
+    distinct from every tensor (v5 writes it only above 24 heads); the
+    scale is bf16(d^-0.5 log2 e); one launch is counted per call, none
+    when the call fails."""
     from attentionshift_torch.ops._build import KERNELS, reset_launches
 
     q, k, v = (torch.from_numpy(x).bfloat16() for x in _bf16_inputs(2, 3, 40, 64))
@@ -285,8 +320,8 @@ def test_variant_launch_hands_workspace_and_counts(name):
         calls.append(args)
         return 0
 
-    def recorded(q, number):
-        made.append(workspace(q, number))
+    def recorded(q):
+        made.append(workspace(q))
         return made[-1]
 
     reset_launches()
@@ -306,12 +341,9 @@ def test_variant_launch_hands_workspace_and_counts(name):
     assert (pq, pk, pout, pmean) == (q.data_ptr(), k.data_ptr(), out.data_ptr(), mean.data_ptr())
     assert out.shape == (2, 3, 40, 64) and mean.shape == (2, 40, 40)
     work = made[1]
-    if number != 5:
-        assert work.shape == (2, 3, 40) and work.dtype == torch.float32
-        assert pwork == work.data_ptr()
-        assert pwork not in (pq, pk, pv, pout, pmean)
-    else:
-        assert work is None and pwork is None
+    assert work.shape == (2, 3, 40) and work.dtype == torch.float32
+    assert pwork == work.data_ptr()
+    assert pwork not in (pq, pk, pv, pout, pmean)
     if name == "v6-fusedsum":
         assert pv != v.data_ptr()  # V with its 8 columns of ones
     else:
@@ -325,7 +357,8 @@ def _logits_f64(q, k):
     return torch.matmul(qs.double(), k.double().transpose(-1, -2)).float() - 20.0
 
 
-@pytest.mark.parametrize("name", ["v2-bf16e", "v3-nomin", "v4-mxsum", "v6-fusedsum"])
+@pytest.mark.parametrize("name", ["v2-bf16e", "v3-nomin", "v4-mxsum", "v5-batched",
+                                  "v6-fusedsum"])
 def test_mean_limit_passes_rounding_and_sees_the_clamp(name):
     """``mean_limit``, the per-entry limit of the card checks, at the card
     case (1, 24, 190) for seeds 0-15: the plain version with its logits
@@ -380,10 +413,10 @@ def test_mean_limit_steps_and_flush_floor():
 
 def test_variant_kernel_refuses_what_it_refused_before():
     """The kernel path's input checks (reached here directly: a CPU
-    tensor takes the plain version): f32 inputs, a head dim other than 64,
-    unequal shapes and v5 above 8 heads are refused for what they are;
-    v2, v3, v4 and v6 take any head count (24: only the device is wrong
-    here)."""
+    tensor takes the plain version): f32 inputs, a head dim other than 64
+    and unequal shapes are refused for what they are; every variant, v5
+    included (its first design refused more than 8 heads), takes any head
+    count (9, 24: only the device is wrong here)."""
     check = attention_variants._check_inputs
 
     def bf(*shape):
@@ -395,9 +428,7 @@ def test_variant_kernel_refuses_what_it_refused_before():
         check(*(bf(1, 2, 64, 32),) * 3, "v4-mxsum")
     with pytest.raises(ValueError, match="shapes differ"):
         check(bf(1, 2, 64, 64), bf(1, 2, 65, 64), bf(1, 2, 64, 64), "v2-bf16e")
-    with pytest.raises(ValueError, match="at most 8 heads"):
-        check(*(bf(1, 9, 64, 64),) * 3, "v5-batched")
-    for name in ("v2-bf16e", "v3-nomin", "v4-mxsum", "v6-fusedsum"):
+    for name in NAMES:
         for h in (1, 9, 24):
             with pytest.raises(ValueError, match="CUDA tensors"):
                 check(*(bf(2, h, 40, 64),) * 3, name)
