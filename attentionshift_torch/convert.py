@@ -16,11 +16,16 @@ state dict. Layout facts:
 - 1x1 conv kernels (1, 1, Cin, Cout) -> ``Linear.weight`` (Cout, Cin);
   3x3 conv kernels keep their (3, 3, Cin, Cout) layout for
   ``Conv3x3Matmul``;
-- ``lateral_i`` / ``fpn_conv_i`` / ``decoder_blocks_i`` -> module lists.
+- ``lateral_i`` / ``fpn_conv_i`` / ``decoder_blocks_i`` -> module lists,
+  and the flax auto-named ``Dense_i`` of the keypoint head's MLP ->
+  ``layers.i``;
+- the train variants' heads map by the same rules: ``reppoints_head_i``
+  (``conv_i`` 3x3, ``gn_i`` scale and bias, the 1x1 ``cls_out`` and
+  ``pts_out``), ``keypoint_align_head`` and ``mae_head`` (its
+  ``mask_token`` as it is).
 
-Subtrees of variants that are not ported (``SKIPPED_SUBTREES``) are
-skipped by name; any other unmapped key raises. ``load_flax`` loads strictly, so
-a port parameter missing from the variables raises too.
+Any unmapped key raises, and ``load_flax`` loads strictly, so a port
+parameter missing from the variables raises too.
 
 ``model_type="mask_rcnn"`` maps the JAX ``MaskRCNN``'s variables onto
 ``attentionshift_torch.models.mask_rcnn.MaskRCNN``: the ResNet backbone by
@@ -39,10 +44,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["SKIPPED_SUBTREES", "flax_to_torch", "load_flax"]
+__all__ = ["MAPPED_SUBTREES", "flax_to_torch", "load_flax"]
 
-SKIPPED_SUBTREES = ("keypoint_align_head", "mae_head", "reppoints_head_")
-MAPPED_SUBTREES = ("backbone", "mil_head", "neck", "rpn_head", "bbox_head", "mask_head")
+# top-level subtrees of the detector's variables; reppoints_head_i by prefix
+MAPPED_SUBTREES = ("backbone", "mil_head", "neck", "rpn_head", "bbox_head", "mask_head",
+                   "keypoint_align_head", "mae_head", "reppoints_head_")
 _LISTS = ("blocks", "layers", "lateral", "fpn_conv", "decoder_blocks")
 
 
@@ -62,7 +68,10 @@ def _leaf(path: tuple, value: np.ndarray):
     for m in mods:
         # blocks_3 -> blocks.3, layers_0 -> layers.0
         stem, _, idx = m.rpartition("_")
-        key.extend([stem, idx] if stem in _LISTS and idx.isdigit() else [m])
+        if stem == "Dense" and idx.isdigit():
+            key.extend(["layers", idx])
+        else:
+            key.extend([stem, idx] if stem in _LISTS and idx.isdigit() else [m])
     if name == "kernel":
         if x.ndim == 2:
             return ".".join(key + ["weight"]), x.T
@@ -77,7 +86,8 @@ def _leaf(path: tuple, value: np.ndarray):
         raise KeyError("/".join(path))
     if name == "scale":
         return ".".join(key + ["weight"]), x
-    if name in ("bias", "cls_token", "pos_embed", "point_token", "point_pos_embed", "det_token"):
+    if name in ("bias", "cls_token", "pos_embed", "point_token", "point_pos_embed", "det_token",
+                "mask_token"):
         return ".".join(key + [name]), x
     raise KeyError("/".join(path))
 
@@ -117,19 +127,16 @@ def flax_to_torch(variables: dict, model_type: str = "attnshift") -> dict:
     params = variables.get("params", variables)
     sd = {}
     for path, value in _flatten(params):
-        if path[0] in MAPPED_SUBTREES:
-            try:
-                key, arr = _leaf(path, value)
-            except KeyError as e:
-                raise KeyError(f"flax_to_torch: unmapped parameter {e.args[0]}") from None
-            sd[key] = torch.from_numpy(np.ascontiguousarray(arr))
-        elif not path[0].startswith(SKIPPED_SUBTREES):
+        if not path[0].startswith(MAPPED_SUBTREES):
             raise KeyError(f"flax_to_torch: unmapped parameter {'/'.join(path)}")
+        try:
+            key, arr = _leaf(path, value)
+        except KeyError as e:
+            raise KeyError(f"flax_to_torch: unmapped parameter {e.args[0]}") from None
+        sd[key] = torch.from_numpy(np.ascontiguousarray(arr))
     for path, value in _flatten(variables.get("batch_stats", {})):
         if path[:2] != ("backbone", "fpn1_bn") or path[2] not in ("mean", "var"):
-            if not path[0].startswith(SKIPPED_SUBTREES):
-                raise KeyError(f"flax_to_torch: unmapped batch stat {'/'.join(path)}")
-            continue
+            raise KeyError(f"flax_to_torch: unmapped batch stat {'/'.join(path)}")
         sd[f"backbone.fpn1_bn.running_{path[2]}"] = torch.from_numpy(
             np.asarray(value, dtype=np.float32).copy())
     return sd

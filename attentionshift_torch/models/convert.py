@@ -16,13 +16,18 @@ package's ``mae_to_vit_params`` -> the port's names and layouts through
 the port's ``PatchEmbed`` is a space-to-depth and one matmul whose input
 axis is ordered (p, p, C)).
 
+``mae_to_decoder_params`` grafts an MAE *decoder* ``state_dict`` onto a
+decoder-style head (``BoxHeadRec``, ``MaskHeadPointSup``,
+``MAEDecoderHead``): as the reference heads load every checkpoint key but
+the encoder's, ``decoder_embed``, ``norm`` and ``decoder_blocks.N.*``
+land in the head. The port's heads use MAE's own names and layouts, so
+each tensor is copied as it is.
+
 ``torchvision_resnet_params`` grafts a torchvision ResNet ``state_dict``
 onto the refinement stage's ``models.resnet.ResNet``, whose names and
 layouts are torchvision's: the BatchNorm running statistics land in the
 ``FrozenBN`` buffers, ``fc.*`` and ``num_batches_tracked`` are dropped,
 and keys the checkpoint lacks keep their init (strict=False).
-
-Not ported yet: ``mae_to_decoder_params`` (waits for the MAE head).
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ from ..convert import _leaf
 from .layers import interpolate_pos_embed
 
 __all__ = ["load_torch_state_dict", "resolve_checkpoint_path", "mae_to_vit_params",
-           "torchvision_resnet_params"]
+           "mae_to_decoder_params", "torchvision_resnet_params"]
 
 
 def resolve_checkpoint_path(path: str, cache_dir: str | None = None,
@@ -179,6 +184,39 @@ def _resize_pos_embed(pe: np.ndarray, tgt_shape) -> np.ndarray:
     side = int(round(float(np.sqrt(tgt_shape[1] - 1))))
     res = interpolate_pos_embed(torch.from_numpy(pe), side, side, num_prefix=1)
     return res.numpy().astype(np.float32)
+
+
+def mae_to_decoder_params(state: Mapping[str, np.ndarray], params: Mapping[str, torch.Tensor],
+                          depth: int = 4) -> Dict[str, torch.Tensor]:
+    """Graft MAE decoder weights onto a decoder head's state dict.
+
+    Args:
+        state: torch state_dict arrays (``decoder_embed``, ``norm``,
+            ``decoder_blocks.N.{norm1,attn.qkv,attn.proj,norm2,mlp.fc1,mlp.fc2}``).
+        params: the head's ``state_dict()`` (not modified).
+
+    Returns:
+        a new state dict with the same keys: each of those tensors that both
+        hold replaced (in the target's dtype and device), every other one a
+        copy.
+    """
+    out = {k: v.detach().clone() for k, v in params.items()}
+    mods = ["decoder_embed", "norm"] + [
+        f"decoder_blocks.{i}.{m}" for i in range(depth)
+        for m in ("norm1", "norm2", "attn.qkv", "attn.proj", "mlp.fc1", "mlp.fc2")]
+    for mod in mods:
+        if f"{mod}.weight" not in state or f"{mod}.weight" not in out:
+            continue
+        for leaf in ("weight", "bias"):
+            key = f"{mod}.{leaf}"
+            if key not in state:
+                continue
+            arr = np.asarray(state[key], np.float32)
+            if tuple(arr.shape) != tuple(out[key].shape):
+                raise ValueError(f"mae_to_decoder_params: {key} is {tuple(out[key].shape)}, the "
+                                 f"checkpoint gives {tuple(arr.shape)}")
+            out[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(out[key])
+    return out
 
 
 _RESNET_LEAVES = ("weight", "bias", "running_mean", "running_var")

@@ -15,7 +15,20 @@ train (``forward``, the JAX ``__call__``):
   RCNN box head on sampled proposals and the mask head supervised at the
   sampled points. Returns ``(losses, aux)`` with the JAX package's keys.
   Stage A's selection and Stages B+C build no graph; the MIL bag loss
-  keeps its gradient into the backbone.
+  keeps its gradient into the backbone. The train variants:
+  - ``with_reppoints_head`` (the COCO configs): a cascade of
+    ``num_reppoints_head`` RepPoints heads over the detached stride-16
+    FPN level, the fg maps re-estimated between stages
+    (``refine_fg_maps``); losses ``loss_rp_*`` for stage 0, suffixed
+    ``_{i-1}`` for stage i; ``with_deform_sup`` puts the refined centers
+    in place of the semantic centers among the mask supervision points;
+  - ``with_mae_head``: ``loss_mae_rec``, the MAE reconstruction of the
+    re-masked encoder tokens;
+  - ``with_keypoint_align``: ``loss_keypoint_align``, each gt's matched
+    point token classifying the detached semantic-part features;
+  - ``teacher=``: the outputs of an EMA teacher's ``backbone_forward``
+    feed the pseudo-label engine; the point losses match the student's
+    own detached predictions.
 
 inference (``simple_test``, ``test_from_feats``, and the stages
 ``rpn_test``, ``roi_test``, ``mask_test`` that multi-scale testing calls):
@@ -52,8 +65,11 @@ from ..ops.topk import top_k_stable
 from ..parallel.mesh import global_count
 from ..pseudo.engine import candidate_boxes, masks_and_centers
 from ..pseudo.rollout import attention_rollout_point_rows
+from .condinst import SimpleCondInstHead
 from .fpn import FPN
 from .heads import BoxHeadRec, MaskHeadPointSup, MILHead, mask_point_loss
+from .mae_head import MAEDecoderHead
+from .reppoints import RepPointsPartHead, contour_points, refine_fg_maps
 from .rpn import RPNHead, rpn_loss, rpn_proposals
 from .vit import VisionTransformerDet
 
@@ -68,14 +84,8 @@ class TestOutputs(NamedTuple):
 
 
 # config keys this port does not read: switches of the JAX package's own
-# kernels and meshes, and of variants that are not ported
-_OTHER_PATHS = frozenset({
-    "use_pallas_attention", "use_pallas_ccl", "sequence_parallel", "keypoint_feat_channels",
-    "num_reppoints_head", "with_deform_sup", "reppoints_num_points", "reppoints_contour_points",
-    "mae_mask_ratio",
-})
-# variants of the train step that are not ported yet: asking for one raises
-_UNPORTED_VARIANTS = ("with_keypoint_align", "with_reppoints_head", "with_mae_head")
+# kernels and meshes
+_OTHER_PATHS = frozenset({"use_pallas_attention", "use_pallas_ccl", "sequence_parallel"})
 
 
 class AttnShiftDetector(nn.Module):
@@ -91,12 +101,13 @@ class AttnShiftDetector(nn.Module):
                  num_proposals: int = 1000, rpn_nms_pre: int = 2000, rcnn_samples: int = 512,
                  rcnn_pos_fraction: float = 0.25, mask_sample_cap: int = 128,
                  test_score_thr: float = 0.05, test_iou_thr: float = 0.5,
-                 test_max_per_img: int = 100, dtype: torch.dtype = torch.float32, device=None,
-                 **other_paths):
+                 test_max_per_img: int = 100, with_keypoint_align: bool = False,
+                 keypoint_feat_channels: int = 8, with_reppoints_head: bool = False,
+                 num_reppoints_head: int = 1, with_deform_sup: bool = False,
+                 reppoints_num_points: int = 9, reppoints_contour_points: int = 16,
+                 with_mae_head: bool = False, mae_mask_ratio: float = 0.75,
+                 dtype: torch.dtype = torch.float32, device=None, **other_paths):
         super().__init__()
-        for name in _UNPORTED_VARIANTS:
-            if other_paths.pop(name, False):
-                raise NotImplementedError(f"AttnShiftDetector: {name} is not ported yet")
         unknown = set(other_paths) - _OTHER_PATHS
         if unknown:
             raise TypeError(f"AttnShiftDetector: unknown arguments {sorted(unknown)}")
@@ -126,6 +137,18 @@ class AttnShiftDetector(nn.Module):
         self.rpn_head = RPNHead(feat_channels=rpn_channels)
         self.bbox_head = BoxHeadRec(num_classes=num_classes, in_channels=embed_dim)
         self.mask_head = MaskHeadPointSup(num_classes=num_classes, in_channels=embed_dim)
+        if with_keypoint_align:
+            self.keypoint_align_head = SimpleCondInstHead(embed_dim, embed_dim,
+                                                          feat_channels=keypoint_feat_channels)
+        # the cascade's heads under the JAX package's names, reppoints_head_i
+        self.num_reppoints_head = num_reppoints_head if with_reppoints_head else 0
+        self.with_deform_sup = with_deform_sup
+        self.reppoints_contour_points = reppoints_contour_points
+        for i in range(self.num_reppoints_head):
+            setattr(self, f"reppoints_head_{i}",
+                    RepPointsPartHead(in_channels=rpn_channels, num_points=reppoints_num_points))
+        if with_mae_head:
+            self.mae_head = MAEDecoderHead(in_channels=embed_dim, mask_ratio=mae_mask_ratio)
         self.to(dev)
         self.eval()
 
@@ -217,8 +240,9 @@ class AttnShiftDetector(nn.Module):
         # the candidates were made without a graph, so the pseudo boxes carry
         # none; Stages B+C read the patch features detached
         with torch.no_grad():
-            res, dbg = self._stages_bc(out, cams_patch, pseudo_boxes, best_idx, patch_hw, img_hw,
-                                       gt_points, gt_labels, gt_valid, generator, draws)
+            res, dbg, protos = self._stages_bc(out, cams_patch, pseudo_boxes, best_idx, patch_hw,
+                                               img_hw, gt_points, gt_labels, gt_valid, generator,
+                                               draws)
         res.update(pseudo_gt_bboxes=pseudo_boxes, best_attn_idx=best_idx, loss_mil=mil_loss)
         if debug:
             res.update(
@@ -231,11 +255,13 @@ class AttnShiftDetector(nn.Module):
                 token_of_gt=token_of_gt,
                 **dbg,
             )
-        return res, assigned
+        return res, assigned, protos
 
     def _stages_bc(self, out, cams_patch, pseudo_boxes, best_idx, patch_hw, img_hw, gt_points,
                    gt_labels, gt_valid, generator, draws):
-        """Stages B+C on the detached patch features (no graph)."""
+        """Stages B+C on the detached patch features (no graph): the
+        public outputs, the debug intermediates, and what the train
+        variants read besides (the Stage-B prototypes, the parts' features)."""
         hp, wp = patch_hw
         h, w = img_hw
         b, g = gt_points.shape[:2]
@@ -268,7 +294,11 @@ class AttnShiftDetector(nn.Module):
             map_cos_fg=torch.stack([p.map_fg for p in pls]),
             semantic_centers=torch.stack([p.centers.coords for p in pls]),
             semantic_centers_valid=torch.stack([p.centers.part_valid for p in pls]),
-        ), dict(best_cams=best_cams_patch, vit_feat=vit_feat)
+        ), dict(best_cams=best_cams_patch, vit_feat=vit_feat), dict(
+            fg_proto=torch.stack([p.fg_proto for p in pls]),  # (B, G + 1, D)
+            bg_proto=torch.stack([p.bg_proto for p in pls]),  # (B, G, D)
+            part_feats=torch.stack([p.centers.feats for p in pls]),  # (B, G, P, D)
+        )
 
     @torch.no_grad()
     def seed_pseudo_gt(self, img, gt_points, gt_labels, gt_valid, img_wh, generator=None,
@@ -287,8 +317,8 @@ class AttnShiftDetector(nn.Module):
         """
         b, h, w, _ = img.shape
         out, roi_map, patch_hw = self._extract(img)
-        res, _ = self._seed(out, roi_map, patch_hw, (h, w), gt_points, gt_labels, gt_valid, img_wh,
-                            generator, draws)
+        res = self._seed(out, roi_map, patch_hw, (h, w), gt_points, gt_labels, gt_valid, img_wh,
+                         generator, draws)[0]
         res["pseudo_gt_labels"] = gt_labels
         res["pseudo_gt_valid"] = gt_valid
         return res
@@ -304,6 +334,13 @@ class AttnShiftDetector(nn.Module):
                           generator, draws, debug=True)[0]
 
     # -------------------------------------------------------------- train
+    @torch.no_grad()
+    def backbone_forward(self, img) -> dict:
+        """The backbone alone, deterministic and without a graph: the EMA
+        teacher's share of a train step, whose output ``forward`` takes as
+        ``teacher``."""
+        return self._extract(img)[0]
+
     def forward(self, img, gt_points, gt_labels, gt_valid, img_wh, *, loss_enable=1.0,
                 teacher=None, generator=None, draws=None, drop_masks=None):
         """Training forward: returns (losses dict, aux dict).
@@ -313,26 +350,40 @@ class AttnShiftDetector(nn.Module):
                 annotated xy; gt_labels (B, G); gt_valid (B, G) bool; img_wh
                 (B, 2) true (w, h) before padding.
             loss_enable: epoch-gated switch of the bbox and mask losses.
+            teacher: optional ``backbone_forward`` output of an EMA teacher,
+                which then feeds the pseudo-label engine (the student's
+                backbone runs without the probability capture).
             generator: ``torch.Generator`` on the model's device for every
                 random draw of the step.
             draws: optional per-image list of dicts holding draws instead:
                 those of ``seed_pseudo_gt``, ``rpn_u_pos``/``rpn_u_neg``
                 (one uniform per anchor), ``rcnn_u_pos``/``rcnn_u_neg``
                 (one per gt + proposal; ``rcnn_u_pos`` also orders the
-                sampled rois, as the JAX package reuses that key) and
-                ``mask_u`` (one per sampled roi).
+                sampled rois, as the JAX package reuses that key),
+                ``mask_u`` (one per sampled roi); for the variants
+                ``rp_contour_{i}`` (G, H*W) Gumbel noise of cascade stage
+                i's contour points, ``rp_bg_{i}`` (H*W,) that of stage i's
+                background supplement (i > 0), ``mae_noise`` (N,) the MAE
+                masking uniforms over the N patches.
             drop_masks: optional (depth, 2, B) drop-path keep masks.
         """
-        if teacher is not None:
-            raise NotImplementedError("AttnShiftDetector.forward: teacher= is not ported yet")
         b, h, w, _ = img.shape
         gt_valid = gt_valid.bool()
         out, roi_map, patch_hw = self._extract(img, deterministic=False, generator=generator,
-                                               drop_masks=drop_masks)
-        seed, assigned = self._seed(out, roi_map, patch_hw, (h, w), gt_points, gt_labels,
-                                    gt_valid, img_wh, generator, draws)
+                                               drop_masks=drop_masks, capture=teacher is None)
+        seed, assigned, protos = self._seed(teacher if teacher is not None else out, roi_map,
+                                            patch_hw, (h, w), gt_points, gt_labels, gt_valid,
+                                            img_wh, generator, draws)
+        if teacher is not None:
+            # the point losses match the student's own predictions
+            with torch.no_grad():
+                assigned = torch.stack([
+                    hungarian_point_assign(out["outputs_class"][i], out["outputs_coord"][i],
+                                           gt_points[i], gt_labels[i], gt_valid[i], img_wh[i])
+                    for i in range(b)])
         pseudo_boxes = seed["pseudo_gt_bboxes"]
         losses = {"loss_mil": seed["loss_mil"]}
+        dr = draws if draws is not None else [{}] * b
 
         # ---- RPN on pseudo boxes
         fpn_feats = self.neck(out["feature"])
@@ -348,9 +399,30 @@ class AttnShiftDetector(nn.Module):
 
         losses.update(self._point_losses(out["outputs_class"].float(), out["outputs_coord"].float(),
                                          assigned, gt_points, gt_labels, img_wh))
+        mask_pt_coords, mask_pt_labels = seed["mask_points_coords"], seed["mask_points_labels"]
+        if self.num_reppoints_head:
+            rp_losses, centers, cvalid = self._cascade(fpn_feats[2], out, patch_hw, seed, protos,
+                                                       gt_valid, generator, dr)
+            losses.update(rp_losses)
+            if self.with_deform_sup:
+                # the refined centers replace the semantic centers, the last
+                # P supervision points of each instance
+                p = centers.shape[2]
+                mask_pt_coords = torch.cat([mask_pt_coords[:, :, :-p],
+                                            torch.where(cvalid[..., None], centers, -1.0)], dim=2)
+                mask_pt_labels = torch.cat([mask_pt_labels[:, :, :-p],
+                                            torch.where(cvalid, 1, 2).to(mask_pt_labels.dtype)],
+                                           dim=2)
         losses.update(self._rcnn_losses(roi_map, props, pseudo_boxes, gt_labels, gt_valid,
-                                        seed["mask_points_coords"], seed["mask_points_labels"],
-                                        loss_enable, generator, draws))
+                                        mask_pt_coords, mask_pt_labels, loss_enable, generator,
+                                        draws))
+        if hasattr(self, "mae_head"):
+            noise = torch.stack([d["mae_noise"] for d in dr]) if "mae_noise" in dr[0] else None
+            losses["loss_mae_rec"] = self.mae_head(out["last_feat"], img, generator=generator,
+                                                   noise=noise)
+        if hasattr(self, "keypoint_align_head"):
+            losses.update(self._keypoint_loss(out["point_tokens"], assigned, protos["part_feats"],
+                                              seed["semantic_centers_valid"], gt_valid))
         aux = dict(
             pseudo_boxes=pseudo_boxes,
             pseudo_valid=gt_valid,
@@ -361,6 +433,50 @@ class AttnShiftDetector(nn.Module):
             map_fg=seed["map_cos_fg"],
         )
         return losses, aux
+
+    def _cascade(self, rp_level, out, patch_hw, seed, protos, gt_valid, generator, dr):
+        """The RepPoints cascade on the detached stride-16 FPN level and
+        patch features: (losses, refined centers (B, G, P, 2), their
+        validity (B, G, P))."""
+        hp, wp = patch_hw
+        b = rp_level.shape[0]
+        rp_feats = rp_level.detach()
+        vit_feat = out["last_feat"][:, 1:].detach().reshape(b, hp, wp, -1).permute(0, 3, 1, 2).float()
+        boxes = seed["pseudo_gt_bboxes"].float()
+        centers, cvalid = seed["semantic_centers"], seed["semantic_centers_valid"]
+        fg_maps, rp_masks = seed["map_cos_fg"], seed["pseudo_gt_masks"]
+        losses = {}
+        for i in range(self.num_reppoints_head):
+            with torch.no_grad():
+                if i > 0:  # the fg maps re-estimated from the refined centers
+                    fg_maps, rp_masks = (torch.stack(t) for t in zip(*(
+                        refine_fg_maps(fg_maps[j], vit_feat[j], boxes[j], centers[j], cvalid[j],
+                                       protos["fg_proto"][j], protos["bg_proto"][j], gt_valid[j],
+                                       generator=generator, pos_mask_thr=self.pos_mask_thr,
+                                       gumbel=dr[j].get(f"rp_bg_{i}"))
+                        for j in range(b))))
+                cont_xy, cont_val = (torch.stack(t) for t in zip(*(
+                    contour_points(rp_masks[j], self.reppoints_contour_points, generator,
+                                   dr[j].get(f"rp_contour_{i}"))
+                    for j in range(b))))
+            rpo = getattr(self, f"reppoints_head_{i}")(rp_feats, boxes, centers, cvalid, gt_valid,
+                                                       rp_masks, fg_maps, cont_xy, cont_val)
+            suffix = "" if i == 0 else f"_{i - 1}"
+            losses.update({k + suffix: v for k, v in rpo.losses.items()})
+            centers, cvalid = rpo.new_centers, rpo.new_valid
+        return losses, centers, cvalid
+
+    def _keypoint_loss(self, point_tokens, assigned, part_feats, part_valid, gt_valid) -> dict:
+        """Each gt's matched point token (the one-hot match's argmax)
+        classifies the detached semantic-part features of every instance."""
+        b, g, npart, d = part_feats.shape
+        match = assigned[:, None, :] == (torch.arange(g, device=assigned.device)[None, :, None] + 1)
+        token_of_gt = match.int().argmax(dim=-1)  # (B, G)
+        tokens = torch.gather(point_tokens, 1, token_of_gt[..., None].expand(b, g, point_tokens.shape[-1]))
+        owner = torch.arange(g, device=assigned.device).repeat_interleave(npart)[None].expand(b, -1)
+        pvalid = part_valid.reshape(b, g * npart) & torch.gather(gt_valid, 1, owner)
+        return self.keypoint_align_head(tokens, part_feats.reshape(b, g * npart, d).detach(), owner,
+                                        pvalid, gt_valid)
 
     def _roi_feats(self, roi_map, boxes, output_size):
         """(B, N, 4) boxes -> (B*N, S, S, C) channel-last roi features."""

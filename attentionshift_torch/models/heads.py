@@ -8,7 +8,9 @@ Port of ``attentionshift_tpu/models/heads.py``:
   in f32 (a bf16 clip at 1 - 1e-6 rounds to 1.0 and makes log(0)).
 - ``BoxHeadRec``: 4-block ViT decoder over 7x7 RoI tokens with a det
   token; softmax classification + class-wise box regression, GIoU loss
-  on the decoded boxes.
+  on the decoded boxes; with ``with_reconstruct`` also a per-patch RGB
+  prediction of each RoI token (``fc_rec``), which
+  ``reconstruction_loss`` holds against the normalised image crop.
 - ``MaskHeadPointSup``: 4-block ViT decoder over 14x14 RoI tokens with a
   fixed sin-cos position embedding, x2 bicubic upsample, 1x1 conv to
   per-class 28x28 logits; ``mask_point_loss`` is BCE at sampled points
@@ -27,10 +29,11 @@ import torch.nn.functional as F
 from ..core.boxes import delta2bbox
 from ..core.losses import giou_loss, softmax_cross_entropy
 from ..ops.image import resize
+from ..ops.roi_align import roi_align
 from ..parallel.mesh import global_count
 from .layers import Block, Dense, LayerNorm, get_2d_sincos_pos_embed
 
-__all__ = ["MILHead", "BoxHeadRec", "MaskHeadPointSup", "mask_point_loss"]
+__all__ = ["MILHead", "BoxHeadRec", "MaskHeadPointSup", "mask_point_loss", "reconstruction_loss"]
 
 
 def _decoder_pos_embed(embed_dim: int, base_grid: int, hp: int, wp: int) -> torch.Tensor:
@@ -121,22 +124,26 @@ class BoxHeadRec(_RoIDecoder):
     """ViT-decoder box head."""
 
     def __init__(self, num_classes: int = 20, in_channels: int = 384, embed_dim: int = 256,
-                 depth: int = 4, num_heads: int = 8, mlp_ratio: float = 4.0, base_grid: int = 14):
+                 depth: int = 4, num_heads: int = 8, mlp_ratio: float = 4.0, base_grid: int = 14,
+                 with_reconstruct: bool = False, patch_size: int = 16):
         super().__init__(in_channels, embed_dim, depth, num_heads, mlp_ratio, base_grid)
         self.num_classes = num_classes
         self.det_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.fc_cls = Dense(embed_dim, num_classes + 1)
         self.fc_reg = Dense(embed_dim, 4 * num_classes)
+        if with_reconstruct:
+            self.fc_rec = Dense(embed_dim, 3 * patch_size**2)
 
     def forward(self, roi_feats):
         """(R, S, S, Cin) RoI features -> cls_score (R, num_classes + 1)
-        logits, bbox_pred (R, num_classes*4) deltas, None (no
-        reconstruction branch)."""
+        logits, bbox_pred (R, num_classes*4) deltas, and the reconstruction
+        (R, S, S, 3*patch^2) with ``with_reconstruct``, else None."""
         r, s = roi_feats.shape[:2]
         x = self._embed(roi_feats)
         x = torch.cat([self.det_token.expand(r, 1, -1).to(x.dtype), x], dim=1)
         x = self._decode(x + self._pos_embed(s, x))
-        return self.fc_cls(x[:, 0]), self.fc_reg(x[:, 0]), None
+        rec = self.fc_rec(x[:, 1:]).reshape(r, s, s, -1) if hasattr(self, "fc_rec") else None
+        return self.fc_cls(x[:, 0]), self.fc_reg(x[:, 0]), rec
 
     def loss(self, cls_score, bbox_pred, rois, labels, label_weights, bbox_targets, bbox_weights,
              target_stds=(0.1, 0.1, 0.2, 0.2), bbox_loss_weight: float = 10.0, loss_enable=1.0):
@@ -178,6 +185,27 @@ class MaskHeadPointSup(_RoIDecoder):
         up = s * self.scale_factor
         x = resize(x.permute(0, 3, 1, 2), (up, up), method=self.scale_mode, align_corners=True)
         return self.conv_logits(x.permute(0, 2, 3, 1))
+
+
+def reconstruction_loss(rec_pred, rois, img, roi_valid, patch_size: int = 16,
+                        rec_weight: float = 1.0):
+    """The per-patch normalised-pixel MSE of ``BoxHeadRec``'s
+    reconstruction: rec_pred (R, S, S, 3*patch^2) against the crop of the
+    normalised images img (B, H, W, 3) at rois (R, 5) [batch_idx, xyxy],
+    taken at S*patch pixels a side, each patch normalised by its own mean
+    and variance (layout (patch*patch, 3) per patch); averaged over the
+    rows where roi_valid (R,)."""
+    r, s = rec_pred.shape[:2]
+    p = patch_size
+    crop = roi_align(img.permute(0, 3, 1, 2).float(), rois, spatial_scale=1.0,
+                     output_size=s * p).permute(0, 2, 3, 1)  # (R, S*p, S*p, 3)
+    tgt = crop.reshape(r, s, p, s, p, 3).permute(0, 1, 3, 2, 4, 5).reshape(r, s, s, p * p, 3)
+    mu = tgt.mean(dim=3, keepdim=True)
+    var = tgt.var(dim=3, keepdim=True, unbiased=False)
+    tgt = ((tgt - mu) / torch.sqrt(var + 1e-6)).reshape(r, s, s, 3 * p * p)
+    err = ((rec_pred.float() - tgt) ** 2).mean(dim=(1, 2, 3))
+    err = torch.where(roi_valid.bool(), err, 0.0)
+    return rec_weight * err.sum() / global_count(roi_valid.sum().float())
 
 
 def mask_point_loss(point_preds, point_targets, labels, pos_valid, loss_enable=1.0):

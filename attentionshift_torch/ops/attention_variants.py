@@ -46,6 +46,7 @@ import ctypes
 import torch
 
 from ._build import KERNELS, check, library
+from .numerics import F32_MIN_NORMAL, bf16_steps
 
 __all__ = ["VARIANTS", "variant_reference", "attention_variant", "variant_library", "clamp_case",
            "mean_limit"]
@@ -194,15 +195,7 @@ def clamp_case(q, k, v):
     return q, k, v
 
 
-_F32_MIN_NORMAL = 2.0 ** -126
 MEAN_LIMIT_STEPS = 5.5
-
-
-def bf16_steps(x):
-    """The spacing of bf16 numbers at each |x| (f32): 2^(k - 7) for |x| in
-    [2^k, 2^(k+1)), and 2^-133, the subnormal spacing, below 2^-126."""
-    _, exp = torch.frexp(x.float().abs().clamp_min(_F32_MIN_NORMAL))
-    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), exp - 8)
 
 
 def mean_limit(q, k, variant: str, want_mean):
@@ -251,6 +244,6 @@ def mean_limit(q, k, variant: str, want_mean):
     flushed = (s < -126.0).any(dim=-1)  # (B, H, T)
     if bool(flushed.any()):
         recip = 1.0 / torch.exp2(s).to(torch.bfloat16).float().sum(dim=-1).clamp_min(1e-30)
-        floor = (_F32_MIN_NORMAL * recip * flushed).sum(dim=1) / h  # (B, T)
+        floor = (F32_MIN_NORMAL * recip * flushed).sum(dim=1) / h  # (B, T)
         limit = limit + floor[..., None]
     return limit

@@ -23,8 +23,10 @@ import ctypes
 import torch
 
 from ._build import KERNELS, check, library
+from .numerics import bf16_steps
 
-__all__ = ["cosine_shift_batch", "cosine_shift_fixpoint"]
+__all__ = ["cosine_shift_batch", "cosine_shift_fixpoint", "fixpoint_verdict", "instance_deviation",
+           "one_step_limit", "reordered_witnesses"]
 
 _SMEM_LIMIT = 227 * 1024
 # as in csrc/meanshift.cu: cluster sizes the host may take, ring slots per
@@ -37,18 +39,28 @@ _ROUND_BOXES = 3
 _ROW_PARTS = 4
 
 
+def _acc(x: torch.Tensor) -> torch.dtype:
+    """The plain version's accumulation type: f64 for f64 inputs, else f32."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def _mm(x: torch.Tensor, dtype) -> torch.Tensor:
-    """Round a dot operand to ``dtype`` and back to f32 (exact products)."""
-    x = x.float()
-    return x if dtype in (None, torch.float32) else x.to(dtype).float()
+    """Round a dot operand to ``dtype`` and back to the accumulation type
+    (exact products)."""
+    acc = _acc(x)
+    x = x.to(acc)
+    return x if dtype in (None, torch.float32) else x.to(dtype).to(acc)
 
 
 def cosine_shift_batch(prototypes, feats, feats_org, tau=0.1, temp=0.1, n_shift=10,
                        matmul_dtype=None):
     """Plain version. prototypes (G, K, D), feats (G, N, D) box-masked,
-    feats_org (N, D) -> prototypes (G, K, D) f32, sim (G, K, N) f32."""
+    feats_org (N, D) -> prototypes (G, K, D) f32, sim (G, K, N) f32; f64
+    inputs accumulate in f64 and give f64 (the same operand rounding to
+    ``matmul_dtype``), a reference free of f32 summation noise."""
     g, k, d = prototypes.shape
-    nb = feats.float().norm(dim=-1).clamp_min(1e-8)  # (G, N)
+    acc = _acc(prototypes)
+    nb = feats.to(acc).norm(dim=-1).clamp_min(1e-8)  # (G, N)
     fm = _mm(feats, matmul_dtype)
 
     def cos_feats(prot):
@@ -56,8 +68,8 @@ def cosine_shift_batch(prototypes, feats, feats_org, tau=0.1, temp=0.1, n_shift=
         na = prot.norm(dim=-1).clamp_min(1e-8)
         return num / (na[..., None] * nb[:, None, :])
 
-    prot = prototypes.float()
-    tau_arr = torch.full((g, k, 1), float(tau), device=prot.device)
+    prot = prototypes.to(acc)
+    tau_arr = torch.full((g, k, 1), float(tau), device=prot.device, dtype=acc)
     kk = torch.arange(k, device=prot.device)[None, :, None]
     for _ in range(n_shift):
         sim = cos_feats(prot)
@@ -73,8 +85,149 @@ def cosine_shift_batch(prototypes, feats, feats_org, tau=0.1, temp=0.1, n_shift=
         tau_arr = dens.clamp_min(1e-10)[..., None]
     num = torch.matmul(_mm(prot, matmul_dtype), _mm(feats_org, matmul_dtype).T)
     na = prot.norm(dim=-1).clamp_min(1e-8)
-    nbo = feats_org.float().norm(dim=-1).clamp_min(1e-8)
+    nbo = feats_org.to(acc).norm(dim=-1).clamp_min(1e-8)
     return prot, num / (na[..., None] * nbo)
+
+
+def one_step_limit(prototypes, box_mask, f, tau=0.1, temp=0.1, matmul_dtype=None):
+    """Per-entry limits of one iteration (``n_shift`` 1) of a kernel against
+    the plain version on the same inputs: (prototypes (G, K, D), sim
+    (G, K, N)), f32.
+
+    Derivation. The two compute the same first similarities but for the
+    order of their D-term f32 sums: a cosine moves by at most
+    D 2^-24 (its terms' magnitudes sum to at most 1), so each logit
+    sim / (temp * tau) by at most eps = D 2^-24 / (temp * tau), each log
+    weight (the logit less its log-sum-exp) by at most 2 eps, and each
+    weight w (the hard assignment over K applied) by at most
+    (e^(2 eps) - 1) w, under 3 eps w.
+    1. The update is sum_n w_n f_n with the weights rounded to
+       ``matmul_dtype``: in bf16 a weight may land one bf16 step apart
+       (``bf16_steps``: 2^-8 to 2^-7 of it), so each prototype component
+       moves by at most L_d = sum_n (step(w_n) + (3 eps + 2^-14) w_n)
+       |f_nd| (in f32 without the step; 2^-14 for the N-term sum). Where a
+       few features hold most of a prototype's weight (nearly parallel
+       features, as a path's own inputs have) one such step is most of L.
+    2. The similarity rounds the prototype to the operand type again (one
+       more step of each component), sums D products in f32 (at most
+       D 2^-24 < 2^-14 of the sum of their magnitudes for D <= 1024) and
+       divides by the prototype's norm, which moves by at most |L|:
+       |d sim_kn| <= sum_d (L_d + step(p_d) + 2^-14 |p_d|) |f_nd| /
+       (|p| |f_n|) + |sim_kn| |L| / |p|, and never more than 2 (both are
+       cosines).
+    3. Where a feature's two best prototypes are within 4 eps in log
+       weight (a near-tie of the hard assignment), the feature may go to
+       either: each of the two may gain or lose its whole weight, w_kn
+       |f_n| more in L. An exact tie (equal prototypes give equal sums in
+       either) goes to the first on both.
+    ``prototypes`` are the iteration's inputs, ``box_mask`` and ``f`` as
+    ``cosine_shift_fixpoint`` takes them."""
+    feats = f.float()[None] * box_mask.float()[..., None]
+    g, k, d = prototypes.shape
+    nb = feats.norm(dim=-1).clamp_min(1e-8)
+    fm = _mm(feats, matmul_dtype)
+    prot = prototypes.float()
+    sim = torch.matmul(_mm(prot, matmul_dtype), fm.transpose(1, 2)) / (
+        prot.norm(dim=-1).clamp_min(1e-8)[..., None] * nb[:, None, :])
+    logw = torch.log_softmax(sim / (temp * tau), dim=-1)
+    kk = torch.arange(k, device=prot.device)[None, :, None]
+    w_all = torch.exp(logw)
+    w = w_all * (kk == torch.argmax(logw, dim=1, keepdim=True))
+    top2 = torch.topk(logw, 2, dim=1)  # the two best prototypes of each feature
+    eps = d * 2.0**-24 / (temp * tau)  # a logit's reach under another summation order
+    gap = top2.values[:, 0] - top2.values[:, 1]
+    tie = ((gap > 0) & (gap < 4 * eps))[:, None, :]  # an exact tie resolves alike
+    movable = torch.zeros_like(logw, dtype=torch.bool).scatter_(1, top2.indices, True) & tie
+    bf16 = matmul_dtype not in (None, torch.float32)
+    step = (lambda x: bf16_steps(x) * (x != 0)) if bf16 else (lambda x: torch.zeros_like(x))
+    lim_p = torch.matmul(step(w) + w * (3 * eps + 2.0**-14) + w_all * movable, fm.abs())
+    new = torch.matmul(_mm(w, matmul_dtype), fm)
+    na = new.norm(dim=-1).clamp_min(1e-8)
+    fo = _mm(f, matmul_dtype).abs()
+    nbo = f.float().norm(dim=-1).clamp_min(1e-8)
+    num = torch.matmul(lim_p + step(new) + new.abs() * 2.0**-14, fo.T)  # (G, K, N)
+    new_sim = torch.matmul(_mm(new, matmul_dtype), _mm(f, matmul_dtype).T) / (na[..., None] * nbo)
+    lim_s = num / (na[..., None] * nbo) + new_sim.abs() * (lim_p.norm(dim=-1) / na)[..., None]
+    return lim_p, lim_s.clamp_max(2.0)
+
+
+def instance_deviation(a, b) -> torch.Tensor:
+    """(G,) f64 on the host: per instance, the largest difference of the
+    prototypes of ``a`` and ``b`` over the largest |entry| of the
+    instance's prototypes in ``b``, or that of the similarities, whichever
+    is larger. ``a``, ``b``: (prototypes (G, K, D), sim (G, K, N))."""
+    pa, pb = a[0].double(), b[0].double()
+    scale = pb.abs().amax(dim=(1, 2))
+    scale = torch.maximum(scale, 1e-6 * scale.max()).clamp_min(1e-30)
+    dp = (pa - pb).abs().amax(dim=(1, 2)) / scale
+    ds = (a[1].double() - b[1].double()).abs().amax(dim=(1, 2))
+    return torch.maximum(dp, ds).cpu()
+
+
+def reordered_witnesses(prototypes, box_mask, f, tau=0.1, temp=0.1, n_shift=10,
+                        matmul_dtype=None, orders=8, seed=0, f64=True):
+    """The plain version of the fixpoint with its sums in other orders: once
+    accumulating in f64 (``f64``), and ``orders`` times in f32 over the
+    features (N) and the feature dims (D) in a random order drawn from
+    ``seed``, each result put back in the given order. Same operand
+    rounding to ``matmul_dtype``, so each is as right as the plain version;
+    their spread is how far the fixpoint on these inputs moves under
+    rounding alone. Returns a list of (prototypes, sim)."""
+    n, d = f.shape
+    mask = box_mask.float()
+
+    def plain(p, m, ff):
+        return cosine_shift_batch(p, ff[None] * m[..., None], ff, tau=tau, temp=temp,
+                                  n_shift=n_shift, matmul_dtype=matmul_dtype)
+
+    out = [plain(prototypes.double(), mask.double(), f.double())] if f64 else []
+    gen = torch.Generator().manual_seed(seed)
+    for _ in range(orders):
+        pn = torch.randperm(n, generator=gen).to(f.device)
+        pd = torch.randperm(d, generator=gen).to(f.device)
+        prot, sim = plain(prototypes.float()[..., pd], mask[:, pn], f.float()[pn][:, pd])
+        out.append((prot[..., torch.argsort(pd)], sim[..., torch.argsort(pn)]))
+    return out
+
+
+def fixpoint_verdict(results, prototypes, box_mask, f, floor, tau=0.1, temp=0.1, n_shift=10,
+                     matmul_dtype=None, orders=8, max_orders=64) -> list:
+    """Fixpoints ``results`` (a list of (prototypes, sim), a kernel's first)
+    against the plain version on the same inputs, per instance
+    (``instance_deviation``), with the plain version's own reordered sums
+    as witnesses (``reordered_witnesses``: f64, then batches of ``orders``
+    orders, drawn until every instance of the first result passes or
+    ``max_orders`` are drawn; every result is judged by all of them).
+
+    An instance passes when the result is within max(``floor``, 2 x the
+    witnesses' largest deviation from the plain version), or within
+    ``floor`` of one witness. Where the fixpoint is ill-conditioned
+    (nearly parallel features make tau = 1 - density small and each logit
+    sim / (temp * tau) large, so one bf16 rounding of a weight or one f32
+    ulp of a sum moves the next iteration) the plain version's own
+    rounding moves it as far, and a right kernel lands where some
+    reordered plain version lands. Returns, per result, a dict of (G,) f64
+    host tensors ``dev``, ``spread``, ``near``, ``limit``, the bool ``ok``,
+    and ``witnesses``, how many were drawn."""
+    kw = dict(tau=tau, temp=temp, n_shift=n_shift, matmul_dtype=matmul_dtype)
+    want = cosine_shift_batch(prototypes, f[None] * box_mask.float()[..., None], f, **kw)
+    wits, spread, near = [], None, [None] * len(results)
+    while True:
+        new = reordered_witnesses(prototypes, box_mask, f, orders=orders, seed=len(wits),
+                                  f64=not wits, **kw)
+        wits += new
+        dev_w = torch.stack([instance_deviation(w, want) for w in new]).amax(0)
+        spread = dev_w if spread is None else torch.maximum(spread, dev_w)
+        for r, got in enumerate(results):
+            n_r = torch.stack([instance_deviation(got, w) for w in new]).amin(0)
+            near[r] = n_r if near[r] is None else torch.minimum(near[r], n_r)
+        limit = torch.clamp(2.0 * spread, min=floor)
+        dev = [instance_deviation(got, want) for got in results]
+        ok = [(d <= limit) | (n <= floor) for d, n in zip(dev, near)]
+        if bool(ok[0].all()) or len(wits) - 1 >= max_orders:
+            break
+    return [dict(dev=d, spread=spread, near=n, limit=limit, ok=o, witnesses=len(wits))
+            for d, n, o in zip(dev, near, ok)]
 
 
 def _smem_bytes(kp: int, bf16: bool, d: int, tb: int, stages: int) -> int:

@@ -26,6 +26,7 @@ from .points import sample_in_mask, strided_in_mask, topk_in_mask
 __all__ = [
     "RefinedMaps",
     "cosine_similarity_refined_map",
+    "refined_similarity_from_map",
     "sample_fgbg_points",
     "sample_mask_points",
 ]
@@ -59,42 +60,68 @@ def point_prototype_sim(points_xy: torch.Tensor, vit_feat: torch.Tensor) -> torc
     return _cos_map(vit_feat, feats.mean(dim=-1).T)
 
 
-def refined_similarity(points_xy, vit_feat, boxes, num_box_maps, refine_times=2, tau=0.85,
-                       is_select=False, valid=None):
-    """Iterative prototype refinement (`get_refined_similarity`).
+def _select(cmap, bbox_mask, num_box_maps, valid, fill):
+    """Winner-take-all over the rows of (M, Hp, Wp) maps, the first
+    ``num_box_maps`` box-masked; rows with ``valid`` False read ``fill``
+    in the argmax. Returns (the masked maps, the selected maps)."""
+    body = torch.cat([cmap[:num_box_maps] * bbox_mask, cmap[num_box_maps:]], dim=0)
+    cand = body if valid is None else torch.where(valid[:, None, None], body, fill)
+    rows = torch.arange(cmap.shape[0], device=cmap.device)[:, None, None]
+    keep = torch.argmax(cand, dim=0)[None] == rows
+    return body, torch.where(keep, body, 0.0)
 
-    Returns the final (M, Hp, Wp) map (winner-take-all selected when
-    ``is_select``) and the (M, D) prototypes.
-    """
+
+def _refine(cos, vit_feat, boxes, num_box_maps, refine_times, tau, is_select, valid, fill):
+    """The threshold -> masked-mean prototype -> cosine loop from the maps
+    ``cos`` (M, Hp, Wp): each iteration thresholds the maps of the one
+    before (box-masked after a selection). Returns the last (selected)
+    maps, ``cos`` itself without an iteration, and the (M, D) prototypes."""
     d, hp, wp = vit_feat.shape
-    cos = point_prototype_sim(points_xy, vit_feat)
     m = cos.shape[0]
     bbox_mask = box2mask(torch.floor(boxes / 16.0), (hp, wp), default_val=0.0)
-    f = vit_feat.reshape(d, -1)
-    ar = torch.arange(m, device=cos.device)[:, None, None]
-
-    def select(cmap):
-        body = torch.cat([cmap[:num_box_maps] * bbox_mask, cmap[num_box_maps:]], dim=0)
-        cand = body if valid is None else torch.where(valid[:, None, None], body, -1.0)
-        keep = torch.argmax(cand, dim=0)[None] == ar
-        return body, torch.where(keep, body, 0.0)
-
-    proto = None
+    f = vit_feat.reshape(d, -1).float()
     selected = cos
+    proto = torch.zeros((m, d), device=cos.device)
     for _ in range(refine_times):
         thr = cos.amax(dim=(-2, -1), keepdim=True) * tau
-        cosm = torch.where(cos < thr, 0.0, cos).reshape(m, -1)
-        wsum = cosm.sum(-1, keepdim=True).clamp_min(1e-8)
-        proto = torch.matmul(cosm, f.T) / wsum
+        cosm = torch.where(cos < thr, 0.0, cos).reshape(m, -1).float()
+        proto = torch.matmul(cosm, f.T) / cosm.sum(-1, keepdim=True).clamp_min(1e-8)
         cos = _cos_map(vit_feat, proto)
         if is_select:
-            cos, selected = select(cos)
+            cos, selected = _select(cos, bbox_mask, num_box_maps, valid, fill)
         else:
             selected = cos
-    if proto is None:
-        proto = torch.zeros((m, d), device=cos.device)
-        selected = select(cos)[1] if is_select else cos
     return selected, proto
+
+
+def refined_similarity(points_xy, vit_feat, boxes, num_box_maps, refine_times=2, tau=0.85,
+                       is_select=False, valid=None):
+    """Iterative prototype refinement (`get_refined_similarity`) from the
+    seed points' mean-feature maps; invalid rows read -1 in the
+    winner-take-all. Returns the final (M, Hp, Wp) map (selected when
+    ``is_select``, also without an iteration) and the (M, D) prototypes.
+    """
+    cos = point_prototype_sim(points_xy, vit_feat)
+    if refine_times == 0 and is_select:
+        hp, wp = vit_feat.shape[1:]
+        bbox_mask = box2mask(torch.floor(boxes / 16.0), (hp, wp), default_val=0.0)
+        return (_select(cos, bbox_mask, num_box_maps, valid, -1.0)[1],
+                torch.zeros((cos.shape[0], vit_feat.shape[0]), device=cos.device))
+    return _refine(cos, vit_feat, boxes, num_box_maps, refine_times, tau, is_select, valid, -1.0)
+
+
+def refined_similarity_from_map(cos_map, vit_feat, boxes, num_box_maps, refine_times=3, tau=0.85,
+                                is_select=True, valid=None):
+    """The refinement loop of ``refined_similarity`` seeded from the cosine
+    maps (M, Hp, Wp) instead of seed points
+    (`get_refined_similarity_input_map`): the first iteration thresholds
+    the raw input maps, later ones the box-masked maps of the iteration
+    before; ``valid`` (M,) rows that are False never win the
+    winner-take-all. Returns the last selected (M, Hp, Wp) map and the
+    (M, D) prototypes.
+    """
+    return _refine(cos_map, vit_feat, boxes, num_box_maps, refine_times, tau, is_select, valid,
+                   -torch.inf)
 
 
 def sample_fgbg_points(attn_norm, gt_points, thr_pos=0.2, thr_neg=0.1, num_points=20,

@@ -29,7 +29,13 @@ parameters, the Mask R-CNN in f32, as the JAX package runs it. Under
 ``torchrun`` each rank is one process on one card: ``data.batch_size`` is
 per rank, the train step computes the losses and gradients of the global
 batch, and rank 0 alone logs, saves and evaluates. Tensor, sequence and
-pipeline parallelism and the teacher raise ``NotImplementedError``.
+pipeline parallelism raise ``NotImplementedError``.
+
+With ``teacher.enabled`` (``configs/attnshift_voc12aug_ts.py``) the step
+is ``train.make_train_step_ts``: an EMA teacher, a copy of the student
+made after the build and any resume (no checkpoint holds it, as in the
+JAX package), feeds the pseudo-label engine and follows the student by
+``teacher.momentum`` after every micro-step.
 
 A step's draws come from a generator seeded from (seed + 1, step, rank)
 (``train.step_generator``), so a run resumed from a checkpoint draws what
@@ -39,6 +45,7 @@ an unbroken run draws.
 from __future__ import annotations
 
 import argparse
+import copy
 import itertools
 import json
 import os
@@ -65,11 +72,6 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _check_ported(cfg) -> None:
-    if cfg.get("teacher", {}).get("enabled", False):
-        raise NotImplementedError("tools.train: teacher.enabled (the EMA teacher) is not ported yet")
-
-
 def build(args) -> SimpleNamespace:
     """Everything the epoch loop needs, from parsed ``args``: the config,
     this rank's place in the process group, dataset, loader, model (MAE or
@@ -84,7 +86,6 @@ def build(args) -> SimpleNamespace:
     from ..train import TrainState, latest_checkpoint, restore_checkpoint
 
     cfg = Config.fromfile(args.config).merge_from_options(args.cfg_options)
-    _check_ported(cfg)
     rank, world, dev = init_distributed(resolve_device(args.device))
     dp = mesh_from_config(cfg.get("parallel", {}), world)
     group = dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
@@ -133,10 +134,28 @@ def build(args) -> SimpleNamespace:
         state = restore_checkpoint(resume, state)
         print(f"resumed from {resume} (epoch {state.epoch})", flush=True)
     state = place_state(state, group)
-    return SimpleNamespace(cfg=cfg, args=args, rank=rank, world=world, device=dev, group=group,
-                           seed=seed, dataset=dataset, loader=loader,
-                           steps_per_epoch=steps_per_epoch, model=model, state=state,
-                           step_fn=step_fn, resumed=resume)
+    run = SimpleNamespace(cfg=cfg, args=args, rank=rank, world=world, device=dev, group=group,
+                          seed=seed, dataset=dataset, loader=loader,
+                          steps_per_epoch=steps_per_epoch, model=model, state=state,
+                          step_fn=step_fn, resumed=resume, teacher=None)
+    if cfg.get("teacher", {}).get("enabled", False):
+        _attach_teacher(run, float(cfg.teacher.get("momentum", 0.999)))
+    return run
+
+
+def _attach_teacher(run: SimpleNamespace, momentum: float) -> None:
+    """Make ``run.teacher`` a copy of the built (and resumed) student and
+    ``run.step_fn`` the teacher-student step, which moves it."""
+    from ..train import make_train_step_ts
+
+    run.teacher = copy.deepcopy(run.model)
+    step_ts = make_train_step_ts(run.model, momentum, run.group)
+
+    def step_fn(state, batch, **kw):
+        state, run.teacher, metrics = step_ts(state, run.teacher, batch, **kw)
+        return state, metrics
+
+    run.step_fn = step_fn
 
 
 def _schedule_kw(cfg, steps_per_epoch: int) -> dict:

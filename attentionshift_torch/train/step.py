@@ -56,20 +56,21 @@ def make_train_step(model, group=None) -> Callable:
     """Build the train step for an ``AttnShiftDetector``-like model.
 
     The returned fn: (state, batch, generator=None, loss_enable=1.0,
-    draws=None, drop_masks=None) -> (state, metrics). ``generator`` (on
-    the model's device) feeds every random draw of the step; ``draws``
-    and ``drop_masks`` hand the draws in instead (see the model's
-    ``forward``). Metrics are the model's losses plus ``loss_total``,
+    draws=None, drop_masks=None, teacher=None) -> (state, metrics).
+    ``generator`` (on the model's device) feeds every random draw of the
+    step; ``draws`` and ``drop_masks`` hand the draws in instead, and
+    ``teacher`` an EMA teacher's backbone outputs (see the model's
+    ``forward`` and ``train.ema``). Metrics are the model's losses plus ``loss_total``,
     the sum of the values whose key starts with ``loss``, detached.
 
     ``group``: a process group of data-parallel ranks, each with its own
     batch; losses, gradients and metrics are then those of the global
     batch. Without one the step runs no collective.
     """
-    def forward(batch, generator, loss_enable, draws, drop_masks=None):
+    def forward(batch, generator, loss_enable, draws, drop_masks=None, teacher=None):
         return model(batch["img"], batch["gt_points"], batch["gt_labels"], batch["gt_valid"],
-                     batch["img_wh"], loss_enable=loss_enable, generator=generator, draws=draws,
-                     drop_masks=drop_masks)
+                     batch["img_wh"], loss_enable=loss_enable, teacher=teacher,
+                     generator=generator, draws=draws, drop_masks=drop_masks)
 
     return _make_step(model, group, forward)
 

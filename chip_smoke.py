@@ -88,7 +88,30 @@ Phases, each printing its own lines:
    beside the card's name and power limit: ms per micro-step (host clock,
    median of steps 2-4), peak memory, one profiled micro-step (device busy
    time and its top ops), single-scale and aug-test ms/img;
-12. times with CUDA events: every kernel, its plain version, the library
+12. the train variants through the twin of ``tools/train.py``, each config
+   as it is: ``configs/attnshift_coco.py`` (ViT-S, 80 classes, batch 2,
+   ``max_gt`` 40, all 12 blocks captured, the RepPoints head, 11 scales
+   480-800 x 1333, brightness jitter) on a synthetic COCO tree of 8
+   images with 6-40 instances: 4 micro-steps, ``epoch_1``, 2 val images
+   through ``COCOEvalDataset``; exactly 12/12/12/12/2/2 launches per
+   micro-step, finite ``loss_rp_*``, a gradient in and a move of every
+   submodule and of ``reppoints_head_0``, G = 40 filled, and CCL (480
+   planes), mean-shift (G = 40) and the capture pair held against their
+   plain versions on the inputs this path handed them;
+   ``configs/attnshift_voc12aug_ts.py`` and
+   ``configs/attnshift_voc12aug_keypoint.py`` on phase 9's VOC tree, 2
+   micro-steps each: the teacher's forward exactly 7 capture + 5 plain
+   launches per micro-step and no backward, one teacher tensor after each
+   step against m * teacher + (1 - m) * student recomputed on the host,
+   ``loss_keypoint_align`` finite; the bench-geometry train step with two
+   RepPoints heads, ``with_deform_sup`` and the MAE head (finite losses,
+   the suffixed keys, gradients in both heads and the decoder);
+   ``configs/attnshift_coco_vitb.py`` (768 wide, 12 heads, a synthetic MAE
+   ViT-B checkpoint), one micro-step, its kernels checked on its own
+   inputs (D = 768, 12 heads). Each with its ms per micro-step and peak
+   memory beside the card's name and power limit, the COCO one with a
+   profiled micro-step;
+13. times with CUDA events: every kernel, its plain version, the library
    call where one exists, ms/img of the pseudo-label path and of
    inference and ms per train step, each with one profiled call. The
    attention kernels and their SDPA yardsticks (the forward with the same
@@ -780,7 +803,8 @@ def recording(module, name: str, store: dict):
     fn = getattr(module, name)
 
     def record(*args, **kwargs):
-        store[name] = ([a.clone() if torch.is_tensor(a) else a for a in args], dict(kwargs))
+        store[name] = ([a.detach().clone() if torch.is_tensor(a) else a for a in args],
+                       dict(kwargs))
         return fn(*args, **kwargs)
 
     return mock.patch.object(module, name, record)
@@ -1294,9 +1318,10 @@ def voc_point_tree(root: str) -> dict:
     return dict(ann_file=ann, img_prefix=os.path.join(root, "JPEGImages"))
 
 
-def mae_state_dict(depth: int = 12, d: int = EMBED, patch: int = 16) -> dict:
+def mae_state_dict(depth: int = 12, d: int = EMBED, patch: int = 16, qkv_scale: float = 1.0) -> dict:
     """A seeded random MAE ViT-S encoder ``state_dict`` under MAE's key
-    names, with its final norm (which the graft leaves out)."""
+    names, with its final norm (which the graft leaves out); the attention's
+    q, k, v projections ``qkv_scale`` times larger (``SHARP_QKV``)."""
     import torch
 
     gen = torch.Generator().manual_seed(5)
@@ -1310,6 +1335,7 @@ def mae_state_dict(depth: int = 12, d: int = EMBED, patch: int = 16) -> dict:
         for name, (o, n) in (("attn.qkv", (3 * d, d)), ("attn.proj", (d, d)),
                              ("mlp.fc1", (4 * d, d)), ("mlp.fc2", (d, 4 * d))):
             sd[f"blocks.{i}.{name}.weight"], sd[f"blocks.{i}.{name}.bias"] = r(o, n), r(o)
+        sd[f"blocks.{i}.attn.qkv.weight"] *= qkv_scale
     return sd
 
 
@@ -2007,6 +2033,574 @@ def phase_refine_cli(tc: dict, smi: str) -> dict:
                 eval={k: evals["single"][k] + evals["aug"][k] for k in evals["single"]})
 
 
+# ------------------------------------------------------ the train variants
+COCO_CLI_STEPS = 4  # micro-steps: batch 2, accumulate_steps 2
+# check_meanshift_on: reordered plain versions drawn at a time beside the f64
+# one, and the most drawn for one check
+MS_WITNESS_ORDERS, MS_WITNESS_MAX = 8, 64
+COCO_SIZE = (480, 640)  # (h, w) of the synthetic COCO images
+# instances per image: half of the images above 20, one at max_gt = 40
+COCO_INSTANCES = (6, 24, 12, 36, 9, 30, 16, 40)
+# COCO's 80 category ids, with its gaps
+COCO_CAT_IDS = tuple(i for i in range(1, 91) if i not in (12, 26, 29, 30, 45, 66, 68, 69, 71, 83))
+# per micro-step at the config's batch of 2: every block captured
+# (cam_layer = 12), the checkpoint recompute of every block through the
+# plain kernel, a backward pair per block, CCL (12 x 40 = 480 planes) and
+# mean-shift (G = 40) once per image
+COCO_CLI_LAUNCHES = {"attention_capture": 12, "attention_plain": 12, "attention_bwd_dq": 12,
+                     "attention_bwd_dkv": 12, "ccl_batch": 2, "meanshift_fixpoint": 2}
+# the teacher's backbone forward per micro-step: 7 capture + 5 plain blocks
+# for the batch, no backward; the student then runs without the capture: 12
+# plain blocks and their 12 recomputes
+TEACHER_LAUNCHES = {"attention_capture": CAM_LAYERS, "attention_plain": 12 - CAM_LAYERS}
+TS_STUDENT_LAUNCHES = {"attention_plain": 24, "attention_bwd_dq": 12, "attention_bwd_dkv": 12,
+                       "ccl_batch": 2, "meanshift_fixpoint": 2}
+VARIANT_CLI_STEPS = 2
+VITB_EMBED, VITB_HEADS = 768, 12  # configs/attnshift_coco_vitb.py
+RP_KEYS = {"loss_rp_border", "loss_rp_chamfer_sem", "loss_rp_chamfer_contour", "loss_rp_cls"}
+# The COCO paths' synthetic MAE checkpoints: q, k, v 10x the N(0, 0.02) init,
+# so that attention logits reach ~15 and a point token's attention picks out
+# patches of one content. Stage C then finds parts for nearly every instance
+# of the synthetic tree; at 1x the rollout CAMs are flat, the candidate boxes
+# are the whole image, and few instances get a part (loss_rp_chamfer_contour
+# then reads the reference's 5e8 for each object without one).
+SHARP_QKV = 10.0
+CONTOUR_SENTINEL = 5e8  # what an object with contour points and no valid part adds
+COCO_VAL_KEYS = ["AP", "AP50", "AP75"]
+
+
+def coco_point_tree(root: str) -> dict:
+    """Landscape JPEGs of a grid of elliptic instances (``COCO_INSTANCES``
+    per image) and one COCO json over COCO's 80 category ids: per instance
+    a point at its center (``COCOPointDataset``), a 12-gon polygon, its
+    area and box (``COCOEvalDataset``). Returns the paths."""
+    import numpy as np
+    from PIL import Image
+
+    rs = np.random.RandomState(3)
+    h, w = COCO_SIZE
+    yy, xx = np.mgrid[:h, :w]
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    t = np.linspace(0.0, 2.0 * np.pi, 12, endpoint=False)
+    images, annotations = [], []
+    for i, n in enumerate(COCO_INSTANCES):
+        cols = int(np.ceil(np.sqrt(n * w / h)))
+        rows = -(-n // cols)
+        img = rs.rand(h, w, 3) * 60 + 40
+        for j in range(n):
+            r, c = divmod(j, cols)
+            ax, ay = 0.35 * w / cols, 0.35 * h / rows
+            cx = (c + 0.5) * w / cols + rs.uniform(-2, 2)
+            cy = (r + 0.5) * h / rows + rs.uniform(-2, 2)
+            m = ((xx - cx) / ax) ** 2 + ((yy - cy) / ay) ** 2 < 1.0
+            img[m] += 120.0 * np.eye(3)[j % 3]
+            poly = np.stack([cx + ax * np.cos(t), cy + ay * np.sin(t)], 1).reshape(-1)
+            annotations.append(dict(
+                id=len(annotations), image_id=i, category_id=COCO_CAT_IDS[(7 * i + 3 * j) % 80],
+                point=[float(cx), float(cy)], segmentation=[[float(v) for v in poly]],
+                area=float(m.sum()), bbox=[float(cx - ax), float(cy - ay), 2 * ax, 2 * ay],
+                iscrowd=0))
+        name = f"{i:012d}.jpg"
+        Image.fromarray(img.clip(0, 255).astype(np.uint8)).save(os.path.join(root, "images", name))
+        images.append(dict(id=i, file_name=name, width=w, height=h))
+    ann = os.path.join(root, "instances_points.json")
+    with open(ann, "w") as f:
+        json.dump(dict(images=images, annotations=annotations,
+                       categories=[dict(id=c, name=f"cat{c}") for c in COCO_CAT_IDS]), f)
+    return dict(ann_file=ann, img_prefix=os.path.join(root, "images"))
+
+
+def fitted(store: list):
+    """Patch ``tools.train.fit`` to keep each run it fits, with a CPU copy
+    of the parameters and buffers the run starts from."""
+    from unittest import mock
+
+    from attentionshift_torch.tools import train as cli
+
+    inner = cli.fit
+
+    def fit(run):
+        store.append((run, {k: v.detach().cpu().clone() for k, v in run.model.state_dict().items()}))
+        return inner(run)
+
+    return mock.patch.object(cli, "fit", fit)
+
+
+def kernel_inputs_of(store: dict):
+    """``recording`` of the CCL, mean-shift and capture-attention wrappers,
+    as their callers import them."""
+    import contextlib
+
+    from attentionshift_torch.models import layers
+    from attentionshift_torch.pseudo import engine, meanshift
+
+    stack = contextlib.ExitStack()
+    for module, name in ((engine, "connected_components_batch"),
+                         (meanshift, "cosine_shift_fixpoint"), (layers, "attention_with_capture")):
+        stack.enter_context(recording(module, name, store))
+    return stack
+
+
+def cascade_parts(store: list):
+    """Patch ``AttnShiftDetector._cascade`` to keep, per call, (instances
+    with a valid Stage-C part, valid instances)."""
+    from unittest import mock
+
+    from attentionshift_torch.models import AttnShiftDetector
+
+    inner = AttnShiftDetector._cascade
+
+    def cascade(self, rp_level, out, patch_hw, seed, protos, gt_valid, *rest):
+        v = gt_valid.bool()
+        store.append((int((seed["semantic_centers_valid"].any(-1) & v).sum()), int(v.sum())))
+        return inner(self, rp_level, out, patch_hw, seed, protos, gt_valid, *rest)
+
+    return mock.patch.object(AttnShiftDetector, "_cascade", cascade)
+
+
+def check_parts(tag: str, parts: list, vals: dict) -> None:
+    """Most instances of every micro-step with a Stage-C part, so that the
+    RepPoints losses measure geometry: ``loss_rp_chamfer_sem`` > 0 and
+    ``loss_rp_chamfer_contour`` below a quarter of the sentinel."""
+    share = min(a / max(b, 1) for a, b in parts)
+    log(f"[{tag}] instances with a valid part per micro-step {parts}")
+    if share < 0.75 or not (vals["loss_rp_chamfer_sem"] > 0
+                            and vals["loss_rp_chamfer_contour"] < CONTOUR_SENTINEL / 4):
+        raise AssertionError(f"{tag}: instances with a part {parts}, last losses {vals}")
+
+
+def check_meanshift_on(tag: str, margs, mkw: dict) -> None:
+    """The mean-shift kernel against its plain version on a path's own
+    inputs, in the path's operand type and in f32. One iteration
+    (``n_shift`` 1): every entry within ``meanshift_kernel.one_step_limit``
+    (derived in its docstring). The path's own ``n_shift``: every instance
+    by ``meanshift_kernel.fixpoint_verdict``, within max(floor, 2 x the
+    plain version's own spread under reordered sums (f64, then orders of N
+    and D, ``MS_WITNESS_ORDERS`` at a time up to ``MS_WITNESS_MAX``)) or
+    within the floor of one such witness; floor 1e-4 (f32) or phase 3's
+    2e-3 (bf16 operands). On a path's inputs the fixpoint can be
+    ill-conditioned: an image's features are nearly parallel, so
+    tau = 1 - density gets small, each logit sim / (temp * tau) large, and
+    one rounding of a weight moves the next iteration, in the plain version
+    as much as in the kernel. A control, the plain version with the
+    temperature 10 % off, has to fail some instance against the same
+    witnesses (its prototypes alone: its similarities put equal)."""
+    import torch
+
+    from attentionshift_torch.ops import meanshift_kernel
+
+    prot0, mask, f = margs[:3]
+    kw = {k: v for k, v in mkw.items() if k != "lib"}
+    n_shift = kw.pop("n_shift", 10)
+    temp = kw.setdefault("temp", 0.1)
+    path_dtype = kw.get("matmul_dtype")
+
+    def plain(p, m, ff, n):
+        return meanshift_kernel.cosine_shift_batch(p, ff[None] * m[..., None], ff, n_shift=n, **kw)
+
+    for mm in dict.fromkeys((path_dtype, None)):
+        kw["matmul_dtype"] = mm
+        name = f"{tag}.meanshift_fixpoint.{'f32' if mm is None else 'bf16'}"
+        got = meanshift_kernel.cosine_shift_fixpoint(prot0, mask, f, n_shift=1, **kw)
+        want = plain(prot0, mask, f, 1)
+        lim = meanshift_kernel.one_step_limit(prot0, mask, f, **kw)
+        ratios = [((a - b).abs() / (c + 1e-30)) for a, b, c in zip(got, want, lim)]
+        log(f"[check] {name}.one_iteration: largest deviation {max_err(got[0], want[0]):.3e} "
+            f"(prototypes), {max_err(got[1], want[1]):.3e} (sim); median limit "
+            f"{float(lim[0].median()):.3e} / {float(lim[1].median()):.3e}; worst entry at "
+            f"{tuple(int(i) for i in torch.nonzero(ratios[0] == ratios[0].max())[0])} / "
+            f"{tuple(int(i) for i in torch.nonzero(ratios[1] == ratios[1].max())[0])}")
+        expect(f"{name}.one_iteration (worst entry / its limit)",
+               max(float(r.max()) for r in ratios), 1.0,
+               "one_step_limit: bf16 steps of the weights and prototypes, near-ties of the "
+               "hard assignment, f32 sums")
+        floor = 1e-4 if mm is None else 2e-3
+        got = meanshift_kernel.cosine_shift_fixpoint(prot0, mask, f, n_shift=n_shift, **kw)
+        want = plain(prot0, mask, f, n_shift)
+        off = meanshift_kernel.cosine_shift_batch(prot0, f[None] * mask[..., None], f,
+                                                  n_shift=n_shift, **dict(kw, temp=1.1 * temp))
+        v, ctl = meanshift_kernel.fixpoint_verdict(
+            [got, (off[0], want[1])], prot0, mask, f, floor, n_shift=n_shift,
+            orders=MS_WITNESS_ORDERS, max_orders=MS_WITNESS_MAX, **kw)
+        log(f"[check] {name} at n_shift {n_shift}: per instance (kernel's deviation, the "
+            f"witnesses' spread, the nearest witness), {v['witnesses']} witnesses: "
+            f"{[tuple(round(float(x[i]), 5) for x in (v['dev'], v['spread'], v['near'])) for i in range(len(v['dev']))]}; "
+            f"{int((v['dev'] <= floor).sum())} of {len(v['dev'])} instances within the floor "
+            f"{floor:g}, {int((v['spread'] <= floor).sum())} whose witnesses stay within it, "
+            f"{int((v['ok'] & (v['dev'] > v['limit'])).sum())} passed by a witness within it; "
+            f"the control (temperature 10 % off, its prototypes) fails {int((~ctl['ok']).sum())}")
+        expect(f"{name} at n_shift {n_shift} (worst instance / its limit)",
+               float(torch.where(v["ok"], 0.0, v["dev"] / v["limit"]).max()), 1.0,
+               "max(floor, 2 x the plain version's spread under reordered sums), or within "
+               "the floor of a reordered plain version")
+        if bool(ctl["ok"].all()):
+            raise AssertionError(f"{name}: the temperature control passes every instance")
+
+
+def check_kernels_on(tag: str, handed: dict) -> dict:
+    """CCL, mean-shift and the capture pair against their plain versions on
+    the inputs a path handed them, with phase 3's tolerances; returns the
+    shapes they had."""
+    import torch
+
+    from attentionshift_torch.ops import attention, ccl, numerics
+
+    (masks, *rest), kw = handed["connected_components_batch"]
+    iters = kw.get("max_iters", rest[0] if rest else 256)
+    expect(f"{tag}.ccl_batch", max_err(ccl.connected_components_batch(masks, iters),
+                                       ccl.connected_components(masks, iters)), 0.0,
+           "integer labels: exact")
+    margs, mkw = handed["cosine_shift_fixpoint"]
+    prot0, mask, f = margs[:3]
+    check_meanshift_on(tag, margs, mkw)
+    (q, k, v, *pad), akw = handed["attention_with_capture"]
+    pad = akw.get("pad_interval", pad[0] if pad else None)
+    ref_out, ref_mean = attention.attention_reference(q, k, v, pad)
+    out, mean = attention.attention_with_capture(q, k, v, pad)
+    expect(f"{tag}.attention_capture.out", max_err(out, ref_out), bf16_ulps(ref_out, 4),
+           "4 bf16 ulps of the largest |out|: bf16 output and bf16 probabilities in PV")
+    # both sides round one f32 mean to bf16, equal up to ~2^-17 of it
+    # (ex2.approx, summation order): one bf16 step of the entry apart at
+    # most, plus 2^-126 where the kernel's exp2 flushes a subnormal
+    limit = numerics.bf16_steps(ref_mean) + 2.0**-126
+    expect(f"{tag}.attention_capture.mean (worst entry / its limit)",
+           mean_over(mean, ref_mean, limit), 1.0,
+           "one bf16 step of each entry: both sides round the same f32 mean")
+    sync()
+    shapes = dict(ccl_planes=tuple(masks.shape), meanshift=dict(
+        G=prot0.shape[0], K=prot0.shape[1], N=f.shape[0], D=f.shape[1],
+        bf16=mkw.get("matmul_dtype") == torch.bfloat16), attention=tuple(q.shape), pad=pad)
+    log(f"[{tag}] kernels on this path's own inputs: {shapes}")
+    return shapes
+
+
+def run_train_cli(argv, per_step: dict, steps: int, extra_total: dict | None = None,
+                  patches=()):
+    """``tools.train.main(argv)`` in this process with the launch counts at
+    0 just before; each micro-step's launches must be ``per_step`` and the
+    invocation's its multiple plus ``extra_total``. Returns (stats, the
+    fitted run and its initial state, the per-step calls, the invocation's
+    launches, the submodules' largest |gradient|, peak MiB)."""
+    import contextlib
+
+    import torch
+
+    from attentionshift_torch.ops._build import reset_launches
+    from attentionshift_torch.tools import train as cli
+
+    calls, grads, runs = [], {}, []
+    want_step = {k: 0 for k in launch_counts()}
+    want_step.update(per_step)
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as stack:
+        for p in (counting(cli, "train_step", calls), gradient_tops(grads), fitted(runs), *patches):
+            stack.enter_context(p)
+        reset_launches()
+        stats = cli.main(argv)
+        sync()
+    total = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    got = [cl["launches"] for cl in calls]
+    if len(got) != steps or any(d != want_step for d in got):
+        raise AssertionError(f"{argv[0]}: launches per micro-step {got} != {want_step}")
+    want = {k: steps * v for k, v in want_step.items()}
+    for k, v in (extra_total or {}).items():
+        want[k] += v
+    if total != want:
+        raise AssertionError(f"{argv[0]}: launches {total} != {want}")
+    return stats, runs[0], calls, total, grads, peak
+
+
+def log_step_times(tag: str, stats: dict, peak: float, smi: str) -> None:
+    import statistics
+
+    ms = stats["step_ms"]
+    rest = f"median of steps 2-{len(ms)} {statistics.median(ms[1:]):.2f} ms, " if len(ms) > 1 else ""
+    log(f"[time] {tag}: {rest}first {ms[0]:.2f} ms per micro-step at batch 2 (host clock, losses "
+        f"read back each step); waiting on the loader {[round(x, 2) for x in stats['wait_ms']]} "
+        f"ms; peak {peak:.0f} MiB allocated; {smi}")
+
+
+def phase_coco_cli(smi: str) -> dict:
+    """``configs/attnshift_coco.py`` as it is (ViT-S 384/12/6, 80 classes,
+    batch 2, accumulate_steps 2, ``max_gt`` 40, every block captured, the
+    RepPoints head, 11 train scales 480-800 x 1333, brightness jitter,
+    remat and drop path) through ``tools.train`` on a synthetic COCO tree,
+    with a synthetic MAE ViT-S checkpoint of sharp attention
+    (``SHARP_QKV``) as its ``pretrained``: 4 micro-steps, ``epoch_1``
+    saved, 2 val images through ``COCOEvalDataset``. Checks the config, the
+    launches per micro-step, the losses (``loss_rp_*`` among them, most
+    instances with a Stage-C part: ``check_parts``), a gradient in and a move of
+    every submodule and of ``reppoints_head_0``, G = 40 filled, the val
+    metrics; CCL, mean-shift and the capture pair against their plain
+    versions on the inputs this path handed them; times, peak memory and
+    one profiled micro-step."""
+    import atexit
+    import math
+    import shutil
+    import statistics
+    import tempfile
+
+    import torch
+
+    from attentionshift_torch.tools import train as cli
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_coco_")
+    atexit.register(shutil.rmtree, tmp, True)
+    node = coco_point_tree(os.path.join(tmp, "coco"))
+    mae = os.path.join(tmp, "mae_pretrain_vit_small.pth")
+    torch.save({"model": mae_state_dict(qkv_scale=SHARP_QKV)}, mae)
+    opts = ["--cfg-options", f"data.train.ann_file={node['ann_file']}",
+            f"data.train.img_prefix={node['img_prefix']}", f"data.val.ann_file={node['ann_file']}",
+            f"data.val.img_prefix={node['img_prefix']}", "schedule.total_epochs=1",
+            "runtime.log_interval=1", "schedule.warmup_iters=2"]
+    work = os.path.join(tmp, "work")
+    argv = [os.path.join(HERE, "configs", "attnshift_coco.py"), "--work-dir", work,
+            "--max-steps", str(COCO_CLI_STEPS), "--validate-limit", str(TRAIN_CLI_VAL)] + opts + [
+                f"pretrained={mae}"]
+    handed: dict = {}
+    parts: list = []
+    stats, (run, init), calls, total, grads, peak = run_train_cli(
+        argv, COCO_CLI_LAUNCHES, COCO_CLI_STEPS,
+        {"attention_plain": SINGLE_FLASH_PER_IMAGE * TRAIN_CLI_VAL},
+        patches=(kernel_inputs_of(handed), cascade_parts(parts)))
+    c, m = run.cfg, run.model
+    if not (int(c.data.batch_size) == 2 and int(c.optimizer.accumulate_steps) == 2
+            and len(c.data.train_scales) == 11 and tuple(c.data.train_scales[0]) == (480, 1333)
+            and int(c.data.max_gt) == 40 and float(c.data.brightness_delta) > 0
+            and m.backbone.use_remat and m.backbone.drop_path_rate > 0 and m.embed_dim == EMBED
+            and len(m.backbone.blocks) == 12 and m.cam_layer == 12 and m.num_classes == 80
+            and m.num_reppoints_head == 1 and m.num_semantic_points == 3):
+        raise AssertionError("the COCO CLI phase runs the config as it is")
+    log(f"[coco-cli] launches per micro-step {nonzero(calls[0]['launches'])} (all "
+        f"{COCO_CLI_STEPS} equal); the invocation's {nonzero(total)}")
+    filled = sorted(int(v) for cl in calls for v in cl["args"][1]["gt_valid"].sum(1))
+    if max(filled) != 40 or sum(v > 20 for v in filled) < 2:
+        raise AssertionError(f"annotated instances per image {filled}: G = 40 never filled")
+    vals = stats["metrics"]
+    if set(vals) != LOSS_KEYS | RP_KEYS | {"loss_total"} or not all(map(math.isfinite, vals.values())):
+        raise AssertionError(f"COCO CLI metrics {vals}")
+    check_parts("coco-cli", parts, vals)
+    val = stats["val"]
+    if len(val) != 1 or sorted(val[0]) != COCO_VAL_KEYS or not all(map(math.isfinite, val[0].values())):
+        raise AssertionError(f"COCO CLI val metrics {val}")
+    subs = SUBMODULES + ("reppoints_head_0",)
+    dead = [s for s in subs if not grads.get(s, 0.0) > 0]
+    ckpt = torch.load(os.path.join(work, "epoch_1"), map_location="cpu", weights_only=True)
+    moved = {s: 0 for s in subs}
+    for k, v in ckpt["params"].items():
+        if not bool(torch.isfinite(v.float()).all()):
+            raise AssertionError(f"COCO epoch_1: {k} is not finite")
+        moved[k.split(".", 1)[0]] += int(not torch.equal(v, init[k]))
+    if dead or not all(moved.values()):
+        raise AssertionError(f"COCO CLI: no gradient in {dead}; tensors moved {moved}")
+    log(f"[coco-cli] instances per image {filled}; last metrics "
+        f"{({k: round(v, 4) for k, v in sorted(vals.items())})}; val {val[0]}; tensors moved per "
+        f"submodule {moved}")
+    shapes = check_kernels_on("coco-input", handed)
+    if shapes["ccl_planes"][0] != 12 * 40 or shapes["meanshift"]["G"] != 40:
+        raise AssertionError(f"COCO path kernel shapes {shapes}")
+    log_step_times("COCO train CLI", stats, peak, smi)
+    log(f"[time] COCO eval {stats['eval_s'][0] / TRAIN_CLI_VAL:.3f} s per val image; checkpoint "
+        f"save {stats['save_s'][0]:.3f} s")
+    _, batch, epoch = calls[-1]["args"]
+    profile_slice(lambda: cli.train_step(run, batch, epoch), statistics.median(stats["step_ms"][1:]),
+                  what="COCO train CLI micro-step (batch 2)")
+    del run
+    return dict(total=total, node=node, tmp=tmp, opts=opts)
+
+
+def phase_variant_cli(tc: dict, smi: str) -> dict:
+    """``configs/attnshift_voc12aug_ts.py`` and
+    ``configs/attnshift_voc12aug_keypoint.py``, each as it is, through
+    ``tools.train`` on the train CLI phase's VOC tree: 2 micro-steps each,
+    no evaluation. The teacher's ``backbone_forward`` counted on its own
+    (forward kernels only) and the student's step beside it; one teacher
+    tensor after each step against m * teacher + (1 - m) * student,
+    recomputed on the host in f32. Keypoint: ``loss_keypoint_align``
+    finite, a gradient in ``keypoint_align_head``."""
+    import math
+    from unittest import mock
+
+    import torch
+
+    from attentionshift_torch.models import AttnShiftDetector
+    from attentionshift_torch.tools import train as cli
+    from attentionshift_torch.train import ema
+
+    out = {}
+    opts = [o for o in tc["opts"] if not o.startswith("schedule.total_epochs")]
+    # the teacher's forward, counted apart from the step around it
+    teacher_calls = []
+    name = "mil_head.fc1.weight"
+    ema_seen = []
+    inner_ema = ema.ema_update
+
+    def checked_ema(teacher, student, momentum):
+        t = teacher.state_dict()[name].detach().float().cpu().clone()
+        res = inner_ema(teacher, student, momentum)
+        s = student.state_dict()[name].detach().float().cpu()
+        want = t * momentum + s * (1.0 - momentum)
+        ema_seen.append(max_err(res.state_dict()[name].cpu(), want) /
+                        float(torch.finfo(torch.float32).eps * want.abs().max()))
+        return res
+
+    ts_cfg = os.path.join(HERE, "configs", "attnshift_voc12aug_ts.py")
+    argv = [ts_cfg, "--work-dir", os.path.join(tc["tmp"], "work_ts"), "--max-steps",
+            str(VARIANT_CLI_STEPS), "--no-validate"] + opts
+    per_step = {k: TS_STUDENT_LAUNCHES.get(k, 0) + TEACHER_LAUNCHES.get(k, 0)
+                for k in set(TS_STUDENT_LAUNCHES) | set(TEACHER_LAUNCHES)}
+    stats, (run, _), calls, total, grads, peak = run_train_cli(
+        argv, per_step, VARIANT_CLI_STEPS,
+        patches=(counting(AttnShiftDetector, "backbone_forward", teacher_calls),
+                 mock.patch.object(ema, "ema_update", checked_ema)))
+    m = float(run.cfg.teacher.momentum)
+    if not (run.cfg.teacher.enabled and m == 0.999 and run.teacher is not None
+            and int(run.cfg.data.batch_size) == 2 and run.model.embed_dim == EMBED):
+        raise AssertionError("the teacher phase runs configs/attnshift_voc12aug_ts.py as it is")
+    want_teacher = {k: TEACHER_LAUNCHES.get(k, 0) for k in launch_counts()}
+    if len(teacher_calls) != VARIANT_CLI_STEPS or any(
+            cl["launches"] != want_teacher for cl in teacher_calls):
+        raise AssertionError(f"teacher forward launches {[cl['launches'] for cl in teacher_calls]}")
+    if len(ema_seen) != VARIANT_CLI_STEPS or max(ema_seen) > 1.0:
+        raise AssertionError(f"teacher {name} vs m * t + (1 - m) * s: {ema_seen} eps of its largest")
+    vals = stats["metrics"]
+    if set(vals) != LOSS_KEYS | {"loss_total"} or not all(map(math.isfinite, vals.values())):
+        raise AssertionError(f"teacher CLI metrics {vals}")
+    log(f"[variant-cli] teacher (momentum {m}): the teacher's forward launches "
+        f"{nonzero(teacher_calls[0]['launches'])} per micro-step, the whole micro-step "
+        f"{nonzero(calls[0]['launches'])}; {name} after each step vs m * t + (1 - m) * s on the "
+        f"host (f32): {[round(e, 3) for e in ema_seen]} eps of its largest entry; last metrics "
+        f"{({k: round(v, 4) for k, v in sorted(vals.items())})}")
+    log_step_times("teacher train CLI", stats, peak, smi)
+    _, batch, epoch = calls[-1]["args"]
+    profile_slice(lambda: cli.train_step(run, batch, epoch), stats["step_ms"][-1],
+                  what="teacher train CLI micro-step (batch 2)")
+    out["ts"] = total
+    del run
+
+    kp_cfg = os.path.join(HERE, "configs", "attnshift_voc12aug_keypoint.py")
+    argv = [kp_cfg, "--work-dir", os.path.join(tc["tmp"], "work_kp"), "--max-steps",
+            str(VARIANT_CLI_STEPS), "--no-validate"] + opts
+    stats, (run, _), calls, total, grads, peak = run_train_cli(argv, TRAIN_CLI_LAUNCHES,
+                                                               VARIANT_CLI_STEPS)
+    if not (run.cfg.model.with_keypoint_align and hasattr(run.model, "keypoint_align_head")):
+        raise AssertionError("the keypoint phase runs configs/attnshift_voc12aug_keypoint.py")
+    vals = stats["metrics"]
+    if (set(vals) != LOSS_KEYS | {"loss_keypoint_align", "loss_total"}
+            or not all(map(math.isfinite, vals.values())) or not grads["keypoint_align_head"] > 0):
+        raise AssertionError(f"keypoint CLI metrics {vals}, gradients {grads}")
+    log(f"[variant-cli] keypoint align: launches per micro-step {nonzero(calls[0]['launches'])}; "
+        f"loss_keypoint_align {vals['loss_keypoint_align']:.4f}, its head's largest |gradient| "
+        f"{grads['keypoint_align_head']:.3e}")
+    log_step_times("keypoint train CLI", stats, peak, smi)
+    _, batch, epoch = calls[-1]["args"]
+    profile_slice(lambda: cli.train_step(run, batch, epoch), stats["step_ms"][-1],
+                  what="keypoint train CLI micro-step (batch 2)")
+    out["keypoint"] = total
+    del run
+    return out
+
+
+def phase_cascade_step(dev, smi: str) -> dict:
+    """The full-width ViT-S train step at the bench geometry (800x1344,
+    bf16, remat and drop path) with the combination no config sets: two
+    RepPoints heads, ``with_deform_sup`` and the MAE head. Finite losses,
+    the stage keys unsuffixed and suffixed ``_0``, gradients in both heads
+    and the MAE decoder, the launches of the step."""
+    import math
+
+    import torch
+
+    from attentionshift_torch.ops._build import reset_launches
+    from attentionshift_torch.train import TrainState, build_optimizer, make_train_step
+
+    model = build_model(dev, torch.bfloat16, with_reppoints_head=True, num_reppoints_head=2,
+                        with_deform_sup=True, with_mae_head=True)
+    inp = slice_inputs(H_IMG, W_IMG, MAX_GT, N_VALID, dev)
+    opt = build_optimizer(model, base_lr=1e-4, steps_per_epoch=100, accumulate_steps=1, depth=12)
+    grads: dict = {}
+    step_fn = make_train_step(model)
+    batch = dict(zip(("img", "gt_points", "gt_labels", "gt_valid", "img_wh"), inp))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    torch.cuda.reset_peak_memory_stats()
+    state = TrainState.create(model, opt)
+    with gradient_tops(grads):
+        reset_launches()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch, generator=gen)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()
+    want = expected_launches(**TRAIN_LAUNCHES)
+    if launches != want:
+        raise AssertionError(f"cascade step launches {launches} != {want}")
+    vals = {k: float(v) for k, v in metrics.items()}
+    keys = RP_KEYS | {k + "_0" for k in RP_KEYS} | {"loss_mae_rec"}
+    if not keys <= set(vals) or not all(map(math.isfinite, vals.values())):
+        raise AssertionError(f"cascade step metrics {vals}")
+    heads = ("reppoints_head_0", "reppoints_head_1", "mae_head")
+    if not all(grads.get(h, 0.0) > 0 for h in heads):
+        raise AssertionError(f"cascade step gradients {grads}")
+    log(f"[cascade] launches {nonzero(launches)}; losses "
+        f"{({k: round(v, 4) for k, v in sorted(vals.items())})}; largest |gradient| "
+        f"{({h: f'{grads[h]:.3e}' for h in heads})}; first step {ms:.2f} ms (host clock, "
+        f"compiles nothing); peak {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; {smi}")
+    t0 = time.perf_counter()
+    step_fn(state, batch, generator=gen)
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    log(f"[time] cascade + MAE train step (batch 1): second step {ms:.2f} ms (host clock); {smi}")
+    profile_slice(lambda: step_fn(state, batch, generator=gen), ms,
+                  what="cascade + MAE train step (batch 1)")
+    return launches
+
+
+def phase_vitb_cli(cc: dict, smi: str) -> dict:
+    """``configs/attnshift_coco_vitb.py`` as it is (768 wide, 12 heads,
+    layer decay 0.65) through ``tools.train`` on the COCO phase's tree, with
+    a synthetic MAE ViT-B checkpoint of sharp attention (``SHARP_QKV``) as
+    its ``pretrained``: one micro-step, no evaluation; the launches of that
+    step, finite losses, most instances with a Stage-C part; CCL,
+    mean-shift (D = 768) and the capture pair (12 heads) against their
+    plain versions on the inputs this path handed them."""
+    import math
+    import tempfile
+
+    import torch
+
+    from attentionshift_torch.tools import train as cli
+
+    mae = os.path.join(cc["tmp"], "mae_pretrain_vit_base.pth")
+    torch.save({"model": mae_state_dict(d=VITB_EMBED, qkv_scale=SHARP_QKV)}, mae)
+    work = tempfile.mkdtemp(prefix="vitb_", dir=cc["tmp"])
+    argv = [os.path.join(HERE, "configs", "attnshift_coco_vitb.py"), "--work-dir", work,
+            "--max-steps", "1", "--no-validate"] + cc["opts"] + [f"pretrained={mae}"]
+    handed: dict = {}
+    parts: list = []
+    stats, (run, _), calls, total, grads, peak = run_train_cli(
+        argv, COCO_CLI_LAUNCHES, 1, patches=(kernel_inputs_of(handed), cascade_parts(parts)))
+    m = run.model
+    if not (m.embed_dim == VITB_EMBED and m.backbone.blocks[0].attn.num_heads == VITB_HEADS
+            and float(run.cfg.optimizer.layer_decay) == 0.65 and m.num_reppoints_head == 1):
+        raise AssertionError("the ViT-B phase runs configs/attnshift_coco_vitb.py as it is")
+    vals = stats["metrics"]
+    if not RP_KEYS <= set(vals) or not all(map(math.isfinite, vals.values())):
+        raise AssertionError(f"ViT-B CLI metrics {vals}")
+    check_parts("vitb-cli", parts, vals)
+    shapes = check_kernels_on("vitb-input", handed)
+    if shapes["meanshift"]["D"] != VITB_EMBED or shapes["attention"][1] != VITB_HEADS:
+        raise AssertionError(f"ViT-B path kernel shapes {shapes}")
+    log(f"[vitb-cli] launches {nonzero(total)}; metrics "
+        f"{({k: round(v, 4) for k, v in sorted(vals.items())})}")
+    log_step_times("ViT-B COCO train CLI", stats, peak, smi)
+    _, batch, epoch = calls[-1]["args"]
+    profile_slice(lambda: cli.train_step(run, batch, epoch), stats["step_ms"][-1],
+                  what="ViT-B COCO train CLI micro-step (batch 2)")
+    del run
+    return total
+
+
 def phase_tool(dev):
     """The attention microbenchmark at its defaults, every variant."""
     from attentionshift_torch.ops._build import KERNELS, reset_launches
@@ -2280,7 +2874,8 @@ def kernel_split(fn, names, calls: int = 3) -> dict:
 
 def phase_main_path_inputs(results: dict, handed: dict) -> None:
     """CCL and mean-shift on the inputs ``seed_pseudo_gt`` handed them
-    (phase 4), timed in turns with the same kernels on phase 3's synthetic
+    (phase 4), checked against their plain versions (``check_meanshift_on``)
+    and timed in turns with the same kernels on phase 3's synthetic
     inputs; the per-plane sweeps and the mask fill of those inputs, the
     mean-shift launch plan and how many clusters the card holds at once."""
     import torch
@@ -2294,7 +2889,11 @@ def phase_main_path_inputs(results: dict, handed: dict) -> None:
         f"{float(masks.float().mean()):.3f}, sweeps per plane: max {max(sweeps)}, total "
         f"{sum(sweeps)} over {len(sweeps)} planes, histogram "
         f"{sorted(collections.Counter(sweeps).items())}")
+    expect("main-input.ccl_batch", max_err(ccl.connected_components_batch(masks, iters),
+                                           ccl.connected_components(masks, iters)), 0.0,
+           "integer labels: exact")
     margs, mkw = handed["cosine_shift_fixpoint"]
+    check_meanshift_on("main-input", margs, mkw)
     prot0, box_mask, f = margs[:3]
     g, k, d = prot0.shape
     n = f.shape[0]
@@ -2523,6 +3122,10 @@ def main(argv=None) -> int:
     pc = phase_pseudo_cli(tc)
     phase_refine_reference(dev)
     rc = phase_refine_cli(tc, smi)
+    cc = phase_coco_cli(smi)
+    vc = phase_variant_cli(tc, smi)
+    cascade = phase_cascade_step(dev, smi)
+    vitb = phase_vitb_cli(cc, smi)
     phase_times(results, inp, model, slice_inp, gen)
     phase_main_path_inputs(results, handed)
     ms_step = phase_train_times(state, step_fn, batch, train_gen)
@@ -2534,6 +3137,8 @@ def main(argv=None) -> int:
     eval_single, eval_aug = ev["launches"]["single"], ev["launches"]["aug"]
     train_cli = {k: tc["out"][1]["total"][k] + tc["out"][2]["total"][k] for k in KERNELS}
     pseudo_cli = pc["total"]
+    variants = dict(coco_cli=cc["total"], teacher_cli=vc["ts"], keypoint_cli=vc["keypoint"],
+                    cascade_step=cascade, vitb_cli=vitb)
     table = []
     for name, kern in KERNELS.items():
         r = results[name]
@@ -2543,7 +3148,8 @@ def main(argv=None) -> int:
                           launches=(seed_launches[name] + infer_launches[name]
                                     + train_launches[name] + tool_launches[name]
                                     + eval_single[name] + eval_aug[name] + train_cli[name]
-                                    + pseudo_cli[name] + rc["train"][name] + rc["eval"][name]),
+                                    + pseudo_cli[name] + rc["train"][name] + rc["eval"][name]
+                                    + sum(v[name] for v in variants.values())),
                           launches_seed_pseudo_gt=seed_launches[name],
                           launches_simple_test=infer_launches[name],
                           launches_train_steps=train_launches[name],
@@ -2554,6 +3160,7 @@ def main(argv=None) -> int:
                           launches_gen_pseudo_labels=pseudo_cli[name],
                           launches_refine_train=rc["train"][name],
                           launches_refine_eval=rc["eval"][name],
+                          **{f"launches_{k}": v[name] for k, v in variants.items()},
                           max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                           bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                           library_ms=r["library_ms"],

@@ -10,6 +10,10 @@ train step on the whole batch of two, on the same TINY weights and draws:
   all-reduce and every parameter after the update, on both ranks;
 - a control: the same step with the loss normalisers left per rank (no
   all-reduce) misses the JAX losses and gradients;
+- the same for the train variants' step (a RepPoints cascade of two heads
+  with ``with_deform_sup`` and the MAE head), whose chamfer, border,
+  objectness and MAE normalisers are global counts too; its control
+  misses the JAX cascade losses;
 - the train CLI's loader on each rank yields ``TrainLoader(process_index,
   process_count)``'s batches;
 - ``tools.test --gather-dir`` over both ranks prints the single-process
@@ -37,6 +41,9 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_VALID = (3, 2)  # annotated instances of the two images
 H, W = 64, 96
+# the train variants of the second step: the RepPoints cascade and the MAE head
+VARIANT = dict(with_reppoints_head=True, num_reppoints_head=2, with_deform_sup=True,
+               reppoints_num_points=5, reppoints_contour_points=8, with_mae_head=True)
 
 
 def _free_port() -> int:
@@ -56,8 +63,9 @@ def worker(rank: int, world: int, out: str) -> None:
     torch.set_num_threads(1)
     import torch.distributed as dist
 
+    from attentionshift_torch.core import losses_geom
     from attentionshift_torch.data.loader import TrainLoader
-    from attentionshift_torch.models import AttnShiftDetector, detector, heads
+    from attentionshift_torch.models import AttnShiftDetector, detector, heads, mae_head, reppoints
     from attentionshift_torch.parallel import mesh
     from attentionshift_torch.tools import test as test_cli
     from attentionshift_torch.tools import train as train_cli
@@ -68,19 +76,21 @@ def worker(rank: int, world: int, out: str) -> None:
     inp = torch.load(os.path.join(out, "inputs.pt"), weights_only=True)
     batch = {k: v[rank:rank + 1] for k, v in inp["batch"].items()}
 
-    def step(reduce_normalisers: bool) -> dict:
-        model = AttnShiftDetector(device="cpu", **inp["kw"])
-        model.load_state_dict(inp["state"], strict=True)
-        opt = build_optimizer(model, accumulate_steps=1, depth=inp["kw"]["depth"], **inp["opt"])
+    def step(reduce_normalisers: bool, case: str = "") -> dict:
+        kw = inp[case + "kw"]
+        model = AttnShiftDetector(device="cpu", **kw)
+        model.load_state_dict(inp[case + "state"], strict=True)
+        opt = build_optimizer(model, accumulate_steps=1, depth=kw["depth"], **inp["opt"])
         seen, inner = [], opt.step
         opt.step = lambda grads: (seen.append([g.clone() for g in grads]), inner(grads))[1]
         fn = make_train_step(model, dist.group.WORLD)
-        users = (detector, heads)  # the modules whose losses take the normalisers
+        # the modules whose losses take the normalisers
+        users = (detector, heads, losses_geom, reppoints, mae_head)
         if not reduce_normalisers:  # the control: each rank's own counts
             for mod in users:
                 mod.global_count = lambda n: n.clamp_min(1.0)
         try:
-            _, metrics = fn(TrainState.create(model, opt), batch, draws=[inp["draws"][rank]])
+            _, metrics = fn(TrainState.create(model, opt), batch, draws=[inp[case + "draws"][rank]])
         finally:
             for mod in users:
                 mod.global_count = mesh.global_count
@@ -91,6 +101,9 @@ def worker(rank: int, world: int, out: str) -> None:
 
     mesh.COUNTS.clear()
     res = dict(step=step(True), counts=dict(mesh.COUNTS), control=step(False))
+    mesh.COUNTS.clear()
+    res.update(variant=step(True, "variant_"), variant_counts=dict(mesh.COUNTS),
+               variant_control=step(False, "variant_"))
 
     # the train CLI's loader strides the dataset by rank
     run = train_cli.build(train_cli.parse_args(
@@ -164,6 +177,15 @@ def ranks(tmp_path_factory):
                                                        depth=kw["depth"], **TRAIN_OPT))
     want_params = torch_tree(jstate.apply_gradients(jgrads).params)
     want_grads = torch_tree(jgrads)
+    # the train variants' step on the same batch
+    var_kw = dict(kw, **VARIANT)
+    vjm = jax_model(**var_kw)
+    var_variables = random_variables(vjm, images[0])
+    vlosses, vgrads, var_draws = jax_train_reference(vjm, var_variables, batch, key, var_kw)
+    vstate = JState.create(var_variables["params"], jbuild(
+        var_variables["params"], accumulate_steps=1, depth=kw["depth"], **TRAIN_OPT))
+    variant = dict(jlosses=vlosses, want_grads=torch_tree(vgrads),
+                   want_params=torch_tree(vstate.apply_gradients(vgrads).params))
 
     from attentionshift_tpu import data as jdata
 
@@ -199,7 +221,9 @@ runtime = dict(log_interval=1, checkpoint_interval=1, eval_interval=1, seed=0,
                    for r in range(2)] for e in range(2)]
     torch.save(dict(state=state, batch={k: torch.from_numpy(v) for k, v in batch.items()},
                     draws=draws, kw=dict(kw, use_remat=False), opt=TRAIN_OPT, cfg=str(cfg),
-                    ckpt=ckpt, mixed_cfg=str(mixed_cfg)),
+                    ckpt=ckpt, mixed_cfg=str(mixed_cfg),
+                    variant_state=flax_to_torch(jax.tree.map(np.asarray, var_variables)),
+                    variant_kw=dict(var_kw, use_remat=False), variant_draws=var_draws),
                tmp_path / "inputs.pt")
 
     port = str(_free_port())
@@ -220,7 +244,7 @@ runtime = dict(log_interval=1, checkpoint_interval=1, eval_interval=1, seed=0,
         assert p.returncode == 0 and f"WORKER {rank} OK" in log, log[-4000:]
     return dict(jlosses=jlosses, want_grads=want_grads, want_params=want_params,
                 ranks=[torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2)],
-                cfg=str(cfg), ckpt=ckpt, jax_counts=jax_counts)
+                cfg=str(cfg), ckpt=ckpt, jax_counts=jax_counts, variant=variant)
 
 
 def _within(jlosses: dict, metrics: dict) -> dict:
@@ -235,27 +259,41 @@ def _within(jlosses: dict, metrics: dict) -> dict:
     return out
 
 
-def test_two_rank_step_matches_jax_global_batch(ranks):
-    """Two gloo ranks with one image each against the JAX train step on
-    both images: rank 0's losses, the all-reduced gradients on both ranks
-    (2e-3 of each tensor's largest entry) and the parameters after the
-    update on both ranks (within 2.2 lr of the JAX ones, equal across the
-    ranks), as ``test_torch_train_step_random.py`` holds the step; one
-    all-reduce per normaliser, one of the gradients, one of the metrics."""
+def _check_two_rank_step(want: dict, ranks: list, key: str, normalisers: int) -> None:
+    """Rank 0's losses, the all-reduced gradients on both ranks (2e-3 of
+    each tensor's largest entry), the parameters after the update on both
+    ranks (within 2.2 lr of the JAX ones, equal across the ranks), and the
+    all-reduces: one per normaliser, one of the gradients, one of the
+    metrics."""
     from test_torch_support import TRAIN_OPT, check_tree
 
-    jlosses, step0 = ranks["jlosses"], ranks["ranks"][0]["step"]
+    jlosses, step0 = want["jlosses"], ranks[0][key]
     assert set(step0["metrics"]) == set(jlosses) | {"loss_total"}
     assert max(_within(jlosses, step0["metrics"]).values()) <= 1.0, _within(jlosses, step0["metrics"])
-    for r in ranks["ranks"]:
-        assert r["step"]["metrics"] == step0["metrics"]  # every rank logs the global values
-        check_tree(r["step"]["grads"], ranks["want_grads"], 2e-3, "grad")
-        for name, ref in ranks["want_params"].items():
-            lr = TRAIN_OPT["base_lr"] * r["step"]["scales"][name]
-            assert float((r["step"]["params"][name] - ref).abs().max()) <= 2.2 * lr, name
-            assert torch.equal(r["step"]["params"][name], step0["params"][name]), name
-        # MIL, point, box head and mask normalisers; the gradients; the metrics
-        assert r["counts"] == {"normalisers": 4, "gradients": 1, "metrics": 1}
+    for r in ranks:
+        assert r[key]["metrics"] == step0["metrics"]  # every rank logs the global values
+        check_tree(r[key]["grads"], want["want_grads"], 2e-3, "grad")
+        for name, ref in want["want_params"].items():
+            lr = TRAIN_OPT["base_lr"] * r[key]["scales"][name]
+            assert float((r[key]["params"][name] - ref).abs().max()) <= 2.2 * lr, name
+            assert torch.equal(r[key]["params"][name], step0["params"][name]), name
+        counts = r["counts" if key == "step" else key + "_counts"]
+        assert counts == {"normalisers": normalisers, "gradients": 1, "metrics": 1}
+
+
+def test_two_rank_step_matches_jax_global_batch(ranks):
+    """Two gloo ranks with one image each against the JAX train step on
+    both images, as ``test_torch_train_step_random.py`` holds the step;
+    the MIL, point, box head and mask normalisers reduced."""
+    _check_two_rank_step(ranks, ranks["ranks"], "step", 4)
+
+
+def test_two_rank_variant_step_matches_jax_global_batch(ranks):
+    """The same for the train variants' step: the RepPoints cascade of two
+    heads (``with_deform_sup``) and the MAE head; besides the four base
+    normalisers, per cascade stage the border, two chamfer and the
+    objectness counts, and the MAE head's masked-patch count."""
+    _check_two_rank_step(ranks["variant"], ranks["ranks"], "variant", 4 + 2 * 4 + 1)
 
 
 def test_control_without_normaliser_allreduce_misses_jax(ranks):
@@ -267,6 +305,15 @@ def test_control_without_normaliser_allreduce_misses_jax(ranks):
     assert max(ctl[k] for k in ("loss_mil", "loss_point_cls", "loss_cls", "loss_mask")) > 1.0, ctl
     with pytest.raises(AssertionError):
         check_tree(ranks["ranks"][0]["control"]["grads"], ranks["want_grads"], 2e-3, "grad")
+
+
+def test_variant_control_without_normaliser_allreduce_misses_jax(ranks):
+    """The variants' step with each rank's own counts: the images' 3 and 2
+    instances put the cascade's border and chamfer losses off the JAX
+    global-batch values."""
+    want = ranks["variant"]["jlosses"]
+    ctl = _within(want, ranks["ranks"][0]["variant_control"]["metrics"])
+    assert max(ctl[k] for k in ("loss_rp_border", "loss_rp_chamfer_sem", "loss_rp_border_0")) > 1.0, ctl
 
 
 def test_cli_loader_strides_by_rank(ranks):

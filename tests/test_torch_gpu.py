@@ -58,6 +58,19 @@ def test_ccl_kernel_on_card(cuda, h, w, max_iters):
 
 
 @pytest.mark.gpu
+def test_ccl_kernel_at_the_coco_configs_plane_count(cuda):
+    """The COCO configs' batch for CCL: 12 captured layers x ``max_gt`` 40
+    = 480 planes of 50x84 per image (800x1344 at stride 16), exact against
+    the plain version at the configs' sweep cap 64 and at 2 (cut
+    fixpoints)."""
+    planes = ccl_planes(480, 50, 84, seed=3)
+    masks = torch.from_numpy(planes).to(cuda)
+    for max_iters in (64, 2):
+        got = ccl.connected_components_batch(masks, max_iters)
+        assert torch.equal(got, ccl.connected_components(masks, max_iters))
+
+
+@pytest.mark.gpu
 def test_ccl_plane_bytes_agree(cuda):
     """The wrapper's plane buffer size (its shared-memory or device-memory
     choice, and the scratch it allocates) is the kernel's own."""
@@ -116,6 +129,34 @@ def test_meanshift_kernel_on_card(cuda, k, n, d, n_shift, matmul_dtype):
                                                  matmul_dtype=matmul_dtype)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=tol * float(b.abs().max()), rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("matmul_dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("d", [384, 768])
+def test_meanshift_kernel_at_the_coco_configs_instance_count(cuda, d, matmul_dtype):
+    """The COCO configs' mean-shift: G = 40 instances (``max_gt``) of K = 20
+    grid prototypes over N = 4200 features, D = 384 (ViT-S) and 768
+    (ViT-B), ten iterations, against the plain version, instance by
+    instance (``meanshift_kernel.fixpoint_verdict``): within the floor of
+    ``test_meanshift_kernel_on_card`` (1e-4 in f32, 2e-3 with bf16
+    operands, here of each instance's largest prototype entry), or within
+    twice the plain version's own spread under reordered sums, or within
+    the floor of one reordered plain version. A plain version with the
+    temperature 10 % off moves the prototypes of some instance beyond that
+    instance's limit."""
+    prot0, mask, f = _meanshift_inputs(40, 20, 4200, d, 40 + d, cuda)
+    floor = 1e-4 if matmul_dtype is None else 2e-3
+    kw = dict(n_shift=10, matmul_dtype=matmul_dtype)
+    got = meanshift_kernel.cosine_shift_fixpoint(prot0, mask, f, **kw)
+    want = meanshift_kernel.cosine_shift_batch(prot0, f[None] * mask[..., None], f, **kw)
+    off = meanshift_kernel.cosine_shift_batch(prot0, f[None] * mask[..., None], f, temp=0.11, **kw)
+    # the control's similarities put equal to the plain version's: its
+    # prototypes alone have to fail
+    v, ctl = meanshift_kernel.fixpoint_verdict([got, (off[0], want[1])], prot0, mask, f, floor,
+                                               **kw)
+    assert bool(v["ok"].all()), {k: x.tolist() if torch.is_tensor(x) else x for k, x in v.items()}
+    assert not bool(ctl["ok"].all())
 
 
 @pytest.mark.gpu

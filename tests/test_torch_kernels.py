@@ -216,6 +216,65 @@ def test_meanshift_matches_pallas_kernel(k, n, matmul_dtype):
     np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("matmul_dtype", [None, torch.bfloat16])
+def test_meanshift_one_step_limit_holds_rounding_and_sees_a_fault(matmul_dtype):
+    """``one_step_limit`` (the card's limit of one iteration on a path's own
+    inputs) on nearly parallel features, as a backbone's are: the plain
+    version with f64 sums stays within it of the f32 one, every entry;
+    a plain version with the temperature 10 % off (a faulty kernel) does
+    not."""
+    rs = np.random.RandomState(7)
+    g, k, n, d = 4, 8, 300, 64
+    f = torch.from_numpy((rs.randn(d) + 0.3 * rs.randn(n, d)).astype(np.float32))
+    mask = torch.from_numpy((rs.rand(g, n) > 0.3).astype(np.float32))
+    prot0 = f[torch.from_numpy(rs.randint(0, n, (g, k)))]
+    kw = dict(tau=0.1, temp=0.1, matmul_dtype=matmul_dtype)
+
+    def plain(p, m, ff, **extra):
+        return meanshift_kernel.cosine_shift_batch(p, ff[None] * m[..., None], ff, n_shift=1,
+                                                   **dict(kw, **extra))
+
+    want = plain(prot0, mask, f)
+    lim = meanshift_kernel.one_step_limit(prot0, mask, f, **kw)
+    f64 = plain(prot0.double(), mask.double(), f.double())
+    assert all(bool(((a.double() - b).abs() <= c).all()) for a, b, c in zip(want, f64, lim))
+    off = plain(prot0, mask, f, temp=0.11)
+    assert max(float(((a - b).abs() / (c + 1e-30)).max()) for a, b, c in zip(off, want, lim)) > 1
+
+
+@pytest.mark.parametrize("matmul_dtype", [None, torch.bfloat16])
+def test_meanshift_fixpoint_verdict_passes_reordered_sums_and_sees_a_fault(matmul_dtype):
+    """``fixpoint_verdict`` (the card's ten-iteration check on a path's own
+    inputs) on nearly parallel features: a plain version whose sums run in
+    another order passes every instance; a plain version with the
+    temperature 10 % off (a faulty kernel) fails some instance; the
+    witnesses put their results back in the given order, and are drawn
+    until the first result passes or the cap is reached."""
+    rs = np.random.RandomState(8)
+    g, k, n, d = 4, 8, 300, 64
+    f = torch.from_numpy((rs.randn(d) + 0.3 * rs.randn(n, d)).astype(np.float32))
+    mask = torch.from_numpy((rs.rand(g, n) > 0.3).astype(np.float32))
+    prot0 = f[torch.from_numpy(rs.randint(0, n, (g, k)))]
+    kw = dict(n_shift=10, matmul_dtype=matmul_dtype)
+    floor = 1e-4 if matmul_dtype is None else 2e-3
+    pn, pd = torch.from_numpy(rs.permutation(n)), torch.from_numpy(rs.permutation(d))
+    other = meanshift_kernel.cosine_shift_batch(
+        prot0[..., pd], (f[pn][:, pd])[None] * mask[:, pn, None], f[pn][:, pd], **kw)
+    other = (other[0][..., torch.argsort(pd)], other[1][..., torch.argsort(pn)])
+    off = meanshift_kernel.cosine_shift_batch(prot0, f[None] * mask[..., None], f, temp=0.11, **kw)
+    v, ctl = meanshift_kernel.fixpoint_verdict([other, off], prot0, mask, f, floor, orders=4,
+                                               **kw)
+    assert bool(v["ok"].all()) and not bool(ctl["ok"].all()) and v["witnesses"] == 5
+    want = meanshift_kernel.cosine_shift_batch(prot0, f[None] * mask[..., None], f, **kw)
+    wits = meanshift_kernel.reordered_witnesses(prot0, mask, f, orders=2, **kw)
+    assert len(wits) == 3 and all(
+        float(meanshift_kernel.instance_deviation(w, want).max()) < 0.05 for w in wits)
+    # a result no witness explains draws witnesses up to the cap
+    drawn = meanshift_kernel.fixpoint_verdict([off], prot0, mask, f, floor, orders=4,
+                                              max_orders=8, **kw)[0]["witnesses"]
+    assert drawn == 9
+
+
 # clusters resident at once per cluster size (one block per SM), as
 # cudaOccupancyMaxActiveClusters reported them on an H100 80GB HBM3 at the
 # bench shape's shared memory (2: one block per SM of 132, not fitting

@@ -96,20 +96,49 @@ def test_converter_random_tree_loads_and_maps_layouts():
 
 def test_converter_loads_ckpt3k_with_train_subtrees_skipped():
     """The whole trained fixture converts completely: the train-time
-    neck/RPN/box/mask heads are mapped now, nothing is skipped (the name
-    dates from when they were) and the strict load finds every key."""
-    from attentionshift_torch.convert import MAPPED_SUBTREES, SKIPPED_SUBTREES, load_flax
+    neck/RPN/box/mask heads are mapped, nothing is skipped (the name dates
+    from when subtrees were) and the strict load finds every key."""
+    from attentionshift_torch.convert import MAPPED_SUBTREES, load_flax
     from attentionshift_torch.models import AttnShiftDetector
     from test_torch_support import VITS
 
     tree = ckpt3k_variables()
-    assert set(tree["params"]) == set(MAPPED_SUBTREES)
-    assert not any(k.startswith(SKIPPED_SUBTREES) for k in tree["params"])
+    assert set(tree["params"]) <= set(MAPPED_SUBTREES)
     model = load_flax(AttnShiftDetector(device="cpu", **VITS), tree)
     w = tree["params"]["mil_head"]["fc1"]["kernel"]
     np.testing.assert_array_equal(model.mil_head.fc1.weight.detach().numpy(), w.T)
     w = tree["params"]["mask_head"]["conv_logits"]["kernel"]
     np.testing.assert_array_equal(model.mask_head.conv_logits.weight.detach().numpy(), w[0, 0].T)
+
+
+def test_converter_loads_every_train_variant_strictly():
+    """A JAX variables tree of the detector with every train variant
+    (``reppoints_head_0/1``, ``keypoint_align_head``, ``mae_head``) converts
+    completely and loads strictly into the port's detector built with the
+    same switches; spot checks of each head's layouts."""
+    from attentionshift_torch.convert import load_flax
+    from attentionshift_torch.models import AttnShiftDetector
+
+    kw = dict(TINY, max_gt=4, with_reppoints_head=True, num_reppoints_head=2,
+              reppoints_num_points=5, with_keypoint_align=True, with_mae_head=True)
+    variables = random_variables(jax_model(**kw), inputs(64, 96, 4, 3))
+    p = variables["params"]
+    assert {"reppoints_head_0", "reppoints_head_1", "keypoint_align_head", "mae_head"} <= set(p)
+    model = load_flax(AttnShiftDetector(device="cpu", **kw), jax.tree.map(np.asarray, variables))
+    sd = model.state_dict()
+    np.testing.assert_array_equal(sd["reppoints_head_1.conv_0.weight"].numpy(),
+                                  np.asarray(p["reppoints_head_1"]["conv_0"]["kernel"]))
+    np.testing.assert_array_equal(sd["reppoints_head_0.gn_2.weight"].numpy(),
+                                  np.asarray(p["reppoints_head_0"]["gn_2"]["scale"]))
+    np.testing.assert_array_equal(sd["reppoints_head_0.pts_out.weight"].numpy(),
+                                  np.asarray(p["reppoints_head_0"]["pts_out"]["kernel"])[0, 0].T)
+    np.testing.assert_array_equal(
+        sd["keypoint_align_head.part_feature_head.layers.2.weight"].numpy(),
+        np.asarray(p["keypoint_align_head"]["part_feature_head"]["Dense_2"]["kernel"]).T)
+    np.testing.assert_array_equal(sd["mae_head.mask_token"].numpy(),
+                                  np.asarray(p["mae_head"]["mask_token"]))
+    np.testing.assert_array_equal(sd["mae_head.decoder_blocks.3.attn.qkv.weight"].numpy(),
+                                  np.asarray(p["mae_head"]["decoder_blocks_3"]["attn"]["qkv"]["kernel"]).T)
 
 
 # -------------------------------------------------------------- image / ops

@@ -242,11 +242,23 @@ def replay_train_draws(model, variables, key, best_cams, gt_points, stride, img_
     (detector.py:253) into the RPN sampler (rpn.py:92, assign.py:116), the
     RCNN sampler (detector.py:596, assign.py:144; its ordering score reuses
     the positives' key, detector.py:609), the mask pick (detector.py:642,649)
-    and the engine; each of them splits its key over the batch."""
+    and the engine; each of them splits its key over the batch. The train
+    variants of ``model`` add (detector.py:300-358): per cascade stage i of
+    ``k_rp = fold_in(rng, 7)`` the contour points' Gumbel noise
+    (``split(fold_in(k_rp, i), b)``, then one key per mask, reppoints.py:66)
+    and, for i > 0, the background supplement's (``split(fold_in(k_rp,
+    100 + i), b)``, reppoints.py:258); the MAE masking uniforms
+    ``uniform(fold_in(rng, 11), (b, N))`` (mae_head.py:66)."""
     rng = model.apply(variables, method=lambda m: m.make_rng("sampling"), rngs={"sampling": key})
     k_rpn, k_rcnn, k_engine = jax.random.split(rng, 3)
     u = lambda k, n: torch.from_numpy(np.array(jax.random.uniform(k, (n,))))  # noqa: E731
-    b = gt_points.shape[0]
+    gumbel = lambda k, n: torch.from_numpy(np.array(jax.random.gumbel(k, (n,))))  # noqa: E731
+    b, g = gt_points.shape[:2]
+    h, w = img_hw
+    k_rp = jax.random.fold_in(rng, 7)
+    n_rp = model.num_reppoints_head if model.with_reppoints_head else 0
+    mae = (np.array(jax.random.uniform(jax.random.fold_in(rng, 11), (b, (h // 16) * (w // 16))))
+           if model.with_mae_head else None)
     out = []
     for i in range(b):
         rp, rn = jax.random.split(jax.random.split(k_rpn, b)[i])
@@ -255,6 +267,15 @@ def replay_train_draws(model, variables, key, best_cams, gt_points, stride, img_
         draws = engine_draws(k_engine, best_cams, gt_points, stride, img_hw, i)
         draws.update(rpn_u_pos=u(rp, n_anchors), rpn_u_neg=u(rn, n_anchors),
                      rcnn_u_pos=u(cp, n_rois), rcnn_u_neg=u(cn, n_rois), mask_u=u(km, n_samples))
+        for st in range(n_rp):
+            kc = jax.random.split(jax.random.fold_in(k_rp, st), b)[i]
+            draws[f"rp_contour_{st}"] = torch.stack([gumbel(k, h * w)
+                                                     for k in jax.random.split(kc, g)])
+            if st > 0:
+                draws[f"rp_bg_{st}"] = gumbel(
+                    jax.random.split(jax.random.fold_in(k_rp, 100 + st), b)[i], h * w)
+        if mae is not None:
+            draws["mae_noise"] = torch.from_numpy(mae[i])
         out.append(draws)
     return out
 

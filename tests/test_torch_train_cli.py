@@ -10,6 +10,10 @@
   a run resumed from ``epoch_1`` ending bitwise equal to an unbroken run,
   its first step against the JAX train step on the same weights, batch and
   draws;
+- the train variants through the CLI on the CPU: the EMA-teacher config
+  (its teacher moved by the step, left out of the checkpoint, rebuilt
+  from the student on resume) and the COCO config with its RepPoints
+  cascade, at TINY width;
 - the layer-decay rule: the JAX CLI hands its optimizer the whole
   variables dict (every lr scale 1.0, ``batch_stats`` optimized); the port
   follows ``build_optimizer``'s documented rule over the parameters;
@@ -30,9 +34,9 @@ torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
-from test_torch_support import (ABS_TOL, TINY, TRAIN_SIZES, check_tree, close,  # noqa: E402
-                                disc_tree, jax_model, jax_train_reference, random_variables,
-                                torch_tree, voc_tree)
+from test_torch_support import (ABS_TOL, REPO, TINY, TRAIN_SIZES, check_tree, close,  # noqa: E402
+                                coco_tree, disc_tree, jax_model, jax_train_reference,
+                                random_variables, torch_tree, voc_tree)
 
 # TINY with the train step's small RPN/RCNN sizes; no drop path and no
 # checkpointing where the step is held against JAX (the JAX model runs
@@ -44,10 +48,11 @@ TRAIN_SCALE = (64, 96)
 TREE = ((64, 96), (64, 96), (64, 96))
 
 
-def write_config(path, tree: dict, batch_size: int = 2, **model) -> str:
+def write_config(path, tree: dict, batch_size: int = 2, extra: str = "", **model) -> str:
     """A TINY config over ``tree``: one train scale, the test scale equal,
     one loader thread (batches then do not depend on which decode finishes
-    first), 500-step warmup as configured, log every step."""
+    first), 500-step warmup as configured, log every step; ``extra``
+    appended as it is."""
     kw = dict(MODEL_KW, use_remat=False, **model)
     path.write_text(f"""
 model = dict(**{kw!r})
@@ -61,7 +66,7 @@ optimizer = dict(base_lr=1e-3, weight_decay=0.05, layer_decay=0.75, accumulate_s
 schedule = dict(total_epochs=2, decay_epochs=[8, 11], warmup_iters=2, warmup_ratio=1e-3)
 runtime = dict(log_interval=1, checkpoint_interval=1, eval_interval=1, seed=0,
                loss_weight_start_epoch=-1)
-""")
+{extra}""")
     return str(path)
 
 
@@ -297,13 +302,12 @@ def test_loader_left_early_stops_its_workers():
 @pytest.mark.parametrize("opts, error", [
     (["model.num_classes=3"], ValueError),
     (["model_type=mask_rcnn"], TypeError),
-    (["teacher.enabled=True"], NotImplementedError),
     (["parallel.model=2"], NotImplementedError),
     (["parallel.sequence_parallel=True"], NotImplementedError),
     (["parallel.data=2"], ValueError),
     (None, RuntimeError),
-], ids=["num-class-check", "mask-rcnn", "teacher", "tensor-parallel", "sequence-parallel",
-        "data-degree", "cuda-default"])
+], ids=["num-class-check", "mask-rcnn", "tensor-parallel", "sequence-parallel", "data-degree",
+        "cuda-default"])
 def test_cli_raises(tree, tmp_path, opts, error):
     """The NumClassCheckHook analog, the paths that are not ported, a data
     degree other than the ranks', the refinement stage's Mask R-CNN handed
@@ -319,6 +323,80 @@ def test_cli_raises(tree, tmp_path, opts, error):
     with pytest.raises(error):
         cli.main(argv)
     assert not (tmp_path / "w" / "train_log.jsonl").exists()
+
+
+def _runs(monkeypatch, cli) -> list:
+    """Keep each ``run`` that ``cli.main`` fits, with the parameters and
+    buffers it started from."""
+    runs, fit = [], cli.fit
+    monkeypatch.setattr(cli, "fit", lambda run: (runs.append(
+        (run, {k: v.clone() for k, v in run.model.state_dict().items()})), fit(run))[1])
+    return runs
+
+
+def test_cli_teacher_config_runs_resumes_and_is_not_checkpointed(tree, tmp_path, monkeypatch):
+    """``teacher.enabled`` (``configs/attnshift_voc12aug_ts.py``'s block) on
+    the CPU: two micro-steps through the teacher-student step with finite
+    losses; the teacher starts as the student and ends as the EMA of the
+    students after each update (not equal to either); ``epoch_1`` holds the
+    student alone; a resumed build starts its teacher as the restored
+    student, bitwise."""
+    from attentionshift_torch.tools import train as cli
+
+    cfg = write_config(tmp_path / "ts.py", tree, batch_size=1,
+                       extra="teacher = dict(enabled=True, momentum=0.9)\n")
+    runs = _runs(monkeypatch, cli)
+    work = tmp_path / "w"
+    stats = cli.main([cfg, "--work-dir", str(work), "--max-steps", "2", "--no-validate",
+                      "--device", "cpu"])
+    run, init = runs[0]
+    assert len(stats["step_ms"]) == 2 and run.state.step == 2
+    assert all(np.isfinite(v) for v in stats["metrics"].values())
+    teacher, student = run.teacher.state_dict(), run.model.state_dict()
+    name = "mil_head.fc1.weight"
+    assert not torch.equal(teacher[name], student[name])
+    assert not torch.equal(teacher[name], init[name])
+    ckpt = torch.load(work / "epoch_1", weights_only=True)
+    assert set(ckpt) == {"step", "epoch", "params", "opt_state"}  # no teacher
+    assert set(ckpt["params"]) == set(student)
+    assert all(torch.equal(ckpt["params"][k], v) for k, v in student.items())
+    resumed = cli.build(cli.parse_args([cfg, "--work-dir", str(work), "--device", "cpu"]))
+    assert resumed.resumed == str(work / "epoch_1")
+    for k, v in resumed.model.state_dict().items():
+        assert torch.equal(resumed.teacher.state_dict()[k], v), k
+    assert torch.equal(resumed.model.state_dict()[name], student[name])
+
+
+def test_cli_coco_config_runs_the_reppoints_cascade(tmp_path, monkeypatch):
+    """``configs/attnshift_coco.py`` (80 classes, max_gt 40, the RepPoints
+    head) at TINY width on a synthetic COCO tree, on the CPU: two
+    micro-steps with finite ``loss_rp_*`` losses, and the cascade head's
+    parameters moved."""
+    from attentionshift_torch.tools import train as cli
+
+    data = coco_tree(tmp_path / "coco")
+    tiny = {k: v for k, v in MODEL_KW.items() if k not in ("max_gt", "num_classes")}
+    cfg = tmp_path / "coco_tiny.py"
+    cfg.write_text(f"""
+_base_ = [{str(REPO + "/configs/attnshift_coco.py")!r}]
+model = dict(**{dict(tiny, use_remat=False)!r})
+data = dict(train=dict(ann_file={data['ann_file']!r}, img_prefix={data['img_prefix']!r}),
+            batch_size=1, num_threads=1, train_scales=[{TRAIN_SCALE!r}])
+runtime = dict(log_interval=1)
+""")
+    runs = _runs(monkeypatch, cli)
+    stats = cli.main([str(cfg), "--work-dir", str(tmp_path / "w"), "--max-steps", "2",
+                      "--no-validate", "--device", "cpu"])
+    run, init = runs[0]
+    c = run.cfg.model
+    assert (c.num_classes, c.max_gt, c.with_reppoints_head, c.num_semantic_points) == (80, 40, True, 3)
+    assert run.model.num_reppoints_head == 1 and len(stats["step_ms"]) == 2
+    rp = {k: v for k, v in stats["metrics"].items() if k.startswith("loss_rp_")}
+    assert set(rp) == {"loss_rp_border", "loss_rp_chamfer_sem", "loss_rp_chamfer_contour",
+                       "loss_rp_cls"} and all(np.isfinite(v) for v in rp.values())
+    moved = [k for k, v in run.model.state_dict().items()
+             if k.startswith("reppoints_head_0.") and not torch.equal(v, init[k])]
+    assert moved
 
 
 @pytest.fixture(scope="module")
