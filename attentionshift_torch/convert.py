@@ -27,6 +27,15 @@ state dict. Layout facts:
 Any unmapped key raises, and ``load_flax`` loads strictly, so a port
 parameter missing from the variables raises too.
 
+``model_type="swin"`` maps the JAX ``SwinTransformer``'s variables onto
+``attentionshift_torch.models.swin.SwinTransformer`` by the same rules:
+the ``patch_embed`` conv kernel (p, p, 3, D) -> ``Conv2d``'s (D, 3, p, p);
+Dense kernels transposed (``merge{st}.reduction`` has no bias); LayerNorm
+``scale`` -> ``weight``; ``relative_position_bias_table``,
+``point_token`` and ``point_pos_embed`` as they are; ``stage{st}_block{i}``,
+``out_norm{st}``, ``merge{st}``, ``global_block{i}``, ``class_embed`` and
+``bbox_embed`` keep their names.
+
 ``model_type="mask_rcnn"`` maps the JAX ``MaskRCNN``'s variables onto
 ``attentionshift_torch.models.mask_rcnn.MaskRCNN``: the ResNet backbone by
 its own rules (every conv kernel (kh, kw, Cin, Cout) -> ``Conv2d``'s
@@ -73,6 +82,8 @@ def _leaf(path: tuple, value: np.ndarray):
         else:
             key.extend([stem, idx] if stem in _LISTS and idx.isdigit() else [m])
     if name == "kernel":
+        if mods[-1] == "patch_embed" and x.ndim == 4:  # Swin's stride-p conv
+            return ".".join(key + ["weight"]), x.transpose(3, 2, 0, 1)
         if x.ndim == 2:
             return ".".join(key + ["weight"]), x.T
         if mods[-1] == "proj" and "patch_embed" in mods:
@@ -87,7 +98,7 @@ def _leaf(path: tuple, value: np.ndarray):
     if name == "scale":
         return ".".join(key + ["weight"]), x
     if name in ("bias", "cls_token", "pos_embed", "point_token", "point_pos_embed", "det_token",
-                "mask_token"):
+                "mask_token", "relative_position_bias_table"):
         return ".".join(key + [name]), x
     raise KeyError("/".join(path))
 
@@ -118,10 +129,12 @@ def _resnet_leaf(path: tuple, value: np.ndarray):
 
 def flax_to_torch(variables: dict, model_type: str = "attnshift") -> dict:
     """Flax ``{"params", "batch_stats"}`` (numpy leaves) -> torch state dict
-    of the port's ``AttnShiftDetector`` or, with ``model_type="mask_rcnn"``,
-    of its ``MaskRCNN``."""
+    of the port's ``AttnShiftDetector`` or, with ``model_type="mask_rcnn"``
+    or ``"swin"``, of its ``MaskRCNN`` or ``SwinTransformer``."""
     if model_type == "mask_rcnn":
         return _mask_rcnn_to_torch(variables.get("params", variables))
+    if model_type == "swin":
+        return _swin_to_torch(variables.get("params", variables))
     if model_type != "attnshift":
         raise ValueError(f"flax_to_torch: unknown model_type {model_type!r}")
     params = variables.get("params", variables)
@@ -139,6 +152,17 @@ def flax_to_torch(variables: dict, model_type: str = "attnshift") -> dict:
             raise KeyError(f"flax_to_torch: unmapped batch stat {'/'.join(path)}")
         sd[f"backbone.fpn1_bn.running_{path[2]}"] = torch.from_numpy(
             np.asarray(value, dtype=np.float32).copy())
+    return sd
+
+
+def _swin_to_torch(params: dict) -> dict:
+    sd = {}
+    for path, value in _flatten(params):
+        try:
+            key, arr = _leaf(path, value)
+        except KeyError as e:
+            raise KeyError(f"flax_to_torch: unmapped parameter {e.args[0]}") from None
+        sd[key] = torch.from_numpy(np.ascontiguousarray(arr))
     return sd
 
 

@@ -1,4 +1,5 @@
-// Attention forward kernels for the ViT backbone (bf16, head dim 64).
+// Attention forward kernels for the ViT and Swin backbones (bf16, head dim
+// 64 or 32, any number of heads).
 //
 // Replaces two Pallas TPU kernels of attentionshift_tpu/ops/attention.py:
 //   _kernel        (:251, via attention_with_capture): per-head softmax
@@ -14,6 +15,15 @@
 // as the products at head dim 64, so the exp work has to run beside them.
 // The capture call adds the (T, T) bf16 mean matrix, 38 MB written once
 // (11 us at 3.35 TB/s), and the recompute of q.k^T for it.
+//
+// Head dim 32 (Swin's global blocks: B=1, H=24, T=1276) halves the
+// products per exp2: 4*H*T^2*d = 5.0 GFLOP (5.1 us at 989 TFLOP/s)
+// against 39.1 M exp2 per pass (9.3 us at 16 per clock per SM, 132 SMs,
+// 1980 MHz), so there the exp work, not the tensor cores, bounds both
+// kernels. Each kernel is a template on the head dim (HeadTile<HD> in
+// hopper.cuh): at 32, tiles are 64 rows of 64 bytes under the 64-byte
+// swizzle, S = Q K^T takes two k16 steps and O += P V is m64n32k16; the
+// 64 instance is the code below as it was.
 //
 // What the design does about it (helpers in hopper.cuh). The TPU kernel
 // kept all six heads' K/V and a (128, T) f32 row tile in 100 MB of VMEM;
@@ -42,7 +52,12 @@
 //               even share would give.
 //   attn_mean   one block = one warpgroup per (64 query rows, chunk of key
 //               tiles, image), three blocks per SM: the query tiles of all
-//               heads loaded once and kept (H x 8 KB); the K tile of every
+//               heads loaded once and kept (H x 8 KB at d = 64, H x 4 KB at
+//               32) while they fit in MEAN_RESIDENT_BYTES (16 heads at d =
+//               64, 32 at d = 32); above that each unit's query tile
+//               streams beside its K tile through the ring instead, which
+//               reads Q once per (key tile, head) and lifts any head limit;
+//               the K tile of every
 //               (key tile, head) streams through a two-slot ring, so K is
 //               read once per (row tile, head); S_h = Q_h K_h^T by wgmma
 //               (the next head's product issued before this head's exp
@@ -94,22 +109,35 @@ using namespace hopper;
 #ifndef MEAN_MAX_CHUNK
 #define MEAN_MAX_CHUNK 16  // key tiles per attn_mean block, at most
 #endif
+#ifndef MEAN_RESIDENT_BYTES
+#define MEAN_RESIDENT_BYTES (16 * 8192)  // query tiles attn_mean keeps, at most
+#endif
 
-constexpr int HD = 64;         // head dim
 constexpr int TILE = TILE_ROWS;
 constexpr int WG_THREADS = 128;  // one warpgroup
 constexpr int FWD_ROWS = FWD_WARPGROUPS * TILE_ROWS;
 constexpr int FWD_THREADS = FWD_WARPGROUPS * WG_THREADS;
-constexpr int MEAN_MAX_HEADS = 16;  // attn_mean keeps every head's query tile
 
 // flash_fwd: the query tiles, FWD_STAGES slots of (K, V), the barriers
-constexpr size_t FWD_SMEM = (size_t)(FWD_WARPGROUPS + 2 * FWD_STAGES) * TILE_BYTES +
-                            (1 + FWD_STAGES) * sizeof(uint64_t) + 1024;
+template <int HD>
+constexpr size_t fwd_smem() {
+  return (size_t)(FWD_WARPGROUPS + 2 * FWD_STAGES) * HeadTile<HD>::BYTES +
+         (1 + FWD_STAGES) * sizeof(uint64_t) + 1024;
+}
 
-// attn_mean: H query tiles, MEAN_STAGES K slots, H x 64 row statistics, the barriers
-size_t mean_smem(int H) {
-  return (size_t)(H + MEAN_STAGES) * TILE_BYTES + (size_t)H * TILE * sizeof(float) +
+// attn_mean: H query tiles and MEAN_STAGES K slots, with H x 64 row
+// statistics (resident); or MEAN_STAGES slots of a K and a query tile
+// (streamed); the barriers
+template <int HD>
+size_t mean_smem(int H, bool resident) {
+  const size_t tiles = resident ? (size_t)H + MEAN_STAGES : (size_t)2 * MEAN_STAGES;
+  return tiles * HeadTile<HD>::BYTES + (resident ? (size_t)H * TILE * sizeof(float) : 0) +
          (1 + MEAN_STAGES) * sizeof(uint64_t) + 1024;
+}
+
+// whether attn_mean keeps every head's query tile at head dim hd
+bool mean_resident(int H, int hd) {
+  return (long)H * (hd == 32 ? TILE32_BYTES : TILE_BYTES) <= (long)MEAN_RESIDENT_BYTES;
 }
 
 typedef __nv_bfloat16 bf16;
@@ -169,12 +197,13 @@ struct FwdArgs {
   float scale_log2;
 };
 
+template <int HD>
 __device__ __forceinline__ void fwd_load(const FwdArgs& a, int tile) {
+  constexpr int TB = HeadTile<HD>::BYTES;
   const int st = tile % FWD_STAGES;
-  mbar_expect_tx(&a.bars[1 + st], 2 * TILE_BYTES);
-  tma_load_tile(a.ring + (2 * st) * TILE_BYTES, a.map_k, &a.bars[1 + st], tile * TILE, a.plane);
-  tma_load_tile(a.ring + (2 * st + 1) * TILE_BYTES, a.map_v, &a.bars[1 + st], tile * TILE,
-                a.plane);
+  mbar_expect_tx(&a.bars[1 + st], 2 * TB);
+  tma_load_tile(a.ring + (2 * st) * TB, a.map_k, &a.bars[1 + st], tile * TILE, a.plane);
+  tma_load_tile(a.ring + (2 * st + 1) * TB, a.map_v, &a.bars[1 + st], tile * TILE, a.plane);
 }
 
 // Key tile j: `s` holds its finished S and no product is in flight. Takes
@@ -184,9 +213,11 @@ __device__ __forceinline__ void fwd_load(const FwdArgs& a, int tile) {
 // (wait_group 0), so that ptxas sees which accumulators are in flight and
 // keeps the products asynchronous: the last tile recomputes its own S,
 // which nobody reads.
-__device__ __forceinline__ void fwd_step(const FwdArgs& a, float (&s)[32], float (&o)[32],
+template <int HD>
+__device__ __forceinline__ void fwd_step(const FwdArgs& a, float (&s)[32], float (&o)[HD / 2],
                                          uint32_t (&pa)[4][4], float& m_a, float& m_b,
                                          float& l_a, float& l_b, int j) {
+  using HT = HeadTile<HD>;
   const int key0 = j * TILE;
   if (tile_masked(key0, a.T, a.pad_lo, a.pad_hi)) {
 #pragma unroll
@@ -212,41 +243,44 @@ __device__ __forceinline__ void fwd_step(const FwdArgs& a, float (&s)[32], float
   l_a = l_a * al_a + row_sum(s, 0);
   l_b = l_b * al_b + row_sum(s, 2);
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] *= (i & 2) ? al_b : al_a;
+  for (int i = 0; i < HD / 2; ++i) o[i] *= (i & 2) ? al_b : al_a;
   acc_to_a(pa, s);
 
   const bool more = j + 1 < a.n;
   if (more) mbar_wait(&a.bars[1 + (j + 1) % FWD_STAGES], ((j + 1) / FWD_STAGES) & 1);
-  const uint8_t* k_s = a.ring + (2 * ((more ? j + 1 : j) % FWD_STAGES)) * TILE_BYTES;
-  const uint8_t* v_s = a.ring + (2 * (j % FWD_STAGES) + 1) * TILE_BYTES;
+  const uint8_t* k_s = a.ring + (2 * ((more ? j + 1 : j) % FWD_STAGES)) * HT::BYTES;
+  const uint8_t* v_s = a.ring + (2 * (j % FWD_STAGES) + 1) * HT::BYTES;
   fence_regs(s);
   fence_regs(o);
   fence_regs(pa);
   wgmma_fence();
 #pragma unroll
-  for (int kc = 0; kc < 4; ++kc) wgmma_rs<1>(o, pa[kc], desc_mnmajor(v_s, kc), 1);
+  for (int kc = 0; kc < 4; ++kc) wgmma_rs<1>(o, pa[kc], HT::mnmajor(v_s, kc), 1);
 #pragma unroll
-  for (int kc = 0; kc < 4; ++kc) wgmma_ss<0>(s, desc_kmajor(a.q_s, kc), desc_kmajor(k_s, kc), kc);
+  for (int kc = 0; kc < HT::KSTEPS; ++kc)
+    wgmma_ss<0>(s, HT::kmajor(a.q_s, kc), HT::kmajor(k_s, kc), kc);
   wgmma_commit();
   wgmma_wait();
   fence_regs(s);
   fence_regs(o);
   fence_regs(pa);
   __syncthreads();  // both warpgroups are done with tile j's slot
-  if (a.tid == 0 && j + FWD_STAGES < a.n) fwd_load(a, j + FWD_STAGES);
+  if (a.tid == 0 && j + FWD_STAGES < a.n) fwd_load<HD>(a, j + FWD_STAGES);
 }
 
+template <int HD>
 __global__ void __launch_bounds__(FWD_THREADS, FWD_BLOCKS_PER_SM)
 flash_fwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
           const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ out,
           float* __restrict__ lse2, int H, int T, int pad_lo, int pad_hi, float scale_log2) {
+  using HT = HeadTile<HD>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   const int wg = threadIdx.x >> 7;  // this warpgroup's query tile
   FwdArgs a;
-  a.q_s = smem + wg * TILE_BYTES;
-  a.ring = smem + FWD_WARPGROUPS * TILE_BYTES;
-  a.bars = reinterpret_cast<uint64_t*>(a.ring + 2 * FWD_STAGES * TILE_BYTES);
+  a.q_s = smem + wg * HT::BYTES;
+  a.ring = smem + FWD_WARPGROUPS * HT::BYTES;
+  a.bars = reinterpret_cast<uint64_t*>(a.ring + 2 * FWD_STAGES * HT::BYTES);
   a.map_k = &map_k;
   a.map_v = &map_v;
   a.plane = blockIdx.z * H + blockIdx.y;
@@ -261,28 +295,31 @@ flash_fwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
   if (a.tid == 0) {
     for (int i = 0; i <= FWD_STAGES; ++i) mbar_init(&a.bars[i], 1);
     mbar_init_fence();
-    mbar_expect_tx(&a.bars[0], FWD_WARPGROUPS * TILE_BYTES);
+    mbar_expect_tx(&a.bars[0], FWD_WARPGROUPS * HT::BYTES);
     for (int w = 0; w < FWD_WARPGROUPS; ++w)
-      tma_load_tile(smem + w * TILE_BYTES, &map_q, &a.bars[0], row0 + w * TILE, a.plane);
-    for (int t = 0; t < FWD_STAGES && t < a.n; ++t) fwd_load(a, t);
+      tma_load_tile(smem + w * HT::BYTES, &map_q, &a.bars[0], row0 + w * TILE, a.plane);
+    for (int t = 0; t < FWD_STAGES && t < a.n; ++t) fwd_load<HD>(a, t);
   }
   __syncthreads();
 
-  float sc[32], o[32];
+  float sc[32], o[HD / 2];
   uint32_t pa[4][4];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) sc[i] = o[i] = 0.f;
+  for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
   float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
 
   mbar_wait(&a.bars[0], 0);
   mbar_wait(&a.bars[1], 0);
   wgmma_fence();
 #pragma unroll
-  for (int kc = 0; kc < 4; ++kc) wgmma_ss<0>(sc, desc_kmajor(a.q_s, kc), desc_kmajor(a.ring, kc), kc);
+  for (int kc = 0; kc < HT::KSTEPS; ++kc)
+    wgmma_ss<0>(sc, HT::kmajor(a.q_s, kc), HT::kmajor(a.ring, kc), kc);
   wgmma_commit();
   wgmma_wait();
   fence_regs(sc);
-  for (int j = 0; j < a.n; ++j) fwd_step(a, sc, o, pa, m_a, m_b, l_a, l_b, j);
+  for (int j = 0; j < a.n; ++j) fwd_step<HD>(a, sc, o, pa, m_a, m_b, l_a, l_b, j);
 
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
@@ -296,7 +333,7 @@ flash_fwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
   const int r_b = r_a + 8;
   bf16* oh = out + (size_t)a.plane * T * HD;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < HD / 8; ++j) {
     const int c = j * 8 + a.tig * 2;
     if (r_a < T)
       *reinterpret_cast<uint32_t*>(oh + (size_t)r_a * HD + c) =
@@ -315,32 +352,48 @@ flash_fwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
 // ------------------------------------------------------------- attn_mean
 
 struct MeanArgs {
-  const uint8_t* q_s;  // H query tiles
-  uint8_t* ring;       // MEAN_STAGES K slots
-  const float* lse_s;  // [H][TILE] row statistics of the block's rows
+  const uint8_t* q_s;  // H query tiles (resident)
+  uint8_t* ring;       // MEAN_STAGES slots: K, then (streamed) the unit's query tile
+  const float* lse_s;  // [H][TILE] row statistics of the block's rows (resident)
+  const float* lse2;   // this image's (H, T) row statistics (streamed)
   uint64_t* bars;      // [0] query tiles, [1 + s] slot s
+  const CUtensorMap* map_q;
   const CUtensorMap* map_k;
   bf16* mean;  // this image's (T, T)
-  int b, H, kt0, n, row_a, T, pad_lo, pad_hi, tig, tid;
+  int b, H, kt0, n, row0, row_a, T, pad_lo, pad_hi, tig, tid;
   float scale_log2, inv_h;
 };
 
+// bytes of a ring slot: a K tile, and the unit's query tile if streamed
+template <int HD, bool RES>
+__device__ __forceinline__ constexpr int mean_slot_bytes() {
+  return (RES ? 1 : 2) * HeadTile<HD>::BYTES;
+}
+
 // unit u: key tile kt0 + u / H of head u % H
+template <int HD, bool RES>
 __device__ __forceinline__ void mean_load(const MeanArgs& a, int u) {
+  constexpr int SLOT = mean_slot_bytes<HD, RES>();
   const int st = u % MEAN_STAGES;
-  mbar_expect_tx(&a.bars[1 + st], TILE_BYTES);
-  tma_load_tile(a.ring + st * TILE_BYTES, a.map_k, &a.bars[1 + st], (a.kt0 + u / a.H) * TILE,
-                a.b * a.H + u % a.H);
+  uint8_t* slot = a.ring + st * SLOT;
+  const int plane = a.b * a.H + u % a.H;
+  mbar_expect_tx(&a.bars[1 + st], SLOT);
+  tma_load_tile(slot, a.map_k, &a.bars[1 + st], (a.kt0 + u / a.H) * TILE, plane);
+  if constexpr (!RES)
+    tma_load_tile(slot + HeadTile<HD>::BYTES, a.map_q, &a.bars[1 + st], a.row0, plane);
 }
 
 // S = Q_h K_h^T of unit u, whose slot has arrived, into s (one commit group)
+template <int HD, bool RES>
 __device__ __forceinline__ void mean_issue_s(const MeanArgs& a, float (&s)[32], int u) {
-  const uint8_t* q_s = a.q_s + (u % a.H) * TILE_BYTES;
-  const uint8_t* k_s = a.ring + (u % MEAN_STAGES) * TILE_BYTES;
+  using HT = HeadTile<HD>;
+  const uint8_t* k_s = a.ring + (u % MEAN_STAGES) * mean_slot_bytes<HD, RES>();
+  const uint8_t* q_s = RES ? a.q_s + (u % a.H) * HT::BYTES : k_s + HT::BYTES;
   fence_regs(s);
   wgmma_fence();
 #pragma unroll
-  for (int kc = 0; kc < 4; ++kc) wgmma_ss<0>(s, desc_kmajor(q_s, kc), desc_kmajor(k_s, kc), kc);
+  for (int kc = 0; kc < HT::KSTEPS; ++kc)
+    wgmma_ss<0>(s, HT::kmajor(q_s, kc), HT::kmajor(k_s, kc), kc);
   wgmma_commit();
 }
 
@@ -348,18 +401,27 @@ __device__ __forceinline__ void mean_issue_s(const MeanArgs& a, float (&s)[32], 
 // adds this unit's probabilities to `acc`, writes the tile after its last
 // head, and returns with `nxt` finished. As in fwd_step every step issues
 // and waits alike: the last unit recomputes its own S, which nobody reads.
+template <int HD, bool RES>
 __device__ __forceinline__ void mean_step(const MeanArgs& a, float (&cur)[32], float (&nxt)[32],
                                           float (&acc)[32], int u) {
   const bool more = u + 1 < a.n;
   if (more) mbar_wait(&a.bars[1 + (u + 1) % MEAN_STAGES], ((u + 1) / MEAN_STAGES) & 1);
-  mean_issue_s(a, nxt, more ? u + 1 : u);
+  mean_issue_s<HD, RES>(a, nxt, more ? u + 1 : u);
   __syncthreads();  // every warp is done with unit u's slot
-  if (a.tid == 0 && u + MEAN_STAGES < a.n) mean_load(a, u + MEAN_STAGES);
+  if (a.tid == 0 && u + MEAN_STAGES < a.n) mean_load<HD, RES>(a, u + MEAN_STAGES);
 
   const int h = u % a.H;
   const int key0 = (a.kt0 + u / a.H) * TILE;
-  const float nl_a = -a.lse_s[h * TILE + a.row_a];
-  const float nl_b = -a.lse_s[h * TILE + a.row_a + 8];
+  float nl_a, nl_b;
+  if constexpr (RES) {
+    nl_a = -a.lse_s[h * TILE + a.row_a];
+    nl_b = -a.lse_s[h * TILE + a.row_a + 8];
+  } else {  // a row past T gets 0 (never stored)
+    const int r_a = a.row0 + a.row_a;
+    const float* lh = a.lse2 + (size_t)h * a.T;
+    nl_a = r_a < a.T ? -lh[r_a] : 0.f;
+    nl_b = r_a + 8 < a.T ? -lh[r_a + 8] : 0.f;
+  }
   if (tile_masked(key0, a.T, a.pad_lo, a.pad_hi)) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
@@ -400,21 +462,25 @@ __device__ __forceinline__ void mean_step(const MeanArgs& a, float (&cur)[32], f
   fence_regs(nxt);
 }
 
+template <int HD, bool RES>
 __global__ void __launch_bounds__(WG_THREADS, MEAN_BLOCKS_PER_SM)
 attn_mean(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
           const float* __restrict__ lse2, bf16* __restrict__ mean, int H, int T, int pad_lo,
           int pad_hi, float scale_log2, int chunk) {
+  constexpr int TB = HeadTile<HD>::BYTES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
-  float* lse_s = reinterpret_cast<float*>(smem + (H + MEAN_STAGES) * TILE_BYTES);
   MeanArgs a;
   a.q_s = smem;
-  a.ring = smem + H * TILE_BYTES;
+  a.ring = smem + (RES ? H : 0) * TB;
+  float* lse_s = reinterpret_cast<float*>(a.ring + MEAN_STAGES * mean_slot_bytes<HD, RES>());
   a.lse_s = lse_s;
-  a.bars = reinterpret_cast<uint64_t*>(lse_s + H * TILE);
+  a.bars = reinterpret_cast<uint64_t*>(lse_s + (RES ? H * TILE : 0));
+  a.map_q = &map_q;
   a.map_k = &map_k;
   a.b = blockIdx.z;
   a.H = H;
+  a.lse2 = lse2 + (size_t)a.b * H * T;
   a.mean = mean + (size_t)a.b * T * T;
   a.kt0 = blockIdx.x * chunk;
   const int ntiles = (T + TILE - 1) / TILE;
@@ -428,32 +494,37 @@ attn_mean(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
   a.scale_log2 = scale_log2;
   a.inv_h = 1.f / (float)H;
   const int row0 = blockIdx.y * TILE;
+  a.row0 = row0;
   if (a.tid == 0) {
     for (int i = 0; i <= MEAN_STAGES; ++i) mbar_init(&a.bars[i], 1);
     mbar_init_fence();
-    mbar_expect_tx(&a.bars[0], H * TILE_BYTES);
-    for (int h = 0; h < H; ++h)
-      tma_load_tile(smem + h * TILE_BYTES, &map_q, &a.bars[0], row0, a.b * H + h);
-    for (int u = 0; u < MEAN_STAGES && u < a.n; ++u) mean_load(a, u);
+    if constexpr (RES) {
+      mbar_expect_tx(&a.bars[0], H * TB);
+      for (int h = 0; h < H; ++h)
+        tma_load_tile(smem + h * TB, &map_q, &a.bars[0], row0, a.b * H + h);
+    }
+    for (int u = 0; u < MEAN_STAGES && u < a.n; ++u) mean_load<HD, RES>(a, u);
   }
-  // the rows' log2-sum-exp per head; a row past T gets 0 (never stored)
-  for (int i = a.tid; i < H * TILE; i += WG_THREADS) {
-    const int r = row0 + (i & (TILE - 1));
-    lse_s[i] = r < T ? lse2[((size_t)a.b * H + i / TILE) * T + r] : 0.f;
+  if constexpr (RES) {
+    // the rows' log2-sum-exp per head; a row past T gets 0 (never stored)
+    for (int i = a.tid; i < H * TILE; i += WG_THREADS) {
+      const int r = row0 + (i & (TILE - 1));
+      lse_s[i] = r < T ? lse2[((size_t)a.b * H + i / TILE) * T + r] : 0.f;
+    }
   }
   __syncthreads();
 
   float sa[32], sb[32], acc[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) sa[i] = sb[i] = acc[i] = 0.f;
-  mbar_wait(&a.bars[0], 0);
+  if constexpr (RES) mbar_wait(&a.bars[0], 0);
   mbar_wait(&a.bars[1], 0);
-  mean_issue_s(a, sa, 0);
+  mean_issue_s<HD, RES>(a, sa, 0);
   wgmma_wait();
   fence_regs(sa);
   for (int u = 0; u < a.n; u += 2) {
-    mean_step(a, sa, sb, acc, u);
-    if (u + 1 < a.n) mean_step(a, sb, sa, acc, u + 1);
+    mean_step<HD, RES>(a, sa, sb, acc, u);
+    if (u + 1 < a.n) mean_step<HD, RES>(a, sb, sa, acc, u + 1);
   }
 }
 
@@ -475,87 +546,125 @@ int mean_chunk(int ntiles, int row_blocks, int slots) {
   return best;
 }
 
-// Resident attn_mean blocks on the current device for `smem` bytes of
-// shared memory per block (H heads): SMs x blocks per SM. Constant per
-// (device, H), so the device is asked once.
-cudaError_t mean_slots(int H, int smem, int* slots) {
+// Resident blocks of attn_mean instance `kern` (one of four: head dim x
+// resident) on the current device for `smem` bytes of shared memory per
+// block: SMs x blocks per SM. The device is asked once per (instance,
+// smem), kept as smem << 20 | slots.
+cudaError_t mean_slots(const void* kern, int instance, int smem, int* slots) {
   constexpr int MAX_DEVICES = 64;
-  static std::atomic<int> known[MAX_DEVICES][MEAN_MAX_HEADS + 1];
+  static std::atomic<long long> known[MAX_DEVICES][4];
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (dev < MAX_DEVICES && (*slots = known[dev][H].load(std::memory_order_relaxed)) > 0)
-    return cudaSuccess;
+  if (dev < MAX_DEVICES) {
+    const long long k = known[dev][instance].load(std::memory_order_relaxed);
+    if (k > 0 && (k >> 20) == smem) {
+      *slots = (int)(k & ((1 << 20) - 1));
+      return cudaSuccess;
+    }
+  }
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, attn_mean, WG_THREADS, smem)) !=
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, WG_THREADS, smem)) !=
       cudaSuccess)
     return err;
   *slots = sms * (per_sm > 0 ? per_sm : 1);
-  if (dev < MAX_DEVICES) known[dev][H].store(*slots, std::memory_order_relaxed);
+  if (dev < MAX_DEVICES)
+    known[dev][instance].store(((long long)smem << 20) | *slots, std::memory_order_relaxed);
   return cudaSuccess;
 }
 
 int aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-}  // namespace
-
-extern "C" {
-
-// q, k, v, out: (B, H, T, 64) bf16 contiguous, 16-byte aligned. lse2:
-// (B, H, T) f32 or null. Returns a cudaError_t, or a code of make_tile_map
-// (>= 998) when a tensor map cannot be made.
-int attn_flash_forward(const void* q, const void* k, const void* v, void* out, void* lse2,
-                       int B, int H, int T, int pad_lo, int pad_hi, float scale_log2,
-                       void* stream) {
+template <int HD>
+int flash_forward(const void* q, const void* k, const void* v, void* out, void* lse2, int B,
+                  int H, int T, int pad_lo, int pad_hi, float scale_log2, cudaStream_t stream) {
+  using HT = HeadTile<HD>;
+  constexpr int smem = (int)fwd_smem<HD>();
   // a runtime call first: it makes the device's context current on this
   // thread (the autograd engine's, under checkpointing), which the
   // tensor-map encoding needs
   cudaError_t err =
-      cudaFuncSetAttribute(flash_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FWD_SMEM);
+      cudaFuncSetAttribute(flash_fwd<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)  // the SM's 228 KB as shared memory: two blocks of 81 KB fit
-    err = cudaFuncSetAttribute(flash_fwd, cudaFuncAttributePreferredSharedMemoryCarveout,
+    err = cudaFuncSetAttribute(flash_fwd<HD>, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap mq, mk, mv;
-  if (int bad = make_tile_map(&mq, q, B * H, T)) return bad;
-  if (int bad = make_tile_map(&mk, k, B * H, T)) return bad;
-  if (int bad = make_tile_map(&mv, v, B * H, T)) return bad;
+  if (int bad = HT::map(&mq, q, B * H, T)) return bad;
+  if (int bad = HT::map(&mk, k, B * H, T)) return bad;
+  if (int bad = HT::map(&mv, v, B * H, T)) return bad;
   if (!aligned16(out)) return TMA_MISALIGNED;
   dim3 grid((T + FWD_ROWS - 1) / FWD_ROWS, H, B);
-  flash_fwd<<<grid, FWD_THREADS, FWD_SMEM, (cudaStream_t)stream>>>(
-      mq, mk, mv, (bf16*)out, (float*)lse2, H, T, pad_lo, pad_hi, scale_log2);
+  flash_fwd<HD><<<grid, FWD_THREADS, smem, stream>>>(mq, mk, mv, (bf16*)out, (float*)lse2, H, T,
+                                                      pad_lo, pad_hi, scale_log2);
   return (int)cudaGetLastError();
 }
 
-// The most heads attn_mean_forward takes: it keeps every head's query tile.
-int attn_mean_max_heads() { return MEAN_MAX_HEADS; }
-
-// mean: (B, T, T) bf16, 16-byte aligned; lse2 from attn_flash_forward on
-// the same q, k; at most attn_mean_max_heads() heads (cudaErrorInvalidValue
-// otherwise). Returns as attn_flash_forward.
-int attn_mean_forward(const void* q, const void* k, const void* lse2, void* mean, int B, int H,
-                      int T, int pad_lo, int pad_hi, float scale_log2, void* stream) {
-  if (H < 1 || H > MEAN_MAX_HEADS) return (int)cudaErrorInvalidValue;
-  const int smem = (int)mean_smem(H);
-  cudaError_t err =
-      cudaFuncSetAttribute(attn_mean, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <int HD, bool RES>
+int mean_forward(const void* q, const void* k, const void* lse2, void* mean, int B, int H, int T,
+                 int pad_lo, int pad_hi, float scale_log2, cudaStream_t stream) {
+  using HT = HeadTile<HD>;
+  const int smem = (int)mean_smem<HD>(H, RES);
+  const void* kern = (const void*)attn_mean<HD, RES>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(attn_mean, cudaFuncAttributePreferredSharedMemoryCarveout,
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap mq, mk;
-  if (int bad = make_tile_map(&mq, q, B * H, T)) return bad;
-  if (int bad = make_tile_map(&mk, k, B * H, T)) return bad;
+  if (int bad = HT::map(&mq, q, B * H, T)) return bad;
+  if (int bad = HT::map(&mk, k, B * H, T)) return bad;
   if (!aligned16(mean)) return TMA_MISALIGNED;
   int slots = 0;
-  if ((err = mean_slots(H, smem, &slots)) != cudaSuccess) return (int)err;
+  if ((err = mean_slots(kern, (HD == 32 ? 2 : 0) + (RES ? 1 : 0), smem, &slots)) != cudaSuccess)
+    return (int)err;
   const int ntiles = (T + TILE - 1) / TILE;
   const int chunk = mean_chunk(ntiles, B * ntiles, slots);
   dim3 grid((ntiles + chunk - 1) / chunk, ntiles, B);
-  attn_mean<<<grid, WG_THREADS, smem, (cudaStream_t)stream>>>(
+  attn_mean<HD, RES><<<grid, WG_THREADS, smem, stream>>>(
       mq, mk, (const float*)lse2, (bf16*)mean, H, T, pad_lo, pad_hi, scale_log2, chunk);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// q, k, v, out: (B, H, T, D) bf16 contiguous, 16-byte aligned, D = 64 or
+// 32 (cudaErrorInvalidValue otherwise). lse2: (B, H, T) f32 or null.
+// Returns a cudaError_t, or a code of make_tile_map (>= 998) when a tensor
+// map cannot be made.
+int attn_flash_forward(const void* q, const void* k, const void* v, void* out, void* lse2,
+                       int B, int H, int T, int D, int pad_lo, int pad_hi, float scale_log2,
+                       void* stream) {
+  if (D == 64)
+    return flash_forward<64>(q, k, v, out, lse2, B, H, T, pad_lo, pad_hi, scale_log2,
+                             (cudaStream_t)stream);
+  if (D == 32)
+    return flash_forward<32>(q, k, v, out, lse2, B, H, T, pad_lo, pad_hi, scale_log2,
+                             (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The most heads whose query tiles attn_mean_forward keeps at head dim D;
+// above it they are streamed (no limit).
+int attn_mean_resident_heads(int D) {
+  return MEAN_RESIDENT_BYTES / (D == 32 ? TILE32_BYTES : TILE_BYTES);
+}
+
+// mean: (B, T, T) bf16, 16-byte aligned; lse2 from attn_flash_forward on
+// the same q, k; any H >= 1, D = 64 or 32. Returns as attn_flash_forward.
+int attn_mean_forward(const void* q, const void* k, const void* lse2, void* mean, int B, int H,
+                      int T, int D, int pad_lo, int pad_hi, float scale_log2, void* stream) {
+  if (H < 1 || (D != 64 && D != 32)) return (int)cudaErrorInvalidValue;
+  const bool res = mean_resident(H, D);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D == 64)
+    return res ? mean_forward<64, true>(q, k, lse2, mean, B, H, T, pad_lo, pad_hi, scale_log2, st)
+               : mean_forward<64, false>(q, k, lse2, mean, B, H, T, pad_lo, pad_hi, scale_log2, st);
+  return res ? mean_forward<32, true>(q, k, lse2, mean, B, H, T, pad_lo, pad_hi, scale_log2, st)
+             : mean_forward<32, false>(q, k, lse2, mean, B, H, T, pad_lo, pad_hi, scale_log2, st);
 }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-// Attention backward kernels for the ViT backbone (bf16, head dim 64).
+// Attention backward kernels for the ViT and Swin backbones (bf16, head
+// dim 64 or 32).
 //
 // Replaces two Pallas TPU kernels of attentionshift_tpu/ops/attention.py:
 //   _bwd_kernel_dq   (:364, pass A of _pallas_backward): per query tile,
@@ -18,9 +19,16 @@
 // determinism), against ~20 MB of q/k/v/dO/out and gradients: far above the
 // ~295 FLOP/byte ridge (44 us and 59 us at 989 TFLOP/s). Nothing
 // (T, T)-sized may reach device memory. The exp2 work (113 M per pass) is
-// ~30 us on the MUFU units, under the products.
+// ~30 us on the MUFU units, under the products. At head dim 32 (Swin's
+// (1, 24, 1276, 32)) pass A's three products are 7.5 GFLOP (7.6 us)
+// against 39.1 M exp2 (9.3 us at 16 per clock per SM, 132 SMs, 1980 MHz):
+// the exp work bounds it; pass B's four, 10.0 GFLOP (10.1 us), are about
+// even with its exp work.
 //
-// What the design does about it (helpers in hopper.cuh):
+// What the design does about it (helpers in hopper.cuh; both kernels are
+// templates on the head dim, HeadTile<HD>: at 32 a tile is 64 rows of 64
+// bytes under the 64-byte swizzle, the products that contract over d take
+// two k16 steps and those whose N is d are m64n32k16):
 //   * one block = one warpgroup = 64 rows of its own tile (query rows in
 //     pass A, keys in pass B), loaded once by TMA; the loop walks 64-row
 //     tiles of the other side through a two-slot ring in dynamic shared
@@ -63,7 +71,6 @@ namespace {
 
 using namespace hopper;
 
-constexpr int HD = 64;        // head dim
 constexpr int TILE = TILE_ROWS;
 constexpr int NTHREADS = 128;  // one warpgroup
 constexpr int STAGES = 2;      // ring depth of the streamed tiles
@@ -71,11 +78,20 @@ constexpr int BLOCKS_PER_SM = 3;  // resident blocks the register budget is set 
 
 // shared memory: two own tiles, STAGES slots of two tiles, (pass B) the
 // streamed tiles' row statistics, the barriers, 1024 bytes of alignment slack
-constexpr size_t RING_BYTES = (size_t)(2 + 2 * STAGES) * TILE_BYTES;
+template <int HD>
+__host__ __device__ constexpr size_t ring_bytes() {
+  return (size_t)(2 + 2 * STAGES) * HeadTile<HD>::BYTES;
+}
 constexpr size_t STAT_BYTES = (size_t)2 * STAGES * TILE * sizeof(float);
 constexpr size_t BAR_BYTES = (size_t)(1 + STAGES) * sizeof(uint64_t);
-constexpr size_t DQ_SMEM = RING_BYTES + BAR_BYTES + 1024;
-constexpr size_t DKV_SMEM = RING_BYTES + STAT_BYTES + BAR_BYTES + 1024;
+template <int HD>
+constexpr size_t dq_smem() {
+  return ring_bytes<HD>() + BAR_BYTES + 1024;
+}
+template <int HD>
+constexpr size_t dkv_smem() {
+  return ring_bytes<HD>() + STAT_BYTES + BAR_BYTES + 1024;
+}
 
 typedef __nv_bfloat16 bf16;
 
@@ -88,15 +104,16 @@ __device__ __forceinline__ bool masked_col(int col, int T, int pad_lo, int pad_h
   return col >= T || (col >= pad_lo && col < pad_hi);
 }
 
-// sum over 16 columns (tig*16 ...) of row r of dO * out; 0 past T
+// sum over HD / 4 columns (tig*HD/4 ...) of row r of dO * out; 0 past T
+template <int HD>
 __device__ __forceinline__ float row_dot16(const bf16* out, const bf16* dout, int r, int tig,
                                            int T) {
   if (r >= T) return 0.f;
-  const uint4* o = reinterpret_cast<const uint4*>(out + (size_t)r * HD + tig * 16);
-  const uint4* g = reinterpret_cast<const uint4*>(dout + (size_t)r * HD + tig * 16);
+  const uint4* o = reinterpret_cast<const uint4*>(out + (size_t)r * HD + tig * (HD / 4));
+  const uint4* g = reinterpret_cast<const uint4*>(dout + (size_t)r * HD + tig * (HD / 4));
   float s = 0.f;
 #pragma unroll
-  for (int c = 0; c < 2; ++c) {
+  for (int c = 0; c < HD / 32; ++c) {
     uint4 x = o[c], y = g[c];
     const __nv_bfloat162* xo = reinterpret_cast<const __nv_bfloat162*>(&x);
     const __nv_bfloat162* yg = reinterpret_cast<const __nv_bfloat162*>(&y);
@@ -109,13 +126,14 @@ __device__ __forceinline__ float row_dot16(const bf16* out, const bf16* dout, in
   return s;
 }
 
-// write a warpgroup's (64 x 64) f32 accumulator, scaled, as bf16 rows r_a
+// write a warpgroup's (64 x HD) f32 accumulator, scaled, as bf16 rows r_a
 // (i < 2) and r_b (i >= 2) of a head matrix; a row whose scale is 0 is
 // written as exact zeros, whatever its accumulator holds
-__device__ __forceinline__ void store_rows(bf16* mh, const float (&acc)[32], float scale_a,
+template <int HD>
+__device__ __forceinline__ void store_rows(bf16* mh, const float (&acc)[HD / 2], float scale_a,
                                            float scale_b, int r_a, int r_b, int tig, int T) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < HD / 8; ++j) {
     int c = j * 8 + tig * 2;
     if (r_a < T)
       *reinterpret_cast<uint32_t*>(mh + (size_t)r_a * HD + c) =
@@ -132,18 +150,22 @@ __device__ __forceinline__ void store_rows(bf16* mh, const float (&acc)[32], flo
 __device__ __forceinline__ float prob(float x) { return round_bf16(exp2f(x)); }
 
 // Pass A: dQ of one 64-row query tile, and D = rowsum(dO * out) per row.
+template <int HD>
 __global__ void __launch_bounds__(NTHREADS, BLOCKS_PER_SM)
 bwd_dq(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
        const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
        const bf16* __restrict__ out, const bf16* __restrict__ dout,
        const float* __restrict__ lse2, bf16* __restrict__ dq, float* __restrict__ dd, int H, int T,
        int pad_lo, int pad_hi, float scale_log2, float scale) {
+  using HT = HeadTile<HD>;
+  constexpr int TB = HT::BYTES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   uint8_t* q_s = smem;
-  uint8_t* do_s = smem + TILE_BYTES;
-  uint8_t* ring = smem + 2 * TILE_BYTES;  // slot s: K at 2s, V at 2s + 1 tiles
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + RING_BYTES);  // [0] own, [1 + s] slot s
+  uint8_t* do_s = smem + TB;
+  uint8_t* ring = smem + 2 * TB;  // slot s: K at 2s, V at 2s + 1 tiles
+  // [0] own tiles, [1 + s] slot s
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + ring_bytes<HD>());
 
   const int plane = blockIdx.z * H + blockIdx.y;
   const int row0 = blockIdx.x * TILE;
@@ -152,13 +174,13 @@ bwd_dq(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtens
   if (tid == 0) {
     for (int i = 0; i <= STAGES; ++i) mbar_init(&bars[i], 1);
     mbar_init_fence();
-    mbar_expect_tx(&bars[0], 2 * TILE_BYTES);
+    mbar_expect_tx(&bars[0], 2 * TB);
     tma_load_tile(q_s, &map_q, &bars[0], row0, plane);
     tma_load_tile(do_s, &map_do, &bars[0], row0, plane);
     for (int s = 0; s < STAGES && s < ntiles; ++s) {
-      mbar_expect_tx(&bars[1 + s], 2 * TILE_BYTES);
-      tma_load_tile(ring + (2 * s) * TILE_BYTES, &map_k, &bars[1 + s], s * TILE, plane);
-      tma_load_tile(ring + (2 * s + 1) * TILE_BYTES, &map_v, &bars[1 + s], s * TILE, plane);
+      mbar_expect_tx(&bars[1 + s], 2 * TB);
+      tma_load_tile(ring + (2 * s) * TB, &map_k, &bars[1 + s], s * TILE, plane);
+      tma_load_tile(ring + (2 * s + 1) * TB, &map_v, &bars[1 + s], s * TILE, plane);
     }
   }
   __syncthreads();
@@ -170,9 +192,9 @@ bwd_dq(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtens
   const int r_a = row0 + warp * 16 + gid;
   const int r_b = r_a + 8;
 
-  // D = rowsum(dO * out): a thread sums 16 of a row's 64 columns, its quad all
-  float d_a = row_dot16(out + head, dout + head, r_a, tig, T);
-  float d_b = row_dot16(out + head, dout + head, r_b, tig, T);
+  // D = rowsum(dO * out): a thread sums a quarter of a row's columns, its quad all
+  float d_a = row_dot16<HD>(out + head, dout + head, r_a, tig, T);
+  float d_b = row_dot16<HD>(out + head, dout + head, r_b, tig, T);
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
     d_a += __shfl_xor_sync(0xffffffffu, d_a, off);
@@ -181,24 +203,26 @@ bwd_dq(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtens
   const float lse_a = r_a < T ? lse2[rowbase + r_a] : 0.f;
   const float lse_b = r_b < T ? lse2[rowbase + r_b] : 0.f;
 
-  float acc[32], s[32], dp[32];
+  float acc[HD / 2], s[32], dp[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = s[i] = dp[i] = 0.f;
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
 
   mbar_wait(&bars[0], 0);
   for (int kt = 0; kt < ntiles; ++kt) {
     const int st = kt % STAGES;
-    const uint8_t* k_s = ring + (2 * st) * TILE_BYTES;
-    const uint8_t* v_s = k_s + TILE_BYTES;
+    const uint8_t* k_s = ring + (2 * st) * TB;
+    const uint8_t* v_s = k_s + TB;
     mbar_wait(&bars[1 + st], (kt / STAGES) & 1);
 
     wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc)  // S = Q K^T
-      wgmma_ss<0>(s, desc_kmajor(q_s, kc), desc_kmajor(k_s, kc), kc);
+    for (int kc = 0; kc < HT::KSTEPS; ++kc)  // S = Q K^T
+      wgmma_ss<0>(s, HT::kmajor(q_s, kc), HT::kmajor(k_s, kc), kc);
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc)  // dP = dO V^T
-      wgmma_ss<0>(dp, desc_kmajor(do_s, kc), desc_kmajor(v_s, kc), kc);
+    for (int kc = 0; kc < HT::KSTEPS; ++kc)  // dP = dO V^T
+      wgmma_ss<0>(dp, HT::kmajor(do_s, kc), HT::kmajor(v_s, kc), kc);
     wgmma_commit();
     wgmma_wait();
     fence_regs(s);
@@ -227,7 +251,7 @@ bwd_dq(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtens
     wgmma_fence();
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc)  // dQ += dS K
-      wgmma_rs<1>(acc, ds[kc], desc_mnmajor(k_s, kc), 1);
+      wgmma_rs<1>(acc, ds[kc], HT::mnmajor(k_s, kc), 1);
     wgmma_commit();
     wgmma_wait();
     fence_regs(acc);
@@ -236,13 +260,13 @@ bwd_dq(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtens
     __syncthreads();  // every warp is done with slot st
     if (tid == 0 && kt + STAGES < ntiles) {
       const int next = (kt + STAGES) * TILE;
-      mbar_expect_tx(&bars[1 + st], 2 * TILE_BYTES);
-      tma_load_tile(ring + (2 * st) * TILE_BYTES, &map_k, &bars[1 + st], next, plane);
-      tma_load_tile(ring + (2 * st + 1) * TILE_BYTES, &map_v, &bars[1 + st], next, plane);
+      mbar_expect_tx(&bars[1 + st], 2 * TB);
+      tma_load_tile(ring + (2 * st) * TB, &map_k, &bars[1 + st], next, plane);
+      tma_load_tile(ring + (2 * st + 1) * TB, &map_v, &bars[1 + st], next, plane);
     }
   }
 
-  store_rows(dq + head, acc, scale, scale, r_a, r_b, tig, T);
+  store_rows<HD>(dq + head, acc, scale, scale, r_a, r_b, tig, T);
   if (tig == 0) {
     if (r_a < T) dd[rowbase + r_a] = d_a;
     if (r_b < T) dd[rowbase + r_b] = d_b;
@@ -251,20 +275,23 @@ bwd_dq(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtens
 
 // Pass B: dK and dV of one 64-row key tile, on the transposed products
 // (keys as rows, queries as columns).
+template <int HD>
 __global__ void __launch_bounds__(NTHREADS, BLOCKS_PER_SM)
 bwd_dkv(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
         const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
         const float* __restrict__ lse2, const float* __restrict__ dd, bf16* __restrict__ dk,
         bf16* __restrict__ dv, int H, int T, int pad_lo, int pad_hi, float scale_log2,
         float scale) {
+  using HT = HeadTile<HD>;
+  constexpr int TB = HT::BYTES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   uint8_t* k_s = smem;
-  uint8_t* v_s = smem + TILE_BYTES;
-  uint8_t* ring = smem + 2 * TILE_BYTES;  // slot s: Q at 2s, dO at 2s + 1 tiles
-  float* lse_s = reinterpret_cast<float*>(smem + RING_BYTES);  // [STAGES][TILE]
-  float* dd_s = lse_s + STAGES * TILE;                          // [STAGES][TILE]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + RING_BYTES + STAT_BYTES);
+  uint8_t* v_s = smem + TB;
+  uint8_t* ring = smem + 2 * TB;  // slot s: Q at 2s, dO at 2s + 1 tiles
+  float* lse_s = reinterpret_cast<float*>(smem + ring_bytes<HD>());  // [STAGES][TILE]
+  float* dd_s = lse_s + STAGES * TILE;                                // [STAGES][TILE]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + ring_bytes<HD>() + STAT_BYTES);
 
   const int plane = blockIdx.z * H + blockIdx.y;
   const int key0 = blockIdx.x * TILE;
@@ -274,13 +301,13 @@ bwd_dkv(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUten
   if (tid == 0) {
     for (int i = 0; i <= STAGES; ++i) mbar_init(&bars[i], 1);
     mbar_init_fence();
-    mbar_expect_tx(&bars[0], 2 * TILE_BYTES);
+    mbar_expect_tx(&bars[0], 2 * TB);
     tma_load_tile(k_s, &map_k, &bars[0], key0, plane);
     tma_load_tile(v_s, &map_v, &bars[0], key0, plane);
     for (int s = 0; s < STAGES && s < ntiles; ++s) {
-      mbar_expect_tx(&bars[1 + s], 2 * TILE_BYTES);
-      tma_load_tile(ring + (2 * s) * TILE_BYTES, &map_q, &bars[1 + s], s * TILE, plane);
-      tma_load_tile(ring + (2 * s + 1) * TILE_BYTES, &map_do, &bars[1 + s], s * TILE, plane);
+      mbar_expect_tx(&bars[1 + s], 2 * TB);
+      tma_load_tile(ring + (2 * s) * TB, &map_q, &bars[1 + s], s * TILE, plane);
+      tma_load_tile(ring + (2 * s + 1) * TB, &map_do, &bars[1 + s], s * TILE, plane);
     }
   }
   // the row statistics of a query tile: threads 0-63 lse2, 64-127 D. A
@@ -303,15 +330,17 @@ bwd_dkv(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUten
   const bool off_a = masked_col(key_a, T, pad_lo, pad_hi);
   const bool off_b = masked_col(key_b, T, pad_lo, pad_hi);
 
-  float acc_k[32], acc_v[32], s[32], dp[32];
+  float acc_k[HD / 2], acc_v[HD / 2], s[32], dp[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc_k[i] = acc_v[i] = s[i] = dp[i] = 0.f;
+  for (int i = 0; i < HD / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
 
   mbar_wait(&bars[0], 0);
   for (int qt = 0; qt < ntiles; ++qt) {
     const int st = qt % STAGES;
-    const uint8_t* q_s = ring + (2 * st) * TILE_BYTES;
-    const uint8_t* do_s = q_s + TILE_BYTES;
+    const uint8_t* q_s = ring + (2 * st) * TB;
+    const uint8_t* do_s = q_s + TB;
     // this thread's statistic of the tile that refills slot st, read early
     const int nq = (qt + STAGES) * TILE + srow;
     const float pre = qt + STAGES < ntiles && nq < T ? stat[rowbase + nq] : past_end;
@@ -319,11 +348,11 @@ bwd_dkv(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUten
 
     wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc)  // S^T = K Q^T
-      wgmma_ss<0>(s, desc_kmajor(k_s, kc), desc_kmajor(q_s, kc), kc);
+    for (int kc = 0; kc < HT::KSTEPS; ++kc)  // S^T = K Q^T
+      wgmma_ss<0>(s, HT::kmajor(k_s, kc), HT::kmajor(q_s, kc), kc);
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc)  // dP^T = V dO^T
-      wgmma_ss<0>(dp, desc_kmajor(v_s, kc), desc_kmajor(do_s, kc), kc);
+    for (int kc = 0; kc < HT::KSTEPS; ++kc)  // dP^T = V dO^T
+      wgmma_ss<0>(dp, HT::kmajor(v_s, kc), HT::kmajor(do_s, kc), kc);
     wgmma_commit();
     wgmma_wait();
     fence_regs(s);
@@ -347,10 +376,10 @@ bwd_dkv(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUten
     wgmma_fence();
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc)  // dV += P^T dO
-      wgmma_rs<1>(acc_v, pa[kc], desc_mnmajor(do_s, kc), 1);
+      wgmma_rs<1>(acc_v, pa[kc], HT::mnmajor(do_s, kc), 1);
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc)  // dK += dS^T Q
-      wgmma_rs<1>(acc_k, da[kc], desc_mnmajor(q_s, kc), 1);
+      wgmma_rs<1>(acc_k, da[kc], HT::mnmajor(q_s, kc), 1);
     wgmma_commit();
     wgmma_wait();
     fence_regs(acc_v);
@@ -363,70 +392,103 @@ bwd_dkv(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUten
       stat_s[st * TILE + srow] = pre;  // read after the barrier of the next iteration
       if (tid == 0) {
         const int next = (qt + STAGES) * TILE;
-        mbar_expect_tx(&bars[1 + st], 2 * TILE_BYTES);
-        tma_load_tile(ring + (2 * st) * TILE_BYTES, &map_q, &bars[1 + st], next, plane);
-        tma_load_tile(ring + (2 * st + 1) * TILE_BYTES, &map_do, &bars[1 + st], next, plane);
+        mbar_expect_tx(&bars[1 + st], 2 * TB);
+        tma_load_tile(ring + (2 * st) * TB, &map_q, &bars[1 + st], next, plane);
+        tma_load_tile(ring + (2 * st + 1) * TB, &map_do, &bars[1 + st], next, plane);
       }
     }
   }
 
-  store_rows(dk + head, acc_k, off_a ? 0.f : scale, off_b ? 0.f : scale, key_a, key_b, tig, T);
-  store_rows(dv + head, acc_v, off_a ? 0.f : 1.f, off_b ? 0.f : 1.f, key_a, key_b, tig, T);
+  store_rows<HD>(dk + head, acc_k, off_a ? 0.f : scale, off_b ? 0.f : scale, key_a, key_b, tig,
+                 T);
+  store_rows<HD>(dv + head, acc_v, off_a ? 0.f : 1.f, off_b ? 0.f : 1.f, key_a, key_b, tig, T);
 }
 
-// one tensor map per (B*H, T, 64) input (0, or make_tile_map's code), and
+// one tensor map per (B*H, T, HD) input (0, or make_tile_map's code), and
 // the other tensors' 16-byte alignment (TMA_MISALIGNED if not)
+template <int HD>
 int make_maps(CUtensorMap (&m)[4], const void* q, const void* k, const void* v, const void* dout,
               int planes, int T, const void* x, const void* y) {
   const void* base[4] = {q, k, v, dout};
   for (int i = 0; i < 4; ++i)
-    if (int err = make_tile_map(&m[i], base[i], planes, T)) return err;
+    if (int err = HeadTile<HD>::map(&m[i], base[i], planes, T)) return err;
   if (((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15) != 0)
     return TMA_MISALIGNED;
   return 0;
+}
+
+template <int HD>
+int backward_dq(const void* q, const void* k, const void* v, const void* out, const void* dout,
+                const void* lse2, void* dq, void* dd, int B, int H, int T, int pad_lo, int pad_hi,
+                float scale_log2, float scale, cudaStream_t stream) {
+  constexpr int smem = (int)dq_smem<HD>();
+  // a runtime call first: it makes the device's context current on this
+  // thread (the autograd engine's), which the tensor-map encoding needs
+  cudaError_t err =
+      cudaFuncSetAttribute(bwd_dq<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap m[4];
+  if (int bad = make_maps<HD>(m, q, k, v, dout, B * H, T, out, dq)) return bad;
+  dim3 grid((T + TILE - 1) / TILE, H, B);
+  bwd_dq<HD><<<grid, NTHREADS, smem, stream>>>(m[0], m[1], m[2], m[3], (const bf16*)out,
+                                                (const bf16*)dout, (const float*)lse2, (bf16*)dq,
+                                                (float*)dd, H, T, pad_lo, pad_hi, scale_log2,
+                                                scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int backward_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse2,
+                 const void* dd, void* dk, void* dv, int B, int H, int T, int pad_lo, int pad_hi,
+                 float scale_log2, float scale, cudaStream_t stream) {
+  constexpr int smem = (int)dkv_smem<HD>();
+  // a runtime call first: it makes the device's context current on this
+  // thread (the autograd engine's), which the tensor-map encoding needs
+  cudaError_t err =
+      cudaFuncSetAttribute(bwd_dkv<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap m[4];
+  if (int bad = make_maps<HD>(m, q, k, v, dout, B * H, T, dk, dv)) return bad;
+  dim3 grid((T + TILE - 1) / TILE, H, B);
+  bwd_dkv<HD><<<grid, NTHREADS, smem, stream>>>(m[0], m[1], m[2], m[3], (const float*)lse2,
+                                                 (const float*)dd, (bf16*)dk, (bf16*)dv, H, T,
+                                                 pad_lo, pad_hi, scale_log2, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v, out, dout, dq: (B, H, T, 64) bf16 contiguous, 16-byte aligned;
-// lse2 (from attn_flash_forward on the same q, k) and dd: (B, H, T) f32.
-// dd is written. Returns a cudaError_t, or a code of make_tile_map (>= 998)
-// when a tensor map cannot be made.
+// q, k, v, out, dout, dq: (B, H, T, D) bf16 contiguous, 16-byte aligned,
+// D = 64 or 32 (cudaErrorInvalidValue otherwise); lse2 (from
+// attn_flash_forward on the same q, k) and dd: (B, H, T) f32. dd is
+// written. Returns a cudaError_t, or a code of make_tile_map (>= 998) when
+// a tensor map cannot be made.
 int attn_backward_dq(const void* q, const void* k, const void* v, const void* out,
                      const void* dout, const void* lse2, void* dq, void* dd, int B, int H, int T,
-                     int pad_lo, int pad_hi, float scale_log2, float scale, void* stream) {
-  // a runtime call first: it makes the device's context current on this
-  // thread (the autograd engine's), which the tensor-map encoding needs
-  cudaError_t err =
-      cudaFuncSetAttribute(bwd_dq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DQ_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  CUtensorMap m[4];
-  if (int bad = make_maps(m, q, k, v, dout, B * H, T, out, dq)) return bad;
-  dim3 grid((T + TILE - 1) / TILE, H, B);
-  bwd_dq<<<grid, NTHREADS, DQ_SMEM, (cudaStream_t)stream>>>(
-      m[0], m[1], m[2], m[3], (const bf16*)out, (const bf16*)dout, (const float*)lse2, (bf16*)dq,
-      (float*)dd, H, T, pad_lo, pad_hi, scale_log2, scale);
-  return (int)cudaGetLastError();
+                     int D, int pad_lo, int pad_hi, float scale_log2, float scale, void* stream) {
+  if (D == 64)
+    return backward_dq<64>(q, k, v, out, dout, lse2, dq, dd, B, H, T, pad_lo, pad_hi, scale_log2,
+                           scale, (cudaStream_t)stream);
+  if (D == 32)
+    return backward_dq<32>(q, k, v, out, dout, lse2, dq, dd, B, H, T, pad_lo, pad_hi, scale_log2,
+                           scale, (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
 }
 
-// dk, dv: (B, H, T, 64) bf16; dd from attn_backward_dq on the same inputs.
+// dk, dv: (B, H, T, D) bf16; dd from attn_backward_dq on the same inputs.
 int attn_backward_dkv(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse2, const void* dd, void* dk, void* dv, int B, int H, int T,
-                      int pad_lo, int pad_hi, float scale_log2, float scale, void* stream) {
-  // a runtime call first: it makes the device's context current on this
-  // thread (the autograd engine's), which the tensor-map encoding needs
-  cudaError_t err =
-      cudaFuncSetAttribute(bwd_dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DKV_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  CUtensorMap m[4];
-  if (int bad = make_maps(m, q, k, v, dout, B * H, T, dk, dv)) return bad;
-  dim3 grid((T + TILE - 1) / TILE, H, B);
-  bwd_dkv<<<grid, NTHREADS, DKV_SMEM, (cudaStream_t)stream>>>(
-      m[0], m[1], m[2], m[3], (const float*)lse2, (const float*)dd, (bf16*)dk, (bf16*)dv, H, T,
-      pad_lo, pad_hi, scale_log2, scale);
-  return (int)cudaGetLastError();
+                      int D, int pad_lo, int pad_hi, float scale_log2, float scale,
+                      void* stream) {
+  if (D == 64)
+    return backward_dkv<64>(q, k, v, dout, lse2, dd, dk, dv, B, H, T, pad_lo, pad_hi, scale_log2,
+                            scale, (cudaStream_t)stream);
+  if (D == 32)
+    return backward_dkv<32>(q, k, v, dout, lse2, dd, dk, dv, B, H, T, pad_lo, pad_hi, scale_log2,
+                            scale, (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

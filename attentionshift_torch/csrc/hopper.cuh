@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: mbarriers,
 // TMA tile and box loads from a 3-D tensor map, wgmma matrix descriptors and the
-// m64n64k16 bf16 products with f32 accumulators, and a 1024-byte aligner
+// m64n64k16 and m64n32k16 bf16 products with f32 accumulators, and a 1024-byte aligner
 // for the dynamic shared memory that holds the swizzled slots.
 //
 // Tile convention: a (64 rows, 64) bf16 tile of a (planes, rows, 64) tensor
@@ -8,6 +8,12 @@
 // into a 1024-byte aligned slot. One such tile serves wgmma in both majors:
 //   K-major   (the 64 columns are the contraction): desc_kmajor + 32 B per k16 step;
 //   MN-major  (the 64 rows are the contraction):    desc_mnmajor + 2048 B per k16 step.
+// A (64 rows, 32) tile of a (planes, rows, 32) tensor (head dim 32) is 64
+// rows of 64 bytes under CU_TENSOR_MAP_SWIZZLE_64B (make_tile_map32), in a
+// 512-byte aligned slot of 4096 bytes, with the same two uses:
+//   K-major   (two k16 steps):      desc_kmajor32 + 32 B per k16 step;
+//   MN-major  (N = 32, m64n32k16):  desc_mnmajor32 + 1024 B per k16 step.
+// HeadTile<64> and HeadTile<32> name these per head dim.
 // The tensor map is encoded on the host through the entry point that
 // cudaGetDriverEntryPoint returns, so no -lcuda is needed at link time.
 
@@ -128,8 +134,8 @@ constexpr int TMA_NO_ENTRY_POINT = 999;
 constexpr int TMA_MISALIGNED = 998;
 constexpr int TMA_REFUSED = 1000;
 
-inline int make_plane_map(CUtensorMap* map, const void* base, int planes, int rows, int cols,
-                          int box_cols, bool swizzle128) {
+inline int encode_plane_map(CUtensorMap* map, const void* base, int planes, int rows, int cols,
+                            int box_cols, CUtensorMapSwizzle swizzle) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return TMA_NO_ENTRY_POINT;
   if ((reinterpret_cast<uintptr_t>(base) & 15) != 0 || cols % 8 != 0) return TMA_MISALIGNED;
@@ -138,16 +144,28 @@ inline int make_plane_map(CUtensorMap* map, const void* base, int planes, int ro
   cuuint32_t box[3] = {(cuuint32_t)box_cols, TILE_ROWS, 1};
   cuuint32_t elem[3] = {1, 1, 1};
   CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-                      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : TMA_REFUSED + (int)r;
+}
+
+inline int make_plane_map(CUtensorMap* map, const void* base, int planes, int rows, int cols,
+                          int box_cols, bool swizzle128) {
+  return encode_plane_map(map, base, planes, rows, cols, box_cols,
+                          swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 // Map of a contiguous (planes, rows, 64) bf16 tensor with (64, 64, 1) boxes
 // under the 128-byte swizzle: the tile convention above
 inline int make_tile_map(CUtensorMap* map, const void* base, int planes, int rows) {
   return make_plane_map(map, base, planes, rows, 64, 64, true);
+}
+
+// Map of a contiguous (planes, rows, 32) bf16 tensor with (32, 64, 1) boxes
+// under the 64-byte swizzle: the 32-column tiles of the convention above
+constexpr int TILE32_BYTES = TILE_ROWS * 64;
+inline int make_tile_map32(CUtensorMap* map, const void* base, int planes, int rows) {
+  return encode_plane_map(map, base, planes, rows, 32, 32, CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 // Map of a contiguous (rows, cols) bf16 matrix (cols a multiple of 8) with
@@ -202,6 +220,54 @@ __device__ __forceinline__ uint64_t desc_mnmajor(const void* tile, int kc) {
   return make_desc(smem_addr(tile) + kc * 2048, TILE_BYTES, 1024);
 }
 
+// The same for a 32-column tile under the 64-byte swizzle (layout type 2):
+// an 8-row swizzle atom is 512 bytes, the stride between 8-row groups.
+// K-major: the 32 columns are the contraction, k16 step kc of 2, 32 B each.
+__device__ __forceinline__ uint64_t desc_kmajor32(const void* tile, int kc) {
+  return make_desc(smem_addr(tile) + kc * 32, 16, 512, 2);
+}
+
+// MN-major: the 64 rows are the contraction (16 rows of 64 B per k16
+// step), the 32 columns N, one swizzle atom wide
+__device__ __forceinline__ uint64_t desc_mnmajor32(const void* tile, int kc) {
+  return make_desc(smem_addr(tile) + kc * 1024, TILE32_BYTES, 512, 2);
+}
+
+// What a head dim's tiles are: bytes per 64-row tile, k16 steps of a
+// product that contracts over the head dim, descriptors, tensor map
+template <int HD>
+struct HeadTile;
+
+template <>
+struct HeadTile<64> {
+  static constexpr int BYTES = TILE_BYTES;
+  static constexpr int KSTEPS = 4;
+  __device__ static __forceinline__ uint64_t kmajor(const void* t, int kc) {
+    return desc_kmajor(t, kc);
+  }
+  __device__ static __forceinline__ uint64_t mnmajor(const void* t, int kc) {
+    return desc_mnmajor(t, kc);
+  }
+  static int map(CUtensorMap* m, const void* base, int planes, int rows) {
+    return make_tile_map(m, base, planes, rows);
+  }
+};
+
+template <>
+struct HeadTile<32> {
+  static constexpr int BYTES = TILE32_BYTES;
+  static constexpr int KSTEPS = 2;
+  __device__ static __forceinline__ uint64_t kmajor(const void* t, int kc) {
+    return desc_kmajor32(t, kc);
+  }
+  __device__ static __forceinline__ uint64_t mnmajor(const void* t, int kc) {
+    return desc_mnmajor32(t, kc);
+  }
+  static int map(CUtensorMap* m, const void* base, int planes, int rows) {
+    return make_tile_map32(m, base, planes, rows);
+  }
+};
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -217,6 +283,10 @@ __device__ __forceinline__ void wgmma_wait() {
 __device__ __forceinline__ void fence_regs(float (&d)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_regs(float (&d)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 __device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
 #pragma unroll
@@ -264,7 +334,30 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
 #undef HOPPER_D32
 #undef HOPPER_D32_OUT
 
-// Accumulator layout of m64n64 (f32, 32 per thread): d[4j + i] is row
+#define HOPPER_D16 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define HOPPER_D16_OUT(d)                                                                     \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),         \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+      "+f"(d[14]), "+f"(d[15])
+
+// D (64 x 32, f32) (+)= A (64 x 16 in registers, as above) * B (16 x 32,
+// slot of either major): m64n32k16, the products whose N is head dim 32
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " HOPPER_D16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : HOPPER_D16_OUT(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(acc), "n"(TRANS_B));
+}
+
+#undef HOPPER_D16
+#undef HOPPER_D16_OUT
+
+// Accumulator layout of m64n64 (f32, 32 per thread; m64n32: 16, j < 4): d[4j + i] is row
 // 16*warp + lane/4 + 8*(i >> 1), column 8j + 2*(lane % 4) + (i & 1). The
 // A fragment of k16 step kc of a product that contracts over those 64
 // columns is d[8kc .. 8kc + 7], rounded to bf16 pairs:

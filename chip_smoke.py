@@ -19,7 +19,13 @@ Phases, each printing its own lines:
    every kernel the microbenchmark launches also on its own inputs,
    (1, 6, 4301, 64): an odd T with a ragged last tile; each mean entry
    within ``attention_variants.mean_limit``; every variant also bitwise
-   equal in two calls; v5's cluster size printed);
+   equal in two calls; v5's cluster size printed; the capture pair's mean
+   entry by entry within one bf16 step, ``attention.capture_mean_limit``,
+   with controls that must fail it: the temperature 10 % off and the last
+   head off); the four attention kernels at head dim 32 and above the mean
+   pass's resident heads, forward and backward pair, each check with a
+   control: (1, 24, 1276, 32), (1, 6, 4352, 32) with the bench gap,
+   (1, 24, 1276, 64), (2, 17, 300, 64), (1, 24, 190, 32) over seeds 0-15;
 4. ``AttnShiftDetector.seed_pseudo_gt`` at the full width of
    ``configs/attnshift_voc12aug.py`` (ViT-S) with seeded random weights,
    800x1344, bf16: output shapes, finite maps, and kernel launch counts
@@ -111,7 +117,20 @@ Phases, each printing its own lines:
    inputs (D = 768, 12 heads). Each with its ms per micro-step and peak
    memory beside the card's name and power limit, the COCO one with a
    profiled micro-step;
-13. times with CUDA events: every kernel, its plain version, the library
+13. Swin (``configs/attnshift_voc12aug_swin.py``'s ``swin`` dict: embed 96,
+   depths 2/2/6/2, heads 3/6/12/24, window 7, 100 point tokens, 4 global
+   blocks, 20 classes; seeded random weights, bf16, batch 1) at 896x1344,
+   the smallest size at or above the bench's whose every stage map the
+   window 7 divides: one forward (exactly 4 ``flash_fwd`` + ``attn_mean``
+   launches at (1, 24, 1276, 32)), the rollout and ``candidate_boxes`` at
+   cam stride 8 (one CCL launch on (112, 168) planes), one backward of a
+   scalar of ``outputs_class``, ``outputs_coord`` and ``last_feat``
+   (exactly 4 + 4 backward launches at head dim 32); shapes, finite
+   values, boxes, gradients; the kernels on the path's own q, k, v and
+   upstream gradient; the whole forward against the same module with
+   plain attention on the card; host ms, profiled device busy, peak
+   memory. Then the memory bank and Sinkhorn on the card against the CPU;
+14. times with CUDA events: every kernel, its plain version, the library
    call where one exists, ms/img of the pseudo-label path and of
    inference and ms per train step, each with one profiled call. The
    attention kernels and their SDPA yardsticks (the forward with the same
@@ -136,7 +155,10 @@ Phases, each printing its own lines:
    phase's batch-1 step, ms waiting on the loader, one profiled micro-step
    (busy share, syncs, host reads of a scalar, launches), peak memory at
    batch 2, checkpoint save and restore seconds, eval seconds per val
-   image; the dump's ms/img and one profiled image.
+   image; the dump's ms/img and one profiled image. The d = 32 kernels
+   at Swin's (1, 24, 1276, 32) on that path's inputs, read in turns with
+   SDPA's forward and backward, with their exp floors; the d = 64 mean
+   pass streamed at 24 heads beside the resident one at 12.
 
 A failing phase raises and the script exits non-zero. The line before
 the last is the kernel table as JSON; the last line is
@@ -195,6 +217,7 @@ ABLATIONS = {
         "flash: 5 ring slots": ("FWD_STAGES=5",),
         "mean: 3 ring slots": ("MEAN_STAGES=3",),
         "mean: chunks of at most 2 key tiles": ("MEAN_MAX_CHUNK=2",),
+        "mean: query tiles streamed, none resident": ("MEAN_RESIDENT_BYTES=0",),
     },
     "attention_variants": {
         "as built": (),
@@ -285,12 +308,20 @@ def ptxas_usage(out: str) -> dict:
 
 def registers(source: str, kernel: str) -> str:
     """``kernel``'s registers and spills as this run's build of ``source``
-    reported them (its name in the anonymous namespace of the source)."""
+    reported them (its name in the anonymous namespace of the source; a
+    template's instances each, e.g. ``flash_fwd<64>``)."""
+    import re
+
+    found = []
     for mangled, use in PTXAS.get((source, ()), {}).items():
-        if f"{len(kernel)}{kernel}E" in mangled:
-            return (f"{kernel} {use.get('registers', '?')} registers, spills "
-                    f"{use.get('spill_stores', '?')}/{use.get('spill_loads', '?')} B")
-    return f"{kernel} registers not read (library built before this run)"
+        m = re.search(rf"{len(kernel)}{kernel}(E|I((?:L[ib]\d+E)+)E)", mangled)
+        if m:
+            targs = ", ".join({"b0": "false", "b1": "true"}.get(a, a[1:]) for a in
+                              re.findall(r"L([ib]\d+)E", m.group(2) or ""))
+            found.append(f"{kernel}{f'<{targs}>' if targs else ''} {use.get('registers', '?')} "
+                         f"registers, spills {use.get('spill_stores', '?')}/"
+                         f"{use.get('spill_loads', '?')} B")
+    return "; ".join(found) or f"{kernel} registers not read (library built before this run)"
 
 
 def phase_build(targets=None):
@@ -471,8 +502,7 @@ def phase_kernels(results: dict, inp: dict):
         f"{e_nogap:.3e} must exceed {out_tol:.1e}: {'ok' if e_nogap > out_tol else 'FAIL'}")
     if not e_nogap > out_tol:
         raise AssertionError(f"attention.out check cannot see the pad gap: {e_nogap} <= {out_tol}")
-    expect("attention_capture.mean", e_mean, 2e-3 * float(ref_mean.float().abs().max()),
-           "bf16 storage of the mean: 2^-9 relative, times the largest entry")
+    expect_capture_mean("attention_capture.mean", mean, ref_mean, (q, k, v, PAD_GAP))
     gap = mean[:, :, PAD_GAP[0]:PAD_GAP[1]].float().abs().max().item()
     expect("attention_capture.gap_columns", gap, 0.0, "pad-gap columns carry exactly 0")
     results["attention_capture"] = dict(max_abs_err=max(e_out, e_mean))
@@ -500,13 +530,12 @@ def phase_kernels(results: dict, inp: dict):
     sync()
     out_tol = bf16_ulps(ref_out, 4)
     expect("attention_capture.tool_input.out", max_err(out, ref_out), out_tol, why_out)
-    expect("attention_capture.tool_input.mean", max_err(mean, ref_mean),
-           2e-3 * float(ref_mean.float().abs().max()),
-           "bf16 storage of the mean: 2^-9 relative, times the largest entry")
+    expect_capture_mean("attention_capture.tool_input.mean", mean, ref_mean, (tq, tk, tv, None))
     expect("attention_plain.tool_input.out", max_err(out2, ref_out), out_tol, why_out)
     del ref_out, ref_mean, out, mean, out2
 
     phase_backward_kernels(results, inp)
+    phase_head_shape_kernels(results, q.device)
     phase_variant_kernels(results, inp)
 
     masks = inp["masks"]
@@ -602,6 +631,38 @@ def phase_backward_kernels(results: dict, inp: dict):
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         expect(f"attention_bwd.tool_input.{name}", max_err(a, b), bf16_ulps(b, 4),
                "4 bf16 ulps of the largest gradient, T = 4301: a ragged last tile")
+
+
+def expect_capture_mean(name: str, mean, want, controls=None) -> None:
+    """The capture pair's head mean against the plain version's, entry by
+    entry, within ``attention.capture_mean_limit`` (one bf16 step of the
+    entry, + 2^-126: both sides round one f32 mean; derived in its
+    docstring). ``controls`` (q, k, v, gap): the plain mean with the
+    temperature off (q x 1.1) and with the last head off must both fail
+    the same limit, or the check could not see either."""
+    from attentionshift_torch.ops import attention
+
+    over = mean_over(mean, want, attention.capture_mean_limit(want))
+    ok = over <= 1.0
+    log(f"[check] {name}: max_abs_err {max_err(mean, want):.3e}, worst entry at {over:.3f}x its "
+        f"limit (one bf16 step of each entry + 2^-126): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: a mean entry at {over}x its limit")
+    if controls is None:
+        return
+    q, k, v, gap = controls
+    h = q.shape[1]
+    for what, (cq, ck, cv) in (("temperature off (q x 1.1)", ((q.float() * 1.1).to(q.dtype), k, v)),
+                               ("last head off", (q[:, :h - 1], k[:, :h - 1], v[:, :h - 1]))):
+        if cq.shape[1] == 0:
+            continue
+        ctl = attention.attention_reference(cq, ck, cv, gap)[1]
+        c_over = mean_over(mean, ctl, attention.capture_mean_limit(ctl))
+        log(f"[check] {name} control (plain mean with the {what}): worst entry at "
+            f"{c_over:.3f}x its limit, must exceed 1: {'ok' if c_over > 1.0 else 'FAIL'}")
+        if not c_over > 1.0:
+            raise AssertionError(f"{name}: the mean check cannot see the {what}")
+        del ctl
 
 
 def mean_over(mean, want, limit) -> float:
@@ -2243,7 +2304,7 @@ def check_kernels_on(tag: str, handed: dict) -> dict:
     shapes they had."""
     import torch
 
-    from attentionshift_torch.ops import attention, ccl, numerics
+    from attentionshift_torch.ops import attention, ccl
 
     (masks, *rest), kw = handed["connected_components_batch"]
     iters = kw.get("max_iters", rest[0] if rest else 256)
@@ -2259,13 +2320,7 @@ def check_kernels_on(tag: str, handed: dict) -> dict:
     out, mean = attention.attention_with_capture(q, k, v, pad)
     expect(f"{tag}.attention_capture.out", max_err(out, ref_out), bf16_ulps(ref_out, 4),
            "4 bf16 ulps of the largest |out|: bf16 output and bf16 probabilities in PV")
-    # both sides round one f32 mean to bf16, equal up to ~2^-17 of it
-    # (ex2.approx, summation order): one bf16 step of the entry apart at
-    # most, plus 2^-126 where the kernel's exp2 flushes a subnormal
-    limit = numerics.bf16_steps(ref_mean) + 2.0**-126
-    expect(f"{tag}.attention_capture.mean (worst entry / its limit)",
-           mean_over(mean, ref_mean, limit), 1.0,
-           "one bf16 step of each entry: both sides round the same f32 mean")
+    expect_capture_mean(f"{tag}.attention_capture.mean", mean, ref_mean)
     sync()
     shapes = dict(ccl_planes=tuple(masks.shape), meanshift=dict(
         G=prot0.shape[0], K=prot0.shape[1], N=f.shape[0], D=f.shape[1],
@@ -2599,6 +2654,412 @@ def phase_vitb_cli(cc: dict, smi: str) -> dict:
                   what="ViT-B COCO train CLI micro-step (batch 2)")
     del run
     return total
+
+
+# Swin's full-width path (configs/attnshift_voc12aug_swin.py's `swin` dict:
+# embed 96, depths 2/2/6/2, heads 3/6/12/24, window 7, 100 point tokens, 4
+# global blocks) at the smallest geometry at or above the bench's 800x1344
+# that the JAX Swin runs: every stage's map divisible by the window 7, so
+# the height a multiple of 4 * 8 * 7 = 224 (800x1344 fails its reshape)
+SWIN_H, SWIN_W = 896, 1344
+SWIN_GRID = (SWIN_H // 32, SWIN_W // 32)  # (28, 42): 1176 patches
+SWIN_POINTS = 100
+SWIN_T = SWIN_GRID[0] * SWIN_GRID[1] + SWIN_POINTS  # 1276 tokens in the global blocks
+SWIN_CAM_STRIDE = 8  # the config's cam_stride: CCL on (112, 168) planes
+SWIN_FWD_LAUNCHES = dict(attention_capture_d32=4, ccl_batch=1)
+SWIN_BWD_LAUNCHES = dict(attention_bwd_dq_d32=4, attention_bwd_dkv_d32=4)
+# the attention pairs at head shapes beyond the ViT's, each forward and
+# backward pair against its plain version: (shape, gap, seeds)
+HEAD_SHAPE_CASES = (((1, 24, SWIN_T, 32), None, (0,)),
+                    ((1, HEADS, T_PAD, 32), PAD_GAP, (0,)),
+                    ((1, 24, SWIN_T, 64), None, (0,)),
+                    ((2, 17, 300, 64), None, (0,)),
+                    ((1, 24, 190, 32), None, tuple(range(16))))
+
+
+def check_attention_pair(tag: str, q, k, v, g, gap, quiet: bool = False) -> dict:
+    """Both attention pairs on (q, k, v) and upstream gradient ``g`` against
+    their plain versions: ``out`` of both ops within 4 bf16 ulps of the
+    largest |out|, each mean entry within ``capture_mean_limit``, dq, dk,
+    dv within 4 bf16 ulps of each one's largest entry, gap columns of the
+    mean, dk and dv exactly 0. Controls, each of which must fail its
+    check: the plain versions without the scale d^-0.5 for out and the
+    gradients (a temperature 10 % off moves too little where the
+    attention is flat, as it is on a randomly initialised path); the
+    temperature 10 % off and the last head off for the mean. Returns the
+    largest errors per kernel."""
+    import torch
+
+    from attentionshift_torch.ops import attention
+
+    say = (lambda *a: None) if quiet else log
+    ref_out, ref_mean = attention.attention_reference(q, k, v, gap)
+    unscaled = (q.float() * q.shape[-1] ** 0.5).to(q.dtype)
+    ctl_out = attention.attention_reference(unscaled, k, v, gap)[0]
+    out, mean = attention.attention_with_capture(q, k, v, gap)
+    out2 = attention.attention_no_capture(q, k, v, gap)
+    sync()
+    tol = bf16_ulps(ref_out, 4)
+    errs = dict(capture=max_err(out, ref_out), plain=max_err(out2, ref_out))
+    for name, e in errs.items():
+        if e > tol:
+            raise AssertionError(f"{tag}.{name}.out: max_abs_err {e} > {tol}")
+    ctl = max_err(out, ctl_out)
+    if not ctl > tol:
+        raise AssertionError(f"{tag}: the out check cannot see the scale left out ({ctl})")
+    say(f"[check] {tag}.out: capture {errs['capture']:.3e}, plain {errs['plain']:.3e} <= "
+        f"{tol:.1e} (4 bf16 ulps of the largest |out|); control (no d^-0.5) {ctl:.3e}: ok")
+    if quiet:
+        over = mean_over(mean, ref_mean, attention.capture_mean_limit(ref_mean))
+        if over > 1.0:
+            raise AssertionError(f"{tag}.mean: an entry at {over}x its limit")
+    else:
+        expect_capture_mean(f"{tag}.mean", mean, ref_mean, (q, k, v, gap))
+    errs["capture"] = max(errs["capture"], max_err(mean, ref_mean))
+    if gap is not None and float(mean[:, :, gap[0]:gap[1]].float().abs().max()) != 0.0:
+        raise AssertionError(f"{tag}.mean: gap columns not 0")
+    del ref_out, ref_mean, ctl_out, out, mean, out2
+    want = attention.attention_backward_reference(q, k, v, g, gap)
+    ctl_want = attention.attention_backward_reference(unscaled, k, v, g, gap)
+    for op in (attention.attention_no_capture, attention.attention_with_capture):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        o = op(*leaves, gap)
+        got = torch.autograd.grad(o[0] if isinstance(o, tuple) else o, leaves, g)
+        sync()
+        for name, a, w, c in zip(("dq", "dk", "dv"), got, want, ctl_want):
+            gtol, e, ce = bf16_ulps(w, 4), max_err(a, w), max_err(a, c)
+            if e > gtol:
+                raise AssertionError(f"{tag}.{op.__name__}.{name}: max_abs_err {e} > {gtol}")
+            if not ce > gtol:
+                raise AssertionError(f"{tag}.{name}: the check cannot see the scale left out")
+            key = "dq" if name == "dq" else "dkv"
+            errs[key] = max(errs.get(key, 0.0), e)
+            if gap is not None and name != "dq" and \
+                    float(a[:, :, gap[0]:gap[1]].float().abs().max()) != 0.0:
+                raise AssertionError(f"{tag}.{name}: gap columns not 0")
+    say(f"[check] {tag}: dq {errs['dq']:.3e}, dk/dv {errs['dkv']:.3e} within 4 bf16 ulps of "
+        f"each gradient's largest entry, both ops; control (no d^-0.5) fails: ok")
+    return errs
+
+
+def phase_head_shape_kernels(results: dict, dev) -> None:
+    """The four attention kernels at head dim 32 and above the mean pass's
+    resident heads (``HEAD_SHAPE_CASES``), forward and backward pairs
+    through the ops against the plain versions. The d = 32 instances'
+    errors kept for the kernel table are those at Swin's (1, 24, 1276, 32)."""
+    import torch
+
+    for shape, gap, seeds in HEAD_SHAPE_CASES:
+        worst: dict = {}
+        for seed in seeds:
+            gen = torch.Generator(device=dev).manual_seed(100 + seed)
+            q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                          for _ in range(4))
+            if gap is not None:  # the gap's rows have no consumer in the model
+                g[:, :, gap[0]:gap[1]] = 0
+            errs = check_attention_pair(f"heads{shape}{'' if gap is None else ' gap'} seed {seed}",
+                                        q, k, v, g, gap, quiet=len(seeds) > 1)
+            worst = {n: max(worst.get(n, 0.0), e) for n, e in errs.items()}
+            del q, k, v, g
+        log(f"[check] head shape {shape} gap {gap}, {len(seeds)} seed(s): worst errors "
+            f"{ {n: float(f'{e:.3e}') for n, e in worst.items()} }: ok")
+        if shape == (1, 24, SWIN_T, 32):
+            for name, key in (("attention_capture_d32", "capture"), ("attention_plain_d32", "plain"),
+                              ("attention_bwd_dq_d32", "dq"), ("attention_bwd_dkv_d32", "dkv")):
+                results[name] = dict(max_abs_err=worst[key])
+
+
+def swin_model(dev, use_kernel: bool = True):
+    """The port's Swin of ``configs/attnshift_voc12aug_swin.py`` as it is
+    (its ``swin`` dict, 20 classes), seeded random weights, bf16, built
+    for SWIN_H x SWIN_W."""
+    import torch
+
+    from attentionshift_torch.config import Config
+    from attentionshift_torch.models.swin import SwinTransformer
+
+    cfg = Config.fromfile(os.path.join(HERE, "configs", "attnshift_voc12aug_swin.py"))
+    kw = dict(cfg.swin.to_dict(), num_classes=int(cfg.model.num_classes))
+    return SwinTransformer(**kw, img_size=(SWIN_H, SWIN_W), use_kernel=use_kernel,
+                           dtype=torch.bfloat16, device=dev).init_weights(seed=0)
+
+
+def phase_swin(dev, smi: str) -> dict:
+    """Swin's full-width path on the card: one forward at SWIN_H x SWIN_W
+    (4 capture launches at (1, 24, 1276, 32)), the attention rollout and
+    ``candidate_boxes`` at the config's cam stride (8 of 20 point slots
+    valid, drawn as the bench draws them), one backward of a scalar of
+    ``outputs_class``, ``outputs_coord`` and ``last_feat``; launch counts
+    asserted per part, the kernels held on the path's own q, k, v and
+    upstream gradient, the whole forward against the same module with
+    ``use_kernel=False`` on the card, times and peak memory."""
+    import numpy as np
+    import torch
+
+    from attentionshift_torch.ops import attention
+    from attentionshift_torch.ops._build import reset_launches
+    from attentionshift_torch.pseudo.engine import candidate_boxes
+    from attentionshift_torch.pseudo.rollout import attention_rollout_point_rows
+
+    model = swin_model(dev)
+    img = torch.from_numpy(np.random.RandomState(0).randn(1, SWIN_H, SWIN_W, 3)
+                           .astype(np.float32)).to(dev)
+    _, pts, _, valid, _ = slice_inputs(SWIN_H, SWIN_W, MAX_GT, N_VALID, dev)
+    tokens = torch.arange(MAX_GT, device=dev)
+    rs = np.random.RandomState(5)
+    weights = {k: torch.from_numpy(rs.randn(*s).astype(np.float32)).to(dev) for k, s in (
+        ("outputs_class", (1, SWIN_POINTS, 20)), ("outputs_coord", (1, SWIN_POINTS, 2)),
+        ("last_feat", (1, 1 + SWIN_T - SWIN_POINTS, 768)))}
+
+    def forward():
+        out = model(img)
+        roll = attention_rollout_point_rows(out["attns"], SWIN_POINTS)
+        boxes, _ = candidate_boxes(roll[:, 0], tokens, pts[0], SWIN_GRID, (SWIN_H, SWIN_W),
+                                   cam_stride=SWIN_CAM_STRIDE, valid=valid[0])
+        return out, boxes
+
+    def backward(out):
+        sum((out[k].float() * w).sum() for k, w in weights.items()).backward()
+
+    handed: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    with recording(attention, "attention_backward_dq", handed):
+        reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        out, boxes = forward()
+        sync()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        fwd = launch_counts()
+        reset_launches()
+        t0 = time.perf_counter()
+        backward(out)
+        sync()
+        bwd_ms = (time.perf_counter() - t0) * 1e3
+        bwd = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    for what, got, want in (("forward + boxes", fwd, SWIN_FWD_LAUNCHES),
+                            ("backward", bwd, SWIN_BWD_LAUNCHES)):
+        if got != expected_launches(**want):
+            raise AssertionError(f"swin {what} launches {nonzero(got)} != {want}")
+    log(f"[swin] launches: forward + boxes {nonzero(fwd)}, backward {nonzero(bwd)}")
+    t = SWIN_T + 1
+    shapes = dict(attns=(4, 1, t, t), last_feat=(1, t - SWIN_POINTS, 768),
+                  point_tokens=(1, SWIN_POINTS, 768), outputs_class=(1, SWIN_POINTS, 20),
+                  outputs_coord=(1, SWIN_POINTS, 2))
+    for key, shape in shapes.items():
+        assert tuple(out[key].shape) == shape, (key, tuple(out[key].shape))
+        assert bool(torch.isfinite(out[key].float()).all()), f"swin {key} not finite"
+    pyramid = [tuple(f.shape) for f in out["feature"]]
+    assert pyramid == [(1, SWIN_H // s, SWIN_W // s, c) for s, c in ((4, 96), (8, 192),
+                                                                      (16, 384), (32, 768))]
+    assert float(out["attns"][:, :, 0].float().abs().max()) == 0.0  # the zero cls row
+    coord = out["outputs_coord"].float()
+    assert bool(((coord >= 0) & (coord <= 1)).all())
+    assert tuple(boxes.shape) == (MAX_GT, 4, 4) and bool(torch.isfinite(boxes).all())
+    moved = [n for n, p in model.named_parameters()
+             if p.grad is not None and bool(p.grad.abs().max() > 0)]
+    assert all(bool(torch.isfinite(p.grad).all()) for p in model.parameters() if p.grad is not None)
+    for part in ("global_block0.", "global_block3.", "stage0_block0.", "stage3_block1."):
+        assert any(n.startswith(part) for n in moved), f"no gradient in {part}"
+    log(f"[swin] outputs ok: pyramid {pyramid}, attns {tuple(out['attns'].shape)}, boxes of the "
+        f"{N_VALID} valid points {boxes[:N_VALID, -1].tolist()}, gradients in {len(moved)} of "
+        f"{len(list(model.parameters()))} parameter tensors")
+    # the kernels on the path's own inputs: global block 0's q, k, v and the
+    # upstream gradient its backward was handed
+    (q, k, v, _, _, g, gap), _ = handed["attention_backward_dq"]
+    assert tuple(q.shape) == (1, 24, SWIN_T, 32) and gap is None
+    errs = check_attention_pair("swin path inputs", q, k, v, g, gap)
+    # the whole bf16 forward against the same module with use_kernel=False
+    plain = swin_model(dev, use_kernel=False)
+    plain.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        got, ref = model(img), plain(img)
+    for key, rel in (("attns", 2e-2), ("last_feat", 5e-2), ("outputs_class", 5e-2),
+                     ("outputs_coord", 2e-2)):
+        r = ref[key].float()
+        expect(f"swin.forward.{key}", max_err(got[key], r), rel * max(float(r.abs().max()), 1e-6),
+               "kernels vs plain attention in the bf16 global blocks, on the card: relative to "
+               "the largest value, as phase_small_reference")
+    del plain, got, ref
+    log(f"[swin] {smi}: forward + rollout + boxes {fwd_ms:.2f} ms, backward {bwd_ms:.2f} ms "
+        f"(host clock, first call, ending in synchronize), peak {peak:.0f} MiB")
+
+    def run():
+        o, _ = forward()
+        backward(o)
+
+    run()
+    sync()
+    t0 = time.perf_counter()
+    run()
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    log(f"[swin] {smi}: forward + boxes + backward {ms:.2f} ms (host clock, second call)")
+    _, busy = profile_slice(run, ms, what="Swin forward + boxes + backward")
+    launches = {n: fwd[n] + bwd[n] for n in fwd}
+    return dict(launches=launches, qkv=(q, k, v), g=g, errs=errs, ms=ms, busy=busy, peak=peak)
+
+
+def phase_swin_times(results: dict, sw: dict, smi: str) -> None:
+    """The d = 32 instances at Swin's (1, 24, 1276, 32), on the path's own
+    inputs: flash_fwd read in turns with SDPA's forward, the backward pair
+    in turns with SDPA's backward (medians of 6), each kernel alone, its
+    plain version and its bound, with the exp floor at the SM clock read
+    under the d = 32 flash pass; then the d = 64 mean pass streamed at 24
+    heads beside the resident one at 12 (T = 1276, in turns)."""
+    import torch
+    import torch.nn.functional as F
+
+    from attentionshift_torch.ops import attention
+
+    q, k, v = sw["qkv"]
+    g = sw["g"]
+    b, h, t, d = q.shape
+    qkv_bytes = 3 * q.numel() * 2
+    flops = 4.0 * b * h * t * t * d
+    (plain_ms, sdpa_fwd), (plain_reads, sdpa_reads) = in_turns(
+        lambda: attention.attention_no_capture(q, k, v),
+        lambda: F.scaled_dot_product_attention(q, k, v))
+    out, lse = attention.flash_forward(q, k, v, None, with_lse=True)
+    mean_ms = median_time(lambda: attention._mean(q, k, lse, None))
+    _, dd = attention.attention_backward_dq(q, k, v, out, lse, g)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves)
+
+    def pair():
+        attention.attention_backward_dq(q, k, v, out, lse, g)
+        attention.attention_backward_dkv(q, k, v, lse, dd, g)
+
+    (pair_ms, lib_bwd), (pair_reads, lib_reads) = in_turns(
+        pair, lambda: torch.autograd.grad(sdpa_out, leaves, g, retain_graph=True))
+    del sdpa_out, leaves
+    plain_bwd = cuda_time(lambda: attention.attention_backward_reference(q, k, v, g), reps=3)
+    clk, clk_max = sm_clock_under_load(lambda: attention.flash_forward(q, k, v, None, False))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    exp_rate = EXP2_PER_CLOCK_PER_SM * sms * clk * 1e6
+    exps = float(b * h * t * t)
+    stat_bytes = 2 * b * h * t * 4
+    times = {
+        "attention_capture_d32": dict(
+            ms=median_time(lambda: attention.attention_with_capture(q, k, v)),
+            plain_ms=cuda_time(lambda: attention.attention_reference(q, k, v), reps=3),
+            library_ms=None, bytes=qkv_bytes + q.numel() * 2 + b * t * t * 2, ops=flops,
+            exps=2 * exps),
+        "attention_plain_d32": dict(
+            ms=plain_ms,
+            plain_ms=cuda_time(lambda: attention.attention_reference(q, k, v)[0], reps=3),
+            library_ms=sdpa_fwd, bytes=qkv_bytes + q.numel() * 2, ops=flops, exps=exps),
+        "attention_bwd_dq_d32": dict(
+            ms=median_time(lambda: attention.attention_backward_dq(q, k, v, out, lse, g)),
+            plain_ms=plain_bwd, library_ms=lib_bwd, bytes=6 * q.numel() * 2 + stat_bytes,
+            ops=6.0 * b * h * t * t * d, exps=exps),
+        "attention_bwd_dkv_d32": dict(
+            ms=median_time(lambda: attention.attention_backward_dkv(q, k, v, lse, dd, g)),
+            plain_ms=plain_bwd, library_ms=lib_bwd, bytes=6 * q.numel() * 2 + stat_bytes,
+            ops=8.0 * b * h * t * t * d, exps=exps),
+    }
+    log(f"[time] {smi}: Swin shape {tuple(q.shape)}; SM clock under the d = 32 flash pass "
+        f"{clk:.0f} MHz (max {clk_max:.0f}), {sms} SMs")
+    log(f"[time] d32 flash_fwd {plain_ms:.4f} ms = {plain_ms / sdpa_fwd:.2f}x SDPA's forward "
+        f"({sdpa_fwd:.4f} ms); readings in turns: kernel {[round(x, 4) for x in plain_reads]}, "
+        f"SDPA {[round(x, 4) for x in sdpa_reads]}")
+    log(f"[time] d32 mean pass alone {mean_ms:.4f} ms, exp floor {exps / exp_rate * 1e3:.4f} ms")
+    log(f"[time] d32 backward pair {pair_ms:.4f} ms = {pair_ms / lib_bwd:.2f}x SDPA's backward "
+        f"({lib_bwd:.4f} ms); readings in turns: pair {[round(x, 4) for x in pair_reads]}, "
+        f"SDPA {[round(x, 4) for x in lib_reads]}")
+    for name, tm in times.items():
+        t_bytes = tm["bytes"] / PEAK_BYTES * 1e3
+        t_ops = tm["ops"] / PEAK_BF16 * 1e3
+        floor = tm["exps"] / exp_rate * 1e3
+        results[name].update(
+            ms=tm["ms"], plain_ms=tm["plain_ms"], library_ms=tm["library_ms"],
+            bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+            exp_floor_ms=floor)
+        log(f"[time] {name}: kernel {tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, library "
+            f"{tm['library_ms'] if tm['library_ms'] is None else round(tm['library_ms'], 4)} ms, "
+            f"bound {results[name]['bound_ms']:.4f} ms ({results[name]['bound_by']}), exp floor "
+            f"{floor:.4f} ms, {tm['ops'] / (tm['ms'] * 1e-3) / 1e12:.1f} TFLOP/s")
+    results["attention_capture_d32"]["mean_pass_ms"] = mean_ms
+    # the d = 64 mean pass: query tiles streamed at 24 heads, resident at 12
+    gen = torch.Generator(device=q.device).manual_seed(7)
+    mq = {hh: tuple(torch.randn((1, hh, t, 64), generator=gen, device=q.device)
+                    .to(torch.bfloat16) for _ in range(2)) for hh in (24, 12)}
+    lses = {hh: attention.flash_forward(mq[hh][0], mq[hh][1], mq[hh][1], None, True)[1]
+            for hh in mq}
+    resident = attention.forward_library().attn_mean_resident_heads(64)
+    (ms24, ms12), (r24, r12) = in_turns(
+        lambda: attention._mean(mq[24][0], mq[24][1], lses[24], None),
+        lambda: attention._mean(mq[12][0], mq[12][1], lses[12], None))
+    log(f"[time] d64 mean pass at T = {t}: 24 heads (streamed, above the {resident} resident) "
+        f"{ms24:.4f} ms = {ms24 / 24 * 1e3:.2f} us per head; 12 heads (resident) {ms12:.4f} ms = "
+        f"{ms12 / 12 * 1e3:.2f} us per head; readings in turns {[round(x, 4) for x in r24]}, "
+        f"{[round(x, 4) for x in r12]}")
+    results["attention_capture"]["mean_pass_ms_24_heads_streamed"] = ms24
+    results["attention_capture"]["mean_pass_ms_12_heads_resident"] = ms12
+
+
+def phase_bank(dev) -> None:
+    """The memory bank and the Sinkhorn solver (plain tensor code, no
+    kernel) on the card against the same calls on the CPU in f32, at the
+    JAX package's test sizes: bank fields and retrieval masks exactly,
+    align losses, plans and cosines to 1e-5 of their largest magnitude
+    (f32 sums in another order), the Hough correspondence to 1e-3 of its
+    largest |C| (its row sums come near 0)."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from attentionshift_torch.models import memory_bank as mb
+
+    sk = importlib.import_module("attentionshift_torch.core.sinkhorn")
+    rs = np.random.RandomState(0)
+    objs = [dict(cls=int(rs.randint(3)), token=rs.randn(8).astype(np.float32),
+                 parts=rs.randn(3, 8).astype(np.float32), pv=rs.rand(3) > 0.3,
+                 box=np.asarray([0, 0, 5 + 20 * rs.rand(), 5 + 20 * rs.rand()], np.float32),
+                 enable=i != 3) for i in range(7)]
+    got = {}
+    for where in (dev, torch.device("cpu")):
+        bank = mb.init_bank(3, 4, 3, 8, device=where)
+        t = {k: {n: torch.as_tensor(o[n]).to(where) for n in ("token", "parts", "pv", "box")}
+             for k, o in enumerate(objs)}
+        for i, o in enumerate(objs):
+            bank = mb.bank_append(bank, torch.tensor(o["cls"], device=where), t[i]["token"],
+                                  t[i]["parts"], t[i]["pv"], t[i]["box"], enable=o["enable"])
+        keeps = [mb.retrieve_similar(bank, o["cls"], t[i]["token"], t[i]["box"], 0.0, (0.2, 5.0))
+                 for i, o in enumerate(objs)]
+        losses = torch.stack([mb.align_loss(bank, o["cls"], t[i]["token"], t[i]["parts"],
+                                            t[i]["pv"], t[i]["box"], 0.0, (0.2, 5.0))
+                              for i, o in enumerate(objs)])
+        cost = torch.from_numpy(np.random.RandomState(1).rand(5, 7).astype(np.float32)).to(where)
+        fa = torch.from_numpy(np.random.RandomState(2).randn(6, 16).astype(np.float32)).to(where)
+        va = torch.tensor([1, 1, 0, 1, 1, 1], dtype=torch.bool, device=where)
+        f0, f1 = (torch.from_numpy(np.random.RandomState(s).randn(5, 5, 16).astype(np.float32))
+                  .to(where) for s in (3, 4))
+        got[where.type] = dict(bank=bank, keeps=torch.stack(keeps), losses=losses,
+                               plan=sk.sinkhorn(cost, num_iter=100),
+                               corr=sk.semantic_correspondence(fa, fa[:5], va, va[:5]),
+                               hough=sk.hough_matching(f0, f1, 2, 3, 3))
+    sync()
+    c, h = got["cuda"], got["cpu"]
+    for name in mb.MemoryBank._fields:
+        expect(f"bank.{name}", max_err(getattr(c["bank"], name).cpu(), getattr(h["bank"], name)),
+               0.0, "copies and integer logic: exact")
+    expect("bank.retrieve_similar", max_err(c["keeps"].cpu(), h["keeps"]), 0.0, "masks: exact")
+
+    def rel(name, a, b, r, why):
+        expect(name, max_err(a.cpu(), b), r * max(float(b.float().abs().max()), 1e-30), why)
+
+    rel("bank.align_loss", c["losses"], h["losses"], 1e-5, "f32, sums in another order")
+    rel("sinkhorn.plan", c["plan"], h["plan"], 1e-5, "f32, 100 logsumexp rounds")
+    rel("semantic_correspondence.plan", c["corr"][0], h["corr"][0], 1e-5, "f32")
+    expect("semantic_correspondence.match", max_err(c["corr"][1].cpu(), h["corr"][1]), 0.0,
+           "argmax of the plan: exact")
+    rel("hough_matching.Cu", c["hough"][0], h["hough"][0], 1e-5, "f32 cosines")
+    expect("hough_matching.C", max_err(c["hough"][1].cpu(), h["hough"][1]),
+           1e-3 * max(1.0, float(h["hough"][1].abs().max())),
+           "1e-3 of the largest |C|: row sums near 0 amplify f32 order noise")
 
 
 def phase_tool(dev):
@@ -3126,7 +3587,13 @@ def main(argv=None) -> int:
     vc = phase_variant_cli(tc, smi)
     cascade = phase_cascade_step(dev, smi)
     vitb = phase_vitb_cli(cc, smi)
+    sw = phase_swin(dev, smi)
+    for name, key in (("attention_capture_d32", "capture"), ("attention_plain_d32", "plain"),
+                      ("attention_bwd_dq_d32", "dq"), ("attention_bwd_dkv_d32", "dkv")):
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], sw["errs"][key])
+    phase_bank(dev)
     phase_times(results, inp, model, slice_inp, gen)
+    phase_swin_times(results, sw, smi)
     phase_main_path_inputs(results, handed)
     ms_step = phase_train_times(state, step_fn, batch, train_gen)
     phase_cli_times(tc, same, pc, ms_step)
@@ -3138,7 +3605,7 @@ def main(argv=None) -> int:
     train_cli = {k: tc["out"][1]["total"][k] + tc["out"][2]["total"][k] for k in KERNELS}
     pseudo_cli = pc["total"]
     variants = dict(coco_cli=cc["total"], teacher_cli=vc["ts"], keypoint_cli=vc["keypoint"],
-                    cascade_step=cascade, vitb_cli=vitb)
+                    cascade_step=cascade, vitb_cli=vitb, swin=sw["launches"])
     table = []
     for name, kern in KERNELS.items():
         r = results[name]
@@ -3165,7 +3632,10 @@ def main(argv=None) -> int:
                           bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                           library_ms=r["library_ms"],
                           **{key: r[key] for key in ("mean_pass_ms", "ms_main_path_input",
-                                                     "eval_path_T") if key in r}))
+                                                     "eval_path_T", "exp_floor_ms",
+                                                     "mean_pass_ms_24_heads_streamed",
+                                                     "mean_pass_ms_12_heads_resident")
+                             if key in r}))
     log(smi)
     log(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

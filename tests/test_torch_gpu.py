@@ -217,7 +217,7 @@ ATTENTION_CASES = [
 def _lse2_reference(q, k, gap):
     """Each row's log2-sum-exp of the masked logits, from the plain
     version's f32 logits."""
-    logits = torch.matmul((q * q.shape[-1] ** -0.5).float(), k.float().transpose(-1, -2))
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
     if gap is not None:
         logits[..., gap[0]:gap[1]] = float("-inf")
     return torch.logsumexp(logits, dim=-1) * 1.4426950408889634
@@ -270,12 +270,131 @@ def test_attention_forward_kernels_are_deterministic(cuda):
 
 
 @pytest.mark.gpu
-def test_attention_mean_refuses_more_heads_than_it_holds(cuda):
-    """A CUDA tensor launches the kernel or raises: the mean pass keeps
-    every head's query tile in shared memory, at most 16 heads."""
-    q = torch.zeros((1, 17, 64, 64), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):
-        attention.attention_with_capture(q, q, q)
+@pytest.mark.parametrize("d", [48, 16, 128])
+def test_attention_kernels_refuse_other_head_dims(cuda, d):
+    """A CUDA tensor launches the kernel or raises: a head dim without an
+    instance (not 64 or 32) raises ``ValueError`` in every op, forward and
+    backward, and launches nothing; no path gives way to the plain
+    version."""
+    from attentionshift_torch.ops._build import KERNELS, reset_launches
+
+    reset_launches()
+    q = torch.zeros((1, 2, 64, d), device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros((1, 2, 64), device=cuda)
+    for call in (lambda: attention.attention_with_capture(q, q, q),
+                 lambda: attention.attention_no_capture(q, q, q),
+                 lambda: attention.attention_backward_dq(q, q, q, q, lse, q),
+                 lambda: attention.attention_backward_dkv(q, q, q, lse, lse, q)):
+        with pytest.raises(ValueError, match="head dim 64 or 32"):
+            call()
+    assert not any(k.launches for k in KERNELS.values())
+
+
+# (B, H, T, d, gap) of the cases beyond the ViT's (head dim 64, at most 16
+# heads): single 64-row tiles at head dim 32 first (one key tile: each
+# product of the 64-byte swizzle alone, then a ragged tile and two);
+# Swin's global blocks at 896x1344 (24 heads of 32, T = 1276); head dim 32
+# at the bench T with its gap; more heads than the mean pass keeps at d =
+# 64 (24 and 17: query tiles streamed, two images) and at d = 32 (40).
+HEAD_SHAPE_CASES = [
+    (1, 1, 64, 32, None),
+    (1, 2, 40, 32, None),
+    (2, 3, 130, 32, (70, 90)),
+    (1, 24, 1276, 32, None),
+    (1, 6, 4352, 32, (4201, 4252)),
+    (1, 24, 1276, 64, None),
+    (2, 17, 300, 64, None),
+    (1, 40, 190, 32, None),
+]
+
+
+def _check_attention_pair(q, k, v, g, gap):
+    """The forward pair (out within 4 bf16 ulps of the largest |out|; every
+    mean entry within ``capture_mean_limit``; the row log2-sum-exp within
+    1e-4) and the backward pair (4 bf16 ulps of each gradient's largest
+    entry) against the plain versions, with the controls: a mean without
+    its last head, and a mean whose logits are scaled 1.1x, must both fail
+    the mean limit."""
+    ref_out, ref_mean = attention.attention_reference(q, k, v, gap)
+    out, mean = attention.attention_with_capture(q, k, v, gap)
+    out2 = attention.attention_no_capture(q, k, v, gap)
+    _, lse = attention.flash_forward(q, k, v, gap, with_lse=True)
+    torch.cuda.synchronize()
+    tol = _ulps(ref_out, 4)
+    for got in (out, out2):
+        torch.testing.assert_close(got.float(), ref_out.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(lse, _lse2_reference(q, k, gap), atol=1e-4, rtol=0)
+    limit = attention.capture_mean_limit(ref_mean)
+    over = _mean_over(mean, ref_mean, limit)
+    assert over <= 1.0, f"a mean entry at {over:.3f}x its limit"
+    h = q.shape[1]
+    for name, ctl in (("one head off", attention.attention_reference(
+                          q[:, : h - 1], k[:, : h - 1], v[:, : h - 1], gap)[1] if h > 1 else None),
+                      ("temperature off", attention.attention_reference(
+                          (q.float() * 1.1).bfloat16(), k, v, gap)[1])):
+        if ctl is not None:
+            assert _mean_over(mean, ctl, attention.capture_mean_limit(ctl)) > 1.0, name
+    if gap is not None:
+        assert float(mean[:, :, gap[0]:gap[1]].float().abs().max()) == 0.0
+    want = attention.attention_backward_reference(q, k, v, g, gap)
+    for op in (attention.attention_no_capture, attention.attention_with_capture):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        o = op(*leaves, gap)
+        o = o[0] if isinstance(o, tuple) else o
+        got = torch.autograd.grad(o, leaves, g)
+        for name, a, w in zip("qkv", got, want):
+            torch.testing.assert_close(a.float(), w.float(), atol=_ulps(w, 4), rtol=0,
+                                       msg=f"d{name}")
+        if gap is not None:
+            assert float(got[1][:, :, gap[0]:gap[1]].float().abs().max()) == 0.0
+            assert float(got[2][:, :, gap[0]:gap[1]].float().abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,t,d,gap", HEAD_SHAPE_CASES)
+def test_attention_kernels_at_other_head_shapes_on_card(cuda, b, h, t, d, gap):
+    """Both pairs at head dim 32 and above the mean pass's resident heads,
+    counted under the instance's own name."""
+    from attentionshift_torch.ops._build import KERNELS, reset_launches
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v, g = (torch.randn((b, h, t, d), generator=gen, device=cuda).bfloat16()
+                  for _ in range(4))
+    reset_launches()
+    _check_attention_pair(q, k, v, g, gap)
+    suffix = "" if d == 64 else f"_d{d}"
+    assert KERNELS["attention_capture" + suffix].launches == 2
+    assert KERNELS["attention_plain" + suffix].launches == 2
+    assert KERNELS["attention_bwd_dq" + suffix].launches == 2
+    assert KERNELS["attention_bwd_dkv" + suffix].launches == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", range(16))
+def test_attention_kernels_at_24_heads_of_32_over_seeds(cuda, seed):
+    """(1, 24, 190, 32): Swin's heads at a short ragged T, sixteen seeds."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v, g = (torch.randn((1, 24, 190, 32), generator=gen, device=cuda).bfloat16()
+                  for _ in range(4))
+    _check_attention_pair(q, k, v, g, None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,d", [(24, 32), (17, 64), (40, 32)])
+def test_attention_head_shape_kernels_are_deterministic(cuda, h, d):
+    """No atomics at the new instances either: two calls give bitwise equal
+    out, mean and gradients."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v, g = (torch.randn((1, h, 190, d), generator=gen, device=cuda).bfloat16()
+                  for _ in range(4))
+    runs = []
+    for _ in range(2):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out, mean = attention.attention_with_capture(*leaves)
+        runs.append((out, mean, *torch.autograd.grad(out, leaves, g)))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

@@ -342,7 +342,9 @@ def test_kernel_wrappers_count_only_their_launches():
     assert {kr.name for kr in KERNELS.values()} == {
         "attention_capture", "attention_plain", "attention_bwd_dq", "attention_bwd_dkv",
         "ccl_batch", "meanshift_fixpoint", "attention_v2_bf16e", "attention_v3_nomin",
-        "attention_v4_mxsum", "attention_v5_batched", "attention_v6_fusedsum"}
+        "attention_v4_mxsum", "attention_v5_batched", "attention_v6_fusedsum",
+        "attention_capture_d32", "attention_plain_d32", "attention_bwd_dq_d32",
+        "attention_bwd_dkv_d32"}
 
 
 @pytest.mark.parametrize("err,words", [
