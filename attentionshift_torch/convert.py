@@ -36,6 +36,17 @@ Dense kernels transposed (``merge{st}.reduction`` has no bias); LayerNorm
 ``out_norm{st}``, ``merge{st}``, ``global_block{i}``, ``class_embed`` and
 ``bbox_embed`` keep their names.
 
+``model_type`` ``"mae_encoder"``, ``"mim_vit"``, ``"dino_head"``,
+``"ibot_head"`` and ``"deformable_attention"`` map the JAX modules of
+those names onto their twins in ``attentionshift_torch/models`` by the
+same rules, plus: ``tapnorm_i`` -> a module list; the LayerScale vectors
+``gamma_1`` / ``gamma_2`` and the prototype layers' ``weight_v`` /
+``weight_g`` as they are; the heads' Dense trunk ``mlp`` / ``mlp_i`` ->
+``trunk.mlp.i``; the depthwise (3, 3, 1, C) conv kernels of the
+deformable attention -> ``Conv2d``'s (C, 1, 3, 3) with ``groups=C``; and
+every BatchNorm's ``batch_stats`` ``mean`` / ``var`` -> its
+``running_mean`` / ``running_var`` (the MAE encoder's ``fpn1_bn``).
+
 ``model_type="mask_rcnn"`` maps the JAX ``MaskRCNN``'s variables onto
 ``attentionshift_torch.models.mask_rcnn.MaskRCNN``: the ResNet backbone by
 its own rules (every conv kernel (kh, kw, Cin, Cout) -> ``Conv2d``'s
@@ -58,7 +69,10 @@ __all__ = ["MAPPED_SUBTREES", "flax_to_torch", "load_flax"]
 # top-level subtrees of the detector's variables; reppoints_head_i by prefix
 MAPPED_SUBTREES = ("backbone", "mil_head", "neck", "rpn_head", "bbox_head", "mask_head",
                    "keypoint_align_head", "mae_head", "reppoints_head_")
-_LISTS = ("blocks", "layers", "lateral", "fpn_conv", "decoder_blocks")
+_LISTS = ("blocks", "layers", "lateral", "fpn_conv", "decoder_blocks", "tapnorm")
+# model types whose every parameter maps by ``_leaf`` (``_module_to_torch``)
+_MODULE_TYPES = ("swin", "mae_encoder", "mim_vit", "dino_head", "ibot_head",
+                 "deformable_attention")
 
 
 def _flatten(tree, prefix=()):
@@ -98,7 +112,8 @@ def _leaf(path: tuple, value: np.ndarray):
     if name == "scale":
         return ".".join(key + ["weight"]), x
     if name in ("bias", "cls_token", "pos_embed", "point_token", "point_pos_embed", "det_token",
-                "mask_token", "relative_position_bias_table"):
+                "mask_token", "relative_position_bias_table", "gamma_1", "gamma_2", "weight_v",
+                "weight_g"):
         return ".".join(key + [name]), x
     raise KeyError("/".join(path))
 
@@ -129,12 +144,12 @@ def _resnet_leaf(path: tuple, value: np.ndarray):
 
 def flax_to_torch(variables: dict, model_type: str = "attnshift") -> dict:
     """Flax ``{"params", "batch_stats"}`` (numpy leaves) -> torch state dict
-    of the port's ``AttnShiftDetector`` or, with ``model_type="mask_rcnn"``
-    or ``"swin"``, of its ``MaskRCNN`` or ``SwinTransformer``."""
+    of the port's ``AttnShiftDetector`` or, with another ``model_type``,
+    of the port's module of that name."""
     if model_type == "mask_rcnn":
         return _mask_rcnn_to_torch(variables.get("params", variables))
-    if model_type == "swin":
-        return _swin_to_torch(variables.get("params", variables))
+    if model_type in _MODULE_TYPES:
+        return _module_to_torch(variables, model_type)
     if model_type != "attnshift":
         raise ValueError(f"flax_to_torch: unknown model_type {model_type!r}")
     params = variables.get("params", variables)
@@ -155,14 +170,26 @@ def flax_to_torch(variables: dict, model_type: str = "attnshift") -> dict:
     return sd
 
 
-def _swin_to_torch(params: dict) -> dict:
+def _module_to_torch(variables: dict, model_type: str) -> dict:
     sd = {}
-    for path, value in _flatten(params):
+    for path, value in _flatten(variables.get("params", variables)):
+        if model_type in ("dino_head", "ibot_head") and path[0].startswith("mlp"):
+            path = ("trunk", "mlp", path[0][4:] or "0") + path[1:]
         try:
-            key, arr = _leaf(path, value)
+            if path[-1] == "kernel" and np.shape(value)[:3] == (3, 3, 1) \
+                    and model_type == "deformable_attention":  # depthwise
+                key = ".".join(path[:-1] + ("weight",))
+                arr = np.asarray(value, np.float32).transpose(3, 2, 0, 1)
+            else:
+                key, arr = _leaf(path, value)
         except KeyError as e:
             raise KeyError(f"flax_to_torch: unmapped parameter {e.args[0]}") from None
         sd[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    for path, value in _flatten(variables.get("batch_stats", {})):
+        if path[-1] not in ("mean", "var"):
+            raise KeyError(f"flax_to_torch: unmapped batch stat {'/'.join(path)}")
+        sd[".".join(path[:-1]) + f".running_{path[-1]}"] = torch.from_numpy(
+            np.asarray(value, dtype=np.float32).copy())
     return sd
 
 

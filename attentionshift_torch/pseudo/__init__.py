@@ -1,7 +1,8 @@
 """The pseudo-label engine: rollout -> CAM -> boxes -> refinement ->
-mean-shift semantic centers."""
+mean-shift semantic centers; the point-token decoding and the CRF."""
 
-from .cam import bbox_from_labels_batch, norm_attns, normalize_cam
+from .cam import bbox_from_cam, bbox_from_labels, bbox_from_labels_batch, norm_attns, normalize_cam
+from .crf import feature_affinity, mean_field_refine, water_fill
 from .engine import PseudoLabels, candidate_boxes, masks_and_centers
 from .meanshift import (
     SemanticCenters,
@@ -12,6 +13,7 @@ from .meanshift import (
     merge_maps,
     semantic_centers,
 )
+from .point2bbox import PointDetections, point2bbox
 from .points import sample_in_mask, strided_in_mask, topk_in_mask
 from .refine import (
     RefinedMaps,
@@ -23,7 +25,14 @@ from .rollout import attention_rollout_point_rows
 
 __all__ = [
     "attention_rollout_point_rows",
+    "bbox_from_cam",
+    "bbox_from_labels",
     "bbox_from_labels_batch",
+    "feature_affinity",
+    "mean_field_refine",
+    "water_fill",
+    "PointDetections",
+    "point2bbox",
     "norm_attns",
     "normalize_cam",
     "PseudoLabels",

@@ -1,18 +1,25 @@
 """CAM -> pseudo-box seeding (Stage A).
 
-Port of ``normalize_cam``, ``norm_attns`` and ``bbox_from_labels_batch``
-from ``attentionshift_tpu/pseudo/cam.py``: after connected-component
+Port of ``normalize_cam``, ``norm_attns``, ``bbox_from_cam``,
+``bbox_from_labels`` and ``bbox_from_labels_batch`` from
+``attentionshift_tpu/pseudo/cam.py``: after connected-component
 labelling, every component's area is counted, components with area >=
 ``area_ratio`` x the largest survive, and the box is the extent of the
 surviving pixels mirrored around the annotated point ("expand"), with a
-[0, 0, 1, 1] fallback when nothing survives.
+[0, 0, 1, 1] fallback when nothing survives. The single-map functions
+are the batch ones on a batch of one: ``bbox_from_cam`` labels its map
+with ``ops.ccl.connected_components_batch`` (the CCL kernel on the card,
+its plain version on the CPU).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["normalize_cam", "norm_attns", "bbox_from_labels_batch"]
+from ..ops.ccl import connected_components_batch
+
+__all__ = ["normalize_cam", "norm_attns", "bbox_from_cam", "bbox_from_labels",
+           "bbox_from_labels_batch"]
 
 
 def normalize_cam(cam: torch.Tensor) -> torch.Tensor:
@@ -28,6 +35,22 @@ def norm_attns(attns: torch.Tensor) -> torch.Tensor:
     lo = attns.amin(dim=(-2, -1), keepdim=True)
     hi = attns.amax(dim=(-2, -1), keepdim=True)
     return (attns - lo) / (hi - lo)
+
+
+def bbox_from_cam(cam: torch.Tensor, point: torch.Tensor, cam_thr: float = 0.2,
+                  area_ratio: float = 0.5, ccl_iters: int = 64) -> torch.Tensor:
+    """One (H, W) raw CAM (min-max normalised here) and its (2,) xy point
+    -> (4,) xyxy box: the map thresholded at ``cam_thr``, labelled, the
+    components of area >= ``area_ratio`` x the largest kept."""
+    binary = normalize_cam(cam) >= cam_thr
+    labels = connected_components_batch(binary[None], ccl_iters)
+    return bbox_from_labels_batch(labels, point[None], area_ratio)[0]
+
+
+def bbox_from_labels(labels: torch.Tensor, point: torch.Tensor,
+                     area_ratio: float = 0.5) -> torch.Tensor:
+    """(H, W) component labels (0 = background) and a (2,) xy point -> (4,)."""
+    return bbox_from_labels_batch(labels[None], point[None], area_ratio)[0]
 
 
 def bbox_from_labels_batch(labels: torch.Tensor, points: torch.Tensor,

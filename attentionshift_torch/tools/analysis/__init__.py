@@ -1,1 +1,2 @@
-"""Analysis tools: microbenchmarks of single layers and kernels."""
+"""Analysis tools: microbenchmarks of single layers and kernels, and the
+best and worst evaluated images (``analyze_results``)."""

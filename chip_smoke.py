@@ -130,7 +130,29 @@ Phases, each printing its own lines:
    upstream gradient; the whole forward against the same module with
    plain attention on the card; host ms, profiled device busy, peak
    memory. Then the memory bank and Sinkhorn on the card against the CPU;
-14. times with CUDA events: every kernel, its plain version, the library
+14. the remaining model modules, each at its full width: ``point2bbox``
+   (the point-token decoding) on phase 4's detector for two 800x1344
+   images one at a time (exactly 7 / 5 / 1 capture / plain / CCL launches
+   per image; the CCL input's 100 planes of 100x168 copied to the CPU:
+   the plain CCL's sweeps, the planes at the sweep cap counted, labels
+   equal to the kernel's, boxes within 1e-4 px; a flipped pixel as the
+   control); the mean-field CRF (G = 20 on 4200 patches, D = 384) and the
+   water fill on that path's CAMs and features, card against CPU; the
+   supervision-point generator at the COCO config's shapes ((160, 200,
+   336) hulls) and the deformable attention (256 channels, 4 heads, batch
+   2 at stride 16), card against CPU, forward and backward; the MAE
+   encoder as ViT-B at 896x1344 (split window-14 / global attention,
+   LayerScale, the pyramid; exactly 12 ``flash_fwd`` forward and 12 + 12
+   backward launches, its kernels on a windowed and a global block's own
+   q, k, v) and the MIM ViT-S at 224 with a 40 % mask feeding the iBOT
+   (8192 / 8192) and DINO (65536) heads (12 / 12 + 12 launches), each
+   against the same module with plain attention; grad-CAM on phase 4's
+   detector (its own top detection) with the f32 heads card against CPU,
+   EigenCAM and FeatmapAM; ``tools.browse_dataset`` and
+   ``tools.analysis.analyze_results`` once each (the pngs exist, none
+   blank). Each check with a control that must fail it; host ms, busy
+   share and peak memory beside the card's name and power limit;
+15. times with CUDA events: every kernel, its plain version, the library
    call where one exists, ms/img of the pseudo-label path and of
    inference and ms per train step, each with one profiled call. The
    attention kernels and their SDPA yardsticks (the forward with the same
@@ -1209,7 +1231,9 @@ def phase_eval_path():
     if any(gap is not None for _, gap in seen_t):
         raise AssertionError(f"the eval path met a pad gap: {sorted(seen_t)}")
     log(f"[eval] token counts T the backbone met (no gap): {ts}")
-    return dict(base=base, ts=ts, launches=launches)
+    return dict(base=base, ts=ts, launches=launches, root=root,
+                split=os.path.join(root, "ImageSets", "Segmentation", "val.txt"),
+                dump=os.path.join(tmp, f"single-{INFER_SCORE_THR}.pkl"))
 
 
 def phase_eval_kernel(results: dict, ts) -> None:
@@ -3062,6 +3086,689 @@ def phase_bank(dev) -> None:
            "1e-3 of the largest |C|: row sums near 0 amplify f32 order noise")
 
 
+# The point-token decoding path (pseudo/point2bbox.py): the main path's
+# ViT-S detector, two images decoded one at a time, each the capture
+# forward, the rollout and the CCL of its 100 token planes on the cam
+# stride-8 grid (100 x 168 at 800 x 1344)
+P2B_IMAGES = 2
+P2B_POINTS = 100
+P2B_CAM_STRIDE = 8
+P2B_CCL_ITERS = 64
+P2B_LAUNCHES = dict(attention_capture=CAM_LAYERS, attention_plain=12 - CAM_LAYERS, ccl_batch=1)
+P2B_WH = ((float(W_IMG), float(H_IMG)), INFER_WH)  # the second image's true extent is smaller
+
+
+def host_ms(run) -> float:
+    """Host-clock ms of ``run()`` ending in a synchronize."""
+    sync()
+    t0 = time.perf_counter()
+    run()
+    sync()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_point2bbox(dev, model, smi: str) -> dict:
+    """``point2bbox`` on the main path's detector (bf16, ``pad_tokens_to``
+    128): per image ``_extract`` with the capture, the rollout's full
+    product and the decoding of the 100 point tokens, with exactly 7 / 5 / 1
+    capture / plain / CCL launches per image. The CCL kernel's input planes
+    copied to the CPU: the plain CCL's sweeps show which planes converged
+    (the count at the cap is reported), its labels must equal the kernel's
+    on every plane, and ``bbox_from_labels_batch`` on them must give the
+    card's boxes to 1e-4 px; the control, one plane with its first
+    foreground pixel cleared, must give other labels. Busy time and peak
+    memory. Returns the last image's tokens, rows and detections for the
+    CRF and CAM phases."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from attentionshift_torch.ops import ccl
+    from attentionshift_torch.ops._build import reset_launches
+    from attentionshift_torch.pseudo.cam import bbox_from_labels_batch
+    from attentionshift_torch.pseudo.rollout import attention_rollout_point_rows
+
+    # the module (``pseudo`` exports its function under the same name)
+    p2b = importlib.import_module("attentionshift_torch.pseudo.point2bbox")
+    h, w = H_IMG, W_IMG
+    imgs = [torch.from_numpy(np.random.RandomState(20 + i).randn(1, h, w, 3).astype(np.float32))
+            .to(dev) for i in range(P2B_IMAGES)]
+
+    def decode(i):
+        with torch.no_grad():
+            out, _, patch_hw = model._extract(imgs[i], capture=True)
+            rows = attention_rollout_point_rows(out["attns"], P2B_POINTS)[-1, 0]
+            dets = p2b.point2bbox(out["outputs_class"][0], out["outputs_coord"][0], rows, patch_hw,
+                                  torch.tensor(P2B_WH[i], device=dev), cam_stride=P2B_CAM_STRIDE,
+                                  ccl_iters=P2B_CCL_ITERS)
+        return out, rows, dets
+
+    want = expected_launches(**P2B_LAUNCHES)
+    total = {k: 0 for k in want}
+    at_cap, planes_total, res = 0, 0, []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(P2B_IMAGES):
+        handed: dict = {}
+        with recording(p2b, "connected_components_batch", handed):
+            reset_launches()
+            out, rows, dets = decode(i)
+            sync()
+            got = launch_counts()
+        if got != want:
+            raise AssertionError(f"point2bbox image {i} launches {nonzero(got)} != {P2B_LAUNCHES}")
+        total = {k: total[k] + got[k] for k in total}
+        (planes, iters), _ = handed["connected_components_batch"]
+        assert tuple(planes.shape) == (P2B_POINTS, h // P2B_CAM_STRIDE, w // P2B_CAM_STRIDE)
+        assert iters == P2B_CCL_ITERS
+        kernel_labels = ccl.connected_components_batch(planes, P2B_CCL_ITERS).cpu()
+        cpu_planes = planes.cpu()
+        labels, sweeps = ccl.connected_components(cpu_planes, P2B_CCL_ITERS, return_sweeps=True)
+        at_cap += int((sweeps >= P2B_CCL_ITERS).sum())
+        planes_total += len(sweeps)
+        if not torch.equal(kernel_labels, labels):
+            bad = int((kernel_labels != labels).flatten(1).any(1).sum())
+            raise AssertionError(f"point2bbox image {i}: CCL kernel labels differ from the plain "
+                                 f"version on {bad} of the path's planes")
+        ctl = cpu_planes.clone()
+        k = int(ctl.flatten(1).any(1).int().argmax())
+        first = int(ctl[k].flatten().int().argmax())
+        ctl.view(len(ctl), -1)[k, first] = False
+        if torch.equal(ccl.connected_components(ctl, P2B_CCL_ITERS), kernel_labels):
+            raise AssertionError("point2bbox: the label check cannot see a flipped pixel")
+        wh = torch.tensor(P2B_WH[i])
+        pts = out["outputs_coord"][0].float().cpu() * wh[None]
+        boxes = bbox_from_labels_batch(labels, pts / P2B_CAM_STRIDE) * P2B_CAM_STRIDE
+        boxes = torch.stack([boxes[:, 0].clamp(0, wh[0]), boxes[:, 1].clamp(0, wh[1]),
+                             boxes[:, 2].clamp(0, wh[0]), boxes[:, 3].clamp(0, wh[1])], -1)
+        expect(f"point2bbox.image{i}.boxes", max_err(dets.boxes.cpu(), boxes), 1e-4,
+               "the card's boxes vs bbox_from_labels_batch on the CPU over the card's planes, px")
+        sc = dets.scores.cpu()
+        assert bool(((sc >= 0) & (sc <= 1)).all()) and bool(torch.isfinite(dets.boxes).all())
+        assert bool(((dets.labels >= 0) & (dets.labels < 20)).all())
+        assert bool((dets.boxes[:, 2] <= wh[0].to(dev)).all() & (dets.boxes[:, 3] <= wh[1].to(dev)).all())
+        log(f"[point2bbox] image {i}: launches {nonzero(got)}; CCL sweeps per plane min "
+            f"{int(sweeps.min())} max {int(sweeps.max())} (cap {P2B_CCL_ITERS}); {int(dets.valid.sum())}"
+            f" of {P2B_POINTS} tokens over the score floor; kernel labels equal the plain CCL's on "
+            f"all {len(sweeps)} planes; control (one pixel cleared) differs: ok")
+        res.append((out, rows, dets))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"[point2bbox] CCL planes at the sweep cap: {at_cap} of {planes_total} (the rest converged: "
+        f"a fixpoint, which the JAX package's per-plane CCL reaches too)")
+    ms = [host_ms(lambda: decode(i)) for i in range(P2B_IMAGES)]
+    log(f"[point2bbox] {smi}: ms per image {[round(x, 2) for x in ms]} (host clock, second call, "
+        f"ending in synchronize), peak {peak:.0f} MiB")
+    _, busy = profile_slice(lambda: decode(0), ms[0], top=8, what="point2bbox image")
+    out, rows, dets = res[-1]
+    return dict(launches=total, out=out, rows=rows,
+                dets=dets, ms=ms, busy=busy, peak=peak, at_cap=at_cap, planes=planes_total)
+
+
+CRF_G, CRF_ITERS, WATER_ITERS = 20, 10, 5
+
+
+def phase_crf(dev, p2b: dict) -> None:
+    """``mean_field_refine`` at G = 20 on the 50 x 84 patch grid (N = 4200)
+    with D = 384: the unaries the first 20 point tokens' rollout CAMs of
+    ``phase_point2bbox`` (min-max normalised), the features the last
+    block's patch tokens; then ``water_fill`` (5 slots) on the same
+    features' cosine similarity and token 0's binarised CAM. Card against
+    the CPU in f32 on the same inputs: refined maps within 1e-4 (control:
+    the pairwise weight 10 % off); water-fill slots and validity equal, or
+    each of the card's picks within f32 rounding of that step's best
+    coverage on the CPU (control: the least-covering feature in slot 0)."""
+    import torch
+
+    from attentionshift_torch.pseudo.cam import norm_attns
+    from attentionshift_torch.pseudo.crf import mean_field_refine, water_fill
+
+    hp, wp = H_IMG // 16, W_IMG // 16
+    out, rows = p2b["out"], p2b["rows"]
+    cams = norm_attns(rows[:CRF_G, 1:1 + hp * wp].float().reshape(CRF_G, hp, wp))
+    feats = out["last_feat"][0, 1:].float()
+    got = mean_field_refine(cams, feats, num_iter=CRF_ITERS)
+    want = mean_field_refine(cams.cpu(), feats.cpu(), num_iter=CRF_ITERS)
+    ctl = mean_field_refine(cams.cpu(), feats.cpu(), num_iter=CRF_ITERS, pairwise_weight=1.1)
+    sync()
+    expect("crf.mean_field_refine", max_err(got.cpu(), want), 1e-4,
+           f"({CRF_G}, {hp}, {wp}) maps in [0, 1], f32 matmuls in another order")
+    if not max_err(ctl, want) > 1e-4:
+        raise AssertionError("crf: the check cannot see the pairwise weight 10 % off")
+    f = feats / feats.norm(dim=-1, keepdim=True).clamp_min(1e-6)
+    sim = f @ f.T
+    attn = (cams[0] >= 0.5).float().reshape(-1)
+    prots, valid = water_fill(feats, sim, attn, n_iter=WATER_ITERS)
+    fc, sc, ac = feats.cpu(), sim.cpu(), attn.cpu()
+    cprots, cvalid = water_fill(fc, sc, ac, n_iter=WATER_ITERS)
+    sync()
+    # each slot's feature row, as an index into the features
+    idx = [int((fc == p).all(1).int().argmax()) for p in prots.cpu()]
+    same = torch.equal(prots.cpu(), cprots) and torch.equal(valid.cpu(), cvalid)
+
+    def witnessed(order) -> bool:
+        """Replay the water fill on the CPU with the given picks: each must
+        be within f32 rounding of that step's best coverage."""
+        s = torch.where(sc < sc.amax(1, keepdim=True) * 0.8, 0.0, sc)
+        a = ac.clone()
+        for j in order:
+            cov = s @ a
+            tol = 4 * 2.0**-23 * float((s.abs() @ a.abs()).max())
+            if float(cov.max() - cov[j]) > tol:
+                return False
+            a = (a - (s[j] > 0).float() * (a > 0)).clamp(0.0, 1.0)
+        return True
+
+    if not same and not (witnessed(idx) and torch.equal(valid.cpu(), cvalid)):
+        raise AssertionError(f"water_fill: card slots {idx} are not the CPU's and not within "
+                             f"rounding of its coverage")
+    s0 = torch.where(sc < sc.amax(1, keepdim=True) * 0.8, 0.0, sc) @ ac
+    if witnessed([int(s0.argmin())] + idx[1:]):
+        raise AssertionError("water_fill: the witness check cannot see the least-covering pick")
+    log(f"[check] crf.water_fill: {WATER_ITERS} slots {idx}, valid {valid.tolist()}: "
+        f"{'equal to the CPU' if same else 'within rounding of the CPU coverage'}; control "
+        f"(the least-covering feature in slot 0) fails: ok")
+
+
+GEN_K = 9  # reppoints_num_points of configs/attnshift_coco.py
+GEN_OBJECTS, GEN_PARTS = 40, 3 + 1  # max_gt 40; num_semantic_points 3 + the point
+GEN_RASTER = 4
+DEFORM_CHANNELS, DEFORM_HEADS, DEFORM_BATCH = 256, 4, 2
+
+
+def gen_inputs(seed: int = 0):
+    """The generator's CPU inputs at the COCO config's shapes on the
+    stride-16 field of an 800 x 1344 image: a (2K, 50, 84) contour-offset
+    field (N(0, 1.5) strides), 40 objects of 3 parts and a point each
+    scattered around random centres, 5 % of the slots invalid."""
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(seed)
+    hf, wf = H_IMG // 16, W_IMG // 16
+    field = (rs.randn(2 * GEN_K, hf, wf) * 1.5).astype(np.float32)
+    centers = rs.rand(GEN_OBJECTS, 2) * [W_IMG * 0.9, H_IMG * 0.9] + [W_IMG * 0.05, H_IMG * 0.05]
+    parts = centers[:, None] + rs.randn(GEN_OBJECTS, GEN_PARTS, 2) * 30
+    parts = np.clip(parts, 0, [W_IMG - 1, H_IMG - 1]).reshape(-1, 2).astype(np.float32)
+    obj = np.repeat(np.arange(GEN_OBJECTS), GEN_PARTS).astype(np.int64)
+    valid = rs.rand(len(obj)) > 0.05
+    return tuple(torch.from_numpy(a) for a in (field, parts, obj, valid))
+
+
+def hull_edge_distance(verts, eps, pix, stride: float):
+    """|half-plane value| of pixel centres ``pix`` (n, 2) ints (r, c) against
+    the nearest edge of the closed walks ``verts`` (n, K + 1, 2), over eps."""
+    import torch
+
+    p = (pix.float() + 0.5) * stride
+    p = torch.stack([p[:, 1], p[:, 0]], -1)[:, None]
+    a, b = verts[:, :-1], verts[:, 1:]
+    cr = (b[..., 0] - a[..., 0]) * (p[..., 1] - a[..., 1]) - (b[..., 1] - a[..., 1]) * (p[..., 0] - a[..., 0])
+    return (cr.abs() / eps[:, None]).amin(1)
+
+
+def phase_point_generator(dev) -> None:
+    """``SupervisionPointGenerator`` at the COCO config's shapes (K = 9
+    contour points, 40 objects x (3 parts + the point) = 160 parts, the
+    stride-16 field of 800 x 1344, raster stride 4: (160, 200, 336) hulls),
+    card against CPU on the same inputs: contour points within 1e-4 px;
+    hull pixels equal, or each differing pixel on a hull edge (its
+    half-plane value within 4 eps of 0; the count is reported); core
+    regions, scores and keep flags equal where the hulls are. The control:
+    one part's contour shifted by a raster stride must change its hull.
+    Then ``DeformableConvAttention`` (256 channels, 4 heads) on a
+    (2, 50, 84, 256) map, forward and backward, card against CPU: the
+    output, the input gradient and every parameter gradient within 1e-4 of
+    each one's largest entry (control: the temperature 10 % off)."""
+    import torch
+
+    from attentionshift_torch.models import point_generator as pg
+    from attentionshift_torch.models.deformable_attention import DeformableConvAttention
+
+    gen = pg.SupervisionPointGenerator(point_strides=16, raster_stride=GEN_RASTER)
+    cpu = gen_inputs()
+    hs, ws = H_IMG // GEN_RASTER, W_IMG // GEN_RASTER
+    got = gen(*(t.to(dev) for t in cpu), GEN_OBJECTS)
+    want = gen(*cpu, GEN_OBJECTS)
+    sync()
+    expect("generator.pred_points", max_err(got.pred_points.cpu(), want.pred_points), 1e-4,
+           "bilinear samples x 16 + anchors, px")
+    # the hulls the generator rasterised on each device
+    hulls = pg.convex_hull_mask(got.pred_points, (hs, ws), float(GEN_RASTER)).cpu()
+    chulls = pg.convex_hull_mask(want.pred_points, (hs, ws), float(GEN_RASTER))
+    assert tuple(chulls.shape) == (GEN_OBJECTS * GEN_PARTS, hs, ws)
+    diff = (hulls != chulls).nonzero()
+    if len(diff):
+        verts, eps = pg.hull_vertices(want.pred_points)
+        dist = hull_edge_distance(verts[diff[:, 0]], eps[diff[:, 0]], diff[:, 1:], GEN_RASTER)
+        if float(dist.max()) > 4.0:
+            raise AssertionError(f"generator: {len(diff)} hull pixels differ, one "
+                                 f"{float(dist.max()):.1f} eps off every edge")
+        # a flipped pixel moves a part's coverage by at most its count over the core
+        bound = len(diff) / float(want.core_regions.flatten(1).sum(1).clamp_min(1).min())
+        expect("generator.scores", max_err(got.scores.cpu(), want.scores), bound,
+               "hulls differ on edge pixels: their count over the smallest core")
+    else:
+        for name in ("core_regions", "keep"):
+            if not torch.equal(getattr(got, name).cpu(), getattr(want, name)):
+                raise AssertionError(f"generator: equal hulls but {name} differs")
+        expect("generator.scores", max_err(got.scores.cpu(), want.scores), 1e-6,
+               "ratios of integer counts")
+    moved = want.pred_points.clone()
+    moved[0] += GEN_RASTER
+    if torch.equal(pg.convex_hull_mask(moved[:1], (hs, ws), float(GEN_RASTER)), chulls[:1]):
+        raise AssertionError("generator: the hull check cannot see a contour moved by a stride")
+    log(f"[check] generator: ({GEN_OBJECTS * GEN_PARTS}, {hs}, {ws}) hulls, {len(diff)} pixels "
+        f"differ from the CPU's (each on a hull edge); {int(got.keep.sum())} parts kept, "
+        f"{int(got.core_regions.flatten(1).any(1).sum())} of {GEN_OBJECTS} objects with a core; "
+        f"control (a contour moved by {GEN_RASTER} px) differs: ok")
+
+    hf, wf = H_IMG // 16, W_IMG // 16
+    m = DeformableConvAttention(DEFORM_CHANNELS, DEFORM_HEADS, device=dev).init_weights(seed=0)
+    mc = DeformableConvAttention(DEFORM_CHANNELS, DEFORM_HEADS, device="cpu")
+    mc.load_state_dict({k: v.cpu() for k, v in m.state_dict().items()})
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((DEFORM_BATCH, hf, wf, DEFORM_CHANNELS), generator=g)
+    wt = torch.randn(x.shape, generator=g)
+    res = {}
+    for name, mod, where in (("card", m, dev), ("cpu", mc, "cpu")):
+        xx = x.to(where).requires_grad_(True)
+        y = mod(xx)
+        (y * wt.to(where)).sum().backward()
+        res[name] = dict(y=y.detach().cpu(), dx=xx.grad.cpu(),
+                         **{n: p.grad.cpu() for n, p in mod.named_parameters()})
+    sync()
+    ratios = {key: max_err(res["card"][key], ref) / (1e-4 * max(float(ref.abs().max()), 1e-30))
+              for key, ref in res["cpu"].items()}
+    worst = max(ratios, key=ratios.get)
+    if ratios[worst] > 1.0:
+        raise AssertionError(f"deformable attention {worst}: {ratios[worst]:.2f}x its limit")
+    log(f"[check] deformable_attention: output, input gradient and {len(ratios) - 2} parameter "
+        f"gradients within 1e-4 of each one's largest entry, card vs CPU in f32 (worst "
+        f"{worst} at {ratios[worst]:.3f} of its limit): ok")
+    mc.tau = 1.1
+    with torch.no_grad():
+        ctl = mc(x)
+    if not max_err(ctl, res["cpu"]["y"]) > 1e-4 * float(res["cpu"]["y"].abs().max()):
+        raise AssertionError("deformable attention: the check cannot see tau 10 % off")
+    log("[check] deformable attention control (tau 10 % off) fails the output check: ok")
+
+
+# the MAE encoder (models/mae_encoder.py) as ViT-B: 768 wide, 12 blocks of 12
+# heads, LayerScale 0.1, split attention every 4th block global at window 14,
+# at 896 x 1344 (a 56 x 84 grid: 24 windows of 196 tokens, 4704 global)
+MAE_H, MAE_W = 896, 1344
+# q, k, v weights 3x the N(0, 0.02) init: attention that is neither flat
+# (at 1x the attention branch, scaled by LayerScale 0.1, moves the outputs
+# by under the checks' 5e-2) nor so sharp that bf16 rounding decides it (at
+# 10x the bf16 and f32 plain modules differ by 13-42 % of the largest output)
+BACKBONE_SHARP_QKV = 3.0
+MAE_KW = dict(embed_dim=768, depth=12, num_heads=12, out_indices=(3, 5, 7, 11), with_fpn=True,
+              init_values=0.1, split_attn_freq=4, window=14)
+MAE_FWD_LAUNCHES = dict(attention_plain=12)
+MAE_BWD_LAUNCHES = dict(attention_bwd_dq=12, attention_bwd_dkv=12)
+
+
+def backbone_pass(model, img, wts, mask=None):
+    """Forward, then the backward of a weighted sum of the outputs: the
+    launches of each, the outputs and the input gradient."""
+    import torch
+
+    from attentionshift_torch.ops._build import reset_launches
+
+    x = img.clone().requires_grad_(True)
+    reset_launches()
+    outs = model(x) if mask is None else model(x, mask)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    sync()
+    fwd = launch_counts()
+    reset_launches()
+    sum((o.float() * wt).sum() for o, wt in zip(outs, wts)).backward()
+    sync()
+    bwd = launch_counts()
+    return fwd, bwd, [o.detach() for o in outs], x.grad
+
+
+def sharpen(model, scale: float) -> None:
+    """Scale every block's q, k, v weights by ``scale``, so that the
+    attention of a randomly initialised backbone is not flat."""
+    import torch
+
+    with torch.no_grad():
+        for blk in model.blocks:
+            blk.attn.qkv.weight.mul_(scale)
+
+
+def rel_norm(a, ref) -> float:
+    return float((a.float() - ref.float()).norm() / ref.float().norm().clamp_min(1e-30))
+
+
+def check_against_plain(tag: str, got, plain, plain32, ctl, rel: float = 5e-2) -> None:
+    """(outputs, input gradient) of the kernel path ``got`` against the same
+    module with ``use_kernel=False``: each output within ``rel`` of the
+    largest value of the bf16 plain module's (``plain``), as the Swin phase
+    holds its forward; the input gradient no further from the f32 plain
+    module's (``plain32``, relative norm) than 1.5x the bf16 plain
+    module's own distance to it (the gradient of a bf16 network moves by
+    several % with the rounding of any step, so the bf16 plain path is the
+    witness of what rounding alone gives). ``ctl``, the results of a
+    changed bf16 plain module, must fail both checks."""
+    def outputs_ok(outs):
+        return [max_err(a, r) <= rel * max(float(r.float().abs().max()), 1e-6)
+                for a, r in zip(outs, plain[0])]
+
+    ok = outputs_ok(got[0])
+    errs = [round(max_err(a, r) / max(float(r.float().abs().max()), 1e-6), 5)
+            for a, r in zip(got[0], plain[0])]
+    if not all(ok):
+        raise AssertionError(f"{tag}: outputs off the plain module's by {errs} of the largest "
+                             f"value, limit {rel}")
+    noise = rel_norm(plain[1], plain32[1])
+    dist = rel_norm(got[1], plain32[1])
+    if dist > 1.5 * noise:
+        raise AssertionError(f"{tag}: input gradient {dist:.4f} from the f32 plain module's, the "
+                             f"bf16 plain module {noise:.4f}")
+    cdist = rel_norm(ctl[1], plain32[1])
+    if all(outputs_ok(ctl[0])) or cdist <= 1.5 * noise:
+        raise AssertionError(f"{tag}: the control passes a check")
+    log(f"[check] {tag}: outputs within {max(errs)} of the largest value of the bf16 plain "
+        f"module's (limit {rel}); input gradient {dist:.4f} from the f32 plain module's (relative "
+        f"norm), the bf16 plain module's own {noise:.4f} (limit 1.5x); control fails both "
+        f"(gradient {cdist:.4f}): ok")
+
+
+def phase_mae_encoder(dev, smi: str) -> dict:
+    """``MAEVisionTransformer`` ViT-B (``MAE_KW``) at 896 x 1344, bf16,
+    batch 1: forward (exactly 12 ``flash_fwd``: 9 windowed blocks at (24,
+    12, 196, 64), 3 global at (1, 12, 4704, 64)) and the backward of a
+    weighted sum of the pyramid (exactly 12 + 12); the pyramid's shapes,
+    finite; both attention pairs on a windowed and a global block's own q,
+    k, v (``check_attention_pair``, a seeded upstream gradient); pyramid
+    and input gradient against the same module with ``use_kernel=False``
+    on the card (``check_against_plain``; control: the plain module
+    without its attention branches, LayerScale gamma_1 = 0); host time,
+    busy time and peak memory. The q, k, v weights are
+    ``BACKBONE_SHARP_QKV`` x the init."""
+    import numpy as np
+    import torch
+
+    from unittest import mock
+
+    from attentionshift_torch.models import layers
+    from attentionshift_torch.models.mae_encoder import MAEVisionTransformer
+
+    model = MAEVisionTransformer(**MAE_KW, dtype=torch.bfloat16, device=dev).init_weights(seed=0)
+    sharpen(model, BACKBONE_SHARP_QKV)
+    img = torch.from_numpy(np.random.RandomState(30).randn(1, MAE_H, MAE_W, 3)
+                           .astype(np.float32)).to(dev)
+    d = MAE_KW["embed_dim"]
+    shapes = [(1, MAE_H // s, MAE_W // s, d) for s in (4, 8, 16, 32)]
+    g = torch.Generator(device=dev).manual_seed(31)
+    wts = [torch.randn(s, generator=g, device=dev) / np.sqrt(np.prod(s)) for s in shapes]
+    hp, wp, win = MAE_H // 16, MAE_W // 16, MAE_KW["window"]
+    windows = model.block_windows(hp, wp)
+    assert windows.count(0) == 3 and windows.count(win) == 9, windows
+    handed: list = []
+    real = layers.attention_no_capture
+
+    def keep(q, k, v, pad_interval=None):
+        handed.append((q.detach().clone(), k.detach().clone(), v.detach().clone()))
+        return real(q, k, v, pad_interval)
+
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(layers, "attention_no_capture", keep):
+        fwd, bwd, outs, dimg = backbone_pass(model, img, wts)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    for what, got, want in (("forward", fwd, MAE_FWD_LAUNCHES), ("backward", bwd, MAE_BWD_LAUNCHES)):
+        if got != expected_launches(**want):
+            raise AssertionError(f"MAE encoder {what} launches {nonzero(got)} != {want}")
+    assert [tuple(o.shape) for o in outs] == shapes
+    assert all(bool(torch.isfinite(o.float()).all()) for o in outs)
+    assert bool(torch.isfinite(dimg).all()) and float(dimg.abs().max()) > 0
+    heads, hd = MAE_KW["num_heads"], d // MAE_KW["num_heads"]
+    seen = sorted({tuple(q.shape) for q, _, _ in handed})
+    log(f"[mae] launches: forward {nonzero(fwd)}, backward {nonzero(bwd)}; attention shapes "
+        f"{seen}; pyramid {[tuple(o.shape) for o in outs]}")
+    assert seen == sorted([(1, heads, hp * wp, hd), (hp * wp // win**2, heads, win**2, hd)]), seen
+    # the kernels on a windowed and a global block's own q, k, v (a seeded
+    # upstream gradient)
+    for shape in seen:
+        q, k, v = next(a for a in handed if tuple(a[0].shape) == shape)
+        gg = torch.randn(q.shape, generator=g, device=dev).to(q.dtype)
+        check_attention_pair(f"mae path inputs {shape}", q, k, v, gg, None)
+    del handed
+    runs = {}
+    for name, dtype in (("plain", torch.bfloat16), ("plain32", torch.float32), ("ctl", torch.bfloat16)):
+        plain = MAEVisionTransformer(**MAE_KW, use_kernel=False, dtype=dtype, device=dev)
+        plain.load_state_dict(model.state_dict())
+        if name == "ctl":  # without its attention branches
+            with torch.no_grad():
+                for blk in plain.blocks:
+                    blk.gamma_1.zero_()
+        runs[name] = backbone_pass(plain, img, wts)[2:]
+        del plain
+    check_against_plain("mae", (outs, dimg), runs["plain"], runs["plain32"], runs["ctl"])
+    del runs
+    ms = host_ms(lambda: backbone_pass(model, img, wts))
+    log(f"[mae] {smi}: forward + backward {ms:.2f} ms (host clock, second call), peak {peak:.0f} MiB")
+    _, busy = profile_slice(lambda: backbone_pass(model, img, wts), ms, top=8,
+                            what="MAE ViT-B forward + backward")
+    return dict(launches={k: fwd[k] + bwd[k] for k in fwd}, ms=ms, busy=busy, peak=peak)
+
+
+MIM_BATCH, MIM_MASK_RATIO = 8, 0.4
+MIM_FWD_LAUNCHES = dict(attention_plain=12)
+MIM_BWD_LAUNCHES = dict(attention_bwd_dq=12, attention_bwd_dkv=12)
+
+
+def phase_mim(dev, smi: str) -> dict:
+    """``MIMViT`` ViT-S at 224 (bf16, batch 8, 40 % of the patches masked)
+    feeding ``IBOTHead(out_dim=8192, patch_out_dim=8192)`` and
+    ``DINOHead(out_dim=65536)`` (hidden 2048, bottleneck 256, f32): forward
+    (exactly 12 ``flash_fwd`` at (8, 6, 197, 64)) and the backward of a
+    weighted sum of the outputs (exactly 12 + 12); the tokens and the image
+    gradient against the same ViT with ``use_kernel=False`` on the card
+    (``check_against_plain``; control: no mask; q, k, v weights
+    ``BACKBONE_SHARP_QKV`` x the init, as in the MAE phase); the heads on the card
+    against the CPU in f32 on the card's tokens (1e-4 of the largest
+    logit; control: the tokens of another image). Host time, busy time,
+    peak memory."""
+    import numpy as np
+    import torch
+
+    from attentionshift_torch.models.ssl import DINOHead, IBOTHead, MIMViT
+
+    vit = MIMViT(dtype=torch.bfloat16, device=dev).init_weights(seed=0)
+    sharpen(vit, BACKBONE_SHARP_QKV)
+    ibot = IBOTHead(384, out_dim=8192, patch_out_dim=8192, device=dev).init_weights(seed=1)
+    dino = DINOHead(384, out_dim=65536, device=dev).init_weights(seed=2)
+
+    def run(x, m):
+        """The tokens and the three logit tensors."""
+        tokens = vit(x, m)
+        return (tokens, *ibot(tokens), dino(tokens[:, 0]))
+
+    g = torch.Generator(device=dev).manual_seed(40)
+    img = torch.randn((MIM_BATCH, 224, 224, 3), generator=g, device=dev)
+    mask = torch.rand((MIM_BATCH, 196), generator=g, device=dev) < MIM_MASK_RATIO
+    shapes = [(MIM_BATCH, 197, 384), (MIM_BATCH, 8192), (MIM_BATCH, 196, 8192), (MIM_BATCH, 65536)]
+    wts = [torch.randn(s, generator=g, device=dev) / np.sqrt(np.prod(s)) for s in shapes]
+    torch.cuda.reset_peak_memory_stats()
+    fwd, bwd, outs, dimg = backbone_pass(run, img, wts, mask)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    for what, got, want in (("forward", fwd, MIM_FWD_LAUNCHES), ("backward", bwd, MIM_BWD_LAUNCHES)):
+        if got != expected_launches(**want):
+            raise AssertionError(f"MIM {what} launches {nonzero(got)} != {want}")
+    assert [tuple(o.shape) for o in outs] == shapes
+    assert all(bool(torch.isfinite(o.float()).all()) for o in outs) and float(dimg.abs().max()) > 0
+    assert all(p.grad is not None and float(p.grad.abs().max()) > 0
+               for p in (vit.mask_token, ibot.last_layer2.weight_v, dino.last_layer.weight_v))
+    log(f"[mim] launches: forward {nonzero(fwd)}, backward {nonzero(bwd)}; outputs "
+        f"{[tuple(o.shape) for o in outs]}; gradients in the mask token and both heads")
+    tw = wts[:1]
+    kernel = backbone_pass(vit, img, tw, mask)[2:]
+    runs = {}
+    for name, dtype in (("plain", torch.bfloat16), ("plain32", torch.float32), ("ctl", torch.bfloat16)):
+        plain = MIMViT(use_kernel=False, dtype=dtype, device=dev)
+        plain.load_state_dict(vit.state_dict())
+        runs[name] = backbone_pass(plain, img, tw, None if name == "ctl" else mask)[2:]
+        del plain
+    check_against_plain("mim.tokens", kernel, runs["plain"], runs["plain32"], runs["ctl"])
+    del runs, kernel
+    tokens = outs[0].float()
+    heads_cpu = IBOTHead(384, out_dim=8192, patch_out_dim=8192, device="cpu")
+    heads_cpu.load_state_dict({k: v.cpu() for k, v in ibot.state_dict().items()})
+    dino_cpu = DINOHead(384, out_dim=65536, device="cpu")
+    dino_cpu.load_state_dict({k: v.cpu() for k, v in dino.state_dict().items()})
+    with torch.no_grad():
+        want = [*heads_cpu(tokens.cpu()), dino_cpu(tokens[:, 0].cpu())]
+        ctl = [*heads_cpu(tokens.cpu().roll(1, 0)), dino_cpu(tokens[:, 0].cpu().roll(1, 0))]
+    for name, a, r, c in zip(("ibot.cls", "ibot.patch", "dino"), outs[1:], want, ctl):
+        tol = 1e-4 * float(r.abs().max())
+        expect(f"mim.{name}", max_err(a.cpu(), r), tol, "f32 heads, card vs CPU, relative")
+        if not max_err(c, r) > tol:
+            raise AssertionError(f"mim.{name}: the check cannot see another image's tokens")
+    ms = host_ms(lambda: backbone_pass(run, img, wts, mask))
+    log(f"[mim] {smi}: forward + backward {ms:.2f} ms (host clock, second call), peak "
+        f"{peak:.0f} MiB")
+    _, busy = profile_slice(lambda: backbone_pass(run, img, wts, mask), ms,
+                            top=8, what="MIM ViT-S + heads forward + backward")
+    return dict(launches={k: fwd[k] + bwd[k] for k in fwd}, ms=ms, busy=busy, peak=peak)
+
+
+def cam_weights(model, out, roi_map, wh, fb, fl):
+    """grad-CAM's per-channel weights (the spatial mean of the match
+    score's gradient in ``roi_map``) of image 0, f32."""
+    import torch
+
+    from attentionshift_torch.utils.det_cam import det_box_score
+
+    rm = roi_map.detach().requires_grad_(True)
+    with torch.enable_grad():
+        t = model.test_from_feats(out, rm, wh, (H_IMG, W_IMG))
+        score = det_box_score(t.dets.boxes[0], t.dets.scores[0], t.dets.labels[0],
+                              t.dets.valid[0], fb, fl)
+        (g,) = torch.autograd.grad(score, rm)
+    return g[0].float().mean(dim=(1, 2))
+
+
+def phase_det_cam(dev, model, smi: str) -> None:
+    """``grad_cam`` on the main path's detector at 800 x 1344 (its backbone
+    bf16, its heads differentiated in f32; score floor lowered as in the
+    inference phase) for its own top valid detection (none valid: the
+    phase fails): (50, 84), finite, in [0, 1], its maximum 1 (or 0 where no
+    channel sum is positive); against the CPU f32 ``test_from_feats``
+    gradient on the card's backbone outputs copied to the CPU, within 1e-3
+    after normalisation (control: the card's CAM for another focal label,
+    which nothing matches). Reported beside it: how far bf16 heads would
+    move the channel weights, and the map's sensitivity to them.
+    ``eigen_cam`` and ``featmap_am`` on the card against the CPU: on the
+    path's RoI map (EigenCAM checked when sigma_1 / sigma_2 > 2, else its
+    gap reported) and on a rank-one-plus-noise map; ``cam_on_image`` once."""
+    import numpy as np
+    import torch
+
+    from attentionshift_torch.utils.det_cam import (cam_on_image, eigen_cam, featmap_am, grad_cam,
+                                                    grad_cam_from_feats)
+
+    img, _, _, _, wh = slice_inputs(H_IMG, W_IMG, MAX_GT, N_VALID, dev)
+    floor = model.test_score_thr
+    model.test_score_thr = INFER_SCORE_THR
+    try:
+        with torch.no_grad():
+            out, roi_map, _ = model._extract(img, with_features=True, capture=False)
+            dets = model.test_from_feats(out, roi_map, wh, (H_IMG, W_IMG)).dets
+        valid = dets.valid[0]
+        if not bool(valid.any()):
+            raise AssertionError("det_cam: the detector kept no valid detection")
+        k = int(valid.int().argmax())
+        fb, fl = dets.boxes[0, k:k + 1].float(), dets.labels[0, k:k + 1]
+        ms = host_ms(lambda: grad_cam(model, img, wh, fb, fl))
+        cam = grad_cam(model, img, wh, fb, fl).cpu()
+        assert tuple(cam.shape) == (H_IMG // 16, W_IMG // 16) and bool(torch.isfinite(cam).all())
+        assert float(cam.min()) >= 0 and float(cam.max()) in (0.0, 1.0)
+        f32 = {"feature": tuple(f.float() for f in out["feature"])}
+        ctl = grad_cam_from_feats(model, f32, roi_map.float(), wh, (H_IMG, W_IMG), fb,
+                                  (fl + 1) % 20).cpu()
+        w32 = cam_weights(model, f32, roi_map.float(), wh, fb, fl)
+        w16 = cam_weights(model, out, roi_map, wh, fb, fl)
+        host = build_model("cpu", torch.float32)
+        host.load_state_dict(model.state_dict())
+        host.test_score_thr = INFER_SCORE_THR
+        want = grad_cam_from_feats(host, {"feature": tuple(f.cpu() for f in f32["feature"])},
+                                   roi_map.float().cpu(), wh.cpu(), (H_IMG, W_IMG), fb.cpu(),
+                                   fl.cpu())
+        del host
+    finally:
+        model.test_score_thr = floor
+    sync()
+    expect("det_cam.grad_cam", max_err(cam, want), 1e-3,
+           "the card's CAM vs the CPU's f32 heads on the card's backbone outputs, normalised")
+    if not max_err(ctl, want) > 1e-3:
+        raise AssertionError("det_cam: the grad-CAM check cannot see another focal label")
+    # how far rounding in the weights can move the map: sum_c |w_c act_c|
+    # over the largest channel sum
+    terms = w32[:, None, None] * roi_map[0].float()
+    kappa = float(terms.abs().sum(0).max() / terms.sum(0).clamp_min(0).max().clamp_min(1e-30))
+    log(f"[det_cam] {smi}: grad_cam {ms:.2f} ms (host clock, backbone + heads + backward); bf16 "
+        f"heads would put the channel weights {rel_norm(w16, w32):.4f} off the f32 heads' "
+        f"(relative norm) for a map whose sum_c |w_c act_c| / max is {kappa:.1f} (reported)")
+    act = roi_map[0].float()
+    x = act.reshape(act.shape[0], -1).T
+    sv = torch.linalg.svdvals(x - x.mean(0)).cpu()
+    gap = float(sv[0] / sv[1])
+    expect("det_cam.featmap_am", max_err(featmap_am(act).cpu(), featmap_am(act.cpu())), 1e-5,
+           "channel mean, min-max scaled")
+    if gap > 2.0:
+        expect("det_cam.eigen_cam(path)", max_err(eigen_cam(act).cpu(), eigen_cam(act.cpu())),
+               1e-3, "first principal component, card SVD vs CPU SVD")
+    log(f"[det_cam] the path's RoI map: sigma_1 / sigma_2 = {gap:.3f} "
+        f"({'checked' if gap > 2.0 else 'no clear gap: EigenCAM undefined there, not compared'})")
+    g = torch.Generator().manual_seed(50)
+    c, hh, ww = act.shape
+    r1 = (torch.randn(c, 1, 1, generator=g) * torch.rand(1, hh, ww, generator=g)
+          + 0.01 * torch.randn(c, hh, ww, generator=g))
+    expect("det_cam.eigen_cam(rank one)", max_err(eigen_cam(r1.to(dev)).cpu(), eigen_cam(r1)), 1e-3,
+           "rank one + 1 % noise: a clear singular gap")
+    pix = (np.random.RandomState(51).rand(H_IMG, W_IMG, 3) * 255).astype(np.uint8)
+    over = cam_on_image(pix, cam)
+    assert over.shape == pix.shape and over.dtype == np.uint8 and not np.array_equal(over, pix)
+    log(f"[det_cam] cam_on_image: {over.shape} uint8 overlay, changed from the image: ok")
+
+
+def phase_vis_tools(tc: dict, ev: dict) -> None:
+    """The two visualisation entry points, once each:
+    ``tools.browse_dataset`` on the train CLI phase's synthetic VOC point
+    tree with ``configs/attnshift_voc12aug.py``'s pipeline, and
+    ``tools.analysis.analyze_results`` on the eval phase's ``--dump-preds``
+    pickle (single-scale, lowered score floor) and its VOC tree. Every png
+    exists and is not blank."""
+    import contextlib
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from attentionshift_torch.tools import browse_dataset
+    from attentionshift_torch.tools.analysis import analyze_results
+
+    out = os.path.join(tc["tmp"], "vis")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        browsed = browse_dataset.main([tc["cfg"], "--num", "4", "--out-dir", out + "/browse",
+                                       "--cfg-options", *tc["opts"][1:3]])
+        ranked = analyze_results.main([ev["dump"], "--dataset-split", ev["split"], "--voc-root",
+                                       ev["root"], "--out", out + "/analyze", "-k", "1"])
+    for paths, n in ((browsed, 4), (ranked, 2)):
+        if len(paths) != n:
+            raise AssertionError(f"vis tools wrote {paths}")
+        for p in paths:
+            a = np.asarray(Image.open(p))
+            if a.ndim != 3 or float(a.std()) == 0.0:
+                raise AssertionError(f"{p}: blank")
+    log(f"[vis-tools] browse_dataset wrote {len(browsed)} pngs, analyze_results {len(ranked)} "
+        f"({[os.path.basename(p) for p in ranked]}), none blank: ok")
+
+
 def phase_tool(dev):
     """The attention microbenchmark at its defaults, every variant."""
     from attentionshift_torch.ops._build import KERNELS, reset_launches
@@ -3592,6 +4299,14 @@ def main(argv=None) -> int:
                       ("attention_bwd_dq_d32", "dq"), ("attention_bwd_dkv_d32", "dkv")):
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], sw["errs"][key])
     phase_bank(dev)
+    p2b = phase_point2bbox(dev, model, smi)
+    phase_crf(dev, p2b)
+    del p2b["out"]
+    phase_point_generator(dev)
+    mae = phase_mae_encoder(dev, smi)
+    mim = phase_mim(dev, smi)
+    phase_det_cam(dev, model, smi)
+    phase_vis_tools(tc, ev)
     phase_times(results, inp, model, slice_inp, gen)
     phase_swin_times(results, sw, smi)
     phase_main_path_inputs(results, handed)
@@ -3605,7 +4320,8 @@ def main(argv=None) -> int:
     train_cli = {k: tc["out"][1]["total"][k] + tc["out"][2]["total"][k] for k in KERNELS}
     pseudo_cli = pc["total"]
     variants = dict(coco_cli=cc["total"], teacher_cli=vc["ts"], keypoint_cli=vc["keypoint"],
-                    cascade_step=cascade, vitb_cli=vitb, swin=sw["launches"])
+                    cascade_step=cascade, vitb_cli=vitb, swin=sw["launches"],
+                    point2bbox=p2b["launches"], mae_encoder=mae["launches"], mim=mim["launches"])
     table = []
     for name, kern in KERNELS.items():
         r = results[name]

@@ -71,6 +71,18 @@ def test_ccl_kernel_at_the_coco_configs_plane_count(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("max_iters", [64, 2])
+def test_ccl_kernel_at_the_point_decoding_planes(cuda, max_iters):
+    """``point2bbox``'s batch: 100 token planes of 100x168 (800x1344 at cam
+    stride 8), exact against the plain version at the sweep cap 64 and at
+    2 (cut fixpoints)."""
+    planes = ccl_planes(100, 100, 168, seed=5)
+    masks = torch.from_numpy(planes).to(cuda)
+    got = ccl.connected_components_batch(masks, max_iters)
+    assert torch.equal(got, ccl.connected_components(masks, max_iters))
+
+
+@pytest.mark.gpu
 def test_ccl_plane_bytes_agree(cuda):
     """The wrapper's plane buffer size (its shared-memory or device-memory
     choice, and the scratch it allocates) is the kernel's own."""
@@ -305,6 +317,12 @@ HEAD_SHAPE_CASES = [
     (1, 24, 1276, 64, None),
     (2, 17, 300, 64, None),
     (1, 40, 190, 32, None),
+    # the MAE ViT-B encoder at 896x1344 (split attention, window 14): 24
+    # windows of 196 tokens, and its global blocks at 4704 without a gap;
+    # the MIM ViT-S at 224 (batch 8, cls + 196 patches)
+    (24, 12, 196, 64, None),
+    (1, 12, 4704, 64, None),
+    (8, 6, 197, 64, None),
 ]
 
 
@@ -899,3 +917,230 @@ def test_refine_train_step_on_card_matches_cpu(cuda, monkeypatch):
     for name, ref in host_grads.items():
         tol = 2e-3 * float(ref.abs().max()) + 1e-12
         assert float((card_grads[name] - ref).abs().max()) <= tol, name
+
+
+# ------------------------------------------------- the modules of the A7-A10 slice
+
+
+def _rel_close(got, ref, rel, what=""):
+    ref = ref.detach().float().cpu()
+    tol = rel * max(float(ref.abs().max()), 1e-30)
+    err = float((got.detach().float().cpu() - ref).abs().max())
+    assert err <= tol, f"{what}: {err} > {tol}"
+
+
+@pytest.mark.gpu
+def test_point2bbox_on_card(cuda):
+    """``point2bbox`` with 100 tokens on a 50x84 grid: one CCL launch on the
+    card; its boxes equal (1e-4 px) ``bbox_from_labels_batch`` on the CPU
+    over the card's planes, scores and labels equal the CPU's."""
+    from attentionshift_torch.ops._build import KERNELS, reset_launches
+    from attentionshift_torch.pseudo.cam import bbox_from_labels_batch
+    from attentionshift_torch.pseudo.point2bbox import point2bbox, point_planes
+
+    rs = np.random.RandomState(0)
+    p, hp, wp = 100, 50, 84
+    cls = torch.from_numpy((rs.randn(p, 20) * 3).astype(np.float32))
+    reg = torch.from_numpy(rs.rand(p, 2).astype(np.float32))
+    rows = torch.from_numpy(rs.rand(p, 1 + hp * wp + p).astype(np.float32) ** 8)
+    wh = torch.tensor([1300.0, 760.0])
+    reset_launches()
+    got = point2bbox(cls.to(cuda), reg.to(cuda), rows.to(cuda), (hp, wp), wh.to(cuda))
+    torch.cuda.synchronize()
+    launches = KERNELS["ccl_batch"].launches
+    planes = point_planes(rows.to(cuda), (hp, wp)).cpu()
+    labels = ccl.connected_components(planes, 64)
+    boxes = bbox_from_labels_batch(labels, reg * wh / 8) * 8
+    boxes = torch.stack([boxes[:, 0].clamp(0, wh[0]), boxes[:, 1].clamp(0, wh[1]),
+                         boxes[:, 2].clamp(0, wh[0]), boxes[:, 3].clamp(0, wh[1])], -1)
+    torch.testing.assert_close(got.boxes.cpu(), boxes, atol=1e-4, rtol=0)
+    want = point2bbox(cls, reg, rows, (hp, wp), wh)
+    torch.testing.assert_close(got.scores.cpu(), want.scores, atol=1e-6, rtol=0)
+    assert torch.equal(got.labels.cpu(), want.labels) and torch.equal(got.valid.cpu(), want.valid)
+    assert launches == 1
+
+
+@pytest.mark.gpu
+def test_crf_on_card(cuda):
+    """``mean_field_refine`` (1e-4) and ``water_fill`` (equal slots) on the
+    card against the CPU."""
+    from attentionshift_torch.pseudo.crf import mean_field_refine, water_fill
+
+    rs = np.random.RandomState(1)
+    maps = torch.from_numpy(rs.rand(5, 12, 16).astype(np.float32))
+    feats = torch.from_numpy(rs.randn(12 * 16, 32).astype(np.float32))
+    got = mean_field_refine(maps.to(cuda), feats.to(cuda), num_iter=10)
+    torch.testing.assert_close(got.cpu(), mean_field_refine(maps, feats, num_iter=10), atol=1e-4,
+                               rtol=0)
+    sim = torch.from_numpy((rs.rand(40, 40) * 0.6 + 0.2).astype(np.float32))
+    attn = torch.from_numpy((rs.rand(40) > 0.5).astype(np.float32))
+    f = torch.from_numpy(rs.randn(40, 6).astype(np.float32))
+    for thr in (None, 0.55):
+        gp, gv = water_fill(f.to(cuda), sim.to(cuda), attn.to(cuda), n_iter=6, thr=thr)
+        wp, wv = water_fill(f, sim, attn, n_iter=6, thr=thr)
+        assert torch.equal(gp.cpu(), wp) and torch.equal(gv.cpu(), wv)
+
+
+@pytest.mark.gpu
+def test_point_generator_and_sampling_on_card(cuda):
+    """``grid_sample_bilinear`` (both modes, 1e-5), hull masks (equal) and
+    the generator's outputs on the card against the CPU."""
+    from attentionshift_torch.models.point_generator import (SupervisionPointGenerator,
+                                                             convex_hull_mask)
+    from attentionshift_torch.ops.sampling import grid_sample_bilinear
+
+    rs = np.random.RandomState(2)
+    img = torch.from_numpy(rs.randn(3, 9, 11).astype(np.float32))
+    grid = torch.from_numpy((rs.rand(5, 7, 2) * 2.4 - 1.2).astype(np.float32))
+    for ac in (False, True):
+        torch.testing.assert_close(grid_sample_bilinear(img.to(cuda), grid.to(cuda), ac).cpu(),
+                                   grid_sample_bilinear(img, grid, ac), atol=1e-5, rtol=0)
+    pts = torch.from_numpy(rs.uniform(4, 60, (20, 9, 2)).astype(np.float32))
+    assert torch.equal(convex_hull_mask(pts.to(cuda), (64, 64)).cpu(), convex_hull_mask(pts, (64, 64)))
+    field = torch.from_numpy((rs.randn(18, 6, 8) * 1.5).astype(np.float32))
+    init = torch.from_numpy((rs.rand(12, 2) * [128, 96]).astype(np.float32))
+    obj = torch.arange(12) // 4
+    valid = torch.from_numpy(rs.rand(12) > 0.1)
+    gen = SupervisionPointGenerator(point_thr=0.3, mask_thr=0.5)
+    got = gen(field.to(cuda), init.to(cuda), obj.to(cuda), valid.to(cuda), 3)
+    want = gen(field, init, obj, valid, 3)
+    torch.testing.assert_close(got.pred_points.cpu(), want.pred_points, atol=1e-4, rtol=0)
+    assert torch.equal(got.core_regions.cpu(), want.core_regions)
+    assert torch.equal(got.keep.cpu(), want.keep)
+
+
+@pytest.mark.gpu
+def test_deformable_attention_on_card(cuda):
+    """Output and every gradient on the card against the CPU, f32, 1e-4 of
+    each one's largest entry."""
+    from attentionshift_torch.models.deformable_attention import DeformableConvAttention
+
+    m = DeformableConvAttention(32, 4, device=cuda).init_weights(seed=0)
+    mc = DeformableConvAttention(32, 4, device="cpu")
+    mc.load_state_dict({k: v.cpu() for k, v in m.state_dict().items()})
+    x = torch.from_numpy(np.random.RandomState(3).randn(2, 9, 13, 32).astype(np.float32))
+    res = []
+    for mod, dev in ((m, cuda), (mc, torch.device("cpu"))):
+        xx = x.to(dev).requires_grad_(True)
+        y = mod(xx)
+        (y * torch.arange(y.numel(), device=dev).reshape(y.shape).sin()).sum().backward()
+        res.append([y, xx.grad] + [p.grad for p in mod.parameters()])
+    for i, (a, r) in enumerate(zip(*res)):
+        _rel_close(a, r, 1e-4, f"tensor {i}")
+
+
+def _backbone_on_both(make, img, cuda, mask=None):
+    """The bf16 module on the card (kernels), the same module with plain
+    attention on the card (bf16) and its f32 copy on the CPU: outputs and
+    the image gradient of a fixed weighted sum, and the launch counts."""
+    from attentionshift_torch.ops._build import KERNELS, reset_launches
+
+    card = make(torch.bfloat16, cuda, True)
+    res = {}
+    for name, mod in (("card", card), ("plain", make(torch.bfloat16, cuda, False)),
+                      ("cpu", make(torch.float32, "cpu", False))):
+        mod.load_state_dict(card.state_dict())
+        dev = next(mod.parameters()).device
+        x = img.to(dev).requires_grad_(True)
+        reset_launches()
+        outs = mod(x) if mask is None else mod(x, mask.to(dev))
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        sum((o.float() * torch.linspace(-1, 1, o.numel(), device=dev).reshape(o.shape)).sum()
+            for o in outs).backward()
+        torch.cuda.synchronize()
+        res[name] = ([o.detach().float().cpu() for o in outs], x.grad.cpu(),
+                     {k: v.launches for k, v in KERNELS.items() if v.launches})
+    return res
+
+
+def _check_backbone(res):
+    """Outputs within 5e-2 of the largest value of the f32 CPU module's; the
+    image gradient no further from the CPU's (relative norm) than 1.5x the
+    bf16 plain module's own distance (bf16 rounding moves a network's
+    input gradient by several %, so the plain bf16 module is the witness)."""
+    for a, r in zip(res["card"][0], res["cpu"][0]):
+        _rel_close(a, r, 5e-2, "outputs")
+
+    def dist(a, r):
+        return float((a.float() - r.float()).norm() / r.float().norm())
+
+    noise = dist(res["plain"][1], res["cpu"][1])
+    assert dist(res["card"][1], res["cpu"][1]) <= 1.5 * noise, noise
+
+
+@pytest.mark.gpu
+def test_mae_encoder_on_card(cuda):
+    """A narrow split-attention MAE encoder with LayerScale (depth 4, 2 heads
+    of 64, window 2 on a 4x6 grid): 4 flash launches forward, 4 + 4
+    backward; the pyramid and the image gradient against the f32 module
+    on the CPU (``_check_backbone``)."""
+    from attentionshift_torch.models.mae_encoder import MAEVisionTransformer
+
+    kw = dict(embed_dim=128, depth=4, num_heads=2, out_indices=(0, 1, 2, 3), init_values=0.1,
+              split_attn_freq=2, window=2)
+    img = torch.from_numpy(np.random.RandomState(4).randn(1, 64, 96, 3).astype(np.float32))
+    res = _backbone_on_both(lambda dt, dev, k: MAEVisionTransformer(
+        **kw, use_kernel=k, dtype=dt, device=dev).init_weights(seed=1), img, cuda)
+    _check_backbone(res)
+    assert res["card"][2] == dict(attention_plain=4, attention_bwd_dq=4, attention_bwd_dkv=4)
+
+
+@pytest.mark.gpu
+def test_mim_vit_and_heads_on_card(cuda):
+    """A narrow MIM ViT (depth 2) with a mask on the card against the f32 CPU
+    module (``_check_backbone``), 2 + 2 + 2 launches; the iBOT and DINO
+    heads on the card's tokens against the CPU (1e-4 of the largest
+    logit)."""
+    from attentionshift_torch.models.ssl import DINOHead, IBOTHead, MIMViT
+
+    img = torch.from_numpy(np.random.RandomState(5).randn(2, 48, 64, 3).astype(np.float32))
+    mask = torch.from_numpy(np.random.RandomState(6).rand(2, 12) < 0.4)
+    res = _backbone_on_both(lambda dt, dev, k: MIMViT(
+        embed_dim=128, depth=2, num_heads=2, img_size=64, use_kernel=k, dtype=dt, device=dev)
+        .init_weights(seed=2), img, cuda, mask)
+    _check_backbone(res)
+    assert res["card"][2] == dict(attention_plain=2, attention_bwd_dq=2, attention_bwd_dkv=2)
+    tokens = res["card"][0][0]
+    for make in (lambda dev: IBOTHead(128, 64, patch_out_dim=96, hidden_dim=64, bottleneck_dim=32,
+                                      device=dev),
+                 lambda dev: DINOHead(128, 256, hidden_dim=64, bottleneck_dim=32, device=dev)):
+        hc = make(cuda).init_weights(seed=3)
+        hh = make("cpu")
+        hh.load_state_dict({k: v.cpu() for k, v in hc.state_dict().items()})
+        got, want = hc(tokens.to(cuda)), hh(tokens)
+        for a, r in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            _rel_close(a, r, 1e-4, "head logits")
+
+
+@pytest.mark.gpu
+def test_det_cams_on_card(cuda):
+    """EigenCAM (rank one + 1 % noise) and FeatmapAM on the card against the
+    CPU; grad-CAM of a narrow bf16 detector's top detection against the
+    CPU's f32 heads on the card's backbone outputs, within 1e-3."""
+    from attentionshift_torch.models import AttnShiftDetector
+    from attentionshift_torch.utils.det_cam import eigen_cam, featmap_am, grad_cam, grad_cam_from_feats
+
+    g = torch.Generator().manual_seed(7)
+    acts = (torch.randn(64, 1, 1, generator=g) * torch.rand(1, 10, 12, generator=g)
+            + 0.01 * torch.randn(64, 10, 12, generator=g))
+    torch.testing.assert_close(eigen_cam(acts.to(cuda)).cpu(), eigen_cam(acts), atol=1e-3, rtol=0)
+    torch.testing.assert_close(featmap_am(acts.to(cuda)).cpu(), featmap_am(acts), atol=1e-5, rtol=0)
+    kw = dict(num_classes=20, embed_dim=128, depth=4, num_heads=2, point_tokens=16, cam_layer=3,
+              out_indices=(0, 1, 2, 3), num_proposals=50, test_max_per_img=10, test_score_thr=0.02)
+    model = AttnShiftDetector(device=cuda, dtype=torch.bfloat16, **kw).init_weights(seed=0)
+    img = torch.from_numpy(np.random.RandomState(8).randn(1, 64, 96, 3).astype(np.float32)).to(cuda)
+    wh = torch.tensor([[96.0, 64.0]], device=cuda)
+    with torch.no_grad():
+        out, roi_map, _ = model._extract(img, with_features=True, capture=False)
+        dets = model.test_from_feats(out, roi_map, wh, (64, 96)).dets
+    assert bool(dets.valid[0].any())
+    k = int(dets.valid[0].int().argmax())
+    fb, fl = dets.boxes[0, k:k + 1].float(), dets.labels[0, k:k + 1]
+    cam = grad_cam(model, img, wh, fb, fl)
+    assert tuple(cam.shape) == (4, 6) and bool(torch.isfinite(cam).all())
+    host = AttnShiftDetector(device="cpu", **kw)
+    host.load_state_dict(model.state_dict())
+    want = grad_cam_from_feats(host, {"feature": tuple(f.float().cpu() for f in out["feature"])},
+                               roi_map.float().cpu(), wh.cpu(), (64, 96), fb.cpu(), fl.cpu())
+    torch.testing.assert_close(cam.cpu(), want, atol=1e-3, rtol=0)
