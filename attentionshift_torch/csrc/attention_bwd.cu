@@ -13,13 +13,14 @@
 // attention_no_capture (the head-averaged probabilities carry no gradient).
 //
 // What bounds them on the H100: the tensor cores. At the bench shape (B=1,
-// H=6, T=4352, d=64) pass A is three (T, T, d) products = 6*H*T^2*d = 43.6
-// GFLOP and pass B four = 58.2 GFLOP (seven in all, against five for a fused
-// one-pass backward with f32 atomics on dQ, which would give up
-// determinism), against ~20 MB of q/k/v/dO/out and gradients: far above the
-// ~295 FLOP/byte ridge (44 us and 59 us at 989 TFLOP/s). Nothing
-// (T, T)-sized may reach device memory. The exp2 work (113 M per pass) is
-// ~30 us on the MUFU units, under the products. At head dim 32 (Swin's
+// H=6, T=4352, d=64) pass A needs three (T, T, d) products = 6*H*T^2*d =
+// 43.6 GFLOP and pass B four = 58.2 GFLOP (seven in all, against five for a
+// fused one-pass backward with f32 atomics on dQ, which would give up
+// determinism), against ~20 MB of q/k/v/dO and gradients: far above the
+// ~295 FLOP/byte ridge (44 us and 59 us at 989 TFLOP/s). Pass A runs two
+// more, below. Nothing (T, T)-sized may reach device memory. The exp2 work
+// (113 M per sweep) is ~30 us on the MUFU units, under the products. At
+// head dim 32 (Swin's
 // (1, 24, 1276, 32)) pass A's three products are 7.5 GFLOP (7.6 us)
 // against 39.1 M exp2 (9.3 us at 16 per clock per SM, 132 SMs, 1980 MHz):
 // the exp work bounds it; pass B's four, 10.0 GFLOP (10.1 us), are about
@@ -52,13 +53,20 @@
 //     2.6x). Pass B zeroes masked key rows at the store instead, since a
 //     key's p reaches only its own rows of dK and dV.
 // The row normaliser is the forward's log2-sum-exp (attn_flash_forward
-// writes it), so p = exp2(s * scale_log2 - lse2) is one exp2; D is
-// rowsum(dO * out) from the bf16 out, computed by pass A and read by pass
-// B. p and p*(dP-D) are rounded to bf16 before the products that consume
-// them, as on the TPU. Key columns in the pad gap [pad_lo, pad_hi) and
-// columns >= T get p = 0, so their dK and dV rows are written as exact
-// zeros (they feed the qkv projection's gradient). No atomics: every
-// output is written once, by one block, and is deterministic.
+// writes it), so p = exp2(s * scale_log2 - lse2) is one exp2. D = sum_s
+// p*dP in f32 from the bf16 p, as the TPU kernel computes it: pass A sweeps
+// the key tiles twice, the first time for S, dP and D alone, the second for
+// dQ; pass B reads D. (FlashAttention's rowsum(dO * out) from the bf16 out
+// is one sweep, but out's rounding moves D, and each row's error returns in
+// dQ times the probability-weighted mean key: where the keys share a large
+// common component, as a trained model's do, dQ landed 18x further from the
+// exact gradient than the plain bf16 version on an H100, 3.6e-3 at a
+// largest entry of ~0.04.) p and p*(dP-D) are rounded to bf16 before the
+// products that consume them, as on the TPU. Key columns in the pad gap
+// [pad_lo, pad_hi) and columns >= T get p = 0, so their dK and dV rows are
+// written as exact zeros (they feed the qkv projection's gradient). No
+// atomics: every output is written once, by one block, and is
+// deterministic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -104,28 +112,6 @@ __device__ __forceinline__ bool masked_col(int col, int T, int pad_lo, int pad_h
   return col >= T || (col >= pad_lo && col < pad_hi);
 }
 
-// sum over HD / 4 columns (tig*HD/4 ...) of row r of dO * out; 0 past T
-template <int HD>
-__device__ __forceinline__ float row_dot16(const bf16* out, const bf16* dout, int r, int tig,
-                                           int T) {
-  if (r >= T) return 0.f;
-  const uint4* o = reinterpret_cast<const uint4*>(out + (size_t)r * HD + tig * (HD / 4));
-  const uint4* g = reinterpret_cast<const uint4*>(dout + (size_t)r * HD + tig * (HD / 4));
-  float s = 0.f;
-#pragma unroll
-  for (int c = 0; c < HD / 32; ++c) {
-    uint4 x = o[c], y = g[c];
-    const __nv_bfloat162* xo = reinterpret_cast<const __nv_bfloat162*>(&x);
-    const __nv_bfloat162* yg = reinterpret_cast<const __nv_bfloat162*>(&y);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float2 a = __bfloat1622float2(xo[j]), b = __bfloat1622float2(yg[j]);
-      s += a.x * b.x + a.y * b.y;
-    }
-  }
-  return s;
-}
-
 // write a warpgroup's (64 x HD) f32 accumulator, scaled, as bf16 rows r_a
 // (i < 2) and r_b (i >= 2) of a head matrix; a row whose scale is 0 is
 // written as exact zeros, whatever its accumulator holds
@@ -149,12 +135,65 @@ __device__ __forceinline__ void store_rows(bf16* mh, const float (&acc)[HD / 2],
 // instructions and no branch splits the exp2s.
 __device__ __forceinline__ float prob(float x) { return round_bf16(exp2f(x)); }
 
-// Pass A: dQ of one 64-row query tile, and D = rowsum(dO * out) per row.
+// Pass A's step on one streamed key tile (K at k_s, V right after it),
+// once its slot's barrier shows phase ``parity``: S = Q K^T and
+// dP = dO V^T, then s[] := p = exp2(s * scale_log2 - lse2) rounded to bf16,
+// 0 at masked key columns (the gap, or past T).
+template <int HD>
+__device__ __forceinline__ void dq_tile_probs(float (&s)[32], float (&dp)[32],
+                                              const uint8_t* q_s, const uint8_t* do_s,
+                                              const uint8_t* k_s, uint64_t* bar, int parity,
+                                              int key0, int tig, float lse_a, float lse_b, int T,
+                                              int pad_lo, int pad_hi, float scale_log2) {
+  using HT = HeadTile<HD>;
+  const uint8_t* v_s = k_s + HT::BYTES;
+  mbar_wait(bar, parity);
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < HT::KSTEPS; ++kc)  // S = Q K^T
+    wgmma_ss<0>(s, HT::kmajor(q_s, kc), HT::kmajor(k_s, kc), kc);
+#pragma unroll
+  for (int kc = 0; kc < HT::KSTEPS; ++kc)  // dP = dO V^T
+    wgmma_ss<0>(dp, HT::kmajor(do_s, kc), HT::kmajor(v_s, kc), kc);
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs(s);
+  fence_regs(dp);
+  if (key0 + TILE > T || (key0 + TILE > pad_lo && key0 < pad_hi)) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = key0 + (i >> 2) * 8 + tig * 2 + (i & 1);
+      const float x = s[i] * scale_log2 - ((i & 2) ? lse_b : lse_a);
+      s[i] = prob(masked_col(col, T, pad_lo, pad_hi) ? -INFINITY : x);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = prob(s[i] * scale_log2 - ((i & 2) ? lse_b : lse_a));
+  }
+}
+
+// Pass A after iteration ``it`` (of ``nit``) is done with ring slot st:
+// thread 0 refills it with the key tile of iteration it + STAGES.
+template <int HD>
+__device__ __forceinline__ void dq_release_slot(uint8_t* ring, int st, uint64_t* bar, int it,
+                                                int nit, int ntiles, const CUtensorMap* map_k,
+                                                const CUtensorMap* map_v, int plane, int tid) {
+  constexpr int TB = HeadTile<HD>::BYTES;
+  __syncthreads();  // every warp is done with slot st
+  if (tid == 0 && it + STAGES < nit) {
+    const int next = ((it + STAGES) % ntiles) * TILE;
+    mbar_expect_tx(bar, 2 * TB);
+    tma_load_tile(ring + (2 * st) * TB, map_k, bar, next, plane);
+    tma_load_tile(ring + (2 * st + 1) * TB, map_v, bar, next, plane);
+  }
+}
+
+// Pass A: D = sum_s p*dP per row of one 64-row query tile (first sweep of
+// the key tiles), then its dQ (second sweep).
 template <int HD>
 __global__ void __launch_bounds__(NTHREADS, BLOCKS_PER_SM)
 bwd_dq(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
        const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
-       const bf16* __restrict__ out, const bf16* __restrict__ dout,
        const float* __restrict__ lse2, bf16* __restrict__ dq, float* __restrict__ dd, int H, int T,
        int pad_lo, int pad_hi, float scale_log2, float scale) {
   using HT = HeadTile<HD>;
@@ -170,6 +209,9 @@ bwd_dq(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtens
   const int plane = blockIdx.z * H + blockIdx.y;
   const int row0 = blockIdx.x * TILE;
   const int ntiles = (T + TILE - 1) / TILE;
+  // iteration it (of 2 * ntiles) takes key tile it % ntiles through ring
+  // slot it % STAGES: the first ntiles accumulate D, the rest dQ
+  const int nit = 2 * ntiles;
   const int tid = threadIdx.x;
   if (tid == 0) {
     for (int i = 0; i <= STAGES; ++i) mbar_init(&bars[i], 1);
@@ -177,10 +219,11 @@ bwd_dq(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtens
     mbar_expect_tx(&bars[0], 2 * TB);
     tma_load_tile(q_s, &map_q, &bars[0], row0, plane);
     tma_load_tile(do_s, &map_do, &bars[0], row0, plane);
-    for (int s = 0; s < STAGES && s < ntiles; ++s) {
+    for (int s = 0; s < STAGES && s < nit; ++s) {
+      const int key = (s % ntiles) * TILE;
       mbar_expect_tx(&bars[1 + s], 2 * TB);
-      tma_load_tile(ring + (2 * s) * TB, &map_k, &bars[1 + s], s * TILE, plane);
-      tma_load_tile(ring + (2 * s + 1) * TB, &map_v, &bars[1 + s], s * TILE, plane);
+      tma_load_tile(ring + (2 * s) * TB, &map_k, &bars[1 + s], key, plane);
+      tma_load_tile(ring + (2 * s + 1) * TB, &map_v, &bars[1 + s], key, plane);
     }
   }
   __syncthreads();
@@ -191,18 +234,12 @@ bwd_dq(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtens
   const int gid = lane >> 2, tig = lane & 3;
   const int r_a = row0 + warp * 16 + gid;
   const int r_b = r_a + 8;
-
-  // D = rowsum(dO * out): a thread sums a quarter of a row's columns, its quad all
-  float d_a = row_dot16<HD>(out + head, dout + head, r_a, tig, T);
-  float d_b = row_dot16<HD>(out + head, dout + head, r_b, tig, T);
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    d_a += __shfl_xor_sync(0xffffffffu, d_a, off);
-    d_b += __shfl_xor_sync(0xffffffffu, d_b, off);
-  }
   const float lse_a = r_a < T ? lse2[rowbase + r_a] : 0.f;
   const float lse_b = r_b < T ? lse2[rowbase + r_b] : 0.f;
 
+  // D of rows r_a, r_b: a thread sums its quarter of each key tile's
+  // columns, its quad the whole row at the end of the first sweep
+  float d_a = 0.f, d_b = 0.f;
   float acc[HD / 2], s[32], dp[32];
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
@@ -210,41 +247,34 @@ bwd_dq(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtens
   for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
 
   mbar_wait(&bars[0], 0);
-  for (int kt = 0; kt < ntiles; ++kt) {
-    const int st = kt % STAGES;
+  // first sweep: S, dP and p of each key tile, D += p * dP
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it % STAGES;
     const uint8_t* k_s = ring + (2 * st) * TB;
-    const uint8_t* v_s = k_s + TB;
-    mbar_wait(&bars[1 + st], (kt / STAGES) & 1);
-
-    wgmma_fence();
+    dq_tile_probs<HD>(s, dp, q_s, do_s, k_s, &bars[1 + st], (it / STAGES) & 1, it * TILE, tig,
+                      lse_a, lse_b, T, pad_lo, pad_hi, scale_log2);
 #pragma unroll
-    for (int kc = 0; kc < HT::KSTEPS; ++kc)  // S = Q K^T
-      wgmma_ss<0>(s, HT::kmajor(q_s, kc), HT::kmajor(k_s, kc), kc);
-#pragma unroll
-    for (int kc = 0; kc < HT::KSTEPS; ++kc)  // dP = dO V^T
-      wgmma_ss<0>(dp, HT::kmajor(do_s, kc), HT::kmajor(v_s, kc), kc);
-    wgmma_commit();
-    wgmma_wait();
-    fence_regs(s);
-    fence_regs(dp);
-
-    const int key0 = kt * TILE;
-    if (key0 + TILE > T || (key0 + TILE > pad_lo && key0 < pad_hi)) {
-      // a tile with masked key columns (the gap, or past T)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int col = key0 + (i >> 2) * 8 + tig * 2 + (i & 1);
-        const float x = s[i] * scale_log2 - ((i & 2) ? lse_b : lse_a);
-        const float p = prob(masked_col(col, T, pad_lo, pad_hi) ? -INFINITY : x);
-        s[i] = p * (dp[i] - ((i & 2) ? d_b : d_a));
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const float p = prob(s[i] * scale_log2 - ((i & 2) ? lse_b : lse_a));
-        s[i] = p * (dp[i] - ((i & 2) ? d_b : d_a));
-      }
+    for (int i = 0; i < 32; ++i) {
+      if (i & 2)
+        d_b += s[i] * dp[i];
+      else
+        d_a += s[i] * dp[i];
     }
+    dq_release_slot<HD>(ring, st, &bars[1 + st], it, nit, ntiles, &map_k, &map_v, plane, tid);
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    d_a += __shfl_xor_sync(0xffffffffu, d_a, off);
+    d_b += __shfl_xor_sync(0xffffffffu, d_b, off);
+  }
+  // second sweep: dS = p * (dP - D), dQ += dS K
+  for (int it = ntiles; it < nit; ++it) {
+    const int st = it % STAGES;
+    const uint8_t* k_s = ring + (2 * st) * TB;
+    dq_tile_probs<HD>(s, dp, q_s, do_s, k_s, &bars[1 + st], (it / STAGES) & 1,
+                      (it - ntiles) * TILE, tig, lse_a, lse_b, T, pad_lo, pad_hi, scale_log2);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] *= dp[i] - ((i & 2) ? d_b : d_a);
     uint32_t ds[4][4];
     acc_to_a(ds, s);
 
@@ -256,14 +286,7 @@ bwd_dq(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtens
     wgmma_wait();
     fence_regs(acc);
     fence_regs(ds);
-
-    __syncthreads();  // every warp is done with slot st
-    if (tid == 0 && kt + STAGES < ntiles) {
-      const int next = (kt + STAGES) * TILE;
-      mbar_expect_tx(&bars[1 + st], 2 * TB);
-      tma_load_tile(ring + (2 * st) * TB, &map_k, &bars[1 + st], next, plane);
-      tma_load_tile(ring + (2 * st + 1) * TB, &map_v, &bars[1 + st], next, plane);
-    }
+    dq_release_slot<HD>(ring, st, &bars[1 + st], it, nit, ntiles, &map_k, &map_v, plane, tid);
   }
 
   store_rows<HD>(dq + head, acc, scale, scale, r_a, r_b, tig, T);
@@ -418,8 +441,8 @@ int make_maps(CUtensorMap (&m)[4], const void* q, const void* k, const void* v, 
 }
 
 template <int HD>
-int backward_dq(const void* q, const void* k, const void* v, const void* out, const void* dout,
-                const void* lse2, void* dq, void* dd, int B, int H, int T, int pad_lo, int pad_hi,
+int backward_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse2,
+                void* dq, void* dd, int B, int H, int T, int pad_lo, int pad_hi,
                 float scale_log2, float scale, cudaStream_t stream) {
   constexpr int smem = (int)dq_smem<HD>();
   // a runtime call first: it makes the device's context current on this
@@ -428,12 +451,11 @@ int backward_dq(const void* q, const void* k, const void* v, const void* out, co
       cudaFuncSetAttribute(bwd_dq<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap m[4];
-  if (int bad = make_maps<HD>(m, q, k, v, dout, B * H, T, out, dq)) return bad;
+  if (int bad = make_maps<HD>(m, q, k, v, dout, B * H, T, dq, dd)) return bad;
   dim3 grid((T + TILE - 1) / TILE, H, B);
-  bwd_dq<HD><<<grid, NTHREADS, smem, stream>>>(m[0], m[1], m[2], m[3], (const bf16*)out,
-                                                (const bf16*)dout, (const float*)lse2, (bf16*)dq,
-                                                (float*)dd, H, T, pad_lo, pad_hi, scale_log2,
-                                                scale);
+  bwd_dq<HD><<<grid, NTHREADS, smem, stream>>>(m[0], m[1], m[2], m[3], (const float*)lse2,
+                                                (bf16*)dq, (float*)dd, H, T, pad_lo, pad_hi,
+                                                scale_log2, scale);
   return (int)cudaGetLastError();
 }
 
@@ -460,19 +482,19 @@ int backward_dkv(const void* q, const void* k, const void* v, const void* dout, 
 
 extern "C" {
 
-// q, k, v, out, dout, dq: (B, H, T, D) bf16 contiguous, 16-byte aligned,
+// q, k, v, dout, dq: (B, H, T, D) bf16 contiguous, 16-byte aligned,
 // D = 64 or 32 (cudaErrorInvalidValue otherwise); lse2 (from
-// attn_flash_forward on the same q, k) and dd: (B, H, T) f32. dd is
-// written. Returns a cudaError_t, or a code of make_tile_map (>= 998) when
-// a tensor map cannot be made.
-int attn_backward_dq(const void* q, const void* k, const void* v, const void* out,
-                     const void* dout, const void* lse2, void* dq, void* dd, int B, int H, int T,
-                     int D, int pad_lo, int pad_hi, float scale_log2, float scale, void* stream) {
+// attn_flash_forward on the same q, k) and dd: (B, H, T) f32. dd (D =
+// sum_s p*dP per row) is written. Returns a cudaError_t, or a code of
+// make_tile_map (>= 998) when a tensor map cannot be made.
+int attn_backward_dq(const void* q, const void* k, const void* v, const void* dout,
+                     const void* lse2, void* dq, void* dd, int B, int H, int T, int D,
+                     int pad_lo, int pad_hi, float scale_log2, float scale, void* stream) {
   if (D == 64)
-    return backward_dq<64>(q, k, v, out, dout, lse2, dq, dd, B, H, T, pad_lo, pad_hi, scale_log2,
+    return backward_dq<64>(q, k, v, dout, lse2, dq, dd, B, H, T, pad_lo, pad_hi, scale_log2,
                            scale, (cudaStream_t)stream);
   if (D == 32)
-    return backward_dq<32>(q, k, v, out, dout, lse2, dq, dd, B, H, T, pad_lo, pad_hi, scale_log2,
+    return backward_dq<32>(q, k, v, dout, lse2, dq, dd, B, H, T, pad_lo, pad_hi, scale_log2,
                            scale, (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -17,7 +17,8 @@ and ``csrc/attention_bwd.cu`` or raises. There is no fallback between
 the two. ``mean_probs`` carries no gradient.
 
 The backward on the card is two kernels: pass A gives dQ and the per-row
-D = rowsum(dO * out), pass B gives dK and dV. The row normaliser of the
+D = sum_s p * dP (f32, from the bf16 p, as the TPU kernel), pass B gives
+dK and dV. The row normaliser of the
 recomputed probabilities is the forward's log2-sum-exp, which the flash
 pass writes whenever a gradient may be asked for.
 
@@ -108,6 +109,13 @@ def _check_inputs(q, k, v):
                          f"got {q.shape[-1]}")
 
 
+def _require_contiguous(fn: str, *tensors) -> None:
+    """The kernels read and write row-major buffers through raw pointers:
+    a strided view (a head-split ``qkv``) would be read as garbage."""
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{fn}: every tensor must be contiguous (call .contiguous() first)")
+
+
 def _gap(t, pad_interval):
     # an empty interval [t, t) masks nothing beyond the columns >= t the
     # kernel always masks
@@ -134,6 +142,7 @@ def flash_forward(q, k, v, pad_interval, with_lse, lib=None):
     """The flash pass on the card: (out, row log2-sum-exp (B, H, T) f32 or
     None), through ``lib`` (default: ``forward_library()``). Counts no
     launch: the two attention ops do."""
+    _require_contiguous("flash_forward", q, k, v)
     b, h, t, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, t), device=q.device, dtype=torch.float32) if with_lse else None
@@ -176,18 +185,21 @@ def attention_backward_reference(q, k, v, g_out, pad_interval=None):
 _BWD_TAIL = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
 
 
-def attention_backward_dq(q, k, v, out, lse, g_out, pad_interval=None):
-    """Backward pass A on the card: (dq, D) with D = rowsum(g_out * out)
-    (B, H, T) f32, from ``flash_forward``'s ``out`` and row statistic."""
+def attention_backward_dq(q, k, v, lse, g_out, pad_interval=None):
+    """Backward pass A on the card: (dq, D) with D = sum_s p * dP per row
+    (B, H, T) f32, from ``flash_forward``'s row statistic. D is summed in
+    f32 from the bf16 p, as the TPU kernel and ``attention_backward_reference``
+    do."""
     _check_inputs(q, k, v)
+    _require_contiguous("attention_backward_dq", q, k, v, lse, g_out)
     b, h, t, d = q.shape
     dq = torch.empty_like(q)
     dd = torch.empty((b, h, t), device=q.device, dtype=torch.float32)
     lo, hi = _gap(t, pad_interval)
     fn = library("attention_bwd").attn_backward_dq
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + _BWD_TAIL
-    check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g_out.data_ptr(),
+    fn.argtypes = [ctypes.c_void_p] * 7 + _BWD_TAIL
+    check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g_out.data_ptr(),
              lse.data_ptr(), dq.data_ptr(), dd.data_ptr(), b, h, t, d, lo, hi, d**-0.5 * _LOG2E,
              d**-0.5, torch.cuda.current_stream(q.device).cuda_stream), "attn_backward_dq")
     KERNELS[kernel_name("attention_bwd_dq", d)].launches += 1
@@ -198,6 +210,7 @@ def attention_backward_dkv(q, k, v, lse, dd, g_out, pad_interval=None):
     """Backward pass B on the card: (dk, dv), from the forward's row
     statistic and pass A's D. Gap columns come out exactly zero."""
     _check_inputs(q, k, v)
+    _require_contiguous("attention_backward_dkv", q, k, v, lse, dd, g_out)
     b, h, t, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lo, hi = _gap(t, pad_interval)
@@ -230,7 +243,7 @@ class _Attention(torch.autograd.Function):
             if capture:
                 mean = _mean(q, k, lse, pad_interval)
             KERNELS[kernel_name(name, q.shape[-1])].launches += 1
-        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.save_for_backward(q, k, v, lse)
         if not capture:
             return out
         ctx.mark_non_differentiable(mean)
@@ -238,14 +251,14 @@ class _Attention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_out, *_):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, lse = ctx.saved_tensors
         if q.device.type == "cpu":
             grads = attention_backward_reference(q, k, v, g_out, ctx.pad_interval)
         else:
             if lse is None:
                 raise RuntimeError("attention backward: the forward saved no row statistic")
             g_out = g_out.to(q.dtype).contiguous()
-            dq, dd = attention_backward_dq(q, k, v, out, lse, g_out, ctx.pad_interval)
+            dq, dd = attention_backward_dq(q, k, v, lse, g_out, ctx.pad_interval)
             grads = (dq, *attention_backward_dkv(q, k, v, lse, dd, g_out, ctx.pad_interval))
         return (*grads, None, None)
 
@@ -256,6 +269,7 @@ def _mean(q, k, lse, pad_interval, lib=None):
     query tiles of all heads stay in shared memory up to
     ``lib.attn_mean_resident_heads(d)`` heads, and stream beside the keys
     above."""
+    _require_contiguous("attention mean pass", q, k, lse)
     b, h, t, d = q.shape
     lib = forward_library() if lib is None else lib
     mean = torch.empty((b, t, t), device=q.device, dtype=q.dtype)

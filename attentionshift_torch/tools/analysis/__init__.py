@@ -1,2 +1,4 @@
-"""Analysis tools: microbenchmarks of single layers and kernels, and the
-best and worst evaluated images (``analyze_results``)."""
+"""Analysis tools: microbenchmarks of single layers and kernels, the best
+and worst evaluated images (``analyze_results``), the metrics of a dump
+(``eval_metric``) and the learning check on synthetic blobs
+(``learning_check``)."""

@@ -152,7 +152,16 @@ Phases, each printing its own lines:
    ``tools.analysis.analyze_results`` once each (the pngs exist, none
    blank). Each check with a control that must fail it; host ms, busy
    share and peak memory beside the card's name and power limit;
-15. times with CUDA events: every kernel, its plain version, the library
+15. the learning tools at 512x512 (the ViT-S flagship, bf16, ``max_gt``
+   8): ``tools.debug_overfit`` whole (60 steps on 8 discs, its own loss
+   checks) and ``tools.analysis.learning_check`` with every branch (20
+   steps on 16 two-lobed images, milestones 0 and 20 scored on 8 held-out
+   images with the detection chain, a 10-step dagger loop): milestone rows
+   well-formed and finite; exact launches per train step, scored image and
+   tested image; CCL, mean-shift and both attention pairs on the inputs
+   the learning check handed them (T = 1125, no gap; 56 planes of 32x32);
+   ms per train step (host clock, median), one profiled step, peak memory;
+16. times with CUDA events: every kernel, its plain version, the library
    call where one exists, ms/img of the pseudo-label path and of
    inference and ms per train step, each with one profiled call. The
    attention kernels and their SDPA yardsticks (the forward with the same
@@ -2891,7 +2900,7 @@ def phase_swin(dev, smi: str) -> dict:
         f"{len(list(model.parameters()))} parameter tensors")
     # the kernels on the path's own inputs: global block 0's q, k, v and the
     # upstream gradient its backward was handed
-    (q, k, v, _, _, g, gap), _ = handed["attention_backward_dq"]
+    (q, k, v, _, g, gap), _ = handed["attention_backward_dq"]
     assert tuple(q.shape) == (1, 24, SWIN_T, 32) and gap is None
     errs = check_attention_pair("swin path inputs", q, k, v, g, gap)
     # the whole bf16 forward against the same module with use_kernel=False
@@ -2945,14 +2954,14 @@ def phase_swin_times(results: dict, sw: dict, smi: str) -> None:
     (plain_ms, sdpa_fwd), (plain_reads, sdpa_reads) = in_turns(
         lambda: attention.attention_no_capture(q, k, v),
         lambda: F.scaled_dot_product_attention(q, k, v))
-    out, lse = attention.flash_forward(q, k, v, None, with_lse=True)
+    _, lse = attention.flash_forward(q, k, v, None, with_lse=True)
     mean_ms = median_time(lambda: attention._mean(q, k, lse, None))
-    _, dd = attention.attention_backward_dq(q, k, v, out, lse, g)
+    _, dd = attention.attention_backward_dq(q, k, v, lse, g)
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     sdpa_out = F.scaled_dot_product_attention(*leaves)
 
     def pair():
-        attention.attention_backward_dq(q, k, v, out, lse, g)
+        attention.attention_backward_dq(q, k, v, lse, g)
         attention.attention_backward_dkv(q, k, v, lse, dd, g)
 
     (pair_ms, lib_bwd), (pair_reads, lib_reads) = in_turns(
@@ -2975,7 +2984,7 @@ def phase_swin_times(results: dict, sw: dict, smi: str) -> None:
             plain_ms=cuda_time(lambda: attention.attention_reference(q, k, v)[0], reps=3),
             library_ms=sdpa_fwd, bytes=qkv_bytes + q.numel() * 2, ops=flops, exps=exps),
         "attention_bwd_dq_d32": dict(
-            ms=median_time(lambda: attention.attention_backward_dq(q, k, v, out, lse, g)),
+            ms=median_time(lambda: attention.attention_backward_dq(q, k, v, lse, g)),
             plain_ms=plain_bwd, library_ms=lib_bwd, bytes=6 * q.numel() * 2 + stat_bytes,
             ops=6.0 * b * h * t * t * d, exps=exps),
         "attention_bwd_dkv_d32": dict(
@@ -3769,6 +3778,144 @@ def phase_vis_tools(tc: dict, ev: dict) -> None:
         f"({[os.path.basename(p) for p in ranked]}), none blank: ok")
 
 
+# the learning tools' run in phase_learning: learning_check's arguments
+# cover every branch (the detection chain, the dagger loop)
+LEARN_STEPS, LEARN_TRAIN, LEARN_EVAL, LEARN_DAGGER = 20, 16, 8, 10
+LEARN_ARGV = ["--corpus", "lobes", "--train-images", str(LEARN_TRAIN), "--eval-images",
+              str(LEARN_EVAL), "--steps", str(LEARN_STEPS), "--milestones", "0", str(LEARN_STEPS),
+              "--det-eval", "--dagger", str(LEARN_DAGGER)]
+LEARN_ROW_KEYS = ["step", "loss", "pseudo_box_iou", "pseudo_mask_iou", "mAP25", "mAP50", "mAP75",
+                  "n_det"]
+LEARN_T = 1 + 32 * 32 + 100  # tokens at 512x512: cls, patches, point tokens; no pad gap
+LEARN_PLANES = (CAM_LAYERS * 8, 32, 32)  # CCL: captured layers x max_gt 8 on the token grid
+
+
+def timed_train_steps(steps: list):
+    """Patch ``train.make_train_step`` so that each step of the functions it
+    builds appends (its launches, host-clock ms ending in a synchronize, the
+    step function, its state and batch) to ``steps``."""
+    from unittest import mock
+
+    import attentionshift_torch.train as train_pkg
+
+    inner = train_pkg.make_train_step
+
+    def make(model, group=None):
+        fn = inner(model, group)
+
+        def step(state, batch, **kw):
+            before = launch_counts()
+            t0 = time.perf_counter()
+            out = fn(state, batch, **kw)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            after = launch_counts()
+            steps.append(({k: after[k] - before[k] for k in after}, ms, fn, state, batch))
+            return out
+
+        return step
+
+    return mock.patch.object(train_pkg, "make_train_step", make)
+
+
+def phase_learning(smi: str) -> dict:
+    """The two learning tools at 512x512 (ViT-S flagship, bf16, ``max_gt``
+    8, 512 proposals). ``tools.debug_overfit`` whole: 60 steps on its 8-disc
+    corpus, its own checks (``loss_total`` and ``loss_point_cls`` over the
+    last 8 steps below the first 8). ``tools.analysis.learning_check`` on
+    the lobes corpus with every branch (``LEARN_ARGV``: 20 steps,
+    milestones 0 and 20 with the detection chain, a 10-step dagger loop):
+    the milestone rows well-formed and finite, the dagger's IoUs in [0, 1].
+    Exact launch counts of both runs: per train step ``TRAIN_LAUNCHES``,
+    per scored image ``SEED_LAUNCHES``, per ``simple_test`` image 12
+    ``flash_fwd``, none in the Mask R-CNN. CCL, mean-shift and the capture
+    pair against their plain versions on the inputs the learning check
+    handed them (T = 1125 tokens, no gap; 56 planes of 32x32), and both
+    pairs on the same q, k, v with a seeded upstream gradient
+    (``check_attention_pair``). ms per train step (host clock, median), one
+    profiled step, peak memory. Returns each run's launches."""
+    import math
+    import statistics
+
+    import torch
+
+    from attentionshift_torch.ops._build import reset_launches
+    from attentionshift_torch.tools import debug_overfit
+    from attentionshift_torch.tools.analysis import learning_check
+
+    res = {}
+    for name, run, argv, scored, tested in (
+            ("debug_overfit", debug_overfit.main, [], 0, 0),
+            ("learning_check", learning_check.main, LEARN_ARGV,
+             2 * LEARN_EVAL + LEARN_TRAIN, 2 * LEARN_EVAL + LEARN_EVAL)):
+        steps, handed = [], {}
+        torch.cuda.reset_peak_memory_stats()
+        with timed_train_steps(steps), kernel_inputs_of(handed):
+            reset_launches()
+            t0 = time.perf_counter()
+            out = run(argv)
+            sync()
+            wall = time.perf_counter() - t0
+            total = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        n = len(steps)
+        want = expected_launches(**{k: n * v for k, v in TRAIN_LAUNCHES.items()})
+        for k, v in SEED_LAUNCHES.items():
+            want[k] += scored * v
+        want["attention_plain"] += tested * SINGLE_FLASH_PER_IMAGE
+        bad = [i for i, st in enumerate(steps) if st[0] != expected_launches(**TRAIN_LAUNCHES)]
+        if bad or total != want:
+            raise AssertionError(f"{name}: launches {nonzero(total)} != {nonzero(want)}; steps "
+                                 f"off the per-step count: {bad}")
+        ms = [st[1] for st in steps]
+        log(f"[learning] {name}: {n} train steps in {wall:.1f} s (the whole run); launches "
+            f"{nonzero(total)}; ms per step {statistics.median(ms[1:]):.2f} (host clock, median "
+            f"of steps 2-{n}; first {ms[0]:.2f}); peak {peak:.0f} MiB allocated; {smi}")
+        res[name] = dict(launches=total, steps=steps, ms=ms, out=out, handed=handed)
+    first, last = res["debug_overfit"]["out"]["first"], res["debug_overfit"]["out"]["last"]
+    log(f"[learning] debug_overfit: loss_total {first['loss_total']:.3f} -> "
+        f"{last['loss_total']:.3f}, loss_point_cls {first['loss_point_cls']:.3f} -> "
+        f"{last['loss_point_cls']:.3f} (means of the first and last {debug_overfit.WINDOW} of "
+        f"{debug_overfit.STEPS} steps): ok")
+    summary = res["learning_check"]["out"]
+    rows = summary["table"]
+    if [r["step"] for r in rows] != [0, LEARN_STEPS] or any(list(r) != LEARN_ROW_KEYS
+                                                            for r in rows):
+        raise AssertionError(f"learning_check rows {rows}")
+    for r in rows:
+        if not (all(0.0 <= r[k] <= 1.0 for k in LEARN_ROW_KEYS[2:7]) and 0 <= r["n_det"] <= 800):
+            raise AssertionError(f"learning_check row {r}")
+    dag = summary["dagger"]
+    if not (math.isfinite(rows[-1]["loss"]) and math.isfinite(dag["final_loss"])
+            and all(0.0 <= dag[k] <= 1.0 for k in ("flagship_det_mask_iou",
+                                                  "dagger_det_mask_iou"))):
+        raise AssertionError(f"learning_check: {rows[-1]}, dagger {dag}")
+    log(f"[learning] learning_check rows {rows}; dagger {dag}; wall {summary['wall_s']} s "
+        f"(the tool's own clock, flagship part)")
+    handed = res["learning_check"]["handed"]
+    shapes = check_kernels_on("learning-input", handed)
+    if (shapes["attention"] != (1, HEADS, LEARN_T, HEAD_DIM) or shapes["pad"] is not None
+            or shapes["ccl_planes"] != LEARN_PLANES or shapes["meanshift"]["G"] != 8):
+        raise AssertionError(f"learning path kernel shapes {shapes}")
+    q, k, v = (x.contiguous() for x in handed["attention_with_capture"][0][:3])
+    g = torch.randn(q.shape, generator=torch.Generator(device=q.device).manual_seed(5),
+                    device=q.device).bfloat16()
+    check_attention_pair("learning-input.pair", q, k, v, g, None, quiet=True)
+    # what set this path's inputs apart for pass A's D (ROADMAP section C):
+    # keys sharing a large mean
+    kf = k.float()
+    mean_key = kf.mean(2, keepdim=True)
+    log(f"[learning] both attention pairs on the path's own q, k, v: ok; the largest norm of a "
+        f"head's mean key over the largest mean distance of a key from it: "
+        f"{float(mean_key.norm(dim=-1).max() / (kf - mean_key).norm(dim=-1).mean(2).max()):.2f}")
+    *_, fn, state, batch = res["learning_check"]["steps"][-1]
+    gen = torch.Generator(device=q.device).manual_seed(42 + LEARN_STEPS)
+    profile_slice(lambda: fn(state, batch, generator=gen),
+                  statistics.median(res["learning_check"]["ms"][1:]), top=8,
+                  what="learning-check train step (512x512)")
+    return {name: r["launches"] for name, r in res.items()}
+
+
 def phase_tool(dev):
     """The attention microbenchmark at its defaults, every variant."""
     from attentionshift_torch.ops._build import KERNELS, reset_launches
@@ -3838,7 +3985,7 @@ def phase_times(results: dict, inp: dict, model, slice_inp, gen):
     (plain_ms, sdpa_fwd), (plain_reads, sdpa_reads) = in_turns(
         lambda: attention.attention_no_capture(q, k, v, PAD_GAP),
         lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
-    out, lse = attention.flash_forward(q, k, v, PAD_GAP, with_lse=True)
+    _, lse = attention.flash_forward(q, k, v, PAD_GAP, with_lse=True)
     mean_ms = median_time(lambda: attention._mean(q, k, lse, PAD_GAP))
     times = {
         "attention_capture": dict(
@@ -3872,7 +4019,7 @@ def phase_times(results: dict, inp: dict, model, slice_inp, gen):
     log(f"[time] mean pass (attn_mean alone): {mean_ms:.4f} ms (median of 5), bound "
         f"{mean_bound:.4f} ms, exp floor {mean_floor:.4f} ms; capture = flash + mean pass")
     g = inp["g_out"]
-    _, dd = attention.attention_backward_dq(q, k, v, out, lse, g, PAD_GAP)
+    _, dd = attention.attention_backward_dq(q, k, v, lse, g, PAD_GAP)
     # one plain backward computes all three gradients: its time stands beside
     # both kernels; so does the library's, the backward of SDPA with the mask,
     # read in turns with the pair
@@ -3882,7 +4029,7 @@ def phase_times(results: dict, inp: dict, model, slice_inp, gen):
     sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=bias)
 
     def pair():
-        attention.attention_backward_dq(q, k, v, out, lse, g, PAD_GAP)
+        attention.attention_backward_dq(q, k, v, lse, g, PAD_GAP)
         attention.attention_backward_dkv(q, k, v, lse, dd, g, PAD_GAP)
 
     (pair_ms, lib_bwd), (pair_reads, lib_reads) = in_turns(
@@ -3890,7 +4037,7 @@ def phase_times(results: dict, inp: dict, model, slice_inp, gen):
     del sdpa_out, leaves
     stat_bytes = 2 * b * h * t * 4  # the row statistic and D, f32
     times["attention_bwd_dq"] = dict(
-        ms=median_time(lambda: attention.attention_backward_dq(q, k, v, out, lse, g, PAD_GAP)),
+        ms=median_time(lambda: attention.attention_backward_dq(q, k, v, lse, g, PAD_GAP)),
         plain_ms=plain_bwd, library_ms=lib_bwd,
         bytes=6 * q.numel() * 2 + stat_bytes, ops=6.0 * b * h * t * t * d, peak=PEAK_BF16)
     times["attention_bwd_dkv"] = dict(
@@ -4307,6 +4454,7 @@ def main(argv=None) -> int:
     mim = phase_mim(dev, smi)
     phase_det_cam(dev, model, smi)
     phase_vis_tools(tc, ev)
+    learning = phase_learning(smi)
     phase_times(results, inp, model, slice_inp, gen)
     phase_swin_times(results, sw, smi)
     phase_main_path_inputs(results, handed)
@@ -4321,7 +4469,9 @@ def main(argv=None) -> int:
     pseudo_cli = pc["total"]
     variants = dict(coco_cli=cc["total"], teacher_cli=vc["ts"], keypoint_cli=vc["keypoint"],
                     cascade_step=cascade, vitb_cli=vitb, swin=sw["launches"],
-                    point2bbox=p2b["launches"], mae_encoder=mae["launches"], mim=mim["launches"])
+                    point2bbox=p2b["launches"], mae_encoder=mae["launches"], mim=mim["launches"],
+                    debug_overfit=learning["debug_overfit"],
+                    learning_check=learning["learning_check"])
     table = []
     for name, kern in KERNELS.items():
         r = results[name]

@@ -11,7 +11,10 @@ stdout line is the metric dict ``evaluate`` returns for the same model.
 from __future__ import annotations
 
 import json
+import os
 import pickle
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -26,6 +29,7 @@ from test_torch_support import (EVAL_KW, PROB_TOL, close, coco_tree, eval_models
 # pixel whose probability sits within PROB_TOL of the 0.5 threshold can flip
 # and move an IoU, so the metrics are held to 1e-3 rather than exactly
 METRIC_TOL = 1e-3
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TEST_SCALE = (96, 160)
 AUG_SCALES = [(64, 128)]
 
@@ -136,7 +140,8 @@ def test_cli_aug_test_prints_evaluate_metrics(cli_setup, evaluated, capsys, monk
     P --out F`` in-process (the six-scale list cut to ``AUG_SCALES``): the
     last stdout line parses to exactly the metric dict ``evaluate`` gave
     the same model, ``--out`` holds it too, and the dumped predictions
-    equal ``evaluate``'s."""
+    equal ``evaluate``'s; ``tools/analysis/error_analysis.py`` reads the
+    dump."""
     from attentionshift_torch.tools import test as cli
 
     cfg, ckpt, opts, d = cli_setup
@@ -153,6 +158,15 @@ def test_cli_aug_test_prints_evaluate_metrics(cli_setup, evaluated, capsys, monk
     for key in ("labels", "scores", "masks"):
         for a, b in zip(mine["preds"][key], want_dump["preds"][key], strict=True):
             np.testing.assert_array_equal(a, b)
+    # the repo's error breakdown (numpy only, no twin) reads the dump
+    r = subprocess.run([sys.executable, os.path.join(REPO, "tools/analysis/error_analysis.py"),
+                        str(dump)], capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    rep = json.loads(r.stdout)
+    assert sorted(rep) == ["iou_thr", "n_gt", "n_predictions", "oracle", "rates", "recall",
+                           "totals"]
+    assert rep["n_predictions"] == sum(len(x) for x in mine["preds"]["labels"]) > 0
+    assert rep["n_gt"] == sum(len(x) for x in mine["gts"]["labels"])
 
 
 def test_cli_single_scale_and_its_contract(cli_setup, evaluated, capsys):

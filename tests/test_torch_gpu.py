@@ -295,7 +295,7 @@ def test_attention_kernels_refuse_other_head_dims(cuda, d):
     lse = torch.zeros((1, 2, 64), device=cuda)
     for call in (lambda: attention.attention_with_capture(q, q, q),
                  lambda: attention.attention_no_capture(q, q, q),
-                 lambda: attention.attention_backward_dq(q, q, q, q, lse, q),
+                 lambda: attention.attention_backward_dq(q, q, q, lse, q),
                  lambda: attention.attention_backward_dkv(q, q, q, lse, lse, q)):
         with pytest.raises(ValueError, match="head dim 64 or 32"):
             call()
@@ -447,16 +447,51 @@ def test_attention_backward_kernels_on_card(cuda, b, h, t, gap):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 32])
+def test_attention_backward_on_keys_with_a_common_component(cuda, d):
+    """q, k and v each sharing a common component per head, as a trained
+    model's do (the learning check's keys on an H100: common part 2.8x
+    their spread):
+    dq, dk, dv of both ops within 4 bf16 ulps of the plain version's. Pass A
+    sums D = sum_s p * dP in f32 from the bf16 p, as the plain version and
+    the TPU kernel do. The control, the plain version with D from the bf16
+    ``out`` (rowsum(dO * out)), returns out's rounding in dq times the mean
+    key and must fail the dq limit."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+
+    def shared():
+        base = torch.randn((1, 6, 1125, d), generator=gen, device=cuda) * 0.5
+        return (base + torch.randn((1, 6, 1, d), generator=gen, device=cuda)).bfloat16()
+
+    q, k, v = shared(), shared(), shared()
+    g = torch.randn((1, 6, 1125, d), generator=gen, device=cuda).bfloat16()
+    want = attention.attention_backward_reference(q, k, v, g)
+    for op in (attention.attention_no_capture, attention.attention_with_capture):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = op(*leaves)
+        out = out[0] if isinstance(out, tuple) else out
+        got = torch.autograd.grad(out, leaves, g)
+        for name, a, w in zip("qkv", got, want):
+            torch.testing.assert_close(a.float(), w.float(), atol=_ulps(w, 4), rtol=0,
+                                       msg=f"d{name}")
+    pm = torch.softmax(attention._logits(q, k), -1).bfloat16().float()
+    gp = g.float() @ v.float().transpose(-1, -2)
+    dd = (g.float() * attention.attention_reference(q, k, v)[0].float()).sum(-1, keepdim=True)
+    ctl = ((pm * (gp - dd)).bfloat16().float() @ k.float()) * d**-0.5
+    assert float((ctl - want[0].float()).abs().max()) > _ulps(want[0], 4)
+
+
+@pytest.mark.gpu
 def test_attention_backward_kernels_are_deterministic(cuda):
     """No atomics: two backward calls on the same inputs give bitwise equal
     dq, D, dk and dv."""
     gen = torch.Generator(device=cuda).manual_seed(4)
     q, k, v, g = (torch.randn((2, 3, 300, 64), generator=gen, device=cuda).bfloat16()
                   for _ in range(4))
-    out, lse = attention.flash_forward(q, k, v, (120, 140), with_lse=True)
+    _, lse = attention.flash_forward(q, k, v, (120, 140), with_lse=True)
     runs = []
     for _ in range(2):
-        dq, dd = attention.attention_backward_dq(q, k, v, out, lse, g, (120, 140))
+        dq, dd = attention.attention_backward_dq(q, k, v, lse, g, (120, 140))
         runs.append((dq, dd, *attention.attention_backward_dkv(q, k, v, lse, dd, g, (120, 140))))
     torch.cuda.synchronize()
     for a, b in zip(*runs):
@@ -1144,3 +1179,96 @@ def test_det_cams_on_card(cuda):
     want = grad_cam_from_feats(host, {"feature": tuple(f.float().cpu() for f in out["feature"])},
                                roi_map.float().cpu(), wh.cpu(), (64, 96), fb.cpu(), fl.cpu())
     torch.testing.assert_close(cam.cpu(), want, atol=1e-3, rtol=0)
+
+
+# ------------------------------------------------------- the learning tools
+
+
+@pytest.mark.gpu
+def test_debug_overfit_on_card(cuda, monkeypatch, capsys):
+    """``tools.debug_overfit`` on the card, its own checks at 20 steps: the
+    flagship's ``loss_total`` and ``loss_point_cls``, averaged over the last
+    8 steps, below their averages over the first 8."""
+    from attentionshift_torch.tools import debug_overfit
+
+    monkeypatch.setattr(debug_overfit, "STEPS", 20)
+    res = debug_overfit.main([])
+    assert capsys.readouterr().out.strip().splitlines()[-1] == (
+        f"OK: the model learns on {torch.cuda.get_device_name(cuda)}")
+    assert res["last"]["loss_total"] < res["first"]["loss_total"]
+
+
+@pytest.mark.gpu
+def test_learning_check_rows_on_card(cuda, capsys):
+    """``tools.analysis.learning_check`` on the card for 4 steps on the
+    lobes corpus with the detection chain: both milestone rows well-formed,
+    their IoUs and mAPs in [0, 1], the step-4 loss finite."""
+    from attentionshift_torch.tools.analysis import learning_check
+
+    summary = learning_check.main(["--steps", "4", "--milestones", "0", "4", "--det-eval",
+                                   "--train-images", "2", "--eval-images", "2",
+                                   "--corpus", "lobes"])
+    rows = summary["table"]
+    assert [r["step"] for r in rows] == [0, 4]
+    for r in rows:
+        assert list(r) == ["step", "loss", "pseudo_box_iou", "pseudo_mask_iou", "mAP25", "mAP50",
+                           "mAP75", "n_det"]
+        assert all(0.0 <= r[k] <= 1.0 for k in list(r)[2:7]) and 0 <= r["n_det"] <= 200
+    assert np.isfinite(rows[1]["loss"])
+
+
+@pytest.mark.gpu
+def test_learning_check_refuses_no_pallas_on_card(cuda):
+    """The port has no plain path on the card: ``--no-pallas`` raises there."""
+    from attentionshift_torch.tools.analysis import learning_check
+
+    with pytest.raises(ValueError, match="no plain path on the card"):
+        learning_check.main(["--no-pallas", "--steps", "1"])
+
+
+@pytest.mark.gpu
+def test_kernels_on_the_learning_paths_inputs(cuda):
+    """One train step of the learning check's flagship (512x512: T = 1 +
+    32 * 32 + 100 = 1125 tokens, no pad gap) with the inputs of the capture
+    attention and of CCL recorded: both attention pairs on the path's own
+    q, k, v (a seeded upstream gradient) and CCL on its own planes against
+    their plain versions."""
+    from types import SimpleNamespace
+    from unittest import mock
+
+    from attentionshift_torch.models import layers
+    from attentionshift_torch.pseudo import engine
+    from attentionshift_torch.tools.analysis import learning_check as lc
+    from attentionshift_torch.train import TrainState, build_optimizer, make_train_step
+
+    seen = {}
+
+    def keep(module, name):
+        fn = getattr(module, name)
+
+        def record(*args, **kwargs):
+            seen[name] = ([a.detach().clone() if torch.is_tensor(a) else a for a in args], kwargs)
+            return fn(*args, **kwargs)
+
+        return mock.patch.object(module, name, record)
+
+    model = lc.build_model(SimpleNamespace(f32=False), cuda)
+    s = lc.make_sample(np.random.RandomState(0), 0, "lobes")
+    batch = dict(zip(("img", "gt_points", "gt_labels", "gt_valid"), lc._on(cuda, *s[:4])),
+                 img_wh=torch.tensor([[512.0, 512.0]], device=cuda))
+    state = TrainState.create(model, build_optimizer(model, accumulate_steps=1, warmup_iters=20))
+    with keep(layers, "attention_with_capture"), keep(engine, "connected_components_batch"):
+        make_train_step(model)(state, batch, generator=torch.Generator(device=cuda).manual_seed(42))
+    (q, k, v, *pad), akw = seen["attention_with_capture"]
+    gap = akw.get("pad_interval", pad[0] if pad else None)
+    assert tuple(q.shape) == (1, 6, 1125, 64) and q.dtype == torch.bfloat16 and gap is None
+    # views of the fused qkv; the autograd op copies them contiguous, as here
+    q, k, v = (x.contiguous() for x in (q, k, v))
+    g = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(5),
+                    device=cuda).bfloat16()
+    _check_attention_pair(q, k, v, g, gap)
+    (planes, *rest), ckw = seen["connected_components_batch"]
+    iters = ckw.get("max_iters", rest[0] if rest else 256)
+    assert tuple(planes.shape) == (7 * 8, 32, 32)
+    assert torch.equal(ccl.connected_components_batch(planes, iters),
+                       ccl.connected_components(planes, iters))

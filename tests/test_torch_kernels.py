@@ -326,6 +326,27 @@ def test_meanshift_plan_takes_every_shape_the_first_kernel_took():
         meanshift_kernel._plan(20, 32, 10**6, 768, True, always)
 
 
+def test_attention_kernel_entries_refuse_strided_views():
+    """The functions that hand the attention kernels raw pointers refuse a
+    strided view (q, k, v split from a fused qkv, as ``layers.Attention``
+    makes them) before anything is built or launched; a contiguous copy is
+    what the autograd op hands them."""
+    b, h, t, d = 1, 2, 16, 64
+    qkv = torch.randn(b, t, 3, h, d)
+    q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
+    assert not q.is_contiguous()
+    lse = torch.zeros(b, h, t)
+    with pytest.raises(ValueError, match="flash_forward: every tensor must be contiguous"):
+        attention.flash_forward(q, k, v, None, True)
+    with pytest.raises(ValueError, match="mean pass: every tensor must be contiguous"):
+        attention._mean(q, k, lse, None)
+    with mock.patch.object(attention, "_check_inputs", lambda *a: None):
+        with pytest.raises(ValueError, match="backward_dq: every tensor must be contiguous"):
+            attention.attention_backward_dq(q, k, v, lse, q.contiguous())
+        with pytest.raises(ValueError, match="backward_dkv: every tensor must be contiguous"):
+            attention.attention_backward_dkv(q, k, v, lse, lse, q.contiguous())
+
+
 def test_kernel_wrappers_count_only_their_launches():
     """CPU tensors take the plain versions: no kernel launch is counted."""
     from attentionshift_torch.ops._build import KERNELS, reset_launches

@@ -23,7 +23,9 @@
 from __future__ import annotations
 
 import json
+import os
 import re
+import subprocess
 import sys
 
 import numpy as np
@@ -239,9 +241,10 @@ def test_cli_resume_equals_unbroken_run(tree, tmp_path, capsys):
     over 2 and drop path on (the step's generator feeds it): a first call
     stopped after epoch 0 writes ``config.json``, ``train_log.jsonl``,
     ``epoch_1`` (inside an accumulation window) and the val metrics; a
-    second call auto-resumes and runs epoch 1; its ``epoch_2`` equals an
-    unbroken 2-epoch run's bitwise (parameters, buffers, optimizer state,
-    counters)."""
+    second call auto-resumes and runs epoch 1, and
+    ``tools/analysis/analyze_logs.py time`` summarises the two epochs of
+    its ``train_log.jsonl``; its ``epoch_2`` equals an unbroken 2-epoch
+    run's bitwise (parameters, buffers, optimizer state, counters)."""
     from attentionshift_torch.tools import train as cli
 
     cfg = write_config(tmp_path / "tiny.py", tree, batch_size=1, drop_path_rate=0.1)
@@ -263,6 +266,15 @@ def test_cli_resume_equals_unbroken_run(tree, tmp_path, capsys):
     assert f"resumed from {broken / 'epoch_1'} (epoch 1)" in capsys.readouterr().out
     assert second["start_epoch"] == 1 and len(second["step_ms"]) == 3
     assert len((broken / "train_log.jsonl").read_text().splitlines()) == 6
+    # the repo's log summary (no JAX, no twin) reads the port's log
+    r = subprocess.run([sys.executable, os.path.join(REPO, "tools/analysis/analyze_logs.py"),
+                        "time", str(broken / "train_log.jsonl")],
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    logged = [json.loads(x) for x in (broken / "train_log.jsonl").read_text().splitlines()]
+    assert r.stdout.splitlines() == [
+        f"epoch {ep}: 3 logged iters, final loss_total {logged[3 * ep + 2]['loss_total']:.4f}"
+        for ep in (0, 1)]
     cli.main([cfg, "--work-dir", str(unbroken), "--no-validate", "--device", "cpu"])
     a = torch.load(broken / "epoch_2", weights_only=True)
     b = torch.load(unbroken / "epoch_2", weights_only=True)
