@@ -68,6 +68,7 @@ from ..pseudo.rollout import attention_rollout_point_rows
 from .condinst import SimpleCondInstHead
 from .fpn import FPN
 from .heads import BoxHeadRec, MaskHeadPointSup, MILHead, mask_point_loss
+from .initializers import XAVIER, flax_init, normal_rule
 from .mae_head import MAEDecoderHead
 from .reppoints import RepPointsPartHead, contour_points, refine_fg_maps
 from .rpn import RPNHead, rpn_loss, rpn_proposals
@@ -86,6 +87,9 @@ class TestOutputs(NamedTuple):
 # config keys this port does not read: switches of the JAX package's own
 # kernels and meshes
 _OTHER_PATHS = frozenset({"use_pallas_attention", "use_pallas_ccl", "sequence_parallel"})
+# the tokens and tables the JAX modules draw: truncated_normal(std), None = zeros
+_TABLES = {"cls_token": None, "mask_token": None, "pos_embed": 0.02, "point_token": 0.02,
+           "point_pos_embed": 0.02, "det_token": 0.02}
 
 
 class AttnShiftDetector(nn.Module):
@@ -164,27 +168,15 @@ class AttnShiftDetector(nn.Module):
         return self.mil_head.fc1.weight.device
 
     def init_weights(self, seed: int = 0) -> "AttnShiftDetector":
-        """Seeded random init: N(0, 0.02) matrices and tokens, zero biases,
-        unit norm scales and running variances; the FPN convs Xavier-uniform
-        and the RPN convs N(0, 0.01), as mmdet initialises them."""
-        gen = torch.Generator(device="cpu").manual_seed(seed)
-        with torch.no_grad():
-            for name, t in self.state_dict().items():
-                leaf = name.rsplit(".", 1)[-1]
-                if leaf in ("bias", "running_mean"):
-                    val = torch.zeros(t.shape)
-                elif leaf == "running_var" or (leaf == "weight" and t.dim() == 1):
-                    val = torch.ones(t.shape)
-                elif name.startswith("rpn_head."):
-                    val = torch.randn(t.shape, generator=gen) * 0.01
-                elif name.startswith("neck."):
-                    taps = 9 if t.dim() == 4 else 1
-                    bound = (6.0 / (taps * (t.shape[-1] + t.shape[-2]))) ** 0.5
-                    val = (torch.rand(t.shape, generator=gen) * 2.0 - 1.0) * bound
-                else:
-                    val = torch.randn(t.shape, generator=gen) * 0.02
-                t.copy_(val)
-        return self
+        """Seeded random init drawn by the JAX modules' rules
+        (``models/initializers.py``): ``lecun_normal`` kernels (flax's
+        default), zero biases, unit norm scales and running variances; the
+        ``cls_token`` and the MAE head's ``mask_token`` zeros; ``pos_embed``,
+        the point tokens and ``det_token`` ``truncated_normal(0.02)``; the
+        FPN kernels Xavier-uniform and the RPN kernels N(0, 0.01), as the
+        JAX package's ``fpn.py`` and ``rpn.py`` name them after mmdet."""
+        return flax_init(self, seed, _TABLES,
+                         {"neck.": XAVIER, "rpn_head.": normal_rule(0.01)})
 
     # ------------------------------------------------------------- shared
     def _extract(self, img, deterministic: bool = True, generator=None, drop_masks=None,

@@ -174,22 +174,21 @@ class MaskRCNN(nn.Module):
 
     def _roi_feats(self, fpn_feats, boxes, output_size):
         """FPN-routed RoIAlign (mmdet ``SingleRoIExtractor``): (B, N, 4)
-        boxes -> (B*N, S, S, C) channel-last, each RoI cropped from its
-        ``roi_levels`` level only."""
+        boxes -> (B*N, S, S, C) channel-last, each RoI taken from its
+        ``roi_levels`` level."""
         b, n, _ = boxes.shape
         idx = torch.arange(b, device=boxes.device, dtype=boxes.dtype).repeat_interleave(n)
         rois = torch.cat([idx[:, None], boxes.reshape(b * n, 4)], dim=1)
         with torch.no_grad():
             lvl = roi_levels(rois[:, 1:5])
-        c = fpn_feats[0].shape[-1]
-        out = fpn_feats[0].new_zeros(b * n, c, output_size, output_size)
+        # every RoI cropped at every level, each kept where it belongs: fixed
+        # shapes (no selection sized by the data), so the test path exports
+        out = None
         for i in range(4):
-            sel = (lvl == i).nonzero()[:, 0]
-            if sel.numel():
-                crops = roi_align(fpn_feats[i].permute(0, 3, 1, 2), rois[sel],
-                                  spatial_scale=1.0 / (4 * 2**i), output_size=output_size,
-                                  sampling_ratio=2)
-                out = out.index_put((sel,), crops)
+            crops = roi_align(fpn_feats[i].permute(0, 3, 1, 2), rois,
+                              spatial_scale=1.0 / (4 * 2**i), output_size=output_size,
+                              sampling_ratio=2)
+            out = crops if out is None else torch.where((lvl == i)[:, None, None, None], crops, out)
         return out.permute(0, 2, 3, 1)
 
     # -------------------------------------------------------------- train

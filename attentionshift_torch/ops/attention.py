@@ -8,13 +8,18 @@ Port of ``attentionshift_tpu/ops/attention.py``, forward and backward:
 with an optional pre-padded token gap ``pad_interval = [lo, hi)`` masked
 out of every softmax (``models/vit.py`` ``pad_tokens_to``).
 
-Each public function is a wrapper around a ``torch.autograd.Function``:
-a CPU tensor takes the plain PyTorch versions (``attention_reference``,
-which follows the JAX package's ``_jnp_reference``, and
-``attention_backward_reference``, which follows its staged backward), a
-CUDA tensor launches the hand-written kernels in ``csrc/attention.cu``
-and ``csrc/attention_bwd.cu`` or raises. There is no fallback between
-the two. ``mean_probs`` carries no gradient.
+The two public functions are wrappers around two ``torch.library``
+custom ops, ``attentionshift::attention_plain`` and
+``attentionshift::attention_capture``, so that ``torch.export`` keeps each
+as one operator of the exported graph and ``FlopCounterMode`` counts it
+(``attention_flops``). A CPU tensor takes the plain PyTorch versions
+(``attention_reference``, which follows the JAX package's
+``_jnp_reference``, and ``attention_backward_reference``, which follows
+its staged backward), a CUDA tensor launches the hand-written kernels in
+``csrc/attention.cu`` and ``csrc/attention_bwd.cu`` or raises; the fake
+implementations give the outputs' shapes and dtypes. There is no
+fallback between the two. The gradient is registered on both ops
+(``register_autograd``); ``mean_probs`` carries none.
 
 The backward on the card is two kernels: pass A gives dQ and the per-row
 D = sum_s p * dP (f32, from the bf16 p, as the TPU kernel), pass B gives
@@ -35,12 +40,14 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ._build import KERNELS, check, library
 from .numerics import F32_MIN_NORMAL, bf16_steps
 
 __all__ = ["HEAD_DIMS", "attention_reference", "attention_backward_reference",
-           "attention_with_capture", "attention_no_capture", "flash_forward", "forward_library",
+           "attention_with_capture", "attention_no_capture", "attention_plain_op",
+           "attention_capture_op", "attention_flops", "flash_forward", "forward_library",
            "attention_backward_dq", "attention_backward_dkv", "capture_mean_limit", "kernel_name"]
 
 _LOG2E = 1.4426950408889634
@@ -224,43 +231,107 @@ def attention_backward_dkv(q, k, v, lse, dd, g_out, pad_interval=None):
     return dk, dv
 
 
-class _Attention(torch.autograd.Function):
-    """Forward and backward of both attention ops; ``capture`` picks the
-    one that also returns the head-averaged probabilities."""
+def _pad(lo: int, hi: int):
+    """The custom ops' gap [lo, hi) as ``pad_interval`` (None when empty)."""
+    return (lo, hi) if lo < hi else None
 
-    @staticmethod
-    def forward(ctx, q, k, v, pad_interval, capture):
-        ctx.pad_interval = pad_interval
-        mean = lse = None
-        if q.device.type == "cpu":
-            out, mean = attention_reference(q, k, v, pad_interval)
-        else:
-            _check_inputs(q, k, v)
-            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-            out, lse = flash_forward(q, k, v, pad_interval,
-                              with_lse=capture or any(ctx.needs_input_grad[:3]))
-            name = "attention_capture" if capture else "attention_plain"
-            if capture:
-                mean = _mean(q, k, lse, pad_interval)
-            KERNELS[kernel_name(name, q.shape[-1])].launches += 1
-        ctx.save_for_backward(q, k, v, lse)
-        if not capture:
-            return out
-        ctx.mark_non_differentiable(mean)
-        return out, mean
 
-    @staticmethod
-    def backward(ctx, g_out, *_):
-        q, k, v, lse = ctx.saved_tensors
-        if q.device.type == "cpu":
-            grads = attention_backward_reference(q, k, v, g_out, ctx.pad_interval)
-        else:
-            if lse is None:
-                raise RuntimeError("attention backward: the forward saved no row statistic")
-            g_out = g_out.to(q.dtype).contiguous()
-            dq, dd = attention_backward_dq(q, k, v, lse, g_out, ctx.pad_interval)
-            grads = (dq, *attention_backward_dkv(q, k, v, lse, dd, g_out, ctx.pad_interval))
-        return (*grads, None, None)
+def _row_lse(q, k, pad_interval):
+    """The plain version of the flash pass's row log2-sum-exp (B, H, T) f32."""
+    logits = _logits(q, k)
+    if pad_interval is not None:
+        lo, hi = pad_interval
+        col = torch.arange(q.shape[2], device=q.device)
+        logits = logits + torch.where((col >= lo) & (col < hi), -1e30, 0.0)
+    return torch.logsumexp(logits, dim=-1) * _LOG2E
+
+
+# The two forward ops as torch.library custom ops, so that torch.export and
+# FlopCounterMode see one operator each: the CPU implementation is the plain
+# version, the CUDA one launches the kernels (and counts the launch), the fake
+# one gives shapes and dtypes. Each returns the row log2-sum-exp as well,
+# which the backward (register_autograd below) reads.
+@torch.library.custom_op("attentionshift::attention_plain", mutates_args=(), device_types="cpu")
+def attention_plain_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lo: int,
+                       hi: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out, row log2-sum-exp) of attention with the gap [lo, hi) masked."""
+    out, _ = attention_reference(q, k, v, _pad(lo, hi))
+    return out, _row_lse(q, k, _pad(lo, hi))
+
+
+@attention_plain_op.register_kernel("cuda")
+def _plain_cuda(q, k, v, lo, hi):
+    _check_inputs(q, k, v)
+    out, lse = flash_forward(q, k, v, _pad(lo, hi), with_lse=True)
+    KERNELS[kernel_name("attention_plain", q.shape[-1])].launches += 1
+    return out, lse
+
+
+@attention_plain_op.register_fake
+def _plain_fake(q, k, v, lo, hi):
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+@torch.library.custom_op("attentionshift::attention_capture", mutates_args=(), device_types="cpu")
+def attention_capture_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lo: int,
+                         hi: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(out, head-mean probabilities (B, T, T), row log2-sum-exp)."""
+    out, mean = attention_reference(q, k, v, _pad(lo, hi))
+    return out, mean, _row_lse(q, k, _pad(lo, hi))
+
+
+@attention_capture_op.register_kernel("cuda")
+def _capture_cuda(q, k, v, lo, hi):
+    _check_inputs(q, k, v)
+    out, lse = flash_forward(q, k, v, _pad(lo, hi), with_lse=True)
+    mean = _mean(q, k, lse, _pad(lo, hi))
+    KERNELS[kernel_name("attention_capture", q.shape[-1])].launches += 1
+    return out, mean, lse
+
+
+@attention_capture_op.register_fake
+def _capture_fake(q, k, v, lo, hi):
+    b, h, t, _ = q.shape
+    return (torch.empty_like(q), q.new_empty((b, t, t)),
+            q.new_empty((b, h, t), dtype=torch.float32))
+
+
+def _setup(ctx, inputs, output):
+    q, k, v, lo, hi = inputs
+    ctx.pad_interval = _pad(lo, hi)
+    ctx.mark_non_differentiable(*output[1:])
+    ctx.save_for_backward(q, k, v, output[-1])
+
+
+def _backward(ctx, g_out, *_):
+    q, k, v, lse = ctx.saved_tensors
+    if q.device.type == "cpu":
+        grads = attention_backward_reference(q, k, v, g_out, ctx.pad_interval)
+    else:
+        g_out = g_out.to(q.dtype).contiguous()
+        dq, dd = attention_backward_dq(q, k, v, lse, g_out, ctx.pad_interval)
+        grads = (dq, *attention_backward_dkv(q, k, v, lse, dd, g_out, ctx.pad_interval))
+    return (*grads, None, None)
+
+
+for _op in (attention_plain_op, attention_capture_op):
+    _op.register_autograd(_backward, setup_context=_setup)
+
+
+@register_flop_formula([torch.ops.attentionshift.attention_plain,
+                        torch.ops.attentionshift.attention_capture])
+def attention_flops(q_shape, *args, **kwargs) -> int:
+    """The two products QK^T and PV, 2 operations per multiply-add:
+    4 B H T^2 d, the count of ``chip_smoke.py``'s bound of kernel #2 (and
+    of #1's flash pass; the mean pass's recompute is not counted)."""
+    b, h, t, d = q_shape
+    return 4 * b * h * t * t * d
+
+
+def _operands(q, k, v):
+    """The ops take contiguous q, k, v (the kernels read raw row-major
+    buffers); a head-split view of ``qkv`` is copied here, inside the graph."""
+    return q.contiguous(), k.contiguous(), v.contiguous()
 
 
 def _mean(q, k, lse, pad_interval, lib=None):
@@ -283,7 +354,8 @@ def _mean(q, k, lse, pad_interval, lib=None):
 
 def attention_no_capture(q, k, v, pad_interval=None):
     """Attention without the probability output (the non-capture blocks)."""
-    return _Attention.apply(q, k, v, pad_interval, False)
+    lo, hi = _gap(q.shape[2], pad_interval)
+    return attention_plain_op(*_operands(q, k, v), lo, hi)[0]
 
 
 def attention_with_capture(q, k, v, pad_interval=None):
@@ -294,4 +366,6 @@ def attention_with_capture(q, k, v, pad_interval=None):
     log2-sum-exp, then the mean pass recomputes the probabilities tile by
     tile, sums the heads and writes the mean once.
     """
-    return _Attention.apply(q, k, v, pad_interval, True)
+    lo, hi = _gap(q.shape[2], pad_interval)
+    out, mean, _ = attention_capture_op(*_operands(q, k, v), lo, hi)
+    return out, mean

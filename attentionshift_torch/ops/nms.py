@@ -7,11 +7,21 @@ coordinate-offset trick. Greedy NMS is computed as the fixpoint of
 "kept = alive and not suppressed by a kept box of higher precedence",
 on boxes sorted by precedence, in row blocks so that no (N, N) matrix is
 held at once (N = 8819 at the 800x1344 train shape).
+
+As in the JAX twin, the fixpoint is a ``while_loop`` bounded by N
+iterations (``torch._higher_order_ops.while_loop``: one operator of an
+exported graph), and the outputs have a fixed size: the stable top-k of
+the kept boxes' scores. Run eagerly, the loop still reads its predicate
+on the host once per iteration (inside the ``nms.while_loop`` profiler
+range).
 """
 
 from __future__ import annotations
 
 import torch
+from torch._higher_order_ops.while_loop import while_loop_op
+
+from .topk import top_k_stable
 
 __all__ = ["nms", "batched_nms", "box_iou"]
 
@@ -43,31 +53,37 @@ def nms(boxes, scores, iou_threshold: float, max_out: int, valid=None, block: in
     b = boxes[order]
     alive_s = alive[order]
     # sup[j, i] for j < i in that order, held block by block as (rows j, all i)
-    kept = alive_s.clone()
-    blocks = []
     pos = torch.arange(n, device=dev)
+    blocks = []
     for lo in range(0, n, block):
         hi = min(lo + block, n)
         sup = (box_iou(b[lo:hi], b) > iou_threshold) & (pos[lo:hi, None] < pos[None, :])
-        blocks.append((lo, hi, sup & alive_s[lo:hi, None] & alive_s[None, :]))
-    for _ in range(n):
-        suppressed = torch.zeros(n, dtype=torch.bool, device=dev)
-        for lo, hi, sup in blocks:
-            suppressed |= (sup & kept[lo:hi, None]).any(dim=0)
+        blocks.append(sup & alive_s[lo:hi, None] & alive_s[None, :])
+
+    def cond(kept, changed, it, alive_s, *blocks):
+        return changed & (it < n)
+
+    def body(kept, changed, it, alive_s, *blocks):
+        suppressed = torch.zeros_like(kept)
+        for lo, sup in zip(range(0, n, block), blocks):
+            suppressed = suppressed | (sup & kept[lo:lo + sup.shape[0], None]).any(dim=0)
         new = alive_s & ~suppressed
-        # the fixpoint's one host read per iteration, named for the profiler
-        with torch.profiler.record_function("nms.fixpoint_read"):
-            done = bool((new == kept).all())
-        if done:
-            break
-        kept = new
+        return new, (new != kept).any(), it + 1
+
+    carried = (alive_s, torch.ones((), dtype=torch.bool, device=dev),
+               torch.zeros((), dtype=torch.int64, device=dev))
+    with torch.profiler.record_function("nms.while_loop"):
+        kept_s = while_loop_op(cond, body, carried, (alive_s, *blocks))[0]
+    # the selection order: the kept boxes by (score desc, index asc), the
+    # stable top-k of their scores as lax.top_k gives it
+    kept = torch.zeros_like(kept_s).scatter(0, order, kept_s)
     k = min(max_out, n)
-    rank = torch.nonzero(kept)[:, 0][:k]  # already in selection order
-    keep_idx = torch.zeros(max_out, dtype=torch.int32, device=dev)
+    top, idx = top_k_stable(torch.where(kept, scores, -float("inf")), k)
     keep_valid = torch.zeros(max_out, dtype=torch.bool, device=dev)
-    keep_idx[:rank.shape[0]] = order[rank].int()
-    keep_valid[:rank.shape[0]] = scores[order[rank]] > -float("inf")
-    return torch.where(keep_valid, keep_idx, 0).int(), keep_valid
+    keep_idx = torch.zeros(max_out, dtype=torch.int32, device=dev)
+    keep_valid[:k] = top > -float("inf")
+    keep_idx[:k] = torch.where(keep_valid[:k], idx, 0).int()
+    return keep_idx, keep_valid
 
 
 def batched_nms(boxes, scores, idxs, iou_threshold: float, max_out: int, valid=None):

@@ -26,9 +26,13 @@ from 1 and its step ``it`` from 1000 + it. Torch cannot replay JAX's
 streams, and the two packages' initialisations differ, so the two tools'
 trajectories differ by design: compare curves, not rows.
 
-The optimizer is ``train.build_optimizer`` over the model's parameter
-names (layer decay 0.75 over the blocks, as the port's train CLI applies
-it; ROADMAP section C). The model's parameters are f32 masters and it
+The model starts from ``init_weights(0)``, which draws by the JAX
+modules' rules (flax's ``lecun_normal`` kernels), as the JAX tool's
+``model.init`` does. The optimizer is ``train.build_optimizer`` with every
+lr scale 1.0 (``layer_decay=1.0``), the scales the JAX tool gets by
+handing ``build_optimizer`` its whole variables dict; unlike the JAX
+tool, the port keeps ``fpn1_bn``'s running statistics as buffers, outside
+the optimizer (ROADMAP section C). The model's parameters are f32 masters and it
 computes in its dtype, which is what the JAX tool's ``cast_f32`` gives
 its scoring. ``--save-ckpt`` writes a ``train.save_params`` file.
 ``--dagger N`` retrains a Mask R-CNN (ResNet depths 2/2/2/2, f32: the
@@ -305,8 +309,8 @@ def main(argv=None) -> dict:
     batches = [dict(zip(("img", "gt_points", "gt_labels", "gt_valid"), _on(device, *s[:4])),
                     img_wh=wh) for s in train_data]
 
-    opt = build_optimizer(model, base_lr=1e-4, steps_per_epoch=100, accumulate_steps=1,
-                          depth=12, warmup_iters=20)
+    opt = build_optimizer(model, base_lr=1e-4, layer_decay=1.0, steps_per_epoch=100,
+                          accumulate_steps=1, depth=12, warmup_iters=20)
     state = TrainState.create(model, opt)
     step_fn = make_train_step(model)
 

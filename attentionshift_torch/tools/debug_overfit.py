@@ -12,7 +12,10 @@ does. The JAX tool hands every step ``PRNGKey(42)``, which its train step
 folds with the step count; here step ``it`` draws from
 ``train.step_generator(41, it)``, the port's twin of
 ``fold_in(PRNGKey(41 + 1), it)`` (torch cannot replay JAX's streams, so
-the two tools' losses differ).
+the two tools' losses differ). The model starts from ``init_weights(0)``
+(the JAX modules' init rules), and every lr scale is 1.0
+(``layer_decay=1.0``), as the JAX tool gets them from ``model.init`` and
+``build_optimizer`` over its whole variables dict.
 """
 
 from __future__ import annotations
@@ -81,8 +84,8 @@ def main(argv=None) -> dict:
     batches = [dict(img_wh=wh, **{k: torch.from_numpy(a[None]).to(device) for k, a in
                                   zip(("img", "gt_points", "gt_labels", "gt_valid"), s)})
                for s in data]
-    opt = build_optimizer(model, base_lr=1e-4, steps_per_epoch=100, accumulate_steps=1, depth=12,
-                          warmup_iters=10)
+    opt = build_optimizer(model, base_lr=1e-4, layer_decay=1.0, steps_per_epoch=100,
+                          accumulate_steps=1, depth=12, warmup_iters=10)
     state = TrainState.create(model, opt)
     step = make_train_step(model)
 

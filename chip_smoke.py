@@ -161,6 +161,16 @@ Phases, each printing its own lines:
    tested image; CCL, mean-shift and both attention pairs on the inputs
    the learning check handed them (T = 1125, no gap; 56 planes of 32x32);
    ms per train step (host clock, median), one profiled step, peak memory;
+   then the serving export (``tools/deployment/export_program.py``): the
+   VOC config's ``simple_test`` at 800x1344 (ViT-S, bf16, weights baked)
+   exported with ``torch.export``, saved, reloaded and held to the live
+   model at 1e-5; its graph holds 12 plain-attention custom ops and the
+   NMS ``while_loop``; one run of the reloaded program launches exactly 12
+   ``flash_fwd``; exported and eager ms/img in turns; the refinement
+   config's Mask R-CNN exported and round-tripped once; and the last user
+   tools: the FPS harness at 608x1024, ``get_flops`` at 512x512 (its
+   attention count against 12 x 4 B H T^2 d) and the robustness benchmark
+   on the eval tree (contrast, severity 1);
 16. times with CUDA events: every kernel, its plain version, the library
    call where one exists, ms/img of the pseudo-label path and of
    inference and ms per train step, each with one profiled call. The
@@ -180,8 +190,9 @@ Phases, each printing its own lines:
    drops the last 64 keys), timed in turns with SDPA's forward at each T
    beside its bound; ms/img of single-scale and aug-test evaluation (host
    clock over the images), and one profiled image of each: device busy
-   share, ``cudaStreamSynchronize`` calls and the NMS fixpoint's host reads
-   (``nms.fixpoint_read`` ranges). For the two CLIs of phases 9-10: ms per
+   share, ``cudaStreamSynchronize`` calls, host reads of a scalar and those
+   of them inside the NMS ``while_loop`` (``nms.while_loop`` ranges). For
+   the two CLIs of phases 9-10: ms per
    micro-step (host clock, median after the first) beside the train-path
    phase's batch-1 step, ms waiting on the loader, one profiled micro-step
    (busy share, syncs, host reads of a scalar, launches), peak memory at
@@ -832,17 +843,27 @@ def phase_small_reference(dev):
     h, w, g, nv = 128, 192, 4, 3
     gpu = build_model(dev, torch.bfloat16, max_gt=g)
     cpu = build_model("cpu", torch.float32, max_gt=g)
+    cpu16 = build_model("cpu", torch.bfloat16, max_gt=g)
     inp_cpu = slice_inputs(h, w, g, nv, "cpu")
     inp_gpu = tuple(t.to(dev) for t in inp_cpu)
     with torch.no_grad():
         bg = gpu.backbone(inp_gpu[0])
         bc = cpu.backbone(inp_cpu[0])
+        b16 = cpu16.backbone(inp_cpu[0])
+    # the card's bf16 path against the f32 path, within a relative limit or
+    # within 1.5x what bf16 rounding alone gives there, whichever is larger:
+    # the CPU's bf16 plain path's own distance from the f32 path is the
+    # witness (with the JAX modules' init, q, k, v 2.5x the former
+    # N(0, 0.02), the rounding through 12 blocks moves the point
+    # coordinates by ~2 % of the largest)
     for key, rel in (("attns", 2e-2), ("last_feat", 5e-2), ("outputs_class", 5e-2),
                      ("outputs_coord", 2e-2)):
         ref = bc[key].float()
-        err = max_err(bg[key].cpu(), ref)
-        expect(f"small.backbone.{key}", err, rel * max(float(ref.abs().max()), 1e-6),
-               "bf16 card path vs f32 CPU path through 12 blocks: relative to the largest value")
+        witness = max_err(b16[key].float(), ref)
+        expect(f"small.backbone.{key}", max_err(bg[key].cpu(), ref),
+               max(rel * max(float(ref.abs().max()), 1e-6), 1.5 * witness),
+               f"bf16 card path vs f32 CPU path through 12 blocks: relative to the largest "
+               f"value, or 1.5x the bf16 CPU plain path's own distance {witness:.3e}")
     gen = torch.Generator().manual_seed(0)
     n_map = (h // 4) * (w // 4)
     draws = [dict(points_fg=torch.rand((g + 1, 20, 2), generator=gen) * torch.tensor([w, h]),
@@ -1076,7 +1097,8 @@ def phase_infer_path(dev, model, slice_inp):
 
 def phase_infer_times(model, eval_step, img, wh):
     """ms/img of inference as configured (host clock over calls ending in
-    synchronize), then one profiled call."""
+    synchronize), then one profiled call and its host reads."""
+    import torch
 
     def run():
         eval_step(img, wh)
@@ -1092,7 +1114,13 @@ def phase_infer_times(model, eval_step, img, wh):
     log(f"[time] simple_test at {H_IMG}x{W_IMG}, batch 1, bf16, ViT-S, 1000 proposals, 100 "
         f"detections, score floor {model.test_score_thr} (the config's): {ms_img:.2f} ms/img "
         f"(host clock over {reps} calls ending in synchronize)")
-    profile_slice(run, ms_img, what="inference call")
+    events = []
+    avgs, _ = profile_slice(run, ms_img, what="inference call", events=events)
+    host = torch.autograd.DeviceType.CPU
+    reads = sum(e.count for e in avgs if e.key == "aten::_local_scalar_dense"
+                and e.device_type == host)
+    log(f"[infer] one profiled simple_test image: {reads} host reads of a scalar, "
+        f"{host_reads_under(events, 'nms.while_loop')} of them in the NMS while_loop")
     return ms_img
 
 
@@ -1313,11 +1341,14 @@ def phase_eval_times(ev: dict) -> None:
         log(f"[time] evaluate, {what}, 2 VOC-size images (500x375, 375x500), bf16, ViT-S, score "
             f"floor {model.test_score_thr} (the config's): {ms_img:.2f} ms/img (host clock over "
             f"the images, dataset reads, pasting and the metric included)")
-        avgs, busy = profile_slice(lambda: run(1), ms_img, what=f"{mode} eval image")
+        events = []
+        avgs, busy = profile_slice(lambda: run(1), ms_img, what=f"{mode} eval image",
+                                   events=events)
         host = torch.autograd.DeviceType.CPU
         count = lambda key: sum(e.count for e in avgs if e.key == key and e.device_type == host)  # noqa: E731
         log(f"[eval] one profiled {mode} image: {count('cudaStreamSynchronize')} "
-            f"cudaStreamSynchronize, {count('nms.fixpoint_read')} NMS fixpoint host reads, "
+            f"cudaStreamSynchronize, {count('aten::_local_scalar_dense')} host reads of a scalar, "
+            f"{host_reads_under(events, 'nms.while_loop')} of them in the NMS while_loop, "
             f"{count('cudaLaunchKernel') + count('cuLaunchKernelEx')} kernel launches, busy "
             f"{'not measured' if busy is None else f'{busy:.1%}'}")
         eval_breakdown(model, dataset, aug, cfg)
@@ -3916,6 +3947,160 @@ def phase_learning(smi: str) -> dict:
     return {name: r["launches"] for name, r in res.items()}
 
 
+# the export phase: the VOC config's simple_test at the bench geometry, baked
+# weights; the refinement config's Mask R-CNN at its own test scale
+# (EXPORT_MRCNN_ARGS: extra export_program arguments, for a rehearsal)
+EXPORT_MRCNN_ARGS: list = []
+EXPORT_FLASH = 12  # flash_fwd launches of one run of the exported detector
+
+
+def graph_ops(program) -> list:
+    return [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """ms per call on the host clock over ``reps`` calls ending in a
+    synchronise (after one call outside the clock)."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def phase_export(smi: str) -> dict:
+    """The serving export (``tools/deployment/export_program.py``, the twin
+    of the JAX package's StableHLO exporter): the VOC config's
+    ``simple_test`` at 800 x 1344 (ViT-S, bf16, weights baked in) exported
+    with ``torch.export``, saved, reloaded and held to the live model at
+    rtol = atol = 1e-5 (the tool's own round trip); its graph holds the
+    plain-attention custom op once per block and the NMS ``while_loop``;
+    one run of the reloaded program launches ``flash_fwd`` 12 times and
+    nothing else. Exported and eager ms per image (host clock, synchronised
+    calls, in turns). Then the refinement config's Mask R-CNN, exported and
+    round-tripped once (no kernel)."""
+    import atexit
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from attentionshift_torch.ops._build import KERNELS, reset_launches
+    from attentionshift_torch.tools.deployment import export_program as ep
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    atexit.register(shutil.rmtree, tmp, True)
+    cfg = os.path.join(HERE, "configs", "attnshift_voc12aug.py")
+    path = os.path.join(tmp, "detector.pt2")
+    t0 = time.perf_counter()
+    res = ep.main([cfg, "--out", path, "--scale", str(H_IMG), str(W_IMG)])
+    export_s = time.perf_counter() - t0
+    ops = graph_ops(res["program"])
+    plain = ops.count("attentionshift.attention_plain.default")
+    if (plain != EXPORT_FLASH or "attentionshift.attention_capture.default" in ops
+            or "while_loop" not in ops):
+        raise AssertionError(f"exported graph: {plain} plain-attention ops, capture ops "
+                             f"{ops.count('attentionshift.attention_capture.default')}, "
+                             f"while_loop {'while_loop' in ops}")
+    program = torch.export.load(path).module()
+    dev = res["args"][-1].device
+    img = torch.from_numpy(np.random.RandomState(1).randn(1, H_IMG, W_IMG, 3)
+                           .astype(np.float32)).to(dev)
+    wh = res["args"][-1]
+    with torch.no_grad():
+        reset_launches()
+        program(img, wh)
+        sync()
+        launches = {name: k.launches for name, k in KERNELS.items()}
+        want = expected_launches(attention_plain=EXPORT_FLASH)
+        if launches != want:
+            raise AssertionError(f"one run of the reloaded program launched {launches}, "
+                                 f"expected {want}")
+        exported_ms, eager_ms = [], []
+        for r in range(4):
+            pair = [(exported_ms, lambda: program(img, wh)),
+                    (eager_ms, lambda: res["live"](img, wh))]
+            for store, fn in (pair if r % 2 == 0 else pair[::-1]):
+                store.append(host_ms(fn))
+    log(f"[export] detector simple_test at {H_IMG}x{W_IMG} (ViT-S, bf16, weights baked): "
+        f"exported, saved and round-tripped at 1e-5 in {export_s:.1f} s, "
+        f"{res['bytes'] / 1e6:.1f} MB; graph: {plain} attention_plain ops, NMS while_loop "
+        f"{ops.count('while_loop')}; one reloaded run: {EXPORT_FLASH} flash_fwd, nothing else")
+    log(f"[export] ms/img (host clock over 3 synchronised calls, 4 readings in turns): exported "
+        f"{[round(x, 2) for x in exported_ms]}, eager {[round(x, 2) for x in eager_ms]}; "
+        f"medians {statistics.median(exported_ms):.2f} / {statistics.median(eager_ms):.2f} "
+        f"({smi})")
+    mr_cfg = os.path.join(HERE, "configs", "mrcnn_refine_voc.py")
+    t0 = time.perf_counter()
+    reset_launches()
+    mr = ep.main([mr_cfg, "--out", os.path.join(tmp, "mrcnn.pt2")] + EXPORT_MRCNN_ARGS)
+    sync()
+    mr_s = time.perf_counter() - t0
+    if any(k.launches for k in KERNELS.values()):
+        raise AssertionError("the Mask R-CNN export launched a hand-written kernel")
+    if "nonzero" in " ".join(graph_ops(mr["program"])):
+        raise AssertionError("the exported Mask R-CNN holds a data-dependent nonzero")
+    log(f"[export] Mask R-CNN ({os.path.basename(mr_cfg)}) at {mr['hw'][0]}x{mr['hw'][1]}, f32: "
+        f"exported, saved and round-tripped at 1e-5 in {mr_s:.1f} s, {mr['bytes'] / 1e6:.1f} MB "
+        f"({smi})")
+    return launches
+
+
+BENCH_HW = (608, 1024)  # the benchmark tool's default shape
+
+
+def phase_user_tools(ev: dict, smi: str) -> dict:
+    """The last user tools on the card: the FPS harness
+    (``tools/analysis/benchmark.py``) at 608 x 1024 with its defaults, the
+    FLOPs report (``get_flops.py``) of the VOC config at its default 512 x
+    512 with the attention ops' count against 12 x 4 B H T^2 d, and the
+    robustness benchmark (``test_robustness.py``) on the eval phase's VOC
+    tree and checkpoint (one corruption, one severity). Returns the
+    launches of the three."""
+    import math
+
+    from attentionshift_torch.ops._build import KERNELS, reset_launches
+    from attentionshift_torch.tools.analysis import benchmark, get_flops, test_robustness
+
+    total = dict.fromkeys(KERNELS, 0)
+
+    def add():
+        sync()
+        for name, k in KERNELS.items():
+            total[name] += k.launches
+
+    reset_launches()
+    rec = benchmark.main(["--height", str(BENCH_HW[0]), "--width", str(BENCH_HW[1])])
+    add()
+    log(f"[tools] benchmark: {rec['value']} img/s, {rec['latency_ms']} ms/img at "
+        f"{BENCH_HW[0]}x{BENCH_HW[1]}, batch 1, bf16, ViT-S ({smi})")
+    reset_launches()
+    cfg = os.path.join(HERE, "configs", "attnshift_voc12aug.py")
+    fl = get_flops.main([cfg])
+    add()
+    t = 1 + (512 // 16) ** 2 + 100
+    want = 12 * 4 * 6 * t * t * 64
+    if fl["attention_flops"] != want:
+        raise AssertionError(f"get_flops: attention {fl['attention_flops']} != 12 x 4 B H T^2 d "
+                             f"= {want}")
+    log(f"[tools] get_flops at 512x512: {fl['flops'] / 1e9:.2f} GFLOPs, of them the attention "
+        f"ops {fl['attention_flops'] / 1e9:.2f} ({fl['attention_flops'] / fl['flops']:.1%}); "
+        f"parameters read {fl['params'] / 1e6:.2f} M")
+    reset_launches()
+    rob = test_robustness.main(ev["base"] + ["--corruptions", "contrast", "--severities", "1"])
+    add()
+    summary = rob["summary"]
+    if set(summary) < {"P", "PC", "mPC"} or not all(
+            math.isfinite(v) for v in [summary["P"], summary["mPC"], *summary["PC"].values()]):
+        raise AssertionError(f"test_robustness summary {summary}")
+    log(f"[tools] test_robustness on {len(EVAL_SIZES)} VOC-size images, contrast s1: {summary}")
+    return total
+
+
 def phase_tool(dev):
     """The attention microbenchmark at its defaults, every variant."""
     from attentionshift_torch.ops._build import KERNELS, reset_launches
@@ -4243,15 +4428,32 @@ def phase_main_path_inputs(results: dict, handed: dict) -> None:
         f"{ccl_bound:.4f} ms), {ccl_syn:.4f} ms on phase 3's (medians of 6 in turns)")
 
 
-# torch.profiler ranges the port opens (record_function): host reads of the NMS fixpoint
-PROFILER_RANGES = ("nms.fixpoint_read",)
+# torch.profiler ranges the port opens (record_function): the NMS fixpoint's loop
+PROFILER_RANGES = ("nms.while_loop",)
 
 
-def profile_slice(run, ms_img: float, top: int = 12, what: str = "call"):
+def host_reads_under(events, name: str) -> int:
+    """Host reads of a device scalar (``aten::_local_scalar_dense``: each
+    ``bool()`` / ``item()`` of a CUDA tensor waits for the stream) made
+    inside the profiler range ``name``."""
+    n = 0
+    for e in events:
+        if e.name != "aten::_local_scalar_dense":
+            continue
+        p = e.cpu_parent
+        while p is not None and p.name != name:
+            p = p.cpu_parent
+        n += p is not None
+    return n
+
+
+def profile_slice(run, ms_img: float, top: int = 12, what: str = "call",
+                  events: list | None = None):
     """Where one call's time goes: device time by kernel (torch.profiler;
     the ``top`` kernels and every hand-written one) and the device's busy
     share of the call's wall time. Returns the profile's ``key_averages()``
-    and the busy share (None when the profiler saw no device time)."""
+    and the busy share (None when the profiler saw no device time); the
+    profile's events go into ``events`` when it is given."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -4260,6 +4462,8 @@ def profile_slice(run, ms_img: float, top: int = 12, what: str = "call"):
         run()
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    if events is not None:
+        events.extend(prof.events())
     # device events, without the device-side copies of the program's own
     # profiler ranges (their time is their kernels')
     events = [e for e in prof.key_averages()
@@ -4455,6 +4659,8 @@ def main(argv=None) -> int:
     phase_det_cam(dev, model, smi)
     phase_vis_tools(tc, ev)
     learning = phase_learning(smi)
+    export = phase_export(smi)
+    tools = phase_user_tools(ev, smi)
     phase_times(results, inp, model, slice_inp, gen)
     phase_swin_times(results, sw, smi)
     phase_main_path_inputs(results, handed)
@@ -4471,7 +4677,7 @@ def main(argv=None) -> int:
                     cascade_step=cascade, vitb_cli=vitb, swin=sw["launches"],
                     point2bbox=p2b["launches"], mae_encoder=mae["launches"], mim=mim["launches"],
                     debug_overfit=learning["debug_overfit"],
-                    learning_check=learning["learning_check"])
+                    learning_check=learning["learning_check"], export=export, user_tools=tools)
     table = []
     for name, kern in KERNELS.items():
         r = results[name]

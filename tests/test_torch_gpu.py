@@ -418,7 +418,7 @@ def test_attention_head_shape_kernels_are_deterministic(cuda, h, d):
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,h,t,gap", ATTENTION_CASES)
 def test_attention_backward_kernels_on_card(cuda, b, h, t, gap):
-    """Both backward kernels (through the autograd Functions) vs the plain
+    """Both backward kernels (through the custom ops' backward) vs the plain
     backward at shapes that reach the edges of the 64-row tiles and of the
     two-slot ring (one tile, one row past two, 300 = 4 tiles of 64 + 44,
     an odd 301, the bench shape's 68 tiles), with and without a gap, one
@@ -1272,3 +1272,69 @@ def test_kernels_on_the_learning_paths_inputs(cuda):
     assert tuple(planes.shape) == (7 * 8, 32, 32)
     assert torch.equal(ccl.connected_components_batch(planes, iters),
                        ccl.connected_components(planes, iters))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("capture", [False, True])
+def test_attention_custom_ops_on_card(cuda, capture):
+    """The attention custom ops on CUDA tensors: ``opcheck`` holds the fake
+    implementation and the autograd registration to the CUDA one; q, k, v
+    as head-split views of one qkv buffer (made contiguous in the graph)
+    give the plain backward's gradients within 4 bf16 ulps, also when
+    ``torch.utils.checkpoint`` runs the op again for the backward; each
+    forward counts one launch."""
+    from torch.utils.checkpoint import checkpoint
+
+    from attentionshift_torch.ops._build import KERNELS, reset_launches
+
+    op = torch.ops.attentionshift.attention_capture if capture else \
+        torch.ops.attentionshift.attention_plain
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    qkv = torch.randn((1, 300, 3, 6, 64), generator=gen, device=cuda).bfloat16()
+    g = torch.randn((1, 6, 300, 64), generator=gen, device=cuda).bfloat16()
+    torch.library.opcheck(op, tuple(x.contiguous() for x in qkv.permute(2, 0, 3, 1, 4)) + (250, 270))
+    fn = attention.attention_with_capture if capture else attention.attention_no_capture
+    plain = [x.transpose(1, 2) for x in qkv.unbind(2)]
+    want = attention.attention_backward_reference(*plain, g, (250, 270))
+    for remat in (False, True):
+        leaf = qkv.clone().requires_grad_(True)
+        q, k, v = (x.transpose(1, 2) for x in leaf.unbind(2))
+        reset_launches()
+
+        def run(q, k, v):
+            out = fn(q, k, v, (250, 270))
+            return out[0] if capture else out
+
+        out = checkpoint(run, q, k, v, use_reentrant=False) if remat else run(q, k, v)
+        (grad,) = torch.autograd.grad(out, leaf, g)
+        torch.cuda.synchronize()
+        name = "attention_capture" if capture else "attention_plain"
+        assert KERNELS[name].launches == (2 if remat else 1)
+        for i, w in enumerate(want):
+            torch.testing.assert_close(grad[:, :, i].transpose(1, 2).float(), w.float(),
+                                       atol=_ulps(w, 4), rtol=0, msg=f"d{'qkv'[i]}")
+
+
+@pytest.mark.gpu
+def test_export_round_trip_on_card(cuda, tmp_path, capsys):
+    """``export_program`` on the card (a narrow bf16 detector, head dim 64):
+    the program round-trips at 1e-5 and one run of the reloaded program
+    launches ``flash_fwd`` once per block and nothing else."""
+    from attentionshift_torch.ops._build import KERNELS, reset_launches
+    from attentionshift_torch.tools.deployment import export_program
+
+    cfg = tmp_path / "narrow.py"
+    cfg.write_text("model = dict(num_classes=20, embed_dim=128, depth=4, num_heads=2, "
+                   "out_indices=(0, 1, 2, 3), point_tokens=16, cam_layer=3, max_gt=4, "
+                   "num_proposals=50, test_max_per_img=10)\n"
+                   "data = dict(test_scale=(96, 160), max_gt=4)\n")
+    out = tmp_path / "det.pt2"
+    res = export_program.main([str(cfg), "--out", str(out), "--scale", "96", "160"])
+    assert "round-trip check OK" in capsys.readouterr().out
+    program = torch.export.load(str(out)).module()
+    reset_launches()
+    with torch.no_grad():
+        program(torch.zeros((1, 96, 160, 3), device=cuda), res["args"][-1])
+    torch.cuda.synchronize()
+    assert KERNELS["attention_plain"].launches == 4
+    assert sum(k.launches for k in KERNELS.values()) == 4

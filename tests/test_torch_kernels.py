@@ -74,7 +74,7 @@ def test_attention_plain_matches_pallas_kernel(pad):
 @pytest.mark.parametrize("pad", [None, (30, 37)])
 @pytest.mark.parametrize("op", ["no_capture", "with_capture"])
 def test_attention_backward_matches_pallas_kernels(op, pad):
-    """The port's autograd Functions (plain backward on the CPU) vs
+    """The port's attention ops (plain backward on the CPU) vs
     ``jax.vjp`` through ``_bwd_kernel_dq`` / ``_bwd_kernel_dkv``
     (ops/attention.py:364, :402) in interpret mode, f32, T=37 (ragged
     against the kernels' 128-row tiles). Upstream gradient rows in the gap

@@ -234,14 +234,113 @@ def test_learning_check_refuses_no_pallas_on_the_card(monkeypatch):
 
 
 def test_debug_overfit_main_on_cpu(monkeypatch, capsys):
-    """The twin's loop and checks on the CPU at 4 steps, means over 2 at
-    each end: the losses printed and returned, finite, and the check's
+    """The twin's loop and checks on the CPU at 16 steps, means over 8 at
+    each end (each end sees all 8 images once, and the lr warmup is over
+    by step 10): the losses printed and returned, finite, and the check's
     verdict printed last."""
     monkeypatch.setattr(debug_overfit, "build_model", lambda d: _narrow(None, d))
-    monkeypatch.setattr(debug_overfit, "STEPS", 4)
-    monkeypatch.setattr(debug_overfit, "WINDOW", 2)
+    monkeypatch.setattr(debug_overfit, "STEPS", 16)
+    monkeypatch.setattr(debug_overfit, "WINDOW", 8)
     res = debug_overfit.main(["--device", "cpu"])
     out = capsys.readouterr().out.strip().splitlines()
-    assert out[-1] == "OK: the model learns on cpu" and out[2].startswith("4 steps in ")
+    assert out[-1] == "OK: the model learns on cpu" and out[2].startswith("16 steps in ")
     assert {"loss_total", "loss_point_cls"} <= res["first"].keys() == res["last"].keys()
     assert all(np.isfinite(v) for v in [*res["first"].values(), *res["last"].values()])
+
+
+class _Built(Exception):
+    """Raised by the optimizer spy: the tool got as far as its optimizer."""
+
+
+@pytest.mark.parametrize("tool", ["learning_check", "debug_overfit"])
+def test_learning_tools_take_the_jax_tools_optimizer(tool, monkeypatch):
+    """The JAX tools hand ``build_optimizer`` their whole variables dict, so
+    every leaf's layer id is the last one and every lr scale 1.0
+    (``attentionshift_tpu/train/optim.py:47-48``); the twins get the same
+    scales through ``layer_decay=1.0``. The twins' flagship (ViT-S, built
+    here on the CPU) starts from the JAX modules' init rules: q, k, v at
+    std 1/sqrt(384), flax's ``lecun_normal``."""
+    from attentionshift_torch import train
+
+    seen, real = {}, train.build_optimizer
+
+    def spy(model, **kw):
+        seen.update(kw, params=dict(model.named_parameters()))
+        raise _Built
+
+    monkeypatch.setattr(train, "build_optimizer", spy)
+    with pytest.raises(_Built):
+        if tool == "learning_check":
+            lc.main(["--device", "cpu", "--steps", "0", "--train-images", "1",
+                     "--eval-images", "1"])
+        else:
+            debug_overfit.main(["--device", "cpu"])
+    assert seen["layer_decay"] == 1.0
+    opt = real(list(seen["params"].items()), layer_decay=1.0, depth=12)
+    assert set(opt.scales) == {1.0}
+    qkv = seen["params"]["backbone.blocks.0.attn.qkv.weight"]
+    assert abs(float(qkv.std()) * 384 ** 0.5 - 1.0) < 0.02
+    assert not seen["params"]["backbone.cls_token"].any()
+
+
+def test_fpn1_bn_statistics_divergence_pinned():
+    """Divergence on purpose (ROADMAP section C): the JAX tools' optimizer
+    tree holds ``batch_stats`` too, so ``fpn1_bn``'s running mean and
+    variance get Adam moments at lr scale 1.0 (their gradient is zero, so
+    the update is too); the port keeps them as buffers, outside the
+    optimizer, and a step leaves them as they are."""
+    import jax
+    import jax.numpy as jnp
+
+    from attentionshift_torch.models import AttnShiftDetector
+    from attentionshift_torch.train import TrainState, build_optimizer, make_train_step
+    from attentionshift_tpu.models.detector import AttnShiftDetector as JDet
+    from attentionshift_tpu.train.optim import build_optimizer as jbuild
+    from attentionshift_tpu.train.optim import lr_scale_tree
+
+    jkw = {k: v for k, v in NARROW.items() if k != "test_max_per_img"}
+    key = jax.random.PRNGKey(0)
+    shapes = jax.eval_shape(lambda: JDet(use_remat=False, **jkw).init(
+        {"params": key, "sampling": key, "dropout": key}, jnp.zeros((1, 64, 64, 3)),
+        jnp.zeros((1, 8, 2)), jnp.zeros((1, 8), jnp.int32), jnp.zeros((1, 8), bool),
+        jnp.asarray([[64.0, 64.0]])))
+    assert set(jax.tree.leaves(lr_scale_tree(shapes, 0.75, 4))) == {1.0}
+    state = jax.eval_shape(jbuild(shapes, depth=4, accumulate_steps=1).init, shapes)
+    paths = {jax.tree_util.keystr(p) for p, _ in jax.tree_util.tree_leaves_with_path(state)}
+    assert any("'batch_stats']['backbone']['fpn1_bn']['mean']" in p for p in paths)
+
+    model = AttnShiftDetector(device="cpu", **NARROW).init_weights(0)
+    opt = build_optimizer(model, layer_decay=1.0, depth=4, accumulate_steps=1,
+                          steps_per_epoch=100, warmup_iters=0)
+    assert not [n for n in opt.names if "fpn1_bn.running" in n]
+    stats = {k: v.clone() for k, v in model.named_buffers() if "fpn1_bn" in k}
+    assert sorted(stats) == ["backbone.fpn1_bn.running_mean", "backbone.fpn1_bn.running_var"]
+    rng = np.random.RandomState(0)
+    img, pts, lbl, val = lc.make_sample(rng, 0, "lobes")[:4]
+    batch = dict(zip(("img", "gt_points", "gt_labels", "gt_valid"),
+                     (torch.from_numpy(a[None]) for a in (img, pts, lbl, val))),
+                 img_wh=torch.tensor([[512.0, 512.0]]))
+    state = TrainState.create(model, opt)
+    make_train_step(model)(state, batch, generator=torch.Generator().manual_seed(0))
+    assert opt.count == 1
+    assert all(torch.equal(v, dict(model.named_buffers())[k]) for k, v in stats.items())
+
+
+def test_seed_report_on_a_saved_checkpoint(tmp_path, monkeypatch, capsys):
+    """``seed_report`` loads a ``--save-ckpt`` file of the twin and reports
+    each held-out instance: a candidate box per captured layer, the chosen
+    layer among them, IoUs in [0, 1], and a summary over the rows."""
+    from attentionshift_torch.tools.analysis import seed_report
+
+    monkeypatch.setattr(lc, "build_model", _narrow)
+    ckpt = tmp_path / "params"
+    lc.main(["--device", "cpu", "--steps", "0", "--milestones", "0", "--train-images", "1",
+             "--eval-images", "1", "--corpus", "lobes", "--save-ckpt", str(ckpt)])
+    capsys.readouterr()
+    summary = seed_report.main([str(ckpt), "--eval-images", "2", "--device", "cpu"])
+    lines = [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()]
+    assert lines[-1] == summary and summary["n"] == 4 == len(lines) - 1
+    for row in lines[:-1]:
+        assert len(row["layer_box_iou"]) == NARROW["cam_layer"] > row["layer"] >= 0
+        assert 0.0 <= row["box_iou"] <= 1.0 and 0.0 <= row["mask_iou"] <= 1.0
+        assert 0.0 < row["above_thr"] <= 1.0
