@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..ops.sampling import grid_sample_bilinear
+from .initializers import flax_init
 from .layers import Dense, LayerNorm
 
 __all__ = ["DeformableConvAttention"]
@@ -60,18 +61,10 @@ class DeformableConvAttention(nn.Module):
         self.to(resolve_device(device))
 
     def init_weights(self, seed: int = 0) -> "DeformableConvAttention":
-        """Seeded random init: N(0, 0.02) kernels, zero biases, unit norm
-        scales."""
-        gen = torch.Generator(device="cpu").manual_seed(seed)
-        with torch.no_grad():
-            for name, t in self.named_parameters():
-                if name.endswith("bias"):
-                    t.zero_()
-                elif t.dim() == 1:
-                    t.fill_(1.0)
-                else:
-                    t.copy_(torch.randn(t.shape, generator=gen) * 0.02)
-        return self
+        """Seeded random init by the JAX module's rules
+        (``models/initializers.py``): ``lecun_normal`` kernels (a depthwise
+        conv's fan-in is its k * k taps), zero biases, unit norm scales."""
+        return flax_init(self, seed, {})
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, H, W, C) -> (B, H, W, C)."""

@@ -85,8 +85,8 @@ class TestOutputs(NamedTuple):
 
 
 # config keys this port does not read: switches of the JAX package's own
-# kernels and meshes
-_OTHER_PATHS = frozenset({"use_pallas_attention", "use_pallas_ccl", "sequence_parallel"})
+# kernels
+_OTHER_PATHS = frozenset({"use_pallas_attention", "use_pallas_ccl"})
 # the tokens and tables the JAX modules draw: truncated_normal(std), None = zeros
 _TABLES = {"cls_token": None, "mask_token": None, "pos_embed": 0.02, "point_token": 0.02,
            "point_pos_embed": 0.02, "det_token": 0.02}
@@ -110,7 +110,8 @@ class AttnShiftDetector(nn.Module):
                  num_reppoints_head: int = 1, with_deform_sup: bool = False,
                  reppoints_num_points: int = 9, reppoints_contour_points: int = 16,
                  with_mae_head: bool = False, mae_mask_ratio: float = 0.75,
-                 dtype: torch.dtype = torch.float32, device=None, **other_paths):
+                 sequence_parallel: bool = False, dtype: torch.dtype = torch.float32, device=None,
+                 **other_paths):
         super().__init__()
         unknown = set(other_paths) - _OTHER_PATHS
         if unknown:
@@ -134,7 +135,8 @@ class AttnShiftDetector(nn.Module):
             img_size=img_size, embed_dim=embed_dim, depth=depth, num_heads=num_heads,
             out_indices=out_indices, point_tokens_num=point_tokens, num_classes=num_classes,
             capture_layers=cam_layer, pad_tokens_to=pad_tokens_to,
-            drop_path_rate=drop_path_rate, use_remat=use_remat, dtype=dtype,
+            drop_path_rate=drop_path_rate, use_remat=use_remat,
+            sequence_parallel=sequence_parallel, dtype=dtype,
         )
         self.mil_head = MILHead(num_classes=num_classes, in_channels=embed_dim)
         self.neck = FPN(in_channels=embed_dim, out_channels=rpn_channels, num_outs=5)

@@ -82,14 +82,17 @@ def normal_rule(std: float) -> KernelRule:
 
 
 def flax_init(module: nn.Module, seed: int, tables: Mapping[str, float | None],
-              kernel_rules: Mapping[str, KernelRule] | None = None) -> nn.Module:
+              kernel_rules: Mapping[str, KernelRule] | None = None,
+              keep: tuple[str, ...] = ()) -> nn.Module:
     """Draw every entry of ``module.state_dict()`` by the JAX module's rule.
 
     ``tables``: leaf name of a directly held tensor (a token, a position
     table) -> the std of its ``truncated_normal``, or None for zeros.
     ``kernel_rules``: state-dict prefix -> the rule of the kernels below it
     (the longest matching prefix wins); other kernels take ``lecun_normal``.
-    An entry that no rule covers raises.
+    ``keep``: leaf names whose built value is the JAX module's constant
+    init (a LayerScale's ``init_values``). An entry that no rule covers
+    raises.
     """
     rules = sorted((kernel_rules or {}).items(), key=lambda kv: -len(kv[0]))
     layers = dict(module.named_modules())
@@ -97,6 +100,8 @@ def flax_init(module: nn.Module, seed: int, tables: Mapping[str, float | None],
     with torch.no_grad():
         for name, t in module.state_dict().items():
             owner, _, leaf = name.rpartition(".")
+            if leaf in keep:
+                continue
             if leaf in ("bias", "running_mean"):
                 val = torch.zeros(t.shape)
             elif leaf == "running_var" or (leaf == "weight" and t.dim() == 1):

@@ -20,6 +20,17 @@ as the JAX detector leaves those heads off its fused path.
 Drop path draws nothing itself: ``Block.forward`` is handed the
 per-sample keep masks, so a recompute of the block under activation
 checkpointing sees the same masks.
+
+Under tensor parallelism (``parallel/tp.py``: ``shard_params_tp`` hands
+``Attention`` and ``Mlp`` their shards and ``tp``, the model group) each
+rank computes its heads and its slice of the hidden layer: the input
+enters through ``copy_to_tp``, qkv and fc1 are column-parallel, proj and
+fc2 row-parallel, their partial sums leave through ``reduce_from_tp``
+and the bias is added once after it; the captured head mean is rebuilt
+over the group (``ops.attention.attention_with_capture_sharded``). With a
+``seq`` (``parallel.tp.SeqShard``, sequence parallelism) the block holds
+a token shard: the tokens are all-gathered into each column-parallel
+layer and the row-parallel sums reduce-scattered back to the shard.
 """
 
 from __future__ import annotations
@@ -29,8 +40,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.attention import attention_no_capture, attention_with_capture
+from ..ops.attention import (attention_no_capture, attention_with_capture,
+                             attention_with_capture_sharded, reduce_capture)
 from ..ops.image import resize
+from ..parallel.tp import (copy_to_tp, gather_from_sp, gather_sp, reduce_from_tp,
+                           reduce_scatter_sp, scatter_to_sp)
 
 __all__ = ["Dense", "LayerNorm", "Mlp", "Attention", "Block", "PatchEmbed", "Conv3x3Matmul",
            "Deconv2x2Matmul", "get_2d_sincos_pos_embed", "interpolate_pos_embed"]
@@ -55,14 +69,31 @@ class LayerNorm(nn.LayerNorm):
                             self.bias.to(x.dtype), self.eps)
 
 
+def _enter(x, tp, seq):
+    """The input of a column-parallel layer: all T tokens under sequence
+    parallelism, else ``x`` with its gradient summed over the group."""
+    return gather_sp(x, seq) if seq is not None else copy_to_tp(x, tp)
+
+
+def _leave(y, bias, tp, seq):
+    """A row-parallel layer's partial sums reduced over the group (and
+    scattered to the token shard), plus the replicated bias."""
+    y = reduce_scatter_sp(y, seq) if seq is not None else reduce_from_tp(y, tp)
+    return y + bias.to(y.dtype)
+
+
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int):
         super().__init__()
         self.fc1 = Dense(dim, hidden)
         self.fc2 = Dense(hidden, dim)
+        self.tp = None  # the model group when sharded (parallel/tp.py)
 
-    def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
+    def forward(self, x, seq=None):
+        if self.tp is None:  # token-wise: a token shard runs as it is
+            return self.fc2(F.gelu(self.fc1(x)))
+        h = F.gelu(self.fc1(_enter(x, self.tp, seq)))
+        return _leave(F.linear(h, self.fc2.weight.to(h.dtype)), self.fc2.bias, self.tp, seq)
 
 
 class Attention(nn.Module):
@@ -75,19 +106,37 @@ class Attention(nn.Module):
         self.use_kernel = use_kernel
         self.qkv = Dense(dim, 3 * dim, bias=qkv_bias)
         self.proj = Dense(dim, dim)
+        self.tp = None  # the model group when sharded (parallel/tp.py)
 
-    def forward(self, x, capture: bool = False, pad_interval=None):
+    def tp_shardable(self, tp: int) -> bool:
+        return self.num_heads % tp == 0
+
+    def forward(self, x, capture: bool = False, pad_interval=None, seq=None):
+        tp = self.tp
+        if tp is not None:
+            x = _enter(x, tp, seq)
+        elif seq is not None:  # replicated on all T tokens, then sliced
+            x = gather_from_sp(x, seq)
         b, n, c = x.shape
-        qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, c // self.num_heads)
+        heads = self.num_heads // (tp.size if tp is not None else 1)
+        qkv = self.qkv(x).reshape(b, n, 3, heads, c // self.num_heads)
         q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))  # (B, H, N, d)
         if not self.use_kernel:
             out, attn = self._plain(q, k, v, capture, pad_interval)
+            if attn is not None and tp is not None:
+                attn = reduce_capture(attn, tp)
+        elif tp is not None and capture:
+            out, attn = attention_with_capture_sharded(q, k, v, pad_interval, tp)
         elif capture:
             out, attn = attention_with_capture(q, k, v, pad_interval)
         else:
             out, attn = attention_no_capture(q, k, v, pad_interval), None
-        out = out.transpose(1, 2).reshape(b, n, c).to(x.dtype)
-        return self.proj(out), attn
+        out = out.transpose(1, 2).reshape(b, n, -1).to(x.dtype)
+        if tp is not None:
+            return _leave(F.linear(out, self.proj.weight.to(out.dtype)), self.proj.bias, tp,
+                          seq), attn
+        y = self.proj(out)
+        return (scatter_to_sp(y, seq) if seq is not None else y), attn
 
     @staticmethod
     def _plain(q, k, v, capture, pad_interval):
@@ -115,12 +164,13 @@ class Block(nn.Module):
         self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
-    def forward(self, x, capture: bool = False, pad_interval=None, drop_masks=None):
+    def forward(self, x, capture: bool = False, pad_interval=None, drop_masks=None, seq=None):
         """``drop_masks``: None (deterministic), or the two per-sample keep
-        masks (B,) of the attention and the MLP branch."""
-        y, attn = self.attn(self.norm1(x), capture, pad_interval)
+        masks (B,) of the attention and the MLP branch. ``seq``: x is this
+        rank's token shard of a sequence-parallel forward."""
+        y, attn = self.attn(self.norm1(x), capture, pad_interval, seq)
         x = x + self._drop_path(y, None if drop_masks is None else drop_masks[0])
-        z = self.mlp(self.norm2(x))
+        z = self.mlp(self.norm2(x), seq)
         return x + self._drop_path(z, None if drop_masks is None else drop_masks[1]), attn
 
     def _drop_path(self, x, mask):

@@ -32,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from .initializers import flax_init
 from .layers import Attention, BatchNorm, Deconv2x2Matmul, LayerNorm, Mlp, PatchEmbed
 
 __all__ = ["MAEVisionTransformer", "get_sinusoid_encoding_table"]
@@ -121,22 +122,12 @@ class MAEVisionTransformer(nn.Module):
         self.to(resolve_device(device))
 
     def init_weights(self, seed: int = 0) -> "MAEVisionTransformer":
-        """Seeded random init: N(0, 0.02) matrices and kernels, zero biases
-        and running means, unit norm scales and running variances; the
-        LayerScale vectors keep ``init_values``."""
-        gen = torch.Generator(device="cpu").manual_seed(seed)
-        with torch.no_grad():
-            for name, t in self.state_dict().items():
-                leaf = name.rsplit(".", 1)[-1]
-                if leaf.startswith("gamma_"):
-                    continue
-                if leaf in ("bias", "running_mean"):
-                    t.zero_()
-                elif leaf == "running_var" or t.dim() == 1:
-                    t.fill_(1.0)
-                else:
-                    t.copy_(torch.randn(t.shape, generator=gen) * 0.02)
-        return self
+        """Seeded random init by the JAX module's rules
+        (``models/initializers.py``): ``lecun_normal`` matrices, patch
+        embedding and pyramid deconvs, zero biases and running means, unit
+        norm scales and running variances; the LayerScale vectors keep
+        ``init_values``."""
+        return flax_init(self, seed, {}, keep=("gamma_1", "gamma_2"))
 
     def block_windows(self, hp: int, wp: int) -> list[int]:
         """Each block's attention window at an (hp, wp) grid: 0 = global."""

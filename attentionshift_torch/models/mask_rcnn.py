@@ -50,6 +50,7 @@ from ..ops.roi_align import roi_align
 from ..ops.topk import top_k_stable
 from ..parallel.mesh import global_count
 from .fpn import FPN
+from .initializers import XAVIER, flax_init, normal_rule
 from .layers import Conv3x3Matmul, Deconv2x2Matmul, Dense
 from .resnet import ResNet
 from .rpn import RPNHead, rpn_loss, rpn_proposals
@@ -146,27 +147,14 @@ class MaskRCNN(nn.Module):
         return self.bbox_head.fc1.weight.device
 
     def init_weights(self, seed: int = 0) -> "MaskRCNN":
-        """Seeded random init: N(0, 0.01) for the RPN and the box head's
-        outputs, Kaiming-normal (fan out) for the backbone and mask convs,
-        Xavier-uniform for the FPN and the box head's fcs, zero biases;
-        the frozen BNs are identities."""
-        gen = torch.Generator(device="cpu").manual_seed(seed)
-        with torch.no_grad():
-            for name, t in self.state_dict().items():
-                leaf = name.rsplit(".", 1)[-1]
-                if leaf in ("bias", "running_mean") or t.dim() == 1:
-                    val = torch.ones(t.shape) if leaf in ("weight", "running_var") else torch.zeros(t.shape)
-                elif name.startswith("rpn_head.") or name.startswith("bbox_head.fc_"):
-                    val = torch.randn(t.shape, generator=gen) * 0.01
-                elif name.startswith(("neck.", "bbox_head.")):
-                    fan_in, fan_out = _fans(name, t)
-                    bound = (6.0 / (fan_in + fan_out)) ** 0.5
-                    val = (torch.rand(t.shape, generator=gen) * 2.0 - 1.0) * bound
-                else:
-                    _, fan_out = _fans(name, t)
-                    val = torch.randn(t.shape, generator=gen) * (2.0 / fan_out) ** 0.5
-                t.copy_(val)
-        return self
+        """Seeded random init by the JAX module's rules
+        (``models/initializers.py``): ``lecun_normal`` for the ResNet, the
+        box head and the mask head, Xavier-uniform for the FPN and N(0,
+        0.01) for the RPN, as the JAX package's ``fpn.py`` and ``rpn.py``
+        name them; zero biases; the frozen BNs are identities. The JAX
+        module is the reference where it differs from mmdet's Kaiming,
+        Xavier and N(0, 0.01) rules."""
+        return flax_init(self, seed, {}, {"neck.": XAVIER, "rpn_head.": normal_rule(0.01)})
 
     # ------------------------------------------------------------- shared
     def _features(self, img):
@@ -380,17 +368,3 @@ def _clip_to_wh(boxes, img_wh):
     hmax = img_wh[:, 1].to(boxes.dtype).reshape(shape)
     return torch.stack([boxes[..., 0].clamp(zero, wmax), boxes[..., 1].clamp(zero, hmax),
                         boxes[..., 2].clamp(zero, wmax), boxes[..., 3].clamp(zero, hmax)], dim=-1)
-
-
-def _fans(name: str, t: torch.Tensor) -> tuple[int, int]:
-    """(fan in, fan out) of a weight in the port's layouts: Linear (out,
-    in); conv (Cout, Cin, kh, kw); matmul-form 3x3 (3, 3, Cin, Cout);
-    deconv (Cin, Cout, 2, 2)."""
-    if t.dim() == 2:
-        return t.shape[1], t.shape[0]
-    if t.shape[:2] == (3, 3) and "backbone" not in name:
-        return 9 * t.shape[2], 9 * t.shape[3]
-    if "upsample" in name:
-        return 4 * t.shape[1], 4 * t.shape[0]
-    taps = t.shape[2] * t.shape[3]
-    return taps * t.shape[1], taps * t.shape[0]

@@ -27,23 +27,23 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from .initializers import flax_init
 from .layers import Block, Dense, LayerNorm, PatchEmbed, interpolate_pos_embed
 
 __all__ = ["DINOHead", "IBOTHead", "MIMViT"]
 
 
+# the tables the JAX modules draw truncated_normal(0.02): the prototypes'
+# directions and the MIM ViT's tokens and position table
+_TABLES = {"weight_v": 0.02, "mask_token": 0.02, "cls_token": 0.02, "pos_embed": 0.02}
+
+
 def _init(module: nn.Module, seed: int) -> None:
-    """Seeded random init: N(0, 0.02) matrices and tokens, zero biases,
-    unit norm scales and gains."""
-    gen = torch.Generator(device="cpu").manual_seed(seed)
-    with torch.no_grad():
-        for name, t in module.named_parameters():
-            if name.endswith("bias"):
-                t.zero_()
-            elif t.dim() == 1:
-                t.fill_(1.0)
-            else:
-                t.copy_(torch.randn(t.shape, generator=gen) * 0.02)
+    """Seeded random init by the JAX modules' rules
+    (``models/initializers.py``): ``lecun_normal`` matrices and patch
+    embedding, ``truncated_normal(0.02)`` tables, zero biases, unit norm
+    scales and gains."""
+    flax_init(module, seed, _TABLES)
 
 
 class _Prototypes(nn.Module):

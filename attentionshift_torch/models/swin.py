@@ -39,6 +39,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from .initializers import flax_init
 from .layers import Block, Dense, LayerNorm, Mlp
 from .vit import MlpHead
 
@@ -59,6 +60,10 @@ def window_reverse(windows: torch.Tensor, ws: int, h: int, w: int) -> torch.Tens
     b = windows.shape[0] // ((h // ws) * (w // ws))
     x = windows.reshape(b, h // ws, w // ws, ws, ws, c)
     return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, c)
+
+
+# the tables the JAX module draws truncated_normal(0.02)
+_TABLES = {"relative_position_bias_table": 0.02, "point_token": 0.02, "point_pos_embed": 0.02}
 
 
 def _relative_position_index(ws: int) -> np.ndarray:
@@ -234,19 +239,11 @@ class SwinTransformer(nn.Module):
         self.to(dev)
 
     def init_weights(self, seed: int = 0) -> "SwinTransformer":
-        """Seeded random init: N(0, 0.02) matrices, conv kernel, position
-        tables and tokens, zero biases, unit norm scales."""
-        gen = torch.Generator(device="cpu").manual_seed(seed)
-        with torch.no_grad():
-            for name, t in self.named_parameters():
-                if name.endswith("bias"):
-                    val = torch.zeros(t.shape)
-                elif t.dim() == 1:
-                    val = torch.ones(t.shape)
-                else:
-                    val = torch.randn(t.shape, generator=gen) * 0.02
-                t.copy_(val)
-        return self
+        """Seeded random init by the JAX module's rules
+        (``models/initializers.py``): ``lecun_normal`` matrices and patch
+        conv, ``truncated_normal(0.02)`` relative-position tables and point
+        tokens, zero biases, unit norm scales."""
+        return flax_init(self, seed, _TABLES, keep=("relative_position_index",))
 
     def forward(self, img: torch.Tensor) -> dict:
         """img: (B, H, W, 3) with every stage's map divisible by its window

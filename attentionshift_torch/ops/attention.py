@@ -42,11 +42,13 @@ import ctypes
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
+from ..parallel.collectives import all_reduce
 from ._build import KERNELS, check, library
 from .numerics import F32_MIN_NORMAL, bf16_steps
 
 __all__ = ["HEAD_DIMS", "attention_reference", "attention_backward_reference",
-           "attention_with_capture", "attention_no_capture", "attention_plain_op",
+           "attention_with_capture", "attention_no_capture", "attention_with_capture_sharded",
+           "attention_no_capture_sharded", "reduce_capture", "attention_plain_op",
            "attention_capture_op", "attention_flops", "flash_forward", "forward_library",
            "attention_backward_dq", "attention_backward_dkv", "capture_mean_limit", "kernel_name"]
 
@@ -369,3 +371,34 @@ def attention_with_capture(q, k, v, pad_interval=None):
     lo, hi = _gap(q.shape[2], pad_interval)
     out, mean, _ = attention_capture_op(*_operands(q, k, v), lo, hi)
     return out, mean
+
+
+def reduce_capture(mean_local, tp):
+    """The head mean over all H heads from this rank's mean over its H / tp
+    heads: the all-reduce of ``mean_local / tp`` over the model group ``tp``
+    (a ``parallel.tp.TPContext``), one (B, T, T) tensor, summed in f32 and
+    rounded once to the storage dtype (as the single-rank mean is rounded
+    once)."""
+    return all_reduce(mean_local.float() / tp.size, tp.group).to(mean_local.dtype)
+
+
+def attention_with_capture_sharded(q, k, v, pad_interval=None, tp=None):
+    """Capture attention on a head shard (the JAX package's
+    ``attention_with_capture_sharded``).
+
+    Under a model group ``tp`` of more than one rank, q, k, v hold this
+    rank's H / tp heads (the column-parallel qkv's output): the capture op
+    (kernel #1 on the card) runs on them, and the head-mean probabilities
+    of all H heads are rebuilt with one all-reduce (``reduce_capture``).
+    Otherwise this is exactly ``attention_with_capture``. The gradient goes
+    through the op's registered backward (#5, #6) on the local heads."""
+    out, mean = attention_with_capture(q, k, v, pad_interval)
+    if tp is None or tp.size == 1:
+        return out, mean
+    return out, reduce_capture(mean, tp)
+
+
+# plain attention on a head shard (the JAX package's name): heads are
+# independent, so a rank runs ``attention_no_capture`` (kernel #2 on the
+# card) on its H / tp heads as they are
+attention_no_capture_sharded = attention_no_capture

@@ -27,9 +27,17 @@ The model runs on the card unless ``--device cpu`` asks for the plain
 PyTorch path (f32): the AttnShift detector in bf16 compute with f32
 parameters, the Mask R-CNN in f32, as the JAX package runs it. Under
 ``torchrun`` each rank is one process on one card: ``data.batch_size`` is
-per rank, the train step computes the losses and gradients of the global
-batch, and rank 0 alone logs, saves and evaluates. Tensor, sequence and
-pipeline parallelism raise ``NotImplementedError``.
+per data replica, the train step computes the losses and gradients of the
+global batch, and rank 0 alone logs, saves and evaluates. The config's
+``parallel`` block lays the ranks out as ``data x model``
+(``parallel.mesh.mesh_from_config``): ``parallel.model > 1`` runs the
+transformer blocks tensor-parallel over each model group, and
+``parallel.sequence_parallel`` (injected into the ``model`` block, as the
+JAX CLI does) shards the backbone's tokens over it as well; the ranks of
+a model group take the same batch and the same draws. One card can run a
+model group: its ranks then share the card over ``gloo``, which they ask
+for with ``ATTNSHIFT_DIST_BACKEND=gloo`` (``parallel.mesh.init_distributed``). Checkpoints and the val metric of a
+tensor-parallel run are taken from the gathered full parameters.
 
 With ``teacher.enabled`` (``configs/attnshift_voc12aug_ts.py``) the step
 is ``train.make_train_step_ts``: an EMA teacher, a copy of the student
@@ -82,17 +90,25 @@ def build(args) -> SimpleNamespace:
     from ..data.pipeline import TrainPipeline
     from ..data.refine import RefineTrainPipeline
     from ..device import resolve_device
-    from ..parallel.mesh import init_distributed, mesh_from_config, place_state
+    from ..parallel.mesh import batch_sharding, init_distributed, mesh_from_config, place_state
     from ..train import TrainState, latest_checkpoint, restore_checkpoint
 
     cfg = Config.fromfile(args.config).merge_from_options(args.cfg_options)
+    # the parallel block (the JAX CLI's): mesh axes and sequence parallelism,
+    # a model flag injected before the model is built
+    pcfg = dict(cfg.get("parallel", {}))
+    if pcfg.get("sequence_parallel"):
+        cfg["model"] = {**dict(cfg["model"]), "sequence_parallel": True}
     rank, world, dev = init_distributed(resolve_device(args.device))
-    dp = mesh_from_config(cfg.get("parallel", {}), world)
+    mesh = mesh_from_config(pcfg, world)
     group = dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
     os.makedirs(args.work_dir, exist_ok=True)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"env: torch {torch.__version__}, device {dev} ({name}), rank {rank}/{world}"
           f"{', backend ' + dist.get_backend() if group is not None else ''}", flush=True)
+    if mesh.model > 1 or pcfg.get("sequence_parallel"):
+        print(f"parallel: mesh {mesh.shape}, sp={bool(pcfg.get('sequence_parallel', False))}",
+              flush=True)
     if rank == 0:
         with open(os.path.join(args.work_dir, "config.json"), "w") as f:
             json.dump(cfg.to_dict(), f, indent=2, default=str)
@@ -111,9 +127,11 @@ def build(args) -> SimpleNamespace:
             scales=scales, max_gt=int(cfg.data.max_gt), flip_ratio=float(cfg.data.flip_ratio),
             crop_size=tuple(crop) if crop else None,
             brightness_delta=float(cfg.data.get("brightness_delta", 0.0)))
+    # the ranks of a model group take the same shard of the data
+    index, count = batch_sharding(mesh)
     loader = TrainLoader(dataset, pipeline, batch_size=int(cfg.data.batch_size), seed=seed,
-                         num_threads=int(cfg.data.num_threads), process_index=rank,
-                         process_count=dp)
+                         num_threads=int(cfg.data.num_threads), process_index=index,
+                         process_count=count)
     # every rank runs this many steps per epoch (each is a collective);
     # the schedule counts epochs in them
     steps_per_epoch = loader.steps_per_epoch()
@@ -125,7 +143,7 @@ def build(args) -> SimpleNamespace:
                          f"{cfg.model.num_classes} (NumClassCheckHook)")
 
     model, opt, step_fn = (_build_refine if refine else _build_attnshift)(
-        cfg, dev, seed, steps_per_epoch, group)
+        cfg, dev, seed, steps_per_epoch, mesh if group is not None else None)
     state = TrainState.create(model, opt)
     resume = args.resume_from
     if resume is None and not args.no_auto_resume:
@@ -133,8 +151,9 @@ def build(args) -> SimpleNamespace:
     if resume:
         state = restore_checkpoint(resume, state)
         print(f"resumed from {resume} (epoch {state.epoch})", flush=True)
-    state = place_state(state, group)
+    state = place_state(state, mesh)
     run = SimpleNamespace(cfg=cfg, args=args, rank=rank, world=world, device=dev, group=group,
+                          mesh=mesh,
                           seed=seed, dataset=dataset, loader=loader,
                           steps_per_epoch=steps_per_epoch, model=model, state=state,
                           step_fn=step_fn, resumed=resume, teacher=None)
@@ -149,7 +168,7 @@ def _attach_teacher(run: SimpleNamespace, momentum: float) -> None:
     from ..train import make_train_step_ts
 
     run.teacher = copy.deepcopy(run.model)
-    step_ts = make_train_step_ts(run.model, momentum, run.group)
+    step_ts = make_train_step_ts(run.model, momentum, run.mesh if run.group is not None else None)
 
     def step_fn(state, batch, **kw):
         state, run.teacher, metrics = step_ts(state, run.teacher, batch, **kw)
@@ -217,7 +236,8 @@ def train_step(run: SimpleNamespace, batch: dict, epoch: int, draws=None) -> dic
     from ..train import step_generator
 
     enable = 1.0 if epoch >= int(run.cfg.runtime.loss_weight_start_epoch) else 0.0
-    gen = step_generator(run.seed, run.state.step, run.device, run.rank)
+    # the ranks of a model group draw alike: they run one replica
+    gen = step_generator(run.seed, run.state.step, run.device, run.mesh.data_index)
     run.state, metrics = run.step_fn(run.state, shard_batch(batch, run.device), generator=gen,
                                      loss_enable=enable, draws=draws)
     return metrics
@@ -230,6 +250,7 @@ def fit(run: SimpleNamespace) -> dict:
     metrics."""
     from ..data.build import build_eval_dataset
     from ..eval.runner import evaluate
+    from ..parallel.tp import full_train_state
     from ..train import save_checkpoint
     from ..utils import MetricLogger, check_finite_losses
 
@@ -263,16 +284,21 @@ def fit(run: SimpleNamespace) -> dict:
                 break
         batches.close()
         run.state.next_epoch()
-        if run.rank == 0 and (epoch + 1) % int(rt.checkpoint_interval) == 0:
+        save = (epoch + 1) % int(rt.checkpoint_interval) == 0
+        # EvalHook analog: the val metric every eval_interval epochs
+        val = (not args.no_validate and cfg.data.get("val")
+               and (epoch + 1) % int(rt.get("eval_interval", 1)) == 0)
+        # a tensor-parallel run saves and scores its gathered parameters
+        # (a collective: every rank gathers)
+        view = full_train_state(run.state) if (save or val) and run.mesh.model > 1 else run.state
+        if run.rank == 0 and save:
             t0 = time.perf_counter()
-            path = save_checkpoint(args.work_dir, run.state)
+            path = save_checkpoint(args.work_dir, view)
             stats["save_s"].append(time.perf_counter() - t0)
             print(f"saved {path} ({time.time() - t_ep:.1f}s/epoch)", flush=True)
-        # EvalHook analog: the val metric every eval_interval epochs
-        if (not args.no_validate and run.rank == 0 and cfg.data.get("val")
-                and (epoch + 1) % int(rt.get("eval_interval", 1)) == 0):
+        if run.rank == 0 and val:
             t0 = time.perf_counter()
-            metrics_val = evaluate(run.model, build_eval_dataset(cfg.data.val.to_dict()),
+            metrics_val = evaluate(view.model, build_eval_dataset(cfg.data.val.to_dict()),
                                    test_scale=tuple(cfg.data.test_scale),
                                    limit=args.validate_limit,
                                    num_classes=int(cfg.model.num_classes), verbose=False)
@@ -280,6 +306,7 @@ def fit(run: SimpleNamespace) -> dict:
             stats["val"].append(metrics_val)
             print(f"epoch {epoch} val: { {k: round(v, 4) for k, v in metrics_val.items()} }",
                   flush=True)
+        del view
         if args.max_steps and done_steps >= args.max_steps:
             break
     print("training done", flush=True)

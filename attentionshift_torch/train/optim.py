@@ -28,6 +28,13 @@ the same schedule, clip, accumulation and non-finite guard, inside the
 same ``Optimizer``.
 
 Parameters and moments are f32 whatever the model's compute dtype.
+
+Under tensor parallelism (``parallel.tp.shard_opt_state_tp``) the
+optimizer holds the rank's shards and their moments, and learns the model
+group (``tp_group``) and which parameters are sharded (``sharded``): the
+global gradient norm sums the shards' squares over the group, and the
+non-finite guard skips a call on every rank when one rank's shard is not
+finite.
 """
 
 from __future__ import annotations
@@ -36,6 +43,8 @@ import math
 from typing import Sequence
 
 import torch
+
+from ..parallel.collectives import all_reduce
 
 __all__ = ["vit_layer_id", "lr_scales", "weight_decay_mask", "step_lr_schedule", "Optimizer",
            "build_optimizer", "build_sgd_optimizer"]
@@ -131,6 +140,8 @@ class Optimizer:
                    if rule == "adamw" else None)
         self.acc = ([torch.zeros_like(p, dtype=torch.float32) for p in self.params]
                     if accumulate_steps > 1 else None)
+        self.tp_group = None  # the model group under tensor parallelism
+        self.sharded = [False] * len(self.params)
         self.count = 0  # optimizer updates made (Adam's and the schedule's count)
         self.mini_step = 0  # position inside the accumulation window
         self.notfinite_count = 0
@@ -177,8 +188,10 @@ class Optimizer:
         grads = [torch.zeros_like(p) if g is None else g.float()
                  for g, p in zip(grads, self.params)]
         if self.skip_nonfinite is not None:
-            finite = bool(torch.isfinite(torch.stack(
-                torch._foreach_norm(grads, float("inf")))).all())
+            bad = (~torch.isfinite(torch.stack(torch._foreach_norm(grads, float("inf"))))).sum()
+            if self.tp_group is not None:
+                bad = all_reduce(bad.float().reshape(1), self.tp_group)
+            finite = not bool(bad.sum() > 0)
             self.last_finite = finite
             if finite:
                 self.notfinite_count = 0
@@ -200,7 +213,12 @@ class Optimizer:
             torch._foreach_zero_(self.acc)
             self.mini_step = 0
         if self.grad_clip is not None:
-            norm = torch.stack(torch._foreach_norm(grads)).norm()
+            norms = torch.stack(torch._foreach_norm(grads))
+            norm = norms.norm()
+            if self.tp_group is not None:
+                mine = torch.tensor(self.sharded, device=norms.device)
+                norm = (all_reduce((norms[mine] ** 2).sum().reshape(1), self.tp_group)
+                        + (norms[~mine] ** 2).sum()).sqrt()[0]
             scale = torch.where(norm < self.grad_clip, torch.ones_like(norm),
                                 self.grad_clip / norm)
             grads = torch._foreach_mul(grads, scale)

@@ -170,7 +170,18 @@ Phases, each printing its own lines:
    config's Mask R-CNN exported and round-tripped once; and the last user
    tools: the FPS harness at 608x1024, ``get_flops`` at 512x512 (its
    attention count against 12 x 4 B H T^2 d) and the robustness benchmark
-   on the eval tree (contrast, severity 1);
+   on the eval tree (contrast, severity 1); then tensor, sequence and
+   pipeline parallelism (``phase_parallel``): the script run again as two
+   ranks that share the card over gloo (``--parallel-rank``), the VOC
+   flagship at 800x1344 (T = 4352): the TP forward (3 of 6 heads per rank;
+   each capture layer's all-reduced head mean against the single-rank
+   kernel on the gathered q, k, v, per entry), the SP forward (2176 tokens
+   per rank), the PP forward (2 stages x 2 microbatches) and one dp1 x tp2
+   x sp train step, each against the single-rank path with the f32 plain
+   path as the witness of bf16 rounding, with controls (the capture mean,
+   the row-parallel sums and the SP LayerNorm gradient not reduced); per
+   path and rank: host ms, launches of #1, #2, #5, #6 (asserted) and the
+   gloo staging time;
 16. times with CUDA events: every kernel, its plain version, the library
    call where one exists, ms/img of the pseudo-label path and of
    inference and ms per train step, each with one profiled call. The
@@ -3437,11 +3448,10 @@ def phase_point_generator(dev) -> None:
 # heads, LayerScale 0.1, split attention every 4th block global at window 14,
 # at 896 x 1344 (a 56 x 84 grid: 24 windows of 196 tokens, 4704 global)
 MAE_H, MAE_W = 896, 1344
-# q, k, v weights 3x the N(0, 0.02) init: attention that is neither flat
-# (at 1x the attention branch, scaled by LayerScale 0.1, moves the outputs
-# by under the checks' 5e-2) nor so sharp that bf16 rounding decides it (at
-# 10x the bf16 and f32 plain modules differ by 13-42 % of the largest output)
-BACKBONE_SHARP_QKV = 3.0
+# the q, k, v weights as init_weights draws them: with the JAX modules'
+# lecun_normal init (about 6x the former N(0, 0.02) at these widths) the
+# attention is not flat, and the checks' controls (no attention branch, no
+# mask) fail without the 3x sharpening the former init needed
 MAE_KW = dict(embed_dim=768, depth=12, num_heads=12, out_indices=(3, 5, 7, 11), with_fpn=True,
               init_values=0.1, split_attn_freq=4, window=14)
 MAE_FWD_LAUNCHES = dict(attention_plain=12)
@@ -3466,16 +3476,6 @@ def backbone_pass(model, img, wts, mask=None):
     sync()
     bwd = launch_counts()
     return fwd, bwd, [o.detach() for o in outs], x.grad
-
-
-def sharpen(model, scale: float) -> None:
-    """Scale every block's q, k, v weights by ``scale``, so that the
-    attention of a randomly initialised backbone is not flat."""
-    import torch
-
-    with torch.no_grad():
-        for blk in model.blocks:
-            blk.attn.qkv.weight.mul_(scale)
 
 
 def rel_norm(a, ref) -> float:
@@ -3526,8 +3526,7 @@ def phase_mae_encoder(dev, smi: str) -> dict:
     and input gradient against the same module with ``use_kernel=False``
     on the card (``check_against_plain``; control: the plain module
     without its attention branches, LayerScale gamma_1 = 0); host time,
-    busy time and peak memory. The q, k, v weights are
-    ``BACKBONE_SHARP_QKV`` x the init."""
+    busy time and peak memory. The weights are ``init_weights(0)``'s."""
     import numpy as np
     import torch
 
@@ -3537,7 +3536,6 @@ def phase_mae_encoder(dev, smi: str) -> dict:
     from attentionshift_torch.models.mae_encoder import MAEVisionTransformer
 
     model = MAEVisionTransformer(**MAE_KW, dtype=torch.bfloat16, device=dev).init_weights(seed=0)
-    sharpen(model, BACKBONE_SHARP_QKV)
     img = torch.from_numpy(np.random.RandomState(30).randn(1, MAE_H, MAE_W, 3)
                            .astype(np.float32)).to(dev)
     d = MAE_KW["embed_dim"]
@@ -3607,8 +3605,8 @@ def phase_mim(dev, smi: str) -> dict:
     (exactly 12 ``flash_fwd`` at (8, 6, 197, 64)) and the backward of a
     weighted sum of the outputs (exactly 12 + 12); the tokens and the image
     gradient against the same ViT with ``use_kernel=False`` on the card
-    (``check_against_plain``; control: no mask; q, k, v weights
-    ``BACKBONE_SHARP_QKV`` x the init, as in the MAE phase); the heads on the card
+    (``check_against_plain``; control: no mask; ``init_weights``' q, k, v,
+    as in the MAE phase); the heads on the card
     against the CPU in f32 on the card's tokens (1e-4 of the largest
     logit; control: the tokens of another image). Host time, busy time,
     peak memory."""
@@ -3618,7 +3616,6 @@ def phase_mim(dev, smi: str) -> dict:
     from attentionshift_torch.models.ssl import DINOHead, IBOTHead, MIMViT
 
     vit = MIMViT(dtype=torch.bfloat16, device=dev).init_weights(seed=0)
-    sharpen(vit, BACKBONE_SHARP_QKV)
     ibot = IBOTHead(384, out_dim=8192, patch_out_dim=8192, device=dev).init_weights(seed=1)
     dino = DINOHead(384, out_dim=65536, device=dev).init_weights(seed=2)
 
@@ -4605,11 +4602,347 @@ def phase_ablation(sources) -> None:
             f"{[round(x, 4) for x in got]})")
 
 
+# tensor, sequence and pipeline parallelism over a model group of two ranks
+# that share the one card over gloo (NCCL refuses two ranks on one device):
+# per rank, the kernels #1, #2, #5, #6 launched on each path
+PAR_RANKS = 2
+PAR_BLOCK = 6  # the block whose q, k, v (column), fc2 (row) and norm1 gradients are held
+PAR_FWD_LAUNCHES = {"attention_capture": CAM_LAYERS, "attention_plain": 12 - CAM_LAYERS}
+PAR_PP_LAUNCHES = {"attention_capture": 12 // PAR_RANKS * 2}  # 6 blocks x 2 microbatches
+PAR_STEP_LAUNCHES = TRAIN_LAUNCHES  # one train step, every kernel of the path on each rank
+PAR_KERNELS = ("attention_capture", "attention_plain", "attention_bwd_dq", "attention_bwd_dkv")
+
+
+def rel_dist(a, ref) -> float:
+    """max |a - ref| over max |ref|."""
+    return max_err(a, ref) / max(float(ref.float().abs().max()), 1e-30)
+
+
+def within_rounding(tag: str, got, single, ref32, control=None, witness=None) -> tuple:
+    """(ok, line): ``got`` (a sharded path, bf16) no further from the f32
+    plain path ``ref32`` than 1.5x the single-rank bf16 path ``single`` is,
+    plus 1e-3 of the largest value: what bf16 rounding alone gives is the
+    witness (``witness``, when given, replaces the single-rank path's own
+    distance). ``control`` must fail the same limit."""
+    why = "the single-rank bf16 path's" if witness is None else "the step's largest loss move"
+    witness = rel_dist(single, ref32) if witness is None else witness
+    dist = rel_dist(got, ref32)
+    limit = 1.5 * witness + 1e-3
+    ok = dist <= limit
+    line = (f"[check] {tag}: {dist:.4e} of the largest value from the f32 plain path, witness "
+            f"{witness:.4e} ({why} under bf16; limit 1.5x + 1e-3)")
+    if control is not None:
+        cdist = rel_dist(control, ref32)
+        ok = ok and cdist > limit
+        line += f"; control {cdist:.4e}, must exceed {limit:.4e}"
+    return ok, line + (": ok" if ok else ": FAIL")
+
+
+def parallel_worker(rank: int, out: str) -> None:
+    """One rank of ``phase_parallel``: the TP, SP and PP forwards and the
+    dp1 x tp2 x sp train step of the VOC flagship at the bench geometry,
+    each checked on rank 0 against the single-rank path on the card; its
+    check lines, ms, launches and staging times to ``out/rank{rank}.json``."""
+    import contextlib
+    import copy
+    from unittest import mock
+
+    import torch
+
+    from attentionshift_torch.models import layers
+    from attentionshift_torch.models.vit import vit_forward_pp
+    from attentionshift_torch.ops._build import reset_launches
+    from attentionshift_torch.ops.attention import attention_with_capture, capture_mean_limit
+    from attentionshift_torch.parallel import collectives, mesh as pmesh, pp as pp_mod
+    from attentionshift_torch.parallel.tp import (TPContext, scatter_to_sp, shard_params_tp,
+                                                  shard_tensor)
+    from attentionshift_torch.train import TrainState, build_optimizer, make_train_step
+    from attentionshift_torch.train import step as step_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, world, dev = pmesh.init_distributed(torch.device("cuda"))
+    import torch.distributed as dist
+
+    assert world == PAR_RANKS and dist.get_backend() == "gloo", (world, dist.get_backend())
+    mesh = pmesh.make_mesh(1, PAR_RANKS)
+    tp = TPContext(mesh.model_group, PAR_RANKS, rank)
+    lines, paths, failed = [], {}, []
+
+    def note(ok_line):
+        """Print a check's line as it comes; failures raise at the end."""
+        ok, line = ok_line
+        log(line)
+        lines.append(line)
+        if not ok:
+            failed.append(line)
+
+    inp = slice_inputs(H_IMG, W_IMG, MAX_GT, N_VALID, dev)
+    img = inp[0]
+    base = build_model(dev, torch.bfloat16)
+    keys = ("last_feat", "outputs_class", "point_tokens")
+
+    def run_path(name: str, fn):
+        """``fn()`` with the launch counts at 0 and read after, its host ms
+        (synchronised; both ranks start it together) and the staging
+        counters."""
+        sync()
+        dist.barrier()
+        reset_launches()
+        collectives.reset_staging()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        paths[name] = dict(ms=(time.perf_counter() - t0) * 1e3, launches=launch_counts(),
+                           staging=dict(collectives.STAGING))
+        return res
+
+    # the single-rank references: bf16 on the kernels (on both ranks: its
+    # first call also loads the kernels and the libraries before any timed
+    # path), f32 on the plain path (rank 0)
+    with torch.no_grad():
+        single = base.backbone(img)
+    ref32 = None
+    if rank == 0:
+        m32 = build_model(dev, torch.float32)
+        for blk in m32.backbone.blocks:
+            blk.attn.use_kernel = False
+        with torch.no_grad():
+            ref32 = m32.backbone(img)
+        del m32
+
+    def sharded(sp: bool):
+        m = copy.deepcopy(base)
+        m.backbone.sequence_parallel = sp
+        shard_params_tp(m, mesh)
+        return m
+
+    # the TP forward: the capture maps on the path's own q, k, v of each layer
+    handed = []
+    real = layers.attention_with_capture_sharded
+
+    def keep(q, k, v, pad_interval=None, tpc=None):
+        o, mean = real(q, k, v, pad_interval, tpc)
+        handed.append((q.detach(), k.detach(), v.detach(), mean, pad_interval))
+        return o, mean
+
+    tpm = sharded(False)
+    with torch.no_grad(), mock.patch.object(layers, "attention_with_capture_sharded", keep):
+        out_tp = run_path("tp_forward", lambda: tpm.backbone(img))
+    for i, (q, k, v, mean, gap) in enumerate(handed):
+        full = [collectives.all_gather(t.contiguous(), tp.group, dim=1) for t in (q, k, v)]
+        local = attention_with_capture(q, k, v, gap)[1]  # the control: this rank's heads only
+        if rank == 0:
+            want = attention_with_capture(*full, gap)[1]
+            limit = capture_mean_limit(want)
+            over, cover = mean_over(mean, want, limit), mean_over(local, want, limit)
+            ok = over <= 1.0 < cover
+            note((ok, f"[check] parallel.tp capture layer {i}: the mean over 3 + 3 heads, "
+                      f"all-reduced, against the single-rank kernel on the gathered q, k, v: "
+                      f"worst entry at {over:.3f}x its limit (capture_mean_limit); control "
+                      f"(this rank's 3 heads, not reduced) at {cover:.1f}x, must exceed 1: "
+                      f"{'ok' if ok else 'FAIL'}"))
+    del handed
+    with torch.no_grad(), mock.patch.object(layers, "reduce_from_tp", lambda y, tpc: y):
+        ctl = tpm.backbone(img)  # the control: row-parallel partial sums not reduced
+    if rank == 0:
+        for key in keys:
+            note(within_rounding(f"parallel.tp.{key}", out_tp[key], single[key], ref32[key],
+                                 ctl[key]))
+    del tpm, out_tp, ctl
+
+    # the SP forward: 2176 of the 4352 tokens on each rank between the blocks;
+    # the control slices each row-parallel layer's partial sums to the
+    # rank's tokens instead of reduce-scattering them
+    not_scattered = mock.patch.object(layers, "reduce_scatter_sp", scatter_to_sp)
+    spm = sharded(True)
+    with torch.no_grad():
+        out_sp = run_path("sp_forward", lambda: spm.backbone(img))
+        with not_scattered:
+            ctl = spm.backbone(img)
+    if rank == 0:
+        for key in keys + ("attns",):
+            note(within_rounding(f"parallel.sp.{key}", out_sp[key], single[key], ref32[key],
+                                 ctl[key]))
+    del spm, out_sp, ctl
+
+    # the PP forward: 2 stages x 2 microbatches at batch 2 (the bench image twice)
+    # (the control: the stages swapped, each rank running the other's blocks)
+    img2 = img.expand(2, -1, -1, -1).contiguous()
+    out_pp = run_path("pp_forward", lambda: vit_forward_pp(base.backbone, img2, tp, 2))
+    with mock.patch.object(pp_mod, "shard_stage_params",
+                           lambda st, tpc: {n: t[tpc.size - 1 - tpc.rank] for n, t in st.items()}):
+        ctl = vit_forward_pp(base.backbone, img2, tp, 2)
+    if rank == 0:
+        for key in keys:
+            for b in range(2):
+                note(within_rounding(f"parallel.pp.{key}[{b}]", out_pp[key][b:b + 1],
+                                     single[key], ref32[key], ctl[key][b:b + 1]))
+    del out_pp, ctl, img2
+
+    # the dp1 x tp2 x sp train step against the single-rank step (same draws)
+    batch = dict(zip(("img", "gt_points", "gt_labels", "gt_valid", "img_wh"), inp))
+    names = [f"backbone.blocks.{PAR_BLOCK}.{n}" for n in ("attn.qkv.weight", "mlp.fc2.weight",
+                                                          "norm1.weight")]
+
+    def one_step(model, group, reduce_partial=True, path=None, fault=contextlib.nullcontext()):
+        opt = build_optimizer(model, base_lr=1e-4, steps_per_epoch=100, accumulate_steps=1,
+                              depth=12)
+        state = TrainState.create(model, opt)
+        if group is not None:
+            state = pmesh.place_state(state, mesh)
+        seen = {}
+        inner = opt.step
+
+        def spy(grads):
+            seen.update({n: g.detach().float().clone() for n, g in zip(opt.names, grads)
+                         if n in names})
+            return inner(grads)
+
+        opt.step = spy
+        fn = make_train_step(model, group)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        partial = (step_mod.reduce_partial_grads if reduce_partial
+                   else (lambda nm, grads, part, tpc: grads))
+        with mock.patch.object(step_mod, "reduce_partial_grads", partial), fault:
+            call = lambda: fn(state, batch, generator=gen)[1]  # noqa: E731
+            metrics = run_path(path, call) if path else call()
+        return {k: float(v) for k, v in metrics.items()}, seen
+
+    step_ref = step32 = None
+    if rank == 0:
+        step_ref = one_step(copy.deepcopy(base), None)
+        m32 = build_model(dev, torch.float32)
+        for blk in m32.backbone.blocks:
+            blk.attn.use_kernel = False
+        step32 = one_step(m32, None)
+        del m32
+
+    def tp_step(reduce_partial=True, path=None, fault=contextlib.nullcontext()):
+        m = copy.deepcopy(base)
+        m.backbone.sequence_parallel = True
+        return one_step(m, mesh, reduce_partial, path, fault)
+
+    got = tp_step(path="train_step")
+    ctl = tp_step(reduce_partial=False)  # the SP LayerNorm gradient not reduced
+    ctl_fwd = tp_step(fault=not_scattered)  # the SP forward's control, in the step
+    if rank == 0:
+        (lt, gt), (ls, gs), (l32, g32), (_, gc) = got, step_ref, step32, ctl
+        losses = [k for k in sorted(l32) if k.startswith("loss")]
+        # one scalar is a poor sample of rounding noise: the witness of the
+        # losses is the largest move bf16 gives any loss of this step, and
+        # the total, with the control, shows that this limit still catches a
+        # wrong forward
+        moved = max(rel_dist(torch.tensor(ls[k]), torch.tensor(l32[k])) for k in losses)
+        for key in losses:
+            note(within_rounding(f"parallel.step.{key}", torch.tensor(lt[key]),
+                                 torch.tensor(ls[key]), torch.tensor(l32[key]),
+                                 torch.tensor(ctl_fwd[0][key]) if key == "loss_total" else None,
+                                 witness=moved))
+        # the controls of the gradients: qkv's contiguous chunk (the JAX
+        # spec's literal layout: all of q and half of k), fc2's other shard,
+        # the LayerNorm gradient not reduced
+        qkv, fc2, norm = names
+        controls = {qkv: gs[qkv].chunk(2, dim=0)[0], fc2: shard_tensor(fc2, gs[fc2], 1, 1, 2),
+                    norm: gc[norm]}
+        for n, axis in zip(names, (0, 1, None)):
+            cut = (lambda t: t) if axis is None else (lambda t: shard_tensor(n, t, axis, 0, 2))
+            note(within_rounding(f"parallel.step.grad[{n}]", gt[n], cut(gs[n]), cut(g32[n]),
+                                 controls[n]))
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(dict(lines=lines, paths=paths), f)
+    dist.destroy_process_group()
+    if failed:
+        raise AssertionError("parallel checks failed:\n" + "\n".join(failed))
+
+
+def phase_parallel(smi: str) -> dict:
+    """Tensor, sequence and pipeline parallelism (``parallel/``) at the VOC
+    flagship's full width (ViT-S at 800x1344, T = 4352): two ranks share
+    the card over gloo (``parallel_worker``, this script run twice with
+    ``--parallel-rank``), the kernels on the card in each, only the
+    collectives through the host. The TP forward (3 heads per rank), the SP
+    forward (2176 tokens per rank), the PP forward (2 stages x 2
+    microbatches at batch 2) and one dp1 x tp2 x sp train step, each
+    against the single-rank path (``within_rounding``; the capture maps per
+    entry within ``capture_mean_limit``), each with a control that must
+    miss: the capture mean and the row-parallel sums not reduced (TP), the
+    row-parallel partial sums sliced to the rank's tokens instead of
+    reduce-scattered (SP, and the step's total loss), the two stages
+    swapped (PP), the qkv gradient against its contiguous chunk, the fc2
+    gradient against the other rank's shard, the SP LayerNorm gradient not
+    reduced. Per path and rank: host ms, launches of #1, #2, #5, #6
+    (asserted) and the gloo staging time. Returns the launches summed over
+    paths and ranks."""
+    import socket
+    import tempfile
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = str(s.getsockname()[1])
+    procs = []
+    for rank in range(PAR_RANKS):
+        env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(PAR_RANKS),
+                   MASTER_ADDR="localhost", MASTER_PORT=port, ATTNSHIFT_DIST_BACKEND="gloo")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-rank", str(rank), out],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    t0 = time.perf_counter()
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=900)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for line in logs[0].splitlines():
+        if line.startswith("[check]"):
+            log(line)
+    for rank, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"parallel rank {rank} failed ({p.returncode}):\n{text[-6000:]}")
+    res = []
+    for rank in range(PAR_RANKS):
+        with open(os.path.join(out, f"rank{rank}.json")) as f:
+            res.append(json.load(f))
+    want = dict(tp_forward=PAR_FWD_LAUNCHES, sp_forward=PAR_FWD_LAUNCHES,
+                pp_forward=PAR_PP_LAUNCHES, train_step=PAR_STEP_LAUNCHES)
+    total = {name: 0 for name in expected_launches()}
+    for rank, r in enumerate(res):
+        for path, counts in want.items():
+            got = r["paths"][path]
+            if got["launches"] != expected_launches(**counts):
+                raise AssertionError(f"parallel {path} rank {rank}: launches "
+                                     f"{nonzero(got['launches'])} != {counts}")
+            for name, n in got["launches"].items():
+                total[name] += n
+            st = got["staging"]
+            log(f"[parallel] {smi}: {path} rank {rank}: {got['ms']:.2f} ms (host clock, "
+                f"synchronised; the collectives stage through the host under gloo, so this is "
+                f"not a speed), launches " + ", ".join(f"{k} {got['launches'][k]}"
+                                                       for k in PAR_KERNELS)
+                + f"; gloo staging {st.get('calls', 0)} calls, {st.get('bytes', 0) / 2**20:.1f} "
+                f"MiB, host copies {st.get('copy_ms', 0.0):.2f} ms, collectives "
+                f"{st.get('collective_ms', 0.0):.2f} ms")
+    log(f"[parallel] two ranks on one card: {wall:.1f} s wall (process start, build, references "
+        f"and checks included)")
+    import shutil
+
+    shutil.rmtree(out, ignore_errors=True)
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ablate", nargs="*", metavar="SOURCE",
                     help="only the ablation of design constants, every variant of each source "
                          "of ABLATIONS (default: all sources)")
+    ap.add_argument("--parallel-rank", nargs=2, metavar=("RANK", "DIR"),
+                    help=argparse.SUPPRESS)  # one rank of phase_parallel
     args = ap.parse_args(argv)
     sys.path.insert(0, HERE)
     if not os.path.isdir(os.path.join(HERE, "attentionshift_torch")):
@@ -4618,6 +4951,9 @@ def main(argv=None) -> int:
 
     from attentionshift_torch.ops._build import KERNELS
 
+    if args.parallel_rank:
+        parallel_worker(int(args.parallel_rank[0]), args.parallel_rank[1])
+        return 0
     smi = phase_card()
     if args.ablate is not None:
         phase_ablation(args.ablate or list(ABLATIONS))
@@ -4661,6 +4997,7 @@ def main(argv=None) -> int:
     learning = phase_learning(smi)
     export = phase_export(smi)
     tools = phase_user_tools(ev, smi)
+    parallel = phase_parallel(smi)
     phase_times(results, inp, model, slice_inp, gen)
     phase_swin_times(results, sw, smi)
     phase_main_path_inputs(results, handed)
@@ -4677,7 +5014,8 @@ def main(argv=None) -> int:
                     cascade_step=cascade, vitb_cli=vitb, swin=sw["launches"],
                     point2bbox=p2b["launches"], mae_encoder=mae["launches"], mim=mim["launches"],
                     debug_overfit=learning["debug_overfit"],
-                    learning_check=learning["learning_check"], export=export, user_tools=tools)
+                    learning_check=learning["learning_check"], export=export, user_tools=tools,
+                    parallel=parallel)
     table = []
     for name, kern in KERNELS.items():
         r = results[name]

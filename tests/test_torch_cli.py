@@ -127,7 +127,9 @@ def cli_setup(models, trees, tmp_path_factory):
     voc = _node(trees, "voc")
     opts = ["--cfg-options", f"data.val.split_file={voc['split_file']}",
             f"data.val.voc_root={voc['voc_root']}"]
-    return str(cfg), ckpt, opts, d
+    yield str(cfg), ckpt, opts, d
+    from test_torch_support import drop_weights
+    drop_weights(d)
 
 
 def _last_line(capsys) -> dict:

@@ -160,8 +160,8 @@ def ranks(tmp_path_factory):
     from attentionshift_tpu.train import TrainState as JState
     from attentionshift_tpu.train import build_optimizer as jbuild
     from test_torch_support import (TINY, TRAIN_OPT, TRAIN_SIZES, blob_inputs, disc_tree,
-                                    jax_model, jax_train_reference, random_variables, torch_tree,
-                                    voc_tree)
+                                    drop_weights, jax_model, jax_train_reference,
+                                    random_variables, torch_tree, voc_tree)
 
     tmp_path = tmp_path_factory.mktemp("dist")
     kw = dict(TINY, max_gt=4, pad_tokens_to=128, drop_path_rate=0.0, **TRAIN_SIZES,
@@ -242,9 +242,10 @@ runtime = dict(log_interval=1, checkpoint_interval=1, eval_interval=1, seed=0,
                 q.kill()
             raise
         assert p.returncode == 0 and f"WORKER {rank} OK" in log, log[-4000:]
-    return dict(jlosses=jlosses, want_grads=want_grads, want_params=want_params,
-                ranks=[torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2)],
-                cfg=str(cfg), ckpt=ckpt, jax_counts=jax_counts, variant=variant)
+    yield dict(jlosses=jlosses, want_grads=want_grads, want_params=want_params,
+               ranks=[torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2)],
+               cfg=str(cfg), ckpt=ckpt, jax_counts=jax_counts, variant=variant)
+    drop_weights(tmp_path)
 
 
 def _within(jlosses: dict, metrics: dict) -> dict:

@@ -17,7 +17,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from test_torch_support import (AUG_SCALES, BOX_TOL, PROB_TOL, TINY, blob_inputs,  # noqa: E402
-                                ckpt3k_variables, close, eval_models, torch_model)
+                                ckpt3k_variables, close, drop_weights, eval_models, torch_model)
 
 # ------------------------------------------------------------------ COCO AP
 
@@ -119,6 +119,7 @@ def test_checkpoint_round_trip_resumes_bitwise(tmp_path):
     assert set(params) == set(state.model.state_dict())
     assert all(torch.equal(params[k], before[f"params.{k}"]) for k in params)
     assert torch.load(path, weights_only=True)["extra"] == dict(cursor=7)
+    drop_weights(tmp_path)
 
 
 def test_checkpoint_rejects_another_optimizer_layout(tmp_path):
@@ -131,6 +132,7 @@ def test_checkpoint_rejects_another_optimizer_layout(tmp_path):
     state.optimizer = build_optimizer(state.model, accumulate_steps=1, depth=TRAIN_KW["depth"])
     with pytest.raises(ValueError, match="accumulation"):
         restore_checkpoint(path, state)
+    drop_weights(tmp_path)
 
 
 def test_ckpt3k_converts_exports_and_restores(tmp_path):
@@ -152,6 +154,7 @@ def test_ckpt3k_converts_exports_and_restores(tmp_path):
     assert set(got) == set(want) == set(flax_to_torch(ckpt3k_variables()))
     for k, v in want.items():
         assert torch.equal(got[k], v), k
+    drop_weights(tmp_path)
 
 
 # ------------------------------------------------------------------ AugTester

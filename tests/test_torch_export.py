@@ -65,6 +65,9 @@ def test_export_program_roundtrip(tmp_path, capsys, weights_as_args):
         assert not res["program"].state_dict
     else:
         assert out.stat().st_size > 1_000_000  # weights baked in
+    from test_torch_support import drop_weights
+
+    drop_weights(tmp_path)
 
 
 def test_export_program_mask_rcnn(tmp_path, capsys):
@@ -83,6 +86,9 @@ def test_export_program_mask_rcnn(tmp_path, capsys):
     got = torch.export.load(str(out)).module()(img, torch.tensor([[96.0, 64.0]]))
     assert isinstance(got, MaskRCNNTestOutputs)
     assert "nonzero" not in " ".join(_ops(res["program"]))
+    from test_torch_support import drop_weights
+
+    drop_weights(tmp_path)
 
 
 @pytest.mark.parametrize("op,n_out", [("attention_plain", 2), ("attention_capture", 3)])

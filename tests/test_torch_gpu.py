@@ -1338,3 +1338,151 @@ def test_export_round_trip_on_card(cuda, tmp_path, capsys):
     torch.cuda.synchronize()
     assert KERNELS["attention_plain"].launches == 4
     assert sum(k.launches for k in KERNELS.values()) == 4
+
+
+# tensor, sequence and pipeline parallelism: two ranks share the card over
+# gloo (NCCL refuses two ranks on one device); the kernels run on the card in
+# each rank, the collectives through the host
+def _two_ranks(case: str, out: str) -> None:
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    mp.spawn(_rank, args=(case, out, port), nprocs=2)
+
+
+def _vit_s(dev, dtype, **kw):
+    """ViT-S (6 heads of 64) with 100 point tokens, seeded init."""
+    from attentionshift_torch.models import AttnShiftDetector
+
+    return AttnShiftDetector(device=dev, dtype=dtype, max_gt=4, use_remat=False,
+                             **kw).init_weights(0).backbone
+
+
+def _rank(rank: int, case: str, out: str, port: int) -> None:
+    import os
+
+    torch.set_num_threads(1)
+    from unittest import mock
+
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE="2",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port), ATTNSHIFT_DIST_BACKEND="gloo")
+    import torch.distributed as dist
+
+    from attentionshift_torch.models import layers
+    from attentionshift_torch.models.vit import vit_forward_pp
+    from attentionshift_torch.parallel import collectives, mesh as pmesh, pp as pp_mod
+    from attentionshift_torch.parallel.tp import TPContext, scatter_to_sp, shard_params_tp
+
+    _, _, dev = pmesh.init_distributed(torch.device("cuda"))
+    assert dist.get_backend() == "gloo"
+    mesh = pmesh.make_mesh(1, 2)
+    tp = TPContext(mesh.model_group, 2, rank)
+    res = {}
+    if case == "capture":
+        g = torch.Generator(device=dev).manual_seed(3)
+        q, k, v = (torch.randn((1, 6, 4352, 64), generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        gap = (4201, 4252)
+        mine = [t[:, 3 * rank:3 * rank + 3].contiguous() for t in (q, k, v)]
+        out_l, mean = attention.attention_with_capture_sharded(*mine, gap, tp)
+        res = dict(out=out_l, mean=mean, local=attention.attention_with_capture(*mine, gap)[1])
+        res["want"] = attention.attention_with_capture(q, k, v, gap)
+    else:
+        img = torch.from_numpy(np.random.RandomState(0).randn(2, 224, 224, 3)
+                               .astype(np.float32)).to(dev)
+        single = _vit_s(dev, torch.bfloat16)
+        with torch.no_grad():
+            res["single"] = [single(img[b:b + 1]) for b in range(2)]
+            ref = _vit_s(dev, torch.float32)
+            for blk in ref.blocks:
+                blk.attn.use_kernel = False
+            res["ref32"] = [ref(img[b:b + 1]) for b in range(2)]
+            if case == "sp":
+                sp = _vit_s(dev, torch.bfloat16, sequence_parallel=True)
+                shard_params_tp(sp, mesh)
+                res["got"] = [sp(img[b:b + 1]) for b in range(2)]
+                # the control: the row-parallel partial sums sliced to the
+                # rank's tokens instead of reduce-scattered
+                with mock.patch.object(layers, "reduce_scatter_sp", scatter_to_sp):
+                    res["control"] = [sp(img[b:b + 1]) for b in range(2)]
+            else:
+                def per_image(pp):
+                    return [{k: v[b:b + 1] if k != "attns" else v[:, b:b + 1]
+                             for k, v in pp.items() if torch.is_tensor(v)} for b in range(2)]
+
+                res["got"] = per_image(vit_forward_pp(single, img, tp, num_microbatches=2))
+                staged = dict(collectives.STAGING)
+                # the control: the two stages swapped
+                with mock.patch.object(pp_mod, "shard_stage_params",
+                                       lambda st, tpc: {n: t[1 - tpc.rank] for n, t in st.items()}):
+                    res["control"] = per_image(vit_forward_pp(single, img, tp,
+                                                              num_microbatches=2))
+        res["staging"] = staged if case == "pp" else dict(collectives.STAGING)
+    if rank == 0:
+        torch.save({k: v for k, v in res.items()}, out)
+    dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_tensor_parallel_capture_attention_on_card(cuda, tmp_path):
+    """Two ranks on one card, each the capture kernel on 3 of the 6 heads
+    of (1, 6, 4352, 64) bf16 q, k, v with the bench gap: the rank's heads'
+    output within one bf16 step of the single-rank kernel's, and the head
+    mean rebuilt with one all-reduce within ``capture_mean_limit`` per
+    entry; the control, the rank's own 3-head mean, misses it."""
+    from attentionshift_torch.ops.numerics import bf16_steps
+
+    out = str(tmp_path / "r0.pt")
+    _two_ranks("capture", out)
+    r = torch.load(out, weights_only=True)
+    want_out, want_mean = r["want"]
+    limit = attention.capture_mean_limit(want_mean)
+    assert float(((r["mean"].float() - want_mean.float()).abs() / limit).max()) <= 1.0
+    assert float(((r["local"].float() - want_mean.float()).abs() / limit).max()) > 1.0
+    heads = want_out[:, :3].float()
+    assert bool(((r["out"].float() - heads).abs() <= bf16_steps(heads)).all())
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+def _within_rounding(r: dict) -> None:
+    """Each image's outputs no further from the f32 plain path than 1.5x
+    the single-rank bf16 path is, plus 1e-3 of the largest value: what bf16
+    rounding alone gives is the witness. The control's outputs must fail
+    the same limit."""
+    keys = ("point_tokens", "outputs_class", "outputs_coord", "last_feat", "attns")
+    for got, ctl, single, ref in zip(r["got"], r["control"], r["single"], r["ref32"]):
+        limit = {key: 1.5 * _rel(single[key], ref[key]) + 1e-3 for key in keys}
+        for key in keys:
+            assert _rel(got[key], ref[key]) <= limit[key], key
+        assert _rel(ctl["last_feat"], ref["last_feat"]) > limit["last_feat"]
+
+
+@pytest.mark.gpu
+def test_sequence_parallel_forward_on_card(cuda, tmp_path):
+    """ViT-S at 224x224 (T = 297: shards of 149 and 148 tokens) with tensor
+    and sequence parallelism over two ranks on one card, against the
+    single-rank path (``_within_rounding``); the control, the row-parallel
+    partial sums sliced instead of reduce-scattered, misses it."""
+    out = str(tmp_path / "r0.pt")
+    _two_ranks("sp", out)
+    _within_rounding(torch.load(out, weights_only=True))
+
+
+@pytest.mark.gpu
+def test_pipeline_parallel_forward_on_card(cuda, tmp_path):
+    """``vit_forward_pp``: ViT-S at 224x224 over two stages (one per rank on
+    one card) x two microbatches, against the single-rank path
+    (``_within_rounding``); the activations went through the host. The
+    control, the two stages swapped, misses it."""
+    out = str(tmp_path / "r0.pt")
+    _two_ranks("pp", out)
+    r = torch.load(out, weights_only=True)
+    _within_rounding(r)
+    assert r["staging"]["calls"] > 0

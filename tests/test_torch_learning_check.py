@@ -219,6 +219,9 @@ def test_learning_check_main_on_cpu(tmp_path, monkeypatch, capsys):
     saved = restore_params(str(ckpt))
     assert saved["backbone.cls_token"].dtype == torch.bfloat16 and len(saved) == len(
         _narrow(None, torch.device("cpu")).state_dict())
+    from test_torch_support import drop_weights
+
+    drop_weights(ckpt)
 
 
 def test_learning_check_refuses_no_pallas_on_the_card(monkeypatch):
@@ -344,3 +347,6 @@ def test_seed_report_on_a_saved_checkpoint(tmp_path, monkeypatch, capsys):
         assert len(row["layer_box_iou"]) == NARROW["cam_layer"] > row["layer"] >= 0
         assert 0.0 <= row["box_iou"] <= 1.0 and 0.0 <= row["mask_iou"] <= 1.0
         assert 0.0 < row["above_thr"] <= 1.0
+    from test_torch_support import drop_weights
+
+    drop_weights(ckpt)

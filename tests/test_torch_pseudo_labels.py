@@ -82,7 +82,9 @@ def dumps(tmp_path_factory):
     got = gpl.main([str(cfg), pckpt, "--out", str(pout), "--scale", *map(str, SCALE),
                     "--device", "cpu"])
     mp.undo()
-    return got, json.loads(pout.read_text()), json.loads(jout.read_text())
+    yield got, json.loads(pout.read_text()), json.loads(jout.read_text())
+    from test_torch_support import drop_weights
+    drop_weights(d)
 
 
 def test_dump_matches_jax_tool(dumps):

@@ -76,7 +76,7 @@ def chain(tmp_path_factory):
     from attentionshift_torch.models import AttnShiftDetector
     from attentionshift_torch.tools import gen_pseudo_labels as gpl
     from attentionshift_torch.train import save_params
-    from test_torch_support import disc_tree, voc_tree
+    from test_torch_support import disc_tree, drop_weights, voc_tree
 
     d = tmp_path_factory.mktemp("refine_chain")
     tree = disc_tree(d / "discs", sizes=((96, 128), (96, 128)), seed=1)
@@ -91,7 +91,8 @@ def chain(tmp_path_factory):
     dump = gpl.main([str(seed_cfg), ckpt, "--out", str(pseudo), "--scale", "96", "128",
                      "--device", "cpu"])
     cfg = refine_config(d / "refine.py", str(pseudo), tree["img_prefix"], val)
-    return dict(dir=d, tree=tree, val=val, pseudo=str(pseudo), dump=dump, cfg=cfg)
+    yield dict(dir=d, tree=tree, val=val, pseudo=str(pseudo), dump=dump, cfg=cfg)
+    drop_weights(d)
 
 
 def test_dump_train_test_chain(chain, tmp_path, monkeypatch, capsys):
@@ -141,6 +142,9 @@ def test_dump_train_test_chain(chain, tmp_path, monkeypatch, capsys):
         assert sorted(got) == ["mAP@0.25", "mAP@0.5", "mAP@0.75"], extra
         assert all(math.isfinite(v) for v in got.values())
         assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == got
+    from test_torch_support import drop_weights
+
+    drop_weights(tmp_path)
 
 
 def test_refine_resume_equals_unbroken_run(chain, tmp_path):
@@ -170,6 +174,9 @@ def test_refine_resume_equals_unbroken_run(chain, tmp_path):
         assert torch.equal(a["opt_state"]["mu"][k], b["opt_state"]["mu"][k]), k
     assert {k: v for k, v in a["opt_state"].items() if k != "mu"} == \
         {k: v for k, v in b["opt_state"].items() if k != "mu"}
+    from test_torch_support import drop_weights
+
+    drop_weights(tmp_path)
 
 
 # ------------------------------------------------------------- two ranks
@@ -235,6 +242,9 @@ def test_two_rank_refine_step_keeps_replicas_equal(chain, tmp_path):
         assert torch.equal(r0["init"][name], r1["init"][name]), name
     assert sum(not torch.equal(p, r0["init"][n]) for n, p in r0["params"].items()) > 0
     assert r0["counts"] == r1["counts"] == {"normalisers": 6, "gradients": 2, "metrics": 2}
+    from test_torch_support import drop_weights
+
+    drop_weights(tmp_path)
 
 
 if __name__ == "__main__":

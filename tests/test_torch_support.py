@@ -31,6 +31,22 @@ TINY = dict(num_classes=20, embed_dim=128, depth=4, num_heads=2, point_tokens=16
             out_indices=(0, 1, 2, 3))
 
 
+def drop_weights(*roots) -> None:
+    """Delete the checkpoints and tensor files (``*epoch_*``, ``*.pt``,
+    ``*.pt2``) under each root once a test has read them: a TINY train
+    state is ~0.4 GB, and pytest keeps the basetemps of its last three
+    runs."""
+    import pathlib
+
+    for root in roots:
+        root = pathlib.Path(root)
+        files = [root] if root.is_file() else [
+            f for pattern in ("*epoch_*", "*.pt", "*.pt2") for f in root.rglob(pattern)]
+        for f in files:
+            if f.is_file():
+                f.unlink()
+
+
 def inputs(h: int, w: int, g: int, n_valid: int, seed: int = 0):
     """numpy (img, gt_points, gt_labels, gt_valid, img_wh) for batch 1."""
     rs = np.random.RandomState(seed)

@@ -37,7 +37,7 @@ torch.set_num_threads(1)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from test_torch_support import (ABS_TOL, REPO, TINY, TRAIN_SIZES, check_tree, close,  # noqa: E402
-                                coco_tree, disc_tree, jax_model, jax_train_reference,
+                                coco_tree, disc_tree, drop_weights, jax_model, jax_train_reference,
                                 random_variables, torch_tree, voc_tree)
 
 # TINY with the train step's small RPN/RCNN sizes; no drop path and no
@@ -288,6 +288,7 @@ def test_cli_resume_equals_unbroken_run(tree, tmp_path, capsys):
     assert {k: v for k, v in a["opt_state"].items() if k not in ("mu", "nu", "acc")} == \
         {k: v for k, v in b["opt_state"].items() if k not in ("mu", "nu", "acc")}
     assert not torch.equal(a["params"]["mil_head.fc1.weight"], ck1["params"]["mil_head.fc1.weight"])
+    drop_weights(tmp_path)
 
 
 def test_loader_left_early_stops_its_workers():
@@ -314,15 +315,16 @@ def test_loader_left_early_stops_its_workers():
 @pytest.mark.parametrize("opts, error", [
     (["model.num_classes=3"], ValueError),
     (["model_type=mask_rcnn"], TypeError),
-    (["parallel.model=2"], NotImplementedError),
-    (["parallel.sequence_parallel=True"], NotImplementedError),
+    (["parallel.model=2"], ValueError),
+    (["parallel.sequence_parallel=True", "parallel.model=2"], ValueError),
     (["parallel.data=2"], ValueError),
     (None, RuntimeError),
 ], ids=["num-class-check", "mask-rcnn", "tensor-parallel", "sequence-parallel", "data-degree",
         "cuda-default"])
 def test_cli_raises(tree, tmp_path, opts, error):
-    """The NumClassCheckHook analog, the paths that are not ported, a data
-    degree other than the ranks', the refinement stage's Mask R-CNN handed
+    """The NumClassCheckHook analog, a model degree (tensor parallelism,
+    with or without sequence parallelism) that does not divide the ranks, a
+    data degree other than the ranks', the refinement stage's Mask R-CNN handed
     the AttnShift detector's model block (its ViT keys are not a Mask
     R-CNN's: ``tests/test_torch_refine_cli.py`` runs that path on its own
     config), and the card asked for by default on a machine without one:
@@ -377,6 +379,7 @@ def test_cli_teacher_config_runs_resumes_and_is_not_checkpointed(tree, tmp_path,
     for k, v in resumed.model.state_dict().items():
         assert torch.equal(resumed.teacher.state_dict()[k], v), k
     assert torch.equal(resumed.model.state_dict()[name], student[name])
+    drop_weights(tmp_path)
 
 
 def test_cli_coco_config_runs_the_reppoints_cascade(tmp_path, monkeypatch):
@@ -409,6 +412,7 @@ runtime = dict(log_interval=1)
     moved = [k for k, v in run.model.state_dict().items()
              if k.startswith("reppoints_head_0.") and not torch.equal(v, init[k])]
     assert moved
+    drop_weights(tmp_path)
 
 
 @pytest.fixture(scope="module")
