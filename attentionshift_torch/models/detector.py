@@ -194,6 +194,32 @@ class AttnShiftDetector(nn.Module):
     def _seed(self, out, roi_map, patch_hw, img_hw, gt_points, gt_labels, gt_valid, img_wh,
               generator=None, draws=None, debug=False):
         """Stages A-C (`seed_pseudo_gt`, stdroi:2209-2415)."""
+        a = self._stage_a(out, roi_map, patch_hw, img_hw, gt_points, gt_labels, gt_valid, img_wh)
+        pseudo_boxes, best_idx = a["pseudo_boxes"], a["best_idx"]
+        # the candidates were made without a graph, so the pseudo boxes carry
+        # none; Stages B+C read the patch features detached
+        with torch.no_grad():
+            res, dbg, protos = self._stages_bc(out, a["cams"], pseudo_boxes, best_idx, patch_hw,
+                                               img_hw, gt_points, gt_labels, gt_valid.bool(),
+                                               generator, draws)
+        res.update(pseudo_gt_bboxes=pseudo_boxes, best_attn_idx=best_idx, loss_mil=a["loss_mil"])
+        if debug:
+            res.update(
+                assigned=a["assigned"],
+                outputs_coord=out["outputs_coord"],
+                outputs_class=out["outputs_class"],
+                rollout_rows=a["rollout_rows"],
+                candidate_boxes=a["candidate_boxes"],
+                cams=a["cams"],
+                token_of_gt=a["token_of_gt"],
+                **dbg,
+            )
+        return res, a["assigned"], protos
+
+    def _stage_a(self, out, roi_map, patch_hw, img_hw, gt_points, gt_labels, gt_valid, img_wh):
+        """Stage A and the MIL choice: the point-token match, rollout CAMs,
+        per-layer candidate boxes and the pseudo boxes of the best layer.
+        Only the MIL bag loss carries a graph (into the backbone)."""
         hp, wp = patch_hw
         h, w = img_hw
         b, g = gt_points.shape[:2]
@@ -231,25 +257,9 @@ class AttnShiftDetector(nn.Module):
         best_idx, mil_loss = self.mil_head(mil_feats, gt_labels.reshape(-1), gt_valid.reshape(-1))
         best_idx = best_idx.reshape(b, g)
         pseudo_boxes = torch.gather(cand, 2, best_idx.long()[..., None, None].expand(b, g, 1, 4))[:, :, 0]
-        # the candidates were made without a graph, so the pseudo boxes carry
-        # none; Stages B+C read the patch features detached
-        with torch.no_grad():
-            res, dbg, protos = self._stages_bc(out, cams_patch, pseudo_boxes, best_idx, patch_hw,
-                                               img_hw, gt_points, gt_labels, gt_valid, generator,
-                                               draws)
-        res.update(pseudo_gt_bboxes=pseudo_boxes, best_attn_idx=best_idx, loss_mil=mil_loss)
-        if debug:
-            res.update(
-                assigned=assigned,
-                outputs_coord=out["outputs_coord"],
-                outputs_class=out["outputs_class"],
-                rollout_rows=rollout,
-                candidate_boxes=cand,
-                cams=cams_patch,
-                token_of_gt=token_of_gt,
-                **dbg,
-            )
-        return res, assigned, protos
+        return dict(assigned=assigned, token_of_gt=token_of_gt, rollout_rows=rollout,
+                    candidate_boxes=cand, cams=cams_patch, best_idx=best_idx,
+                    pseudo_boxes=pseudo_boxes, loss_mil=mil_loss)
 
     def _stages_bc(self, out, cams_patch, pseudo_boxes, best_idx, patch_hw, img_hw, gt_points,
                    gt_labels, gt_valid, generator, draws):

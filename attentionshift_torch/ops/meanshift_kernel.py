@@ -52,19 +52,33 @@ def _mm(x: torch.Tensor, dtype) -> torch.Tensor:
     return x if dtype in (None, torch.float32) else x.to(dtype).to(acc)
 
 
+def _dot(a, b, dtype, tensor_cores: bool):
+    """a @ b of operands rounded to ``dtype``: exact products summed in the
+    accumulation type, or with ``tensor_cores`` the rounded operands
+    multiplied on the card's tensor cores into f32, as the kernel's wgmma
+    products are (batched (G, M, K) x (G, K, N))."""
+    if tensor_cores:
+        return torch.bmm(a.to(dtype), b.to(dtype), out_dtype=torch.float32)
+    return torch.matmul(_mm(a, dtype), _mm(b, dtype))
+
+
 def cosine_shift_batch(prototypes, feats, feats_org, tau=0.1, temp=0.1, n_shift=10,
-                       matmul_dtype=None):
+                       matmul_dtype=None, tensor_cores=False):
     """Plain version. prototypes (G, K, D), feats (G, N, D) box-masked,
     feats_org (N, D) -> prototypes (G, K, D) f32, sim (G, K, N) f32; f64
     inputs accumulate in f64 and give f64 (the same operand rounding to
-    ``matmul_dtype``), a reference free of f32 summation noise."""
+    ``matmul_dtype``), a reference free of f32 summation noise.
+    ``tensor_cores`` (CUDA tensors, bf16 operands): every product on the
+    tensor cores, the kernel's own rounding of its sums (a witness of
+    ``fixpoint_verdict``)."""
     g, k, d = prototypes.shape
     acc = _acc(prototypes)
+    tc = bool(tensor_cores) and matmul_dtype not in (None, torch.float32) and prototypes.is_cuda
     nb = feats.to(acc).norm(dim=-1).clamp_min(1e-8)  # (G, N)
-    fm = _mm(feats, matmul_dtype)
+    fm = feats if tc else _mm(feats, matmul_dtype)
 
     def cos_feats(prot):
-        num = torch.matmul(_mm(prot, matmul_dtype), fm.transpose(1, 2))
+        num = _dot(prot, fm.transpose(1, 2), matmul_dtype, tc)
         na = prot.norm(dim=-1).clamp_min(1e-8)
         return num / (na[..., None] * nb[:, None, :])
 
@@ -77,13 +91,13 @@ def cosine_shift_batch(prototypes, feats, feats_org, tau=0.1, temp=0.1, n_shift=
         logw = scaled - torch.logsumexp(scaled, dim=-1, keepdim=True)
         weight = torch.exp(logw)
         mask_w = (kk == torch.argmax(logw, dim=1, keepdim=True)).float()
-        prot = torch.matmul(_mm(weight * mask_w, matmul_dtype), fm)
+        prot = _dot(weight * mask_w, fm, matmul_dtype, tc)
         sim2 = cos_feats(prot)
         cnt = mask_w.sum(-1)
         dens = (sim2 * mask_w).sum(-1)
         dens = 1.0 - torch.where(cnt >= 1, dens / cnt.clamp_min(1.0), torch.zeros_like(dens))
         tau_arr = dens.clamp_min(1e-10)[..., None]
-    num = torch.matmul(_mm(prot, matmul_dtype), _mm(feats_org, matmul_dtype).T)
+    num = _dot(prot, feats_org.T.expand(g, d, -1), matmul_dtype, tc)
     na = prot.norm(dim=-1).clamp_min(1e-8)
     nbo = feats_org.to(acc).norm(dim=-1).clamp_min(1e-8)
     return prot, num / (na[..., None] * nbo)
@@ -169,23 +183,26 @@ def reordered_witnesses(prototypes, box_mask, f, tau=0.1, temp=0.1, n_shift=10,
     """The plain version of the fixpoint with its sums in other orders: once
     accumulating in f64 (``f64``), and ``orders`` times in f32 over the
     features (N) and the feature dims (D) in a random order drawn from
-    ``seed``, each result put back in the given order. Same operand
+    ``seed``, each result put back in the given order; with bf16 operands
+    on the card every second one multiplies on the tensor cores, as the
+    kernel does (``cosine_shift_batch(tensor_cores=True)``). Same operand
     rounding to ``matmul_dtype``, so each is as right as the plain version;
     their spread is how far the fixpoint on these inputs moves under
     rounding alone. Returns a list of (prototypes, sim)."""
     n, d = f.shape
     mask = box_mask.float()
 
-    def plain(p, m, ff):
+    def plain(p, m, ff, tc=False):
         return cosine_shift_batch(p, ff[None] * m[..., None], ff, tau=tau, temp=temp,
-                                  n_shift=n_shift, matmul_dtype=matmul_dtype)
+                                  n_shift=n_shift, matmul_dtype=matmul_dtype, tensor_cores=tc)
 
     out = [plain(prototypes.double(), mask.double(), f.double())] if f64 else []
     gen = torch.Generator().manual_seed(seed)
-    for _ in range(orders):
+    for j in range(orders):
         pn = torch.randperm(n, generator=gen).to(f.device)
         pd = torch.randperm(d, generator=gen).to(f.device)
-        prot, sim = plain(prototypes.float()[..., pd], mask[:, pn], f.float()[pn][:, pd])
+        prot, sim = plain(prototypes.float()[..., pd], mask[:, pn], f.float()[pn][:, pd],
+                          tc=j % 2 == 1)
         out.append((prot[..., torch.argsort(pd)], sim[..., torch.argsort(pn)]))
     return out
 

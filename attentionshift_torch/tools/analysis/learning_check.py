@@ -5,7 +5,8 @@ known masks of a synthetic corpus. The port's twin of
     python -m attentionshift_torch.tools.analysis.learning_check [--steps 600] \\
         [--eval-images 8] [--train-images 8] [--corpus discs|lobes|lobes-tex] \\
         [--milestones 0 250 ...] [--det-eval] [--curve-out F.jsonl] [--f32] \\
-        [--save-ckpt F [--save-dtype bfloat16]] [--dagger N] [--device cpu] [--no-pallas]
+        [--save-ckpt F [--save-dtype bfloat16]] [--dagger N] [--init-seed S] [--device cpu] \\
+        [--no-pallas]
 
 On the blob corpus the true instance masks are known, so the quality of
 the pseudo-label engine is measured directly: the flagship model
@@ -26,8 +27,8 @@ from 1 and its step ``it`` from 1000 + it. Torch cannot replay JAX's
 streams, and the two packages' initialisations differ, so the two tools'
 trajectories differ by design: compare curves, not rows.
 
-The model starts from ``init_weights(0)``, which draws by the JAX
-modules' rules (flax's ``lecun_normal`` kernels), as the JAX tool's
+The model starts from ``init_weights(0)`` (``--init-seed`` picks another
+seed), which draws by the JAX modules' rules (flax's ``lecun_normal`` kernels), as the JAX tool's
 ``model.init`` does. The optimizer is ``train.build_optimizer`` with every
 lr scale 1.0 (``layer_decay=1.0``), the scales the JAX tool gets by
 handing ``build_optimizer`` its whole variables dict; unlike the JAX
@@ -188,7 +189,8 @@ def det_mask_iou_of(dets, held) -> float:
 
 
 def build_model(args, device):
-    """The flagship detector of the JAX tool, seeded init (seed 0)."""
+    """The flagship detector of the JAX tool, seeded init (``--init-seed``,
+    0 by default)."""
     import torch
 
     from ...models import AttnShiftDetector
@@ -199,7 +201,7 @@ def build_model(args, device):
         point_tokens=100, cam_layer=7, max_gt=G, use_remat=True,
         num_proposals=512, rpn_nms_pre=1000, rcnn_samples=256, mask_sample_cap=64,
         dtype=dtype, device=device,
-    ).init_weights(0)
+    ).init_weights(getattr(args, "init_seed", 0))
 
 
 def build_rcnn(device):
@@ -282,6 +284,8 @@ def parse_args(argv=None):
     ap.add_argument("--dagger", type=int, default=0, metavar="N",
                     help="after flagship training, retrain a Mask R-CNN on its pseudo labels for "
                          "N steps, then score both models' detections held-out")
+    ap.add_argument("--init-seed", type=int, default=0,
+                    help="seed of the flagship's init (init_weights); the JAX tool's key is 0")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     return ap.parse_args(argv)
 

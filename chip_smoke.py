@@ -181,7 +181,20 @@ Phases, each printing its own lines:
    path as the witness of bf16 rounding, with controls (the capture mean,
    the row-parallel sums and the SP LayerNorm gradient not reduced); per
    path and rank: host ms, launches of #1, #2, #5, #6 (asserted) and the
-   gloo staging time;
+   gloo staging time; then the diagnosis and profiling twins
+   (``phase_diagnosis``) at their JAX defaults, full width: the four
+   profiling tools (``--steps 3``; exact launches of #1-#4 per call; each
+   kernel on the tool's own inputs against its plain version, the
+   backbone's q, k, v at T = 4301 through both attention pairs forward and
+   backward; the stage times), ``calibrate_overhead``, ``trace_ops`` on a
+   profiled ``seed_pseudo_gt`` call (rows for ``flash_fwd``, ``attn_mean``,
+   CCL and mean-shift), ``warm_cache`` (every kernel library cached),
+   ``diagnose_det`` (20 steps, 2 + 2 images), ``probe_rpn`` with
+   ``--save-ckpt`` then ``--ckpt`` (equal reports) and ``fidelity_study``
+   (10 steps, 2 images, ``--out`` in a temporary directory; CCL on the
+   exact config's (56, 512, 512) planes against its plain version, the
+   planes each configuration's sweep cap cut), each with its launches
+   asserted (the kernel table's ``launches_diagnosis``);
 16. times with CUDA events: every kernel, its plain version, the library
    call where one exists, ms/img of the pseudo-label path and of
    inference and ms per train step, each with one profiled call. The
@@ -217,6 +230,11 @@ A failing phase raises and the script exits non-zero. The line before
 the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 rest of the repository beside it, the script fails and prints no result.
+
+    python3 chip_smoke.py --only diagnosis
+
+runs phases 1-2 and ``phase_diagnosis`` alone (no kernel line, no result
+line): a quick run of that phase.
 
     python3 chip_smoke.py --ablate [SOURCE ...]
 
@@ -2375,31 +2393,36 @@ def check_meanshift_on(tag: str, margs, mkw: dict) -> None:
 
 def check_kernels_on(tag: str, handed: dict) -> dict:
     """CCL, mean-shift and the capture pair against their plain versions on
-    the inputs a path handed them, with phase 3's tolerances; returns the
-    shapes they had."""
+    the inputs a path handed them (each of the three that it handed), with
+    phase 3's tolerances; returns the shapes they had."""
     import torch
 
     from attentionshift_torch.ops import attention, ccl
 
-    (masks, *rest), kw = handed["connected_components_batch"]
-    iters = kw.get("max_iters", rest[0] if rest else 256)
-    expect(f"{tag}.ccl_batch", max_err(ccl.connected_components_batch(masks, iters),
-                                       ccl.connected_components(masks, iters)), 0.0,
-           "integer labels: exact")
-    margs, mkw = handed["cosine_shift_fixpoint"]
-    prot0, mask, f = margs[:3]
-    check_meanshift_on(tag, margs, mkw)
-    (q, k, v, *pad), akw = handed["attention_with_capture"]
-    pad = akw.get("pad_interval", pad[0] if pad else None)
-    ref_out, ref_mean = attention.attention_reference(q, k, v, pad)
-    out, mean = attention.attention_with_capture(q, k, v, pad)
-    expect(f"{tag}.attention_capture.out", max_err(out, ref_out), bf16_ulps(ref_out, 4),
-           "4 bf16 ulps of the largest |out|: bf16 output and bf16 probabilities in PV")
-    expect_capture_mean(f"{tag}.attention_capture.mean", mean, ref_mean)
+    shapes = {}
+    if "connected_components_batch" in handed:
+        (masks, *rest), kw = handed["connected_components_batch"]
+        iters = kw.get("max_iters", rest[0] if rest else 256)
+        expect(f"{tag}.ccl_batch", max_err(ccl.connected_components_batch(masks, iters),
+                                           ccl.connected_components(masks, iters)), 0.0,
+               "integer labels: exact")
+        shapes["ccl_planes"] = tuple(masks.shape)
+    if "cosine_shift_fixpoint" in handed:
+        margs, mkw = handed["cosine_shift_fixpoint"]
+        prot0, mask, f = margs[:3]
+        check_meanshift_on(tag, margs, mkw)
+        shapes["meanshift"] = dict(G=prot0.shape[0], K=prot0.shape[1], N=f.shape[0],
+                                   D=f.shape[1], bf16=mkw.get("matmul_dtype") == torch.bfloat16)
+    if "attention_with_capture" in handed:
+        (q, k, v, *pad), akw = handed["attention_with_capture"]
+        pad = akw.get("pad_interval", pad[0] if pad else None)
+        ref_out, ref_mean = attention.attention_reference(q, k, v, pad)
+        out, mean = attention.attention_with_capture(q, k, v, pad)
+        expect(f"{tag}.attention_capture.out", max_err(out, ref_out), bf16_ulps(ref_out, 4),
+               "4 bf16 ulps of the largest |out|: bf16 output and bf16 probabilities in PV")
+        expect_capture_mean(f"{tag}.attention_capture.mean", mean, ref_mean)
+        shapes.update(attention=tuple(q.shape), pad=pad)
     sync()
-    shapes = dict(ccl_planes=tuple(masks.shape), meanshift=dict(
-        G=prot0.shape[0], K=prot0.shape[1], N=f.shape[0], D=f.shape[1],
-        bf16=mkw.get("matmul_dtype") == torch.bfloat16), attention=tuple(q.shape), pad=pad)
     log(f"[{tag}] kernels on this path's own inputs: {shapes}")
     return shapes
 
@@ -4936,6 +4959,279 @@ def phase_parallel(smi: str) -> dict:
     return total
 
 
+# the diagnosis and profiling twins (phase_diagnosis): run lengths cut as
+# listed, every size their defaults; DIAG_*_ARGV add arguments (a rehearsal
+# on the CPU passes small sizes there)
+DIAG_STEPS = 3  # timed calls per profiled stage (after one warm-up call)
+DIAG_TRAIN_STEPS = 20  # diagnose_det and probe_rpn
+DIAG_FID_STEPS = 10  # fidelity_study's inline training
+DIAG_EVAL = 2  # held-out images of diagnose_det and fidelity_study
+DIAG_SEED_ARGV: list = []
+DIAG_BACKBONE_ARGV: list = []
+DIAG_STAGE_A_ARGV: list = []
+DIAG_STAGE_BC_ARGV: list = []
+DIAG_CALIBRATE_ARGV: list = []
+DIAG_FID_ARGV: list = []
+DIAG_EXACT_PLANE = (512, 512)  # the exact config's CCL planes: stride 1 at 512x512
+DIAG_TRACE_KERNELS = ("flash_fwd", "attn_mean", "ccl_kernel", "meanshift_kernel")
+
+
+def recording_all(module, name: str, store: list):
+    """Patch ``module.name`` with a pass-through that appends a copy of
+    every call's arguments to ``store``."""
+    from unittest import mock
+
+    import torch
+
+    fn = getattr(module, name)
+
+    def record(*args, **kwargs):
+        store.append(([a.detach().clone() if torch.is_tensor(a) else a for a in args],
+                      dict(kwargs)))
+        return fn(*args, **kwargs)
+
+    return mock.patch.object(module, name, record)
+
+
+def launches_of(counts: dict) -> dict:
+    """Every kernel's count of a path from per-unit counts and their
+    multiples: ``{(counts dict): times, ...}`` summed."""
+    total = expected_launches()
+    for per, times in counts:
+        for k, v in per.items():
+            total[k] += v * times
+    return total
+
+
+def run_counted(tag: str, fn, want: dict, total: dict):
+    """``fn()`` with the launch counts at 0 just before; its launches must
+    be ``want`` and are added to ``total``. Returns (its result, wall s)."""
+    from attentionshift_torch.ops._build import reset_launches
+
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    wall = time.perf_counter() - t0
+    got = launch_counts()
+    if got != want:
+        raise AssertionError(f"{tag}: launches {nonzero(got)} != {nonzero(want)}")
+    for k, v in got.items():
+        total[k] += v
+    log(f"[diagnosis] {tag}: {wall:.1f} s wall, launches {nonzero(got)}: ok")
+    return out, wall
+
+
+def ccl_cut_planes(calls: list) -> dict:
+    """Per (plane shape, sweep cap) of the recorded CCL calls: the planes
+    whose labels the kernel changes at one sweep more (cut by the cap),
+    and all planes."""
+    from attentionshift_torch.ops import ccl
+    from attentionshift_torch.tools.analysis.fidelity_study import cut_planes
+
+    cut = {}
+    for (masks, *rest), kw in calls:
+        cap = int(kw.get("max_iters", rest[0] if rest else 256))
+        key = (tuple(masks.shape[1:]), cap)
+        c, n = cut.get(key, (0, 0))
+        cut[key] = (c + cut_planes(ccl.connected_components_batch(masks, cap),
+                                   ccl.connected_components_batch(masks, cap + 1)),
+                    n + masks.shape[0])
+    sync()
+    return cut
+
+
+def phase_diagnosis(results: dict, smi: str) -> dict:
+    """The diagnosis and profiling twins on the card at their JAX defaults
+    (full width), run lengths cut: ``profile_seed``, ``profile_backbone``,
+    ``profile_stage_a``, ``profile_stage_bc`` with ``--steps 3``, each with
+    its exact launches of #1-#4 per call asserted and its kernels held
+    against their plain versions on the tool's own inputs (the backbone's
+    q, k, v through both attention pairs, forward and backward, at its odd
+    T = 4301); ``calibrate_overhead``; ``trace_ops`` on a ``torch.profiler``
+    trace of one ``seed_pseudo_gt`` call, whose kernel rows must name
+    ``flash_fwd``, ``attn_mean``, the CCL and the mean-shift kernels;
+    ``warm_cache`` (every library cached by now); ``diagnose_det`` (20
+    steps, 2 + 2 images), its both attention pairs on its own q, k, v;
+    ``probe_rpn`` with ``--save-ckpt``, then ``--ckpt`` on that file (the
+    two reports equal); ``fidelity_study`` (10 inline steps, 2 images,
+    ``--out`` in a temporary directory): its launches, CCL on a
+    full-resolution (56, 512, 512) plane batch of the exact config against
+    the plain version, and the planes each CCL configuration's sweep cap
+    cut (kernel at the cap against one sweep more). Stage times beside the
+    card's name and power limit. Returns the phase's launches."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from attentionshift_torch.models import layers
+    from attentionshift_torch.pseudo import engine, meanshift
+    from attentionshift_torch.tools import warm_cache
+    from attentionshift_torch.tools.analysis import (
+        calibrate_overhead, diagnose_det, fidelity_study, probe_rpn, profile_backbone,
+        profile_seed, profile_stage_a, profile_stage_bc, trace_ops)
+
+    total = expected_launches()
+    calls = 1 + DIAG_STEPS
+    seed, train = SEED_LAUNCHES, TRAIN_LAUNCHES
+    bb = {"attention_capture": CAM_LAYERS, "attention_plain": 12 - CAM_LAYERS}
+    steps = ["--steps", str(DIAG_STEPS)]
+
+    # ---- the four profiling twins
+    handed: dict = {}
+    with kernel_inputs_of(handed):
+        prof, _ = run_counted("profile_seed", lambda: profile_seed.main(steps + DIAG_SEED_ARGV),
+                              launches_of([(bb, 2 * calls), (dict(ccl_batch=1), calls),
+                                           (seed, calls)]), total)
+    check_kernels_on("profile_seed-input", handed)
+    log(f"[diagnosis] profile_seed (ms per call, host clock, {DIAG_STEPS} calls after one): "
+        f"{ {k: round(v, 3) for k, v in prof['times'].items()} }; {smi}")
+    res, _ = run_counted("profile_backbone",
+                         lambda: profile_backbone.main(steps + DIAG_BACKBONE_ARGV),
+                         launches_of([({"attention_capture": 7}, calls),
+                                      ({"attention_plain": 5}, calls)]), total)
+    q, k, v = (res["inputs"][n] for n in "qkv")
+    g = torch.randn(q.shape, generator=torch.Generator(device=q.device).manual_seed(5),
+                    device=q.device).bfloat16()
+    errs = check_attention_pair("profile_backbone-input.pair", q, k, v, g, None, quiet=True)
+    for name, key in (("attention_capture", "capture"), ("attention_plain", "plain"),
+                      ("attention_bwd_dq", "dq"), ("attention_bwd_dkv", "dkv")):
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], errs[key])
+    log(f"[diagnosis] profile_backbone at {tuple(q.shape)}: "
+        f"{ {k: round(v, 3) for k, v in res['times'].items()} } ms; {smi}")
+    del res, q, k, v, g
+    handed = {}
+    with recording(engine, "connected_components_batch", handed):
+        res, _ = run_counted("profile_stage_a",
+                             lambda: profile_stage_a.main(steps + DIAG_STAGE_A_ARGV),
+                             launches_of([(dict(ccl_batch=1), calls)]), total)
+    check_kernels_on("profile_stage_a-input", handed)
+    log(f"[diagnosis] profile_stage_a: { {k: round(v, 3) for k, v in res['times'].items()} } ms; "
+        f"{smi}")
+    del res
+    handed = {}
+    with recording(meanshift, "cosine_shift_fixpoint", handed):
+        res, _ = run_counted("profile_stage_bc",
+                             lambda: profile_stage_bc.main(steps + DIAG_STAGE_BC_ARGV),
+                             launches_of([(dict(meanshift_fixpoint=1), calls)]), total)
+    check_kernels_on("profile_stage_bc-input", handed)
+    log(f"[diagnosis] profile_stage_bc: { {k: round(v, 3) for k, v in res['times'].items()} } "
+        f"ms; {smi}")
+    res, _ = run_counted("calibrate_overhead",
+                         lambda: calibrate_overhead.main(DIAG_CALIBRATE_ARGV), expected_launches(),
+                         total)
+    log(f"[diagnosis] calibrate_overhead: { {k: round(v, 4) for k, v in res['times'].items()} } "
+        f"ms; {smi}")
+
+    # ---- trace_ops on a profiled seed_pseudo_gt call
+    from torch.profiler import ProfilerActivity, profile
+
+    args = profile_seed.parse_args(DIAG_SEED_ARGV)
+    dev = torch.device("cuda") if torch.cuda.is_available() else torch.device("cpu")
+    model = profile_seed.build_model(args, dev)
+    inp = profile_seed.make_inputs(args.height, args.width, args.max_gt, dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        def traced():
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+                model.seed_pseudo_gt(*inp, generator=torch.Generator(device=dev).manual_seed(5))
+                sync()
+            os.makedirs(os.path.join(tmp, "run"))
+            p.export_chrome_trace(os.path.join(tmp, "run", "seed.json"))
+
+        run_counted("traced seed_pseudo_gt", traced, launches_of([(seed, 1)]), total)
+        rep = trace_ops.main([tmp, "--top", "15", "--device", dev.type])
+        names = list(rep["per_op"])
+        missing = [kname for kname in DIAG_TRACE_KERNELS if not any(kname in n for n in names)]
+        if dev.type == "cuda" and (rep["lane"] != "kernel" or missing):
+            raise AssertionError(f"trace_ops: no row of {missing} among {names}")
+        log(f"[diagnosis] trace_ops: {rep['n_events']} {rep['lane']} events, {len(names)} rows, the "
+            f"hand-written kernels' rows: "
+            f"{ {n: round(t / 1e3, 4) for n, t in rep['per_op'].items() if any(kn in n for kn in DIAG_TRACE_KERNELS)} } "
+            f"ms: ok")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del model, inp
+
+    rows, _ = run_counted("warm_cache", lambda: warm_cache.main([]), expected_launches(), total)
+    kernels = [r for r in rows if not os.path.basename(r[0]).startswith("maskapi")]
+    if dev.type == "cuda" and not (kernels and all(cached for _, cached, _ in kernels)):
+        raise AssertionError(f"warm_cache: a kernel library built again after phase 2: {rows}")
+
+    # ---- diagnose_det, probe_rpn
+    handed = {}
+    n_train, n_eval = DIAG_TRAIN_STEPS, DIAG_EVAL
+    with kernel_inputs_of(handed):
+        rows, _ = run_counted(
+            "diagnose_det",
+            lambda: diagnose_det.main(["--steps", str(n_train), "--train-images", "2",
+                                       "--eval-images", str(n_eval)]),
+            launches_of([(train, n_train), ({"attention_plain": 36}, n_eval)]), total)
+    if len(rows) != n_eval or any(not 0 <= r["n_det"] <= 100 for r in rows):
+        raise AssertionError(f"diagnose_det rows {rows}")
+    log(f"[diagnosis] diagnose_det rows: {rows}")
+    q, k, v = (x.contiguous() for x in handed["attention_with_capture"][0][:3])
+    g = torch.randn(q.shape, generator=torch.Generator(device=q.device).manual_seed(6),
+                    device=q.device).bfloat16()
+    check_attention_pair("diagnose_det-input.pair", q, k, v, g, None, quiet=True)
+    log(f"[diagnosis] both attention pairs on diagnose_det's own q, k, v {tuple(q.shape)}: ok")
+    del handed, q, k, v, g
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_probe_")
+    try:
+        ckpt = os.path.join(tmp, "probe.pt")
+        probe = {"attention_capture": 14, "attention_plain": 22, "ccl_batch": 1,
+                 "meanshift_fixpoint": 1}
+        first, _ = run_counted(
+            "probe_rpn --save-ckpt",
+            lambda: probe_rpn.main(["--steps", str(n_train), "--save-ckpt", ckpt]),
+            launches_of([(train, n_train), (probe, 2)]), total)
+        again, _ = run_counted("probe_rpn --ckpt", lambda: probe_rpn.main(["--ckpt", ckpt]),
+                               launches_of([(probe, 2)]), total)
+        if first != again:
+            raise AssertionError(f"probe_rpn: the restored report differs:\n{first}\n{again}")
+        log(f"[diagnosis] probe_rpn: the report after --ckpt equals the trained run's: ok; "
+            f"{[{k: r[k] for k in ('tag', 'n_valid_props', 'pseudo_vs_true_iou', 'rpn_train_n_pos')} for r in first]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- fidelity_study
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fidelity_")
+    handed, ccl_calls = {}, []
+    try:
+        out = os.path.join(tmp, "fidelity.md")
+        per_image = launches_of([(seed, 4), (dict(ccl_batch=3, meanshift_fixpoint=2), 1)])
+        with kernel_inputs_of(handed), recording_all(engine, "connected_components_batch",
+                                                      ccl_calls):
+            rep, _ = run_counted(
+                "fidelity_study",
+                lambda: fidelity_study.main(["--train-steps", str(DIAG_FID_STEPS),
+                                             "--eval-images", str(DIAG_EVAL), "--out", out,
+                                             *DIAG_FID_ARGV]),
+                launches_of([(train, DIAG_FID_STEPS), (per_image, DIAG_EVAL),
+                             (dict(meanshift_fixpoint=1), 32)]), total)
+        if os.listdir(tmp) != ["fidelity.md"]:
+            raise AssertionError(f"fidelity_study wrote {os.listdir(tmp)}")
+        log(f"[diagnosis] fidelity_study: end_to_end {rep['end_to_end']}, isolated_stride "
+            f"{ {k: rep['isolated_stride'][k] for k in ('pseudo_mask_iou', 'stage_a_box_iou_all_layers', 'stage_a_box_iou_stride16')} }")
+        exact = [c for c in ccl_calls if tuple(c[0][0].shape[1:]) == DIAG_EXACT_PLANE]
+        if not exact:
+            raise AssertionError("fidelity_study: no CCL call of the exact config")
+        # mean-shift's last call here is a constructed scene without parts
+        # (no control could fail there): it is held on the profiling inputs
+        handed.pop("cosine_shift_fixpoint", None)
+        shapes = check_kernels_on("fidelity-input", dict(handed, connected_components_batch=exact[-1]))
+        cut = ccl_cut_planes(ccl_calls)
+        log(f"[diagnosis] fidelity_study CCL planes cut by the sweep cap (kernel at the cap "
+            f"against one sweep more), per (plane, cap): "
+            f"{ {f'{s[0]}x{s[1]} cap {c}': v for (s, c), v in sorted(cut.items())} }; the "
+            f"exact config's planes {shapes['ccl_planes']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[diagnosis] launches of the phase: {nonzero(total)}")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ablate", nargs="*", metavar="SOURCE",
@@ -4943,6 +5239,8 @@ def main(argv=None) -> int:
                          "of ABLATIONS (default: all sources)")
     ap.add_argument("--parallel-rank", nargs=2, metavar=("RANK", "DIR"),
                     help=argparse.SUPPRESS)  # one rank of phase_parallel
+    ap.add_argument("--only", choices=["diagnosis"],
+                    help="only the card, the build and this phase (no kernel line, no result)")
     args = ap.parse_args(argv)
     sys.path.insert(0, HERE)
     if not os.path.isdir(os.path.join(HERE, "attentionshift_torch")):
@@ -4963,6 +5261,10 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     phase_build()
+    if args.only == "diagnosis":
+        phase_diagnosis({name: {"max_abs_err": 0.0} for name in KERNELS}, smi)
+        log(smi)
+        return 0
     results: dict = {}
     inp = kernel_inputs(dev, torch.Generator(device=dev).manual_seed(0))
     phase_kernels(results, inp)
@@ -4998,6 +5300,7 @@ def main(argv=None) -> int:
     export = phase_export(smi)
     tools = phase_user_tools(ev, smi)
     parallel = phase_parallel(smi)
+    diagnosis = phase_diagnosis(results, smi)
     phase_times(results, inp, model, slice_inp, gen)
     phase_swin_times(results, sw, smi)
     phase_main_path_inputs(results, handed)
@@ -5015,7 +5318,7 @@ def main(argv=None) -> int:
                     point2bbox=p2b["launches"], mae_encoder=mae["launches"], mim=mim["launches"],
                     debug_overfit=learning["debug_overfit"],
                     learning_check=learning["learning_check"], export=export, user_tools=tools,
-                    parallel=parallel)
+                    parallel=parallel, diagnosis=diagnosis)
     table = []
     for name, kern in KERNELS.items():
         r = results[name]

@@ -1486,3 +1486,159 @@ def test_pipeline_parallel_forward_on_card(cuda, tmp_path):
     r = torch.load(out, weights_only=True)
     _within_rounding(r)
     assert r["staging"]["calls"] > 0
+
+
+@pytest.mark.gpu
+def test_profiling_twins_on_card(cuda, capsys):
+    """The profiling twins on the card at reduced sizes, one timed call
+    after the warm-up: ``profile_seed`` at 256 x 384 launches per call
+    exactly what its stage runs (7 capture + 5 plain for the backbone,
+    one CCL more for Stage A, one mean-shift more for the whole path);
+    ``profile_backbone`` at (1, 6, 301, 64): its summed capture maps' rows
+    each sum to 7 (seven softmax means; each entry is rounded to bf16 once
+    in the mean and once per addition, at most 14 roundings of 2^-8 of
+    entries summing to 7: within 7 x 14 x 2^-8 = 0.39), its outputs
+    finite; every line printed."""
+    from attentionshift_torch.ops._build import KERNELS, reset_launches
+    from attentionshift_torch.tools.analysis import profile_backbone, profile_seed
+
+    reset_launches()
+    res = profile_seed.main(["--height", "256", "--width", "384", "--steps", "1"])
+    got = {k: v.launches for k, v in KERNELS.items() if v.launches}
+    assert got == {"attention_capture": 3 * 7 * 2, "attention_plain": 3 * 5 * 2,
+                   "ccl_batch": 2 * 2, "meanshift_fixpoint": 2}
+    assert list(res["times"]) == list(profile_seed.LABELS)
+    reset_launches()
+    res = profile_backbone.main(["--tokens", "301", "--steps", "1"])
+    assert {k: v.launches for k, v in KERNELS.items() if v.launches} == {
+        "attention_capture": 14, "attention_plain": 10}
+    out, acc = res["outputs"][profile_backbone.LAYERS[0][0]]
+    assert torch.isfinite(out.float()).all()
+    assert (acc.float().sum(-1) - 7.0).abs().max() <= 7 * 14 * 2.0**-8
+    assert len([x for x in capsys.readouterr().out.splitlines() if x.endswith("ms/layer)")]) == 3
+
+
+@pytest.mark.gpu
+def test_diagnosis_twins_on_card(cuda, tmp_path, capsys):
+    """``diagnose_det`` (2 steps, 1 held-out image) and ``probe_rpn`` (2 steps
+    with ``--save-ckpt``, then ``--ckpt``) on the card: the rows carry the
+    JAX tools' keys with values in range, and the restored probe's two
+    reports equal the trained run's."""
+    from attentionshift_torch.tools.analysis import diagnose_det, probe_rpn
+
+    rows = diagnose_det.main(["--steps", "2", "--train-images", "2", "--eval-images", "1"])
+    assert len(rows) == 1 and 0 <= rows[0]["n_det"] <= 100
+    assert all(0.0 <= x <= 1.0 for x in rows[0]["rpn_recall"] + rows[0]["truebox_p_bg"])
+    ckpt = tmp_path / "probe.pt"
+    first = probe_rpn.main(["--steps", "2", "--save-ckpt", str(ckpt)])
+    again = probe_rpn.main(["--ckpt", str(ckpt)])
+    assert first == again and [r["tag"] for r in first] == ["train0", "held0"]
+    assert all(r["cand_nan_scores"] == 0 == r["cand_nan_boxes"] for r in first)
+    ckpt.unlink()
+
+
+@pytest.mark.gpu
+def test_fidelity_study_on_card(cuda, tmp_path):
+    """``fidelity_study`` on the card (1 inline step, 1 image, ``--count-cut``):
+    the report's sections, bf16 on the card, the CCL planes cut per
+    configuration counted (the exact config's (56, 512, 512) planes at 256
+    sweeps among them), the markdown only at ``--out`` and
+    ``FIDELITY.md`` left as it was."""
+    import hashlib
+    import os
+
+    from attentionshift_torch.tools.analysis import fidelity_study
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    md = os.path.join(repo, "FIDELITY.md")
+    before = hashlib.sha256(open(md, "rb").read()).hexdigest()
+    out = tmp_path / "fidelity.md"
+    rep = fidelity_study.main(["--train-steps", "1", "--eval-images", "1", "--count-cut",
+                               "--out", str(out)])
+    assert rep["dtype"] == "bfloat16" and rep["end_to_end"]["n"] == 2
+    assert "512x512 cap 256" in rep["ccl_planes_cut"]
+    assert all(0 <= c <= n for c, n in rep["ccl_planes_cut"].values())
+    assert out.read_text().startswith("# FIDELITY") and os.listdir(tmp_path) == ["fidelity.md"]
+    assert hashlib.sha256(open(md, "rb").read()).hexdigest() == before
+
+
+@pytest.mark.gpu
+def test_meanshift_on_profile_seed_inputs(cuda, capsys):
+    """The mean-shift kernel on the inputs ``profile_seed``'s whole
+    ``seed_pseudo_gt`` hands it (ViT-S, ``init_weights(0)``, the JAX tool's
+    800 x 1344 image, bf16), printed: per instance and per iteration count
+    1-10, the kernel's deviation from the plain version
+    (``instance_deviation``, prototypes and similarities apart), with bf16
+    operands and in f32; the nearest of 512 reordered plain versions; the
+    kernel built with other reduction splits (``MS_ROW_PARTS`` 2 and 8,
+    ``MS_ROUND_BOXES`` 2); the plain version on the tensor cores. Asserted:
+    every instance passes the fixpoint verdict with ``chip_smoke``'s budget
+    (floor 2e-3 bf16, 1e-4 f32, up to 64 witnesses, ``MS_WITNESS_MAX``),
+    and the plain version with the temperature 10 % off (a faulty kernel)
+    fails some instance."""
+    from attentionshift_torch.ops import _build
+    from attentionshift_torch.pseudo import meanshift
+    from attentionshift_torch.tools.analysis import profile_seed
+
+    variants = (("MS_ROW_PARTS=2",), ("MS_ROW_PARTS=8",), ("MS_ROUND_BOXES=2",))
+    _build.build_all([("meanshift", d) for d in variants])
+    args = profile_seed.parse_args([])
+    model = profile_seed.build_model(args, cuda)
+    inp = profile_seed.make_inputs(args.height, args.width, args.max_gt, cuda)
+    seen = {}
+    inner = meanshift.cosine_shift_fixpoint
+
+    def record(*a, **kw):
+        seen["args"] = ([x.detach().clone() if torch.is_tensor(x) else x for x in a], dict(kw))
+        return inner(*a, **kw)
+
+    meanshift.cosine_shift_fixpoint = record
+    try:
+        model.seed_pseudo_gt(*inp, generator=torch.Generator(device=cuda).manual_seed(5))
+    finally:
+        meanshift.cosine_shift_fixpoint = inner
+    (prot0, mask, f, *_), kw = seen["args"]
+    kw = {k: v for k, v in kw.items() if k not in ("lib", "n_shift")}
+
+    def rounded(x):
+        return [round(float(v), 6) for v in x[:8]]
+
+    bad = []
+    for mm, floor in ((torch.bfloat16, 2e-3), (None, 1e-4)):
+        kw["matmul_dtype"] = mm
+        for n in range(1, 11):
+            got = meanshift_kernel.cosine_shift_fixpoint(prot0, mask, f, n_shift=n, **kw)
+            want = meanshift_kernel.cosine_shift_batch(prot0, f[None] * mask[..., None], f,
+                                                       n_shift=n, **kw)
+            dp = meanshift_kernel.instance_deviation((got[0], want[1]), want)
+            ds = meanshift_kernel.instance_deviation((want[0], got[1]), want)
+            print(f"meanshift {mm} n_shift {n}: prototypes {rounded(dp)} sim {rounded(ds)}")
+        near = None
+        for seed in range(8):
+            for w in meanshift_kernel.reordered_witnesses(prot0, mask, f, n_shift=10, orders=64,
+                                                          seed=100 + seed, f64=False, **kw):
+                d = meanshift_kernel.instance_deviation(got, w)
+                near = d if near is None else torch.minimum(near, d)
+        print(f"meanshift {mm} kernel's nearest of 512 reordered plain versions: {rounded(near)}")
+        tc = meanshift_kernel.cosine_shift_batch(prot0, f[None] * mask[..., None], f, n_shift=10,
+                                                 tensor_cores=True, **kw)
+        print(f"meanshift {mm} kernel from the plain version on the tensor cores: "
+              f"{rounded(meanshift_kernel.instance_deviation(got, tc))}")
+        for defines in variants:
+            var = meanshift_kernel.cosine_shift_fixpoint(
+                prot0, mask, f, n_shift=10, lib=_build.library("meanshift", defines), **kw)
+            print(f"meanshift {mm} kernel built with {defines}: from the plain version "
+                  f"{rounded(meanshift_kernel.instance_deviation(var, want))}, from the kernel as "
+                  f"built {rounded(meanshift_kernel.instance_deviation(var, got))}")
+        off = meanshift_kernel.cosine_shift_batch(prot0, f[None] * mask[..., None], f, n_shift=10,
+                                                  **dict(kw, temp=0.11))
+        v, ctl = meanshift_kernel.fixpoint_verdict([got, off], prot0, mask, f, floor, n_shift=10,
+                                                   orders=8, max_orders=64, **kw)
+        print(f"meanshift {mm} verdict: dev {rounded(v['dev'])}, spread {rounded(v['spread'])}, "
+              f"near {rounded(v['near'])}, {v['witnesses']} witnesses; the control fails "
+              f"{int((~ctl['ok']).sum())} instances")
+        if not bool(v["ok"].all()) or bool(ctl["ok"].all()):
+            bad.append(str(mm))
+    with capsys.disabled():
+        print(capsys.readouterr().out)
+    assert not bad, bad
