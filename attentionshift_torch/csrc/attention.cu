@@ -1,5 +1,5 @@
 // Attention forward kernels for the ViT and Swin backbones (bf16, head dim
-// 64 or 32, any number of heads).
+// 64, 32 or 128, any number of heads).
 //
 // Replaces two Pallas TPU kernels of attentionshift_tpu/ops/attention.py:
 //   _kernel        (:251, via attention_with_capture): per-head softmax
@@ -24,6 +24,14 @@
 // hopper.cuh): at 32, tiles are 64 rows of 64 bytes under the 64-byte
 // swizzle, S = Q K^T takes two k16 steps and O += P V is m64n32k16; the
 // 64 instance is the code below as it was.
+//
+// Head dim 128 (ops/attention.py also pads head dims 72-120 onto it) doubles
+// the products per exp2 again, so the tensor cores bound it as at 64. Its
+// tile is two 64-column TMA boxes in one 16 KB slot (HeadTile<128>): S = Q
+// K^T takes eight k16 steps, O += P V is m64n128k16 into 64 accumulators a
+// thread. The flash pass's ring (10 tiles, 160 KB) and its registers (S,
+// O, P: ~120 a thread) allow one block per SM; the mean pass keeps up to 8
+// heads' query tiles resident (16 KB each).
 //
 // What the design does about it (helpers in hopper.cuh). The TPU kernel
 // kept all six heads' K/V and a (128, T) f32 row tile in 100 MB of VMEM;
@@ -135,9 +143,12 @@ size_t mean_smem(int H, bool resident) {
          (1 + MEAN_STAGES) * sizeof(uint64_t) + 1024;
 }
 
+// bytes of a 64-row bf16 tile at head dim hd
+constexpr long tile_bytes(int hd) { return (long)TILE_ROWS * hd * 2; }
+
 // whether attn_mean keeps every head's query tile at head dim hd
 bool mean_resident(int H, int hd) {
-  return (long)H * (hd == 32 ? TILE32_BYTES : TILE_BYTES) <= (long)MEAN_RESIDENT_BYTES;
+  return (long)H * tile_bytes(hd) <= (long)MEAN_RESIDENT_BYTES;
 }
 
 typedef __nv_bfloat16 bf16;
@@ -199,11 +210,18 @@ struct FwdArgs {
 
 template <int HD>
 __device__ __forceinline__ void fwd_load(const FwdArgs& a, int tile) {
-  constexpr int TB = HeadTile<HD>::BYTES;
+  using HT = HeadTile<HD>;
   const int st = tile % FWD_STAGES;
-  mbar_expect_tx(&a.bars[1 + st], 2 * TB);
-  tma_load_tile(a.ring + (2 * st) * TB, a.map_k, &a.bars[1 + st], tile * TILE, a.plane);
-  tma_load_tile(a.ring + (2 * st + 1) * TB, a.map_v, &a.bars[1 + st], tile * TILE, a.plane);
+  mbar_expect_tx(&a.bars[1 + st], 2 * HT::BYTES);
+  HT::load(a.ring + (2 * st) * HT::BYTES, a.map_k, &a.bars[1 + st], tile * TILE, a.plane);
+  HT::load(a.ring + (2 * st + 1) * HT::BYTES, a.map_v, &a.bars[1 + st], tile * TILE, a.plane);
+}
+
+// blocks per SM that flash_fwd's registers are budgeted for: the 64 O
+// accumulators of head dim 128 leave room for one
+template <int HD>
+__host__ __device__ constexpr int fwd_blocks_per_sm() {
+  return HD == 128 ? 1 : FWD_BLOCKS_PER_SM;
 }
 
 // Key tile j: `s` holds its finished S and no product is in flight. Takes
@@ -269,7 +287,7 @@ __device__ __forceinline__ void fwd_step(const FwdArgs& a, float (&s)[32], float
 }
 
 template <int HD>
-__global__ void __launch_bounds__(FWD_THREADS, FWD_BLOCKS_PER_SM)
+__global__ void __launch_bounds__(FWD_THREADS, fwd_blocks_per_sm<HD>())
 flash_fwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
           const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ out,
           float* __restrict__ lse2, int H, int T, int pad_lo, int pad_hi, float scale_log2) {
@@ -297,7 +315,7 @@ flash_fwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
     mbar_init_fence();
     mbar_expect_tx(&a.bars[0], FWD_WARPGROUPS * HT::BYTES);
     for (int w = 0; w < FWD_WARPGROUPS; ++w)
-      tma_load_tile(smem + w * HT::BYTES, &map_q, &a.bars[0], row0 + w * TILE, a.plane);
+      HT::load(smem + w * HT::BYTES, &map_q, &a.bars[0], row0 + w * TILE, a.plane);
     for (int t = 0; t < FWD_STAGES && t < a.n; ++t) fwd_load<HD>(a, t);
   }
   __syncthreads();
@@ -378,9 +396,9 @@ __device__ __forceinline__ void mean_load(const MeanArgs& a, int u) {
   uint8_t* slot = a.ring + st * SLOT;
   const int plane = a.b * a.H + u % a.H;
   mbar_expect_tx(&a.bars[1 + st], SLOT);
-  tma_load_tile(slot, a.map_k, &a.bars[1 + st], (a.kt0 + u / a.H) * TILE, plane);
+  HeadTile<HD>::load(slot, a.map_k, &a.bars[1 + st], (a.kt0 + u / a.H) * TILE, plane);
   if constexpr (!RES)
-    tma_load_tile(slot + HeadTile<HD>::BYTES, a.map_q, &a.bars[1 + st], a.row0, plane);
+    HeadTile<HD>::load(slot + HeadTile<HD>::BYTES, a.map_q, &a.bars[1 + st], a.row0, plane);
 }
 
 // S = Q_h K_h^T of unit u, whose slot has arrived, into s (one commit group)
@@ -501,7 +519,7 @@ attn_mean(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
     if constexpr (RES) {
       mbar_expect_tx(&a.bars[0], H * TB);
       for (int h = 0; h < H; ++h)
-        tma_load_tile(smem + h * TB, &map_q, &a.bars[0], row0, a.b * H + h);
+        HeadTile<HD>::load(smem + h * TB, &map_q, &a.bars[0], row0, a.b * H + h);
     }
     for (int u = 0; u < MEAN_STAGES && u < a.n; ++u) mean_load<HD, RES>(a, u);
   }
@@ -546,13 +564,13 @@ int mean_chunk(int ntiles, int row_blocks, int slots) {
   return best;
 }
 
-// Resident blocks of attn_mean instance `kern` (one of four: head dim x
+// Resident blocks of attn_mean instance `kern` (one of six: head dim x
 // resident) on the current device for `smem` bytes of shared memory per
 // block: SMs x blocks per SM. The device is asked once per (instance,
 // smem), kept as smem << 20 | slots.
 cudaError_t mean_slots(const void* kern, int instance, int smem, int* slots) {
   constexpr int MAX_DEVICES = 64;
-  static std::atomic<long long> known[MAX_DEVICES][4];
+  static std::atomic<long long> known[MAX_DEVICES][6];
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -586,7 +604,7 @@ int flash_forward(const void* q, const void* k, const void* v, void* out, void* 
   // tensor-map encoding needs
   cudaError_t err =
       cudaFuncSetAttribute(flash_fwd<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess)  // the SM's 228 KB as shared memory: two blocks of 81 KB fit
+  if (err == cudaSuccess)  // the SM's 228 KB as shared memory: two blocks of 81 KB fit (d = 64)
     err = cudaFuncSetAttribute(flash_fwd<HD>, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
@@ -617,7 +635,8 @@ int mean_forward(const void* q, const void* k, const void* lse2, void* mean, int
   if (int bad = HT::map(&mk, k, B * H, T)) return bad;
   if (!aligned16(mean)) return TMA_MISALIGNED;
   int slots = 0;
-  if ((err = mean_slots(kern, (HD == 32 ? 2 : 0) + (RES ? 1 : 0), smem, &slots)) != cudaSuccess)
+  if ((err = mean_slots(kern, (HD == 32 ? 2 : HD == 128 ? 4 : 0) + (RES ? 1 : 0), smem, &slots)) !=
+      cudaSuccess)
     return (int)err;
   const int ntiles = (T + TILE - 1) / TILE;
   const int chunk = mean_chunk(ntiles, B * ntiles, slots);
@@ -631,8 +650,8 @@ int mean_forward(const void* q, const void* k, const void* lse2, void* mean, int
 
 extern "C" {
 
-// q, k, v, out: (B, H, T, D) bf16 contiguous, 16-byte aligned, D = 64 or
-// 32 (cudaErrorInvalidValue otherwise). lse2: (B, H, T) f32 or null.
+// q, k, v, out: (B, H, T, D) bf16 contiguous, 16-byte aligned, D = 64, 32
+// or 128 (cudaErrorInvalidValue otherwise). lse2: (B, H, T) f32 or null.
 // Returns a cudaError_t, or a code of make_tile_map (>= 998) when a tensor
 // map cannot be made.
 int attn_flash_forward(const void* q, const void* k, const void* v, void* out, void* lse2,
@@ -644,25 +663,32 @@ int attn_flash_forward(const void* q, const void* k, const void* v, void* out, v
   if (D == 32)
     return flash_forward<32>(q, k, v, out, lse2, B, H, T, pad_lo, pad_hi, scale_log2,
                              (cudaStream_t)stream);
+  if (D == 128)
+    return flash_forward<128>(q, k, v, out, lse2, B, H, T, pad_lo, pad_hi, scale_log2,
+                              (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }
 
 // The most heads whose query tiles attn_mean_forward keeps at head dim D;
 // above it they are streamed (no limit).
 int attn_mean_resident_heads(int D) {
-  return MEAN_RESIDENT_BYTES / (D == 32 ? TILE32_BYTES : TILE_BYTES);
+  return (int)(MEAN_RESIDENT_BYTES / tile_bytes(D));
 }
 
 // mean: (B, T, T) bf16, 16-byte aligned; lse2 from attn_flash_forward on
-// the same q, k; any H >= 1, D = 64 or 32. Returns as attn_flash_forward.
+// the same q, k; any H >= 1, D = 64, 32 or 128. Returns as attn_flash_forward.
 int attn_mean_forward(const void* q, const void* k, const void* lse2, void* mean, int B, int H,
                       int T, int D, int pad_lo, int pad_hi, float scale_log2, void* stream) {
-  if (H < 1 || (D != 64 && D != 32)) return (int)cudaErrorInvalidValue;
+  if (H < 1 || (D != 64 && D != 32 && D != 128)) return (int)cudaErrorInvalidValue;
   const bool res = mean_resident(H, D);
   cudaStream_t st = (cudaStream_t)stream;
   if (D == 64)
     return res ? mean_forward<64, true>(q, k, lse2, mean, B, H, T, pad_lo, pad_hi, scale_log2, st)
                : mean_forward<64, false>(q, k, lse2, mean, B, H, T, pad_lo, pad_hi, scale_log2, st);
+  if (D == 128)
+    return res ? mean_forward<128, true>(q, k, lse2, mean, B, H, T, pad_lo, pad_hi, scale_log2, st)
+               : mean_forward<128, false>(q, k, lse2, mean, B, H, T, pad_lo, pad_hi, scale_log2,
+                                          st);
   return res ? mean_forward<32, true>(q, k, lse2, mean, B, H, T, pad_lo, pad_hi, scale_log2, st)
              : mean_forward<32, false>(q, k, lse2, mean, B, H, T, pad_lo, pad_hi, scale_log2, st);
 }

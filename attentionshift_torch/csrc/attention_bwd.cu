@@ -1,5 +1,5 @@
 // Attention backward kernels for the ViT and Swin backbones (bf16, head
-// dim 64 or 32).
+// dim 64, 32 or 128).
 //
 // Replaces two Pallas TPU kernels of attentionshift_tpu/ops/attention.py:
 //   _bwd_kernel_dq   (:364, pass A of _pallas_backward): per query tile,
@@ -24,7 +24,8 @@
 // (1, 24, 1276, 32)) pass A's three products are 7.5 GFLOP (7.6 us)
 // against 39.1 M exp2 (9.3 us at 16 per clock per SM, 132 SMs, 1980 MHz):
 // the exp work bounds it; pass B's four, 10.0 GFLOP (10.1 us), are about
-// even with its exp work.
+// even with its exp work. Head dim 128 (and 72-120, which ops/attention.py
+// pads onto it) doubles the products per exp2: the tensor cores bound it.
 //
 // What the design does about it (helpers in hopper.cuh; both kernels are
 // templates on the head dim, HeadTile<HD>: at 32 a tile is 64 rows of 64
@@ -48,6 +49,14 @@
 //   * three blocks per SM (<= 168 registers a thread, ~50 KB of shared
 //     memory each) overlap one block's exp work with another's products;
 //     the bench shape's 408 blocks fill 396 slots and 12 more;
+//   * at head dim 128 a tile is two 64-column TMA boxes in one 16 KB slot
+//     (HeadTile<128>); S and dP contract over eight k16 steps. Pass A keeps
+//     dQ's 64 accumulators of m64n128k16 a thread. Pass B splits each key
+//     tile's dK and dV by column halves over two blocks (blockIdx.x = 2 *
+//     key tile + half): each recomputes S^T and dP^T over all 128 columns
+//     and accumulates its half of dK and dV as m64n64k16 against that half
+//     of Q and dO (two 64x128 f32 accumulators a warpgroup would need 128
+//     registers a thread more). Both take two blocks per SM;
 //   * the exp work is branch-free: a masked entry gets exp2(-inf) = 0 (a
 //     branch around each exp2 serialised their latencies and cost pass B
 //     2.6x). Pass B zeroes masked key rows at the store instead, since a
@@ -84,6 +93,19 @@ constexpr int NTHREADS = 128;  // one warpgroup
 constexpr int STAGES = 2;      // ring depth of the streamed tiles
 constexpr int BLOCKS_PER_SM = 3;  // resident blocks the register budget is set for
 
+// the register budget's blocks per SM at head dim HD: two at 128
+template <int HD>
+__host__ __device__ constexpr int blocks_per_sm() {
+  return HD == 128 ? 2 : BLOCKS_PER_SM;
+}
+
+// pass B's column parts: each block accumulates PART_COLS of the HD columns
+// of dK and dV (two halves at 128, all of them otherwise)
+template <int HD>
+__host__ __device__ constexpr int dkv_parts() {
+  return HD / HeadTile<HD>::PART_COLS;
+}
+
 // shared memory: two own tiles, STAGES slots of two tiles, (pass B) the
 // streamed tiles' row statistics, the barriers, 1024 bytes of alignment slack
 template <int HD>
@@ -112,15 +134,17 @@ __device__ __forceinline__ bool masked_col(int col, int T, int pad_lo, int pad_h
   return col >= T || (col >= pad_lo && col < pad_hi);
 }
 
-// write a warpgroup's (64 x HD) f32 accumulator, scaled, as bf16 rows r_a
-// (i < 2) and r_b (i >= 2) of a head matrix; a row whose scale is 0 is
-// written as exact zeros, whatever its accumulator holds
-template <int HD>
-__device__ __forceinline__ void store_rows(bf16* mh, const float (&acc)[HD / 2], float scale_a,
-                                           float scale_b, int r_a, int r_b, int tig, int T) {
+// write a warpgroup's (64 x NC) f32 accumulator, scaled, as bf16 columns
+// [c0, c0 + NC) of rows r_a (i < 2) and r_b (i >= 2) of a head matrix of HD
+// columns; a row whose scale is 0 is written as exact zeros, whatever its
+// accumulator holds
+template <int HD, int NC = HD>
+__device__ __forceinline__ void store_rows(bf16* mh, const float (&acc)[NC / 2], float scale_a,
+                                           float scale_b, int r_a, int r_b, int tig, int T,
+                                           int c0 = 0) {
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j) {
-    int c = j * 8 + tig * 2;
+  for (int j = 0; j < NC / 8; ++j) {
+    int c = c0 + j * 8 + tig * 2;
     if (r_a < T)
       *reinterpret_cast<uint32_t*>(mh + (size_t)r_a * HD + c) =
           scale_a == 0.f ? 0u : pack_bf16(acc[4 * j] * scale_a, acc[4 * j + 1] * scale_a);
@@ -178,20 +202,21 @@ template <int HD>
 __device__ __forceinline__ void dq_release_slot(uint8_t* ring, int st, uint64_t* bar, int it,
                                                 int nit, int ntiles, const CUtensorMap* map_k,
                                                 const CUtensorMap* map_v, int plane, int tid) {
-  constexpr int TB = HeadTile<HD>::BYTES;
+  using HT = HeadTile<HD>;
+  constexpr int TB = HT::BYTES;
   __syncthreads();  // every warp is done with slot st
   if (tid == 0 && it + STAGES < nit) {
     const int next = ((it + STAGES) % ntiles) * TILE;
     mbar_expect_tx(bar, 2 * TB);
-    tma_load_tile(ring + (2 * st) * TB, map_k, bar, next, plane);
-    tma_load_tile(ring + (2 * st + 1) * TB, map_v, bar, next, plane);
+    HT::load(ring + (2 * st) * TB, map_k, bar, next, plane);
+    HT::load(ring + (2 * st + 1) * TB, map_v, bar, next, plane);
   }
 }
 
 // Pass A: D = sum_s p*dP per row of one 64-row query tile (first sweep of
 // the key tiles), then its dQ (second sweep).
 template <int HD>
-__global__ void __launch_bounds__(NTHREADS, BLOCKS_PER_SM)
+__global__ void __launch_bounds__(NTHREADS, blocks_per_sm<HD>())
 bwd_dq(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
        const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
        const float* __restrict__ lse2, bf16* __restrict__ dq, float* __restrict__ dd, int H, int T,
@@ -217,13 +242,13 @@ bwd_dq(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtens
     for (int i = 0; i <= STAGES; ++i) mbar_init(&bars[i], 1);
     mbar_init_fence();
     mbar_expect_tx(&bars[0], 2 * TB);
-    tma_load_tile(q_s, &map_q, &bars[0], row0, plane);
-    tma_load_tile(do_s, &map_do, &bars[0], row0, plane);
+    HT::load(q_s, &map_q, &bars[0], row0, plane);
+    HT::load(do_s, &map_do, &bars[0], row0, plane);
     for (int s = 0; s < STAGES && s < nit; ++s) {
       const int key = (s % ntiles) * TILE;
       mbar_expect_tx(&bars[1 + s], 2 * TB);
-      tma_load_tile(ring + (2 * s) * TB, &map_k, &bars[1 + s], key, plane);
-      tma_load_tile(ring + (2 * s + 1) * TB, &map_v, &bars[1 + s], key, plane);
+      HT::load(ring + (2 * s) * TB, &map_k, &bars[1 + s], key, plane);
+      HT::load(ring + (2 * s + 1) * TB, &map_v, &bars[1 + s], key, plane);
     }
   }
   __syncthreads();
@@ -296,10 +321,11 @@ bwd_dq(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtens
   }
 }
 
-// Pass B: dK and dV of one 64-row key tile, on the transposed products
-// (keys as rows, queries as columns).
+// Pass B: dK and dV of one 64-row key tile (columns part * PART_COLS on,
+// PART_COLS of them), on the transposed products (keys as rows, queries as
+// columns).
 template <int HD>
-__global__ void __launch_bounds__(NTHREADS, BLOCKS_PER_SM)
+__global__ void __launch_bounds__(NTHREADS, blocks_per_sm<HD>())
 bwd_dkv(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
         const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
         const float* __restrict__ lse2, const float* __restrict__ dd, bf16* __restrict__ dk,
@@ -307,6 +333,7 @@ bwd_dkv(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUten
         float scale) {
   using HT = HeadTile<HD>;
   constexpr int TB = HT::BYTES;
+  constexpr int NC = HT::PART_COLS;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   uint8_t* k_s = smem;
@@ -317,7 +344,8 @@ bwd_dkv(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUten
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + ring_bytes<HD>() + STAT_BYTES);
 
   const int plane = blockIdx.z * H + blockIdx.y;
-  const int key0 = blockIdx.x * TILE;
+  const int part = blockIdx.x % dkv_parts<HD>();
+  const int key0 = blockIdx.x / dkv_parts<HD>() * TILE;
   const int ntiles = (T + TILE - 1) / TILE;
   const int tid = threadIdx.x;
   const size_t rowbase = (size_t)plane * T;
@@ -325,12 +353,12 @@ bwd_dkv(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUten
     for (int i = 0; i <= STAGES; ++i) mbar_init(&bars[i], 1);
     mbar_init_fence();
     mbar_expect_tx(&bars[0], 2 * TB);
-    tma_load_tile(k_s, &map_k, &bars[0], key0, plane);
-    tma_load_tile(v_s, &map_v, &bars[0], key0, plane);
+    HT::load(k_s, &map_k, &bars[0], key0, plane);
+    HT::load(v_s, &map_v, &bars[0], key0, plane);
     for (int s = 0; s < STAGES && s < ntiles; ++s) {
       mbar_expect_tx(&bars[1 + s], 2 * TB);
-      tma_load_tile(ring + (2 * s) * TB, &map_q, &bars[1 + s], s * TILE, plane);
-      tma_load_tile(ring + (2 * s + 1) * TB, &map_do, &bars[1 + s], s * TILE, plane);
+      HT::load(ring + (2 * s) * TB, &map_q, &bars[1 + s], s * TILE, plane);
+      HT::load(ring + (2 * s + 1) * TB, &map_do, &bars[1 + s], s * TILE, plane);
     }
   }
   // the row statistics of a query tile: threads 0-63 lse2, 64-127 D. A
@@ -353,9 +381,9 @@ bwd_dkv(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUten
   const bool off_a = masked_col(key_a, T, pad_lo, pad_hi);
   const bool off_b = masked_col(key_b, T, pad_lo, pad_hi);
 
-  float acc_k[HD / 2], acc_v[HD / 2], s[32], dp[32];
+  float acc_k[NC / 2], acc_v[NC / 2], s[32], dp[32];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  for (int i = 0; i < NC / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
 
@@ -398,11 +426,11 @@ bwd_dkv(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUten
 
     wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc)  // dV += P^T dO
-      wgmma_rs<1>(acc_v, pa[kc], HT::mnmajor(do_s, kc), 1);
+    for (int kc = 0; kc < 4; ++kc)  // dV += P^T dO (this block's columns)
+      wgmma_rs<1>(acc_v, pa[kc], HT::mnmajor_part(do_s, part, kc), 1);
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc)  // dK += dS^T Q
-      wgmma_rs<1>(acc_k, da[kc], HT::mnmajor(q_s, kc), 1);
+    for (int kc = 0; kc < 4; ++kc)  // dK += dS^T Q (this block's columns)
+      wgmma_rs<1>(acc_k, da[kc], HT::mnmajor_part(q_s, part, kc), 1);
     wgmma_commit();
     wgmma_wait();
     fence_regs(acc_v);
@@ -416,15 +444,16 @@ bwd_dkv(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUten
       if (tid == 0) {
         const int next = (qt + STAGES) * TILE;
         mbar_expect_tx(&bars[1 + st], 2 * TB);
-        tma_load_tile(ring + (2 * st) * TB, &map_q, &bars[1 + st], next, plane);
-        tma_load_tile(ring + (2 * st + 1) * TB, &map_do, &bars[1 + st], next, plane);
+        HT::load(ring + (2 * st) * TB, &map_q, &bars[1 + st], next, plane);
+        HT::load(ring + (2 * st + 1) * TB, &map_do, &bars[1 + st], next, plane);
       }
     }
   }
 
-  store_rows<HD>(dk + head, acc_k, off_a ? 0.f : scale, off_b ? 0.f : scale, key_a, key_b, tig,
-                 T);
-  store_rows<HD>(dv + head, acc_v, off_a ? 0.f : 1.f, off_b ? 0.f : 1.f, key_a, key_b, tig, T);
+  store_rows<HD, NC>(dk + head, acc_k, off_a ? 0.f : scale, off_b ? 0.f : scale, key_a, key_b,
+                     tig, T, part * NC);
+  store_rows<HD, NC>(dv + head, acc_v, off_a ? 0.f : 1.f, off_b ? 0.f : 1.f, key_a, key_b, tig, T,
+                     part * NC);
 }
 
 // one tensor map per (B*H, T, HD) input (0, or make_tile_map's code), and
@@ -471,7 +500,7 @@ int backward_dkv(const void* q, const void* k, const void* v, const void* dout, 
   if (err != cudaSuccess) return (int)err;
   CUtensorMap m[4];
   if (int bad = make_maps<HD>(m, q, k, v, dout, B * H, T, dk, dv)) return bad;
-  dim3 grid((T + TILE - 1) / TILE, H, B);
+  dim3 grid((T + TILE - 1) / TILE * dkv_parts<HD>(), H, B);
   bwd_dkv<HD><<<grid, NTHREADS, smem, stream>>>(m[0], m[1], m[2], m[3], (const float*)lse2,
                                                  (const float*)dd, (bf16*)dk, (bf16*)dv, H, T,
                                                  pad_lo, pad_hi, scale_log2, scale);
@@ -483,7 +512,7 @@ int backward_dkv(const void* q, const void* k, const void* v, const void* dout, 
 extern "C" {
 
 // q, k, v, dout, dq: (B, H, T, D) bf16 contiguous, 16-byte aligned,
-// D = 64 or 32 (cudaErrorInvalidValue otherwise); lse2 (from
+// D = 64, 32 or 128 (cudaErrorInvalidValue otherwise); lse2 (from
 // attn_flash_forward on the same q, k) and dd: (B, H, T) f32. dd (D =
 // sum_s p*dP per row) is written. Returns a cudaError_t, or a code of
 // make_tile_map (>= 998) when a tensor map cannot be made.
@@ -496,6 +525,9 @@ int attn_backward_dq(const void* q, const void* k, const void* v, const void* do
   if (D == 32)
     return backward_dq<32>(q, k, v, dout, lse2, dq, dd, B, H, T, pad_lo, pad_hi, scale_log2,
                            scale, (cudaStream_t)stream);
+  if (D == 128)
+    return backward_dq<128>(q, k, v, dout, lse2, dq, dd, B, H, T, pad_lo, pad_hi, scale_log2,
+                            scale, (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -510,6 +542,9 @@ int attn_backward_dkv(const void* q, const void* k, const void* v, const void* d
   if (D == 32)
     return backward_dkv<32>(q, k, v, dout, lse2, dd, dk, dv, B, H, T, pad_lo, pad_hi, scale_log2,
                             scale, (cudaStream_t)stream);
+  if (D == 128)
+    return backward_dkv<128>(q, k, v, dout, lse2, dd, dk, dv, B, H, T, pad_lo, pad_hi,
+                             scale_log2, scale, (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: mbarriers,
 // TMA tile and box loads from a 3-D tensor map, wgmma matrix descriptors and the
-// m64n64k16 and m64n32k16 bf16 products with f32 accumulators, and a 1024-byte aligner
-// for the dynamic shared memory that holds the swizzled slots.
+// m64n128k16, m64n64k16 and m64n32k16 bf16 products with f32 accumulators, and a
+// 1024-byte aligner for the dynamic shared memory that holds the swizzled slots.
 //
 // Tile convention: a (64 rows, 64) bf16 tile of a (planes, rows, 64) tensor
 // is 64 rows of 128 bytes, loaded by TMA under CU_TENSOR_MAP_SWIZZLE_128B
@@ -13,7 +13,14 @@
 // 512-byte aligned slot of 4096 bytes, with the same two uses:
 //   K-major   (two k16 steps):      desc_kmajor32 + 32 B per k16 step;
 //   MN-major  (N = 32, m64n32k16):  desc_mnmajor32 + 1024 B per k16 step.
-// HeadTile<64> and HeadTile<32> name these per head dim.
+// A (64 rows, 128) tile of a (planes, rows, 128) tensor (head dim 128) is
+// two such 64-column tiles side by side in one 16 KB slot: columns 0-63 in
+// the first 8 KB, 64-127 in the second, each one TMA box under the 128-byte
+// swizzle (make_tile_map128: a 128-column map with 64-column boxes):
+//   K-major   (eight k16 steps):   desc_kmajor of half kc / 4, k16 step kc % 4;
+//   MN-major  (N = 128, m64n128k16): desc_mnmajor, whose leading byte offset
+//             (8 KB) is the stride from one 64-column swizzle atom to the next.
+// HeadTile<128>, HeadTile<64> and HeadTile<32> name these per head dim.
 // The tensor map is encoded on the host through the entry point that
 // cudaGetDriverEntryPoint returns, so no -lcuda is needed at link time.
 
@@ -168,6 +175,12 @@ inline int make_tile_map32(CUtensorMap* map, const void* base, int planes, int r
   return encode_plane_map(map, base, planes, rows, 32, 32, CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
+// Map of a contiguous (planes, rows, 128) bf16 tensor with (64, 64, 1)
+// boxes under the 128-byte swizzle: the two halves of a head-dim-128 tile
+inline int make_tile_map128(CUtensorMap* map, const void* base, int planes, int rows) {
+  return make_plane_map(map, base, planes, rows, 128, 64, true);
+}
+
 // Map of a contiguous (rows, cols) bf16 matrix (cols a multiple of 8) with
 // (64, 64) boxes, 128-byte swizzle, zeros outside the matrix; returns as
 // make_tile_map does.
@@ -234,7 +247,10 @@ __device__ __forceinline__ uint64_t desc_mnmajor32(const void* tile, int kc) {
 }
 
 // What a head dim's tiles are: bytes per 64-row tile, k16 steps of a
-// product that contracts over the head dim, descriptors, tensor map
+// product that contracts over the head dim, descriptors, tensor map, the
+// TMA load of one tile (`bytes` BYTES on its barrier), and the MN-major
+// descriptor of column part `part` of PART_COLS columns (a product whose N
+// is PART_COLS: all HD columns at 64 and 32, one 64-column half at 128)
 template <int HD>
 struct HeadTile;
 
@@ -242,11 +258,19 @@ template <>
 struct HeadTile<64> {
   static constexpr int BYTES = TILE_BYTES;
   static constexpr int KSTEPS = 4;
+  static constexpr int PART_COLS = 64;
   __device__ static __forceinline__ uint64_t kmajor(const void* t, int kc) {
     return desc_kmajor(t, kc);
   }
   __device__ static __forceinline__ uint64_t mnmajor(const void* t, int kc) {
     return desc_mnmajor(t, kc);
+  }
+  __device__ static __forceinline__ uint64_t mnmajor_part(const void* t, int, int kc) {
+    return desc_mnmajor(t, kc);
+  }
+  __device__ static __forceinline__ void load(void* dst, const CUtensorMap* m, uint64_t* bar,
+                                              int row, int plane) {
+    tma_load_tile(dst, m, bar, row, plane);
   }
   static int map(CUtensorMap* m, const void* base, int planes, int rows) {
     return make_tile_map(m, base, planes, rows);
@@ -257,14 +281,46 @@ template <>
 struct HeadTile<32> {
   static constexpr int BYTES = TILE32_BYTES;
   static constexpr int KSTEPS = 2;
+  static constexpr int PART_COLS = 32;
   __device__ static __forceinline__ uint64_t kmajor(const void* t, int kc) {
     return desc_kmajor32(t, kc);
   }
   __device__ static __forceinline__ uint64_t mnmajor(const void* t, int kc) {
     return desc_mnmajor32(t, kc);
   }
+  __device__ static __forceinline__ uint64_t mnmajor_part(const void* t, int, int kc) {
+    return desc_mnmajor32(t, kc);
+  }
+  __device__ static __forceinline__ void load(void* dst, const CUtensorMap* m, uint64_t* bar,
+                                              int row, int plane) {
+    tma_load_tile(dst, m, bar, row, plane);
+  }
   static int map(CUtensorMap* m, const void* base, int planes, int rows) {
     return make_tile_map32(m, base, planes, rows);
+  }
+};
+
+template <>
+struct HeadTile<128> {
+  static constexpr int BYTES = 2 * TILE_BYTES;
+  static constexpr int KSTEPS = 8;
+  static constexpr int PART_COLS = 64;
+  __device__ static __forceinline__ uint64_t kmajor(const void* t, int kc) {
+    return desc_kmajor(static_cast<const uint8_t*>(t) + (kc >> 2) * TILE_BYTES, kc & 3);
+  }
+  __device__ static __forceinline__ uint64_t mnmajor(const void* t, int kc) {
+    return desc_mnmajor(t, kc);
+  }
+  __device__ static __forceinline__ uint64_t mnmajor_part(const void* t, int part, int kc) {
+    return desc_mnmajor(static_cast<const uint8_t*>(t) + part * TILE_BYTES, kc);
+  }
+  __device__ static __forceinline__ void load(void* dst, const CUtensorMap* m, uint64_t* bar,
+                                              int row, int plane) {
+    tma_load_box(dst, m, bar, 0, row, plane);
+    tma_load_box(static_cast<uint8_t*>(dst) + TILE_BYTES, m, bar, 64, row, plane);
+  }
+  static int map(CUtensorMap* m, const void* base, int planes, int rows) {
+    return make_tile_map128(m, base, planes, rows);
   }
 };
 
@@ -280,6 +336,10 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // keep the compiler from touching registers an in-flight wgmma owns
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
 __device__ __forceinline__ void fence_regs(float (&d)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
@@ -357,7 +417,43 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
 #undef HOPPER_D16
 #undef HOPPER_D16_OUT
 
-// Accumulator layout of m64n64 (f32, 32 per thread; m64n32: 16, j < 4): d[4j + i] is row
+#define HOPPER_D64                                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "  \
+  "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "   \
+  "%56, %57, %58, %59, %60, %61, %62, %63}"
+#define HOPPER_D64_OUT(d)                                                                      \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),          \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),  \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),            \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),            \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),            \
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),            \
+      "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),            \
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),            \
+      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),            \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),            \
+      "+f"(d[62]), "+f"(d[63])
+
+// D (64 x 128, f32) (+)= A (64 x 16 in registers) * B (16 x 128, MN-major:
+// two 64-column swizzle atoms 8 KB apart): m64n128k16, the products whose
+// N is head dim 128
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : HOPPER_D64_OUT(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(acc), "n"(TRANS_B));
+}
+
+#undef HOPPER_D64
+#undef HOPPER_D64_OUT
+
+// Accumulator layout of m64n64 (f32, 32 per thread; m64n32: 16, j < 4; m64n128: 64,
+// j < 16): d[4j + i] is row
 // 16*warp + lane/4 + 8*(i >> 1), column 8j + 2*(lane % 4) + (i & 1). The
 // A fragment of k16 step kc of a product that contracts over those 64
 // columns is d[8kc .. 8kc + 7], rounded to bf16 pairs:

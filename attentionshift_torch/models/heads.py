@@ -17,7 +17,11 @@ Port of ``attentionshift_tpu/models/heads.py``:
   (target label 2 = ignore).
 
 The decoder blocks (256 wide, 8 heads of 32) run plain PyTorch attention
-with autograd, not the backbone's kernels.
+with autograd by default. ``use_kernel=True`` (the JAX heads'
+``use_pallas``) runs them on the attention kernels' head-dim-32 instance
+instead (``attention_no_capture``: the flash pass forward, the backward
+pair); the detector leaves it off, as the JAX detector leaves
+``use_pallas`` off for its heads.
 """
 
 from __future__ import annotations
@@ -51,14 +55,15 @@ class _RoIDecoder(nn.Module):
     """What the two decoder heads share: norm + embed of the RoI tokens,
     the decoder blocks and the final norm."""
 
-    def __init__(self, in_channels, embed_dim, depth, num_heads, mlp_ratio, base_grid):
+    def __init__(self, in_channels, embed_dim, depth, num_heads, mlp_ratio, base_grid,
+                 use_kernel=False):
         super().__init__()
         self.embed_dim, self.base_grid = embed_dim, base_grid
         if in_channels != embed_dim:
             self.norm = LayerNorm(in_channels)
             self.decoder_embed = Dense(in_channels, embed_dim)
         self.decoder_blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio, use_kernel=False) for _ in range(depth))
+            Block(embed_dim, num_heads, mlp_ratio, use_kernel=use_kernel) for _ in range(depth))
         self.decoder_box_norm = LayerNorm(embed_dim)
         self._pos = {}
 
@@ -125,8 +130,9 @@ class BoxHeadRec(_RoIDecoder):
 
     def __init__(self, num_classes: int = 20, in_channels: int = 384, embed_dim: int = 256,
                  depth: int = 4, num_heads: int = 8, mlp_ratio: float = 4.0, base_grid: int = 14,
-                 with_reconstruct: bool = False, patch_size: int = 16):
-        super().__init__(in_channels, embed_dim, depth, num_heads, mlp_ratio, base_grid)
+                 with_reconstruct: bool = False, patch_size: int = 16, use_kernel: bool = False):
+        super().__init__(in_channels, embed_dim, depth, num_heads, mlp_ratio, base_grid,
+                         use_kernel)
         self.num_classes = num_classes
         self.det_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.fc_cls = Dense(embed_dim, num_classes + 1)
@@ -172,8 +178,9 @@ class MaskHeadPointSup(_RoIDecoder):
 
     def __init__(self, num_classes: int = 20, in_channels: int = 384, embed_dim: int = 256,
                  depth: int = 4, num_heads: int = 8, mlp_ratio: float = 4.0, base_grid: int = 14,
-                 scale_factor: int = 2, scale_mode: str = "bicubic"):
-        super().__init__(in_channels, embed_dim, depth, num_heads, mlp_ratio, base_grid)
+                 scale_factor: int = 2, scale_mode: str = "bicubic", use_kernel: bool = False):
+        super().__init__(in_channels, embed_dim, depth, num_heads, mlp_ratio, base_grid,
+                         use_kernel)
         self.scale_factor, self.scale_mode = scale_factor, scale_mode
         self.conv_logits = Dense(embed_dim, num_classes)
 

@@ -69,6 +69,15 @@ KERNELS: dict[str, Kernel] = {
                "attentionshift_tpu/ops/attention.py:364"),
         Kernel("attention_bwd_dkv_d32", "attention_bwd",
                "attentionshift_tpu/ops/attention.py:402"),
+        # their head-dim-128 instances (head dims 72-128 through ops/attention.py's route)
+        Kernel("attention_capture_d128", "attention",
+               "attentionshift_tpu/ops/attention.py:251"),
+        Kernel("attention_plain_d128", "attention",
+               "attentionshift_tpu/ops/attention.py:315"),
+        Kernel("attention_bwd_dq_d128", "attention_bwd",
+               "attentionshift_tpu/ops/attention.py:364"),
+        Kernel("attention_bwd_dkv_d128", "attention_bwd",
+               "attentionshift_tpu/ops/attention.py:402"),
         Kernel("ccl_batch", "ccl", "attentionshift_tpu/ops/ccl.py:200"),
         Kernel("meanshift_fixpoint", "meanshift",
                "attentionshift_tpu/ops/meanshift_kernel.py:47"),

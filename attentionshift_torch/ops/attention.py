@@ -27,12 +27,19 @@ dK and dV. The row normaliser of the
 recomputed probabilities is the forward's log2-sum-exp, which the flash
 pass writes whenever a gradient may be asked for.
 
-The kernels take head dim 64 (the ViTs) and 32 (Swin's global blocks),
-each an instance of its own, and any number of heads: the mean pass keeps
-every head's query tile while they fit (``attn_mean_resident_heads``)
-and streams them above that. Launches of the head-dim-32 instances are
-counted under their own names, ``<kernel>_d32``. Any other head dim
-raises ``ValueError`` on a CUDA tensor.
+The kernels have instances for head dims 64 (the ViTs), 32 (Swin's
+global blocks, the decoder heads) and 128, and take any number of heads:
+the mean pass keeps every head's query tile while they fit
+(``attn_mean_resident_heads``) and streams them above that. Launches of
+the 32 and 128 instances are counted under their own names,
+``<kernel>_d32`` and ``<kernel>_d128``. On a CUDA tensor the head dim d
+picks the route (``kernel_head_dim``), as the JAX package's dispatch
+does: d divisible by 8 runs the smallest instance at least as wide, on
+q, k, v zero-padded on the head axis, with the softmax scale of the true
+d, and its outputs sliced back (zero columns change neither q k^T nor the
+probabilities, so this is exact); d not divisible by 8 runs the plain
+version, as the JAX package does, counted in ``PLAIN_ROUTE``; d divisible
+by 8 above 128 raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -40,34 +47,84 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 from torch.utils.flop_counter import register_flop_formula
 
 from ..parallel.collectives import all_reduce
 from ._build import KERNELS, check, library
 from .numerics import F32_MIN_NORMAL, bf16_steps
 
-__all__ = ["HEAD_DIMS", "attention_reference", "attention_backward_reference",
+__all__ = ["HEAD_DIMS", "PLAIN_ROUTE", "kernel_head_dim", "forward_on_instance",
+           "backward_on_instance", "attention_reference", "attention_backward_reference",
            "attention_with_capture", "attention_no_capture", "attention_with_capture_sharded",
            "attention_no_capture_sharded", "reduce_capture", "attention_plain_op",
            "attention_capture_op", "attention_flops", "flash_forward", "forward_library",
            "attention_backward_dq", "attention_backward_dkv", "capture_mean_limit", "kernel_name"]
 
 _LOG2E = 1.4426950408889634
-HEAD_DIMS = (64, 32)  # the head dims the kernels have instances for
+HEAD_DIMS = (64, 32, 128)  # the head dims the kernels have instances for
+# calls a CUDA tensor made through the plain versions, chosen by a head dim
+# not divisible by 8 (the JAX package's dispatch); no kernel launches there
+PLAIN_ROUTE = {"attention_plain": 0, "attention_capture": 0, "attention_backward": 0}
 
 
 def kernel_name(name: str, d: int) -> str:
-    """The ``KERNELS`` record that counts ``name``'s launches at head dim
-    ``d``: the name itself at 64, ``<name>_d32`` at 32."""
+    """The ``KERNELS`` record that counts ``name``'s launches on the
+    instance of head dim ``d``: the name itself at 64, ``<name>_d<d>``
+    otherwise."""
     return name if d == 64 else f"{name}_d{d}"
 
 
-def _logits(q, k):
-    """q k^T d^-0.5 in f32: the storage-dtype product, then the scale."""
-    return torch.matmul(q.float(), k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
+def kernel_head_dim(d: int) -> int | None:
+    """The instance head dim ``d`` runs on: the smallest of 32, 64 and 128
+    at least ``d`` for ``d`` divisible by 8; None (the plain version) for
+    any other ``d``, where the JAX package takes its plain path too
+    (``attentionshift_tpu/ops/attention.py``, ``q.shape[-1] % 8``); a
+    ``ValueError`` for ``d`` divisible by 8 above 128, which has no
+    instance."""
+    if d % 8:
+        return None
+    for kd in sorted(HEAD_DIMS):
+        if d <= kd:
+            return kd
+    raise ValueError(f"attention kernel: no instance for head dim {d} (at most "
+                     f"{max(HEAD_DIMS)})")
 
 
-def attention_reference(q, k, v, pad_interval=None):
+def _pad_head(x, kd: int):
+    return x if x.shape[-1] == kd else F.pad(x, (0, kd - x.shape[-1])).contiguous()
+
+
+def forward_on_instance(forward, q, k, v, pad_interval=None):
+    """``forward(q, k, v, pad_interval, head_dim)`` on q, k, v zero-padded
+    on the head axis to their instance's head dim, ``head_dim`` the true
+    d (whose d^-0.5 the softmax takes); the first output, (B, H, T, kd),
+    is sliced back to d, the others are returned as they are."""
+    d = q.shape[-1]
+    kd = kernel_head_dim(d)
+    out, *rest = forward(*(_pad_head(x, kd) for x in (q, k, v)), pad_interval, d)
+    return (out if kd == d else out[..., :d].contiguous(), *rest)
+
+
+def backward_on_instance(backward, q, k, v, g_out, pad_interval=None):
+    """``backward(q, k, v, g_out, pad_interval, head_dim)`` -> (dq, dk, dv)
+    on inputs zero-padded as in ``forward_on_instance``, the gradients
+    sliced back to d (a padded column of q or k meets only zero columns,
+    so nothing is lost)."""
+    d = q.shape[-1]
+    kd = kernel_head_dim(d)
+    grads = backward(*(_pad_head(x, kd) for x in (q, k, v, g_out)), pad_interval, d)
+    return tuple(g if kd == d else g[..., :d].contiguous() for g in grads)
+
+
+def _logits(q, k, head_dim=None):
+    """q k^T d^-0.5 in f32: the storage-dtype product, then the scale; d is
+    ``head_dim``, else q's last axis."""
+    d = q.shape[-1] if head_dim is None else head_dim
+    return torch.matmul(q.float(), k.float().transpose(-1, -2)) * d**-0.5
+
+
+def attention_reference(q, k, v, pad_interval=None, head_dim=None):
     """Plain version: (B, H, T, d) -> (out (B,H,T,d), mean (B,T,T)) in q.dtype.
 
     Logits and softmax in f32 from the storage-dtype operands (bf16 x bf16
@@ -77,9 +134,10 @@ def attention_reference(q, k, v, pad_interval=None):
     logits, as the kernels apply it: at head dim 64 (0.125, a power of
     two) that is bitwise what scaling q first gives; at 32 it leaves out a
     rounding of q * d^-0.5 to the storage dtype, which neither the kernels
-    nor an f32 model make.
+    nor an f32 model make. ``head_dim`` (default: q's last axis) is the d
+    of the scale, for inputs zero-padded on the head axis.
     """
-    logits = _logits(q, k)
+    logits = _logits(q, k, head_dim)
     if pad_interval is not None:
         lo, hi = pad_interval
         col = torch.arange(q.shape[2], device=q.device)
@@ -106,15 +164,18 @@ def capture_mean_limit(want_mean):
     return bf16_steps(want_mean) + F32_MIN_NORMAL
 
 
-def _check_inputs(q, k, v):
+def _check_inputs(q, k, v, instance: bool = True):
+    """Device, dtype and shapes of the kernels' inputs; with ``instance``,
+    a head dim the kernels have an instance for (the ops check the head dim
+    of the inputs they pad through ``kernel_head_dim``)."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("attention kernel: q, k, v must all be CUDA tensors")
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"attention kernel takes bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"attention kernel: q/k/v shapes differ or are not 4-D: {tuple(q.shape)}")
-    if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"attention kernel takes head dim {' or '.join(map(str, HEAD_DIMS))}, "
+    if instance and q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"attention kernel takes head dim {', '.join(map(str, HEAD_DIMS))}, "
                          f"got {q.shape[-1]}")
 
 
@@ -147,36 +208,39 @@ def forward_library(defines=()):
     return lib
 
 
-def flash_forward(q, k, v, pad_interval, with_lse, lib=None):
+def flash_forward(q, k, v, pad_interval, with_lse, lib=None, head_dim=None):
     """The flash pass on the card: (out, row log2-sum-exp (B, H, T) f32 or
-    None), through ``lib`` (default: ``forward_library()``). Counts no
-    launch: the two attention ops do."""
+    None), through ``lib`` (default: ``forward_library()``), the scale
+    ``head_dim``^-0.5 (default: q's last axis). Counts no launch: the two
+    attention ops do."""
     _require_contiguous("flash_forward", q, k, v)
     b, h, t, d = q.shape
+    sd = d if head_dim is None else head_dim
     out = torch.empty_like(q)
     lse = torch.empty((b, h, t), device=q.device, dtype=torch.float32) if with_lse else None
     lo, hi = _gap(t, pad_interval)
     lib = forward_library() if lib is None else lib
     err = lib.attn_flash_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                                  lse.data_ptr() if with_lse else None, b, h, t, d, lo, hi,
-                                 d**-0.5 * _LOG2E, torch.cuda.current_stream(q.device).cuda_stream)
+                                 sd**-0.5 * _LOG2E, torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "attn_flash_forward")
     return out, lse
 
 
-def attention_backward_reference(q, k, v, g_out, pad_interval=None):
+def attention_backward_reference(q, k, v, g_out, pad_interval=None, head_dim=None):
     """Plain backward: (dq, dk, dv) of ``attention_reference``'s ``out``.
 
     The staged form of the JAX package: the recomputed probabilities and
     p * (dP - D) are rounded to the storage dtype before the products that
     consume them, every product accumulates in f32, D = sum_s p * dP. In
     f32 this is the exact softmax-attention gradient. Columns in the gap
-    have p == 0, so their dk and dv are exactly zero.
+    have p == 0, so their dk and dv are exactly zero. ``head_dim`` as in
+    ``attention_reference``.
     """
     mm = q.dtype
-    d = q.shape[-1]
+    d = q.shape[-1] if head_dim is None else head_dim
     g = g_out.to(mm).float()
-    logits = _logits(q, k)
+    logits = _logits(q, k, d)
     if pad_interval is not None:
         lo, hi = pad_interval
         col = torch.arange(q.shape[2], device=q.device)
@@ -194,14 +258,15 @@ def attention_backward_reference(q, k, v, g_out, pad_interval=None):
 _BWD_TAIL = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
 
 
-def attention_backward_dq(q, k, v, lse, g_out, pad_interval=None):
+def attention_backward_dq(q, k, v, lse, g_out, pad_interval=None, head_dim=None):
     """Backward pass A on the card: (dq, D) with D = sum_s p * dP per row
     (B, H, T) f32, from ``flash_forward``'s row statistic. D is summed in
     f32 from the bf16 p, as the TPU kernel and ``attention_backward_reference``
-    do."""
+    do. ``head_dim`` as in ``flash_forward``."""
     _check_inputs(q, k, v)
     _require_contiguous("attention_backward_dq", q, k, v, lse, g_out)
     b, h, t, d = q.shape
+    sd = d if head_dim is None else head_dim
     dq = torch.empty_like(q)
     dd = torch.empty((b, h, t), device=q.device, dtype=torch.float32)
     lo, hi = _gap(t, pad_interval)
@@ -209,26 +274,28 @@ def attention_backward_dq(q, k, v, lse, g_out, pad_interval=None):
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 7 + _BWD_TAIL
     check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g_out.data_ptr(),
-             lse.data_ptr(), dq.data_ptr(), dd.data_ptr(), b, h, t, d, lo, hi, d**-0.5 * _LOG2E,
-             d**-0.5, torch.cuda.current_stream(q.device).cuda_stream), "attn_backward_dq")
+             lse.data_ptr(), dq.data_ptr(), dd.data_ptr(), b, h, t, d, lo, hi, sd**-0.5 * _LOG2E,
+             sd**-0.5, torch.cuda.current_stream(q.device).cuda_stream), "attn_backward_dq")
     KERNELS[kernel_name("attention_bwd_dq", d)].launches += 1
     return dq, dd
 
 
-def attention_backward_dkv(q, k, v, lse, dd, g_out, pad_interval=None):
+def attention_backward_dkv(q, k, v, lse, dd, g_out, pad_interval=None, head_dim=None):
     """Backward pass B on the card: (dk, dv), from the forward's row
-    statistic and pass A's D. Gap columns come out exactly zero."""
+    statistic and pass A's D. Gap columns come out exactly zero.
+    ``head_dim`` as in ``flash_forward``."""
     _check_inputs(q, k, v)
     _require_contiguous("attention_backward_dkv", q, k, v, lse, dd, g_out)
     b, h, t, d = q.shape
+    sd = d if head_dim is None else head_dim
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lo, hi = _gap(t, pad_interval)
     fn = library("attention_bwd").attn_backward_dkv
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 8 + _BWD_TAIL
     check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g_out.data_ptr(), lse.data_ptr(),
-             dd.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t, d, lo, hi, d**-0.5 * _LOG2E,
-             d**-0.5, torch.cuda.current_stream(q.device).cuda_stream), "attn_backward_dkv")
+             dd.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t, d, lo, hi, sd**-0.5 * _LOG2E,
+             sd**-0.5, torch.cuda.current_stream(q.device).cuda_stream), "attn_backward_dkv")
     KERNELS[kernel_name("attention_bwd_dkv", d)].launches += 1
     return dk, dv
 
@@ -238,9 +305,9 @@ def _pad(lo: int, hi: int):
     return (lo, hi) if lo < hi else None
 
 
-def _row_lse(q, k, pad_interval):
+def _row_lse(q, k, pad_interval, head_dim=None):
     """The plain version of the flash pass's row log2-sum-exp (B, H, T) f32."""
-    logits = _logits(q, k)
+    logits = _logits(q, k, head_dim)
     if pad_interval is not None:
         lo, hi = pad_interval
         col = torch.arange(q.shape[2], device=q.device)
@@ -263,9 +330,16 @@ def attention_plain_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lo: in
 
 @attention_plain_op.register_kernel("cuda")
 def _plain_cuda(q, k, v, lo, hi):
-    _check_inputs(q, k, v)
-    out, lse = flash_forward(q, k, v, _pad(lo, hi), with_lse=True)
-    KERNELS[kernel_name("attention_plain", q.shape[-1])].launches += 1
+    if kernel_head_dim(q.shape[-1]) is None:  # the JAX package's plain path, by d
+        PLAIN_ROUTE["attention_plain"] += 1
+        return attention_reference(q, k, v, _pad(lo, hi))[0], _row_lse(q, k, _pad(lo, hi))
+    _check_inputs(q, k, v, instance=False)
+
+    def launch(qp, kp, vp, pad_interval, head_dim):
+        return flash_forward(qp, kp, vp, pad_interval, with_lse=True, head_dim=head_dim)
+
+    out, lse = forward_on_instance(launch, q, k, v, _pad(lo, hi))
+    KERNELS[kernel_name("attention_plain", kernel_head_dim(q.shape[-1]))].launches += 1
     return out, lse
 
 
@@ -284,10 +358,18 @@ def attention_capture_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lo: 
 
 @attention_capture_op.register_kernel("cuda")
 def _capture_cuda(q, k, v, lo, hi):
-    _check_inputs(q, k, v)
-    out, lse = flash_forward(q, k, v, _pad(lo, hi), with_lse=True)
-    mean = _mean(q, k, lse, _pad(lo, hi))
-    KERNELS[kernel_name("attention_capture", q.shape[-1])].launches += 1
+    if kernel_head_dim(q.shape[-1]) is None:  # the JAX package's plain path, by d
+        PLAIN_ROUTE["attention_capture"] += 1
+        out, mean = attention_reference(q, k, v, _pad(lo, hi))
+        return out, mean, _row_lse(q, k, _pad(lo, hi))
+    _check_inputs(q, k, v, instance=False)
+
+    def launch(qp, kp, vp, pad_interval, head_dim):
+        out, lse = flash_forward(qp, kp, vp, pad_interval, with_lse=True, head_dim=head_dim)
+        return out, _mean(qp, kp, lse, pad_interval, head_dim=head_dim), lse
+
+    out, mean, lse = forward_on_instance(launch, q, k, v, _pad(lo, hi))
+    KERNELS[kernel_name("attention_capture", kernel_head_dim(q.shape[-1]))].launches += 1
     return out, mean, lse
 
 
@@ -305,14 +387,23 @@ def _setup(ctx, inputs, output):
     ctx.save_for_backward(q, k, v, output[-1])
 
 
+def _backward_kernels(q, k, v, g_out, pad_interval, head_dim, lse):
+    dq, dd = attention_backward_dq(q, k, v, lse, g_out, pad_interval, head_dim=head_dim)
+    return (dq, *attention_backward_dkv(q, k, v, lse, dd, g_out, pad_interval,
+                                        head_dim=head_dim))
+
+
 def _backward(ctx, g_out, *_):
     q, k, v, lse = ctx.saved_tensors
     if q.device.type == "cpu":
         grads = attention_backward_reference(q, k, v, g_out, ctx.pad_interval)
+    elif kernel_head_dim(q.shape[-1]) is None:  # the JAX package's plain path, by d
+        PLAIN_ROUTE["attention_backward"] += 1
+        grads = attention_backward_reference(q, k, v, g_out, ctx.pad_interval)
     else:
         g_out = g_out.to(q.dtype).contiguous()
-        dq, dd = attention_backward_dq(q, k, v, lse, g_out, ctx.pad_interval)
-        grads = (dq, *attention_backward_dkv(q, k, v, lse, dd, g_out, ctx.pad_interval))
+        grads = backward_on_instance(
+            lambda *a: _backward_kernels(*a, lse=lse), q, k, v, g_out, ctx.pad_interval)
     return (*grads, None, None)
 
 
@@ -336,19 +427,20 @@ def _operands(q, k, v):
     return q.contiguous(), k.contiguous(), v.contiguous()
 
 
-def _mean(q, k, lse, pad_interval, lib=None):
+def _mean(q, k, lse, pad_interval, lib=None, head_dim=None):
     """The mean pass: recompute the probabilities tile by tile from the
     flash pass's row statistic, sum the heads, write the mean once. The
     query tiles of all heads stay in shared memory up to
     ``lib.attn_mean_resident_heads(d)`` heads, and stream beside the keys
-    above."""
+    above. ``head_dim`` as in ``flash_forward``."""
     _require_contiguous("attention mean pass", q, k, lse)
     b, h, t, d = q.shape
+    sd = d if head_dim is None else head_dim
     lib = forward_library() if lib is None else lib
     mean = torch.empty((b, t, t), device=q.device, dtype=q.dtype)
     lo, hi = _gap(t, pad_interval)
     err = lib.attn_mean_forward(q.data_ptr(), k.data_ptr(), lse.data_ptr(), mean.data_ptr(), b, h,
-                                t, d, lo, hi, d**-0.5 * _LOG2E,
+                                t, d, lo, hi, sd**-0.5 * _LOG2E,
                                 torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "attn_mean_forward")
     return mean

@@ -5,8 +5,8 @@ known masks of a synthetic corpus. The port's twin of
     python -m attentionshift_torch.tools.analysis.learning_check [--steps 600] \\
         [--eval-images 8] [--train-images 8] [--corpus discs|lobes|lobes-tex] \\
         [--milestones 0 250 ...] [--det-eval] [--curve-out F.jsonl] [--f32] \\
-        [--save-ckpt F [--save-dtype bfloat16]] [--dagger N] [--init-seed S] [--device cpu] \\
-        [--no-pallas]
+        [--save-ckpt F [--save-dtype bfloat16]] [--dagger N] [--init-seed S | --init-jax-key K] \\
+        [--train-seed S] [--device cpu] [--no-pallas]
 
 On the blob corpus the true instance masks are known, so the quality of
 the pseudo-label engine is measured directly: the flagship model
@@ -22,14 +22,18 @@ to ``--curve-out`` when given, and a summary line at the end.
 The corpus (``make_sample``) draws with numpy exactly as the JAX tool
 does, so both tools train and score on the same images. Every other draw
 comes from a ``torch.Generator`` seeded where the JAX tool seeds a key:
-train step ``it`` from 42 + it, the scoring from 7, the Mask R-CNN's init
-from 1 and its step ``it`` from 1000 + it. Torch cannot replay JAX's
-streams, and the two packages' initialisations differ, so the two tools'
-trajectories differ by design: compare curves, not rows.
+train step ``it`` from 42 + 1000000 S + it (S = ``--train-seed``, 0 by
+default), the scoring from 7, the Mask R-CNN's init from 1 and its step
+``it`` from 1000 + it. Torch cannot replay JAX's train-time streams, so
+the two tools' trajectories differ by design: compare curves, not rows.
 
 The model starts from ``init_weights(0)`` (``--init-seed`` picks another
 seed), which draws by the JAX modules' rules (flax's ``lecun_normal`` kernels), as the JAX tool's
-``model.init`` does. The optimizer is ``train.build_optimizer`` with every
+``model.init`` does. ``--init-jax-key K`` starts it instead from exactly
+the weights the JAX tool's ``model.init`` gives with ``PRNGKey(K)`` (the
+JAX tool uses key 0), replayed without JAX by ``models/flax_replay.py``
+from the committed manifest of its parameter tree and checked against the
+manifest's fingerprint of key 0 when K is 0. The optimizer is ``train.build_optimizer`` with every
 lr scale 1.0 (``layer_decay=1.0``), the scales the JAX tool gets by
 handing ``build_optimizer`` its whole variables dict; unlike the JAX
 tool, the port keeps ``fpn1_bn``'s running statistics as buffers, outside
@@ -189,19 +193,40 @@ def det_mask_iou_of(dets, held) -> float:
 
 
 def build_model(args, device):
-    """The flagship detector of the JAX tool, seeded init (``--init-seed``,
+    """The flagship detector of the JAX tool: the JAX tool's own initial
+    weights with ``--init-jax-key``, else a seeded init (``--init-seed``,
     0 by default)."""
     import torch
 
     from ...models import AttnShiftDetector
 
     dtype = torch.float32 if args.f32 or device.type == "cpu" else torch.bfloat16
-    return AttnShiftDetector(
+    model = AttnShiftDetector(
         num_classes=20, embed_dim=384, depth=12, num_heads=6, img_size=224,
         point_tokens=100, cam_layer=7, max_gt=G, use_remat=True,
         num_proposals=512, rpn_nms_pre=1000, rcnn_samples=256, mask_sample_cap=64,
         dtype=dtype, device=device,
-    ).init_weights(getattr(args, "init_seed", 0))
+    )
+    key = getattr(args, "init_jax_key", None)
+    if key is None:
+        return model.init_weights(getattr(args, "init_seed", 0))
+    return load_jax_init(model, key)
+
+
+def load_jax_init(model, key: int):
+    """Load the JAX tool's ``model.init`` weights for ``PRNGKey(key)``,
+    replayed from the committed manifest (``models/flax_replay.py``); for
+    the manifest's own key the replay must match its fingerprint."""
+    from ...convert import load_flax
+    from ...models import flax_replay
+
+    manifest = flax_replay.load_manifest()
+    variables = flax_replay.replay_variables(manifest, key)
+    if key == manifest["fingerprint_key"]:
+        bad = flax_replay.fingerprint_mismatches(variables, manifest["fingerprint"])
+        if bad:
+            raise RuntimeError(f"flax replay of key {key} misses its fingerprint: {bad[:5]}")
+    return load_flax(model, variables)
 
 
 def build_rcnn(device):
@@ -259,6 +284,12 @@ def det_map(model, held, wh) -> dict:
     return det_map_of(_test_outputs(model, held, wh), held, model.num_classes)
 
 
+def train_seed(args, it: int) -> int:
+    """The seed of train step ``it``'s generator: 42 + it, shifted by
+    1000000 per ``--train-seed``."""
+    return 42 + 1_000_000 * getattr(args, "train_seed", 0) + it
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description="Train the flagship on blobs and score what it learns.")
     ap.add_argument("--steps", type=int, default=600)
@@ -286,6 +317,12 @@ def parse_args(argv=None):
                          "N steps, then score both models' detections held-out")
     ap.add_argument("--init-seed", type=int, default=0,
                     help="seed of the flagship's init (init_weights); the JAX tool's key is 0")
+    ap.add_argument("--init-jax-key", type=int, default=None, metavar="K",
+                    help="start from the JAX tool's model.init weights for PRNGKey(K), replayed "
+                         "without JAX (models/flax_replay.py), instead of init_weights")
+    ap.add_argument("--train-seed", type=int, default=0, metavar="S",
+                    help="shift of the train steps' generator seeds (42 + 1000000 S + step); "
+                         "0 keeps the tool's default draws")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     return ap.parse_args(argv)
 
@@ -335,7 +372,7 @@ def main(argv=None) -> dict:
                     f.write(json.dumps(row) + "\n")
         if it == args.steps:
             break
-        gen = torch.Generator(device=device).manual_seed(42 + it)
+        gen = torch.Generator(device=device).manual_seed(train_seed(args, it))
         state, m = step_fn(state, batches[it % len(batches)], generator=gen)
         if it % 50 == 0:
             last_loss = float(m["loss_total"])

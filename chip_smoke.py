@@ -5232,6 +5232,321 @@ def phase_diagnosis(results: dict, smi: str) -> dict:
     return total
 
 
+# phase_head_dims: the attention kernels at head dims the Pallas kernels take
+# (d divisible by 8), at (1, 768 // d, HD_T, d) bf16: 1024 patch tokens, a
+# 28-token gap and 100 point tokens
+HD_DIMS = (128, 8, 24, 48, 80, 96)
+HD_T = 1024 + 28 + 100
+HD_GAP = (1024, 1052)
+HD_KERNELS = ("attention_capture", "attention_plain", "attention_bwd_dq", "attention_bwd_dkv")
+
+
+def head_dim_inputs(d: int, dev):
+    """q, k, v and an upstream gradient (zero on the gap's rows) at head
+    dim ``d``, 768 // d heads."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(300 + d)
+    q, k, v, g = (torch.randn((1, 768 // d, HD_T, d), generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(4))
+    g[:, :, HD_GAP[0]:HD_GAP[1]] = 0
+    return q, k, v, g
+
+
+def sdpa_mask(t: int, gap, dev):
+    """SDPA's boolean keep-mask of the columns outside ``gap``."""
+    import torch
+
+    col = torch.arange(t, device=dev)
+    return ((col < gap[0]) | (col >= gap[1]))[None, None, None, :]
+
+
+def phase_head_dims(results: dict, dev, smi: str) -> dict:
+    """The four attention kernels at every head dim of ``HD_DIMS``: d = 128
+    on its own instance, d = 8, 24 (on 32), 48 (on 64), 80, 96 (on 128)
+    through ``ops/attention.py``'s route (zero-padded q, k, v, the scale of
+    the true d, outputs sliced back). The path: per d, both ops forward and
+    the backward of both, through the entry points, with the counts at 0
+    just before; each d must launch its instance's four kernels (capture 1,
+    plain 1, dq 2, dkv 2) and nothing else. Then each d's pair against the
+    plain versions (``check_attention_pair``: out and gradients within 4 bf16
+    ulps, the mean per entry within ``capture_mean_limit``, controls: no
+    d^-0.5, the temperature and the last head off) and, for a padded d, a
+    control with the scale of the padded width, which must fail the out
+    check. Times (CUDA events, in turns): each d's plain op and its
+    backward beside SDPA's forward and backward with the same mask; the d =
+    128 instances alone for the kernel table, with their bounds, plain
+    versions and registers. Returns the path's launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from attentionshift_torch.ops import attention
+    from attentionshift_torch.ops._build import reset_launches
+
+    cases = {d: head_dim_inputs(d, dev) for d in HD_DIMS}
+    want = expected_launches()
+    for d in HD_DIMS:
+        kd = attention.kernel_head_dim(d)
+        for name, n in zip(HD_KERNELS, (1, 1, 2, 2)):
+            want[attention.kernel_name(name, kd)] += n
+    reset_launches()
+    for q, k, v, g in cases.values():
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out, _ = attention.attention_with_capture(*leaves, HD_GAP)
+        out2 = attention.attention_no_capture(*leaves, HD_GAP)
+        torch.autograd.backward([out, out2], [g, g])
+    sync()
+    launches = launch_counts()
+    if launches != want or any(attention.PLAIN_ROUTE.values()):
+        raise AssertionError(f"head dims: launches {nonzero(launches)} != {nonzero(want)}, plain "
+                             f"route {attention.PLAIN_ROUTE}")
+    log(f"[head-dims] path over d = {HD_DIMS}: launches {nonzero(launches)}, no plain route: ok")
+    for d, (q, k, v, g) in cases.items():
+        kd = attention.kernel_head_dim(d)
+        errs = check_attention_pair(f"head-dim {d} (instance {kd}) {tuple(q.shape)}", q, k, v, g,
+                                    HD_GAP)
+        if kd != d:  # the scale of the padded width must fail the out check
+            ref = attention.attention_reference(q, k, v, HD_GAP)[0]
+            ctl = attention.forward_on_instance(
+                lambda a, b, c, pi, hd: attention.attention_reference(a, b, c, pi), q, k, v,
+                HD_GAP)[0]
+            got = attention.attention_no_capture(q, k, v, HD_GAP)
+            tol, ce = bf16_ulps(ref, 4), max_err(got, ctl)
+            if not ce > tol:
+                raise AssertionError(f"head-dim {d}: the out check cannot see the scale of d = {kd}")
+            log(f"[check] head-dim {d}: control (scale of the padded d = {kd}) {ce:.3e} > {tol:.1e}: "
+                f"ok")
+            del ref, ctl, got
+        if d == 128:
+            for name, key in zip(HD_KERNELS, ("capture", "plain", "dq", "dkv")):
+                results[attention.kernel_name(name, 128)] = dict(max_abs_err=errs[key])
+    for d, (q, k, v, g) in cases.items():
+        mask = sdpa_mask(HD_T, HD_GAP, dev)
+        (fwd_ms, sdpa_fwd), _ = in_turns(
+            lambda: attention.attention_no_capture(q, k, v, HD_GAP),
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        ours = attention.attention_no_capture(*leaves, HD_GAP)
+        sdpa = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+        (bwd_ms, sdpa_bwd), _ = in_turns(
+            lambda: torch.autograd.grad(ours, leaves, g, retain_graph=True),
+            lambda: torch.autograd.grad(sdpa, leaves, g, retain_graph=True))
+        log(f"[time] {smi}: head-dim {d} {tuple(q.shape)} on instance "
+            f"{attention.kernel_head_dim(d)}: plain op {fwd_ms:.4f} ms = {fwd_ms / sdpa_fwd:.2f}x "
+            f"SDPA's forward ({sdpa_fwd:.4f}); its backward {bwd_ms:.4f} ms = "
+            f"{bwd_ms / sdpa_bwd:.2f}x SDPA's backward ({sdpa_bwd:.4f}) (medians of 6 in turns)")
+        del leaves, ours, sdpa
+    q, k, v, g = cases[128]
+    b, h, t, d = q.shape
+    mask = sdpa_mask(t, HD_GAP, dev)
+    _, lse = attention.flash_forward(q, k, v, HD_GAP, with_lse=True)
+    _, dd = attention.attention_backward_dq(q, k, v, lse, g, HD_GAP)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+
+    def pair():
+        attention.attention_backward_dq(q, k, v, lse, g, HD_GAP)
+        attention.attention_backward_dkv(q, k, v, lse, dd, g, HD_GAP)
+
+    (flash_ms, sdpa_fwd), _ = in_turns(
+        lambda: attention.flash_forward(q, k, v, HD_GAP, with_lse=False),
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+    (pair_ms, lib_bwd), _ = in_turns(
+        pair, lambda: torch.autograd.grad(sdpa_out, leaves, g, retain_graph=True))
+    del sdpa_out, leaves
+    plain_bwd = cuda_time(lambda: attention.attention_backward_reference(q, k, v, g, HD_GAP),
+                          reps=3)
+    reset_launches()
+    qkv_bytes, flops, stat_bytes = 3 * q.numel() * 2, 4.0 * b * h * t * t * d, 2 * b * h * t * 4
+    times = {
+        "attention_capture_d128": dict(
+            ms=median_time(lambda: attention.attention_with_capture(q, k, v, HD_GAP)),
+            plain_ms=cuda_time(lambda: attention.attention_reference(q, k, v, HD_GAP), reps=3),
+            library_ms=None, bytes=qkv_bytes + q.numel() * 2 + b * t * t * 2, ops=flops),
+        "attention_plain_d128": dict(
+            ms=median_time(lambda: attention.attention_no_capture(q, k, v, HD_GAP)),
+            plain_ms=cuda_time(lambda: attention.attention_reference(q, k, v, HD_GAP)[0], reps=3),
+            library_ms=sdpa_fwd, bytes=qkv_bytes + q.numel() * 2, ops=flops),
+        "attention_bwd_dq_d128": dict(
+            ms=median_time(lambda: attention.attention_backward_dq(q, k, v, lse, g, HD_GAP)),
+            plain_ms=plain_bwd, library_ms=lib_bwd, bytes=6 * q.numel() * 2 + stat_bytes,
+            ops=6.0 * b * h * t * t * d),
+        "attention_bwd_dkv_d128": dict(
+            ms=median_time(lambda: attention.attention_backward_dkv(q, k, v, lse, dd, g, HD_GAP)),
+            plain_ms=plain_bwd, library_ms=lib_bwd, bytes=6 * q.numel() * 2 + stat_bytes,
+            ops=8.0 * b * h * t * t * d),
+    }
+    reset_launches()
+    log(f"[time] {smi}: d128 flash pass {flash_ms:.4f} ms = {flops / flash_ms / 1e9:.1f} TFLOP/s, "
+        f"{flash_ms / sdpa_fwd:.2f}x SDPA's forward ({sdpa_fwd:.4f} ms); backward pair "
+        f"{pair_ms:.4f} ms = {pair_ms / lib_bwd:.2f}x SDPA's backward ({lib_bwd:.4f} ms), in turns")
+    for name, tm in times.items():
+        t_bytes = tm["bytes"] / PEAK_BYTES * 1e3
+        t_ops = tm["ops"] / PEAK_BF16 * 1e3
+        results[name].update(ms=tm["ms"], plain_ms=tm["plain_ms"], library_ms=tm["library_ms"],
+                             bound_ms=max(t_bytes, t_ops),
+                             bound_by="bytes" if t_bytes >= t_ops else "operations")
+        log(f"[time] {name}: kernel {tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, library "
+            f"{tm['library_ms'] if tm['library_ms'] is None else round(tm['library_ms'], 4)} ms, "
+            f"bound {results[name]['bound_ms']:.4f} ms ({results[name]['bound_by']}), "
+            f"{tm['ops'] / (tm['ms'] * 1e-3) / 1e12:.1f} TFLOP/s")
+    for src, kern in (("attention", "flash_fwd"), ("attention", "attn_mean"),
+                      ("attention_bwd", "bwd_dq"), ("attention_bwd", "bwd_dkv")):
+        log(f"[build] {registers(src, kern)}")
+    return launches
+
+
+# phase_decoder_kernels: the decoder heads at the JAX heads' kernel shapes
+# (BoxHeadRec: 512 RoIs of 7 x 7 tokens + a det token; MaskHeadPointSup: 128
+# RoIs of 14 x 14), 8 heads of 32
+DEC_CASES = (("BoxHeadRec", 512, 7), ("MaskHeadPointSup", 128, 14))
+DEC_LAUNCHES = dict(attention_plain_d32=4, attention_bwd_dq_d32=4, attention_bwd_dkv_d32=4)
+
+
+def phase_decoder_kernels(dev) -> dict:
+    """``BoxHeadRec`` and ``MaskHeadPointSup`` with ``use_kernel=True``
+    against the same heads with ``use_kernel=False`` (plain PyTorch
+    attention), bf16 on the card, forward and the backward of a seeded
+    weighted sum of the outputs: outputs and input gradient by
+    ``check_against_plain`` (the f32 plain head is the witness of bf16
+    rounding; control: the plain head with every block's qkv weight
+    doubled). Launches per pass: 4 ``flash_fwd`` forward, 4 + 4 backward, on
+    the head-dim-32 instance. Returns the path's launches."""
+    import torch
+
+    from attentionshift_torch.models import heads as heads_mod
+    from attentionshift_torch.ops._build import reset_launches
+
+    def outputs(out):
+        return [o for o in out if o is not None] if isinstance(out, tuple) else [out]
+
+    total = expected_launches()
+    for name, rois, s in DEC_CASES:
+        torch.manual_seed(11)
+        state = getattr(heads_mod, name)().state_dict()
+        mods = {}
+        for tag, use_kernel, dtype in (("kernel", True, torch.bfloat16),
+                                       ("plain", False, torch.bfloat16),
+                                       ("plain32", False, torch.float32),
+                                       ("control", False, torch.bfloat16)):
+            mods[tag] = getattr(heads_mod, name)(use_kernel=use_kernel)
+            mods[tag].load_state_dict(state)
+            mods[tag].to(device=dev, dtype=dtype)
+        with torch.no_grad():  # every block's logits 4x: a sharper attention
+            for blk in mods["control"].decoder_blocks:
+                blk.attn.qkv.weight.mul_(2.0)
+        gen = torch.Generator(device=dev).manual_seed(12)
+        feats = torch.randn((rois, s, s, 384), generator=gen, device=dev)
+        with torch.no_grad():
+            wts = [torch.randn(o.shape, generator=gen, device=dev)
+                   for o in outputs(mods["plain32"](feats))]
+        runs = {}
+        for tag, mod in mods.items():
+            x = feats.to(next(mod.parameters()).dtype).clone().requires_grad_(True)
+            reset_launches()
+            out = outputs(mod(x))
+            sync()
+            fwd = launch_counts()
+            reset_launches()
+            sum((o.float() * wt).sum() for o, wt in zip(out, wts)).backward()
+            sync()
+            bwd = launch_counts()
+            runs[tag] = ([o.detach() for o in out], x.grad)
+            if tag == "kernel":
+                want_f = expected_launches(attention_plain_d32=4)
+                want_b = expected_launches(attention_bwd_dq_d32=4, attention_bwd_dkv_d32=4)
+                if fwd != want_f or bwd != want_b:
+                    raise AssertionError(f"{name}: launches {nonzero(fwd)} + {nonzero(bwd)}")
+                for k in total:
+                    total[k] += fwd[k] + bwd[k]
+            elif any(fwd.values()) or any(bwd.values()):
+                raise AssertionError(f"{name} {tag}: the plain head launched {nonzero(fwd)}")
+        check_against_plain(f"decoder {name} ({rois} RoIs, {s * s + (name == 'BoxHeadRec')} "
+                            f"tokens, 8 heads of 32)", runs["kernel"], runs["plain"],
+                            runs["plain32"], runs["control"])
+    log(f"[decoder] both heads' kernel option: launches {nonzero(total)}: ok")
+    return total
+
+
+# phase_jax_init: the learning check from the JAX tool's own initial weights.
+# The JAX tool's step-0 rows from those weights: on a TPU (bf16, Pallas;
+# tools/fixtures/learning_curve_r5.jsonl) and on the CPU (plain XLA, f32 and
+# bf16: tools/analysis/learning_check.py --steps 0 --milestones 0 --no-pallas
+# --corpus lobes --eval-images 8 --train-images 16 [--f32]). The box IoU is
+# 0.0984 on all three; the mask IoU spans 0.2034-0.271 with the numerics
+# alone (flat CAMs at the init put the pseudo masks on near-ties)
+JAX_STEP0_BOX = 0.0984
+JAX_STEP0_MASK = {"tpu_bf16": 0.2451, "cpu_f32": 0.271, "cpu_bf16": 0.2034}
+JAX_STEP0_TOL = 0.01
+JAX_INIT_STEPS = 20
+JAX_INIT_CONTROL_LEAVES = 16
+JAX_INIT_ARGV = ["--init-jax-key", "0", "--steps", str(JAX_INIT_STEPS), "--milestones", "0",
+                 str(JAX_INIT_STEPS), "--corpus", "lobes", "--train-images", "16",
+                 "--eval-images", "8", "--det-eval"]
+
+
+def phase_jax_init(smi: str) -> dict:
+    """The replay of the JAX tool's ``model.init`` (``models/flax_replay.py``)
+    for key 0 against the committed manifest's fingerprint, and key 1's on
+    ``JAX_INIT_CONTROL_LEAVES`` drawn leaves, a control, which must miss
+    every one of them; then ``learning_check --init-jax-key 0``
+    for ``JAX_INIT_STEPS`` steps with milestones 0 and the last: its step-0
+    row beside the JAX tool's own from the same weights: mAP25 and mAP50 0,
+    the pseudo box IoU within ``JAX_STEP0_TOL`` of 0.0984, the pseudo mask
+    IoU within ``JAX_STEP0_TOL`` of the span of the JAX tool's rows
+    (``JAX_STEP0_MASK``); exact launches as in ``phase_learning``. Returns
+    the run's launches."""
+    import math
+
+    from attentionshift_torch.models import flax_replay
+    from attentionshift_torch.ops._build import reset_launches
+    from attentionshift_torch.tools.analysis import learning_check
+
+    manifest = flax_replay.load_manifest()
+    t0 = time.perf_counter()
+    bad0 = flax_replay.fingerprint_mismatches(flax_replay.replay_variables(manifest, 0),
+                                              manifest["fingerprint"])
+    t_replay = time.perf_counter() - t0
+    # the control: key 1 on the first JAX_INIT_CONTROL_LEAVES drawn leaves
+    drawn = [x for x in manifest["leaves"] if x["rule"]["kind"] not in ("zeros", "ones")
+             and math.prod(x["shape"]) < 2**20][:JAX_INIT_CONTROL_LEAVES]
+    sub = {x["path"]: manifest["fingerprint"][x["path"]] for x in drawn}
+    bad1 = flax_replay.fingerprint_mismatches(
+        flax_replay.replay_variables(dict(manifest, leaves=drawn), 1), sub)
+    n = len(manifest["fingerprint"])
+    if bad0 or len(bad1) != len(drawn):
+        raise AssertionError(f"flax replay: key 0 misses {bad0[:5]}; key 1 misses only "
+                             f"{len(bad1)} of {len(drawn)} leaves")
+    log(f"[jax-init] replay of PRNGKey(0) matches the manifest's fingerprint on all {n} leaves "
+        f"({t_replay:.1f} s); control PRNGKey(1) misses all {len(drawn)} drawn leaves it "
+        f"replays: ok")
+    steps = []
+    with timed_train_steps(steps):
+        reset_launches()
+        out = learning_check.main(JAX_INIT_ARGV)
+        sync()
+        total = launch_counts()
+    want = expected_launches(**{k: len(steps) * v for k, v in TRAIN_LAUNCHES.items()})
+    for k, v in SEED_LAUNCHES.items():
+        want[k] += 2 * 8 * v
+    want["attention_plain"] += 2 * 8 * SINGLE_FLASH_PER_IMAGE
+    if total != want or len(steps) != JAX_INIT_STEPS:
+        raise AssertionError(f"jax-init learning check: launches {nonzero(total)} != "
+                             f"{nonzero(want)} ({len(steps)} steps)")
+    row0, last = out["table"][0], out["table"][-1]
+    lo, hi = min(JAX_STEP0_MASK.values()), max(JAX_STEP0_MASK.values())
+    ok = (row0["mAP25"] == 0.0 and row0["mAP50"] == 0.0
+          and abs(row0["pseudo_box_iou"] - JAX_STEP0_BOX) <= JAX_STEP0_TOL
+          and lo - JAX_STEP0_TOL <= row0["pseudo_mask_iou"] <= hi + JAX_STEP0_TOL)
+    log(f"[jax-init] {smi}: step 0 from the JAX key-0 weights: mAP25 {row0['mAP25']}, mAP50 "
+        f"{row0['mAP50']}, pseudo box IoU {row0['pseudo_box_iou']} (JAX {JAX_STEP0_BOX}), pseudo "
+        f"mask IoU {row0['pseudo_mask_iou']} (JAX {JAX_STEP0_MASK}; limit {JAX_STEP0_TOL} "
+        f"outside their span); step {JAX_INIT_STEPS} {last}")
+    if not ok or not math.isfinite(last["loss"]):
+        raise AssertionError(f"jax-init: step-0 row {row0} off the JAX tool's")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ablate", nargs="*", metavar="SOURCE",
@@ -5239,7 +5554,7 @@ def main(argv=None) -> int:
                          "of ABLATIONS (default: all sources)")
     ap.add_argument("--parallel-rank", nargs=2, metavar=("RANK", "DIR"),
                     help=argparse.SUPPRESS)  # one rank of phase_parallel
-    ap.add_argument("--only", choices=["diagnosis"],
+    ap.add_argument("--only", choices=["diagnosis", "head_dims", "decoder_kernels", "jax_init"],
                     help="only the card, the build and this phase (no kernel line, no result)")
     args = ap.parse_args(argv)
     sys.path.insert(0, HERE)
@@ -5261,8 +5576,12 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     phase_build()
-    if args.only == "diagnosis":
-        phase_diagnosis({name: {"max_abs_err": 0.0} for name in KERNELS}, smi)
+    if args.only is not None:
+        only = {"diagnosis": lambda: phase_diagnosis({n: {"max_abs_err": 0.0} for n in KERNELS}, smi),
+                "head_dims": lambda: phase_head_dims({}, dev, smi),
+                "decoder_kernels": lambda: phase_decoder_kernels(dev),
+                "jax_init": lambda: phase_jax_init(smi)}
+        only[args.only]()
         log(smi)
         return 0
     results: dict = {}
@@ -5301,6 +5620,9 @@ def main(argv=None) -> int:
     tools = phase_user_tools(ev, smi)
     parallel = phase_parallel(smi)
     diagnosis = phase_diagnosis(results, smi)
+    head_dims = phase_head_dims(results, dev, smi)
+    decoder = phase_decoder_kernels(dev)
+    jax_init = phase_jax_init(smi)
     phase_times(results, inp, model, slice_inp, gen)
     phase_swin_times(results, sw, smi)
     phase_main_path_inputs(results, handed)
@@ -5318,7 +5640,8 @@ def main(argv=None) -> int:
                     point2bbox=p2b["launches"], mae_encoder=mae["launches"], mim=mim["launches"],
                     debug_overfit=learning["debug_overfit"],
                     learning_check=learning["learning_check"], export=export, user_tools=tools,
-                    parallel=parallel, diagnosis=diagnosis)
+                    parallel=parallel, diagnosis=diagnosis, head_dims=head_dims,
+                    decoder_kernels=decoder, jax_init=jax_init)
     table = []
     for name, kern in KERNELS.items():
         r = results[name]

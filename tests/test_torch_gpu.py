@@ -282,24 +282,94 @@ def test_attention_forward_kernels_are_deterministic(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [48, 16, 128])
+@pytest.mark.parametrize("d", [136, 256, 48])
 def test_attention_kernels_refuse_other_head_dims(cuda, d):
-    """A CUDA tensor launches the kernel or raises: a head dim without an
-    instance (not 64 or 32) raises ``ValueError`` in every op, forward and
-    backward, and launches nothing; no path gives way to the plain
-    version."""
+    """A CUDA tensor launches the kernel or raises: a head dim divisible by
+    8 above 128 has no instance and raises ``ValueError`` in both ops; the
+    backward launchers take an instance's head dim (32, 64, 128) only, as
+    the ops hand them padded inputs. Nothing launches, and no path gives
+    way to the plain version."""
     from attentionshift_torch.ops._build import KERNELS, reset_launches
 
     reset_launches()
     q = torch.zeros((1, 2, 64, d), device=cuda, dtype=torch.bfloat16)
     lse = torch.zeros((1, 2, 64), device=cuda)
-    for call in (lambda: attention.attention_with_capture(q, q, q),
-                 lambda: attention.attention_no_capture(q, q, q),
-                 lambda: attention.attention_backward_dq(q, q, q, lse, q),
-                 lambda: attention.attention_backward_dkv(q, q, q, lse, lse, q)):
-        with pytest.raises(ValueError, match="head dim 64 or 32"):
+    calls = [lambda: attention.attention_backward_dq(q, q, q, lse, q),
+             lambda: attention.attention_backward_dkv(q, q, q, lse, lse, q)]
+    if d > 128:
+        calls += [lambda: attention.attention_with_capture(q, q, q),
+                  lambda: attention.attention_no_capture(q, q, q)]
+    for call in calls:
+        with pytest.raises(ValueError, match="head dim|no instance"):
             call()
     assert not any(k.launches for k in KERNELS.values())
+    assert not any(attention.PLAIN_ROUTE.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,kd", [(8, 32), (48, 64), (80, 128), (128, 128)])
+def test_head_dims_run_their_instance(cuda, d, kd):
+    """A head dim divisible by 8 up to 128 runs the instance ``kd`` (q, k,
+    v zero-padded, the scale of d): both ops and the backward against the
+    plain versions within 4 bf16 ulps, each op one launch of ``kd``'s
+    instance and the backward one pair, none on the plain route."""
+    from attentionshift_torch.ops._build import KERNELS, reset_launches
+
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v, g = (torch.randn((1, 3, 200, d), generator=gen, device=cuda).to(torch.bfloat16)
+                  for _ in range(4))
+    gap = (150, 170)
+    g[:, :, gap[0]:gap[1]] = 0
+    reset_launches()
+    for key in PLAIN_ROUTE_KEYS:
+        attention.PLAIN_ROUTE[key] = 0
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out, mean = attention.attention_with_capture(*leaves, gap)
+    got = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    ref_out, ref_mean = attention.attention_reference(q, k, v, gap)
+    want = attention.attention_backward_reference(q, k, v, g, gap)
+    assert float((out.float() - ref_out.float()).abs().max()) <= _ulps(ref_out, 4)
+    over = ((mean.float() - ref_mean.float()).abs() / attention.capture_mean_limit(ref_mean)).max()
+    assert float(over) <= 1.0
+    for a, w in zip(got, want):
+        assert float((a.float() - w.float()).abs().max()) <= _ulps(w, 4)
+    name = attention.kernel_name
+    assert {n: k.launches for n, k in KERNELS.items() if k.launches} == {
+        name("attention_capture", kd): 1, name("attention_bwd_dq", kd): 1,
+        name("attention_bwd_dkv", kd): 1}
+    assert not any(attention.PLAIN_ROUTE.values())
+
+
+@pytest.mark.gpu
+def test_head_dims_not_divisible_by_8_take_the_plain_route(cuda):
+    """d = 12 (the JAX package's plain path too): both ops and the
+    backward run the plain versions on the card, counted in
+    ``PLAIN_ROUTE``, with no kernel launch."""
+    from attentionshift_torch.ops._build import KERNELS, reset_launches
+
+    q = torch.randn((1, 2, 64, 12), device=cuda).to(torch.bfloat16).requires_grad_(True)
+    reset_launches()
+    for key in PLAIN_ROUTE_KEYS:
+        attention.PLAIN_ROUTE[key] = 0
+    out, _ = attention.attention_with_capture(q, q, q)
+    out2 = attention.attention_no_capture(q, q, q)
+    (out.float().sum() + out2.float().sum()).backward()
+    assert attention.PLAIN_ROUTE == {"attention_plain": 1, "attention_capture": 1,
+                                     "attention_backward": 2}
+    assert not any(k.launches for k in KERNELS.values())
+    ref = attention.attention_reference(q.detach(), q.detach(), q.detach())[0]
+    assert torch.equal(out2.detach(), ref)
+
+
+PLAIN_ROUTE_KEYS = ("attention_plain", "attention_capture", "attention_backward")
+
+
+def _ulps(ref, n):
+    import math
+
+    top = max(float(ref.float().abs().max()), 1e-30)
+    return n * 2.0 ** (math.floor(math.log2(top)) - 7)
 
 
 # (B, H, T, d, gap) of the cases beyond the ViT's (head dim 64, at most 16

@@ -365,7 +365,8 @@ def test_kernel_wrappers_count_only_their_launches():
         "ccl_batch", "meanshift_fixpoint", "attention_v2_bf16e", "attention_v3_nomin",
         "attention_v4_mxsum", "attention_v5_batched", "attention_v6_fusedsum",
         "attention_capture_d32", "attention_plain_d32", "attention_bwd_dq_d32",
-        "attention_bwd_dkv_d32"}
+        "attention_bwd_dkv_d32", "attention_capture_d128", "attention_plain_d128",
+        "attention_bwd_dq_d128", "attention_bwd_dkv_d128"}
 
 
 @pytest.mark.parametrize("err,words", [

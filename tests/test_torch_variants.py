@@ -261,7 +261,7 @@ def test_variant_wrapper_counts_and_refuses():
         assert KERNELS[kname].source == "attention_variants"
         # the cited line is the def of the function that reaches pallas_call
         assert src[line - 1].strip().startswith("def v"), src[line - 1]
-    assert len(KERNELS) == 15
+    assert len(KERNELS) == 19
 
 
 def _c_signature(name):
