@@ -1,5 +1,5 @@
 // Attention forward kernels for the ViT and Swin backbones (bf16, head dim
-// 64, 32 or 128, any number of heads).
+// 64, 32, 128 or a multiple of 128 above it, any number of heads).
 //
 // Replaces two Pallas TPU kernels of attentionshift_tpu/ops/attention.py:
 //   _kernel        (:251, via attention_with_capture): per-head softmax
@@ -32,6 +32,21 @@
 // thread. The flash pass's ring (10 tiles, 160 KB) and its registers (S,
 // O, P: ~120 a thread) allow one block per SM; the mean pass keeps up to 8
 // heads' query tiles resident (16 KB each).
+//
+// Head dims above 128 (ops/attention.py zero-pads a multiple of 8 above 128
+// to D = 128 * ceil(d / 128); the TPU kernels take any d divisible by 8)
+// take the wide route, flash_fwd_wide and attn_mean_wide: a head row is NS
+// = D / 128 slabs of 128 columns, each a HeadTile<128> at column 128 c of a
+// tensor map over the whole row, streamed through a two-slot ring, so
+// shared memory does not grow with D. The tensor cores bound it as at 128.
+// The flash pass is one warpgroup per (64 query rows, output slab): S
+// accumulates over the NS slabs of Q and K, then the online softmax and
+// O_sl += P V_sl (m64n128k16, 64 accumulators a thread); each of a query
+// tile's NS blocks recomputes the same S, so the route does (NS + 1) / 2
+// times the needed products (1.5x at d = 256, 2x at 384) and keeps O in
+// registers at any D. The mean pass walks its units' slabs the same way,
+// query tiles streamed. Every product waits for itself (no overlap of the
+// exp work with the next product): simple and right first.
 //
 // What the design does about it (helpers in hopper.cuh). The TPU kernel
 // kept all six heads' K/V and a (128, T) f32 row tile in 100 MB of VMEM;
@@ -125,6 +140,7 @@ constexpr int TILE = TILE_ROWS;
 constexpr int WG_THREADS = 128;  // one warpgroup
 constexpr int FWD_ROWS = FWD_WARPGROUPS * TILE_ROWS;
 constexpr int FWD_THREADS = FWD_WARPGROUPS * WG_THREADS;
+constexpr int WIDE_BLOCKS_PER_SM = 2;  // flash_fwd_wide blocks per SM (launch bounds)
 
 // flash_fwd: the query tiles, FWD_STAGES slots of (K, V), the barriers
 template <int HD>
@@ -231,16 +247,21 @@ __host__ __device__ constexpr int fwd_blocks_per_sm() {
 // (wait_group 0), so that ptxas sees which accumulators are in flight and
 // keeps the products asynchronous: the last tile recomputes its own S,
 // which nobody reads.
-template <int HD>
-__device__ __forceinline__ void fwd_step(const FwdArgs& a, float (&s)[32], float (&o)[HD / 2],
-                                         uint32_t (&pa)[4][4], float& m_a, float& m_b,
-                                         float& l_a, float& l_b, int j) {
-  using HT = HeadTile<HD>;
-  const int key0 = j * TILE;
-  if (tile_masked(key0, a.T, a.pad_lo, a.pad_hi)) {
+// The online softmax of one key tile from key0 on: `s` holds its finished
+// S. Masks the gap and the columns >= T, moves the running row maxima m
+// (scale_log2 domain) and sums l, rescales the NO output accumulators `o`,
+// and leaves p = exp2(s * scale_log2 - m) in `s` and, rounded to bf16, in
+// the A fragments `pa`.
+template <int NO>
+__device__ __forceinline__ void online_softmax(float (&s)[32], float (&o)[NO],
+                                               uint32_t (&pa)[4][4], float& m_a, float& m_b,
+                                               float& l_a, float& l_b, int key0, int T,
+                                               int pad_lo, int pad_hi, int tig,
+                                               float scale_log2) {
+  if (tile_masked(key0, T, pad_lo, pad_hi)) {
 #pragma unroll
     for (int i = 0; i < 32; ++i)
-      s[i] = masked_col(key0 + acc_col(i, a.tig), a.T, a.pad_lo, a.pad_hi) ? -INFINITY : s[i];
+      s[i] = masked_col(key0 + acc_col(i, tig), T, pad_lo, pad_hi) ? -INFINITY : s[i];
   }
   float mx_a = row_max(s, 0), mx_b = row_max(s, 2);
 #pragma unroll
@@ -250,19 +271,61 @@ __device__ __forceinline__ void fwd_step(const FwdArgs& a, float (&s)[32], float
   }
   // the running max in the scale_log2 domain; a row with every column
   // masked so far keeps a zero shift (no inf - inf)
-  const float mn_a = fmaxf(m_a, mx_a * a.scale_log2), mn_b = fmaxf(m_b, mx_b * a.scale_log2);
+  const float mn_a = fmaxf(m_a, mx_a * scale_log2), mn_b = fmaxf(m_b, mx_b * scale_log2);
   const float sh_a = mn_a == -INFINITY ? 0.f : mn_a;
   const float sh_b = mn_b == -INFINITY ? 0.f : mn_b;
   const float al_a = ex2(m_a - sh_a), al_b = ex2(m_b - sh_b);
   m_a = mn_a;
   m_b = mn_b;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) s[i] = ex2(fmaf(s[i], a.scale_log2, (i & 2) ? -sh_b : -sh_a));
+  for (int i = 0; i < 32; ++i) s[i] = ex2(fmaf(s[i], scale_log2, (i & 2) ? -sh_b : -sh_a));
   l_a = l_a * al_a + row_sum(s, 0);
   l_b = l_b * al_b + row_sum(s, 2);
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] *= (i & 2) ? al_b : al_a;
+  for (int i = 0; i < NO; ++i) o[i] *= (i & 2) ? al_b : al_a;
   acc_to_a(pa, s);
+}
+
+// The flash pass's epilogue for the rows r_a, r_a + 8 of a warpgroup: the
+// row sums over the quad, out = o / l as bf16 into columns [c0, c0 + 2 NO)
+// of rows of `ld` elements from `oh`, and, where `lh` is not null, each
+// row's log2-sum-exp.
+template <int NO>
+__device__ __forceinline__ void fwd_epilogue(const float (&o)[NO], float m_a, float m_b,
+                                             float l_a, float l_b, int r_a, int T, bf16* oh,
+                                             int ld, int c0, float* lh, int tig) {
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  l_a = fmaxf(l_a, 1e-30f);
+  l_b = fmaxf(l_b, 1e-30f);
+  const float inv_a = 1.f / l_a, inv_b = 1.f / l_b;
+  const int r_b = r_a + 8;
+#pragma unroll
+  for (int j = 0; j < NO / 4; ++j) {
+    const int c = c0 + j * 8 + tig * 2;
+    if (r_a < T)
+      *reinterpret_cast<uint32_t*>(oh + (size_t)r_a * ld + c) =
+          pack_bf16(o[4 * j] * inv_a, o[4 * j + 1] * inv_a);
+    if (r_b < T)
+      *reinterpret_cast<uint32_t*>(oh + (size_t)r_b * ld + c) =
+          pack_bf16(o[4 * j + 2] * inv_b, o[4 * j + 3] * inv_b);
+  }
+  if (lh != nullptr && tig == 0) {
+    if (r_a < T) lh[r_a] = (m_a == -INFINITY ? 0.f : m_a) + log2f(l_a);
+    if (r_b < T) lh[r_b] = (m_b == -INFINITY ? 0.f : m_b) + log2f(l_b);
+  }
+}
+
+template <int HD>
+__device__ __forceinline__ void fwd_step(const FwdArgs& a, float (&s)[32], float (&o)[HD / 2],
+                                         uint32_t (&pa)[4][4], float& m_a, float& m_b,
+                                         float& l_a, float& l_b, int j) {
+  using HT = HeadTile<HD>;
+  online_softmax<HD / 2>(s, o, pa, m_a, m_b, l_a, l_b, j * TILE, a.T, a.pad_lo, a.pad_hi, a.tig,
+                         a.scale_log2);
 
   const bool more = j + 1 < a.n;
   if (more) mbar_wait(&a.bars[1 + (j + 1) % FWD_STAGES], ((j + 1) / FWD_STAGES) & 1);
@@ -339,35 +402,55 @@ flash_fwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
   fence_regs(sc);
   for (int j = 0; j < a.n; ++j) fwd_step<HD>(a, sc, o, pa, m_a, m_b, l_a, l_b, j);
 
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
-    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
-  }
-  l_a = fmaxf(l_a, 1e-30f);
-  l_b = fmaxf(l_b, 1e-30f);
-  const float inv_a = 1.f / l_a, inv_b = 1.f / l_b;
   const int r_a = row0 + wg * TILE + ((a.tid >> 5) & 3) * 16 + ((a.tid & 31) >> 2);
-  const int r_b = r_a + 8;
-  bf16* oh = out + (size_t)a.plane * T * HD;
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j) {
-    const int c = j * 8 + a.tig * 2;
-    if (r_a < T)
-      *reinterpret_cast<uint32_t*>(oh + (size_t)r_a * HD + c) =
-          pack_bf16(o[4 * j] * inv_a, o[4 * j + 1] * inv_a);
-    if (r_b < T)
-      *reinterpret_cast<uint32_t*>(oh + (size_t)r_b * HD + c) =
-          pack_bf16(o[4 * j + 2] * inv_b, o[4 * j + 3] * inv_b);
-  }
-  if (lse2 != nullptr && a.tig == 0) {
-    float* lh = lse2 + (size_t)a.plane * T;
-    if (r_a < T) lh[r_a] = (m_a == -INFINITY ? 0.f : m_a) + log2f(l_a);
-    if (r_b < T) lh[r_b] = (m_b == -INFINITY ? 0.f : m_b) + log2f(l_b);
-  }
+  fwd_epilogue<HD / 2>(o, m_a, m_b, l_a, l_b, r_a, T, out + (size_t)a.plane * T * HD, HD, 0,
+                       lse2 == nullptr ? nullptr : lse2 + (size_t)a.plane * T, a.tig);
 }
 
 // ------------------------------------------------------------- attn_mean
+
+// acc += p = exp2(s * scale_log2 - lse2) of one head's S tile `s` of the
+// key tile from key0 on (nl: minus the rows' lse2); 0 at the gap and at
+// columns >= T
+__device__ __forceinline__ void add_probs(float (&acc)[32], const float (&s)[32], float nl_a,
+                                          float nl_b, int key0, int T, int pad_lo, int pad_hi,
+                                          int tig, float scale_log2) {
+  if (tile_masked(key0, T, pad_lo, pad_hi)) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float x = fmaf(s[i], scale_log2, (i & 2) ? nl_b : nl_a);
+      acc[i] += ex2(masked_col(key0 + acc_col(i, tig), T, pad_lo, pad_hi) ? -INFINITY : x);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] += ex2(fmaf(s[i], scale_log2, (i & 2) ? nl_b : nl_a));
+  }
+}
+
+// the head sum `acc` of rows r_a, r_a + 8 and the key tile from key0 on,
+// times inv_h, into this image's (T, T) mean as bf16
+__device__ __forceinline__ void store_mean_tile(bf16* mean, const float (&acc)[32], int r_a,
+                                                int key0, int T, int tig, float inv_h) {
+  const bool even = (T & 1) == 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = key0 + j * 8 + tig * 2;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r_a + 8 * half;
+      const float x0 = acc[4 * j + 2 * half] * inv_h, x1 = acc[4 * j + 2 * half + 1] * inv_h;
+      bf16* dst = mean + (size_t)r * T + col;
+      if (r < T) {
+        if (even && col < T) {
+          *reinterpret_cast<uint32_t*>(dst) = pack_bf16(x0, x1);
+        } else {  // odd T: a row starts at an odd element, store singly
+          if (col < T) dst[0] = __float2bfloat16(x0);
+          if (col + 1 < T) dst[1] = __float2bfloat16(x1);
+        }
+      }
+    }
+  }
+}
 
 struct MeanArgs {
   const uint8_t* q_s;  // H query tiles (resident)
@@ -440,38 +523,9 @@ __device__ __forceinline__ void mean_step(const MeanArgs& a, float (&cur)[32], f
     nl_a = r_a < a.T ? -lh[r_a] : 0.f;
     nl_b = r_a + 8 < a.T ? -lh[r_a + 8] : 0.f;
   }
-  if (tile_masked(key0, a.T, a.pad_lo, a.pad_hi)) {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const float x = fmaf(cur[i], a.scale_log2, (i & 2) ? nl_b : nl_a);
-      acc[i] += ex2(masked_col(key0 + acc_col(i, a.tig), a.T, a.pad_lo, a.pad_hi) ? -INFINITY : x);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] += ex2(fmaf(cur[i], a.scale_log2, (i & 2) ? nl_b : nl_a));
-  }
-
+  add_probs(acc, cur, nl_a, nl_b, key0, a.T, a.pad_lo, a.pad_hi, a.tig, a.scale_log2);
   if (h == a.H - 1) {  // every head summed: write the tile, start the next
-    const int r_a = (int)blockIdx.y * TILE + a.row_a;
-    const bool even = (a.T & 1) == 0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = key0 + j * 8 + a.tig * 2;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = r_a + 8 * half;
-        const float x0 = acc[4 * j + 2 * half] * a.inv_h, x1 = acc[4 * j + 2 * half + 1] * a.inv_h;
-        bf16* dst = a.mean + (size_t)r * a.T + col;
-        if (r < a.T) {
-          if (even && col < a.T) {
-            *reinterpret_cast<uint32_t*>(dst) = pack_bf16(x0, x1);
-          } else {  // odd T: a row starts at an odd element, store singly
-            if (col < a.T) dst[0] = __float2bfloat16(x0);
-            if (col + 1 < a.T) dst[1] = __float2bfloat16(x1);
-          }
-        }
-      }
-    }
+    store_mean_tile(a.mean, acc, a.row0 + a.row_a, key0, a.T, a.tig, a.inv_h);
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[i] = 0.f;
   }
@@ -546,6 +600,189 @@ attn_mean(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
   }
 }
 
+// ------------------------------------------------------- the wide route
+//
+// Head dims above 128 (ops/attention.py zero-pads a multiple of 8 above
+// 128 to D = 128 * ceil(d / 128)): a head row is NS = D / 128 slabs of 128
+// columns, slab c the HeadTile<128> at column 128 c of a tensor map over
+// the whole row (two 64-column TMA boxes, 16 KB per 64 rows), so shared
+// memory does not grow with D. S = Q K^T accumulates slab by slab, eight
+// k16 steps each, into one accumulator. Every product waits for itself:
+// the route is simple and right first; it has had no redesign.
+
+// ring slot of flash_fwd_wide: the unit's Q and K slabs, then V's output slab
+constexpr int WIDE_FWD_SLOT = 3 * Slab::BYTES;
+constexpr size_t wide_fwd_smem() {
+  return (size_t)WIDE_STAGES * WIDE_FWD_SLOT + WIDE_STAGES * sizeof(uint64_t) + 1024;
+}
+// ring slot of attn_mean_wide: the unit's K and Q slabs
+constexpr int WIDE_MEAN_SLOT = 2 * Slab::BYTES;
+constexpr size_t wide_mean_smem() {
+  return (size_t)WIDE_STAGES * WIDE_MEAN_SLOT + WIDE_STAGES * sizeof(uint64_t) + 1024;
+}
+
+// flash_fwd_wide's unit u = j * NS + c: slab c of the block's query rows
+// and of key tile j, and at c = NS - 1 slab sl of V's key tile j
+__device__ __forceinline__ void wide_fwd_load(uint8_t* ring, uint64_t* bars,
+                                              const CUtensorMap* map_q, const CUtensorMap* map_k,
+                                              const CUtensorMap* map_v, int u, int NS, int sl,
+                                              int row0, int plane) {
+  const int st = u % WIDE_STAGES, j = u / NS, c = u % NS;
+  uint8_t* slot = ring + st * WIDE_FWD_SLOT;
+  const bool last = c == NS - 1;
+  mbar_expect_tx(&bars[st], (last ? 3 : 2) * Slab::BYTES);
+  Slab::load(slot, map_q, &bars[st], row0, plane, c * SLAB_COLS);
+  Slab::load(slot + Slab::BYTES, map_k, &bars[st], j * TILE, plane, c * SLAB_COLS);
+  if (last) Slab::load(slot + 2 * Slab::BYTES, map_v, &bars[st], j * TILE, plane, sl * SLAB_COLS);
+}
+
+// One block = one warpgroup = 64 query rows of one head and output slab sl
+// (blockIdx.x = query tile * NS + sl). Per key tile, NS units through a
+// WIDE_STAGES-slot ring: S += Q_c K_c^T; after the last, the online softmax
+// of flash_fwd and O_sl += P V_sl (m64n128k16). The NS blocks of a query
+// tile compute the same S in the same order, so they share the softmax's
+// statistics bit for bit; slab 0's block writes lse2.
+__global__ void __launch_bounds__(WG_THREADS, WIDE_BLOCKS_PER_SM)
+flash_fwd_wide(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+               const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ out,
+               float* __restrict__ lse2, int H, int T, int NS, int pad_lo, int pad_hi,
+               float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + WIDE_STAGES * WIDE_FWD_SLOT);
+  const int plane = blockIdx.z * H + blockIdx.y;
+  const int sl = blockIdx.x % NS;
+  const int row0 = blockIdx.x / NS * TILE;
+  const int nu = (T + TILE - 1) / TILE * NS;
+  const int tid = threadIdx.x, tig = tid & 3;
+  if (tid == 0) {
+    for (int i = 0; i < WIDE_STAGES; ++i) mbar_init(&bars[i], 1);
+    mbar_init_fence();
+    for (int u = 0; u < WIDE_STAGES && u < nu; ++u)
+      wide_fwd_load(ring, bars, &map_q, &map_k, &map_v, u, NS, sl, row0, plane);
+  }
+  __syncthreads();
+
+  float s[32], o[64];
+  uint32_t pa[4][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+  for (int u = 0; u < nu; ++u) {
+    const int st = u % WIDE_STAGES, c = u % NS;
+    const uint8_t* slot = ring + st * WIDE_FWD_SLOT;
+    mbar_wait(&bars[st], (u / WIDE_STAGES) & 1);
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < Slab::KSTEPS; ++kc)
+      wgmma_ss<0>(s, Slab::kmajor(slot, kc), Slab::kmajor(slot + Slab::BYTES, kc), c | kc);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(s);
+    if (c == NS - 1) {
+      online_softmax<64>(s, o, pa, m_a, m_b, l_a, l_b, u / NS * TILE, T, pad_lo, pad_hi, tig,
+                         scale_log2);
+      fence_regs(o);
+      fence_regs(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+        wgmma_rs<1>(o, pa[kc], Slab::mnmajor(slot + 2 * Slab::BYTES, kc), 1);
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(o);
+      fence_regs(pa);
+    }
+    __syncthreads();  // every warp is done with unit u's slot
+    if (tid == 0 && u + WIDE_STAGES < nu)
+      wide_fwd_load(ring, bars, &map_q, &map_k, &map_v, u + WIDE_STAGES, NS, sl, row0, plane);
+  }
+  const int r_a = row0 + (tid >> 5) * 16 + ((tid & 31) >> 2);
+  fwd_epilogue<64>(o, m_a, m_b, l_a, l_b, r_a, T, out + (size_t)plane * T * NS * SLAB_COLS,
+                   NS * SLAB_COLS, sl * SLAB_COLS,
+                   sl == 0 && lse2 != nullptr ? lse2 + (size_t)plane * T : nullptr, tig);
+}
+
+// attn_mean_wide's sub-unit w = u * NS + c: slab c of unit u's K tile (key
+// tile kt0 + u / H of head u % H) and of its query tile
+__device__ __forceinline__ void wide_mean_load(uint8_t* ring, uint64_t* bars,
+                                               const CUtensorMap* map_q, const CUtensorMap* map_k,
+                                               int w, int NS, int H, int kt0, int row0,
+                                               int plane0) {
+  const int st = w % WIDE_STAGES, u = w / NS, c = w % NS;
+  uint8_t* slot = ring + st * WIDE_MEAN_SLOT;
+  mbar_expect_tx(&bars[st], WIDE_MEAN_SLOT);
+  Slab::load(slot, map_k, &bars[st], (kt0 + u / H) * TILE, plane0 + u % H, c * SLAB_COLS);
+  Slab::load(slot + Slab::BYTES, map_q, &bars[st], row0, plane0 + u % H, c * SLAB_COLS);
+}
+
+// The mean pass on the wide route: one block = one warpgroup per (64
+// query rows, chunk of key tiles, image) as attn_mean with its query tiles
+// streamed, unit u = (key tile kt0 + u / H, head u % H); each unit is NS
+// sub-units of one slab each through the ring, S summed over them, then
+// the unit's probabilities added over the heads as in attn_mean.
+__global__ void __launch_bounds__(WG_THREADS, MEAN_BLOCKS_PER_SM)
+attn_mean_wide(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+               const float* __restrict__ lse2, bf16* __restrict__ mean, int H, int T, int NS,
+               int pad_lo, int pad_hi, float scale_log2, int chunk) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + WIDE_STAGES * WIDE_MEAN_SLOT);
+  const int b = blockIdx.z;
+  const int kt0 = blockIdx.x * chunk;
+  const int ntiles = (T + TILE - 1) / TILE;
+  const int nw = min(chunk, ntiles - kt0) * H * NS;
+  const int row0 = blockIdx.y * TILE;
+  const int tid = threadIdx.x, tig = tid & 3;
+  const int r_a = row0 + (tid >> 5) * 16 + ((tid & 31) >> 2);
+  const float* lb = lse2 + (size_t)b * H * T;
+  bf16* mb = mean + (size_t)b * T * T;
+  const float inv_h = 1.f / (float)H;
+  if (tid == 0) {
+    for (int i = 0; i < WIDE_STAGES; ++i) mbar_init(&bars[i], 1);
+    mbar_init_fence();
+    for (int w = 0; w < WIDE_STAGES && w < nw; ++w)
+      wide_mean_load(ring, bars, &map_q, &map_k, w, NS, H, kt0, row0, b * H);
+  }
+  __syncthreads();
+
+  float s[32], acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = acc[i] = 0.f;
+  for (int w = 0; w < nw; ++w) {
+    const int st = w % WIDE_STAGES, c = w % NS, u = w / NS;
+    const uint8_t* slot = ring + st * WIDE_MEAN_SLOT;
+    mbar_wait(&bars[st], (w / WIDE_STAGES) & 1);
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < Slab::KSTEPS; ++kc)
+      wgmma_ss<0>(s, Slab::kmajor(slot + Slab::BYTES, kc), Slab::kmajor(slot, kc), c | kc);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(s);
+    __syncthreads();  // every warp is done with sub-unit w's slot
+    if (tid == 0 && w + WIDE_STAGES < nw)
+      wide_mean_load(ring, bars, &map_q, &map_k, w + WIDE_STAGES, NS, H, kt0, row0, b * H);
+    if (c == NS - 1) {
+      const int h = u % H;
+      const int key0 = (kt0 + u / H) * TILE;
+      const float* lh = lb + (size_t)h * T;  // a row past T gets 0 (never stored)
+      const float nl_a = r_a < T ? -lh[r_a] : 0.f;
+      const float nl_b = r_a + 8 < T ? -lh[r_a + 8] : 0.f;
+      add_probs(acc, s, nl_a, nl_b, key0, T, pad_lo, pad_hi, tig, scale_log2);
+      if (h == H - 1) {  // every head summed: write the tile, start the next
+        store_mean_tile(mb, acc, r_a, key0, T, tig, inv_h);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+      }
+    }
+  }
+}
+
 // Key tiles per attn_mean block: the grid runs in waves of `slots`
 // resident blocks, and a block costs its chunk plus about half a tile's
 // worth for loading the H query tiles. Short chunks keep the last wave
@@ -564,13 +801,13 @@ int mean_chunk(int ntiles, int row_blocks, int slots) {
   return best;
 }
 
-// Resident blocks of attn_mean instance `kern` (one of six: head dim x
-// resident) on the current device for `smem` bytes of shared memory per
-// block: SMs x blocks per SM. The device is asked once per (instance,
-// smem), kept as smem << 20 | slots.
+// Resident blocks of attn_mean instance `kern` (one of seven: head dim x
+// resident, and the wide route's) on the current device for `smem` bytes
+// of shared memory per block: SMs x blocks per SM. The device is asked
+// once per (instance, smem), kept as smem << 20 | slots.
 cudaError_t mean_slots(const void* kern, int instance, int smem, int* slots) {
   constexpr int MAX_DEVICES = 64;
-  static std::atomic<long long> known[MAX_DEVICES][6];
+  static std::atomic<long long> known[MAX_DEVICES][7];
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -646,14 +883,66 @@ int mean_forward(const void* q, const void* k, const void* lse2, void* mean, int
   return (int)cudaGetLastError();
 }
 
+// the wide route's flash pass: D = 128 NS, grid (query tiles x NS, H, B)
+int flash_forward_wide(const void* q, const void* k, const void* v, void* out, void* lse2, int B,
+                       int H, int T, int D, int pad_lo, int pad_hi, float scale_log2,
+                       cudaStream_t stream) {
+  constexpr int smem = (int)wide_fwd_smem();
+  // a runtime call first: it makes the device's context current on this
+  // thread, which the tensor-map encoding needs
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_fwd_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_fwd_wide, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap mq, mk, mv;
+  if (int bad = Slab::map(&mq, q, B * H, T, D)) return bad;
+  if (int bad = Slab::map(&mk, k, B * H, T, D)) return bad;
+  if (int bad = Slab::map(&mv, v, B * H, T, D)) return bad;
+  if (!aligned16(out)) return TMA_MISALIGNED;
+  const int NS = D / SLAB_COLS;
+  dim3 grid((T + TILE - 1) / TILE * NS, H, B);
+  flash_fwd_wide<<<grid, WG_THREADS, smem, stream>>>(mq, mk, mv, (bf16*)out, (float*)lse2, H, T,
+                                                     NS, pad_lo, pad_hi, scale_log2);
+  return (int)cudaGetLastError();
+}
+
+// the wide route's mean pass, query tiles streamed: grid (key chunks,
+// query tiles, B) as mean_forward
+int mean_forward_wide(const void* q, const void* k, const void* lse2, void* mean, int B, int H,
+                      int T, int D, int pad_lo, int pad_hi, float scale_log2,
+                      cudaStream_t stream) {
+  constexpr int smem = (int)wide_mean_smem();
+  const void* kern = (const void*)attn_mean_wide;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap mq, mk;
+  if (int bad = Slab::map(&mq, q, B * H, T, D)) return bad;
+  if (int bad = Slab::map(&mk, k, B * H, T, D)) return bad;
+  if (!aligned16(mean)) return TMA_MISALIGNED;
+  int slots = 0;
+  if ((err = mean_slots(kern, 6, smem, &slots)) != cudaSuccess) return (int)err;
+  const int ntiles = (T + TILE - 1) / TILE;
+  const int chunk = mean_chunk(ntiles, B * ntiles, slots);
+  dim3 grid((ntiles + chunk - 1) / chunk, ntiles, B);
+  attn_mean_wide<<<grid, WG_THREADS, smem, stream>>>(mq, mk, (const float*)lse2, (bf16*)mean, H,
+                                                     T, D / SLAB_COLS, pad_lo, pad_hi,
+                                                     scale_log2, chunk);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// q, k, v, out: (B, H, T, D) bf16 contiguous, 16-byte aligned, D = 64, 32
-// or 128 (cudaErrorInvalidValue otherwise). lse2: (B, H, T) f32 or null.
-// Returns a cudaError_t, or a code of make_tile_map (>= 998) when a tensor
-// map cannot be made.
+// q, k, v, out: (B, H, T, D) bf16 contiguous, 16-byte aligned, D = 64, 32,
+// 128 or a multiple of 128 above it (the wide route; cudaErrorInvalidValue
+// otherwise). lse2: (B, H, T) f32 or null. Returns a cudaError_t, or a code
+// of encode_plane_map (>= 998) when a tensor map cannot be made.
 int attn_flash_forward(const void* q, const void* k, const void* v, void* out, void* lse2,
                        int B, int H, int T, int D, int pad_lo, int pad_hi, float scale_log2,
                        void* stream) {
@@ -666,22 +955,28 @@ int attn_flash_forward(const void* q, const void* k, const void* v, void* out, v
   if (D == 128)
     return flash_forward<128>(q, k, v, out, lse2, B, H, T, pad_lo, pad_hi, scale_log2,
                               (cudaStream_t)stream);
+  if (wide_head_dim(D))
+    return flash_forward_wide(q, k, v, out, lse2, B, H, T, D, pad_lo, pad_hi, scale_log2,
+                              (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }
 
 // The most heads whose query tiles attn_mean_forward keeps at head dim D;
-// above it they are streamed (no limit).
+// above it they are streamed (no limit). The wide route keeps none.
 int attn_mean_resident_heads(int D) {
-  return (int)(MEAN_RESIDENT_BYTES / tile_bytes(D));
+  return wide_head_dim(D) ? 0 : (int)(MEAN_RESIDENT_BYTES / tile_bytes(D));
 }
 
 // mean: (B, T, T) bf16, 16-byte aligned; lse2 from attn_flash_forward on
-// the same q, k; any H >= 1, D = 64, 32 or 128. Returns as attn_flash_forward.
+// the same q, k; any H >= 1, D as attn_flash_forward takes it. Returns as
+// attn_flash_forward.
 int attn_mean_forward(const void* q, const void* k, const void* lse2, void* mean, int B, int H,
                       int T, int D, int pad_lo, int pad_hi, float scale_log2, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (H >= 1 && wide_head_dim(D))
+    return mean_forward_wide(q, k, lse2, mean, B, H, T, D, pad_lo, pad_hi, scale_log2, st);
   if (H < 1 || (D != 64 && D != 32 && D != 128)) return (int)cudaErrorInvalidValue;
   const bool res = mean_resident(H, D);
-  cudaStream_t st = (cudaStream_t)stream;
   if (D == 64)
     return res ? mean_forward<64, true>(q, k, lse2, mean, B, H, T, pad_lo, pad_hi, scale_log2, st)
                : mean_forward<64, false>(q, k, lse2, mean, B, H, T, pad_lo, pad_hi, scale_log2, st);

@@ -1,5 +1,5 @@
 // Attention backward kernels for the ViT and Swin backbones (bf16, head
-// dim 64, 32 or 128).
+// dim 64, 32, 128 or a multiple of 128 above it).
 //
 // Replaces two Pallas TPU kernels of attentionshift_tpu/ops/attention.py:
 //   _bwd_kernel_dq   (:364, pass A of _pallas_backward): per query tile,
@@ -57,6 +57,17 @@
 //     and accumulates its half of dK and dV as m64n64k16 against that half
 //     of Q and dO (two 64x128 f32 accumulators a warpgroup would need 128
 //     registers a thread more). Both take two blocks per SM;
+//   * head dims above 128 (ops/attention.py pads them to D = 128 *
+//     ceil(d / 128)) take the wide route, bwd_dq_wide and bwd_dkv_wide:
+//     slab c of a row is the HeadTile<128> at column 128 c of a map over the
+//     whole row; S and dP (S^T and dP^T) accumulate over the NS = D / 128
+//     slabs streamed through a two-slot ring (80 KB slots), so shared
+//     memory does not grow with D. bwd_dq_wide writes one 128-column slab
+//     of dQ per block (m64n128k16, K's output slab loaded beside the last
+//     slab of the second sweep); bwd_dkv_wide one 64-column part of dK and
+//     dV (m64n64k16, Q's and dO's parts beside the last slab). Each block
+//     recomputes S and dP for its part, one block per SM, every product
+//     waiting for itself: simple and right first;
 //   * the exp work is branch-free: a masked entry gets exp2(-inf) = 0 (a
 //     branch around each exp2 serialised their latencies and cost pass B
 //     2.6x). Pass B zeroes masked key rows at the store instead, since a
@@ -135,21 +146,21 @@ __device__ __forceinline__ bool masked_col(int col, int T, int pad_lo, int pad_h
 }
 
 // write a warpgroup's (64 x NC) f32 accumulator, scaled, as bf16 columns
-// [c0, c0 + NC) of rows r_a (i < 2) and r_b (i >= 2) of a head matrix of HD
-// columns; a row whose scale is 0 is written as exact zeros, whatever its
-// accumulator holds
+// [c0, c0 + NC) of rows r_a (i < 2) and r_b (i >= 2) of a head matrix of ld
+// (default HD) columns; a row whose scale is 0 is written as exact zeros,
+// whatever its accumulator holds
 template <int HD, int NC = HD>
 __device__ __forceinline__ void store_rows(bf16* mh, const float (&acc)[NC / 2], float scale_a,
                                            float scale_b, int r_a, int r_b, int tig, int T,
-                                           int c0 = 0) {
+                                           int c0 = 0, int ld = HD) {
 #pragma unroll
   for (int j = 0; j < NC / 8; ++j) {
     int c = c0 + j * 8 + tig * 2;
     if (r_a < T)
-      *reinterpret_cast<uint32_t*>(mh + (size_t)r_a * HD + c) =
+      *reinterpret_cast<uint32_t*>(mh + (size_t)r_a * ld + c) =
           scale_a == 0.f ? 0u : pack_bf16(acc[4 * j] * scale_a, acc[4 * j + 1] * scale_a);
     if (r_b < T)
-      *reinterpret_cast<uint32_t*>(mh + (size_t)r_b * HD + c) =
+      *reinterpret_cast<uint32_t*>(mh + (size_t)r_b * ld + c) =
           scale_b == 0.f ? 0u : pack_bf16(acc[4 * j + 2] * scale_b, acc[4 * j + 3] * scale_b);
   }
 }
@@ -456,7 +467,289 @@ bwd_dkv(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUten
                      part * NC);
 }
 
-// one tensor map per (B*H, T, HD) input (0, or make_tile_map's code), and
+// ------------------------------------------------------- the wide route
+//
+// Head dims above 128 (ops/attention.py zero-pads a multiple of 8 above
+// 128 to D = 128 * ceil(d / 128)): a head row is NS = D / 128 slabs of 128
+// columns, slab c the HeadTile<128> at column 128 c of a tensor map over
+// the whole row. The products that contract over d (S and dP, S^T and
+// dP^T) accumulate slab by slab through a ring of WIDE_STAGES slots, so
+// shared memory does not grow with D; each block writes one part of its
+// gradient, recomputing S and dP for it. Every product waits for itself:
+// the route is simple and right first; it has had no redesign.
+
+// bwd_dq_wide's slot: slabs c of Q, dO (the block's rows), K, V (the key
+// tile), and in the second sweep at c = NS - 1 K's output slab
+constexpr int WIDE_DQ_SLOT = 5 * Slab::BYTES;
+// bwd_dkv_wide's slot: slabs c of K, V (the block's keys), Q, dO (the
+// query tile), and at c = NS - 1 the 64-column parts of Q and dO the block
+// writes
+constexpr int WIDE_DKV_SLOT = 4 * Slab::BYTES + 2 * TILE_BYTES;
+constexpr size_t wide_dq_smem() {
+  return (size_t)WIDE_STAGES * WIDE_DQ_SLOT + WIDE_STAGES * sizeof(uint64_t) + 1024;
+}
+constexpr size_t wide_dkv_smem() {
+  return (size_t)WIDE_STAGES * WIDE_DKV_SLOT + WIDE_STAGES * sizeof(uint64_t) + 1024;
+}
+
+// bwd_dq_wide's unit u = it * NS + c: iteration it (key tile it % ntiles;
+// the first ntiles iterations are the first sweep), slab c
+__device__ __forceinline__ void wide_dq_load(uint8_t* ring, uint64_t* bars,
+                                             const CUtensorMap* const (&m)[4], int u, int NS, int ntiles,
+                                             int sl, int row0, int plane) {
+  const int st = u % WIDE_STAGES, it = u / NS, c = u % NS;
+  const int key = it % ntiles * TILE, col = c * SLAB_COLS;
+  uint8_t* slot = ring + st * WIDE_DQ_SLOT;
+  const bool k_out = it >= ntiles && c == NS - 1;
+  mbar_expect_tx(&bars[st], (k_out ? 5 : 4) * Slab::BYTES);
+  Slab::load(slot, m[0], &bars[st], row0, plane, col);
+  Slab::load(slot + Slab::BYTES, m[3], &bars[st], row0, plane, col);
+  Slab::load(slot + 2 * Slab::BYTES, m[1], &bars[st], key, plane, col);
+  Slab::load(slot + 3 * Slab::BYTES, m[2], &bars[st], key, plane, col);
+  if (k_out) Slab::load(slot + 4 * Slab::BYTES, m[1], &bars[st], key, plane, sl * SLAB_COLS);
+}
+
+// Pass A on the wide route: one block = one warpgroup = 64 query rows and
+// output slab sl of dQ (blockIdx.x = query tile * NS + sl). Per key tile S
+// and dP over the NS slabs, then p (bf16, 0 at masked columns); the first
+// sweep sums D = sum_s p dP, the second adds dS K_sl to dQ_sl (m64n128k16).
+// Slab 0's block writes D.
+__global__ void __launch_bounds__(NTHREADS, 1)
+bwd_dq_wide(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+            const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+            const float* __restrict__ lse2, bf16* __restrict__ dq, float* __restrict__ dd, int H,
+            int T, int NS, int pad_lo, int pad_hi, float scale_log2, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + WIDE_STAGES * WIDE_DQ_SLOT);
+  const CUtensorMap* maps[4] = {&map_q, &map_k, &map_v, &map_do};
+  const int plane = blockIdx.z * H + blockIdx.y;
+  const int sl = blockIdx.x % NS;
+  const int row0 = blockIdx.x / NS * TILE;
+  const int ntiles = (T + TILE - 1) / TILE;
+  const int nu = 2 * ntiles * NS;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < WIDE_STAGES; ++i) mbar_init(&bars[i], 1);
+    mbar_init_fence();
+    for (int u = 0; u < WIDE_STAGES && u < nu; ++u)
+      wide_dq_load(ring, bars, maps, u, NS, ntiles, sl, row0, plane);
+  }
+  __syncthreads();
+
+  const size_t rowbase = (size_t)plane * T;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int r_a = row0 + warp * 16 + gid;
+  const int r_b = r_a + 8;
+  const float lse_a = r_a < T ? lse2[rowbase + r_a] : 0.f;
+  const float lse_b = r_b < T ? lse2[rowbase + r_b] : 0.f;
+  float d_a = 0.f, d_b = 0.f;
+  float acc[64], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+
+  for (int u = 0; u < nu; ++u) {
+    const int st = u % WIDE_STAGES, it = u / NS, c = u % NS;
+    const uint8_t* slot = ring + st * WIDE_DQ_SLOT;
+    mbar_wait(&bars[st], (u / WIDE_STAGES) & 1);
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < Slab::KSTEPS; ++kc)  // S += Q_c K_c^T
+      wgmma_ss<0>(s, Slab::kmajor(slot, kc), Slab::kmajor(slot + 2 * Slab::BYTES, kc), c | kc);
+#pragma unroll
+    for (int kc = 0; kc < Slab::KSTEPS; ++kc)  // dP += dO_c V_c^T
+      wgmma_ss<0>(dp, Slab::kmajor(slot + Slab::BYTES, kc),
+                  Slab::kmajor(slot + 3 * Slab::BYTES, kc), c | kc);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(s);
+    fence_regs(dp);
+    if (c == NS - 1) {
+      const int key0 = it % ntiles * TILE;
+      const bool edge = key0 + TILE > T || (key0 + TILE > pad_lo && key0 < pad_hi);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = key0 + (i >> 2) * 8 + tig * 2 + (i & 1);
+        const float x = s[i] * scale_log2 - ((i & 2) ? lse_b : lse_a);
+        s[i] = prob(edge && masked_col(col, T, pad_lo, pad_hi) ? -INFINITY : x);
+      }
+      if (it < ntiles) {  // first sweep: D += p * dP
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          if (i & 2)
+            d_b += s[i] * dp[i];
+          else
+            d_a += s[i] * dp[i];
+        }
+        if (it == ntiles - 1) {
+#pragma unroll
+          for (int off = 1; off < 4; off <<= 1) {
+            d_a += __shfl_xor_sync(0xffffffffu, d_a, off);
+            d_b += __shfl_xor_sync(0xffffffffu, d_b, off);
+          }
+        }
+      } else {  // second sweep: dS = p * (dP - D), dQ_sl += dS K_sl
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] *= dp[i] - ((i & 2) ? d_b : d_a);
+        uint32_t ds[4][4];
+        acc_to_a(ds, s);
+        fence_regs(acc);
+        fence_regs(ds);
+        wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc)
+          wgmma_rs<1>(acc, ds[kc], Slab::mnmajor(slot + 4 * Slab::BYTES, kc), 1);
+        wgmma_commit();
+        wgmma_wait();
+        fence_regs(acc);
+        fence_regs(ds);
+      }
+    }
+    __syncthreads();  // every warp is done with unit u's slot
+    if (tid == 0 && u + WIDE_STAGES < nu)
+      wide_dq_load(ring, bars, maps, u + WIDE_STAGES, NS, ntiles, sl, row0, plane);
+  }
+
+  const int D = NS * SLAB_COLS;
+  store_rows<SLAB_COLS>(dq + rowbase * D, acc, scale, scale, r_a, r_b, tig, T, sl * SLAB_COLS, D);
+  if (sl == 0 && tig == 0) {
+    if (r_a < T) dd[rowbase + r_a] = d_a;
+    if (r_b < T) dd[rowbase + r_b] = d_b;
+  }
+}
+
+// bwd_dkv_wide's unit u = qt * NS + c: query tile qt, slab c
+__device__ __forceinline__ void wide_dkv_load(uint8_t* ring, uint64_t* bars,
+                                              const CUtensorMap* const (&m)[4], int u, int NS, int part,
+                                              int key0, int plane) {
+  const int st = u % WIDE_STAGES, qt = u / NS, c = u % NS;
+  const int col = c * SLAB_COLS;
+  uint8_t* slot = ring + st * WIDE_DKV_SLOT;
+  const bool last = c == NS - 1;
+  mbar_expect_tx(&bars[st], 4 * Slab::BYTES + (last ? 2 * TILE_BYTES : 0));
+  Slab::load(slot, m[1], &bars[st], key0, plane, col);
+  Slab::load(slot + Slab::BYTES, m[2], &bars[st], key0, plane, col);
+  Slab::load(slot + 2 * Slab::BYTES, m[0], &bars[st], qt * TILE, plane, col);
+  Slab::load(slot + 3 * Slab::BYTES, m[3], &bars[st], qt * TILE, plane, col);
+  if (last) {
+    tma_load_box(slot + 4 * Slab::BYTES, m[0], &bars[st], part * 64, qt * TILE, plane);
+    tma_load_box(slot + 4 * Slab::BYTES + TILE_BYTES, m[3], &bars[st], part * 64, qt * TILE,
+                 plane);
+  }
+}
+
+// Pass B on the wide route: one block = one warpgroup = 64 key rows and
+// the 64-column part `part` of their dK and dV (blockIdx.x = key tile * 2
+// NS + part). Per query tile S^T and dP^T over the NS slabs, then p and dS
+// as in bwd_dkv (the statistics of the query rows read from lse2 and D; a
+// row past T gets p = 0), dV_part += P^T dO_part, dK_part += dS^T Q_part
+// (m64n64k16).
+__global__ void __launch_bounds__(NTHREADS, 1)
+bwd_dkv_wide(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+             const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+             const float* __restrict__ lse2, const float* __restrict__ dd, bf16* __restrict__ dk,
+             bf16* __restrict__ dv, int H, int T, int NS, int pad_lo, int pad_hi,
+             float scale_log2, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + WIDE_STAGES * WIDE_DKV_SLOT);
+  const CUtensorMap* maps[4] = {&map_q, &map_k, &map_v, &map_do};
+  const int plane = blockIdx.z * H + blockIdx.y;
+  const int part = blockIdx.x % (2 * NS);
+  const int key0 = blockIdx.x / (2 * NS) * TILE;
+  const int ntiles = (T + TILE - 1) / TILE;
+  const int nu = ntiles * NS;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < WIDE_STAGES; ++i) mbar_init(&bars[i], 1);
+    mbar_init_fence();
+    for (int u = 0; u < WIDE_STAGES && u < nu; ++u)
+      wide_dkv_load(ring, bars, maps, u, NS, part, key0, plane);
+  }
+  __syncthreads();
+
+  const size_t rowbase = (size_t)plane * T;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int key_a = key0 + warp * 16 + gid;
+  const int key_b = key_a + 8;
+  const bool off_a = masked_col(key_a, T, pad_lo, pad_hi);
+  const bool off_b = masked_col(key_b, T, pad_lo, pad_hi);
+  float acc_k[32], acc_v[32], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc_k[i] = acc_v[i] = s[i] = dp[i] = 0.f;
+
+  for (int u = 0; u < nu; ++u) {
+    const int st = u % WIDE_STAGES, qt = u / NS, c = u % NS;
+    const uint8_t* slot = ring + st * WIDE_DKV_SLOT;
+    mbar_wait(&bars[st], (u / WIDE_STAGES) & 1);
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < Slab::KSTEPS; ++kc)  // S^T += K_c Q_c^T
+      wgmma_ss<0>(s, Slab::kmajor(slot, kc), Slab::kmajor(slot + 2 * Slab::BYTES, kc), c | kc);
+#pragma unroll
+    for (int kc = 0; kc < Slab::KSTEPS; ++kc)  // dP^T += V_c dO_c^T
+      wgmma_ss<0>(dp, Slab::kmajor(slot + Slab::BYTES, kc),
+                  Slab::kmajor(slot + 3 * Slab::BYTES, kc), c | kc);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(s);
+    fence_regs(dp);
+    if (c == NS - 1) {
+      // masked key rows are zeroed at the store: a row's p reaches only its
+      // own row of dK and dV
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int q = qt * TILE + (i >> 2) * 8 + tig * 2 + (i & 1);
+        const float ls = q < T ? lse2[rowbase + q] : INFINITY;
+        const float dsum = q < T ? dd[rowbase + q] : 0.f;
+        const float p = prob(s[i] * scale_log2 - ls);
+        s[i] = p;
+        dp[i] = p * (dp[i] - dsum);
+      }
+      uint32_t pa[4][4], da[4][4];
+      acc_to_a(pa, s);
+      acc_to_a(da, dp);
+      const uint8_t* q_p = slot + 4 * Slab::BYTES;
+      const uint8_t* do_p = q_p + TILE_BYTES;
+      fence_regs(acc_v);
+      fence_regs(acc_k);
+      fence_regs(pa);
+      fence_regs(da);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)  // dV += P^T dO (this block's columns)
+        wgmma_rs<1>(acc_v, pa[kc], desc_mnmajor(do_p, kc), 1);
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)  // dK += dS^T Q (this block's columns)
+        wgmma_rs<1>(acc_k, da[kc], desc_mnmajor(q_p, kc), 1);
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(acc_v);
+      fence_regs(acc_k);
+      fence_regs(pa);
+      fence_regs(da);
+    }
+    __syncthreads();  // every warp is done with unit u's slot
+    if (tid == 0 && u + WIDE_STAGES < nu)
+      wide_dkv_load(ring, bars, maps, u + WIDE_STAGES, NS, part, key0, plane);
+  }
+
+  const int D = NS * SLAB_COLS;
+  store_rows<64>(dk + rowbase * D, acc_k, off_a ? 0.f : scale, off_b ? 0.f : scale, key_a, key_b,
+                 tig, T, part * 64, D);
+  store_rows<64>(dv + rowbase * D, acc_v, off_a ? 0.f : 1.f, off_b ? 0.f : 1.f, key_a, key_b, tig,
+                 T, part * 64, D);
+}
+
+// one tensor map per (B*H, T, HD) input (0, or encode_plane_map's code), and
 // the other tensors' 16-byte alignment (TMA_MISALIGNED if not)
 template <int HD>
 int make_maps(CUtensorMap (&m)[4], const void* q, const void* k, const void* v, const void* dout,
@@ -507,15 +800,64 @@ int backward_dkv(const void* q, const void* k, const void* v, const void* dout, 
   return (int)cudaGetLastError();
 }
 
+// the wide route's passes: D = 128 NS; one map per (B*H, T, D) input
+int wide_maps(CUtensorMap (&m)[4], const void* q, const void* k, const void* v, const void* dout,
+              int planes, int T, int D, const void* x, const void* y) {
+  const void* base[4] = {q, k, v, dout};
+  for (int i = 0; i < 4; ++i)
+    if (int err = Slab::map(&m[i], base[i], planes, T, D)) return err;
+  if (((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15) != 0)
+    return TMA_MISALIGNED;
+  return 0;
+}
+
+int backward_dq_wide(const void* q, const void* k, const void* v, const void* dout,
+                     const void* lse2, void* dq, void* dd, int B, int H, int T, int D, int pad_lo,
+                     int pad_hi, float scale_log2, float scale, cudaStream_t stream) {
+  constexpr int smem = (int)wide_dq_smem();
+  // a runtime call first: it makes the device's context current on this
+  // thread (the autograd engine's), which the tensor-map encoding needs
+  cudaError_t err =
+      cudaFuncSetAttribute(bwd_dq_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap m[4];
+  if (int bad = wide_maps(m, q, k, v, dout, B * H, T, D, dq, dd)) return bad;
+  const int NS = D / SLAB_COLS;
+  dim3 grid((T + TILE - 1) / TILE * NS, H, B);
+  bwd_dq_wide<<<grid, NTHREADS, smem, stream>>>(m[0], m[1], m[2], m[3], (const float*)lse2,
+                                                (bf16*)dq, (float*)dd, H, T, NS, pad_lo, pad_hi,
+                                                scale_log2, scale);
+  return (int)cudaGetLastError();
+}
+
+int backward_dkv_wide(const void* q, const void* k, const void* v, const void* dout,
+                      const void* lse2, const void* dd, void* dk, void* dv, int B, int H, int T,
+                      int D, int pad_lo, int pad_hi, float scale_log2, float scale,
+                      cudaStream_t stream) {
+  constexpr int smem = (int)wide_dkv_smem();
+  cudaError_t err =
+      cudaFuncSetAttribute(bwd_dkv_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap m[4];
+  if (int bad = wide_maps(m, q, k, v, dout, B * H, T, D, dk, dv)) return bad;
+  const int NS = D / SLAB_COLS;
+  dim3 grid((T + TILE - 1) / TILE * 2 * NS, H, B);
+  bwd_dkv_wide<<<grid, NTHREADS, smem, stream>>>(m[0], m[1], m[2], m[3], (const float*)lse2,
+                                                 (const float*)dd, (bf16*)dk, (bf16*)dv, H, T, NS,
+                                                 pad_lo, pad_hi, scale_log2, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // q, k, v, dout, dq: (B, H, T, D) bf16 contiguous, 16-byte aligned,
-// D = 64, 32 or 128 (cudaErrorInvalidValue otherwise); lse2 (from
-// attn_flash_forward on the same q, k) and dd: (B, H, T) f32. dd (D =
-// sum_s p*dP per row) is written. Returns a cudaError_t, or a code of
-// make_tile_map (>= 998) when a tensor map cannot be made.
+// D = 64, 32, 128 or a multiple of 128 above it (the wide route;
+// cudaErrorInvalidValue otherwise); lse2 (from attn_flash_forward on the
+// same q, k) and dd: (B, H, T) f32. dd (D = sum_s p*dP per row) is written.
+// Returns a cudaError_t, or a code of encode_plane_map (>= 998) when a
+// tensor map cannot be made.
 int attn_backward_dq(const void* q, const void* k, const void* v, const void* dout,
                      const void* lse2, void* dq, void* dd, int B, int H, int T, int D,
                      int pad_lo, int pad_hi, float scale_log2, float scale, void* stream) {
@@ -527,6 +869,9 @@ int attn_backward_dq(const void* q, const void* k, const void* v, const void* do
                            scale, (cudaStream_t)stream);
   if (D == 128)
     return backward_dq<128>(q, k, v, dout, lse2, dq, dd, B, H, T, pad_lo, pad_hi, scale_log2,
+                            scale, (cudaStream_t)stream);
+  if (wide_head_dim(D))
+    return backward_dq_wide(q, k, v, dout, lse2, dq, dd, B, H, T, D, pad_lo, pad_hi, scale_log2,
                             scale, (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }
@@ -544,6 +889,9 @@ int attn_backward_dkv(const void* q, const void* k, const void* v, const void* d
                             scale, (cudaStream_t)stream);
   if (D == 128)
     return backward_dkv<128>(q, k, v, dout, lse2, dd, dk, dv, B, H, T, pad_lo, pad_hi,
+                             scale_log2, scale, (cudaStream_t)stream);
+  if (wide_head_dim(D))
+    return backward_dkv_wide(q, k, v, dout, lse2, dd, dk, dv, B, H, T, D, pad_lo, pad_hi,
                              scale_log2, scale, (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,4 +1,7 @@
-// Design variants of the capture-attention forward (bf16, head dim 64).
+// Design variants of the capture-attention forward (bf16, head dim 32, 64 or
+// 128: every kernel is a template on the head dim, HeadTile<HD> of
+// hopper.cuh; ops/attention_variants.py zero-pads any other width up to 128
+// onto the smallest instance at least as wide, with the true d's scale).
 //
 // Replaces the five Pallas TPU kernels of the attention microbenchmark,
 // tools/analysis/microbench_attention.py:
@@ -16,7 +19,7 @@
 //   kern6 (:371, via v6 :393)  v6-fusedsum  v2 with the row sum folded into PV:
 //                                           V carries 8 all-ones columns and
 //                                           the denominator is column 64.
-// All five return out (B, H, T, 64) and the head-averaged probabilities
+// All five return out (B, H, T, d) and the head-averaged probabilities
 // (B, T, T) = sum_h e_h * recip_h / H, recip = 1 / max(rowsum, 1e-30), with
 // the TPU kernels' constant-shift softmax: no row maximum, logits in the
 // log2 domain shifted by -20.
@@ -37,7 +40,9 @@
 //   out pass    (attn_v2_bf16e, attn_v3_nomin, attn_v4_mxsum,
 //               attn_v6_fusedsum) one block = two warpgroups = 128 query
 //               rows of one (image, head), VAR_BLOCKS_PER_SM blocks per SM
-//               (204 blocks at the tool's shape: one wave). Both
+//               (204 blocks at the tool's shape: one wave; one block per
+//               SM at head dim 128, whose 64 O accumulators a thread and
+//               16 KB tiles leave room for no second). Both
 //               warpgroups read each K and V tile of a VAR_STAGES-slot ring,
 //               refilled by thread 0 once both are done with a slot. Per key
 //               tile: S = Q K^T (wgmma m64n64k16 from shared memory), e
@@ -54,9 +59,11 @@
 //                 fragments as A and a 1 KB slot of bf16 1.0 as B (ones read
 //                 as ones under any swizzle): every column of that
 //                 accumulator is the row sum, on the tensor cores;
-//                 v6 takes V as (B, H, T, 72), its columns 64-71 ones, and
-//                 reads the denominator from column 64 of e @ V as the JAX
-//                 kernel does. Columns 0-63 arrive as the usual swizzled V
+//                 v6 takes V as (B, H, T, HD + 8), its last 8 columns ones
+//                 (after the padded width where ops/attention_variants.py
+//                 pads), and reads the denominator from column HD of e @ V
+//                 as the JAX kernel does (the description below is at HD =
+//                 64; the column slot is the same at 32 and 128). Columns 0-63 arrive as the usual swizzled V
 //                 tile (a 64-column box of a map over the 144-byte rows);
 //                 columns 64-71 of the same 64 keys as a 1 KB slot per ring
 //                 stage (an 8-column box without swizzle, on the stage's
@@ -68,7 +75,8 @@
 //                 with -D VAR_V6_N72=1 PV is one m64n72k16 instead: a second
 //                 128-byte-swizzled box at column 64 (zeros past column 72
 //                 from TMA's out-of-bounds fill) right after the V tile, the
-//                 descriptor's leading byte offset stepping to it.
+//                 descriptor's leading byte offset stepping to it (head
+//                 dim 64 only).
 //               It writes out and recip (B, H, T) f32 into a workspace the
 //               caller allocates.
 //   mean pass   (attn_var_mean: v2, v4, v6; attn_var_mean_nomin: v3) one
@@ -201,7 +209,8 @@ using namespace hopper;
 #define VMEAN_MAX_CHUNK 16  // key tiles per mean-pass block, at most
 #endif
 #ifndef VMEAN_RESIDENT_HEADS
-#define VMEAN_RESIDENT_HEADS 12  // most heads whose query tiles the mean pass keeps
+#define VMEAN_RESIDENT_HEADS 12  // most heads whose query tiles the mean pass keeps (at d = 64;
+                                 // as many bytes at 32 and 128)
 #endif
 
 #ifndef V5_CLUSTER
@@ -211,13 +220,13 @@ using namespace hopper;
 #define V5_STAGES 3  // v5: K/V ring slots of sweep 1
 #endif
 #ifndef V5_RESIDENT_HEADS
-#define V5_RESIDENT_HEADS 7  // v5: most heads whose query tiles sweep 2 keeps (2 blocks/SM)
+#define V5_RESIDENT_HEADS 7  // v5: most heads whose query tiles sweep 2 keeps (2 blocks/SM;
+                             // at d = 64, as many bytes at 32 and 128)
 #endif
 
 static_assert(VMEAN_STAGES >= 2, "a mean-pass slot is refilled while the next one is read");
 static_assert(V5_CLUSTER >= 0 && V5_CLUSTER <= 8, "v5 clusters are portable: at most 8 blocks");
 
-constexpr int HD = 64;         // head dim
 constexpr float SHIFT = 20.f;  // the constant softmax shift, log2 domain
 constexpr float CLAMP = 100.f;  // the exponent clamp of the clamped variants
 
@@ -231,7 +240,7 @@ constexpr int OUT_WARPGROUPS = 2;
 constexpr int OUT_ROWS = OUT_WARPGROUPS * TILE;
 constexpr int OUT_THREADS = OUT_WARPGROUPS * WG_THREADS;
 constexpr int ONES_BYTES = 1024;  // v4's B operand: 8 rows of 64 bf16 ones
-constexpr int COLS_BYTES = TILE * 16;  // v6's B operand: V's columns 64-71 of 64 keys
+constexpr int COLS_BYTES = TILE * 16;  // v6's B operand: V's ones columns (HD..HD+7) of 64 keys
 constexpr uint32_t BF16_ONES = 0x3F803F80u;
 
 // How the out pass takes each row's sum of e.
@@ -241,31 +250,57 @@ enum RowSum {
   SUM_V_COLS = 2,    // v6: column 64 of e @ V[:, 64:72], V's columns from memory
 };
 
-// v6 built with one m64n72k16 per k16 step: a third tile per ring slot
-__host__ __device__ constexpr bool n72(int sum) { return sum == SUM_V_COLS && VAR_V6_N72; }
-__host__ __device__ constexpr int ring_tiles(int sum) { return n72(sum) ? 3 : 2; }
+// v6 built with one m64n72k16 per k16 step (head dim 64 only): a third
+// tile per ring slot
+template <int HD>
+__host__ __device__ constexpr bool n72(int sum) {
+  return sum == SUM_V_COLS && VAR_V6_N72 && HD == 64;
+}
+template <int HD>
+__host__ __device__ constexpr int ring_tiles(int sum) { return n72<HD>(sum) ? 3 : 2; }
 // v4's ones, or v6's column slot of each ring stage
+template <int HD>
 __host__ __device__ constexpr int side_bytes(int sum) {
-  return sum == SUM_MMA_ONES ? ONES_BYTES : sum == SUM_V_COLS && !n72(sum) ? VAR_STAGES * COLS_BYTES : 0;
+  return sum == SUM_MMA_ONES                      ? ONES_BYTES
+         : sum == SUM_V_COLS && !n72<HD>(sum) ? VAR_STAGES * COLS_BYTES
+                                                  : 0;
 }
 // bytes one ring stage receives
+template <int HD>
 __host__ __device__ constexpr int stage_bytes(int sum) {
-  return ring_tiles(sum) * TILE_BYTES + (sum == SUM_V_COLS && !n72(sum) ? COLS_BYTES : 0);
+  return ring_tiles<HD>(sum) * HeadTile<HD>::BYTES +
+         (sum == SUM_V_COLS && !n72<HD>(sum) ? COLS_BYTES : 0);
 }
 
 // out pass: the query tiles, VAR_STAGES ring slots of (K, V[, V's columns
 // 64-127]), the ones or column slots, the barriers. v6 adds 1 KB per ring
 // slot (8 KB under VAR_V6_N72)
+template <int HD>
 constexpr size_t out_smem(int sum) {
-  return (size_t)(OUT_WARPGROUPS + ring_tiles(sum) * VAR_STAGES) * TILE_BYTES + side_bytes(sum) +
-         (1 + VAR_STAGES) * sizeof(uint64_t) + 1024;
+  return (size_t)(OUT_WARPGROUPS + ring_tiles<HD>(sum) * VAR_STAGES) * HeadTile<HD>::BYTES +
+         side_bytes<HD>(sum) + (1 + VAR_STAGES) * sizeof(uint64_t) + 1024;
+}
+
+// out-pass blocks per SM that the registers are budgeted for: the 64 O
+// accumulators of head dim 128 leave room for one
+template <int HD>
+__host__ __device__ constexpr int out_blocks_per_sm() {
+  return HD == 128 ? 1 : VAR_BLOCKS_PER_SM;
+}
+
+// whether the mean pass keeps every head's query tile: as many bytes as
+// VMEAN_RESIDENT_HEADS tiles of head dim 64
+template <int HD>
+bool mean_resident(int H) {
+  return (long)H * HeadTile<HD>::BYTES <= (long)VMEAN_RESIDENT_HEADS * TILE_BYTES;
 }
 
 // mean pass: the resident query tiles, VMEAN_STAGES slots of K (and of the
 // unit's query tile when they are not resident), the barriers
+template <int HD>
 size_t mean_smem(int H, bool resident) {
-  return (size_t)(resident ? H : 0) * TILE_BYTES +
-         (size_t)VMEAN_STAGES * (resident ? 1 : 2) * TILE_BYTES +
+  return (size_t)(resident ? H : 0) * HeadTile<HD>::BYTES +
+         (size_t)VMEAN_STAGES * (resident ? 1 : 2) * HeadTile<HD>::BYTES +
          (1 + VMEAN_STAGES) * sizeof(uint64_t) + 1024;
 }
 
@@ -358,8 +393,10 @@ __device__ __forceinline__ void wgmma_rs_n8(float (&d)[4], const uint32_t (&a)[4
 // D (64 x 72, f32) (+)= A (registers) * B (16 x 72, MN-major, two
 // 128-byte-swizzled atoms TILE_BYTES apart): columns 0-63 into d, 64-71 into
 // x (the m64n72 layout: d[4j + i] for j < 8, x[i] for j = 8)
-__device__ __forceinline__ void wgmma_rs_n72(float (&d)[32], float (&x)[4], const uint32_t (&a)[4],
-                                             uint64_t desc_b, int acc) {
+// (used only in a build with -D VAR_V6_N72=1)
+[[maybe_unused]] __device__ __forceinline__ void wgmma_rs_n72(float (&d)[32], float (&x)[4],
+                                                              const uint32_t (&a)[4],
+                                                              uint64_t desc_b, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
@@ -388,16 +425,17 @@ struct OutArgs {
   int plane, n, T, tig, tid;
 };
 
-template <int SUM>
+template <int HD, int SUM>
 __device__ __forceinline__ void out_load(const OutArgs& a, int tile) {
+  using HT = HeadTile<HD>;
   const int st = tile % VAR_STAGES;
-  uint8_t* slot = a.ring + ring_tiles(SUM) * st * TILE_BYTES;
+  uint8_t* slot = a.ring + ring_tiles<HD>(SUM) * st * HT::BYTES;
   uint64_t* bar = &a.bars[1 + st];
-  mbar_expect_tx(bar, stage_bytes(SUM));
-  tma_load_tile(slot, a.map_k, bar, tile * TILE, a.plane);
-  tma_load_tile(slot + TILE_BYTES, a.map_v, bar, tile * TILE, a.plane);
-  if (n72(SUM))  // columns 64-127 of V: 64-71, then zeros
-    tma_load_box(slot + 2 * TILE_BYTES, a.map_v, bar, HD, tile * TILE, a.plane);
+  mbar_expect_tx(bar, stage_bytes<HD>(SUM));
+  HT::load(slot, a.map_k, bar, tile * TILE, a.plane);
+  HT::load(slot + HT::BYTES, a.map_v, bar, tile * TILE, a.plane);
+  if (n72<HD>(SUM))  // columns 64-127 of V: 64-71, then zeros
+    tma_load_box(slot + 2 * HT::BYTES, a.map_v, bar, HD, tile * TILE, a.plane);
   else if (SUM == SUM_V_COLS)
     tma_load_box(a.side + st * COLS_BYTES, a.map_c, bar, HD, tile * TILE, a.plane);
 }
@@ -409,10 +447,11 @@ __device__ __forceinline__ void out_load(const OutArgs& a, int tile) {
 // refilled. Every step issues the same products and waits for all of them,
 // so that ptxas keeps them asynchronous: the last tile recomputes its own
 // S, which nobody reads.
-template <int SUM, bool CLAMPED>
-__device__ __forceinline__ void out_step(const OutArgs& a, float (&s)[32], float (&o)[32],
+template <int HD, int SUM, bool CLAMPED>
+__device__ __forceinline__ void out_step(const OutArgs& a, float (&s)[32], float (&o)[HD / 2],
                                          float (&rs)[4], uint32_t (&pa)[4][4], float& sum_a,
                                          float& sum_b, int j) {
+  using HT = HeadTile<HD>;
   e_frags<CLAMPED>(pa, s, j * TILE, a.T, a.tig);
   if (SUM == SUM_SHUFFLE) {
 #pragma unroll
@@ -424,30 +463,32 @@ __device__ __forceinline__ void out_step(const OutArgs& a, float (&s)[32], float
 
   const bool more = j + 1 < a.n;
   if (more) mbar_wait(&a.bars[1 + (j + 1) % VAR_STAGES], ((j + 1) / VAR_STAGES) & 1);
-  const uint8_t* k_s = a.ring + ring_tiles(SUM) * ((more ? j + 1 : j) % VAR_STAGES) * TILE_BYTES;
-  const uint8_t* v_s = a.ring + (ring_tiles(SUM) * (j % VAR_STAGES) + 1) * TILE_BYTES;
+  const uint8_t* k_s =
+      a.ring + ring_tiles<HD>(SUM) * ((more ? j + 1 : j) % VAR_STAGES) * HT::BYTES;
+  const uint8_t* v_s = a.ring + (ring_tiles<HD>(SUM) * (j % VAR_STAGES) + 1) * HT::BYTES;
   fence_regs(s);
   fence_regs(o);
   fence_regs(pa);
   if (SUM != SUM_SHUFFLE) fence_regs4(rs);
   wgmma_fence();
-  if (n72(SUM)) {
+  if constexpr (n72<HD>(SUM)) {
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) wgmma_rs_n72(o, rs, pa[kc], desc_mnmajor(v_s, kc), 1);
   } else {
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) wgmma_rs<1>(o, pa[kc], desc_mnmajor(v_s, kc), 1);
+    for (int kc = 0; kc < 4; ++kc) wgmma_rs<1>(o, pa[kc], HT::mnmajor(v_s, kc), 1);
   }
   if (SUM == SUM_MMA_ONES) {
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) wgmma_rs_n8<0>(rs, pa[kc], desc_kmajor(a.side, 0), 1);
-  } else if (SUM == SUM_V_COLS && !n72(SUM)) {
+  } else if (SUM == SUM_V_COLS && !n72<HD>(SUM)) {
     const uint8_t* c_s = a.side + (j % VAR_STAGES) * COLS_BYTES;
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) wgmma_rs_n8<1>(rs, pa[kc], desc_cols(c_s, kc), 1);
   }
 #pragma unroll
-  for (int kc = 0; kc < 4; ++kc) wgmma_ss<0>(s, desc_kmajor(a.q_s, kc), desc_kmajor(k_s, kc), kc);
+  for (int kc = 0; kc < HT::KSTEPS; ++kc)
+    wgmma_ss<0>(s, HT::kmajor(a.q_s, kc), HT::kmajor(k_s, kc), kc);
   wgmma_commit();
   wgmma_wait();
   fence_regs(s);
@@ -455,22 +496,23 @@ __device__ __forceinline__ void out_step(const OutArgs& a, float (&s)[32], float
   fence_regs(pa);
   if (SUM != SUM_SHUFFLE) fence_regs4(rs);
   __syncthreads();  // both warpgroups are done with tile j's slot
-  if (a.tid == 0 && j + VAR_STAGES < a.n) out_load<SUM>(a, j + VAR_STAGES);
+  if (a.tid == 0 && j + VAR_STAGES < a.n) out_load<HD, SUM>(a, j + VAR_STAGES);
 }
 
-template <int SUM, bool CLAMPED>
+template <int HD, int SUM, bool CLAMPED>
 __device__ __forceinline__ void out_pass(const CUtensorMap& map_q, const CUtensorMap& map_k,
                                          const CUtensorMap& map_v, const CUtensorMap& map_c,
                                          bf16* __restrict__ out, float* __restrict__ recip, int H,
                                          int T, float qscale) {
+  using HT = HeadTile<HD>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   const int wg = threadIdx.x >> 7;  // this warpgroup's query tile
   OutArgs a;
-  a.q_s = smem + wg * TILE_BYTES;
-  a.ring = smem + OUT_WARPGROUPS * TILE_BYTES;
-  a.side = a.ring + ring_tiles(SUM) * VAR_STAGES * TILE_BYTES;
-  a.bars = reinterpret_cast<uint64_t*>(a.side + side_bytes(SUM));
+  a.q_s = smem + wg * HT::BYTES;
+  a.ring = smem + OUT_WARPGROUPS * HT::BYTES;
+  a.side = a.ring + ring_tiles<HD>(SUM) * VAR_STAGES * HT::BYTES;
+  a.bars = reinterpret_cast<uint64_t*>(a.side + side_bytes<HD>(SUM));
   a.map_k = &map_k;
   a.map_v = &map_v;
   a.map_c = &map_c;
@@ -483,10 +525,10 @@ __device__ __forceinline__ void out_pass(const CUtensorMap& map_q, const CUtenso
   if (a.tid == 0) {
     for (int i = 0; i <= VAR_STAGES; ++i) mbar_init(&a.bars[i], 1);
     mbar_init_fence();
-    mbar_expect_tx(&a.bars[0], OUT_WARPGROUPS * TILE_BYTES);
+    mbar_expect_tx(&a.bars[0], OUT_WARPGROUPS * HT::BYTES);
     for (int w = 0; w < OUT_WARPGROUPS; ++w)
-      tma_load_tile(smem + w * TILE_BYTES, &map_q, &a.bars[0], row0 + w * TILE, a.plane);
-    for (int t = 0; t < VAR_STAGES && t < a.n; ++t) out_load<SUM>(a, t);
+      HT::load(smem + w * HT::BYTES, &map_q, &a.bars[0], row0 + w * TILE, a.plane);
+    for (int t = 0; t < VAR_STAGES && t < a.n; ++t) out_load<HD, SUM>(a, t);
   }
   if (SUM == SUM_MMA_ONES) {
     for (int i = a.tid; i < ONES_BYTES / 4; i += OUT_THREADS)
@@ -494,24 +536,27 @@ __device__ __forceinline__ void out_pass(const CUtensorMap& map_q, const CUtenso
   }
   __syncthreads();  // the barriers are initialised
   mbar_wait(&a.bars[0], 0);
-  scale_tiles(smem, OUT_WARPGROUPS * TILE_BYTES, __float2bfloat162_rn(qscale), a.tid,
+  scale_tiles(smem, OUT_WARPGROUPS * HT::BYTES, __float2bfloat162_rn(qscale), a.tid,
               OUT_THREADS);  // its fence also covers the ones
   __syncthreads();
 
-  float s[32], o[32], rs[4] = {0.f, 0.f, 0.f, 0.f};
+  float s[32], o[HD / 2], rs[4] = {0.f, 0.f, 0.f, 0.f};
   uint32_t pa[4][4];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) s[i] = o[i] = 0.f;
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
   float sum_a = 0.f, sum_b = 0.f;
 
   mbar_wait(&a.bars[1], 0);
   wgmma_fence();
 #pragma unroll
-  for (int kc = 0; kc < 4; ++kc) wgmma_ss<0>(s, desc_kmajor(a.q_s, kc), desc_kmajor(a.ring, kc), kc);
+  for (int kc = 0; kc < HT::KSTEPS; ++kc)
+    wgmma_ss<0>(s, HT::kmajor(a.q_s, kc), HT::kmajor(a.ring, kc), kc);
   wgmma_commit();
   wgmma_wait();
   fence_regs(s);
-  for (int j = 0; j < a.n; ++j) out_step<SUM, CLAMPED>(a, s, o, rs, pa, sum_a, sum_b, j);
+  for (int j = 0; j < a.n; ++j) out_step<HD, SUM, CLAMPED>(a, s, o, rs, pa, sum_a, sum_b, j);
 
   if (SUM == SUM_SHUFFLE) {
 #pragma unroll
@@ -519,7 +564,7 @@ __device__ __forceinline__ void out_pass(const CUtensorMap& map_q, const CUtenso
       sum_a += __shfl_xor_sync(0xffffffffu, sum_a, off);
       sum_b += __shfl_xor_sync(0xffffffffu, sum_b, off);
     }
-  } else if (SUM == SUM_V_COLS) {  // column 64 of e @ V[:, 64:72]: the quad's first thread holds it
+  } else if (SUM == SUM_V_COLS) {  // column HD of e @ V[:, HD:HD+8]: the quad's first thread holds it
     const int lead = threadIdx.x & 28;
     sum_a = __shfl_sync(0xffffffffu, rs[0], lead);
     sum_b = __shfl_sync(0xffffffffu, rs[2], lead);
@@ -532,7 +577,7 @@ __device__ __forceinline__ void out_pass(const CUtensorMap& map_q, const CUtenso
   const int r_b = r_a + 8;
   bf16* oh = out + (size_t)a.plane * T * HD;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < HD / 8; ++j) {
     const int c = j * 8 + a.tig * 2;
     if (r_a < T)
       *reinterpret_cast<uint32_t*>(oh + (size_t)r_a * HD + c) =
@@ -548,27 +593,32 @@ __device__ __forceinline__ void out_pass(const CUtensorMap& map_q, const CUtenso
   }
 }
 
-// map_c: v6's map of V's columns 64-71 (the others ignore it)
+// map_c: v6's map of V's ones columns HD..HD+7 (the others ignore it)
 #define OUT_ARGS                                                                             \
   const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,      \
       const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_c,  \
       bf16 *__restrict__ out, float *__restrict__ recip, int H, int T, float qscale
 #define OUT_PASS(SUM, CLAMPED) \
-  out_pass<SUM, CLAMPED>(map_q, map_k, map_v, map_c, out, recip, H, T, qscale)
+  out_pass<HD, SUM, CLAMPED>(map_q, map_k, map_v, map_c, out, recip, H, T, qscale)
 
-__global__ void __launch_bounds__(OUT_THREADS, VAR_BLOCKS_PER_SM) attn_v2_bf16e(OUT_ARGS) {
+template <int HD>
+__global__ void __launch_bounds__(OUT_THREADS, out_blocks_per_sm<HD>()) attn_v2_bf16e(OUT_ARGS) {
   OUT_PASS(SUM_SHUFFLE, true);
 }
 
-__global__ void __launch_bounds__(OUT_THREADS, VAR_BLOCKS_PER_SM) attn_v3_nomin(OUT_ARGS) {
+template <int HD>
+__global__ void __launch_bounds__(OUT_THREADS, out_blocks_per_sm<HD>()) attn_v3_nomin(OUT_ARGS) {
   OUT_PASS(SUM_SHUFFLE, false);
 }
 
-__global__ void __launch_bounds__(OUT_THREADS, VAR_BLOCKS_PER_SM) attn_v4_mxsum(OUT_ARGS) {
+template <int HD>
+__global__ void __launch_bounds__(OUT_THREADS, out_blocks_per_sm<HD>()) attn_v4_mxsum(OUT_ARGS) {
   OUT_PASS(SUM_MMA_ONES, true);
 }
 
-__global__ void __launch_bounds__(OUT_THREADS, VAR_BLOCKS_PER_SM) attn_v6_fusedsum(OUT_ARGS) {
+template <int HD>
+__global__ void __launch_bounds__(OUT_THREADS, out_blocks_per_sm<HD>())
+attn_v6_fusedsum(OUT_ARGS) {
   OUT_PASS(SUM_V_COLS, true);
 }
 
@@ -592,37 +642,46 @@ __device__ __forceinline__ uint8_t* mean_slot(const MeanArgs& a, int u) {
   return a.ring + (u % VMEAN_STAGES) * a.slot_bytes;
 }
 
+template <int HD>
 __device__ __forceinline__ const uint8_t* mean_q(const MeanArgs& a, int u) {
-  return a.q_res != nullptr ? a.q_res + (u % a.H) * TILE_BYTES : mean_slot(a, u) + TILE_BYTES;
+  return a.q_res != nullptr ? a.q_res + (u % a.H) * HeadTile<HD>::BYTES
+                            : mean_slot(a, u) + HeadTile<HD>::BYTES;
 }
 
+template <int HD>
 __device__ __forceinline__ void mean_load(const MeanArgs& a, int u) {
+  using HT = HeadTile<HD>;
   const int st = u % VMEAN_STAGES;
   uint8_t* slot = mean_slot(a, u);
   const int plane = a.b * a.H + u % a.H;
   mbar_expect_tx(&a.bars[1 + st], a.slot_bytes);
-  tma_load_tile(slot, a.map_k, &a.bars[1 + st], (a.kt0 + u / a.H) * TILE, plane);
-  if (a.q_res == nullptr) tma_load_tile(slot + TILE_BYTES, a.map_q, &a.bars[1 + st], a.row0, plane);
+  HT::load(slot, a.map_k, &a.bars[1 + st], (a.kt0 + u / a.H) * TILE, plane);
+  if (a.q_res == nullptr) HT::load(slot + HT::BYTES, a.map_q, &a.bars[1 + st], a.row0, plane);
 }
 
 // wait for unit u's slot; a streamed query tile is scaled where it arrived
+template <int HD>
 __device__ __forceinline__ void mean_arrive(const MeanArgs& a, int u) {
   mbar_wait(&a.bars[1 + u % VMEAN_STAGES], (u / VMEAN_STAGES) & 1);
   if (a.q_res == nullptr) {
-    scale_tiles(mean_slot(a, u) + TILE_BYTES, TILE_BYTES, a.s2, a.tid, WG_THREADS);
+    scale_tiles(mean_slot(a, u) + HeadTile<HD>::BYTES, HeadTile<HD>::BYTES, a.s2, a.tid,
+                WG_THREADS);
     __syncthreads();
   }
 }
 
 // S of unit u, whose slot has arrived, into s (one commit group); the
 // products of the out pass's S in the same order
+template <int HD>
 __device__ __forceinline__ void mean_issue_s(const MeanArgs& a, float (&s)[32], int u) {
-  const uint8_t* q_s = mean_q(a, u);
+  using HT = HeadTile<HD>;
+  const uint8_t* q_s = mean_q<HD>(a, u);
   const uint8_t* k_s = mean_slot(a, u);
   fence_regs(s);
   wgmma_fence();
 #pragma unroll
-  for (int kc = 0; kc < 4; ++kc) wgmma_ss<0>(s, desc_kmajor(q_s, kc), desc_kmajor(k_s, kc), kc);
+  for (int kc = 0; kc < HT::KSTEPS; ++kc)
+    wgmma_ss<0>(s, HT::kmajor(q_s, kc), HT::kmajor(k_s, kc), kc);
   wgmma_commit();
 }
 
@@ -630,14 +689,14 @@ __device__ __forceinline__ void mean_issue_s(const MeanArgs& a, float (&s)[32], 
 // adds this unit's e * recip / H to `acc`, writes the tile after its last
 // head, and returns with `nxt` finished. As in out_step every step issues
 // and waits alike: the last unit recomputes its own S, which nobody reads.
-template <bool CLAMPED>
+template <int HD, bool CLAMPED>
 __device__ __forceinline__ void mean_step(const MeanArgs& a, float (&cur)[32], float (&nxt)[32],
                                           float (&acc)[32], int u) {
   const bool more = u + 1 < a.n;
-  if (more) mean_arrive(a, u + 1);
-  mean_issue_s(a, nxt, more ? u + 1 : u);
+  if (more) mean_arrive<HD>(a, u + 1);
+  mean_issue_s<HD>(a, nxt, more ? u + 1 : u);
   __syncthreads();  // every warp is done with unit u's slot
-  if (a.tid == 0 && u + VMEAN_STAGES < a.n) mean_load(a, u + VMEAN_STAGES);
+  if (a.tid == 0 && u + VMEAN_STAGES < a.n) mean_load<HD>(a, u + VMEAN_STAGES);
 
   const int h = u % a.H;
   const int key0 = (a.kt0 + u / a.H) * TILE;
@@ -674,16 +733,17 @@ __device__ __forceinline__ void mean_step(const MeanArgs& a, float (&cur)[32], f
   fence_regs(nxt);
 }
 
-template <bool CLAMPED>
+template <int HD, bool CLAMPED>
 __device__ __forceinline__ void mean_pass(const CUtensorMap& map_q, const CUtensorMap& map_k,
                                           const float* __restrict__ recip, bf16* __restrict__ mean,
                                           int H, int T, float qscale, int chunk, int resident) {
+  using HT = HeadTile<HD>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   MeanArgs a;
   a.q_res = resident ? smem : nullptr;
-  a.slot_bytes = (resident ? 1 : 2) * TILE_BYTES;
-  a.ring = smem + (resident ? H : 0) * TILE_BYTES;
+  a.slot_bytes = (resident ? 1 : 2) * HT::BYTES;
+  a.ring = smem + (resident ? H : 0) * HT::BYTES;
   a.bars = reinterpret_cast<uint64_t*>(a.ring + VMEAN_STAGES * a.slot_bytes);
   a.map_q = &map_q;
   a.map_k = &map_k;
@@ -705,29 +765,29 @@ __device__ __forceinline__ void mean_pass(const CUtensorMap& map_q, const CUtens
     for (int i = 0; i <= VMEAN_STAGES; ++i) mbar_init(&a.bars[i], 1);
     mbar_init_fence();
     if (resident) {
-      mbar_expect_tx(&a.bars[0], H * TILE_BYTES);
+      mbar_expect_tx(&a.bars[0], H * HT::BYTES);
       for (int h = 0; h < H; ++h)
-        tma_load_tile(smem + h * TILE_BYTES, &map_q, &a.bars[0], a.row0, a.b * H + h);
+        HT::load(smem + h * HT::BYTES, &map_q, &a.bars[0], a.row0, a.b * H + h);
     }
-    for (int u = 0; u < VMEAN_STAGES && u < a.n; ++u) mean_load(a, u);
+    for (int u = 0; u < VMEAN_STAGES && u < a.n; ++u) mean_load<HD>(a, u);
   }
   __syncthreads();  // the barriers are initialised
   if (resident) {
     mbar_wait(&a.bars[0], 0);
-    scale_tiles(smem, H * TILE_BYTES, a.s2, a.tid, WG_THREADS);
+    scale_tiles(smem, H * HT::BYTES, a.s2, a.tid, WG_THREADS);
     __syncthreads();
   }
 
   float sa[32], sb[32], acc[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) sa[i] = sb[i] = acc[i] = 0.f;
-  mean_arrive(a, 0);
-  mean_issue_s(a, sa, 0);
+  mean_arrive<HD>(a, 0);
+  mean_issue_s<HD>(a, sa, 0);
   wgmma_wait();
   fence_regs(sa);
   for (int u = 0; u < a.n; u += 2) {
-    mean_step<CLAMPED>(a, sa, sb, acc, u);
-    if (u + 1 < a.n) mean_step<CLAMPED>(a, sb, sa, acc, u + 1);
+    mean_step<HD, CLAMPED>(a, sa, sb, acc, u);
+    if (u + 1 < a.n) mean_step<HD, CLAMPED>(a, sb, sa, acc, u + 1);
   }
 }
 
@@ -737,20 +797,27 @@ __device__ __forceinline__ void mean_pass(const CUtensorMap& map_q, const CUtens
       int chunk, int resident
 
 // v2, v4, v6: e clamped at 2^100
+template <int HD>
 __global__ void __launch_bounds__(WG_THREADS, VMEAN_BLOCKS_PER_SM) attn_var_mean(MEAN_ARGS) {
-  mean_pass<true>(map_q, map_k, recip, mean, H, T, qscale, chunk, resident);
+  mean_pass<HD, true>(map_q, map_k, recip, mean, H, T, qscale, chunk, resident);
 }
 
 // v3: no clamp (a kernel of its own name, so that profiles and ptxas tell
 // the two apart)
+template <int HD>
 __global__ void __launch_bounds__(WG_THREADS, VMEAN_BLOCKS_PER_SM) attn_var_mean_nomin(MEAN_ARGS) {
-  mean_pass<false>(map_q, map_k, recip, mean, H, T, qscale, chunk, resident);
+  mean_pass<HD, false>(map_q, map_k, recip, mean, H, T, qscale, chunk, resident);
 }
 
 // ------------------------------------------------ v5: one fused launch
 
 constexpr int V5_THREADS = 256;  // two warpgroups
-constexpr int V5_BLOCKS_PER_SM = 2;  // launch bounds: 128 registers a thread
+// launch bounds: two blocks per SM (128 registers a thread); one at head
+// dim 128, whose 64 O accumulators a thread leave no room for a second
+template <int HD>
+__host__ __device__ constexpr int v5_blocks_per_sm() {
+  return HD == 128 ? 1 : 2;
+}
 // sweep 2's ring slots per warpgroup: a third costs the second block per SM
 constexpr int V5_STAGES2 = 2;
 // most heads whose recips stay in shared memory (512 bytes a head); more
@@ -758,7 +825,7 @@ constexpr int V5_STAGES2 = 2;
 constexpr int V5_SMEM_RECIP_HEADS = 24;
 constexpr int V5_ROWS = 2 * TILE;  // query rows per block
 constexpr int V5_MAX_CLUSTER = 8;  // portable cluster sizes
-constexpr int V5_STAGE_LD = HD + 8;  // row stride (bf16) of a mean tile staged for its store
+constexpr int V5_STAGE_LD = TILE + 8;  // row stride (bf16) of a mean tile staged for its store
 // barriers: sweep 1's query tiles, ring 1, ring 2 of each warpgroup, sweep 2's query tiles
 constexpr int V5_NBARS = 2 + V5_STAGES + 2 * V5_STAGES2;
 
@@ -771,24 +838,36 @@ constexpr int V5_NBARS = 2 + V5_STAGES + 2 * V5_STAGES2;
 //            slots of a K tile per warpgroup; streamed: V5_STAGES2 slots
 //            of (K tile, query tile) per warpgroup; then a 64 x 64 bf16
 //            mean tile per warpgroup, staged for its store
+template <int HD>
 __host__ __device__ constexpr int v5_slot2_bytes(bool resident) {
-  return (resident ? 1 : 2) * TILE_BYTES;
+  return (resident ? 1 : 2) * HeadTile<HD>::BYTES;
 }
+template <int HD>
 __host__ __device__ constexpr int v5_sweep1_bytes() {
-  return (2 + 2 * V5_STAGES) * TILE_BYTES;
+  return (2 + 2 * V5_STAGES) * HeadTile<HD>::BYTES;
 }
+template <int HD>
 __host__ __device__ constexpr int v5_sweep2_bytes(int H, bool resident) {
-  return (resident ? H : 0) * TILE_BYTES + 2 * V5_STAGES2 * v5_slot2_bytes(resident) +
+  return (resident ? H : 0) * HeadTile<HD>::BYTES + 2 * V5_STAGES2 * v5_slot2_bytes<HD>(resident) +
          2 * TILE * V5_STAGE_LD * 2;
 }
+template <int HD>
 __host__ __device__ constexpr int v5_region_bytes(int H, bool resident) {
-  return v5_sweep1_bytes() > v5_sweep2_bytes(H, resident) ? v5_sweep1_bytes()
-                                                           : v5_sweep2_bytes(H, resident);
+  return v5_sweep1_bytes<HD>() > v5_sweep2_bytes<HD>(H, resident)
+             ? v5_sweep1_bytes<HD>()
+             : v5_sweep2_bytes<HD>(H, resident);
 }
 __host__ __device__ constexpr int v5_recip_heads(int H) { return H <= V5_SMEM_RECIP_HEADS ? H : 1; }
+template <int HD>
 size_t v5_smem(int H, bool resident) {
-  return (size_t)v5_region_bytes(H, resident) + V5_NBARS * sizeof(uint64_t) +
+  return (size_t)v5_region_bytes<HD>(H, resident) + V5_NBARS * sizeof(uint64_t) +
          V5_STAGES * sizeof(uint32_t) + (size_t)v5_recip_heads(H) * V5_ROWS * sizeof(float) + 1024;
+}
+// whether sweep 2 keeps every head's query tile: as many bytes as
+// V5_RESIDENT_HEADS tiles of head dim 64
+template <int HD>
+bool v5_resident(int H) {
+  return (long)H * HeadTile<HD>::BYTES <= (long)V5_RESIDENT_HEADS * TILE_BYTES;
 }
 
 struct V5Args {
@@ -817,24 +896,29 @@ __device__ __forceinline__ int v5_row_a(int t) {
 }
 
 // sweep 1, unit u = i * n1 + j: key tile j of head h0 + i hstep
+template <int HD>
 __device__ __forceinline__ uint8_t* v5_slot1(const V5Args& a, int u) {
-  return a.region + (2 + 2 * (u % V5_STAGES)) * TILE_BYTES;
+  return a.region + (2 + 2 * (u % V5_STAGES)) * HeadTile<HD>::BYTES;
 }
 
+template <int HD>
 __device__ __forceinline__ void v5_load1(const V5Args& a, int u) {
+  using HT = HeadTile<HD>;
   uint64_t* bar = &a.bars[1 + u % V5_STAGES];
-  uint8_t* slot = v5_slot1(a, u);
+  uint8_t* slot = v5_slot1<HD>(a, u);
   const int row = u % a.n1 * TILE, plane = a.plane0 + a.h0 + u / a.n1 * a.hstep;
-  mbar_expect_tx(bar, 2 * TILE_BYTES);
-  tma_load_tile(slot, a.map_k, bar, row, plane);
-  tma_load_tile(slot + TILE_BYTES, a.map_v, bar, row, plane);
+  mbar_expect_tx(bar, 2 * HT::BYTES);
+  HT::load(slot, a.map_k, bar, row, plane);
+  HT::load(slot + HT::BYTES, a.map_v, bar, row, plane);
 }
 
 // head h's two query tiles into the start of the region
+template <int HD>
 __device__ __forceinline__ void v5_load_q1(const V5Args& a, int h) {
-  mbar_expect_tx(&a.bars[0], 2 * TILE_BYTES);
+  using HT = HeadTile<HD>;
+  mbar_expect_tx(&a.bars[0], 2 * HT::BYTES);
   for (int w = 0; w < 2; ++w)
-    tma_load_tile(a.region + w * TILE_BYTES, a.map_q, &a.bars[0], a.row0 + w * TILE, a.plane0 + h);
+    HT::load(a.region + w * HT::BYTES, a.map_q, &a.bars[0], a.row0 + w * TILE, a.plane0 + h);
 }
 
 // Sweep 1, unit u (key tile j of its head), one warpgroup: out_step of
@@ -843,9 +927,11 @@ __device__ __forceinline__ void v5_load_q1(const V5Args& a, int h) {
 // the next (the last tile recomputes its own S, which nobody reads). The
 // warpgroups run on their own: each counts itself out of the slot, and the
 // second one out refills it with the unit V5_STAGES on, across heads.
-__device__ __forceinline__ void v5_step1(const V5Args& a, float (&s)[32], float (&o)[32],
+template <int HD>
+__device__ __forceinline__ void v5_step1(const V5Args& a, float (&s)[32], float (&o)[HD / 2],
                                          uint32_t (&pa)[4][4], float& sum_a, float& sum_b, int u,
                                          int j) {
+  using HT = HeadTile<HD>;
   e_frags<true>(pa, s, j * TILE, a.T, a.tig);
 #pragma unroll
   for (int kc = 0; kc < 4; ++kc) {
@@ -854,17 +940,18 @@ __device__ __forceinline__ void v5_step1(const V5Args& a, float (&s)[32], float 
   }
   const bool more = j + 1 < a.n1;
   if (more) mbar_wait(&a.bars[1 + (u + 1) % V5_STAGES], ((u + 1) / V5_STAGES) & 1);
-  const uint8_t* q_s = a.region + a.wg * TILE_BYTES;
-  const uint8_t* k_s = v5_slot1(a, more ? u + 1 : u);
-  const uint8_t* v_s = v5_slot1(a, u) + TILE_BYTES;
+  const uint8_t* q_s = a.region + a.wg * HT::BYTES;
+  const uint8_t* k_s = v5_slot1<HD>(a, more ? u + 1 : u);
+  const uint8_t* v_s = v5_slot1<HD>(a, u) + HT::BYTES;
   fence_regs(s);
   fence_regs(o);
   fence_regs(pa);
   wgmma_fence();
 #pragma unroll
-  for (int kc = 0; kc < 4; ++kc) wgmma_rs<1>(o, pa[kc], desc_mnmajor(v_s, kc), 1);
+  for (int kc = 0; kc < 4; ++kc) wgmma_rs<1>(o, pa[kc], HT::mnmajor(v_s, kc), 1);
 #pragma unroll
-  for (int kc = 0; kc < 4; ++kc) wgmma_ss<0>(s, desc_kmajor(q_s, kc), desc_kmajor(k_s, kc), kc);
+  for (int kc = 0; kc < HT::KSTEPS; ++kc)
+    wgmma_ss<0>(s, HT::kmajor(q_s, kc), HT::kmajor(k_s, kc), kc);
   wgmma_commit();
   wgmma_wait();
   fence_regs(s);
@@ -875,7 +962,7 @@ __device__ __forceinline__ void v5_step1(const V5Args& a, float (&s)[32], float 
     __threadfence_block();
     const uint32_t before = atomicAdd(&a.released[u % V5_STAGES], 1u);
     __threadfence_block();
-    if ((before & 1) && u + V5_STAGES < a.nh * a.n1) v5_load1(a, u + V5_STAGES);
+    if ((before & 1) && u + V5_STAGES < a.nh * a.n1) v5_load1<HD>(a, u + V5_STAGES);
   }
 }
 
@@ -883,7 +970,8 @@ __device__ __forceinline__ void v5_step1(const V5Args& a, float (&s)[32], float 
 // out straight from the registers; recip into this rank's table (or the
 // workspace). No cluster barrier; the next head's query tiles come once
 // both warpgroups are past this head's.
-__device__ __forceinline__ void v5_head_own(const V5Args& a, const float (&o)[32], float sum_a,
+template <int HD>
+__device__ __forceinline__ void v5_head_own(const V5Args& a, const float (&o)[HD / 2], float sum_a,
                                             float sum_b, int h, bf16* __restrict__ out) {
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
@@ -894,7 +982,7 @@ __device__ __forceinline__ void v5_head_own(const V5Args& a, const float (&o)[32
   const int la = v5_row_a(a.tid), r_a = a.row0 + la, r_b = r_a + 8;
   bf16* oh = out + (size_t)(a.plane0 + h) * a.T * HD;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < HD / 8; ++j) {
     const int c = j * 8 + a.tig * 2;
     if (r_a < a.T)
       *reinterpret_cast<uint32_t*>(oh + (size_t)r_a * HD + c) =
@@ -914,7 +1002,7 @@ __device__ __forceinline__ void v5_head_own(const V5Args& a, const float (&o)[32
     }
   }
   __syncthreads();
-  if (a.tid == 0 && h + a.hstep < a.H) v5_load_q1(a, h + a.hstep);
+  if (a.tid == 0 && h + a.hstep < a.H) v5_load_q1<HD>(a, h + a.hstep);
 }
 
 // recip of head h, local row i (0..127) of the block, for sweep 2: row i
@@ -932,23 +1020,26 @@ struct V5Half {
   int g0, n2, row;  // this warpgroup's first ring unit and units; the first query row
 };
 
+template <int HD>
 __device__ __forceinline__ uint8_t* v5_slot2(const V5Args& a, int g) {
-  return a.region + (a.resident ? a.H * TILE_BYTES : 0) +
-         (a.wg * V5_STAGES2 + g % V5_STAGES2) * v5_slot2_bytes(a.resident);
+  return a.region + (a.resident ? a.H * HeadTile<HD>::BYTES : 0) +
+         (a.wg * V5_STAGES2 + g % V5_STAGES2) * v5_slot2_bytes<HD>(a.resident);
 }
 
 __device__ __forceinline__ uint64_t* v5_bar2(const V5Args& a, int g) {
   return &a.bars[1 + V5_STAGES + a.wg * V5_STAGES2 + g % V5_STAGES2];
 }
 
+template <int HD>
 __device__ __forceinline__ void v5_load2(const V5Args& a, const V5Half& f, int v) {
+  using HT = HeadTile<HD>;
   const int g = f.g0 + v;
   uint64_t* bar = v5_bar2(a, g);
-  uint8_t* slot = v5_slot2(a, g);
+  uint8_t* slot = v5_slot2<HD>(a, g);
   const int plane = a.plane0 + v % a.H, row = (a.kt0 + 2 * (v / a.H) + a.wg) * TILE;
-  mbar_expect_tx(bar, v5_slot2_bytes(a.resident));
-  tma_load_tile(slot, a.map_k, bar, row, plane);
-  if (!a.resident) tma_load_tile(slot + TILE_BYTES, a.map_q, bar, f.row, plane);
+  mbar_expect_tx(bar, v5_slot2_bytes<HD>(a.resident));
+  HT::load(slot, a.map_k, bar, row, plane);
+  if (!a.resident) HT::load(slot + HT::BYTES, a.map_q, bar, f.row, plane);
 }
 
 // A warpgroup's staged 64 x 64 mean tile (rows row.., columns col0..) into
@@ -978,25 +1069,28 @@ __device__ __forceinline__ void v5_store_tile(const V5Args& a, const bf16* st, i
 // recip_h added to `acc` (the product, then the sum, in head order; the
 // plain version's roundings: no FMA), and after the last head acc / H
 // (one division) stored.
+template <int HD>
 __device__ __forceinline__ void v5_step2(const V5Args& a, const V5Half& f, float (&s)[32],
                                          float (&acc)[32], int v, bf16* __restrict__ mean) {
+  using HT = HeadTile<HD>;
   const int g = f.g0 + v;
-  uint8_t* slot = v5_slot2(a, g);
+  uint8_t* slot = v5_slot2<HD>(a, g);
   mbar_wait(v5_bar2(a, g), (g / V5_STAGES2) & 1);
-  const uint8_t* q_s = a.resident ? a.region + (v % a.H) * TILE_BYTES : slot + TILE_BYTES;
+  const uint8_t* q_s = a.resident ? a.region + (v % a.H) * HT::BYTES : slot + HT::BYTES;
   if (!a.resident) {  // this warpgroup's copy of the query tile, scaled where it arrived
-    scale_tiles(slot + TILE_BYTES, TILE_BYTES, a.s2, a.tid & 127, WG_THREADS);
+    scale_tiles(slot + HT::BYTES, HT::BYTES, a.s2, a.tid & 127, WG_THREADS);
     v5_wg_sync(a.wg);
   }
   fence_regs(s);
   wgmma_fence();
 #pragma unroll
-  for (int kc = 0; kc < 4; ++kc) wgmma_ss<0>(s, desc_kmajor(q_s, kc), desc_kmajor(slot, kc), kc);
+  for (int kc = 0; kc < HT::KSTEPS; ++kc)
+    wgmma_ss<0>(s, HT::kmajor(q_s, kc), HT::kmajor(slot, kc), kc);
   wgmma_commit();
   wgmma_wait();
   fence_regs(s);
   v5_wg_sync(a.wg);  // this warpgroup is done with the slot
-  if ((a.tid & 127) == 0 && v + V5_STAGES2 < f.n2) v5_load2(a, f, v + V5_STAGES2);
+  if ((a.tid & 127) == 0 && v + V5_STAGES2 < f.n2) v5_load2<HD>(a, f, v + V5_STAGES2);
 
   const int h = v % a.H;
   const int tile = a.kt0 + 2 * (v / a.H) + a.wg;
@@ -1012,7 +1106,7 @@ __device__ __forceinline__ void v5_step2(const V5Args& a, const V5Half& f, float
     acc[i] = __fadd_rn(acc[i], __fmul_rn(e, (i & 2) ? c_b : c_a));
   }
   if (h == a.H - 1) {  // every head summed: store this tile, start the next
-    bf16* st = reinterpret_cast<bf16*>(a.region + v5_sweep2_bytes(a.H, a.resident)) -
+    bf16* st = reinterpret_cast<bf16*>(a.region + v5_sweep2_bytes<HD>(a.H, a.resident)) -
                (2 - a.wg) * TILE * V5_STAGE_LD;
     const int lr = v5_row_a(a.tid & 127);
 #pragma unroll
@@ -1034,11 +1128,13 @@ __device__ __forceinline__ void v5_step2(const V5Args& a, const V5Half& f, float
 // one cluster = the C ranks of those rows. Sweep 1: out of rank r's heads
 // r, r + C, ...; sweep 2: the mean of rank r's chunk of the key tiles,
 // from every head's recips.
-__global__ void __launch_bounds__(V5_THREADS, V5_BLOCKS_PER_SM)
+template <int HD>
+__global__ void __launch_bounds__(V5_THREADS, v5_blocks_per_sm<HD>())
 attn_v5_batched(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                 const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ out,
                 bf16* __restrict__ mean, float* __restrict__ work, int H, int T, float qscale,
                 int resident) {
+  using HT = HeadTile<HD>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   cg::cluster_group cl = cg::this_cluster();
@@ -1046,7 +1142,7 @@ attn_v5_batched(const __grid_constant__ CUtensorMap map_q, const __grid_constant
   const int nk = (T + TILE - 1) / TILE;
   V5Args a;
   a.region = smem;
-  a.bars = reinterpret_cast<uint64_t*>(smem + v5_region_bytes(H, resident != 0));
+  a.bars = reinterpret_cast<uint64_t*>(smem + v5_region_bytes<HD>(H, resident != 0));
   a.released = reinterpret_cast<uint32_t*>(a.bars + V5_NBARS);
   a.recip = reinterpret_cast<float*>(a.released + V5_STAGES);
   a.work = H <= V5_SMEM_RECIP_HEADS ? nullptr : work;
@@ -1072,37 +1168,38 @@ attn_v5_batched(const __grid_constant__ CUtensorMap map_q, const __grid_constant
     for (int i = 0; i < V5_NBARS; ++i) mbar_init(&a.bars[i], 1);
     for (int i = 0; i < V5_STAGES; ++i) a.released[i] = 0u;
     mbar_init_fence();
-    if (a.nh > 0) v5_load_q1(a, a.h0);
-    for (int u = 0; u < V5_STAGES && u < a.nh * a.n1; ++u) v5_load1(a, u);
+    if (a.nh > 0) v5_load_q1<HD>(a, a.h0);
+    for (int u = 0; u < V5_STAGES && u < a.nh * a.n1; ++u) v5_load1<HD>(a, u);
   }
   __syncthreads();  // the barriers are initialised
 
   {  // ---- sweep 1: out, heads in turn
-    float s[32], o[32];
+    float s[32], o[HD / 2];
     uint32_t pa[4][4];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = 0.f;
     for (int k = 0; k < a.nh; ++k) {  // this rank's k-th head
       const int h = a.h0 + k * a.hstep;
       mbar_wait(&a.bars[0], k & 1);
-      scale_tiles(a.region, 2 * TILE_BYTES, a.s2, a.tid, V5_THREADS);
+      scale_tiles(a.region, 2 * HT::BYTES, a.s2, a.tid, V5_THREADS);
       __syncthreads();
 #pragma unroll
-      for (int i = 0; i < 32; ++i) o[i] = 0.f;
+      for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
       float sum_a = 0.f, sum_b = 0.f;
       const int u0 = k * a.n1;
       mbar_wait(&a.bars[1 + u0 % V5_STAGES], (u0 / V5_STAGES) & 1);
-      const uint8_t* q_s = a.region + a.wg * TILE_BYTES;
-      const uint8_t* k_s = v5_slot1(a, u0);
+      const uint8_t* q_s = a.region + a.wg * HT::BYTES;
+      const uint8_t* k_s = v5_slot1<HD>(a, u0);
       fence_regs(s);
       wgmma_fence();
 #pragma unroll
-      for (int kc = 0; kc < 4; ++kc) wgmma_ss<0>(s, desc_kmajor(q_s, kc), desc_kmajor(k_s, kc), kc);
+      for (int kc = 0; kc < HT::KSTEPS; ++kc)
+        wgmma_ss<0>(s, HT::kmajor(q_s, kc), HT::kmajor(k_s, kc), kc);
       wgmma_commit();
       wgmma_wait();
       fence_regs(s);
-      for (int j = 0; j < a.n1; ++j) v5_step1(a, s, o, pa, sum_a, sum_b, u0 + j, j);
-      v5_head_own(a, o, sum_a, sum_b, h, out);
+      for (int j = 0; j < a.n1; ++j) v5_step1<HD>(a, s, o, pa, sum_a, sum_b, u0 + j, j);
+      v5_head_own<HD>(a, o, sum_a, sum_b, h, out);
     }
     // every rank takes the other ranks' recips (head h is rank h % C's)
     cl.sync();
@@ -1123,18 +1220,18 @@ attn_v5_batched(const __grid_constant__ CUtensorMap map_q, const __grid_constant
     const V5Half f{half * n2, n2, a.row0 + half * TILE};
     if (f.row >= T || a.n == 0) break;
     if (a.tid == 0 && resident) {
-      mbar_expect_tx(bar_q2, H * TILE_BYTES);
+      mbar_expect_tx(bar_q2, H * HT::BYTES);
       for (int h = 0; h < H; ++h)
-        tma_load_tile(a.region + h * TILE_BYTES, &map_q, bar_q2, f.row, a.plane0 + h);
+        HT::load(a.region + h * HT::BYTES, &map_q, bar_q2, f.row, a.plane0 + h);
     }
     if ((a.tid & 127) == 0)
-      for (int v = 0; v < V5_STAGES2 && v < f.n2; ++v) v5_load2(a, f, v);
+      for (int v = 0; v < V5_STAGES2 && v < f.n2; ++v) v5_load2<HD>(a, f, v);
     if (resident) {
       mbar_wait(bar_q2, half & 1);
-      scale_tiles(a.region, H * TILE_BYTES, a.s2, a.tid, V5_THREADS);
+      scale_tiles(a.region, H * HT::BYTES, a.s2, a.tid, V5_THREADS);
       __syncthreads();
     }
-    for (int v = 0; v < f.n2; ++v) v5_step2(a, f, s, acc, v, mb);
+    for (int v = 0; v < f.n2; ++v) v5_step2<HD>(a, f, s, acc, v, mb);
     __syncthreads();  // both warpgroups are done with this half's slots and query tiles
   }
 }
@@ -1157,12 +1254,12 @@ int mean_chunk(int ntiles, int row_blocks, int slots) {
   return best;
 }
 
-// Resident blocks of the mean-pass kernel (clamped or not) on the current
-// device for `smem` bytes of shared memory per block: SMs x blocks per SM.
-// The two kernels may differ in registers, so each template instance keeps
-// its own answers, asked once per (device, smem) and kept as smem << 20 |
-// slots.
-template <bool CLAMPED>
+// Resident blocks of the mean-pass kernel (clamped or not, head dim HD)
+// on the current device for `smem` bytes of shared memory per block: SMs x
+// blocks per SM. The kernels may differ in registers, so each template
+// instance keeps its own answers, asked once per (device, smem) and kept as
+// smem << 20 | slots.
+template <int HD, bool CLAMPED>
 cudaError_t mean_slots(int smem, int* slots) {
   constexpr int MAX_DEVICES = 64;
   static std::atomic<long long> known[MAX_DEVICES];
@@ -1179,7 +1276,7 @@ cudaError_t mean_slots(int smem, int* slots) {
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, CLAMPED ? attn_var_mean : attn_var_mean_nomin, WG_THREADS, smem);
+      &per_sm, CLAMPED ? attn_var_mean<HD> : attn_var_mean_nomin<HD>, WG_THREADS, smem);
   if (err != cudaSuccess) return err;
   *slots = sms * (per_sm > 0 ? per_sm : 1);
   if (dev < MAX_DEVICES) known[dev].store(((long long)smem << 20) | *slots, std::memory_order_relaxed);
@@ -1196,79 +1293,84 @@ cudaError_t max_shared(const void* kern, int bytes) {
   return err;
 }
 
-// v2, v3, v4 or v6: the out pass, then the mean pass, on one stream. v6's
-// V is (B, H, T, 72).
+// v2, v3, v4 or v6 at head dim HD: the out pass, then the mean pass, on one
+// stream. v6's V is (B, H, T, HD + 8), its ones in the last 8 columns.
+template <int HD>
 int hopper_variant(int variant, const void* q, const void* k, const void* v, void* out,
                    void* mean, void* recip, int B, int H, int T, float qscale,
                    cudaStream_t stream) {
+  using HT = HeadTile<HD>;
   if (recip == nullptr || H < 1 || T < 1) return (int)cudaErrorInvalidValue;
   const void* out_kern;
   size_t osmem;
   switch (variant) {
-    case 2: out_kern = (const void*)attn_v2_bf16e, osmem = out_smem(SUM_SHUFFLE); break;
-    case 3: out_kern = (const void*)attn_v3_nomin, osmem = out_smem(SUM_SHUFFLE); break;
-    case 4: out_kern = (const void*)attn_v4_mxsum, osmem = out_smem(SUM_MMA_ONES); break;
-    case 6: out_kern = (const void*)attn_v6_fusedsum, osmem = out_smem(SUM_V_COLS); break;
+    case 2: out_kern = (const void*)attn_v2_bf16e<HD>, osmem = out_smem<HD>(SUM_SHUFFLE); break;
+    case 3: out_kern = (const void*)attn_v3_nomin<HD>, osmem = out_smem<HD>(SUM_SHUFFLE); break;
+    case 4: out_kern = (const void*)attn_v4_mxsum<HD>, osmem = out_smem<HD>(SUM_MMA_ONES); break;
+    case 6: out_kern = (const void*)attn_v6_fusedsum<HD>, osmem = out_smem<HD>(SUM_V_COLS); break;
     default: return (int)cudaErrorInvalidValue;
   }
   const bool clamped = variant != 3;
-  const bool resident = H <= VMEAN_RESIDENT_HEADS;
-  const int msmem = (int)mean_smem(H, resident);
+  const bool resident = mean_resident<HD>(H);
+  const int msmem = (int)mean_smem<HD>(H, resident);
   // runtime calls first: they make the device's context current on this
   // thread, which the tensor-map encoding needs
   cudaError_t err = max_shared(out_kern, (int)osmem);
   if (err == cudaSuccess)
-    err = max_shared(clamped ? (const void*)attn_var_mean : (const void*)attn_var_mean_nomin, msmem);
+    err = max_shared(clamped ? (const void*)attn_var_mean<HD>
+                             : (const void*)attn_var_mean_nomin<HD>, msmem);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap mq, mk, mv, mc;
-  if (int bad = make_tile_map(&mq, q, B * H, T)) return bad;
-  if (int bad = make_tile_map(&mk, k, B * H, T)) return bad;
-  if (variant == 6) {  // 72 columns: 64-column swizzled boxes, and the 8 columns from 64
-    if (int bad = make_plane_map(&mv, v, B * H, T, HD + 8, HD, true)) return bad;
+  if (int bad = HT::map(&mq, q, B * H, T)) return bad;
+  if (int bad = HT::map(&mk, k, B * H, T)) return bad;
+  if (variant == 6) {  // HD + 8 columns: the HD-column tiles, and the 8 columns from HD
+    if (int bad = HT::map(&mv, v, B * H, T, HD + 8)) return bad;
     if (int bad = make_plane_map(&mc, v, B * H, T, HD + 8, 8, false)) return bad;
   } else {
-    if (int bad = make_tile_map(&mv, v, B * H, T)) return bad;
+    if (int bad = HT::map(&mv, v, B * H, T)) return bad;
     mc = mv;
   }
   if (!aligned16(out) || !aligned16(mean) || !aligned16(recip)) return TMA_MISALIGNED;
   dim3 grid((T + OUT_ROWS - 1) / OUT_ROWS, H, B);
   switch (variant) {
     case 2:
-      attn_v2_bf16e<<<grid, OUT_THREADS, osmem, stream>>>(mq, mk, mv, mc, (bf16*)out,
-                                                          (float*)recip, H, T, qscale);
+      attn_v2_bf16e<HD><<<grid, OUT_THREADS, osmem, stream>>>(mq, mk, mv, mc, (bf16*)out,
+                                                              (float*)recip, H, T, qscale);
       break;
     case 3:
-      attn_v3_nomin<<<grid, OUT_THREADS, osmem, stream>>>(mq, mk, mv, mc, (bf16*)out,
-                                                          (float*)recip, H, T, qscale);
+      attn_v3_nomin<HD><<<grid, OUT_THREADS, osmem, stream>>>(mq, mk, mv, mc, (bf16*)out,
+                                                              (float*)recip, H, T, qscale);
       break;
     case 4:
-      attn_v4_mxsum<<<grid, OUT_THREADS, osmem, stream>>>(mq, mk, mv, mc, (bf16*)out,
-                                                          (float*)recip, H, T, qscale);
+      attn_v4_mxsum<HD><<<grid, OUT_THREADS, osmem, stream>>>(mq, mk, mv, mc, (bf16*)out,
+                                                              (float*)recip, H, T, qscale);
       break;
     default:
-      attn_v6_fusedsum<<<grid, OUT_THREADS, osmem, stream>>>(mq, mk, mv, mc, (bf16*)out,
-                                                             (float*)recip, H, T, qscale);
+      attn_v6_fusedsum<HD><<<grid, OUT_THREADS, osmem, stream>>>(mq, mk, mv, mc, (bf16*)out,
+                                                                 (float*)recip, H, T, qscale);
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   int slots = 0;
-  if ((err = clamped ? mean_slots<true>(msmem, &slots) : mean_slots<false>(msmem, &slots)) !=
+  if ((err = clamped ? mean_slots<HD, true>(msmem, &slots) : mean_slots<HD, false>(msmem, &slots)) !=
       cudaSuccess)
     return (int)err;
   const int ntiles = (T + TILE - 1) / TILE;
   const int chunk = mean_chunk(ntiles, B * ntiles, slots);
   dim3 mgrid((ntiles + chunk - 1) / chunk, ntiles, B);
   if (clamped)
-    attn_var_mean<<<mgrid, WG_THREADS, msmem, stream>>>(mq, mk, (const float*)recip, (bf16*)mean,
-                                                        H, T, qscale, chunk, resident ? 1 : 0);
+    attn_var_mean<HD><<<mgrid, WG_THREADS, msmem, stream>>>(
+        mq, mk, (const float*)recip, (bf16*)mean, H, T, qscale, chunk, resident ? 1 : 0);
   else
-    attn_var_mean_nomin<<<mgrid, WG_THREADS, msmem, stream>>>(
+    attn_var_mean_nomin<HD><<<mgrid, WG_THREADS, msmem, stream>>>(
         mq, mk, (const float*)recip, (bf16*)mean, H, T, qscale, chunk, resident ? 1 : 0);
   return (int)cudaGetLastError();
 }
 
-// Clusters of C v5 blocks with `smem` bytes each that the current device
-// holds at once (cudaOccupancyMaxActiveClusters: every block of a cluster
-// on one GPC), asked once per (device, C, smem) and kept as smem << 20 | n.
+// Clusters of C v5 blocks (head dim HD) with `smem` bytes each that the
+// current device holds at once (cudaOccupancyMaxActiveClusters: every block
+// of a cluster on one GPC), asked once per (device, C, smem) and kept as
+// smem << 20 | n.
+template <int HD>
 cudaError_t v5_active(int C, int smem, int* n) {
   constexpr int MAX_DEVICES = 64;
   static std::atomic<long long> known[MAX_DEVICES][V5_MAX_CLUSTER + 1];
@@ -1293,16 +1395,18 @@ cudaError_t v5_active(int C, int smem, int* n) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  if ((err = cudaOccupancyMaxActiveClusters(n, attn_v5_batched, &cfg)) != cudaSuccess) return err;
+  if ((err = cudaOccupancyMaxActiveClusters(n, attn_v5_batched<HD>, &cfg)) != cudaSuccess)
+    return err;
   if (dev < MAX_DEVICES) known[dev][C].store(((long long)smem << 20) | *n, std::memory_order_relaxed);
   return cudaSuccess;
 }
 
 // v5's shared memory at H heads, set as the kernel's limit (a runtime call
 // first: the tensor-map encoding needs the device's context current)
+template <int HD>
 cudaError_t v5_prepare(int H, bool resident, int* smem) {
-  *smem = (int)v5_smem(H, resident);
-  return max_shared((const void*)attn_v5_batched, *smem);
+  *smem = (int)v5_smem<HD>(H, resident);
+  return max_shared((const void*)attn_v5_batched<HD>, *smem);
 }
 
 // Blocks per cluster: V5_CLUSTER if set, else the C (at most 8, at most the
@@ -1310,6 +1414,7 @@ cudaError_t v5_prepare(int H, bool resident, int* smem) {
 // as waves (v5_active clusters at once) times the tile steps a block runs:
 // sweep 1, ceil(H / C) nk (whole heads); sweep 2, H ceil(nk / C); ties go
 // to the smaller C.
+template <int HD>
 cudaError_t v5_cluster(int B, int H, int T, int smem, int* cluster) {
   if (V5_CLUSTER > 0) {
     *cluster = V5_CLUSTER;
@@ -1320,7 +1425,7 @@ cudaError_t v5_cluster(int B, int H, int T, int smem, int* cluster) {
   long best = -1;
   for (int c = 1; c <= V5_MAX_CLUSTER && c <= nk; ++c) {
     int active = 0;
-    cudaError_t err = v5_active(c, smem, &active);
+    cudaError_t err = v5_active<HD>(c, smem, &active);
     if (err != cudaSuccess) return err;
     if (active < 1) continue;
     const long chunk = (nk + c - 1) / c;
@@ -1333,20 +1438,23 @@ cudaError_t v5_cluster(int B, int H, int T, int smem, int* cluster) {
   return best < 0 ? cudaErrorInvalidConfiguration : cudaSuccess;
 }
 
-// v5: one launch on a grid of (C, ceil(T / 128), B) blocks in clusters of
-// C; `work` (B, H, T) f32 holds the recips above V5_SMEM_RECIP_HEADS heads
+// v5 at head dim HD: one launch on a grid of (C, ceil(T / 128), B) blocks
+// in clusters of C; `work` (B, H, T) f32 holds the recips above
+// V5_SMEM_RECIP_HEADS heads
+template <int HD>
 int v5_forward(const void* q, const void* k, const void* v, void* out, void* mean, void* work,
                int B, int H, int T, float qscale, cudaStream_t stream) {
+  using HT = HeadTile<HD>;
   if (H < 1 || T < 1 || work == nullptr) return (int)cudaErrorInvalidValue;
-  const bool resident = H <= V5_RESIDENT_HEADS;
+  const bool resident = v5_resident<HD>(H);
   int smem = 0, C = 0;
-  cudaError_t err = v5_prepare(H, resident, &smem);
-  if (err == cudaSuccess) err = v5_cluster(B, H, T, smem, &C);
+  cudaError_t err = v5_prepare<HD>(H, resident, &smem);
+  if (err == cudaSuccess) err = v5_cluster<HD>(B, H, T, smem, &C);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap mq, mk, mv;
-  if (int bad = make_tile_map(&mq, q, B * H, T)) return bad;
-  if (int bad = make_tile_map(&mk, k, B * H, T)) return bad;
-  if (int bad = make_tile_map(&mv, v, B * H, T)) return bad;
+  if (int bad = HT::map(&mq, q, B * H, T)) return bad;
+  if (int bad = HT::map(&mk, k, B * H, T)) return bad;
+  if (int bad = HT::map(&mv, v, B * H, T)) return bad;
   if (!aligned16(out) || !aligned16(mean) || !aligned16(work)) return TMA_MISALIGNED;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(C, (T + V5_ROWS - 1) / V5_ROWS, B);
@@ -1360,41 +1468,64 @@ int v5_forward(const void* q, const void* k, const void* v, void* out, void* mea
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, attn_v5_batched, mq, mk, mv, (bf16*)out, (bf16*)mean,
+  err = cudaLaunchKernelEx(&cfg, attn_v5_batched<HD>, mq, mk, mv, (bf16*)out, (bf16*)mean,
                            (float*)work, H, T, qscale, resident ? 1 : 0);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// the cluster size v5_forward<HD> launches at (B, H, T), or minus the
+// cudaError_t that stops it
+template <int HD>
+int v5_cluster_size(int B, int H, int T) {
+  int smem = 0, C = 0;
+  cudaError_t err = v5_prepare<HD>(H, v5_resident<HD>(H), &smem);
+  if (err == cudaSuccess) err = v5_cluster<HD>(B, H, T, smem, &C);
+  return err == cudaSuccess ? C : -(int)err;
+}
+
+template <int HD>
+int variant_forward(int variant, const void* q, const void* k, const void* v, void* out,
+                    void* mean, void* work, int B, int H, int T, float qscale,
+                    cudaStream_t stream) {
+  if (variant == 5) return v5_forward<HD>(q, k, v, out, mean, work, B, H, T, qscale, stream);
+  return hopper_variant<HD>(variant, q, k, v, out, mean, work, B, H, T, qscale, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// variant 2..6 as in the list at the top. q, k, out: (B, H, T, 64) bf16
-// contiguous, 16-byte aligned; v: (B, H, T, 64), for variant 6 (B, H, T, 72)
-// with ones in the last 8 columns (the kernel reads them: the denominator
-// is column 64 of e @ v); mean: (B, T, T) bf16; work: a (B, H, T) f32
-// workspace (each row's recip: written by the out pass and read by the
-// mean pass; variant 5 uses it only above V5_SMEM_RECIP_HEADS heads).
-// qscale: d^-0.5 * log2(e) already rounded to bf16. Any H >= 1. Returns a
-// cudaError_t, or a code of make_plane_map (>= 998) when a tensor map
-// cannot be made.
+// variant 2..6 as in the list at the top, at head dim D = 32, 64 or 128
+// (cudaErrorInvalidValue otherwise; ops/attention_variants.py zero-pads any
+// other width up to 128 onto the smallest of them). q, k, out: (B, H, T, D)
+// bf16 contiguous, 16-byte aligned; v: (B, H, T, D), for variant 6
+// (B, H, T, D + 8) with ones in the last 8 columns (the kernel reads them:
+// the denominator is column D of e @ v); mean: (B, T, T) bf16; work: a
+// (B, H, T) f32 workspace (each row's recip: written by the out pass and
+// read by the mean pass; variant 5 uses it only above V5_SMEM_RECIP_HEADS
+// heads). qscale: d^-0.5 * log2(e) of the true head dim, already rounded to
+// bf16. Any H >= 1. Returns a cudaError_t, or a code of make_plane_map
+// (>= 998) when a tensor map cannot be made.
 int attn_variant_forward(int variant, const void* q, const void* k, const void* v, void* out,
-                         void* mean, void* work, int B, int H, int T, float qscale,
+                         void* mean, void* work, int B, int H, int T, int D, float qscale,
                          void* stream) {
-  if (variant == 5)
-    return v5_forward(q, k, v, out, mean, work, B, H, T, qscale, (cudaStream_t)stream);
-  return hopper_variant(variant, q, k, v, out, mean, work, B, H, T, qscale, (cudaStream_t)stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D == 64) return variant_forward<64>(variant, q, k, v, out, mean, work, B, H, T, qscale, st);
+  if (D == 32) return variant_forward<32>(variant, q, k, v, out, mean, work, B, H, T, qscale, st);
+  if (D == 128)
+    return variant_forward<128>(variant, q, k, v, out, mean, work, B, H, T, qscale, st);
+  return (int)cudaErrorInvalidValue;
 }
 
-// The cluster size attn_variant_forward(5, ...) launches at (B, H, T) on
+// The cluster size attn_variant_forward(5, ...) launches at (B, H, T, D) on
 // the current device, or minus the cudaError_t that stops it.
-int attn_v5_cluster(int B, int H, int T) {
+int attn_v5_cluster(int B, int H, int T, int D) {
   if (B < 1 || H < 1 || T < 1) return -(int)cudaErrorInvalidValue;
-  int smem = 0, C = 0;
-  cudaError_t err = v5_prepare(H, H <= V5_RESIDENT_HEADS, &smem);
-  if (err == cudaSuccess) err = v5_cluster(B, H, T, smem, &C);
-  return err == cudaSuccess ? C : -(int)err;
+  if (D == 64) return v5_cluster_size<64>(B, H, T);
+  if (D == 32) return v5_cluster_size<32>(B, H, T);
+  if (D == 128) return v5_cluster_size<128>(B, H, T);
+  return -(int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -9,18 +9,24 @@
 //   K-major   (the 64 columns are the contraction): desc_kmajor + 32 B per k16 step;
 //   MN-major  (the 64 rows are the contraction):    desc_mnmajor + 2048 B per k16 step.
 // A (64 rows, 32) tile of a (planes, rows, 32) tensor (head dim 32) is 64
-// rows of 64 bytes under CU_TENSOR_MAP_SWIZZLE_64B (make_tile_map32), in a
+// rows of 64 bytes under CU_TENSOR_MAP_SWIZZLE_64B (HeadTile<32>::map), in a
 // 512-byte aligned slot of 4096 bytes, with the same two uses:
 //   K-major   (two k16 steps):      desc_kmajor32 + 32 B per k16 step;
 //   MN-major  (N = 32, m64n32k16):  desc_mnmajor32 + 1024 B per k16 step.
 // A (64 rows, 128) tile of a (planes, rows, 128) tensor (head dim 128) is
 // two such 64-column tiles side by side in one 16 KB slot: columns 0-63 in
 // the first 8 KB, 64-127 in the second, each one TMA box under the 128-byte
-// swizzle (make_tile_map128: a 128-column map with 64-column boxes):
+// swizzle (HeadTile<128>::map: a 128-column map with 64-column boxes):
 //   K-major   (eight k16 steps):   desc_kmajor of half kc / 4, k16 step kc % 4;
 //   MN-major  (N = 128, m64n128k16): desc_mnmajor, whose leading byte offset
 //             (8 KB) is the stride from one 64-column swizzle atom to the next.
 // HeadTile<128>, HeadTile<64> and HeadTile<32> name these per head dim.
+// Each also loads its tile from a wider tensor: HeadTile<HD>::map over a
+// row of `cols` columns and HeadTile<HD>::load at a column offset. The wide
+// route of the attention kernels (head dims above 128, padded to a multiple
+// of 128) walks a head row as a run of 128-column slabs that way: slab c is
+// the HeadTile<128> at column 128 c, with the descriptors above; v6 of the
+// variants reads its padded V's first HD columns that way.
 // The tensor map is encoded on the host through the entry point that
 // cudaGetDriverEntryPoint returns, so no -lcuda is needed at link time.
 
@@ -162,28 +168,12 @@ inline int make_plane_map(CUtensorMap* map, const void* base, int planes, int ro
                           swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
-// Map of a contiguous (planes, rows, 64) bf16 tensor with (64, 64, 1) boxes
-// under the 128-byte swizzle: the tile convention above
-inline int make_tile_map(CUtensorMap* map, const void* base, int planes, int rows) {
-  return make_plane_map(map, base, planes, rows, 64, 64, true);
-}
-
-// Map of a contiguous (planes, rows, 32) bf16 tensor with (32, 64, 1) boxes
-// under the 64-byte swizzle: the 32-column tiles of the convention above
+// bytes of a (64 rows, 32) bf16 tile under the 64-byte swizzle
 constexpr int TILE32_BYTES = TILE_ROWS * 64;
-inline int make_tile_map32(CUtensorMap* map, const void* base, int planes, int rows) {
-  return encode_plane_map(map, base, planes, rows, 32, 32, CU_TENSOR_MAP_SWIZZLE_64B);
-}
-
-// Map of a contiguous (planes, rows, 128) bf16 tensor with (64, 64, 1)
-// boxes under the 128-byte swizzle: the two halves of a head-dim-128 tile
-inline int make_tile_map128(CUtensorMap* map, const void* base, int planes, int rows) {
-  return make_plane_map(map, base, planes, rows, 128, 64, true);
-}
 
 // Map of a contiguous (rows, cols) bf16 matrix (cols a multiple of 8) with
 // (64, 64) boxes, 128-byte swizzle, zeros outside the matrix; returns as
-// make_tile_map does.
+// encode_plane_map does.
 inline int make_map_2d(CUtensorMap* map, const void* base, int rows, int cols) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return TMA_NO_ENTRY_POINT;
@@ -269,11 +259,11 @@ struct HeadTile<64> {
     return desc_mnmajor(t, kc);
   }
   __device__ static __forceinline__ void load(void* dst, const CUtensorMap* m, uint64_t* bar,
-                                              int row, int plane) {
-    tma_load_tile(dst, m, bar, row, plane);
+                                              int row, int plane, int col0 = 0) {
+    tma_load_box(dst, m, bar, col0, row, plane);
   }
-  static int map(CUtensorMap* m, const void* base, int planes, int rows) {
-    return make_tile_map(m, base, planes, rows);
+  static int map(CUtensorMap* m, const void* base, int planes, int rows, int cols = 64) {
+    return make_plane_map(m, base, planes, rows, cols, 64, true);
   }
 };
 
@@ -292,11 +282,11 @@ struct HeadTile<32> {
     return desc_mnmajor32(t, kc);
   }
   __device__ static __forceinline__ void load(void* dst, const CUtensorMap* m, uint64_t* bar,
-                                              int row, int plane) {
-    tma_load_tile(dst, m, bar, row, plane);
+                                              int row, int plane, int col0 = 0) {
+    tma_load_box(dst, m, bar, col0, row, plane);
   }
-  static int map(CUtensorMap* m, const void* base, int planes, int rows) {
-    return make_tile_map32(m, base, planes, rows);
+  static int map(CUtensorMap* m, const void* base, int planes, int rows, int cols = 32) {
+    return encode_plane_map(m, base, planes, rows, cols, 32, CU_TENSOR_MAP_SWIZZLE_64B);
   }
 };
 
@@ -315,14 +305,22 @@ struct HeadTile<128> {
     return desc_mnmajor(static_cast<const uint8_t*>(t) + part * TILE_BYTES, kc);
   }
   __device__ static __forceinline__ void load(void* dst, const CUtensorMap* m, uint64_t* bar,
-                                              int row, int plane) {
-    tma_load_box(dst, m, bar, 0, row, plane);
-    tma_load_box(static_cast<uint8_t*>(dst) + TILE_BYTES, m, bar, 64, row, plane);
+                                              int row, int plane, int col0 = 0) {
+    tma_load_box(dst, m, bar, col0, row, plane);
+    tma_load_box(static_cast<uint8_t*>(dst) + TILE_BYTES, m, bar, col0 + 64, row, plane);
   }
-  static int map(CUtensorMap* m, const void* base, int planes, int rows) {
-    return make_tile_map128(m, base, planes, rows);
+  static int map(CUtensorMap* m, const void* base, int planes, int rows, int cols = 128) {
+    return make_plane_map(m, base, planes, rows, cols, 64, true);
   }
 };
+
+// The wide route of the attention kernels: head dims above 128, zero-padded
+// to a multiple of 128, walked as a run of 128-column slabs, each a
+// HeadTile<128> at column 128 c of a map over the whole row.
+using Slab = HeadTile<128>;
+constexpr int SLAB_COLS = 128;
+inline bool wide_head_dim(int D) { return D > SLAB_COLS && D % SLAB_COLS == 0; }
+constexpr int WIDE_STAGES = 2;  // ring slots of every wide-route kernel
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");

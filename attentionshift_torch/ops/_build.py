@@ -78,6 +78,15 @@ KERNELS: dict[str, Kernel] = {
                "attentionshift_tpu/ops/attention.py:364"),
         Kernel("attention_bwd_dkv_d128", "attention_bwd",
                "attentionshift_tpu/ops/attention.py:402"),
+        # their wide route (head dims above 128, padded to a multiple of 128)
+        Kernel("attention_capture_dwide", "attention",
+               "attentionshift_tpu/ops/attention.py:251"),
+        Kernel("attention_plain_dwide", "attention",
+               "attentionshift_tpu/ops/attention.py:315"),
+        Kernel("attention_bwd_dq_dwide", "attention_bwd",
+               "attentionshift_tpu/ops/attention.py:364"),
+        Kernel("attention_bwd_dkv_dwide", "attention_bwd",
+               "attentionshift_tpu/ops/attention.py:402"),
         Kernel("ccl_batch", "ccl", "attentionshift_tpu/ops/ccl.py:200"),
         Kernel("meanshift_fixpoint", "meanshift",
                "attentionshift_tpu/ops/meanshift_kernel.py:47"),
@@ -92,6 +101,13 @@ KERNELS: dict[str, Kernel] = {
                "tools/analysis/microbench_attention.py:337"),
         Kernel("attention_v6_fusedsum", "attention_variants",
                "tools/analysis/microbench_attention.py:393"),
+        # the variants' head-dim-32 and -128 instances (head dims 1-32 and
+        # 65-128 through ops/attention_variants.py's padding)
+        *(Kernel(f"{name}_d{d}", "attention_variants", f"tools/analysis/microbench_attention.py:{line}")
+          for d in (32, 128)
+          for name, line in (("attention_v2_bf16e", 171), ("attention_v3_nomin", 224),
+                             ("attention_v4_mxsum", 282), ("attention_v5_batched", 337),
+                             ("attention_v6_fusedsum", 393))),
     )
 }
 

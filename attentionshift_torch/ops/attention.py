@@ -28,18 +28,21 @@ recomputed probabilities is the forward's log2-sum-exp, which the flash
 pass writes whenever a gradient may be asked for.
 
 The kernels have instances for head dims 64 (the ViTs), 32 (Swin's
-global blocks, the decoder heads) and 128, and take any number of heads:
-the mean pass keeps every head's query tile while they fit
-(``attn_mean_resident_heads``) and streams them above that. Launches of
-the 32 and 128 instances are counted under their own names,
-``<kernel>_d32`` and ``<kernel>_d128``. On a CUDA tensor the head dim d
-picks the route (``kernel_head_dim``), as the JAX package's dispatch
-does: d divisible by 8 runs the smallest instance at least as wide, on
-q, k, v zero-padded on the head axis, with the softmax scale of the true
-d, and its outputs sliced back (zero columns change neither q k^T nor the
+global blocks, the decoder heads) and 128, and a wide route for any
+multiple of 128 above 128, which walks a head row as a run of 128-column
+slabs (``flash_fwd_wide``, ``attn_mean_wide``, ``bwd_dq_wide``,
+``bwd_dkv_wide``); they take any number of heads: the mean pass keeps
+every head's query tile while they fit (``attn_mean_resident_heads``; the
+wide route never) and streams them above that. Launches of the 32 and 128
+instances and of the wide route are counted under their own names,
+``<kernel>_d32``, ``<kernel>_d128`` and ``<kernel>_dwide``. On a CUDA
+tensor the head dim d picks the route (``kernel_head_dim``), as the JAX
+package's dispatch does: d divisible by 8 runs the smallest instance at
+least as wide, or above 128 the wide route at 128 * ceil(d / 128), on q,
+k, v zero-padded on the head axis, with the softmax scale of the true d,
+and its outputs sliced back (zero columns change neither q k^T nor the
 probabilities, so this is exact); d not divisible by 8 runs the plain
-version, as the JAX package does, counted in ``PLAIN_ROUTE``; d divisible
-by 8 above 128 raises ``ValueError``.
+version, as the JAX package does, counted in ``PLAIN_ROUTE``.
 """
 
 from __future__ import annotations
@@ -54,15 +57,17 @@ from ..parallel.collectives import all_reduce
 from ._build import KERNELS, check, library
 from .numerics import F32_MIN_NORMAL, bf16_steps
 
-__all__ = ["HEAD_DIMS", "PLAIN_ROUTE", "kernel_head_dim", "forward_on_instance",
+__all__ = ["HEAD_DIMS", "SLAB", "PLAIN_ROUTE", "kernel_head_dim", "forward_on_instance",
            "backward_on_instance", "attention_reference", "attention_backward_reference",
            "attention_with_capture", "attention_no_capture", "attention_with_capture_sharded",
            "attention_no_capture_sharded", "reduce_capture", "attention_plain_op",
            "attention_capture_op", "attention_flops", "flash_forward", "forward_library",
-           "attention_backward_dq", "attention_backward_dkv", "capture_mean_limit", "kernel_name"]
+           "attention_backward_dq", "attention_backward_dkv", "capture_mean_limit", "kernel_name",
+           "pad_head"]
 
 _LOG2E = 1.4426950408889634
 HEAD_DIMS = (64, 32, 128)  # the head dims the kernels have instances for
+SLAB = 128  # the wide route takes head dims that are multiples of SLAB above it
 # calls a CUDA tensor made through the plain versions, chosen by a head dim
 # not divisible by 8 (the JAX package's dispatch); no kernel launches there
 PLAIN_ROUTE = {"attention_plain": 0, "attention_capture": 0, "attention_backward": 0}
@@ -70,28 +75,35 @@ PLAIN_ROUTE = {"attention_plain": 0, "attention_capture": 0, "attention_backward
 
 def kernel_name(name: str, d: int) -> str:
     """The ``KERNELS`` record that counts ``name``'s launches on the
-    instance of head dim ``d``: the name itself at 64, ``<name>_d<d>``
-    otherwise."""
+    instance of head dim ``d``: the name itself at 64, ``<name>_d<d>`` at 32
+    and 128, ``<name>_dwide`` on the wide route (``d`` above 128)."""
+    if d > SLAB:
+        return f"{name}_dwide"
     return name if d == 64 else f"{name}_d{d}"
 
 
 def kernel_head_dim(d: int) -> int | None:
-    """The instance head dim ``d`` runs on: the smallest of 32, 64 and 128
-    at least ``d`` for ``d`` divisible by 8; None (the plain version) for
-    any other ``d``, where the JAX package takes its plain path too
-    (``attentionshift_tpu/ops/attention.py``, ``q.shape[-1] % 8``); a
-    ``ValueError`` for ``d`` divisible by 8 above 128, which has no
-    instance."""
+    """The head dim ``d`` runs on: for ``d`` divisible by 8 the smallest of
+    32, 64 and 128 at least ``d``, or above 128 the wide route's 128 *
+    ceil(d / 128); None (the plain version) for any other ``d``, where the
+    JAX package takes its plain path too
+    (``attentionshift_tpu/ops/attention.py``, ``q.shape[-1] % 8``)."""
     if d % 8:
         return None
     for kd in sorted(HEAD_DIMS):
         if d <= kd:
             return kd
-    raise ValueError(f"attention kernel: no instance for head dim {d} (at most "
-                     f"{max(HEAD_DIMS)})")
+    return -(-d // SLAB) * SLAB
 
 
-def _pad_head(x, kd: int):
+def _instance(d: int) -> bool:
+    """Whether the kernels take head dim ``d`` as it is: 32, 64, 128, or a
+    multiple of 128 above 128 (the wide route)."""
+    return d in HEAD_DIMS or (d > SLAB and d % SLAB == 0)
+
+
+def pad_head(x, kd: int):
+    """``x`` zero-padded on its last (head) axis to ``kd`` columns."""
     return x if x.shape[-1] == kd else F.pad(x, (0, kd - x.shape[-1])).contiguous()
 
 
@@ -102,7 +114,7 @@ def forward_on_instance(forward, q, k, v, pad_interval=None):
     is sliced back to d, the others are returned as they are."""
     d = q.shape[-1]
     kd = kernel_head_dim(d)
-    out, *rest = forward(*(_pad_head(x, kd) for x in (q, k, v)), pad_interval, d)
+    out, *rest = forward(*(pad_head(x, kd) for x in (q, k, v)), pad_interval, d)
     return (out if kd == d else out[..., :d].contiguous(), *rest)
 
 
@@ -113,7 +125,7 @@ def backward_on_instance(backward, q, k, v, g_out, pad_interval=None):
     so nothing is lost)."""
     d = q.shape[-1]
     kd = kernel_head_dim(d)
-    grads = backward(*(_pad_head(x, kd) for x in (q, k, v, g_out)), pad_interval, d)
+    grads = backward(*(pad_head(x, kd) for x in (q, k, v, g_out)), pad_interval, d)
     return tuple(g if kd == d else g[..., :d].contiguous() for g in grads)
 
 
@@ -174,9 +186,9 @@ def _check_inputs(q, k, v, instance: bool = True):
         raise ValueError(f"attention kernel takes bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"attention kernel: q/k/v shapes differ or are not 4-D: {tuple(q.shape)}")
-    if instance and q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"attention kernel takes head dim {', '.join(map(str, HEAD_DIMS))}, "
-                         f"got {q.shape[-1]}")
+    if instance and not _instance(q.shape[-1]):
+        raise ValueError(f"attention kernel takes head dim {', '.join(map(str, HEAD_DIMS))} or a "
+                         f"multiple of {SLAB} above {SLAB}, got {q.shape[-1]}")
 
 
 def _require_contiguous(fn: str, *tensors) -> None:

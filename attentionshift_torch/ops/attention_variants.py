@@ -2,9 +2,9 @@
 
 Port of the five experimental kernels of the JAX package's attention
 microbenchmark (``tools/analysis/microbench_attention.py``, ``v2`` ...
-``v6``). Each takes q, k, v (B, H, T, 64) and returns
+``v6``). Each takes q, k, v (B, H, T, d) and returns
 
-    out  (B, H, T, 64)   softmax(q k^T / sqrt(d)) v per head
+    out  (B, H, T, d)    softmax(q k^T / sqrt(d)) v per head
     mean (B, T, T)       the head-averaged probabilities
 
 with the TPU kernels' constant-shift softmax: q is scaled by
@@ -21,7 +21,7 @@ row and column of any T is computed. The variants differ in one choice:
     v5-batched   v2 with all heads at once; mean = mean over the head axis
                  (the sum over heads, then one division by H)
     v6-fusedsum  v2 with the row sum folded into PV: V gets 8 all-ones
-                 columns and the denominator is column 64 of the product
+                 columns and the denominator is column d of the product
 
 ``attention_variant`` is the wrapper: a CPU tensor takes the plain
 PyTorch version ``variant_reference``, which repeats the variant's
@@ -37,6 +37,16 @@ whole heads, then the mean of its share of the key range; it keeps the
 recips in shared memory and needs the workspace only above 24 heads.
 ``mean_limit`` is the per-entry limit the card checks hold a kernel's
 mean to.
+
+The kernels have instances for head dims 32, 64 and 128
+(``VARIANT_HEAD_DIMS``), launches of the 32 and 128 instances counted
+under ``<kernel>_d32`` and ``<kernel>_d128``. Any other d up to 128 runs
+on the smallest instance at least as wide, on q, k, v zero-padded on the
+head axis, with the scale of the true d (the JAX tool's kernels take any
+``--dim``, also one not divisible by 8); v6's 8 ones columns then follow
+the padded width. ``out`` is sliced back to d. Zero columns change
+neither q k^T nor the row sums, so the padding is exact. Above 128 the
+kernel path raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -46,10 +56,11 @@ import ctypes
 import torch
 
 from ._build import KERNELS, check, library
+from .attention import kernel_name, pad_head
 from .numerics import F32_MIN_NORMAL, bf16_steps
 
-__all__ = ["VARIANTS", "variant_reference", "attention_variant", "variant_library", "clamp_case",
-           "mean_limit"]
+__all__ = ["VARIANTS", "VARIANT_HEAD_DIMS", "variant_head_dim", "variant_kernel",
+           "variant_reference", "attention_variant", "variant_library", "clamp_case", "mean_limit"]
 
 _LOG2E = 1.4426950408889634
 _SOFTMAX_SHIFT = 20.0
@@ -62,6 +73,24 @@ VARIANTS = {
     "v5-batched": ("attention_v5_batched", 5),
     "v6-fusedsum": ("attention_v6_fusedsum", 6),
 }
+VARIANT_HEAD_DIMS = (32, 64, 128)  # the head dims the variant kernels have instances for
+
+
+def variant_head_dim(d: int) -> int:
+    """The instance head dim ``d`` runs on: the smallest of 32, 64 and 128
+    at least ``d``; a ``ValueError`` above 128."""
+    for kd in VARIANT_HEAD_DIMS:
+        if d <= kd:
+            return kd
+    raise ValueError(f"attention variant kernel takes head dims up to {VARIANT_HEAD_DIMS[-1]}, "
+                     f"got {d}")
+
+
+def variant_kernel(variant: str, kd: int) -> str:
+    """The ``KERNELS`` record that counts ``variant``'s launches on the
+    instance of head dim ``kd``, named as ``attention.kernel_name`` names
+    the attention kernels' records."""
+    return kernel_name(VARIANTS[variant][0], kd)
 
 
 def _q_scale(q):
@@ -118,8 +147,7 @@ def _check_inputs(q, k, v, variant):
         raise ValueError(f"attention variant kernel takes bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"attention variant kernel: q/k/v shapes differ or are not 4-D: {tuple(q.shape)}")
-    if q.shape[-1] != 64:
-        raise ValueError(f"attention variant kernel takes head dim 64, got {q.shape[-1]}")
+    variant_head_dim(q.shape[-1])
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("attention variant kernel: q, k, v must all be CUDA tensors")
 
@@ -131,10 +159,10 @@ def variant_library(defines=()):
     fn = lib.attn_variant_forward
     if fn.argtypes is None:  # first use of this library
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                        + [ctypes.c_float, ctypes.c_void_p])
         lib.attn_v5_cluster.restype = ctypes.c_int
-        lib.attn_v5_cluster.argtypes = [ctypes.c_int] * 3
+        lib.attn_v5_cluster.argtypes = [ctypes.c_int] * 4
     return lib
 
 
@@ -148,18 +176,22 @@ def _workspace(q):
 
 def _launch(fn, variant, q, k, v, stream):
     """One call of ``attn_variant_forward`` (``fn``) on contiguous inputs
-    on ``stream``: (out, mean), one launch counted."""
-    name, number = VARIANTS[variant]
+    on ``stream``: (out, mean), one launch counted. q, k, v are zero-padded
+    on the head axis to their instance's head dim (v6's ones after the
+    padded width), the scale is the true d's, ``out`` is sliced back."""
+    _, number = VARIANTS[variant]
     b, h, t, d = q.shape
-    v = _with_ones(v) if variant == "v6-fusedsum" else v
-    out = torch.empty_like(q)
+    kd = variant_head_dim(d)
+    qp, kp, vp = (pad_head(x, kd) for x in (q, k, v))
+    vp = _with_ones(vp) if variant == "v6-fusedsum" else vp
+    out = torch.empty_like(qp)
     mean = torch.empty((b, t, t), device=q.device, dtype=q.dtype)
     work = _workspace(q)
-    check(fn(number, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), mean.data_ptr(),
-             work.data_ptr(), b, h, t, float(_q_scale(q)), stream),
+    check(fn(number, qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(), mean.data_ptr(),
+             work.data_ptr(), b, h, t, kd, float(_q_scale(q)), stream),
           f"attn_variant_forward({variant})")
-    KERNELS[name].launches += 1
-    return out, mean
+    KERNELS[variant_kernel(variant, kd)].launches += 1
+    return (out if kd == d else out[..., :d].contiguous()), mean
 
 
 def attention_variant(q, k, v, variant: str, lib=None):
@@ -175,23 +207,27 @@ def attention_variant(q, k, v, variant: str, lib=None):
                    v.contiguous(), torch.cuda.current_stream(q.device).cuda_stream)
 
 
-# the clamp input: query row, the two key columns, and values exact in bf16
-# with q.k = 64 * (4 * bf16(scale)) * key value, bf16(0.125 * log2 e) = 185/1024
+# the clamp input: query row, the two key columns, the query value and the
+# two shifted log2 logits aimed at; q.k * bf16(scale) = d * 4 * bf16(scale) *
+# key value, each key value rounded to bf16 (at d = 64: bf16(0.125 log2 e)
+# = 185/1024, key values 2.8125 and 2.6875, logits 110.08 and 104.30)
 _CLAMP_ROW, _CLAMP_COLS = 3, (5, 9)
 _CLAMP_Q = 4.0
-_CLAMP_K = (2.8125, 2.6875)  # 64 * 185/256 * . - 20 = 110.08 and 104.30
+_CLAMP_LOGITS = (110.08, 104.30)
 
 
 def clamp_case(q, k, v):
-    """Copies of q, k, v (head dim 64) in which query row 3 of every head
+    """Copies of q, k, v (any head dim d) in which query row 3 of every head
     has two shifted log2 logits inside (100, 127): about 110 at key 5 and
     about 104 at key 9, every other logit of the row far below. The
     clamped variants give both keys e = 2^100, so that row of ``out`` is
     the even mix of their values; v3 keeps 2^110 and 2^104, a 55:1 mix."""
     q, k, v = q.clone(), k.clone(), v.clone()
+    d = q.shape[-1]
     q[:, :, _CLAMP_ROW] = _CLAMP_Q
-    for col, val in zip(_CLAMP_COLS, _CLAMP_K):
-        k[:, :, col] = val
+    step = d * _CLAMP_Q * float(_q_scale(q))
+    for col, logit in zip(_CLAMP_COLS, _CLAMP_LOGITS):
+        k[:, :, col] = float(torch.tensor((logit + _SOFTMAX_SHIFT) / step).bfloat16())
     return q, k, v
 
 

@@ -20,6 +20,11 @@ Run it on the card:
     python -m attentionshift_torch.tools.analysis.microbench_attention \\
         [--t 4301 --heads 6 --dim 64 --inner 10 --variants v2-bf16e,library]
 
+``--dim`` takes any head dim the JAX tool takes: the variants run their
+instances 32, 64 and 128 (a width in between zero-padded onto the next
+one, with its own scale) up to 128 and raise above it; the shipped
+attention ops take any d (the wide route above 128).
+
 Calls are CHAINED (``o = f(o, k, v)``), as in the JAX tool, so that every
 call depends on the one before. One chain of ``--inner`` calls is timed
 with CUDA events; the figure is the median over the chains, per call.

@@ -810,7 +810,7 @@ def phase_variant_kernels(results: dict, inp: dict):
     b, h, t, _ = inp["tool_qkv"][0].shape
     if q.is_cuda:
         log(f"[check] attn_v5_batched at {(b, h, t)}: clusters of "
-            f"{av.variant_library().attn_v5_cluster(b, h, t)} blocks (attn_v5_cluster)")
+            f"{av.variant_library().attn_v5_cluster(b, h, t, 64)} blocks (attn_v5_cluster)")
 
 
 def slice_inputs(h, w, g, n_valid, dev):
@@ -4368,10 +4368,10 @@ def phase_tool_shape_turns(tool_qkv, exp_rate: float) -> dict:
 
 def kernel_split(fn, names, calls: int = 3) -> dict:
     """Device ms per launch of each of the kernels ``names`` (functions of
-    a csrc/ source's anonymous namespace) over ``calls`` profiled calls of
-    ``fn`` (the profiler can miss the first launch of its window, so the
-    time is divided by the launches it saw); a name it did not see is left
-    out."""
+    a csrc/ source's anonymous namespace, a template's instances included)
+    over ``calls`` profiled calls of ``fn`` (the profiler can miss the first
+    launch of its window, so the time is divided by the launches it saw); a
+    name it did not see is left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -4386,7 +4386,8 @@ def kernel_split(fn, names, calls: int = 3) -> dict:
     split = {}
     for n in names:
         seen = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA and f"::{n}(" in e.key]
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and (f"::{n}(" in e.key or f"::{n}<" in e.key)]
         if seen:
             split[n] = sum(e.self_device_time_total for e in seen) / sum(e.count for e in seen) / 1e3
     return split
@@ -4573,7 +4574,8 @@ def phase_ablation(sources) -> None:
         b, h, t, _ = tq.shape
         for n, lib in vlibs.items():
             if ablated(n, "v5-batched"):
-                log(f"[ablate] v5-batched, {n}: clusters of {lib.attn_v5_cluster(b, h, t)} blocks")
+                log(f"[ablate] v5-batched, {n}: clusters of {lib.attn_v5_cluster(b, h, t, 64)} "
+                    f"blocks")
         for variant in av.VARIANTS:
             want_out, want_mean = av.variant_reference(tq, tk, tv, variant)
             limit = av.mean_limit(tq, tk, variant, want_mean)
@@ -5233,9 +5235,12 @@ def phase_diagnosis(results: dict, smi: str) -> dict:
 
 
 # phase_head_dims: the attention kernels at head dims the Pallas kernels take
-# (d divisible by 8), at (1, 768 // d, HD_T, d) bf16: 1024 patch tokens, a
-# 28-token gap and 100 point tokens
-HD_DIMS = (128, 8, 24, 48, 80, 96)
+# (d divisible by 8, with no upper limit), at (1, 768 // d, HD_T, d) bf16:
+# 1024 patch tokens, a 28-token gap and 100 point tokens; above 128 the wide
+# route (136 and 520 padded to 256 and 640)
+HD_DIMS = (128, 8, 24, 48, 80, 96, 136, 256, 384, 520)
+HD_TIMED = (128, 256, 384)  # the kernel table's shapes: d = 128, the wide route at 256 (its
+# line) and 384
 HD_T = 1024 + 28 + 100
 HD_GAP = (1024, 1052)
 HD_KERNELS = ("attention_capture", "attention_plain", "attention_bwd_dq", "attention_bwd_dkv")
@@ -5317,9 +5322,10 @@ def phase_head_dims(results: dict, dev, smi: str) -> dict:
             log(f"[check] head-dim {d}: control (scale of the padded d = {kd}) {ce:.3e} > {tol:.1e}: "
                 f"ok")
             del ref, ctl, got
-        if d == 128:
+        if d == 128 or kd > 128:
             for name, key in zip(HD_KERNELS, ("capture", "plain", "dq", "dkv")):
-                results[attention.kernel_name(name, 128)] = dict(max_abs_err=errs[key])
+                r = results.setdefault(attention.kernel_name(name, kd), dict(max_abs_err=0.0))
+                r["max_abs_err"] = max(r["max_abs_err"], errs[key])
     for d, (q, k, v, g) in cases.items():
         mask = sdpa_mask(HD_T, HD_GAP, dev)
         (fwd_ms, sdpa_fwd), _ = in_turns(
@@ -5333,12 +5339,47 @@ def phase_head_dims(results: dict, dev, smi: str) -> dict:
             lambda: torch.autograd.grad(sdpa, leaves, g, retain_graph=True))
         log(f"[time] {smi}: head-dim {d} {tuple(q.shape)} on instance "
             f"{attention.kernel_head_dim(d)}: plain op {fwd_ms:.4f} ms = {fwd_ms / sdpa_fwd:.2f}x "
-            f"SDPA's forward ({sdpa_fwd:.4f}); its backward {bwd_ms:.4f} ms = "
-            f"{bwd_ms / sdpa_bwd:.2f}x SDPA's backward ({sdpa_bwd:.4f}) (medians of 6 in turns)")
+            f"SDPA's forward ({sdpa_fwd:.4f}, {sdpa_backend(q, k, v, mask)}); its backward "
+            f"{bwd_ms:.4f} ms = {bwd_ms / sdpa_bwd:.2f}x SDPA's backward ({sdpa_bwd:.4f}) "
+            f"(medians of 6 in turns)")
         del leaves, ours, sdpa
-    q, k, v, g = cases[128]
+    for d in HD_TIMED:
+        head_dim_times(results, *cases[d], dev, smi)
+    for src, kern in (("attention", "flash_fwd"), ("attention", "attn_mean"),
+                      ("attention", "flash_fwd_wide"), ("attention", "attn_mean_wide"),
+                      ("attention_bwd", "bwd_dq"), ("attention_bwd", "bwd_dkv"),
+                      ("attention_bwd", "bwd_dq_wide"), ("attention_bwd", "bwd_dkv_wide")):
+        log(f"[build] {registers(src, kern)}")
+    return launches
+
+
+def sdpa_backend(q, k, v, mask) -> str:
+    """The backend ``F.scaled_dot_product_attention`` picks for these
+    inputs (``torch._fused_sdp_choice``)."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    names = {int(getattr(SDPBackend, n)): n for n in dir(SDPBackend) if n.isupper()}
+    return names.get(int(torch._fused_sdp_choice(q, k, v, mask)), "unknown")
+
+
+def head_dim_times(results: dict, q, k, v, g, dev, smi: str) -> None:
+    """The four attention kernels' times at (q, k, v) of head dim d (128, or
+    a multiple of 128 on the wide route), CUDA events: the ops as a user
+    calls them (custom-op dispatch included: ``ms``) and the kernels'
+    launchers alone (``kernel_ms``), beside SDPA with the same mask (in
+    turns) and the plain versions, with their bounds. d = 128 and 256 fill
+    the kernel line's entries of their records; 384 adds its numbers under
+    ``at_d384``."""
+    import torch
+    import torch.nn.functional as F
+
+    from attentionshift_torch.ops import attention
+    from attentionshift_torch.ops._build import reset_launches
+
     b, h, t, d = q.shape
     mask = sdpa_mask(t, HD_GAP, dev)
+    backend = sdpa_backend(q, k, v, mask)
     _, lse = attention.flash_forward(q, k, v, HD_GAP, with_lse=True)
     _, dd = attention.attention_backward_dq(q, k, v, lse, g, HD_GAP)
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
@@ -5348,51 +5389,179 @@ def phase_head_dims(results: dict, dev, smi: str) -> dict:
         attention.attention_backward_dq(q, k, v, lse, g, HD_GAP)
         attention.attention_backward_dkv(q, k, v, lse, dd, g, HD_GAP)
 
-    (flash_ms, sdpa_fwd), _ = in_turns(
+    def capture_kernels():
+        _, lse2 = attention.flash_forward(q, k, v, HD_GAP, with_lse=True)
+        attention._mean(q, k, lse2, HD_GAP)
+
+    (flash_ms, plain_op_ms, sdpa_fwd), _ = in_turns(
         lambda: attention.flash_forward(q, k, v, HD_GAP, with_lse=False),
+        lambda: attention.attention_no_capture(q, k, v, HD_GAP),
         lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
     (pair_ms, lib_bwd), _ = in_turns(
         pair, lambda: torch.autograd.grad(sdpa_out, leaves, g, retain_graph=True))
     del sdpa_out, leaves
     plain_bwd = cuda_time(lambda: attention.attention_backward_reference(q, k, v, g, HD_GAP),
                           reps=3)
-    reset_launches()
     qkv_bytes, flops, stat_bytes = 3 * q.numel() * 2, 4.0 * b * h * t * t * d, 2 * b * h * t * 4
     times = {
-        "attention_capture_d128": dict(
+        "attention_capture": dict(
             ms=median_time(lambda: attention.attention_with_capture(q, k, v, HD_GAP)),
+            kernel_ms=median_time(capture_kernels),
             plain_ms=cuda_time(lambda: attention.attention_reference(q, k, v, HD_GAP), reps=3),
             library_ms=None, bytes=qkv_bytes + q.numel() * 2 + b * t * t * 2, ops=flops),
-        "attention_plain_d128": dict(
-            ms=median_time(lambda: attention.attention_no_capture(q, k, v, HD_GAP)),
+        "attention_plain": dict(
+            ms=plain_op_ms, kernel_ms=flash_ms,
             plain_ms=cuda_time(lambda: attention.attention_reference(q, k, v, HD_GAP)[0], reps=3),
             library_ms=sdpa_fwd, bytes=qkv_bytes + q.numel() * 2, ops=flops),
-        "attention_bwd_dq_d128": dict(
+        "attention_bwd_dq": dict(
             ms=median_time(lambda: attention.attention_backward_dq(q, k, v, lse, g, HD_GAP)),
             plain_ms=plain_bwd, library_ms=lib_bwd, bytes=6 * q.numel() * 2 + stat_bytes,
             ops=6.0 * b * h * t * t * d),
-        "attention_bwd_dkv_d128": dict(
+        "attention_bwd_dkv": dict(
             ms=median_time(lambda: attention.attention_backward_dkv(q, k, v, lse, dd, g, HD_GAP)),
             plain_ms=plain_bwd, library_ms=lib_bwd, bytes=6 * q.numel() * 2 + stat_bytes,
             ops=8.0 * b * h * t * t * d),
     }
     reset_launches()
-    log(f"[time] {smi}: d128 flash pass {flash_ms:.4f} ms = {flops / flash_ms / 1e9:.1f} TFLOP/s, "
-        f"{flash_ms / sdpa_fwd:.2f}x SDPA's forward ({sdpa_fwd:.4f} ms); backward pair "
-        f"{pair_ms:.4f} ms = {pair_ms / lib_bwd:.2f}x SDPA's backward ({lib_bwd:.4f} ms), in turns")
+    log(f"[time] {smi}: d{d} {tuple(q.shape)} flash pass alone {flash_ms:.4f} ms = "
+        f"{flops / flash_ms / 1e9:.1f} TFLOP/s, through the plain op {plain_op_ms:.4f} ms, "
+        f"{flash_ms / sdpa_fwd:.2f}x SDPA's forward ({sdpa_fwd:.4f} ms, same mask, {backend}); "
+        f"backward pair {pair_ms:.4f} ms = {pair_ms / lib_bwd:.2f}x SDPA's backward "
+        f"({lib_bwd:.4f} ms), in turns")
     for name, tm in times.items():
         t_bytes = tm["bytes"] / PEAK_BYTES * 1e3
         t_ops = tm["ops"] / PEAK_BF16 * 1e3
-        results[name].update(ms=tm["ms"], plain_ms=tm["plain_ms"], library_ms=tm["library_ms"],
-                             bound_ms=max(t_bytes, t_ops),
-                             bound_by="bytes" if t_bytes >= t_ops else "operations")
-        log(f"[time] {name}: kernel {tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, library "
+        entry = dict(ms=tm["ms"], plain_ms=tm["plain_ms"], library_ms=tm["library_ms"],
+                     bound_ms=max(t_bytes, t_ops),
+                     bound_by="bytes" if t_bytes >= t_ops else "operations")
+        if "kernel_ms" in tm:
+            entry["kernel_ms"] = tm["kernel_ms"]
+        if tm["library_ms"] is not None:
+            entry["library_backend"] = backend
+        record = attention.kernel_name(name, d)
+        if d in (128, 256):
+            results[record].update(entry)
+        else:
+            results[record][f"at_d{d}"] = entry
+        alone = f", kernels alone {tm['kernel_ms']:.4f} ms" if "kernel_ms" in tm else ""
+        log(f"[time] {record} at {tuple(q.shape)}: op {tm['ms']:.4f} ms{alone}"
+            f", plain {tm['plain_ms']:.4f} ms, library "
             f"{tm['library_ms'] if tm['library_ms'] is None else round(tm['library_ms'], 4)} ms, "
-            f"bound {results[name]['bound_ms']:.4f} ms ({results[name]['bound_by']}), "
+            f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}), "
             f"{tm['ops'] / (tm['ms'] * 1e-3) / 1e12:.1f} TFLOP/s")
-    for src, kern in (("attention", "flash_fwd"), ("attention", "attn_mean"),
-                      ("attention_bwd", "bwd_dq"), ("attention_bwd", "bwd_dkv")):
-        log(f"[build] {registers(src, kern)}")
+
+
+# phase_variant_dims: the attention microbenchmark's five variants at head
+# dims other than 64 (the JAX tool's --dim), on the tool's own inputs
+# (1, 6, 4301, d): the instances 32 and 128, and 48 padded onto 64
+VD_DIMS = (32, 48, 128)
+VD_TIMED = (32, 128)  # the kernel table's shapes of the d = 32 and 128 records
+
+
+def phase_variant_dims(results: dict, dev, smi: str) -> dict:
+    """v2-v6 at every head dim of ``VD_DIMS`` through ``attention_variant``
+    (q, k, v zero-padded onto the instance, the scale of the true d, v6's
+    ones after the padded width, ``out`` sliced back). The path: each
+    variant once per d on the tool's inputs, with the counts at 0 just
+    before; each call must launch its instance's record once and nothing
+    else. Then each against its plain version: ``out`` within 4 bf16 ulps,
+    every mean entry within ``mean_limit`` (5.5 bf16 steps), on the tool's
+    inputs and on the clamp input, where the plain version of the other
+    clamp behaviour must fail both limits. The tool itself at ``--dim`` 32
+    and 128 (T = 301, 3 heads): one line per variant, its instance's
+    launches. Times at d = 32 and 128 (CUDA events, the five variants and
+    SDPA's forward in turns, medians of 6) with their bounds, plain
+    versions and registers for the kernel table. Returns the path's
+    launches."""
+    import torch.nn.functional as F
+
+    from attentionshift_torch.ops import attention_variants as av
+    from attentionshift_torch.ops._build import KERNELS, reset_launches
+    from attentionshift_torch.tools.analysis import microbench_attention as tool
+
+    cases = {d: tool.make_inputs(t=T_TOK, heads=HEADS, dim=d, device=dev) for d in VD_DIMS}
+    want = expected_launches()
+    for d in VD_DIMS:
+        for name in av.VARIANTS:
+            want[av.variant_kernel(name, av.variant_head_dim(d))] += 1
+    reset_launches()
+    for q, k, v in cases.values():
+        for name in av.VARIANTS:
+            av.attention_variant(q, k, v, name)
+    sync()
+    launches = launch_counts()
+    if launches != want:
+        raise AssertionError(f"variant dims: launches {nonzero(launches)} != {nonzero(want)}")
+    log(f"[variant-dims] path over d = {VD_DIMS}: launches {nonzero(launches)}: ok")
+    for d, (q, k, v) in cases.items():
+        kd = av.variant_head_dim(d)
+        for name in av.VARIANTS:
+            record = av.variant_kernel(name, kd)
+            errs = []
+            for tag, case in (("tool_input", (q, k, v)), ("clamp_input", av.clamp_case(q, k, v))):
+                want_out, want_mean = av.variant_reference(*case, name)
+                out, mean = av.attention_variant(*case, name)
+                sync()
+                out_tol = bf16_ulps(want_out, 4)
+                e_out, e_mean = max_err(out, want_out), max_err(mean, want_mean)
+                expect(f"{record}.d{d}.{tag}.out", e_out, out_tol,
+                       "4 bf16 ulps of the largest |out|: bf16 output, bf16 e in PV")
+                expect_mean(f"{record}.d{d}.{tag}.mean", mean, want_mean,
+                            av.mean_limit(case[0], case[1], name, want_mean))
+                errs.append(max(e_out, e_mean))
+                del want_out, want_mean
+            other = "v2-bf16e" if name == "v3-nomin" else "v3-nomin"
+            ctl_out, ctl_mean = av.variant_reference(*case, other)
+            c_out = max_err(out, ctl_out)
+            c_mean = mean_over(mean, ctl_mean, av.mean_limit(case[0], case[1], other, ctl_mean))
+            if not (c_out > out_tol and c_mean > 1.0):
+                raise AssertionError(f"{record} d = {d}: the check cannot see the clamp: {c_out}, "
+                                     f"{c_mean}")
+            log(f"[check] {record} d = {d}: control (plain {other} on the clamp input) out "
+                f"{c_out:.3e} > {out_tol:.1e}, mean {c_mean:.3e}x its limit: ok")
+            del ctl_out, ctl_mean, out, mean
+            if d in VD_TIMED:
+                results[record] = dict(max_abs_err=errs[0])
+    for d in VD_TIMED:
+        kd = av.variant_head_dim(d)
+        reset_launches()
+        res = tool.run_variants(t=301, heads=3, dim=d, inner=2, iters=2,
+                                variants=list(av.VARIANTS), device=dev,
+                                log=lambda line: log(f"[tool --dim {d}] {line}"))
+        sync()
+        got = {n: r.launches for n, r in KERNELS.items() if r.launches}
+        if got != {av.variant_kernel(n, kd): 6 for n in av.VARIANTS} or \
+                not all(0 < ms < float("inf") for ms in res.values()):
+            raise AssertionError(f"the tool at --dim {d}: launches {got}, times {res}")
+    reset_launches()
+    for d in VD_TIMED:
+        q, k, v = cases[d]
+        b, h, t, _ = q.shape
+        turns = {n: (lambda n=n: av.attention_variant(q, k, v, n)) for n in av.VARIANTS}
+        turns["SDPA forward"] = lambda: F.scaled_dot_product_attention(q, k, v)
+        meds, _ = in_turns(*turns.values())
+        ms = dict(zip(turns, meds))
+        backend = sdpa_backend(q, k, v, None)
+        for name in av.VARIANTS:
+            record = av.variant_kernel(name, d)
+            pv_cols = d + 8 if name == "v6-fusedsum" else d  # v6 reads and multiplies 8 more
+            t_bytes = ((3 * d + pv_cols) * q.numel() // d * 2 + b * t * t * 2) / PEAK_BYTES * 1e3
+            t_ops = 2.0 * b * h * t * t * (d + pv_cols) / PEAK_BF16 * 1e3
+            results[record].update(
+                ms=ms[name], library_ms=ms["SDPA forward"], library_backend=backend,
+                plain_ms=cuda_time(lambda n=name: av.variant_reference(q, k, v, n), reps=3),
+                bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+            r = results[record]
+            log(f"[time] {smi}: {record} at {tuple(q.shape)}: {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, SDPA forward {r['library_ms']:.4f} ms ({backend}), bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}) (medians of 6 in turns)")
+    reset_launches()
+    for kern in ("attn_v2_bf16e", "attn_v3_nomin", "attn_v4_mxsum", "attn_v6_fusedsum",
+                 "attn_var_mean", "attn_var_mean_nomin", "attn_v5_batched"):
+        log(f"[build] {registers('attention_variants', kern)}")
+    b, h, t, _ = cases[128][0].shape
+    log(f"[check] attn_v5_batched at {(b, h, t)}, d = 128: clusters of "
+        f"{av.variant_library().attn_v5_cluster(b, h, t, 128)} blocks (attn_v5_cluster)")
     return launches
 
 
@@ -5554,7 +5723,8 @@ def main(argv=None) -> int:
                          "of ABLATIONS (default: all sources)")
     ap.add_argument("--parallel-rank", nargs=2, metavar=("RANK", "DIR"),
                     help=argparse.SUPPRESS)  # one rank of phase_parallel
-    ap.add_argument("--only", choices=["diagnosis", "head_dims", "decoder_kernels", "jax_init"],
+    ap.add_argument("--only", choices=["diagnosis", "head_dims", "variant_dims", "decoder_kernels",
+                                       "jax_init"],
                     help="only the card, the build and this phase (no kernel line, no result)")
     args = ap.parse_args(argv)
     sys.path.insert(0, HERE)
@@ -5579,6 +5749,7 @@ def main(argv=None) -> int:
     if args.only is not None:
         only = {"diagnosis": lambda: phase_diagnosis({n: {"max_abs_err": 0.0} for n in KERNELS}, smi),
                 "head_dims": lambda: phase_head_dims({}, dev, smi),
+                "variant_dims": lambda: phase_variant_dims({}, dev, smi),
                 "decoder_kernels": lambda: phase_decoder_kernels(dev),
                 "jax_init": lambda: phase_jax_init(smi)}
         only[args.only]()
@@ -5621,6 +5792,7 @@ def main(argv=None) -> int:
     parallel = phase_parallel(smi)
     diagnosis = phase_diagnosis(results, smi)
     head_dims = phase_head_dims(results, dev, smi)
+    variant_dims = phase_variant_dims(results, dev, smi)
     decoder = phase_decoder_kernels(dev)
     jax_init = phase_jax_init(smi)
     phase_times(results, inp, model, slice_inp, gen)
@@ -5641,7 +5813,7 @@ def main(argv=None) -> int:
                     debug_overfit=learning["debug_overfit"],
                     learning_check=learning["learning_check"], export=export, user_tools=tools,
                     parallel=parallel, diagnosis=diagnosis, head_dims=head_dims,
-                    decoder_kernels=decoder, jax_init=jax_init)
+                    variant_dims=variant_dims, decoder_kernels=decoder, jax_init=jax_init)
     table = []
     for name, kern in KERNELS.items():
         r = results[name]
@@ -5670,7 +5842,8 @@ def main(argv=None) -> int:
                           **{key: r[key] for key in ("mean_pass_ms", "ms_main_path_input",
                                                      "eval_path_T", "exp_floor_ms",
                                                      "mean_pass_ms_24_heads_streamed",
-                                                     "mean_pass_ms_12_heads_resident")
+                                                     "mean_pass_ms_12_heads_resident",
+                                                     "kernel_ms", "library_backend", "at_d384")
                              if key in r}))
     log(smi)
     log(json.dumps({"kernels": table}))

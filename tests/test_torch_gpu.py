@@ -282,37 +282,46 @@ def test_attention_forward_kernels_are_deterministic(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [136, 256, 48])
+@pytest.mark.parametrize("d", [136, 200, 48])
 def test_attention_kernels_refuse_other_head_dims(cuda, d):
-    """A CUDA tensor launches the kernel or raises: a head dim divisible by
-    8 above 128 has no instance and raises ``ValueError`` in both ops; the
-    backward launchers take an instance's head dim (32, 64, 128) only, as
-    the ops hand them padded inputs. Nothing launches, and no path gives
-    way to the plain version."""
+    """A CUDA tensor launches the kernel or raises: the backward launchers
+    take an instance's head dim (32, 64, 128, or a multiple of 128 above
+    it: the wide route) only, as the ops hand them padded inputs, and raise
+    ``ValueError`` at any other; nothing launches, and no path gives way to
+    the plain version. The ops raise at no head dim: at 136 and 256 both
+    run the wide route, one launch each of its own records."""
     from attentionshift_torch.ops._build import KERNELS, reset_launches
 
     reset_launches()
+    for key in PLAIN_ROUTE_KEYS:
+        attention.PLAIN_ROUTE[key] = 0
     q = torch.zeros((1, 2, 64, d), device=cuda, dtype=torch.bfloat16)
     lse = torch.zeros((1, 2, 64), device=cuda)
-    calls = [lambda: attention.attention_backward_dq(q, q, q, lse, q),
-             lambda: attention.attention_backward_dkv(q, q, q, lse, lse, q)]
-    if d > 128:
-        calls += [lambda: attention.attention_with_capture(q, q, q),
-                  lambda: attention.attention_no_capture(q, q, q)]
-    for call in calls:
-        with pytest.raises(ValueError, match="head dim|no instance"):
+    for call in (lambda: attention.attention_backward_dq(q, q, q, lse, q),
+                 lambda: attention.attention_backward_dkv(q, q, q, lse, lse, q)):
+        with pytest.raises(ValueError, match="head dim"):
             call()
     assert not any(k.launches for k in KERNELS.values())
+    assert not any(attention.PLAIN_ROUTE.values())
+    for wide in (136, 256):
+        q = torch.randn((1, 2, 64, wide), device=cuda).to(torch.bfloat16)
+        attention.attention_with_capture(q, q, q)
+        attention.attention_no_capture(q, q, q)
+    torch.cuda.synchronize()
+    assert {n: k.launches for n, k in KERNELS.items() if k.launches} == {
+        "attention_capture_dwide": 2, "attention_plain_dwide": 2}
     assert not any(attention.PLAIN_ROUTE.values())
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d,kd", [(8, 32), (48, 64), (80, 128), (128, 128)])
+@pytest.mark.parametrize("d,kd", [(8, 32), (48, 64), (80, 128), (128, 128), (136, 256),
+                                  (256, 256), (384, 384), (520, 640)])
 def test_head_dims_run_their_instance(cuda, d, kd):
-    """A head dim divisible by 8 up to 128 runs the instance ``kd`` (q, k,
-    v zero-padded, the scale of d): both ops and the backward against the
-    plain versions within 4 bf16 ulps, each op one launch of ``kd``'s
-    instance and the backward one pair, none on the plain route."""
+    """A head dim divisible by 8 runs the instance ``kd``, above 128 the wide
+    route at ``kd`` = 128 * ceil(d / 128) (q, k, v zero-padded, the scale of
+    d): both ops and the backward against the plain versions within 4 bf16
+    ulps, each op one launch of ``kd``'s records and the backward one pair,
+    none on the plain route."""
     from attentionshift_torch.ops._build import KERNELS, reset_launches
 
     gen = torch.Generator(device=cuda).manual_seed(d)
@@ -377,8 +386,12 @@ def _ulps(ref, n):
 # product of the 64-byte swizzle alone, then a ragged tile and two);
 # Swin's global blocks at 896x1344 (24 heads of 32, T = 1276); head dim 32
 # at the bench T with its gap; more heads than the mean pass keeps at d =
-# 64 (24 and 17: query tiles streamed, two images) and at d = 32 (40).
+# 64 (24 and 17: query tiles streamed, two images) and at d = 32 (40); the
+# wide route at 256 and 384 (ragged T, a gap across a tile boundary, two
+# images).
 HEAD_SHAPE_CASES = [
+    (1, 3, 301, 256, (120, 140)),
+    (2, 2, 130, 384, None),
     (1, 1, 64, 32, None),
     (1, 2, 40, 32, None),
     (2, 3, 130, 32, (70, 90)),
@@ -441,8 +454,8 @@ def _check_attention_pair(q, k, v, g, gap):
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,h,t,d,gap", HEAD_SHAPE_CASES)
 def test_attention_kernels_at_other_head_shapes_on_card(cuda, b, h, t, d, gap):
-    """Both pairs at head dim 32 and above the mean pass's resident heads,
-    counted under the instance's own name."""
+    """Both pairs at head dim 32, above the mean pass's resident heads and
+    on the wide route, counted under the instance's own name."""
     from attentionshift_torch.ops._build import KERNELS, reset_launches
 
     gen = torch.Generator(device=cuda).manual_seed(3)
@@ -450,11 +463,8 @@ def test_attention_kernels_at_other_head_shapes_on_card(cuda, b, h, t, d, gap):
                   for _ in range(4))
     reset_launches()
     _check_attention_pair(q, k, v, g, gap)
-    suffix = "" if d == 64 else f"_d{d}"
-    assert KERNELS["attention_capture" + suffix].launches == 2
-    assert KERNELS["attention_plain" + suffix].launches == 2
-    assert KERNELS["attention_bwd_dq" + suffix].launches == 2
-    assert KERNELS["attention_bwd_dkv" + suffix].launches == 2
+    for name in ("attention_capture", "attention_plain", "attention_bwd_dq", "attention_bwd_dkv"):
+        assert KERNELS[attention.kernel_name(name, d)].launches == 2
 
 
 @pytest.mark.gpu
@@ -673,7 +683,7 @@ def test_v6_kernel_reads_the_columns_it_is_given(cuda, b, h, t, defines):
     work = torch.empty((b, h, t), device=cuda, dtype=torch.float32)
     lib = attention_variants.variant_library(defines)
     err = lib.attn_variant_forward(6, q.data_ptr(), k.data_ptr(), v72.data_ptr(), out.data_ptr(),
-                                   mean.data_ptr(), work.data_ptr(), b, h, t,
+                                   mean.data_ptr(), work.data_ptr(), b, h, t, 64,
                                    float(attention_variants._q_scale(q)),
                                    torch.cuda.current_stream(cuda).cuda_stream)
     torch.cuda.synchronize()
@@ -717,14 +727,14 @@ def test_attention_variant_kernels_repeat_bitwise(cuda, variant, h):
 @pytest.mark.gpu
 def test_attention_variant_kernels_refuse_what_they_do_not_take(cuda):
     """A CUDA tensor launches the kernel or raises: f32 inputs and a head
-    dim other than 64 are refused; v5 runs 9 and 24 heads (above its first
+    dim above 128 are refused; v5 runs 9 and 24 heads (above its first
     design's 8) within the limits of the variants' test, and 40 (recips in
     the workspace, above 24)."""
     q = torch.zeros((1, 2, 64, 64), device=cuda)
     with pytest.raises(ValueError):
         attention_variants.attention_variant(q, q, q, "v2-bf16e")
-    q = torch.zeros((1, 2, 64, 32), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):
+    q = torch.zeros((1, 2, 64, 136), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="up to 128"):
         attention_variants.attention_variant(q, q, q, "v4-mxsum")
     for h in (9, 24, 40):
         gen = torch.Generator(device=cuda).manual_seed(h)
@@ -733,6 +743,43 @@ def test_attention_variant_kernels_refuse_what_they_do_not_take(cuda):
         out, mean = attention_variants.attention_variant(q, k, v, "v5-batched")
         torch.cuda.synchronize()
         _check_variant(q, k, v, "v5-batched", out, mean)
+
+
+# head dims of the variants' instances and the widths padded onto them:
+# not divisible by 8 (12, 100), 48, the instances 32 and 128
+VARIANT_DIMS = [(12, 32), (32, 32), (48, 64), (100, 128), (128, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,kd", VARIANT_DIMS)
+@pytest.mark.parametrize("variant", HOPPER_VARIANTS)
+def test_variant_head_dims_run_their_instance(cuda, variant, d, kd):
+    """Each variant at head dim ``d`` runs the instance ``kd`` (q, k, v
+    zero-padded, the scale of the true d; v6's ones after the padded width),
+    at (1, 3, 190, d) and (1, 9, 301, d) (v5's sweep 2 streamed at 9 heads
+    of 128): out within 4 bf16 ulps and each mean entry within
+    ``mean_limit`` of the plain version at d, on random inputs and on the
+    clamp input, where the plain version of the other clamp behaviour
+    fails both limits; one launch of ``kd``'s record per call."""
+    from attentionshift_torch.ops._build import KERNELS, reset_launches
+
+    record = attention_variants.variant_kernel(variant, kd)
+    other = "v2-bf16e" if variant == "v3-nomin" else "v3-nomin"
+    for b, h, t in ((1, 3, 190), (1, 9, 301)):
+        gen = torch.Generator(device=cuda).manual_seed(d + h)
+        q, k, v = (torch.randn((b, h, t, d), generator=gen, device=cuda).bfloat16()
+                   for _ in range(3))
+        reset_launches()
+        for case in ((q, k, v), attention_variants.clamp_case(q, k, v)):
+            out, mean = attention_variants.attention_variant(*case, variant)
+            torch.cuda.synchronize()
+            assert out.shape == q.shape and out.is_contiguous()
+            out_tol = _check_variant(*case, variant, out, mean)
+        assert {n: r.launches for n, r in KERNELS.items() if r.launches} == {record: 2}
+        ctl_out, ctl_mean = attention_variants.variant_reference(*case, other)
+        assert float((out.float() - ctl_out.float()).abs().max()) > out_tol
+        assert _mean_over(mean, ctl_mean, attention_variants.mean_limit(case[0], case[1], other,
+                                                                        ctl_mean)) > 1.0
 
 
 @pytest.mark.gpu
@@ -749,7 +796,7 @@ def test_v5_kernel_with_more_ranks_than_key_tiles(cuda, b, h, t, cluster):
     ``attn_v5_cluster`` reports the forced size; out and mean within the
     variants' limits, on random inputs and on the clamp input."""
     lib = attention_variants.variant_library((f"V5_CLUSTER={cluster}",))
-    assert lib.attn_v5_cluster(b, h, t) == cluster
+    assert lib.attn_v5_cluster(b, h, t, 64) == cluster
     gen = torch.Generator(device=cuda).manual_seed(11)
     q, k, v = (torch.randn((b, h, t, 64), generator=gen, device=cuda).bfloat16()
                for _ in range(3))

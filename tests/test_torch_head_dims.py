@@ -2,17 +2,21 @@
 decoder heads' kernel option, against JAX on the CPU.
 
 The JAX package runs its Pallas attention kernels on any head dim
-divisible by 8 and its plain path on the others
+divisible by 8, with no upper limit, and its plain path on the others
 (``attentionshift_tpu/ops/attention.py``). The port's kernels have
-instances for 32, 64 and 128; ``ops/attention.py::kernel_head_dim`` sends a
-head dim divisible by 8 onto the smallest instance at least as wide, with
-q, k, v zero-padded on the head axis and the softmax scale of the true d
-(``forward_on_instance`` / ``backward_on_instance``), and any other head
-dim to the plain version. On a CPU tensor the ops are the plain versions;
-here they are held to the Pallas kernels in interpret mode, forward and
-backward, at (1, 2, 160, d) with a token gap, f32. The padding itself
-is applied to the plain versions, where padded-then-sliced must equal
-unpadded to f32 rounding, with the padded width's scale as the control.
+instances for 32, 64 and 128 and a wide route for multiples of 128 above
+it; ``ops/attention.py::kernel_head_dim`` sends a head dim divisible by 8
+onto the smallest instance at least as wide, or above 128 onto the wide
+route at 128 * ceil(d / 128), with q, k, v zero-padded on the head axis
+and the softmax scale of the true d (``forward_on_instance`` /
+``backward_on_instance``), and any other head dim to the plain version. On
+a CPU tensor the ops are the plain versions; here they are held to the
+Pallas kernels in interpret mode, forward and backward, at (1, 2, 160, d)
+with a token gap, f32 (above 128: d = 136, 256 and 384, one JAX run of
+each op's forward and one vjp per width, shared by the port's two ops).
+The padding itself is applied to the plain versions, where
+padded-then-sliced must equal unpadded to f32 rounding, with the padded
+width's scale as the control.
 
 Tolerances: 2e-5 of each output's largest magnitude against JAX (f32 on
 both sides; the TPU kernel exponentiates in base 2 with a constant shift
@@ -24,6 +28,7 @@ the summation order of the longer rows moves the last bit).
 
 from __future__ import annotations
 
+import functools
 from unittest import mock
 
 import numpy as np
@@ -40,6 +45,7 @@ REL = 2e-5
 PAD_REL = 1e-6
 T, GAP = 160, (120, 131)
 DIMS = (8, 12, 16, 24, 40, 48, 80, 96, 128)
+WIDE_DIMS = (136, 256, 384)  # the wide route: padded to 256, as they are at 256 and 384
 
 
 def _inputs(d, seed=0, h=2):
@@ -111,26 +117,84 @@ def test_backward_matches_the_pallas_kernels(d, capture):
         assert float(a[:, :, GAP[0]:GAP[1]].abs().max()) == 0.0
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_wide(d):
+    """The Pallas kernels in interpret mode at a wide head dim: the capture
+    op's (out, mean) and the vjp of the ops on the seeded upstream gradient
+    (the JAX package's two ops share one backward, ``_bwd``), as numpy."""
+    from attentionshift_tpu.ops import attention as jatt
+
+    q, k, v, g = _inputs(d, seed=5)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    out, mean = jatt.attention_with_capture(jq, jk, jv, True, True, GAP)
+    _, vjp = jax.vjp(lambda a, b, c: jatt.attention_no_capture(a, b, c, True, True, GAP),
+                     jq, jk, jv)
+    grads = vjp(jnp.asarray(g))
+    return (q, k, v, g), (np.asarray(out), np.asarray(mean)), tuple(map(np.asarray, grads))
+
+
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_wide_forward_matches_the_pallas_kernels(d):
+    """Above 128 (the JAX package's Pallas kernels take any d divisible by
+    8; the port's wide route): both ops' ``out`` and the capture op's head
+    mean against the JAX capture op in interpret mode, at ``REL``; the gap's
+    mean columns exactly 0."""
+    from attentionshift_torch.ops import attention
+
+    (q, k, v, _), (jout, jmean), _ = _jax_wide(d)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    out, mean = attention.attention_with_capture(tq, tk, tv, GAP)
+    _rel(out, jout, f"d={d} out (capture)")
+    _rel(attention.attention_no_capture(tq, tk, tv, GAP), jout, f"d={d} out (plain)")
+    _rel(mean, jmean, f"d={d} head mean")
+    assert float(mean[:, :, GAP[0]:GAP[1]].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("capture", [False, True], ids=["plain", "capture"])
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_wide_backward_matches_the_pallas_kernels(d, capture):
+    """Above 128: the gradients of either op against the Pallas backward
+    kernels in interpret mode, at ``REL``; the gap's dk and dv rows exactly
+    0."""
+    from attentionshift_torch.ops import attention
+
+    (q, k, v, g), _, want = _jax_wide(d)
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    op = attention.attention_with_capture if capture else attention.attention_no_capture
+    out = op(*leaves, GAP)
+    got = torch.autograd.grad(out[0] if capture else out, leaves, torch.from_numpy(g))
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        _rel(a, w, f"d={d} {name}")
+    for a in got[1:]:
+        assert float(a[:, :, GAP[0]:GAP[1]].abs().max()) == 0.0
+
+
 def test_kernel_head_dim_routes_every_width():
-    """1..256: a multiple of 8 up to 128 onto the smallest instance at
-    least as wide; any other width to the plain version (None), as the
-    JAX package's ``q.shape[-1] % 8`` dispatch; a multiple of 8 above 128
-    raises."""
-    from attentionshift_torch.ops.attention import HEAD_DIMS, kernel_head_dim
+    """1..1024: a multiple of 8 up to 128 onto the smallest instance at
+    least as wide, a multiple of 8 above 128 onto the wide route at 128 *
+    ceil(d / 128), whose launches are counted under ``<kernel>_dwide``; any
+    other width to the plain version (None), as the JAX package's
+    ``q.shape[-1] % 8`` dispatch, which has no upper limit either."""
+    from attentionshift_torch.ops._build import KERNELS
+    from attentionshift_torch.ops.attention import HEAD_DIMS, kernel_head_dim, kernel_name
 
     assert sorted(HEAD_DIMS) == [32, 64, 128]
-    for d in range(1, 257):
+    for d in range(1, 1025):
+        kd = kernel_head_dim(d)
         if d % 8:
-            assert kernel_head_dim(d) is None, d
+            assert kd is None, d
         elif d > 128:
-            with pytest.raises(ValueError, match="no instance"):
-                kernel_head_dim(d)
+            assert kd == -(-d // 128) * 128 and kd - d < 128, d
+            assert kernel_name("attention_capture", kd) == "attention_capture_dwide"
         else:
-            kd = kernel_head_dim(d)
             assert kd == min(x for x in HEAD_DIMS if x >= d), d
+        if kd is not None:
+            for name in ("attention_capture", "attention_plain", "attention_bwd_dq",
+                         "attention_bwd_dkv"):
+                assert kernel_name(name, kd) in KERNELS, (name, d)
 
 
-@pytest.mark.parametrize("d", (8, 24, 40, 48, 80, 96))
+@pytest.mark.parametrize("d", (8, 24, 40, 48, 80, 96, 136, 264))
 def test_padding_onto_the_instance_is_exact_on_the_plain_versions(d):
     """``forward_on_instance`` / ``backward_on_instance`` around the plain
     versions: padded-then-sliced equals unpadded (out, mean, row statistic,

@@ -65,7 +65,7 @@ def _load_jax_tool():
 
 def run_jax_variant(name, q, k, v):
     """(out, mean) of one TPU kernel of the JAX tool in interpret mode on
-    the given (1, H, T, 64) inputs."""
+    the given (1, H, T, d) inputs (the tool's ``--dim d``)."""
     import jax.experimental.pallas as pl
 
     mod = _load_jax_tool()
@@ -146,6 +146,24 @@ def test_variant_matches_tpu_kernel(name):
     want_out, want_mean = run_jax_variant(name, q, k, v)
     out, mean = _port(name, q, k, v)
     assert out.shape == want_out.shape == (1, 2, 256, 64)
+    assert mean.shape == want_mean.shape == (1, 256, 256)
+    _close(out, mean, want_out, want_mean)
+    np.testing.assert_allclose(mean.sum(-1), 1.0, atol=5e-3)
+
+
+@pytest.mark.parametrize("d", (12, 32, 48, 128))
+@pytest.mark.parametrize("name", NAMES)
+def test_variant_matches_tpu_kernel_at_other_head_dims(name, d):
+    """The port's plain version of each variant vs the TPU kernel of the
+    JAX tool in interpret mode at its ``--dim d``, (1, 2, 256, d) bf16: d =
+    12 (not divisible by 8: the tool calls ``pallas_call`` at any width),
+    32 and 128 (the kernels' other instances) and 48 (padded onto 64 on the
+    card); q is scaled by bf16(d^-0.5 log2 e) of that d, v6's ones follow
+    column d. Tolerances of ``_close``; rows of the mean sum to 1."""
+    q, k, v = _bf16_inputs(1, 2, 256, d, seed=d)
+    want_out, want_mean = run_jax_variant(name, q, k, v)
+    out, mean = _port(name, q, k, v)
+    assert out.shape == want_out.shape == (1, 2, 256, d)
     assert mean.shape == want_mean.shape == (1, 256, 256)
     _close(out, mean, want_out, want_mean)
     np.testing.assert_allclose(mean.sum(-1), 1.0, atol=5e-3)
@@ -261,7 +279,11 @@ def test_variant_wrapper_counts_and_refuses():
         assert KERNELS[kname].source == "attention_variants"
         # the cited line is the def of the function that reaches pallas_call
         assert src[line - 1].strip().startswith("def v"), src[line - 1]
-    assert len(KERNELS) == 19
+    for d in (32, 128):
+        for kname, line in lines.items():
+            assert KERNELS[f"{kname}_d{d}"].replaces == KERNELS[kname].replaces
+            assert KERNELS[f"{kname}_d{d}"].source == "attention_variants"
+    assert len(KERNELS) == 33
 
 
 def _c_signature(name):
@@ -277,9 +299,9 @@ def _c_signature(name):
 def test_variant_library_sets_the_c_signature():
     """``variant_library`` (library mocked: no nvcc here) gives the entry
     point the argtypes of the C source's ``attn_variant_forward``: the
-    variant, five tensors, the workspace, B, H, T, the scale, the stream;
-    and ``attn_v5_cluster`` its (B, H, T); the ``-D`` overrides reach the
-    build."""
+    variant, five tensors, the workspace, B, H, T, the instance's head dim,
+    the scale, the stream; and ``attn_v5_cluster`` its (B, H, T, D); the
+    ``-D`` overrides reach the build."""
     built = []
     fake = types.SimpleNamespace(
         attn_variant_forward=types.SimpleNamespace(argtypes=None, restype=None),
@@ -293,11 +315,11 @@ def test_variant_library_sets_the_c_signature():
         lib = attention_variants.variant_library(("VAR_STAGES=3",))
     assert lib is fake and built == [("attention_variants", ("VAR_STAGES=3",))]
     want = _c_signature("attn_variant_forward")
-    assert want == ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+    assert want == ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                     + [ctypes.c_float, ctypes.c_void_p])
     assert fake.attn_variant_forward.argtypes == want
     assert fake.attn_variant_forward.restype is ctypes.c_int
-    assert fake.attn_v5_cluster.argtypes == _c_signature("attn_v5_cluster") == [ctypes.c_int] * 3
+    assert fake.attn_v5_cluster.argtypes == _c_signature("attn_v5_cluster") == [ctypes.c_int] * 4
     assert fake.attn_v5_cluster.restype is ctypes.c_int
 
 
@@ -307,7 +329,8 @@ def test_variant_launch_hands_workspace_and_counts(name):
     (2, 3, 40, 64)): one call per variant call with as many arguments as
     the C signature has; every variant gets a (B, H, T) f32 workspace
     distinct from every tensor (v5 writes it only above 24 heads); the
-    scale is bf16(d^-0.5 log2 e); one launch is counted per call, none
+    instance's head dim is 64 and q, k (no padding) are handed as they are;
+    the scale is bf16(d^-0.5 log2 e); one launch is counted per call, none
     when the call fails."""
     from attentionshift_torch.ops._build import KERNELS, reset_launches
 
@@ -335,8 +358,8 @@ def test_variant_launch_hands_workspace_and_counts(name):
     assert KERNELS[kernel].launches == 2
     args = calls[-1]
     assert len(args) == len(_c_signature("attn_variant_forward"))
-    got_number, pq, pk, pv, pout, pmean, pwork, b, h, t, scale, stream = args
-    assert (got_number, b, h, t, stream) == (number, 2, 3, 40, 7)
+    got_number, pq, pk, pv, pout, pmean, pwork, b, h, t, kd, scale, stream = args
+    assert (got_number, b, h, t, kd, stream) == (number, 2, 3, 40, 64, 7)
     assert scale == float(torch.tensor(64**-0.5 * 1.4426950408889634).bfloat16())
     assert (pq, pk, pout, pmean) == (q.data_ptr(), k.data_ptr(), out.data_ptr(), mean.data_ptr())
     assert out.shape == (2, 3, 40, 64) and mean.shape == (2, 40, 40)
@@ -348,6 +371,57 @@ def test_variant_launch_hands_workspace_and_counts(name):
         assert pv != v.data_ptr()  # V with its 8 columns of ones
     else:
         assert pv == v.data_ptr()
+
+
+@pytest.mark.parametrize("d,kd", [(12, 32), (48, 64), (100, 128), (128, 128)])
+@pytest.mark.parametrize("name", NAMES)
+def test_variant_launch_pads_onto_the_instance(name, d, kd):
+    """The launch path at head dim ``d`` with the library's function mocked
+    (CPU tensors): q, k, v reach the kernel zero-padded to the instance's
+    head dim ``kd`` (v6's V as (B, H, T, kd + 8), its ones in columns kd on),
+    the C call gets ``kd`` and the scale of the true d, ``out`` comes back
+    sliced to d and contiguous, and one launch of ``kd``'s record is
+    counted (``<record>_d32``, ``_d128``; the record itself at 64)."""
+    from attentionshift_torch.ops._build import KERNELS, reset_launches
+
+    q, k, v = (torch.from_numpy(x).bfloat16() for x in _bf16_inputs(1, 2, 24, d, seed=d))
+    seen = {}
+
+    def fn(number, pq, pk, pv, pout, pmean, pwork, b, h, t, got_kd, scale, stream):
+        seen.update(kd=got_kd, scale=scale, ptrs=(pq, pk, pv, pout))
+        return 0
+
+    handed = []
+    real_pad = attention_variants.pad_head
+    ones = attention_variants._with_ones
+
+    def pad(x, width):
+        handed.append(real_pad(x, width))
+        return handed[-1]
+
+    with mock.patch.object(attention_variants, "pad_head", pad), \
+            mock.patch.object(attention_variants, "_with_ones",
+                              lambda x: handed.append(ones(x)) or handed[-1]):
+        reset_launches()
+        out, mean = attention_variants._launch(fn, name, q, k, v, 0)
+    assert seen["kd"] == kd
+    assert seen["scale"] == float(torch.tensor(d**-0.5 * 1.4426950408889634).bfloat16())
+    qp, kp, vp = handed[:3]
+    for x, p in ((q, qp), (k, kp), (v, vp)):
+        assert p.shape == (1, 2, 24, kd) and p.is_contiguous()
+        assert torch.equal(p[..., :d], x) and not p[..., d:].any()
+    if name == "v6-fusedsum":
+        vx = handed[3]
+        assert vx.shape == (1, 2, 24, kd + 8) and torch.equal(vx[..., :kd], vp)
+        assert bool((vx[..., kd:] == 1).all())
+        assert seen["ptrs"][2] == vx.data_ptr()
+    else:
+        assert seen["ptrs"][2] == vp.data_ptr()
+    assert seen["ptrs"][:2] == (qp.data_ptr(), kp.data_ptr())
+    assert out.shape == q.shape and out.is_contiguous() and mean.shape == (1, 24, 24)
+    record = attention_variants.variant_kernel(name, kd)
+    assert record == (attention_variants.VARIANTS[name][0] + ("" if kd == 64 else f"_d{kd}"))
+    assert {n: r.launches for n, r in KERNELS.items() if r.launches} == {record: 1}
 
 
 def _logits_f64(q, k):
@@ -413,10 +487,11 @@ def test_mean_limit_steps_and_flush_floor():
 
 def test_variant_kernel_refuses_what_it_refused_before():
     """The kernel path's input checks (reached here directly: a CPU
-    tensor takes the plain version): f32 inputs, a head dim other than 64
-    and unequal shapes are refused for what they are; every variant, v5
-    included (its first design refused more than 8 heads), takes any head
-    count (9, 24: only the device is wrong here)."""
+    tensor takes the plain version): f32 inputs, a head dim above 128 and
+    unequal shapes are refused for what they are; every head dim from 1 to
+    128 passes the width check, and every variant, v5 included (its first
+    design refused more than 8 heads), takes any head count (9, 24: only
+    the device is wrong here)."""
     check = attention_variants._check_inputs
 
     def bf(*shape):
@@ -424,8 +499,12 @@ def test_variant_kernel_refuses_what_it_refused_before():
 
     with pytest.raises(ValueError, match="bfloat16"):
         check(*(torch.zeros((1, 2, 64, 64)),) * 3, "v2-bf16e")
-    with pytest.raises(ValueError, match="head dim 64"):
-        check(*(bf(1, 2, 64, 32),) * 3, "v4-mxsum")
+    for d in (136, 256):
+        with pytest.raises(ValueError, match="head dims up to 128"):
+            check(*(bf(1, 2, 64, d),) * 3, "v4-mxsum")
+    for d in range(1, 129):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            check(*(bf(1, 1, 8, d),) * 3, "v4-mxsum")
     with pytest.raises(ValueError, match="shapes differ"):
         check(bf(1, 2, 64, 64), bf(1, 2, 65, 64), bf(1, 2, 64, 64), "v2-bf16e")
     for name in NAMES:
