@@ -1,7 +1,9 @@
 // Design variants of the capture-attention forward (bf16, head dim 32, 64 or
 // 128: every kernel is a template on the head dim, HeadTile<HD> of
 // hopper.cuh; ops/attention_variants.py zero-pads any other width up to 128
-// onto the smallest instance at least as wide, with the true d's scale).
+// onto the smallest instance at least as wide, with the true d's scale, and
+// any width above 128 to a multiple of 128 for the wide route at the end of
+// this file).
 //
 // Replaces the five Pallas TPU kernels of the attention microbenchmark,
 // tools/analysis/microbench_attention.py:
@@ -177,6 +179,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <atomic>
 
@@ -1484,6 +1487,373 @@ int v5_cluster_size(int B, int H, int T) {
   return err == cudaSuccess ? C : -(int)err;
 }
 
+// ------------------------------------------------ the wide route (d > 128)
+//
+// Head dims above 128, zero-padded by ops/attention_variants.py to KD = 128
+// ceil(d / 128) (wide_head_dim of hopper.cuh), with the true d's bf16 scale.
+// A simple design on the tensor cores' warp-level product (mma.sync
+// m16n8k16, bf16 operands, f32 accumulators), every tile staged in shared
+// memory by plain 16-byte loads: one block = 4 warps = 64 query rows, each
+// warp 16 of them; key tiles of 64; 128 columns per slab. Shared memory
+// does not grow with d: S = sum_c Q_c K_c^T is summed over the 128-column
+// slabs c, each Q and K slab loaded in turn.
+//   out pass   attn_v2_wide, attn_v3_wide, attn_v4_wide, attn_v6_wide: one
+//              block per (64 query rows, 128-column output slab, image and
+//              head). Per key tile: S over every slab, e = bf16(exp2(min(S
+//              - 20, 100))) (v3: no min), O += e V_slab. Every block of a
+//              row runs the same instructions on the same tiles in the same
+//              k16 order, so every slab gets the same e bits and the same
+//              row sum: v2 and v3 add the bf16 e in f32 per thread and over
+//              the quad at the end; v4 multiplies e by a bf16 ones operand
+//              (m16n8k16, every column the row sum); v6 multiplies e by V's
+//              8 columns after the padded width, KD .. KD + 7, staged beside
+//              the slab, and takes column KD (v6's V is (B, H, T, KD + 8)).
+//              out = bf16(O * recip), recip = 1 / max(sum, 1e-30); slab 0
+//              writes recip into the (B, H, T) f32 workspace.
+//   mean pass  attn_var_mean_wide (v3: attn_var_mean_nomin_wide): one block
+//              per (64 query rows, 64 keys, image); per head, in head order,
+//              S over every slab and e as above; mean += e * (recip_h *
+//              (1 / H)), rounded as the plain version rounds (no FMA).
+//   v5         attn_v5_wide, one launch: one block per (64 query rows,
+//              image) runs sweep 1, the out pass of every (head, slab) of
+//              its rows (recips into the workspace), then sweep 2, the mean
+//              of every key tile over all heads, the sum divided by H once.
+// No atomics and no split sums: two calls agree bit for bit.
+
+constexpr int W_ROWS = 64;          // query rows of a block (4 warps of 16)
+constexpr int W_KEYS = 64;          // keys of a tile
+constexpr int W_COLS = 128;         // columns of a slab
+constexpr int W_LD = W_COLS + 8;    // row stride (bf16) of a staged tile: conflict-free fragments
+constexpr int W_THREADS = 128;
+constexpr int W_TILE = W_ROWS * W_LD;  // bf16 of one staged tile
+constexpr int W_OUT_SMEM = 3 * W_TILE * 2;   // Q slab, K slab, V slab (+ v6's columns)
+constexpr int W_MEAN_SMEM = 2 * W_TILE * 2;  // Q slab, K slab
+
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+__device__ __forceinline__ uint32_t pack2f(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// rows r0 .. r0 + 63 of a (T, ld) bf16 plane, `cols` columns from c0, into
+// columns `at` .. of a staged tile; rows past T are zero; `scale`: each
+// value times it (bf16 products, as q * bf16(scale) in bf16)
+__device__ __forceinline__ void w_stage(bf16* tile, const bf16* plane, int ld, int T, int r0,
+                                        int c0, int cols, int at, const __nv_bfloat162* scale) {
+  const int per_row = cols / 8;
+  for (int i = threadIdx.x; i < W_ROWS * per_row; i += W_THREADS) {
+    const int r = i / per_row, c = (i % per_row) * 8;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < T) x = *reinterpret_cast<const uint4*>(plane + (size_t)(r0 + r) * ld + c0 + c);
+    if (scale != nullptr) {
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) h[j] = __hmul2(h[j], *scale);
+    }
+    *reinterpret_cast<uint4*>(tile + r * W_LD + at + c) = x;
+  }
+}
+
+// S (this warp's 16 rows x 64 keys) += Q_c K_c^T of the staged slabs
+__device__ __forceinline__ void w_scores(float (&s)[8][4], const bf16* qt, const bf16* kt) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bf16* qa = qt + (warp * 16 + g) * W_LD + 2 * t;
+#pragma unroll
+  for (int kk = 0; kk < W_COLS / 16; ++kk) {
+    const uint32_t a[4] = {ld32(qa + kk * 16), ld32(qa + 8 * W_LD + kk * 16),
+                           ld32(qa + kk * 16 + 8), ld32(qa + 8 * W_LD + kk * 16 + 8)};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const bf16* kb = kt + (8 * j + g) * W_LD + kk * 16 + 2 * t;
+      mma16816(s[j], a, ld32(kb), ld32(kb + 8));
+    }
+  }
+}
+
+// S of this warp's rows against keys k0 .. k0 + 63 of one (image, head)
+// plane, summed over the KD / 128 slabs; `also`: staged with the first
+// slab (the out pass's V)
+template <typename Also>
+__device__ __forceinline__ void w_tile_scores(float (&s)[8][4], bf16* qt, bf16* kt,
+                                              const bf16* q, const bf16* k, int T, int KD,
+                                              int row0, int k0, const __nv_bfloat162* qs,
+                                              Also also) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  for (int c0 = 0; c0 < KD; c0 += W_COLS) {
+    __syncthreads();  // every warp is done with the staged tiles
+    w_stage(qt, q, KD, T, row0, c0, W_COLS, 0, qs);
+    w_stage(kt, k, KD, T, k0, c0, W_COLS, 0, nullptr);
+    if (c0 == 0) also();
+    __syncthreads();
+    w_scores(s, qt, kt);
+  }
+}
+
+// e = bf16(exp2(min(s - 20, 100))) (CLAMPED; else no min), 0 past T
+template <bool CLAMPED>
+__device__ __forceinline__ float w_e(float s, bool valid) {
+  float x = s - SHIFT;
+  if (CLAMPED) x = fminf(x, CLAMP);
+  return valid ? __bfloat162float(__float2bfloat16(exp2f(x))) : 0.f;
+}
+
+// e of the warp's S tile in place, keys k0 + 8 j + 2 t (+1) against T
+template <bool CLAMPED>
+__device__ __forceinline__ void w_exp(float (&s)[8][4], int k0, int T) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int key = k0 + 8 * j + 2 * t;
+    s[j][0] = w_e<CLAMPED>(s[j][0], key < T);
+    s[j][1] = w_e<CLAMPED>(s[j][1], key + 1 < T);
+    s[j][2] = w_e<CLAMPED>(s[j][2], key < T);
+    s[j][3] = w_e<CLAMPED>(s[j][3], key + 1 < T);
+  }
+}
+
+// One warp's out rows of one (image, head) plane `bh` and one slab: the
+// variant VAR's row sum, O of the slab, out and (slab 0) recip
+template <int VAR>
+__device__ void w_out_slab(bf16* smem, const bf16* q, const bf16* k, const bf16* v, bf16* out,
+                           float* recip, int bh, int T, int KD, int row0, int slab,
+                           const __nv_bfloat162* qs) {
+  constexpr bool CLAMPED = VAR != 3;
+  bf16 *qt = smem, *kt = smem + W_TILE, *vt = smem + 2 * W_TILE;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int vld = VAR == 6 ? KD + 8 : KD;
+  const size_t plane = (size_t)bh * T;
+  const bf16 *qp = q + plane * KD, *kp = k + plane * KD, *vp = v + plane * vld;
+  float o[16][4] = {};
+  float rs[2] = {0.f, 0.f};  // v2, v3, v5: this thread's part of rows g, g + 8
+  float c8[4] = {0.f, 0.f, 0.f, 0.f};  // v4, v6: e times ones / V's columns KD ..
+  for (int k0 = 0; k0 < T; k0 += W_KEYS) {
+    float s[8][4];
+    w_tile_scores(s, qt, kt, qp, kp, T, KD, row0, k0, qs, [&] {
+      w_stage(vt, vp, vld, T, k0, slab * W_COLS, W_COLS, 0, nullptr);
+      if (VAR == 6) w_stage(vt, vp, vld, T, k0, KD, 8, W_COLS, nullptr);
+    });
+    w_exp<CLAMPED>(s, k0, T);
+    uint32_t a[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (VAR != 4 && VAR != 6) {
+        rs[0] += s[j][0];
+        rs[0] += s[j][1];
+        rs[1] += s[j][2];
+        rs[1] += s[j][3];
+      }
+      a[j / 2][(j % 2) * 2] = pack2f(s[j][0], s[j][1]);
+      a[j / 2][(j % 2) * 2 + 1] = pack2f(s[j][2], s[j][3]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < W_KEYS / 16; ++kk) {
+      const bf16* vb = vt + (16 * kk + 2 * t) * W_LD + g;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const bf16* b = vb + 8 * j;
+        mma16816(o[j], a[kk], pack2(b[0], b[W_LD]), pack2(b[8 * W_LD], b[9 * W_LD]));
+      }
+      if (VAR == 4) mma16816(c8, a[kk], BF16_ONES, BF16_ONES);
+      if (VAR == 6) {
+        const bf16* b = vb + W_COLS;
+        mma16816(c8, a[kk], pack2(b[0], b[W_LD]), pack2(b[8 * W_LD], b[9 * W_LD]));
+      }
+    }
+  }
+  float sum0, sum1;
+  if (VAR == 4) {  // every column of the product is the row sum
+    sum0 = c8[0];
+    sum1 = c8[2];
+  } else if (VAR == 6) {  // column KD: the quad's first thread holds it
+    sum0 = __shfl_sync(0xffffffffu, c8[0], lane & ~3);
+    sum1 = __shfl_sync(0xffffffffu, c8[2], lane & ~3);
+  } else {
+    sum0 = rs[0] + __shfl_xor_sync(0xffffffffu, rs[0], 1);
+    sum1 = rs[1] + __shfl_xor_sync(0xffffffffu, rs[1], 1);
+    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
+    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
+  }
+  const float r0 = __fdiv_rn(1.f, fmaxf(sum0, 1e-30f)), r1 = __fdiv_rn(1.f, fmaxf(sum1, 1e-30f));
+  const int row = row0 + warp * 16 + g;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = slab * W_COLS + 8 * j + 2 * t;
+    if (row < T)
+      *reinterpret_cast<uint32_t*>(out + (plane + row) * KD + col) =
+          pack2f(__fmul_rn(o[j][0], r0), __fmul_rn(o[j][1], r0));
+    if (row + 8 < T)
+      *reinterpret_cast<uint32_t*>(out + (plane + row + 8) * KD + col) =
+          pack2f(__fmul_rn(o[j][2], r1), __fmul_rn(o[j][3], r1));
+  }
+  if (slab == 0 && t == 0) {
+    if (row < T) recip[plane + row] = r0;
+    if (row + 8 < T) recip[plane + row + 8] = r1;
+  }
+}
+
+// One warp's mean rows against keys k0 .. k0 + 63 of image b: per head in
+// head order, e * (recip_h * (1 / H)) added in f32 (V5: e * recip_h, the sum
+// divided by H at the end), stored as bf16
+template <bool CLAMPED, bool V5>
+__device__ void w_mean_tile(bf16* smem, const bf16* q, const bf16* k, const float* recip,
+                            bf16* mean, int b, int H, int T, int KD, int row0, int k0,
+                            const __nv_bfloat162* qs) {
+  bf16 *qt = smem, *kt = smem + W_TILE;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row = row0 + warp * 16 + g;
+  const float inv_h = 1.f / H;
+  float acc[8][4] = {};
+  for (int h = 0; h < H; ++h) {
+    const size_t plane = (size_t)(b * H + h) * T;
+    float s[8][4];
+    w_tile_scores(s, qt, kt, q + plane * KD, k + plane * KD, T, KD, row0, k0, qs, [] {});
+    w_exp<CLAMPED>(s, k0, T);
+    float r0 = row < T ? recip[plane + row] : 0.f, r1 = row + 8 < T ? recip[plane + row + 8] : 0.f;
+    if (!V5) {
+      r0 = __fmul_rn(r0, inv_h);
+      r1 = __fmul_rn(r1, inv_h);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      acc[j][0] = __fadd_rn(acc[j][0], __fmul_rn(s[j][0], r0));
+      acc[j][1] = __fadd_rn(acc[j][1], __fmul_rn(s[j][1], r0));
+      acc[j][2] = __fadd_rn(acc[j][2], __fmul_rn(s[j][2], r1));
+      acc[j][3] = __fadd_rn(acc[j][3], __fmul_rn(s[j][3], r1));
+    }
+  }
+  bf16* mrow = mean + (size_t)b * T * T;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int key = k0 + 8 * j + 2 * t;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = row + (i >= 2 ? 8 : 0), c = key + (i & 1);
+      const float x = V5 ? __fdiv_rn(acc[j][i], (float)H) : acc[j][i];
+      if (r < T && c < T) mrow[(size_t)r * T + c] = __float2bfloat16(x);
+    }
+  }
+}
+
+#define WIDE_OUT_ARGS                                                                        \
+  const bf16 *q, const bf16 *k, const bf16 *v, bf16 *out, float *recip, int H, int T, int KD, \
+      __nv_bfloat162 qs
+#define WIDE_OUT(NAME, VAR)                                                        \
+  __global__ void __launch_bounds__(W_THREADS) NAME(WIDE_OUT_ARGS) {              \
+    extern __shared__ __align__(16) bf16 w_smem[];                                 \
+    w_out_slab<VAR>(w_smem, q, k, v, out, recip, blockIdx.z, T, KD,               \
+                    blockIdx.x * W_ROWS, blockIdx.y, &qs);                         \
+  }
+WIDE_OUT(attn_v2_wide, 2)
+WIDE_OUT(attn_v3_wide, 3)
+WIDE_OUT(attn_v4_wide, 4)
+WIDE_OUT(attn_v6_wide, 6)
+
+#define WIDE_MEAN_ARGS                                                                \
+  const bf16 *q, const bf16 *k, const float *recip, bf16 *mean, int H, int T, int KD, \
+      __nv_bfloat162 qs
+__global__ void __launch_bounds__(W_THREADS) attn_var_mean_wide(WIDE_MEAN_ARGS) {
+  extern __shared__ __align__(16) bf16 w_smem[];
+  w_mean_tile<true, false>(w_smem, q, k, recip, mean, blockIdx.z, H, T, KD, blockIdx.x * W_ROWS,
+                           blockIdx.y * W_KEYS, &qs);
+}
+__global__ void __launch_bounds__(W_THREADS) attn_var_mean_nomin_wide(WIDE_MEAN_ARGS) {
+  extern __shared__ __align__(16) bf16 w_smem[];
+  w_mean_tile<false, false>(w_smem, q, k, recip, mean, blockIdx.z, H, T, KD, blockIdx.x * W_ROWS,
+                            blockIdx.y * W_KEYS, &qs);
+}
+
+// v5: every (head, slab) of the block's rows, then their mean over all keys
+__global__ void __launch_bounds__(W_THREADS)
+    attn_v5_wide(const bf16* q, const bf16* k, const bf16* v, bf16* out, bf16* mean,
+                 float* recip, int H, int T, int KD, __nv_bfloat162 qs) {
+  extern __shared__ __align__(16) bf16 w_smem[];
+  const int b = blockIdx.y, row0 = blockIdx.x * W_ROWS;
+  for (int h = 0; h < H; ++h)
+    for (int slab = 0; slab < KD / W_COLS; ++slab)
+      w_out_slab<5>(w_smem, q, k, v, out, recip, b * H + h, T, KD, row0, slab, &qs);
+  __syncthreads();  // the recips of every head, written above, read below
+  for (int k0 = 0; k0 < T; k0 += W_KEYS)
+    w_mean_tile<true, true>(w_smem, q, k, recip, mean, b, H, T, KD, row0, k0, &qs);
+}
+
+// variants 2..6 on the wide route at head dim KD (a multiple of 128 above
+// 128): v2, v3, v4, v6 two kernels (out pass, mean pass), v5 one
+int wide_variant(int variant, const void* q, const void* k, const void* v, void* out,
+                 void* mean, void* recip, int B, int H, int T, int KD, float qscale,
+                 cudaStream_t stream) {
+  if (recip == nullptr || H < 1 || T < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  const void* out_kern;
+  switch (variant) {
+    case 2: out_kern = (const void*)attn_v2_wide; break;
+    case 3: out_kern = (const void*)attn_v3_wide; break;
+    case 4: out_kern = (const void*)attn_v4_wide; break;
+    case 5: out_kern = (const void*)attn_v5_wide; break;
+    case 6: out_kern = (const void*)attn_v6_wide; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out))
+    return (int)cudaErrorMisalignedAddress;
+  cudaError_t err = max_shared(out_kern, W_OUT_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  // qscale is bf16 already: its upper 16 bits, in both halves
+  uint32_t bits;
+  memcpy(&bits, &qscale, sizeof(bits));
+  __nv_bfloat162_raw raw;
+  raw.x = raw.y = (unsigned short)(bits >> 16);
+  const __nv_bfloat162 qs(raw);
+  const int nq = (T + W_ROWS - 1) / W_ROWS, nk = (T + W_KEYS - 1) / W_KEYS;
+  const bf16 *bq = (const bf16*)q, *bk = (const bf16*)k, *bv = (const bf16*)v;
+  if (variant == 5) {
+    attn_v5_wide<<<dim3(nq, B), W_THREADS, W_OUT_SMEM, stream>>>(
+        bq, bk, bv, (bf16*)out, (bf16*)mean, (float*)recip, H, T, KD, qs);
+    return (int)cudaGetLastError();
+  }
+  const dim3 grid(nq, KD / W_COLS, B * H);
+  switch (variant) {
+    case 2:
+      attn_v2_wide<<<grid, W_THREADS, W_OUT_SMEM, stream>>>(bq, bk, bv, (bf16*)out,
+                                                            (float*)recip, H, T, KD, qs);
+      break;
+    case 3:
+      attn_v3_wide<<<grid, W_THREADS, W_OUT_SMEM, stream>>>(bq, bk, bv, (bf16*)out,
+                                                            (float*)recip, H, T, KD, qs);
+      break;
+    case 4:
+      attn_v4_wide<<<grid, W_THREADS, W_OUT_SMEM, stream>>>(bq, bk, bv, (bf16*)out,
+                                                            (float*)recip, H, T, KD, qs);
+      break;
+    default:
+      attn_v6_wide<<<grid, W_THREADS, W_OUT_SMEM, stream>>>(bq, bk, bv, (bf16*)out,
+                                                            (float*)recip, H, T, KD, qs);
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const dim3 mgrid(nq, nk, B);
+  if (variant == 3)
+    attn_var_mean_nomin_wide<<<mgrid, W_THREADS, W_MEAN_SMEM, stream>>>(
+        bq, bk, (const float*)recip, (bf16*)mean, H, T, KD, qs);
+  else
+    attn_var_mean_wide<<<mgrid, W_THREADS, W_MEAN_SMEM, stream>>>(
+        bq, bk, (const float*)recip, (bf16*)mean, H, T, KD, qs);
+  return (int)cudaGetLastError();
+}
+
 template <int HD>
 int variant_forward(int variant, const void* q, const void* k, const void* v, void* out,
                     void* mean, void* work, int B, int H, int T, float qscale,
@@ -1496,9 +1866,9 @@ int variant_forward(int variant, const void* q, const void* k, const void* v, vo
 
 extern "C" {
 
-// variant 2..6 as in the list at the top, at head dim D = 32, 64 or 128
-// (cudaErrorInvalidValue otherwise; ops/attention_variants.py zero-pads any
-// other width up to 128 onto the smallest of them). q, k, out: (B, H, T, D)
+// variant 2..6 as in the list at the top, at head dim D = 32, 64 or 128, or
+// on the wide route at a multiple of 128 above it (cudaErrorInvalidValue
+// otherwise; ops/attention_variants.py zero-pads any other width onto one). q, k, out: (B, H, T, D)
 // bf16 contiguous, 16-byte aligned; v: (B, H, T, D), for variant 6
 // (B, H, T, D + 8) with ones in the last 8 columns (the kernel reads them:
 // the denominator is column D of e @ v); mean: (B, T, T) bf16; work: a
@@ -1515,16 +1885,19 @@ int attn_variant_forward(int variant, const void* q, const void* k, const void* 
   if (D == 32) return variant_forward<32>(variant, q, k, v, out, mean, work, B, H, T, qscale, st);
   if (D == 128)
     return variant_forward<128>(variant, q, k, v, out, mean, work, B, H, T, qscale, st);
+  if (wide_head_dim(D)) return wide_variant(variant, q, k, v, out, mean, work, B, H, T, D, qscale, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // The cluster size attn_variant_forward(5, ...) launches at (B, H, T, D) on
-// the current device, or minus the cudaError_t that stops it.
+// the current device (1 on the wide route: no cluster), or minus the
+// cudaError_t that stops it.
 int attn_v5_cluster(int B, int H, int T, int D) {
   if (B < 1 || H < 1 || T < 1) return -(int)cudaErrorInvalidValue;
   if (D == 64) return v5_cluster_size<64>(B, H, T);
   if (D == 32) return v5_cluster_size<32>(B, H, T);
   if (D == 128) return v5_cluster_size<128>(B, H, T);
+  if (wide_head_dim(D)) return 1;  // the wide route's v5: no cluster
   return -(int)cudaErrorInvalidValue;
 }
 

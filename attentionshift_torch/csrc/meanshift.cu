@@ -712,6 +712,295 @@ int max_clusters(int C, size_t smem) {
   return e == cudaSuccess ? n : -(int)e;
 }
 
+
+// ----------------------------------------- the second route: any K (above 32)
+//
+// The cluster kernel keeps its K x S similarities in shared memory and its
+// prototypes' accumulators in registers, so it stops at K = 32. Above it the
+// wrapper takes this route: the same iteration as a chain of simple kernels
+// per step, the (G, K, N) similarities in device memory (out_sim serves as
+// that scratch until the final pass writes it), on the stream in order:
+//   kw_init     na_k = max(|P_k|, 1e-8), tau_k = tau0               (G K warps)
+//   per iteration:
+//   kw_sim      s[k, n] = cosine(P_k . f_n) / (temp * tau_k), dots of the
+//               rounded operands as f32 FMAs, 64 x 64 tiles    (G, K/64, N/64)
+//   kw_lse      lse_k = log sum_n exp(s[k, n] - max) + max        (G K blocks)
+//   kw_assign   idx_n = first argmax_k (s[k, n] - lse_k), w_n = the weight
+//               exp(.) at idx_n times m_n, rounded to the operand type (G N)
+//   kw_update   P_k = sum_{n: idx_n = k} w_n f_n                   (G K blocks)
+//   kw_density  na_k from the new P_k, tau_k = max(1 - mean_{n: idx_n = k}
+//               cosine(P_k . f_n), 1e-10)                          (G K blocks)
+//   The last two find their features by warp ballots over idx: each warp
+//   takes a contiguous range of N in feature order, and the warps' sums are
+//   added in warp order.
+//   then kw_sim once more against the unmasked features into out_sim.
+// No atomics: every sum runs in a fixed order, so two calls agree bit for bit.
+
+constexpr int KW_TILE = 64;    // prototypes x features of one kw_sim block
+constexpr int KW_BD = 16;      // dims per step of kw_sim
+constexpr int KW_THREADS = 256;
+constexpr int KW_ACC = 8;      // dims per lane of kw_update per sweep
+
+struct KwParams {
+  const float *mask, *f, *nbase;  // f: (N, D) f32 operands, or bf16 through fb
+  const bf16* fb;
+  float *prot, *sim, *lse, *tau, *na, *w;  // prot: out_prot, the current P
+  int* idx;
+  int K, N, D;
+  float tau0, temp;
+};
+
+template <bool BF16>
+__device__ __forceinline__ float feat(const KwParams& p, size_t i) {
+  if (BF16) return __bfloat162float(p.fb[i]);
+  return p.f[i];
+}
+
+// one warp per prototype row: its norm, and tau0
+__global__ void kw_init(KwParams p, int rows) {
+  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const float* pr = p.prot + (size_t)row * p.D;
+  float s = 0.f;
+  for (int d = lane; d < p.D; d += 32) s += pr[d] * pr[d];
+  s = warp_sum(s);
+  if (lane == 0) {
+    p.na[row] = fmaxf(sqrtf(s), 1e-8f);
+    p.tau[row] = p.tau0;
+  }
+}
+
+// s = P F^T of one instance's 64 x 64 tile: thread (tx, ty) owns prototypes
+// ty + 16 i and features tx + 16 j; masked: the iteration's scaled
+// similarity, else the final one against the unmasked features
+template <bool BF16>
+__global__ void __launch_bounds__(KW_THREADS) kw_sim(KwParams p, bool masked) {
+  __shared__ float ps[KW_BD][KW_TILE + 1];
+  __shared__ float fs[KW_BD][KW_TILE + 1];
+  const int g = blockIdx.z, k0 = blockIdx.y * KW_TILE, n0 = blockIdx.x * KW_TILE;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const float* prot = p.prot + (size_t)g * p.K * p.D;
+  float acc[4][4] = {};
+  for (int d0 = 0; d0 < p.D; d0 += KW_BD) {
+    for (int i = threadIdx.x; i < KW_TILE * KW_BD; i += KW_THREADS) {
+      const int r = i / KW_BD, c = i % KW_BD, d = d0 + c;
+      const int k = k0 + r, n = n0 + r;
+      ps[c][r] = (k < p.K && d < p.D) ? rnd<BF16>(prot[(size_t)k * p.D + d]) : 0.f;
+      fs[c][r] = (n < p.N && d < p.D) ? feat<BF16>(p, (size_t)n * p.D + d) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < KW_BD; ++c) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = ps[c][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = fs[c][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  const float* mrow = p.mask + (size_t)g * p.N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = k0 + ty + 16 * i;
+    if (k >= p.K) continue;
+    const size_t gk = (size_t)g * p.K + k;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (n >= p.N) continue;
+      const float c = cosine(acc[i][j], masked, masked ? mrow[n] : 1.f, p.nbase[n], p.na[gk]);
+      p.sim[gk * p.N + n] = masked ? __fdiv_rn(c, p.temp * p.tau[gk]) : c;
+    }
+  }
+}
+
+// the block's max or sum, in every thread; red: one float per warp
+__device__ float block_reduce(float x, float* red, bool is_max) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+  x = is_max ? warp_max(x) : warp_sum(x);
+  __syncthreads();
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  float r = red[0];
+  for (int i = 1; i < (int)blockDim.x / 32; ++i) r = is_max ? fmaxf(r, red[i]) : r + red[i];
+  return r;
+}
+
+// one block per (instance, prototype) row of the scaled similarities
+__global__ void __launch_bounds__(KW_THREADS) kw_lse(KwParams p) {
+  __shared__ float red[KW_THREADS / 32];
+  const size_t row = blockIdx.x;
+  const float* s = p.sim + row * p.N;
+  float mx = -INFINITY;
+  for (int n = threadIdx.x; n < p.N; n += KW_THREADS) mx = fmaxf(mx, s[n]);
+  mx = block_reduce(mx, red, true);
+  float sum = 0.f;
+  for (int n = threadIdx.x; n < p.N; n += KW_THREADS) sum += expf(s[n] - mx);
+  sum = block_reduce(sum, red, false);
+  if (threadIdx.x == 0) p.lse[row] = logf(sum) + mx;
+}
+
+// one thread per (instance, feature): the hard assignment (first maximum
+// of the log weights wins, as torch's argmax) and the rounded weight
+template <bool BF16>
+__global__ void kw_assign(KwParams p, int G) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)G * p.N) return;
+  const int g = (int)(i / p.N), n = (int)(i % p.N);
+  const size_t base = (size_t)g * p.K;
+  int best = 0;
+  float top = p.sim[base * p.N + n] - p.lse[base];
+  for (int k = 1; k < p.K; ++k) {
+    const float lw = p.sim[(base + k) * p.N + n] - p.lse[base + k];
+    if (lw > top) {
+      top = lw;
+      best = k;
+    }
+  }
+  p.idx[i] = best;
+  p.w[i] = p.mask[i] != 0.f ? rnd<BF16>(expf(top)) : 0.f;
+}
+
+// The features warp w of a block scans for its prototype: the w-th of
+// KW_WARPS contiguous ranges of [0, N), 32 at a time by a ballot of idx == k,
+// so each warp meets its matches in feature order
+constexpr int KW_WARPS = 16;  // warps of kw_update and kw_density: the features of one
+                              // prototype may be most of N (near-ties merge prototypes)
+
+// one block per (instance, prototype): the weighted sum of its features,
+// each warp's matches in feature order, the warps' partial sums added in
+// warp order; lanes over dims, KW_ACC dims per lane per sweep of 32 KW_ACC
+template <bool BF16>
+__global__ void __launch_bounds__(32 * KW_WARPS) kw_update(KwParams p) {
+  __shared__ float part[KW_WARPS][32 * KW_ACC];
+  const int g = blockIdx.x / p.K, k = blockIdx.x % p.K;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+  const int* idx = p.idx + (size_t)g * p.N;
+  const float* w = p.w + (size_t)g * p.N;
+  const int per = (p.N + KW_WARPS - 1) / KW_WARPS;
+  const int n0 = warp * per, n1 = min(p.N, n0 + per);
+  float* out = p.prot + ((size_t)g * p.K + k) * p.D;
+  for (int d0 = 0; d0 < p.D; d0 += 32 * KW_ACC) {
+    float acc[KW_ACC] = {};
+    for (int base = n0; base < n1; base += 32) {
+      const int n = base + lane;
+      unsigned m = __ballot_sync(0xffffffffu, n < n1 && idx[n] == k);
+      while (m) {
+        const int nn = base + __ffs(m) - 1;
+        m &= m - 1;
+        const float wt = w[nn];
+        const size_t row = (size_t)nn * p.D;
+#pragma unroll
+        for (int a = 0; a < KW_ACC; ++a) {
+          const int d = d0 + lane + 32 * a;
+          if (d < p.D) acc[a] = fmaf(wt, feat<BF16>(p, row + d), acc[a]);
+        }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < KW_ACC; ++a) part[warp][lane + 32 * a] = acc[a];
+    __syncthreads();
+    for (int c = threadIdx.x; c < 32 * KW_ACC; c += 32 * KW_WARPS) {
+      const int d = d0 + c;  // part[v][lane + 32 a] holds dim d0 + lane + 32 a
+      float sum = part[0][c];
+      for (int v = 1; v < KW_WARPS; ++v) sum += part[v][c];
+      if (d < p.D) out[d] = sum;
+    }
+    __syncthreads();
+  }
+}
+
+// one block per (instance, prototype): the new norm, then the mean
+// similarity of the features assigned to it (masked ones add 0 and count),
+// each warp's matches in feature order, the warps' sums added in warp order
+template <bool BF16>
+__global__ void __launch_bounds__(32 * KW_WARPS) kw_density(KwParams p) {
+  extern __shared__ float kw_smem[];
+  constexpr int NW = KW_WARPS;
+  float* pk = kw_smem;             // the prototype's operand copy, D floats
+  float* red = kw_smem + p.D;      // one slot per warp
+  __shared__ int rcnt[NW];
+  const int g = blockIdx.x / p.K, k = blockIdx.x % p.K;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+  const size_t gk = (size_t)g * p.K + k;
+  const float* pr = p.prot + gk * p.D;
+  float s = 0.f;
+  for (int d = threadIdx.x; d < p.D; d += 32 * KW_WARPS) {
+    s += pr[d] * pr[d];
+    pk[d] = rnd<BF16>(pr[d]);
+  }
+  const float na = fmaxf(sqrtf(block_reduce(s, red, false)), 1e-8f);
+  const int* idx = p.idx + (size_t)g * p.N;
+  const float* mrow = p.mask + (size_t)g * p.N;
+  const int per = (p.N + NW - 1) / NW;
+  const int n0 = warp * per, n1 = min(p.N, n0 + per);
+  float dens = 0.f;  // this warp's sum, in every lane
+  int cnt = 0;
+  for (int base = n0; base < n1; base += 32) {
+    const int n = base + lane;
+    unsigned m = __ballot_sync(0xffffffffu, n < n1 && idx[n] == k);
+    cnt += __popc(m);
+    while (m) {
+      const int nn = base + __ffs(m) - 1;
+      m &= m - 1;
+      const float mv = mrow[nn];
+      if (mv == 0.f) continue;
+      float dot = 0.f;
+      for (int d = lane; d < p.D; d += 32) dot = fmaf(pk[d], feat<BF16>(p, (size_t)nn * p.D + d), dot);
+      dens += cosine(warp_sum(dot), true, mv, p.nbase[nn], na);
+    }
+  }
+  __syncthreads();  // block_reduce's last reads of red are done
+  if (lane == 0) {
+    red[warp] = dens;
+    rcnt[warp] = cnt;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float sum = 0.f;
+    int total = 0;
+    for (int i = 0; i < NW; ++i) {
+      sum += red[i];
+      total += rcnt[i];
+    }
+    const float n = (float)total;
+    p.na[gk] = na;
+    p.tau[gk] = fmaxf(1.f - (n >= 1.f ? sum / fmaxf(n, 1.f) : 0.f), 1e-10f);
+  }
+}
+
+template <bool BF16>
+int kw_forward(const KwParams& p, const float* prot0, int G, int n_shift, cudaStream_t s) {
+  const size_t pbytes = (size_t)G * p.K * p.D * sizeof(float);
+  cudaError_t e = cudaMemcpyAsync(p.prot, prot0, pbytes, cudaMemcpyDeviceToDevice, s);
+  if (e != cudaSuccess) return (int)e;
+  const int rows = G * p.K;
+  kw_init<<<(rows + 7) / 8, 256, 0, s>>>(p, rows);
+  const dim3 sim_grid((p.N + KW_TILE - 1) / KW_TILE, (p.K + KW_TILE - 1) / KW_TILE, G);
+  const size_t dens_smem = (p.D + KW_WARPS) * sizeof(float);
+  if (dens_smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(kw_density<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)dens_smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const size_t gn = (size_t)G * p.N;
+  for (int it = 0; it < n_shift; ++it) {
+    kw_sim<BF16><<<sim_grid, KW_THREADS, 0, s>>>(p, true);
+    kw_lse<<<rows, KW_THREADS, 0, s>>>(p);
+    kw_assign<BF16><<<(unsigned)((gn + 255) / 256), 256, 0, s>>>(p, G);
+    kw_update<BF16><<<rows, 32 * KW_WARPS, 0, s>>>(p);
+    kw_density<BF16><<<rows, 32 * KW_WARPS, dens_smem, s>>>(p);
+  }
+  kw_sim<BF16><<<sim_grid, KW_THREADS, 0, s>>>(p, false);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -762,6 +1051,32 @@ int meanshift_forward(const void* prot0, const void* mask, const void* f, const 
     return dispatch<true>(map, a, G, cluster, (cudaStream_t)stream);
   }
   return dispatch<false>(map, a, G, cluster, (cudaStream_t)stream);
+}
+
+// The second route (any K; the wrapper takes it above K = 32): prot0 (G, K,
+// D), mask (G, N), nbase (N,) f32 contiguous; f (N, D) f32 operands, or with
+// mm_bf16 fb (N, D) bf16 (the features rounded once) and f null. work: f32
+// scratch of meanshift_kwide_work_floats(G, K, N) floats. out_prot (G, K,
+// D), out_sim (G, K, N) f32; out_prot also carries the iterates and out_sim
+// the scaled similarities until the final pass. Any D >= 1, N >= 1.
+size_t meanshift_kwide_work_floats(int G, int K, int N) {
+  return 3 * (size_t)G * K + 2 * (size_t)G * N;
+}
+
+int meanshift_kwide_forward(const void* prot0, const void* mask, const void* f, const void* fb,
+                            const void* nbase, void* out_prot, void* out_sim, void* work, int G,
+                            int K, int N, int D, int n_shift, float tau0, float temp,
+                            int mm_bf16, void* stream) {
+  if (G < 1 || K < 1 || N < 1 || D < 1 || n_shift < 0 || (mm_bf16 ? fb : f) == nullptr)
+    return (int)cudaErrorInvalidValue;
+  float* wk = (float*)work;
+  const size_t gk = (size_t)G * K, gn = (size_t)G * N;
+  const KwParams p{(const float*)mask, (const float*)f, (const float*)nbase, (const bf16*)fb,
+                   (float*)out_prot, (float*)out_sim, wk, wk + gk, wk + 2 * gk,
+                   wk + 3 * gk, (int*)(wk + 3 * gk + gn), K, N, D, tau0, temp};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (mm_bf16) return kw_forward<true>(p, (const float*)prot0, G, n_shift, s);
+  return kw_forward<false>(p, (const float*)prot0, G, n_shift, s);
 }
 
 }  // extern "C"

@@ -90,6 +90,9 @@ KERNELS: dict[str, Kernel] = {
         Kernel("ccl_batch", "ccl", "attentionshift_tpu/ops/ccl.py:200"),
         Kernel("meanshift_fixpoint", "meanshift",
                "attentionshift_tpu/ops/meanshift_kernel.py:47"),
+        # its second route: more prototypes than the cluster kernel holds (K > 32)
+        Kernel("meanshift_fixpoint_kwide", "meanshift",
+               "attentionshift_tpu/ops/meanshift_kernel.py:47"),
         # the attention microbenchmark's design variants of the capture kernel
         Kernel("attention_v2_bf16e", "attention_variants",
                "tools/analysis/microbench_attention.py:171"),
@@ -102,9 +105,10 @@ KERNELS: dict[str, Kernel] = {
         Kernel("attention_v6_fusedsum", "attention_variants",
                "tools/analysis/microbench_attention.py:393"),
         # the variants' head-dim-32 and -128 instances (head dims 1-32 and
-        # 65-128 through ops/attention_variants.py's padding)
-        *(Kernel(f"{name}_d{d}", "attention_variants", f"tools/analysis/microbench_attention.py:{line}")
-          for d in (32, 128)
+        # 65-128 through ops/attention_variants.py's padding) and their wide
+        # route (head dims above 128, padded to a multiple of 128)
+        *(Kernel(f"{name}_{d}", "attention_variants", f"tools/analysis/microbench_attention.py:{line}")
+          for d in ("d32", "d128", "dwide")
           for name, line in (("attention_v2_bf16e", 171), ("attention_v3_nomin", 224),
                              ("attention_v4_mxsum", 282), ("attention_v5_batched", 337),
                              ("attention_v6_fusedsum", 393))),

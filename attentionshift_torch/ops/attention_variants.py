@@ -40,13 +40,15 @@ mean to.
 
 The kernels have instances for head dims 32, 64 and 128
 (``VARIANT_HEAD_DIMS``), launches of the 32 and 128 instances counted
-under ``<kernel>_d32`` and ``<kernel>_d128``. Any other d up to 128 runs
+under ``<kernel>_d32`` and ``<kernel>_d128``. Above 128 every variant
+runs on the wide route at 128 * ceil(d / 128) (``csrc/attention_variants.cu``:
+a warp-level tensor-core design whose shared memory does not grow with d,
+v5 still one launch), counted under ``<kernel>_dwide``. Any other d runs
 on the smallest instance at least as wide, on q, k, v zero-padded on the
 head axis, with the scale of the true d (the JAX tool's kernels take any
 ``--dim``, also one not divisible by 8); v6's 8 ones columns then follow
 the padded width. ``out`` is sliced back to d. Zero columns change
-neither q k^T nor the row sums, so the padding is exact. Above 128 the
-kernel path raises ``ValueError``.
+neither q k^T nor the row sums, so the padding is exact.
 """
 
 from __future__ import annotations
@@ -78,12 +80,11 @@ VARIANT_HEAD_DIMS = (32, 64, 128)  # the head dims the variant kernels have inst
 
 def variant_head_dim(d: int) -> int:
     """The instance head dim ``d`` runs on: the smallest of 32, 64 and 128
-    at least ``d``; a ``ValueError`` above 128."""
+    at least ``d``, or above 128 the wide route's 128 * ceil(d / 128)."""
     for kd in VARIANT_HEAD_DIMS:
         if d <= kd:
             return kd
-    raise ValueError(f"attention variant kernel takes head dims up to {VARIANT_HEAD_DIMS[-1]}, "
-                     f"got {d}")
+    return -(-d // VARIANT_HEAD_DIMS[-1]) * VARIANT_HEAD_DIMS[-1]
 
 
 def variant_kernel(variant: str, kd: int) -> str:

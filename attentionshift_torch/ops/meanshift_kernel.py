@@ -4,9 +4,15 @@ Port of ``attentionshift_tpu/ops/meanshift_kernel.py`` and of the plain
 ``cosine_shift_batch`` it replaces (``pseudo/meanshift.py:49-123``).
 ``cosine_shift_fixpoint`` is the wrapper: a CPU tensor takes the plain
 version ``cosine_shift_batch``, a CUDA tensor launches
-``csrc/meanshift.cu`` or raises. The host picks the kernel's cluster
-size, tiles per block and ring slots (``_plan``) from the shape and from
-how many clusters the card holds at once.
+``csrc/meanshift.cu`` or raises. Up to ``CLUSTER_MAX_K`` = 32 prototypes
+it runs the cluster kernel (record ``meanshift_fixpoint``); the host picks
+its cluster size, tiles per block and ring slots (``_plan``) from the
+shape and from how many clusters the card holds at once, and with bf16
+operands zero-pads D to a multiple of 16 (exact: zero columns add nothing
+to a dot product or a norm, and the update keeps them zero) and slices
+the prototypes back. Above 32 it runs the second route (record
+``meanshift_fixpoint_kwide``): a chain of simple kernels per iteration
+with the (G, K, N) similarities in device memory, at any K and D.
 
 Numerics (both versions): cosine denominators ``max(|a|, 1e-8) *
 max(|b|, 1e-8)``; log-softmax over N of ``sim / (temp * tau)``; the hard
@@ -23,12 +29,14 @@ import ctypes
 import torch
 
 from ._build import KERNELS, check, library
+from .attention import pad_head
 from .numerics import bf16_steps
 
-__all__ = ["cosine_shift_batch", "cosine_shift_fixpoint", "fixpoint_verdict", "instance_deviation",
-           "one_step_limit", "reordered_witnesses"]
+__all__ = ["CLUSTER_MAX_K", "cosine_shift_batch", "cosine_shift_fixpoint", "fixpoint_verdict",
+           "instance_deviation", "one_step_limit", "reordered_witnesses", "route"]
 
 _SMEM_LIMIT = 227 * 1024
+CLUSTER_MAX_K = 32  # the cluster kernel's largest K (its KP instances 8, 16, 24, 32)
 # as in csrc/meanshift.cu: cluster sizes the host may take, ring slots per
 # warpgroup, parts of a row in a reduction over features
 _CLUSTERS = (2, 3, 4, 5, 6, 7, 8)
@@ -313,6 +321,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.meanshift_forward.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                                           + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                                              ctypes.c_void_p])
+        lib.meanshift_kwide_work_floats.restype = ctypes.c_size_t
+        lib.meanshift_kwide_work_floats.argtypes = [ctypes.c_int] * 3
+        lib.meanshift_kwide_forward.restype = ctypes.c_int
+        lib.meanshift_kwide_forward.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                                                + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                                                   ctypes.c_void_p])
         lib._meanshift_bound = True
     return lib
 
@@ -335,12 +349,18 @@ def launch_plan(g: int, k: int, n: int, d: int, bf16: bool, device, lib=None):
     return _plan(g, k, n, d, bf16, active, lib.meanshift_smem_bytes), active
 
 
+def route(k: int) -> str:
+    """The ``KERNELS`` record of the kernel that runs K prototypes on the
+    card: the cluster kernel up to ``CLUSTER_MAX_K``, the second route above."""
+    return "meanshift_fixpoint" if k <= CLUSTER_MAX_K else "meanshift_fixpoint_kwide"
+
+
 def cosine_shift_fixpoint(prototypes, box_mask, f, tau=0.1, temp=0.1, n_shift=10,
                           matmul_dtype=None, lib=None):
     """Mean-shift fixpoint for every instance.
 
     Args:
-        prototypes: (G, K, D) initial prototypes.
+        prototypes: (G, K, D) initial prototypes, any K and D.
         box_mask: (G, N) {0, 1} per-instance feature eligibility.
         f: (N, D) unmasked features.
         matmul_dtype: dot operand dtype (None = f32, or torch.bfloat16).
@@ -359,31 +379,45 @@ def cosine_shift_fixpoint(prototypes, box_mask, f, tau=0.1, temp=0.1, n_shift=10
         raise ValueError(f"meanshift kernel: matmul_dtype {matmul_dtype} not supported")
     g, k, d = prototypes.shape
     n = f.shape[0]
-    if k > 32 or f.shape != (n, d) or box_mask.shape != (g, n):
+    if f.shape != (n, d) or box_mask.shape != (g, n):
         raise ValueError(
             f"meanshift kernel: shapes {tuple(prototypes.shape)}, {tuple(box_mask.shape)}, "
-            f"{tuple(f.shape)} not taken (K <= 32, mask (G, N), f (N, D))")
+            f"{tuple(f.shape)} not taken (mask (G, N), f (N, D))")
     bf16 = matmul_dtype == torch.bfloat16
-    if bf16 and d % 16:
-        raise ValueError(f"meanshift kernel: bf16 dots need D % 16 == 0, got D={d}")
     lib = _bind(lib or library("meanshift"))
-    (cluster, tb, stages, _), _ = launch_plan(g, k, n, d, bf16, f.device, lib)
     prot0 = prototypes.float().contiguous()
     mask = box_mask.float().contiguous()
     f32 = f.float().contiguous()
     nbase = f32.norm(dim=-1).contiguous()
+    stream = torch.cuda.current_stream(f.device).cuda_stream
+    out_sim = torch.empty((g, k, n), device=f.device, dtype=torch.float32)
+    if k > CLUSTER_MAX_K:
+        fb = f.to(torch.bfloat16).contiguous() if bf16 else None
+        out_prot = torch.empty((g, k, d), device=f.device, dtype=torch.float32)
+        work = torch.empty(lib.meanshift_kwide_work_floats(g, k, n), device=f.device,
+                           dtype=torch.float32)
+        err = lib.meanshift_kwide_forward(
+            prot0.data_ptr(), mask.data_ptr(), None if bf16 else f32.data_ptr(),
+            fb.data_ptr() if bf16 else None, nbase.data_ptr(), out_prot.data_ptr(),
+            out_sim.data_ptr(), work.data_ptr(), g, k, n, d, int(n_shift), float(tau),
+            float(temp), int(bf16), stream)
+        check(err, "meanshift_kwide_forward")
+        KERNELS["meanshift_fixpoint_kwide"].launches += 1
+        return out_prot, out_sim
+    # bf16 dots: D zero-padded to the kernel's multiple of 16 (exact)
+    dk = -(-d // 16) * 16 if bf16 else d
+    (cluster, tb, stages, _), _ = launch_plan(g, k, n, dk, bf16, f.device, lib)
+    prot0 = pad_head(prot0, dk)
     # the dot operands: bf16 rounded once (read by TMA), or f32 in both layouts
     if bf16:
-        feats = (None, None, f.to(torch.bfloat16).contiguous())
+        feats = (None, None, pad_head(f.to(torch.bfloat16).contiguous(), dk))
     else:
         feats = (f32, f32.T.contiguous(), None)
-    out_prot = torch.empty((g, k, d), device=f.device, dtype=torch.float32)
-    out_sim = torch.empty((g, k, n), device=f.device, dtype=torch.float32)
+    out_prot = torch.empty((g, k, dk), device=f.device, dtype=torch.float32)
     err = lib.meanshift_forward(
         prot0.data_ptr(), mask.data_ptr(), *(None if t is None else t.data_ptr() for t in feats),
-        nbase.data_ptr(), out_prot.data_ptr(), out_sim.data_ptr(), g, k, n, d, int(n_shift),
-        cluster, tb, stages, float(tau), float(temp), int(bf16),
-        torch.cuda.current_stream(f.device).cuda_stream)
+        nbase.data_ptr(), out_prot.data_ptr(), out_sim.data_ptr(), g, k, n, dk, int(n_shift),
+        cluster, tb, stages, float(tau), float(temp), int(bf16), stream)
     check(err, "meanshift_forward")
     KERNELS["meanshift_fixpoint"].launches += 1
-    return out_prot, out_sim
+    return (out_prot if dk == d else out_prot[..., :d].contiguous()), out_sim

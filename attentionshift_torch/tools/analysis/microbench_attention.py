@@ -22,8 +22,9 @@ Run it on the card:
 
 ``--dim`` takes any head dim the JAX tool takes: the variants run their
 instances 32, 64 and 128 (a width in between zero-padded onto the next
-one, with its own scale) up to 128 and raise above it; the shipped
-attention ops take any d (the wide route above 128).
+one, with its own scale) up to 128 and their wide route above it (zero-
+padded to a multiple of 128); the shipped attention ops take any d (their
+own wide route above 128).
 
 Calls are CHAINED (``o = f(o, k, v)``), as in the JAX tool, so that every
 call depends on the one before. One chain of ``--inner`` calls is timed

@@ -5454,25 +5454,30 @@ def head_dim_times(results: dict, q, k, v, g, dev, smi: str) -> None:
 # phase_variant_dims: the attention microbenchmark's five variants at head
 # dims other than 64 (the JAX tool's --dim), on the tool's own inputs
 # (1, 6, 4301, d): the instances 32 and 128, and 48 padded onto 64
-VD_DIMS = (32, 48, 128)
-VD_TIMED = (32, 128)  # the kernel table's shapes of the d = 32 and 128 records
+VD_DIMS = (32, 48, 128, 136, 256, 384, 520)
+VD_TIMED = (32, 128, 256, 384)  # the kernel table's shapes: d = 32, 128, the wide route at 256
+# (its records' entries) and at 384 (under ``at_d384``)
+VD_TOOL = (32, 128, 256)  # the tool's --dim runs
+VD_PAD_CONTROL = (136, 520)  # widths padded on the wide route: the padded width's scale must fail
 
 
 def phase_variant_dims(results: dict, dev, smi: str) -> dict:
     """v2-v6 at every head dim of ``VD_DIMS`` through ``attention_variant``
-    (q, k, v zero-padded onto the instance, the scale of the true d, v6's
-    ones after the padded width, ``out`` sliced back). The path: each
-    variant once per d on the tool's inputs, with the counts at 0 just
-    before; each call must launch its instance's record once and nothing
-    else. Then each against its plain version: ``out`` within 4 bf16 ulps,
-    every mean entry within ``mean_limit`` (5.5 bf16 steps), on the tool's
-    inputs and on the clamp input, where the plain version of the other
-    clamp behaviour must fail both limits. The tool itself at ``--dim`` 32
-    and 128 (T = 301, 3 heads): one line per variant, its instance's
-    launches. Times at d = 32 and 128 (CUDA events, the five variants and
-    SDPA's forward in turns, medians of 6) with their bounds, plain
-    versions and registers for the kernel table. Returns the path's
-    launches."""
+    (q, k, v zero-padded onto the instance, or above 128 onto the wide
+    route's multiple of 128, the scale of the true d, v6's ones after the
+    padded width, ``out`` sliced back). The path: each variant once per d
+    on the tool's inputs, with the counts at 0 just before; each call must
+    launch its instance's record once and nothing else. Then each against
+    its plain version: ``out`` within 4 bf16 ulps, every mean entry within
+    ``mean_limit`` (5.5 bf16 steps), on the tool's inputs and on the clamp
+    input, where the plain version of the other clamp behaviour must fail
+    both limits; at the padded wide widths (``VD_PAD_CONTROL``) the plain
+    version of the padded inputs with the padded width's scale must fail
+    too. The tool itself at each ``--dim`` of ``VD_TOOL`` (T = 301, 3
+    heads): one line per variant, its instance's launches. Times at each d
+    of ``VD_TIMED`` (CUDA events, the five variants and SDPA's forward in
+    turns, medians of 6) with their bounds, plain versions and registers
+    for the kernel table. Returns the path's launches."""
     import torch.nn.functional as F
 
     from attentionshift_torch.ops import attention_variants as av
@@ -5519,10 +5524,23 @@ def phase_variant_dims(results: dict, dev, smi: str) -> dict:
                                      f"{c_mean}")
             log(f"[check] {record} d = {d}: control (plain {other} on the clamp input) out "
                 f"{c_out:.3e} > {out_tol:.1e}, mean {c_mean:.3e}x its limit: ok")
-            del ctl_out, ctl_mean, out, mean
-            if d in VD_TIMED:
-                results[record] = dict(max_abs_err=errs[0])
-    for d in VD_TIMED:
+            del ctl_out, ctl_mean
+            if d in VD_PAD_CONTROL:  # the padded width's scale, on the padded clamp input
+                padded = [av.pad_head(x, kd) for x in case]
+                ctl_out, ctl_mean = av.variant_reference(*padded, name)
+                c_out = max_err(out, ctl_out[..., :d])
+                c_mean = mean_over(mean, ctl_mean, av.mean_limit(case[0], case[1], name, ctl_mean))
+                if not (c_out > out_tol or c_mean > 1.0):
+                    raise AssertionError(f"{record} d = {d}: the check cannot see the padded "
+                                         f"width's scale: {c_out}, {c_mean}")
+                log(f"[check] {record} d = {d}: control (plain version at the padded width "
+                    f"{kd}'s scale) out {c_out:.3e} vs {out_tol:.1e}, mean {c_mean:.3e}x its "
+                    f"limit: fails: ok")
+                del padded, ctl_out, ctl_mean
+            del out, mean
+            r = results.setdefault(record, dict(max_abs_err=0.0))
+            r["max_abs_err"] = max(r["max_abs_err"], errs[0])
+    for d in VD_TOOL:
         kd = av.variant_head_dim(d)
         reset_launches()
         res = tool.run_variants(t=301, heads=3, dim=d, inner=2, iters=2,
@@ -5543,25 +5561,174 @@ def phase_variant_dims(results: dict, dev, smi: str) -> dict:
         ms = dict(zip(turns, meds))
         backend = sdpa_backend(q, k, v, None)
         for name in av.VARIANTS:
-            record = av.variant_kernel(name, d)
+            record = av.variant_kernel(name, av.variant_head_dim(d))
             pv_cols = d + 8 if name == "v6-fusedsum" else d  # v6 reads and multiplies 8 more
             t_bytes = ((3 * d + pv_cols) * q.numel() // d * 2 + b * t * t * 2) / PEAK_BYTES * 1e3
             t_ops = 2.0 * b * h * t * t * (d + pv_cols) / PEAK_BF16 * 1e3
-            results[record].update(
+            entry = dict(
                 ms=ms[name], library_ms=ms["SDPA forward"], library_backend=backend,
                 plain_ms=cuda_time(lambda n=name: av.variant_reference(q, k, v, n), reps=3),
                 bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
-            r = results[record]
+            if d == 384:
+                results[record]["at_d384"] = entry
+                r = entry
+            else:
+                results[record].update(entry)
+                r = results[record]
             log(f"[time] {smi}: {record} at {tuple(q.shape)}: {r['ms']:.4f} ms, plain "
                 f"{r['plain_ms']:.4f} ms, SDPA forward {r['library_ms']:.4f} ms ({backend}), bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}) (medians of 6 in turns)")
     reset_launches()
     for kern in ("attn_v2_bf16e", "attn_v3_nomin", "attn_v4_mxsum", "attn_v6_fusedsum",
-                 "attn_var_mean", "attn_var_mean_nomin", "attn_v5_batched"):
+                 "attn_var_mean", "attn_var_mean_nomin", "attn_v5_batched", "attn_v2_wide",
+                 "attn_v3_wide", "attn_v4_wide", "attn_v6_wide", "attn_var_mean_wide",
+                 "attn_var_mean_nomin_wide", "attn_v5_wide"):
         log(f"[build] {registers('attention_variants', kern)}")
     b, h, t, _ = cases[128][0].shape
     log(f"[check] attn_v5_batched at {(b, h, t)}, d = 128: clusters of "
         f"{av.variant_library().attn_v5_cluster(b, h, t, 128)} blocks (attn_v5_cluster)")
+    return launches
+
+
+# phase_meanshift_routes: the mean-shift kernel at every K and D the Pallas
+# kernel takes: K above the cluster kernel's 32 (the second route) at ViT-S's
+# and ViT-B's D, and bf16 operands at a D not divisible by 16 (the cluster
+# kernel on D zero-padded to 208); G = 5 instances (one all masked) of N =
+# 4200 random features, ten iterations
+MS_ROUTE_CASES = tuple((k, d, mm) for k in (33, 64, 100, 256) for d in (384, 768)
+                       for mm in ("f32", "bf16")) + ((20, 200, "bf16"),)
+MS_ROUTE_G, MS_ROUTE_N = 5, 4200
+MS_ROUTE_TIMED = (64, 256)  # the kernel table's rows: G 20, K, N 4200, D 384, bf16
+MS_CENTERS_K = 40  # semantic_centers(num_prototypes=40) on the card
+
+
+def phase_meanshift_routes(results: dict, dev, smi: str) -> dict:
+    """``cosine_shift_fixpoint`` at each (K, D, operands) of
+    ``MS_ROUTE_CASES``. The path: each case once, the counts at 0 just
+    before and read just after; each must launch its route's record
+    (``meanshift_kernel.route``: the second route above K = 32) once and
+    nothing else. Then each against
+    its plain version, instance by instance (``fixpoint_verdict``: within
+    max(floor, 2 x the plain version's own spread under reordered sums), or
+    within the floor of one reordered plain version; floor 1e-4 in f32,
+    2e-3 with bf16 operands, as phase 3's), with the plain version at a
+    temperature 10 % off as the control, which must fail some instance.
+    ``semantic_centers(..., num_prototypes=40)`` on a synthetic image: one
+    launch of the second route, finite outputs. Times of the kernel table's
+    rows (``MS_ROUTE_TIMED``, CUDA events) with the bound of phase 13's
+    formula and the plain version; registers of the new kernels. Returns
+    the path's launches."""
+    import torch
+
+    from attentionshift_torch.ops import meanshift_kernel
+    from attentionshift_torch.ops._build import reset_launches
+    from attentionshift_torch.pseudo import meanshift
+
+    def inputs(g, k, d, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        f = torch.randn((MS_ROUTE_N, d), generator=gen, device=dev)
+        prot0 = torch.randn((g, k, d), generator=gen, device=dev)
+        mask = (torch.rand((g, MS_ROUTE_N), generator=gen, device=dev) > 0.4).float()
+        mask[1] = 0.0
+        return prot0, mask, f
+
+    dtypes = {"f32": None, "bf16": torch.bfloat16}
+    cases = {c: inputs(MS_ROUTE_G, c[0], c[1], c[0] + c[1]) for c in MS_ROUTE_CASES}
+    launches, got = expected_launches(), {}
+    for c in MS_ROUTE_CASES:
+        reset_launches()
+        got[c] = meanshift_kernel.cosine_shift_fixpoint(*cases[c], n_shift=10,
+                                                        matmul_dtype=dtypes[c[2]])
+        sync()
+        seen = launch_counts()
+        if nonzero(seen) != {meanshift_kernel.route(c[0]): 1}:
+            raise AssertionError(f"meanshift (K, D, operands) = {c}: launches {nonzero(seen)}")
+        for k, v in seen.items():
+            launches[k] += v
+    log(f"[meanshift-routes] path over (K, D, operands) = {MS_ROUTE_CASES}: each launched its "
+        f"route's record once: {nonzero(launches)}: ok")
+    errs = {}
+    for c in MS_ROUTE_CASES:
+        prot0, mask, f = cases[c]
+        kw = dict(n_shift=10, matmul_dtype=dtypes[c[2]])
+        floor = 1e-4 if c[2] == "f32" else 2e-3
+        want_r = meanshift_kernel.cosine_shift_batch(prot0, f[None] * mask[..., None], f, **kw)
+        off = meanshift_kernel.cosine_shift_batch(prot0, f[None] * mask[..., None], f, temp=0.11,
+                                                  **kw)
+        v, ctl = meanshift_kernel.fixpoint_verdict([got[c], (off[0], want_r[1])], prot0, mask, f,
+                                                   floor, orders=MS_WITNESS_ORDERS,
+                                                   max_orders=MS_WITNESS_MAX, **kw)
+        record = meanshift_kernel.route(c[0])
+        name = f"{record}.K{c[0]}.D{c[1]}.{c[2]}"
+        log(f"[check] {name}: per instance (deviation, witnesses' spread, nearest witness), "
+            f"{v['witnesses']} witnesses: "
+            f"{[tuple(round(float(x[i]), 6) for x in (v['dev'], v['spread'], v['near'])) for i in range(len(v['dev']))]}; "
+            f"the control (temperature 10 % off) fails {int((~ctl['ok']).sum())} instances")
+        expect(f"{name} (worst instance / its limit)",
+               float(torch.where(v["ok"], 0.0, v["dev"] / v["limit"]).max()), 1.0,
+               "max(floor, 2 x the plain version's spread under reordered sums), or within the "
+               "floor of a reordered plain version")
+        if bool(ctl["ok"].all()):
+            raise AssertionError(f"{name}: the temperature control passes every instance")
+        errs[record] = max(errs.get(record, 0.0), float(v["dev"].max()))
+        del want_r, off
+    # Stage C with more prototypes than the cluster kernel holds
+    g, d, hp, wp = 4, EMBED, 32, 32
+    gen = torch.Generator(device=dev).manual_seed(40)
+    feat = torch.randn((d, hp, wp), generator=gen, device=dev)
+    rois = torch.tensor([[32.0, 48.0, 400.0, 300.0], [100.0, 100.0, 500.0, 480.0],
+                         [0.0, 0.0, 256.0, 256.0], [200.0, 60.0, 460.0, 380.0]], device=dev)
+    yy, xx = torch.meshgrid(torch.arange(512, device=dev), torch.arange(512, device=dev),
+                            indexing="ij")
+    fg = torch.stack([((xx >= r[0] + 20) & (xx < r[2] - 20) & (yy >= r[1] + 20)
+                       & (yy < r[3] - 20)).float() for r in rois])
+    reset_launches()
+    centers = meanshift.semantic_centers(fg, 1.0 - fg, rois, feat,
+                                         torch.arange(g, device=dev), torch.ones(g, dtype=torch.bool,
+                                                                                  device=dev),
+                                         num_prototypes=MS_CENTERS_K, matmul_dtype=torch.bfloat16)
+    sync()
+    sc = launch_counts()
+    if nonzero(sc) != {"meanshift_fixpoint_kwide": 1} or not all(
+            bool(torch.isfinite(x.float()).all()) for x in centers if torch.is_tensor(x)):
+        raise AssertionError(f"semantic_centers(num_prototypes={MS_CENTERS_K}): launches "
+                             f"{nonzero(sc)}, finite "
+                             f"{[bool(torch.isfinite(x.float()).all()) for x in centers]}")
+    log(f"[meanshift-routes] semantic_centers(num_prototypes={MS_CENTERS_K}) on the card: "
+        f"launches {nonzero(sc)}, coords {tuple(centers[0].shape)}, "
+        f"{int(centers[1].sum())} valid parts, all finite: ok")
+    for k, v in sc.items():
+        launches[k] += v
+    # the kernel table's rows
+    results["meanshift_fixpoint_kwide"] = dict(max_abs_err=errs["meanshift_fixpoint_kwide"])
+    results["meanshift_fixpoint"]["max_abs_err_d200_bf16"] = errs["meanshift_fixpoint"]
+    reset_launches()
+    for k in MS_ROUTE_TIMED:
+        prot0, mask, f = inputs(20, k, 384, k)
+        gg, kk, dd = prot0.shape
+        n = f.shape[0]
+        run = lambda: meanshift_kernel.cosine_shift_fixpoint(  # noqa: E731
+            prot0, mask, f, n_shift=10, matmul_dtype=torch.bfloat16)
+        entry = dict(
+            ms=cuda_time(run, reps=5),
+            plain_ms=cuda_time(lambda: meanshift_kernel.cosine_shift_batch(
+                prot0, f[None] * mask[..., None], f, n_shift=10, matmul_dtype=torch.bfloat16),
+                reps=3),
+            library_ms=None)
+        t_bytes = 4 * (2 * prot0.numel() + mask.numel() + f.numel() + gg * kk * n) / PEAK_BYTES * 1e3
+        t_ops = gg * (11 * 2.0 * kk * n * dd + 10 * 2.0 * n * dd) / PEAK_BF16 * 1e3
+        entry.update(bound_ms=max(t_bytes, t_ops),
+                     bound_by="bytes" if t_bytes >= t_ops else "operations")
+        if k == 64:
+            results["meanshift_fixpoint_kwide"].update(entry)
+        else:
+            results["meanshift_fixpoint_kwide"][f"at_k{k}"] = entry
+        log(f"[time] {smi}: meanshift_fixpoint_kwide at (G {gg}, K {kk}, N {n}, D {dd}), bf16, "
+            f"n_shift 10: {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, bound "
+            f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})")
+    reset_launches()
+    for kern in ("kw_init", "kw_sim", "kw_lse", "kw_assign", "kw_update", "kw_density"):
+        log(f"[build] {registers('meanshift', kern)}")
     return launches
 
 
@@ -5723,8 +5890,8 @@ def main(argv=None) -> int:
                          "of ABLATIONS (default: all sources)")
     ap.add_argument("--parallel-rank", nargs=2, metavar=("RANK", "DIR"),
                     help=argparse.SUPPRESS)  # one rank of phase_parallel
-    ap.add_argument("--only", choices=["diagnosis", "head_dims", "variant_dims", "decoder_kernels",
-                                       "jax_init"],
+    ap.add_argument("--only", choices=["diagnosis", "head_dims", "variant_dims", "meanshift_routes",
+                                       "decoder_kernels", "jax_init"],
                     help="only the card, the build and this phase (no kernel line, no result)")
     args = ap.parse_args(argv)
     sys.path.insert(0, HERE)
@@ -5750,6 +5917,8 @@ def main(argv=None) -> int:
         only = {"diagnosis": lambda: phase_diagnosis({n: {"max_abs_err": 0.0} for n in KERNELS}, smi),
                 "head_dims": lambda: phase_head_dims({}, dev, smi),
                 "variant_dims": lambda: phase_variant_dims({}, dev, smi),
+                "meanshift_routes": lambda: phase_meanshift_routes(
+                    {"meanshift_fixpoint": {}}, dev, smi),
                 "decoder_kernels": lambda: phase_decoder_kernels(dev),
                 "jax_init": lambda: phase_jax_init(smi)}
         only[args.only]()
@@ -5793,6 +5962,7 @@ def main(argv=None) -> int:
     diagnosis = phase_diagnosis(results, smi)
     head_dims = phase_head_dims(results, dev, smi)
     variant_dims = phase_variant_dims(results, dev, smi)
+    meanshift_routes = phase_meanshift_routes(results, dev, smi)
     decoder = phase_decoder_kernels(dev)
     jax_init = phase_jax_init(smi)
     phase_times(results, inp, model, slice_inp, gen)
@@ -5813,7 +5983,8 @@ def main(argv=None) -> int:
                     debug_overfit=learning["debug_overfit"],
                     learning_check=learning["learning_check"], export=export, user_tools=tools,
                     parallel=parallel, diagnosis=diagnosis, head_dims=head_dims,
-                    variant_dims=variant_dims, decoder_kernels=decoder, jax_init=jax_init)
+                    variant_dims=variant_dims, meanshift_routes=meanshift_routes,
+                    decoder_kernels=decoder, jax_init=jax_init)
     table = []
     for name, kern in KERNELS.items():
         r = results[name]
@@ -5843,7 +6014,8 @@ def main(argv=None) -> int:
                                                      "eval_path_T", "exp_floor_ms",
                                                      "mean_pass_ms_24_heads_streamed",
                                                      "mean_pass_ms_12_heads_resident",
-                                                     "kernel_ms", "library_backend", "at_d384")
+                                                     "kernel_ms", "library_backend", "at_d384",
+                                                     "at_k256", "max_abs_err_d200_bf16")
                              if key in r}))
     log(smi)
     log(json.dumps({"kernels": table}))

@@ -112,7 +112,9 @@ def _meanshift_inputs(g, k, n, d, seed, cuda):
 # (K, N, D, n_shift): every KP template (8, 16, 24, 32); N ragged against
 # the 64-feature tiles and the cluster split (300, 301, 4200); D of ViT-S,
 # ViT-B and a narrow one; no, one and ten iterations; a plane that only
-# clusters of 16 blocks hold (bf16; f32 takes 8)
+# clusters of 16 blocks hold (bf16; f32 takes 8); K above 32 (the second
+# route: 33, 64, 100, 256); D = 200, not divisible by 16 (bf16: the cluster
+# kernel on D zero-padded to 208)
 MEANSHIFT_CASES = [
     (8, 300, 64, 10),
     (16, 301, 384, 1),
@@ -122,6 +124,12 @@ MEANSHIFT_CASES = [
     (32, 4200, 768, 10),
     (20, 4200, 768, 1),
     (8, 46000, 64, 2),
+    (33, 4200, 384, 10),
+    (64, 4200, 768, 10),
+    (100, 4200, 384, 10),
+    (256, 4200, 384, 10),
+    (33, 301, 768, 0),
+    (20, 4200, 200, 10),
 ]
 
 
@@ -132,15 +140,34 @@ def test_meanshift_kernel_on_card(cuda, k, n, d, n_shift, matmul_dtype):
     """Mean-shift kernel vs the plain version: f32 1e-4 (summation order);
     bf16 operands 2e-3 (an f32 last-bit difference can move a bf16
     rounding of a weight or prototype by 2^-8); both relative to the
-    largest entry. An all-zero and a single-cell mask among the instances."""
+    largest entry. An all-zero and a single-cell mask among the instances.
+    Each call launches its route's record once (``meanshift_kernel.route``).
+    Above K = 32 (the second route) the hard assignment meets near-ties
+    among many prototypes, and the plain version's own reordered sums
+    spread past those limits (up to 8.5e-3 on such random inputs on an
+    H100): there each instance is judged by ``fixpoint_verdict`` with the
+    same floor, as the COCO-count test is, and a plain version with the
+    temperature 10 % off must fail some instance."""
+    from attentionshift_torch.ops._build import KERNELS, reset_launches
+
     prot0, mask, f = _meanshift_inputs(5, k, n, d, k + n + d, cuda)
     tol = 1e-4 if matmul_dtype is None else 2e-3
-    want = meanshift_kernel.cosine_shift_batch(prot0, f[None] * mask[..., None], f,
-                                               n_shift=n_shift, matmul_dtype=matmul_dtype)
-    got = meanshift_kernel.cosine_shift_fixpoint(prot0, mask, f, n_shift=n_shift,
-                                                 matmul_dtype=matmul_dtype)
-    for a, b in zip(got, want):
-        torch.testing.assert_close(a, b, atol=tol * float(b.abs().max()), rtol=0)
+    kw = dict(n_shift=n_shift, matmul_dtype=matmul_dtype)
+    want = meanshift_kernel.cosine_shift_batch(prot0, f[None] * mask[..., None], f, **kw)
+    reset_launches()
+    got = meanshift_kernel.cosine_shift_fixpoint(prot0, mask, f, **kw)
+    assert {n: r.launches for n, r in KERNELS.items() if r.launches} == {
+        meanshift_kernel.route(k): 1}
+    assert got[0].shape == (5, k, d) and got[1].shape == (5, k, n)
+    if k <= meanshift_kernel.CLUSTER_MAX_K:
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=tol * float(b.abs().max()), rtol=0)
+        return
+    off = meanshift_kernel.cosine_shift_batch(prot0, f[None] * mask[..., None], f, temp=0.11,
+                                              **kw)
+    v, ctl = meanshift_kernel.fixpoint_verdict([got, (off[0], want[1])], prot0, mask, f, tol, **kw)
+    assert bool(v["ok"].all()), {k: x.tolist() if torch.is_tensor(x) else x for k, x in v.items()}
+    assert n_shift == 0 or not bool(ctl["ok"].all())
 
 
 @pytest.mark.gpu
@@ -172,10 +199,12 @@ def test_meanshift_kernel_at_the_coco_configs_instance_count(cuda, d, matmul_dty
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("k", [20, 64])
 @pytest.mark.parametrize("matmul_dtype", [None, torch.bfloat16])
-def test_meanshift_kernel_is_deterministic(cuda, matmul_dtype):
-    """No atomics: two calls on the same inputs give bitwise equal outputs."""
-    prot0, mask, f = _meanshift_inputs(5, 20, 4200, 384, 3, cuda)
+def test_meanshift_kernel_is_deterministic(cuda, matmul_dtype, k):
+    """No atomics: two calls on the same inputs give bitwise equal outputs,
+    on the cluster kernel (K = 20) and on the second route (K = 64)."""
+    prot0, mask, f = _meanshift_inputs(5, k, 4200, 384, 3, cuda)
     runs = [meanshift_kernel.cosine_shift_fixpoint(prot0, mask, f, matmul_dtype=matmul_dtype)
             for _ in range(2)]
     for a, b in zip(*runs):
@@ -185,14 +214,15 @@ def test_meanshift_kernel_is_deterministic(cuda, matmul_dtype):
 @pytest.mark.gpu
 def test_meanshift_plan_on_card(cuda):
     """The wrapper's shared-memory count is the kernel's own, and the bench
-    shape (G = 20, K = 20, N = 4200, D = 384, bf16) runs in one wave."""
-    import ctypes
-
+    shape (G = 20, K = 20, N = 4200, D = 384, bf16) runs in one wave; the
+    second route keeps no K x S block in shared memory (its similarities
+    live in out_sim), and its device-memory scratch is 3 G K + 2 G N f32
+    (log-sum-exps, bandwidths and norms per prototype; weights and
+    assignments per feature), as the wrapper allocates it."""
     from attentionshift_torch.ops._build import library
 
-    fn = library("meanshift").meanshift_smem_bytes
-    fn.restype = ctypes.c_size_t
-    fn.argtypes = [ctypes.c_int] * 5
+    lib = meanshift_kernel._bind(library("meanshift"))
+    fn = lib.meanshift_smem_bytes
     for kp in (8, 16, 24, 32):
         for bf16 in (0, 1):
             for d, tb, stages in ((64, 1, 1), (384, 11, 2), (768, 17, 2), (1024, 3, 1)):
@@ -200,6 +230,8 @@ def test_meanshift_plan_on_card(cuda):
                     kp, bool(bf16), d, tb, stages)
     (c, tb, stages, smem), active = meanshift_kernel.launch_plan(20, 20, 4200, 384, True, cuda)
     assert active(c, smem) >= 20
+    for g, k, n in ((20, 33, 4200), (20, 256, 4200), (5, 64, 301)):
+        assert lib.meanshift_kwide_work_floats(g, k, n) == 3 * g * k + 2 * g * n
 
 
 # (B, H, T, gap): one tile; one row past two tiles; a ragged T with and
@@ -726,16 +758,20 @@ def test_attention_variant_kernels_repeat_bitwise(cuda, variant, h):
 
 @pytest.mark.gpu
 def test_attention_variant_kernels_refuse_what_they_do_not_take(cuda):
-    """A CUDA tensor launches the kernel or raises: f32 inputs and a head
-    dim above 128 are refused; v5 runs 9 and 24 heads (above its first
+    """A CUDA tensor launches the kernel or raises: f32 inputs are refused;
+    a head dim above 128 (136), refused before, now runs on the wide route
+    within the variants' limits; v5 runs 9 and 24 heads (above its first
     design's 8) within the limits of the variants' test, and 40 (recips in
     the workspace, above 24)."""
     q = torch.zeros((1, 2, 64, 64), device=cuda)
     with pytest.raises(ValueError):
         attention_variants.attention_variant(q, q, q, "v2-bf16e")
-    q = torch.zeros((1, 2, 64, 136), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="up to 128"):
-        attention_variants.attention_variant(q, q, q, "v4-mxsum")
+    gen = torch.Generator(device=cuda).manual_seed(136)
+    q, k, v = (torch.randn((1, 2, 64, 136), generator=gen, device=cuda).bfloat16()
+               for _ in range(3))
+    out, mean = attention_variants.attention_variant(q, k, v, "v4-mxsum")
+    torch.cuda.synchronize()
+    _check_variant(q, k, v, "v4-mxsum", out, mean)
     for h in (9, 24, 40):
         gen = torch.Generator(device=cuda).manual_seed(h)
         q, k, v = (torch.randn((1, h, 130, 64), generator=gen, device=cuda).bfloat16()
@@ -746,8 +782,9 @@ def test_attention_variant_kernels_refuse_what_they_do_not_take(cuda):
 
 
 # head dims of the variants' instances and the widths padded onto them:
-# not divisible by 8 (12, 100), 48, the instances 32 and 128
-VARIANT_DIMS = [(12, 32), (32, 32), (48, 64), (100, 128), (128, 128)]
+# not divisible by 8 (12, 100), 48, the instances 32 and 128; the wide route
+# at 136 (padded onto 256) and 256
+VARIANT_DIMS = [(12, 32), (32, 32), (48, 64), (100, 128), (128, 128), (136, 256), (256, 256)]
 
 
 @pytest.mark.gpu
@@ -780,6 +817,51 @@ def test_variant_head_dims_run_their_instance(cuda, variant, d, kd):
         assert float((out.float() - ctl_out.float()).abs().max()) > out_tol
         assert _mean_over(mean, ctl_mean, attention_variants.mean_limit(case[0], case[1], other,
                                                                         ctl_mean)) > 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", HOPPER_VARIANTS)
+def test_wide_variants_repeat_bitwise(cuda, variant):
+    """The wide route writes every element once, in a fixed order (no
+    atomics, no split sums): two calls at (1, 3, 301, 384) give bitwise
+    equal ``out`` and ``mean``."""
+    gen = torch.Generator(device=cuda).manual_seed(384)
+    q, k, v = (torch.randn((1, 3, 301, 384), generator=gen, device=cuda).bfloat16()
+               for _ in range(3))
+    first = attention_variants.attention_variant(q, k, v, variant)
+    second = attention_variants.attention_variant(q, k, v, variant)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.gpu
+def test_semantic_centers_with_40_prototypes_on_card(cuda):
+    """Stage C with ``num_prototypes=40`` (the JAX ``semantic_centers``
+    takes any count): the card runs the mean-shift's second route once, and
+    its centers agree with the plain version's on the CPU (same draws-free
+    inputs: coordinates and validity equal, features within 2e-3 of their
+    largest entry)."""
+    from attentionshift_torch.ops._build import KERNELS, reset_launches
+    from attentionshift_torch.pseudo import meanshift
+
+    g, d, hp = 3, 384, 32
+    gen = torch.Generator().manual_seed(40)
+    feat = torch.randn((d, hp, hp), generator=gen)
+    rois = torch.tensor([[32.0, 48.0, 400.0, 300.0], [100.0, 100.0, 500.0, 480.0],
+                         [0.0, 0.0, 256.0, 256.0]])
+    yy, xx = torch.meshgrid(torch.arange(512), torch.arange(512), indexing="ij")
+    fg = torch.stack([((xx >= r[0] + 20) & (xx < r[2] - 20) & (yy >= r[1] + 20)
+                       & (yy < r[3] - 20)).float() for r in rois])
+    args = (fg, 1.0 - fg, rois, feat, torch.arange(g), torch.ones(g, dtype=torch.bool))
+    want = meanshift.semantic_centers(*args, num_prototypes=40)
+    reset_launches()
+    got = meanshift.semantic_centers(*(a.to(cuda) for a in args), num_prototypes=40)
+    torch.cuda.synchronize()
+    assert {n: r.launches for n, r in KERNELS.items() if r.launches} == {
+        "meanshift_fixpoint_kwide": 1}
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    torch.testing.assert_close(got[2].cpu(), want[2], rtol=0,
+                               atol=2e-3 * float(want[2].abs().max()))
 
 
 @pytest.mark.gpu

@@ -190,13 +190,15 @@ def test_ccl_sweep_counts():
 
 
 @pytest.mark.parametrize("matmul_dtype", [None, "bfloat16"])
-@pytest.mark.parametrize("k,n", [(6, 40), (8, 40), (20, 37), (32, 131)])
+@pytest.mark.parametrize("k,n", [(6, 40), (8, 40), (20, 37), (32, 131), (33, 131), (40, 37),
+                                 (64, 131), (100, 200)])
 def test_meanshift_matches_pallas_kernel(k, n, matmul_dtype):
     """Port plain mean-shift vs ``_kernel`` (ops/meanshift_kernel.py:47),
     with a fully masked (padded) instance, at prototype counts that fill
-    each of the CUDA kernel's KP templates and N ragged against its
-    64-feature tiles. f32: 1e-5 (summation order); bf16 dot operands: the
-    same rounding on both sides, 1e-4."""
+    each of the CUDA kernel's KP templates, and above them (33, 40, 64,
+    100: the card's second route; the Pallas kernel takes any K), N ragged
+    against the 64-feature tiles. f32: 1e-5 (summation order); bf16 dot
+    operands: the same rounding on both sides, 1e-4."""
     from attentionshift_tpu.ops.meanshift_kernel import cosine_shift_fixpoint
 
     rs = np.random.RandomState(k + n)
@@ -214,6 +216,68 @@ def test_meanshift_matches_pallas_kernel(k, n, matmul_dtype):
     tol = 1e-5 if matmul_dtype is None else 1e-4
     np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), rtol=tol, atol=tol)
     np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("d", [24, 40])
+def test_meanshift_bf16_at_odd_widths(d):
+    """bf16 dot operands at D not divisible by 16 (24, 40): the port's plain
+    version vs the Pallas ``_kernel`` in interpret mode (the setting of
+    ``test_meanshift_matches_pallas_kernel``, K = 20, its bf16 tolerance
+    1e-4); and the card wrapper's zero-padding of D to a multiple of 16
+    (``attention.pad_head``), run through the plain version, gives bitwise the
+    unpadded prototypes (sliced back) and similarities: zero columns add
+    exact zeros to every dot product and norm. Control: a pad whose
+    columns are 1e-3, not zero, fails that bitwise check."""
+    from attentionshift_tpu.ops.meanshift_kernel import cosine_shift_fixpoint
+
+    rs = np.random.RandomState(d)
+    g, k, n = 4, 20, 131
+    f = rs.randn(n, d).astype(np.float32)
+    mask = (rs.rand(g, n) > 0.4).astype(np.float32)
+    mask[2] = 0.0
+    prot0 = rs.randn(g, k, d).astype(np.float32)
+    want_p, want_s = cosine_shift_fixpoint(jnp.asarray(prot0), jnp.asarray(mask), jnp.asarray(f),
+                                           n_shift=4, matmul_dtype=jnp.bfloat16, interpret=True)
+    tp, tm, tf = map(torch.from_numpy, (prot0, mask, f))
+    kw = dict(n_shift=4, matmul_dtype=torch.bfloat16)
+    got_p, got_s = meanshift_kernel.cosine_shift_fixpoint(tp, tm, tf, **kw)
+    np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), rtol=1e-4, atol=1e-4)
+    dk = -(-d // 16) * 16
+    pad_p, pad_s = meanshift_kernel.cosine_shift_fixpoint(
+        attention.pad_head(tp, dk), tm, attention.pad_head(tf, dk), **kw)
+    assert pad_p.shape == (g, k, dk) and not pad_p[..., d:].any()
+    assert torch.equal(pad_p[..., :d], got_p) and torch.equal(pad_s, got_s)
+    ctl_p, ctl_s = meanshift_kernel.cosine_shift_fixpoint(
+        torch.cat([tp, torch.full((g, k, dk - d), 1e-3)], -1), tm,
+        torch.cat([tf, torch.full((n, dk - d), 1e-3)], -1), **kw)
+    assert not (torch.equal(ctl_p[..., :d], got_p) and torch.equal(ctl_s, got_s))
+
+
+def test_meanshift_routes_and_binds_the_second_route():
+    """K up to 32 runs the cluster kernel's record, above it the second
+    route's; ``_bind`` gives ``meanshift_kwide_forward`` and
+    ``meanshift_kwide_work_floats`` the argtypes of their C signatures in
+    ``csrc/meanshift.cu`` (library mocked: no nvcc here)."""
+    import ctypes
+    import os
+    import re
+    import types
+
+    assert [meanshift_kernel.route(k) for k in (1, 20, 32, 33, 256)] == (
+        ["meanshift_fixpoint"] * 3 + ["meanshift_fixpoint_kwide"] * 2)
+    names = ("meanshift_max_clusters", "meanshift_smem_bytes", "meanshift_forward",
+             "meanshift_kwide_work_floats", "meanshift_kwide_forward")
+    fake = types.SimpleNamespace(**{n: types.SimpleNamespace(argtypes=None, restype=None)
+                                    for n in names})
+    meanshift_kernel._bind(fake)
+    src = open(os.path.join(os.path.dirname(meanshift_kernel.__file__), "..", "csrc",
+                            "meanshift.cu")).read()
+    scalars = {"int": ctypes.c_int, "float": ctypes.c_float, "size_t": ctypes.c_size_t}
+    for name in names:
+        params = re.search(rf"\b(?:int|size_t) {name}\(([^)]*)\)", src).group(1).split(",")
+        want = [ctypes.c_void_p if "*" in p else scalars[p.split()[-2]] for p in params]
+        assert getattr(fake, name).argtypes == want, name
 
 
 @pytest.mark.parametrize("matmul_dtype", [None, torch.bfloat16])
@@ -302,7 +366,10 @@ def test_meanshift_plan_fits_the_bench_shape_in_one_wave():
 def test_meanshift_plan_takes_every_shape_the_first_kernel_took():
     """Every (K, N, D) whose shared memory the first kernel's wrapper
     accepted (clusters of 8 blocks, N rounded to 128) has a plan, ViT-B's
-    D = 768 at the bench N included; beyond shared memory it raises."""
+    D = 768 at the bench N included. Beyond shared memory the cluster
+    kernel's plan raises, at K = 32 as before: the wrapper consults it only
+    up to K = 32 (``route``); more prototypes take the second route, which
+    keeps no K x S block in shared memory and has no such plan."""
     def first_took(k, n, d):
         kp, s = -(-k // 8) * 8, -(-n // 128) * 16
         return 4 * (2 * kp * d + kp * s + 2 * s + 5 * kp) <= 227 * 1024
@@ -362,13 +429,14 @@ def test_kernel_wrappers_count_only_their_launches():
     assert all(kr.launches == 0 for kr in KERNELS.values())
     assert {kr.name for kr in KERNELS.values()} == {
         "attention_capture", "attention_plain", "attention_bwd_dq", "attention_bwd_dkv",
-        "ccl_batch", "meanshift_fixpoint", "attention_v2_bf16e", "attention_v3_nomin",
+        "ccl_batch", "meanshift_fixpoint", "meanshift_fixpoint_kwide", "attention_v2_bf16e",
+        "attention_v3_nomin",
         "attention_v4_mxsum", "attention_v5_batched", "attention_v6_fusedsum",
         "attention_capture_d32", "attention_plain_d32", "attention_bwd_dq_d32",
         "attention_bwd_dkv_d32", "attention_capture_d128", "attention_plain_d128",
         "attention_bwd_dq_d128", "attention_bwd_dkv_d128", "attention_capture_dwide",
         "attention_plain_dwide", "attention_bwd_dq_dwide", "attention_bwd_dkv_dwide",
-        *(f"attention_{v}_d{d}" for d in (32, 128)
+        *(f"attention_{v}_{d}" for d in ("d32", "d128", "dwide")
           for v in ("v2_bf16e", "v3_nomin", "v4_mxsum", "v5_batched", "v6_fusedsum"))}
 
 

@@ -151,15 +151,16 @@ def test_variant_matches_tpu_kernel(name):
     np.testing.assert_allclose(mean.sum(-1), 1.0, atol=5e-3)
 
 
-@pytest.mark.parametrize("d", (12, 32, 48, 128))
+@pytest.mark.parametrize("d", (12, 32, 48, 128, 136, 256))
 @pytest.mark.parametrize("name", NAMES)
 def test_variant_matches_tpu_kernel_at_other_head_dims(name, d):
     """The port's plain version of each variant vs the TPU kernel of the
     JAX tool in interpret mode at its ``--dim d``, (1, 2, 256, d) bf16: d =
     12 (not divisible by 8: the tool calls ``pallas_call`` at any width),
-    32 and 128 (the kernels' other instances) and 48 (padded onto 64 on the
-    card); q is scaled by bf16(d^-0.5 log2 e) of that d, v6's ones follow
-    column d. Tolerances of ``_close``; rows of the mean sum to 1."""
+    32 and 128 (the kernels' other instances), 48 (padded onto 64 on the
+    card), 136 and 256 (the card's wide route, 136 padded onto 256); q is
+    scaled by bf16(d^-0.5 log2 e) of that d, v6's ones follow column d.
+    Tolerances of ``_close``; rows of the mean sum to 1."""
     q, k, v = _bf16_inputs(1, 2, 256, d, seed=d)
     want_out, want_mean = run_jax_variant(name, q, k, v)
     out, mean = _port(name, q, k, v)
@@ -261,7 +262,7 @@ def test_variant_plain_version_at_ragged_t(name):
 def test_variant_wrapper_counts_and_refuses():
     """CPU tensors take the plain versions and count no launch; an unknown
     name raises; the registry holds the five records with the TPU kernels
-    they replace."""
+    they replace, and their d32, d128 and wide-route (dwide) records."""
     from attentionshift_torch.ops._build import KERNELS, reset_launches
 
     reset_launches()
@@ -279,11 +280,11 @@ def test_variant_wrapper_counts_and_refuses():
         assert KERNELS[kname].source == "attention_variants"
         # the cited line is the def of the function that reaches pallas_call
         assert src[line - 1].strip().startswith("def v"), src[line - 1]
-    for d in (32, 128):
+    for d in ("d32", "d128", "dwide"):
         for kname, line in lines.items():
-            assert KERNELS[f"{kname}_d{d}"].replaces == KERNELS[kname].replaces
-            assert KERNELS[f"{kname}_d{d}"].source == "attention_variants"
-    assert len(KERNELS) == 33
+            assert KERNELS[f"{kname}_{d}"].replaces == KERNELS[kname].replaces
+            assert KERNELS[f"{kname}_{d}"].source == "attention_variants"
+    assert len(KERNELS) == 39
 
 
 def _c_signature(name):
@@ -373,7 +374,8 @@ def test_variant_launch_hands_workspace_and_counts(name):
         assert pv == v.data_ptr()
 
 
-@pytest.mark.parametrize("d,kd", [(12, 32), (48, 64), (100, 128), (128, 128)])
+@pytest.mark.parametrize("d,kd", [(12, 32), (48, 64), (100, 128), (128, 128), (136, 256),
+                                  (256, 256), (520, 640)])
 @pytest.mark.parametrize("name", NAMES)
 def test_variant_launch_pads_onto_the_instance(name, d, kd):
     """The launch path at head dim ``d`` with the library's function mocked
@@ -381,7 +383,8 @@ def test_variant_launch_pads_onto_the_instance(name, d, kd):
     head dim ``kd`` (v6's V as (B, H, T, kd + 8), its ones in columns kd on),
     the C call gets ``kd`` and the scale of the true d, ``out`` comes back
     sliced to d and contiguous, and one launch of ``kd``'s record is
-    counted (``<record>_d32``, ``_d128``; the record itself at 64)."""
+    counted (``<record>_d32``, ``_d128``, ``_dwide`` above 128; the record
+    itself at 64)."""
     from attentionshift_torch.ops._build import KERNELS, reset_launches
 
     q, k, v = (torch.from_numpy(x).bfloat16() for x in _bf16_inputs(1, 2, 24, d, seed=d))
@@ -420,8 +423,33 @@ def test_variant_launch_pads_onto_the_instance(name, d, kd):
     assert seen["ptrs"][:2] == (qp.data_ptr(), kp.data_ptr())
     assert out.shape == q.shape and out.is_contiguous() and mean.shape == (1, 24, 24)
     record = attention_variants.variant_kernel(name, kd)
-    assert record == (attention_variants.VARIANTS[name][0] + ("" if kd == 64 else f"_d{kd}"))
+    suffix = "" if kd == 64 else ("_dwide" if kd > 128 else f"_d{kd}")
+    assert record == attention_variants.VARIANTS[name][0] + suffix
     assert {n: r.launches for n, r in KERNELS.items() if r.launches} == {record: 1}
+
+
+@pytest.mark.parametrize("d", (136, 200, 520))
+@pytest.mark.parametrize("name", NAMES)
+def test_padding_onto_the_wide_width_is_exact(name, d):
+    """What the card's wide route computes, run through the plain version:
+    q, k, v zero-padded to 128 * ceil(d / 128) (``variant_head_dim``; v6's
+    ones after the padded width), scaled by bf16(d^-0.5 log2 e) of the true
+    d, give bitwise the unpadded plain version's ``out`` (sliced back) and
+    ``mean``, (1, 2, 64, d). Control: the padded width's own scale (what a
+    wrapper that forgot the true d would hand over) changes them."""
+    q, k, v = (torch.from_numpy(x).bfloat16() for x in _bf16_inputs(1, 2, 64, d, seed=d + 1))
+    kd = attention_variants.variant_head_dim(d)
+    assert kd == (256 if d < 256 else 640)
+    want = attention_variants.variant_reference(q, k, v, name)
+    padded = [attention_variants.pad_head(x, kd) for x in (q, k, v)]
+    scale = attention_variants._q_scale(q)
+    with mock.patch.object(attention_variants, "_q_scale", lambda x: scale):
+        got = attention_variants.variant_reference(*padded, name)
+    assert torch.equal(got[0][..., :d], want[0]) and torch.equal(got[1], want[1])
+    assert not got[0][..., d:].any()
+    ctl = attention_variants.variant_reference(*padded, name)
+    assert float(attention_variants._q_scale(padded[0])) != float(scale)
+    assert not (torch.equal(ctl[0][..., :d], want[0]) and torch.equal(ctl[1], want[1]))
 
 
 def _logits_f64(q, k):
@@ -487,11 +515,12 @@ def test_mean_limit_steps_and_flush_floor():
 
 def test_variant_kernel_refuses_what_it_refused_before():
     """The kernel path's input checks (reached here directly: a CPU
-    tensor takes the plain version): f32 inputs, a head dim above 128 and
-    unequal shapes are refused for what they are; every head dim from 1 to
-    128 passes the width check, and every variant, v5 included (its first
-    design refused more than 8 heads), takes any head count (9, 24: only
-    the device is wrong here)."""
+    tensor takes the plain version): f32 inputs and unequal shapes are
+    refused for what they are; every head dim from 1 to 128 passes the
+    width check, and so do 136 and 256 (the wide route: the check once
+    refused everything above 128), and every variant, v5 included (its
+    first design refused more than 8 heads), takes any head count (9, 24:
+    only the device is wrong here)."""
     check = attention_variants._check_inputs
 
     def bf(*shape):
@@ -500,7 +529,7 @@ def test_variant_kernel_refuses_what_it_refused_before():
     with pytest.raises(ValueError, match="bfloat16"):
         check(*(torch.zeros((1, 2, 64, 64)),) * 3, "v2-bf16e")
     for d in (136, 256):
-        with pytest.raises(ValueError, match="head dims up to 128"):
+        with pytest.raises(ValueError, match="CUDA tensors"):
             check(*(bf(1, 2, 64, d),) * 3, "v4-mxsum")
     for d in range(1, 129):
         with pytest.raises(ValueError, match="CUDA tensors"):
