@@ -20,10 +20,32 @@
 // products per exp2: 4*H*T^2*d = 5.0 GFLOP (5.1 us at 989 TFLOP/s)
 // against 39.1 M exp2 per pass (9.3 us at 16 per clock per SM, 132 SMs,
 // 1980 MHz), so there the exp work, not the tensor cores, bounds both
-// kernels. Each kernel is a template on the head dim (HeadTile<HD> in
-// hopper.cuh): at 32, tiles are 64 rows of 64 bytes under the 64-byte
-// swizzle, S = Q K^T takes two k16 steps and O += P V is m64n32k16; the
-// 64 instance is the code below as it was.
+// kernels. Tiles are 64 rows of 64 bytes under the 64-byte swizzle
+// (HeadTile<32> in hopper.cuh), S = Q K^T takes two k16 steps and O += P V
+// is m64n32k16. Three kernels of their own serve d = 32:
+//   flash_fwd32        T > 64 (Swin; the mask head's T = 196). Bound by
+//                      exp2. Two warpgroups on 128 query rows share a K/V
+//                      ring but never meet after the start: a producer
+//                      warp refills a slot once both have freed it, so
+//                      neither waits for the other's softmax; within a
+//                      warpgroup the softmax of tile j runs beside the PV
+//                      product of tile j - 1. The softmax's instruction
+//                      stream, not the MUFU alone, holds it back (an exp2
+//                      share on the FMA pipe lost time at every share, and
+//                      so did products taken in turns by the warpgroups).
+//   flash_fwd32_short  T <= 64 (the box head's T = 50, 4096 planes). Bound
+//                      by bytes. One warpgroup per block walks whole planes
+//                      (one query and one key tile each), the next planes'
+//                      Q, K, V in flight while one computes; no warpgroup
+//                      holds only rows past T.
+//   attn_mean32        the mean pass. Bound by exp2. Four warpgroups per
+//                      block share the resident query tiles and row
+//                      statistics, each on its own key tiles through its
+//                      own four-slot K ring that a lane of the producer
+//                      warp refills; one S accumulator each (no S issued
+//                      ahead) keeps them at ~90 registers, so that four fit.
+// The host picks the kernel, grid and mean chunk (plan32, exported as
+// attn_d32_plan and mirrored in ops/attention.py::d32_plan).
 //
 // Head dim 128 (ops/attention.py also pads head dims 72-120 onto it) doubles
 // the products per exp2 again, so the tensor cores bound it as at 64. Its
@@ -135,12 +157,34 @@ using namespace hopper;
 #ifndef MEAN_RESIDENT_BYTES
 #define MEAN_RESIDENT_BYTES (16 * 8192)  // query tiles attn_mean keeps, at most
 #endif
+// head dim 32 (flash_fwd32, flash_fwd32_short, attn_mean32)
+#ifndef F32_OVERLAP
+#define F32_OVERLAP 1  // flash_fwd32: the softmax of tile j beside the PV product of tile j - 1
+#endif
+#ifndef F32_SHORT
+#define F32_SHORT 1  // T <= 64 takes flash_fwd32_short (0: flash_fwd32)
+#endif
+#ifndef F32_SHORT_STAGES
+#define F32_SHORT_STAGES 2  // planes in flight per flash_fwd32_short block
+#endif
+#ifndef M32_WARPGROUPS
+#define M32_WARPGROUPS 4  // attn_mean32's warpgroups per block, over one set of query tiles
+#endif
+#ifndef M32_STAGES
+#define M32_STAGES 4  // K ring slots of each attn_mean32 warpgroup
+#endif
+#ifndef M32_BLOCKS_PER_SM
+#define M32_BLOCKS_PER_SM 1
+#endif
 
 constexpr int TILE = TILE_ROWS;
 constexpr int WG_THREADS = 128;  // one warpgroup
 constexpr int FWD_ROWS = FWD_WARPGROUPS * TILE_ROWS;
 constexpr int FWD_THREADS = FWD_WARPGROUPS * WG_THREADS;
 constexpr int WIDE_BLOCKS_PER_SM = 2;  // flash_fwd_wide blocks per SM (launch bounds)
+constexpr int F32_STAGES = 4;          // K/V ring slots of flash_fwd32
+constexpr int F32_BLOCKS_PER_SM = 2;   // flash_fwd32 blocks per SM (launch bounds)
+constexpr int F32_SHORT_BLOCKS_PER_SM = 4;  // flash_fwd32_short blocks per SM (launch bounds)
 
 // flash_fwd: the query tiles, FWD_STAGES slots of (K, V), the barriers
 template <int HD>
@@ -783,6 +827,512 @@ attn_mean_wide(const __grid_constant__ CUtensorMap map_q, const __grid_constant_
   }
 }
 
+// ------------------------------------------------------- head dim 32
+//
+// flash_fwd32, flash_fwd32_short and attn_mean32 (see the header comment):
+// the d = 32 forward, designed for the exp2 work that bounds it there.
+
+constexpr int KV32 = HeadTile<32>::BYTES;  // one 64-row tile at d = 32: 4 KB
+constexpr int PRODUCER_THREADS = 32;  // the producer warp, after the consumers
+constexpr int F32_CONSUMERS = 2 * WG_THREADS;
+constexpr int F32_THREADS = F32_CONSUMERS + PRODUCER_THREADS;
+constexpr int SHORT32_THREADS = WG_THREADS + PRODUCER_THREADS;
+constexpr int M32_THREADS = M32_WARPGROUPS * WG_THREADS + PRODUCER_THREADS;
+constexpr int SHORT32_SLOT = 3 * KV32;  // flash_fwd32_short's ring slot: Q, K, V of one plane
+
+// The online softmax of one key tile from key0 on at d = 32: online_softmax
+// returning the rows' rescale factors
+// (al_a, al_b) instead of applying them, so that the caller can rescale O
+// once its product in flight has landed.
+__device__ __forceinline__ void softmax32(float (&s)[32], uint32_t (&pa)[4][4], float& m_a,
+                                          float& m_b, float& l_a, float& l_b, float& al_a,
+                                          float& al_b, int key0, int T, int pad_lo, int pad_hi,
+                                          int tig, float scale_log2) {
+  if (tile_masked(key0, T, pad_lo, pad_hi)) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      s[i] = masked_col(key0 + acc_col(i, tig), T, pad_lo, pad_hi) ? -INFINITY : s[i];
+  }
+  float mx_a = row_max(s, 0), mx_b = row_max(s, 2);
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+  }
+  const float mn_a = fmaxf(m_a, mx_a * scale_log2), mn_b = fmaxf(m_b, mx_b * scale_log2);
+  const float sh_a = mn_a == -INFINITY ? 0.f : mn_a;
+  const float sh_b = mn_b == -INFINITY ? 0.f : mn_b;
+  al_a = ex2(m_a - sh_a);
+  al_b = ex2(m_b - sh_b);
+  m_a = mn_a;
+  m_b = mn_b;
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    s[i] = ex2(fmaf(s[i], scale_log2, (i & 2) ? -sh_b : -sh_a));
+  l_a = l_a * al_a + row_sum(s, 0);
+  l_b = l_b * al_b + row_sum(s, 2);
+  acc_to_a(pa, s);
+}
+
+__device__ __forceinline__ void rescale16(float (&o)[16], float al_a, float al_b) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) o[i] *= (i & 2) ? al_b : al_a;
+}
+
+struct Fwd32 {
+  const uint8_t* q_s;  // this warpgroup's query tile
+  uint8_t* ring;       // slot s: K at tile 2s, V at tile 2s + 1
+  uint64_t* bars;      // [0] query tiles, [1 + s] slot s arrived, [1 + F32_STAGES + s] slot s free
+  const CUtensorMap* map_k;
+  const CUtensorMap* map_v;
+  int plane, n, T, pad_lo, pad_hi, tig, wg, consumers;
+  float scale_log2;
+};
+
+__device__ __forceinline__ void fwd32_load(const Fwd32& a, int tile) {
+  const int st = tile % F32_STAGES;
+  mbar_expect_tx(&a.bars[1 + st], 2 * KV32);
+  HeadTile<32>::load(a.ring + 2 * st * KV32, a.map_k, &a.bars[1 + st], tile * TILE, a.plane);
+  HeadTile<32>::load(a.ring + (2 * st + 1) * KV32, a.map_v, &a.bars[1 + st], tile * TILE, a.plane);
+}
+
+// This warpgroup is done with key tile j's slot (its products on it waited
+// for). No block-wide barrier: every consumer thread arrives on the slot's
+// "free" barrier, which the producer warp waits on before it refills the
+// slot with tile j + F32_STAGES; so one warpgroup never waits for the
+// other's softmax, and no consumer issues a load.
+__device__ __forceinline__ void fwd32_release(const Fwd32& a, int j) {
+  mbar_arrive(&a.bars[1 + F32_STAGES + j % F32_STAGES]);
+}
+
+// S = Q K^T of key tile j (its slot has arrived) into s, one commit group
+__device__ __forceinline__ void fwd32_issue_s(const Fwd32& a, float (&s)[32], int j) {
+  const uint8_t* k_s = a.ring + 2 * (j % F32_STAGES) * KV32;
+#pragma unroll
+  for (int kc = 0; kc < HeadTile<32>::KSTEPS; ++kc)
+    wgmma_ss<0>(s, HeadTile<32>::kmajor(a.q_s, kc), HeadTile<32>::kmajor(k_s, kc), kc);
+  wgmma_commit();
+}
+
+// O += P V of key tile j, one commit group
+__device__ __forceinline__ void fwd32_issue_pv(const Fwd32& a, float (&o)[16],
+                                               const uint32_t (&pa)[4][4], int j) {
+  const uint8_t* v_s = a.ring + (2 * (j % F32_STAGES) + 1) * KV32;
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) wgmma_rs<1>(o, pa[kc], HeadTile<32>::mnmajor(v_s, kc), 1);
+  wgmma_commit();
+}
+
+// Key tile j >= 1 with overlap: S of tile j and O += P V of tile j - 1 (P
+// in `pv`) issued together; the softmax of tile j
+// (into `pn`) runs once S has landed, while the PV product is still in
+// flight; then O is rescaled and tile j - 1's slot released.
+__device__ __forceinline__ void fwd32_step(const Fwd32& a, float (&s)[32], float (&o)[16],
+                                           uint32_t (&pv)[4][4], uint32_t (&pn)[4][4],
+                                           float& m_a, float& m_b, float& l_a, float& l_b,
+                                           int j) {
+  mbar_wait(&a.bars[1 + j % F32_STAGES], (j / F32_STAGES) & 1);
+  fence_regs(s);
+  fence_regs(o);
+  fence_regs(pv);
+  wgmma_fence();
+  fwd32_issue_s(a, s, j);
+  fwd32_issue_pv(a, o, pv, j - 1);
+  wgmma_wait_n<1>();
+  fence_regs(s);
+  float al_a, al_b;
+  softmax32(s, pn, m_a, m_b, l_a, l_b, al_a, al_b, j * TILE, a.T, a.pad_lo, a.pad_hi, a.tig,
+            a.scale_log2);
+  wgmma_wait();
+  fence_regs(o);
+  fence_regs(pv);
+  fence_regs(pn);
+  rescale16(o, al_a, al_b);
+  fwd32_release(a, j - 1);
+}
+
+// the last key tile's O += P V (P in `pa`)
+__device__ __forceinline__ void fwd32_last(const Fwd32& a, float (&o)[16], uint32_t (&pa)[4][4]) {
+  fence_regs(o);
+  fence_regs(pa);
+  wgmma_fence();
+  fwd32_issue_pv(a, o, pa, a.n - 1);
+  wgmma_wait();
+  fence_regs(o);
+  fence_regs(pa);
+}
+
+// flash_fwd32: head dim 32, T > 64. One block = two consumer warpgroups =
+// 128 query rows of one plane (a last block whose second query tile lies
+// past T runs one), sharing a ring of F32_STAGES K/V slots, and a producer
+// warp. The warpgroups never meet after the start: each counts itself out
+// of a slot, and the producer warp refills it once both have
+// (fwd32_release). Within a warpgroup, the softmax of tile j runs beside the
+// PV product of tile j - 1 (F32_OVERLAP; 0: every product waited for before
+// the next softmax).
+__global__ void __launch_bounds__(F32_THREADS, F32_BLOCKS_PER_SM)
+flash_fwd32(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+            const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ out,
+            float* __restrict__ lse2, int H, int T, int pad_lo, int pad_hi, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  Fwd32 a;
+  a.wg = threadIdx.x >> 7;
+  a.q_s = smem + a.wg * KV32;
+  a.ring = smem + 2 * KV32;
+  a.bars = reinterpret_cast<uint64_t*>(a.ring + 2 * F32_STAGES * KV32);
+  a.map_k = &map_k;
+  a.map_v = &map_v;
+  a.plane = blockIdx.z * H + blockIdx.y;
+  a.n = (T + TILE - 1) / TILE;
+  a.T = T;
+  a.pad_lo = pad_lo;
+  a.pad_hi = pad_hi;
+  a.tig = threadIdx.x & 3;
+  a.scale_log2 = scale_log2;
+  const int row0 = blockIdx.x * 2 * TILE;
+  a.consumers = row0 + TILE < T ? 2 : 1;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i <= F32_STAGES; ++i) mbar_init(&a.bars[i], 1);
+    for (int i = 0; i < F32_STAGES; ++i) mbar_init(&a.bars[1 + F32_STAGES + i], a.consumers * WG_THREADS);
+    mbar_init_fence();
+    mbar_expect_tx(&a.bars[0], a.consumers * KV32);
+    for (int w = 0; w < a.consumers; ++w)
+      HeadTile<32>::load(smem + w * KV32, &map_q, &a.bars[0], row0 + w * TILE, a.plane);
+    for (int t = 0; t < F32_STAGES && t < a.n; ++t) fwd32_load(a, t);
+  }
+  __syncthreads();
+  if (threadIdx.x >= F32_CONSUMERS) {  // the producer warp: tile t once tile t - F32_STAGES is done
+    if (threadIdx.x == F32_CONSUMERS)
+      for (int t = F32_STAGES; t < a.n; ++t) {
+        mbar_wait(&a.bars[1 + F32_STAGES + t % F32_STAGES], (t / F32_STAGES - 1) & 1);
+        fwd32_load(a, t);
+      }
+    return;
+  }
+  if (a.wg >= a.consumers) return;
+
+  float s[32], o[16];
+  uint32_t p0[4][4], p1[4][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) o[i] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f, al_a, al_b;
+
+  mbar_wait(&a.bars[0], 0);
+  mbar_wait(&a.bars[1], 0);
+  fence_regs(s);
+  wgmma_fence();
+  fwd32_issue_s(a, s, 0);
+  wgmma_wait();
+  fence_regs(s);
+  softmax32(s, p0, m_a, m_b, l_a, l_b, al_a, al_b, 0, T, pad_lo, pad_hi, a.tig, scale_log2);
+  if (F32_OVERLAP) {
+    for (int j = 1;; j += 2) {
+      if (j >= a.n) {
+        fwd32_last(a, o, p0);
+        break;
+      }
+      fwd32_step(a, s, o, p0, p1, m_a, m_b, l_a, l_b, j);
+      if (j + 1 >= a.n) {
+        fwd32_last(a, o, p1);
+        break;
+      }
+      fwd32_step(a, s, o, p1, p0, m_a, m_b, l_a, l_b, j + 1);
+    }
+  } else {  // every product waited for before the next softmax
+    for (int j = 0;; ++j) {
+      fence_regs(o);
+      fence_regs(p0);
+      wgmma_fence();
+      fwd32_issue_pv(a, o, p0, j);
+      wgmma_wait();
+      fence_regs(o);
+      fence_regs(p0);
+      fwd32_release(a, j);
+      if (j + 1 >= a.n) break;
+      mbar_wait(&a.bars[1 + (j + 1) % F32_STAGES], ((j + 1) / F32_STAGES) & 1);
+      fence_regs(s);
+      wgmma_fence();
+      fwd32_issue_s(a, s, j + 1);
+      wgmma_wait();
+      fence_regs(s);
+      softmax32(s, p0, m_a, m_b, l_a, l_b, al_a, al_b, (j + 1) * TILE, T, pad_lo, pad_hi,
+                a.tig, scale_log2);
+      rescale16(o, al_a, al_b);
+    }
+  }
+  const int r_a = row0 + a.wg * TILE + ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2);
+  fwd_epilogue<16>(o, m_a, m_b, l_a, l_b, r_a, T, out + (size_t)a.plane * T * 32, 32, 0,
+                   lse2 == nullptr ? nullptr : lse2 + (size_t)a.plane * T, a.tig);
+}
+
+// flash_fwd32_short's load of plane p's Q, K and V (one tile each) into slot st
+__device__ __forceinline__ void short32_load(uint8_t* ring, uint64_t* bars, const CUtensorMap* mq,
+                                             const CUtensorMap* mk, const CUtensorMap* mv, int st,
+                                             int p) {
+  uint8_t* slot = ring + st * SHORT32_SLOT;
+  mbar_expect_tx(&bars[st], SHORT32_SLOT);
+  HeadTile<32>::load(slot, mq, &bars[st], 0, p);
+  HeadTile<32>::load(slot + KV32, mk, &bars[st], 0, p);
+  HeadTile<32>::load(slot + 2 * KV32, mv, &bars[st], 0, p);
+}
+
+// flash_fwd32_short: head dim 32, T <= 64, where a plane is one query tile
+// and one key tile. One block = one warpgroup that walks planes blockIdx.x,
+// + gridDim.x, ... (the host launches as many blocks as are resident at
+// once, or fewer), so no warpgroup holds a row past T beyond the plane's
+// own; the next F32_SHORT_STAGES - 1 planes' Q, K and V are in flight
+// through the ring while the current one computes (loaded by the producer
+// warp once the warpgroup has freed their slot). Bound by bytes (q, k, v
+// and out cross device memory once).
+__global__ void __launch_bounds__(SHORT32_THREADS, F32_SHORT_BLOCKS_PER_SM)
+flash_fwd32_short(const __grid_constant__ CUtensorMap map_q,
+                  const __grid_constant__ CUtensorMap map_k,
+                  const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ out,
+                  float* __restrict__ lse2, int planes, int T, int pad_lo, int pad_hi,
+                  float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1024(smem_raw);
+  // [s] slot s arrived, [F32_SHORT_STAGES + s] slot s free
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + F32_SHORT_STAGES * SHORT32_SLOT);
+  const int tid = threadIdx.x, tig = tid & 3;
+  if (tid == 0) {
+    for (int i = 0; i < F32_SHORT_STAGES; ++i) mbar_init(&bars[i], 1);
+    for (int i = 0; i < F32_SHORT_STAGES; ++i) mbar_init(&bars[F32_SHORT_STAGES + i], WG_THREADS);
+    mbar_init_fence();
+    for (int i = 0; i < F32_SHORT_STAGES; ++i) {
+      const int p = blockIdx.x + i * gridDim.x;
+      if (p < planes) short32_load(ring, bars, &map_q, &map_k, &map_v, i, p);
+    }
+  }
+  __syncthreads();
+  if (tid >= WG_THREADS) {  // the producer warp: plane i's slot once plane i - stages left it
+    if (tid == WG_THREADS)
+      for (int i = F32_SHORT_STAGES, p = blockIdx.x + i * gridDim.x; p < planes;
+           ++i, p += gridDim.x) {
+        const int st = i % F32_SHORT_STAGES;
+        mbar_wait(&bars[F32_SHORT_STAGES + st], (i / F32_SHORT_STAGES - 1) & 1);
+        short32_load(ring, bars, &map_q, &map_k, &map_v, st, p);
+      }
+    return;
+  }
+  const int r_a = (tid >> 5) * 16 + ((tid & 31) >> 2);
+  float s[32], o[16];
+  uint32_t pa[4][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) o[i] = 0.f;
+  for (int i = 0, p = blockIdx.x; p < planes; ++i, p += gridDim.x) {
+    const int st = i % F32_SHORT_STAGES;
+    const uint8_t* slot = ring + st * SHORT32_SLOT;
+    mbar_wait(&bars[st], (i / F32_SHORT_STAGES) & 1);
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < HeadTile<32>::KSTEPS; ++kc)
+      wgmma_ss<0>(s, HeadTile<32>::kmajor(slot, kc), HeadTile<32>::kmajor(slot + KV32, kc), kc);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(s);
+    float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f, al_a, al_b;
+    softmax32(s, pa, m_a, m_b, l_a, l_b, al_a, al_b, 0, T, pad_lo, pad_hi, tig, scale_log2);
+    fence_regs(o);
+    fence_regs(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)
+      wgmma_rs<1>(o, pa[kc], HeadTile<32>::mnmajor(slot + 2 * KV32, kc), kc);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(o);
+    fence_regs(pa);
+    mbar_arrive(&bars[F32_SHORT_STAGES + st]);  // this thread is done with the slot
+    fwd_epilogue<16>(o, m_a, m_b, l_a, l_b, r_a, T, out + (size_t)p * T * 32, 32, 0,
+                     lse2 == nullptr ? nullptr : lse2 + (size_t)p * T, tig);
+  }
+}
+
+struct Mean32 {
+  const uint8_t* q_s;  // H query tiles (resident)
+  uint8_t* ring;       // this warpgroup's M32_STAGES slots: K, then (streamed) the unit's query tile
+  const float* lse_s;  // [H][TILE] row statistics of the block's rows (resident)
+  const float* lse2;   // this image's (H, T) row statistics (streamed)
+  uint64_t* bars;      // this warpgroup's [s] slot s arrived, [M32_STAGES + s] slot s free
+  const CUtensorMap* map_q;
+  const CUtensorMap* map_k;
+  bf16* mean;  // this image's (T, T)
+  int b, H, kt0, n, row0, row_a, T, pad_lo, pad_hi, tig;
+  float scale_log2, inv_h;
+};
+
+template <bool RES>
+__device__ __forceinline__ constexpr int mean32_slot_bytes() {
+  return (RES ? 1 : 2) * KV32;
+}
+
+// unit u of this warpgroup: its key tile kt0 + (u / H) * M32_WARPGROUPS of head u % H
+template <bool RES>
+__device__ __forceinline__ int mean32_key_tile(const Mean32& a, int u) {
+  return a.kt0 + (u / a.H) * M32_WARPGROUPS;
+}
+
+template <bool RES>
+__device__ __forceinline__ void mean32_load(const Mean32& a, int u) {
+  constexpr int SLOT = mean32_slot_bytes<RES>();
+  const int st = u % M32_STAGES;
+  uint8_t* slot = a.ring + st * SLOT;
+  const int plane = a.b * a.H + u % a.H;
+  mbar_expect_tx(&a.bars[st], SLOT);
+  HeadTile<32>::load(slot, a.map_k, &a.bars[st], mean32_key_tile<RES>(a, u) * TILE, plane);
+  if constexpr (!RES) HeadTile<32>::load(slot + KV32, a.map_q, &a.bars[st], a.row0, plane);
+}
+
+template <bool RES>
+__device__ __forceinline__ void mean32_issue_s(const Mean32& a, float (&s)[32], int u) {
+  const uint8_t* k_s = a.ring + (u % M32_STAGES) * mean32_slot_bytes<RES>();
+  const uint8_t* q_s = RES ? a.q_s + (u % a.H) * KV32 : k_s + KV32;
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < HeadTile<32>::KSTEPS; ++kc)
+    wgmma_ss<0>(s, HeadTile<32>::kmajor(q_s, kc), HeadTile<32>::kmajor(k_s, kc), kc);
+  wgmma_commit();
+}
+
+// unit u's probabilities (S in `s`) added to the head sum `acc`; after the
+// last head the tile is written and `acc` starts again
+template <bool RES>
+__device__ __forceinline__ void mean32_probs(const Mean32& a, const float (&s)[32],
+                                             float (&acc)[32], int u) {
+  const int h = u % a.H;
+  const int key0 = mean32_key_tile<RES>(a, u) * TILE;
+  float nl_a, nl_b;
+  if constexpr (RES) {
+    nl_a = -a.lse_s[h * TILE + a.row_a];
+    nl_b = -a.lse_s[h * TILE + a.row_a + 8];
+  } else {  // a row past T gets 0 (never stored)
+    const int r_a = a.row0 + a.row_a;
+    const float* lh = a.lse2 + (size_t)h * a.T;
+    nl_a = r_a < a.T ? -lh[r_a] : 0.f;
+    nl_b = r_a + 8 < a.T ? -lh[r_a + 8] : 0.f;
+  }
+  add_probs(acc, s, nl_a, nl_b, key0, a.T, a.pad_lo, a.pad_hi, a.tig, a.scale_log2);
+  if (h == a.H - 1) {  // every head summed: write the tile, start the next
+    store_mean_tile(a.mean, acc, a.row0 + a.row_a, key0, a.T, a.tig, a.inv_h);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  }
+}
+
+// this warpgroup is done with unit u's slot: its producer lane may refill it
+template <bool RES>
+__device__ __forceinline__ void mean32_release(const Mean32& a, int u) {
+  mbar_arrive(&a.bars[M32_STAGES + u % M32_STAGES]);
+}
+
+// attn_mean32: the mean pass at head dim 32. One block = M32_WARPGROUPS
+// warpgroups per (64 query rows, chunk of key tiles, image) and a producer
+// warp; warpgroup w takes the chunk's key tiles w, w + M32_WARPGROUPS, ...
+// and every head of each, through a ring of M32_STAGES K slots of its own
+// that producer lane w refills, so more warps share one set of resident
+// query tiles (H x 4 KB) and row statistics, and each K load has
+// M32_STAGES - 1 units of exp work to arrive in. With one S accumulator
+// a warpgroup waits for each unit's product, and the other warpgroups' exp
+// work runs meanwhile. Streamed above MEAN_RESIDENT_BYTES
+// as attn_mean. Every output tile is written once, by the warpgroup that
+// owns its key tile.
+template <bool RES>
+__global__ void __launch_bounds__(M32_THREADS, M32_BLOCKS_PER_SM)
+attn_mean32(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+            const float* __restrict__ lse2, bf16* __restrict__ mean, int H, int T, int pad_lo,
+            int pad_hi, float scale_log2, int chunk) {
+  constexpr int SLOT = mean32_slot_bytes<RES>();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const bool producer = threadIdx.x >= M32_WARPGROUPS * WG_THREADS;
+  // a consumer's warpgroup; lane w of the producer warp loads warpgroup w's units
+  const int wg = producer ? (threadIdx.x & 31) : threadIdx.x >> 7;
+  const int tid = threadIdx.x & (WG_THREADS - 1);
+  uint8_t* rings = smem + (RES ? H : 0) * KV32;
+  float* lse_s = reinterpret_cast<float*>(rings + M32_WARPGROUPS * M32_STAGES * SLOT);
+  // [0] query tiles, then per warpgroup w [1 + 2 w M32_STAGES + s] slot s arrived and
+  // [1 + (2 w + 1) M32_STAGES + s] slot s free
+  uint64_t* bars = reinterpret_cast<uint64_t*>(lse_s + (RES ? H * TILE : 0));
+  Mean32 a;
+  a.q_s = smem;
+  a.ring = rings + wg * M32_STAGES * SLOT;
+  a.lse_s = lse_s;
+  a.bars = bars + 1 + 2 * wg * M32_STAGES;
+  a.map_q = &map_q;
+  a.map_k = &map_k;
+  a.b = blockIdx.z;
+  a.H = H;
+  a.lse2 = lse2 + (size_t)a.b * H * T;
+  a.mean = mean + (size_t)a.b * T * T;
+  const int ntiles = (T + TILE - 1) / TILE;
+  const int c0 = blockIdx.x * chunk, cn = min(chunk, ntiles - c0);
+  a.kt0 = c0 + wg;
+  a.n = (wg < cn ? (cn - wg + M32_WARPGROUPS - 1) / M32_WARPGROUPS : 0) * H;
+  a.T = T;
+  a.pad_lo = pad_lo;
+  a.pad_hi = pad_hi;
+  a.tig = tid & 3;
+  a.row_a = (tid >> 5) * 16 + ((tid & 31) >> 2);
+  a.scale_log2 = scale_log2;
+  a.inv_h = 1.f / (float)H;
+  const int row0 = blockIdx.y * TILE;
+  a.row0 = row0;
+  if (threadIdx.x == 0) {
+    mbar_init(&bars[0], 1);
+    for (int w = 0; w < M32_WARPGROUPS; ++w)
+      for (int i = 0; i < M32_STAGES; ++i) {
+        mbar_init(&bars[1 + 2 * w * M32_STAGES + i], 1);
+        mbar_init(&bars[1 + (2 * w + 1) * M32_STAGES + i], WG_THREADS);
+      }
+    mbar_init_fence();
+    if constexpr (RES) {
+      mbar_expect_tx(&bars[0], H * KV32);
+      for (int h = 0; h < H; ++h)
+        HeadTile<32>::load(smem + h * KV32, &map_q, &bars[0], row0, a.b * H + h);
+    }
+  }
+  if constexpr (RES) {
+    // the rows' log2-sum-exp per head; a row past T gets 0 (never stored)
+    for (int i = threadIdx.x; i < H * TILE; i += M32_THREADS) {
+      const int r = row0 + (i & (TILE - 1));
+      lse_s[i] = r < T ? lse2[((size_t)a.b * H + i / TILE) * T + r] : 0.f;
+    }
+  }
+  __syncthreads();  // barriers initialised, statistics in place
+  if (producer) {  // lane w: unit u of warpgroup w once unit u - M32_STAGES has left its slot
+    if (wg < M32_WARPGROUPS)
+      for (int u = 0; u < a.n; ++u) {
+        if (u >= M32_STAGES)
+          mbar_wait(&a.bars[M32_STAGES + u % M32_STAGES], (u / M32_STAGES - 1) & 1);
+        mean32_load<RES>(a, u);
+      }
+    return;
+  }
+  if (a.n == 0) return;
+
+  float acc[32], s[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = s[i] = 0.f;
+  if constexpr (RES) mbar_wait(&bars[0], 0);
+  // one S accumulator: each unit's product waited for before its exp work
+  for (int u = 0; u < a.n; ++u) {
+    mbar_wait(&a.bars[u % M32_STAGES], (u / M32_STAGES) & 1);
+    mean32_issue_s<RES>(a, s, u);
+    wgmma_wait();
+    fence_regs(s);
+    mean32_release<RES>(a, u);
+    mean32_probs<RES>(a, s, acc, u);
+  }
+}
+
 // Key tiles per attn_mean block: the grid runs in waves of `slots`
 // resident blocks, and a block costs its chunk plus about half a tile's
 // worth for loading the H query tiles. Short chunks keep the last wave
@@ -935,6 +1485,170 @@ int mean_forward_wide(const void* q, const void* k, const void* lse2, void* mean
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------- head dim 32, host
+//
+// The plan of a d = 32 forward (mirrored in ops/attention.py, d32_plan):
+// which flash kernel, its grid and shared memory; the mean pass's
+// resident or streamed query tiles, chunk of key tiles and shared memory;
+// and the blocks per SM the device reports for each.
+
+constexpr size_t fwd32_smem() {
+  return (size_t)(2 + 2 * F32_STAGES) * KV32 + (1 + 2 * F32_STAGES) * sizeof(uint64_t) + 1024;
+}
+constexpr size_t short32_smem() {
+  return (size_t)F32_SHORT_STAGES * SHORT32_SLOT + 2 * F32_SHORT_STAGES * sizeof(uint64_t) + 1024;
+}
+size_t mean32_smem(int H, bool resident) {
+  const size_t ring = (size_t)M32_WARPGROUPS * M32_STAGES * (resident ? 1 : 2) * KV32;
+  return (resident ? (size_t)H * KV32 + (size_t)H * TILE * sizeof(float) : 0) + ring +
+         (1 + 2 * M32_WARPGROUPS * M32_STAGES) * sizeof(uint64_t) + 1024;
+}
+constexpr size_t SMEM_LIMIT = 232448;  // what a block may use (227 KB)
+
+bool mean32_resident(int H) {
+  return (long)H * KV32 <= (long)MEAN_RESIDENT_BYTES && mean32_smem(H, true) <= SMEM_LIMIT;
+}
+
+// Key tiles per attn_mean32 block: mean_chunk's rule, a block's time now
+// ceil(c / M32_WARPGROUPS) key tiles (its warpgroups take them side by side)
+int mean32_chunk(int ntiles, int row_blocks, int slots) {
+  int best = 1;
+  long best_cost = -1;
+  for (int c = 1; c <= ntiles && c <= MEAN_MAX_CHUNK; ++c) {
+    const long blocks = (long)row_blocks * ((ntiles + c - 1) / c);
+    const long cost =
+        (blocks + slots - 1) / slots * (2 * ((c + M32_WARPGROUPS - 1) / M32_WARPGROUPS) + 1);
+    if (best_cost < 0 || cost < best_cost) {
+      best = c;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+// the four d = 32 kernels the plan chooses from
+enum { K32_FLASH = 0, K32_SHORT = 1, K32_MEAN_RES = 2, K32_MEAN_STREAM = 3 };
+
+const void* kernel32(int which) {
+  switch (which) {
+    case K32_FLASH: return (const void*)flash_fwd32;
+    case K32_SHORT: return (const void*)flash_fwd32_short;
+    case K32_MEAN_RES: return (const void*)attn_mean32<true>;
+    default: return (const void*)attn_mean32<false>;
+  }
+}
+int threads32(int which) {
+  return which == K32_FLASH ? F32_THREADS : which == K32_SHORT ? SHORT32_THREADS : M32_THREADS;
+}
+
+// The device's SMs and kernel `which`'s resident blocks per SM at `smem`
+// bytes (after raising its shared-memory limit to them); asked once per
+// (device, kernel, smem), kept as smem << 20 | per_sm.
+cudaError_t occupancy32(int which, int smem, int* sms, int* per_sm) {
+  constexpr int MAX_DEVICES = 64;
+  static std::atomic<long long> known[MAX_DEVICES][4];
+  static std::atomic<int> known_sms[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const void* kern = kernel32(which);
+  if ((err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+      cudaSuccess)
+    return err;
+  if ((err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                  cudaSharedmemCarveoutMaxShared)) != cudaSuccess)
+    return err;
+  if (dev < MAX_DEVICES) {
+    const long long k = known[dev][which].load(std::memory_order_relaxed);
+    if (k > 0 && (k >> 20) == smem) {
+      *per_sm = (int)(k & ((1 << 20) - 1));
+      *sms = known_sms[dev].load(std::memory_order_relaxed);
+      return cudaSuccess;
+    }
+  }
+  if ((err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, threads32(which),
+                                                           smem)) != cudaSuccess)
+    return err;
+  if (*per_sm < 1) *per_sm = 1;
+  if (dev < MAX_DEVICES) {
+    known_sms[dev].store(*sms, std::memory_order_relaxed);
+    known[dev][which].store(((long long)smem << 20) | *per_sm, std::memory_order_relaxed);
+  }
+  return cudaSuccess;
+}
+
+// plan[0] flash kernel (K32_FLASH or K32_SHORT), [1] its blocks (grid x;
+// flash_fwd32's grid is (plan[1], H, B)), [2] its blocks per SM, [3] its
+// shared memory; [4] the mean pass's kernel (K32_MEAN_RES or
+// K32_MEAN_STREAM), [5] its chunk of key tiles, [6] its key chunks (grid
+// x of (plan[6], query tiles, B)), [7] its blocks per SM, [8] its shared
+// memory; [9] the SMs. Fills the flash part ([0-3], `flash`) or the mean
+// part ([4-8]), and [9].
+cudaError_t plan32(int B, int H, int T, bool flash, int* plan) {
+  if (flash) {
+    const bool short_route = F32_SHORT && T <= TILE;
+    plan[0] = short_route ? K32_SHORT : K32_FLASH;
+    plan[3] = (int)(short_route ? short32_smem() : fwd32_smem());
+    cudaError_t err = occupancy32(plan[0], plan[3], &plan[9], &plan[2]);
+    if (err != cudaSuccess) return err;
+    const int slots = plan[9] * plan[2];
+    plan[1] = short_route ? (B * H < slots ? B * H : slots) : (T + 2 * TILE - 1) / (2 * TILE);
+    return cudaSuccess;
+  }
+  const bool res = mean32_resident(H);
+  const int ntiles = (T + TILE - 1) / TILE;
+  plan[4] = res ? K32_MEAN_RES : K32_MEAN_STREAM;
+  plan[8] = (int)mean32_smem(H, res);
+  cudaError_t err = occupancy32(plan[4], plan[8], &plan[9], &plan[7]);
+  if (err != cudaSuccess) return err;
+  plan[5] = mean32_chunk(ntiles, B * ntiles, plan[9] * plan[7]);
+  plan[6] = (ntiles + plan[5] - 1) / plan[5];
+  return cudaSuccess;
+}
+
+int flash_forward32(const void* q, const void* k, const void* v, void* out, void* lse2, int B,
+                    int H, int T, int pad_lo, int pad_hi, float scale_log2, cudaStream_t stream) {
+  int plan[10];
+  // a runtime call first (in occupancy32): it makes the device's context
+  // current on this thread, which the tensor-map encoding needs
+  cudaError_t err = plan32(B, H, T, true, plan);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap mq, mk, mv;
+  if (int bad = HeadTile<32>::map(&mq, q, B * H, T)) return bad;
+  if (int bad = HeadTile<32>::map(&mk, k, B * H, T)) return bad;
+  if (int bad = HeadTile<32>::map(&mv, v, B * H, T)) return bad;
+  if (!aligned16(out)) return TMA_MISALIGNED;
+  if (plan[0] == K32_SHORT)
+    flash_fwd32_short<<<plan[1], SHORT32_THREADS, plan[3], stream>>>(
+        mq, mk, mv, (bf16*)out, (float*)lse2, B * H, T, pad_lo, pad_hi, scale_log2);
+  else
+    flash_fwd32<<<dim3(plan[1], H, B), F32_THREADS, plan[3], stream>>>(
+        mq, mk, mv, (bf16*)out, (float*)lse2, H, T, pad_lo, pad_hi, scale_log2);
+  return (int)cudaGetLastError();
+}
+
+int mean_forward32(const void* q, const void* k, const void* lse2, void* mean, int B, int H, int T,
+                   int pad_lo, int pad_hi, float scale_log2, cudaStream_t stream) {
+  int plan[10];
+  cudaError_t err = plan32(B, H, T, false, plan);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap mq, mk;
+  if (int bad = HeadTile<32>::map(&mq, q, B * H, T)) return bad;
+  if (int bad = HeadTile<32>::map(&mk, k, B * H, T)) return bad;
+  if (!aligned16(mean)) return TMA_MISALIGNED;
+  const dim3 grid(plan[6], (T + TILE - 1) / TILE, B);
+  const int threads = M32_THREADS;
+  if (plan[4] == K32_MEAN_RES)
+    attn_mean32<true><<<grid, threads, plan[8], stream>>>(
+        mq, mk, (const float*)lse2, (bf16*)mean, H, T, pad_lo, pad_hi, scale_log2, plan[5]);
+  else
+    attn_mean32<false><<<grid, threads, plan[8], stream>>>(
+        mq, mk, (const float*)lse2, (bf16*)mean, H, T, pad_lo, pad_hi, scale_log2, plan[5]);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -950,8 +1664,8 @@ int attn_flash_forward(const void* q, const void* k, const void* v, void* out, v
     return flash_forward<64>(q, k, v, out, lse2, B, H, T, pad_lo, pad_hi, scale_log2,
                              (cudaStream_t)stream);
   if (D == 32)
-    return flash_forward<32>(q, k, v, out, lse2, B, H, T, pad_lo, pad_hi, scale_log2,
-                             (cudaStream_t)stream);
+    return flash_forward32(q, k, v, out, lse2, B, H, T, pad_lo, pad_hi, scale_log2,
+                           (cudaStream_t)stream);
   if (D == 128)
     return flash_forward<128>(q, k, v, out, lse2, B, H, T, pad_lo, pad_hi, scale_log2,
                               (cudaStream_t)stream);
@@ -984,8 +1698,14 @@ int attn_mean_forward(const void* q, const void* k, const void* lse2, void* mean
     return res ? mean_forward<128, true>(q, k, lse2, mean, B, H, T, pad_lo, pad_hi, scale_log2, st)
                : mean_forward<128, false>(q, k, lse2, mean, B, H, T, pad_lo, pad_hi, scale_log2,
                                           st);
-  return res ? mean_forward<32, true>(q, k, lse2, mean, B, H, T, pad_lo, pad_hi, scale_log2, st)
-             : mean_forward<32, false>(q, k, lse2, mean, B, H, T, pad_lo, pad_hi, scale_log2, st);
+  return mean_forward32(q, k, lse2, mean, B, H, T, pad_lo, pad_hi, scale_log2, st);
+}
+
+// The plan of a d = 32 forward at (B, H, T) into plan[10] (plan32: kernels,
+// grids, blocks per SM, shared memory, SMs). Returns a cudaError_t.
+int attn_d32_plan(int B, int H, int T, int* plan) {
+  cudaError_t err = plan32(B, H, T, true, plan);
+  return (int)(err != cudaSuccess ? err : plan32(B, H, T, false, plan));
 }
 
 }  // extern "C"

@@ -67,6 +67,11 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                : "memory");
 }
 
+// one arrival of this thread (a barrier whose count is the arrivals it waits for)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
 // spin until the barrier's phase differs from `parity`
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   asm volatile(
@@ -331,6 +336,11 @@ __device__ __forceinline__ void wgmma_commit() {
 // wait until every committed group has completed
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// wait until at most N committed groups are pending (groups complete in order)
+template <int N>
+__device__ __forceinline__ void wgmma_wait_n() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // keep the compiler from touching registers an in-flight wgmma owns

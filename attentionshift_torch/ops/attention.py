@@ -42,7 +42,10 @@ least as wide, or above 128 the wide route at 128 * ceil(d / 128), on q,
 k, v zero-padded on the head axis, with the softmax scale of the true d,
 and its outputs sliced back (zero columns change neither q k^T nor the
 probabilities, so this is exact); d not divisible by 8 runs the plain
-version, as the JAX package does, counted in ``PLAIN_ROUTE``.
+version, as the JAX package does, counted in ``PLAIN_ROUTE``. The forward
+at head dim 32 has kernels of its own (``flash_fwd32``, ``flash_fwd32_short``
+for T <= 64, ``attn_mean32``), whose launch plan the library picks and
+``d32_plan`` mirrors.
 """
 
 from __future__ import annotations
@@ -63,7 +66,7 @@ __all__ = ["HEAD_DIMS", "SLAB", "PLAIN_ROUTE", "kernel_head_dim", "forward_on_in
            "attention_no_capture_sharded", "reduce_capture", "attention_plain_op",
            "attention_capture_op", "attention_flops", "flash_forward", "forward_library",
            "attention_backward_dq", "attention_backward_dkv", "capture_mean_limit", "kernel_name",
-           "pad_head"]
+           "pad_head", "d32_plan", "d32_smem", "kernel_d32_plan"]
 
 _LOG2E = 1.4426950408889634
 HEAD_DIMS = (64, 32, 128)  # the head dims the kernels have instances for
@@ -215,9 +218,83 @@ def forward_library(defines=()):
         lib.attn_flash_forward.argtypes = [ctypes.c_void_p] * 5 + tail
         lib.attn_mean_forward.argtypes = [ctypes.c_void_p] * 4 + tail
         lib.attn_mean_resident_heads.argtypes = [ctypes.c_int]
-        for fn in (lib.attn_flash_forward, lib.attn_mean_forward, lib.attn_mean_resident_heads):
+        lib.attn_d32_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        for fn in (lib.attn_flash_forward, lib.attn_mean_forward, lib.attn_mean_resident_heads,
+                   lib.attn_d32_plan):
             fn.restype = ctypes.c_int
     return lib
+
+
+# The head-dim-32 forward (csrc/attention.cu: flash_fwd32, flash_fwd32_short,
+# attn_mean32): its design constants as built, and a mirror of the host's
+# plan (plan32), which the CPU tests check and chip_smoke.py holds against
+# the library's own (``kernel_d32_plan``).
+D32_FLASH_STAGES = 4  # F32_STAGES
+D32_SHORT_STAGES = 2  # F32_SHORT_STAGES
+D32_MEAN_WARPGROUPS = 4  # M32_WARPGROUPS
+D32_MEAN_STAGES = 4  # M32_STAGES
+MEAN_MAX_CHUNK = 16
+MEAN_RESIDENT_BYTES = 16 * 8192
+SMEM_LIMIT = 232448  # what a block may use on an H100 (227 KB)
+_KV32 = 64 * 32 * 2  # one 64-row tile at d = 32
+_TILE = 64
+D32_KERNELS = ("flash_fwd32", "flash_fwd32_short", "attn_mean32<true>", "attn_mean32<false>")
+
+
+def d32_smem(kernel: str, heads: int = 1) -> int:
+    """Shared memory bytes of a d = 32 kernel as built (fwd32_smem,
+    short32_smem, mean32_smem at ``heads`` heads)."""
+    if kernel == "flash_fwd32":  # Q tiles, K/V slots, barriers (Q, arrived, free)
+        return (2 + 2 * D32_FLASH_STAGES) * _KV32 + (1 + 2 * D32_FLASH_STAGES) * 8 + 1024
+    if kernel == "flash_fwd32_short":
+        return D32_SHORT_STAGES * 3 * _KV32 + 2 * D32_SHORT_STAGES * 8 + 1024
+    resident = kernel == "attn_mean32<true>"
+    ring = D32_MEAN_WARPGROUPS * D32_MEAN_STAGES * (1 if resident else 2) * _KV32
+    return ((heads * _KV32 + heads * _TILE * 4) if resident else 0) + ring \
+        + (1 + 2 * D32_MEAN_WARPGROUPS * D32_MEAN_STAGES) * 8 + 1024
+
+
+def _mean32_chunk(ntiles: int, row_blocks: int, slots: int) -> int:
+    best, best_cost = 1, None
+    for c in range(1, min(ntiles, MEAN_MAX_CHUNK) + 1):
+        blocks = row_blocks * -(-ntiles // c)
+        cost = -(-blocks // slots) * (2 * -(-c // D32_MEAN_WARPGROUPS) + 1)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = c, cost
+    return best
+
+
+def d32_plan(b: int, h: int, t: int, sms: int, per_sm) -> dict:
+    """The host's plan of a d = 32 forward (csrc/attention.cu plan32) on a
+    card of ``sms`` SMs whose blocks per SM ``per_sm(kernel, smem)`` gives
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor): T <= 64 takes
+    ``flash_fwd32_short`` on min(planes, resident blocks) persistent blocks,
+    else ``flash_fwd32`` on (ceil(T / 128), H, B); the mean pass keeps the
+    query tiles while H x 4 KB <= MEAN_RESIDENT_BYTES and the block fits,
+    with the chunk of key tiles of fewest, shortest waves."""
+    flash = "flash_fwd32_short" if t <= _TILE else "flash_fwd32"
+    fsmem = d32_smem(flash)
+    fper = per_sm(flash, fsmem)
+    fblocks = min(b * h, sms * fper) if t <= _TILE else -(-t // (2 * _TILE))
+    res = h * _KV32 <= MEAN_RESIDENT_BYTES and d32_smem("attn_mean32<true>", h) <= SMEM_LIMIT
+    mean = "attn_mean32<true>" if res else "attn_mean32<false>"
+    msmem = d32_smem(mean, h)
+    mper = per_sm(mean, msmem)
+    ntiles = -(-t // _TILE)
+    chunk = _mean32_chunk(ntiles, b * ntiles, sms * mper)
+    return dict(flash=flash, flash_blocks=fblocks, flash_per_sm=fper, flash_smem=fsmem,
+                mean=mean, mean_chunk=chunk, mean_chunks=-(-ntiles // chunk), mean_per_sm=mper,
+                mean_smem=msmem, sms=sms)
+
+
+def kernel_d32_plan(b: int, h: int, t: int, lib=None) -> dict:
+    """The library's own plan (``attn_d32_plan``) in ``d32_plan``'s keys."""
+    lib = forward_library() if lib is None else lib
+    out = (ctypes.c_int * 10)()
+    check(lib.attn_d32_plan(b, h, t, out), "attn_d32_plan")
+    return dict(flash=D32_KERNELS[out[0]], flash_blocks=out[1], flash_per_sm=out[2],
+                flash_smem=out[3], mean=D32_KERNELS[out[4]], mean_chunk=out[5],
+                mean_chunks=out[6], mean_per_sm=out[7], mean_smem=out[8], sms=out[9])
 
 
 def flash_forward(q, k, v, pad_interval, with_lse, lib=None, head_dim=None):

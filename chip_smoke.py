@@ -121,7 +121,7 @@ Phases, each printing its own lines:
    depths 2/2/6/2, heads 3/6/12/24, window 7, 100 point tokens, 4 global
    blocks, 20 classes; seeded random weights, bf16, batch 1) at 896x1344,
    the smallest size at or above the bench's whose every stage map the
-   window 7 divides: one forward (exactly 4 ``flash_fwd`` + ``attn_mean``
+   window 7 divides: one forward (exactly 4 ``flash_fwd32`` + ``attn_mean32``
    launches at (1, 24, 1276, 32)), the rollout and ``candidate_boxes`` at
    cam stride 8 (one CCL launch on (112, 168) planes), one backward of a
    scalar of ``outputs_class``, ``outputs_coord`` and ``last_feat``
@@ -224,7 +224,15 @@ Phases, each printing its own lines:
    image; the dump's ms/img and one profiled image. The d = 32 kernels
    at Swin's (1, 24, 1276, 32) on that path's inputs, read in turns with
    SDPA's forward and backward, with their exp floors; the d = 64 mean
-   pass streamed at 24 heads beside the resident one at 12.
+   pass streamed at 24 heads beside the resident one at 12. Then the d =
+   32 forward kernels (``phase_d32_forward``): the library's plan against
+   ``ops/attention.py::d32_plan`` and both attention pairs with their
+   controls at Swin's (1, 24, 1276, 32), the decoder heads' (512, 8, 50,
+   32) and (128, 8, 196, 32) and (1, 40, 190, 32); at those three users'
+   shapes each forward kernel's op, launcher and device time (profiled)
+   with SDPA's forward in turns, its bound and exp floor; the heads'
+   forward with ``use_kernel`` on and off; the d = 64 capture and plain
+   ops at the bench shape in the same run.
 
 A failing phase raises and the script exits non-zero. The line before
 the last is the kernel table as JSON; the last line is
@@ -234,7 +242,10 @@ rest of the repository beside it, the script fails and prints no result.
     python3 chip_smoke.py --only diagnosis
 
 runs phases 1-2 and ``phase_diagnosis`` alone (no kernel line, no result
-line): a quick run of that phase.
+line): a quick run of that phase; ``--only d32_forward`` builds
+``csrc/attention.cu`` alone and runs ``phase_d32_forward`` on seeded
+inputs (a tree before the d = 32 redesign runs its readings without the
+plan checks, so that both trees are read by one script).
 
     python3 chip_smoke.py --ablate [SOURCE ...]
 
@@ -244,7 +255,8 @@ meanshift, ccl) built once per variant (``-D`` overrides of the constants
 it guards with ``#ifndef``), every variant checked as in phase 3 (the
 microbenchmark's variants on its inputs: an entry named "vN: ..." builds
 for variant vN only, v5's constants touch v5 only), then the variants
-read in turns (median of 6 readings of 20 launches each): the attention
+read in turns (median of 6 readings of 20 launches each; the head-dim-32
+entries also by device time, 6 profiled readings in turns): the attention
 forward pair's flash pass with SDPA's forward and its mean pass; the tool's
 variants with the shipped capture pair and SDPA's forward at the
 microbenchmark's shape; the mean-shift fixpoint (bf16) and CCL on phase
@@ -289,6 +301,16 @@ ABLATIONS = {
         "mean: 3 ring slots": ("MEAN_STAGES=3",),
         "mean: chunks of at most 2 key tiles": ("MEAN_MAX_CHUNK=2",),
         "mean: query tiles streamed, none resident": ("MEAN_RESIDENT_BYTES=0",),
+        # the head-dim-32 kernels' levers, one entry each (timed at Swin's and
+        # the decoder heads' shapes, D32_SWIN / D32_DEC)
+        "d32 flash: no softmax beside the PV product": ("F32_OVERLAP=0",),
+        "d32 flash: T <= 64 on flash_fwd32": ("F32_SHORT=0",),
+        "d32 short: 3 planes in flight": ("F32_SHORT_STAGES=3",),
+        "d32 mean: one warpgroup per block": ("M32_WARPGROUPS=1",),
+        "d32 mean: 2 warpgroups": ("M32_WARPGROUPS=2",),
+        "d32 mean: 2 ring slots": ("M32_STAGES=2",),
+        "d32 mean: query tiles streamed, two blocks of 2 warpgroups per SM": (
+            "MEAN_RESIDENT_BYTES=0", "M32_WARPGROUPS=2", "M32_BLOCKS_PER_SM=2"),
     },
     "attention_variants": {
         "as built": (),
@@ -4541,7 +4563,10 @@ def phase_ablation(sources) -> None:
     dev = torch.device("cuda")
     fns = {}
     if "attention" in sources:
-        libs = {n: attention.forward_library(d) for n, d in ABLATIONS["attention"].items()}
+        libs = {n: attention.forward_library(d) for n, d in ABLATIONS["attention"].items()
+                if not n.startswith("d32")}
+        d32_ablation(fns, {n: attention.forward_library(d) for n, d in ABLATIONS["attention"].items()
+                           if n == "as built" or n.startswith("d32")}, dev)
         q, k, v = bench_qkv(dev, torch.Generator(device=dev).manual_seed(0))
         ref_out, ref_mean = attention.attention_reference(q, k, v, PAD_GAP)
         for n, lib in libs.items():
@@ -4619,12 +4644,58 @@ def phase_ablation(sources) -> None:
                                         ref_lab), 0.0, "integer labels: exact")
             fns[f"ccl, {n}"] = lambda lib=lib: ccl.connected_components_batch(masks, 64, lib=lib)
     meds, reads = in_turns(*fns.values(), reps=20)
+    d32 = [name for name in fns if name.startswith("d32")]
+    dev_meds, dev_reads = device_in_turns(*(fns[name] for name in d32))
     for name, med, got in zip(fns, meds, reads):
         rate = ""
         if name.startswith("flash"):
             rate = f" = {4.0 * q.numel() * q.shape[2] / (med * 1e-3) / 1e12:.1f} TFLOP/s"
+        elif name in d32:
+            i = d32.index(name)
+            rate = (f", device {dev_meds[i]:.4f} ms (median of {len(dev_reads[i])} in turns: "
+                    f"{[round(x, 4) for x in dev_reads[i]]})")
         log(f"[ablate] {name}: {med:.4f} ms{rate} (median of {len(got)} readings in turns: "
             f"{[round(x, 4) for x in got]})")
+
+
+def d32_ablation(fns: dict, libs: dict, dev) -> None:
+    """The head-dim-32 entries of ``ABLATIONS["attention"]``: each library
+    checked at Swin's shape (out, the row statistic, every mean entry
+    within its limit) and the box head's (out), then its flash pass at the
+    three users' shapes and its mean pass at Swin's put into ``fns`` (read
+    in turns, then profiled for device time)."""
+    import torch
+
+    from attentionshift_torch.ops import attention
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    qkv = {shape: tuple(torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                        for _ in range(3)) for shape in (D32_SWIN, *D32_DEC)}
+    q, k, v = qkv[D32_SWIN]
+    ref_out, ref_mean = attention.attention_reference(q, k, v)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * 32**-0.5
+    want_lse = torch.logsumexp(logits, dim=-1) * LOG2E
+    del logits
+    box = qkv[D32_DEC[0]]
+    box_out = attention.attention_reference(*box)[0]
+    for n, lib in libs.items():
+        out, lse = attention.flash_forward(q, k, v, None, True, lib=lib)
+        mean = attention._mean(q, k, lse, None, lib=lib)
+        got_box = attention.flash_forward(*box, None, False, lib=lib)[0]
+        sync()
+        expect(f"attention, {n}: d32 out", max_err(out, ref_out), bf16_ulps(ref_out, 4),
+               "4 bf16 ulps of the largest |out|")
+        expect(f"attention, {n}: d32 lse2", max_err(lse, want_lse), 1e-4, "f32 sums")
+        over = mean_over(mean, ref_mean, attention.capture_mean_limit(ref_mean))
+        expect(f"attention, {n}: d32 mean (x its per-entry limit)", over, 1.0,
+               "capture_mean_limit")
+        expect(f"attention, {n}: d32 box-head out", max_err(got_box, box_out),
+               bf16_ulps(box_out, 4), "4 bf16 ulps of the largest |out|")
+        for shape, (a, b, c) in qkv.items():
+            fns[f"d32 flash {shape}, {n}"] = (
+                lambda lib=lib, a=a, b=b, c=c: attention.flash_forward(a, b, c, None, True, lib=lib))
+        fns[f"d32 mean {D32_SWIN}, {n}"] = (
+            lambda lib=lib, lse=lse: attention._mean(q, k, lse, None, lib=lib))
 
 
 # tensor, sequence and pipeline parallelism over a model group of two ranks
@@ -5804,6 +5875,247 @@ def phase_decoder_kernels(dev) -> dict:
     return total
 
 
+# phase_d32_forward: the head-dim-32 forward kernels at their users' shapes,
+# three readings each: the op (custom-op dispatch included), the launcher
+# alone, and the kernel's device time (torch.profiler), beside SDPA's forward
+D32_SWIN = (1, 24, SWIN_T, 32)  # Swin's four global blocks
+D32_DEC = ((512, 8, 50, 32), (128, 8, 196, 32))  # DEC_CASES: BoxHeadRec, MaskHeadPointSup
+
+
+def device_ms(fn, calls: int = 10) -> float | None:
+    """Device ms per call of ``fn``: the self device time of every kernel
+    the profiler saw over ``calls`` calls (after one unprofiled call),
+    divided by ``calls``; None when it saw no device time. The host's
+    dispatch does not enter this reading."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        sync()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.key not in PROFILER_RANGES)
+    return total / calls / 1e3 if total > 0 else None
+
+
+def device_in_turns(*fns, rounds: int = 6):
+    """Device ms of the functions taken in turns as ``in_turns`` takes
+    them, each reading a ``device_ms`` (``graph_ms`` where the profiler saw
+    no device time): the median of each, and the readings of each."""
+    import statistics
+
+    got = [[] for _ in fns]
+    for r in range(rounds):
+        for i in (range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))):
+            ms = device_ms(fns[i])
+            got[i].append(graph_ms(fns[i]) if ms is None else ms)
+    return [statistics.median(g) for g in got], got
+
+
+def graph_ms(fn, calls: int = 10, replays: int = 5) -> float:
+    """Device ms per call of ``fn`` from the replay of a CUDA graph of
+    ``calls`` calls (CUDA events around each replay, median of
+    ``replays``): no host dispatch enters it."""
+    import statistics
+
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    # relaxed: the launchers set kernel attributes, which a stricter capture refuses
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    sync()
+    got = []
+    for _ in range(replays):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        sync()
+        got.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(got)
+
+
+def d32_readings(tag: str, op, launcher, sdpa) -> dict:
+    """The op, the launcher and SDPA's forward read in turns (CUDA events,
+    medians of 6), then the launcher's and SDPA's device ms per call two
+    ways: profiled (``device_ms``; None where the profiler recorded no
+    device time) and from a CUDA graph's replay (``graph_ms``)."""
+    (op_ms, launch_ms, sdpa_ms), reads = in_turns(op, launcher, sdpa)
+    got = dict(op_ms=op_ms, launcher_ms=launch_ms, device_ms=device_ms(launcher),
+               graph_ms=graph_ms(launcher), sdpa_ms=sdpa_ms, sdpa_device_ms=device_ms(sdpa),
+               sdpa_graph_ms=graph_ms(sdpa))
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f}"  # noqa: E731
+    log(f"[d32] {tag}: op {op_ms:.4f} ms, launcher {launch_ms:.4f} ms, device "
+        f"{fmt(got['device_ms'])} ms (graph {got['graph_ms']:.4f}); SDPA forward {sdpa_ms:.4f} ms, "
+        f"device {fmt(got['sdpa_device_ms'])} ms (graph {got['sdpa_graph_ms']:.4f}); readings in "
+        f"turns (op, launcher, SDPA) {[[round(x, 4) for x in r] for r in reads]}")
+    return got
+
+
+def check_d32(qkvs: dict, dev) -> None:
+    """The d = 32 kernels' plan and results before their times: the
+    library's plan (``attn_d32_plan``) equal to ``attention.d32_plan``
+    given the blocks per SM the device reported, at each shape of ``qkvs``
+    and at 40 heads (the mean streamed); both pairs at each shape (and at
+    (1, 40, 190)) against the plain versions with their controls
+    (``check_attention_pair``), the row statistic within 1e-4 with a
+    control (logits 1.1x) that must fail."""
+    import torch
+
+    from attentionshift_torch.ops import attention
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+    cases = dict(qkvs)
+    cases[(1, 40, 190, 32)] = tuple(torch.randn((1, 40, 190, 32), generator=gen, device=dev)
+                                    .to(torch.bfloat16) for _ in range(3))
+    for shape, (q, k, v) in cases.items():
+        b, h, t, _ = shape
+        got = attention.kernel_d32_plan(b, h, t)
+        per = {got["flash"]: got["flash_per_sm"], got["mean"]: got["mean_per_sm"]}
+        want = attention.d32_plan(b, h, t, got["sms"], lambda kernel, smem: per[kernel])
+        if got != want:
+            raise AssertionError(f"d32 plan at {shape}: library {got} != mirror {want}")
+        log(f"[d32] plan at {shape} (library = ops/attention.py::d32_plan): {got}")
+        g = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        check_attention_pair(f"d32 {shape}", q, k, v, g, None)
+        _, lse = attention.flash_forward(q, k, v, None, True)
+        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * 32**-0.5
+        hot = torch.logsumexp(logits * 1.1, dim=-1) * LOG2E
+        err, ctl = max_err(lse, torch.logsumexp(logits, dim=-1) * LOG2E), max_err(lse, hot)
+        if not (err <= 1e-4 < ctl):
+            raise AssertionError(f"d32 {shape}: lse2 {err} (limit 1e-4), control {ctl}")
+        log(f"[check] d32 {shape}: lse2 max_abs_err {err:.3e} <= 1e-4; control (logits 1.1x) "
+            f"{ctl:.3e}: ok")
+        del logits, hot, g
+
+
+def phase_d32_forward(results: dict, dev, smi: str, swin_qkv=None) -> dict:
+    """The head-dim-32 forward kernels, ``flash_fwd`` and ``attn_mean`` at
+    head dim 32, where their users run them: Swin's (1, 24, 1276, 32) (the
+    path's own q, k, v when ``swin_qkv`` is given, else seeded) and the
+    decoder heads' (512, 8, 50, 32) and (128, 8, 196, 32) (seeded). For
+    each: the op, the launcher and the device time (``d32_readings``) with
+    SDPA's forward in turns; the bound (bytes: q, k, v, out and the row
+    statistic; operations: 4 B H T^2 d) and the exp floor (one exp2 per
+    (head, row, key) at the SM clock read under the flash pass); the
+    decoder heads' forward with ``use_kernel`` on and off; then the d = 64
+    capture and plain ops at the bench shape, to show they did not move.
+    Returns the readings by shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from attentionshift_torch.models import heads as heads_mod
+    from attentionshift_torch.ops import attention
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    qkvs = {D32_SWIN: swin_qkv}
+    for shape in (D32_SWIN, *D32_DEC):
+        if qkvs.get(shape) is None:
+            qkvs[shape] = tuple(torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                                for _ in range(3))
+    if hasattr(attention.forward_library(), "attn_d32_plan"):  # not in a tree before PR 23
+        check_d32(qkvs, dev)
+    q, k, v = qkvs[D32_SWIN]
+    clk, clk_max = sm_clock_under_load(lambda: attention.flash_forward(q, k, v, None, True))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    exp_rate = EXP2_PER_CLOCK_PER_SM * sms * clk * 1e6
+    log(f"[d32] {smi}: SM clock under the d = 32 flash pass {clk:.0f} MHz (max {clk_max:.0f}), "
+        f"{sms} SMs; {registers('attention', 'flash_fwd')}; {registers('attention', 'attn_mean')}; "
+        f"{registers('attention', 'flash_fwd32')}; "
+        f"{registers('attention', 'flash_fwd32_short')}; {registers('attention', 'attn_mean32')}")
+    out: dict = {}
+    for shape, (q, k, v) in qkvs.items():
+        b, h, t, d = shape
+        n = q.numel()
+        lse_bytes = b * h * t * 4
+        flops = 4.0 * b * h * t * t * d
+        t_bytes = (4 * n * 2 + lse_bytes) / PEAK_BYTES * 1e3
+        row = dict(flash=d32_readings(
+            f"flash pass {shape}", lambda: attention.attention_no_capture(q, k, v),
+            lambda: attention.flash_forward(q, k, v, None, True),
+            lambda: F.scaled_dot_product_attention(q, k, v)))
+        row["flash"].update(bound_ms=max(t_bytes, flops / PEAK_BF16 * 1e3),
+                            bound_by="bytes" if t_bytes >= flops / PEAK_BF16 * 1e3 else "operations",
+                            exp_floor_ms=b * h * t * t / exp_rate * 1e3)
+        if shape == D32_SWIN:
+            _, lse = attention.flash_forward(q, k, v, None, True)
+            row["capture"] = d32_readings(
+                f"capture op {shape} (flash + mean)", lambda: attention.attention_with_capture(q, k, v),
+                lambda: (attention._mean(q, k, attention.flash_forward(q, k, v, None, True)[1],
+                                         None)),
+                lambda: F.scaled_dot_product_attention(q, k, v))
+            mean_launch = lambda: attention._mean(q, k, lse, None)  # noqa: E731
+            mean_ms = median_time(mean_launch)
+            mb = (2 * n * 2 + lse_bytes + b * t * t * 2) / PEAK_BYTES * 1e3
+            mo = 2.0 * b * h * t * t * d / PEAK_BF16 * 1e3
+            row["mean"] = dict(launcher_ms=mean_ms, device_ms=device_ms(mean_launch),
+                               graph_ms=graph_ms(mean_launch), bound_ms=max(mb, mo),
+                               bound_by="bytes" if mb >= mo else "operations",
+                               exp_floor_ms=b * h * t * t / exp_rate * 1e3)
+            log(f"[d32] mean pass {shape}: launcher {mean_ms:.4f} ms, device "
+                f"{row['mean']['device_ms']} ms (graph {row['mean']['graph_ms']:.4f}), bound "
+                f"{row['mean']['bound_ms']:.4f} ms ({row['mean']['bound_by']}), exp floor "
+                f"{row['mean']['exp_floor_ms']:.4f} ms")
+        f = row["flash"]
+        dev_ms = f["device_ms"] or f["graph_ms"]  # profiled, else the graph's
+        sdpa_dev_ms = f["sdpa_device_ms"] or f["sdpa_graph_ms"]
+        log(f"[d32] flash pass {shape}: bound {f['bound_ms']:.4f} ms ({f['bound_by']}), exp floor "
+            f"{f['exp_floor_ms']:.4f} ms; device time {dev_ms:.4f} ms "
+            f"({'profiled' if f['device_ms'] else 'graph'}) = {dev_ms / f['bound_ms']:.2f}x the "
+            f"bound, {dev_ms / f['exp_floor_ms']:.2f}x the exp floor, "
+            f"{dev_ms / sdpa_dev_ms:.2f}x SDPA's device time")
+        out[shape] = row
+    # the decoder heads' forward (bf16, no gradient) with the kernel option on and off
+    for name, rois, s in DEC_CASES:
+        torch.manual_seed(11)
+        state = getattr(heads_mod, name)().state_dict()
+        mods = []
+        for use_kernel in (True, False):
+            m = getattr(heads_mod, name)(use_kernel=use_kernel)
+            m.load_state_dict(state)
+            mods.append(m.to(device=dev, dtype=torch.bfloat16))
+        feats = torch.randn((rois, s, s, 384), generator=gen, device=dev).to(torch.bfloat16)
+
+        def fwd(m, feats=feats):
+            with torch.no_grad():
+                m(feats)
+
+        (on_ms, off_ms), reads = in_turns(lambda: fwd(mods[0]), lambda: fwd(mods[1]), reps=5)
+        log(f"[d32] {smi}: {name} forward ({rois} RoIs, bf16): use_kernel=True {on_ms:.4f} ms, "
+            f"False {off_ms:.4f} ms; readings in turns {[[round(x, 4) for x in r] for r in reads]}")
+        out[name] = dict(use_kernel_ms=on_ms, plain_ms=off_ms)
+        del mods, feats
+    # the d = 64 rows, #1 and #2 at the bench shape with the gap: unchanged code
+    q, k, v = bench_qkv(dev, torch.Generator(device=dev).manual_seed(0))
+    mask = sdpa_mask(q.shape[2], PAD_GAP, dev)
+    ops64 = (lambda: attention.attention_with_capture(q, k, v, PAD_GAP),
+             lambda: attention.attention_no_capture(q, k, v, PAD_GAP))
+    (cap_ms, plain_ms, sdpa_ms), reads = in_turns(
+        *ops64, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+    (cap_dev, plain_dev), dev_reads = device_in_turns(*ops64)
+    out["d64"] = dict(capture_ms=cap_ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
+                      capture_device_ms=cap_dev, plain_device_ms=plain_dev)
+    log(f"[d32] {smi}: d = 64 at {tuple(q.shape)}, gap {PAD_GAP}: capture op {cap_ms:.4f} ms, "
+        f"plain op {plain_ms:.4f} ms, SDPA forward {sdpa_ms:.4f} ms; readings in turns "
+        f"{[[round(x, 4) for x in r] for r in reads]}; device ms capture {cap_dev:.4f}, plain "
+        f"{plain_dev:.4f}, in turns {[[round(x, 4) for x in r] for r in dev_reads]}")
+    results["d32_forward"] = out
+    return out
+
+
 # phase_jax_init: the learning check from the JAX tool's own initial weights.
 # The JAX tool's step-0 rows from those weights: on a TPU (bf16, Pallas;
 # tools/fixtures/learning_curve_r5.jsonl) and on the CPU (plain XLA, f32 and
@@ -5891,7 +6203,7 @@ def main(argv=None) -> int:
     ap.add_argument("--parallel-rank", nargs=2, metavar=("RANK", "DIR"),
                     help=argparse.SUPPRESS)  # one rank of phase_parallel
     ap.add_argument("--only", choices=["diagnosis", "head_dims", "variant_dims", "meanshift_routes",
-                                       "decoder_kernels", "jax_init"],
+                                       "decoder_kernels", "jax_init", "d32_forward"],
                     help="only the card, the build and this phase (no kernel line, no result)")
     args = ap.parse_args(argv)
     sys.path.insert(0, HERE)
@@ -5912,7 +6224,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    phase_build()
+    phase_build([("attention", ())] if args.only == "d32_forward" else None)
     if args.only is not None:
         only = {"diagnosis": lambda: phase_diagnosis({n: {"max_abs_err": 0.0} for n in KERNELS}, smi),
                 "head_dims": lambda: phase_head_dims({}, dev, smi),
@@ -5920,7 +6232,8 @@ def main(argv=None) -> int:
                 "meanshift_routes": lambda: phase_meanshift_routes(
                     {"meanshift_fixpoint": {}}, dev, smi),
                 "decoder_kernels": lambda: phase_decoder_kernels(dev),
-                "jax_init": lambda: phase_jax_init(smi)}
+                "jax_init": lambda: phase_jax_init(smi),
+                "d32_forward": lambda: phase_d32_forward({}, dev, smi)}
         only[args.only]()
         log(smi)
         return 0
@@ -5967,6 +6280,12 @@ def main(argv=None) -> int:
     jax_init = phase_jax_init(smi)
     phase_times(results, inp, model, slice_inp, gen)
     phase_swin_times(results, sw, smi)
+    d32 = phase_d32_forward(results, dev, smi, swin_qkv=sw["qkv"])
+    for name, keys in (("attention_plain_d32", ("flash",)),
+                       ("attention_capture_d32", ("capture", "mean"))):
+        results[name]["d32_readings"] = {  # op, launcher and device ms by shape
+            str(shape): {key: row[key] for key in keys} for shape, row in d32.items()
+            if isinstance(shape, tuple) and keys[0] in row}
     phase_main_path_inputs(results, handed)
     ms_step = phase_train_times(state, step_fn, batch, train_gen)
     phase_cli_times(tc, same, pc, ms_step)
@@ -6015,7 +6334,8 @@ def main(argv=None) -> int:
                                                      "mean_pass_ms_24_heads_streamed",
                                                      "mean_pass_ms_12_heads_resident",
                                                      "kernel_ms", "library_backend", "at_d384",
-                                                     "at_k256", "max_abs_err_d200_bf16")
+                                                     "at_k256", "max_abs_err_d200_bf16",
+                                                     "d32_readings")
                              if key in r}))
     log(smi)
     log(json.dumps({"kernels": table}))

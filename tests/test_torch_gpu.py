@@ -509,6 +509,98 @@ def test_attention_kernels_at_24_heads_of_32_over_seeds(cuda, seed):
     _check_attention_pair(q, k, v, g, None)
 
 
+# the head-dim-32 forward kernels (flash_fwd32 above T = 64,
+# flash_fwd32_short at or below it, attn_mean32): T across the short
+# route's edge and the 64-row tiles, 8, 24 and 40 heads (40 streams the
+# mean's query tiles), up to 512 planes of the box head, gaps across a
+# tile edge and at the bench's ragged T
+D32_CASES = [
+    (2, 8, 1, None),
+    (512, 8, 50, None),
+    (3, 8, 63, None),
+    (2, 24, 64, None),
+    (2, 8, 65, None),
+    (1, 24, 50, (20, 30)),
+    (1, 40, 190, None),
+    (1, 24, 190, (60, 70)),
+    (128, 8, 196, None),
+    (1, 24, 1276, None),
+    (1, 40, 1276, (1000, 1100)),
+    (1, 8, 4301, (4090, 4160)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,t,gap", D32_CASES)
+def test_d32_forward_kernels_on_card(cuda, b, h, t, gap):
+    """The d = 32 forward kernels against the plain version, each check
+    with a control that must fail it: ``out`` of both ops within 4 bf16
+    ulps of the largest |out| (control: the plain version without the
+    scale d^-0.5); the row log2-sum-exp within 1e-4 (control: the
+    statistic of logits 1.1x); every mean entry within
+    ``capture_mean_limit`` (controls: the temperature 10 % off, the last
+    head off); gap columns of the mean exactly 0; one launch of each op's
+    d = 32 record. At T = 1 no temperature moves the output: there out must
+    equal v and the mean 1, exactly."""
+    from attentionshift_torch.ops._build import KERNELS, reset_launches
+
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    q, k, v = (torch.randn((b, h, t, 32), generator=gen, device=cuda).bfloat16()
+               for _ in range(3))
+    reset_launches()
+    out, mean = attention.attention_with_capture(q, k, v, gap)
+    out2 = attention.attention_no_capture(q, k, v, gap)
+    torch.cuda.synchronize()
+    assert KERNELS["attention_capture_d32"].launches == 1
+    assert KERNELS["attention_plain_d32"].launches == 1
+    _, lse = attention.flash_forward(q, k, v, gap, with_lse=True)
+    ref_out, ref_mean = attention.attention_reference(q, k, v, gap)
+    tol = _ulps(ref_out, 4)
+    for got in (out, out2):
+        assert float((got.float() - ref_out.float()).abs().max()) <= tol
+    hot = (q.float() * 1.1).bfloat16()
+    want_lse = _lse2_reference(q, k, gap)
+    assert float((lse - want_lse).abs().max()) <= 1e-4
+    assert float((lse - _lse2_reference(hot, k, gap)).abs().max()) > 1e-4
+    assert _mean_over(mean, ref_mean, attention.capture_mean_limit(ref_mean)) <= 1.0
+    if t == 1:  # one key: every probability is 1 at any temperature, so out is v
+        assert torch.equal(out, v) and torch.equal(out2, v) and bool((mean == 1).all())
+        return
+    unscaled = attention.attention_reference((q.float() * 32**0.5).bfloat16(), k, v, gap)[0]
+    assert float((out.float() - unscaled.float()).abs().max()) > tol
+    for ctl in (attention.attention_reference(hot, k, v, gap)[1],
+                attention.attention_reference(q[:, :-1], k[:, :-1], v[:, :-1], gap)[1]):
+        assert _mean_over(mean, ctl, attention.capture_mean_limit(ctl)) > 1.0
+    if gap is not None:
+        assert float(mean[:, :, gap[0]:gap[1]].float().abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,t", [(1, 24, 1276), (512, 8, 50), (128, 8, 196), (1, 40, 190),
+                                   (3, 8, 1), (2, 24, 65)])
+def test_d32_plan_is_the_mirrored_one(cuda, b, h, t):
+    """The library's plan of a d = 32 forward (``attn_d32_plan``) is
+    ``d32_plan``'s, given the blocks per SM the device reported."""
+    got = attention.kernel_d32_plan(b, h, t)
+    per = {got["flash"]: got["flash_per_sm"], got["mean"]: got["mean_per_sm"]}
+    assert got == attention.d32_plan(b, h, t, got["sms"], lambda kernel, smem: per[kernel])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,t", [(1, 24, 1276), (512, 8, 50), (2, 40, 190)])
+def test_d32_forward_kernels_are_deterministic(cuda, b, h, t):
+    """No atomics on either flash route or in the mean pass: two calls give
+    bitwise equal out, row statistic and mean."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    q, k, v = (torch.randn((b, h, t, 32), generator=gen, device=cuda).bfloat16()
+               for _ in range(3))
+    runs = [(*attention.flash_forward(q, k, v, None, with_lse=True),
+             attention.attention_with_capture(q, k, v)[1]) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b2 in zip(*runs):
+        assert torch.equal(a, b2)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("h,d", [(24, 32), (17, 64), (40, 32)])
 def test_attention_head_shape_kernels_are_deterministic(cuda, h, d):
