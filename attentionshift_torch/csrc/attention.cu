@@ -1351,13 +1351,13 @@ int mean_chunk(int ntiles, int row_blocks, int slots) {
   return best;
 }
 
-// Resident blocks of attn_mean instance `kern` (one of seven: head dim x
-// resident, and the wide route's) on the current device for `smem` bytes
+// Resident blocks of attn_mean instance `kern` (one of five: head dim 64 or
+// 128 x resident, and the wide route's) on the current device for `smem` bytes
 // of shared memory per block: SMs x blocks per SM. The device is asked
 // once per (instance, smem), kept as smem << 20 | slots.
 cudaError_t mean_slots(const void* kern, int instance, int smem, int* slots) {
   constexpr int MAX_DEVICES = 64;
-  static std::atomic<long long> known[MAX_DEVICES][7];
+  static std::atomic<long long> known[MAX_DEVICES][5];
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -1422,8 +1422,7 @@ int mean_forward(const void* q, const void* k, const void* lse2, void* mean, int
   if (int bad = HT::map(&mk, k, B * H, T)) return bad;
   if (!aligned16(mean)) return TMA_MISALIGNED;
   int slots = 0;
-  if ((err = mean_slots(kern, (HD == 32 ? 2 : HD == 128 ? 4 : 0) + (RES ? 1 : 0), smem, &slots)) !=
-      cudaSuccess)
+  if ((err = mean_slots(kern, (HD == 128 ? 2 : 0) + (RES ? 1 : 0), smem, &slots)) != cudaSuccess)
     return (int)err;
   const int ntiles = (T + TILE - 1) / TILE;
   const int chunk = mean_chunk(ntiles, B * ntiles, slots);
@@ -1475,7 +1474,7 @@ int mean_forward_wide(const void* q, const void* k, const void* lse2, void* mean
   if (int bad = Slab::map(&mk, k, B * H, T, D)) return bad;
   if (!aligned16(mean)) return TMA_MISALIGNED;
   int slots = 0;
-  if ((err = mean_slots(kern, 6, smem, &slots)) != cudaSuccess) return (int)err;
+  if ((err = mean_slots(kern, 4, smem, &slots)) != cudaSuccess) return (int)err;
   const int ntiles = (T + TILE - 1) / TILE;
   const int chunk = mean_chunk(ntiles, B * ntiles, slots);
   dim3 grid((ntiles + chunk - 1) / chunk, ntiles, B);

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: mbarriers,
 // TMA tile and box loads from a 3-D tensor map, wgmma matrix descriptors and the
-// m64n128k16, m64n64k16 and m64n32k16 bf16 products with f32 accumulators, and a
+// m64n128k16, m64n64k16 and m64n32k16 bf16 products with f32 accumulators (A in
+// registers or, at m64n32k16, in shared memory of either major), and a
 // 1024-byte aligner for the dynamic shared memory that holds the swizzled slots.
 //
 // Tile convention: a (64 rows, 64) bf16 tile of a (planes, rows, 64) tensor
@@ -420,6 +421,20 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
       ", {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
       : HOPPER_D16_OUT(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(acc), "n"(TRANS_B));
+}
+
+// the same with A (64 x 16) from shared memory too: TRANS_A = 1 for an
+// MN-major A (a slot whose rows are the contraction and whose 64 columns
+// are M: desc_mnmajor), as the head-dim-32 backward reads P^T and dS^T
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_ss32(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                           int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " HOPPER_D16
+      ", %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : HOPPER_D16_OUT(d)
+      : "l"(desc_a), "l"(desc_b), "r"(acc), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 #undef HOPPER_D16

@@ -69,6 +69,10 @@ KERNELS: dict[str, Kernel] = {
                "attentionshift_tpu/ops/attention.py:364"),
         Kernel("attention_bwd_dkv_d32", "attention_bwd",
                "attentionshift_tpu/ops/attention.py:402"),
+        # at head dim 32 and T <= 64 one kernel gives dQ, dK and dV in one pass
+        # (bwd32_short): it replaces _bwd_kernel_dq (:364) and _bwd_kernel_dkv (:402) at once
+        Kernel("attention_bwd_d32_short", "attention_bwd",
+               "attentionshift_tpu/ops/attention.py:364"),
         # their head-dim-128 instances (head dims 72-128 through ops/attention.py's route)
         Kernel("attention_capture_d128", "attention",
                "attentionshift_tpu/ops/attention.py:251"),

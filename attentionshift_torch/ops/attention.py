@@ -23,9 +23,10 @@ fallback between the two. The gradient is registered on both ops
 
 The backward on the card is two kernels: pass A gives dQ and the per-row
 D = sum_s p * dP (f32, from the bf16 p, as the TPU kernel), pass B gives
-dK and dV. The row normaliser of the
-recomputed probabilities is the forward's log2-sum-exp, which the flash
-pass writes whenever a gradient may be asked for.
+dK and dV; at head dim 32 and T <= 64 one kernel (``bwd32_short``,
+``attention_backward_short``) gives all three in one pass. The row
+normaliser of the recomputed probabilities is the forward's log2-sum-exp,
+which the flash pass writes whenever a gradient may be asked for.
 
 The kernels have instances for head dims 64 (the ViTs), 32 (Swin's
 global blocks, the decoder heads) and 128, and a wide route for any
@@ -45,7 +46,9 @@ probabilities, so this is exact); d not divisible by 8 runs the plain
 version, as the JAX package does, counted in ``PLAIN_ROUTE``. The forward
 at head dim 32 has kernels of its own (``flash_fwd32``, ``flash_fwd32_short``
 for T <= 64, ``attn_mean32``), whose launch plan the library picks and
-``d32_plan`` mirrors.
+``d32_plan`` mirrors; so does the backward (``bwd32_dq``, ``bwd32_dkv``,
+``bwd32_short`` for T <= 64; ``d32_bwd_plan``), whose route
+``backward_records`` names.
 """
 
 from __future__ import annotations
@@ -66,7 +69,9 @@ __all__ = ["HEAD_DIMS", "SLAB", "PLAIN_ROUTE", "kernel_head_dim", "forward_on_in
            "attention_no_capture_sharded", "reduce_capture", "attention_plain_op",
            "attention_capture_op", "attention_flops", "flash_forward", "forward_library",
            "attention_backward_dq", "attention_backward_dkv", "capture_mean_limit", "kernel_name",
-           "pad_head", "d32_plan", "d32_smem", "kernel_d32_plan"]
+           "pad_head", "d32_plan", "d32_smem", "kernel_d32_plan", "backward_library",
+           "attention_backward_short", "backward_records", "d32_bwd_plan", "d32_bwd_smem",
+           "kernel_d32_bwd_plan"]
 
 _LOG2E = 1.4426950408889634
 HEAD_DIMS = (64, 32, 128)  # the head dims the kernels have instances for
@@ -287,6 +292,85 @@ def d32_plan(b: int, h: int, t: int, sms: int, per_sm) -> dict:
                 mean_smem=msmem, sms=sms)
 
 
+# The head-dim-32 backward (csrc/attention_bwd.cu: bwd32_dq, bwd32_dkv,
+# bwd32_short): its design constants as built, and a mirror of the host's
+# plan (plan_b32), which the CPU tests check and chip_smoke.py holds against
+# the library's own (``kernel_d32_bwd_plan``).
+D32_BWD_STAGES = 3  # B32_STAGES
+D32_BWD_SHORT_STAGES = 2  # B32_SHORT_STAGES
+D32_BWD_KEPT_TILES = 4  # B32_PCACHE_TILES: bwd32_dq keeps p up to T = 256
+SM_SMEM = 233472  # an SM's shared memory; each block also reserves 1 KB of it
+D32_SHORT_T = _TILE  # the most tokens bwd32_short takes
+D32_BWD_KERNELS = ("bwd32_dq", "bwd32_dq<kept>", "bwd32_dkv", "bwd32_short")
+
+
+def d32_bwd_smem(kernel: str, t: int = 1) -> int:
+    """Shared memory bytes of a d = 32 backward kernel (a name of
+    ``D32_BWD_KERNELS``) as built at T = ``t`` (dq32_smem, dkv32_smem,
+    short32_smem): two buffers of its own tiles, the ring, kept p (8 KB per
+    key tile), the barriers."""
+    if kernel == "bwd32_short":
+        return 2 * 2 * _KV32 + D32_BWD_SHORT_STAGES * (4 * _KV32 + _TILE * 4) \
+            + 2 * D32_BWD_SHORT_STAGES * 8 + 1024
+    bars = (2 + D32_BWD_STAGES) * 8 + 1024
+    if kernel == "bwd32_dkv":
+        return 4 * _KV32 + D32_BWD_STAGES * (2 * _KV32 + 2 * _TILE * 4) + bars
+    kept = -(-t // _TILE) if kernel == "bwd32_dq<kept>" else 0
+    return 4 * _KV32 + D32_BWD_STAGES * 2 * _KV32 + kept * 2 * _KV32 + bars
+
+
+def _d32_keeps(t: int) -> bool:
+    """Whether bwd32_dq keeps p at T = ``t`` (dq32_keeps): at most
+    D32_BWD_KEPT_TILES key tiles, three blocks per SM still resident."""
+    return -(-t // _TILE) <= D32_BWD_KEPT_TILES and \
+        (d32_bwd_smem("bwd32_dq<kept>", t) + 1024) * 3 <= SM_SMEM
+
+
+def d32_bwd_plan(b: int, h: int, t: int, sms: int, per_sm) -> dict:
+    """The host's plan of a d = 32 backward (csrc/attention_bwd.cu plan_b32)
+    on a card of ``sms`` SMs whose blocks per SM ``per_sm(kernel, smem)``
+    gives. T <= 64 takes ``bwd32_short`` (route "short"), else ``bwd32_dq``
+    and ``bwd32_dkv`` (route "pair"). Each kernel's blocks walk units, as
+    many blocks as are resident at once or fewer: ``bwd32_short`` planes,
+    ``bwd32_dq`` query tiles (keeping p where it fits, T <= 256),
+    ``bwd32_dkv`` key tiles (``units`` of them each)."""
+    units = b * h * -(-t // _TILE)
+    ssmem = d32_bwd_smem("bwd32_short")
+    sper = per_sm("bwd32_short", ssmem)
+    dq = "bwd32_dq<kept>" if _d32_keeps(t) else "bwd32_dq"
+    dsmem, ksmem = d32_bwd_smem(dq, t), d32_bwd_smem("bwd32_dkv")
+    dper, kper = per_sm(dq, dsmem), per_sm("bwd32_dkv", ksmem)
+    return dict(route="short" if t <= D32_SHORT_T else "pair", short_blocks=min(b * h, sms * sper),
+                short_per_sm=sper, short_smem=ssmem, dq=dq, units=units,
+                dq_blocks=min(units, sms * dper), dq_per_sm=dper, dq_smem=dsmem,
+                dkv_blocks=min(units, sms * kper), dkv_per_sm=kper, dkv_smem=ksmem, sms=sms)
+
+
+def kernel_d32_bwd_plan(b: int, h: int, t: int, lib=None) -> dict:
+    """The library's own plan (``attn_d32_bwd_plan``) in ``d32_bwd_plan``'s
+    keys."""
+    lib = backward_library() if lib is None else lib
+    out = (ctypes.c_int * 13)()
+    check(lib.attn_d32_bwd_plan(b, h, t, out), "attn_d32_bwd_plan")
+    return dict(route="short" if out[0] else "pair", short_blocks=out[1], short_per_sm=out[2],
+                short_smem=out[3], dq=D32_BWD_KERNELS[out[4]], units=out[12],
+                dq_blocks=out[5], dq_per_sm=out[6], dq_smem=out[7], dkv_blocks=out[8],
+                dkv_per_sm=out[9], dkv_smem=out[10], sms=out[11])
+
+
+def backward_records(d: int, t: int) -> tuple:
+    """The ``KERNELS`` records the ops' backward launches once each on the
+    card at head dim ``d`` (the true d: its instance by ``kernel_head_dim``)
+    and T = ``t``: ``attention_bwd_d32_short`` at head dim 32 and T <= 64,
+    else pass A's and pass B's; none for a d the plain version takes."""
+    kd = kernel_head_dim(d)
+    if kd is None:
+        return ()
+    if kd == 32 and t <= D32_SHORT_T:
+        return ("attention_bwd_d32_short",)
+    return (kernel_name("attention_bwd_dq", kd), kernel_name("attention_bwd_dkv", kd))
+
+
 def kernel_d32_plan(b: int, h: int, t: int, lib=None) -> dict:
     """The library's own plan (``attn_d32_plan``) in ``d32_plan``'s keys."""
     lib = forward_library() if lib is None else lib
@@ -347,11 +431,27 @@ def attention_backward_reference(q, k, v, g_out, pad_interval=None, head_dim=Non
 _BWD_TAIL = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
 
 
-def attention_backward_dq(q, k, v, lse, g_out, pad_interval=None, head_dim=None):
+def backward_library(defines=()):
+    """``csrc/attention_bwd.cu``'s library (built with the ``-D`` overrides
+    ``defines``), its entry points' signatures set."""
+    lib = library("attention_bwd", defines)
+    if lib.attn_d32_bwd_plan.argtypes is None:  # first use of this library
+        lib.attn_backward_dq.argtypes = [ctypes.c_void_p] * 7 + _BWD_TAIL
+        lib.attn_backward_dkv.argtypes = [ctypes.c_void_p] * 8 + _BWD_TAIL
+        lib.attn_backward_short.argtypes = [ctypes.c_void_p] * 8 + _BWD_TAIL
+        lib.attn_d32_bwd_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        for fn in (lib.attn_backward_dq, lib.attn_backward_dkv, lib.attn_backward_short,
+                   lib.attn_d32_bwd_plan):
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def attention_backward_dq(q, k, v, lse, g_out, pad_interval=None, head_dim=None, lib=None):
     """Backward pass A on the card: (dq, D) with D = sum_s p * dP per row
     (B, H, T) f32, from ``flash_forward``'s row statistic. D is summed in
     f32 from the bf16 p, as the TPU kernel and ``attention_backward_reference``
-    do. ``head_dim`` as in ``flash_forward``."""
+    do. ``head_dim`` as in ``flash_forward``; ``lib``: ``backward_library()``
+    by default."""
     _check_inputs(q, k, v)
     _require_contiguous("attention_backward_dq", q, k, v, lse, g_out)
     b, h, t, d = q.shape
@@ -359,34 +459,59 @@ def attention_backward_dq(q, k, v, lse, g_out, pad_interval=None, head_dim=None)
     dq = torch.empty_like(q)
     dd = torch.empty((b, h, t), device=q.device, dtype=torch.float32)
     lo, hi = _gap(t, pad_interval)
-    fn = library("attention_bwd").attn_backward_dq
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + _BWD_TAIL
-    check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g_out.data_ptr(),
-             lse.data_ptr(), dq.data_ptr(), dd.data_ptr(), b, h, t, d, lo, hi, sd**-0.5 * _LOG2E,
-             sd**-0.5, torch.cuda.current_stream(q.device).cuda_stream), "attn_backward_dq")
+    lib = backward_library() if lib is None else lib
+    check(lib.attn_backward_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), g_out.data_ptr(),
+                               lse.data_ptr(), dq.data_ptr(), dd.data_ptr(), b, h, t, d, lo, hi,
+                               sd**-0.5 * _LOG2E, sd**-0.5,
+                               torch.cuda.current_stream(q.device).cuda_stream),
+          "attn_backward_dq")
     KERNELS[kernel_name("attention_bwd_dq", d)].launches += 1
     return dq, dd
 
 
-def attention_backward_dkv(q, k, v, lse, dd, g_out, pad_interval=None, head_dim=None):
+def attention_backward_dkv(q, k, v, lse, dd, g_out, pad_interval=None, head_dim=None, lib=None):
     """Backward pass B on the card: (dk, dv), from the forward's row
     statistic and pass A's D. Gap columns come out exactly zero.
-    ``head_dim`` as in ``flash_forward``."""
+    ``head_dim`` and ``lib`` as in ``attention_backward_dq``."""
     _check_inputs(q, k, v)
     _require_contiguous("attention_backward_dkv", q, k, v, lse, dd, g_out)
     b, h, t, d = q.shape
     sd = d if head_dim is None else head_dim
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lo, hi = _gap(t, pad_interval)
-    fn = library("attention_bwd").attn_backward_dkv
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + _BWD_TAIL
-    check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g_out.data_ptr(), lse.data_ptr(),
-             dd.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t, d, lo, hi, sd**-0.5 * _LOG2E,
-             sd**-0.5, torch.cuda.current_stream(q.device).cuda_stream), "attn_backward_dkv")
+    lib = backward_library() if lib is None else lib
+    check(lib.attn_backward_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), g_out.data_ptr(),
+                                lse.data_ptr(), dd.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h,
+                                t, d, lo, hi, sd**-0.5 * _LOG2E, sd**-0.5,
+                                torch.cuda.current_stream(q.device).cuda_stream),
+          "attn_backward_dkv")
     KERNELS[kernel_name("attention_bwd_dkv", d)].launches += 1
     return dk, dv
+
+
+def attention_backward_short(q, k, v, lse, g_out, pad_interval=None, head_dim=None, lib=None):
+    """The whole backward on the card in one pass at head dim 32 and T <=
+    64 (``bwd32_short``): (dq, dk, dv), the values of pass A and pass B
+    (D summed in f32 from the bf16 p, gap columns of dk and dv exactly
+    zero), with D kept on chip. ``head_dim`` and ``lib`` as in
+    ``attention_backward_dq``."""
+    _check_inputs(q, k, v)
+    _require_contiguous("attention_backward_short", q, k, v, lse, g_out)
+    b, h, t, d = q.shape
+    if d != 32 or t > D32_SHORT_T:
+        raise ValueError(f"attention_backward_short takes head dim 32 and T <= {D32_SHORT_T}, "
+                         f"got {tuple(q.shape)}")
+    sd = d if head_dim is None else head_dim
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lo, hi = _gap(t, pad_interval)
+    lib = backward_library() if lib is None else lib
+    check(lib.attn_backward_short(q.data_ptr(), k.data_ptr(), v.data_ptr(), g_out.data_ptr(),
+                                  lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
+                                  h, t, d, lo, hi, sd**-0.5 * _LOG2E, sd**-0.5,
+                                  torch.cuda.current_stream(q.device).cuda_stream),
+          "attn_backward_short")
+    KERNELS["attention_bwd_d32_short"].launches += 1
+    return dq, dk, dv
 
 
 def _pad(lo: int, hi: int):
@@ -477,6 +602,8 @@ def _setup(ctx, inputs, output):
 
 
 def _backward_kernels(q, k, v, g_out, pad_interval, head_dim, lse):
+    if q.shape[-1] == 32 and q.shape[2] <= D32_SHORT_T:  # one pass: bwd32_short
+        return attention_backward_short(q, k, v, lse, g_out, pad_interval, head_dim=head_dim)
     dq, dd = attention_backward_dq(q, k, v, lse, g_out, pad_interval, head_dim=head_dim)
     return (dq, *attention_backward_dkv(q, k, v, lse, dd, g_out, pad_interval,
                                         head_dim=head_dim))

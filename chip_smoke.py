@@ -232,7 +232,17 @@ Phases, each printing its own lines:
    shapes each forward kernel's op, launcher and device time (profiled)
    with SDPA's forward in turns, its bound and exp floor; the heads'
    forward with ``use_kernel`` on and off; the d = 64 capture and plain
-   ops at the bench shape in the same run.
+   ops at the bench shape in the same run. Then the d = 32 backward
+   (``phase_d32_backward``): the library's plan against
+   ``ops/attention.py::d32_bwd_plan``; every route (``bwd32_short`` at T <=
+   64, ``bwd32_dq`` + ``bwd32_dkv``) against the plain backward at Swin's
+   shape (on that path's own q, k, v and upstream gradient), the decoder
+   heads', (1, 40, 190, 32) and (1, 6, 256, 32) with a gap across a tile
+   edge: dq, dk, dv within 4 bf16 ulps of each one's largest entry, a
+   control without d^-0.5 failing each, two calls bitwise equal; at the
+   three users' shapes the op's backward kernels, the kernels alone and
+   their device time with SDPA's backward in turns, each kernel's device
+   time, bounds, exp floors and the aims; the d = 64 pair in the same run.
 
 A failing phase raises and the script exits non-zero. The line before
 the last is the kernel table as JSON; the last line is
@@ -245,19 +255,25 @@ runs phases 1-2 and ``phase_diagnosis`` alone (no kernel line, no result
 line): a quick run of that phase; ``--only d32_forward`` builds
 ``csrc/attention.cu`` alone and runs ``phase_d32_forward`` on seeded
 inputs (a tree before the d = 32 redesign runs its readings without the
-plan checks, so that both trees are read by one script).
+plan checks, so that both trees are read by one script); ``--only
+d32_backward`` builds ``csrc/attention_bwd.cu`` alone (the row statistic
+is the plain version's) and runs ``phase_d32_backward`` on seeded inputs,
+also from a tree before the d = 32 backward's redesign (copy this script
+into it: the pair alone, without the plan checks).
 
     python3 chip_smoke.py --ablate [SOURCE ...]
 
 runs, after phase 1, only the ablation of design constants instead: each
-source of ``ABLATIONS`` (default: attention, attention_variants,
-meanshift, ccl) built once per variant (``-D`` overrides of the constants
+source of ``ABLATIONS`` (default: attention, attention_bwd,
+attention_variants, meanshift, ccl) built once per variant (``-D`` overrides of the constants
 it guards with ``#ifndef``), every variant checked as in phase 3 (the
 microbenchmark's variants on its inputs: an entry named "vN: ..." builds
 for variant vN only, v5's constants touch v5 only), then the variants
 read in turns (median of 6 readings of 20 launches each; the head-dim-32
 entries also by device time, 6 profiled readings in turns): the attention
-forward pair's flash pass with SDPA's forward and its mean pass; the tool's
+forward pair's flash pass with SDPA's forward and its mean pass; the d =
+32 backward's kernels at Swin's and the decoder heads' shapes (each
+variant checked there first); the tool's
 variants with the shipped capture pair and SDPA's forward at the
 microbenchmark's shape; the mean-shift fixpoint (bf16) and CCL on phase
 3's inputs.
@@ -311,6 +327,15 @@ ABLATIONS = {
         "d32 mean: 2 ring slots": ("M32_STAGES=2",),
         "d32 mean: query tiles streamed, two blocks of 2 warpgroups per SM": (
             "MEAN_RESIDENT_BYTES=0", "M32_WARPGROUPS=2", "M32_BLOCKS_PER_SM=2"),
+    },
+    # the head-dim-32 backward's levers (timed at Swin's and the decoder
+    # heads' shapes, D32_SWIN / D32_DEC; every entry is "d32 ...")
+    "attention_bwd": {
+        "as built": (),
+        "d32 bwd: p not kept, pass A's second sweep recomputes it": ("B32_PCACHE=0",),
+        "d32 bwd: 2 ring slots": ("B32_STAGES=2",),
+        "d32 bwd: 4 ring slots": ("B32_STAGES=4",),
+        "d32 bwd short: 3 planes in flight": ("B32_SHORT_STAGES=3",),
     },
     "attention_variants": {
         "as built": (),
@@ -4590,6 +4615,9 @@ def phase_ablation(sources) -> None:
         fns.update({f"mean pass, {n}": (lambda lib=lib: attention._mean(q, k, lse, PAD_GAP,
                                                                         lib=lib))
                     for n, lib in libs.items()})
+    if "attention_bwd" in sources:
+        d32_bwd_ablation(fns, {n: attention.backward_library(d)
+                               for n, d in ABLATIONS["attention_bwd"].items()}, dev)
     if "attention_variants" in sources:
         from attentionshift_torch.ops import attention_variants as av
         from attentionshift_torch.tools.analysis.microbench_attention import make_inputs
@@ -4696,6 +4724,29 @@ def d32_ablation(fns: dict, libs: dict, dev) -> None:
                 lambda lib=lib, a=a, b=b, c=c: attention.flash_forward(a, b, c, None, True, lib=lib))
         fns[f"d32 mean {D32_SWIN}, {n}"] = (
             lambda lib=lib, lse=lse: attention._mean(q, k, lse, None, lib=lib))
+
+
+def d32_bwd_ablation(fns: dict, libs: dict, dev) -> None:
+    """The entries of ``ABLATIONS["attention_bwd"]``: each library checked
+    (``check_d32_backward``, both routes at the box head) at Swin's and the
+    decoder heads' shapes, then the ops' backward kernels (``d32_bwd_route``)
+    at those shapes put into ``fns`` (read in turns, then profiled for
+    device time)."""
+    import torch
+
+    from attentionshift_torch.ops import attention
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+    cases = {shape: tuple(torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                          for _ in range(4)) for shape in (D32_SWIN, *D32_DEC)}
+    for n, lib in libs.items():
+        for shape, (q, k, v, g) in cases.items():
+            check_d32_backward(f"{shape}, {n}", q, k, v, g, None, lib=lib, quiet=True)
+            lse = attention._row_lse(q, k, None)
+            fns[f"d32 bwd {shape}, {n}"] = (
+                lambda lib=lib, q=q, k=k, v=v, g=g, lse=lse: d32_bwd_route(q, k, v, g, lse, None,
+                                                                         lib))
+        log(f"[ablate] attention_bwd, {n}: d32 backward checked at {list(cases)}: ok")
 
 
 # tensor, sequence and pipeline parallelism over a model group of two ranks
@@ -5807,7 +5858,11 @@ def phase_meanshift_routes(results: dict, dev, smi: str) -> dict:
 # (BoxHeadRec: 512 RoIs of 7 x 7 tokens + a det token; MaskHeadPointSup: 128
 # RoIs of 14 x 14), 8 heads of 32
 DEC_CASES = (("BoxHeadRec", 512, 7), ("MaskHeadPointSup", 128, 14))
-DEC_LAUNCHES = dict(attention_plain_d32=4, attention_bwd_dq_d32=4, attention_bwd_dkv_d32=4)
+# launches per head and pass: 4 blocks; the box head's T = 50 takes the
+# one-pass backward, the mask head's T = 196 the pair
+DEC_LAUNCHES = {"BoxHeadRec": (dict(attention_plain_d32=4), dict(attention_bwd_d32_short=4)),
+                "MaskHeadPointSup": (dict(attention_plain_d32=4),
+                                     dict(attention_bwd_dq_d32=4, attention_bwd_dkv_d32=4))}
 
 
 def phase_decoder_kernels(dev) -> dict:
@@ -5817,8 +5872,9 @@ def phase_decoder_kernels(dev) -> dict:
     weighted sum of the outputs: outputs and input gradient by
     ``check_against_plain`` (the f32 plain head is the witness of bf16
     rounding; control: the plain head with every block's qkv weight
-    doubled). Launches per pass: 4 ``flash_fwd`` forward, 4 + 4 backward, on
-    the head-dim-32 instance. Returns the path's launches."""
+    doubled). Launches per pass (``DEC_LAUNCHES``): 4 ``flash_fwd`` forward;
+    backward 4 of the one-pass kernel at the box head's T = 50, 4 + 4 of the
+    pair at the mask head's T = 196. Returns the path's launches."""
     import torch
 
     from attentionshift_torch.models import heads as heads_mod
@@ -5860,8 +5916,7 @@ def phase_decoder_kernels(dev) -> dict:
             bwd = launch_counts()
             runs[tag] = ([o.detach() for o in out], x.grad)
             if tag == "kernel":
-                want_f = expected_launches(attention_plain_d32=4)
-                want_b = expected_launches(attention_bwd_dq_d32=4, attention_bwd_dkv_d32=4)
+                want_f, want_b = (expected_launches(**w) for w in DEC_LAUNCHES[name])
                 if fwd != want_f or bwd != want_b:
                     raise AssertionError(f"{name}: launches {nonzero(fwd)} + {nonzero(bwd)}")
                 for k in total:
@@ -5948,20 +6003,22 @@ def graph_ms(fn, calls: int = 10, replays: int = 5) -> float:
     return statistics.median(got)
 
 
-def d32_readings(tag: str, op, launcher, sdpa) -> dict:
-    """The op, the launcher and SDPA's forward read in turns (CUDA events,
-    medians of 6), then the launcher's and SDPA's device ms per call two
-    ways: profiled (``device_ms``; None where the profiler recorded no
-    device time) and from a CUDA graph's replay (``graph_ms``)."""
+def d32_readings(tag: str, op, launcher, sdpa, what: str = "forward") -> dict:
+    """The op, the launcher and SDPA's ``what`` (its forward, or backward)
+    read in turns (CUDA events, medians of 6), then the launcher's and
+    SDPA's device ms per call two ways: profiled (``device_ms``; None where
+    the profiler recorded no device time) and from a CUDA graph's replay
+    (``graph_ms``; SDPA's backward, an autograd call, is not captured:
+    None)."""
     (op_ms, launch_ms, sdpa_ms), reads = in_turns(op, launcher, sdpa)
     got = dict(op_ms=op_ms, launcher_ms=launch_ms, device_ms=device_ms(launcher),
                graph_ms=graph_ms(launcher), sdpa_ms=sdpa_ms, sdpa_device_ms=device_ms(sdpa),
-               sdpa_graph_ms=graph_ms(sdpa))
+               sdpa_graph_ms=graph_ms(sdpa) if what == "forward" else None)
     fmt = lambda x: "not measured" if x is None else f"{x:.4f}"  # noqa: E731
     log(f"[d32] {tag}: op {op_ms:.4f} ms, launcher {launch_ms:.4f} ms, device "
-        f"{fmt(got['device_ms'])} ms (graph {got['graph_ms']:.4f}); SDPA forward {sdpa_ms:.4f} ms, "
-        f"device {fmt(got['sdpa_device_ms'])} ms (graph {got['sdpa_graph_ms']:.4f}); readings in "
-        f"turns (op, launcher, SDPA) {[[round(x, 4) for x in r] for r in reads]}")
+        f"{fmt(got['device_ms'])} ms (graph {got['graph_ms']:.4f}); SDPA {what} {sdpa_ms:.4f} ms, "
+        f"device {fmt(got['sdpa_device_ms'])} ms (graph {fmt(got['sdpa_graph_ms'])}); readings "
+        f"in turns (op, launcher, SDPA) {[[round(x, 4) for x in r] for r in reads]}")
     return got
 
 
@@ -6116,6 +6173,203 @@ def phase_d32_forward(results: dict, dev, smi: str, swin_qkv=None) -> dict:
     return out
 
 
+# phase_d32_backward: the head-dim-32 backward kernels at their users' shapes
+# (D32_SWIN, D32_DEC), checked there and at D32_BWD_CHECKS: a ragged T at 40
+# heads, and a gap across the edge of the first 64-key tile
+D32_BWD_CHECKS = (((1, 40, 190, 32), None), ((1, 6, 256, 32), (60, 70)))
+D32_BWD_AIMS = {D32_SWIN: 0.055}  # the Swin pair's aim (ms); the heads': 2x the one-pass bytes
+
+
+def d32_bwd_route(q, k, v, g, lse, gap, lib=None):
+    """(dq, dk, dv) through the kernels the ops' backward runs at head dim
+    32: ``bwd32_short`` at T <= 64 where the tree has it, else pass A and
+    pass B (``lib``: a ``backward_library`` build; None: the default)."""
+    from attentionshift_torch.ops import attention
+
+    kw = {} if lib is None else {"lib": lib}
+    if hasattr(attention, "attention_backward_short") and q.shape[2] <= attention.D32_SHORT_T:
+        return attention.attention_backward_short(q, k, v, lse, g, gap, **kw)
+    dq, dd = attention.attention_backward_dq(q, k, v, lse, g, gap, **kw)
+    return (dq, *attention.attention_backward_dkv(q, k, v, lse, dd, g, gap, **kw))
+
+
+def d32_bwd_pair(q, k, v, g, lse, gap, lib=None):
+    """(dq, dk, dv) through pass A and pass B, at any T."""
+    from attentionshift_torch.ops import attention
+
+    kw = {} if lib is None else {"lib": lib}
+    dq, dd = attention.attention_backward_dq(q, k, v, lse, g, gap, **kw)
+    return (dq, *attention.attention_backward_dkv(q, k, v, lse, dd, g, gap, **kw))
+
+
+def check_d32_backward(tag: str, q, k, v, g, gap, lib=None, quiet: bool = False) -> dict:
+    """The d = 32 backward kernels on (q, k, v) and upstream gradient ``g``,
+    from the plain row statistic, against ``attention_backward_reference``:
+    dq, dk and dv each within 4 bf16 ulps of its own largest entry, gap
+    columns of dk and dv exactly 0, two calls bitwise equal; control (as
+    ``check_attention_pair``'s): the plain version without the scale
+    d^-0.5, which must fail each gradient's check. Each route the tree has
+    at this T (at T <= 64 the one-pass kernel and the pair). Returns the
+    largest errors by route."""
+    import torch
+
+    from attentionshift_torch.ops import attention
+
+    lse = attention._row_lse(q, k, gap)
+    want = attention.attention_backward_reference(q, k, v, g, gap)
+    unscaled = (q.float() * q.shape[-1] ** 0.5).to(q.dtype)
+    ctl = attention.attention_backward_reference(unscaled, k, v, g, gap)
+    routes = {"pair": d32_bwd_pair}
+    if hasattr(attention, "attention_backward_short") and q.shape[2] <= attention.D32_SHORT_T:
+        routes["short"] = d32_bwd_route
+    errs = {}
+    for route, fn in routes.items():
+        got = fn(q, k, v, g, lse, gap, lib)
+        again = fn(q, k, v, g, lse, gap, lib)
+        sync()
+        worst = 0.0
+        for name, a, w, c, a2 in zip(("dq", "dk", "dv"), got, want, ctl, again):
+            tol, e, ce = bf16_ulps(w, 4), max_err(a, w), max_err(a, c)
+            if e > tol:
+                raise AssertionError(f"{tag} {route}.{name}: max_abs_err {e} > {tol}")
+            if not ce > tol:
+                raise AssertionError(f"{tag} {route}.{name}: the check cannot see the scale left "
+                                     f"out ({ce} <= {tol})")
+            if not torch.equal(a, a2):
+                raise AssertionError(f"{tag} {route}.{name}: two calls differ")
+            if gap is not None and name != "dq" and \
+                    float(a[:, :, gap[0]:gap[1]].float().abs().max()) != 0.0:
+                raise AssertionError(f"{tag} {route}.{name}: gap columns not 0")
+            worst = max(worst, e / tol)
+        errs[route] = max(max_err(a, w) for a, w in zip(got, want))
+        if not quiet:
+            log(f"[check] d32 backward {tag} ({route}): dq, dk, dv within 4 bf16 ulps of each "
+                f"one's largest entry (worst {worst:.2f}x its limit), two calls bitwise equal"
+                f"{', gap columns 0' if gap else ''}; control (no d^-0.5) fails each: ok")
+        del got, again
+    return errs
+
+
+def phase_d32_backward(results: dict, dev, smi: str, swin=None) -> dict:
+    """The head-dim-32 backward where its users run it: Swin's (1, 24, 1276,
+    32) (the path's own q, k, v and upstream gradient when ``swin`` = (q, k,
+    v, g) is given, else seeded) and the decoder heads' (512, 8, 50, 32) and
+    (128, 8, 196, 32) (seeded). The library's plan against
+    ``attention.d32_bwd_plan`` (a tree before the d = 32 backward's
+    redesign has neither), the kernels checked (``check_d32_backward``) at
+    those shapes and at ``D32_BWD_CHECKS``; then per shape: the op's
+    backward kernels (``_backward_kernels``: host dispatch included), the
+    kernels alone and
+    their device time (``d32_readings``) with SDPA's backward in turns,
+    each kernel's own device time, the bounds (bytes: each tensor read or
+    written once per kernel; operations: 2 B H T^2 d per product), the exp
+    floors (one exp2 per (head, row, key) per sweep, real entries and
+    64-padded tiles, at the SM clock read under the Swin pair) and the aims;
+    then the d = 64 pair at the bench shape, to show it did not move.
+    Returns the readings by shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from attentionshift_torch.ops import attention
+
+    new = hasattr(attention, "d32_bwd_plan")  # not in a tree before the redesign
+    gen = torch.Generator(device=dev).manual_seed(24)
+    cases = {D32_SWIN: None if swin is None else (*swin, None)}
+    for shape, gap in ((D32_SWIN, None), *((s, None) for s in D32_DEC), *D32_BWD_CHECKS):
+        if cases.get(shape) is None:
+            cases[shape] = (*(torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                              for _ in range(4)), gap)
+    errs: dict = {}
+    for shape, (q, k, v, g, gap) in cases.items():
+        b, h, t, _ = shape
+        if new:
+            got = attention.kernel_d32_bwd_plan(b, h, t)
+            per = {"bwd32_short": got["short_per_sm"], got["dq"]: got["dq_per_sm"],
+                   "bwd32_dkv": got["dkv_per_sm"]}
+            want = attention.d32_bwd_plan(b, h, t, got["sms"], lambda kernel, smem: per[kernel])
+            if got != want:
+                raise AssertionError(f"d32 backward plan at {shape}: library {got} != mirror {want}")
+            log(f"[d32-bwd] plan at {shape} (library = ops/attention.py::d32_bwd_plan): {got}")
+        for route, e in check_d32_backward(f"{shape}{'' if gap is None else f' gap {gap}'}",
+                                           q, k, v, g, gap).items():
+            errs[(shape, route)] = e
+    q, k, v, g, _ = cases[D32_SWIN]
+    lse = attention._row_lse(q, k, None)
+    clk, clk_max = sm_clock_under_load(lambda: d32_bwd_pair(q, k, v, g, lse, None))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    exp_rate = EXP2_PER_CLOCK_PER_SM * sms * clk * 1e6
+    names = ("bwd32_dq", "bwd32_dkv", "bwd32_short") if new else ("bwd_dq", "bwd_dkv")
+    log(f"[d32-bwd] {smi}: SM clock under the Swin pair {clk:.0f} MHz (max {clk_max:.0f}), {sms} "
+        f"SMs; {'; '.join(registers('attention_bwd', n) for n in names)}")
+    out: dict = {}
+    for shape in (D32_SWIN, *D32_DEC):
+        q, k, v, g, _ = cases[shape]
+        b, h, t, d = shape
+        lse = attention._row_lse(q, k, None)
+        _, dd = attention.attention_backward_dq(q, k, v, lse, g)
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        sdpa_out = F.scaled_dot_product_attention(*leaves)
+        sdpa = lambda: torch.autograd.grad(sdpa_out, leaves, g, retain_graph=True)  # noqa: E731
+        row = dict(route=d32_readings(
+            f"backward {shape}", lambda: attention._backward_kernels(q, k, v, g, None, d, lse=lse),
+            lambda: d32_bwd_route(q, k, v, g, lse, None), sdpa, what="backward"))
+        alone = dict(dq=lambda: attention.attention_backward_dq(q, k, v, lse, g),
+                     dkv=lambda: attention.attention_backward_dkv(q, k, v, lse, dd, g))
+        if new and t <= attention.D32_SHORT_T:
+            alone["short"] = lambda: attention.attention_backward_short(q, k, v, lse, g)
+        dev_ms, dev_reads = device_in_turns(*alone.values())
+        row["device_ms"] = dict(zip(alone, dev_ms))
+        nb, stat = b * h * t * d * 2, b * h * t * 4
+        prod = 2.0 * b * h * t * t * d
+        tpad = -(-t // 64) * 64
+        exps, exps_pad = float(b * h * t * t), float(b * h * tpad * tpad)
+        bounds = {"dq": (5 * nb + 2 * stat, 3 * prod), "dkv": (6 * nb + 2 * stat, 4 * prod),
+                  "one pass": (7 * nb + stat, 5 * prod)}
+        row["bounds"] = {}
+        for key, (nbytes, ops) in bounds.items():
+            tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_BF16 * 1e3
+            row["bounds"][key] = dict(bytes=nbytes, bound_ms=max(tb, to),
+                                      bound_by="bytes" if tb >= to else "operations")
+        row["exp_floor_ms"] = exps / exp_rate * 1e3
+        row["exp_floor_padded_ms"] = exps_pad / exp_rate * 1e3
+        route_ms = row["route"]["device_ms"] or row["route"]["graph_ms"]
+        aim = D32_BWD_AIMS.get(shape, 2 * row["bounds"]["one pass"]["bound_ms"])
+        row["aim_ms"] = aim
+        reads = {n: [round(x, 4) for x in r] for n, r in zip(alone, dev_reads)}
+        bnd = {n: (round(x["bound_ms"], 4), x["bound_by"], round(x["bytes"] / 1e6, 2))
+               for n, x in row["bounds"].items()}
+        log(f"[d32-bwd] {smi}: {shape}: device ms per kernel {row['device_ms']} (6 in turns: "
+            f"{reads}); bounds {bnd} (ms, by, MB); exp floor per sweep "
+            f"{row['exp_floor_ms']:.4f} ms (64-padded tiles "
+            f"{row['exp_floor_padded_ms']:.4f}); the op's kernels {route_ms:.4f} ms against the "
+            f"aim {aim:.4f} ms: {'met' if route_ms <= aim else 'missed'}; "
+            f"{route_ms / (2 * row['exp_floor_ms']):.2f}x the pair's exp floor (one sweep per "
+            f"pass), {route_ms / row['bounds']['one pass']['bound_ms']:.2f}x the one-pass bound")
+        out[shape] = row
+        del sdpa_out, leaves
+    # the d = 64 pair at the bench shape with the gap: unchanged code
+    q, k, v = bench_qkv(dev, torch.Generator(device=dev).manual_seed(0))
+    g = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+    lse = attention._row_lse(q, k, PAD_GAP)
+    (d64,), (d64_reads,) = device_in_turns(lambda: d32_bwd_pair(q, k, v, g, lse, PAD_GAP))
+    out["d64"] = dict(pair_device_ms=d64)
+    log(f"[d32-bwd] {smi}: d = 64 pair at {tuple(q.shape)}, gap {PAD_GAP}: device {d64:.4f} ms "
+        f"(6 readings {[round(x, 4) for x in d64_reads]})")
+    if new:  # the one-pass kernel's row of the kernel table: the box head's shape
+        q, k, v, g, _ = cases[D32_DEC[0]]
+        lse = attention._row_lse(q, k, None)
+        box = out[D32_DEC[0]]
+        results["attention_bwd_d32_short"] = dict(
+            max_abs_err=max(e for (s, r), e in errs.items() if r == "short"),
+            ms=median_time(lambda: attention.attention_backward_short(q, k, v, lse, g)),
+            plain_ms=cuda_time(lambda: attention.attention_backward_reference(q, k, v, g), reps=3),
+            library_ms=box["route"]["sdpa_ms"], bound_ms=box["bounds"]["one pass"]["bound_ms"],
+            bound_by=box["bounds"]["one pass"]["bound_by"], exp_floor_ms=box["exp_floor_ms"],
+            d32_readings={str(D32_DEC[0]): box["route"]})
+    results["d32_backward"] = out
+    return out
+
+
 # phase_jax_init: the learning check from the JAX tool's own initial weights.
 # The JAX tool's step-0 rows from those weights: on a TPU (bf16, Pallas;
 # tools/fixtures/learning_curve_r5.jsonl) and on the CPU (plain XLA, f32 and
@@ -6203,7 +6457,8 @@ def main(argv=None) -> int:
     ap.add_argument("--parallel-rank", nargs=2, metavar=("RANK", "DIR"),
                     help=argparse.SUPPRESS)  # one rank of phase_parallel
     ap.add_argument("--only", choices=["diagnosis", "head_dims", "variant_dims", "meanshift_routes",
-                                       "decoder_kernels", "jax_init", "d32_forward"],
+                                       "decoder_kernels", "jax_init", "d32_forward",
+                                       "d32_backward"],
                     help="only the card, the build and this phase (no kernel line, no result)")
     args = ap.parse_args(argv)
     sys.path.insert(0, HERE)
@@ -6224,7 +6479,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    phase_build([("attention", ())] if args.only == "d32_forward" else None)
+    phase_build({"d32_forward": [("attention", ())],
+                 "d32_backward": [("attention_bwd", ())]}.get(args.only))
     if args.only is not None:
         only = {"diagnosis": lambda: phase_diagnosis({n: {"max_abs_err": 0.0} for n in KERNELS}, smi),
                 "head_dims": lambda: phase_head_dims({}, dev, smi),
@@ -6233,7 +6489,8 @@ def main(argv=None) -> int:
                     {"meanshift_fixpoint": {}}, dev, smi),
                 "decoder_kernels": lambda: phase_decoder_kernels(dev),
                 "jax_init": lambda: phase_jax_init(smi),
-                "d32_forward": lambda: phase_d32_forward({}, dev, smi)}
+                "d32_forward": lambda: phase_d32_forward({}, dev, smi),
+                "d32_backward": lambda: phase_d32_backward({}, dev, smi)}
         only[args.only]()
         log(smi)
         return 0
@@ -6286,6 +6543,11 @@ def main(argv=None) -> int:
         results[name]["d32_readings"] = {  # op, launcher and device ms by shape
             str(shape): {key: row[key] for key in keys} for shape, row in d32.items()
             if isinstance(shape, tuple) and keys[0] in row}
+    d32b = phase_d32_backward(results, dev, smi, swin=(*sw["qkv"], sw["g"]))
+    for name in ("attention_bwd_dq_d32", "attention_bwd_dkv_d32"):
+        results[name]["d32_readings"] = {  # the pair's shapes: op, kernels, device ms
+            str(shape): dict(route=row["route"], device_ms=row["device_ms"])
+            for shape, row in d32b.items() if isinstance(shape, tuple) and shape[2] > 64}
     phase_main_path_inputs(results, handed)
     ms_step = phase_train_times(state, step_fn, batch, train_gen)
     phase_cli_times(tc, same, pc, ms_step)

@@ -495,8 +495,11 @@ def test_attention_kernels_at_other_head_shapes_on_card(cuda, b, h, t, d, gap):
                   for _ in range(4))
     reset_launches()
     _check_attention_pair(q, k, v, g, gap)
-    for name in ("attention_capture", "attention_plain", "attention_bwd_dq", "attention_bwd_dkv"):
+    for name in ("attention_capture", "attention_plain"):
         assert KERNELS[attention.kernel_name(name, d)].launches == 2
+    # the backward's records: at head dim 32 and T <= 64 the one-pass kernel's
+    assert {n: kr.launches for n, kr in KERNELS.items() if kr.launches and "bwd" in n} == \
+        {n: 2 for n in attention.backward_records(d, t)}
 
 
 @pytest.mark.gpu
@@ -599,6 +602,110 @@ def test_d32_forward_kernels_are_deterministic(cuda, b, h, t):
     torch.cuda.synchronize()
     for a, b2 in zip(*runs):
         assert torch.equal(a, b2)
+
+
+# the head-dim-32 backward (bwd32_short at T <= 64, bwd32_dq + bwd32_dkv
+# above, bwd32_dq keeping p up to T = 256): T across every route's edges, 8,
+# 24 and 40 heads, the box head's 4096 planes, gaps across a tile edge
+D32_BWD_CASES = [
+    (2, 8, 1, None),
+    (3, 8, 2, None),
+    (2, 24, 33, None),
+    (512, 8, 50, None),
+    (1, 24, 50, (20, 30)),
+    (2, 8, 63, (60, 63)),
+    (2, 24, 64, None),
+    (2, 8, 65, None),
+    (1, 40, 100, (60, 70)),
+    (1, 8, 128, (120, 130)),
+    (1, 40, 129, None),
+    (1, 24, 190, (60, 70)),
+    (128, 8, 196, None),
+    (1, 6, 256, (60, 70)),
+    (1, 8, 257, (250, 260)),
+    (1, 24, 1276, None),
+    (1, 40, 1276, (1000, 1100)),
+    (1, 8, 4301, (4090, 4160)),
+]
+
+
+def _d32_backward(q, k, v, g, gap, route):
+    """(dq, dk, dv) through the d = 32 backward kernels from the plain row
+    statistic: the one-pass kernel (``route`` "short"), or pass A and pass
+    B ("pair")."""
+    lse = attention._row_lse(q, k, gap)
+    if route == "short":
+        return attention.attention_backward_short(q, k, v, lse, g, gap)
+    dq, dd = attention.attention_backward_dq(q, k, v, lse, g, gap)
+    return (dq, *attention.attention_backward_dkv(q, k, v, lse, dd, g, gap))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,t,gap", D32_BWD_CASES)
+def test_d32_backward_kernels_on_card(cuda, b, h, t, gap):
+    """Every d = 32 backward route the plan gives at T (and the pair at T <=
+    64 too, which it takes at any T) against the plain backward: dq, dk and
+    dv each within 4 bf16 ulps of its own largest entry; control: the plain
+    backward without the scale d^-0.5 must fail each check; gap columns of
+    dk and dv exactly 0; through the op, the backward's launches are those
+    of ``backward_records``. At T = 1 no temperature moves a gradient (one
+    key: p = 1, so dq = dk = 0 and dv = dO): there they must be exact."""
+    from attentionshift_torch.ops._build import KERNELS, reset_launches
+
+    gen = torch.Generator(device=cuda).manual_seed(t)
+    q, k, v, g = (torch.randn((b, h, t, 32), generator=gen, device=cuda).bfloat16()
+                  for _ in range(4))
+    want = attention.attention_backward_reference(q, k, v, g, gap)
+    ctl = attention.attention_backward_reference((q.float() * 32**0.5).bfloat16(), k, v, g, gap)
+    for route in ("short", "pair") if t <= attention.D32_SHORT_T else ("pair",):
+        got = _d32_backward(q, k, v, g, gap, route)
+        torch.cuda.synchronize()
+        if t == 1:
+            assert not got[0].any() and not got[1].any() and torch.equal(got[2], g), route
+            continue
+        for name, a, w, c in zip(("dq", "dk", "dv"), got, want, ctl):
+            tol = _ulps(w, 4)
+            assert float((a.float() - w.float()).abs().max()) <= tol, (route, name)
+            assert float((a.float() - c.float()).abs().max()) > tol, (route, name, "control")
+        if gap is not None:
+            for a in got[1:]:
+                assert float(a[:, :, gap[0]:gap[1]].float().abs().max()) == 0.0, route
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = attention.attention_no_capture(*leaves, gap)
+    reset_launches()
+    got = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert {n: kr.launches for n, kr in KERNELS.items() if kr.launches} == \
+        {n: 1 for n in attention.backward_records(32, t)}
+    for a, w in zip(got, want):
+        assert float((a.float() - w.float()).abs().max()) <= (_ulps(w, 4) if w.any() else 0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,t", [(1, 24, 1276), (512, 8, 50), (128, 8, 196), (1, 40, 190),
+                                   (3, 8, 1), (2, 24, 65), (1, 8, 4301), (1, 96, 256)])
+def test_d32_backward_plan_is_the_mirrored_one(cuda, b, h, t):
+    """The library's plan of a d = 32 backward (``attn_d32_bwd_plan``) is
+    ``d32_bwd_plan``'s, given the blocks per SM the device reported."""
+    got = attention.kernel_d32_bwd_plan(b, h, t)
+    per = {"bwd32_short": got["short_per_sm"], got["dq"]: got["dq_per_sm"],
+           "bwd32_dkv": got["dkv_per_sm"]}
+    assert got == attention.d32_bwd_plan(b, h, t, got["sms"], lambda kernel, smem: per[kernel])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,t,gap", [(1, 24, 1276, None), (512, 8, 50, None),
+                                       (128, 8, 196, None), (1, 6, 256, (60, 70))])
+def test_d32_backward_kernels_are_deterministic(cuda, b, h, t, gap):
+    """No atomics on any route: two calls give bitwise equal dq, dk, dv."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v, g = (torch.randn((b, h, t, 32), generator=gen, device=cuda).bfloat16()
+                  for _ in range(4))
+    for route in ("short", "pair") if t <= attention.D32_SHORT_T else ("pair",):
+        runs = [_d32_backward(q, k, v, g, gap, route) for _ in range(2)]
+        torch.cuda.synchronize()
+        for a, b2 in zip(*runs):
+            assert torch.equal(a, b2), route
 
 
 @pytest.mark.gpu

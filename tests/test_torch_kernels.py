@@ -433,7 +433,8 @@ def test_kernel_wrappers_count_only_their_launches():
         "attention_v3_nomin",
         "attention_v4_mxsum", "attention_v5_batched", "attention_v6_fusedsum",
         "attention_capture_d32", "attention_plain_d32", "attention_bwd_dq_d32",
-        "attention_bwd_dkv_d32", "attention_capture_d128", "attention_plain_d128",
+        "attention_bwd_dkv_d32", "attention_bwd_d32_short", "attention_capture_d128",
+        "attention_plain_d128",
         "attention_bwd_dq_d128", "attention_bwd_dkv_d128", "attention_capture_dwide",
         "attention_plain_dwide", "attention_bwd_dq_dwide", "attention_bwd_dkv_dwide",
         *(f"attention_{v}_{d}" for d in ("d32", "d128", "dwide")
