@@ -7,12 +7,16 @@ version ``cosine_shift_batch``, a CUDA tensor launches
 ``csrc/meanshift.cu`` or raises. Up to ``CLUSTER_MAX_K`` = 32 prototypes
 it runs the cluster kernel (record ``meanshift_fixpoint``); the host picks
 its cluster size, tiles per block and ring slots (``_plan``) from the
-shape and from how many clusters the card holds at once, and with bf16
-operands zero-pads D to a multiple of 16 (exact: zero columns add nothing
-to a dot product or a norm, and the update keeps them zero) and slices
-the prototypes back. Above 32 it runs the second route (record
-``meanshift_fixpoint_kwide``): a chain of simple kernels per iteration
-with the (G, K, N) similarities in device memory, at any K and D.
+shape and from how many clusters the card holds at once. Above 32 it runs
+the second route (record ``meanshift_fixpoint_kwide``): a short chain of
+kernels per iteration with the (G, K, N) similarities in device memory, at
+any K and D, four launches per iteration; only its two products depend on
+the operand type: with bf16 operands they run on the tensor cores (the
+host's plan is ``kwide_plan``), with f32 operands on scalar FMAs. With
+bf16 operands both routes
+zero-pad D to a multiple of 16 (exact: zero columns add nothing to a dot
+product or a norm, and the update keeps them zero) and slice the
+prototypes back.
 
 Numerics (both versions): cosine denominators ``max(|a|, 1e-8) *
 max(|b|, 1e-8)``; log-softmax over N of ``sim / (temp * tau)``; the hard
@@ -33,7 +37,8 @@ from .attention import pad_head
 from .numerics import bf16_steps
 
 __all__ = ["CLUSTER_MAX_K", "cosine_shift_batch", "cosine_shift_fixpoint", "fixpoint_verdict",
-           "instance_deviation", "one_step_limit", "reordered_witnesses", "route"]
+           "instance_deviation", "kernel_kwide_plan", "kwide_plan", "kwide_work_floats",
+           "one_step_limit", "reordered_witnesses", "route"]
 
 _SMEM_LIMIT = 227 * 1024
 CLUSTER_MAX_K = 32  # the cluster kernel's largest K (its KP instances 8, 16, 24, 32)
@@ -45,6 +50,15 @@ _WARPGROUPS = 4
 _MAX_STAGES = 2
 _ROUND_BOXES = 3
 _ROW_PARTS = 4
+# as in csrc/meanshift.cu, the second route with bf16 operands: prototypes
+# per chunk (one m64n64k16 product's N), consumer warpgroups and ring slots
+# of kwt_sim and kwt_update, bytes of one (64, 64) bf16 box
+KWIDE_CHUNK = 64
+KWIDE_SIM_WARPGROUPS = 2
+KWIDE_SIM_STAGES = 3
+KWIDE_UPDATE_WARPGROUPS = 4
+KWIDE_UPDATE_STAGES = 3
+_BOX = 8192
 
 
 def _acc(x: torch.Tensor) -> torch.dtype:
@@ -307,6 +321,70 @@ def _plan(g: int, k: int, n: int, d: int, bf16: bool, active,
     return best[1]
 
 
+def kwide_smem(kernel: str) -> int:
+    """Shared memory bytes of ``kwt_sim`` or ``kwt_update``
+    (``KWT_SIM_SMEM`` / ``KWT_UPDATE_SMEM``): the ring, barriers, the
+    chunk's norms and each warpgroup's rows (sim) or each warpgroup's
+    (prototype, weight) pairs of two tiles (update), the 1024-byte
+    alignment."""
+    kc = KWIDE_CHUNK
+    if kernel == "kwt_sim":
+        wg, stages = KWIDE_SIM_WARPGROUPS, KWIDE_SIM_STAGES
+        return stages * (wg + 1) * _BOX + 2 * stages * 8 + 4 * kc + wg * 64 * 8 + 1024
+    wg, stages = KWIDE_UPDATE_WARPGROUPS, KWIDE_UPDATE_STAGES
+    return stages * wg * _BOX + 2 * wg * 64 * 8 + 2 * stages * 8 + 1024
+
+
+def kwide_work_floats(g: int, k: int, n: int, d: int, bf16: bool) -> int:
+    """f32 scratch of the second route (``meanshift_kwide_work_floats``),
+    each part a multiple of 4 floats: with bf16 operands (D a multiple of
+    16) the prototypes' bf16 copy (G K D / 2); then squared norms per 64
+    dims, (sum, count) per 64-feature tile, the log-sum-exp per prototype,
+    weights and assignments per feature."""
+    gk, gn = g * k, g * n
+    return ((_up(gk * d // 2, 4) if bf16 else 0) + _up(gk * -(-d // 64), 4)
+            + _up(2 * gk * -(-n // 64), 4) + _up(gk, 4) + 2 * _up(gn, 4))
+
+
+def kwide_plan(g: int, k: int, n: int, d: int, sms: int, per_sm) -> dict:
+    """The host's plan of the bf16 second route (``kwt_plan``) on a card of
+    ``sms`` SMs whose blocks per SM ``per_sm(kernel, smem)`` gives
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``): chunks of 64
+    prototypes; kwt_sim's grid (tile groups, chunks, G), each block
+    ``tiles_per_block`` 64-feature tiles in rounds of
+    ``KWIDE_SIM_WARPGROUPS``, that count the multiple of it whose waves of
+    rounds are fewest (the larger on a tie); kwt_update's grid (64-dim
+    boxes, chunks, G); shared memory and scratch. ``d``: D as the kernels
+    take it (a multiple of 16)."""
+    wg = KWIDE_SIM_WARPGROUPS
+    chunks, nt, dt = -(-k // KWIDE_CHUNK), -(-n // 64), -(-d // 64)
+    sim_smem, upd_smem = kwide_smem("kwt_sim"), kwide_smem("kwt_update")
+    sim_per = per_sm("kwt_sim", sim_smem)
+    slots, best = sms * sim_per, None
+    for tpb in range(wg, nt + wg, wg):
+        cost = -(-(g * chunks * -(-nt // tpb)) // slots) * -(-min(tpb, nt) // wg)
+        if best is None or cost <= best[0]:
+            best = (cost, tpb)
+    tpb = best[1]
+    return dict(chunks=chunks, tiles=nt, dims=dt, tiles_per_block=tpb,
+                sim_blocks=-(-nt // tpb), sim_smem=sim_smem, sim_per_sm=sim_per,
+                update_smem=upd_smem, update_per_sm=per_sm("kwt_update", upd_smem), sms=sms,
+                work_floats=kwide_work_floats(g, k, n, d, True))
+
+
+_KWIDE_KEYS = ("chunks", "tiles", "dims", "tiles_per_block", "sim_blocks", "sim_smem",
+               "sim_per_sm", "update_smem", "update_per_sm", "sms")
+
+
+def kernel_kwide_plan(g: int, k: int, n: int, d: int, lib=None) -> dict:
+    """The library's own plan (``meanshift_kwide_plan``) in ``kwide_plan``'s
+    keys, with its scratch (``meanshift_kwide_work_floats``)."""
+    lib = _bind(lib or library("meanshift"))
+    out = (ctypes.c_int * len(_KWIDE_KEYS))()
+    check(lib.meanshift_kwide_plan(g, k, n, d, out), "meanshift_kwide_plan")
+    return dict(zip(_KWIDE_KEYS, out), work_floats=lib.meanshift_kwide_work_floats(g, k, n, d, 1))
+
+
 _ACTIVE: dict = {}
 
 
@@ -322,7 +400,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                           + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                                              ctypes.c_void_p])
         lib.meanshift_kwide_work_floats.restype = ctypes.c_size_t
-        lib.meanshift_kwide_work_floats.argtypes = [ctypes.c_int] * 3
+        lib.meanshift_kwide_work_floats.argtypes = [ctypes.c_int] * 5
+        lib.meanshift_kwide_plan.restype = ctypes.c_int
+        lib.meanshift_kwide_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.meanshift_kwide_forward.restype = ctypes.c_int
         lib.meanshift_kwide_forward.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                                                 + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
@@ -391,33 +471,31 @@ def cosine_shift_fixpoint(prototypes, box_mask, f, tau=0.1, temp=0.1, n_shift=10
     nbase = f32.norm(dim=-1).contiguous()
     stream = torch.cuda.current_stream(f.device).cuda_stream
     out_sim = torch.empty((g, k, n), device=f.device, dtype=torch.float32)
+    # bf16 dots: D zero-padded to the kernels' multiple of 16 (exact), the
+    # features rounded once (read by TMA)
+    dk = -(-d // 16) * 16 if bf16 else d
+    prot0 = pad_head(prot0, dk)
+    fb = pad_head(f.to(torch.bfloat16).contiguous(), dk) if bf16 else None
+    out_prot = torch.empty((g, k, dk), device=f.device, dtype=torch.float32)
     if k > CLUSTER_MAX_K:
-        fb = f.to(torch.bfloat16).contiguous() if bf16 else None
-        out_prot = torch.empty((g, k, d), device=f.device, dtype=torch.float32)
-        work = torch.empty(lib.meanshift_kwide_work_floats(g, k, n), device=f.device,
-                           dtype=torch.float32)
+        work = torch.empty(lib.meanshift_kwide_work_floats(g, k, n, dk, int(bf16)),
+                           device=f.device, dtype=torch.float32)
         err = lib.meanshift_kwide_forward(
             prot0.data_ptr(), mask.data_ptr(), None if bf16 else f32.data_ptr(),
             fb.data_ptr() if bf16 else None, nbase.data_ptr(), out_prot.data_ptr(),
-            out_sim.data_ptr(), work.data_ptr(), g, k, n, d, int(n_shift), float(tau),
+            out_sim.data_ptr(), work.data_ptr(), g, k, n, dk, int(n_shift), float(tau),
             float(temp), int(bf16), stream)
         check(err, "meanshift_kwide_forward")
         KERNELS["meanshift_fixpoint_kwide"].launches += 1
-        return out_prot, out_sim
-    # bf16 dots: D zero-padded to the kernel's multiple of 16 (exact)
-    dk = -(-d // 16) * 16 if bf16 else d
-    (cluster, tb, stages, _), _ = launch_plan(g, k, n, dk, bf16, f.device, lib)
-    prot0 = pad_head(prot0, dk)
-    # the dot operands: bf16 rounded once (read by TMA), or f32 in both layouts
-    if bf16:
-        feats = (None, None, pad_head(f.to(torch.bfloat16).contiguous(), dk))
     else:
-        feats = (f32, f32.T.contiguous(), None)
-    out_prot = torch.empty((g, k, dk), device=f.device, dtype=torch.float32)
-    err = lib.meanshift_forward(
-        prot0.data_ptr(), mask.data_ptr(), *(None if t is None else t.data_ptr() for t in feats),
-        nbase.data_ptr(), out_prot.data_ptr(), out_sim.data_ptr(), g, k, n, dk, int(n_shift),
-        cluster, tb, stages, float(tau), float(temp), int(bf16), stream)
-    check(err, "meanshift_forward")
-    KERNELS["meanshift_fixpoint"].launches += 1
+        (cluster, tb, stages, _), _ = launch_plan(g, k, n, dk, bf16, f.device, lib)
+        # the dot operands: bf16, or f32 in both layouts
+        feats = (None, None, fb) if bf16 else (f32, f32.T.contiguous(), None)
+        err = lib.meanshift_forward(
+            prot0.data_ptr(), mask.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in feats), nbase.data_ptr(),
+            out_prot.data_ptr(), out_sim.data_ptr(), g, k, n, dk, int(n_shift), cluster, tb,
+            stages, float(tau), float(temp), int(bf16), stream)
+        check(err, "meanshift_forward")
+        KERNELS["meanshift_fixpoint"].launches += 1
     return (out_prot if dk == d else out_prot[..., :d].contiguous()), out_sim

@@ -153,10 +153,10 @@ Phases, each printing its own lines:
    blank). Each check with a control that must fail it; host ms, busy
    share and peak memory beside the card's name and power limit;
 15. the learning tools at 512x512 (the ViT-S flagship, bf16, ``max_gt``
-   8): ``tools.debug_overfit`` whole (60 steps on 8 discs, its own loss
-   checks) and ``tools.analysis.learning_check`` with every branch (20
-   steps on 16 two-lobed images, milestones 0 and 20 scored on 8 held-out
-   images with the detection chain, a 10-step dagger loop): milestone rows
+   8): ``tools.debug_overfit`` whole (30 steps on 8 discs, its own loss
+   checks) and ``tools.analysis.learning_check`` with every branch (10
+   steps on 16 two-lobed images, milestones 0 and 10 scored on 8 held-out
+   images with the detection chain, a 5-step dagger loop): milestone rows
    well-formed and finite; exact launches per train step, scored image and
    tested image; CCL, mean-shift and both attention pairs on the inputs
    the learning check handed them (T = 1125, no gap; 56 planes of 32x32);
@@ -189,9 +189,9 @@ Phases, each printing its own lines:
    backward; the stage times), ``calibrate_overhead``, ``trace_ops`` on a
    profiled ``seed_pseudo_gt`` call (rows for ``flash_fwd``, ``attn_mean``,
    CCL and mean-shift), ``warm_cache`` (every kernel library cached),
-   ``diagnose_det`` (20 steps, 2 + 2 images), ``probe_rpn`` with
+   ``diagnose_det`` (10 steps, 2 + 2 images), ``probe_rpn`` with
    ``--save-ckpt`` then ``--ckpt`` (equal reports) and ``fidelity_study``
-   (10 steps, 2 images, ``--out`` in a temporary directory; CCL on the
+   (5 steps, 2 images, ``--out`` in a temporary directory; CCL on the
    exact config's (56, 512, 512) planes against its plain version, the
    planes each configuration's sweep cap cut), each with its launches
    asserted (the kernel table's ``launches_diagnosis``);
@@ -259,13 +259,18 @@ plan checks, so that both trees are read by one script); ``--only
 d32_backward`` builds ``csrc/attention_bwd.cu`` alone (the row statistic
 is the plain version's) and runs ``phase_d32_backward`` on seeded inputs,
 also from a tree before the d = 32 backward's redesign (copy this script
-into it: the pair alone, without the plan checks).
+into it: the pair alone, without the plan checks); ``--only
+meanshift_routes`` builds ``csrc/meanshift.cu`` alone and runs
+``phase_meanshift_routes`` (in a tree before the bf16 second route's
+redesign, its readings alone). Every phase of a full run prints a
+``[phase] <name>: <s> s`` line.
 
     python3 chip_smoke.py --ablate [SOURCE ...]
 
 runs, after phase 1, only the ablation of design constants instead: each
 source of ``ABLATIONS`` (default: attention, attention_bwd,
-attention_variants, meanshift, ccl) built once per variant (``-D`` overrides of the constants
+attention_variants, meanshift, meanshift_kwide (the constants of
+``csrc/meanshift.cu``'s bf16 second route), ccl) built once per variant (``-D`` overrides of the constants
 it guards with ``#ifndef``), every variant checked as in phase 3 (the
 microbenchmark's variants on its inputs: an entry named "vN: ..." builds
 for variant vN only, v5's constants touch v5 only), then the variants
@@ -368,12 +373,24 @@ ABLATIONS = {
         "reductions: rows in 2 parts": ("MS_ROW_PARTS=2",),
         "reductions: rows in 8 parts": ("MS_ROW_PARTS=8",),
     },
+    # the second route of mean-shift (K above 32), timed with bf16 operands at
+    # K = 64 and 256 (G 20, N 4200, D 384) by device time, 6 readings in
+    # turns; f32 operands checked at K = 64. The levers read so far lost or
+    # were taken into the source (PERF.md, section 6): this entry holds the
+    # build as it is until the next one.
+    "meanshift_kwide": {
+        "as built": (),
+    },
     "ccl": {
         "as built": (),
         "512 threads": ("CCL_THREADS=512",),
         "256 threads": ("CCL_THREADS=256",),
     },
 }
+
+
+# an entry of ABLATIONS that varies the constants of another entry's source
+ABLATION_SOURCES = {"meanshift_kwide": "meanshift"}
 
 
 def log(msg: str) -> None:
@@ -460,6 +477,15 @@ def phase_build(targets=None):
             if "warning" in line.lower() or "error" in line.lower():
                 log(f"[build] {tag}: {line.strip()}")
     log(f"[build] {len(logs)} sources built in {dt:.1f} s into {_build.BUILD_DIR}")
+
+
+def timed_phase(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, then a ``[phase] <name>: <s> s`` line with
+    its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def cuda_time(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -3878,7 +3904,8 @@ def phase_vis_tools(tc: dict, ev: dict) -> None:
 
 # the learning tools' run in phase_learning: learning_check's arguments
 # cover every branch (the detection chain, the dagger loop)
-LEARN_STEPS, LEARN_TRAIN, LEARN_EVAL, LEARN_DAGGER = 20, 16, 8, 10
+LEARN_STEPS, LEARN_TRAIN, LEARN_EVAL, LEARN_DAGGER = 10, 16, 8, 5
+LEARN_OVERFIT_STEPS = 30  # tools.debug_overfit's STEPS for this run (its own default 60)
 LEARN_ARGV = ["--corpus", "lobes", "--train-images", str(LEARN_TRAIN), "--eval-images",
               str(LEARN_EVAL), "--steps", str(LEARN_STEPS), "--milestones", "0", str(LEARN_STEPS),
               "--det-eval", "--dagger", str(LEARN_DAGGER)]
@@ -3918,11 +3945,12 @@ def timed_train_steps(steps: list):
 
 def phase_learning(smi: str) -> dict:
     """The two learning tools at 512x512 (ViT-S flagship, bf16, ``max_gt``
-    8, 512 proposals). ``tools.debug_overfit`` whole: 60 steps on its 8-disc
+    8, 512 proposals). ``tools.debug_overfit`` whole: 30 steps
+    (``LEARN_OVERFIT_STEPS``; its own default 60) on its 8-disc
     corpus, its own checks (``loss_total`` and ``loss_point_cls`` over the
     last 8 steps below the first 8). ``tools.analysis.learning_check`` on
-    the lobes corpus with every branch (``LEARN_ARGV``: 20 steps,
-    milestones 0 and 20 with the detection chain, a 10-step dagger loop):
+    the lobes corpus with every branch (``LEARN_ARGV``: 10 steps,
+    milestones 0 and 10 with the detection chain, a 5-step dagger loop):
     the milestone rows well-formed and finite, the dagger's IoUs in [0, 1].
     Exact launch counts of both runs: per train step ``TRAIN_LAUNCHES``,
     per scored image ``SEED_LAUNCHES``, per ``simple_test`` image 12
@@ -3934,6 +3962,7 @@ def phase_learning(smi: str) -> dict:
     profiled step, peak memory. Returns each run's launches."""
     import math
     import statistics
+    from unittest import mock
 
     import torch
 
@@ -3942,6 +3971,8 @@ def phase_learning(smi: str) -> dict:
     from attentionshift_torch.tools.analysis import learning_check
 
     res = {}
+    overfit = mock.patch.object(debug_overfit, "STEPS", LEARN_OVERFIT_STEPS)
+    overfit.start()  # stopped once its run is reported (a failure ends the script)
     for name, run, argv, scored, tested in (
             ("debug_overfit", debug_overfit.main, [], 0, 0),
             ("learning_check", learning_check.main, LEARN_ARGV,
@@ -3975,6 +4006,7 @@ def phase_learning(smi: str) -> dict:
         f"{last['loss_total']:.3f}, loss_point_cls {first['loss_point_cls']:.3f} -> "
         f"{last['loss_point_cls']:.3f} (means of the first and last {debug_overfit.WINDOW} of "
         f"{debug_overfit.STEPS} steps): ok")
+    overfit.stop()
     summary = res["learning_check"]["out"]
     rows = summary["table"]
     if [r["step"] for r in rows] != [0, LEARN_STEPS] or any(list(r) != LEARN_ROW_KEYS
@@ -4584,7 +4616,8 @@ def phase_ablation(sources) -> None:
     unknown = [s for s in sources if s not in ABLATIONS]
     if unknown:
         raise SystemExit(f"chip_smoke: unknown sources {unknown}; known: {list(ABLATIONS)}")
-    phase_build([(src, d) for src in sources for d in ABLATIONS[src].values()])
+    phase_build(list(dict.fromkeys((ABLATION_SOURCES.get(src, src), d) for src in sources
+                                   for d in ABLATIONS[src].values())))
     dev = torch.device("cuda")
     fns = {}
     if "attention" in sources:
@@ -4663,6 +4696,8 @@ def phase_ablation(sources) -> None:
             expect(f"meanshift, {n}: sim", max_err(got_s, ref_s), 2e-3, "bf16 dot operands")
             fns[f"meanshift, {n}"] = lambda lib=lib: meanshift_kernel.cosine_shift_fixpoint(
                 prot0, mask, f, n_shift=10, matmul_dtype=torch.bfloat16, lib=lib)
+    if "meanshift_kwide" in sources:
+        meanshift_kwide_ablation(dev)
     if "ccl" in sources:
         masks = inp["masks"]
         ref_lab = ccl.connected_components(masks, 64)
@@ -4673,7 +4708,7 @@ def phase_ablation(sources) -> None:
             fns[f"ccl, {n}"] = lambda lib=lib: ccl.connected_components_batch(masks, 64, lib=lib)
     meds, reads = in_turns(*fns.values(), reps=20)
     d32 = [name for name in fns if name.startswith("d32")]
-    dev_meds, dev_reads = device_in_turns(*(fns[name] for name in d32))
+    dev_meds, dev_reads, _ = device_in_turns(*(fns[name] for name in d32))
     for name, med, got in zip(fns, meds, reads):
         rate = ""
         if name.startswith("flash"):
@@ -4684,6 +4719,62 @@ def phase_ablation(sources) -> None:
                     f"{[round(x, 4) for x in dev_reads[i]]})")
         log(f"[ablate] {name}: {med:.4f} ms{rate} (median of {len(got)} readings in turns: "
             f"{[round(x, 4) for x in got]})")
+
+
+def meanshift_kwide_ablation(dev) -> None:
+    """The entries of ``ABLATIONS["meanshift_kwide"]`` at K = 64 and 256 (G
+    20, N 4200, D 384, ten iterations; f32 operands at K = 64 checked, bf16
+    also timed): each variant bitwise equal to the build as it is (the same
+    products and sums in the same order), or else within
+    ``fixpoint_verdict`` of the plain version with its temperature control
+    failing; then every (variant, K) with bf16 operands read in turns by
+    device time (6 readings)."""
+    import torch
+
+    from attentionshift_torch.ops import _build, meanshift_kernel
+
+    gen = torch.Generator(device=dev).manual_seed(25)
+    fns = {}
+    for k, mm in ((64, None), (64, torch.bfloat16), (256, torch.bfloat16)):
+        f = torch.randn((MS_ROUTE_N, 384), generator=gen, device=dev)
+        prot0 = torch.randn((20, k, 384), generator=gen, device=dev)
+        mask = (torch.rand((20, MS_ROUTE_N), generator=gen, device=dev) > 0.4).float()
+        kw = dict(n_shift=10, matmul_dtype=mm)
+        tag = f"K {k}, {'bf16' if mm else 'f32'}"
+        base = None
+        for name, defines in ABLATIONS["meanshift_kwide"].items():
+            lib = _build.library("meanshift", defines)
+            run = (lambda lib=lib, a=(prot0, mask, f), kw=kw:
+                   meanshift_kernel.cosine_shift_fixpoint(*a, lib=lib, **kw))
+            got = run()
+            sync()
+            if base is None:
+                base = got
+            if all(torch.equal(a, b) for a, b in zip(got, base)):
+                log(f"[ablate] meanshift_kwide {tag}, {name}: bitwise equal to the build as it is")
+            else:
+                floor = 2e-3 if mm else 1e-4
+                want = meanshift_kernel.cosine_shift_batch(prot0, f[None] * mask[..., None], f, **kw)
+                off = meanshift_kernel.cosine_shift_batch(prot0, f[None] * mask[..., None], f,
+                                                          temp=0.11, **kw)
+                v, ctl = meanshift_kernel.fixpoint_verdict(
+                    [got, (off[0], want[1])], prot0, mask, f, floor, orders=MS_WITNESS_ORDERS,
+                    max_orders=MS_WITNESS_MAX, **kw)
+                if not bool(v["ok"].all()) or bool(ctl["ok"].all()):
+                    raise AssertionError(f"meanshift_kwide {tag}, {name}: verdict "
+                                         f"{v['ok'].tolist()}, control {ctl['ok'].tolist()}")
+                log(f"[ablate] meanshift_kwide {tag}, {name}: differs from the build as it is, "
+                    f"within fixpoint_verdict of the plain version (largest deviation "
+                    f"{float(v['dev'].max()):.3e}), the control fails: ok")
+            if mm is not None:
+                fns[f"meanshift_kwide {tag}, {name}"] = run
+    meds, reads, pats = device_in_turns(*fns.values())
+    for (name, run), med, got, pat in zip(fns.items(), meds, reads, pats):
+        split = device_split(run, pat) if pat else None
+        log(f"[ablate] {name}: device {med:.4f} ms "
+            f"({'median of 6 in turns' if pat else 'CUDA graph: the profiler missed launches'}: "
+            f"{[round(x, 4) for x in got]}); per kernel "
+            f"{ {n: round(v, 4) for n, v in sorted(split.items(), key=lambda x: -x[1])} if split else None}")
 
 
 def d32_ablation(fns: dict, libs: dict, dev) -> None:
@@ -5087,8 +5178,8 @@ def phase_parallel(smi: str) -> dict:
 # listed, every size their defaults; DIAG_*_ARGV add arguments (a rehearsal
 # on the CPU passes small sizes there)
 DIAG_STEPS = 3  # timed calls per profiled stage (after one warm-up call)
-DIAG_TRAIN_STEPS = 20  # diagnose_det and probe_rpn
-DIAG_FID_STEPS = 10  # fidelity_study's inline training
+DIAG_TRAIN_STEPS = 10  # diagnose_det and probe_rpn
+DIAG_FID_STEPS = 5  # fidelity_study's inline training
 DIAG_EVAL = 2  # held-out images of diagnose_det and fidelity_study
 DIAG_SEED_ARGV: list = []
 DIAG_BACKBONE_ARGV: list = []
@@ -5714,14 +5805,101 @@ def phase_variant_dims(results: dict, dev, smi: str) -> dict:
 
 # phase_meanshift_routes: the mean-shift kernel at every K and D the Pallas
 # kernel takes: K above the cluster kernel's 32 (the second route) at ViT-S's
-# and ViT-B's D, and bf16 operands at a D not divisible by 16 (the cluster
-# kernel on D zero-padded to 208); G = 5 instances (one all masked) of N =
-# 4200 random features, ten iterations
-MS_ROUTE_CASES = tuple((k, d, mm) for k in (33, 64, 100, 256) for d in (384, 768)
-                       for mm in ("f32", "bf16")) + ((20, 200, "bf16"),)
+# and ViT-B's D, and bf16 operands at a D not divisible by 16 (both routes on
+# D zero-padded to 208); G = 5 instances (one all masked) of N = 4200 random
+# features, ten iterations
+MS_ROUTE_CASES = tuple((k, d, mm) for k in (33, 64, 100, 256, 257, 512) for d in (384, 768)
+                       for mm in ("f32", "bf16")) + ((20, 200, "bf16"), (64, 200, "bf16"))
 MS_ROUTE_G, MS_ROUTE_N = 5, 4200
-MS_ROUTE_TIMED = (64, 256)  # the kernel table's rows: G 20, K, N 4200, D 384, bf16
+# the readings (G 20, N 4200): the kernel table's rows K = 64 and 256 at D
+# 384, K = 33 beside the cluster kernel at K = 32, K = 64 at ViT-B's D 768,
+# all with bf16 operands; f32 operands at K = 64 and 256
+MS_ROUTE_TIMED = ((32, 384, "bf16"), (33, 384, "bf16"), (64, 384, "bf16"), (256, 384, "bf16"),
+                  (64, 768, "bf16"), (64, 384, "f32"), (256, 384, "f32"))
+# device ms; K = 33: 2x the cluster kernel's K = 32
+MS_ROUTE_AIMS = {(64, 384, "bf16"): 0.8, (256, 384, "bf16"): 2.0}
+# the bf16 route's plan against the library's at these (K, N, D)
+MS_PLAN_CASES = tuple((k, n, d) for k in (33, 64, 65, 256, 257, 512, 1000)
+                      for n in (1, 63, 64, 4200) for d in (16, 208, 384, 768, 1024))
 MS_CENTERS_K = 40  # semantic_centers(num_prototypes=40) on the card
+
+
+def device_split(fn, pattern: dict, calls: int = 10, retries: int = 3) -> dict | None:
+    """Device ms per call of ``fn`` by kernel, every kernel the profiler saw
+    (``profiled_kernels``; ``kernel_split`` gives named kernels' ms per
+    launch): the kernel's function name -> ms. Only a reading that saw
+    ``pattern``'s launches (``device_in_turns``) counts; None where none of
+    ``retries`` did."""
+    for _ in range(retries):
+        seen = profiled_kernels(fn, calls)
+        if launch_pattern(seen, calls) == pattern:
+            return {name: us / calls / 1e3 for name, (us, _) in seen.items()}
+    return None
+
+
+def meanshift_route_readings(results: dict, dev, smi: str) -> dict:
+    """The timed cases (``MS_ROUTE_TIMED``, G 20, N 4200, ten iterations):
+    device ms per call read in turns (6 readings each, ``device_in_turns``),
+    each kernel's device ms per call (``device_split``), CUDA-event ms, the
+    plain version, the bound of the kernel table's formula (bytes:
+    prototypes in and out, mask, features, similarities; operations: eleven
+    K N D products and ten N D updates per instance at 989 TFLOP/s, 67 with
+    f32 operands) and the aims. An aim is judged only on readings the
+    profiler took in full (the K = 33 aim: both its own and the cluster
+    kernel's at K = 32). Runs in a tree from before the bf16 route's
+    redesign too. Returns the readings by (K, D, operands)."""
+    import torch
+
+    from attentionshift_torch.ops import meanshift_kernel
+
+    def inputs(g, k, d, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        f = torch.randn((MS_ROUTE_N, d), generator=gen, device=dev)
+        prot0 = torch.randn((g, k, d), generator=gen, device=dev)
+        mask = (torch.rand((g, MS_ROUTE_N), generator=gen, device=dev) > 0.4).float()
+        return prot0, mask, f
+
+    dtypes = {"f32": None, "bf16": torch.bfloat16}
+    runs = {}
+    for k, d, mm in MS_ROUTE_TIMED:
+        prot0, mask, f = inputs(20, k, d, k + d)
+        runs[(k, d, mm)] = (prot0, mask, f, lambda a=(prot0, mask, f), dt=dtypes[mm]: (
+            meanshift_kernel.cosine_shift_fixpoint(*a, n_shift=10, matmul_dtype=dt)))
+    meds, reads, pats = device_in_turns(*(r[3] for r in runs.values()))
+    out = {}
+    for (key, (prot0, mask, f, run)), med, got, pat in zip(runs.items(), meds, reads, pats):
+        gg, kk, dd = prot0.shape
+        n = f.shape[0]
+        t_bytes = 4 * (2 * prot0.numel() + mask.numel() + f.numel() + gg * kk * n) / PEAK_BYTES * 1e3
+        t_ops = gg * (11 * 2.0 * kk * n * dd + 10 * 2.0 * n * dd) / (
+            PEAK_BF16 if key[2] == "bf16" else PEAK_F32) * 1e3
+        row = dict(device_ms=med, device_reads=got, device_full=pat is not None,
+                   split=device_split(run, pat) if pat else None,
+                   ms=cuda_time(run, reps=5),
+                   plain_ms=cuda_time(lambda: meanshift_kernel.cosine_shift_batch(
+                       prot0, f[None] * mask[..., None], f, n_shift=10,
+                       matmul_dtype=dtypes[key[2]]), reps=3),
+                   library_ms=None, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   route=meanshift_kernel.route(kk))
+        out[key] = row
+    cluster = out[(32, 384, "bf16")]
+    for key, row in out.items():
+        aim = MS_ROUTE_AIMS.get(key, 2 * cluster["device_ms"] if key == (33, 384, "bf16") else None)
+        judged = row["device_full"] and (key != (33, 384, "bf16") or cluster["device_full"])
+        row["aim_ms"] = aim if judged else None
+        verdict = "" if aim is None else (
+            f"; aim {aim:.4f} ms: {'met' if row['device_ms'] <= aim else 'missed'}" if judged else
+            "; aim not judged: the profiler missed launches")
+        how = "6 in turns" if row["device_full"] else "CUDA graph, 6 in turns: the profiler missed launches"
+        split = ("not read: the profiler missed launches" if row["split"] is None else
+                 { n: round(v, 4) for n, v in sorted(row["split"].items(), key=lambda x: -x[1])})
+        log(f"[ms-routes] {smi}: {row['route']} at (G 20, K {key[0]}, N {MS_ROUTE_N}, D {key[1]}), "
+            f"{key[2]}, n_shift 10: device {row['device_ms']:.4f} ms ({how}: "
+            f"{[round(x, 4) for x in row['device_reads']]}), events {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+            f"{row['device_ms'] / row['bound_ms']:.1f}x{verdict}; per kernel {split}")
+    return out
 
 
 def phase_meanshift_routes(results: dict, dev, smi: str) -> dict:
@@ -5734,17 +5912,26 @@ def phase_meanshift_routes(results: dict, dev, smi: str) -> dict:
     max(floor, 2 x the plain version's own spread under reordered sums), or
     within the floor of one reordered plain version; floor 1e-4 in f32,
     2e-3 with bf16 operands, as phase 3's), with the plain version at a
-    temperature 10 % off as the control, which must fail some instance.
+    temperature 10 % off as the control, which must fail some instance;
+    two calls bitwise equal at K = 64 and 257 (bf16); the bf16 route's
+    plan against ``meanshift_kernel.kwide_plan`` at ``MS_PLAN_CASES``.
     ``semantic_centers(..., num_prototypes=40)`` on a synthetic image: one
-    launch of the second route, finite outputs. Times of the kernel table's
-    rows (``MS_ROUTE_TIMED``, CUDA events) with the bound of phase 13's
-    formula and the plain version; registers of the new kernels. Returns
-    the path's launches."""
+    launch of the second route, finite outputs. Then the readings
+    (``meanshift_route_readings``) and the kernel table's rows; registers of
+    the route's kernels. In a tree from before the bf16 route's redesign
+    (no ``kwide_plan``) only the readings run. Returns the path's
+    launches."""
     import torch
 
     from attentionshift_torch.ops import meanshift_kernel
     from attentionshift_torch.ops._build import reset_launches
     from attentionshift_torch.pseudo import meanshift
+
+    new = hasattr(meanshift_kernel, "kwide_plan")
+    launches = expected_launches()
+    if not new:
+        meanshift_route_readings(results, dev, smi)
+        return launches
 
     def inputs(g, k, d, seed):
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -5755,8 +5942,18 @@ def phase_meanshift_routes(results: dict, dev, smi: str) -> dict:
         return prot0, mask, f
 
     dtypes = {"f32": None, "bf16": torch.bfloat16}
+    for k, n, d in MS_PLAN_CASES:
+        got = meanshift_kernel.kernel_kwide_plan(20, k, n, d)
+        per = {"kwt_sim": got["sim_per_sm"], "kwt_update": got["update_per_sm"]}
+        want = meanshift_kernel.kwide_plan(20, k, n, d, got["sms"], lambda name, smem: per[name])
+        if got != want:
+            raise AssertionError(f"meanshift kwide plan at (K, N, D) = {(k, n, d)}: library {got} "
+                                 f"!= mirror {want}")
+    log(f"[meanshift-routes] the bf16 route's plan (library = ops/meanshift_kernel.py::kwide_plan) "
+        f"at {len(MS_PLAN_CASES)} (K, N, D): ok; at (20, 256, 4200, 384): "
+        f"{meanshift_kernel.kernel_kwide_plan(20, 256, 4200, 384)}")
     cases = {c: inputs(MS_ROUTE_G, c[0], c[1], c[0] + c[1]) for c in MS_ROUTE_CASES}
-    launches, got = expected_launches(), {}
+    got = {}
     for c in MS_ROUTE_CASES:
         reset_launches()
         got[c] = meanshift_kernel.cosine_shift_fixpoint(*cases[c], n_shift=10,
@@ -5769,6 +5966,13 @@ def phase_meanshift_routes(results: dict, dev, smi: str) -> dict:
             launches[k] += v
     log(f"[meanshift-routes] path over (K, D, operands) = {MS_ROUTE_CASES}: each launched its "
         f"route's record once: {nonzero(launches)}: ok")
+    for c in ((64, 384, "bf16"), (257, 384, "bf16")):
+        again = meanshift_kernel.cosine_shift_fixpoint(*cases[c], n_shift=10,
+                                                       matmul_dtype=torch.bfloat16)
+        sync()
+        if not all(torch.equal(a, b) for a, b in zip(got[c], again)):
+            raise AssertionError(f"meanshift (K, D, operands) = {c}: two calls differ")
+    log("[meanshift-routes] two calls bitwise equal at K = 64 and 257 (D 384, bf16): ok")
     errs = {}
     for c in MS_ROUTE_CASES:
         prot0, mask, f = cases[c]
@@ -5794,6 +5998,7 @@ def phase_meanshift_routes(results: dict, dev, smi: str) -> dict:
             raise AssertionError(f"{name}: the temperature control passes every instance")
         errs[record] = max(errs.get(record, 0.0), float(v["dev"].max()))
         del want_r, off
+    del cases, got
     # Stage C with more prototypes than the cluster kernel holds
     g, d, hp, wp = 4, EMBED, 32, 32
     gen = torch.Generator(device=dev).manual_seed(40)
@@ -5821,35 +6026,24 @@ def phase_meanshift_routes(results: dict, dev, smi: str) -> dict:
         f"{int(centers[1].sum())} valid parts, all finite: ok")
     for k, v in sc.items():
         launches[k] += v
-    # the kernel table's rows
-    results["meanshift_fixpoint_kwide"] = dict(max_abs_err=errs["meanshift_fixpoint_kwide"])
+    # the readings, then the kernel table's rows: K = 64 at D 384, with K = 256,
+    # K = 33 and K = 64 at D 768 beside it
+    reset_launches()
+    reads = meanshift_route_readings(results, dev, smi)
+    reset_launches()
+    keep = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "device_ms", "device_full",
+            "aim_ms", "split")
+    row = {key: reads[(64, 384, "bf16")][key] for key in keep}
+    for tag, key in (("at_k256", (256, 384, "bf16")), ("at_k33", (33, 384, "bf16")),
+                     ("at_k64_d768", (64, 768, "bf16")), ("at_k64_f32", (64, 384, "f32")),
+                     ("at_k256_f32", (256, 384, "f32"))):
+        row[tag] = {x: reads[key][x] for x in keep}
+    results["meanshift_fixpoint_kwide"] = dict(max_abs_err=errs["meanshift_fixpoint_kwide"], **row)
     results["meanshift_fixpoint"]["max_abs_err_d200_bf16"] = errs["meanshift_fixpoint"]
-    reset_launches()
-    for k in MS_ROUTE_TIMED:
-        prot0, mask, f = inputs(20, k, 384, k)
-        gg, kk, dd = prot0.shape
-        n = f.shape[0]
-        run = lambda: meanshift_kernel.cosine_shift_fixpoint(  # noqa: E731
-            prot0, mask, f, n_shift=10, matmul_dtype=torch.bfloat16)
-        entry = dict(
-            ms=cuda_time(run, reps=5),
-            plain_ms=cuda_time(lambda: meanshift_kernel.cosine_shift_batch(
-                prot0, f[None] * mask[..., None], f, n_shift=10, matmul_dtype=torch.bfloat16),
-                reps=3),
-            library_ms=None)
-        t_bytes = 4 * (2 * prot0.numel() + mask.numel() + f.numel() + gg * kk * n) / PEAK_BYTES * 1e3
-        t_ops = gg * (11 * 2.0 * kk * n * dd + 10 * 2.0 * n * dd) / PEAK_BF16 * 1e3
-        entry.update(bound_ms=max(t_bytes, t_ops),
-                     bound_by="bytes" if t_bytes >= t_ops else "operations")
-        if k == 64:
-            results["meanshift_fixpoint_kwide"].update(entry)
-        else:
-            results["meanshift_fixpoint_kwide"][f"at_k{k}"] = entry
-        log(f"[time] {smi}: meanshift_fixpoint_kwide at (G {gg}, K {kk}, N {n}, D {dd}), bf16, "
-            f"n_shift 10: {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, bound "
-            f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})")
-    reset_launches()
-    for kern in ("kw_init", "kw_sim", "kw_lse", "kw_assign", "kw_update", "kw_density"):
+    if reads[(32, 384, "bf16")]["device_full"]:
+        results["meanshift_fixpoint"]["device_ms_k32"] = reads[(32, 384, "bf16")]["device_ms"]
+    for kern in ("kwt_init", "kwt_lse", "kwt_assign", "kw_sim", "kw_update", "kwt_sim",
+                 "kwt_update"):
         log(f"[build] {registers('meanshift', kern)}")
     return launches
 
@@ -5937,11 +6131,12 @@ D32_SWIN = (1, 24, SWIN_T, 32)  # Swin's four global blocks
 D32_DEC = ((512, 8, 50, 32), (128, 8, 196, 32))  # DEC_CASES: BoxHeadRec, MaskHeadPointSup
 
 
-def device_ms(fn, calls: int = 10) -> float | None:
-    """Device ms per call of ``fn``: the self device time of every kernel
-    the profiler saw over ``calls`` calls (after one unprofiled call),
-    divided by ``calls``; None when it saw no device time. The host's
-    dispatch does not enter this reading."""
+def profiled_kernels(fn, calls: int = 10) -> dict:
+    """Every kernel (and copy) the profiler saw on the device over
+    ``calls`` calls of ``fn``, after one unprofiled call: its function name
+    (template arguments kept) -> [device us, launches]."""
+    import re
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -5951,24 +6146,85 @@ def device_ms(fn, calls: int = 10) -> float | None:
         for _ in range(calls):
             fn()
         sync()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.key not in PROFILER_RANGES)
-    return total / calls / 1e3 if total > 0 else None
+    seen: dict = {}
+    for e in prof.key_averages():
+        if (e.device_type != torch.autograd.DeviceType.CUDA or e.self_device_time_total <= 0
+                or e.key in PROFILER_RANGES):
+            continue
+        m = re.search(r"::(\w+(?:<[^>(]*>)?)\(", e.key)
+        x = seen.setdefault(m.group(1) if m else e.key[:40], [0.0, 0])
+        x[0] += e.self_device_time_total
+        x[1] += e.count
+    return seen
 
 
-def device_in_turns(*fns, rounds: int = 6):
+def launch_pattern(seen: dict, calls: int = 10) -> dict | None:
+    """Launches per call of each kernel in ``profiled_kernels``'s ``seen``,
+    or None where the profiler saw nothing or missed launches: a kernel seen
+    a number of times that is not a whole multiple of ``calls``."""
+    if not seen or any(n % calls for _, n in seen.values()):
+        return None
+    return {name: n // calls for name, (_, n) in seen.items()}
+
+
+def device_ms(fn, calls: int = 10) -> float | None:
+    """Device ms per call of ``fn``: the self device time of every kernel
+    the profiler saw over ``calls`` calls (after one unprofiled call),
+    divided by ``calls``; None when it saw no device time or missed
+    launches (``launch_pattern``). The host's dispatch does not enter this
+    reading."""
+    seen = profiled_kernels(fn, calls)
+    if launch_pattern(seen, calls) is None:
+        return None
+    return sum(us for us, _ in seen.values()) / calls / 1e3
+
+
+def device_in_turns(*fns, rounds: int = 6, retries: int = 3):
     """Device ms of the functions taken in turns as ``in_turns`` takes
-    them, each reading a ``device_ms`` (``graph_ms`` where the profiler saw
-    no device time): the median of each, and the readings of each."""
+    them: the median of each, the readings of each, and each one's launches
+    per kernel and call (``launch_pattern``) where the profiler read it in
+    full, else None. In full: every reading saw the function's own pattern,
+    the one with the most launches among its readings (the profiler can
+    miss launches, not add them); readings that saw another are taken
+    again, ``retries`` times in all per function. A function not read in
+    full (the profiler saw no device time, or missed launches) is read from
+    a CUDA graph's replay instead (``graph_ms``, every reading of it), and a
+    ``[device]`` line gives the launches of a reading that fell short."""
     import statistics
 
     got = [[] for _ in fns]
+    pats = [[] for _ in fns]
+    short = [None for _ in fns]
+
+    def reading(i):
+        seen = profiled_kernels(fns[i])
+        pat = launch_pattern(seen)
+        if pat is None and short[i] is None:
+            short[i] = {name: n for name, (_, n) in seen.items()}
+        return (sum(us for us, _ in seen.values()) / 10 / 1e3 if pat else None), pat
+
     for r in range(rounds):
         for i in (range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))):
-            ms = device_ms(fns[i])
-            got[i].append(graph_ms(fns[i]) if ms is None else ms)
-    return [statistics.median(g) for g in got], got
+            ms, pat = reading(i)
+            got[i].append(ms)
+            pats[i].append(pat)
+    full = []
+    for i, fn in enumerate(fns):
+        valid = [p for p in pats[i] if p]
+        ref = max(valid, key=lambda p: sum(p.values())) if valid else None
+        left = retries
+        for j in range(rounds):
+            while ref is not None and pats[i][j] != ref and left > 0:
+                got[i][j], pats[i][j] = reading(i)
+                left -= 1
+            if pats[i][j] != ref:
+                ref = None
+        if ref is None:
+            got[i] = [graph_ms(fn) for _ in range(rounds)]
+            log(f"[device] function {i} of {len(fns)} read from a CUDA graph: the profiler saw "
+                f"{short[i] if short[i] is not None else 'another pattern'} over 10 calls")
+        full.append(ref)
+    return [statistics.median(g) for g in got], got, full
 
 
 def graph_ms(fn, calls: int = 10, replays: int = 5) -> float:
@@ -6162,7 +6418,7 @@ def phase_d32_forward(results: dict, dev, smi: str, swin_qkv=None) -> dict:
              lambda: attention.attention_no_capture(q, k, v, PAD_GAP))
     (cap_ms, plain_ms, sdpa_ms), reads = in_turns(
         *ops64, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
-    (cap_dev, plain_dev), dev_reads = device_in_turns(*ops64)
+    (cap_dev, plain_dev), dev_reads, _ = device_in_turns(*ops64)
     out["d64"] = dict(capture_ms=cap_ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
                       capture_device_ms=cap_dev, plain_device_ms=plain_dev)
     log(f"[d32] {smi}: d = 64 at {tuple(q.shape)}, gap {PAD_GAP}: capture op {cap_ms:.4f} ms, "
@@ -6317,7 +6573,7 @@ def phase_d32_backward(results: dict, dev, smi: str, swin=None) -> dict:
                      dkv=lambda: attention.attention_backward_dkv(q, k, v, lse, dd, g))
         if new and t <= attention.D32_SHORT_T:
             alone["short"] = lambda: attention.attention_backward_short(q, k, v, lse, g)
-        dev_ms, dev_reads = device_in_turns(*alone.values())
+        dev_ms, dev_reads, _ = device_in_turns(*alone.values())
         row["device_ms"] = dict(zip(alone, dev_ms))
         nb, stat = b * h * t * d * 2, b * h * t * 4
         prod = 2.0 * b * h * t * t * d
@@ -6351,7 +6607,7 @@ def phase_d32_backward(results: dict, dev, smi: str, swin=None) -> dict:
     q, k, v = bench_qkv(dev, torch.Generator(device=dev).manual_seed(0))
     g = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
     lse = attention._row_lse(q, k, PAD_GAP)
-    (d64,), (d64_reads,) = device_in_turns(lambda: d32_bwd_pair(q, k, v, g, lse, PAD_GAP))
+    (d64,), (d64_reads,), _ = device_in_turns(lambda: d32_bwd_pair(q, k, v, g, lse, PAD_GAP))
     out["d64"] = dict(pair_device_ms=d64)
     log(f"[d32-bwd] {smi}: d = 64 pair at {tuple(q.shape)}, gap {PAD_GAP}: device {d64:.4f} ms "
         f"(6 readings {[round(x, 4) for x in d64_reads]})")
@@ -6380,7 +6636,7 @@ def phase_d32_backward(results: dict, dev, smi: str, swin=None) -> dict:
 JAX_STEP0_BOX = 0.0984
 JAX_STEP0_MASK = {"tpu_bf16": 0.2451, "cpu_f32": 0.271, "cpu_bf16": 0.2034}
 JAX_STEP0_TOL = 0.01
-JAX_INIT_STEPS = 20
+JAX_INIT_STEPS = 10
 JAX_INIT_CONTROL_LEAVES = 16
 JAX_INIT_ARGV = ["--init-jax-key", "0", "--steps", str(JAX_INIT_STEPS), "--milestones", "0",
                  str(JAX_INIT_STEPS), "--corpus", "lobes", "--train-images", "16",
@@ -6480,7 +6736,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     phase_build({"d32_forward": [("attention", ())],
-                 "d32_backward": [("attention_bwd", ())]}.get(args.only))
+                 "d32_backward": [("attention_bwd", ())],
+                 "meanshift_routes": [("meanshift", ())]}.get(args.only))
     if args.only is not None:
         only = {"diagnosis": lambda: phase_diagnosis({n: {"max_abs_err": 0.0} for n in KERNELS}, smi),
                 "head_dims": lambda: phase_head_dims({}, dev, smi),
@@ -6496,65 +6753,70 @@ def main(argv=None) -> int:
         return 0
     results: dict = {}
     inp = kernel_inputs(dev, torch.Generator(device=dev).manual_seed(0))
-    phase_kernels(results, inp)
-    phase_small_reference(dev)
-    model, slice_inp, gen, seed_launches, handed = phase_main_path(dev)
-    eval_step, infer_img, infer_wh, infer_launches = phase_infer_path(dev, model, slice_inp)
-    state, step_fn, batch, train_gen, train_launches = phase_train_path(dev, model, slice_inp)
-    tool_launches = phase_tool(dev)
-    ev = phase_eval_path()
-    tc = phase_train_cli()
-    same = phase_train_cli_same_step(tc)
-    pc = phase_pseudo_cli(tc)
-    phase_refine_reference(dev)
-    rc = phase_refine_cli(tc, smi)
-    cc = phase_coco_cli(smi)
-    vc = phase_variant_cli(tc, smi)
-    cascade = phase_cascade_step(dev, smi)
-    vitb = phase_vitb_cli(cc, smi)
-    sw = phase_swin(dev, smi)
+    timed_phase("kernels", phase_kernels, results, inp)
+    timed_phase("small_reference", phase_small_reference, dev)
+    model, slice_inp, gen, seed_launches, handed = timed_phase("main_path", phase_main_path,
+                                                               dev)
+    eval_step, infer_img, infer_wh, infer_launches = timed_phase(
+        "infer_path", phase_infer_path, dev, model, slice_inp)
+    state, step_fn, batch, train_gen, train_launches = timed_phase(
+        "train_path", phase_train_path, dev, model, slice_inp)
+    tool_launches = timed_phase("tool", phase_tool, dev)
+    ev = timed_phase("eval_path", phase_eval_path)
+    tc = timed_phase("train_cli", phase_train_cli)
+    same = timed_phase("train_cli_same_step", phase_train_cli_same_step, tc)
+    pc = timed_phase("pseudo_cli", phase_pseudo_cli, tc)
+    timed_phase("refine_reference", phase_refine_reference, dev)
+    rc = timed_phase("refine_cli", phase_refine_cli, tc, smi)
+    cc = timed_phase("coco_cli", phase_coco_cli, smi)
+    vc = timed_phase("variant_cli", phase_variant_cli, tc, smi)
+    cascade = timed_phase("cascade_step", phase_cascade_step, dev, smi)
+    vitb = timed_phase("vitb_cli", phase_vitb_cli, cc, smi)
+    sw = timed_phase("swin", phase_swin, dev, smi)
     for name, key in (("attention_capture_d32", "capture"), ("attention_plain_d32", "plain"),
                       ("attention_bwd_dq_d32", "dq"), ("attention_bwd_dkv_d32", "dkv")):
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], sw["errs"][key])
-    phase_bank(dev)
-    p2b = phase_point2bbox(dev, model, smi)
-    phase_crf(dev, p2b)
+    timed_phase("bank", phase_bank, dev)
+    p2b = timed_phase("point2bbox", phase_point2bbox, dev, model, smi)
+    timed_phase("crf", phase_crf, dev, p2b)
     del p2b["out"]
-    phase_point_generator(dev)
-    mae = phase_mae_encoder(dev, smi)
-    mim = phase_mim(dev, smi)
-    phase_det_cam(dev, model, smi)
-    phase_vis_tools(tc, ev)
-    learning = phase_learning(smi)
-    export = phase_export(smi)
-    tools = phase_user_tools(ev, smi)
-    parallel = phase_parallel(smi)
-    diagnosis = phase_diagnosis(results, smi)
-    head_dims = phase_head_dims(results, dev, smi)
-    variant_dims = phase_variant_dims(results, dev, smi)
-    meanshift_routes = phase_meanshift_routes(results, dev, smi)
-    decoder = phase_decoder_kernels(dev)
-    jax_init = phase_jax_init(smi)
-    phase_times(results, inp, model, slice_inp, gen)
-    phase_swin_times(results, sw, smi)
-    d32 = phase_d32_forward(results, dev, smi, swin_qkv=sw["qkv"])
+    timed_phase("point_generator", phase_point_generator, dev)
+    mae = timed_phase("mae_encoder", phase_mae_encoder, dev, smi)
+    mim = timed_phase("mim", phase_mim, dev, smi)
+    timed_phase("det_cam", phase_det_cam, dev, model, smi)
+    timed_phase("vis_tools", phase_vis_tools, tc, ev)
+    learning = timed_phase("learning", phase_learning, smi)
+    export = timed_phase("export", phase_export, smi)
+    tools = timed_phase("user_tools", phase_user_tools, ev, smi)
+    parallel = timed_phase("parallel", phase_parallel, smi)
+    diagnosis = timed_phase("diagnosis", phase_diagnosis, results, smi)
+    head_dims = timed_phase("head_dims", phase_head_dims, results, dev, smi)
+    variant_dims = timed_phase("variant_dims", phase_variant_dims, results, dev, smi)
+    meanshift_routes = timed_phase("meanshift_routes", phase_meanshift_routes, results, dev,
+                                   smi)
+    decoder = timed_phase("decoder_kernels", phase_decoder_kernels, dev)
+    jax_init = timed_phase("jax_init", phase_jax_init, smi)
+    timed_phase("times", phase_times, results, inp, model, slice_inp, gen)
+    timed_phase("swin_times", phase_swin_times, results, sw, smi)
+    d32 = timed_phase("d32_forward", phase_d32_forward, results, dev, smi, swin_qkv=sw["qkv"])
     for name, keys in (("attention_plain_d32", ("flash",)),
                        ("attention_capture_d32", ("capture", "mean"))):
         results[name]["d32_readings"] = {  # op, launcher and device ms by shape
             str(shape): {key: row[key] for key in keys} for shape, row in d32.items()
             if isinstance(shape, tuple) and keys[0] in row}
-    d32b = phase_d32_backward(results, dev, smi, swin=(*sw["qkv"], sw["g"]))
+    d32b = timed_phase("d32_backward", phase_d32_backward, results, dev, smi,
+                       swin=(*sw["qkv"], sw["g"]))
     for name in ("attention_bwd_dq_d32", "attention_bwd_dkv_d32"):
         results[name]["d32_readings"] = {  # the pair's shapes: op, kernels, device ms
             str(shape): dict(route=row["route"], device_ms=row["device_ms"])
             for shape, row in d32b.items() if isinstance(shape, tuple) and shape[2] > 64}
-    phase_main_path_inputs(results, handed)
-    ms_step = phase_train_times(state, step_fn, batch, train_gen)
-    phase_cli_times(tc, same, pc, ms_step)
+    timed_phase("main_path_inputs", phase_main_path_inputs, results, handed)
+    ms_step = timed_phase("train_times", phase_train_times, state, step_fn, batch, train_gen)
+    timed_phase("cli_times", phase_cli_times, tc, same, pc, ms_step)
     del same
-    phase_infer_times(model, eval_step, infer_img, infer_wh)
-    phase_eval_kernel(results, ev["ts"])
-    phase_eval_times(ev)
+    timed_phase("infer_times", phase_infer_times, model, eval_step, infer_img, infer_wh)
+    timed_phase("eval_kernel", phase_eval_kernel, results, ev["ts"])
+    timed_phase("eval_times", phase_eval_times, ev)
     eval_single, eval_aug = ev["launches"]["single"], ev["launches"]["aug"]
     train_cli = {k: tc["out"][1]["total"][k] + tc["out"][2]["total"][k] for k in KERNELS}
     pseudo_cli = pc["total"]
@@ -6596,7 +6858,9 @@ def main(argv=None) -> int:
                                                      "mean_pass_ms_24_heads_streamed",
                                                      "mean_pass_ms_12_heads_resident",
                                                      "kernel_ms", "library_backend", "at_d384",
-                                                     "at_k256", "max_abs_err_d200_bf16",
+                                                     "at_k256", "at_k33", "at_k64_d768",
+                                                     "device_ms", "device_ms_k32", "aim_ms",
+                                                     "split", "max_abs_err_d200_bf16",
                                                      "d32_readings")
                              if key in r}))
     log(smi)

@@ -113,8 +113,9 @@ def _meanshift_inputs(g, k, n, d, seed, cuda):
 # the 64-feature tiles and the cluster split (300, 301, 4200); D of ViT-S,
 # ViT-B and a narrow one; no, one and ten iterations; a plane that only
 # clusters of 16 blocks hold (bf16; f32 takes 8); K above 32 (the second
-# route: 33, 64, 100, 256); D = 200, not divisible by 16 (bf16: the cluster
-# kernel on D zero-padded to 208)
+# route: 33, 64, 65, 100, 256, 257, 512: chunks of 64 prototypes, one to
+# eight of them), N = 1 and 63 on it; D =
+# 200, not divisible by 16 (bf16: both routes on D zero-padded to 208)
 MEANSHIFT_CASES = [
     (8, 300, 64, 10),
     (16, 301, 384, 1),
@@ -130,6 +131,12 @@ MEANSHIFT_CASES = [
     (256, 4200, 384, 10),
     (33, 301, 768, 0),
     (20, 4200, 200, 10),
+    (65, 4200, 768, 10),
+    (257, 4200, 384, 10),
+    (512, 4200, 384, 10),
+    (64, 1, 384, 10),
+    (257, 63, 384, 10),
+    (64, 4200, 200, 10),
 ]
 
 
@@ -167,6 +174,14 @@ def test_meanshift_kernel_on_card(cuda, k, n, d, n_shift, matmul_dtype):
                                               **kw)
     v, ctl = meanshift_kernel.fixpoint_verdict([got, (off[0], want[1])], prot0, mask, f, tol, **kw)
     assert bool(v["ok"].all()), {k: x.tolist() if torch.is_tensor(x) else x for k, x in v.items()}
+    if n == 1:
+        # one feature: every log weight is 0 whatever the temperature, so the
+        # control cannot fail; every prototype but the first (the first
+        # maximum) is 0 and the result is the plain version's within the floor
+        assert not got[0][:, 1:].any()
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=tol * float(b.abs().max()), rtol=0)
+        return
     assert n_shift == 0 or not bool(ctl["ok"].all())
 
 
@@ -199,11 +214,12 @@ def test_meanshift_kernel_at_the_coco_configs_instance_count(cuda, d, matmul_dty
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [20, 64])
+@pytest.mark.parametrize("k", [20, 64, 257])
 @pytest.mark.parametrize("matmul_dtype", [None, torch.bfloat16])
 def test_meanshift_kernel_is_deterministic(cuda, matmul_dtype, k):
     """No atomics: two calls on the same inputs give bitwise equal outputs,
-    on the cluster kernel (K = 20) and on the second route (K = 64)."""
+    on the cluster kernel (K = 20) and on the second route (K = 64; K = 257:
+    five chunks of 64 prototypes)."""
     prot0, mask, f = _meanshift_inputs(5, k, 4200, 384, 3, cuda)
     runs = [meanshift_kernel.cosine_shift_fixpoint(prot0, mask, f, matmul_dtype=matmul_dtype)
             for _ in range(2)]
@@ -216,9 +232,13 @@ def test_meanshift_plan_on_card(cuda):
     """The wrapper's shared-memory count is the kernel's own, and the bench
     shape (G = 20, K = 20, N = 4200, D = 384, bf16) runs in one wave; the
     second route keeps no K x S block in shared memory (its similarities
-    live in out_sim), and its device-memory scratch is 3 G K + 2 G N f32
-    (log-sum-exps, bandwidths and norms per prototype; weights and
-    assignments per feature), as the wrapper allocates it."""
+    live in out_sim). Its device-memory scratch as the wrapper allocates it
+    is ``meanshift_kernel.kwide_work_floats`` with either operand type; and
+    the bf16 route's plan
+    (``meanshift_kwide_plan``: chunk, grids, tiles per block, shared memory,
+    blocks per SM) is ``meanshift_kernel.kwide_plan``'s at every (K, N, D)
+    of ``tests/test_torch_meanshift_kwide.py``, given the blocks per SM the
+    library reports."""
     from attentionshift_torch.ops._build import library
 
     lib = meanshift_kernel._bind(library("meanshift"))
@@ -231,7 +251,17 @@ def test_meanshift_plan_on_card(cuda):
     (c, tb, stages, smem), active = meanshift_kernel.launch_plan(20, 20, 4200, 384, True, cuda)
     assert active(c, smem) >= 20
     for g, k, n in ((20, 33, 4200), (20, 256, 4200), (5, 64, 301)):
-        assert lib.meanshift_kwide_work_floats(g, k, n) == 3 * g * k + 2 * g * n
+        assert lib.meanshift_kwide_work_floats(g, k, n, 384, 0) == (
+            meanshift_kernel.kwide_work_floats(g, k, n, 384, False))
+    for k in (33, 64, 65, 256, 257, 512, 1000):
+        for n in (1, 63, 64, 4200):
+            for d in (16, 208, 384, 768, 1024):
+                got = meanshift_kernel.kernel_kwide_plan(20, k, n, d, lib)
+                per = {"kwt_sim": got["sim_per_sm"], "kwt_update": got["update_per_sm"]}
+                want = meanshift_kernel.kwide_plan(20, k, n, d, got["sms"],
+                                                   lambda kernel, smem: per[kernel])
+                assert got == want, (k, n, d)
+                assert got["work_floats"] == meanshift_kernel.kwide_work_floats(20, k, n, d, True)
 
 
 # (B, H, T, gap): one tile; one row past two tiles; a ragged T with and

@@ -256,9 +256,10 @@ def test_meanshift_bf16_at_odd_widths(d):
 
 def test_meanshift_routes_and_binds_the_second_route():
     """K up to 32 runs the cluster kernel's record, above it the second
-    route's; ``_bind`` gives ``meanshift_kwide_forward`` and
-    ``meanshift_kwide_work_floats`` the argtypes of their C signatures in
-    ``csrc/meanshift.cu`` (library mocked: no nvcc here)."""
+    route's; ``_bind`` gives ``meanshift_kwide_forward``,
+    ``meanshift_kwide_work_floats`` and ``meanshift_kwide_plan`` the
+    argtypes of their C signatures in ``csrc/meanshift.cu`` (library
+    mocked: no nvcc here)."""
     import ctypes
     import os
     import re
@@ -267,7 +268,7 @@ def test_meanshift_routes_and_binds_the_second_route():
     assert [meanshift_kernel.route(k) for k in (1, 20, 32, 33, 256)] == (
         ["meanshift_fixpoint"] * 3 + ["meanshift_fixpoint_kwide"] * 2)
     names = ("meanshift_max_clusters", "meanshift_smem_bytes", "meanshift_forward",
-             "meanshift_kwide_work_floats", "meanshift_kwide_forward")
+             "meanshift_kwide_work_floats", "meanshift_kwide_plan", "meanshift_kwide_forward")
     fake = types.SimpleNamespace(**{n: types.SimpleNamespace(argtypes=None, restype=None)
                                     for n in names})
     meanshift_kernel._bind(fake)
