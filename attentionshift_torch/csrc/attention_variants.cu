@@ -1242,11 +1242,11 @@ attn_v5_batched(const __grid_constant__ CUtensorMap map_q, const __grid_constant
 // Key tiles per mean-pass block: the grid runs in waves of `slots`
 // resident blocks, and a block costs its chunk plus about half a tile's
 // worth for loading its query tiles. Short chunks keep the last wave
-// short; ties go to the shorter chunk.
-int mean_chunk(int ntiles, int row_blocks, int slots) {
+// short; ties go to the shorter chunk. At most max_chunk tiles.
+int mean_chunk(int ntiles, int row_blocks, int slots, int max_chunk) {
   int best = 1;
   long best_cost = -1;
-  for (int c = 1; c <= ntiles && c <= VMEAN_MAX_CHUNK; ++c) {
+  for (int c = 1; c <= ntiles && c <= max_chunk; ++c) {
     const long blocks = (long)row_blocks * ((ntiles + c - 1) / c);
     const long cost = (blocks + slots - 1) / slots * (2 * c + 1);
     if (best_cost < 0 || cost < best_cost) {
@@ -1358,7 +1358,7 @@ int hopper_variant(int variant, const void* q, const void* k, const void* v, voi
       cudaSuccess)
     return (int)err;
   const int ntiles = (T + TILE - 1) / TILE;
-  const int chunk = mean_chunk(ntiles, B * ntiles, slots);
+  const int chunk = mean_chunk(ntiles, B * ntiles, slots, VMEAN_MAX_CHUNK);
   dim3 mgrid((ntiles + chunk - 1) / chunk, ntiles, B);
   if (clamped)
     attn_var_mean<HD><<<mgrid, WG_THREADS, msmem, stream>>>(
@@ -1490,367 +1490,965 @@ int v5_cluster_size(int B, int H, int T) {
 // ------------------------------------------------ the wide route (d > 128)
 //
 // Head dims above 128, zero-padded by ops/attention_variants.py to KD = 128
-// ceil(d / 128) (wide_head_dim of hopper.cuh), with the true d's bf16 scale.
-// A simple design on the tensor cores' warp-level product (mma.sync
-// m16n8k16, bf16 operands, f32 accumulators), every tile staged in shared
-// memory by plain 16-byte loads: one block = 4 warps = 64 query rows, each
-// warp 16 of them; key tiles of 64; 128 columns per slab. Shared memory
-// does not grow with d: S = sum_c Q_c K_c^T is summed over the 128-column
-// slabs c, each Q and K slab loaded in turn.
-//   out pass   attn_v2_wide, attn_v3_wide, attn_v4_wide, attn_v6_wide: one
-//              block per (64 query rows, 128-column output slab, image and
-//              head). Per key tile: S over every slab, e = bf16(exp2(min(S
-//              - 20, 100))) (v3: no min), O += e V_slab. Every block of a
-//              row runs the same instructions on the same tiles in the same
-//              k16 order, so every slab gets the same e bits and the same
-//              row sum: v2 and v3 add the bf16 e in f32 per thread and over
-//              the quad at the end; v4 multiplies e by a bf16 ones operand
-//              (m16n8k16, every column the row sum); v6 multiplies e by V's
-//              8 columns after the padded width, KD .. KD + 7, staged beside
-//              the slab, and takes column KD (v6's V is (B, H, T, KD + 8)).
-//              out = bf16(O * recip), recip = 1 / max(sum, 1e-30); slab 0
-//              writes recip into the (B, H, T) f32 workspace.
+// ceil(d / 128) (wide_head_dim of hopper.cuh), with the true d's bf16 scale
+// and, for v6, the 8 ones columns after KD. A head row is NS = KD / 128
+// slabs of 128 columns, slab s the Slab (HeadTile<128>) at column 128 s of
+// a tensor map over the whole row. Every tile arrives by TMA on an
+// mbarrier ring that a producer warp keeps full, and every product is a
+// wgmma. The host's plan (wide_plan: exported as attn_wide_plan, mirrored
+// by ops/attention_variants.py::wide_variant_plan) sizes all three kernels.
+//   out pass   attn_v2_wide, attn_v3_wide, attn_v4_wide, attn_v6_wide
+//              (templates on W, the consumer warpgroups of a block): one
+//              block per (64 query rows, group of G = W output slabs, image
+//              and head); warpgroup c keeps O of slab c of the group in
+//              registers (64 f32 a thread). Q stays in shared memory for
+//              the whole block, scaled once; where it does not fit beside
+//              a ring of W_MIN_SLOTS, it streams through the ring beside K
+//              instead. S of key tile j is computed once per group, by
+//              warpgroup j % G, over every slab (NS x 8 k16 steps into one
+//              accumulator, one chain of products where the ring holds the
+//              tile's slabs at once: the mean pass's order, so both passes
+//              get the same e bits), one tile ahead of the PV products, so
+//              that one warpgroup's S and exp work runs beside the others'
+//              products. The owner rounds e to bf16, adds its row sums and
+//              writes e into a swizzled 8 KB tile (W_E_SLOTS of them), from
+//              which every warpgroup takes O_c += e V_c (m64n128k16, both
+//              operands in shared memory). The ring's entries are 16 KB
+//              slabs in the order the warpgroups use them, K of tile j + 1
+//              before V of tile j; every warpgroup passes every entry in
+//              order (a wait on a barrier's parity is sound only on the
+//              phase after the one its thread last saw complete), giving
+//              back at once those it does not use.
+//              Row sums: v2 and v3 add the bf16 e in f32; v4 multiplies e
+//              by a 1 KB operand of bf16 ones (m64n8k16); v6 by V's columns
+//              KD .. KD + 7, an 8-column TMA box that arrives with K's last
+//              slab. Each warpgroup adds up its own key tiles; the G partial
+//              sums of a row are then added in warpgroup order through
+//              shared memory, so every slab of a row divides by the same
+//              bits, and so do the blocks of the other slab groups (their
+//              warpgroups own the same key tiles). Slab 0 writes the recip
+//              into the (B, H, T) workspace.
+//              Registers: an SM's file is four sub-partitions of 16,384, a
+//              warp's on one, so a block of W warpgroups and the producer
+//              warp (4 W + 1 warps) leaves 168 registers a thread at W = 2
+//              and 128 at W = 3; at W = 4, 96, where ptxas serializes the
+//              products (C7512). So G is at most 3: NS = 2 and 3 take one
+//              group, NS = 4 two of two, above ceil(NS / 3) groups, S
+//              computed once per group.
 //   mean pass  attn_var_mean_wide (v3: attn_var_mean_nomin_wide): one block
-//              per (64 query rows, 64 keys, image); per head, in head order,
-//              S over every slab and e as above; mean += e * (recip_h *
-//              (1 / H)), rounded as the plain version rounds (no FMA).
-//   v5         attn_v5_wide, one launch: one block per (64 query rows,
-//              image) runs sweep 1, the out pass of every (head, slab) of
-//              its rows (recips into the workspace), then sweep 2, the mean
-//              of every key tile over all heads, the sum divided by H once.
-// No atomics and no split sums: two calls agree bit for bit.
+//              = two warpgroups (128 query rows) and a producer warp per
+//              (chunk of key tiles, row pair, image), two blocks per SM;
+//              units (key tile, head) in head order, each NS entries of (K
+//              slab, the two row tiles' Q slabs) through a two-entry ring,
+//              each Q slab scaled where it arrived; S by wgmma over the
+//              slabs in the out pass's order, then e * (recip_h * (1 / H))
+//              added in head order (__fmul_rn, __fadd_rn) and each mean
+//              tile stored once.
+//   v5         attn_v5_wide<W>, one launch on clusters of C blocks: grid
+//              (C, ceil(T / 64), B). Sweep 1: rank r takes heads r, r + C,
+//              ... and runs the out pass's body (v2's arithmetic) for each
+//              head and slab group, writing out and the recips into the
+//              workspace; a cluster barrier; sweep 2: rank r takes its key
+//              chunk over every head with the mean pass's body, on
+//              `lanes` warpgroups, each with a ring and a producer lane of
+//              its own, the head sum divided by H once (__fdiv_rn).
+// Generic writes to shared memory that the async proxy reads (the scaled
+// Q, the e tiles) are fenced with fence.proxy.async.shared::cta: the form
+// of every state space waits for the block's TMA reads in flight.
+// What holds the route (PERF.md, section 6): two or three warpgroups an SM
+// (the register file), each running its chain of products, its exp work
+// and its ring waits one after another. Fewer bytes did not help: two
+// query tiles sharing each K and V slab (TMA multicast on clusters of two)
+// and mean units of two key tiles were both slower. No atomics and no sum
+// split in an order that changes between runs: two calls agree bit for
+// bit.
 
-constexpr int W_ROWS = 64;          // query rows of a block (4 warps of 16)
-constexpr int W_KEYS = 64;          // keys of a tile
-constexpr int W_COLS = 128;         // columns of a slab
-constexpr int W_LD = W_COLS + 8;    // row stride (bf16) of a staged tile: conflict-free fragments
-constexpr int W_THREADS = 128;
-constexpr int W_TILE = W_ROWS * W_LD;  // bf16 of one staged tile
-constexpr int W_OUT_SMEM = 3 * W_TILE * 2;   // Q slab, K slab, V slab (+ v6's columns)
-constexpr int W_MEAN_SMEM = 2 * W_TILE * 2;  // Q slab, K slab
+constexpr int SLAB = Slab::BYTES;    // one 64-row slab of 128 columns: 16 KB
+constexpr int W_MAX_WARPGROUPS = 3;  // out pass: consumer warpgroups (slabs) a block, at most
+constexpr int W_E_SLOTS = 2;         // out pass: e tiles (S runs a tile ahead)
+constexpr int W_MIN_SLOTS = 4;       // out pass: fewer ring slots beside a resident Q: Q streams
+constexpr int W_MAX_SLOTS = 16;      // out pass: ring slots, at most
+constexpr int WM_ROWS = 2;           // mean pass: query row tiles a block, a warpgroup each
+constexpr int WM_SLOTS = 2;          // mean pass: ring entries
+constexpr int WM_BLOCKS_PER_SM = 2;
+constexpr int WM_MAX_CHUNK = 16;     // mean pass: key tiles a block, at most
+constexpr int W5_SLOTS = 2;          // v5's sweep 2: ring entries a lane
+constexpr int W5_MAX_CLUSTER = 4;    // v5: blocks a cluster, at most (a GPC holds 16 or 18 of
+                                     // these one-per-SM blocks: larger clusters leave SMs idle)
+constexpr int W_PRODUCER = 32;       // the producer warp, after the consumer warpgroups
+constexpr int W_SMEM_LIMIT = 232448;  // what a block may use (227 KB)
+constexpr int W_ALIGN = 1024;         // reserved for the 1024-byte alignment of the slots
+constexpr int W_RED_BYTES = W_MAX_WARPGROUPS * TILE * (int)sizeof(float);  // row sums
+constexpr int W_BAR_BYTES = 512;                                          // mbarriers
+constexpr int W_TAIL = W_RED_BYTES + W_BAR_BYTES;
+constexpr int WM_THREADS = WM_ROWS * WG_THREADS + W_PRODUCER;
 
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// the plan of one call, as attn_wide_plan exports it (20 ints); a block of
+// the out pass and of v5 holds `slabs` consumer warpgroups
+struct WidePlan {
+  int sms, slabs, groups, qstream, slots, out_smem, out_x, out_y, out_z;
+  int chunk, mean_smem, mean_x, mean_y, mean_z;
+  int cluster, lanes, v5_smem, v5_x, v5_y, v5_z;
+};
+constexpr int WIDE_PLAN_INTS = 20;
+static_assert(sizeof(WidePlan) == WIDE_PLAN_INTS * sizeof(int), "the plan is 20 ints");
+
+// the out pass's ring slot: a 16 KB slab (v6: and the 1 KB column box)
+int wide_slot_bytes(int variant) { return SLAB + (variant == 6 ? COLS_BYTES : 0); }
+
+// The out pass's block at NS slabs: its slabs (= warpgroups), slab groups,
+// whether Q streams, ring slots, and its shared memory (the region from the
+// aligned base to the row sums, and in all)
+struct WideShape {
+  int slabs, groups, qstream, slots, region, smem;
+};
+
+WideShape wide_shape(int NS, int variant) {
+  WideShape s{};
+  const int ng = (NS + W_MAX_WARPGROUPS - 1) / W_MAX_WARPGROUPS;
+  s.slabs = (NS + ng - 1) / ng;
+  s.groups = (NS + s.slabs - 1) / s.slabs;
+  const int slot = wide_slot_bytes(variant);
+  for (int qs = 0; qs < 2; ++qs) {  // Q resident, else streamed
+    const long fixed = (qs ? 0L : (long)NS * SLAB) + (long)W_E_SLOTS * TILE_BYTES +
+                       (variant == 4 ? ONES_BYTES : 0);
+    const long room = ((long)W_SMEM_LIMIT - W_ALIGN - W_TAIL - fixed) / slot;
+    s.qstream = qs;
+    s.slots = (int)(room < W_MAX_SLOTS ? room : W_MAX_SLOTS);
+    s.region = (int)(fixed + (long)s.slots * slot);
+    if (s.slots >= W_MIN_SLOTS) break;
+  }
+  s.smem = W_ALIGN + s.region + W_TAIL;
+  return s;
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ uint32_t pack2f(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// rows r0 .. r0 + 63 of a (T, ld) bf16 plane, `cols` columns from c0, into
-// columns `at` .. of a staged tile; rows past T are zero; `scale`: each
-// value times it (bf16 products, as q * bf16(scale) in bf16)
-__device__ __forceinline__ void w_stage(bf16* tile, const bf16* plane, int ld, int T, int r0,
-                                        int c0, int cols, int at, const __nv_bfloat162* scale) {
-  const int per_row = cols / 8;
-  for (int i = threadIdx.x; i < W_ROWS * per_row; i += W_THREADS) {
-    const int r = i / per_row, c = (i % per_row) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < T) x = *reinterpret_cast<const uint4*>(plane + (size_t)(r0 + r) * ld + c0 + c);
-    if (scale != nullptr) {
-      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) h[j] = __hmul2(h[j], *scale);
+// The plan at (B, H, T, KD) for `variant` on `sms` SMs. The mean pass's
+// chunk as mean_chunk picks it for two blocks per SM. v5's cluster size C
+// (at most 4, at most the key tiles): the fewest waves (sms / C clusters at
+// once, one block per SM) times the slab products of a block's warpgroup,
+// sweep 1 (ceil(H / C) heads, every group and key tile: NS for S and G for
+// PV, on G warpgroups) and sweep 2 (ceil(nk / C) key tiles over `lanes`
+// lanes, every head, NS each); ties go to the smaller C.
+WidePlan wide_plan(int B, int H, int T, int KD, int variant, int sms) {
+  WidePlan p{};
+  const int NS = KD / SLAB_COLS, nk = (T + TILE - 1) / TILE;
+  const WideShape s = wide_shape(NS, variant);
+  p.sms = sms;
+  p.slabs = s.slabs;
+  p.groups = s.groups;
+  p.qstream = s.qstream;
+  p.slots = s.slots;
+  p.out_smem = s.smem;
+  p.out_x = nk;
+  p.out_y = s.groups;
+  p.out_z = B * H;
+  const int pairs = (T + WM_ROWS * TILE - 1) / (WM_ROWS * TILE);
+  p.chunk = mean_chunk(nk, B * pairs, sms * WM_BLOCKS_PER_SM, WM_MAX_CHUNK);
+  p.mean_smem = W_ALIGN + WM_SLOTS * (1 + WM_ROWS) * SLAB + W_TAIL;
+  p.mean_x = (nk + p.chunk - 1) / p.chunk;
+  p.mean_y = pairs;
+  p.mean_z = B;
+  const WideShape f = wide_shape(NS, 2);  // v5's sweep 1 has v2's arithmetic
+  const int by_room = f.region / (W5_SLOTS * 2 * SLAB);
+  p.lanes = f.slabs < by_room ? f.slabs : by_room;
+  p.v5_smem = f.smem;
+  long best = -1;
+  for (int c = 1; c <= W5_MAX_CLUSTER && c <= nk; ++c) {
+    const long active = sms / c > 0 ? sms / c : 1;
+    const long waves = ((long)B * nk + active - 1) / active;
+    const long s1 = (long)((H + c - 1) / c) * f.groups * nk * (NS + f.slabs);
+    const long s2 = (long)H * (((nk + c - 1) / c + p.lanes - 1) / p.lanes) * NS * f.slabs;
+    const long cost = waves * (s1 + s2);
+    if (best < 0 || cost < best) {
+      best = cost;
+      p.cluster = c;
     }
-    *reinterpret_cast<uint4*>(tile + r * W_LD + at + c) = x;
   }
+  p.v5_x = p.cluster;
+  p.v5_y = nk;
+  p.v5_z = B;
+  return p;
 }
 
-// S (this warp's 16 rows x 64 keys) += Q_c K_c^T of the staged slabs
-__device__ __forceinline__ void w_scores(float (&s)[8][4], const bf16* qt, const bf16* kt) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const bf16* qa = qt + (warp * 16 + g) * W_LD + 2 * t;
+// what the kernels take of the plan
+struct WideArgs {
+  int NS, G, groups, slots, qstream, lanes, chunk, H, T;
+};
+
+// the consumer warpgroups of a block only (the producer warp not): named barrier 1
+__device__ __forceinline__ void consumers_sync(int nthreads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(nthreads) : "memory");
+}
+
+// one warpgroup's 128 threads: named barrier 2 + w
+__device__ __forceinline__ void warpgroup_sync(int w) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + w) : "memory");
+}
+
+// generic writes to shared memory made visible to this block's async proxy
+// (wgmma, TMA): the shared::cta form of fence.proxy.async. (The form of
+// every state space waits for the block's TMA reads of global memory in
+// flight: 10-25 % of the route's time at the tool's shape, PERF.md §6.)
+__device__ __forceinline__ void fence_async_cta() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// scale_tiles with that fence
+__device__ __forceinline__ void scale_slabs(uint8_t* p, int bytes, __nv_bfloat162 s2, int tid,
+                                            int nthreads) {
+  for (int i = tid * 16; i < bytes; i += nthreads * 16) {
+    uint4 x = *reinterpret_cast<uint4*>(p + i);
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x);
 #pragma unroll
-  for (int kk = 0; kk < W_COLS / 16; ++kk) {
-    const uint32_t a[4] = {ld32(qa + kk * 16), ld32(qa + 8 * W_LD + kk * 16),
-                           ld32(qa + kk * 16 + 8), ld32(qa + 8 * W_LD + kk * 16 + 8)};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const bf16* kb = kt + (8 * j + g) * W_LD + kk * 16 + 2 * t;
-      mma16816(s[j], a, ld32(kb), ld32(kb + 8));
-    }
+    for (int j = 0; j < 4; ++j) h[j] = __hmul2(h[j], s2);
+    *reinterpret_cast<uint4*>(p + i) = x;
   }
+  fence_async_cta();
 }
 
-// S of this warp's rows against keys k0 .. k0 + 63 of one (image, head)
-// plane, summed over the KD / 128 slabs; `also`: staged with the first
-// slab (the out pass's V)
-template <typename Also>
-__device__ __forceinline__ void w_tile_scores(float (&s)[8][4], bf16* qt, bf16* kt,
-                                              const bf16* q, const bf16* k, int T, int KD,
-                                              int row0, int k0, const __nv_bfloat162* qs,
-                                              Also also) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-  for (int c0 = 0; c0 < KD; c0 += W_COLS) {
-    __syncthreads();  // every warp is done with the staged tiles
-    w_stage(qt, q, KD, T, row0, c0, W_COLS, 0, qs);
-    w_stage(kt, k, KD, T, k0, c0, W_COLS, 0, nullptr);
-    if (c0 == 0) also();
-    __syncthreads();
-    w_scores(s, qt, kt);
+// A ring of `slots` slots of `bytes`; entry n lives in slot n % slots. The
+// producer claims an entry (waits until the entry `slots` before it was
+// freed, arms the slot's barrier for the entry's bytes), its consumers
+// take it (wait for the bytes) and give it back (every consumer thread
+// arrives once: the "empty" barrier counts them).
+struct WRing {
+  uint8_t* base;
+  uint64_t* full;
+  uint64_t* empty;
+  int slots, bytes;
+
+  __device__ __forceinline__ uint64_t* bar(int n) const { return &full[n % slots]; }
+  __device__ __forceinline__ uint8_t* slot(int n) const { return base + (n % slots) * bytes; }
+  __device__ __forceinline__ uint8_t* claim(int n, int tx) const {
+    const int st = n % slots;
+    if (n >= slots) mbar_wait(&empty[st], ((n / slots) - 1) & 1);
+    mbar_expect_tx(&full[st], tx);
+    return base + st * bytes;
   }
-}
-
-// e = bf16(exp2(min(s - 20, 100))) (CLAMPED; else no min), 0 past T
-template <bool CLAMPED>
-__device__ __forceinline__ float w_e(float s, bool valid) {
-  float x = s - SHIFT;
-  if (CLAMPED) x = fminf(x, CLAMP);
-  return valid ? __bfloat162float(__float2bfloat16(exp2f(x))) : 0.f;
-}
-
-// e of the warp's S tile in place, keys k0 + 8 j + 2 t (+1) against T
-template <bool CLAMPED>
-__device__ __forceinline__ void w_exp(float (&s)[8][4], int k0, int T) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int key = k0 + 8 * j + 2 * t;
-    s[j][0] = w_e<CLAMPED>(s[j][0], key < T);
-    s[j][1] = w_e<CLAMPED>(s[j][1], key + 1 < T);
-    s[j][2] = w_e<CLAMPED>(s[j][2], key < T);
-    s[j][3] = w_e<CLAMPED>(s[j][3], key + 1 < T);
+  __device__ __forceinline__ uint8_t* take(int n) const {
+    const int st = n % slots;
+    mbar_wait(&full[st], (n / slots) & 1);
+    return base + st * bytes;
   }
+  __device__ __forceinline__ void give(int n) const { mbar_arrive(&empty[n % slots]); }
+};
+
+// ------------------------------------------------ wide out pass, the body
+
+struct WOut {
+  WRing ring;
+  uint8_t* q;     // resident Q: slab s at s SLAB, scaled
+  uint8_t* e;     // e tiles, slot i at i TILE_BYTES
+  uint8_t* ones;  // v4's B operand
+  float* red;     // (G, 64): each warpgroup's row sums
+  uint64_t* efull;   // [i]: the owner wrote the tile (its 128 threads)
+  uint64_t* eempty;  // [i]: the G warpgroups are done with it
+  uint64_t* qfull;   // the resident Q arrived (once per item)
+  uint64_t* qempty;  // every consumer thread is done with it
+  const CUtensorMap* mq;
+  const CUtensorMap* mk;
+  const CUtensorMap* mv;
+  const CUtensorMap* mc;  // v6: V's columns KD .. KD + 7
+  int NS, G, qs, nk, T;
+};
+
+// Shared memory of the out pass (and of v5's sweep 1), from the aligned
+// base: Q | e tiles | v4's ones | ring | row sums | barriers
+template <int SUM>
+__device__ __forceinline__ WOut wout_layout(uint8_t* smem, const WideArgs& a) {
+  WOut w;
+  w.NS = a.NS;
+  w.G = a.G;
+  w.qs = a.qstream;
+  w.nk = (a.T + TILE - 1) / TILE;
+  w.T = a.T;
+  w.q = smem;
+  w.e = smem + (w.qs ? 0 : w.NS * SLAB);
+  w.ones = w.e + W_E_SLOTS * TILE_BYTES;
+  w.ring.base = w.ones + (SUM == SUM_MMA_ONES ? ONES_BYTES : 0);
+  w.ring.slots = a.slots;
+  w.ring.bytes = SLAB + (SUM == SUM_V_COLS ? COLS_BYTES : 0);
+  w.red = reinterpret_cast<float*>(w.ring.base + a.slots * w.ring.bytes);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(reinterpret_cast<uint8_t*>(w.red) + W_RED_BYTES);
+  w.ring.full = bars;
+  w.ring.empty = bars + a.slots;
+  w.efull = bars + 2 * a.slots;
+  w.eempty = w.efull + W_E_SLOTS;
+  w.qfull = w.eempty + W_E_SLOTS;
+  w.qempty = w.qfull + 1;
+  return w;
 }
 
-// One warp's out rows of one (image, head) plane `bh` and one slab: the
-// variant VAR's row sum, O of the slab, out and (slab 0) recip
-template <int VAR>
-__device__ void w_out_slab(bf16* smem, const bf16* q, const bf16* k, const bf16* v, bf16* out,
-                           float* recip, int bh, int T, int KD, int row0, int slab,
-                           const __nv_bfloat162* qs) {
-  constexpr bool CLAMPED = VAR != 3;
-  bf16 *qt = smem, *kt = smem + W_TILE, *vt = smem + 2 * W_TILE;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int vld = VAR == 6 ? KD + 8 : KD;
-  const size_t plane = (size_t)bh * T;
-  const bf16 *qp = q + plane * KD, *kp = k + plane * KD, *vp = v + plane * vld;
-  float o[16][4] = {};
-  float rs[2] = {0.f, 0.f};  // v2, v3, v5: this thread's part of rows g, g + 8
-  float c8[4] = {0.f, 0.f, 0.f, 0.f};  // v4, v6: e times ones / V's columns KD ..
-  for (int k0 = 0; k0 < T; k0 += W_KEYS) {
-    float s[8][4];
-    w_tile_scores(s, qt, kt, qp, kp, T, KD, row0, k0, qs, [&] {
-      w_stage(vt, vp, vld, T, k0, slab * W_COLS, W_COLS, 0, nullptr);
-      if (VAR == 6) w_stage(vt, vp, vld, T, k0, KD, 8, W_COLS, nullptr);
-    });
-    w_exp<CLAMPED>(s, k0, T);
-    uint32_t a[4][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (VAR != 4 && VAR != 6) {
-        rs[0] += s[j][0];
-        rs[0] += s[j][1];
-        rs[1] += s[j][2];
-        rs[1] += s[j][3];
+// the barriers' counts (one thread): every consumer thread passes every
+// ring entry
+__device__ __forceinline__ void wout_init(const WOut& w) {
+  for (int i = 0; i < w.ring.slots; ++i) {
+    mbar_init(&w.ring.full[i], 1);
+    mbar_init(&w.ring.empty[i], w.G * WG_THREADS);
+  }
+  for (int i = 0; i < W_E_SLOTS; ++i) {
+    mbar_init(&w.efull[i], WG_THREADS);
+    mbar_init(&w.eempty[i], w.G * WG_THREADS);
+  }
+  mbar_init(w.qfull, 1);
+  mbar_init(w.qempty, w.G * WG_THREADS);
+}
+
+// An item's entries, from its first on: step t = 0 .. nk holds K of tile t
+// (t < nk; NS entries, or NS (Q, K) pairs where Q streams), then V of tile
+// t - 1 (t > 0; the item's nsl output slabs). First entry of tile t's K:
+__device__ __forceinline__ int wk_entry(const WOut& w, int nsl, int t) {
+  return t * (w.NS * (1 + w.qs) + nsl) - (t > 0 ? nsl : 0);
+}
+// ... and of tile t's V
+__device__ __forceinline__ int wv_entry(const WOut& w, int nsl, int t) {
+  const int ku = w.NS * (1 + w.qs);
+  return (t + 1) * (ku + nsl) - nsl + (t + 1 < w.nk ? ku : 0);
+}
+
+// The producer thread, one item: (head plane, slabs g0 .. g0 + nsl - 1,
+// query rows from row0), its entries numbered from n0
+template <int SUM>
+__device__ void wout_produce(const WOut& w, int item, int plane, int g0, int nsl, int row0,
+                             int n0) {
+  if (!w.qs) {
+    if (item > 0) mbar_wait(w.qempty, (item - 1) & 1);
+    mbar_expect_tx(w.qfull, w.NS * SLAB);
+    for (int s = 0; s < w.NS; ++s)
+      Slab::load(w.q + s * SLAB, w.mq, w.qfull, row0, plane, s * SLAB_COLS);
+  }
+  int n = n0;
+  for (int t = 0; t <= w.nk; ++t) {
+    if (t < w.nk)
+      for (int s = 0; s < w.NS; ++s) {
+        if (w.qs) {
+          uint8_t* slot = w.ring.claim(n, SLAB);
+          Slab::load(slot, w.mq, w.ring.bar(n), row0, plane, s * SLAB_COLS);
+          ++n;
+        }
+        const bool cols = SUM == SUM_V_COLS && s == w.NS - 1;
+        uint8_t* slot = w.ring.claim(n, SLAB + (cols ? COLS_BYTES : 0));
+        Slab::load(slot, w.mk, w.ring.bar(n), t * TILE, plane, s * SLAB_COLS);
+        if (cols)
+          tma_load_box(slot + SLAB, w.mc, w.ring.bar(n), w.NS * SLAB_COLS, t * TILE, plane);
+        ++n;
       }
-      a[j / 2][(j % 2) * 2] = pack2f(s[j][0], s[j][1]);
-      a[j / 2][(j % 2) * 2 + 1] = pack2f(s[j][2], s[j][3]);
-    }
-#pragma unroll
-    for (int kk = 0; kk < W_KEYS / 16; ++kk) {
-      const bf16* vb = vt + (16 * kk + 2 * t) * W_LD + g;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const bf16* b = vb + 8 * j;
-        mma16816(o[j], a[kk], pack2(b[0], b[W_LD]), pack2(b[8 * W_LD], b[9 * W_LD]));
+    if (t > 0)
+      for (int c = 0; c < nsl; ++c) {
+        uint8_t* slot = w.ring.claim(n, SLAB);
+        Slab::load(slot, w.mv, w.ring.bar(n), (t - 1) * TILE, plane, (g0 + c) * SLAB_COLS);
+        ++n;
       }
-      if (VAR == 4) mma16816(c8, a[kk], BF16_ONES, BF16_ONES);
-      if (VAR == 6) {
-        const bf16* b = vb + W_COLS;
-        mma16816(c8, a[kk], pack2(b[0], b[W_LD]), pack2(b[8 * W_LD], b[9 * W_LD]));
-      }
-    }
   }
-  float sum0, sum1;
-  if (VAR == 4) {  // every column of the product is the row sum
-    sum0 = c8[0];
-    sum1 = c8[2];
-  } else if (VAR == 6) {  // column KD: the quad's first thread holds it
-    sum0 = __shfl_sync(0xffffffffu, c8[0], lane & ~3);
-    sum1 = __shfl_sync(0xffffffffu, c8[2], lane & ~3);
+}
+
+// A warpgroup's e fragments (e_frags's layout) into a 64 x 64 bf16 tile of
+// the tile convention (128-byte rows under the 128-byte swizzle): wgmma's
+// K-major A operand. Eight rows of a warp's store land on eight chunks of
+// the swizzle, so the 32 lanes hit 32 banks.
+__device__ __forceinline__ void store_e(uint8_t* tile, const uint32_t (&pa)[4][4], int lt) {
+  const int ra = ((lt >> 5) & 3) * 16 + ((lt & 31) >> 2), tig = lt & 3;
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<uint32_t*>(
+          tile + swz128(ra + 8 * (i & 1), 16 * kc + 8 * (i >> 1) + 2 * tig)) = pa[kc][i];
+}
+
+// Entries from the cursor nc up to (not with) n that this warpgroup does
+// not use: taken and given back at once
+__device__ __forceinline__ void wout_pass(const WOut& w, int& nc, int n) {
+  for (; nc < n; ++nc) {
+    w.ring.take(nc);
+    w.ring.give(nc);
+  }
+}
+
+// the entry n that this warpgroup uses, past the ones before it
+__device__ __forceinline__ uint8_t* wout_take(const WOut& w, int& nc, int n) {
+  wout_pass(w, nc, n);
+  nc = n + 1;
+  return w.ring.take(n);
+}
+
+// Takes the entries n .. m of the ring (a streamed Q slab, at an even
+// offset from `first`, scaled where it arrived)
+__device__ __forceinline__ void wout_take_run(const WOut& w, int& nc, int first, int n, int m,
+                                              int lt, int wg, __nv_bfloat162 s2) {
+  for (int i = n; i <= m; ++i) {
+    uint8_t* slot = wout_take(w, nc, i);
+    if (w.qs && ((i - first) & 1) == 0) scale_slabs(slot, SLAB, s2, lt, WG_THREADS);
+  }
+  if (w.qs) warpgroup_sync(wg);
+}
+
+// S += Q K^T of slab sl, whose entries start at nq (Q, where it streams)
+__device__ __forceinline__ void wout_slab_products(const WOut& w, float (&s)[32], int sl, int nq) {
+  const uint8_t* qt = w.qs ? w.ring.slot(nq) : w.q + sl * SLAB;
+  const uint8_t* kt = w.ring.slot(nq + w.qs);
+#pragma unroll
+  for (int kc = 0; kc < Slab::KSTEPS; ++kc)
+    wgmma_ss<0>(s, Slab::kmajor(qt, kc), Slab::kmajor(kt, kc), sl | kc);
+}
+
+// S of key tile t into s, from entry n on, every slab in order: one chain
+// of products waited once where the ring holds all the tile's entries at
+// once, else one chain a slab. Gives the entries back once their products
+// are done; v6's last K slab stays taken (its column box is read next):
+// returned, with its entry in `held`.
+template <int SUM>
+__device__ __forceinline__ const uint8_t* wout_scores(const WOut& w, float (&s)[32], int n,
+                                                      int& nc, int lt, int wg, __nv_bfloat162 s2,
+                                                      int& held) {
+  const int ku = w.NS * (1 + w.qs), last = n + ku - 1;
+  if (ku <= w.ring.slots) {
+    wout_take_run(w, nc, n, n, last, lt, wg, s2);
+    fence_regs(s);
+    wgmma_fence();
+    for (int sl = 0; sl < w.NS; ++sl) wout_slab_products(w, s, sl, n + sl * (1 + w.qs));
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(s);
+    for (int i = n; i < last; ++i) w.ring.give(i);
   } else {
-    sum0 = rs[0] + __shfl_xor_sync(0xffffffffu, rs[0], 1);
-    sum1 = rs[1] + __shfl_xor_sync(0xffffffffu, rs[1], 1);
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
+    for (int sl = 0; sl < w.NS; ++sl) {
+      const int nq = n + sl * (1 + w.qs);
+      wout_take_run(w, nc, n, nq, nq + w.qs, lt, wg, s2);
+      fence_regs(s);
+      wgmma_fence();
+      wout_slab_products(w, s, sl, nq);
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(s);
+      for (int i = nq; i < nq + w.qs + (sl + 1 < w.NS); ++i) w.ring.give(i);
+    }
   }
-  const float r0 = __fdiv_rn(1.f, fmaxf(sum0, 1e-30f)), r1 = __fdiv_rn(1.f, fmaxf(sum1, 1e-30f));
-  const int row = row0 + warp * 16 + g;
+  if (SUM == SUM_V_COLS) {
+    held = last;
+    return w.ring.slot(last);
+  }
+  w.ring.give(last);
+  return nullptr;
+}
+
+// Key tile t, by its owner: S, e into e tile t (once the warpgroups are
+// done with the tile that used its slot before), and this warpgroup's part
+// of the row sums
+template <int SUM, bool CLAMPED>
+__device__ __forceinline__ void wout_own(const WOut& w, float (&rs)[4], float& sum_a,
+                                         float& sum_b, int t, int n, int& nc, int eu, int lt,
+                                         int wg, __nv_bfloat162 s2) {
+  float s[32];
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int col = slab * W_COLS + 8 * j + 2 * t;
-    if (row < T)
-      *reinterpret_cast<uint32_t*>(out + (plane + row) * KD + col) =
-          pack2f(__fmul_rn(o[j][0], r0), __fmul_rn(o[j][1], r0));
-    if (row + 8 < T)
-      *reinterpret_cast<uint32_t*>(out + (plane + row + 8) * KD + col) =
-          pack2f(__fmul_rn(o[j][2], r1), __fmul_rn(o[j][3], r1));
-  }
-  if (slab == 0 && t == 0) {
-    if (row < T) recip[plane + row] = r0;
-    if (row + 8 < T) recip[plane + row + 8] = r1;
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  int held = 0;
+  const uint8_t* last = wout_scores<SUM>(w, s, n, nc, lt, wg, s2, held);
+  uint32_t pa[4][4];
+  e_frags<CLAMPED>(pa, s, t * TILE, w.T, lt & 3);
+  const int es = eu % W_E_SLOTS;
+  if (eu >= W_E_SLOTS) mbar_wait(&w.eempty[es], ((eu / W_E_SLOTS) - 1) & 1);
+  store_e(w.e + es * TILE_BYTES, pa, lt);
+  fence_async_cta();
+  mbar_arrive(&w.efull[es]);
+  if constexpr (SUM == SUM_SHUFFLE) {
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      sum_a += (bf_lo(pa[kc][0]) + bf_hi(pa[kc][0])) + (bf_lo(pa[kc][2]) + bf_hi(pa[kc][2]));
+      sum_b += (bf_lo(pa[kc][1]) + bf_hi(pa[kc][1])) + (bf_lo(pa[kc][3]) + bf_hi(pa[kc][3]));
+    }
+  } else {
+    fence_regs4(rs);
+    fence_regs(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      if constexpr (SUM == SUM_MMA_ONES)
+        wgmma_rs_n8<0>(rs, pa[kc], desc_kmajor(w.ones, 0), 1);
+      else
+        wgmma_rs_n8<1>(rs, pa[kc], desc_cols(last + SLAB, kc), 1);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs4(rs);
+    fence_regs(pa);
+    if constexpr (SUM == SUM_V_COLS) w.ring.give(held);
   }
 }
 
-// One warp's mean rows against keys k0 .. k0 + 63 of image b: per head in
-// head order, e * (recip_h * (1 / H)) added in f32 (V5: e * recip_h, the sum
-// divided by H at the end), stored as bf16
-template <bool CLAMPED, bool V5>
-__device__ void w_mean_tile(bf16* smem, const bf16* q, const bf16* k, const float* recip,
-                            bf16* mean, int b, int H, int T, int KD, int row0, int k0,
-                            const __nv_bfloat162* qs) {
-  bf16 *qt = smem, *kt = smem + W_TILE;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int row = row0 + warp * 16 + g;
-  const float inv_h = 1.f / H;
-  float acc[8][4] = {};
-  for (int h = 0; h < H; ++h) {
-    const size_t plane = (size_t)(b * H + h) * T;
-    float s[8][4];
-    w_tile_scores(s, qt, kt, q + plane * KD, k + plane * KD, T, KD, row0, k0, qs, [] {});
-    w_exp<CLAMPED>(s, k0, T);
-    float r0 = row < T ? recip[plane + row] : 0.f, r1 = row + 8 < T ? recip[plane + row + 8] : 0.f;
-    if (!V5) {
-      r0 = __fmul_rn(r0, inv_h);
-      r1 = __fmul_rn(r1, inv_h);
+// One item for warpgroup c of W: (head plane, slabs g0 .., rows from row0),
+// its entries from n0 on, its e tiles counted from e0 on. O of slab g0 + c
+// (if the item has it), S of the key tiles t with t % G == c, one tile
+// ahead; then the row sums over the warpgroups in order, out and (slab 0)
+// the recips.
+template <int SUM, bool CLAMPED>
+__device__ void wout_consume(const WOut& w, int W, int item, int plane, int g0, int nsl,
+                             int row0, int n0, int e0, int c, bf16* __restrict__ out,
+                             float* __restrict__ recip, __nv_bfloat162 s2) {
+  const int ct = threadIdx.x, lt = ct & 127, tig = ct & 3, wg = ct >> 7;
+  const int la = ((lt >> 5) & 3) * 16 + ((lt & 31) >> 2);
+  if (!w.qs) {
+    mbar_wait(w.qfull, item & 1);
+    scale_slabs(w.q, w.NS * SLAB, s2, ct, W * WG_THREADS);
+    consumers_sync(W * WG_THREADS);
+  }
+  float o[64], rs[4] = {0.f, 0.f, 0.f, 0.f};
+  float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  // Tile t's K entries: its owner's S; the other warpgroups pass them
+  // before they wait for an e tile, so that a ring shorter than NS slabs
+  // still fills
+  const int ku = w.NS * (1 + w.qs);
+  int nc = n0;  // the next ring entry this warpgroup passes
+  auto tile_k = [&](int t) {
+    if (t % w.G == c)
+      wout_own<SUM, CLAMPED>(w, rs, sum_a, sum_b, t, n0 + wk_entry(w, nsl, t), nc, e0 + t, lt, wg,
+                             s2);
+    else
+      wout_pass(w, nc, n0 + wk_entry(w, nsl, t) + ku);
+  };
+  tile_k(0);
+  for (int j = 0; j < w.nk; ++j) {
+    if (j + 1 < w.nk) tile_k(j + 1);
+    const int eu = e0 + j, es = eu % W_E_SLOTS;
+    mbar_wait(&w.efull[es], (eu / W_E_SLOTS) & 1);
+    if (c < nsl) {
+      const int nv = n0 + wv_entry(w, nsl, j) + c;
+      const uint8_t* vt = wout_take(w, nc, nv);
+      const uint8_t* et = w.e + es * TILE_BYTES;
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+        wgmma_ss<1>(o, desc_kmajor(et, kc), Slab::mnmajor(vt, kc), 1);
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(o);
+      w.ring.give(nv);
     }
+    mbar_arrive(&w.eempty[es]);
+    // past every V slab of tile j, so that a warpgroup without a slab (the
+    // last group's) does not hold the ring until its next S
+    wout_pass(w, nc, n0 + wv_entry(w, nsl, j) + nsl);
+  }
+
+  if constexpr (SUM == SUM_SHUFFLE) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      sum_a += __shfl_xor_sync(0xffffffffu, sum_a, off);
+      sum_b += __shfl_xor_sync(0xffffffffu, sum_b, off);
+    }
+  } else if constexpr (SUM == SUM_V_COLS) {  // column KD: the quad's first thread holds it
+    const int lead = ct & 28;
+    sum_a = __shfl_sync(0xffffffffu, rs[0], lead);
+    sum_b = __shfl_sync(0xffffffffu, rs[2], lead);
+  } else {  // every column of e @ ones is the row sum
+    sum_a = rs[0];
+    sum_b = rs[2];
+  }
+  if (tig == 0) {
+    w.red[c * TILE + la] = sum_a;
+    w.red[c * TILE + la + 8] = sum_b;
+  }
+  consumers_sync(W * WG_THREADS);
+  float ta = w.red[la], tb = w.red[la + 8];
+  for (int i = 1; i < w.G; ++i) {  // the warpgroups in order: the same bits in every slab
+    ta += w.red[i * TILE + la];
+    tb += w.red[i * TILE + la + 8];
+  }
+  const float inv_a = 1.f / fmaxf(ta, 1e-30f), inv_b = 1.f / fmaxf(tb, 1e-30f);
+  const int r_a = row0 + la, r_b = r_a + 8, KD = w.NS * SLAB_COLS;
+  if (c < nsl) {
+    bf16* oh = out + (size_t)plane * w.T * KD + (g0 + c) * SLAB_COLS;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = j * 8 + tig * 2;
+      if (r_a < w.T)
+        *reinterpret_cast<uint32_t*>(oh + (size_t)r_a * KD + col) =
+            pack_bf16(o[4 * j] * inv_a, o[4 * j + 1] * inv_a);
+      if (r_b < w.T)
+        *reinterpret_cast<uint32_t*>(oh + (size_t)r_b * KD + col) =
+            pack_bf16(o[4 * j + 2] * inv_b, o[4 * j + 3] * inv_b);
+    }
+  }
+  if (c == 0 && g0 == 0 && tig == 0) {
+    float* rh = recip + (size_t)plane * w.T;
+    if (r_a < w.T) rh[r_a] = inv_a;
+    if (r_b < w.T) rh[r_b] = inv_b;
+  }
+  mbar_arrive(w.qempty);
+  consumers_sync(W * WG_THREADS);  // the row sums are read before the next item writes them
+}
+
+// ------------------------------------------------ wide mean pass, the body
+
+// A lane's ring; entry n = slab n % NS of unit n / NS; unit u = the lane's
+// key tile u / H, head u % H. An entry holds K's slab, then the Q slab of
+// each of the lane's R row tiles.
+struct WMean {
+  WRing ring;
+  int NS, R, H, T;
+};
+
+// the lane's producer: `ntiles` key tiles kt0, kt0 + kstep, ... of image b,
+// rows from row0
+__device__ void wmean_produce(const WMean& m, const CUtensorMap* mq, const CUtensorMap* mk,
+                              int b, int row0, int kt0, int kstep, int ntiles) {
+  int n = 0;
+  for (int p = 0; p < ntiles; ++p)
+    for (int h = 0; h < m.H; ++h)
+      for (int s = 0; s < m.NS; ++s, ++n) {
+        uint8_t* slot = m.ring.claim(n, (1 + m.R) * SLAB);
+        const int plane = b * m.H + h;
+        Slab::load(slot, mk, m.ring.bar(n), (kt0 + p * kstep) * TILE, plane, s * SLAB_COLS);
+        for (int r = 0; r < m.R; ++r)
+          Slab::load(slot + (1 + r) * SLAB, mq, m.ring.bar(n), row0 + r * TILE, plane,
+                     s * SLAB_COLS);
+      }
+}
+
+// e of accumulator entry i of S (e_frags's arithmetic one element at a
+// time: the same bits), 0 for a key past T
+template <bool CLAMPED>
+__device__ __forceinline__ float e_at(float s, bool valid) {
+  const float x = valid ? s : -INFINITY;
+  return __bfloat162float(__float2bfloat16_rn(ex2(CLAMPED ? fminf(x - SHIFT, CLAMP) : x - SHIFT)));
+}
+
+// Row tile r of the lane, warpgroup wg: per unit, S over the slabs (the out
+// pass's order), e, acc += e * c_h in head order (the product, then the
+// sum: no FMA), c_h = recip_h / H (v2, v3, v4, v6) or recip_h (v5, whose
+// sum is divided by H once before the store); each mean tile stored after
+// its last head. `recip`: the image's (H, T), `mean` its (T, T).
+template <bool CLAMPED, bool V5>
+__device__ void wmean_consume(const WMean& m, int r, int wg, const float* recip,
+                              bf16* __restrict__ mean, int row0, int kt0, int kstep, int ntiles,
+                              __nv_bfloat162 s2) {
+  const int lt = threadIdx.x & 127, tig = lt & 3;
+  const int r_a = row0 + r * TILE + ((lt >> 5) & 3) * 16 + ((lt & 31) >> 2), r_b = r_a + 8;
+  const int T = m.T;
+  const float inv_h = 1.f / (float)m.H;
+  float s[32], acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = acc[i] = 0.f;
+  int n = 0;
+  for (int p = 0; p < ntiles; ++p) {
+    const int key0 = (kt0 + p * kstep) * TILE;
+    const bool ragged = key0 + TILE > T;
+    for (int h = 0; h < m.H; ++h) {
+      for (int sl = 0; sl < m.NS; ++sl, ++n) {
+        uint8_t* slot = m.ring.take(n);
+        uint8_t* qt = slot + (1 + r) * SLAB;
+        scale_slabs(qt, SLAB, s2, lt, WG_THREADS);
+        warpgroup_sync(wg);
+        fence_regs(s);
+        wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < Slab::KSTEPS; ++kc)
+          wgmma_ss<0>(s, Slab::kmajor(qt, kc), Slab::kmajor(slot, kc), sl | kc);
+        wgmma_commit();
+        wgmma_wait();
+        fence_regs(s);
+        m.ring.give(n);
+      }
+      const float* rh = recip + (size_t)h * T;
+      float c_a = 0.f, c_b = 0.f;
+      if (V5) {
+        if (r_a < T) c_a = __ldcg(rh + r_a);
+        if (r_b < T) c_b = __ldcg(rh + r_b);
+      } else {
+        if (r_a < T) c_a = rh[r_a] * inv_h;
+        if (r_b < T) c_b = rh[r_b] * inv_h;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const float e = e_at<CLAMPED>(s[i], !ragged || key0 + acc_col(i, tig) < T);
+        acc[i] = __fadd_rn(acc[i], __fmul_rn(e, (i & 2) ? c_b : c_a));
+      }
+    }
+    // every head summed: the tile (v5: the sum divided by H once)
+    const float hf = (float)m.H;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      acc[j][0] = __fadd_rn(acc[j][0], __fmul_rn(s[j][0], r0));
-      acc[j][1] = __fadd_rn(acc[j][1], __fmul_rn(s[j][1], r0));
-      acc[j][2] = __fadd_rn(acc[j][2], __fmul_rn(s[j][2], r1));
-      acc[j][3] = __fadd_rn(acc[j][3], __fmul_rn(s[j][3], r1));
-    }
-  }
-  bf16* mrow = mean + (size_t)b * T * T;
+      const int col = key0 + j * 8 + tig * 2;
+      float x[4];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int key = k0 + 8 * j + 2 * t;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = row + (i >= 2 ? 8 : 0), c = key + (i & 1);
-      const float x = V5 ? __fdiv_rn(acc[j][i], (float)H) : acc[j][i];
-      if (r < T && c < T) mrow[(size_t)r * T + c] = __float2bfloat16(x);
+      for (int i = 0; i < 4; ++i) x[i] = V5 ? __fdiv_rn(acc[4 * j + i], hf) : acc[4 * j + i];
+      store_mean2(mean, r_a, col, T, x[0], x[1]);
+      store_mean2(mean, r_b, col, T, x[2], x[3]);
     }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
   }
 }
 
-#define WIDE_OUT_ARGS                                                                        \
-  const bf16 *q, const bf16 *k, const bf16 *v, bf16 *out, float *recip, int H, int T, int KD, \
-      __nv_bfloat162 qs
-#define WIDE_OUT(NAME, VAR)                                                        \
-  __global__ void __launch_bounds__(W_THREADS) NAME(WIDE_OUT_ARGS) {              \
-    extern __shared__ __align__(16) bf16 w_smem[];                                 \
-    w_out_slab<VAR>(w_smem, q, k, v, out, recip, blockIdx.z, T, KD,               \
-                    blockIdx.x * W_ROWS, blockIdx.y, &qs);                         \
+// ------------------------------------------------ wide kernels
+
+// out pass of v2, v3, v4, v6: one item per block
+template <int W, int SUM, bool CLAMPED>
+__device__ __forceinline__ void wide_out(const CUtensorMap& mq, const CUtensorMap& mk,
+                                         const CUtensorMap& mv, const CUtensorMap& mc,
+                                         bf16* __restrict__ out, float* __restrict__ recip,
+                                         const WideArgs& a, float qscale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  WOut w = wout_layout<SUM>(smem, a);
+  w.mq = &mq;
+  w.mk = &mk;
+  w.mv = &mv;
+  w.mc = &mc;
+  if (threadIdx.x == 0) {
+    wout_init(w);
+    mbar_init_fence();
   }
-WIDE_OUT(attn_v2_wide, 2)
-WIDE_OUT(attn_v3_wide, 3)
-WIDE_OUT(attn_v4_wide, 4)
-WIDE_OUT(attn_v6_wide, 6)
-
-#define WIDE_MEAN_ARGS                                                                \
-  const bf16 *q, const bf16 *k, const float *recip, bf16 *mean, int H, int T, int KD, \
-      __nv_bfloat162 qs
-__global__ void __launch_bounds__(W_THREADS) attn_var_mean_wide(WIDE_MEAN_ARGS) {
-  extern __shared__ __align__(16) bf16 w_smem[];
-  w_mean_tile<true, false>(w_smem, q, k, recip, mean, blockIdx.z, H, T, KD, blockIdx.x * W_ROWS,
-                           blockIdx.y * W_KEYS, &qs);
-}
-__global__ void __launch_bounds__(W_THREADS) attn_var_mean_nomin_wide(WIDE_MEAN_ARGS) {
-  extern __shared__ __align__(16) bf16 w_smem[];
-  w_mean_tile<false, false>(w_smem, q, k, recip, mean, blockIdx.z, H, T, KD, blockIdx.x * W_ROWS,
-                            blockIdx.y * W_KEYS, &qs);
+  if (SUM == SUM_MMA_ONES) {
+    for (int i = threadIdx.x; i < ONES_BYTES / 4; i += blockDim.x)
+      reinterpret_cast<uint32_t*>(w.ones)[i] = BF16_ONES;
+    fence_async_cta();
+  }
+  __syncthreads();
+  const int plane = blockIdx.z, g0 = blockIdx.y * a.G, row0 = blockIdx.x * TILE;
+  const int nsl = a.G < a.NS - g0 ? a.G : a.NS - g0;
+  if (threadIdx.x >= W * WG_THREADS) {
+    if (threadIdx.x == W * WG_THREADS) wout_produce<SUM>(w, 0, plane, g0, nsl, row0, 0);
+    return;
+  }
+  wout_consume<SUM, CLAMPED>(w, W, 0, plane, g0, nsl, row0, 0, 0, threadIdx.x >> 7, out, recip,
+                             __float2bfloat162_rn(qscale));
 }
 
-// v5: every (head, slab) of the block's rows, then their mean over all keys
-__global__ void __launch_bounds__(W_THREADS)
-    attn_v5_wide(const bf16* q, const bf16* k, const bf16* v, bf16* out, bf16* mean,
-                 float* recip, int H, int T, int KD, __nv_bfloat162 qs) {
-  extern __shared__ __align__(16) bf16 w_smem[];
-  const int b = blockIdx.y, row0 = blockIdx.x * W_ROWS;
-  for (int h = 0; h < H; ++h)
-    for (int slab = 0; slab < KD / W_COLS; ++slab)
-      w_out_slab<5>(w_smem, q, k, v, out, recip, b * H + h, T, KD, row0, slab, &qs);
-  __syncthreads();  // the recips of every head, written above, read below
-  for (int k0 = 0; k0 < T; k0 += W_KEYS)
-    w_mean_tile<true, true>(w_smem, q, k, recip, mean, b, H, T, KD, row0, k0, &qs);
+#define WIDE_OUT_ARGS                                                                         \
+  const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,       \
+      const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_c,   \
+      bf16 *__restrict__ out, float *__restrict__ recip, WideArgs a, float qscale
+#define WIDE_OUT(NAME, SUM, CLAMPED)                                                          \
+  template <int W>                                                                            \
+  __global__ void __launch_bounds__(W* WG_THREADS + W_PRODUCER, 1) NAME(WIDE_OUT_ARGS) {       \
+    wide_out<W, SUM, CLAMPED>(map_q, map_k, map_v, map_c, out, recip, a, qscale);             \
+  }
+WIDE_OUT(attn_v2_wide, SUM_SHUFFLE, true)
+WIDE_OUT(attn_v3_wide, SUM_SHUFFLE, false)
+WIDE_OUT(attn_v4_wide, SUM_MMA_ONES, true)
+WIDE_OUT(attn_v6_wide, SUM_V_COLS, true)
+#undef WIDE_OUT
+
+// mean pass of v2, v4, v6 (clamped) and v3: one lane of WM_ROWS warpgroups
+template <bool CLAMPED>
+__device__ __forceinline__ void wide_mean(const CUtensorMap& mq, const CUtensorMap& mk,
+                                          const float* __restrict__ recip,
+                                          bf16* __restrict__ mean, const WideArgs& a,
+                                          float qscale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  WMean m;
+  m.NS = a.NS;
+  m.R = WM_ROWS;
+  m.H = a.H;
+  m.T = a.T;
+  m.ring.base = smem;
+  m.ring.slots = WM_SLOTS;
+  m.ring.bytes = (1 + WM_ROWS) * SLAB;
+  m.ring.full = reinterpret_cast<uint64_t*>(smem + WM_SLOTS * m.ring.bytes + W_RED_BYTES);
+  m.ring.empty = m.ring.full + WM_SLOTS;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < WM_SLOTS; ++i) {
+      mbar_init(&m.ring.full[i], 1);
+      mbar_init(&m.ring.empty[i], WM_ROWS * WG_THREADS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int b = blockIdx.z, row0 = blockIdx.y * WM_ROWS * TILE, kt0 = blockIdx.x * a.chunk;
+  const int nk = (a.T + TILE - 1) / TILE;
+  const int ntiles = a.chunk < nk - kt0 ? a.chunk : nk - kt0;
+  if (threadIdx.x >= WM_ROWS * WG_THREADS) {
+    if (threadIdx.x == WM_ROWS * WG_THREADS)
+      wmean_produce(m, &mq, &mk, b, row0, kt0, 1, ntiles);
+    return;
+  }
+  const int wg = threadIdx.x >> 7;
+  wmean_consume<CLAMPED, false>(m, wg, wg, recip + (size_t)b * a.H * a.T,
+                                mean + (size_t)b * a.T * a.T, row0, kt0, 1, ntiles,
+                                __float2bfloat162_rn(qscale));
+}
+
+#define WIDE_MEAN_ARGS                                                                  \
+  const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k, \
+      const float *__restrict__ recip, bf16 *__restrict__ mean, WideArgs a, float qscale
+__global__ void __launch_bounds__(WM_THREADS, WM_BLOCKS_PER_SM)
+    attn_var_mean_wide(WIDE_MEAN_ARGS) {
+  wide_mean<true>(map_q, map_k, recip, mean, a, qscale);
+}
+__global__ void __launch_bounds__(WM_THREADS, WM_BLOCKS_PER_SM)
+    attn_var_mean_nomin_wide(WIDE_MEAN_ARGS) {
+  wide_mean<false>(map_q, map_k, recip, mean, a, qscale);
+}
+
+// v5: one block = rank r of a cluster of C over query rows blockIdx.y * 64
+// of image blockIdx.z. Sweep 1: heads r, r + C, ..., every slab group
+// (items in that order), v2's out pass; the recips into `work`. Sweep 2:
+// key tiles [r nk / C, (r + 1) nk / C) over every head, lane l of the
+// block's `lanes` (warpgroup l, producer lane l) taking every lanes-th of
+// them; a warpgroup past the lanes rests.
+template <int W>
+__global__ void __launch_bounds__(W* WG_THREADS + W_PRODUCER, 1)
+    attn_v5_wide(const __grid_constant__ CUtensorMap map_q,
+                 const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ out,
+                 bf16* __restrict__ mean, float* __restrict__ work, WideArgs a, float qscale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  WOut w = wout_layout<SUM_SHUFFLE>(smem, a);
+  w.mq = &map_q;
+  w.mk = &map_k;
+  w.mv = &map_v;
+  w.mc = &map_v;
+  uint64_t* bars2 = w.qempty + 1;  // sweep 2: lane l's full at 2 W5_SLOTS l, then its empty
+  const int H = a.H, T = a.T, nk = (T + TILE - 1) / TILE, b = blockIdx.z;
+  const int row0 = blockIdx.y * TILE;
+  const int wg = threadIdx.x >> 7, producer = W * WG_THREADS;
+  const int l = threadIdx.x >= producer ? threadIdx.x - producer : wg;  // sweep 2's lane
+  WMean lane;
+  lane.NS = a.NS;
+  lane.R = 1;
+  lane.H = H;
+  lane.T = T;
+  lane.ring.slots = W5_SLOTS;
+  lane.ring.bytes = 2 * SLAB;
+  lane.ring.base = smem + l * W5_SLOTS * lane.ring.bytes;
+  lane.ring.full = bars2 + 2 * W5_SLOTS * l;
+  lane.ring.empty = lane.ring.full + W5_SLOTS;
+  if (threadIdx.x == 0) {
+    wout_init(w);
+    for (int i = 0; i < a.lanes * W5_SLOTS; ++i) {
+      mbar_init(&bars2[2 * W5_SLOTS * (i / W5_SLOTS) + i % W5_SLOTS], 1);
+      mbar_init(&bars2[2 * W5_SLOTS * (i / W5_SLOTS) + W5_SLOTS + i % W5_SLOTS], WG_THREADS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const __nv_bfloat162 s2 = __float2bfloat162_rn(qscale);
+
+  // ---- sweep 1: out of this rank's heads
+  const int nh = rank < H ? (H - 1 - rank) / C + 1 : 0;
+  for (int item = 0, n0 = 0; item < nh * a.groups; ++item) {
+    const int plane = b * H + rank + item / a.groups * C, g0 = item % a.groups * a.G;
+    const int nsl = a.G < a.NS - g0 ? a.G : a.NS - g0;
+    if (threadIdx.x == producer)
+      wout_produce<SUM_SHUFFLE>(w, item, plane, g0, nsl, row0, n0);
+    else if (threadIdx.x < producer)
+      wout_consume<SUM_SHUFFLE, true>(w, W, item, plane, g0, nsl, row0, n0, item * nk, wg, out,
+                                      work, s2);
+    n0 += nk * (a.NS * (1 + a.qstream) + nsl);
+  }
+  __syncwarp();
+  cl.sync();  // every rank's recips are in the workspace
+
+  // ---- sweep 2: the mean of this rank's key tiles
+  const int kt0 = rank * nk / C, nr = (rank + 1) * nk / C - kt0;
+  const int ntiles = nr > l ? (nr - 1 - l) / a.lanes + 1 : 0;
+  if (l < a.lanes) {
+    if (threadIdx.x >= producer)
+      wmean_produce(lane, &map_q, &map_k, b, row0, kt0 + l, a.lanes, ntiles);
+    else
+      wmean_consume<true, true>(lane, 0, wg, work + (size_t)b * H * T, mean + (size_t)b * T * T,
+                                row0, kt0 + l, a.lanes, ntiles, s2);
+  }
+}
+
+// the kernel of the out pass of `variant` with W consumer warpgroups
+const void* wide_out_kernel(int variant, int W) {
+#define WIDE_OUT_FOR(WW)                                 \
+  if (W == WW) switch (variant) {                        \
+      case 2: return (const void*)attn_v2_wide<WW>;      \
+      case 3: return (const void*)attn_v3_wide<WW>;      \
+      case 4: return (const void*)attn_v4_wide<WW>;      \
+      case 6: return (const void*)attn_v6_wide<WW>;      \
+    }
+  WIDE_OUT_FOR(2)
+  WIDE_OUT_FOR(3)
+#undef WIDE_OUT_FOR
+  return nullptr;
+}
+
+const void* wide_v5_kernel(int W) {
+  switch (W) {
+    case 2: return (const void*)attn_v5_wide<2>;
+    case 3: return (const void*)attn_v5_wide<3>;
+  }
+  return nullptr;
+}
+
+cudaError_t device_sms(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return err;
 }
 
 // variants 2..6 on the wide route at head dim KD (a multiple of 128 above
 // 128): v2, v3, v4, v6 two kernels (out pass, mean pass), v5 one
 int wide_variant(int variant, const void* q, const void* k, const void* v, void* out,
-                 void* mean, void* recip, int B, int H, int T, int KD, float qscale,
+                 void* mean, void* work, int B, int H, int T, int KD, float qscale,
                  cudaStream_t stream) {
-  if (recip == nullptr || H < 1 || T < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  const void* out_kern;
-  switch (variant) {
-    case 2: out_kern = (const void*)attn_v2_wide; break;
-    case 3: out_kern = (const void*)attn_v3_wide; break;
-    case 4: out_kern = (const void*)attn_v4_wide; break;
-    case 5: out_kern = (const void*)attn_v5_wide; break;
-    case 6: out_kern = (const void*)attn_v6_wide; break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out))
-    return (int)cudaErrorMisalignedAddress;
-  cudaError_t err = max_shared(out_kern, W_OUT_SMEM);
+  if (work == nullptr || H < 1 || T < 1 || B < 1 || variant < 2 || variant > 6)
+    return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t err = device_sms(&sms);
   if (err != cudaSuccess) return (int)err;
-  // qscale is bf16 already: its upper 16 bits, in both halves
-  uint32_t bits;
-  memcpy(&bits, &qscale, sizeof(bits));
-  __nv_bfloat162_raw raw;
-  raw.x = raw.y = (unsigned short)(bits >> 16);
-  const __nv_bfloat162 qs(raw);
-  const int nq = (T + W_ROWS - 1) / W_ROWS, nk = (T + W_KEYS - 1) / W_KEYS;
-  const bf16 *bq = (const bf16*)q, *bk = (const bf16*)k, *bv = (const bf16*)v;
+  const WidePlan p = wide_plan(B, H, T, KD, variant, sms);
+  const WideArgs a{KD / SLAB_COLS, p.slabs, p.groups, p.slots, p.qstream,
+                   p.lanes,        p.chunk, H,        T};
+  const void* kern = variant == 5 ? wide_v5_kernel(p.slabs) : wide_out_kernel(variant, p.slabs);
+  if (kern == nullptr) return (int)cudaErrorInvalidConfiguration;
+  // runtime calls first: they make the device's context current on this
+  // thread, which the tensor-map encoding needs
+  err = max_shared(kern, variant == 5 ? p.v5_smem : p.out_smem);
+  const void* mkern = variant == 3 ? (const void*)attn_var_mean_nomin_wide
+                                   : (const void*)attn_var_mean_wide;
+  if (err == cudaSuccess && variant != 5) err = max_shared(mkern, p.mean_smem);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap mq, mk, mv, mc;
+  if (int bad = Slab::map(&mq, q, B * H, T, KD)) return bad;
+  if (int bad = Slab::map(&mk, k, B * H, T, KD)) return bad;
+  if (variant == 6) {  // KD + 8 columns: the slabs, and the 8 columns from KD
+    if (int bad = Slab::map(&mv, v, B * H, T, KD + 8)) return bad;
+    if (int bad = make_plane_map(&mc, v, B * H, T, KD + 8, 8, false)) return bad;
+  } else {
+    if (int bad = Slab::map(&mv, v, B * H, T, KD)) return bad;
+    mc = mv;
+  }
+  if (!aligned16(out) || !aligned16(mean) || !aligned16(work)) return TMA_MISALIGNED;
+  bf16 *ob = (bf16*)out, *mb = (bf16*)mean;
+  float* wb = (float*)work;
   if (variant == 5) {
-    attn_v5_wide<<<dim3(nq, B), W_THREADS, W_OUT_SMEM, stream>>>(
-        bq, bk, bv, (bf16*)out, (bf16*)mean, (float*)recip, H, T, KD, qs);
+    void* args[] = {&mq, &mk, &mv, &ob, &mb, &wb, (void*)&a, &qscale};
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(p.v5_x, p.v5_y, p.v5_z);
+    cfg.blockDim = dim3(p.slabs * WG_THREADS + W_PRODUCER);
+    cfg.dynamicSmemBytes = p.v5_smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = p.cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    if ((err = cudaLaunchKernelExC(&cfg, kern, args)) != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
   }
-  const dim3 grid(nq, KD / W_COLS, B * H);
-  switch (variant) {
-    case 2:
-      attn_v2_wide<<<grid, W_THREADS, W_OUT_SMEM, stream>>>(bq, bk, bv, (bf16*)out,
-                                                            (float*)recip, H, T, KD, qs);
-      break;
-    case 3:
-      attn_v3_wide<<<grid, W_THREADS, W_OUT_SMEM, stream>>>(bq, bk, bv, (bf16*)out,
-                                                            (float*)recip, H, T, KD, qs);
-      break;
-    case 4:
-      attn_v4_wide<<<grid, W_THREADS, W_OUT_SMEM, stream>>>(bq, bk, bv, (bf16*)out,
-                                                            (float*)recip, H, T, KD, qs);
-      break;
-    default:
-      attn_v6_wide<<<grid, W_THREADS, W_OUT_SMEM, stream>>>(bq, bk, bv, (bf16*)out,
-                                                            (float*)recip, H, T, KD, qs);
-  }
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const dim3 mgrid(nq, nk, B);
-  if (variant == 3)
-    attn_var_mean_nomin_wide<<<mgrid, W_THREADS, W_MEAN_SMEM, stream>>>(
-        bq, bk, (const float*)recip, (bf16*)mean, H, T, KD, qs);
-  else
-    attn_var_mean_wide<<<mgrid, W_THREADS, W_MEAN_SMEM, stream>>>(
-        bq, bk, (const float*)recip, (bf16*)mean, H, T, KD, qs);
+  void* oargs[] = {&mq, &mk, &mv, &mc, &ob, &wb, (void*)&a, &qscale};
+  err = cudaLaunchKernel(kern, dim3(p.out_x, p.out_y, p.out_z),
+                         dim3(p.slabs * WG_THREADS + W_PRODUCER), oargs, p.out_smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  void* margs[] = {&mq, &mk, &wb, &mb, (void*)&a, &qscale};
+  err = cudaLaunchKernel(mkern, dim3(p.mean_x, p.mean_y, p.mean_z), dim3(WM_THREADS), margs,
+                         p.mean_smem, stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -1874,9 +2472,10 @@ extern "C" {
 // the denominator is column D of e @ v); mean: (B, T, T) bf16; work: a
 // (B, H, T) f32 workspace (each row's recip: written by the out pass and
 // read by the mean pass; variant 5 uses it only above V5_SMEM_RECIP_HEADS
-// heads). qscale: d^-0.5 * log2(e) of the true head dim, already rounded to
-// bf16. Any H >= 1. Returns a cudaError_t, or a code of make_plane_map
-// (>= 998) when a tensor map cannot be made.
+// heads, and always on the wide route). qscale: d^-0.5 * log2(e) of the
+// true head dim, already rounded to bf16. Any H >= 1. Returns a
+// cudaError_t, or a code of make_plane_map (>= 998) when a tensor map
+// cannot be made.
 int attn_variant_forward(int variant, const void* q, const void* k, const void* v, void* out,
                          void* mean, void* work, int B, int H, int T, int D, float qscale,
                          void* stream) {
@@ -1885,20 +2484,42 @@ int attn_variant_forward(int variant, const void* q, const void* k, const void* 
   if (D == 32) return variant_forward<32>(variant, q, k, v, out, mean, work, B, H, T, qscale, st);
   if (D == 128)
     return variant_forward<128>(variant, q, k, v, out, mean, work, B, H, T, qscale, st);
-  if (wide_head_dim(D)) return wide_variant(variant, q, k, v, out, mean, work, B, H, T, D, qscale, st);
+  if (wide_head_dim(D))
+    return wide_variant(variant, q, k, v, out, mean, work, B, H, T, D, qscale, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // The cluster size attn_variant_forward(5, ...) launches at (B, H, T, D) on
-// the current device (1 on the wide route: no cluster), or minus the
-// cudaError_t that stops it.
+// the current device, or minus the cudaError_t that stops it.
 int attn_v5_cluster(int B, int H, int T, int D) {
   if (B < 1 || H < 1 || T < 1) return -(int)cudaErrorInvalidValue;
   if (D == 64) return v5_cluster_size<64>(B, H, T);
   if (D == 32) return v5_cluster_size<32>(B, H, T);
   if (D == 128) return v5_cluster_size<128>(B, H, T);
-  if (wide_head_dim(D)) return 1;  // the wide route's v5: no cluster
+  if (wide_head_dim(D)) {
+    int sms = 0;
+    const cudaError_t err = device_sms(&sms);
+    return err == cudaSuccess ? wide_plan(B, H, T, D, 5, sms).cluster : -(int)err;
+  }
   return -(int)cudaErrorInvalidValue;
+}
+
+// The wide route's plan of attn_variant_forward(variant, ...) at (B, H, T,
+// KD) on the current device, as 20 ints (WidePlan's fields in order: sms,
+// slabs, groups, qstream, slots, out_smem, out grid x y z, chunk,
+// mean_smem, mean grid x y z, cluster, lanes, v5_smem, v5 grid x y z),
+// mirrored by ops/attention_variants.py::
+// wide_variant_plan. Returns a cudaError_t.
+int attn_wide_plan(int B, int H, int T, int KD, int variant, int* out) {
+  if (B < 1 || H < 1 || T < 1 || !wide_head_dim(KD) || variant < 2 || variant > 6 ||
+      out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t err = device_sms(&sms);
+  if (err != cudaSuccess) return (int)err;
+  const WidePlan p = wide_plan(B, H, T, KD, variant, sms);
+  memcpy(out, &p, sizeof(p));
+  return 0;
 }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: mbarriers,
 // TMA tile and box loads from a 3-D tensor map, wgmma matrix descriptors and the
 // m64n128k16, m64n64k16 and m64n32k16 bf16 products with f32 accumulators (A in
-// registers or, at m64n32k16, in shared memory of either major), and a
-// 1024-byte aligner for the dynamic shared memory that holds the swizzled slots.
+// registers, or in shared memory: K-major at m64n128k16, of either major at
+// m64n32k16), and a 1024-byte aligner for the dynamic shared memory that holds
+// the swizzled slots.
 //
 // Tile convention: a (64 rows, 64) bf16 tile of a (planes, rows, 64) tensor
 // is 64 rows of 128 bytes, loaded by TMA under CU_TENSOR_MAP_SWIZZLE_128B
@@ -470,6 +471,19 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : HOPPER_D64_OUT(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(acc), "n"(TRANS_B));
+}
+
+// the same with A (64 x 16, K-major) from shared memory too: the wide
+// route of the variants multiplies a bf16 tile of e kept there by V's slab
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_D64
+      ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : HOPPER_D64_OUT(d)
+      : "l"(desc_a), "l"(desc_b), "r"(acc), "n"(TRANS_B));
 }
 
 #undef HOPPER_D64

@@ -41,9 +41,12 @@ mean to.
 The kernels have instances for head dims 32, 64 and 128
 (``VARIANT_HEAD_DIMS``), launches of the 32 and 128 instances counted
 under ``<kernel>_d32`` and ``<kernel>_d128``. Above 128 every variant
-runs on the wide route at 128 * ceil(d / 128) (``csrc/attention_variants.cu``:
-a warp-level tensor-core design whose shared memory does not grow with d,
-v5 still one launch), counted under ``<kernel>_dwide``. Any other d runs
+runs on the wide route at 128 * ceil(d / 128) (``csrc/attention_variants.cu``),
+counted under ``<kernel>_dwide``: TMA rings and wgmma, S computed once per
+key tile for every 128-column output slab a block holds (up to three), v5
+one launch on thread block clusters; ``wide_variant_plan`` mirrors the
+host's plan of its three kernels (``kernel_wide_plan`` reads the
+library's). Any other d runs
 on the smallest instance at least as wide, on q, k, v zero-padded on the
 head axis, with the scale of the true d (the JAX tool's kernels take any
 ``--dim``, also one not divisible by 8); v6's 8 ones columns then follow
@@ -62,7 +65,8 @@ from .attention import kernel_name, pad_head
 from .numerics import F32_MIN_NORMAL, bf16_steps
 
 __all__ = ["VARIANTS", "VARIANT_HEAD_DIMS", "variant_head_dim", "variant_kernel",
-           "variant_reference", "attention_variant", "variant_library", "clamp_case", "mean_limit"]
+           "variant_reference", "attention_variant", "variant_library", "clamp_case", "mean_limit",
+           "wide_variant_plan", "kernel_wide_plan", "WIDE_PLAN_KEYS", "SMEM_LIMIT"]
 
 _LOG2E = 1.4426950408889634
 _SOFTMAX_SHIFT = 20.0
@@ -164,13 +168,130 @@ def variant_library(defines=()):
                        + [ctypes.c_float, ctypes.c_void_p])
         lib.attn_v5_cluster.restype = ctypes.c_int
         lib.attn_v5_cluster.argtypes = [ctypes.c_int] * 4
+        lib.attn_wide_plan.restype = ctypes.c_int
+        lib.attn_wide_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     return lib
+
+
+# The wide route's design constants (csrc/attention_variants.cu), for the
+# plan's mirror. A slab is 64 rows of 128 bf16 columns.
+_SLAB = 64 * 128 * 2
+_TILE_BYTES = 64 * 64 * 2  # an e tile
+_ONES_BYTES = 1024  # v4's ones operand
+_COLS_BYTES = 64 * 16  # v6's column box
+_W_MAX_WARPGROUPS = 3  # out pass: consumer warpgroups (slabs) a block, at most
+_W_E_SLOTS = 2  # out pass: e tiles
+_W_MIN_SLOTS = 4  # out pass: fewer ring slots beside a resident Q: Q streams
+_W_MAX_SLOTS = 16
+_WM_ROWS = 2  # mean pass: query row tiles a block
+_WM_SLOTS = 2
+_WM_BLOCKS_PER_SM = 2
+_WM_MAX_CHUNK = 16  # mean pass: key tiles a block, at most
+_W5_SLOTS = 2  # v5's sweep 2: ring entries a lane
+_W5_MAX_CLUSTER = 4  # v5: blocks a cluster, at most
+W_PRODUCER = 32  # the producer warp of every wide kernel
+SMEM_LIMIT = 232448  # shared memory a block may use
+_W_ALIGN = 1024
+_W_TAIL = _W_MAX_WARPGROUPS * 64 * 4 + 512  # row sums, barriers
+WIDE_PLAN_KEYS = ("sms", "slabs", "groups", "qstream", "slots", "out_smem", "out_x", "out_y",
+                  "out_z", "chunk", "mean_smem", "mean_x", "mean_y", "mean_z", "cluster", "lanes",
+                  "v5_smem", "v5_x", "v5_y", "v5_z")
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _mean_chunk(ntiles: int, row_blocks: int, slots: int, max_chunk: int) -> int:
+    """Key tiles per mean-pass block (the source's ``mean_chunk``): the
+    fewest waves of ``slots`` resident blocks times a block's cost (its
+    chunk plus half a tile for its query tiles); ties to the shorter."""
+    best, best_cost = 1, -1
+    for c in range(1, min(ntiles, max_chunk) + 1):
+        cost = _ceil(row_blocks * _ceil(ntiles, c), slots) * (2 * c + 1)
+        if best_cost < 0 or cost < best_cost:
+            best, best_cost = c, cost
+    return best
+
+
+def _wide_shape(ns: int, number: int) -> dict:
+    """The out pass's block at ``ns`` slabs for variant ``number`` (the
+    source's ``wide_shape``): slabs (= consumer warpgroups; three and the
+    producer warp leave 128 registers a thread, four 96, where the products
+    serialize) in ``ceil(ns / 3)`` groups, whether Q streams through the
+    ring (where a resident Q leaves fewer than four slots), ring slots, and
+    shared memory."""
+    slabs = _ceil(ns, _ceil(ns, _W_MAX_WARPGROUPS))
+    slot = _SLAB + (_COLS_BYTES if number == 6 else 0)
+    for qstream in (0, 1):
+        fixed = ((0 if qstream else ns * _SLAB) + _W_E_SLOTS * _TILE_BYTES
+                 + (_ONES_BYTES if number == 4 else 0))
+        room = int((SMEM_LIMIT - _W_ALIGN - _W_TAIL - fixed) / slot)  # toward zero, as C divides
+        slots = min(room, _W_MAX_SLOTS)
+        region = fixed + slots * slot
+        if slots >= _W_MIN_SLOTS:
+            break
+    return dict(slabs=slabs, groups=_ceil(ns, slabs), qstream=qstream, slots=slots, region=region,
+                smem=_W_ALIGN + region + _W_TAIL)
+
+
+def wide_variant_plan(b: int, h: int, t: int, kd: int, variant, sms: int) -> dict:
+    """The host's plan of the wide route (``wide_plan`` in
+    ``csrc/attention_variants.cu``) at (B, H, T, KD) for ``variant`` (a
+    name of ``VARIANTS`` or its number) on ``sms`` SMs, in
+    ``WIDE_PLAN_KEYS``:
+
+    - out pass (v2, v3, v4, v6): ``slabs`` consumer
+      warpgroups and a producer warp a block, grid (``out_x`` query tiles of
+      64 rows, ``out_y`` = ``groups`` slab groups, ``out_z`` = B H planes); S
+      is computed once per key tile and group; ``slots`` 16 KB ring slots
+      (v6: 17 KB), ``qstream`` 1 where Q streams through them, ``out_smem``
+      bytes;
+    - mean pass: two warpgroups (128 query rows) and a producer warp a
+      block, two blocks per SM, grid (``mean_x`` chunks of ``chunk`` key
+      tiles, ``mean_y`` row pairs, ``mean_z`` = B), two ring entries,
+      ``mean_smem``;
+    - v5: clusters of ``cluster`` blocks, grid (``v5_x`` = cluster,
+      ``v5_y`` query tiles, ``v5_z`` = B), the out pass's block for sweep
+      1, ``lanes`` warpgroups with two ring entries each for sweep 2,
+      ``v5_smem``."""
+    number = VARIANTS[variant][1] if isinstance(variant, str) else int(variant)
+    ns, nk = kd // 128, _ceil(t, 64)
+    s = _wide_shape(ns, number)
+    pairs = _ceil(t, _WM_ROWS * 64)
+    chunk = _mean_chunk(nk, b * pairs, sms * _WM_BLOCKS_PER_SM, _WM_MAX_CHUNK)
+    f = _wide_shape(ns, 2)  # v5's sweep 1 has v2's arithmetic
+    lanes = min(f["slabs"], f["region"] // (_W5_SLOTS * 2 * _SLAB))
+    best, cluster = -1, 1
+    for c in range(1, min(_W5_MAX_CLUSTER, nk) + 1):
+        waves = _ceil(b * nk, max(sms // c, 1))
+        s1 = _ceil(h, c) * f["groups"] * nk * (ns + f["slabs"])
+        s2 = h * _ceil(_ceil(nk, c), lanes) * ns * f["slabs"]
+        if best < 0 or waves * (s1 + s2) < best:
+            best, cluster = waves * (s1 + s2), c
+    plan = dict(sms=sms, slabs=s["slabs"], groups=s["groups"], qstream=s["qstream"],
+                slots=s["slots"], out_smem=s["smem"], out_x=nk, out_y=s["groups"], out_z=b * h,
+                chunk=chunk, mean_smem=_W_ALIGN + _WM_SLOTS * (1 + _WM_ROWS) * _SLAB + _W_TAIL,
+                mean_x=_ceil(nk, chunk), mean_y=pairs, mean_z=b, cluster=cluster, lanes=lanes,
+                v5_smem=f["smem"], v5_x=cluster, v5_y=nk, v5_z=b)
+    return {k: plan[k] for k in WIDE_PLAN_KEYS}
+
+
+def kernel_wide_plan(b: int, h: int, t: int, kd: int, variant, lib=None) -> dict:
+    """The library's own plan (``attn_wide_plan``, on the current device)
+    in ``wide_variant_plan``'s keys."""
+    number = VARIANTS[variant][1] if isinstance(variant, str) else int(variant)
+    lib = variant_library() if lib is None else lib
+    out = (ctypes.c_int * len(WIDE_PLAN_KEYS))()
+    check(lib.attn_wide_plan(b, h, t, kd, number, out), "attn_wide_plan")
+    return dict(zip(WIDE_PLAN_KEYS, out))
 
 
 def _workspace(q):
     """The (B, H, T) f32 workspace of each row's reciprocal row sum: from
-    the out pass to the mean pass (v2, v3, v4, v6); v5 writes it only above
-    24 heads, where its recips leave shared memory."""
+    the out pass to the mean pass (v2, v3, v4, v6); v5 writes it at d <= 128
+    only above 24 heads, where its recips leave shared memory, and on the
+    wide route always (its ranks pass their recips through it)."""
     b, h, t, _ = q.shape
     return torch.empty((b, h, t), device=q.device, dtype=torch.float32)
 

@@ -262,8 +262,11 @@ also from a tree before the d = 32 backward's redesign (copy this script
 into it: the pair alone, without the plan checks); ``--only
 meanshift_routes`` builds ``csrc/meanshift.cu`` alone and runs
 ``phase_meanshift_routes`` (in a tree before the bf16 second route's
-redesign, its readings alone). Every phase of a full run prints a
-``[phase] <name>: <s> s`` line.
+redesign, its readings alone); ``--only variant_dims`` builds
+``csrc/attention_variants.cu`` alone and runs ``phase_variant_dims`` (in a
+tree before the variants' wide route was redesigned on TMA and wgmma,
+only its readings, ``variant_wide_readings``). Every phase of a full run
+prints a ``[phase] <name>: <s> s`` line.
 
     python3 chip_smoke.py --ablate [SOURCE ...]
 
@@ -5672,6 +5675,16 @@ VD_TIMED = (32, 128, 256, 384)  # the kernel table's shapes: d = 32, 128, the wi
 # (its records' entries) and at 384 (under ``at_d384``)
 VD_TOOL = (32, 128, 256)  # the tool's --dim runs
 VD_PAD_CONTROL = (136, 520)  # widths padded on the wide route: the padded width's scale must fail
+# the wide route's readings: device ms in turns at the tool's shape (also in
+# a tree from before its TMA + wgmma redesign, to read the parent beside it),
+# and the aims (device ms) of that redesign
+VD_READ = (256, 384)
+VD_AIMS = {(256, "v5-batched"): 0.75, (384, "v5-batched"): 1.15,
+           **{(256, n): 0.60 for n in ("v2-bf16e", "v3-nomin", "v4-mxsum", "v6-fusedsum")},
+           **{(384, n): 0.90 for n in ("v2-bf16e", "v3-nomin", "v4-mxsum", "v6-fusedsum")}}
+# the wide route's plan against the library's at these (B, H, T, KD), every variant
+VD_PLAN_CASES = tuple((b, h, t, kd) for kd in (256, 384, 512, 640, 1024, 1280)
+                      for h in (1, 6, 25) for t in (1, 63, 301, 4301) for b in (1, 2))
 
 
 def phase_variant_dims(results: dict, dev, smi: str) -> dict:
@@ -5690,12 +5703,38 @@ def phase_variant_dims(results: dict, dev, smi: str) -> dict:
     heads): one line per variant, its instance's launches. Times at each d
     of ``VD_TIMED`` (CUDA events, the five variants and SDPA's forward in
     turns, medians of 6) with their bounds, plain versions and registers
-    for the kernel table. Returns the path's launches."""
+    for the kernel table. The wide route (above 128): its plan against
+    the library's at ``VD_PLAN_CASES``, v5's cluster size at the tool's
+    shape above 1, two calls bitwise equal at ``VD_READ``, and its readings
+    (``variant_wide_readings``). In a tree from before the wide route's
+    TMA + wgmma redesign (no ``wide_variant_plan``) only the readings run.
+    Returns the path's launches."""
+    import torch
     import torch.nn.functional as F
 
     from attentionshift_torch.ops import attention_variants as av
     from attentionshift_torch.ops._build import KERNELS, reset_launches
     from attentionshift_torch.tools.analysis import microbench_attention as tool
+
+    if not hasattr(av, "wide_variant_plan"):
+        variant_wide_readings(results, dev, smi)
+        return expected_launches()
+    lib = av.variant_library()
+    for b, h, t, kd in VD_PLAN_CASES:
+        for name in av.VARIANTS:
+            got = av.kernel_wide_plan(b, h, t, kd, name, lib)
+            want = av.wide_variant_plan(b, h, t, kd, name, got["sms"])
+            if got != want:
+                raise AssertionError(f"wide plan of {name} at (B, H, T, KD) = {(b, h, t, kd)}: "
+                                     f"library {got} != mirror {want}")
+    for kd in VD_READ:
+        c = lib.attn_v5_cluster(1, HEADS, T_TOK, kd)
+        if c <= 1:
+            raise AssertionError(f"attn_v5_wide at {(1, HEADS, T_TOK, kd)}: clusters of {c}")
+        log(f"[variant-dims] wide plan at (1, {HEADS}, {T_TOK}, {kd}), v2: "
+            f"{av.kernel_wide_plan(1, HEADS, T_TOK, kd, 'v2-bf16e', lib)}; v5 on clusters of {c}")
+    log(f"[variant-dims] the wide route's plan (library = ops/attention_variants.py::"
+        f"wide_variant_plan) at {len(VD_PLAN_CASES)} (B, H, T, KD) x {len(av.VARIANTS)} variants: ok")
 
     cases = {d: tool.make_inputs(t=T_TOK, heads=HEADS, dim=d, device=dev) for d in VD_DIMS}
     want = expected_launches()
@@ -5753,6 +5792,16 @@ def phase_variant_dims(results: dict, dev, smi: str) -> dict:
             del out, mean
             r = results.setdefault(record, dict(max_abs_err=0.0))
             r["max_abs_err"] = max(r["max_abs_err"], errs[0])
+    for d in VD_READ:
+        q, k, v = cases[d]
+        for name in av.VARIANTS:
+            first = av.attention_variant(q, k, v, name)
+            second = av.attention_variant(q, k, v, name)
+            sync()
+            if not (torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])):
+                raise AssertionError(f"{av.variant_kernel(name, d)} at d = {d}: two calls differ")
+            del first, second
+    log(f"[variant-dims] two calls bitwise equal, every variant at d = {VD_READ}: ok")
     for d in VD_TOOL:
         kd = av.variant_head_dim(d)
         reset_launches()
@@ -5792,6 +5841,8 @@ def phase_variant_dims(results: dict, dev, smi: str) -> dict:
                 f"{r['plain_ms']:.4f} ms, SDPA forward {r['library_ms']:.4f} ms ({backend}), bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}) (medians of 6 in turns)")
     reset_launches()
+    variant_wide_readings(results, dev, smi, cases)
+    reset_launches()
     for kern in ("attn_v2_bf16e", "attn_v3_nomin", "attn_v4_mxsum", "attn_v6_fusedsum",
                  "attn_var_mean", "attn_var_mean_nomin", "attn_v5_batched", "attn_v2_wide",
                  "attn_v3_wide", "attn_v4_wide", "attn_v6_wide", "attn_var_mean_wide",
@@ -5801,6 +5852,60 @@ def phase_variant_dims(results: dict, dev, smi: str) -> dict:
     log(f"[check] attn_v5_batched at {(b, h, t)}, d = 128: clusters of "
         f"{av.variant_library().attn_v5_cluster(b, h, t, 128)} blocks (attn_v5_cluster)")
     return launches
+
+
+def variant_wide_readings(results: dict, dev, smi: str, cases=None) -> dict:
+    """The wide route at the tool's shape (1, 6, 4301, d), d in ``VD_READ``:
+    the five variants and SDPA's forward, device ms per call read in turns
+    (``device_in_turns``: 6 readings each, a reading counts where the
+    profiler saw every launch), each variant's device ms by kernel
+    (``device_split``: the out pass and the mean pass; v6 also the copy
+    that appends its ones), the bound (the kernel table's formula) and the
+    aims of ``VD_AIMS``, judged only on readings taken in full. Runs in a
+    tree from before the wide route's redesign too. ``cases``: the inputs
+    by d (made here where missing). Returns the readings by (d, variant),
+    and puts them under ``wide_readings`` of each variant's record."""
+    import torch.nn.functional as F
+
+    from attentionshift_torch.ops import attention_variants as av
+    from attentionshift_torch.tools.analysis import microbench_attention as tool
+
+    out = {}
+    for d in VD_READ:
+        q, k, v = (cases or {}).get(d) or tool.make_inputs(t=T_TOK, heads=HEADS, dim=d, device=dev)
+        b, h, t, _ = q.shape
+        fns = {n: (lambda n=n: av.attention_variant(q, k, v, n)) for n in av.VARIANTS}
+        fns["SDPA forward"] = lambda: F.scaled_dot_product_attention(q, k, v)
+        meds, reads, pats = device_in_turns(*fns.values())
+        for (name, fn), med, got, pat in zip(fns.items(), meds, reads, pats):
+            row = dict(device_ms=med, device_reads=got, device_full=pat is not None,
+                       split=device_split(fn, pat) if pat else None)
+            if name in av.VARIANTS:
+                pv_cols = d + 8 if name == "v6-fusedsum" else d
+                t_bytes = ((3 * d + pv_cols) * q.numel() // d * 2 + b * t * t * 2) / PEAK_BYTES * 1e3
+                t_ops = 2.0 * b * h * t * t * (d + pv_cols) / PEAK_BF16 * 1e3
+                row.update(bound_ms=max(t_bytes, t_ops),
+                           bound_by="bytes" if t_bytes >= t_ops else "operations")
+            out[(d, name)] = row
+        sdpa = out[(d, "SDPA forward")]["device_ms"]
+        for name in av.VARIANTS:
+            row = out[(d, name)]
+            aim = VD_AIMS.get((d, name))
+            verdict = ("" if aim is None else
+                       f"; aim {aim:.2f} ms: {'met' if row['device_ms'] <= aim else 'missed'}"
+                       if row["device_full"] else "; aim not judged: the profiler missed launches")
+            split = ("not read: the profiler missed launches" if row["split"] is None else
+                     {n: round(x, 4) for n, x in sorted(row["split"].items(), key=lambda x: -x[1])})
+            record = av.variant_kernel(name, av.variant_head_dim(d))
+            log(f"[variant-wide] {smi}: {record} at {tuple(q.shape)}: device {row['device_ms']:.4f} "
+                f"ms ({'6 in turns' if row['device_full'] else 'CUDA graph, 6 in turns'}: "
+                f"{[round(x, 4) for x in row['device_reads']]}), SDPA forward {sdpa:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                f"{row['device_ms'] / row['bound_ms']:.1f}x{verdict}; per kernel {split}")
+            results.setdefault(record, dict(max_abs_err=0.0)).setdefault("wide_readings", {})[
+                f"d{d}"] = {key: row[key] for key in ("device_ms", "device_full", "split",
+                                                      "bound_ms")}
+    return out
 
 
 # phase_meanshift_routes: the mean-shift kernel at every K and D the Pallas
@@ -5887,7 +5992,6 @@ def meanshift_route_readings(results: dict, dev, smi: str) -> dict:
     for key, row in out.items():
         aim = MS_ROUTE_AIMS.get(key, 2 * cluster["device_ms"] if key == (33, 384, "bf16") else None)
         judged = row["device_full"] and (key != (33, 384, "bf16") or cluster["device_full"])
-        row["aim_ms"] = aim if judged else None
         verdict = "" if aim is None else (
             f"; aim {aim:.4f} ms: {'met' if row['device_ms'] <= aim else 'missed'}" if judged else
             "; aim not judged: the profiler missed launches")
@@ -6032,7 +6136,7 @@ def phase_meanshift_routes(results: dict, dev, smi: str) -> dict:
     reads = meanshift_route_readings(results, dev, smi)
     reset_launches()
     keep = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "device_ms", "device_full",
-            "aim_ms", "split")
+            "split")
     row = {key: reads[(64, 384, "bf16")][key] for key in keep}
     for tag, key in (("at_k256", (256, 384, "bf16")), ("at_k33", (33, 384, "bf16")),
                      ("at_k64_d768", (64, 768, "bf16")), ("at_k64_f32", (64, 384, "f32")),
@@ -6737,7 +6841,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     phase_build({"d32_forward": [("attention", ())],
                  "d32_backward": [("attention_bwd", ())],
-                 "meanshift_routes": [("meanshift", ())]}.get(args.only))
+                 "meanshift_routes": [("meanshift", ())],
+                 "variant_dims": [("attention_variants", ())]}.get(args.only))
     if args.only is not None:
         only = {"diagnosis": lambda: phase_diagnosis({n: {"max_abs_err": 0.0} for n in KERNELS}, smi),
                 "head_dims": lambda: phase_head_dims({}, dev, smi),
@@ -6859,9 +6964,9 @@ def main(argv=None) -> int:
                                                      "mean_pass_ms_12_heads_resident",
                                                      "kernel_ms", "library_backend", "at_d384",
                                                      "at_k256", "at_k33", "at_k64_d768",
-                                                     "device_ms", "device_ms_k32", "aim_ms",
+                                                     "device_ms", "device_ms_k32",
                                                      "split", "max_abs_err_d200_bf16",
-                                                     "d32_readings")
+                                                     "d32_readings", "wide_readings")
                              if key in r}))
     log(smi)
     log(json.dumps({"kernels": table}))

@@ -1052,15 +1052,79 @@ def test_variant_head_dims_run_their_instance(cuda, variant, d, kd):
 @pytest.mark.parametrize("variant", HOPPER_VARIANTS)
 def test_wide_variants_repeat_bitwise(cuda, variant):
     """The wide route writes every element once, in a fixed order (no
-    atomics, no split sums): two calls at (1, 3, 301, 384) give bitwise
-    equal ``out`` and ``mean``."""
+    atomics, no split sums): two calls at (1, 3, 301, 384) and at two
+    images, (2, 3, 301, 384), give bitwise equal ``out`` and ``mean``."""
     gen = torch.Generator(device=cuda).manual_seed(384)
-    q, k, v = (torch.randn((1, 3, 301, 384), generator=gen, device=cuda).bfloat16()
-               for _ in range(3))
-    first = attention_variants.attention_variant(q, k, v, variant)
-    second = attention_variants.attention_variant(q, k, v, variant)
-    torch.cuda.synchronize()
-    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    for b in (1, 2):
+        q, k, v = (torch.randn((b, 3, 301, 384), generator=gen, device=cuda).bfloat16()
+                   for _ in range(3))
+        first = attention_variants.attention_variant(q, k, v, variant)
+        second = attention_variants.attention_variant(q, k, v, variant)
+        torch.cuda.synchronize()
+        assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1]), b
+
+
+# (B, T, H) of the wide route's card cases: one query row, one ragged key
+# tile, one full tile and a row past it, an odd T of five tiles; one head,
+# seven (v5: ranks with unequal head counts), 25; and two images (the
+# planes, the mean pass's and v5's image index, the workspace's offsets)
+WIDE_CASES = [(1, t, h) for t in (1, 63, 65, 301) for h in (1, 7, 25)] + [(2, 65, 7),
+                                                                         (2, 301, 25)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [136, 384, 520, 1280])
+@pytest.mark.parametrize("variant", HOPPER_VARIANTS)
+def test_wide_variant_kernels_on_card(cuda, variant, d):
+    """Each variant on the wide route (TMA rings and wgmma) at head dim d
+    (136 zero-padded onto 256: two slabs a block; 384: three slabs; 520
+    onto 640: a group of three slabs and one of two, S computed once per
+    group; 1280: Q streamed through the ring beside K, S one chain a slab),
+    at every (B, T, H) of ``WIDE_CASES``: out within 4 bf16 ulps and
+    each mean entry within ``mean_limit`` of the plain version, on random
+    inputs and (T above the clamp input's key 9) on the clamp input, where
+    the plain version of the other clamp behaviour fails both limits; one
+    launch of the route's record per call."""
+    from attentionshift_torch.ops._build import KERNELS, reset_launches
+
+    record = attention_variants.variant_kernel(variant, attention_variants.variant_head_dim(d))
+    other = "v2-bf16e" if variant == "v3-nomin" else "v3-nomin"
+    for b, t, h in WIDE_CASES:
+        gen = torch.Generator(device=cuda).manual_seed(d + t + h + 1000 * (b - 1))
+        q, k, v = (torch.randn((b, h, t, d), generator=gen, device=cuda).bfloat16()
+                   for _ in range(3))
+        inputs = [(q, k, v)] + ([attention_variants.clamp_case(q, k, v)] if t > 9 else [])
+        reset_launches()
+        for case in inputs:
+            out, mean = attention_variants.attention_variant(*case, variant)
+            torch.cuda.synchronize()
+            assert out.shape == q.shape
+            out_tol = _check_variant(*case, variant, out, mean)
+        assert {n: r.launches for n, r in KERNELS.items() if r.launches} == {record: len(inputs)}
+        if t > 9:
+            ctl_out, ctl_mean = attention_variants.variant_reference(*case, other)
+            assert float((out.float() - ctl_out.float()).abs().max()) > out_tol, (b, t, h)
+            assert _mean_over(mean, ctl_mean, attention_variants.mean_limit(
+                case[0], case[1], other, ctl_mean)) > 1.0, (b, t, h)
+
+
+@pytest.mark.gpu
+def test_wide_variant_plan_on_card(cuda):
+    """The wide route's plan as the library makes it (``attn_wide_plan``)
+    is ``attention_variants.wide_variant_plan``'s for the card's SM count,
+    every variant at KD in {256, 384, 512, 640, 1024}, B in {1, 2}, H in
+    {1, 6, 25} and T in {1, 63, 301, 4301}; and v5 runs on clusters of
+    more than one block at the microbenchmark's shape (1, 6, 4301) at KD =
+    256 and 384."""
+    lib = attention_variants.variant_library()
+    for kd in (256, 384, 512, 640, 1024):
+        for b, h, t in ((b, h, t) for b in (1, 2) for h in (1, 6, 25) for t in (1, 63, 301, 4301)):
+            for name in attention_variants.VARIANTS:
+                got = attention_variants.kernel_wide_plan(b, h, t, kd, name, lib)
+                assert got == attention_variants.wide_variant_plan(
+                    b, h, t, kd, name, got["sms"]), (b, kd, h, t, name)
+    for kd in (256, 384):
+        assert lib.attn_v5_cluster(1, 6, 4301, kd) > 1
 
 
 @pytest.mark.gpu

@@ -303,12 +303,14 @@ def test_variant_library_sets_the_c_signature():
     """``variant_library`` (library mocked: no nvcc here) gives the entry
     point the argtypes of the C source's ``attn_variant_forward``: the
     variant, five tensors, the workspace, B, H, T, the instance's head dim,
-    the scale, the stream; and ``attn_v5_cluster`` its (B, H, T, D); the
-    ``-D`` overrides reach the build."""
+    the scale, the stream; ``attn_v5_cluster`` its (B, H, T, D); and
+    ``attn_wide_plan`` its (B, H, T, KD, variant, out); the ``-D``
+    overrides reach the build."""
     built = []
     fake = types.SimpleNamespace(
         attn_variant_forward=types.SimpleNamespace(argtypes=None, restype=None),
-        attn_v5_cluster=types.SimpleNamespace(argtypes=None, restype=None))
+        attn_v5_cluster=types.SimpleNamespace(argtypes=None, restype=None),
+        attn_wide_plan=types.SimpleNamespace(argtypes=None, restype=None))
 
     def library(source, defines=()):
         built.append((source, defines))
@@ -324,6 +326,9 @@ def test_variant_library_sets_the_c_signature():
     assert fake.attn_variant_forward.restype is ctypes.c_int
     assert fake.attn_v5_cluster.argtypes == _c_signature("attn_v5_cluster") == [ctypes.c_int] * 4
     assert fake.attn_v5_cluster.restype is ctypes.c_int
+    assert fake.attn_wide_plan.argtypes == _c_signature("attn_wide_plan") == (
+        [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    assert fake.attn_wide_plan.restype is ctypes.c_int
 
 
 @pytest.mark.parametrize("name", NAMES)
